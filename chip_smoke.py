@@ -1,0 +1,833 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (dynamo_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases; any failure exits non-zero before the result line:
+
+1. build the CUDA kernels from dynamo_tpu_torch/ops/csrc (one nvcc per
+   source, in parallel);
+2. hold the decode kernel against its plain PyTorch version on the card:
+   with and without stats, rows of length 0, softcap and a lower bound,
+   float32 (atol 1e-5) and bfloat16 (atol 2e-2 + rtol 1e-2);
+3. the same for the prefill kernel: padding queries, a sliding window, a
+   second chunk that skips pages;
+4. serve Llama-3-8B-shaped requests (32 layers at full width, random
+   weights from a seed, byte tokenizer) over the OpenAI HTTP front end on
+   a local port: concurrent streaming and unary requests, then a repeated
+   greedy request that must give identical tokens; the launch counts of
+   both kernels, reset just before and read just after, must be above 0;
+   then prefill and one teacher-forced decode window on the kernel path
+   against the plain path (logits of every step, K/V of every window
+   position), with two injected faults as controls that must fail it;
+5. time each kernel at the serving shapes beside its bound, its plain
+   version and scaled_dot_product_attention on the same dense work, and
+   hold it against its plain version there (bf16 tolerance).
+
+Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
+without the rest of the repository beside it, it fails and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ------------------------------------------------------------------ timing
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph,
+    the graph replayed between two CUDA events. The host's per-call
+    launch overhead is out of the measurement (see :func:`eager_ms`)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    reps = 5
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (iters * reps)
+
+
+def eager_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Wall time per call when called back to back from Python: the larger
+    of the device time and the host's launch overhead."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max().item()) if a.numel() else 0.0
+
+
+def excess(got, want, atol: float, rtol: float) -> float:
+    """Largest amount by which |got - want| passes atol + rtol * |want|
+    (<= 0 when every element is within tolerance)."""
+    if not got.numel():
+        return 0.0
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() - atol - rtol * w.abs()).max().item())
+
+
+# --------------------------------------------------------- kernel checks
+
+
+def check_decode(dev) -> dict:
+    import torch
+
+    from dynamo_tpu_torch.ops.paged_attention import (
+        decode_reference, paged_attention_decode_layered)
+
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+    cases = [
+        # (name, L, N, KV, G, ps, hd, P, lengths, lower, softcap)
+        ("8b", 2, 64, 8, 4, 64, 128, 8,
+         [0, 1, 64, 65, 300, 512, 7], [0, 0, 0, 10, 200, 500, 7], None),
+        ("8b-softcap", 2, 64, 8, 4, 64, 128, 8,
+         [33, 0, 511, 128], [0, 0, 0, 100], 30.0),
+        ("small", 3, 32, 2, 1, 16, 32, 4, [1, 0, 16, 64], [0, 0, 3, 60],
+         15.0),
+        ("mha-64", 1, 16, 4, 2, 8, 64, 5, [5, 40, 17], [0, 30, 17], None),
+        # enough rows x kv heads to fill the card: no page split
+        ("8b-b40", 1, 64, 8, 4, 64, 128, 4, [(7 * i) % 257 for i in range(40)],
+         [max(0, (7 * i) % 257 - 100) for i in range(40)], None),
+    ]
+    # float32: atol 1e-5 (same math, another summation order); bfloat16:
+    # atol 2e-2 + rtol 1e-2, i.e. one or two bf16 roundings of the output
+    # at any magnitude
+    for dtype, tol, rtol in ((torch.float32, 1e-5, 0.0),
+                             (torch.bfloat16, 2e-2, 1e-2)):
+        for name, L, N, KV, G, ps, hd, P, lengths, lower, softcap in cases:
+            B, H = len(lengths), KV * G
+            kp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
+            vp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
+            q = torch.randn(B, H, hd, generator=g, device=dev).to(dtype)
+            table = torch.randint(1, N, (B, P), generator=g, device=dev,
+                                  dtype=torch.int32)
+            ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            lo = torch.tensor(lower, dtype=torch.int32, device=dev)
+            for layer in range(L):
+                for stats in (True, False):
+                    got = paged_attention_decode_layered(
+                        q, kp, vp, layer, table, ln, return_stats=stats,
+                        softcap=softcap, lower=lo)
+                    torch.cuda.synchronize()
+                    want = decode_reference(q, kp, vp, layer, table, ln, lo,
+                                            hd ** -0.5, softcap)
+                    got = got if stats else (got,)
+                    e = max_err(got[0], want[0])
+                    if stats:
+                        # stats are float32 on both sides; l grows with the
+                        # number of keys, so hold it relatively
+                        rel = ((got[2] - want[2]).abs()
+                               / want[2].abs().clamp(min=1.0)).max().item()
+                        e_m = max_err(got[1], want[1])
+                        if rel > 1e-4 or e_m > 1e-4:
+                            fail(f"decode stats {name} {dtype}: l rel "
+                                 f"{rel:.3g} m {e_m:.3g}")
+                    if excess(got[0], want[0], tol, rtol) > 0:
+                        fail(f"decode {name} {dtype} layer {layer} stats="
+                             f"{stats}: max abs err {e:.3g} > {tol} + "
+                             f"{rtol}|x|")
+                    zero = [i for i, n in enumerate(lengths) if n == 0]
+                    if zero and got[0][zero].abs().max().item() != 0.0:
+                        fail(f"decode {name}: length-0 rows not zero")
+                    key = (name, str(dtype).split(".")[-1])
+                    errs[key] = max(errs.get(key, 0.0), e)
+    for (name, dt), e in sorted(errs.items()):
+        log(f"  decode {name:10s} {dt:8s} max_abs_err {e:.3g}")
+    return errs
+
+
+def check_window(dev) -> dict:
+    """The fused-window form of the decode kernel (pool + in-flight buffer
+    folded by the combine step) against its plain version."""
+    import torch
+
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_attention_decode_window, window_reference)
+
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(2)
+    L, N, KV, G, ps, hd, Kw = 2, 700, 8, 4, 64, 128, 4
+    H = KV * G
+    layouts = (
+        # rows of 0 to 12 pages, a padding row
+        ("mixed", 12, [-1, 0, 64, 300, 511, 700]),
+        # the served decode shapes: the batch bucket of 4 rows, the page
+        # bucket of 64 (so most of the flash-decoding splits are empty),
+        # the served contexts of 40 to 656 positions
+        ("served", 64, [40, 64, 86, 656]),
+    )
+    for dtype, tol, rtol in ((torch.float32, 1e-5, 0.0),
+                             (torch.bfloat16, 2e-2, 1e-2)):
+        kp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
+        vp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
+        for lay, P, starts in layouts:
+            start = torch.tensor(starts, dtype=torch.int32, device=dev)
+            B = start.numel()
+            table = torch.stack([torch.randperm(N - 1, generator=g,
+                                                device=dev)[:P] + 1
+                                 for _ in range(B)]).to(torch.int32)
+            q = torch.randn(B, H, hd, generator=g, device=dev).to(dtype)
+            wk = torch.randn(B, Kw, KV, hd, generator=g, device=dev).to(dtype)
+            wv = torch.randn(B, Kw, KV, hd, generator=g, device=dev).to(dtype)
+            for name, win, softcap in (("global", None, None),
+                                       ("sliding", 100, 30.0),
+                                       ("narrow", 2, None)):
+                for n_win in range(1, Kw + 1):
+                    qp = (start.clamp(min=0) + n_win - 1).to(torch.int32)
+                    eff = (None if win is None else
+                           torch.full((B,), win, dtype=torch.int32,
+                                      device=dev))
+                    for layer in range(L):
+                        got = paged_attention_decode_window(
+                            q, kp, vp, layer, table, start, qp, wk, wv,
+                            n_win, softcap=softcap, eff_win=eff)
+                        torch.cuda.synchronize()
+                        want = window_reference(q, kp, vp, layer, table,
+                                                start, qp, wk, wv, n_win,
+                                                hd ** -0.5, softcap, eff)
+                        e = max_err(got, want)
+                        if excess(got, want, tol, rtol) > 0:
+                            fail(f"decode window {lay} {name} {dtype} "
+                                 f"n_win={n_win}: max abs err {e:.3g}")
+                        pad = start < 0
+                        if pad.any() and got[pad].abs().max().item() != 0.0:
+                            fail("decode window: padding row not zero")
+                        key = (f"{lay}-{name}", str(dtype).split(".")[-1])
+                        errs[key] = max(errs.get(key, 0.0), e)
+    for (name, dt), e in sorted(errs.items()):
+        log(f"  window {name:15s} {dt:8s} max_abs_err {e:.3g}")
+    return errs
+
+
+def check_prefill(dev) -> dict:
+    import torch
+
+    from dynamo_tpu_torch.ops.paged_attention import (NO_WINDOW,
+                                                      paged_attention_prefill,
+                                                      prefill_reference)
+
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(1)
+    # tolerances as in check_decode; the bf16 tensor-core form also rounds
+    # the probabilities to bf16 before P V, as the gather path does
+    for dtype, tol, rtol in ((torch.float32, 1e-5, 0.0),
+                             (torch.bfloat16, 2e-2, 1e-2)):
+        cases = []
+        # 8B: first chunk of 512 with a padding row and a short row
+        N, KV, G, ps, hd, P, T = 64, 8, 4, 64, 128, 16, 512
+        pos = torch.full((3, T), -1, dtype=torch.int32)
+        pos[0] = torch.arange(T)
+        pos[1, :200] = torch.arange(200)
+        cases.append(("8b-chunk1", N, KV, G, ps, hd, P, pos,
+                      [NO_WINDOW] * 3, None))
+        # 8B: a second chunk continuing at position 512
+        pos = (512 + torch.arange(256, dtype=torch.int32))[None]
+        cases.append(("8b-chunk2", N, KV, G, ps, hd, P, pos, [NO_WINDOW],
+                      None))
+        # sliding window + softcap, second chunk past the window: pages
+        # wholly below it are skipped
+        pos = (300 + torch.arange(64, dtype=torch.int32))[None].repeat(2, 1)
+        pos[1, 40:] = -1
+        cases.append(("window", N, KV, G, ps, hd, P, pos, [100, 37], 20.0))
+        # small shapes: group 2, head_dim 32, page 4 (the bf16 tensor-core
+        # kernel takes pages of multiples of 16)
+        pos = torch.stack([torch.arange(8, 24), torch.arange(16)]).to(torch.int32)
+        cases.append(("small", 32, 2, 2, 4 if dtype == torch.float32 else 16,
+                      32, 8, pos, [NO_WINDOW, 5], None))
+        for name, N, KV, G, ps, hd, P, pos, win, softcap in cases:
+            B, T = pos.shape
+            H = KV * G
+            kp = torch.randn(N, KV, ps, hd, generator=g, device=dev).to(dtype)
+            vp = torch.randn(N, KV, ps, hd, generator=g, device=dev).to(dtype)
+            q = torch.randn(B, T, H, hd, generator=g, device=dev).to(dtype)
+            table = torch.stack([torch.randperm(N - 1, generator=g,
+                                                device=dev)[:P] + 1
+                                 for _ in range(B)]).to(torch.int32)
+            qp = pos.to(dev)
+            w = torch.tensor(win, dtype=torch.int32, device=dev)
+            got = paged_attention_prefill(q, kp, vp, table, qp,
+                                          softcap=softcap, eff_win=w)
+            torch.cuda.synchronize()
+            want = prefill_reference(q, kp, vp, table, qp, hd ** -0.5,
+                                     softcap, w)
+            e = max_err(got, want)
+            if excess(got, want, tol, rtol) > 0:
+                fail(f"prefill {name} {dtype}: max abs err {e:.3g} > {tol} "
+                     f"+ {rtol}|x|")
+            if (qp < 0).any() and got[qp < 0].abs().max().item() != 0.0:
+                fail(f"prefill {name}: padding queries not zero")
+            errs[(name, str(dtype).split(".")[-1])] = e
+    for (name, dt), e in sorted(errs.items()):
+        log(f"  prefill {name:10s} {dt:8s} max_abs_err {e:.3g}")
+    return errs
+
+
+# ------------------------------------------------------------ serving
+
+
+class TapEngine:
+    """Wraps the engine for the smoke's own bookkeeping: records each
+    request's tokens and token arrival times, keyed by request id."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.tokens = {}
+        self.times = {}
+        self.prompt_len = {}
+
+    async def generate(self, request, context):
+        self.prompt_len[context.id] = len(request.token_ids)
+        toks = self.tokens.setdefault(context.id, [])
+        times = self.times.setdefault(context.id, [])
+        async for out in self.engine.generate(request, context):
+            if out.token_ids:
+                toks.extend(out.token_ids)
+                times.append((time.monotonic(), len(out.token_ids)))
+            yield out
+
+
+async def serve_and_check(engine, mdc):
+    import aiohttp
+
+    from dynamo_tpu_torch.ops import paged_attention as ops
+    from dynamo_tpu_torch.run import serve_http
+
+    tap = TapEngine(engine)
+    svc = await serve_http(tap, mdc, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{svc.port}"
+    sent = {}
+    results = {}
+
+    async def chat(s, rid, content, max_tokens, stream):
+        body = {"model": mdc.name, "stream": stream, "max_tokens": max_tokens,
+                "messages": [{"role": "user", "content": content}]}
+        sent[rid] = time.monotonic()
+        async with s.post(f"{base}/v1/chat/completions", json=body,
+                          headers={"X-Request-Id": rid}) as r:
+            if r.status != 200:
+                fail(f"{rid}: HTTP {r.status}: {await r.text()}")
+            if stream:
+                lines = [ln.decode().strip() async for ln in r.content]
+                data = [ln[6:] for ln in lines if ln.startswith("data: ")]
+                if data[-1] != "[DONE]":
+                    fail(f"{rid}: stream did not end with [DONE]")
+                fin = [c["finish_reason"] for d in data[:-1]
+                       for c in json.loads(d)["choices"] if c.get("finish_reason")]
+                results[rid] = fin[-1] if fin else None
+            else:
+                out = await r.json()
+                results[rid] = out["choices"][0]["finish_reason"]
+
+    async def completion(s, rid, prompt, max_tokens):
+        sent[rid] = time.monotonic()
+        async with s.post(f"{base}/v1/completions", json={
+                "model": mdc.name, "prompt": prompt,
+                "max_tokens": max_tokens},
+                headers={"X-Request-Id": rid}) as r:
+            if r.status != 200:
+                fail(f"{rid}: HTTP {r.status}: {await r.text()}")
+            results[rid] = (await r.json())["choices"][0]["finish_reason"]
+
+    long_prompt = ("The quick brown fox jumps over the lazy dog. " * 14)[:600]
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    async with aiohttp.ClientSession() as s:
+        async with s.get(f"{base}/health") as r:
+            if r.status != 200:
+                fail("health check failed")
+        await asyncio.gather(
+            chat(s, "r0-stream", "Tell me about paged attention.", 32, True),
+            chat(s, "r1-stream", long_prompt, 32, True),
+            chat(s, "r2-unary", "What is an H100?", 24, False),
+            completion(s, "r3-completion", "Once upon a time", 24))
+        wall = time.monotonic() - t0
+        # the same greedy request twice, alone: identical tokens
+        for rid in ("r4-repeat", "r5-repeat"):
+            await chat(s, rid, "Tell me about paged attention.", 32, False)
+    launches = dict(ops.LAUNCHES)
+    await svc.stop()
+    await engine.stop()
+
+    for rid, toks in tap.tokens.items():
+        if not toks:
+            fail(f"{rid}: no tokens")
+    for rid in sent:
+        if rid not in tap.tokens or not tap.tokens[rid]:
+            fail(f"{rid}: no tokens")
+        if results.get(rid) not in ("length", "stop"):
+            fail(f"{rid}: finish_reason {results.get(rid)!r}")
+    if tap.tokens["r4-repeat"] != tap.tokens["r5-repeat"]:
+        fail("repeated greedy request gave different tokens")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the served path")
+    concurrent = [r for r in sent if not r.endswith("-repeat")]
+    ttft = [tap.times[r][0][0] - sent[r] for r in concurrent]
+    itl = []
+    for r in concurrent:
+        ts = tap.times[r]
+        for (a, _), (b, n) in zip(ts, ts[1:]):
+            itl += [(b - a) / n] * n
+    n_tok = sum(len(tap.tokens[r]) for r in concurrent)
+    served = {
+        "requests": len(sent), "concurrent": len(concurrent),
+        # informational: the batch of 4 pads to other matmul shapes than a
+        # lone request, so bf16 rounding may differ between the two
+        "repeat_matches_batched": tap.tokens["r4-repeat"]
+        == tap.tokens["r0-stream"],
+        "tokens_concurrent": n_tok,
+        "tokens_total": sum(len(t) for t in tap.tokens.values()),
+        "prompt_tokens": {r: tap.prompt_len[r] for r in sent},
+        # context lengths of the concurrent rows at their last decode
+        # window: the shapes the decode kernel saw
+        "decode_lengths": [tap.prompt_len[r] + len(tap.tokens[r]) - 1
+                           for r in concurrent],
+        "ttft_ms": sorted(round(x * 1e3, 3) for x in ttft),
+        "itl_ms_mean": round(sum(itl) / len(itl) * 1e3, 3),
+        "itl_ms_max": round(max(itl) * 1e3, 3),
+        "output_tok_per_s": round(n_tok / wall, 3),
+        "wall_s": round(wall, 3), "launches": launches,
+    }
+    return served, tap
+
+
+# Limits of the served-model check (check_paths), set from readings on an
+# H100 (PERF.md, Findings): sound runs gave at most 0.094 (logits, |x| up
+# to 4.8) and 0.081 (K/V); the weakest control fault 0.73 (logits of
+# window steps 1-3) and 1.55 (K/V). 0.25 sits near 2.7x the one and
+# 2.9x below the other.
+PATH_LIMITS = {"prefill_logits": 0.25, "window_logits": 0.25,
+               "window_kv": 0.25}
+
+
+def check_paths(engine, cfg, dev) -> dict:
+    """Prefill and one fused decode window of the served 8B model, kernel
+    path against plain path: same weights, same inputs, fresh pools. The
+    window is teacher-forced (the same input token at every step on both
+    paths), so every step's logits and the K/V committed at all K window
+    positions in every layer are compared; steps 1.. are where the combine
+    kernel folds 2.. in-flight keys. Two controls, each a fault on the
+    kernel path, show the check can see one: prefill queries that miss
+    their own key, and a window step that folds one in-flight key too few.
+    Each control must land above its limit."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine import sampling
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.llama import (KVCacheSpec, init_kv_cache,
+                                               make_decode_window_fn,
+                                               make_step_fns)
+
+    ps, T, B, K = 64, 512, 3, 4
+    spec = KVCacheSpec(num_pages=64, page_size=ps)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    tokens = torch.randint(0, 256, (B, T), generator=g, dtype=torch.int32)
+    forced = torch.randint(0, 256, (B, K + 1), generator=g,
+                           dtype=torch.int32).to(dev)
+    # a full chunk, a padded row, and a short row: at 12 positions each
+    # in-flight key weighs enough that a fault in folding it shows above
+    # the bf16 noise of 32 layers (at 300+ positions it does not)
+    lens = [T, 300, 12]
+    positions = torch.full((B, T), -1, dtype=torch.int32)
+    table = torch.zeros((B, 16), dtype=torch.int32)
+    slots = torch.full((B, T), 1 << 30, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        positions[b, :n] = torch.arange(n)
+        table[b, :10] = torch.arange(1 + 10 * b, 11 + 10 * b)
+        p = torch.arange(n)
+        slots[b, :n] = table[b, p // ps] * ps + p % ps
+    last = torch.tensor([n - 1 for n in lens], dtype=torch.int32)
+
+    def run(use: bool):
+        kk, vv = init_kv_cache(cfg, spec, device=dev)
+        pre, _ = make_step_fns(cfg, use_kernels=use)
+        logits, kk, vv = pre(engine.params, tokens.to(dev),
+                             positions.to(dev), kk, vv, table.to(dev),
+                             slots.to(dev), last.to(dev))
+        step_logits = []
+
+        def forcing(lg, *args, **kwargs):
+            step_logits.append(lg.float().clone())
+            return forced[:, len(step_logits)]
+
+        real = sampling.sample_tokens
+        sampling.sample_tokens = forcing
+        try:
+            win = make_decode_window_fn(cfg, use_kernels=use)
+        finally:
+            sampling.sample_tokens = real
+        win(engine.params, forced[:, 0].contiguous(),
+            torch.tensor(lens, dtype=torch.int32, device=dev),
+            torch.zeros(B, dtype=torch.bool, device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.full((B,), 100, dtype=torch.int32, device=dev), kk, vv,
+            table.to(dev), np.zeros(B, np.float32), np.zeros(B, np.int32),
+            np.ones(B, np.float32), np.zeros(B, np.uint32),
+            torch.full((B, 1), -1, dtype=torch.int32, device=dev), k_steps=K)
+        torch.cuda.synchronize()
+        # K/V committed at the window's K positions, every layer
+        kv = torch.stack([
+            torch.stack([pool[:, table[b, (n + i) // ps].item(), :,
+                              (n + i) % ps]
+                         for pool in (kk, vv)])
+            for b, n in enumerate(lens) for i in range(K)])
+        return logits.float(), torch.stack(step_logits), kv
+
+    def errs(a, b):
+        return {"prefill_logits": max_err(a[0], b[0]),
+                "window_logits_by_step": [max_err(x, y)
+                                          for x, y in zip(a[1], b[1])],
+                "window_logits": max_err(a[1], b[1]),
+                "window_kv": max_err(a[2], b[2])}
+
+    kern, plain = run(True), run(False)
+    sound = errs(kern, plain)
+
+    # controls: the kernel path with one fault each, against the plain path
+    real_pf = llama.paged_attention_prefill
+    real_win = llama.paged_attention_decode_window
+
+    def pf_miss_own_key(q, kp, vp, table_, qpos, **kw):
+        shifted = torch.where(qpos >= 0, qpos - 1, qpos).to(torch.int32)
+        return real_pf(q, kp, vp, table_, shifted, **kw)
+
+    def win_one_key_short(q, kp, vp, layer, table_, start, qp, wk, wv,
+                          n_win, **kw):
+        return real_win(q, kp, vp, layer, table_, start, qp, wk, wv,
+                        max(1, n_win - 1), **kw)
+
+    def with_fault(name, fault):
+        real = getattr(llama, name)
+        setattr(llama, name, fault)
+        try:
+            return errs(run(True), plain)
+        finally:
+            setattr(llama, name, real)
+
+    control = {
+        "prefill_misses_own_key": with_fault("paged_attention_prefill",
+                                             pf_miss_own_key),
+        "window_one_key_short": with_fault("paged_attention_decode_window",
+                                           win_one_key_short)}
+
+    scale = {"prefill_logits_max_abs": float(plain[0].abs().max()),
+             "window_logits_max_abs": float(plain[1].abs().max()),
+             "window_kv_max_abs": float(plain[2].float().abs().max())}
+    log(f"  kernel vs plain path: {json.dumps(sound)}")
+    log(f"  control faults vs plain path: {json.dumps(control)}")
+    log(f"  magnitudes: {json.dumps(scale)}; limits "
+        f"{json.dumps(PATH_LIMITS)}")
+    for key, limit in PATH_LIMITS.items():
+        if sound[key] > limit:
+            fail(f"kernel path differs from plain path: {key} "
+                 f"{sound[key]:.4g} > {limit}")
+    # the window fault leaves step 0 alone (one key is all it has)
+    cp, cw = control["prefill_misses_own_key"], control["window_one_key_short"]
+    for key, got in (("prefill_logits", cp["prefill_logits"]),
+                     ("window_logits", max(cw["window_logits_by_step"][1:])),
+                     ("window_kv", cw["window_kv"])):
+        if got <= PATH_LIMITS[key]:
+            fail(f"control fault stays within the {key} limit "
+                 f"({got:.4g} <= {PATH_LIMITS[key]}): the check is blind")
+    return {"sound": sound, "control": control, "magnitudes": scale,
+            "limits": PATH_LIMITS}
+
+
+# ------------------------------------------------------------ timings
+
+
+def time_kernels(engine, cfg, dev, served) -> list:
+    import torch
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops.paged_attention import (
+        NO_WINDOW, paged_attention_decode_layered,
+        paged_attention_decode_window, paged_attention_prefill,
+        prefill_reference, window_reference)
+
+    ecfg = engine.ecfg
+    KV, hd, H = cfg.num_kv_heads, cfg.head_dim_, cfg.num_heads
+    G = H // KV
+    ps = ecfg.page_size
+    kp, vp = engine.kv_k, engine.kv_v
+    N = kp.shape[1]
+    el = kp.element_size()
+    g = torch.Generator(device=dev).manual_seed(7)
+    # random K/V in layer 0 of the served pool (the engine has stopped):
+    # most pages were never written, and zeros would hide any error
+    kp[0].normal_(generator=g)
+    vp[0].normal_(generator=g)
+    rows = []
+
+    # decode at the served window's shapes: the concurrent batch, each row
+    # with its served context in the pool, at the last step of a K-step
+    # window (K in-flight keys) — the form the main path launches
+    ctx = served["decode_lengths"]
+    K = ecfg.decode_steps
+    B = ecfg.bucket_batch(len(ctx))
+    P = ecfg.bucket_pages(max(-(-n // ps) for n in ctx))
+    table = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    for b, n in enumerate(ctx):
+        table[b, :-(-n // ps)] = torch.randperm(N - 1, generator=g,
+                                                device=dev)[:-(-n // ps)] + 1
+    start = torch.tensor(ctx + [-1] * (B - len(ctx)), dtype=torch.int32,
+                         device=dev)
+    qp = (start.clamp(min=0) + K - 1).to(torch.int32)
+    q = torch.randn(B, H, hd, generator=g, device=dev).to(kp.dtype)
+    wk = torch.randn(B, K, KV, hd, generator=g, device=dev).to(kp.dtype)
+    wv = torch.randn(B, K, KV, hd, generator=g, device=dev).to(kp.dtype)
+    scale = hd ** -0.5
+    dec = lambda: paged_attention_decode_window(  # noqa: E731
+        q, kp, vp, 0, table, start, qp, wk, wv, K)
+    t_k, t_eager = time_ms(dec, iters=50), eager_ms(dec)
+    t_p = time_ms(lambda: window_reference(q, kp, vp, 0, table, start, qp,
+                                           wk, wv, K, scale), iters=10)
+    got, want = dec(), window_reference(q, kp, vp, 0, table, start, qp, wk,
+                                        wv, K, scale)
+    err = max_err(got, want)
+    if excess(got, want, 2e-2, 1e-2) > 0:   # bf16, as in check_decode
+        fail(f"decode window at the served shapes: max abs err {err:.3g}")
+    ln = start.clamp(min=0).to(torch.int32)
+    stats_ms = time_ms(lambda: paged_attention_decode_layered(
+        q, kp, vp, 0, table, ln, return_stats=True), iters=50)
+    S = P * ps
+    kd = kp[0][table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    vd = vp[0][table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    kd = torch.cat([kd, wk.transpose(1, 2)], dim=2)
+    vd = torch.cat([vd, wv.transpose(1, 2)], dim=2)
+    mask = torch.cat([torch.arange(S, device=dev)[None, :] < ln[:, None],
+                      torch.ones((B, K), dtype=torch.bool, device=dev)],
+                     dim=1)[:, None, None]
+    qs = q[:, :, None, :]
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, kd, vd, attn_mask=mask, enable_gqa=True), iters=50)
+    keys = sum(ctx) + K * len(ctx)
+    bytes_ = (2 * keys * KV * hd * el + 2 * B * H * hd * el
+              + table.numel() * 4 + 2 * B * 4)
+    flops = 4 * keys * H * hd
+    rows.append({
+        "name": "paged_attention_decode", "route": "cuda",
+        "source": "dynamo_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "dynamo_tpu/ops/paged_attention.py:52",
+        "launches": served["launches"]["paged_attention_decode"],
+        "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+        "bound_ms": max(bytes_ / H100_BYTES_PER_S,
+                        flops / H100_BF16_FLOPS) * 1e3,
+        "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
+                     >= flops / H100_BF16_FLOPS else "operations"),
+        "library_ms": t_lib, "eager_ms": t_eager,
+        "stats_form_ms": stats_ms,
+        "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "ps": ps, "P": P,
+                  "pool": ctx, "window": K},
+    })
+
+    # prefill at the served first chunk's shapes: one prompt chunk of
+    # prefill_chunk tokens from position 0
+    T = ecfg.bucket_len(served["prefill_chunk"])
+    B = ecfg.prefill_bucket_batch(1)
+    P = ecfg.bucket_pages(-(-T // ps))
+    table = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    table[0, :-(-T // ps)] = torch.randperm(N - 1, generator=g,
+                                            device=dev)[:-(-T // ps)] + 1
+    pos = torch.full((B, T), -1, dtype=torch.int32, device=dev)
+    n = served["prefill_chunk"]
+    pos[0, :n] = torch.arange(n, device=dev)
+    win = torch.full((B,), NO_WINDOW, dtype=torch.int32, device=dev)
+    qf = torch.randn(B, T, H, hd, generator=g, device=dev).to(kp.dtype)
+    k0, v0 = kp[0], vp[0]
+    pf = lambda: paged_attention_prefill(  # noqa: E731
+        qf, k0, v0, table, pos, eff_win=win)
+    t_k, t_eager = time_ms(pf, iters=20), eager_ms(pf, iters=20)
+    t_p = time_ms(lambda: prefill_reference(qf, k0, v0, table, pos, scale,
+                                            None, win), iters=5)
+    got, want = pf(), prefill_reference(qf, k0, v0, table, pos, scale, None,
+                                        win)
+    err = max_err(got, want)
+    if excess(got, want, 2e-2, 1e-2) > 0:   # bf16, as in check_prefill
+        fail(f"prefill at the served shapes: max abs err {err:.3g}")
+    S = P * ps
+    kd = k0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    vd = v0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    qpos = pos[:, :, None].long()
+    kvpos = torch.arange(S, device=dev)[None, None, :]
+    mask = ((kvpos <= qpos) | (qpos < 0))[:, None]
+    qt = qf.transpose(1, 2)
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kd, vd, attn_mask=mask, enable_gqa=True), iters=20)
+    pairs = n * (n + 1) // 2   # causal (query, key) pairs of the chunk
+    bytes_ = (2 * n * KV * hd * el + 2 * n * H * hd * el + table.numel() * 4
+              + pos.numel() * 4)
+    flops = 4 * pairs * H * hd
+    rows.append({
+        "name": "paged_attention_prefill", "route": "cuda",
+        "source": "dynamo_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "dynamo_tpu/ops/paged_attention.py:336",
+        "launches": served["launches"]["paged_attention_prefill"],
+        "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+        "bound_ms": max(bytes_ / H100_BYTES_PER_S,
+                        flops / H100_BF16_FLOPS) * 1e3,
+        "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
+                     >= flops / H100_BF16_FLOPS else "operations"),
+        "library_ms": t_lib, "eager_ms": t_eager,
+        "shape": {"B": B, "T": T, "valid": n, "H": H, "KV": KV, "hd": hd,
+                  "ps": ps, "P": P},
+    })
+    return rows
+
+
+# --------------------------------------------------------------- main
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=None,
+                    help="also write the full results as JSON here")
+    args = ap.parse_args()
+    t_start = time.monotonic()
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA GPU available")
+    if not os.path.isdir(os.path.join(REPO, "dynamo_tpu_torch")):
+        fail("dynamo_tpu_torch/ not found beside chip_smoke.py")
+    sys.path.insert(0, REPO)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    log(f"device: {name} x{torch.cuda.device_count()}; torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+
+    from dynamo_tpu_torch.ops import build
+
+    log("phase 1: build kernels")
+    t = time.monotonic()
+    build.build_all()
+    for src, text in build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "error" in line:
+                log(f"  {src}: {line.strip()}")
+    log(f"  built {build.sources()} in {time.monotonic() - t:.1f}s")
+
+    log("phase 2: decode kernel vs plain version")
+    dec_errs = check_decode(dev)
+    win_errs = check_window(dev)
+    log("phase 3: prefill kernel vs plain version")
+    pf_errs = check_prefill(dev)
+
+    log("phase 4: serve Llama-3-8B-shaped requests over HTTP")
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.llama3_8b()
+    t = time.monotonic()
+    engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda")
+    engine.warmup()
+    log(f"  8B engine (32 layers, D=4096, V=128256, bf16, seed 0) built and "
+        f"warmed up in {time.monotonic() - t:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    mdc = ModelDeploymentCard(name="llama3-8b-random")
+    mdc.kv_block_size = engine.ecfg.page_size
+    served, _ = asyncio.run(serve_and_check(engine, mdc))
+    log(f"  served: {json.dumps(served)}")
+    paths = check_paths(engine, cfg, dev)
+
+    log("phase 5: kernel timings at the serving shapes")
+    # the first prefill chunk of the long prompt (r1-stream)
+    served["prefill_chunk"] = min(served["prompt_tokens"]["r1-stream"],
+                                  engine.ecfg.prefill_chunk)
+    rows = time_kernels(engine, cfg, dev, served)
+    tokens_total = served["tokens_total"]
+    for r in rows:
+        r["launches_per_token"] = r["launches"] / max(tokens_total, 1)
+        log(f"  {r['name']}: {r['ms']:.4f} ms on the device, {r['eager_ms']:.4f}"
+            f" ms called eagerly (bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}; plain {r['plain_ms']:.4f} ms; SDPA "
+            f"{r['library_ms']:.4f} ms); launches {r['launches']} "
+            f"({r['launches_per_token']:.1f}/token); shape {r['shape']}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi unavailable"
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "served": served, "paths": paths,
+                       "kernels": rows,
+                       "decode_errs": {" ".join(k): v
+                                       for k, v in dec_errs.items()},
+                       "window_errs": {" ".join(k): v
+                                       for k, v in win_errs.items()},
+                       "prefill_errs": {" ".join(k): v
+                                        for k, v in pf_errs.items()},
+                       "seconds": time.monotonic() - t_start}, f, indent=1)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

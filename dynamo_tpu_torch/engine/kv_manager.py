@@ -1,0 +1,715 @@
+"""KV page manager: allocation, prefix-cache reuse, eviction, events.
+
+A copy of ``dynamo_tpu/engine/kv_manager.py`` (pure Python), kept here so
+the PyTorch port imports nothing of the JAX package. The port's engine
+(engine/torch_engine.py) does not drain the host tier yet: it builds the
+manager with ``host_pages=0``.
+
+The host-side half of the KV cache (the device-side pool lives in
+models/llama.py). Re-designs three reference components as one coherent
+manager:
+
+- reference ``lib/llm/src/kv/reuse.rs`` (AvailableBlocks: priority+FIFO
+  reuse pool with sequence-hash match-and-reclaim) → ``PageManager``'s
+  reusable pool + ``match_prefix``;
+- reference ``lib/llm/src/tokens.rs`` (TokenBlock chained sequence hashes,
+  xxh3) → ``chain_hashes`` (same chained-hash construction, seed 1337 over
+  LE token bytes, indexer.rs:64,123-135);
+- the vLLM-patch ``event_manager.py`` (KVCacheEventManager publishing
+  stored/removed to the router) → ``drain_events``.
+
+Pages are identified by pool index. A page is either free (never valid),
+active (refcount > 0), or reusable (refcount 0, contents intact, reusable
+by hash until evicted). Evictions pop the least-recently-freed reusable
+page (LRU-FIFO like the reference's priority 0 tier).
+
+**Host offload tier** (reference kv/ V2 StorageType::{System,Pinned} +
+docs/kv_cache_manager.md, the "+40% TTFT" headline): with ``host_pages >
+0``, a block evicted from the HBM pool moves to a host-DRAM pool instead
+of being dropped — the manager queues a device→host copy
+(``pending_offload``) and keeps the block matchable via its hash. A prefix
+hit on a host block allocates a fresh HBM page and queues a host→device
+restore (``pending_restore``); the engine drains both queues as batched
+page copies before its next device step (the JAX engine's
+``_drain_kv_tier``).
+"removed" router events fire only when a block leaves BOTH tiers.
+"""
+
+from __future__ import annotations
+
+import heapq
+import time
+from collections import OrderedDict, deque
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import xxhash
+
+HASH_SEED = 1337  # match the reference's block hasher (kv_router/indexer.rs)
+
+EVICT_POLICIES = ("lru", "cost")
+
+
+def hash_block(parent: int, tokens: Sequence[int]) -> int:
+    """Chained block hash: xxh3_64(parent_hash_le || token_le_bytes)."""
+    h = xxhash.xxh3_64(seed=HASH_SEED)
+    h.update(int(parent).to_bytes(8, "little", signed=False))
+    for t in tokens:
+        h.update(int(t).to_bytes(4, "little", signed=False))
+    return h.intdigest()
+
+
+def chain_hashes(token_ids: Sequence[int], page_size: int,
+                 parent: int = 0) -> List[int]:
+    """Sequence hashes for each FULL block of token_ids."""
+    out = []
+    h = parent
+    for i in range(len(token_ids) // page_size):
+        h = hash_block(h, token_ids[i * page_size:(i + 1) * page_size])
+        out.append(h)
+    return out
+
+
+class ChainHashCache:
+    """Incremental chained-hash state for ONE growing token sequence.
+
+    The chained construction (each block hash folds in its parent's)
+    makes hashes append-only: blocks already hashed stay valid as tokens
+    append, so the per-admission and per-commit full-prefix re-hash
+    (O(sequence) xxh3 work per call — on the decode hot path, once per
+    page-boundary crossing) collapses to hashing only NEW full blocks.
+    Callers must feed append-only extensions of the same sequence; a
+    shrunken input resets the cache (defensive, not expected)."""
+
+    __slots__ = ("page_size", "_hashes", "_ntok")
+
+    def __init__(self, page_size: int):
+        self.page_size = page_size
+        self._hashes: List[int] = []
+        self._ntok = 0
+
+    def extend(self, token_ids: Sequence[int]) -> List[int]:
+        """Hashes for every full block of ``token_ids`` (== what
+        ``chain_hashes(token_ids, page_size)`` returns), hashing only the
+        blocks not covered by earlier calls."""
+        if len(token_ids) < self._ntok:
+            self._hashes, self._ntok = [], 0
+        nblocks = len(token_ids) // self.page_size
+        h = self._hashes[-1] if self._hashes else 0
+        for i in range(len(self._hashes), nblocks):
+            h = hash_block(
+                h, token_ids[i * self.page_size:(i + 1) * self.page_size])
+            self._hashes.append(h)
+        self._ntok = len(token_ids)
+        return self._hashes[:nblocks]
+
+
+@dataclass
+class KvEvent:
+    """Stored/Removed cache event (reference kv_router/protocols.rs
+    KvCacheEvent)."""
+
+    kind: str                      # "stored" | "removed"
+    block_hashes: List[int]
+    parent_hash: Optional[int] = None
+    token_ids: Optional[List[int]] = None  # for stored: the tokens per block
+
+    def to_dict(self) -> dict:
+        return {"kind": self.kind, "block_hashes": self.block_hashes,
+                "parent_hash": self.parent_hash}
+
+
+@dataclass
+class PageState:
+    refcount: int = 0
+    block_hash: Optional[int] = None  # set when committed (full + hashed)
+    # dynacache: when this page's block entered the device tier (commit
+    # or host-tier restore) — eviction age = now - committed_at
+    committed_at: float = 0.0
+
+
+@dataclass
+class Alloc:
+    """Result of ``allocate_sequence``. Iterates/indexes as the legacy
+    (pages, cached_tokens) pair; ``restores`` lists (page, host_slot)
+    host→device copies the engine must drain before computing on them."""
+
+    pages: List[int]
+    cached_tokens: int
+    restores: List[Tuple[int, int]] = field(default_factory=list)
+    # dynacache prefix split: how the allocated pages were sourced.
+    # device_hit + host_restored + fresh == len(pages) (conservation —
+    # pinned by tests/test_cache_obs.py)
+    device_hit_blocks: int = 0
+    host_restored_blocks: int = 0
+    fresh_blocks: int = 0
+
+    def __iter__(self):
+        return iter((self.pages, self.cached_tokens))
+
+    def __getitem__(self, i):
+        return (self.pages, self.cached_tokens)[i]
+
+
+class PageManager:
+    """Host-side page pool bookkeeping with prefix reuse."""
+
+    def __init__(self, num_pages: int, page_size: int, host_pages: int = 0,
+                 evict_policy: str = "lru"):
+        if evict_policy not in EVICT_POLICIES:
+            raise ValueError(
+                f"evict_policy must be one of {EVICT_POLICIES}, "
+                f"got {evict_policy!r}")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.evict_policy = evict_policy
+        # every pool structure below is event-loop-affine: all methods
+        # are sync (each call is one atomic block under the loop), and
+        # cross-thread callers serialize on the engine's _pm_lock. The
+        # annotations make dynarace reject any future async method that
+        # lets an await interleave with pool invariants mid-update.
+        # page 0 is reserved as the padding target in device page tables
+        self.pages: List[PageState] = [PageState() for _ in range(num_pages)]  # guarded-by: loop
+        self.free: deque = deque(range(1, num_pages))  # guarded-by: loop
+        self.reusable: "OrderedDict[int, None]" = OrderedDict()  # guarded-by: loop
+        self.by_hash: Dict[int, int] = {}  # guarded-by: loop
+        self.events: List[KvEvent] = []  # guarded-by: loop
+        self.pages[0].refcount = 1  # never allocated
+        # host offload tier
+        self.host_pages = host_pages
+        self.host_free: deque = deque(range(host_pages))  # guarded-by: loop
+        self.host_by_hash: Dict[int, int] = {}   # guarded-by: loop
+        self.host_lru: "OrderedDict[int, int]" = OrderedDict()  # guarded-by: loop
+        self.pending_offload: List[Tuple[int, int]] = []  # guarded-by: loop
+        self.pending_restore: List[Tuple[int, int]] = []  # guarded-by: loop
+        # host slots planned for restore inside an in-progress
+        # allocate_sequence call: _pop_fresh→_host_slot evictions triggered
+        # by the same call must not reassign them (they reach
+        # pending_restore only when the call completes)
+        self._pinned_slots: set = set()
+        # slot→pin refcount, maintained at every pin transition (queued
+        # copies enqueue/drain, _pinned_slots add/remove) so _host_slot's
+        # busy check is O(1) instead of rebuilding a set of every queued
+        # copy per claim
+        self._slot_pins: Dict[int, int] = {}  # guarded-by: loop
+        # ---- eviction policy (dynaheat) ----
+        # `lru` keeps the original OrderedDict popitem/LRU-walk order as
+        # the A/B control. `cost` runs GreedyDual over both tiers: lazy
+        # min-heaps of (priority, seq, page_or_slot) with per-entry
+        # generation stamps for O(log n) eviction; priority = clock + 1 +
+        # hot-prefix hits, and the clock advances to each evicted entry's
+        # priority so once-hot blocks age out instead of squatting.
+        # heap rows are (priority, seq, page_or_slot, gen); a row is live
+        # iff gen matches the current _dev_gen/_host_gen for its member
+        self._dev_heap: List[Tuple[float, int, int, int]] = []  # guarded-by: loop
+        self._dev_gen: Dict[int, int] = {}  # guarded-by: loop
+        self._dev_clock = 0.0  # guarded-by: loop
+        self._host_heap: List[Tuple[float, int, int, int]] = []  # guarded-by: loop
+        self._host_gen: Dict[int, int] = {}  # guarded-by: loop
+        self._host_clock = 0.0  # guarded-by: loop
+        self._host_touch = 0  # host LRU clock (monotonic touch counter)
+        self._evict_seq = 0  # heap FIFO tiebreaker (monotonic)
+        # ---- dynacache telemetry (host-side counters; same loop/lock
+        # discipline as the pool structures above) ----
+        # allocation prefix split (blocks == pages)
+        self.device_hit_blocks_total = 0  # guarded-by: loop
+        self.host_restored_blocks_total = 0  # guarded-by: loop
+        self.fresh_blocks_total = 0  # guarded-by: loop
+        # HBM evictions by fate: offloaded-to-host vs dropped entirely,
+        # plus block age (commit→eviction) and host-tier evictions
+        self.evict_offloaded_total = 0  # guarded-by: loop
+        self.evict_dropped_total = 0  # guarded-by: loop
+        self.evict_age_seconds_total = 0.0  # guarded-by: loop
+        self.host_evictions_total = 0  # guarded-by: loop
+        # restore-queue drain latency: enqueue stamp per queued restore
+        # page; drained totals accumulated in drain_tier_ops
+        self._restore_enq: Dict[int, float] = {}  # guarded-by: loop
+        self.restores_drained_total = 0  # guarded-by: loop
+        self.restore_wait_seconds_total = 0.0  # guarded-by: loop
+        # restore batching: drained-batch count + pages per batch (mean
+        # batch size = pages/batches — the coalescing win the overlapped
+        # drain is chasing)
+        self.restore_batches_total = 0  # guarded-by: loop
+        self.restore_batch_pages_total = 0  # guarded-by: loop
+        # hot prefix chains: per-block-hash hit counter, bounded — hashes
+        # past the cap are simply untracked (top-K reporting only needs
+        # the hot head, and an unbounded dict would grow with the corpus)
+        self._hit_counts: Dict[int, int] = {}  # guarded-by: loop
+        self._hit_track_cap = 1024
+
+    # ------------------------------------------------------------- queries
+
+    @property
+    def available(self) -> int:
+        return len(self.free) + len(self.reusable)
+
+    @property
+    def active(self) -> int:
+        return self.num_pages - 1 - self.available
+
+    def usage(self) -> float:
+        return self.active / max(self.num_pages - 1, 1)
+
+    def match_prefix(self, token_ids: Sequence[int]) -> Tuple[List[int], List[int]]:
+        """Longest cached prefix: returns (page_ids, their hashes). Does NOT
+        take references — call ``allocate`` to claim."""
+        pages, hashes = [], []
+        for h in chain_hashes(token_ids, self.page_size):
+            page = self.by_hash.get(h)
+            if page is None:
+                break
+            pages.append(page)
+            hashes.append(h)
+        return pages, hashes
+
+    # ---------------------------------------------------------- allocation
+
+    def allocate_sequence(self, token_ids: Sequence[int],
+                          extra_pages: int = 0,
+                          chain: Optional[List[int]] = None
+                          ) -> Optional[Alloc]:
+        """Claim pages for a prompt: reuse the longest cached prefix
+        (HBM pages directly; host-tier blocks via a fresh page + queued
+        restore copy), then fresh pages to cover the prompt (+extra_pages
+        headroom).
+
+        Returns an :class:`Alloc` or None if out of memory. The last
+        (partial) block is never matched (reference manager.rs
+        prepare_prefill_sequence semantics). ``chain`` optionally supplies
+        the precomputed full-block hashes of ``token_ids`` (a
+        :class:`ChainHashCache` product) so admission skips the O(prompt)
+        re-hash.
+        """
+        need_total = (len(token_ids) + self.page_size - 1) // self.page_size \
+            + extra_pages
+        # full-prompt hit: leave at least the final token to recompute so
+        # prefill produces logits (cap reuse at len-1 tokens)
+        max_reuse = max((len(token_ids) - 1) // self.page_size, 0)
+        if chain is None:
+            chain = chain_hashes(token_ids, self.page_size)
+        chain = chain[:max_reuse]
+        # walk the chain across both tiers; device hit → reuse page,
+        # host hit → fresh page + restore; stop at the first full miss
+        plan: List[Tuple[Optional[int], Optional[int], int]] = []
+        for h in chain:
+            page = self.by_hash.get(h)
+            if page is not None:
+                plan.append((page, None, h))
+                continue
+            slot = self.host_by_hash.get(h)
+            if slot is not None:
+                plan.append((None, slot, h))
+                continue
+            break
+        n_restore = sum(1 for p, _, _ in plan if p is None)
+        need_fresh = need_total - (len(plan) - n_restore)
+        # device hits sitting in the reusable set count toward `available`
+        # but become unpoppable once ref'd below — exclude them, or the
+        # check passes and _pop_fresh runs dry mid-allocation
+        reusable_hits = sum(1 for p, _, _ in plan
+                            if p is not None and self.pages[p].refcount == 0)
+        if need_fresh > self.available - reusable_hits:
+            return None
+        # ref every device hit BEFORE popping fresh pages: a pop can evict
+        # refcount-0 reusable pages, including ones matched later in plan
+        for page, _, _ in plan:
+            if page is not None:
+                self._ref(page)
+        # pin every planned restore slot for the whole call: an earlier
+        # plan entry's _pop_fresh can evict a device page into the host
+        # tier, and _host_slot must not hand it a slot a later entry still
+        # needs to read (silent KV corruption — ADVICE r1 high)
+        pinned = {slot for page, slot, _ in plan if page is None}
+        self._pinned_slots |= pinned
+        for slot in pinned:
+            self._pin_slot(slot)
+        claimed: List[int] = []
+        restores: List[Tuple[int, int]] = []
+        try:
+            for i, (page, slot, h) in enumerate(plan):
+                if page is not None:
+                    claimed.append(page)
+                    continue
+                # defensive re-check (pinning should make a vanished slot
+                # impossible): treat it as a miss — drop this and every
+                # later plan entry, recompute those blocks instead
+                if self.host_by_hash.get(h) != slot:
+                    for later, _, _ in plan[i:]:
+                        if later is not None:
+                            self.release_sequence([later])
+                    plan = plan[:i]
+                    break
+                fresh = self._pop_fresh()
+                # promote back to the device tier: matchable immediately
+                # (the engine drains the copy before its next device step);
+                # no "stored" event — the block never left this worker
+                self.pages[fresh].block_hash = h
+                self.pages[fresh].committed_at = time.monotonic()
+                self.by_hash[h] = fresh
+                self.host_lru.move_to_end(slot)
+                self._host_push(slot, h)  # host hit — refresh its priority
+                restores.append((fresh, slot))
+                claimed.append(fresh)
+            for _ in range(need_total - len(claimed)):
+                claimed.append(self._pop_fresh())
+        finally:
+            self._pinned_slots -= pinned
+            for slot in pinned:
+                self._unpin_slot(slot)
+        now = time.monotonic()
+        for page, slot in restores:
+            self._restore_enq[page] = now
+            self._pin_slot(slot)
+        self.pending_restore.extend(restores)
+        # dynacache: prefix split + hot-chain hit counts for the blocks
+        # actually reused (plan may have been truncated above)
+        device_hit = sum(1 for p, _, _ in plan if p is not None)
+        host_restored = len(restores)
+        fresh_blocks = len(claimed) - device_hit - host_restored
+        self.device_hit_blocks_total += device_hit
+        self.host_restored_blocks_total += host_restored
+        self.fresh_blocks_total += fresh_blocks
+        for _, _, h in plan:
+            if h in self._hit_counts:
+                self._hit_counts[h] += 1
+            elif len(self._hit_counts) < self._hit_track_cap:
+                self._hit_counts[h] = 1
+        return Alloc(claimed, len(plan) * self.page_size, restores,
+                     device_hit_blocks=device_hit,
+                     host_restored_blocks=host_restored,
+                     fresh_blocks=fresh_blocks)
+
+    def allocate_page(self) -> Optional[int]:
+        """One more page for a growing sequence (decode)."""
+        if self.available == 0:
+            return None
+        return self._pop_fresh()
+
+    def grow(self, pages: List[int], needed_tokens: int) -> bool:
+        """Ensure the page list covers needed_tokens; appends fresh pages.
+        Returns False if out of memory."""
+        while len(pages) * self.page_size < needed_tokens:
+            p = self.allocate_page()
+            if p is None:
+                return False
+            pages.append(p)
+        return True
+
+    def commit(self, page: int, block_hash: int,
+               token_ids: Optional[List[int]] = None,
+               parent_hash: Optional[int] = None) -> None:
+        """Mark a page's contents as a complete, hashed block (prefix-cache
+        publish; emits the stored event for the KV router)."""
+        st = self.pages[page]
+        if st.block_hash == block_hash:
+            return
+        if block_hash in self.by_hash:
+            # another page already holds this block; keep the existing one
+            return
+        st.block_hash = block_hash
+        st.committed_at = time.monotonic()
+        self.by_hash[block_hash] = page
+        self.events.append(KvEvent("stored", [block_hash],
+                                   parent_hash=parent_hash,
+                                   token_ids=token_ids))
+
+    def commit_chain(self, pages: List[int], token_ids: Sequence[int],
+                     extent: int, chain: Optional[List[int]] = None) -> int:
+        """Commit every FULL block covered by ``token_ids[:extent]`` in
+        one call — the multi-token publish path. Prefill completion,
+        decode-window boundary crossings, and speculative accepts (which
+        can advance a sequence K+1 tokens — several page boundaries — in
+        ONE step) all funnel through here so the chained-hash bookkeeping
+        lives in one place. Idempotent per block (:meth:`commit` dedups
+        on hash); returns the number of full blocks covered. ``chain``
+        optionally supplies precomputed full-block hashes covering at
+        least ``extent`` so the publish skips the O(extent) re-hash."""
+        nblocks = extent // self.page_size
+        if chain is not None and len(chain) >= nblocks:
+            hashes = chain[:nblocks]
+        else:
+            hashes = chain_hashes(token_ids[:nblocks * self.page_size],
+                                  self.page_size)
+        for i, h in enumerate(hashes):
+            self.commit(pages[i], h,
+                        parent_hash=hashes[i - 1] if i else None,
+                        token_ids=list(token_ids[i * self.page_size:
+                                                 (i + 1) * self.page_size]))
+        return nblocks
+
+    def release_sequence(self, pages: List[int]) -> None:
+        """Drop one reference on each page; refcount-0 pages become reusable
+        (kept for prefix hits) or free (uncommitted)."""
+        for p in pages:
+            st = self.pages[p]
+            st.refcount -= 1
+            assert st.refcount >= 0, f"double free of page {p}"
+            if st.refcount == 0:
+                if st.block_hash is not None:
+                    self.reusable[p] = None  # most-recently-freed last
+                    if self.evict_policy == "cost":
+                        self._dev_push(p)
+                else:
+                    self.free.append(p)
+
+    # ------------------------------------------------------------- internal
+
+    def _pin_slot(self, slot: int) -> None:
+        self._slot_pins[slot] = self._slot_pins.get(slot, 0) + 1
+
+    def _unpin_slot(self, slot: int) -> None:
+        n = self._slot_pins.get(slot, 0) - 1
+        if n <= 0:
+            self._slot_pins.pop(slot, None)
+        else:
+            self._slot_pins[slot] = n
+
+    def _hits(self, block_hash: Optional[int]) -> int:
+        return self._hit_counts.get(block_hash, 0) if block_hash is not None \
+            else 0
+
+    def _dev_push(self, page: int) -> None:
+        """Enter ``page`` into the cost-policy device eviction heap (call
+        when it becomes reusable). Priority is GreedyDual: clock + 1 +
+        hot-prefix hits."""
+        gen = self._dev_gen.get(page, 0) + 1
+        # bounded-by: keys are page ids of the fixed-capacity device pool
+        self._dev_gen[page] = gen
+        self._evict_seq += 1
+        pri = self._dev_clock + 1.0 + self._hits(self.pages[page].block_hash)
+        heapq.heappush(self._dev_heap, (pri, self._evict_seq, page, gen))
+        if len(self._dev_heap) > 4 * self.num_pages + 64:
+            self._compact_heap("dev")
+
+    def _dev_invalidate(self, page: int) -> None:
+        """Lazy-invalidate any live heap row for ``page`` (it left the
+        reusable pool by _ref or eviction)."""
+        if page in self._dev_gen:
+            self._dev_gen[page] += 1
+
+    def _host_push(self, slot: int, block_hash: Optional[int]) -> None:
+        """(Re)enter ``slot`` into the host eviction heap — called on
+        every touch (insert, host hit, re-offload refresh). Under ``lru``
+        the priority is a monotonic touch counter, which reproduces the
+        OrderedDict LRU→MRU victim order exactly; under ``cost`` it is
+        the GreedyDual score."""
+        gen = self._host_gen.get(slot, 0) + 1
+        # bounded-by: keys are slot ids of the fixed-capacity host pool
+        self._host_gen[slot] = gen
+        self._evict_seq += 1
+        if self.evict_policy == "cost":
+            pri = self._host_clock + 1.0 + self._hits(block_hash)
+        else:
+            self._host_touch += 1
+            pri = float(self._host_touch)
+        heapq.heappush(self._host_heap, (pri, self._evict_seq, slot, gen))
+        if len(self._host_heap) > 4 * self.host_pages + 64:
+            self._compact_heap("host")
+
+    def _compact_heap(self, which: str) -> None:
+        """Drop stale rows when lazy invalidation lets a heap outgrow its
+        pool 4x (amortized O(pool) — pushes since the last compaction pay
+        for it)."""
+        if which == "dev":
+            self._dev_heap = [r for r in self._dev_heap
+                              if self._dev_gen.get(r[2]) == r[3]]
+            heapq.heapify(self._dev_heap)
+        else:
+            self._host_heap = [r for r in self._host_heap
+                               if self._host_gen.get(r[2]) == r[3]]
+            heapq.heapify(self._host_heap)
+
+    def _ref(self, page: int) -> None:
+        st = self.pages[page]
+        if st.refcount == 0 and page in self.reusable:
+            del self.reusable[page]
+            self._dev_invalidate(page)
+        st.refcount += 1
+
+    def _evict_reusable(self) -> int:
+        """Pick the eviction victim from the reusable pool. ``lru`` pops
+        the least-recently-freed entry (the original order — A/B control);
+        ``cost`` pops the minimum GreedyDual row from the lazy heap,
+        skipping stale rows, and advances the clock to the evicted
+        priority so surviving hot blocks age relative to it."""
+        if self.evict_policy == "cost":
+            while self._dev_heap:
+                pri, _, page, gen = heapq.heappop(self._dev_heap)
+                if self._dev_gen.get(page) != gen or page not in self.reusable:
+                    continue  # stale row (page was re-ref'd or re-pushed)
+                del self.reusable[page]
+                # bounded-by: keys are page ids of the fixed-capacity device pool
+                self._dev_gen[page] = gen + 1
+                self._dev_clock = max(self._dev_clock, pri)
+                return page
+            # defensive: heap dry but reusable non-empty (should not
+            # happen — every reusable insert pushes a row)
+        page, _ = self.reusable.popitem(last=False)
+        self._dev_invalidate(page)
+        return page
+
+    def _pop_fresh(self) -> int:
+        if self.free:
+            page = self.free.popleft()
+        else:
+            page = self._evict_reusable()
+            st = self.pages[page]
+            if st.block_hash is not None:
+                h = st.block_hash
+                del self.by_hash[h]
+                st.block_hash = None
+                if st.committed_at:
+                    self.evict_age_seconds_total += max(
+                        time.monotonic() - st.committed_at, 0.0)
+                slot = None
+                if self.host_pages > 0:
+                    if h in self.host_by_hash:
+                        # block already resident in the host tier (this page
+                        # was a restore) — no copy, just refresh LRU
+                        slot = self.host_by_hash[h]
+                        self.host_lru.move_to_end(slot)
+                        self._host_push(slot, h)
+                    else:
+                        slot = self._host_slot()
+                        if slot is not None:
+                            self.host_by_hash[h] = slot
+                            self.host_lru[slot] = h
+                            self._host_push(slot, h)
+                            self.pending_offload.append((page, slot))
+                            self._pin_slot(slot)
+                if slot is None:
+                    self.evict_dropped_total += 1
+                    self.events.append(KvEvent("removed", [h]))
+                else:
+                    self.evict_offloaded_total += 1
+        # the page may carry a stale queued restore (its sequence released
+        # before any device step drained it) — a late copy would clobber
+        # the new owner's content
+        if self.pending_restore:
+            kept = []
+            for p, s in self.pending_restore:
+                if p == page:
+                    self._unpin_slot(s)
+                else:
+                    kept.append((p, s))
+            self.pending_restore = kept
+            self._restore_enq.pop(page, None)
+        st = self.pages[page]
+        assert st.refcount == 0
+        st.refcount = 1
+        return page
+
+    def _host_slot(self) -> Optional[int]:
+        """Claim a host-tier slot, evicting the policy victim if full
+        (``lru``: least-recently-touched; ``cost``: minimum GreedyDual
+        score). Slots referenced by queued copies are pinned (a
+        reassignment before the drain would corrupt the in-flight copy);
+        the O(1) ``_slot_pins`` refcount replaces the old per-claim busy
+        set + O(n) LRU walk. Pinned rows popped off the heap top are
+        stashed and re-pushed after the claim, so a claim is O(log n +
+        pinned). Returns None when the whole tier is pinned. A "removed"
+        event fires only when the evicted block has no device copy either
+        (it leaves the worker entirely)."""
+        if self.host_free:
+            return self.host_free.popleft()
+        stashed: List[Tuple[float, int, int, int]] = []
+        victim: Optional[int] = None
+        while self._host_heap:
+            row = heapq.heappop(self._host_heap)
+            pri, _, slot, gen = row
+            if self._host_gen.get(slot) != gen or slot not in self.host_lru:
+                continue  # stale row (slot was re-touched or evicted)
+            if self._slot_pins.get(slot, 0) > 0:
+                stashed.append(row)  # still live — restore after the claim
+                continue
+            victim = slot
+            if self.evict_policy == "cost":
+                self._host_clock = max(self._host_clock, pri)
+            break
+        for row in stashed:
+            heapq.heappush(self._host_heap, row)
+        if victim is None:
+            return None
+        self._host_gen[victim] += 1
+        old_h = self.host_lru.pop(victim)
+        del self.host_by_hash[old_h]
+        self.host_evictions_total += 1
+        if old_h not in self.by_hash:
+            self.events.append(KvEvent("removed", [old_h]))
+        return victim
+
+    def drain_tier_ops(self, restore_limit: Optional[int] = None
+                       ) -> Tuple[List[Tuple[int, int]],
+                                  List[Tuple[int, int]]]:
+        """Pop queued (page, host_slot) tier copies: (offloads, restores).
+        The engine must make all popped offload content visible in the
+        host pool before executing any popped restore, and dispatch both
+        before a device step that touches the pages involved.
+
+        ``restore_limit`` caps restores popped per call (FIFO prefix) so
+        a huge restore burst drains over several iterations instead of
+        blocking one — sequences whose restores are still queued are
+        gated out of prefill by the engine until their ops dispatch."""
+        off, self.pending_offload = self.pending_offload, []
+        if restore_limit is None or len(self.pending_restore) <= restore_limit:
+            res, self.pending_restore = self.pending_restore, []
+        else:
+            res = self.pending_restore[:restore_limit]
+            self.pending_restore = self.pending_restore[restore_limit:]
+        for _, slot in off:
+            self._unpin_slot(slot)
+        if res:
+            # restore drain latency: enqueue → this pop (the dispatch point)
+            now = time.monotonic()
+            for page, slot in res:
+                self._unpin_slot(slot)
+                ts = self._restore_enq.pop(page, None)
+                if ts is not None:
+                    self.restore_wait_seconds_total += max(now - ts, 0.0)
+            self.restores_drained_total += len(res)
+            self.restore_batches_total += 1
+            self.restore_batch_pages_total += len(res)
+        return off, res
+
+    def host_usage(self) -> float:
+        return len(self.host_by_hash) / self.host_pages if self.host_pages \
+            else 0.0
+
+    # ------------------------------------------------- dynacache telemetry
+
+    def top_prefixes(self, k: int) -> List[dict]:
+        """The K hottest cached block hashes by reuse count (bounded by
+        the tracking cap), with residency so a dashboard can tell a hot
+        chain that is still serving hits from one that was evicted."""
+        hot = sorted(self._hit_counts.items(),
+                     key=lambda kv: (-kv[1], kv[0]))[:max(k, 0)]
+        return [{"block_hash": f"{h:016x}", "hits": n,
+                 "tier": ("device" if h in self.by_hash
+                          else "host" if h in self.host_by_hash
+                          else "evicted")}
+                for h, n in hot]
+
+    def cache_stats(self) -> dict:
+        """One flat dict of the dynacache counters (engine stats() embeds
+        these under ``cache_*`` keys; /debug/cache renders them nested)."""
+        return {
+            "device_hit_blocks_total": self.device_hit_blocks_total,
+            "host_restored_blocks_total": self.host_restored_blocks_total,
+            "fresh_blocks_total": self.fresh_blocks_total,
+            "evict_offloaded_total": self.evict_offloaded_total,
+            "evict_dropped_total": self.evict_dropped_total,
+            "evict_age_seconds_total": round(self.evict_age_seconds_total,
+                                             4),
+            "host_evictions_total": self.host_evictions_total,
+            "restore_queue_depth": len(self.pending_restore),
+            "restores_drained_total": self.restores_drained_total,
+            "restore_wait_seconds_total": round(
+                self.restore_wait_seconds_total, 4),
+            "restore_batches_total": self.restore_batches_total,
+            "restore_batch_pages_total": self.restore_batch_pages_total,
+            "evict_policy": self.evict_policy,
+        }
+
+    def drain_events(self) -> List[KvEvent]:
+        out, self.events = self.events, []
+        return out

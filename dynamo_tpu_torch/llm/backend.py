@@ -1,0 +1,142 @@
+"""Backend: the detokenizing stage between engine and preprocessor.
+
+A copy of ``dynamo_tpu/llm/backend.py`` without the remote cost relay and
+the detokenization thread pool: wraps the token-level engine,
+incrementally detokenizes the stream, applies stop-sequence "jailing"
+(text that could be the prefix of a stop sequence is withheld until
+disambiguated), detects EOS / stop-token / max-token finishes, and stamps
+finish reasons.
+"""
+
+from __future__ import annotations
+
+from typing import AsyncIterator, List, Optional
+
+from ..runtime.engine import Context
+from .protocols.common import (FINISH_EOS, FINISH_LENGTH, FINISH_STOP,
+                               EngineOutput, PreprocessedRequest)
+from .tokenizer import Tokenizer
+
+
+class StopSequenceJail:
+    """Holds back emitted text while it matches a proper prefix of any stop
+    sequence; releases or truncates once disambiguated."""
+
+    def __init__(self, stop: List[str]):
+        self._stop = [s for s in stop if s]
+        self._held = ""
+
+    def feed(self, text: str) -> tuple[str, bool]:
+        """Returns (releasable_text, hit_stop)."""
+        if not self._stop:
+            return text, False
+        buf = self._held + text
+        # full stop sequence present → truncate at the earliest match
+        cut = -1
+        for s in self._stop:
+            i = buf.find(s)
+            if i != -1 and (cut == -1 or i < cut):
+                cut = i
+        if cut != -1:
+            self._held = ""
+            return buf[:cut], True
+        # otherwise hold the longest suffix that is a prefix of some stop seq
+        hold = 0
+        for s in self._stop:
+            for k in range(min(len(s) - 1, len(buf)), 0, -1):
+                if buf.endswith(s[:k]):
+                    hold = max(hold, k)
+                    break
+        if hold:
+            self._held = buf[-hold:]
+            return buf[:-hold], False
+        self._held = ""
+        return buf, False
+
+    def flush(self) -> str:
+        out, self._held = self._held, ""
+        return out
+
+
+class Backend:
+    """Engine wrapper adding detokenization + stop handling.
+
+    ``engine.generate(PreprocessedRequest, Context)`` must yield
+    ``EngineOutput`` with ``token_ids`` deltas; this stage fills ``text``
+    and ``finish_reason``.
+    """
+
+    def __init__(self, engine, tokenizer: Tokenizer):
+        self.engine = engine
+        self.tokenizer = tokenizer
+
+    async def generate(self, request: PreprocessedRequest,
+                       context: Context) -> AsyncIterator[EngineOutput]:
+        decode = self.tokenizer.decode_stream(
+            skip_special_tokens=request.output.skip_special_tokens)
+        jail = StopSequenceJail(request.stop.stop or [])
+        eos_ids = set() if request.stop.ignore_eos else set(request.eos_token_ids)
+        stop_ids = set(request.stop.stop_token_ids or [])
+        max_tokens = request.stop.max_tokens
+        min_tokens = request.stop.min_tokens or 0
+        produced = 0
+        finished: Optional[str] = None
+
+        if max_tokens is not None and max_tokens < 1:
+            yield EngineOutput(token_ids=[], text="", finish_reason=FINISH_LENGTH,
+                               completion_tokens=0)
+            context.stop_generating()
+            return
+
+        def _final_text(released: str, stop_seq_hit: bool) -> str:
+            """Append held decoder/jail text to the finish-bearing chunk.
+            When a stop STRING matched, the jail already truncated at the
+            match and held text is intentionally dropped; every other
+            finish must flush held text."""
+            if stop_seq_hit:
+                return released
+            tail, _ = jail.feed(decode.flush())
+            return released + tail + jail.flush()
+
+        async for out in self.engine.generate(request, context):
+            emit_ids: List[int] = []
+            decode_ids: List[int] = []
+            for tid in out.token_ids:
+                produced += 1
+                is_eos = tid in eos_ids and produced >= min_tokens
+                is_stop_tok = tid in stop_ids and produced >= min_tokens
+                if not (is_eos and request.output.skip_special_tokens):
+                    decode_ids.append(tid)
+                emit_ids.append(tid)
+                if is_eos:
+                    finished = FINISH_EOS
+                elif is_stop_tok:
+                    finished = FINISH_STOP
+                elif max_tokens is not None and produced >= max_tokens:
+                    finished = FINISH_LENGTH
+                if finished:
+                    break
+            text = "".join(p for p in map(decode.step, decode_ids) if p)
+            released, hit = jail.feed(text) if text else ("", False)
+            if hit:
+                finished = finished or FINISH_STOP
+            out.token_ids = emit_ids
+            out.finish_reason = finished or out.finish_reason
+            out.completion_tokens = produced
+            if out.finish_reason:
+                out.text = _final_text(released, stop_seq_hit=hit)
+                yield out
+                context.stop_generating()
+                return
+            out.text = released
+            yield out
+            if context.stopped:
+                context.stop_generating()
+                yield EngineOutput(text=_final_text("", False) or None,
+                                   finish_reason=context.cancel_reason(),
+                                   completion_tokens=produced)
+                return
+        # engine stream exhausted without a finish reason: flush held text and
+        # stamp a terminal reason so downstream never fabricates one
+        yield EngineOutput(token_ids=[], text=_final_text("", False) or "",
+                           finish_reason=FINISH_STOP, completion_tokens=produced)

@@ -1,0 +1,94 @@
+"""Local engine chains: preprocessor → backend → core engine, in-process.
+
+A copy of ``LocalChatChain`` and ``LocalCompletionChain`` from
+``dynamo_tpu/llm/engines.py``: a "core" engine speaks token-level types
+and is wrapped by ``OpenAIPreprocessor`` + ``Backend`` so the HTTP
+service can call it with OpenAI requests.
+"""
+
+from __future__ import annotations
+
+import time
+import uuid
+from typing import AsyncIterator, Optional
+
+from ..runtime.engine import Context
+from .backend import Backend
+from .model_card import ModelDeploymentCard
+from .preprocessor import OpenAIPreprocessor
+from .protocols.openai import (ChatCompletionRequest, CompletionRequest,
+                               _finish_reason_openai)
+
+
+class LocalChatChain:
+    """preprocessor → backend → core engine for /v1/chat/completions."""
+
+    def __init__(self, mdc: ModelDeploymentCard, core_engine,
+                 preprocessor: Optional[OpenAIPreprocessor] = None):
+        self.mdc = mdc
+        self.preprocessor = preprocessor or OpenAIPreprocessor(mdc)
+        self.backend = Backend(core_engine, self.preprocessor.tokenizer)
+
+    def __call__(self, request: ChatCompletionRequest,
+                 context: Context) -> AsyncIterator:
+        return self._run(request, context)
+
+    async def _run(self, request: ChatCompletionRequest, context: Context):
+        pre, annotations = self.preprocessor.preprocess_chat(request)
+        for ann in annotations:
+            yield ann
+        engine_stream = self.backend.generate(pre, context)
+        async for chunk in self.preprocessor.chat_stream(
+                request, engine_stream, context, len(pre.token_ids)):
+            yield chunk
+
+
+class LocalCompletionChain:
+    """Same chain for the /v1/completions endpoint."""
+
+    def __init__(self, mdc: ModelDeploymentCard, core_engine,
+                 preprocessor: Optional[OpenAIPreprocessor] = None):
+        self.mdc = mdc
+        self.preprocessor = preprocessor or OpenAIPreprocessor(mdc)
+        self.backend = Backend(core_engine, self.preprocessor.tokenizer)
+
+    def __call__(self, request: CompletionRequest,
+                 context: Context) -> AsyncIterator:
+        return self._run(request, context)
+
+    async def _run(self, request: CompletionRequest, context: Context):
+        pre, annotations = self.preprocessor.preprocess_completion(request)
+        for ann in annotations:
+            yield ann
+        rid = f"cmpl-{context.id or uuid.uuid4().hex}"
+        created = int(time.time())
+        completion_tokens = 0
+        if pre.output.echo_prompt:
+            # OpenAI completions echo=true: the response text starts with
+            # the prompt (reconstructed from the request token ids)
+            yield {
+                "id": rid, "object": "text_completion", "created": created,
+                "model": request.model,
+                "choices": [{"index": 0,
+                             "text": self.preprocessor.tokenizer.decode(
+                                 list(pre.token_ids)),
+                             "finish_reason": None}],
+            }
+        async for out in self.backend.generate(pre, context):
+            completion_tokens += len(out.token_ids)
+            if out.text or out.finish_reason:
+                yield {"id": rid, "object": "text_completion",
+                       "created": created, "model": request.model,
+                       "choices": [{"index": 0, "text": out.text or "",
+                                    "finish_reason": _finish_reason_openai(
+                                        out.finish_reason)}]}
+            if out.finish_reason:
+                if request.stream_options and request.stream_options.include_usage:
+                    yield {"id": rid, "object": "text_completion",
+                           "created": created, "model": request.model,
+                           "choices": [], "usage": {
+                               "prompt_tokens": len(pre.token_ids),
+                               "completion_tokens": completion_tokens,
+                               "total_tokens":
+                                   len(pre.token_ids) + completion_tokens}}
+                return

@@ -1,0 +1,184 @@
+"""Internal (engine-facing) request/response model.
+
+Reference lib/llm/src/protocols/common.rs:43-633 (StopConditions,
+SamplingOptions, OutputOptions) and protocols/common/llm_backend.rs
+(BackendInput/BackendOutput/LLMEngineOutput): the preprocessor lowers an
+OpenAI request into these token-level types; engines speak only these.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+
+@dataclass
+class StopConditions:
+    """When to stop generating (reference common.rs StopConditions)."""
+
+    max_tokens: Optional[int] = None
+    stop: Optional[List[str]] = None            # stop strings (detok'd match)
+    stop_token_ids: Optional[List[int]] = None  # exact token matches
+    min_tokens: Optional[int] = None
+    ignore_eos: bool = False
+
+    def to_dict(self) -> dict:
+        return {k: v for k, v in self.__dict__.items() if v not in (None, False)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "StopConditions":
+        return cls(**{k: d.get(k) for k in
+                      ("max_tokens", "stop", "stop_token_ids", "min_tokens")},
+                   ignore_eos=bool(d.get("ignore_eos", False)))
+
+
+@dataclass
+class SamplingOptions:
+    """How to sample (reference common.rs SamplingOptions)."""
+
+    temperature: Optional[float] = None
+    top_p: Optional[float] = None
+    top_k: Optional[int] = None
+    frequency_penalty: Optional[float] = None
+    presence_penalty: Optional[float] = None
+    repetition_penalty: Optional[float] = None
+    # OpenAI logit_bias: token id -> additive bias (-100..100), applied
+    # to the logits before sampling
+    logit_bias: Optional[dict] = None
+    seed: Optional[int] = None
+    n: int = 1
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature is None or self.temperature <= 0.0
+
+    def to_dict(self) -> dict:
+        return {k: v for k, v in self.__dict__.items() if v is not None}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SamplingOptions":
+        known = {f for f in cls.__dataclass_fields__}  # type: ignore[attr-defined]
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclass
+class OutputOptions:
+    """What to return (reference common.rs OutputOptions)."""
+
+    logprobs: Optional[int] = None
+    echo_prompt: bool = False
+    skip_special_tokens: bool = True
+
+    def to_dict(self) -> dict:
+        return {"logprobs": self.logprobs, "echo_prompt": self.echo_prompt,
+                "skip_special_tokens": self.skip_special_tokens}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "OutputOptions":
+        return cls(logprobs=d.get("logprobs"),
+                   echo_prompt=bool(d.get("echo_prompt", False)),
+                   skip_special_tokens=bool(d.get("skip_special_tokens", True)))
+
+
+@dataclass
+class PreprocessedRequest:
+    """Token-level request handed to engines (reference
+    llm_backend.rs BackendInput)."""
+
+    token_ids: List[int]
+    sampling: SamplingOptions = field(default_factory=SamplingOptions)
+    stop: StopConditions = field(default_factory=StopConditions)
+    output: OutputOptions = field(default_factory=OutputOptions)
+    eos_token_ids: List[int] = field(default_factory=list)
+    mdc_sum: Optional[str] = None       # model-deployment-card checksum
+    annotations: List[str] = field(default_factory=list)
+    # disaggregation plumbing (set by the disagg path, not the preprocessor)
+    disagg: Optional[dict] = None
+
+    def to_dict(self) -> dict:
+        return {
+            "token_ids": list(self.token_ids),
+            "sampling": self.sampling.to_dict(),
+            "stop": self.stop.to_dict(),
+            "output": self.output.to_dict(),
+            "eos_token_ids": list(self.eos_token_ids),
+            "mdc_sum": self.mdc_sum,
+            "annotations": self.annotations,
+            "disagg": self.disagg,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PreprocessedRequest":
+        return cls(
+            token_ids=list(d["token_ids"]),
+            sampling=SamplingOptions.from_dict(d.get("sampling", {})),
+            stop=StopConditions.from_dict(d.get("stop", {})),
+            output=OutputOptions.from_dict(d.get("output", {})),
+            eos_token_ids=list(d.get("eos_token_ids", [])),
+            mdc_sum=d.get("mdc_sum"),
+            annotations=list(d.get("annotations", [])),
+            disagg=d.get("disagg"),
+        )
+
+
+FINISH_EOS = "eos"
+FINISH_STOP = "stop"
+FINISH_LENGTH = "length"
+FINISH_CANCELLED = "cancelled"
+# the request's end-to-end deadline expired: cancelled by the budget, not
+# the caller — clients see finish_reason "timeout" / HTTP 504
+FINISH_TIMEOUT = "timeout"
+FINISH_ERROR = "error"
+
+
+@dataclass
+class EngineOutput:
+    """One streamed chunk from an engine (reference
+    llm_backend.rs LLMEngineOutput): new token ids since the last chunk,
+    optional engine-decoded text, cumulative counts, finish reason."""
+
+    token_ids: List[int] = field(default_factory=list)
+    text: Optional[str] = None
+    cum_log_prob: Optional[float] = None
+    logprobs: Optional[List[float]] = None
+    top_logprobs: Optional[List[Dict[str, Any]]] = None
+    finish_reason: Optional[str] = None
+    # engine-side metrics (filled on the final chunk)
+    prompt_tokens: Optional[int] = None
+    completion_tokens: Optional[int] = None
+    # KV routing side-channel: overlap blocks seen by the engine
+    kv_overlap_blocks: Optional[int] = None
+    # dynaprof: per-request cost attribution (queue wait, device-step
+    # share, KV footprint) attached to the finish chunk by the engine;
+    # absent on every other chunk and on legacy peers (optional field =
+    # wire-compatible)
+    cost: Optional[dict] = None
+
+    @property
+    def finished(self) -> bool:
+        return self.finish_reason is not None
+
+    def to_dict(self) -> dict:
+        d: dict = {"token_ids": list(self.token_ids)}
+        for k in ("text", "cum_log_prob", "logprobs", "top_logprobs",
+                  "finish_reason", "prompt_tokens", "completion_tokens",
+                  "kv_overlap_blocks", "cost"):
+            v = getattr(self, k)
+            if v is not None:
+                d[k] = v
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "EngineOutput":
+        return cls(
+            token_ids=list(d.get("token_ids", [])),
+            text=d.get("text"),
+            cum_log_prob=d.get("cum_log_prob"),
+            logprobs=d.get("logprobs"),
+            top_logprobs=d.get("top_logprobs"),
+            finish_reason=d.get("finish_reason"),
+            prompt_tokens=d.get("prompt_tokens"),
+            completion_tokens=d.get("completion_tokens"),
+            kv_overlap_blocks=d.get("kv_overlap_blocks"),
+            cost=d.get("cost"),
+        )

@@ -1,0 +1,33 @@
+"""Params bridge: numpy arrays (e.g. the JAX package's params, taken with
+``np.asarray``) → the port's tensors, with identical keys and layout."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..runtime.device import resolve_device
+from .config import ModelConfig
+from .llama import Params, check_supported
+
+
+def params_from_numpy(params: Dict[str, np.ndarray], cfg: ModelConfig,
+                      device="cuda") -> Params:
+    """Stacked-layer params as tensors on ``device`` in the config's
+    dtype. Arrays in a numpy type torch lacks (ml_dtypes bfloat16) go
+    through float32, which holds every bfloat16 value exactly."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    out: Params = {}
+    for k, a in params.items():
+        a = np.asarray(a)
+        if a.dtype.kind not in "fiub":
+            a = a.astype(np.float32)
+        elif a.dtype.kind == "f" and a.dtype.itemsize == 2 \
+                and a.dtype != np.float16:
+            a = a.astype(np.float32)
+        out[k] = torch.from_numpy(np.array(a, order="C")).to(
+            device=device, dtype=cfg.torch_dtype)
+    return out

@@ -1,0 +1,228 @@
+"""Model configuration.
+
+A copy of ``dynamo_tpu/models/config.py`` with ``torch_dtype`` in place of
+``jax_dtype``. It parses every family the JAX package knows; the port's
+model (models/llama.py) serves the dense Llama path and raises
+``NotImplementedError`` for MoE and MLA configurations.
+``from_hf_config`` maps a HuggingFace ``config.json`` dict.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+
+@dataclass
+class ModelConfig:
+    model_type: str = "llama"
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: Optional[int] = None
+    rope_theta: float = 500000.0
+    rope_scaling: Optional[dict] = None
+    rms_norm_eps: float = 1e-5
+    tie_word_embeddings: bool = False
+    # MoE (Mixtral-style); num_experts=0 → dense
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    # MLA (DeepSeek-V2/V3 multi-head latent attention); kv_lora_rank>0
+    # switches the attention/KV-cache design (models/mla.py)
+    q_lora_rank: int = 0           # 0 = full-rank q projection
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    attn_bias: bool = False        # qkv projection bias (Qwen2-style)
+    qk_norm: bool = False          # per-head RMSNorm on q/k pre-RoPE (Qwen3)
+    # DeepSeek-MoE (V2/V3): dense first-k layers, shared experts riding
+    # beside the routed ones, and family-specific routing — "deepseek_v2"
+    # (softmax scores, optional max-per-group limiting, scale) or
+    # "deepseek_v3" (sigmoid scores + selection bias, top-2-sum groups,
+    # optional renorm, scale). moe_intermediate_size is the EXPERT width;
+    # intermediate_size stays the dense-layer width.
+    moe_router: str = "mixtral"
+    n_shared_experts: int = 0
+    first_k_dense_replace: int = 0
+    moe_intermediate_size: Optional[int] = None
+    routed_scaling_factor: float = 1.0
+    n_group: int = 0               # 0 = no group-limited routing
+    topk_group: int = 0
+    norm_topk_prob: bool = False
+    # real DeepSeek checkpoints store rope dims INTERLEAVED (pairs
+    # (2i, 2i+1)); the loader permutes those weight columns to our
+    # split-half rope convention (scores are permutation-invariant)
+    rope_interleave: bool = False
+    # Gemma-family knobs (model_type "gemma"/"gemma2"): scaled embeddings,
+    # (1 + w) RMSNorm, GeGLU activation, explicit attention scale, and the
+    # Gemma-2 final-logit softcap
+    embed_scale: bool = False      # multiply embeddings by sqrt(hidden)
+    norm_unit_offset: bool = False  # rms_norm weight is (1 + w)
+    hidden_act: str = "silu"       # "silu" | "gelu_tanh"
+    query_pre_attn_scalar: Optional[float] = None  # attn scale override
+    final_logit_softcap: Optional[float] = None
+    # Gemma-2 only: sandwich norms (post-attention + pre/post-feedforward
+    # norms around each residual add), tanh softcap on attention logits,
+    # and sliding-window attention on even-indexed layers
+    sandwich_norms: bool = False
+    attn_logit_softcap: Optional[float] = None
+    sliding_window: Optional[int] = None
+    dtype: str = "bfloat16"
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+    @property
+    def attn_scale(self) -> float:
+        """Attention logit scale: 1/sqrt(head_dim) unless the config pins
+        a different denominator (Gemma-2's query_pre_attn_scalar)."""
+        denom = self.query_pre_attn_scalar or self.head_dim_
+        return 1.0 / (denom ** 0.5)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                "float16": torch.float16}[self.dtype]
+
+    @classmethod
+    def from_hf_config(cls, cfg: dict) -> "ModelConfig":
+        mt = cfg.get("model_type", "llama")
+        c = cls(
+            model_type="mixtral" if mt == "mixtral" else "llama",
+            vocab_size=cfg["vocab_size"],
+            hidden_size=cfg["hidden_size"],
+            intermediate_size=cfg["intermediate_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=cfg["num_attention_heads"],
+            num_kv_heads=cfg.get("num_key_value_heads",
+                                 cfg["num_attention_heads"]),
+            head_dim=cfg.get("head_dim"),
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rope_scaling=cfg.get("rope_scaling"),
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+        )
+        if mt == "mixtral":
+            c.num_experts = cfg.get("num_local_experts", 8)
+            c.num_experts_per_tok = cfg.get("num_experts_per_tok", 2)
+        if mt in ("deepseek_v2", "deepseek_v3"):
+            c.model_type = mt
+            c.q_lora_rank = cfg.get("q_lora_rank") or 0
+            c.kv_lora_rank = cfg.get("kv_lora_rank", 512)
+            c.qk_nope_head_dim = cfg.get("qk_nope_head_dim", 128)
+            c.qk_rope_head_dim = cfg.get("qk_rope_head_dim", 64)
+            c.v_head_dim = cfg.get("v_head_dim", 128)
+            c.num_experts = cfg.get("n_routed_experts") or 0
+            c.num_experts_per_tok = cfg.get("num_experts_per_tok", 2)
+            c.rope_interleave = cfg.get("rope_interleave", True)
+            if c.num_experts > 0:
+                c.moe_router = mt
+                c.n_shared_experts = cfg.get("n_shared_experts") or 0
+                c.first_k_dense_replace = cfg.get("first_k_dense_replace",
+                                                  0)
+                c.moe_intermediate_size = cfg.get("moe_intermediate_size")
+                c.routed_scaling_factor = cfg.get("routed_scaling_factor",
+                                                  1.0)
+                c.norm_topk_prob = cfg.get("norm_topk_prob", False)
+                if mt == "deepseek_v2" and c.norm_topk_prob:
+                    # The installed transformers DeepseekV2MoEGate ignores
+                    # this flag (always scales, never renormalizes) while
+                    # DeepSeek's remote-code gate renormalizes instead of
+                    # scaling — two conflicting oracles, and no published
+                    # V2 checkpoint sets it. Reject loudly rather than
+                    # silently diverging from either.
+                    raise NotImplementedError(
+                        "deepseek_v2 with norm_topk_prob=true is not "
+                        "supported (conflicting reference semantics)")
+                if mt == "deepseek_v3" or cfg.get(
+                        "topk_method", "greedy") != "greedy":
+                    # v2 "greedy" routes without group limiting; v3 is
+                    # always group-limited (noaux_tc)
+                    c.n_group = cfg.get("n_group") or 0
+                    c.topk_group = cfg.get("topk_group") or 0
+        if mt == "qwen2":
+            c.model_type = "llama"  # same decoder shape (GQA + SwiGLU)
+            c.attn_bias = True      # qwen2 keeps bias on q/k/v projections
+        if mt in ("qwen3", "qwen3_moe"):
+            # Qwen3 = Llama GQA + per-head q/k RMSNorm (no qkv bias);
+            # the MoE variant routes Mixtral-style (softmax-then-top-k ==
+            # top-k-then-softmax after renorm) with its own expert width
+            c.model_type = "qwen3"
+            c.qk_norm = True
+            if mt == "qwen3_moe":
+                if not cfg.get("norm_topk_prob", False):
+                    # our dense-over-experts MoE normalizes the top-k
+                    # weights (softmax over the selected logits); the
+                    # un-renormalized variant would silently diverge
+                    raise NotImplementedError(
+                        "qwen3_moe with norm_topk_prob=false is not "
+                        "supported (router weights are renormalized)")
+                if (cfg.get("decoder_sparse_step", 1) != 1
+                        or cfg.get("mlp_only_layers")):
+                    # every layer is treated as MoE; interleaved dense
+                    # layers would need per-layer MLP selection
+                    raise NotImplementedError(
+                        "qwen3_moe with dense layers interleaved "
+                        "(decoder_sparse_step != 1 or mlp_only_layers) "
+                        "is not supported")
+                c.num_experts = cfg.get("num_experts", 128)
+                c.num_experts_per_tok = cfg.get("num_experts_per_tok", 8)
+                c.intermediate_size = cfg["moe_intermediate_size"]
+        if mt in ("gemma", "gemma2"):
+            # Gemma rides the Llama GQA stack with four semantic switches
+            c.model_type = "gemma"
+            c.embed_scale = True
+            c.norm_unit_offset = True
+            c.hidden_act = "gelu_tanh"
+            c.tie_word_embeddings = cfg.get("tie_word_embeddings", True)
+            if mt == "gemma2":
+                # Gemma-2 adds sandwich norms (post-attention norm on the
+                # attention output, pre/post-feedforward norms), sliding-
+                # window attention on even layers, logit softcaps, and an
+                # explicit attention-scale denominator
+                c.model_type = "gemma2"
+                c.sandwich_norms = True
+                c.sliding_window = cfg.get("sliding_window", 4096)
+                c.attn_logit_softcap = cfg.get("attn_logit_softcapping")
+                c.final_logit_softcap = cfg.get("final_logit_softcapping")
+                c.query_pre_attn_scalar = cfg.get("query_pre_attn_scalar")
+        return c
+
+    @classmethod
+    def from_local_path(cls, path: str) -> "ModelConfig":
+        with open(os.path.join(path, "config.json")) as f:
+            return cls.from_hf_config(json.load(f))
+
+    @classmethod
+    def tiny(cls, **overrides) -> "ModelConfig":
+        """A CPU-testable configuration (vocab matches ByteTokenizer)."""
+        base = dict(vocab_size=512, hidden_size=64, intermediate_size=128,
+                    num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+                    rope_theta=10000.0, dtype="float32")
+        base.update(overrides)
+        return cls(**base)
+
+    @classmethod
+    def llama3_8b(cls) -> "ModelConfig":
+        return cls()  # defaults above are Llama-3-8B
+
+    @classmethod
+    def llama_1b(cls) -> "ModelConfig":
+        """The ``--model 1b`` preset of dynamo_tpu/run.py."""
+        return cls(vocab_size=128256, hidden_size=2048,
+                   intermediate_size=8192, num_layers=16,
+                   num_heads=32, num_kv_heads=8, head_dim=64,
+                   dtype="bfloat16")

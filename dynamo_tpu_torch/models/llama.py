@@ -1,0 +1,667 @@
+"""Dense Llama-family model in PyTorch with a paged KV cache.
+
+The PyTorch counterpart of ``dynamo_tpu/models/llama.py`` (dense path),
+with the same layouts so the two compare like with like:
+
+- params are a dict of tensors with the JAX package's keys; projections
+  are ``x @ W`` with ``W`` of shape ``[in, out]``, stacked on a leading
+  layer axis (``wq`` is ``[L, D, H*hd]``);
+- the KV cache is the stacked page pool ``[L, num_pages, KV, page_size,
+  head_dim]``; sequences own pages through page tables.
+
+Where the JAX package donates the pool buffers so XLA can update pages in
+place, this module updates the pool tensors IN PLACE (``forward``, the
+step functions and the fused decode window all mutate ``kv_k``/``kv_v``
+and return the same tensors). Layers run as a Python loop over the
+stacked axis (``lax.scan`` in JAX).
+
+Attention goes through the CUDA kernels in ``ops/paged_attention.py``
+(decode and the fused window through the decode kernel, prefill through
+the prefill kernel) when ``use_kernels`` is set; on CPU tensors those
+wrappers compute their plain versions. ``use_kernels=False`` takes the
+gather paths (``_paged_attention``, ``_pool_window_attention``), the
+plain reference the kernel path is held against.
+
+MoE and MLA configurations raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.paged_attention import (NEG_INF, effective_window,
+                                   paged_attention_decode_layered,
+                                   paged_attention_decode_window,
+                                   paged_attention_prefill, prefill_reference)
+from ..runtime.device import resolve_device
+from .config import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+# scatter sentinel for padded rows: out of range, so the scatter drops it
+DROP_SLOT = 1 << 30
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    if cfg.num_experts > 0:
+        raise NotImplementedError("MoE models are not ported yet")
+    if cfg.is_mla:
+        raise NotImplementedError("MLA models are not ported yet")
+
+
+# ---------------------------------------------------------------- KV cache
+
+
+@dataclass
+class KVCacheSpec:
+    num_pages: int
+    page_size: int
+
+    def shape(self, cfg: ModelConfig) -> Tuple[int, ...]:
+        # kv-head-major page layout [L, pages, KV, ps, hd]: one page of
+        # one kv head is a contiguous [ps, hd] tile for the kernels
+        return (cfg.num_layers, self.num_pages, cfg.num_kv_heads,
+                self.page_size, cfg.head_dim_)
+
+
+def init_kv_cache(cfg: ModelConfig, spec: KVCacheSpec, dtype=None,
+                  device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    device = resolve_device(device)
+    shape = spec.shape(cfg)
+    dtype = dtype or cfg.torch_dtype
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ------------------------------------------------------------------ params
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=None) -> Params:
+    """Random-init params (stacked layers on axis 0) on the generator's
+    device, drawn from ``generator``: normal / sqrt(fan_in) for
+    matrices, ones for norms, zeros for biases."""
+    check_supported(cfg)
+    dtype = dtype or cfg.torch_dtype
+    device = generator.device
+    D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    V = cfg.vocab_size
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def w(*shape):
+        scale = 1.0 / math.sqrt(shape[-2]) if len(shape) > 1 else 0.02
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return x.mul_(scale).to(dtype)
+
+    p: Params = {
+        "embed": w(V, D),
+        "wq": w(L, D, H * hd),
+        "wk": w(L, D, KV * hd),
+        "wv": w(L, D, KV * hd),
+        "wo": w(L, H * hd, D),
+        "w_gate": w(L, D, I),
+        "w_up": w(L, D, I),
+        "w_down": w(L, I, D),
+        "ln_attn": ones(L, D),
+        "ln_mlp": ones(L, D),
+        "ln_final": ones(D),
+    }
+    if cfg.attn_bias:  # Qwen2-style q/k/v projection bias
+        p["bq"] = torch.zeros((L, H * hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((L, KV * hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((L, KV * hd), dtype=dtype, device=device)
+    if cfg.sandwich_norms:  # Gemma-2 post-attention/feedforward norms
+        p["ln_attn_post"] = ones(L, D)
+        p["ln_mlp_post"] = ones(L, D)
+    if cfg.qk_norm:  # Qwen3 per-head q/k norms
+        p["q_norm"] = ones(L, hd)
+        p["k_norm"] = ones(L, hd)
+    if not cfg.tie_word_embeddings:
+        p["lm_head"] = w(D, V)
+    return p
+
+
+# -------------------------------------------------------------- primitives
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+             unit_offset: bool = False) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    normed = x32 * torch.rsqrt(var + eps)
+    if unit_offset:
+        # Gemma: w is a delta around 1, applied in float32 before the cast
+        return (normed * (1.0 + w.float())).to(x.dtype)
+    # Llama: cast first, then scale (matches HF LlamaRMSNorm)
+    return normed.to(x.dtype) * w
+
+
+def embed_tokens(params: Params, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """Token embedding lookup; Gemma scales by sqrt(hidden)."""
+    h = params["embed"][tokens.long()]
+    if cfg.embed_scale:
+        h = h * torch.tensor(math.sqrt(cfg.hidden_size), dtype=h.dtype)
+    return h
+
+
+def project_logits(params: Params, cfg: ModelConfig,
+                   h: torch.Tensor) -> torch.Tensor:
+    """LM head (tied to the embedding when absent) + the optional
+    final-logit softcap; float32 logits."""
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    logits = (h @ head).float()
+    if cfg.final_logit_softcap:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def _act(cfg: ModelConfig):
+    if cfg.hidden_act == "gelu_tanh":
+        return lambda x: F.gelu(x, approximate="tanh")
+    return F.silu
+
+
+def rope_freqs(cfg: ModelConfig, dim: Optional[int] = None,
+               device="cpu") -> torch.Tensor:
+    hd = dim or cfg.head_dim_
+    inv = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd))
+    scaling = cfg.rope_scaling or {}
+    if scaling.get("rope_type") == "llama3" or scaling.get("type") == "llama3":
+        # Llama-3.1-style NTK-by-parts frequency rescaling: low frequencies
+        # are divided by `factor`, high frequencies kept, mid smoothly mixed
+        factor = scaling.get("factor", 8.0)
+        low = scaling.get("low_freq_factor", 1.0)
+        high = scaling.get("high_freq_factor", 4.0)
+        orig = scaling.get("original_max_position_embeddings", 8192)
+        wavelen = 2 * math.pi / inv
+        smooth = torch.clamp((orig / wavelen - low) / (high - low), 0.0, 1.0)
+        inv = torch.where(wavelen > orig / low, inv / factor,
+                          torch.where(wavelen < orig / high, inv,
+                                      (1 - smooth) * inv / factor
+                                      + smooth * inv))
+    return inv
+
+
+def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of the rotation angles, [..., T, 1, hd/2] float32:
+    computed once per forward and shared by every layer's q and k."""
+    angles = positions[..., None].float() * inv_freq   # [..., T, hd/2]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               inv_freq: torch.Tensor) -> torch.Tensor:
+    """x: [..., T, heads, head_dim]; positions: [..., T]. Rotates split
+    halves in float32."""
+    return _rotate(x, *rope_cos_sin(positions, inv_freq))
+
+
+def _kept(idx: torch.Tensor, limit: int) -> torch.Tensor:
+    """Indices of the entries of ``idx`` inside ``[0, limit)``: padding
+    rows (DROP_SLOT, or page ids >= num_pages) are masked out explicitly
+    (torch has no drop-mode scatter)."""
+    return torch.nonzero((idx >= 0) & (idx < limit)).flatten()
+
+
+def _scatter_pages_paged(cache_layer: torch.Tensor, new: torch.Tensor,
+                         page_slots: torch.Tensor,
+                         keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Page-granular prefill commit, in place: write WHOLE pages. Requires
+    chunk starts page-aligned (the engine guarantees it). The tail page
+    may carry junk K/V beyond the chunk — safe, because a position's K/V
+    is always written before any query attends to it.
+
+    cache_layer: [num_pages, KV, ps, hd]; new: [B, T, KV, hd] (T % ps
+    == 0); page_slots: [B, T // ps] destination page ids (>= num_pages →
+    dropped padding); ``keep`` precomputed kept indices (optional)."""
+    N, KV, ps, hd = cache_layer.shape
+    B, T = new.shape[:2]
+    blocks = new.reshape(B, T // ps, ps, KV, hd).permute(0, 1, 3, 2, 4)
+    blocks = blocks.reshape(B * (T // ps), KV, ps, hd)
+    idx = page_slots.reshape(-1).long()
+    if keep is None:
+        keep = _kept(idx, N)
+    cache_layer[idx[keep]] = blocks[keep].to(cache_layer.dtype)
+    return cache_layer
+
+
+def _scatter_pages(cache_layer: torch.Tensor, new: torch.Tensor,
+                   flat_slots: torch.Tensor,
+                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Write new K/V rows into the page pool, in place.
+
+    cache_layer: [num_pages, KV, page_size, hd]; new: [B, T, KV, hd];
+    flat_slots: [B, T] flattened (page*page_size + slot) indices; entries
+    outside the pool (DROP_SLOT) are masked out."""
+    N, KV, ps, hd = cache_layer.shape
+    idx = flat_slots.reshape(-1).long()
+    rows = new.reshape(-1, KV, hd)
+    if keep is None:
+        keep = _kept(idx, N * ps)
+    idx = idx[keep]
+    # advanced indices (pages, offs) separated by the KV slice put the
+    # scatter axis first: target shape [n, KV, hd]
+    cache_layer[idx // ps, :, idx % ps] = rows[keep].to(cache_layer.dtype)
+    return cache_layer
+
+
+def _softcap_mask(scores, visible, softcap: Optional[float]):
+    """Gemma-2 attention-score postprocess: tanh softcap (BEFORE masking),
+    then the visibility mask."""
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    return torch.where(visible, scores, torch.full_like(scores, NEG_INF))
+
+
+def _attention(q: torch.Tensor, kv_k: torch.Tensor, kv_v: torch.Tensor,
+               layer: int, page_table: torch.Tensor,
+               q_positions: torch.Tensor, scale: float,
+               use_kernels: bool = True, softcap: Optional[float] = None,
+               window: Optional[int] = None,
+               is_sliding: bool = False) -> torch.Tensor:
+    """Dispatch: decode (T == 1) → the decode kernel on layer ``layer`` of
+    the stacked pool; T > 1 → the prefill kernel on ``pool[layer]`` (a
+    view). ``use_kernels=False`` takes the gather path."""
+    B, T = q.shape[:2]
+    if not use_kernels:
+        return _paged_attention(q, kv_k[layer], kv_v[layer], page_table,
+                                q_positions, scale, softcap=softcap,
+                                window=window, is_sliding=is_sliding)
+    eff = None
+    if window is not None:
+        eff = effective_window(window, is_sliding, B, q.device)
+    if T == 1:
+        # padding rows: position -1 → length 0 → zeros
+        lengths = (q_positions[:, 0] + 1).clamp(min=0).to(torch.int32)
+        lower = None
+        if eff is not None:
+            # first visible position, clamped so a live row keeps at
+            # least its own position in view
+            lower = torch.minimum(
+                (lengths - eff).clamp(min=0),
+                (lengths - 1).clamp(min=0)).to(torch.int32)
+        return paged_attention_decode_layered(
+            q[:, 0].contiguous(), kv_k, kv_v, layer, page_table, lengths,
+            scale=scale, softcap=softcap, lower=lower)[:, None]
+    return paged_attention_prefill(q.contiguous(), kv_k[layer], kv_v[layer],
+                                   page_table, q_positions, scale=scale,
+                                   softcap=softcap, eff_win=eff)
+
+
+def _paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, page_table: torch.Tensor,
+                     q_positions: torch.Tensor, scale: float,
+                     softcap: Optional[float] = None,
+                     window: Optional[int] = None,
+                     is_sliding: bool = False) -> torch.Tensor:
+    """Gather-based paged GQA attention, the prefill kernel's plain
+    version: the row's pages become a dense ``[B, P*ps, KV, hd]`` view,
+    then masked attention over logical positions ``j <= q_position`` (and
+    within the sliding window on sliding layers). Padding queries give
+    zeros.
+
+    q: [B, T, H, hd]; k_pages/v_pages: [num_pages, KV, ps, hd];
+    page_table: [B, P]; q_positions: [B, T] (absolute, -1 padding)."""
+    eff = None
+    if window is not None:
+        eff = effective_window(window, is_sliding, q.shape[0], q.device)
+    return prefill_reference(q, k_pages, v_pages, page_table, q_positions,
+                             scale, softcap=softcap, eff_win=eff)
+
+
+# ------------------------------------------------------------ forward pass
+
+
+def _mlp(h, w_gate, w_up, w_down, act=F.silu) -> torch.Tensor:
+    return (act(h @ w_gate) * (h @ w_up)) @ w_down
+
+
+def _layer_keys(cfg: ModelConfig) -> list:
+    """Per-layer param names indexed on the stacked-layer axis."""
+    keys = ["wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+            "ln_attn", "ln_mlp"]
+    if cfg.attn_bias:
+        keys += ["bq", "bk", "bv"]
+    if cfg.sandwich_norms:
+        keys += ["ln_attn_post", "ln_mlp_post"]
+    if cfg.qk_norm:
+        keys += ["q_norm", "k_norm"]
+    return keys
+
+
+def _residual_add(h, out, lp, post_key: str, cfg: ModelConfig):
+    """Residual add, with the Gemma-2 sandwich norm on the branch output
+    when the config uses them."""
+    if cfg.sandwich_norms:
+        out = rms_norm(out, lp[post_key], cfg.rms_norm_eps,
+                       cfg.norm_unit_offset)
+    return h + out
+
+
+def _qk_headnorm(q, k, lp, cfg: ModelConfig):
+    """Qwen3 per-head RMSNorm on q/k before RoPE. No-op unless
+    cfg.qk_norm."""
+    if not cfg.qk_norm:
+        return q, k
+    return (rms_norm(q, lp["q_norm"], cfg.rms_norm_eps),
+            rms_norm(k, lp["k_norm"], cfg.rms_norm_eps))
+
+
+def _sliding_flag(cfg: ModelConfig, l_idx: int) -> bool:
+    """Gemma-2 applies the window on even-indexed layers only."""
+    return cfg.sliding_window is not None and l_idx % 2 == 0
+
+
+def _qkv(cfg: ModelConfig, lp, x, B: int, T: int, rope):
+    """Projections, optional bias / qk-norm, RoPE with ``rope`` = (cos,
+    sin) from :func:`rope_cos_sin`: (q, k, v) as [B, T, H|KV, hd]."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    xq, xk, xv = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+    if cfg.attn_bias:
+        xq, xk, xv = xq + lp["bq"], xk + lp["bk"], xv + lp["bv"]
+    q, k = _qk_headnorm(xq.reshape(B, T, H, hd), xk.reshape(B, T, KV, hd),
+                        lp, cfg)
+    return _rotate(q, *rope), _rotate(k, *rope), xv.reshape(B, T, KV, hd)
+
+
+def _mlp_block(cfg: ModelConfig, lp, h, act):
+    x = rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps, cfg.norm_unit_offset)
+    return _residual_add(h, _mlp(x, lp["w_gate"], lp["w_up"], lp["w_down"],
+                                 act), lp, "ln_mlp_post", cfg)
+
+
+@torch.no_grad()
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: torch.Tensor, kv_k: torch.Tensor, kv_v: torch.Tensor,
+            page_table: torch.Tensor, flat_slots: torch.Tensor,
+            use_kernels: bool = True,
+            page_slots: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Shared prefill/decode forward.
+
+    tokens: [B, T] (T=1 for decode); positions: [B, T] absolute positions
+    (-1 for padding rows); page_table: [B, P] int32; flat_slots: [B, T]
+    cache write slots (page*page_size + offset, DROP_SLOT for padding);
+    page_slots: optional [B, T // ps] page-granular write path for
+    aligned prefill chunks (see _scatter_pages_paged).
+
+    Writes the new K/V into ``kv_k``/``kv_v`` in place and returns
+    (hidden [B, T, D], kv_k, kv_v).
+    """
+    check_supported(cfg)
+    B, T = tokens.shape
+    inv_freq = rope_freqs(cfg, device=tokens.device)
+    scale = cfg.attn_scale
+    H, hd = cfg.num_heads, cfg.head_dim_
+    _, N, _, ps, _ = kv_k.shape
+    h = embed_tokens(params, cfg, tokens)
+    act = _act(cfg)
+    rope = rope_cos_sin(positions.clamp(min=0), inv_freq)
+    # the padding masks are shared by every layer: computed once
+    if page_slots is not None:
+        keep = _kept(page_slots.reshape(-1).long(), N)
+    else:
+        keep = _kept(flat_slots.reshape(-1).long(), N * ps)
+    keys = _layer_keys(cfg)
+    for l in range(cfg.num_layers):
+        lp = {k: params[k][l] for k in keys}
+        x = rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps, cfg.norm_unit_offset)
+        q, k, v = _qkv(cfg, lp, x, B, T, rope)
+        if page_slots is not None:
+            _scatter_pages_paged(kv_k[l], k, page_slots, keep)
+            _scatter_pages_paged(kv_v[l], v, page_slots, keep)
+        else:
+            _scatter_pages(kv_k[l], k, flat_slots, keep)
+            _scatter_pages(kv_v[l], v, flat_slots, keep)
+        attn = _attention(q, kv_k, kv_v, l, page_table, positions, scale,
+                          use_kernels=use_kernels,
+                          softcap=cfg.attn_logit_softcap,
+                          window=cfg.sliding_window,
+                          is_sliding=_sliding_flag(cfg, l))
+        h = _residual_add(h, attn.reshape(B, T, H * hd) @ lp["wo"], lp,
+                          "ln_attn_post", cfg)
+        h = _mlp_block(cfg, lp, h, act)
+    h = rms_norm(h, params["ln_final"], cfg.rms_norm_eps, cfg.norm_unit_offset)
+    return h, kv_k, kv_v
+
+
+def logits_at(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
+              gather_idx: torch.Tensor) -> torch.Tensor:
+    """LM head at selected positions. hidden: [B, T, D];
+    gather_idx: [B] position per row → logits [B, V] (float32)."""
+    B = hidden.shape[0]
+    rows = torch.arange(B, device=hidden.device)
+    return project_logits(params, cfg, hidden[rows, gather_idx.long()])
+
+
+# ------------------------------------------------------------ entry points
+
+
+def make_step_fns(cfg: ModelConfig, use_kernels: bool = True):
+    """Build the (prefill_step, decode_step) pair for one config. Both
+    write the pools in place (the JAX package donates them instead)."""
+
+    def prefill_step(params: Params, tokens, positions, kv_k, kv_v,
+                     page_table, flat_slots, last_idx, page_slots=None):
+        """Process prompt chunks [B, T]; returns (logits [B, V], kv_k,
+        kv_v)."""
+        h, kv_k, kv_v = forward(params, cfg, tokens, positions, kv_k, kv_v,
+                                page_table, flat_slots,
+                                use_kernels=use_kernels,
+                                page_slots=page_slots)
+        return logits_at(params, cfg, h, last_idx), kv_k, kv_v
+
+    def decode_step(params: Params, tokens, positions, kv_k, kv_v,
+                    page_table, flat_slots):
+        """One decode step: tokens [B], positions [B] →
+        (logits [B, V], kv_k, kv_v)."""
+        h, kv_k, kv_v = forward(params, cfg, tokens[:, None],
+                                positions[:, None], kv_k, kv_v, page_table,
+                                flat_slots[:, None], use_kernels=use_kernels)
+        return project_logits(params, cfg, h[:, 0]), kv_k, kv_v
+
+    return prefill_step, decode_step
+
+
+# ------------------------------------------------- fused decode window
+
+
+def carry_active(done: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Rows still generating: not stopped, not padding (pos < 0)."""
+    return torch.logical_and(torch.logical_not(done), pos >= 0)
+
+
+def carry_step_update(nxt, tok, pos, done, steps, remaining, eos_table):
+    """On-device sequence-carry update for one fused decode step: freeze
+    rows that sample a stop token or exhaust their budget."""
+    active = carry_active(done, pos)
+    hit_stop = torch.any(nxt[:, None] == eos_table, dim=1)
+    remaining = torch.where(active, remaining - 1, remaining)
+    tok = torch.where(active, nxt, tok)
+    pos = torch.where(active, pos + 1, pos)
+    steps = torch.where(active, steps + 1, steps)
+    done = torch.logical_or(done, torch.logical_and(
+        active, torch.logical_or(hit_stop, remaining <= 0)))
+    return tok, pos, done, steps, remaining
+
+
+def make_decode_window_fn(cfg: ModelConfig, use_kernels: bool = True,
+                          max_top_k: int = 64):
+    """Fused K-step decode with a READ-ONLY pool and an on-device
+    sequence carry (``dynamo_tpu/models/llama.py`` make_decode_window_fn).
+    The K new tokens' K/V accumulate in a per-layer window buffer that
+    attention reads alongside the pool; ONE scatter at the end commits the
+    window into the pool (in place). Stop conditions run on device: a row
+    freezes as soon as it samples a stop token or exhausts its budget, and
+    ``emitted`` counts the tokens each row really produced."""
+    from ..engine.sampling import sample_tokens
+
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    scale = cfg.attn_scale
+
+    @torch.no_grad()
+    def decode_window(params, tokens, positions, done, steps, remaining,
+                      kv_k, kv_v, page_table, temperature, top_k, top_p,
+                      seeds, eos_table, *, k_steps: int):
+        """tokens/positions/done/steps/remaining: [B] carry (position -1 =
+        padding row); temperature/top_k/top_p/seeds: [B] sampler params;
+        eos_table: [B, E] stop ids (-1 pad). Returns (tokens [B, K],
+        emitted [B], carry, kv_k, kv_v)."""
+        check_supported(cfg)
+        B = tokens.shape[0]
+        L = cfg.num_layers
+        _, N, _, ps, _ = kv_k.shape
+        P = page_table.shape[1]
+        dev = tokens.device
+        inv_freq = rope_freqs(cfg, device=dev)
+        act = _act(cfg)
+        start = positions  # [B] position of the first window token
+        wk = torch.zeros((L, B, k_steps, KV, hd), dtype=kv_k.dtype, device=dev)
+        wv = torch.zeros_like(wk)
+        keys = _layer_keys(cfg)
+        tok, pos = tokens, positions
+        toks = []
+        emitted = torch.zeros((B,), dtype=torch.int32, device=dev)
+        for i in range(k_steps):
+            h = embed_tokens(params, cfg, tok)[:, None]  # [B, 1, D]
+            safe_pos = pos.clamp(min=0)[:, None]
+            rope = rope_cos_sin(safe_pos, inv_freq)
+            for l in range(L):
+                lp = {k: params[k][l] for k in keys}
+                x = rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps,
+                             cfg.norm_unit_offset)
+                q, k, v = _qkv(cfg, lp, x, B, 1, rope)
+                wk[l, :, i] = k[:, 0].to(wk.dtype)
+                wv[l, :, i] = v[:, 0].to(wv.dtype)
+                win_args = dict(softcap=cfg.attn_logit_softcap,
+                                window=cfg.sliding_window,
+                                is_sliding=_sliding_flag(cfg, l),
+                                q_pos=safe_pos[:, 0])
+                if use_kernels:
+                    attn = _pool_window_attention_kernel(
+                        q, kv_k, kv_v, l, page_table, start, wk[l], wv[l],
+                        i, scale, **win_args)
+                else:
+                    attn = _pool_window_attention(
+                        q, kv_k[l], kv_v[l], page_table, start, wk[l],
+                        wv[l], i, scale, **win_args)
+                h = _residual_add(h, attn.reshape(B, 1, H * hd) @ lp["wo"],
+                                  lp, "ln_attn_post", cfg)
+                h = _mlp_block(cfg, lp, h, act)
+            h = rms_norm(h, params["ln_final"], cfg.rms_norm_eps,
+                         cfg.norm_unit_offset)
+            logits = project_logits(params, cfg, h[:, 0])
+            nxt = sample_tokens(logits, temperature, top_k, top_p, seeds,
+                                steps, max_top_k=max_top_k)
+            emitted = emitted + carry_active(done, pos).to(torch.int32)
+            tok, pos, done, steps, remaining = carry_step_update(
+                nxt, tok, pos, done, steps, remaining, eos_table)
+            toks.append(tok)
+
+        # commit the window into the pool: entry i holds the K/V of
+        # position start+i, valid only if the row was still active at
+        # step i (start+i < final pos)
+        wpos = start[:, None] + torch.arange(k_steps, device=dev)[None, :]
+        rows = torch.arange(B, device=dev)[:, None]
+        page = page_table[rows, torch.clamp(torch.div(
+            wpos, ps, rounding_mode="floor"), 0, P - 1)].long()
+        valid = (start[:, None] >= 0) & (wpos < pos[:, None])
+        flat = torch.where(valid, page * ps + wpos % ps,
+                           torch.full_like(page, DROP_SLOT))
+        keep = _kept(flat.reshape(-1), N * ps)
+        for l in range(L):
+            _scatter_pages(kv_k[l], wk[l], flat, keep)
+            _scatter_pages(kv_v[l], wv[l], flat, keep)
+        out_toks = torch.stack(toks, dim=1)
+        return out_toks, emitted, (tok, pos, done, steps, remaining), kv_k, kv_v
+
+    return decode_window
+
+
+def _pool_window_attention_kernel(q, k_pools, v_pools, layer: int,
+                                  page_table, start, wk_l, wv_l, i: int,
+                                  scale: float, softcap=None, window=None,
+                                  is_sliding: bool = False, q_pos=None):
+    """Decode attention for one fused-window step, the kernel side
+    (``_pool_window_attention_pallas`` in the JAX package): the frozen
+    paged pool of layer ``layer`` (taken as an offset, no copy) and the
+    in-flight window buffer in one softmax. The JAX package merges the
+    decode kernel's (m, l) stats with the buffer in XLA; here the decode
+    kernel's combine step folds the buffer in on the card. Positions
+    < start live in the pool; positions start..start+i in the buffer.
+
+    q: [B, 1, H, hd]; *_pools: [L, pages, KV, ps, hd]; wk_l/wv_l:
+    [B, K, KV, hd]; start: [B]; i: step index; q_pos: [B] current query
+    position (sliding window)."""
+    eff = None
+    if window is not None:
+        eff = effective_window(window, is_sliding, q.shape[0], q.device)
+    out = paged_attention_decode_window(
+        q[:, 0].contiguous(), k_pools, v_pools, layer, page_table, start,
+        q_pos.contiguous(), wk_l, wv_l, i + 1, scale=scale, softcap=softcap,
+        eff_win=eff)
+    return out[:, None]
+
+
+def _pool_window_attention(q, k_pool_l, v_pool_l, page_table, start,
+                           wk_l, wv_l, i: int, scale: float, softcap=None,
+                           window=None, is_sliding: bool = False,
+                           q_pos=None):
+    """Plain side: decode attention reading the (frozen) paged pool for
+    positions < start plus the in-flight window for positions
+    start..start+i, by gather and one softmax over the concatenation.
+
+    q: [B, 1, H, hd]; *_pool_l: [pages, KV, ps, hd]; wk_l/wv_l:
+    [B, K, KV, hd]; start: [B]; i: step index."""
+    B, _, H, hd = q.shape
+    _, KV, ps, _ = k_pool_l.shape
+    K = wk_l.shape[1]
+    P = page_table.shape[1]
+    S = P * ps
+    G = H // KV
+    dev = q.device
+    idx = page_table.long()
+    kp = k_pool_l[idx].permute(0, 1, 3, 2, 4).reshape(B, S, KV, hd)
+    vp = v_pool_l[idx].permute(0, 1, 3, 2, 4).reshape(B, S, KV, hd)
+    qg = q.reshape(B, 1, KV, G, hd).float()
+    sp = torch.einsum("btkgh,bskh->bkgts", qg, kp.float()) * scale
+    sw = torch.einsum("btkgh,bwkh->bkgtw", qg, wk_l.float()) * scale
+    ar_s = torch.arange(S, device=dev)
+    ar_k = torch.arange(K, device=dev)
+    mask_p = ar_s[None, :] < start[:, None]            # start<0 → all off
+    mask_w = (ar_k[None, :] <= i) & (start[:, None] >= 0)
+    if window is not None and is_sliding:
+        # sliding layers see only kv positions > q_pos - window; pool
+        # slot j holds logical position j, window slot w holds start + w
+        mask_p = mask_p & (ar_s[None, :] > (q_pos - window)[:, None])
+        mask_w = mask_w & ((start[:, None] + ar_k[None, :])
+                           > (q_pos - window)[:, None])
+    sp = _softcap_mask(sp, mask_p[:, None, None, None, :], softcap)
+    sw = _softcap_mask(sw, mask_w[:, None, None, None, :], softcap)
+    p = torch.softmax(torch.cat([sp, sw], dim=-1), dim=-1)
+    pp, pw = p[..., :S], p[..., S:]
+    out = (torch.einsum("bkgts,bskh->btkgh", pp, vp.float())
+           + torch.einsum("bkgtw,bwkh->btkgh", pw, wv_l.float()))
+    return out.reshape(B, 1, H, hd).to(q.dtype)

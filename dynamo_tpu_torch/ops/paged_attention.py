@@ -1,0 +1,485 @@
+"""Paged GQA attention: the CUDA kernels' wrappers and their plain versions.
+
+Two kernels, both in ``csrc/paged_attention.cu`` (see the note at its top
+for what bounds each on an H100 and what the design does about it):
+
+- :func:`paged_attention_decode_layered` (and the 4-D-pool form
+  :func:`paged_attention_decode`) replaces the TPU kernel reached through
+  ``dynamo_tpu/ops/paged_attention.py`` ``paged_attention_decode_layered``:
+  one query per row against the row's pages in ``[lower, length)`` of ONE
+  layer of the stacked pool, optionally returning the online-softmax stats
+  ``(m, l)``. :func:`paged_attention_decode_window` runs the same kernel
+  for one step of the fused decode window (the main path's form): its
+  combine step folds the window's in-flight keys into the pool's
+  softmax on the card, where the JAX package merges the stats in XLA.
+- :func:`paged_attention_prefill` replaces the TPU kernel reached through
+  ``paged_attention_prefill``: chunked-prefill attention with causal
+  visibility by absolute ``q_positions`` (-1 = padding) intersected with
+  the per-row sliding window ``eff_win``.
+
+Each wrapper checks device, dtype, shape and contiguity. For tensors on
+the CPU it computes its plain PyTorch version (the CPU tests' path); for
+CUDA tensors it launches its kernel on the current stream or raises —
+there is no fallback. Every wrapper call that launches adds one to
+``LAUNCHES[name]``. A decode call launches a kernel pair, counted once:
+``paged_decode_kernel`` and then, when it folds (pages split over blocks,
+or a window buffer — always so on the main path), ``paged_decode_combine``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+NEG_INF = -1e30  # finite "masked" value: keeps exp() NaN-free
+NO_WINDOW = 1 << 30  # "infinite" effective sliding window (int32-safe)
+
+# launching wrapper calls since the last reset (plain ints); a decode call
+# counts its kernel pair (split kernel + combine) once
+LAUNCHES: Dict[str, int] = {"paged_attention_decode": 0,
+                            "paged_attention_prefill": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PREFILL_SMEM_LIMIT = 200 * 1024  # bytes of shared memory per prefill block
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def effective_window(window: int, is_sliding: bool, B: int,
+                     device) -> torch.Tensor:
+    """Per-row effective sliding window for the kernels: ``window`` on
+    sliding layers, :data:`NO_WINDOW` on global ones."""
+    return torch.full((B,), window if is_sliding else NO_WINDOW,
+                      dtype=torch.int32, device=device)
+
+
+def _lib():
+    from .build import library
+
+    lib = library("paged_attention")
+    if not getattr(lib, "_dyn_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.dyn_paged_attention_decode.argtypes = [
+            i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, p, p,
+            i, i, i, i, i, i, i, i, f, f, p]
+        lib.dyn_paged_attention_decode.restype = i
+        lib.dyn_paged_attention_decode_window.argtypes = [
+            i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, i, i, p, p, p,
+            i, i, i, i, i, i, i, i, f, f, p]
+        lib.dyn_paged_attention_decode_window.restype = i
+        lib.dyn_paged_attention_prefill.argtypes = [
+            i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, p]
+        lib.dyn_paged_attention_prefill.restype = i
+        lib.dyn_paged_attention_prefill_smem.argtypes = [i, i, i, i, i]
+        lib.dyn_paged_attention_prefill_smem.restype = ctypes.c_longlong
+        lib._dyn_typed = True
+    return lib
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (plain version); False when
+    all lie on one CUDA device (kernel). Anything else raises."""
+    devs = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devs):
+        return True
+    if len(devs) == 1 and next(iter(devs)).type == "cuda":
+        return False
+    raise ValueError(f"paged attention operands on mixed or unsupported "
+                     f"devices: {sorted(str(d) for d in devs)}")
+
+
+def _i32(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
+    _check(t.dtype == torch.int32, f"{name} must be int32, got {t.dtype}")
+    _check(tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
+    _check(t.is_contiguous(), f"{name} must be contiguous")
+
+
+# ------------------------------------------------------------------ decode
+
+
+def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           scale: Optional[float] = None,
+                           return_stats: bool = False,
+                           softcap: Optional[float] = None,
+                           lower: Optional[torch.Tensor] = None):
+    """One decode step against a single-layer pool ``[N, KV, ps, hd]``:
+    the layered kernel with L=1 (``unsqueeze`` is a view, no copy)."""
+    return paged_attention_decode_layered(
+        q, k_pages.unsqueeze(0), v_pages.unsqueeze(0), 0, page_table,
+        lengths, scale=scale, return_stats=return_stats, softcap=softcap,
+        lower=lower)
+
+
+def paged_attention_decode_layered(
+        q: torch.Tensor, k_pools: torch.Tensor, v_pools: torch.Tensor,
+        layer: int, page_table: torch.Tensor, lengths: torch.Tensor, *,
+        scale: Optional[float] = None, return_stats: bool = False,
+        softcap: Optional[float] = None,
+        lower: Optional[torch.Tensor] = None
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Paged GQA decode attention against ONE layer of the stacked pools.
+
+    q: [B, H, hd]; k_pools/v_pools: [L, N, KV, ps, hd] (same dtype as q,
+    float32 or bfloat16); layer: int; page_table: [B, P] int32 (padded with
+    0); lengths: [B] int32 — context per row INCLUDING the token just
+    written (0 = padding row → zeros); lower: [B] int32 first visible
+    position (sliding window), default 0.
+    Returns out [B, H, hd] in q.dtype; with ``return_stats`` also the
+    online-softmax stats (m, l) as float32 [B, H] — an all-masked view
+    gives m = NEG_INF, l = 0.
+    """
+    _check(q.dim() == 3, f"q must be [B, H, hd], got {tuple(q.shape)}")
+    B, H, hd = q.shape
+    _check(k_pools.dim() == 5 and k_pools.shape == v_pools.shape,
+           "k_pools/v_pools must both be [L, N, KV, ps, hd]")
+    L, N, KV, ps, hd_k = k_pools.shape
+    _check(hd_k == hd and H % KV == 0, "head_dim / GQA mismatch")
+    _check(q.dtype in _DTYPES and k_pools.dtype == q.dtype
+           and v_pools.dtype == q.dtype,
+           f"dtypes must match and be float32/bfloat16: "
+           f"{q.dtype}, {k_pools.dtype}, {v_pools.dtype}")
+    layer = int(layer)
+    _check(0 <= layer < L, f"layer {layer} out of range [0, {L})")
+    _check(page_table.dim() == 2 and page_table.shape[0] == B,
+           "page_table must be [B, P]")
+    P = page_table.shape[1]
+    _i32("page_table", page_table, (B, P))
+    _i32("lengths", lengths, (B,))
+    if lower is None:
+        lower = torch.zeros_like(lengths)
+    _i32("lower", lower, (B,))
+    for name, t in (("q", q), ("k_pools", k_pools), ("v_pools", v_pools)):
+        _check(t.is_contiguous(), f"{name} must be contiguous")
+    if scale is None:
+        scale = hd ** -0.5
+    if _on_cpu(q, k_pools, v_pools, page_table, lengths, lower):
+        out, m, l = decode_reference(q, k_pools, v_pools, layer, page_table,
+                                     lengths, lower, scale, softcap)
+        return (out, m, l) if return_stats else out
+    G = H // KV
+    _check(G <= 8 and hd <= 256 and hd % 8 == 0,
+           f"decode kernel takes GQA groups <= 8 and head_dim <= 256, a "
+           f"multiple of 8 (got {G}, {hd})")
+    _check(k_pools.data_ptr() % 16 == 0 and v_pools.data_ptr() % 16 == 0,
+           "pools must be 16-byte aligned (16-byte page copies)")
+
+    out = torch.empty_like(q)
+    m = l = None
+    if return_stats:
+        m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+        l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    splits = _splits(q.device, B, KV, P)
+    part_acc = part_ml = None
+    if splits > 1:
+        part_acc, part_ml = _partials(q.device, B, KV, splits, G, hd)
+    err = _lib().dyn_paged_attention_decode(
+        _DTYPES[q.dtype], q.data_ptr(), k_pools.data_ptr(),
+        v_pools.data_ptr(), layer, page_table.data_ptr(), lengths.data_ptr(),
+        lower.data_ptr(), out.data_ptr(),
+        m.data_ptr() if m is not None else None,
+        l.data_ptr() if l is not None else None,
+        part_acc.data_ptr() if part_acc is not None else None,
+        part_ml.data_ptr() if part_ml is not None else None,
+        B, H, KV, N, ps, hd, P, splits, float(scale), float(softcap or 0.0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention_decode launch failed: CUDA "
+                           f"error {err} (B={B} H={H} KV={KV} ps={ps} "
+                           f"hd={hd})")
+    LAUNCHES["paged_attention_decode"] += 1
+    return (out, m, l) if return_stats else out
+
+
+def _splits(device, B: int, KV: int, P: int) -> int:
+    """Flash-decoding: split each row's pages over enough blocks to give
+    every SM two; the splits' partials are folded by a second kernel."""
+    return max(1, min(P, -(-2 * _sm_count(device) // (B * KV))))
+
+
+def _partials(device, B: int, KV: int, splits: int, G: int, hd: int):
+    return (torch.empty((B, KV, splits, G, hd), dtype=torch.float32,
+                        device=device),
+            torch.empty((B, KV, splits, G, 2), dtype=torch.float32,
+                        device=device))
+
+
+def paged_attention_decode_window(
+        q: torch.Tensor, k_pools: torch.Tensor, v_pools: torch.Tensor,
+        layer: int, page_table: torch.Tensor, start: torch.Tensor,
+        q_pos: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor, n_win: int,
+        *, scale: Optional[float] = None, softcap: Optional[float] = None,
+        eff_win: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode attention for one step of the fused decode window: the
+    (frozen) pool of ONE layer for positions < start, plus the in-flight
+    window buffer for positions start .. start + n_win - 1, in one softmax.
+    The kernel side of ``dynamo_tpu/models/llama.py``
+    ``_pool_window_attention_pallas``, whose merge of the decode kernel's
+    (m, l) stats with the buffer here runs in the decode kernel's combine
+    step on the card.
+
+    q: [B, H, hd]; k_pools/v_pools: [L, N, KV, ps, hd]; page_table: [B, P]
+    int32; start: [B] int32 first window position (-1 = padding row);
+    q_pos: [B] int32 current query position; wk/wv: [B, Kw, KV, hd] (slot w
+    holds position start + w); n_win: valid slots (step index + 1);
+    eff_win: [B] int32 sliding window (None = none). On sliding layers only
+    positions > q_pos - eff_win are visible, on both sides.
+    Returns [B, H, hd] in q.dtype (padding rows give zeros).
+    """
+    _check(q.dim() == 3, f"q must be [B, H, hd], got {tuple(q.shape)}")
+    B, H, hd = q.shape
+    _check(k_pools.dim() == 5 and k_pools.shape == v_pools.shape,
+           "k_pools/v_pools must both be [L, N, KV, ps, hd]")
+    L, N, KV, ps, hd_k = k_pools.shape
+    _check(wk.dim() == 4 and wk.shape == wv.shape and wk.shape[0] == B
+           and wk.shape[2:] == (KV, hd), "wk/wv must both be [B, Kw, KV, hd]")
+    Kw = wk.shape[1]
+    _check(hd_k == hd and H % KV == 0, "head_dim / GQA mismatch")
+    _check(q.dtype in _DTYPES and all(t.dtype == q.dtype for t in
+                                      (k_pools, v_pools, wk, wv)),
+           "dtypes must match and be float32/bfloat16")
+    layer = int(layer)
+    _check(0 <= layer < L, f"layer {layer} out of range [0, {L})")
+    _check(1 <= n_win <= Kw, f"n_win {n_win} out of range [1, {Kw}]")
+    _check(page_table.dim() == 2 and page_table.shape[0] == B,
+           "page_table must be [B, P]")
+    P = page_table.shape[1]
+    _i32("page_table", page_table, (B, P))
+    _i32("start", start, (B,))
+    _i32("q_pos", q_pos, (B,))
+    if eff_win is not None:
+        _i32("eff_win", eff_win, (B,))
+    for name, t in (("q", q), ("k_pools", k_pools), ("v_pools", v_pools),
+                    ("wk", wk), ("wv", wv)):
+        _check(t.is_contiguous(), f"{name} must be contiguous")
+    if scale is None:
+        scale = hd ** -0.5
+    operands = [q, k_pools, v_pools, page_table, start, q_pos, wk, wv]
+    if _on_cpu(*operands, *([eff_win] if eff_win is not None else [])):
+        return window_reference(q, k_pools, v_pools, layer, page_table,
+                                start, q_pos, wk, wv, n_win, scale, softcap,
+                                eff_win)
+    G = H // KV
+    _check(G <= 8 and hd <= 256 and hd % 8 == 0,
+           f"decode kernel takes GQA groups <= 8 and head_dim <= 256, a "
+           f"multiple of 8 (got {G}, {hd})")
+    _check(k_pools.data_ptr() % 16 == 0 and v_pools.data_ptr() % 16 == 0,
+           "pools must be 16-byte aligned (16-byte page copies)")
+    splits = _splits(q.device, B, KV, P)
+    part_acc, part_ml = _partials(q.device, B, KV, splits, G, hd)
+    out = torch.empty_like(q)
+    err = _lib().dyn_paged_attention_decode_window(
+        _DTYPES[q.dtype], q.data_ptr(), k_pools.data_ptr(),
+        v_pools.data_ptr(), layer, page_table.data_ptr(), start.data_ptr(),
+        q_pos.data_ptr(), eff_win.data_ptr() if eff_win is not None else None,
+        wk.data_ptr(), wv.data_ptr(), n_win, Kw, out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), B, H, KV, N, ps, hd, P,
+        splits, float(scale), float(softcap or 0.0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention_decode_window launch failed: "
+                           f"CUDA error {err} (B={B} H={H} KV={KV} ps={ps} "
+                           f"hd={hd} Kw={Kw})")
+    LAUNCHES["paged_attention_decode"] += 1
+    return out
+
+
+def window_reference(q, k_pools, v_pools, layer: int, page_table, start,
+                     q_pos, wk, wv, n_win: int, scale: float,
+                     softcap: Optional[float] = None, eff_win=None):
+    """Plain PyTorch version of :func:`paged_attention_decode_window`:
+    the decode kernel's plain version with stats over the pool, then the
+    online-softmax merge with the buffer's visible slots (exp only where
+    visible)."""
+    B, H, hd = q.shape
+    KV, Kw = wk.shape[2], wk.shape[1]
+    G = H // KV
+    lengths = start.clamp(min=0).to(torch.int32)
+    lower = torch.zeros_like(lengths)
+    floor = None
+    if eff_win is not None:
+        lower = torch.minimum((q_pos + 1 - eff_win).clamp(min=0),
+                              lengths).to(torch.int32)
+        floor = (q_pos - eff_win).long()
+    out_p, m_p, l_p = decode_reference(q, k_pools, v_pools, layer, page_table,
+                                       lengths, lower, scale, softcap)
+    qg = q.reshape(B, KV, G, hd).float()
+    sw = torch.einsum("bkgh,bwkh->bkgw", qg, wk.float()) * scale
+    if softcap:
+        sw = softcap * torch.tanh(sw / softcap)
+    slot = torch.arange(Kw, device=q.device)[None, :]
+    vis = (slot < n_win) & (start[:, None] >= 0)
+    if floor is not None:
+        vis = vis & (start[:, None].long() + slot > floor[:, None])
+    vis = vis[:, None, None, :]                        # [B, 1, 1, Kw]
+    sw = torch.where(vis, sw, torch.full_like(sw, NEG_INF))
+    m = torch.maximum(m_p.reshape(B, KV, G), sw.amax(dim=-1))
+    a_p = torch.exp(m_p.reshape(B, KV, G) - m) * l_p.reshape(B, KV, G)
+    p_w = torch.where(vis, torch.exp(sw - m[..., None]), torch.zeros_like(sw))
+    l = torch.clamp(a_p + p_w.sum(dim=-1), min=1e-9)
+    out = (out_p.reshape(B, KV, G, hd).float() * a_p[..., None]
+           + torch.einsum("bkgw,bwkh->bkgh", p_w, wv.float())) / l[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def decode_reference(q, k_pools, v_pools, layer: int, page_table, lengths,
+                     lower, scale: float, softcap: Optional[float] = None):
+    """Plain PyTorch version of the decode kernel: gather the row's pages,
+    masked online-softmax math in float32 (exp only where visible).
+    Returns (out [B, H, hd] in q.dtype, m [B, H], l [B, H])."""
+    B, H, hd = q.shape
+    _, _, KV, ps, _ = k_pools.shape
+    P = page_table.shape[1]
+    G = H // KV
+    idx = page_table.long()
+    k = k_pools[layer][idx].permute(0, 2, 1, 3, 4).reshape(B, KV, P * ps, hd)
+    v = v_pools[layer][idx].permute(0, 2, 1, 3, 4).reshape(B, KV, P * ps, hd)
+    qg = q.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgh,bksh->bkgs", qg, k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(P * ps, device=q.device)
+    valid = ((pos[None, :] >= lower[:, None].long())
+             & (pos[None, :] < lengths[:, None].long()))[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = torch.clamp(s.amax(dim=-1), min=NEG_INF)
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    out = torch.einsum("bkgs,bksh->bkgh", p, v.float())
+    out = out / torch.clamp(l, min=1e-9)[..., None]
+    return (out.reshape(B, H, hd).to(q.dtype), m.reshape(B, H),
+            l.reshape(B, H))
+
+
+# ----------------------------------------------------------------- prefill
+
+
+def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, page_table: torch.Tensor,
+                            q_positions: torch.Tensor, *,
+                            scale: Optional[float] = None,
+                            softcap: Optional[float] = None,
+                            eff_win: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Chunked-prefill paged GQA attention.
+
+    q: [B, T, H, hd] (the current chunk, its K/V already in the pool);
+    k_pages/v_pages: [N, KV, ps, hd] — one layer (``pool[l]`` of the
+    stacked pool is a view, no copy); page_table: [B, P] int32;
+    q_positions: [B, T] int32 absolute (-1 padding); eff_win: [B] int32
+    per-row window (default :data:`NO_WINDOW`). Key position j is visible
+    to query t iff ``q_pos[t] - eff_win < j <= q_pos[t]``. Returns
+    [B, T, H, hd] in q.dtype; padding queries give zeros.
+    """
+    _check(q.dim() == 4, f"q must be [B, T, H, hd], got {tuple(q.shape)}")
+    B, T, H, hd = q.shape
+    _check(k_pages.dim() == 4 and k_pages.shape == v_pages.shape,
+           "k_pages/v_pages must both be [N, KV, ps, hd]")
+    N, KV, ps, hd_k = k_pages.shape
+    _check(hd_k == hd and H % KV == 0, "head_dim / GQA mismatch")
+    _check(q.dtype in _DTYPES and k_pages.dtype == q.dtype
+           and v_pages.dtype == q.dtype,
+           f"dtypes must match and be float32/bfloat16: "
+           f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    _check(page_table.dim() == 2 and page_table.shape[0] == B,
+           "page_table must be [B, P]")
+    P = page_table.shape[1]
+    _i32("page_table", page_table, (B, P))
+    _i32("q_positions", q_positions, (B, T))
+    if eff_win is None:
+        eff_win = torch.full((B,), NO_WINDOW, dtype=torch.int32,
+                             device=q.device)
+    _i32("eff_win", eff_win, (B,))
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        _check(t.is_contiguous(), f"{name} must be contiguous")
+    if scale is None:
+        scale = hd ** -0.5
+    if _on_cpu(q, k_pages, v_pages, page_table, q_positions, eff_win):
+        return prefill_reference(q, k_pages, v_pages, page_table,
+                                 q_positions, scale, softcap, eff_win)
+
+    _check(q.dtype == torch.float32 or (ps % 16 == 0 and hd % 16 == 0),
+           f"bfloat16 prefill kernel (tensor cores) takes page_size and "
+           f"head_dim multiples of 16 (got {ps}, {hd})")
+    lib = _lib()
+    G = H // KV
+    dt = _DTYPES[q.dtype]
+    tq = max(1, 64 // G)  # queries per block: ~64 (query, head) rows
+    while tq > 1 and lib.dyn_paged_attention_prefill_smem(
+            dt, tq, G, ps, hd) > _PREFILL_SMEM_LIMIT:
+        tq //= 2
+    _check(lib.dyn_paged_attention_prefill_smem(dt, tq, G, ps, hd)
+           <= _PREFILL_SMEM_LIMIT,
+           f"prefill kernel: page_size {ps} x head_dim {hd} does not fit "
+           f"in shared memory")
+    out = torch.empty_like(q)
+    _check(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+           "pools must be 16-byte aligned (16-byte page loads)")
+    err = lib.dyn_paged_attention_prefill(
+        dt, q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), page_table.data_ptr(), q_positions.data_ptr(),
+        eff_win.data_ptr(), out.data_ptr(), B, T, H, KV, N, ps, hd, P, tq,
+        float(scale), float(softcap or 0.0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention_prefill launch failed: CUDA "
+                           f"error {err} (B={B} T={T} H={H} KV={KV} ps={ps} "
+                           f"hd={hd})")
+    LAUNCHES["paged_attention_prefill"] += 1
+    return out
+
+
+def prefill_reference(q, k_pages, v_pages, page_table, q_positions,
+                      scale: float, softcap: Optional[float] = None,
+                      eff_win: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the prefill kernel: the gather path of
+    ``dynamo_tpu/models/llama.py`` ``_paged_attention`` (which builds the
+    dense ``[B, P*ps, KV, hd]`` view of the row's pages), with float32
+    probabilities and zeros for padding queries (q_pos < 0) as the kernel
+    gives."""
+    B, T, H, hd = q.shape
+    _, KV, ps, _ = k_pages.shape
+    P = page_table.shape[1]
+    S = P * ps
+    G = H // KV
+    idx = page_table.long()
+    k = k_pages[idx].permute(0, 1, 3, 2, 4).reshape(B, S, KV, hd)
+    v = v_pages[idx].permute(0, 1, 3, 2, 4).reshape(B, S, KV, hd)
+    qg = q.reshape(B, T, KV, G, hd)
+    s = torch.einsum("btkgh,bskh->bkgts", qg.float(), k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qp = q_positions.long()[:, :, None]                 # [B, T, 1]
+    kvp = torch.arange(S, device=q.device)[None, None, :]
+    visible = kvp <= qp
+    if eff_win is not None:
+        visible = visible & (kvp > qp - eff_win.long()[:, None, None])
+    vis = visible[:, None, None, :, :]                  # [B, 1, 1, T, S]
+    s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", probs, v.float())
+    out = torch.where((q_positions >= 0)[:, :, None, None, None], out,
+                      torch.zeros_like(out))
+    return out.reshape(B, T, H, hd).to(q.dtype)

@@ -1,0 +1,154 @@
+"""AsyncEngine abstraction — the universal streaming-engine interface.
+
+Reference lib/runtime/src/engine.rs: ``AsyncEngine::generate(SingleIn<Req>)
+-> ManyOut<Resp>`` with an ``AsyncEngineContext`` carrying the request id and
+``stop_generating``/``kill`` controls, and ``Annotated<T>`` (reference
+lib/runtime/src/protocols/annotated.rs) as the SSE-shaped envelope every
+streamed response travels in.
+
+In this framework an engine is any object with::
+
+    async def generate(self, request, context: Context) -> AsyncIterator[Any]
+
+where the returned async iterator yields JSON/msgpack-serializable items.
+``Context.stopped``/``killed`` must be honored by long-running engines.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import uuid
+from dataclasses import dataclass
+from typing import Any, AsyncIterator, Optional, Protocol, runtime_checkable
+
+
+class Context:
+    """Per-request context: id + cancellation controls + deadline.
+
+    ``stop_generating`` asks for a graceful early finish (emit what you have);
+    ``kill`` demands immediate termination (reference engine.rs:47-85).
+    ``deadline`` (any object with an ``expired`` property, or None) is
+    the request's end-to-end budget: once it expires, ``stopped``
+    reports True, so every loop that already polls cancellation — engine
+    admission, decode dispatch, the detokenizing backend — enforces the
+    deadline with no extra plumbing, and the sequence's pages free on the
+    normal cancel path.
+    """
+
+    __slots__ = ("id", "_stop", "_kill", "annotations", "deadline",
+                 "_kill_cbs")
+
+    def __init__(self, request_id: Optional[str] = None, deadline=None):
+        self.id: str = request_id or uuid.uuid4().hex
+        self._stop = asyncio.Event()
+        self._kill = asyncio.Event()
+        self.annotations: dict = {}
+        self.deadline = deadline
+        # synchronous kill hooks (dynarevive): transports register e.g.
+        # a connection close so kill() severs the upstream IMMEDIATELY —
+        # a client disconnect must not wait for an abandoned generator
+        # chain to be garbage-collected before the worker stops decoding
+        self._kill_cbs: list = []
+
+    @property
+    def expired(self) -> bool:
+        return self.deadline is not None and self.deadline.expired
+
+    @property
+    def stopped(self) -> bool:
+        return self._stop.is_set() or self._kill.is_set() or self.expired
+
+    @property
+    def killed(self) -> bool:
+        return self._kill.is_set()
+
+    def cancel_reason(self) -> str:
+        """Finish reason for a cancelled request: "timeout" when the
+        deadline (not the caller) ended it — the satellite the OpenAI
+        finish_reason mapping surfaces to clients."""
+        return "timeout" if self.expired else "cancelled"
+
+    def stop_generating(self) -> None:
+        self._stop.set()
+
+    def on_kill(self, cb) -> None:
+        """Register a SYNC callback run by ``kill()`` (immediately if
+        already killed). Used by stream adapters to sever their upstream
+        connection the moment the caller abandons the request."""
+        if self._kill.is_set():
+            self._run_kill_cb(cb)
+        else:
+            self._kill_cbs.append(cb)
+
+    @staticmethod
+    def _run_kill_cb(cb) -> None:
+        try:
+            cb()
+        except Exception:  # noqa: BLE001 — a teardown hook must never
+            # mask the kill itself
+            pass
+
+    def kill(self) -> None:
+        self._stop.set()
+        self._kill.set()
+        cbs, self._kill_cbs = self._kill_cbs, []
+        for cb in cbs:
+            self._run_kill_cb(cb)
+
+    async def wait_stopped(self) -> None:
+        await self._stop.wait()
+
+
+@runtime_checkable
+class AsyncEngine(Protocol):
+    """Structural type for engines; anything with this shape qualifies."""
+
+    def generate(self, request: Any, context: Context) -> AsyncIterator[Any]:
+        ...
+
+
+@dataclass
+class Annotated:
+    """SSE-shaped response envelope: exactly one of data/event-comment forms.
+
+    Reference lib/runtime/src/protocols/annotated.rs — every streamed
+    response crosses process boundaries inside this envelope so that
+    annotations (events/comments) can ride the same stream as data.
+    """
+
+    data: Any = None
+    id: Optional[str] = None
+    event: Optional[str] = None
+    comment: Optional[list] = None
+
+    def to_dict(self) -> dict:
+        d: dict = {}
+        if self.data is not None:
+            d["data"] = self.data
+        if self.id is not None:
+            d["id"] = self.id
+        if self.event is not None:
+            d["event"] = self.event
+        if self.comment is not None:
+            d["comment"] = self.comment
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Annotated":
+        return cls(data=d.get("data"), id=d.get("id"), event=d.get("event"),
+                   comment=d.get("comment"))
+
+    @classmethod
+    def from_error(cls, message: str) -> "Annotated":
+        return cls(event="error", comment=[message])
+
+    @classmethod
+    def from_annotation(cls, name: str, value: Any) -> "Annotated":
+        return cls(event=name, comment=[value] if not isinstance(value, list) else value)
+
+    @property
+    def is_error(self) -> bool:
+        return self.event == "error"
+
+    def error_message(self) -> str:
+        return "; ".join(str(c) for c in (self.comment or []))

@@ -1,0 +1,349 @@
+"""The port's paged-attention wrappers (ops/paged_attention.py) against the
+JAX package's Pallas kernels run in interpret mode, on the CPU.
+
+On CPU tensors the port's wrappers compute their plain PyTorch versions,
+so these tests pin the arithmetic the CUDA kernels implement
+(tests/test_torch_kernels.py holds the kernels themselves against those
+plain versions on a machine with the GPU). Every case
+of tests/test_ops.py is mirrored here, with the same inputs (made with
+numpy) fed to both sides. Tolerances: atol 1e-5 in float32 (same math,
+different summation order), 2e-2 in bfloat16 (one bf16 rounding of the
+output on each side)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dynamo_tpu.models.llama import (_paged_attention as jax_paged_attention,
+                                     _pool_window_attention as jax_pool_window,
+                                     _pool_window_attention_pallas as
+                                     jax_pool_window_pallas)
+from dynamo_tpu.ops.paged_attention import (
+    paged_attention_decode as jax_decode,
+    paged_attention_decode_layered as jax_decode_layered,
+    paged_attention_prefill as jax_prefill)
+from dynamo_tpu_torch.models.llama import (_paged_attention,
+                                           _pool_window_attention,
+                                           _pool_window_attention_kernel)
+from dynamo_tpu_torch.ops import paged_attention as ops
+from dynamo_tpu_torch.ops.paged_attention import (
+    paged_attention_decode, paged_attention_decode_layered,
+    paged_attention_prefill)
+
+F32 = dict(rtol=0, atol=1e-5)
+BF16 = dict(rtol=0, atol=2e-2)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _both(a, dtype="float32"):
+    """(jax array, torch tensor) of the same numpy data."""
+    j = jnp.asarray(a, jnp.bfloat16 if dtype == "bfloat16" else a.dtype)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dtype == "bfloat16":
+        t = t.to(torch.bfloat16)
+    return j, t
+
+
+def _pages(rng, num_pages, ps, KV, hd, dtype="float32"):
+    k = rng.randn(num_pages, KV, ps, hd).astype(np.float32)
+    v = rng.randn(num_pages, KV, ps, hd).astype(np.float32)
+    return _both(k, dtype), _both(v, dtype)
+
+
+def _table(rng, B, P, num_pages, lengths, ps):
+    table = np.zeros((B, P), np.int32)
+    for b in range(B):
+        npages = -(-int(lengths[b]) // ps)
+        table[b, :npages] = rng.choice(np.arange(1, num_pages), npages,
+                                       replace=False)
+    return table
+
+
+# ------------------------------------------------------------------ decode
+
+
+@pytest.mark.parametrize("group,hd,ps", [(4, 64, 8), (1, 32, 16)])
+def test_decode_matches_jax_kernel(group, hd, ps):
+    rng = np.random.RandomState(0)
+    KV, B, P, num_pages = 2, 5, 4, 32
+    H = KV * group
+    qj, qt = _both(rng.randn(B, H, hd).astype(np.float32))
+    (kj, kt), (vj, vt) = _pages(rng, num_pages, ps, KV, hd)
+    lengths = np.array([1, ps, ps + 3, 2 * ps, P * ps], np.int32)
+    table = _table(rng, B, P, num_pages, lengths, ps)
+    want = jax_decode(qj, kj, vj, jnp.asarray(table), jnp.asarray(lengths),
+                      scale=hd ** -0.5, interpret=True)
+    got = paged_attention_decode(qt, kt, vt, torch.from_numpy(table),
+                                 torch.from_numpy(lengths), scale=hd ** -0.5)
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+
+def test_decode_stats_match_jax_kernel():
+    """(m, l) online-softmax stats of the layered form, including a row of
+    length 0 (m = NEG_INF, l = 0) and a window that empties the view."""
+    rng = np.random.RandomState(1)
+    L, KV, group, hd, ps, B, P, N = 3, 2, 2, 32, 8, 4, 3, 16
+    H = KV * group
+    qj, qt = _both(rng.randn(B, H, hd).astype(np.float32))
+    kp = rng.randn(L, N, KV, ps, hd).astype(np.float32)
+    vp = rng.randn(L, N, KV, ps, hd).astype(np.float32)
+    (kj, kt), (vj, vt) = _both(kp), _both(vp)
+    lengths = np.array([13, 0, 24, 9], np.int32)
+    lower = np.array([0, 0, 20, 9], np.int32)  # row 3: empty view
+    table = _table(rng, B, P, N, lengths, ps)
+    for layer in range(L):
+        w_out, w_m, w_l = jax_decode_layered(
+            qj, kj, vj, jnp.int32(layer), jnp.asarray(table),
+            jnp.asarray(lengths), interpret=True, return_stats=True,
+            lower=jnp.asarray(lower))
+        g_out, g_m, g_l = paged_attention_decode_layered(
+            qt, kt, vt, layer, torch.from_numpy(table),
+            torch.from_numpy(lengths), return_stats=True,
+            lower=torch.from_numpy(lower))
+        np.testing.assert_allclose(_np(g_out), _np(w_out), **F32)
+        np.testing.assert_allclose(_np(g_m), _np(w_m), rtol=1e-6, atol=1e-5)
+        np.testing.assert_allclose(_np(g_l), _np(w_l), rtol=1e-5, atol=1e-5)
+    assert (_np(g_m)[1] == ops.NEG_INF).all() and (_np(g_l)[1] == 0).all()
+    assert (_np(g_l)[3] == 0).all()
+
+
+def test_decode_padding_rows_zero():
+    rng = np.random.RandomState(2)
+    B, H, KV, hd, ps, P = 3, 4, 2, 32, 8, 2
+    (kj, kt), (vj, vt) = _pages(rng, 8, ps, KV, hd)
+    table = np.zeros((B, P), np.int32)
+    lengths = np.array([0, 5, 0], np.int32)
+    q = np.ones((B, H, hd), np.float32)
+    want = jax_decode(jnp.asarray(q), kj, vj, jnp.asarray(table),
+                      jnp.asarray(lengths), interpret=True)
+    got = _np(paged_attention_decode(torch.from_numpy(q), kt, vt,
+                                     torch.from_numpy(table),
+                                     torch.from_numpy(lengths)))
+    np.testing.assert_allclose(got, _np(want), **F32)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got[0], 0.0)
+    np.testing.assert_array_equal(got[2], 0.0)
+    assert np.abs(got[1]).sum() > 0
+
+
+def test_decode_bf16():
+    rng = np.random.RandomState(3)
+    B, H, KV, hd, ps = 2, 8, 4, 64, 8
+    qj, qt = _both(rng.randn(B, H, hd).astype(np.float32), "bfloat16")
+    (kj, kt), (vj, vt) = _pages(rng, 8, ps, KV, hd, "bfloat16")
+    table = np.array([[1, 2], [3, 0]], np.int32)
+    lengths = np.array([11, 8], np.int32)
+    want = jax_decode(qj, kj, vj, jnp.asarray(table), jnp.asarray(lengths),
+                      interpret=True)
+    got = paged_attention_decode(qt, kt, vt, torch.from_numpy(table),
+                                 torch.from_numpy(lengths))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), **BF16)
+
+
+def test_decode_softcap_and_window():
+    rng = np.random.RandomState(7)
+    KV, group, hd, ps, B, P, num_pages = 2, 2, 32, 8, 4, 4, 32
+    H = KV * group
+    qj, qt = _both(rng.randn(B, H, hd).astype(np.float32))
+    (kj, kt), (vj, vt) = _pages(rng, num_pages, ps, KV, hd)
+    lengths = np.array([ps + 3, 2 * ps, P * ps, 5], np.int32)
+    table = _table(rng, B, P, num_pages, lengths, ps)
+    window, softcap = 6, 15.0
+    lower = np.clip(lengths - window, 0, np.maximum(lengths - 1, 0)
+                    ).astype(np.int32)
+    want = jax_decode(qj, kj, vj, jnp.asarray(table), jnp.asarray(lengths),
+                      scale=hd ** -0.5, interpret=True, softcap=softcap,
+                      lower=jnp.asarray(lower))
+    got = paged_attention_decode(qt, kt, vt, torch.from_numpy(table),
+                                 torch.from_numpy(lengths), scale=hd ** -0.5,
+                                 softcap=softcap,
+                                 lower=torch.from_numpy(lower))
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+    # and the JAX gather path with the same window
+    gather = jax_paged_attention(qj[:, None], kj, vj, jnp.asarray(table),
+                                 jnp.asarray(lengths - 1)[:, None],
+                                 hd ** -0.5, softcap=softcap, window=window,
+                                 is_sliding=True)[:, 0]
+    np.testing.assert_allclose(_np(got), _np(gather), **F32)
+
+
+# -------------------------------------------------------- window merge
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_pool_window_merge_matches_jax(window):
+    """The fused-window pool attention (decode kernel with stats + online-
+    softmax merge with the in-flight buffer) and its plain concat form,
+    both against the JAX package's: mid-pool row, page-boundary row,
+    empty pool (start=0); padding rows (start=-1) are discarded by the
+    window and are not compared."""
+    rng = np.random.RandomState(7)
+    B, H, KV, hd, ps, P, L, K = 4, 8, 4, 64, 8, 3, 2, 4
+    kp = rng.randn(L, 16, KV, ps, hd).astype(np.float32)
+    vp = rng.randn(L, 16, KV, ps, hd).astype(np.float32)
+    (kj, kt), (vj, vt) = _both(kp), _both(vp)
+    qj, qt = _both(rng.randn(B, 1, H, hd).astype(np.float32))
+    wkj, wkt = _both(rng.randn(B, K, KV, hd).astype(np.float32))
+    wvj, wvt = _both(rng.randn(B, K, KV, hd).astype(np.float32))
+    table = np.array([[1, 2, 3], [4, 5, 6], [7, 8, 9], [1, 0, 0]], np.int32)
+    start = np.array([13, 16, 0, -1], np.int32)
+    scale = hd ** -0.5
+    for i in (0, K - 1):
+        qpos = np.maximum(start + i, 0).astype(np.int32)
+        kw = dict(softcap=None, window=window, is_sliding=window is not None)
+        for l in range(L):
+            want = jax_pool_window_pallas(
+                qj, kj, vj, jnp.int32(l), jnp.asarray(table),
+                jnp.asarray(start), wkj, wvj, i, scale, interpret=True,
+                q_pos=jnp.asarray(qpos), **kw)
+            want_plain = jax_pool_window(
+                qj, kj[l], vj[l], jnp.asarray(table), jnp.asarray(start),
+                wkj, wvj, i, scale, q_pos=jnp.asarray(qpos), **kw)
+            got = _pool_window_attention_kernel(
+                qt, kt, vt, l, torch.from_numpy(table),
+                torch.from_numpy(start), wkt, wvt, i, scale,
+                q_pos=torch.from_numpy(qpos), **kw)
+            got_plain = _pool_window_attention(
+                qt, kt[l], vt[l], torch.from_numpy(table),
+                torch.from_numpy(start), wkt, wvt, i, scale,
+                q_pos=torch.from_numpy(qpos), **kw)
+            np.testing.assert_allclose(_np(got)[:3], _np(want)[:3], **F32)
+            np.testing.assert_allclose(_np(got_plain)[:3],
+                                       _np(want_plain)[:3], **F32)
+            np.testing.assert_allclose(_np(got)[:3], _np(got_plain)[:3],
+                                       **F32)
+
+
+# ----------------------------------------------------------------- prefill
+
+
+@pytest.mark.parametrize("group,hd,T", [(2, 16, 8), (4, 32, 16)])
+def test_prefill_matches_jax_kernel(group, hd, T):
+    """Chunk starting mid-sequence (prefix cached), per-row positions, a
+    padding row (kernel zeros), trailing invalid pages."""
+    rng = np.random.RandomState(0)
+    B, KV, ps, N, P = 3, 2, 4, 32, 6
+    H = KV * group
+    qj, qt = _both(rng.randn(B, T, H, hd).astype(np.float32))
+    (kj, kt), (vj, vt) = _pages(rng, N, ps, KV, hd)
+    table = np.zeros((B, P), np.int32)
+    table[0, :4] = [3, 7, 2, 9]
+    table[1, :2] = [11, 4]
+    positions = np.full((B, T), -1, np.int32)
+    positions[0] = np.arange(8, 8 + T)
+    positions[1] = np.arange(T)
+    want = jax_prefill(qj, kj, vj, jnp.asarray(table),
+                       jnp.asarray(positions), scale=0.3, interpret=True)
+    got = paged_attention_prefill(qt, kt, vt, torch.from_numpy(table),
+                                  torch.from_numpy(positions), scale=0.3)
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+    assert np.all(_np(got)[2] == 0.0)
+    # the plain version of the model layer (gather path) on live rows
+    gather = jax_paged_attention(qj, kj, vj, jnp.asarray(table),
+                                 jnp.asarray(positions), 0.3)
+    mine = _paged_attention(qt, kt, vt, torch.from_numpy(table),
+                            torch.from_numpy(positions), 0.3)
+    np.testing.assert_allclose(_np(mine)[:2], _np(gather)[:2], **F32)
+
+
+def test_prefill_bf16():
+    rng = np.random.RandomState(1)
+    B, KV, group, ps, hd, N, P, T = 2, 2, 2, 4, 16, 16, 4, 8
+    H = KV * group
+    qj, qt = _both(rng.randn(B, T, H, hd).astype(np.float32), "bfloat16")
+    (kj, kt), (vj, vt) = _pages(rng, N, ps, KV, hd, "bfloat16")
+    table = np.zeros((B, P), np.int32)
+    table[0, :3] = [1, 5, 9]
+    table[1, :2] = [2, 8]
+    positions = np.stack([np.arange(4, 4 + T), np.arange(T)]).astype(np.int32)
+    want = jax_prefill(qj, kj, vj, jnp.asarray(table),
+                       jnp.asarray(positions), scale=0.25, interpret=True)
+    got = paged_attention_prefill(qt, kt, vt, torch.from_numpy(table),
+                                  torch.from_numpy(positions), scale=0.25)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), **BF16)
+
+
+def test_prefill_softcap_and_window():
+    rng = np.random.RandomState(8)
+    KV, group, hd, ps, T, B, P, N = 2, 2, 32, 8, 24, 2, 4, 32
+    H = KV * group
+    qj, qt = _both(rng.randn(B, T, H, hd).astype(np.float32))
+    (kj, kt), (vj, vt) = _pages(rng, N, ps, KV, hd)
+    table = np.stack([rng.choice(np.arange(1, N), P, replace=False)
+                      for _ in range(B)]).astype(np.int32)
+    positions = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
+    window, softcap = 7, 12.0
+    win = np.full((B,), window, np.int32)
+    want = jax_prefill(qj, kj, vj, jnp.asarray(table),
+                       jnp.asarray(positions), scale=hd ** -0.5,
+                       interpret=True, softcap=softcap,
+                       eff_win=jnp.asarray(win))
+    got = paged_attention_prefill(qt, kt, vt, torch.from_numpy(table),
+                                  torch.from_numpy(positions),
+                                  scale=hd ** -0.5, softcap=softcap,
+                                  eff_win=torch.from_numpy(win))
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+
+def test_prefill_window_second_chunk_page_skip():
+    """Second chunk past the window: pages below the window's reach are
+    skipped, output still matches."""
+    rng = np.random.RandomState(9)
+    KV, group, hd, ps, T, B, P, N = 1, 2, 32, 4, 8, 1, 8, 32
+    H = KV * group
+    qj, qt = _both(rng.randn(B, T, H, hd).astype(np.float32))
+    (kj, kt), (vj, vt) = _pages(rng, N, ps, KV, hd)
+    table = np.arange(1, P + 1, dtype=np.int32)[None]
+    positions = (20 + np.arange(T, dtype=np.int32))[None]
+    win = np.full((B,), 6, np.int32)
+    want = jax_prefill(qj, kj, vj, jnp.asarray(table),
+                       jnp.asarray(positions), scale=hd ** -0.5,
+                       interpret=True, eff_win=jnp.asarray(win))
+    got = paged_attention_prefill(qt, kt, vt, torch.from_numpy(table),
+                                  torch.from_numpy(positions),
+                                  scale=hd ** -0.5,
+                                  eff_win=torch.from_numpy(win))
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+
+# ----------------------------------------------------------- wrapper rules
+
+
+def test_wrappers_check_operands():
+    """dtype, shape and device checks raise instead of computing."""
+    q = torch.zeros(2, 4, 16)
+    pool = torch.zeros(1, 4, 2, 8, 16)
+    table = torch.zeros(2, 2, dtype=torch.int32)
+    lengths = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        paged_attention_decode_layered(q, pool, pool, 0, table,
+                                       lengths.long())
+    with pytest.raises(ValueError, match="dtypes"):
+        paged_attention_decode_layered(q.double(), pool, pool, 0, table,
+                                       lengths)
+    with pytest.raises(ValueError, match="layer"):
+        paged_attention_decode_layered(q, pool, pool, 1, table, lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_attention_prefill(
+            torch.zeros(2, 3, 4, 16).transpose(1, 2).contiguous()
+            .transpose(1, 2), pool[0], pool[0], table,
+            torch.zeros(2, 3, dtype=torch.int32))
+
+
+def test_cpu_path_never_counts_launches():
+    ops.reset_launch_counts()
+    q = torch.randn(1, 2, 8)
+    pool = torch.randn(1, 4, 1, 4, 8)
+    paged_attention_decode_layered(q, pool, pool, 0,
+                                   torch.tensor([[1]], dtype=torch.int32),
+                                   torch.tensor([3], dtype=torch.int32))
+    assert ops.LAUNCHES == {"paged_attention_decode": 0,
+                            "paged_attention_prefill": 0}
