@@ -11,7 +11,7 @@ Phases; any failure exits non-zero before the result line:
    with and without stats, rows of length 0, softcap and a lower bound,
    float32 (atol 1e-5) and bfloat16 (atol 2e-2 + rtol 1e-2);
 3. the same for the prefill kernel: padding queries, a sliding window, a
-   second chunk that skips pages;
+   second chunk that skips pages, the fourth chunk of a 2048-token prompt;
 4. serve Llama-3-8B-shaped requests (32 layers at full width, random
    weights from a seed, byte tokenizer) over the OpenAI HTTP front end on
    a local port: concurrent streaming and unary requests, then a repeated
@@ -22,7 +22,9 @@ Phases; any failure exits non-zero before the result line:
    position), with two injected faults as controls that must fail it;
 5. time each kernel at the serving shapes beside its bound, its plain
    version and scaled_dot_product_attention on the same dense work, and
-   hold it against its plain version there (bf16 tolerance).
+   hold it against its plain version there (bf16 tolerance); prefill also
+   at a deep chunk (positions 1536-2047). Bounds count the work of this
+   run's inputs (ops.paged_attention.prefill_work).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -44,6 +46,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores
+PREFILL_SOURCE = "dynamo_tpu_torch/ops/csrc/paged_attention.cu"
 
 
 def fail(msg: str) -> None:
@@ -272,31 +275,40 @@ def check_prefill(dev) -> dict:
         pos = torch.full((3, T), -1, dtype=torch.int32)
         pos[0] = torch.arange(T)
         pos[1, :200] = torch.arange(200)
-        cases.append(("8b-chunk1", N, KV, G, ps, hd, P, pos,
+        cases.append(("8b-chunk1", N, KV, G, ps, hd, P, P, pos,
                       [NO_WINDOW] * 3, None))
         # 8B: a second chunk continuing at position 512
         pos = (512 + torch.arange(256, dtype=torch.int32))[None]
-        cases.append(("8b-chunk2", N, KV, G, ps, hd, P, pos, [NO_WINDOW],
+        cases.append(("8b-chunk2", N, KV, G, ps, hd, P, P, pos, [NO_WINDOW],
                       None))
+        # 8B: the fourth chunk of a 2048-token prompt (positions
+        # 1536-2047), 32 of the 64-entry page table in use
+        pos = (1536 + torch.arange(512, dtype=torch.int32))[None]
+        cases.append(("8b-chunk4", N, KV, G, ps, hd, 64, 32, pos,
+                      [NO_WINDOW], None))
         # sliding window + softcap, second chunk past the window: pages
         # wholly below it are skipped
         pos = (300 + torch.arange(64, dtype=torch.int32))[None].repeat(2, 1)
         pos[1, 40:] = -1
-        cases.append(("window", N, KV, G, ps, hd, P, pos, [100, 37], 20.0))
-        # small shapes: group 2, head_dim 32, page 4 (the bf16 tensor-core
-        # kernel takes pages of multiples of 16)
+        cases.append(("window", N, KV, G, ps, hd, P, P, pos, [100, 37], 20.0))
+        # small shapes: group 2; float32 at head_dim 32, page 4, bfloat16
+        # at head_dim 64, page 16 (the smallest the bf16 kernel takes)
         pos = torch.stack([torch.arange(8, 24), torch.arange(16)]).to(torch.int32)
-        cases.append(("small", 32, 2, 2, 4 if dtype == torch.float32 else 16,
-                      32, 8, pos, [NO_WINDOW, 5], None))
-        for name, N, KV, G, ps, hd, P, pos, win, softcap in cases:
+        f32 = dtype == torch.float32
+        cases.append(("small", 32, 2, 2, 4 if f32 else 16, 32 if f32 else 64,
+                      8, 8, pos, [NO_WINDOW, 5], None))
+        for name, N, KV, G, ps, hd, P, used, pos, win, softcap in cases:
             B, T = pos.shape
             H = KV * G
             kp = torch.randn(N, KV, ps, hd, generator=g, device=dev).to(dtype)
             vp = torch.randn(N, KV, ps, hd, generator=g, device=dev).to(dtype)
             q = torch.randn(B, T, H, hd, generator=g, device=dev).to(dtype)
-            table = torch.stack([torch.randperm(N - 1, generator=g,
-                                                device=dev)[:P] + 1
-                                 for _ in range(B)]).to(torch.int32)
+            # `used` distinct pages of the pool, then 0 (the engine's
+            # padding entry)
+            table = torch.zeros((B, P), dtype=torch.int32, device=dev)
+            for b in range(B):
+                table[b, :used] = torch.randperm(N - 1, generator=g,
+                                                 device=dev)[:used] + 1
             qp = pos.to(dev)
             w = torch.tensor(win, dtype=torch.int32, device=dev)
             got = paged_attention_prefill(q, kp, vp, table, qp,
@@ -598,7 +610,7 @@ def time_kernels(engine, cfg, dev, served) -> list:
     from dynamo_tpu_torch.ops.paged_attention import (
         NO_WINDOW, paged_attention_decode_layered,
         paged_attention_decode_window, paged_attention_prefill,
-        prefill_reference, window_reference)
+        prefill_reference, prefill_work, window_reference)
 
     ecfg = engine.ecfg
     KV, hd, H = cfg.num_kv_heads, cfg.head_dim_, cfg.num_heads
@@ -676,56 +688,72 @@ def time_kernels(engine, cfg, dev, served) -> list:
                   "pool": ctx, "window": K},
     })
 
-    # prefill at the served first chunk's shapes: one prompt chunk of
-    # prefill_chunk tokens from position 0
-    T = ecfg.bucket_len(served["prefill_chunk"])
-    B = ecfg.prefill_bucket_batch(1)
-    P = ecfg.bucket_pages(-(-T // ps))
-    table = torch.zeros((B, P), dtype=torch.int32, device=dev)
-    table[0, :-(-T // ps)] = torch.randperm(N - 1, generator=g,
-                                            device=dev)[:-(-T // ps)] + 1
-    pos = torch.full((B, T), -1, dtype=torch.int32, device=dev)
-    n = served["prefill_chunk"]
-    pos[0, :n] = torch.arange(n, device=dev)
-    win = torch.full((B,), NO_WINDOW, dtype=torch.int32, device=dev)
-    qf = torch.randn(B, T, H, hd, generator=g, device=dev).to(kp.dtype)
-    k0, v0 = kp[0], vp[0]
-    pf = lambda: paged_attention_prefill(  # noqa: E731
-        qf, k0, v0, table, pos, eff_win=win)
-    t_k, t_eager = time_ms(pf, iters=20), eager_ms(pf, iters=20)
-    t_p = time_ms(lambda: prefill_reference(qf, k0, v0, table, pos, scale,
-                                            None, win), iters=5)
-    got, want = pf(), prefill_reference(qf, k0, v0, table, pos, scale, None,
-                                        win)
-    err = max_err(got, want)
-    if excess(got, want, 2e-2, 1e-2) > 0:   # bf16, as in check_prefill
-        fail(f"prefill at the served shapes: max abs err {err:.3g}")
-    S = P * ps
-    kd = k0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
-    vd = v0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
-    qpos = pos[:, :, None].long()
-    kvpos = torch.arange(S, device=dev)[None, None, :]
-    mask = ((kvpos <= qpos) | (qpos < 0))[:, None]
-    qt = qf.transpose(1, 2)
-    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kd, vd, attn_mask=mask, enable_gqa=True), iters=20)
-    pairs = n * (n + 1) // 2   # causal (query, key) pairs of the chunk
-    bytes_ = (2 * n * KV * hd * el + 2 * n * H * hd * el + table.numel() * 4
-              + pos.numel() * 4)
-    flops = 4 * pairs * H * hd
+    def time_prefill(start: int, n: int) -> dict:
+        """Kernel, plain version and SDPA on one prompt chunk of n tokens
+        at positions start .. start + n - 1 (the row's earlier pages in
+        the pool), in the served bucket shapes; the kernel is held to its
+        plain version (bf16 tolerance, as in check_prefill)."""
+        T = ecfg.bucket_len(n)
+        B = ecfg.prefill_bucket_batch(1)
+        used = -(-(start + n) // ps)
+        P = ecfg.bucket_pages(used)
+        table = torch.zeros((B, P), dtype=torch.int32, device=dev)
+        table[0, :used] = torch.randperm(N - 1, generator=g,
+                                         device=dev)[:used] + 1
+        pos = torch.full((B, T), -1, dtype=torch.int32, device=dev)
+        pos[0, :n] = torch.arange(start, start + n, device=dev)
+        win = torch.full((B,), NO_WINDOW, dtype=torch.int32, device=dev)
+        qf = torch.randn(B, T, H, hd, generator=g, device=dev).to(kp.dtype)
+        k0, v0 = kp[0], vp[0]
+        pf = lambda: paged_attention_prefill(  # noqa: E731
+            qf, k0, v0, table, pos, eff_win=win)
+        t_k, t_eager = time_ms(pf, iters=20), eager_ms(pf, iters=20)
+        t_p = time_ms(lambda: prefill_reference(qf, k0, v0, table, pos,
+                                                scale, None, win), iters=5)
+        got, want = pf(), prefill_reference(qf, k0, v0, table, pos, scale,
+                                            None, win)
+        err = max_err(got, want)
+        if excess(got, want, 2e-2, 1e-2) > 0:
+            fail(f"prefill at positions {start}..{start + n - 1}: max abs "
+                 f"err {err:.3g}")
+        S = P * ps
+        kd = k0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+        vd = v0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+        qpos = pos[:, :, None].long()
+        kvpos = torch.arange(S, device=dev)[None, None, :]
+        mask = ((kvpos <= qpos) | (qpos < 0))[:, None]
+        qt = qf.transpose(1, 2)
+        t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kd, vd, attn_mask=mask, enable_gqa=True), iters=20)
+        queries, pairs, keys = prefill_work(pos, win)
+        bytes_ = (2 * keys * KV * hd * el + 2 * queries * H * hd * el
+                  + table.numel() * 4 + pos.numel() * 4)
+        flops = 4 * pairs * H * hd
+        return {
+            "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": max(bytes_ / H100_BYTES_PER_S,
+                            flops / H100_BF16_FLOPS) * 1e3,
+            "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
+                         >= flops / H100_BF16_FLOPS else "operations"),
+            "library_ms": t_lib, "eager_ms": t_eager,
+            "work": {"queries": queries, "pairs": pairs, "kv_positions": keys,
+                     "bytes": bytes_, "flops": flops},
+            "shape": {"B": B, "T": T, "start": start, "valid": n, "H": H,
+                      "KV": KV, "hd": hd, "ps": ps, "P": P},
+        }
+
+    # prefill at the served first chunk's shapes (one prompt chunk of
+    # prefill_chunk tokens from position 0), and at a deep chunk of the
+    # same size: the fourth chunk of a 2048-token prompt
+    first = time_prefill(0, served["prefill_chunk"])
+    chunk = ecfg.prefill_chunk
+    deep = time_prefill(3 * chunk, chunk)
     rows.append({
         "name": "paged_attention_prefill", "route": "cuda",
-        "source": "dynamo_tpu_torch/ops/csrc/paged_attention.cu",
+        "source": PREFILL_SOURCE,
         "replaces": "dynamo_tpu/ops/paged_attention.py:336",
         "launches": served["launches"]["paged_attention_prefill"],
-        "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-        "bound_ms": max(bytes_ / H100_BYTES_PER_S,
-                        flops / H100_BF16_FLOPS) * 1e3,
-        "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
-                     >= flops / H100_BF16_FLOPS else "operations"),
-        "library_ms": t_lib, "eager_ms": t_eager,
-        "shape": {"B": B, "T": T, "valid": n, "H": H, "KV": KV, "hd": hd,
-                  "ps": ps, "P": P},
+        **first, "deep_chunk": deep,
     })
     return rows
 
@@ -803,6 +831,9 @@ def main() -> None:
             f"{r['bound_by']}; plain {r['plain_ms']:.4f} ms; SDPA "
             f"{r['library_ms']:.4f} ms); launches {r['launches']} "
             f"({r['launches_per_token']:.1f}/token); shape {r['shape']}")
+        if "deep_chunk" in r:
+            d = r["deep_chunk"]
+            log(f"  {r['name']} deep chunk: {json.dumps(d)}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -483,3 +483,35 @@ def prefill_reference(q, k_pages, v_pages, page_table, q_positions,
     out = torch.where((q_positions >= 0)[:, :, None, None, None], out,
                       torch.zeros_like(out))
     return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+def prefill_work(q_positions: torch.Tensor,
+                 eff_win: Optional[torch.Tensor] = None
+                 ) -> Tuple[int, int, int]:
+    """The work one prefill call must do, counted from its inputs:
+    ``(queries, pairs, kv_positions)`` summed over rows — the valid
+    queries (q_pos >= 0), the visible (query, key) pairs (each query sees
+    ``min(q_pos + 1, eff_win)`` keys), and the K/V positions some query of
+    the row sees (the union of the queries' visible ranges). A kernel's
+    bound follows: ``4 * pairs * H * hd`` operations; Q and the output
+    moved once per query and head, K and V once per position and kv head.
+    """
+    qp = q_positions.long()
+    B = qp.shape[0]
+    win = (eff_win.long()[:, None] if eff_win is not None
+           else torch.full((B, 1), NO_WINDOW, dtype=torch.long,
+                           device=qp.device))
+    valid = qp >= 0
+    if not bool(valid.any()):
+        return 0, 0, 0
+    lo = (qp - win + 1).clamp(min=0)
+    pairs = int(torch.where(valid, qp - lo + 1, 0).sum())
+    # union of the rows' intervals [lo, qp]: +1 at lo, -1 past qp (slot S
+    # collects the padding queries), covered where the running sum > 0
+    S = int(qp.max()) + 2
+    diff = torch.zeros((B, S + 1), dtype=torch.long, device=qp.device)
+    ones = torch.ones_like(qp)
+    diff.scatter_add_(1, torch.where(valid, lo, S), ones)
+    diff.scatter_add_(1, torch.where(valid, qp + 1, S), -ones)
+    kv_positions = int((diff[:, :S].cumsum(1) > 0).sum())
+    return int(valid.sum()), pairs, kv_positions

@@ -314,6 +314,39 @@ def test_prefill_window_second_chunk_page_skip():
     np.testing.assert_allclose(_np(got), _np(want), **F32)
 
 
+@pytest.mark.parametrize("case", ["first", "continuation", "padded",
+                                  "windowed", "all_padding"])
+def test_prefill_work_counts_the_mask(case):
+    """prefill_work (the kernel's bound in chip_smoke.py) against a
+    brute-force count of the visible (query, key) mask."""
+    rng = np.random.RandomState(11)
+    T = 24
+    pos = np.full((3, T), -1, np.int32)
+    win = np.full((3,), ops.NO_WINDOW, np.int32)
+    pos[0] = np.arange(T)
+    if case in ("continuation", "windowed"):
+        pos[0] = 100 + np.arange(T)
+        pos[1, :10] = 37 + np.arange(10)
+    if case == "padded":
+        pos[1, :5] = np.arange(5)
+        pos[2, 3:9] = 50 + np.arange(6)
+    if case == "windowed":
+        win[:] = [7, 3, 1]
+        pos[2] = 5 + np.arange(T)
+    if case == "all_padding":
+        pos[:] = -1
+    rng.shuffle(pos[1])  # query order does not matter
+    keys = np.arange(pos.max() + 1)[None, None, :]
+    qp = pos[:, :, None]
+    vis = (keys <= qp) & (keys > qp - win[:, None, None]) & (qp >= 0)
+    got = ops.prefill_work(torch.from_numpy(pos), torch.from_numpy(win))
+    assert got == (int((pos >= 0).sum()), int(vis.sum()),
+                   int(vis.any(axis=1).sum()))
+    if case == "first":  # a causal chunk from position 0: T (T + 1) / 2
+        assert ops.prefill_work(torch.from_numpy(pos[:1]))[1:] == (
+            T * (T + 1) // 2, T)
+
+
 # ----------------------------------------------------------- wrapper rules
 
 
