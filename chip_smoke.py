@@ -46,7 +46,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores
-PREFILL_SOURCE = "dynamo_tpu_torch/ops/csrc/paged_attention.cu"
+PREFILL_SOURCE = "dynamo_tpu_torch/ops/csrc/paged_prefill.cu"
 
 
 def fail(msg: str) -> None:

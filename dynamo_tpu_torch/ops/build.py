@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), for ``sm_90a``. Libraries land in a build directory keyed by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. :func:`build_all` starts one ``nvcc`` per source,
-all at once, and waits for them; :func:`library` builds on first use.
+hash of the source, the ``csrc/*.cuh`` headers it includes and the flags,
+so an edited source or header rebuilds and an unchanged one is reused.
+:func:`build_all` starts one ``nvcc`` per source, all at once, and waits
+for them; :func:`library` builds on first use.
 Nothing here runs at import time.
 """
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
 
+_INCLUDE = re.compile(r'^#include "([^"]+\.cuh)"', re.MULTILINE)
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's output per source (register and shared-memory use from -Xptxas -v)
@@ -52,8 +55,14 @@ def sources() -> List[str]:
 
 
 def _target(name: str) -> str:
+    """The library's path, named by a hash of its source, the csrc headers
+    the source includes, and the flags."""
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        src = f.read()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(set(_INCLUDE.findall(src.decode()))):
+        with open(os.path.join(CSRC, header), "rb") as f:
+            digest.update(f.read())
     return os.path.join(build_dir(), f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -1,100 +1,55 @@
-// Paged GQA attention over the stacked KV pool, for Hopper (sm_90a).
+// Paged GQA decode attention over the stacked KV pool, for Hopper (sm_90a).
 //
-// Two kernels, each behind a plain C entry that returns cudaGetLastError()
-// and is loaded with ctypes by dynamo_tpu_torch/ops/paged_attention.py:
+// Two kernels behind plain C entries that return cudaGetLastError() and
+// are loaded with ctypes by dynamo_tpu_torch/ops/paged_attention.py:
 //
-//   paged_decode_kernel   replaces the TPU kernel _decode_kernel, reached
-//                         through paged_attention_decode_layered
-//                         (dynamo_tpu/ops/paged_attention.py:52,211).
-//   paged_prefill_kernel  replaces the TPU kernel _prefill_kernel, reached
-//                         through paged_attention_prefill
-//                         (dynamo_tpu/ops/paged_attention.py:336,406).
+//   paged_decode_kernel + paged_decode_combine  replace the TPU kernel
+//       _decode_kernel, reached through paged_attention_decode_layered
+//       (dynamo_tpu/ops/paged_attention.py:52,211).
 //
-// Pool layout (both kernels): [L, num_pages, KV, page_size, head_dim],
-// contiguous; a page of one kv head is one contiguous [ps, hd] tile.
-// Element types: float and __nv_bfloat16; softmax and every sum in float32.
+// The prefill kernel (the TPU kernel _prefill_kernel) lives in
+// paged_prefill.cu.
 //
-// What bounds them on an H100 SXM, and what the design does about it:
+// Pool layout: [L, num_pages, KV, page_size, head_dim], contiguous; a page
+// of one kv head is one contiguous [ps, hd] tile. Element types: float and
+// __nv_bfloat16; softmax and every sum in float32.
 //
-// * Decode (one query per row) reads every visible K/V row once and does
-//   ~4*H*hd flops per row: about 4 flops per byte of bf16 K/V, far below
-//   the ~295 flops/byte where 989 TF/s bf16 would bind. It is bound by the
-//   bytes of K/V read, at 3.35 TB/s. A block works for one (row, kv head)
-//   and packs the whole GQA group, so each K/V page of that head is read
-//   from device memory exactly once for all of the group's query heads;
-//   the blocks walk only the pages that cover [lower, length) (the loop bounds do the job
-//   of the TPU kernel's page-index clamp), reads the page id from the page
-//   table itself, and takes the layer as an offset into the stacked pool
-//   (no copy of a layer). Pages stream through shared memory in 16-byte
-//   cp.async copies, double-buffered, so the next page's fetch overlaps
-//   the current page's compute. A row's pages are split over enough
-//   blocks to give every SM two (flash-decoding); a combine kernel folds
-//   the splits, and the fused decode window's in-flight keys, by their
-//   (m, l) stats. Not done yet: fewer block-wide phases per page (each
-//   page's scores, softmax and P V are separate phases with a barrier
-//   between, which bounds a block at a few microseconds per page).
+// What bounds it on an H100 SXM, and what the design does about it:
+// decode (one query per row) reads every visible K/V row once and does
+// ~4*H*hd flops per row: about 4 flops per byte of bf16 K/V, far below
+// the ~295 flops/byte where 989 TF/s bf16 would bind. It is bound by the
+// bytes of K/V read, at 3.35 TB/s. A block works for one (row, kv head)
+// and packs the whole GQA group, so each K/V page of that head is read
+// from device memory exactly once for all of the group's query heads; the
+// blocks walk only the pages that cover [lower, length) (the loop bounds
+// do the job of the TPU kernel's page-index clamp), read the page id from
+// the page table themselves, and take the layer as an offset into the
+// stacked pool (no copy of a layer). Pages stream through shared memory in
+// 16-byte cp.async copies, double-buffered, so the next page's fetch
+// overlaps the current page's compute. A row's pages are split over
+// enough blocks to give every SM two (flash-decoding); a combine kernel
+// folds the splits, and the fused decode window's in-flight keys, by
+// their (m, l) stats. Not done yet: fewer block-wide phases per page
+// (each page's scores, softmax and P V are separate phases with a barrier
+// between, which bounds a block at a few microseconds per page).
 //
-// * Prefill (a chunk of T queries per row) does ~4*H*hd flops for every
-//   visible (query, key) pair: with T in the hundreds it is bound by
-//   operations, at 989 TF/s bf16 on the tensor cores. One block per
-//   (row, kv head, TQ queries) stages each K/V page in shared memory once
-//   for its TQ * G (query, head) rows, so a page is read from device
-//   memory T/TQ times, not T times; each block skips pages outside the
-//   visible range of its own queries (causal and sliding window), which
-//   halves the work of a causal chunk. In bf16 (page and head sizes must
-//   be multiples of 16, as in serving) both products of a page run on the
-//   tensor cores (WMMA 16x16x16, float32 accumulation); in float32 they
-//   are float32 FMAs on the CUDA cores.
-//   Not done yet: wgmma and TMA, a ring of pages in flight, keeping the
-//   accumulator in registers instead of shared memory.
-//
-// Semantics shared with the TPU kernels: online softmax in float32 with
+// Semantics shared with the TPU kernel: online softmax in float32 with
 // the finite NEG_INF = -1e30; exp() only where a key is visible, so an
 // all-masked view returns m = NEG_INF, l = 0 and a zero output; the
 // Gemma-2 tanh softcap comes before the mask.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <climits>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr int MAX_G = 8;         // GQA group size the decode kernel takes
-constexpr size_t MAX_SMEM = 227 * 1024;  // per block, after opt-in
 constexpr int DEC_THREADS = 128;
 constexpr int DEC_MAX_DPT = 2;   // head_dim <= DEC_THREADS * DEC_MAX_DPT
-constexpr int PF_THREADS = 256;
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float cap(float s, float softcap) {
-  return softcap > 0.f ? softcap * tanhf(s / softcap) : s;
-}
 
 // ------------------------------------------------------------------ decode
 // 16-byte asynchronous copy global -> shared (sm_80+), and its group fences
@@ -451,330 +406,6 @@ paged_decode_combine(const float* __restrict__ part_acc,
   }
 }
 
-// ----------------------------------------------------------------- prefill
-// grid (B, KV, ceil(T / TQ)); block PF_THREADS. Rows r = t_local * G + g
-// (R = TQ * G of them). Shared: q [R*hd], K page [ps*(hd+1)] (padded row
-// stride: conflict-free score reads), V page [ps*hd], scores/probs
-// [R*ps], acc [R*hd], m, l, alpha [R], q positions [TQ] and the block's
-// page bounds.
-template <typename T>
-__global__ void __launch_bounds__(PF_THREADS)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                     const T* __restrict__ v_pages,
-                     const int* __restrict__ page_table,
-                     const int* __restrict__ q_positions,
-                     const int* __restrict__ eff_win, T* __restrict__ out,
-                     int Tq, int H, int KV, int N, int ps, int hd, int P,
-                     int TQ, float scale, float softcap) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, kv = blockIdx.y, t0 = blockIdx.z * TQ;
-  const int G = H / KV, R = TQ * G;
-  float* q_s = smem;
-  float* k_s = q_s + R * hd;
-  float* v_s = k_s + ps * (hd + 1);
-  float* s_s = v_s + ps * hd;
-  float* acc = s_s + R * ps;
-  float* m_s = acc + R * hd;
-  float* l_s = m_s + R;
-  float* a_s = l_s + R;
-  int* qpos_s = reinterpret_cast<int*>(a_s + R);
-  int* bounds = qpos_s + TQ;  // [page_begin, page_end)
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int win = eff_win[b];
-
-  for (int i = tid; i < TQ; i += blockDim.x) {
-    const int t = t0 + i;
-    qpos_s[i] = t < Tq ? q_positions[(long long)b * Tq + t] : -1;
-  }
-  for (int i = tid; i < R * hd; i += blockDim.x) {
-    const int r = i / hd, d = i - r * hd;
-    const int t = t0 + r / G, g = r - (r / G) * G;
-    q_s[i] = t < Tq ? to_f(q[(((long long)b * Tq + t) * H + kv * G + g) * hd + d]) : 0.f;
-    acc[i] = 0.f;
-  }
-  for (int r = tid; r < R; r += blockDim.x) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    // this block's visible extent, as the TPU wrapper computes it per row
-    // (dynamo_tpu/ops/paged_attention.py:431-438) but over the block's own
-    // queries: length = max position + 1, lower = min position + 1 - window
-    int maxq = -1, minq = 1 << 30;
-    for (int i = 0; i < TQ; ++i) {
-      const int qp = qpos_s[i];
-      maxq = max(maxq, qp);
-      if (qp >= 0) minq = min(minq, qp);
-    }
-    const int length = maxq + 1;
-    const int lo = min(max(minq + 1 - win, 0), max(length - 1, 0));
-    bounds[0] = lo / ps;
-    bounds[1] = min((length + ps - 1) / ps, P);
-  }
-  __syncthreads();
-  const int p_begin = bounds[0], p_end = bounds[1];
-  const long long page_elems = (long long)KV * ps * hd;
-  const long long head_off = (long long)kv * ps * hd;
-
-  for (int p = p_begin; p < p_end; ++p) {
-    const int page = page_table[(long long)b * P + p];
-    if (page < 0 || page >= N) continue;  // never read outside the pool
-    const T* kp = k_pages + page * page_elems + head_off;
-    const T* vp = v_pages + page * page_elems + head_off;
-    for (int i = tid; i < ps * hd; i += blockDim.x) {
-      const int j = i / hd, d = i - j * hd;
-      k_s[j * (hd + 1) + d] = to_f(kp[i]);
-      v_s[i] = to_f(vp[i]);
-    }
-    __syncthreads();
-
-    for (int i = tid; i < R * ps; i += blockDim.x) {
-      const int r = i / ps, j = i - r * ps;
-      const float* qr = q_s + r * hd;
-      const float* kj = k_s + j * (hd + 1);
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s += qr[d] * kj[d];
-      s_s[i] = cap(s * scale, softcap);
-    }
-    __syncthreads();
-
-    for (int r = warp; r < R; r += nwarps) {
-      const int qp = qpos_s[r / G];
-      float mx = NEG_INF;
-      for (int j = lane; j < ps; j += 32) {
-        const int kvp = p * ps + j;
-        if (kvp <= qp && kvp > qp - win) mx = fmaxf(mx, s_s[r * ps + j]);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < ps; j += 32) {
-        const int kvp = p * ps + j;
-        const float pe = (kvp <= qp && kvp > qp - win)
-                             ? expf(s_s[r * ps + j] - m_new) : 0.f;
-        s_s[r * ps + j] = pe;
-        sum += pe;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < R * hd; i += blockDim.x) {
-      const int r = i / hd, d = i - r * hd;
-      const float* pr = s_s + r * ps;
-      float a = acc[i] * a_s[r];
-      for (int j = 0; j < ps; ++j) a += pr[j] * v_s[j * hd + d];
-      acc[i] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < R * hd; i += blockDim.x) {
-    const int r = i / hd, d = i - r * hd;
-    const int t = t0 + r / G, g = r - (r / G) * G;
-    if (t < Tq)
-      out[(((long long)b * Tq + t) * H + kv * G + g) * hd + d] =
-          from_f<T>(acc[i] / fmaxf(l_s[r], 1e-9f));
-  }
-}
-
-size_t prefill_smem_bytes(int TQ, int G, int ps, int hd) {
-  const size_t R = (size_t)TQ * G;
-  return sizeof(float) * (R * hd + (size_t)ps * (hd + 1) + (size_t)ps * hd +
-                          R * ps + R * hd + 3 * R) +
-         sizeof(int) * ((size_t)TQ + 2);
-}
-
-// ------------------------------------------------- prefill, tensor cores
-// The bfloat16 form of the prefill kernel for page and head sizes that are
-// multiples of 16: the two products of every page (S = Q K^T and
-// acc += P V) run on the tensor cores through WMMA 16x16x16 bf16 tiles
-// with float32 accumulation; the online softmax stays in float32. The
-// probabilities enter P V rounded to bfloat16, as the gather path's
-// einsum takes them (probs cast to v's dtype). Grid and rows as
-// paged_prefill_kernel, with the R = TQ * G rows padded to Rp, a multiple
-// of 16 (padding rows see no key). Shared: q [Rp*hd], K, V [ps*hd],
-// P [Rp*ps] (bf16); S [Rp*ps], acc [Rp*hd], m, l, alpha [Rp] (float32);
-// q positions [TQ] and the block's page bounds.
-constexpr int PFW_THREADS = 256;
-
-__host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
-
-size_t prefill_wmma_smem_bytes(int TQ, int G, int ps, int hd) {
-  const size_t Rp = round16(TQ * G);
-  return 2 * (Rp * hd + 2 * (size_t)ps * hd + Rp * ps) +
-         4 * (Rp * ps + Rp * hd + 3 * Rp) + 4 * ((size_t)TQ + 2);
-}
-
-__global__ void __launch_bounds__(PFW_THREADS)
-paged_prefill_wmma_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k_pages,
-                          const __nv_bfloat16* __restrict__ v_pages,
-                          const int* __restrict__ page_table,
-                          const int* __restrict__ q_positions,
-                          const int* __restrict__ eff_win,
-                          __nv_bfloat16* __restrict__ out, int Tq, int H,
-                          int KV, int N, int ps, int hd, int P, int TQ,
-                          float scale, float softcap) {
-  using namespace nvcuda;
-  extern __shared__ float4 smem_raw[];
-  const int b = blockIdx.x, kv = blockIdx.y, t0 = blockIdx.z * TQ;
-  const int G = H / KV, R = TQ * G, Rp = round16(R);
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + Rp * hd;
-  __nv_bfloat16* v_s = k_s + ps * hd;
-  __nv_bfloat16* p_s = v_s + ps * hd;
-  float* s_s = reinterpret_cast<float*>(p_s + Rp * ps);
-  float* acc = s_s + Rp * ps;
-  float* m_s = acc + Rp * hd;
-  float* l_s = m_s + Rp;
-  float* a_s = l_s + Rp;
-  int* qpos_s = reinterpret_cast<int*>(a_s + Rp);
-  int* bounds = qpos_s + TQ;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int win = eff_win[b];
-
-  for (int i = tid; i < TQ; i += blockDim.x) {
-    const int t = t0 + i;
-    qpos_s[i] = t < Tq ? q_positions[(long long)b * Tq + t] : -1;
-  }
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int i = tid; i < Rp * hd; i += blockDim.x) {
-    const int r = i / hd, d = i - r * hd;
-    const int t = t0 + r / G, g = r - (r / G) * G;
-    q_s[i] = (r < R && t < Tq)
-                 ? q[(((long long)b * Tq + t) * H + kv * G + g) * hd + d]
-                 : zero;
-    acc[i] = 0.f;
-  }
-  for (int r = tid; r < Rp; r += blockDim.x) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    // this block's visible extent, as in paged_prefill_kernel
-    int maxq = -1, minq = 1 << 30;
-    for (int i = 0; i < TQ; ++i) {
-      const int qp = qpos_s[i];
-      maxq = max(maxq, qp);
-      if (qp >= 0) minq = min(minq, qp);
-    }
-    const int length = maxq + 1;
-    const int lo = min(max(minq + 1 - win, 0), max(length - 1, 0));
-    bounds[0] = lo / ps;
-    bounds[1] = min((length + ps - 1) / ps, P);
-  }
-  __syncthreads();
-  const int p_begin = bounds[0], p_end = bounds[1];
-  const long long page_elems = (long long)KV * ps * hd;
-  const long long head_off = (long long)kv * ps * hd;
-  const int n_vec = ps * hd / 8;  // 16-byte vectors per tile
-  const int tiles_n = ps / 16, tiles_d = hd / 16, tiles_m = Rp / 16;
-
-  for (int p = p_begin; p < p_end; ++p) {
-    const int page = page_table[(long long)b * P + p];
-    if (page < 0 || page >= N) continue;  // never read outside the pool
-    const uint4* kp = reinterpret_cast<const uint4*>(k_pages + page * page_elems + head_off);
-    const uint4* vp = reinterpret_cast<const uint4*>(v_pages + page * page_elems + head_off);
-    for (int i = tid; i < n_vec; i += blockDim.x) {
-      reinterpret_cast<uint4*>(k_s)[i] = kp[i];
-      reinterpret_cast<uint4*>(v_s)[i] = vp[i];
-    }
-    __syncthreads();
-
-    // S = Q K^T on the tensor cores (K row-major [ps][hd] is K^T
-    // column-major)
-    for (int tile = warp; tile < tiles_m * tiles_n; tile += nwarps) {
-      const int tm = tile / tiles_n, tn = tile - tm * tiles_n;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.f);
-      for (int kk = 0; kk < hd; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, q_s + tm * 16 * hd + kk, hd);
-        wmma::load_matrix_sync(fb, k_s + tn * 16 * hd + kk, hd);
-        wmma::mma_sync(c, fa, fb, c);
-      }
-      wmma::store_matrix_sync(s_s + tm * 16 * ps + tn * 16, c, ps, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // online softmax per row (float32); P to bf16 for the second product
-    for (int r = warp; r < Rp; r += nwarps) {
-      const int qp = r < R ? qpos_s[r / G] : -1;
-      float mx = NEG_INF;
-      for (int j = lane; j < ps; j += 32) {
-        const int kvp = p * ps + j;
-        const float sc = cap(s_s[r * ps + j] * scale, softcap);
-        s_s[r * ps + j] = sc;
-        if (kvp <= qp && kvp > qp - win) mx = fmaxf(mx, sc);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < ps; j += 32) {
-        const int kvp = p * ps + j;
-        const float pe = (kvp <= qp && kvp > qp - win)
-                             ? expf(s_s[r * ps + j] - m_new) : 0.f;
-        p_s[r * ps + j] = __float2bfloat16(pe);
-        sum += pe;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < Rp * hd; i += blockDim.x) acc[i] *= a_s[i / hd];
-    __syncthreads();
-
-    // acc += P V on the tensor cores
-    for (int tile = warp; tile < tiles_m * tiles_d; tile += nwarps) {
-      const int tm = tile / tiles_d, tn = tile - tm * tiles_d;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::load_matrix_sync(c, acc + tm * 16 * hd + tn * 16, hd, wmma::mem_row_major);
-      for (int kk = 0; kk < ps; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, p_s + tm * 16 * ps + kk, ps);
-        wmma::load_matrix_sync(fb, v_s + kk * hd + tn * 16, hd);
-        wmma::mma_sync(c, fa, fb, c);
-      }
-      wmma::store_matrix_sync(acc + tm * 16 * hd + tn * 16, c, hd, wmma::mem_row_major);
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < R * hd; i += blockDim.x) {
-    const int r = i / hd, d = i - r * hd;
-    const int t = t0 + r / G, g = r - (r / G) * G;
-    if (t < Tq)
-      out[(((long long)b * Tq + t) * H + kv * G + g) * hd + d] =
-          __float2bfloat16(acc[i] / fmaxf(l_s[r], 1e-9f));
-  }
-}
-
-// bf16 takes the tensor-core form (page size and head_dim multiples of
-// 16, which the wrapper checks); float32 takes paged_prefill_kernel
-bool prefill_uses_wmma(int dtype, int ps, int hd) {
-  return dtype == 1 && ps % 16 == 0 && hd % 16 == 0;
-}
-
 }  // namespace
 
 // The fused decode window's in-flight keys (null wk = none).
@@ -886,46 +517,4 @@ extern "C" int dyn_paged_attention_decode_window(
                                       nullptr, nullptr, win, out, nullptr,
                                       nullptr, part_acc, part_ml, B, H, KV, N,
                                       ps, hd, P, splits, scale, softcap, st);
-}
-
-// Shared memory one prefill block needs for TQ queries per block (the
-// wrapper picks TQ so that this stays under the card's per-block limit).
-extern "C" long long dyn_paged_attention_prefill_smem(int dtype, int TQ, int G,
-                                                      int ps, int hd) {
-  return (long long)(prefill_uses_wmma(dtype, ps, hd)
-                         ? prefill_wmma_smem_bytes(TQ, G, ps, hd)
-                         : prefill_smem_bytes(TQ, G, ps, hd));
-}
-
-extern "C" int dyn_paged_attention_prefill(
-    int dtype, const void* q, const void* k_pages, const void* v_pages,
-    const int* page_table, const int* q_positions, const int* eff_win,
-    void* out, int B, int Tq, int H, int KV, int N, int ps, int hd, int P,
-    int TQ, float scale, float softcap, void* stream) {
-  if (B == 0 || Tq == 0) return (int)cudaSuccess;
-  const int G = H / KV;
-  const dim3 grid(B, KV, (Tq + TQ - 1) / TQ);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (prefill_uses_wmma(dtype, ps, hd)) {
-    const size_t smem = prefill_wmma_smem_bytes(TQ, G, ps, hd);
-    cudaFuncSetAttribute(paged_prefill_wmma_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    paged_prefill_wmma_kernel<<<grid, PFW_THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k_pages),
-        static_cast<const __nv_bfloat16*>(v_pages), page_table, q_positions,
-        eff_win, static_cast<__nv_bfloat16*>(out), Tq, H, KV, N, ps, hd, P, TQ,
-        scale, softcap);
-    return (int)cudaGetLastError();
-  }
-  // bfloat16 takes only the tensor-core form: no scalar bf16 instantiation
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = prefill_smem_bytes(TQ, G, ps, hd);
-  cudaFuncSetAttribute(paged_prefill_kernel<float>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  paged_prefill_kernel<float><<<grid, PF_THREADS, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_pages),
-      static_cast<const float*>(v_pages), page_table, q_positions, eff_win,
-      static_cast<float*>(out), Tq, H, KV, N, ps, hd, P, TQ, scale, softcap);
-  return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """Paged GQA attention: the CUDA kernels' wrappers and their plain versions.
 
-Two kernels, both in ``csrc/paged_attention.cu`` (see the note at its top
-for what bounds each on an H100 and what the design does about it):
+Two kernels, in ``csrc/paged_attention.cu`` (decode) and
+``csrc/paged_prefill.cu`` (prefill); the note at the top of each says
+what bounds it on an H100 and what its design does about it:
 
 - :func:`paged_attention_decode_layered` (and the 4-D-pool form
   :func:`paged_attention_decode`) replaces the TPU kernel reached through
@@ -42,7 +43,10 @@ LAUNCHES: Dict[str, int] = {"paged_attention_decode": 0,
                             "paged_attention_prefill": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PREFILL_SMEM_LIMIT = 200 * 1024  # bytes of shared memory per prefill block
+# shapes the bfloat16 prefill kernel is built for
+PREFILL_BF16_HEAD_DIMS = (64, 128, 256)
+PREFILL_BF16_PAGE_SIZES = (16, 32, 64, 128)
+PREFILL_BF16_MAX_GROUP = 8
 
 
 def reset_launch_counts() -> None:
@@ -59,6 +63,7 @@ def effective_window(window: int, is_sliding: bool, B: int,
 
 
 def _lib():
+    """The decode kernels' library (``csrc/paged_attention.cu``)."""
     from .build import library
 
     lib = library("paged_attention")
@@ -72,11 +77,20 @@ def _lib():
             i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, i, i, p, p, p,
             i, i, i, i, i, i, i, i, f, f, p]
         lib.dyn_paged_attention_decode_window.restype = i
+        lib._dyn_typed = True
+    return lib
+
+
+def _prefill_lib():
+    """The prefill kernels' library (``csrc/paged_prefill.cu``)."""
+    from .build import library
+
+    lib = library("paged_prefill")
+    if not getattr(lib, "_dyn_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dyn_paged_attention_prefill.argtypes = [
-            i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, p]
+            i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, p]
         lib.dyn_paged_attention_prefill.restype = i
-        lib.dyn_paged_attention_prefill_smem.argtypes = [i, i, i, i, i]
-        lib.dyn_paged_attention_prefill_smem.restype = ctypes.c_longlong
         lib._dyn_typed = True
     return lib
 
@@ -420,27 +434,24 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
         return prefill_reference(q, k_pages, v_pages, page_table,
                                  q_positions, scale, softcap, eff_win)
 
-    _check(q.dtype == torch.float32 or (ps % 16 == 0 and hd % 16 == 0),
-           f"bfloat16 prefill kernel (tensor cores) takes page_size and "
-           f"head_dim multiples of 16 (got {ps}, {hd})")
-    lib = _lib()
     G = H // KV
-    dt = _DTYPES[q.dtype]
-    tq = max(1, 64 // G)  # queries per block: ~64 (query, head) rows
-    while tq > 1 and lib.dyn_paged_attention_prefill_smem(
-            dt, tq, G, ps, hd) > _PREFILL_SMEM_LIMIT:
-        tq //= 2
-    _check(lib.dyn_paged_attention_prefill_smem(dt, tq, G, ps, hd)
-           <= _PREFILL_SMEM_LIMIT,
-           f"prefill kernel: page_size {ps} x head_dim {hd} does not fit "
-           f"in shared memory")
+    if q.dtype == torch.bfloat16:
+        _check(hd in PREFILL_BF16_HEAD_DIMS
+               and ps in PREFILL_BF16_PAGE_SIZES
+               and G <= PREFILL_BF16_MAX_GROUP,
+               f"bfloat16 prefill kernel takes head_dim in "
+               f"{PREFILL_BF16_HEAD_DIMS}, page_size in "
+               f"{PREFILL_BF16_PAGE_SIZES} and GQA groups up to "
+               f"{PREFILL_BF16_MAX_GROUP} (got head_dim {hd}, page_size "
+               f"{ps}, group {G})")
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
+           "q and the pools must be 16-byte aligned (16-byte loads)")
+    lib = _prefill_lib()
     out = torch.empty_like(q)
-    _check(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
-           "pools must be 16-byte aligned (16-byte page loads)")
     err = lib.dyn_paged_attention_prefill(
-        dt, q.data_ptr(), k_pages.data_ptr(),
+        _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), q_positions.data_ptr(),
-        eff_win.data_ptr(), out.data_ptr(), B, T, H, KV, N, ps, hd, P, tq,
+        eff_win.data_ptr(), out.data_ptr(), B, T, H, KV, N, ps, hd, P,
         float(scale), float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

@@ -8,8 +8,8 @@ The file imports nothing of JAX, so it runs on a machine without it:
 
 Tolerances: atol 1e-5 in float32 (same math, another summation order);
 atol 2e-2 + rtol 1e-2 in bfloat16 (one or two bf16 roundings of the
-output at any magnitude; the tensor-core prefill also rounds the
-probabilities to bf16)."""
+output at any magnitude; the bf16 prefill kernel also rounds the
+probabilities to bf16 before P V)."""
 
 import numpy as np
 import pytest
@@ -121,14 +121,83 @@ def test_cuda_decode_window_matches_plain(cuda_device, dtype, tol, rtol,
     assert (got[0] == 0).all()
 
 
+def _prefill_case(dev, G, hd, ps, pos, win=None, softcap=None, KV=2,
+                  seed=3):
+    """The bf16 prefill kernel and its plain version on one input: q and
+    the pool from a seed, each row's pages distinct and shuffled."""
+    g = torch.Generator().manual_seed(seed)
+    B, T = pos.shape
+    used = -(-(int(pos.max()) + 1) // ps)
+    N, P = 2 * used + 4, used + 2  # trailing table entries stay 0
+    kp = torch.randn(N, KV, ps, hd, generator=g).to(torch.bfloat16)
+    vp = torch.randn(N, KV, ps, hd, generator=g).to(torch.bfloat16)
+    q = torch.randn(B, T, KV * G, hd, generator=g).to(torch.bfloat16)
+    table = torch.zeros((B, P), dtype=torch.int32)
+    for b in range(B):
+        table[b, :used] = torch.randperm(N - 1, generator=g)[:used] + 1
+    want = paged_attention_prefill(q, kp, vp, table, pos, softcap=softcap,
+                                   eff_win=win)
+    got = paged_attention_prefill(
+        *(t.to(dev) for t in (q, kp, vp, table, pos)), softcap=softcap,
+        eff_win=None if win is None else win.to(dev))
+    torch.cuda.synchronize()
+    return got.cpu(), want
+
+
 @pytest.mark.cuda
-def test_cuda_bf16_prefill_takes_pages_of_multiples_of_16(cuda_device):
-    """The bf16 prefill kernel runs on the tensor cores only: pages that
-    are not a multiple of 16 raise (no scalar bf16 form to fall back on)."""
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 7, 8])
+def test_cuda_bf16_prefill_kernel_matches_plain(cuda_device, G, hd, ps):
+    """Groups that do and do not divide the 64 rows of a block (G = 7:
+    9 queries, one padding row): a chunk continuing at position 40, a
+    row with padding queries at its end, and a row of padding only."""
+    T = 80
+    pos = torch.full((3, T), -1, dtype=torch.int32)
+    pos[0] = torch.arange(40, 40 + T)
+    pos[1, :33] = torch.arange(33)
+    got, want = _prefill_case(cuda_device, G, hd, ps, pos)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=2e-2)
+    assert (got[1, 33:] == 0).all() and (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_prefill_deep_chunk(cuda_device):
+    """The fourth 512-token chunk of a 2048-token prompt at the 8B widths:
+    every block walks 25 to 32 pages."""
+    pos = torch.arange(1536, 2048, dtype=torch.int32)[None]
+    got, want = _prefill_case(cuda_device, 4, 128, 64, pos, KV=8)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [16, 128])
+def test_cuda_bf16_prefill_window_and_softcap(cuda_device, ps):
+    """Sliding windows of 100 and 7 keys with the Gemma-2 softcap: key
+    blocks wholly below a block's window are skipped."""
+    T = 96
+    pos = torch.stack([torch.arange(200, 200 + T),
+                       torch.arange(300, 300 + T)]).to(torch.int32)
+    pos[1, 70:] = -1
+    win = torch.tensor([100, 7], dtype=torch.int32)
+    got, want = _prefill_case(cuda_device, 4, 128, ps, pos, win=win,
+                              softcap=30.0)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=2e-2)
+    assert (got[1, 70:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,ps,G", [(32, 64, 4), (96, 64, 4), (128, 8, 4),
+                                     (128, 48, 4), (128, 64, 16)])
+def test_cuda_bf16_prefill_refuses_shapes_it_is_not_built_for(
+        cuda_device, hd, ps, G):
+    """The bf16 prefill kernel is built for head_dim 64/128/256, pages of
+    16/32/64/128 and groups up to 8; anything else raises, naming the
+    shape (there is no second bf16 path to fall back on)."""
     d, bf = cuda_device, torch.bfloat16
-    pool = torch.zeros(4, 2, 8, 32, dtype=bf, device=d)
-    with pytest.raises(ValueError, match="multiples of 16"):
+    pool = torch.zeros(4, 1, ps, hd, dtype=bf, device=d)
+    with pytest.raises(ValueError, match="bfloat16 prefill kernel takes"):
         paged_attention_prefill(
-            torch.zeros(1, 4, 4, 32, dtype=bf, device=d), pool, pool,
+            torch.zeros(1, 4, G, hd, dtype=bf, device=d), pool, pool,
             torch.ones(1, 2, dtype=torch.int32, device=d),
             torch.arange(4, dtype=torch.int32, device=d)[None])
