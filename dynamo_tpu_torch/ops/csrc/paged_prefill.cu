@@ -24,26 +24,39 @@
 //   64 / G queries times the G heads that share the kv head (rows past
 //   (64 / G) * G are padding). Every K/V page it reads serves all 64 rows.
 //   The grid is (B * KV, query tiles) with the tile index reversed, so the
-//   tiles that walk the most pages of a causal chunk start first.
-// * Page ring. One producer warp reads the page table and keeps a ring of
-//   PF_STAGES K/V stages (KB keys each) in flight with 16-byte cp.async
-//   copies, completion tracked by a "full" mbarrier per stage; the
-//   consumer warpgroup releases a stage on its "empty" mbarrier. There is
-//   no block-wide barrier inside the page loop.
-// * Shared-memory layout. Q, K and V tiles are stored in 128-byte rows
-//   with the 16-byte chunks XOR-swizzled by the row (the layout TMA's
-//   128B swizzle writes), so ldmatrix reads are free of bank conflicts.
-// * Registers. S = Q K^T, the probabilities P and the output accumulator O
-//   stay in registers: each of the four consumer warps owns 16 rows and
-//   runs mma.sync m16n8k16 (bf16 in, f32 accumulate); the S accumulator
-//   fragment is reused as the A operand of P V without leaving registers.
-//   The online softmax (row max and sum over the four threads of a quad
-//   by shuffles) runs in f32 on those fragments.
+//   tiles that walk the most pages of a causal chunk start first. One
+//   consumer warpgroup and one producer warp: at head_dim 128, page 64 a
+//   block takes 82 KB of shared memory and 142 registers a thread, so two
+//   blocks share an SM and a 512-token chunk of Llama-3-8B (256 blocks) is
+//   one wave on 132 SMs.
+// * Page ring. One thread of the producer warp reads the page table and
+//   keeps a ring of PF_STAGES K/V stages (KB = min(ps, 64) keys each) in
+//   flight with TMA: a tensor map over the layer's pool seen as a 2-D
+//   [N * KV * ps, hd] array, boxes of [KB, 64] with the 128-byte swizzle,
+//   completion counted in bytes on the stage's "full" mbarrier. The
+//   consumers release a stage on its "empty" mbarrier. There is no
+//   block-wide barrier inside the page loop. The tensor map comes from
+//   cuTensorMapEncodeTiled through cudaGetDriverEntryPoint (no -lcuda)
+//   and is a __grid_constant__ parameter.
+// * Both products on wgmma (m64nNk16, bf16 in, f32 accumulate). S = Q K^T
+//   reads Q (stored once per block) and the K stage from shared memory
+//   through 128B-swizzle descriptors; the accumulator stays in registers.
+// * Softmax in registers. A wgmma accumulator fragment has mma.sync's
+//   layout (warp w holds rows 16w + lane / 4 and + 8): each thread masks
+//   its elements by their row's query position and key position, applies
+//   the softcap, and takes the row max and sum over its quad by shuffles;
+//   O is rescaled in registers.
+// * O += P V with P as the register A operand of wgmma (the RS form): the
+//   S fragment of 16 keys, rounded to bf16, is exactly that operand. V is
+//   the shared-memory B operand, N-major (the descriptor's transpose bit).
+//   O stays in registers (64 f32 a thread at head_dim 128) until the
+//   epilogue writes O / max(l, 1e-9) as bf16.
 // * Pages and key blocks outside the block's visible range (causal and
 //   sliding window) are never read, and a page id outside the pool is
 //   skipped, as the TPU kernel's clamp does.
-// Not done yet: wgmma for both products and TMA for the copies (the ring,
-// the layout and the fragment code are already the ones they need).
+// Not done yet: overlap of one key block's softmax with the next block's
+// S product inside the warpgroup (the two blocks on an SM overlap each
+// other instead), and a persistent grid.
 //
 // Semantics shared with the TPU kernel: causal visibility by absolute
 // query position (-1 = padding, gives zeros) intersected with the row's
@@ -53,8 +66,10 @@
 // probabilities enter P V rounded to bf16, as the gather path's einsum
 // takes them.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <climits>
 #include <stdint.h>
 
 #include "attention_common.cuh"
@@ -232,8 +247,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // Byte offset of 16-byte chunk c (8 bf16 of a row) of row r in a [rows,
 // HD] bf16 tile stored as HD / 64 column blocks of [rows, 128 bytes], the
-// chunk index XOR-swizzled by r % 8 (TMA's 128-byte swizzle, with each
-// block 1024-byte aligned).
+// chunk index XOR-swizzled by r % 8: what TMA's 128-byte swizzle writes
+// for a box of [rows, 64] into a 1024-byte aligned block, and what a
+// wgmma descriptor of layout type 1 (128B) reads.
 __device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
   return (uint32_t)((c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
 }
@@ -262,38 +278,197 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem),
-               "l"(gmem) : "memory");
+// arrive, and expect `bytes` more of asynchronous copies before the phase
+// completes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes) : "memory");
 }
 
-// one arrival on bar when every cp.async this thread issued has landed
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+// TMA: the box at (col, row) of a 2-D tensor map into shared memory,
+// completion counted in bytes on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int col, int row, uint64_t* bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+      "r"(smem_u32(bar)) : "memory");
 }
 
-// d += a b: one warp, m16n8k16, bf16 operands, f32 accumulator
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+// wgmma descriptor of a 128-byte swizzled operand at shared address addr:
+// lbo = bytes between 64-element column blocks (read for N-major B),
+// sbo = bytes between groups of 8 rows
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// wgmma m64nNk16, bf16 in, f32 accumulators (d: N / 2 per thread of the
+// warpgroup; warp w holds rows 16w + lane / 4 and + 8, as mma.sync's
+// m16n8 fragment does). _ss: A and B from shared memory, both K-major;
+// _rs: A from registers (mma.sync's m16n8k16 A fragment), B N-major.
+__device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),
+        "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
+        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 16) wgmma_ss_n16(d, da, db, scale_d);
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  if constexpr (N == 256) wgmma_rs_n256(d, a, db);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -314,14 +489,16 @@ __device__ __forceinline__ int warp_min_i(int v) {
 }
 
 // grid (B * KV, ceil(T / TQ)), TQ = 64 / G; block PF_BF16_THREADS: warps
-// 0-3 consume (warp w owns rows 16w .. 16w + 15, row r = t_local * G + g),
-// warp 4 produces. Shared: Q [64, HD], then PF_STAGES stages of K and V
-// [KB, HD] (all swizzled, see swz), then the stages' mbarriers.
+// 0-3 are the consumer warpgroup (row r = t_local * G + g; warp w holds
+// rows 16w .. 16w + 15 of every fragment), warp 4 the producer. Shared:
+// Q [64, HD], then PF_STAGES stages of K and V [KB, HD] (all swizzled, see
+// swz), then the stages' mbarriers. k_map / v_map: the layer's pool as a
+// 2-D [N * KV * PS, HD] array, box [KB, 64], 128-byte swizzle.
 template <int HD, int PS>
 __global__ void __launch_bounds__(PF_BF16_THREADS, HD <= 128 ? 2 : 1)
-paged_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k_pages,
-                          const __nv_bfloat16* __restrict__ v_pages,
+paged_prefill_bf16_kernel(const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __nv_bfloat16* __restrict__ q,
                           const int* __restrict__ page_table,
                           const int* __restrict__ q_positions,
                           const int* __restrict__ eff_win,
@@ -346,7 +523,7 @@ paged_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   if (tid == 0) {
 #pragma unroll
     for (int s = 0; s < PF_STAGES; ++s) {
-      mbar_init(&full[s], 32);         // the producer's lanes (cp.async)
+      mbar_init(&full[s], 1);                   // the producer's arrive + TMA bytes
       mbar_init(&empty[s], PF_CONSUMERS / 32);  // one per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -372,32 +549,31 @@ paged_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();  // the mbarriers are initialised
 
   if (warp == PF_CONSUMERS / 32) {
-    // ---- producer: K/V key blocks into the ring, in the consumers' order
+    // ---- producer: one thread keeps the ring full with TMA, key blocks
+    // in the consumers' order
+    if (lane != 0) return;
     int it = 0;
     for (int j = j_begin; j < j_end; ++j) {
       const int page = row_pages[j / SUBS];
       if (page < 0 || page >= N) continue;  // never read outside the pool
       const int s = it % PF_STAGES;
       mbar_wait(&empty[s], ((it / PF_STAGES) & 1) ^ 1);
-      const long long row0 = ((long long)page * KV + kv) * PS + (j % SUBS) * KB;
-      const __nv_bfloat16* kg = k_pages + row0 * HD;
-      const __nv_bfloat16* vg = v_pages + row0 * HD;
+      mbar_expect_tx(&full[s], Tile::STAGE_BYTES);
+      const int row0 = (page * KV + kv) * PS + (j % SUBS) * KB;
       const uint32_t ks = smem_u32(stages + s * Tile::STAGE_BYTES);
-      const uint32_t vs = ks + Tile::KV_BYTES;
-      for (int i = lane; i < KB * HD / 8; i += 32) {
-        const int r = i / (HD / 8), c = i - r * (HD / 8);
-        cp_async16(ks + swz(r, c, KB), kg + r * HD + c * 8);
-        cp_async16(vs + swz(r, c, KB), vg + r * HD + c * 8);
+#pragma unroll
+      for (int a = 0; a < HD / 64; ++a) {
+        tma_load_2d(ks + a * KB * 128, &k_map, a * 64, row0, &full[s]);
+        tma_load_2d(ks + Tile::KV_BYTES + a * KB * 128, &v_map, a * 64, row0,
+                    &full[s]);
       }
-      cp_async_arrive(&full[s]);
       ++it;
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
     return;
   }
 
   // ---- consumers: Q into shared memory once (rows past R or past the
-  // chunk are zeros)
+  // chunk are zeros), made visible to wgmma (the async proxy)
   for (int i = tid; i < PF_ROWS * HD / 8; i += PF_CONSUMERS) {
     const int r = i / (HD / 8), c = i - r * (HD / 8);
     const int tl = r / G, t = t0 + tl;
@@ -407,6 +583,7 @@ paged_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           q + (((long long)b * Tq + t) * H + kv * G + (r - tl * G)) * HD + c * 8);
     *reinterpret_cast<uint4*>(q_s + swz(r, c, PF_ROWS)) = v;
   }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync 1, %0;\n" ::"n"(PF_CONSUMERS) : "memory");
 
   // this thread's two rows (r0 and r0 + 8) and their query positions
@@ -435,27 +612,24 @@ paged_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const uint32_t ks = smem_u32(stages + s * Tile::STAGE_BYTES);
     const uint32_t vs = ks + Tile::KV_BYTES;
 
-    // S = Q K^T: 16 rows x KB keys per warp
+    // S = Q K^T: [64, KB] over the warpgroup, k-steps of 16 along head_dim
+    // (32 bytes inside a 128-byte row, then the next column block)
     float sc[KB / 8][4];
 #pragma unroll
     for (int jn = 0; jn < KB / 8; ++jn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[jn][e] = 0.f;
-    const int mi = lane >> 3;
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, q_u32 + swz(warp * 16 + (lane & 7) + (mi & 1) * 8,
-                                 2 * kk + (mi >> 1), PF_ROWS));
-#pragma unroll
-      for (int jn = 0; jn < KB / 8; jn += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, ks + swz((jn + (mi >> 1)) * 8 + (lane & 7),
-                                 2 * kk + (mi & 1), KB));
-        mma_bf16(sc[jn], a, bk[0], bk[1]);
-        mma_bf16(sc[jn + 1], a, bk[2], bk[3]);
-      }
-    }
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<KB>(&sc[0][0],
+                   wgmma_desc(q_u32 + (kk >> 2) * PF_ROWS * 128 + (kk & 3) * 32,
+                              16, 1024),
+                   wgmma_desc(ks + (kk >> 2) * KB * 128 + (kk & 3) * 32, 16,
+                              1024),
+                   kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
 
     // online softmax on the fragment: element e of block jn is row
     // r0 + 8 * (e >> 1), key j * KB + 8 * jn + 2 * (lane & 3) + (e & 1).
@@ -493,7 +667,9 @@ paged_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[jd][e] *= alpha[e >> 1];
 
-    // O += P V: the S fragment of keys 16kk .. 16kk + 15 is the A operand
+    // O += P V: the S fragment of keys 16kk .. 16kk + 15 is the register
+    // A operand; V [KB, HD] is B, N-major (16 keys = 2048 bytes further)
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KB / 16; ++kk) {
       uint32_t a[4];
@@ -501,15 +677,10 @@ paged_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       a[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
       a[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
       a[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-#pragma unroll
-      for (int jd = 0; jd < HD / 8; jd += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vs + swz(16 * kk + (mi & 1) * 8 + (lane & 7),
-                                       jd + (mi >> 1), KB));
-        mma_bf16(o[jd], a, bv[0], bv[1]);
-        mma_bf16(o[jd + 1], a, bv[2], bv[3]);
-      }
+      wgmma_rs<HD>(&o[0][0], a, wgmma_desc(vs + kk * 2048, KB * 128, 1024));
     }
+    wgmma_commit();
+    wgmma_wait_all();
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
     ++it;
@@ -533,22 +704,63 @@ paged_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The layer's pool [N, KV, ps, hd] as a 2-D [N * KV * ps, hd] bf16 array,
+// read in boxes of [kb rows, 64 columns] with the 128-byte swizzle.
+bool pool_map(CUtensorMap* map, const void* pool, long long rows, int hd,
+              int kb) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)hd, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)hd * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)kb};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(pool),
+                dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int HD, int PS>
 int launch_bf16(const void* q, const void* k_pages, const void* v_pages,
                 const int* page_table, const int* q_positions,
                 const int* eff_win, void* out, int B, int Tq, int H, int KV,
                 int N, int P, float scale, float softcap, cudaStream_t st) {
+  using Tile = PrefillTile<HD, PS>;
+  CUtensorMap k_map, v_map;
+  const long long rows = (long long)N * KV * PS;
+  if (rows > INT_MAX || !pool_map(&k_map, k_pages, rows, HD, Tile::KB) ||
+      !pool_map(&v_map, v_pages, rows, HD, Tile::KB))
+    return (int)cudaErrorInvalidValue;
   const int TQ = PF_ROWS / (H / KV);
-  const int smem = PrefillTile<HD, PS>::SMEM;
   cudaFuncSetAttribute(paged_prefill_bf16_kernel<HD, PS>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
   paged_prefill_bf16_kernel<HD, PS>
-      <<<dim3(B * KV, (Tq + TQ - 1) / TQ), PF_BF16_THREADS, smem, st>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k_pages),
-          static_cast<const __nv_bfloat16*>(v_pages), page_table, q_positions,
-          eff_win, static_cast<__nv_bfloat16*>(out), Tq, H, KV, N, P, scale,
-          softcap);
+      <<<dim3(B * KV, (Tq + TQ - 1) / TQ), PF_BF16_THREADS, Tile::SMEM, st>>>(
+          k_map, v_map, static_cast<const __nv_bfloat16*>(q), page_table,
+          q_positions, eff_win, static_cast<__nv_bfloat16*>(out), Tq, H, KV,
+          N, P, scale, softcap);
   return (int)cudaGetLastError();
 }
 
