@@ -46,7 +46,6 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores
-PREFILL_SOURCE = "dynamo_tpu_torch/ops/csrc/paged_prefill.cu"
 
 
 def fail(msg: str) -> None:
@@ -750,7 +749,7 @@ def time_kernels(engine, cfg, dev, served) -> list:
     deep = time_prefill(3 * chunk, chunk)
     rows.append({
         "name": "paged_attention_prefill", "route": "cuda",
-        "source": PREFILL_SOURCE,
+        "source": "dynamo_tpu_torch/ops/csrc/paged_prefill.cu",
         "replaces": "dynamo_tpu/ops/paged_attention.py:336",
         "launches": served["launches"]["paged_attention_prefill"],
         **first, "deep_chunk": deep,

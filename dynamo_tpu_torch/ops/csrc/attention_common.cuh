@@ -4,13 +4,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
-#include <stddef.h>
 
 namespace {
 
 // finite "masked" value of the online softmax: keeps exp() NaN-free
 constexpr float NEG_INF = -1e30f;
-constexpr size_t MAX_SMEM = 227 * 1024;  // per block, after opt-in
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }

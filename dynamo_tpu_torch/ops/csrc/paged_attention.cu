@@ -48,6 +48,7 @@
 namespace {
 
 constexpr int MAX_G = 8;         // GQA group size the decode kernel takes
+constexpr size_t MAX_SMEM = 227 * 1024;  // per block, after opt-in
 constexpr int DEC_THREADS = 128;
 constexpr int DEC_MAX_DPT = 2;   // head_dim <= DEC_THREADS * DEC_MAX_DPT
 
