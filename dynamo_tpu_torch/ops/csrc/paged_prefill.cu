@@ -668,17 +668,21 @@ paged_prefill_bf16_kernel(const __grid_constant__ CUtensorMap k_map,
       for (int e = 0; e < 4; ++e) o[jd][e] *= alpha[e >> 1];
 
     // O += P V: the S fragment of keys 16kk .. 16kk + 15 is the register
-    // A operand; V [KB, HD] is B, N-major (16 keys = 2048 bytes further)
-    wgmma_fence();
+    // A operand (all of P packed before the fence, so that the wgmmas
+    // issue back to back); V [KB, HD] is B, N-major (16 keys = 2048
+    // bytes further)
+    uint32_t pa[KB / 16][4];
 #pragma unroll
     for (int kk = 0; kk < KB / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      a[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      a[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      a[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-      wgmma_rs<HD>(&o[0][0], a, wgmma_desc(vs + kk * 2048, KB * 128, 1024));
+      pa[kk][0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+      pa[kk][1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+      pa[kk][2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
     }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk)
+      wgmma_rs<HD>(&o[0][0], pa[kk], wgmma_desc(vs + kk * 2048, KB * 128, 1024));
     wgmma_commit();
     wgmma_wait_all();
     __syncwarp();
