@@ -26,7 +26,7 @@
 //   The grid is (B * KV, query tiles) with the tile index reversed, so the
 //   tiles that walk the most pages of a causal chunk start first. One
 //   consumer warpgroup and one producer warp: at head_dim 128, page 64 a
-//   block takes 82 KB of shared memory and 142 registers a thread, so two
+//   block takes 82 KB of shared memory and 146 registers a thread, so two
 //   blocks share an SM and a 512-token chunk of Llama-3-8B (256 blocks) is
 //   one wave on 132 SMs.
 // * Page ring. One thread of the producer warp reads the page table and
