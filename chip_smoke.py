@@ -16,15 +16,18 @@ Phases; any failure exits non-zero before the result line:
    weights from a seed, byte tokenizer) over the OpenAI HTTP front end on
    a local port: concurrent streaming and unary requests, then a repeated
    greedy request that must give identical tokens; the launch counts of
-   both kernels, reset just before and read just after, must be above 0;
+   both kernels, reset just before and read just after, must be above 0,
+   and every decode call must have taken the bf16 decode kernel;
    then prefill and one teacher-forced decode window on the kernel path
    against the plain path (logits of every step, K/V of every window
    position), with two injected faults as controls that must fail it;
 5. time each kernel at the serving shapes beside its bound, its plain
    version and scaled_dot_product_attention on the same dense work, and
-   hold it against its plain version there (bf16 tolerance); prefill also
-   at a deep chunk (positions 1536-2047). Bounds count the work of this
-   run's inputs (ops.paged_attention.prefill_work).
+   hold it against its plain version there (bf16 tolerance): decode in
+   the window form at the served window, at 32 rows of 520 positions and
+   at 8 rows of 3,968 positions; prefill at the served first chunk and at
+   a deep chunk (positions 1536-2047). Bounds count the work of this
+   run's inputs (ops.paged_attention.decode_work and prefill_work).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -46,6 +49,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores
+# the decode kernel of each route (ops.paged_attention.decode_route)
+DECODE_KERNELS = {"bf16_mma": "paged_decode_bf16_kernel",
+                  "generic": "paged_decode_kernel"}
 
 
 def fail(msg: str) -> None:
@@ -410,6 +416,7 @@ async def serve_and_check(engine, mdc):
         for rid in ("r4-repeat", "r5-repeat"):
             await chat(s, rid, "Tell me about paged attention.", 32, False)
     launches = dict(ops.LAUNCHES)
+    route_launches = dict(ops.DECODE_ROUTE_LAUNCHES)
     await svc.stop()
     await engine.stop()
 
@@ -426,6 +433,10 @@ async def serve_and_check(engine, mdc):
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the served path")
+    # bf16 Llama-3-8B widths: every decode call takes the bf16 kernel
+    if route_launches != {"bf16_mma": launches["paged_attention_decode"],
+                          "generic": 0}:
+        fail(f"decode calls by route on the served path: {route_launches}")
     concurrent = [r for r in sent if not r.endswith("-repeat")]
     ttft = [tap.times[r][0][0] - sent[r] for r in concurrent]
     itl = []
@@ -452,6 +463,7 @@ async def serve_and_check(engine, mdc):
         "itl_ms_max": round(max(itl) * 1e3, 3),
         "output_tok_per_s": round(n_tok / wall, 3),
         "wall_s": round(wall, 3), "launches": launches,
+        "route_launches": route_launches,
     }
     return served, tap
 
@@ -602,6 +614,68 @@ def check_paths(engine, cfg, dev) -> dict:
 # ------------------------------------------------------------ timings
 
 
+def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g) -> dict:
+    """The decode kernel in the window form at one shape
+    (time_attention.decode_case):
+    device time (CUDA graph), eager time, its plain version, one SDPA
+    call on the same dense work, the bound counted from the inputs
+    (ops.paged_attention.decode_work); held to the plain version at the
+    bf16 tolerance (as check_decode)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops.paged_attention import (
+        decode_work, paged_attention_decode_layered,
+        paged_attention_decode_window, window_reference)
+    from time_attention import decode_case
+
+    dev = kp.device
+    N, KV, ps, hd = kp.shape[1:]
+    q, table, start, qp, wk, wv = decode_case(kp, vp, ctx, B, P, K, H, g)
+    scale = hd ** -0.5
+    dec = lambda: paged_attention_decode_window(  # noqa: E731
+        q, kp, vp, 0, table, start, qp, wk, wv, K)
+    t_k, t_eager = time_ms(dec, iters=50), eager_ms(dec)
+    t_p = time_ms(lambda: window_reference(q, kp, vp, 0, table, start, qp,
+                                           wk, wv, K, scale), iters=5)
+    got, want = dec(), window_reference(q, kp, vp, 0, table, start, qp, wk,
+                                        wv, K, scale)
+    err = max_err(got, want)
+    if excess(got, want, 2e-2, 1e-2) > 0:
+        fail(f"decode window at {len(ctx)} rows of {max(ctx)} positions: "
+             f"max abs err {err:.3g}")
+    ln = start.clamp(min=0).to(torch.int32)
+    stats_ms = time_ms(lambda: paged_attention_decode_layered(
+        q, kp, vp, 0, table, ln, return_stats=True), iters=50)
+    S = P * ps
+    kd = kp[0][table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    vd = vp[0][table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    kd = torch.cat([kd, wk.transpose(1, 2)], dim=2)
+    vd = torch.cat([vd, wv.transpose(1, 2)], dim=2)
+    mask = torch.cat([torch.arange(S, device=dev)[None, :] < ln[:, None],
+                      (start >= 0)[:, None].expand(B, K)], dim=1)[:, None, None]
+    qs = q[:, :, None, :]
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, kd, vd, attn_mask=mask, enable_gqa=True), iters=50)
+    del kd, vd
+    live, keys, bytes_ = decode_work(
+        ln, None, torch.where(start >= 0, K, 0), heads=H, kv_heads=KV,
+        head_dim=hd, elem_bytes=kp.element_size())
+    flops = 4 * keys * H * hd
+    return {
+        "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+        "bound_ms": max(bytes_ / H100_BYTES_PER_S,
+                        flops / H100_BF16_FLOPS) * 1e3,
+        "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
+                     >= flops / H100_BF16_FLOPS else "operations"),
+        "library_ms": t_lib, "eager_ms": t_eager, "stats_form_ms": stats_ms,
+        "work": {"rows": live, "kv_positions": keys, "bytes": bytes_,
+                 "flops": flops},
+        "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "ps": ps, "P": P,
+                  "pool": list(ctx), "window": K},
+    }
+
+
 def time_kernels(engine, cfg, dev, served) -> list:
     import torch
     import torch.nn.functional as F
@@ -613,11 +687,11 @@ def time_kernels(engine, cfg, dev, served) -> list:
 
     ecfg = engine.ecfg
     KV, hd, H = cfg.num_kv_heads, cfg.head_dim_, cfg.num_heads
-    G = H // KV
     ps = ecfg.page_size
     kp, vp = engine.kv_k, engine.kv_v
     N = kp.shape[1]
     el = kp.element_size()
+    scale = hd ** -0.5
     g = torch.Generator(device=dev).manual_seed(7)
     # random K/V in layer 0 of the served pool (the engine has stopped):
     # most pages were never written, and zeros would hide any error
@@ -625,66 +699,32 @@ def time_kernels(engine, cfg, dev, served) -> list:
     vp[0].normal_(generator=g)
     rows = []
 
-    # decode at the served window's shapes: the concurrent batch, each row
-    # with its served context in the pool, at the last step of a K-step
-    # window (K in-flight keys) — the form the main path launches
-    ctx = served["decode_lengths"]
+    # decode in the window form the main path launches (the last step of
+    # a K-step window, K in-flight keys), at three shapes: the served
+    # window (the concurrent batch, each row with its served context),
+    # 32 rows of 520 positions (profile_step --rows 32 after its first
+    # window) and 8 rows of 3,968 positions (62 pages each, 496 of the
+    # pool's 511 usable pages)
     K = ecfg.decode_steps
-    B = ecfg.bucket_batch(len(ctx))
-    P = ecfg.bucket_pages(max(-(-n // ps) for n in ctx))
-    table = torch.zeros((B, P), dtype=torch.int32, device=dev)
-    for b, n in enumerate(ctx):
-        table[b, :-(-n // ps)] = torch.randperm(N - 1, generator=g,
-                                                device=dev)[:-(-n // ps)] + 1
-    start = torch.tensor(ctx + [-1] * (B - len(ctx)), dtype=torch.int32,
-                         device=dev)
-    qp = (start.clamp(min=0) + K - 1).to(torch.int32)
-    q = torch.randn(B, H, hd, generator=g, device=dev).to(kp.dtype)
-    wk = torch.randn(B, K, KV, hd, generator=g, device=dev).to(kp.dtype)
-    wv = torch.randn(B, K, KV, hd, generator=g, device=dev).to(kp.dtype)
-    scale = hd ** -0.5
-    dec = lambda: paged_attention_decode_window(  # noqa: E731
-        q, kp, vp, 0, table, start, qp, wk, wv, K)
-    t_k, t_eager = time_ms(dec, iters=50), eager_ms(dec)
-    t_p = time_ms(lambda: window_reference(q, kp, vp, 0, table, start, qp,
-                                           wk, wv, K, scale), iters=10)
-    got, want = dec(), window_reference(q, kp, vp, 0, table, start, qp, wk,
-                                        wv, K, scale)
-    err = max_err(got, want)
-    if excess(got, want, 2e-2, 1e-2) > 0:   # bf16, as in check_decode
-        fail(f"decode window at the served shapes: max abs err {err:.3g}")
-    ln = start.clamp(min=0).to(torch.int32)
-    stats_ms = time_ms(lambda: paged_attention_decode_layered(
-        q, kp, vp, 0, table, ln, return_stats=True), iters=50)
-    S = P * ps
-    kd = kp[0][table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
-    vd = vp[0][table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
-    kd = torch.cat([kd, wk.transpose(1, 2)], dim=2)
-    vd = torch.cat([vd, wv.transpose(1, 2)], dim=2)
-    mask = torch.cat([torch.arange(S, device=dev)[None, :] < ln[:, None],
-                      torch.ones((B, K), dtype=torch.bool, device=dev)],
-                     dim=1)[:, None, None]
-    qs = q[:, :, None, :]
-    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, kd, vd, attn_mask=mask, enable_gqa=True), iters=50)
-    keys = sum(ctx) + K * len(ctx)
-    bytes_ = (2 * keys * KV * hd * el + 2 * B * H * hd * el
-              + table.numel() * 4 + 2 * B * 4)
-    flops = 4 * keys * H * hd
+    ctx = served["decode_lengths"]
+    shapes = {}
+    for name, rows_ctx in (("served", ctx), ("rows32", [520] * 32),
+                           ("long8", [3968] * 8)):
+        B = ecfg.bucket_batch(len(rows_ctx))
+        P = ecfg.bucket_pages(max(-(-n // ps) for n in rows_ctx))
+        shapes[name] = time_decode(kp, vp, rows_ctx, B, P, K, H, g)
+    dec = shapes.pop("served")
     rows.append({
         "name": "paged_attention_decode", "route": "cuda",
         "source": "dynamo_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "dynamo_tpu/ops/paged_attention.py:52",
+        # the kernels that served the 8B path (decode_route)
+        "kernel": " + ".join(
+            [DECODE_KERNELS[r] for r, n in served["route_launches"].items()
+             if n > 0] + ["paged_decode_combine"]),
         "launches": served["launches"]["paged_attention_decode"],
-        "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-        "bound_ms": max(bytes_ / H100_BYTES_PER_S,
-                        flops / H100_BF16_FLOPS) * 1e3,
-        "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
-                     >= flops / H100_BF16_FLOPS else "operations"),
-        "library_ms": t_lib, "eager_ms": t_eager,
-        "stats_form_ms": stats_ms,
-        "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "ps": ps, "P": P,
-                  "pool": ctx, "window": K},
+        "route_launches": served["route_launches"],
+        **dec, "shapes": shapes,
     })
 
     def time_prefill(start: int, n: int) -> dict:
@@ -789,7 +829,8 @@ def main() -> None:
     build.build_all()
     for src, text in build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "error" in line:
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill", "error")):
                 log(f"  {src}: {line.strip()}")
     log(f"  built {build.sources()} in {time.monotonic() - t:.1f}s")
 
@@ -830,9 +871,10 @@ def main() -> None:
             f"{r['bound_by']}; plain {r['plain_ms']:.4f} ms; SDPA "
             f"{r['library_ms']:.4f} ms); launches {r['launches']} "
             f"({r['launches_per_token']:.1f}/token); shape {r['shape']}")
-        if "deep_chunk" in r:
-            d = r["deep_chunk"]
-            log(f"  {r['name']} deep chunk: {json.dumps(d)}")
+        for shape, d in ([("deep chunk", r["deep_chunk"])]
+                         if "deep_chunk" in r else []) + list(
+                             r.get("shapes", {}).items()):
+            log(f"  {r['name']} {shape}: {json.dumps(d)}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

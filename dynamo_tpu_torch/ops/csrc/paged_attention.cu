@@ -1,42 +1,73 @@
 // Paged GQA decode attention over the stacked KV pool, for Hopper (sm_90a).
 //
-// Two kernels behind plain C entries that return cudaGetLastError() and
-// are loaded with ctypes by dynamo_tpu_torch/ops/paged_attention.py:
+// Replaces the TPU kernel _decode_kernel, reached through
+// paged_attention_decode_layered (dynamo_tpu/ops/paged_attention.py:52,211).
+// Plain C entries return cudaGetLastError() after their launches and are
+// loaded with ctypes by dynamo_tpu_torch/ops/paged_attention.py, which
+// picks the route from the shape (the `route` argument; never retried):
 //
-//   paged_decode_kernel + paged_decode_combine  replace the TPU kernel
-//       _decode_kernel, reached through paged_attention_decode_layered
-//       (dynamo_tpu/ops/paged_attention.py:52,211).
+//   route 1  paged_decode_bf16_kernel<hd>  bfloat16 at head_dim 64/128/256,
+//            page size 16/32/64/128, GQA groups 1-8 (the serving path)
+//   route 0  paged_decode_kernel<T>         float32, and bfloat16 shapes
+//            outside that set (CUDA-core FMAs from shared memory)
+//   both     paged_decode_combine<T>        folds the splits, and the fused
+//            decode window's in-flight keys, by their (m, l) stats
 //
 // The prefill kernel (the TPU kernel _prefill_kernel) lives in
 // paged_prefill.cu.
 //
 // Pool layout: [L, num_pages, KV, page_size, head_dim], contiguous; a page
-// of one kv head is one contiguous [ps, hd] tile. Element types: float and
-// __nv_bfloat16; softmax and every sum in float32.
+// of one kv head is one contiguous [ps, hd] tile. Softmax and every sum in
+// float32.
 //
-// What bounds it on an H100 SXM, and what the design does about it:
-// decode (one query per row) reads every visible K/V row once and does
-// ~4*H*hd flops per row: about 4 flops per byte of bf16 K/V, far below
-// the ~295 flops/byte where 989 TF/s bf16 would bind. It is bound by the
-// bytes of K/V read, at 3.35 TB/s. A block works for one (row, kv head)
-// and packs the whole GQA group, so each K/V page of that head is read
-// from device memory exactly once for all of the group's query heads; the
-// blocks walk only the pages that cover [lower, length) (the loop bounds
-// do the job of the TPU kernel's page-index clamp), read the page id from
-// the page table themselves, and take the layer as an offset into the
-// stacked pool (no copy of a layer). Pages stream through shared memory in
-// 16-byte cp.async copies, double-buffered, so the next page's fetch
-// overlaps the current page's compute. A row's pages are split over
-// enough blocks to give every SM two (flash-decoding); a combine kernel
-// folds the splits, and the fused decode window's in-flight keys, by
-// their (m, l) stats. Not done yet: fewer block-wide phases per page
-// (each page's scores, softmax and P V are separate phases with a barrier
-// between, which bounds a block at a few microseconds per page).
+// What bounds it on an H100 SXM: decode (one query per row) reads every
+// visible K/V row once and does ~4 * G * hd operations per row of one kv
+// head: about 4 flops per byte of bf16 K/V at G = 4, far below the ~295
+// flops per byte where 989 TF/s would bind. It is bound by the bytes of
+// K/V, at 3.35 TB/s, once enough bytes are in flight: ~24 KB per SM
+// (3.35 TB/s x ~1 us of latency / 132 SMs). The kernel of PR 1 was not:
+// each page went through scores, a softmax and P V as block-wide phases
+// with a barrier between, ~10^3 scalar instructions per thread per page,
+// so it was bound by issued instructions (22% of the bound at 32 rows).
+//
+// What the bf16 design (route 1) does about it:
+// * No block-wide barrier in the key loop. A block works for one (row, kv
+//   head, split) and packs the G query heads that share the kv head, so a
+//   K/V row is read from device memory once for the whole group. Its four
+//   warps are independent flash-decoding workers: warp w takes the 16-key
+//   blocks w, w + 4, ... of the split's visible range, keeps its own m, l
+//   and output fragment in registers, and the warps merge once, through
+//   shared memory, at the end.
+// * Both products on tensor cores, mma.sync m16n8k16 (bf16 in, f32
+//   accumulate). S = Q K^T: Q is the A operand, the G <= 8 heads in rows
+//   0-7 (rows 8-15 are zero and their accumulators discarded, so they
+//   cost no registers); K is the B operand through ldmatrix. O += P V: S
+//   rounded to bf16 is the A operand as it stands in registers; V is the
+//   B operand through ldmatrix.trans. A 16-key block at head_dim 128 is 16
+//   ldmatrix.x4 and 32 mma per warp, against ~10^3 FMAs per thread.
+// * A ring of 3 stages per warp, each a 16-key block of K and V (8 KB at
+//   head_dim 128), filled with 16-byte cp.async into rows whose 16-byte
+//   chunks are XOR-swizzled by row % 8 (ldmatrix reads free of bank
+//   conflicts). Completion is tracked per stage by an mbarrier that each
+//   lane's cp.async arrives on (cp.async.mbarrier.arrive.noinc); a warp
+//   waits on its own barriers only. Two blocks of 96 KB share an SM at
+//   head_dim 128: up to 192 KB in flight per SM.
+// * The split plan (ops/paged_attention.py decode_split_plan) comes from
+//   host-known shapes only: rows x kv heads, the page-table width, the SM
+//   count and this kernel's resident blocks per SM
+//   (dyn_paged_decode_resident), so that one wave fills the card. A split
+//   takes a near-equal contiguous share of the row's visible pages and is
+//   empty only when the row has fewer pages than splits; an empty split
+//   with partials to write exits at once, and the combine skips it.
+// * Pages outside [lower, length) are never read, and a page id outside
+//   the pool is skipped, as the TPU kernel's clamp does.
 //
 // Semantics shared with the TPU kernel: online softmax in float32 with
 // the finite NEG_INF = -1e30; exp() only where a key is visible, so an
 // all-masked view returns m = NEG_INF, l = 0 and a zero output; the
-// Gemma-2 tanh softcap comes before the mask.
+// Gemma-2 tanh softcap comes before the mask. The bf16 kernel rounds the
+// probabilities to bf16 before P V, as the gather path's einsum takes
+// them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,12 +78,42 @@
 
 namespace {
 
-constexpr int MAX_G = 8;         // GQA group size the decode kernel takes
+constexpr int MAX_G = 8;         // GQA group size the decode kernels take
 constexpr size_t MAX_SMEM = 227 * 1024;  // per block, after opt-in
 constexpr int DEC_THREADS = 128;
 constexpr int DEC_MAX_DPT = 2;   // head_dim <= DEC_THREADS * DEC_MAX_DPT
 
-// ------------------------------------------------------------------ decode
+// ------------------------------------------------------ shared by both
+// A row's visible pool extent [lo, len): given, or (fused window step)
+// derived as the JAX wrapper derives it — pool = positions [0, start),
+// and on sliding layers lo = clip(q_pos + 1 - window, 0, start).
+__device__ __forceinline__ void row_extent(int b, const int* lengths,
+                                           const int* lower, const int* start,
+                                           const int* q_pos,
+                                           const int* eff_win, int& len,
+                                           int& lo) {
+  if (lengths != nullptr) {
+    len = lengths[b];
+    lo = lower[b];
+  } else {
+    len = max(start[b], 0);
+    lo = eff_win != nullptr ? min(max(q_pos[b] + 1 - eff_win[b], 0), len) : 0;
+  }
+}
+
+// The pages [p_begin, p_begin + n) of split `split` of S: the row's pages
+// that cover [lo, len), cut into S near-equal contiguous shares (a split
+// is empty only when the row has fewer pages than splits). Mirrored by
+// decode_split_ranges in ops/paged_attention.py.
+__device__ __forceinline__ int split_pages(int len, int lo, int ps, int P,
+                                           int S, int split, int& p_begin) {
+  const int row_begin = lo > 0 ? lo / ps : 0;
+  const int row_end = len > 0 ? min((len + ps - 1) / ps, P) : 0;
+  const int n = max(row_end - row_begin, 0);
+  p_begin = row_begin + (int)((long long)n * split / S);
+  return row_begin + (int)((long long)n * (split + 1) / S) - p_begin;
+}
+
 // 16-byte asynchronous copy global -> shared (sm_80+), and its group fences
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -65,15 +126,7 @@ __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// Copy one [ps, hd] tile (n_bytes, a multiple of 16) with every thread of
-// the block issuing independent 16-byte copies.
-__device__ __forceinline__ void tile_async(void* dst, const void* src,
-                                           int n_bytes, int tid, int nthreads) {
-  char* d = static_cast<char*>(dst);
-  const char* s = static_cast<const char*>(src);
-  for (int c = tid * 16; c < n_bytes; c += nthreads * 16) cp_async16(d + c, s + c);
-}
-
+// ---------------------------------------------------- route 0: generic
 // One 16-byte vector of T as floats (8 bf16 or 4 float).
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* f) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -158,22 +211,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pools,
 #pragma unroll
     for (int g = 0; g < MAX_G; ++g) acc[k][g] = 0.f;
 
-  // the pool extent: given, or (fused window step) derived as the JAX
-  // wrapper derives it — pool = positions [0, start), and on sliding
-  // layers lower = clip(q_pos + 1 - window, 0, start)
-  int len, lo;
-  if (lengths != nullptr) {
-    len = lengths[b];
-    lo = lower[b];
-  } else {
-    len = max(start[b], 0);
-    lo = eff_win != nullptr ? min(max(q_pos[b] + 1 - eff_win[b], 0), len) : 0;
-  }
-  const int row_begin = lo > 0 ? lo / ps : 0;
-  const int row_end = len > 0 ? min((len + ps - 1) / ps, P) : 0;
-  const int per_split = (max(row_end - row_begin, 0) + S - 1) / S;
-  const int p_begin = row_begin + split * per_split;
-  const int n_pages = max(min(p_begin + per_split, row_end) - p_begin, 0);
+  int len, lo, p_begin;
+  row_extent(b, lengths, lower, start, q_pos, eff_win, len, lo);
+  const int n_pages = split_pages(len, lo, ps, P, S, split, p_begin);
   const long long page_elems = (long long)KV * ps * hd;
   const long long head_off = (long long)kv * ps * hd;
   const int* row_pages = page_table + (long long)b * P + p_begin;
@@ -318,10 +358,302 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pools,
   }
 }
 
+// ------------------------------------------------------- route 1: bf16
+constexpr int DB_WARPS = 4;                 // independent warps per block
+constexpr int DB_THREADS = DB_WARPS * 32;
+constexpr int DB_KB = 16;                   // keys per stage
+constexpr int DB_STAGES = 3;                // stages in each warp's ring
+
+template <int HD> struct DecodeTile {
+  static constexpr int KV_BYTES = DB_KB * HD * 2;  // the K (or V) of a stage
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int RING_BYTES = DB_WARPS * DB_STAGES * STAGE_BYTES;
+  // the end-of-loop merge reuses the rings: each warp's output fragment
+  // [MAX_G, HD], its (m, l) and the warps' weights, in float32
+  static constexpr int MERGE_BYTES =
+      4 * (DB_WARPS * MAX_G * HD + 3 * DB_WARPS * MAX_G + MAX_G);
+  static constexpr int SMEM =
+      (RING_BYTES > MERGE_BYTES ? RING_BYTES : MERGE_BYTES) +
+      DB_WARPS * DB_STAGES * 8;
+};
+
+// Byte offset of 16-byte chunk c of row r in a [DB_KB, HD] bf16 tile:
+// rows of HD * 2 bytes, the chunk index XORed with r % 8, so that the
+// eight rows an ldmatrix phase reads at one chunk fall in eight different
+// 16-byte bank groups.
+template <int HD>
+__device__ __forceinline__ uint32_t dswz(int r, int c) {
+  return (uint32_t)(r * HD * 2 + ((c ^ (r & 7)) << 4));
+}
+
+// arrive on bar once every cp.async this thread issued so far has landed
+// (the arrival counts toward the barrier's expected count)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// mma.sync m16n8k16, bf16 in, f32 accumulate, for an A whose rows 8-15 are
+// zero: a0/a2 are rows 0-7 (k 0-7 and 8-15 of the thread's quad), d0/d1
+// the accumulators of row lane / 4; rows 8-15 of D are discarded.
+__device__ __forceinline__ void mma_rows8(float& d0, float& d1, uint32_t a0,
+                                          uint32_t a2, uint32_t b0,
+                                          uint32_t b1) {
+  float t2, t3;
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %10, %11};\n"
+      : "+f"(d0), "+f"(d1), "=f"(t2), "=f"(t3)
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1), "f"(0.f),
+        "f"(0.f));
+  (void)t2;
+  (void)t3;
+}
+
+// grid (B, KV, S); block DB_THREADS: four warps, each an independent
+// worker over the 16-key blocks w, w + 4, ... of the split's visible
+// range. Lane t of a warp works for head g = t / 4 (rows >= G are zero)
+// and its quad position qd = t % 4: in S it holds keys 2qd, 2qd + 1 and
+// 8 + 2qd, 8 + 2qd + 1 of a block, in O head_dim elements 8n + 2qd, + 1
+// of every 8-wide column tile n. Shared: the warps' rings of DB_STAGES
+// stages (K tile, then V tile, swizzled, see dswz), then one mbarrier per
+// stage; the merge at the end reuses the rings.
+template <int HD>
+__global__ void __launch_bounds__(DB_THREADS)
+paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k_pools,
+                         const __nv_bfloat16* __restrict__ v_pools,
+                         long long layer_offset,
+                         const int* __restrict__ page_table,
+                         const int* __restrict__ lengths,
+                         const int* __restrict__ lower,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ m_out, float* __restrict__ l_out,
+                         float* __restrict__ part_acc,
+                         float* __restrict__ part_ml,
+                         const int* __restrict__ start,
+                         const int* __restrict__ q_pos,
+                         const int* __restrict__ eff_win, int H, int KV,
+                         int N, int ps, int P, float scale, float softcap) {
+  using Tile = DecodeTile<HD>;
+  constexpr int CH = HD / 8;  // 16-byte chunks in a row
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int b = blockIdx.x, kv = blockIdx.y, split = blockIdx.z;
+  const int S = gridDim.z, G = H / KV;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+
+  int len, lo, p_begin;
+  row_extent(b, lengths, lower, start, q_pos, eff_win, len, lo);
+  const int n_pages = split_pages(len, lo, ps, P, S, split, p_begin);
+  if (n_pages == 0 && part_acc != nullptr) return;  // the combine skips it
+
+  uint8_t* ring = smem + warp * DB_STAGES * Tile::STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+                       smem + (Tile::SMEM - DB_WARPS * DB_STAGES * 8)) +
+                   warp * DB_STAGES;
+  if (lane == 0) {
+#pragma unroll
+    for (int s = 0; s < DB_STAGES; ++s) mbar_init(&full[s], 32);
+  }
+  __syncwarp();
+
+  // the split's visible keys [k_lo, k_hi), in 16-key blocks (a page holds
+  // a whole number of them)
+  const int k_lo = max(lo, p_begin * ps);
+  const int k_hi = min(len, (p_begin + n_pages) * ps);
+  const int jb = k_lo / DB_KB;
+  const int je = k_hi > k_lo ? (k_hi + DB_KB - 1) / DB_KB : jb;
+  const int nblk = je - jb > warp ? (je - jb - warp + DB_WARPS - 1) / DB_WARPS : 0;
+  const int* row_pages = page_table + (long long)b * P;
+  const long long page_elems = (long long)KV * ps * HD;
+  const __nv_bfloat16* k_head = k_pools + layer_offset + (long long)kv * ps * HD;
+  const __nv_bfloat16* v_head = v_pools + layer_offset + (long long)kv * ps * HD;
+
+  // stage block i of this warp's walk (a page id outside the pool is never
+  // read; the stage's barrier still completes and its compute is skipped)
+  auto issue = [&](int i) {
+    const int key0 = (jb + warp + i * DB_WARPS) * DB_KB;
+    const int page = row_pages[key0 / ps];
+    uint8_t* st = ring + (i % DB_STAGES) * Tile::STAGE_BYTES;
+    if (page >= 0 && page < N) {
+      const long long off = page * page_elems + (long long)(key0 % ps) * HD;
+#pragma unroll
+      for (int c = lane; c < DB_KB * CH; c += 32) {
+        const int r = c / CH, cc = c - r * CH;
+        cp_async16(st + dswz<HD>(r, cc), k_head + off + r * HD + cc * 8);
+        cp_async16(st + Tile::KV_BYTES + dswz<HD>(r, cc),
+                   v_head + off + r * HD + cc * 8);
+      }
+    }
+    cp_async_arrive(&full[i % DB_STAGES]);
+  };
+#pragma unroll
+  for (int i = 0; i < DB_STAGES - 1; ++i)
+    if (i < nblk) issue(i);
+
+  // Q of head g as the A operand (rows 0-7; a row past G is zero)
+  uint32_t qa[HD / 16][2];
+  {
+    const uint32_t* qr = reinterpret_cast<const uint32_t*>(
+        q + ((long long)b * H + kv * G + g) * HD);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qa[kk][0] = g < G ? qr[kk * 8 + qd] : 0u;
+      qa[kk][1] = g < G ? qr[kk * 8 + 4 + qd] : 0u;
+    }
+  }
+  float o[CH][2];
+#pragma unroll
+  for (int n = 0; n < CH; ++n) o[n][0] = o[n][1] = 0.f;
+  float m = NEG_INF, l = 0.f;
+
+  // ldmatrix lane addresses inside a tile: K (B of S, k = head_dim): lanes
+  // 0-7 / 8-15 / 16-23 / 24-31 give rows of matrices keys 0-7 chunk 2kk,
+  // keys 0-7 chunk 2kk + 1, keys 8-15 chunk 2kk, keys 8-15 chunk 2kk + 1.
+  // V (B of P V, k = keys, transposed): keys 0-7 chunk 2n, keys 8-15
+  // chunk 2n, keys 0-7 chunk 2n + 1, keys 8-15 chunk 2n + 1.
+  const int k_row = (lane & 7) + (lane >> 4) * 8, k_sub = (lane >> 3) & 1;
+  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_sub = lane >> 4;
+
+  for (int i = 0; i < nblk; ++i) {
+    if (i + DB_STAGES - 1 < nblk) issue(i + DB_STAGES - 1);
+    const int key0 = (jb + warp + i * DB_WARPS) * DB_KB;
+    const int page = row_pages[key0 / ps];
+    mbar_wait(&full[i % DB_STAGES], (i / DB_STAGES) & 1);
+    if (page >= 0 && page < N) {  // uniform across the warp
+      const uint32_t ks = smem_u32(ring + (i % DB_STAGES) * Tile::STAGE_BYTES);
+      const uint32_t vs = ks + Tile::KV_BYTES;
+
+      // S = Q K^T for 16 keys: two 8-key column tiles
+      float s0[2] = {0.f, 0.f}, s1[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t kb[4];
+        ldsm_x4(kb, ks + dswz<HD>(k_row, 2 * kk + k_sub));
+        mma_rows8(s0[0], s0[1], qa[kk][0], qa[kk][1], kb[0], kb[1]);
+        mma_rows8(s1[0], s1[1], qa[kk][0], qa[kk][1], kb[2], kb[3]);
+      }
+
+      // online softmax of head g over the block's visible keys; the four
+      // lanes of a quad share a head
+      float x[4] = {s0[0], s0[1], s1[0], s1[1]};
+      bool vis[4];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pos = key0 + 2 * qd + (e & 1) + 8 * (e >> 1);
+        x[e] = cap(x[e] * scale, softcap);
+        vis[e] = pos >= lo && pos < len;
+        if (vis[e]) mx = fmaxf(mx, x[e]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m, mx);
+      const float alpha = exp2f((m - m_new) * LOG2E);
+      m = m_new;
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[e] = vis[e] ? exp2f((x[e] - m_new) * LOG2E) : 0.f;
+      l = l * alpha + (p[0] + p[1]) + (p[2] + p[3]);
+      const uint32_t pa0 = pack_bf16(p[0], p[1]), pa2 = pack_bf16(p[2], p[3]);
+
+      // O = O * alpha + P V: two 8-wide head_dim tiles per ldmatrix
+#pragma unroll
+      for (int n = 0; n < CH; n += 2) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, vs + dswz<HD>(v_row, n + v_sub));
+        o[n][0] *= alpha;
+        o[n][1] *= alpha;
+        o[n + 1][0] *= alpha;
+        o[n + 1][1] *= alpha;
+        mma_rows8(o[n][0], o[n][1], pa0, pa2, vb[0], vb[1]);
+        mma_rows8(o[n + 1][0], o[n + 1][1], pa0, pa2, vb[2], vb[3]);
+      }
+    }
+    __syncwarp();  // every lane is done with the stage before it refills
+  }
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+
+  // merge the warps: the one block-wide barrier pair, after the loop (no
+  // copy is in flight: every block a warp staged it also consumed)
+  __syncthreads();
+  float* o_s = reinterpret_cast<float*>(smem);     // [DB_WARPS][MAX_G][HD]
+  float* ml_s = o_s + DB_WARPS * MAX_G * HD;       // [DB_WARPS][MAX_G][2]
+  float* w_s = ml_s + 2 * DB_WARPS * MAX_G;        // [DB_WARPS][MAX_G]
+  float* L_s = w_s + DB_WARPS * MAX_G;             // [MAX_G]
+  if (g < G) {
+    float* orow = o_s + (warp * MAX_G + g) * HD + 2 * qd;
+#pragma unroll
+    for (int n = 0; n < CH; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(o[n][0], o[n][1]);
+    if (qd == 0) {
+      ml_s[(warp * MAX_G + g) * 2] = m;
+      ml_s[(warp * MAX_G + g) * 2 + 1] = l;
+    }
+  }
+  __syncthreads();
+  if (tid < G) {
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < DB_WARPS; ++w) M = fmaxf(M, ml_s[(w * MAX_G + tid) * 2]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < DB_WARPS; ++w) {
+      const float e = exp2f((ml_s[(w * MAX_G + tid) * 2] - M) * LOG2E);
+      w_s[w * MAX_G + tid] = e;
+      L += e * ml_s[(w * MAX_G + tid) * 2 + 1];
+    }
+    L_s[tid] = L;
+    const long long r = (long long)b * H + kv * G + tid;
+    if (part_acc != nullptr) {
+      const long long pr = (((long long)b * KV + kv) * S + split) * G + tid;
+      part_ml[pr * 2] = M;
+      part_ml[pr * 2 + 1] = L;
+    } else if (m_out != nullptr) {
+      m_out[r] = M;
+      l_out[r] = L;
+    }
+  }
+  __syncthreads();
+  const long long pbase = (((long long)b * KV + kv) * S + split) * G;
+  const long long obase = ((long long)b * H + kv * G) * HD;
+  for (int i = tid; i < G * HD; i += DB_THREADS) {
+    const int gi = i / HD, d = i - gi * HD;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < DB_WARPS; ++w)
+      a += w_s[w * MAX_G + gi] * o_s[(w * MAX_G + gi) * HD + d];
+    if (part_acc != nullptr)
+      part_acc[(pbase + gi) * HD + d] = a;
+    else
+      out[obase + i] = __float2bfloat16(a / fmaxf(L_s[gi], 1e-9f));
+  }
+}
+
+// ---------------------------------------------------------- combine
 // grid (B, KV); dynamic shared (2 * Kw + S + 1) * G floats. Folds the S
 // splits' partials of each (row, kv head) into the output and the stats:
-// rescale each split to the joint max, normalize once; an all-masked
-// split has m = NEG_INF, l = 0 and adds nothing. With a window buffer (wk != null)
+// rescale each split to the joint max, normalize once. A split with no
+// pages (split_pages, the rule both kernels follow) is skipped — the bf16
+// kernel writes nothing for it — and an all-masked one has m = NEG_INF,
+// l = 0 and adds nothing. With a window buffer (wk != null)
 // it also scores the fused decode window's in-flight keys — slot w holds
 // position start + w, visible when w < n_win, start >= 0 and
 // start + w > q_pos - eff_win — and folds them in the same sum (the
@@ -332,7 +664,9 @@ __global__ void __launch_bounds__(DEC_THREADS)
 paged_decode_combine(const float* __restrict__ part_acc,
                      const float* __restrict__ part_ml, T* __restrict__ out,
                      float* __restrict__ m_out, float* __restrict__ l_out,
-                     int H, int KV, int S, int hd, const T* __restrict__ q,
+                     int H, int KV, int S, int hd, int ps, int P,
+                     const int* __restrict__ lengths,
+                     const int* __restrict__ lower, const T* __restrict__ q,
                      const T* __restrict__ wk, const T* __restrict__ wv,
                      const int* __restrict__ start,
                      const int* __restrict__ q_pos,
@@ -367,20 +701,28 @@ paged_decode_combine(const float* __restrict__ part_acc,
     }
     __syncthreads();
   }
+  int len, lo;
+  row_extent(b, lengths, lower, start, q_pos, eff_win, len, lo);
   // per head: the joint max, each split's and slot's weight, the sum
-  float* w_s = vis_s + G * nw;  // split weights [S*G]
+  float* w_s = vis_s + G * nw;  // split weights [S*G] (0: skipped)
   float* l_sum = w_s + S * G;   // [G]
   for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    int p0;
     float M = NEG_INF;
-    for (int s = 0; s < S; ++s) M = fmaxf(M, part_ml[(base + s * G + g) * 2]);
+    for (int s = 0; s < S; ++s)
+      if (split_pages(len, lo, ps, P, S, s, p0) > 0)
+        M = fmaxf(M, part_ml[(base + s * G + g) * 2]);
     for (int w = 0; w < nw; ++w)
       if (vis_s[g * nw + w] != 0.f) M = fmaxf(M, win_s[g * nw + w]);
     float L = 0.f;
     for (int s = 0; s < S; ++s) {
       const long long r = base + s * G + g;
-      const float e = expf(part_ml[r * 2] - M);
+      float e = 0.f;
+      if (split_pages(len, lo, ps, P, S, s, p0) > 0) {
+        e = expf(part_ml[r * 2] - M);
+        L += e * part_ml[r * 2 + 1];
+      }
       w_s[s * G + g] = e;
-      L += e * part_ml[r * 2 + 1];
     }
     for (int w = 0; w < nw; ++w) {
       const float e = vis_s[g * nw + w] != 0.f ? expf(win_s[g * nw + w] - M) : 0.f;
@@ -397,8 +739,12 @@ paged_decode_combine(const float* __restrict__ part_acc,
   for (int i = threadIdx.x; i < G * hd; i += blockDim.x) {
     const int g = i / hd, d = i - g * hd;
     float a = 0.f;
-    for (int s = 0; s < S; ++s)
-      a += w_s[s * G + g] * part_acc[(base + s * G + g) * hd + d];
+    for (int s = 0; s < S; ++s) {
+      const float e = w_s[s * G + g];
+      // a skipped split's partials were never written (a live split whose
+      // weight underflows to 0 adds 0 either way)
+      if (e != 0.f) a += e * part_acc[(base + s * G + g) * hd + d];
+    }
     for (int w = 0; w < nw; ++w)
       a += win_s[g * nw + w] *
            to_f(wv[(((long long)b * Kw + w) * KV + kv) * hd + d]);
@@ -420,74 +766,164 @@ struct Window {
   int Kw;
 };
 
+// The operands of one decode call.
+struct DecodeArgs {
+  const void* q;
+  const void* k_pools;
+  const void* v_pools;
+  long long layer;
+  const int* page_table;
+  const int* lengths;  // null in the window form (extent from the window)
+  const int* lower;
+  void* out;
+  float* m_out;
+  float* l_out;
+  float* part_acc;  // null: no fold (one split, no window)
+  float* part_ml;
+  int B, H, KV, N, ps, hd, P, splits;
+  float scale, softcap;
+};
+
 template <typename T>
-int launch_decode(const void* q, const void* k_pools, const void* v_pools,
-                  long long layer, const int* page_table, const int* lengths,
-                  const int* lower, const Window& win, void* out,
-                  float* m_out, float* l_out, float* part_acc,
-                  float* part_ml, int B, int H, int KV, int N, int ps, int hd,
-                  int P, int splits, float scale, float softcap,
-                  cudaStream_t st) {
-  const size_t smem = decode_smem_bytes(H / KV, ps, hd, (int)sizeof(T));
-  const long long layer_offset = layer * (long long)N * KV * ps * hd;
-  const bool fold = part_acc != nullptr;  // splits > 1 or a window
-  cudaFuncSetAttribute(paged_decode_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  paged_decode_kernel<T><<<dim3(B, KV, splits), DEC_THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pools),
-      static_cast<const T*>(v_pools), layer_offset, page_table, lengths,
-      lower, static_cast<T*>(out), m_out, l_out, part_acc, part_ml,
-      win.start, win.q_pos, win.eff_win, H, KV, N, ps, hd, P, scale, softcap);
-  if (fold) {
-    const int nw = win.wk != nullptr ? win.Kw : 0;
-    paged_decode_combine<T><<<dim3(B, KV), DEC_THREADS,
-                              sizeof(float) * (H / KV) * (2 * nw + splits + 1),
-                              st>>>(
-        part_acc, part_ml, static_cast<T*>(out), m_out, l_out, H, KV, splits,
-        hd, static_cast<const T*>(q), static_cast<const T*>(win.wk),
-        static_cast<const T*>(win.wv), win.start, win.q_pos, win.eff_win,
-        win.n_win, win.Kw, scale, softcap);
-  }
+int launch_combine(const DecodeArgs& a, const Window& win, cudaStream_t st) {
+  const int nw = win.wk != nullptr ? win.Kw : 0;
+  paged_decode_combine<T><<<dim3(a.B, a.KV), DEC_THREADS,
+                            sizeof(float) * (a.H / a.KV) * (2 * nw + a.splits + 1),
+                            st>>>(
+      a.part_acc, a.part_ml, static_cast<T*>(a.out), a.m_out, a.l_out, a.H,
+      a.KV, a.splits, a.hd, a.ps, a.P, a.lengths, a.lower,
+      static_cast<const T*>(a.q), static_cast<const T*>(win.wk),
+      static_cast<const T*>(win.wv), win.start, win.q_pos, win.eff_win,
+      win.n_win, win.Kw, a.scale, a.softcap);
   return (int)cudaGetLastError();
 }
 
-int check_decode(int dtype, int H, int KV, int ps, int hd, int splits) {
+template <typename T>
+int launch_generic(const DecodeArgs& a, const Window& win, cudaStream_t st) {
+  const size_t smem = decode_smem_bytes(a.H / a.KV, a.ps, a.hd, (int)sizeof(T));
+  const long long layer_offset = a.layer * (long long)a.N * a.KV * a.ps * a.hd;
+  cudaFuncSetAttribute(paged_decode_kernel<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  paged_decode_kernel<T><<<dim3(a.B, a.KV, a.splits), DEC_THREADS, smem, st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pools),
+      static_cast<const T*>(a.v_pools), layer_offset, a.page_table, a.lengths,
+      a.lower, static_cast<T*>(a.out), a.m_out, a.l_out, a.part_acc,
+      a.part_ml, win.start, win.q_pos, win.eff_win, a.H, a.KV, a.N, a.ps,
+      a.hd, a.P, a.scale, a.softcap);
+  if (a.part_acc == nullptr) return (int)cudaGetLastError();
+  return launch_combine<T>(a, win, st);
+}
+
+template <int HD>
+int launch_bf16(const DecodeArgs& a, const Window& win, cudaStream_t st) {
+  using Tile = DecodeTile<HD>;
+  const long long layer_offset = a.layer * (long long)a.N * a.KV * a.ps * HD;
+  cudaFuncSetAttribute(paged_decode_bf16_kernel<HD>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
+  paged_decode_bf16_kernel<HD>
+      <<<dim3(a.B, a.KV, a.splits), DB_THREADS, Tile::SMEM, st>>>(
+          static_cast<const __nv_bfloat16*>(a.q),
+          static_cast<const __nv_bfloat16*>(a.k_pools),
+          static_cast<const __nv_bfloat16*>(a.v_pools), layer_offset,
+          a.page_table, a.lengths, a.lower,
+          static_cast<__nv_bfloat16*>(a.out), a.m_out, a.l_out, a.part_acc,
+          a.part_ml, win.start, win.q_pos, win.eff_win, a.H, a.KV, a.N, a.ps,
+          a.P, a.scale, a.softcap);
+  if (a.part_acc == nullptr) return (int)cudaGetLastError();
+  return launch_combine<__nv_bfloat16>(a, win, st);
+}
+
+bool bf16_shape(int H, int KV, int ps, int hd) {
+  const int G = KV > 0 ? H / KV : 0;
+  return G >= 1 && G <= MAX_G && (hd == 64 || hd == 128 || hd == 256) &&
+         (ps == 16 || ps == 32 || ps == 64 || ps == 128);
+}
+
+int check_decode(int route, int dtype, int H, int KV, int ps, int hd,
+                 int splits) {
+  if (splits < 1 || splits > 1024 || KV < 1 || H % KV != 0)
+    return (int)cudaErrorInvalidValue;
+  if (route == 1)
+    return dtype == 1 && bf16_shape(H, KV, ps, hd) ? 0 : (int)cudaErrorInvalidValue;
   const int G = H / KV;
   const int elem = dtype == 0 ? 4 : 2;
-  if (G > MAX_G || hd > DEC_THREADS * DEC_MAX_DPT || hd % (16 / elem) != 0 ||
-      decode_smem_bytes(G, ps, hd, elem) > MAX_SMEM || splits < 1 ||
-      splits > 1024)
+  if (route != 0 || G > MAX_G || hd > DEC_THREADS * DEC_MAX_DPT ||
+      hd % (16 / elem) != 0 || decode_smem_bytes(G, ps, hd, elem) > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Each entry returns cudaGetLastError()
-// after its launches (0 = cudaSuccess). part_acc [B*KV*splits*G*hd] and
-// part_ml [B*KV*splits*G*2] are float32 scratch the caller allocates;
-// they may be null only when splits == 1 (no fold). m_out/l_out may be
-// null (no stats).
+int launch_decode(int route, int dtype, const DecodeArgs& a,
+                  const Window& win, cudaStream_t st) {
+  if (route == 1) {
+    switch (a.hd) {
+      case 64: return launch_bf16<64>(a, win, st);
+      case 128: return launch_bf16<128>(a, win, st);
+      case 256: return launch_bf16<256>(a, win, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  return dtype == 0 ? launch_generic<float>(a, win, st)
+                    : launch_generic<__nv_bfloat16>(a, win, st);
+}
+
+template <typename K>
+int resident(K kernel, int threads, int smem, int* blocks) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, smem);
+}
+
+// route: 1 = the bf16 tensor-core kernel, 0 = the generic kernel (the
+// wrapper picks it from the shape; see bf16_shape). dtype: 0 = float32,
+// 1 = bfloat16.
+//
+// *blocks = the decode kernel's resident blocks per SM at this shape
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for the split plan.
+extern "C" int dyn_paged_decode_resident(int route, int dtype, int H, int KV,
+                                         int ps, int hd, int* blocks) {
+  const int bad = check_decode(route, dtype, H, KV, ps, hd, 1);
+  if (bad) return bad;
+  if (route == 1) {
+    switch (hd) {
+      case 64: return resident(paged_decode_bf16_kernel<64>, DB_THREADS,
+                               DecodeTile<64>::SMEM, blocks);
+      case 128: return resident(paged_decode_bf16_kernel<128>, DB_THREADS,
+                                DecodeTile<128>::SMEM, blocks);
+      case 256: return resident(paged_decode_bf16_kernel<256>, DB_THREADS,
+                                DecodeTile<256>::SMEM, blocks);
+    }
+  }
+  const int smem = (int)decode_smem_bytes(H / KV, ps, hd, dtype == 0 ? 4 : 2);
+  return dtype == 0
+             ? resident(paged_decode_kernel<float>, DEC_THREADS, smem, blocks)
+             : resident(paged_decode_kernel<__nv_bfloat16>, DEC_THREADS, smem,
+                        blocks);
+}
+
+// Each entry returns cudaGetLastError() after its launches (0 =
+// cudaSuccess). part_acc [B*KV*splits*G*hd] and part_ml
+// [B*KV*splits*G*2] are float32 scratch the caller allocates; they may be
+// null only when splits == 1 (no fold). m_out/l_out may be null (no
+// stats).
 extern "C" int dyn_paged_attention_decode(
-    int dtype, const void* q, const void* k_pools, const void* v_pools,
-    long long layer, const int* page_table, const int* lengths,
-    const int* lower, void* out, float* m_out, float* l_out, float* part_acc,
-    float* part_ml, int B, int H, int KV, int N, int ps, int hd, int P,
-    int splits, float scale, float softcap, void* stream) {
-  const int bad = check_decode(dtype, H, KV, ps, hd, splits);
+    int route, int dtype, const void* q, const void* k_pools,
+    const void* v_pools, long long layer, const int* page_table,
+    const int* lengths, const int* lower, void* out, float* m_out,
+    float* l_out, float* part_acc, float* part_ml, int B, int H, int KV,
+    int N, int ps, int hd, int P, int splits, float scale, float softcap,
+    void* stream) {
+  const int bad = check_decode(route, dtype, H, KV, ps, hd, splits);
   if (bad || (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return bad ? bad : (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const Window none = {nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (splits == 1) part_acc = part_ml = nullptr;
-  if (dtype == 0)
-    return launch_decode<float>(q, k_pools, v_pools, layer, page_table,
-                                lengths, lower, none, out, m_out, l_out,
-                                part_acc, part_ml, B, H, KV, N, ps, hd, P,
-                                splits, scale, softcap, st);
-  return launch_decode<__nv_bfloat16>(q, k_pools, v_pools, layer, page_table,
-                                      lengths, lower, none, out, m_out, l_out,
-                                      part_acc, part_ml, B, H, KV, N, ps, hd,
-                                      P, splits, scale, softcap, st);
+  const DecodeArgs a = {q, k_pools, v_pools, layer, page_table, lengths,
+                        lower, out, m_out, l_out, part_acc, part_ml, B, H,
+                        KV, N, ps, hd, P, splits, scale, softcap};
+  return launch_decode(route, dtype, a, none, static_cast<cudaStream_t>(stream));
 }
 
 // One fused-window decode step: the pool's positions [lower, start) of
@@ -496,26 +932,20 @@ extern "C" int dyn_paged_attention_decode(
 // the combine kernel. Always folds: part_acc/part_ml are required;
 // eff_win may be null (no sliding window).
 extern "C" int dyn_paged_attention_decode_window(
-    int dtype, const void* q, const void* k_pools, const void* v_pools,
-    long long layer, const int* page_table, const int* start,
-    const int* q_pos, const int* eff_win, const void* wk, const void* wv,
-    int n_win, int Kw, void* out, float* part_acc, float* part_ml, int B,
-    int H, int KV, int N, int ps, int hd, int P, int splits, float scale,
-    float softcap, void* stream) {
-  const int bad = check_decode(dtype, H, KV, ps, hd, splits);
+    int route, int dtype, const void* q, const void* k_pools,
+    const void* v_pools, long long layer, const int* page_table,
+    const int* start, const int* q_pos, const int* eff_win, const void* wk,
+    const void* wv, int n_win, int Kw, void* out, float* part_acc,
+    float* part_ml, int B, int H, int KV, int N, int ps, int hd, int P,
+    int splits, float scale, float softcap, void* stream) {
+  const int bad = check_decode(route, dtype, H, KV, ps, hd, splits);
   if (bad || part_acc == nullptr || part_ml == nullptr || wk == nullptr ||
       wv == nullptr)
     return bad ? bad : (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const Window win = {wk, wv, start, q_pos, eff_win, n_win, Kw};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_decode<float>(q, k_pools, v_pools, layer, page_table,
-                                nullptr, nullptr, win, out, nullptr, nullptr,
-                                part_acc, part_ml, B, H, KV, N, ps, hd, P,
-                                splits, scale, softcap, st);
-  return launch_decode<__nv_bfloat16>(q, k_pools, v_pools, layer, page_table,
-                                      nullptr, nullptr, win, out, nullptr,
-                                      nullptr, part_acc, part_ml, B, H, KV, N,
-                                      ps, hd, P, splits, scale, softcap, st);
+  const DecodeArgs a = {q, k_pools, v_pools, layer, page_table, nullptr,
+                        nullptr, out, nullptr, nullptr, part_acc, part_ml, B,
+                        H, KV, N, ps, hd, P, splits, scale, softcap};
+  return launch_decode(route, dtype, a, win, static_cast<cudaStream_t>(stream));
 }

@@ -227,7 +227,6 @@ constexpr int PF_ROWS = 64;             // (query, head) rows per block
 constexpr int PF_CONSUMERS = 128;       // one warpgroup
 constexpr int PF_BF16_THREADS = PF_CONSUMERS + 32;  // + the producer warp
 constexpr int PF_STAGES = 2;            // K/V stages in the ring
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD, int PS> struct PrefillTile {
   static constexpr int KB = PS < 64 ? PS : 64;  // keys per stage
@@ -241,10 +240,6 @@ template <int HD, int PS> struct PrefillTile {
       1024 + Q_BYTES + PF_STAGES * STAGE_BYTES + 2 * PF_STAGES * 8;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Byte offset of 16-byte chunk c (8 bf16 of a row) of row r in a [rows,
 // HD] bf16 tile stored as HD / 64 column blocks of [rows, 128 bytes], the
 // chunk index XOR-swizzled by r % 8: what TMA's 128-byte swizzle writes
@@ -252,25 +247,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // wgmma descriptor of layout type 1 (128B) reads.
 __device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
   return (uint32_t)((c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count) : "memory");
-}
-
-// wait until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity) : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -469,11 +445,6 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   if constexpr (N == 256) wgmma_rs_n256(d, a, db);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ int warp_max_i(int v) {

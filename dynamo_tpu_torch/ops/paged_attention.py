@@ -13,6 +13,14 @@ what bounds it on an H100 and what its design does about it:
   for one step of the fused decode window (the main path's form): its
   combine step folds the window's in-flight keys into the pool's
   softmax on the card, where the JAX package merges the stats in XLA.
+  Decode is bound by the bytes of K/V it reads. The route comes from the
+  shape (:func:`decode_route`), never from a failure: bfloat16 at
+  head_dim 64/128/256, page size 16/32/64/128 and GQA groups up to 8 (the
+  ``llama3_8b`` and ``1b`` presets) run ``paged_decode_bf16_kernel``
+  (independent warps, tensor-core products, a per-warp ``cp.async`` ring
+  of 16-key blocks); float32 and other bfloat16 shapes run the generic
+  ``paged_decode_kernel``. Both split a row's pages over blocks by
+  :func:`decode_split_plan`, which takes host-known shapes only.
 - :func:`paged_attention_prefill` replaces the TPU kernel reached through
   ``paged_attention_prefill``: chunked-prefill attention with causal
   visibility by absolute ``q_positions`` (-1 = padding) intersected with
@@ -23,14 +31,16 @@ the CPU it computes its plain PyTorch version (the CPU tests' path); for
 CUDA tensors it launches its kernel on the current stream or raises —
 there is no fallback. Every wrapper call that launches adds one to
 ``LAUNCHES[name]``. A decode call launches a kernel pair, counted once:
-``paged_decode_kernel`` and then, when it folds (pages split over blocks,
-or a window buffer — always so on the main path), ``paged_decode_combine``.
+the decode kernel of its route and then, when it folds (pages split over
+blocks, or a window buffer — always so on the main path),
+``paged_decode_combine``; ``DECODE_ROUTE_LAUNCHES`` counts the same calls
+by route.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -41,6 +51,9 @@ NO_WINDOW = 1 << 30  # "infinite" effective sliding window (int32-safe)
 # counts its kernel pair (split kernel + combine) once
 LAUNCHES: Dict[str, int] = {"paged_attention_decode": 0,
                             "paged_attention_prefill": 0}
+# the same decode calls by route (see decode_route)
+DECODE_ROUTE_LAUNCHES: Dict[str, int] = {"bf16_mma": 0, "generic": 0}
+DECODE_ROUTES = ("generic", "bf16_mma")  # the C entries' route numbers
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # shapes the bfloat16 prefill kernel is built for
@@ -50,8 +63,9 @@ PREFILL_BF16_MAX_GROUP = 8
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, DECODE_ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def effective_window(window: int, is_sliding: bool, B: int,
@@ -70,13 +84,16 @@ def _lib():
     if not getattr(lib, "_dyn_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dyn_paged_attention_decode.argtypes = [
-            i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, p, p,
+            i, i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, p, p,
             i, i, i, i, i, i, i, i, f, f, p]
         lib.dyn_paged_attention_decode.restype = i
         lib.dyn_paged_attention_decode_window.argtypes = [
-            i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, i, i, p, p, p,
-            i, i, i, i, i, i, i, i, f, f, p]
+            i, i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, i, i, p, p,
+            p, i, i, i, i, i, i, i, i, f, f, p]
         lib.dyn_paged_attention_decode_window.restype = i
+        lib.dyn_paged_decode_resident.argtypes = [
+            i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.dyn_paged_decode_resident.restype = i
         lib._dyn_typed = True
     return lib
 
@@ -96,14 +113,37 @@ def _prefill_lib():
 
 
 _SMS: Dict[int, int] = {}
+_RESIDENT: Dict[tuple, int] = {}
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
 
 
 def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
+    idx = _device_index(device)
     if idx not in _SMS:
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return _SMS[idx]
+
+
+def _resident(device: torch.device, route: int, dtype: torch.dtype, H: int,
+              KV: int, ps: int, hd: int) -> int:
+    """Resident blocks per SM of the decode kernel of ``route`` at this
+    shape, queried once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    key = (_device_index(device), route, dtype, H // KV, ps, hd)
+    if key not in _RESIDENT:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            err = _lib().dyn_paged_decode_resident(
+                route, _DTYPES[dtype], H, KV, ps, hd, ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"decode occupancy query failed: CUDA error "
+                               f"{err} (route {route} H={H} KV={KV} ps={ps} "
+                               f"hd={hd})")
+        _RESIDENT[key] = blocks.value
+    return _RESIDENT[key]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -193,24 +233,18 @@ def paged_attention_decode_layered(
         out, m, l = decode_reference(q, k_pools, v_pools, layer, page_table,
                                      lengths, lower, scale, softcap)
         return (out, m, l) if return_stats else out
+    route, splits = _decode_launch_plan(q, k_pools, v_pools, B, P)
     G = H // KV
-    _check(G <= 8 and hd <= 256 and hd % 8 == 0,
-           f"decode kernel takes GQA groups <= 8 and head_dim <= 256, a "
-           f"multiple of 8 (got {G}, {hd})")
-    _check(k_pools.data_ptr() % 16 == 0 and v_pools.data_ptr() % 16 == 0,
-           "pools must be 16-byte aligned (16-byte page copies)")
-
     out = torch.empty_like(q)
     m = l = None
     if return_stats:
         m = torch.empty((B, H), dtype=torch.float32, device=q.device)
         l = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    splits = _splits(q.device, B, KV, P)
     part_acc = part_ml = None
     if splits > 1:
         part_acc, part_ml = _partials(q.device, B, KV, splits, G, hd)
     err = _lib().dyn_paged_attention_decode(
-        _DTYPES[q.dtype], q.data_ptr(), k_pools.data_ptr(),
+        route, _DTYPES[q.dtype], q.data_ptr(), k_pools.data_ptr(),
         v_pools.data_ptr(), layer, page_table.data_ptr(), lengths.data_ptr(),
         lower.data_ptr(), out.data_ptr(),
         m.data_ptr() if m is not None else None,
@@ -222,15 +256,65 @@ def paged_attention_decode_layered(
     if err != 0:
         raise RuntimeError(f"paged_attention_decode launch failed: CUDA "
                            f"error {err} (B={B} H={H} KV={KV} ps={ps} "
-                           f"hd={hd})")
+                           f"hd={hd} route {DECODE_ROUTES[route]})")
     LAUNCHES["paged_attention_decode"] += 1
+    DECODE_ROUTE_LAUNCHES[DECODE_ROUTES[route]] += 1
     return (out, m, l) if return_stats else out
 
 
-def _splits(device, B: int, KV: int, P: int) -> int:
-    """Flash-decoding: split each row's pages over enough blocks to give
-    every SM two; the splits' partials are folded by a second kernel."""
-    return max(1, min(P, -(-2 * _sm_count(device) // (B * KV))))
+def decode_route(dtype: torch.dtype, H: int, KV: int, ps: int,
+                 hd: int) -> int:
+    """The decode kernel a shape runs on, by shape alone: 1 (``bf16_mma``,
+    ``paged_decode_bf16_kernel``) for bfloat16 at the bf16 kernels' head
+    dims, page sizes and GQA groups, else 0 (``generic``,
+    ``paged_decode_kernel``)."""
+    return int(dtype == torch.bfloat16 and hd in PREFILL_BF16_HEAD_DIMS
+               and ps in PREFILL_BF16_PAGE_SIZES
+               and H // KV <= PREFILL_BF16_MAX_GROUP)
+
+
+def decode_split_plan(B: int, KV: int, P: int, sms: int,
+                      resident: int) -> int:
+    """Splits per (row, kv head), from host-known shapes only (so a CUDA
+    graph can capture the call): as many as fill one wave of the card's
+    ``sms * resident`` resident blocks, at most one per page-table entry,
+    and 1 once the rows x kv heads alone fill the wave."""
+    slots = sms * max(resident, 1)
+    return max(1, min(P, slots // max(B * KV, 1)))
+
+
+def decode_split_ranges(length: int, lower: int, ps: int, P: int,
+                        splits: int) -> List[Tuple[int, int]]:
+    """``(first page, pages)`` of each split of one row, as the kernels
+    cut it (``split_pages`` in csrc/paged_attention.cu): the pages that
+    cover ``[lower, length)``, in near-equal contiguous shares; a split is
+    empty only when the row has fewer pages than splits."""
+    begin = lower // ps if lower > 0 else 0
+    end = min(-(-length // ps), P) if length > 0 else 0
+    n = max(end - begin, 0)
+    return [(begin + n * s // splits,
+             n * (s + 1) // splits - n * s // splits) for s in range(splits)]
+
+
+def _decode_launch_plan(q: torch.Tensor, k_pools: torch.Tensor,
+                        v_pools: torch.Tensor, B: int,
+                        P: int) -> Tuple[int, int]:
+    """Route and splits of one decode call on the card; raises for shapes
+    neither kernel takes."""
+    H, hd = q.shape[1], q.shape[2]
+    KV, ps = k_pools.shape[2], k_pools.shape[3]
+    G = H // KV
+    route = decode_route(q.dtype, H, KV, ps, hd)
+    if route == 0:
+        _check(G <= 8 and hd <= 256 and hd % 8 == 0,
+               f"decode kernel takes GQA groups <= 8 and head_dim <= 256, a "
+               f"multiple of 8 (got {G}, {hd})")
+    _check(k_pools.data_ptr() % 16 == 0 and v_pools.data_ptr() % 16 == 0,
+           "pools must be 16-byte aligned (16-byte page copies)")
+    splits = decode_split_plan(
+        B, KV, P, _sm_count(q.device),
+        _resident(q.device, route, q.dtype, H, KV, ps, hd))
+    return route, splits
 
 
 def _partials(device, B: int, KV: int, splits: int, G: int, hd: int):
@@ -295,17 +379,11 @@ def paged_attention_decode_window(
         return window_reference(q, k_pools, v_pools, layer, page_table,
                                 start, q_pos, wk, wv, n_win, scale, softcap,
                                 eff_win)
-    G = H // KV
-    _check(G <= 8 and hd <= 256 and hd % 8 == 0,
-           f"decode kernel takes GQA groups <= 8 and head_dim <= 256, a "
-           f"multiple of 8 (got {G}, {hd})")
-    _check(k_pools.data_ptr() % 16 == 0 and v_pools.data_ptr() % 16 == 0,
-           "pools must be 16-byte aligned (16-byte page copies)")
-    splits = _splits(q.device, B, KV, P)
-    part_acc, part_ml = _partials(q.device, B, KV, splits, G, hd)
+    route, splits = _decode_launch_plan(q, k_pools, v_pools, B, P)
+    part_acc, part_ml = _partials(q.device, B, KV, splits, H // KV, hd)
     out = torch.empty_like(q)
     err = _lib().dyn_paged_attention_decode_window(
-        _DTYPES[q.dtype], q.data_ptr(), k_pools.data_ptr(),
+        route, _DTYPES[q.dtype], q.data_ptr(), k_pools.data_ptr(),
         v_pools.data_ptr(), layer, page_table.data_ptr(), start.data_ptr(),
         q_pos.data_ptr(), eff_win.data_ptr() if eff_win is not None else None,
         wk.data_ptr(), wv.data_ptr(), n_win, Kw, out.data_ptr(),
@@ -315,8 +393,9 @@ def paged_attention_decode_window(
     if err != 0:
         raise RuntimeError(f"paged_attention_decode_window launch failed: "
                            f"CUDA error {err} (B={B} H={H} KV={KV} ps={ps} "
-                           f"hd={hd} Kw={Kw})")
+                           f"hd={hd} Kw={Kw} route {DECODE_ROUTES[route]})")
     LAUNCHES["paged_attention_decode"] += 1
+    DECODE_ROUTE_LAUNCHES[DECODE_ROUTES[route]] += 1
     return out
 
 
@@ -526,3 +605,27 @@ def prefill_work(q_positions: torch.Tensor,
     diff.scatter_add_(1, torch.where(valid, qp + 1, S), -ones)
     kv_positions = int((diff[:, :S].cumsum(1) > 0).sum())
     return int(valid.sum()), pairs, kv_positions
+
+
+def decode_work(lengths: torch.Tensor, lower: Optional[torch.Tensor] = None,
+                window_keys: Optional[torch.Tensor] = None, *, heads: int,
+                kv_heads: int, head_dim: int, elem_bytes: int
+                ) -> Tuple[int, int, int]:
+    """The work one decode call must do, counted from its inputs:
+    ``(rows, kv_positions, bytes)``. ``kv_positions`` sums over rows the
+    pool positions in ``[lower, lengths)`` plus the row's visible
+    in-flight keys (``window_keys``, the window form); ``rows`` counts the
+    rows that see at least one key. ``bytes`` reads K and V once per
+    position and kv head, and q and the output once per live row and head
+    (the int32 row data and page-table entries, under 0.1% here, are left
+    out). A kernel's bound follows with ``4 * kv_positions * heads *
+    head_dim`` operations."""
+    n = lengths.long()
+    lo = lower.long() if lower is not None else torch.zeros_like(n)
+    per_row = (n - lo).clamp(min=0)
+    if window_keys is not None:
+        per_row = per_row + window_keys.long().clamp(min=0)
+    rows = int((per_row > 0).sum())
+    positions = int(per_row.sum())
+    moved = (2 * positions * kv_heads + 2 * rows * heads) * head_dim
+    return rows, positions, moved * elem_bytes

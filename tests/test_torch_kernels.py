@@ -15,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from dynamo_tpu_torch.ops import paged_attention as ops
 from dynamo_tpu_torch.ops.paged_attention import (
-    paged_attention_decode_layered, paged_attention_prefill)
+    paged_attention_decode_layered, paged_attention_decode_window,
+    paged_attention_prefill, window_reference)
 
 
 def _np(x):
@@ -201,3 +203,128 @@ def test_cuda_bf16_prefill_refuses_shapes_it_is_not_built_for(
             torch.zeros(1, 4, G, hd, dtype=bf, device=d), pool, pool,
             torch.ones(1, 2, dtype=torch.int32, device=d),
             torch.arange(4, dtype=torch.int32, device=d)[None])
+
+
+def _decode_pool(G, hd, ps, rows_pages, KV=2, L=2, seed=4,
+                 dtype=torch.bfloat16):
+    """A pool, queries and a page table from a seed: row b holds
+    ``rows_pages[b]`` distinct shuffled pages, the rest of the table 0."""
+    g = torch.Generator().manual_seed(seed)
+    B, P = len(rows_pages), max(max(rows_pages), 1) + 2
+    N = sum(rows_pages) + 4
+    kp = torch.randn(L, N, KV, ps, hd, generator=g).to(dtype)
+    vp = torch.randn(L, N, KV, ps, hd, generator=g).to(dtype)
+    q = torch.randn(B, KV * G, hd, generator=g).to(dtype)
+    table = torch.zeros((B, P), dtype=torch.int32)
+    pages = torch.randperm(N - 1, generator=g) + 1
+    used = 0
+    for b, n in enumerate(rows_pages):
+        table[b, :n] = pages[used:used + n]
+        used += n
+    return q, kp, vp, table
+
+
+def _decode_check(dev, q, kp, vp, table, lengths, lower, softcap=None,
+                  tol=2e-2, rtol=1e-2):
+    """The decode kernel (stats form, every layer) against its plain
+    version; returns the kernel's output of the last layer."""
+    lengths = torch.tensor(lengths, dtype=torch.int32)
+    lower = torch.tensor(lower, dtype=torch.int32)
+    for layer in range(kp.shape[0]):
+        want = paged_attention_decode_layered(
+            q, kp, vp, layer, table, lengths, return_stats=True,
+            softcap=softcap, lower=lower)
+        got = paged_attention_decode_layered(
+            *(t.to(dev) for t in (q, kp, vp)), layer,
+            *(t.to(dev) for t in (table, lengths)), return_stats=True,
+            softcap=softcap, lower=lower.to(dev))
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_np(got[0].cpu()), _np(want[0]),
+                                   rtol=rtol, atol=tol)
+        np.testing.assert_allclose(_np(got[1].cpu()), _np(want[1]),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(_np(got[2].cpu()), _np(want[2]),
+                                   rtol=1e-4, atol=1e-5)
+    return got[0].cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 7, 8])
+def test_cuda_bf16_decode_kernel_matches_plain(cuda_device, G, hd, ps):
+    """Every head_dim x page size of the bf16 kernel, GQA groups that fill
+    1 to 8 of the 8 head rows: rows of one key, of a page and a bit, of
+    several pages with ``lower`` inside a page, a length-0 row, and a
+    sliding view that masks everything (lower == length)."""
+    lengths = [1, ps + 3, 5 * ps - 7, 0, 2 * ps + 5, 3 * ps]
+    lower = [0, 0, ps + 9, 0, 2 * ps + 5, ps // 2]
+    pages = [-(-n // ps) for n in lengths]
+    q, kp, vp, table = _decode_pool(G, hd, ps, pages)
+    ops.reset_launch_counts()
+    got = _decode_check(cuda_device, q, kp, vp, table, lengths, lower,
+                        softcap=30.0 if G == 7 else None)
+    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 2, "generic": 0}
+    assert (got[3] == 0).all() and (got[4] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3, 24])
+def test_cuda_bf16_decode_long_rows(cuda_device, rows):
+    """Rows of 40 to 62 pages at the 8B widths: at 3 rows each row's pages
+    are split over about 11 blocks, at 24 rows the rows x kv heads fill
+    most of the card and each block walks every page of its row."""
+    rng = np.random.RandomState(5)
+    lengths = [int(x) for x in rng.randint(40 * 64, 62 * 64, rows)]
+    lower = [0] * (rows - 1) + [1000]
+    q, kp, vp, table = _decode_pool(4, 128, 64, [-(-n // 64) for n in lengths],
+                                    KV=8, L=1)
+    _decode_check(cuda_device, q, kp, vp, table, lengths, lower)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 3, 70])
+@pytest.mark.parametrize("n_win", [1, 2, 3, 4])
+def test_cuda_bf16_decode_window_steps(cuda_device, n_win, window):
+    """The window form on the bf16 kernel at every step of a K = 4 window,
+    without and with a sliding window (3 keys: the pool is out of view)."""
+    Kw, KV, G, hd, ps = 4, 8, 4, 128, 64
+    start = torch.tensor([-1, 0, 64, 300, 700], dtype=torch.int32)
+    q, kp, vp, table = _decode_pool(G, hd, ps, [0, 0, 1, 5, 11], KV=KV)
+    g = torch.Generator().manual_seed(6)
+    B = start.numel()
+    wk = torch.randn(B, Kw, KV, hd, generator=g).to(torch.bfloat16)
+    wv = torch.randn(B, Kw, KV, hd, generator=g).to(torch.bfloat16)
+    qp = (start.clamp(min=0) + n_win - 1).to(torch.int32)
+    eff = None if window is None else torch.full((B,), window,
+                                                 dtype=torch.int32)
+    want = window_reference(q, kp, vp, 1, table, start, qp, wk, wv, n_win,
+                            hd ** -0.5, None, eff)
+    d = cuda_device
+    ops.reset_launch_counts()
+    got = paged_attention_decode_window(
+        q.to(d), kp.to(d), vp.to(d), 1, table.to(d), start.to(d), qp.to(d),
+        wk.to(d), wv.to(d), n_win,
+        eff_win=None if eff is None else eff.to(d)).cpu()
+    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 1, "generic": 0}
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=2e-2)
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,ps,G", [
+    (torch.float32, 128, 64, 4),    # float32 at the 8B shape
+    (torch.bfloat16, 32, 16, 1),    # head_dim outside the bf16 set
+    (torch.bfloat16, 64, 8, 2),     # page size outside the bf16 set
+])
+def test_cuda_decode_other_shapes_run_the_generic_kernel(cuda_device, dtype,
+                                                         hd, ps, G):
+    """float32, and bfloat16 shapes outside the bf16 kernel's set, still
+    run on the generic kernel, chosen by shape."""
+    lengths, lower = [3 * ps + 1, 0, 2 * ps], [0, 0, ps + 1]
+    q, kp, vp, table = _decode_pool(G, hd, ps, [4, 0, 2], dtype=dtype)
+    ops.reset_launch_counts()
+    f32 = dtype == torch.float32
+    _decode_check(cuda_device, q, kp, vp, table, lengths, lower,
+                  tol=1e-5 if f32 else 2e-2, rtol=0.0 if f32 else 1e-2)
+    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 0, "generic": 2}

@@ -347,6 +347,84 @@ def test_prefill_work_counts_the_mask(case):
             T * (T + 1) // 2, T)
 
 
+@pytest.mark.parametrize("case", ["plain", "lower", "window", "padding"])
+def test_decode_work_counts_the_mask(case):
+    """decode_work (the decode kernel's bound in chip_smoke.py) against a
+    brute-force count of the visible pool positions and window keys."""
+    rng = np.random.RandomState(12)
+    B, H, KV, hd, el = 6, 32, 8, 128, 2
+    lengths = rng.randint(1, 700, B).astype(np.int32)
+    lower = np.zeros(B, np.int32)
+    win = None
+    if case in ("lower", "window"):
+        lower = np.minimum(rng.randint(0, 500, B), lengths).astype(np.int32)
+    if case == "window":
+        win = rng.randint(1, 5, B).astype(np.int32)
+    if case == "padding":
+        lengths[[1, 4]] = 0
+    keys = np.arange(lengths.max())[None, :]
+    vis = (keys >= lower[:, None]) & (keys < lengths[:, None])
+    per_row = vis.sum(axis=1) + (win if win is not None else 0)
+    rows, positions, moved = ops.decode_work(
+        torch.from_numpy(lengths), torch.from_numpy(lower),
+        None if win is None else torch.from_numpy(win), heads=H,
+        kv_heads=KV, head_dim=hd, elem_bytes=el)
+    assert rows == int((per_row > 0).sum())
+    assert positions == int(per_row.sum())
+    assert moved == (2 * positions * KV * hd + 2 * rows * H * hd) * el
+
+
+@pytest.mark.parametrize("B,KV,P,resident", [
+    (4, 8, 64, 2),     # the served window: 8 splits, most rows short
+    (32, 8, 64, 2),    # rows x kv heads fill the wave: no split
+    (8, 8, 64, 2),     # long rows spread over 4 splits
+    (1, 1, 3, 4),      # fewer pages than the wave could take
+    (40, 8, 4, 1),     # more (row, kv head) blocks than resident slots
+    (2, 4, 16, 3),
+])
+def test_decode_split_plan_covers_every_page_once(B, KV, P, resident):
+    """The split plan from host-known shapes: the grid stays within one
+    wave of resident blocks (or is one block per (row, kv head) when those
+    alone pass it), and the splits of every row cover its visible pages
+    exactly once, empty only when the row has fewer pages than splits."""
+    sms, ps = 132, 64
+    S = ops.decode_split_plan(B, KV, P, sms, resident)
+    slots = sms * resident
+    assert 1 <= S <= P
+    assert B * KV * S <= max(slots, B * KV)
+    if B * KV * 2 <= slots and P >= 2:
+        assert S >= 2  # a wave with room for more splits gets them
+    rng = np.random.RandomState(13)
+    for length in [0, 1, 63, 64, 65, 640, P * ps, P * ps + 100,
+                   *rng.randint(1, P * ps, 20)]:
+        for lower in sorted({0, 1, 64, int(length) // 2, int(length)}):
+            if lower > length:
+                continue
+            ranges = ops.decode_split_ranges(int(length), lower, ps, P, S)
+            assert len(ranges) == S
+            covered = [p for first, n in ranges for p in range(first, first + n)]
+            want = list(range(lower // ps, min(-(-int(length) // ps), P)))
+            assert covered == want  # in order, each page once
+            empty = sum(n == 0 for _, n in ranges)
+            assert empty == max(S - len(want), 0)
+            assert max(n for _, n in ranges) - min(n for _, n in ranges) <= 1
+
+
+@pytest.mark.parametrize("dtype,hd,ps,G,route", [
+    (torch.bfloat16, 128, 64, 4, 1),   # llama3_8b
+    (torch.bfloat16, 64, 64, 4, 1),    # the 1b preset
+    (torch.bfloat16, 256, 16, 8, 1),
+    (torch.bfloat16, 128, 128, 1, 1),
+    (torch.float32, 128, 64, 4, 0),    # float32: the generic kernel
+    (torch.bfloat16, 16, 64, 4, 0),    # the tiny preset's head_dim
+    (torch.bfloat16, 32, 16, 1, 0),    # chip_smoke's "small" case
+    (torch.bfloat16, 64, 8, 2, 0),     # chip_smoke's "mha-64" case
+    (torch.bfloat16, 128, 48, 4, 0),   # a page size outside the set
+])
+def test_decode_route_by_shape(dtype, hd, ps, G, route):
+    assert ops.decode_route(dtype, 8 * G, 8, ps, hd) == route
+
+
 # ----------------------------------------------------------- wrapper rules
 
 

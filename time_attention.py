@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""Device time of the bf16 attention kernels at chip_smoke.py's phase-5
+shapes, for comparing two trees on one card.
+
+    python3 time_attention.py          # from the root of a checkout
+
+Llama-3-8B attention widths (H=32, KV=8, head_dim 128, page 64), a random
+pool of 512 pages and queries from a seed:
+- prefill: one 512-token chunk from position 0 (page table of 8) and the
+  fourth chunk of a 2048-token prompt (positions 1536-2047, table of 64);
+- decode, window form, the last step of a K = 4 window (table of 64):
+  the served window (4 rows of 40, 64, 86 and 656 positions), 32 rows of
+  520 positions, 8 rows of 3,968 positions.
+Each shape is timed three times (CUDA graph of 50 launches,
+chip_smoke.time_ms) and held to its plain version (bf16 tolerance).
+Prints one JSON line. The script uses only what earlier trees of the
+port have as well, so to compare a change with its parent, unpack the
+parent into a git-ignored directory, copy this script beside its
+chip_smoke.py, and run, in one chip call, parent, change, change, parent.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+DECODE_SHAPES = (("served", [40, 64, 86, 656]), ("rows32", [520] * 32),
+                 ("long8", [3968] * 8))
+
+
+def decode_case(kp, vp, ctx, B: int, P: int, K: int, H: int, g):
+    """Operands of one fused-window decode call, the last of K steps, on
+    layer 0 of the pools [L, N, KV, ps, hd]: row b of ``ctx`` holds ctx[b]
+    positions on distinct random pages; rows past len(ctx) are padding
+    (start -1). Returns (q, table, start, q_pos, wk, wv)."""
+    import torch
+
+    dev = kp.device
+    N, KV, ps, hd = kp.shape[1:]
+    pages = [-(-n // ps) for n in ctx]
+    perm = torch.randperm(N - 1, generator=g, device=dev)[:sum(pages)] + 1
+    table = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    used = 0
+    for b, n in enumerate(pages):
+        table[b, :n] = perm[used:used + n]
+        used += n
+    start = torch.tensor(list(ctx) + [-1] * (B - len(ctx)),
+                         dtype=torch.int32, device=dev)
+    qp = (start.clamp(min=0) + K - 1).to(torch.int32)
+    q = torch.randn(B, H, hd, generator=g, device=dev).to(kp.dtype)
+    wk = torch.randn(B, K, KV, hd, generator=g, device=dev).to(kp.dtype)
+    wv = torch.randn(B, K, KV, hd, generator=g, device=dev).to(kp.dtype)
+    return q, table, start, qp, wk, wv
+
+
+def main() -> None:
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    from chip_smoke import excess, fail, time_ms
+    from dynamo_tpu_torch.ops.paged_attention import (
+        NO_WINDOW, paged_attention_decode_window, paged_attention_prefill,
+        prefill_reference, window_reference)
+
+    if not torch.cuda.is_available():
+        fail("no CUDA GPU available")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    N, KV, H, hd, ps, T, K = 512, 8, 32, 128, 64, 512, 4
+    kp = torch.randn(1, N, KV, ps, hd, generator=g,
+                     device=dev).to(torch.bfloat16)
+    vp = torch.randn(1, N, KV, ps, hd, generator=g,
+                     device=dev).to(torch.bfloat16)
+    res = {"tree": os.getcwd(), "card": torch.cuda.get_device_name(0)}
+    for name, start, P in (("first_chunk", 0, 8), ("deep_chunk", 1536, 64)):
+        used = (start + T) // ps
+        table = torch.zeros((1, P), dtype=torch.int32, device=dev)
+        table[0, :used] = torch.randperm(N - 1, generator=g,
+                                         device=dev)[:used] + 1
+        pos = torch.arange(start, start + T, dtype=torch.int32,
+                           device=dev)[None]
+        win = torch.full((1,), NO_WINDOW, dtype=torch.int32, device=dev)
+        q = torch.randn(1, T, H, hd, generator=g, device=dev).to(torch.bfloat16)
+        run = lambda: paged_attention_prefill(  # noqa: E731
+            q, kp[0], vp[0], table, pos, eff_win=win)
+        over = excess(run(), prefill_reference(q, kp[0], vp[0], table, pos,
+                                               hd ** -0.5, None, win),
+                      2e-2, 1e-2)
+        if over > 0:
+            fail(f"prefill {name}: off its plain version by {over:.3g}")
+        res[name] = [time_ms(run, iters=50) for _ in range(3)]
+    for name, ctx in DECODE_SHAPES:
+        B, P = len(ctx), 64
+        q, table, start, qp, wk, wv = decode_case(kp, vp, ctx, B, P, K, H, g)
+        run = lambda: paged_attention_decode_window(  # noqa: E731
+            q, kp, vp, 0, table, start, qp, wk, wv, K)
+        over = excess(run(), window_reference(q, kp, vp, 0, table, start, qp,
+                                              wk, wv, K, hd ** -0.5),
+                      2e-2, 1e-2)
+        if over > 0:
+            fail(f"decode {name}: off its plain version by {over:.3g}")
+        res[f"decode_{name}"] = [time_ms(run, iters=50) for _ in range(3)]
+    print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()
