@@ -363,15 +363,20 @@ constexpr int DB_WARPS = 4;                 // independent warps per block
 constexpr int DB_THREADS = DB_WARPS * 32;
 constexpr int DB_KB = 16;                   // keys per stage
 constexpr int DB_STAGES = 3;                // stages in each warp's ring
+constexpr int MAX_SPLITS = 128;             // splits the bf16 kernel folds
+constexpr int MAX_KW = 16;                  // in-flight window keys it folds
 
 template <int HD> struct DecodeTile {
   static constexpr int KV_BYTES = DB_KB * HD * 2;  // the K (or V) of a stage
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int RING_BYTES = DB_WARPS * DB_STAGES * STAGE_BYTES;
-  // the end-of-loop merge reuses the rings: each warp's output fragment
-  // [MAX_G, HD], its (m, l) and the warps' weights, in float32
+  // the end-of-loop merge and fold reuse the rings, in float32: each
+  // warp's output fragment [MAX_G, HD], its (m, l) and weight; then the
+  // sources' (m, l) and weights [MAX_SPLITS, MAX_G], the window slots'
+  // scores [MAX_G, MAX_KW], the heads' sums and the last-block flag
   static constexpr int MERGE_BYTES =
-      4 * (DB_WARPS * MAX_G * HD + 3 * DB_WARPS * MAX_G + MAX_G);
+      4 * (DB_WARPS * MAX_G * HD + 3 * DB_WARPS * MAX_G +
+           3 * MAX_SPLITS * MAX_G + MAX_G * MAX_KW + MAX_G + 1);
   static constexpr int SMEM =
       (RING_BYTES > MERGE_BYTES ? RING_BYTES : MERGE_BYTES) +
       DB_WARPS * DB_STAGES * 8;
@@ -414,14 +419,12 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
 __device__ __forceinline__ void mma_rows8(float& d0, float& d1, uint32_t a0,
                                           uint32_t a2, uint32_t b0,
                                           uint32_t b1) {
-  float t2, t3;
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %10, %11};\n"
-      : "+f"(d0), "+f"(d1), "=f"(t2), "=f"(t3)
+  asm("{\n.reg .f32 t<2>;\n"
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, t0, t1}, {%2, %3, %4, %5}, {%6, %7}, {%0, %1, %8, %9};\n}\n"
+      : "+f"(d0), "+f"(d1)
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1), "f"(0.f),
         "f"(0.f));
-  (void)t2;
-  (void)t3;
 }
 
 // grid (B, KV, S); block DB_THREADS: four warps, each an independent
@@ -445,10 +448,14 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                          float* __restrict__ m_out, float* __restrict__ l_out,
                          float* __restrict__ part_acc,
                          float* __restrict__ part_ml,
+                         int* __restrict__ counters,
                          const int* __restrict__ start,
                          const int* __restrict__ q_pos,
-                         const int* __restrict__ eff_win, int H, int KV,
-                         int N, int ps, int P, float scale, float softcap) {
+                         const int* __restrict__ eff_win,
+                         const __nv_bfloat16* __restrict__ wk,
+                         const __nv_bfloat16* __restrict__ wv, int n_win,
+                         int Kw, int H, int KV, int N, int ps, int P,
+                         float scale, float softcap) {
   using Tile = DecodeTile<HD>;
   constexpr int CH = HD / 8;  // 16-byte chunks in a row
   extern __shared__ __align__(16) uint8_t smem[];
@@ -460,7 +467,11 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   int len, lo, p_begin;
   row_extent(b, lengths, lower, start, q_pos, eff_win, len, lo);
   const int n_pages = split_pages(len, lo, ps, P, S, split, p_begin);
-  if (n_pages == 0 && part_acc != nullptr) return;  // the combine skips it
+  int p0;
+  const int n_live = min(split_pages(len, lo, ps, P, 1, 0, p0), S);
+  // a split without pages has nothing to do — unless no split has pages:
+  // then split 0 writes the output (zeros, or the window keys alone)
+  if (n_pages == 0 && !(n_live == 0 && split == 0)) return;
 
   uint8_t* ring = smem + warp * DB_STAGES * Tile::STAGE_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(
@@ -591,13 +602,17 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
 
-  // merge the warps: the one block-wide barrier pair, after the loop (no
+  // merge the warps, the first block-wide barrier, after the loop (no
   // copy is in flight: every block a warp staged it also consumed)
   __syncthreads();
   float* o_s = reinterpret_cast<float*>(smem);     // [DB_WARPS][MAX_G][HD]
   float* ml_s = o_s + DB_WARPS * MAX_G * HD;       // [DB_WARPS][MAX_G][2]
   float* w_s = ml_s + 2 * DB_WARPS * MAX_G;        // [DB_WARPS][MAX_G]
-  float* L_s = w_s + DB_WARPS * MAX_G;             // [MAX_G]
+  float* fm_s = w_s + DB_WARPS * MAX_G;            // [MAX_SPLITS][MAX_G][2]
+  float* fw_s = fm_s + 2 * MAX_SPLITS * MAX_G;     // [MAX_SPLITS][MAX_G]
+  float* win_s = fw_s + MAX_SPLITS * MAX_G;        // [MAX_G][MAX_KW]
+  float* L_s = win_s + MAX_G * MAX_KW;             // [MAX_G]
+  int* last_s = reinterpret_cast<int*>(L_s + MAX_G);
   if (g < G) {
     float* orow = o_s + (warp * MAX_G + g) * HD + 2 * qd;
 #pragma unroll
@@ -609,6 +624,7 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
+  // the block's (m, l) per head: source 0 of the fold below
   if (tid < G) {
     float M = NEG_INF;
 #pragma unroll
@@ -620,40 +636,126 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       w_s[w * MAX_G + tid] = e;
       L += e * ml_s[(w * MAX_G + tid) * 2 + 1];
     }
-    L_s[tid] = L;
-    const long long r = (long long)b * H + kv * G + tid;
-    if (part_acc != nullptr) {
-      const long long pr = (((long long)b * KV + kv) * S + split) * G + tid;
-      part_ml[pr * 2] = M;
-      part_ml[pr * 2 + 1] = L;
-    } else if (m_out != nullptr) {
-      m_out[r] = M;
-      l_out[r] = L;
+    fm_s[tid * 2] = M;
+    fm_s[tid * 2 + 1] = L;
+  }
+  __syncthreads();
+
+  // With two or more live splits, each writes its partial (unnormalized
+  // output, m, l) and the last to arrive on the (row, kv head)'s counter
+  // folds them all and resets the counter for the next call. Otherwise
+  // this block holds the whole row and folds its own result.
+  const long long pbase = ((long long)b * KV + kv) * S * G;  // split 0
+  int n_src = 1;
+  if (n_live >= 2) {
+    for (int i = tid; i < G * HD; i += DB_THREADS) {
+      const int gi = i / HD, d = i - gi * HD;
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < DB_WARPS; ++w)
+        a += w_s[w * MAX_G + gi] * o_s[(w * MAX_G + gi) * HD + d];
+      part_acc[(pbase + split * G + gi) * HD + d] = a;
+    }
+    if (tid < G) {
+      part_ml[(pbase + split * G + tid) * 2] = fm_s[tid * 2];
+      part_ml[(pbase + split * G + tid) * 2 + 1] = fm_s[tid * 2 + 1];
+    }
+    __threadfence();  // the partial is visible before the arrival
+    __syncthreads();
+    if (tid == 0) {
+      const int arrived = atomicAdd(&counters[b * KV + kv], 1) + 1;
+      *last_s = arrived == n_live;
+      if (arrived == n_live) atomicExch(&counters[b * KV + kv], 0);
+    }
+    __syncthreads();
+    if (*last_s == 0) return;
+    __threadfence();
+    // every split's (m, l) from L2; a split without pages weighs 0
+    for (int i = tid; i < S * G; i += DB_THREADS) {
+      const bool live = split_pages(len, lo, ps, P, S, i / G, p0) > 0;
+      fm_s[i * 2] = live ? __ldcg(&part_ml[(pbase + i) * 2]) : -INFINITY;
+      fm_s[i * 2 + 1] = live ? __ldcg(&part_ml[(pbase + i) * 2 + 1]) : 0.f;
+    }
+    n_src = S;
+  }
+
+  // the fused window's in-flight keys: slot w holds position start + w,
+  // visible when w < n_win, start >= 0 and start + w > q_pos - eff_win
+  // (the merge of dynamo_tpu/models/llama.py:981-1006); one warp per
+  // (head, slot), lanes split head_dim
+  const int nw = wk != nullptr ? Kw : 0;
+  if (nw > 0) {
+    const int st = start[b];
+    const int floor_pos = eff_win != nullptr ? q_pos[b] - eff_win[b] : INT_MIN;
+    for (int pair = warp; pair < G * nw; pair += DB_WARPS) {
+      const int gi = pair / nw, w = pair - gi * nw;
+      const bool vis = w < n_win && st >= 0 && st + w > floor_pos;
+      float sc = -INFINITY;  // weighs exactly 0 below
+      if (vis) {  // uniform across the warp
+        const __nv_bfloat16* qg = q + ((long long)b * H + kv * G + gi) * HD;
+        const __nv_bfloat16* kw = wk + (((long long)b * Kw + w) * KV + kv) * HD;
+        float dot = 0.f;
+        for (int d = lane; d < HD; d += 32)
+          dot += __bfloat162float(qg[d]) * __bfloat162float(kw[d]);
+        sc = cap(warp_sum(dot) * scale, softcap);
+      }
+      if (lane == 0) win_s[gi * MAX_KW + w] = sc;
     }
   }
   __syncthreads();
-  const long long pbase = (((long long)b * KV + kv) * S + split) * G;
+  // per head: the joint max, each source's and slot's weight, the sum
+  if (tid < G) {
+    float M = NEG_INF;
+    for (int s = 0; s < n_src; ++s) M = fmaxf(M, fm_s[(s * G + tid) * 2]);
+    for (int w = 0; w < nw; ++w) M = fmaxf(M, win_s[tid * MAX_KW + w]);
+    float L = 0.f;
+    for (int s = 0; s < n_src; ++s) {
+      const float e = exp2f((fm_s[(s * G + tid) * 2] - M) * LOG2E);
+      fw_s[s * G + tid] = e;
+      L += e * fm_s[(s * G + tid) * 2 + 1];
+    }
+    for (int w = 0; w < nw; ++w) {
+      const float e = exp2f((win_s[tid * MAX_KW + w] - M) * LOG2E);
+      win_s[tid * MAX_KW + w] = e;
+      L += e;
+    }
+    L_s[tid] = L;
+    if (m_out != nullptr) {
+      m_out[(long long)b * H + kv * G + tid] = M;
+      l_out[(long long)b * H + kv * G + tid] = L;
+    }
+  }
+  __syncthreads();
   const long long obase = ((long long)b * H + kv * G) * HD;
   for (int i = tid; i < G * HD; i += DB_THREADS) {
     const int gi = i / HD, d = i - gi * HD;
     float a = 0.f;
+    if (n_src == 1) {
 #pragma unroll
-    for (int w = 0; w < DB_WARPS; ++w)
-      a += w_s[w * MAX_G + gi] * o_s[(w * MAX_G + gi) * HD + d];
-    if (part_acc != nullptr)
-      part_acc[(pbase + gi) * HD + d] = a;
-    else
-      out[obase + i] = __float2bfloat16(a / fmaxf(L_s[gi], 1e-9f));
+      for (int w = 0; w < DB_WARPS; ++w)
+        a += w_s[w * MAX_G + gi] * o_s[(w * MAX_G + gi) * HD + d];
+      a *= fw_s[gi];
+    } else {
+      for (int s = 0; s < n_src; ++s) {
+        const float e = fw_s[s * G + gi];
+        // a split without pages wrote nothing (a live one whose weight
+        // underflows to 0 adds 0 either way)
+        if (e != 0.f) a += e * __ldcg(&part_acc[(pbase + s * G + gi) * HD + d]);
+      }
+    }
+    for (int w = 0; w < nw; ++w)
+      a += win_s[gi * MAX_KW + w] *
+           __bfloat162float(wv[(((long long)b * Kw + w) * KV + kv) * HD + d]);
+    out[obase + i] = __float2bfloat16(a / fmaxf(L_s[gi], 1e-9f));
   }
 }
 
 // ---------------------------------------------------------- combine
-// grid (B, KV); dynamic shared (2 * Kw + S + 1) * G floats. Folds the S
-// splits' partials of each (row, kv head) into the output and the stats:
-// rescale each split to the joint max, normalize once. A split with no
-// pages (split_pages, the rule both kernels follow) is skipped — the bf16
-// kernel writes nothing for it — and an all-masked one has m = NEG_INF,
-// l = 0 and adds nothing. With a window buffer (wk != null)
+// The generic route's second kernel. grid (B, KV); dynamic shared
+// (2 * Kw + S + 1) * G floats. Folds the S splits' partials of each (row,
+// kv head) into the output and the stats: rescale each split to the joint
+// max, normalize once. A split with no pages (split_pages) is skipped,
+// and an all-masked one has m = NEG_INF, l = 0 and adds nothing. With a window buffer (wk != null)
 // it also scores the fused decode window's in-flight keys — slot w holds
 // position start + w, visible when w < n_win, start >= 0 and
 // start + w > q_pos - eff_win — and folds them in the same sum (the
@@ -778,8 +880,9 @@ struct DecodeArgs {
   void* out;
   float* m_out;
   float* l_out;
-  float* part_acc;  // null: no fold (one split, no window)
+  float* part_acc;  // null: the generic route does not fold
   float* part_ml;
+  int* counters;    // the bf16 route's arrivals per (row, kv head)
   int B, H, KV, N, ps, hd, P, splits;
   float scale, softcap;
 };
@@ -814,6 +917,7 @@ int launch_generic(const DecodeArgs& a, const Window& win, cudaStream_t st) {
   return launch_combine<T>(a, win, st);
 }
 
+// one launch: the bf16 kernel folds its splits and the window itself
 template <int HD>
 int launch_bf16(const DecodeArgs& a, const Window& win, cudaStream_t st) {
   using Tile = DecodeTile<HD>;
@@ -827,10 +931,11 @@ int launch_bf16(const DecodeArgs& a, const Window& win, cudaStream_t st) {
           static_cast<const __nv_bfloat16*>(a.v_pools), layer_offset,
           a.page_table, a.lengths, a.lower,
           static_cast<__nv_bfloat16*>(a.out), a.m_out, a.l_out, a.part_acc,
-          a.part_ml, win.start, win.q_pos, win.eff_win, a.H, a.KV, a.N, a.ps,
-          a.P, a.scale, a.softcap);
-  if (a.part_acc == nullptr) return (int)cudaGetLastError();
-  return launch_combine<__nv_bfloat16>(a, win, st);
+          a.part_ml, a.counters, win.start, win.q_pos, win.eff_win,
+          static_cast<const __nv_bfloat16*>(win.wk),
+          static_cast<const __nv_bfloat16*>(win.wv), win.n_win, win.Kw, a.H,
+          a.KV, a.N, a.ps, a.P, a.scale, a.softcap);
+  return (int)cudaGetLastError();
 }
 
 bool bf16_shape(int H, int KV, int ps, int hd) {
@@ -844,13 +949,25 @@ int check_decode(int route, int dtype, int H, int KV, int ps, int hd,
   if (splits < 1 || splits > 1024 || KV < 1 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
   if (route == 1)
-    return dtype == 1 && bf16_shape(H, KV, ps, hd) ? 0 : (int)cudaErrorInvalidValue;
+    return dtype == 1 && bf16_shape(H, KV, ps, hd) && splits <= MAX_SPLITS
+               ? 0 : (int)cudaErrorInvalidValue;
   const int G = H / KV;
   const int elem = dtype == 0 ? 4 : 2;
   if (route != 0 || G > MAX_G || hd > DEC_THREADS * DEC_MAX_DPT ||
       hd % (16 / elem) != 0 || decode_smem_bytes(G, ps, hd, elem) > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// The scratch a call needs: the bf16 route the partials and counters
+// when it splits; the generic route the partials whenever it folds
+// (splits, or a window).
+bool has_scratch(int route, const DecodeArgs& a, bool window) {
+  if (route == 1)
+    return a.splits == 1 || (a.part_acc != nullptr && a.part_ml != nullptr &&
+                             a.counters != nullptr);
+  return !(a.splits > 1 || window) ||
+         (a.part_acc != nullptr && a.part_ml != nullptr);
 }
 
 int launch_decode(int route, int dtype, const DecodeArgs& a,
@@ -903,49 +1020,51 @@ extern "C" int dyn_paged_decode_resident(int route, int dtype, int H, int KV,
 }
 
 // Each entry returns cudaGetLastError() after its launches (0 =
-// cudaSuccess). part_acc [B*KV*splits*G*hd] and part_ml
-// [B*KV*splits*G*2] are float32 scratch the caller allocates; they may be
-// null only when splits == 1 (no fold). m_out/l_out may be null (no
-// stats).
+// cudaSuccess). Scratch the caller allocates (see has_scratch): part_acc
+// [B*KV*splits*G*hd] and part_ml [B*KV*splits*G*2] in float32, and for
+// the bf16 route counters [B*KV] int32, zero before the first call (each
+// call leaves them zero). m_out/l_out may be null (no stats).
 extern "C" int dyn_paged_attention_decode(
     int route, int dtype, const void* q, const void* k_pools,
     const void* v_pools, long long layer, const int* page_table,
     const int* lengths, const int* lower, void* out, float* m_out,
-    float* l_out, float* part_acc, float* part_ml, int B, int H, int KV,
-    int N, int ps, int hd, int P, int splits, float scale, float softcap,
-    void* stream) {
+    float* l_out, float* part_acc, float* part_ml, int* counters, int B,
+    int H, int KV, int N, int ps, int hd, int P, int splits, float scale,
+    float softcap, void* stream) {
   const int bad = check_decode(route, dtype, H, KV, ps, hd, splits);
-  if (bad || (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
+  if (splits == 1) part_acc = part_ml = nullptr;
+  const DecodeArgs a = {q, k_pools, v_pools, layer, page_table, lengths,
+                        lower, out, m_out, l_out, part_acc, part_ml,
+                        counters, B, H, KV, N, ps, hd, P, splits, scale,
+                        softcap};
+  if (bad || !has_scratch(route, a, false))
     return bad ? bad : (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const Window none = {nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0};
-  if (splits == 1) part_acc = part_ml = nullptr;
-  const DecodeArgs a = {q, k_pools, v_pools, layer, page_table, lengths,
-                        lower, out, m_out, l_out, part_acc, part_ml, B, H,
-                        KV, N, ps, hd, P, splits, scale, softcap};
   return launch_decode(route, dtype, a, none, static_cast<cudaStream_t>(stream));
 }
 
 // One fused-window decode step: the pool's positions [lower, start) of
-// each row (lower from q_pos and eff_win) through the split kernel, then
-// the in-flight keys wk/wv [B, Kw, KV, hd] (slots < n_win) folded in by
-// the combine kernel. Always folds: part_acc/part_ml are required;
-// eff_win may be null (no sliding window).
+// each row (lower from q_pos and eff_win) and the in-flight keys wk/wv
+// [B, Kw, KV, hd] (slots < n_win) in one softmax — folded in the bf16
+// kernel, or by the combine kernel on the generic route. eff_win may be
+// null (no sliding window).
 extern "C" int dyn_paged_attention_decode_window(
     int route, int dtype, const void* q, const void* k_pools,
     const void* v_pools, long long layer, const int* page_table,
     const int* start, const int* q_pos, const int* eff_win, const void* wk,
     const void* wv, int n_win, int Kw, void* out, float* part_acc,
-    float* part_ml, int B, int H, int KV, int N, int ps, int hd, int P,
-    int splits, float scale, float softcap, void* stream) {
+    float* part_ml, int* counters, int B, int H, int KV, int N, int ps,
+    int hd, int P, int splits, float scale, float softcap, void* stream) {
   const int bad = check_decode(route, dtype, H, KV, ps, hd, splits);
-  if (bad || part_acc == nullptr || part_ml == nullptr || wk == nullptr ||
-      wv == nullptr)
+  const DecodeArgs a = {q, k_pools, v_pools, layer, page_table, nullptr,
+                        nullptr, out, nullptr, nullptr, part_acc, part_ml,
+                        counters, B, H, KV, N, ps, hd, P, splits, scale,
+                        softcap};
+  if (bad || !has_scratch(route, a, true) || wk == nullptr || wv == nullptr ||
+      Kw < 1 || (route == 1 && Kw > MAX_KW))
     return bad ? bad : (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const Window win = {wk, wv, start, q_pos, eff_win, n_win, Kw};
-  const DecodeArgs a = {q, k_pools, v_pools, layer, page_table, nullptr,
-                        nullptr, out, nullptr, nullptr, part_acc, part_ml, B,
-                        H, KV, N, ps, hd, P, splits, scale, softcap};
   return launch_decode(route, dtype, a, win, static_cast<cudaStream_t>(stream));
 }

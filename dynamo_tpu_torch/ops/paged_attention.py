@@ -18,9 +18,11 @@ what bounds it on an H100 and what its design does about it:
   head_dim 64/128/256, page size 16/32/64/128 and GQA groups up to 8 (the
   ``llama3_8b`` and ``1b`` presets) run ``paged_decode_bf16_kernel``
   (independent warps, tensor-core products, a per-warp ``cp.async`` ring
-  of 16-key blocks); float32 and other bfloat16 shapes run the generic
-  ``paged_decode_kernel``. Both split a row's pages over blocks by
-  :func:`decode_split_plan`, which takes host-known shapes only.
+  of 16-key blocks, the splits and window keys folded by the last block
+  of each row and kv head); float32 and other bfloat16 shapes run the
+  generic ``paged_decode_kernel`` and ``paged_decode_combine``. Both
+  split a row's pages over blocks by :func:`decode_split_plan`, which
+  takes host-known shapes only.
 - :func:`paged_attention_prefill` replaces the TPU kernel reached through
   ``paged_attention_prefill``: chunked-prefill attention with causal
   visibility by absolute ``q_positions`` (-1 = padding) intersected with
@@ -30,11 +32,11 @@ Each wrapper checks device, dtype, shape and contiguity. For tensors on
 the CPU it computes its plain PyTorch version (the CPU tests' path); for
 CUDA tensors it launches its kernel on the current stream or raises —
 there is no fallback. Every wrapper call that launches adds one to
-``LAUNCHES[name]``. A decode call launches a kernel pair, counted once:
-the decode kernel of its route and then, when it folds (pages split over
-blocks, or a window buffer — always so on the main path),
-``paged_decode_combine``; ``DECODE_ROUTE_LAUNCHES`` counts the same calls
-by route.
+``LAUNCHES[name]``, once per call: a bf16 decode call is one kernel,
+which folds its splits and the window keys itself; a generic decode call
+is the split kernel and, when it folds (pages split over blocks, or a
+window buffer), ``paged_decode_combine``. ``DECODE_ROUTE_LAUNCHES``
+counts the same calls by route.
 """
 
 from __future__ import annotations
@@ -84,12 +86,12 @@ def _lib():
     if not getattr(lib, "_dyn_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dyn_paged_attention_decode.argtypes = [
-            i, i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, p, p,
+            i, i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, p, p, p,
             i, i, i, i, i, i, i, i, f, f, p]
         lib.dyn_paged_attention_decode.restype = i
         lib.dyn_paged_attention_decode_window.argtypes = [
             i, i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, i, i, p, p,
-            p, i, i, i, i, i, i, i, i, f, f, p]
+            p, p, i, i, i, i, i, i, i, i, f, f, p]
         lib.dyn_paged_attention_decode_window.restype = i
         lib.dyn_paged_decode_resident.argtypes = [
             i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
@@ -240,9 +242,8 @@ def paged_attention_decode_layered(
     if return_stats:
         m = torch.empty((B, H), dtype=torch.float32, device=q.device)
         l = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    part_acc = part_ml = None
-    if splits > 1:
-        part_acc, part_ml = _partials(q.device, B, KV, splits, G, hd)
+    part_acc, part_ml, counters = _scratch(q.device, route, False, B, KV,
+                                           splits, G, hd)
     err = _lib().dyn_paged_attention_decode(
         route, _DTYPES[q.dtype], q.data_ptr(), k_pools.data_ptr(),
         v_pools.data_ptr(), layer, page_table.data_ptr(), lengths.data_ptr(),
@@ -251,6 +252,7 @@ def paged_attention_decode_layered(
         l.data_ptr() if l is not None else None,
         part_acc.data_ptr() if part_acc is not None else None,
         part_ml.data_ptr() if part_ml is not None else None,
+        counters.data_ptr() if counters is not None else None,
         B, H, KV, N, ps, hd, P, splits, float(scale), float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -273,14 +275,18 @@ def decode_route(dtype: torch.dtype, H: int, KV: int, ps: int,
                and H // KV <= PREFILL_BF16_MAX_GROUP)
 
 
+MAX_SPLITS = 128  # the most splits the bf16 decode kernel folds
+
+
 def decode_split_plan(B: int, KV: int, P: int, sms: int,
                       resident: int) -> int:
     """Splits per (row, kv head), from host-known shapes only (so a CUDA
     graph can capture the call): as many as fill one wave of the card's
-    ``sms * resident`` resident blocks, at most one per page-table entry,
-    and 1 once the rows x kv heads alone fill the wave."""
+    ``sms * resident`` resident blocks, at most one per page-table entry
+    (and :data:`MAX_SPLITS`), and 1 once the rows x kv heads alone fill
+    the wave."""
     slots = sms * max(resident, 1)
-    return max(1, min(P, slots // max(B * KV, 1)))
+    return max(1, min(P, MAX_SPLITS, slots // max(B * KV, 1)))
 
 
 def decode_split_ranges(length: int, lower: int, ps: int, P: int,
@@ -317,11 +323,31 @@ def _decode_launch_plan(q: torch.Tensor, k_pools: torch.Tensor,
     return route, splits
 
 
-def _partials(device, B: int, KV: int, splits: int, G: int, hd: int):
-    return (torch.empty((B, KV, splits, G, hd), dtype=torch.float32,
-                        device=device),
-            torch.empty((B, KV, splits, G, 2), dtype=torch.float32,
-                        device=device))
+_COUNTERS: Dict[int, torch.Tensor] = {}
+
+
+def _scratch(device, route: int, window: bool, B: int, KV: int, splits: int,
+             G: int, hd: int):
+    """(part_acc, part_ml, counters) of one decode call, None where the
+    call needs none: the bf16 kernel folds its splits and the window
+    itself and needs partials and arrival counters only when it splits;
+    the generic kernel hands partials to the combine kernel whenever it
+    splits or has a window. The counters are allocated zeroed once per
+    device (grown as needed), and every call leaves them zero."""
+    part_acc = part_ml = counters = None
+    if splits > 1 or (window and route == 0):
+        part_acc = torch.empty((B, KV, splits, G, hd), dtype=torch.float32,
+                               device=device)
+        part_ml = torch.empty((B, KV, splits, G, 2), dtype=torch.float32,
+                              device=device)
+    if route == 1 and splits > 1:
+        idx = _device_index(device)
+        counters = _COUNTERS.get(idx)
+        if counters is None or counters.numel() < B * KV:
+            counters = torch.zeros(max(B * KV, 1024), dtype=torch.int32,
+                                   device=device)
+            _COUNTERS[idx] = counters
+    return part_acc, part_ml, counters
 
 
 def paged_attention_decode_window(
@@ -380,14 +406,18 @@ def paged_attention_decode_window(
                                 start, q_pos, wk, wv, n_win, scale, softcap,
                                 eff_win)
     route, splits = _decode_launch_plan(q, k_pools, v_pools, B, P)
-    part_acc, part_ml = _partials(q.device, B, KV, splits, H // KV, hd)
+    part_acc, part_ml, counters = _scratch(q.device, route, True, B, KV,
+                                           splits, H // KV, hd)
     out = torch.empty_like(q)
     err = _lib().dyn_paged_attention_decode_window(
         route, _DTYPES[q.dtype], q.data_ptr(), k_pools.data_ptr(),
         v_pools.data_ptr(), layer, page_table.data_ptr(), start.data_ptr(),
         q_pos.data_ptr(), eff_win.data_ptr() if eff_win is not None else None,
         wk.data_ptr(), wv.data_ptr(), n_win, Kw, out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), B, H, KV, N, ps, hd, P,
+        part_acc.data_ptr() if part_acc is not None else None,
+        part_ml.data_ptr() if part_ml is not None else None,
+        counters.data_ptr() if counters is not None else None,
+        B, H, KV, N, ps, hd, P,
         splits, float(scale), float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
