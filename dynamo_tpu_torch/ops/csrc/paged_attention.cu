@@ -7,11 +7,11 @@
 // picks the route from the shape (the `route` argument; never retried):
 //
 //   route 1  paged_decode_bf16_kernel<hd>  bfloat16 at head_dim 64/128/256,
-//            page size 16/32/64/128, GQA groups 1-8 (the serving path)
+//            page size 16/32/64/128, GQA groups 1-8 (the llama3_8b and 1b
+//            presets: the serving path); one launch per call
 //   route 0  paged_decode_kernel<T>         float32, and bfloat16 shapes
-//            outside that set (CUDA-core FMAs from shared memory)
-//   both     paged_decode_combine<T>        folds the splits, and the fused
-//            decode window's in-flight keys, by their (m, l) stats
+//            + paged_decode_combine<T>      outside that set (CUDA-core FMAs
+//                                           from shared memory, PR 1)
 //
 // The prefill kernel (the TPU kernel _prefill_kernel) lives in
 // paged_prefill.cu.
@@ -24,11 +24,13 @@
 // visible K/V row once and does ~4 * G * hd operations per row of one kv
 // head: about 4 flops per byte of bf16 K/V at G = 4, far below the ~295
 // flops per byte where 989 TF/s would bind. It is bound by the bytes of
-// K/V, at 3.35 TB/s, once enough bytes are in flight: ~24 KB per SM
-// (3.35 TB/s x ~1 us of latency / 132 SMs). The kernel of PR 1 was not:
-// each page went through scores, a softmax and P V as block-wide phases
-// with a barrier between, ~10^3 scalar instructions per thread per page,
-// so it was bound by issued instructions (22% of the bound at 32 rows).
+// K/V, at 3.35 TB/s, once enough bytes are in flight (~24 KB per SM:
+// 3.35 TB/s x ~1 us of latency / 132 SMs); a call with little K/V (a few
+// short rows) is bound by its chain of dependent memory round trips and
+// the launch. The generic kernel is bound by neither: each page goes
+// through scores, a softmax and P V as block-wide phases with a barrier
+// between, ~10^3 scalar instructions per thread per page, so it is bound
+// by issued instructions (22% of the bound at 32 rows of 520 positions).
 //
 // What the bf16 design (route 1) does about it:
 // * No block-wide barrier in the key loop. A block works for one (row, kv
@@ -51,14 +53,21 @@
 //   conflicts). Completion is tracked per stage by an mbarrier that each
 //   lane's cp.async arrives on (cp.async.mbarrier.arrive.noinc); a warp
 //   waits on its own barriers only. Two blocks of 96 KB share an SM at
-//   head_dim 128: up to 192 KB in flight per SM.
+//   head_dim 128 (162 registers a thread): up to 192 KB in flight per SM.
+//   2 or 4 stages measured no faster (PERF.md, PR 4).
 // * The split plan (ops/paged_attention.py decode_split_plan) comes from
 //   host-known shapes only: rows x kv heads, the page-table width, the SM
 //   count and this kernel's resident blocks per SM
 //   (dyn_paged_decode_resident), so that one wave fills the card. A split
 //   takes a near-equal contiguous share of the row's visible pages and is
 //   empty only when the row has fewer pages than splits; an empty split
-//   with partials to write exits at once, and the combine skips it.
+//   exits at once.
+// * One launch. With two or more live splits, each writes its partial
+//   (unnormalized output, m, l) and arrives on a counter per (row, kv
+//   head); the last to arrive folds the partials and the fused window's
+//   in-flight keys into the output and resets the counter, so no host
+//   memset is needed and a CUDA graph can replay the call. A row held by
+//   one block folds its own result and writes no partial.
 // * Pages outside [lower, length) are never read, and a page id outside
 //   the pool is skipped, as the TPU kernel's clamp does.
 //
