@@ -67,7 +67,9 @@
 //   head); the last to arrive folds the partials and the fused window's
 //   in-flight keys into the output and resets the counter, so no host
 //   memset is needed and a CUDA graph can replay the call. A row held by
-//   one block folds its own result and writes no partial.
+//   one block folds its own result and writes no partial. Every block
+//   scores the window keys and stages their V rows at its start, where
+//   those loads overlap the first stages', not after the arrival.
 // * Pages outside [lower, length) are never read, and a page id outside
 //   the pool is skipped, as the TPU kernel's clamp does.
 //
@@ -381,14 +383,16 @@ template <int HD> struct DecodeTile {
   static constexpr int RING_BYTES = DB_WARPS * DB_STAGES * STAGE_BYTES;
   // the end-of-loop merge and fold reuse the rings, in float32: each
   // warp's output fragment [MAX_G, HD], its (m, l) and weight; then the
-  // sources' (m, l) and weights [MAX_SPLITS, MAX_G], the window slots'
-  // scores [MAX_G, MAX_KW], the heads' sums and the last-block flag
+  // sources' (m, l) and weights [MAX_SPLITS, MAX_G], the heads' sums and
+  // the last-block flag
   static constexpr int MERGE_BYTES =
       4 * (DB_WARPS * MAX_G * HD + 3 * DB_WARPS * MAX_G +
-           3 * MAX_SPLITS * MAX_G + MAX_G * MAX_KW + MAX_G + 1);
-  static constexpr int SMEM =
-      (RING_BYTES > MERGE_BYTES ? RING_BYTES : MERGE_BYTES) +
-      DB_WARPS * DB_STAGES * 8;
+           3 * MAX_SPLITS * MAX_G + MAX_G + 1);
+  static constexpr int WIN_OFFSET = RING_BYTES > MERGE_BYTES ? RING_BYTES : MERGE_BYTES;
+  // the window's V rows of the block's kv head [MAX_KW, HD] (bf16) and
+  // the slots' scores, then weights, [MAX_G, MAX_KW] (float32)
+  static constexpr int WIN_BYTES = MAX_KW * HD * 2 + 4 * MAX_G * MAX_KW;
+  static constexpr int SMEM = WIN_OFFSET + WIN_BYTES + DB_WARPS * DB_STAGES * 8;
 };
 
 // Byte offset of 16-byte chunk c of row r in a [DB_KB, HD] bf16 tile:
@@ -526,6 +530,49 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < DB_STAGES - 1; ++i)
     if (i < nblk) issue(i);
 
+  // the fused window's in-flight keys, early, so that their loads overlap
+  // the first stages': slot w holds position start + w, visible when w <
+  // n_win, start >= 0 and start + w > q_pos - eff_win (the merge of
+  // dynamo_tpu/models/llama.py:981-1006). Each slot's score per head (one
+  // thread per (head, slot), 16-byte loads), and the slots' V rows of this
+  // kv head into shared memory (waited for before the fold).
+  const int nw = wk != nullptr ? Kw : 0;
+  __nv_bfloat16* wv_s = reinterpret_cast<__nv_bfloat16*>(smem + Tile::WIN_OFFSET);
+  float* wsc_s = reinterpret_cast<float*>(wv_s + MAX_KW * HD);  // [MAX_G][MAX_KW]
+  if (nw > 0) {
+    for (int c = tid; c < nw * CH; c += DB_THREADS) {
+      const int w = c / CH, cc = c - w * CH;
+      cp_async16(wv_s + w * HD + cc * 8,
+                 wv + (((long long)b * Kw + w) * KV + kv) * HD + cc * 8);
+    }
+    const int st = start[b];
+    const int floor_pos = eff_win != nullptr ? q_pos[b] - eff_win[b] : INT_MIN;
+    for (int pair = tid; pair < G * nw; pair += DB_THREADS) {
+      const int gi = pair / nw, w = pair - gi * nw;
+      float sc = -INFINITY;  // weighs exactly 0 in the fold
+      if (w < n_win && st >= 0 && st + w > floor_pos) {
+        const uint4* qr = reinterpret_cast<const uint4*>(
+            q + ((long long)b * H + kv * G + gi) * HD);
+        const uint4* kr = reinterpret_cast<const uint4*>(
+            wk + (((long long)b * Kw + w) * KV + kv) * HD);
+        float dot = 0.f;
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          const uint4 qa4 = qr[c], ka4 = kr[c];
+          const __nv_bfloat162* qh = reinterpret_cast<const __nv_bfloat162*>(&qa4);
+          const __nv_bfloat162* kh = reinterpret_cast<const __nv_bfloat162*>(&ka4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = __bfloat1622float2(qh[e]), y = __bfloat1622float2(kh[e]);
+            dot += x.x * y.x + x.y * y.y;
+          }
+        }
+        sc = cap(dot * scale, softcap);
+      }
+      wsc_s[gi * MAX_KW + w] = sc;
+    }
+  }
+
   // Q of head g as the A operand (rows 0-7; a row past G is zero)
   uint32_t qa[HD / 16][2];
   {
@@ -619,8 +666,7 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   float* w_s = ml_s + 2 * DB_WARPS * MAX_G;        // [DB_WARPS][MAX_G]
   float* fm_s = w_s + DB_WARPS * MAX_G;            // [MAX_SPLITS][MAX_G][2]
   float* fw_s = fm_s + 2 * MAX_SPLITS * MAX_G;     // [MAX_SPLITS][MAX_G]
-  float* win_s = fw_s + MAX_SPLITS * MAX_G;        // [MAX_G][MAX_KW]
-  float* L_s = win_s + MAX_G * MAX_KW;             // [MAX_G]
+  float* L_s = fw_s + MAX_SPLITS * MAX_G;          // [MAX_G]
   int* last_s = reinterpret_cast<int*>(L_s + MAX_G);
   if (g < G) {
     float* orow = o_s + (warp * MAX_G + g) * HD + 2 * qd;
@@ -688,35 +734,14 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     n_src = S;
   }
 
-  // the fused window's in-flight keys: slot w holds position start + w,
-  // visible when w < n_win, start >= 0 and start + w > q_pos - eff_win
-  // (the merge of dynamo_tpu/models/llama.py:981-1006); one warp per
-  // (head, slot), lanes split head_dim
-  const int nw = wk != nullptr ? Kw : 0;
-  if (nw > 0) {
-    const int st = start[b];
-    const int floor_pos = eff_win != nullptr ? q_pos[b] - eff_win[b] : INT_MIN;
-    for (int pair = warp; pair < G * nw; pair += DB_WARPS) {
-      const int gi = pair / nw, w = pair - gi * nw;
-      const bool vis = w < n_win && st >= 0 && st + w > floor_pos;
-      float sc = -INFINITY;  // weighs exactly 0 below
-      if (vis) {  // uniform across the warp
-        const __nv_bfloat16* qg = q + ((long long)b * H + kv * G + gi) * HD;
-        const __nv_bfloat16* kw = wk + (((long long)b * Kw + w) * KV + kv) * HD;
-        float dot = 0.f;
-        for (int d = lane; d < HD; d += 32)
-          dot += __bfloat162float(qg[d]) * __bfloat162float(kw[d]);
-        sc = cap(warp_sum(dot) * scale, softcap);
-      }
-      if (lane == 0) win_s[gi * MAX_KW + w] = sc;
-    }
-  }
+  // the window's V rows have landed (the ring's copies were all consumed)
+  if (nw > 0) asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
   // per head: the joint max, each source's and slot's weight, the sum
   if (tid < G) {
     float M = NEG_INF;
     for (int s = 0; s < n_src; ++s) M = fmaxf(M, fm_s[(s * G + tid) * 2]);
-    for (int w = 0; w < nw; ++w) M = fmaxf(M, win_s[tid * MAX_KW + w]);
+    for (int w = 0; w < nw; ++w) M = fmaxf(M, wsc_s[tid * MAX_KW + w]);
     float L = 0.f;
     for (int s = 0; s < n_src; ++s) {
       const float e = exp2f((fm_s[(s * G + tid) * 2] - M) * LOG2E);
@@ -724,8 +749,8 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       L += e * fm_s[(s * G + tid) * 2 + 1];
     }
     for (int w = 0; w < nw; ++w) {
-      const float e = exp2f((win_s[tid * MAX_KW + w] - M) * LOG2E);
-      win_s[tid * MAX_KW + w] = e;
+      const float e = exp2f((wsc_s[tid * MAX_KW + w] - M) * LOG2E);
+      wsc_s[tid * MAX_KW + w] = e;
       L += e;
     }
     L_s[tid] = L;
@@ -753,8 +778,7 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     for (int w = 0; w < nw; ++w)
-      a += win_s[gi * MAX_KW + w] *
-           __bfloat162float(wv[(((long long)b * Kw + w) * KV + kv) * HD + d]);
+      a += wsc_s[gi * MAX_KW + w] * __bfloat162float(wv_s[w * HD + d]);
     out[obase + i] = __float2bfloat16(a / fmaxf(L_s[gi], 1e-9f));
   }
 }
