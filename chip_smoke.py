@@ -49,9 +49,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores
-# the decode kernel of each route (ops.paged_attention.decode_route)
+# the decode kernels of each route (ops.paged_attention.decode_route)
 DECODE_KERNELS = {"bf16_mma": "paged_decode_bf16_kernel",
-                  "generic": "paged_decode_kernel"}
+                  "generic": "paged_decode_kernel + paged_decode_combine"}
 
 
 def fail(msg: str) -> None:
@@ -719,9 +719,9 @@ def time_kernels(engine, cfg, dev, served) -> list:
         "source": "dynamo_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "dynamo_tpu/ops/paged_attention.py:52",
         # the kernels that served the 8B path (decode_route)
-        "kernel": " + ".join(
-            [DECODE_KERNELS[r] for r, n in served["route_launches"].items()
-             if n > 0] + ["paged_decode_combine"]),
+        "kernel": " and ".join(
+            DECODE_KERNELS[r] for r, n in served["route_launches"].items()
+            if n > 0),
         "launches": served["launches"]["paged_attention_decode"],
         "route_launches": served["route_launches"],
         **dec, "shapes": shapes,
@@ -791,6 +791,7 @@ def time_kernels(engine, cfg, dev, served) -> list:
         "name": "paged_attention_prefill", "route": "cuda",
         "source": "dynamo_tpu_torch/ops/csrc/paged_prefill.cu",
         "replaces": "dynamo_tpu/ops/paged_attention.py:336",
+        "kernel": "paged_prefill_bf16_kernel",
         "launches": served["launches"]["paged_attention_prefill"],
         **first, "deep_chunk": deep,
     })
@@ -892,8 +893,9 @@ def main() -> None:
                        "prefill_errs": {" ".join(k): v
                                         for k, v in pf_errs.items()},
                        "seconds": time.monotonic() - t_start}, f, indent=1)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "kernel", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

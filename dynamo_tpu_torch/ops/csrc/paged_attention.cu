@@ -787,8 +787,8 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 // The generic route's second kernel. grid (B, KV); dynamic shared
 // (2 * Kw + S + 1) * G floats. Folds the S splits' partials of each (row,
 // kv head) into the output and the stats: rescale each split to the joint
-// max, normalize once. A split with no pages (split_pages) is skipped,
-// and an all-masked one has m = NEG_INF, l = 0 and adds nothing. With a window buffer (wk != null)
+// max, normalize once; an all-masked or empty split has m = NEG_INF,
+// l = 0 and adds nothing. With a window buffer (wk != null)
 // it also scores the fused decode window's in-flight keys — slot w holds
 // position start + w, visible when w < n_win, start >= 0 and
 // start + w > q_pos - eff_win — and folds them in the same sum (the
@@ -799,9 +799,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
 paged_decode_combine(const float* __restrict__ part_acc,
                      const float* __restrict__ part_ml, T* __restrict__ out,
                      float* __restrict__ m_out, float* __restrict__ l_out,
-                     int H, int KV, int S, int hd, int ps, int P,
-                     const int* __restrict__ lengths,
-                     const int* __restrict__ lower, const T* __restrict__ q,
+                     int H, int KV, int S, int hd, const T* __restrict__ q,
                      const T* __restrict__ wk, const T* __restrict__ wv,
                      const int* __restrict__ start,
                      const int* __restrict__ q_pos,
@@ -836,28 +834,20 @@ paged_decode_combine(const float* __restrict__ part_acc,
     }
     __syncthreads();
   }
-  int len, lo;
-  row_extent(b, lengths, lower, start, q_pos, eff_win, len, lo);
   // per head: the joint max, each split's and slot's weight, the sum
-  float* w_s = vis_s + G * nw;  // split weights [S*G] (0: skipped)
+  float* w_s = vis_s + G * nw;  // split weights [S*G]
   float* l_sum = w_s + S * G;   // [G]
   for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    int p0;
     float M = NEG_INF;
-    for (int s = 0; s < S; ++s)
-      if (split_pages(len, lo, ps, P, S, s, p0) > 0)
-        M = fmaxf(M, part_ml[(base + s * G + g) * 2]);
+    for (int s = 0; s < S; ++s) M = fmaxf(M, part_ml[(base + s * G + g) * 2]);
     for (int w = 0; w < nw; ++w)
       if (vis_s[g * nw + w] != 0.f) M = fmaxf(M, win_s[g * nw + w]);
     float L = 0.f;
     for (int s = 0; s < S; ++s) {
       const long long r = base + s * G + g;
-      float e = 0.f;
-      if (split_pages(len, lo, ps, P, S, s, p0) > 0) {
-        e = expf(part_ml[r * 2] - M);
-        L += e * part_ml[r * 2 + 1];
-      }
+      const float e = expf(part_ml[r * 2] - M);
       w_s[s * G + g] = e;
+      L += e * part_ml[r * 2 + 1];
     }
     for (int w = 0; w < nw; ++w) {
       const float e = vis_s[g * nw + w] != 0.f ? expf(win_s[g * nw + w] - M) : 0.f;
@@ -874,12 +864,8 @@ paged_decode_combine(const float* __restrict__ part_acc,
   for (int i = threadIdx.x; i < G * hd; i += blockDim.x) {
     const int g = i / hd, d = i - g * hd;
     float a = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float e = w_s[s * G + g];
-      // a skipped split's partials were never written (a live split whose
-      // weight underflows to 0 adds 0 either way)
-      if (e != 0.f) a += e * part_acc[(base + s * G + g) * hd + d];
-    }
+    for (int s = 0; s < S; ++s)
+      a += w_s[s * G + g] * part_acc[(base + s * G + g) * hd + d];
     for (int w = 0; w < nw; ++w)
       a += win_s[g * nw + w] *
            to_f(wv[(((long long)b * Kw + w) * KV + kv) * hd + d]);
@@ -927,8 +913,8 @@ int launch_combine(const DecodeArgs& a, const Window& win, cudaStream_t st) {
                             sizeof(float) * (a.H / a.KV) * (2 * nw + a.splits + 1),
                             st>>>(
       a.part_acc, a.part_ml, static_cast<T*>(a.out), a.m_out, a.l_out, a.H,
-      a.KV, a.splits, a.hd, a.ps, a.P, a.lengths, a.lower,
-      static_cast<const T*>(a.q), static_cast<const T*>(win.wk),
+      a.KV, a.splits, a.hd, static_cast<const T*>(a.q),
+      static_cast<const T*>(win.wk),
       static_cast<const T*>(win.wv), win.start, win.q_pos, win.eff_win,
       win.n_win, win.Kw, a.scale, a.softcap);
   return (int)cudaGetLastError();

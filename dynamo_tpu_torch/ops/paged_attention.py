@@ -406,7 +406,7 @@ def paged_attention_decode_window(
                                 start, q_pos, wk, wv, n_win, scale, softcap,
                                 eff_win)
     route, splits = _decode_launch_plan(q, k_pools, v_pools, B, P)
-    _check(all(t.data_ptr() % 16 == 0 for t in (q, wk, wv)),
+    _check(route == 0 or all(t.data_ptr() % 16 == 0 for t in (q, wk, wv)),
            "q, wk and wv must be 16-byte aligned (16-byte loads)")
     part_acc, part_ml, counters = _scratch(q.device, route, True, B, KV,
                                            splits, H // KV, hd)
