@@ -11,7 +11,7 @@
 //            presets: the serving path); one launch per call
 //   route 0  paged_decode_kernel<T>         float32, and bfloat16 shapes
 //            + paged_decode_combine<T>      outside that set (CUDA-core FMAs
-//                                           from shared memory, PR 1)
+//                                           from shared memory)
 //
 // The prefill kernel (the TPU kernel _prefill_kernel) lives in
 // paged_prefill.cu.
@@ -54,7 +54,7 @@
 //   lane's cp.async arrives on (cp.async.mbarrier.arrive.noinc); a warp
 //   waits on its own barriers only. Two blocks of 96 KB share an SM at
 //   head_dim 128 (162 registers a thread): up to 192 KB in flight per SM.
-//   2 or 4 stages measured no faster (PERF.md, PR 4).
+//   2 or 4 stages measured no faster on an H100 (PERF.md, Findings).
 // * The split plan (ops/paged_attention.py decode_split_plan) comes from
 //   host-known shapes only: rows x kv heads, the page-table width, the SM
 //   count and this kernel's resident blocks per SM
