@@ -52,8 +52,9 @@
 //   chunks are XOR-swizzled by row % 8 (ldmatrix reads free of bank
 //   conflicts). Completion is tracked per stage by an mbarrier that each
 //   lane's cp.async arrives on (cp.async.mbarrier.arrive.noinc); a warp
-//   waits on its own barriers only. Two blocks of 96 KB share an SM at
-//   head_dim 128 (162 registers a thread): up to 192 KB in flight per SM.
+//   waits on its own barriers only. Two blocks of 103,008 B share an SM
+//   at head_dim 128 (160 registers a thread, no spills): up to 192 KB of
+//   stages in flight per SM.
 //   2 or 4 stages measured no faster on an H100 (PERF.md, Findings).
 // * The split plan (ops/paged_attention.py decode_split_plan) comes from
 //   host-known shapes only: rows x kv heads, the page-table width, the SM
@@ -66,7 +67,9 @@
 //   (unnormalized output, m, l) and arrives on a counter per (row, kv
 //   head); the last to arrive folds the partials and the fused window's
 //   in-flight keys into the output and resets the counter, so no host
-//   memset is needed and a CUDA graph can replay the call. A row held by
+//   memset is needed and a CUDA graph can replay the call. The wrapper
+//   gives each stream its own counters, so calls on two streams never
+//   count each other's arrivals. A row held by
 //   one block folds its own result and writes no partial. Every block
 //   scores the window keys and stages their V rows at its start, where
 //   those loads overlap the first stages', not after the arrival.
@@ -114,8 +117,7 @@ __device__ __forceinline__ void row_extent(int b, const int* lengths,
 
 // The pages [p_begin, p_begin + n) of split `split` of S: the row's pages
 // that cover [lo, len), cut into S near-equal contiguous shares (a split
-// is empty only when the row has fewer pages than splits). Mirrored by
-// decode_split_ranges in ops/paged_attention.py.
+// is empty only when the row has fewer pages than splits).
 __device__ __forceinline__ int split_pages(int len, int lo, int ps, int P,
                                            int S, int split, int& p_begin) {
   const int row_begin = lo > 0 ? lo / ps : 0;
@@ -957,6 +959,9 @@ int launch_bf16(const DecodeArgs& a, const Window& win, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The bf16 kernel's shapes; the wrapper's DECODE_BF16_* (and
+// DECODE_MAX_SPLITS for MAX_SPLITS) list the same, and
+// tests/test_torch_kernels.py holds the two against each other.
 bool bf16_shape(int H, int KV, int ps, int hd) {
   const int G = KV > 0 ? H / KV : 0;
   return G >= 1 && G <= MAX_G && (hd == 64 || hd == 128 || hd == 256) &&

@@ -42,7 +42,7 @@ counts the same calls by route.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -62,6 +62,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PREFILL_BF16_HEAD_DIMS = (64, 128, 256)
 PREFILL_BF16_PAGE_SIZES = (16, 32, 64, 128)
 PREFILL_BF16_MAX_GROUP = 8
+# shapes and splits the bfloat16 decode kernel is built for (bf16_shape
+# and MAX_SPLITS in csrc/paged_attention.cu, which refuses any other;
+# tests/test_torch_kernels.py holds the two sides against each other)
+DECODE_BF16_HEAD_DIMS = (64, 128, 256)
+DECODE_BF16_PAGE_SIZES = (16, 32, 64, 128)
+DECODE_BF16_MAX_GROUP = 8
+DECODE_MAX_SPLITS = 128
+# (row, kv head) arrival counters of one stream's bf16 decode calls
+DECODE_MAX_ROW_HEADS = 1 << 16
 
 
 def reset_launch_counts() -> None:
@@ -267,15 +276,12 @@ def paged_attention_decode_layered(
 def decode_route(dtype: torch.dtype, H: int, KV: int, ps: int,
                  hd: int) -> int:
     """The decode kernel a shape runs on, by shape alone: 1 (``bf16_mma``,
-    ``paged_decode_bf16_kernel``) for bfloat16 at the bf16 kernels' head
-    dims, page sizes and GQA groups, else 0 (``generic``,
+    ``paged_decode_bf16_kernel``) for bfloat16 at the ``DECODE_BF16_*``
+    head dims, page sizes and GQA groups, else 0 (``generic``,
     ``paged_decode_kernel``)."""
-    return int(dtype == torch.bfloat16 and hd in PREFILL_BF16_HEAD_DIMS
-               and ps in PREFILL_BF16_PAGE_SIZES
-               and H // KV <= PREFILL_BF16_MAX_GROUP)
-
-
-MAX_SPLITS = 128  # the most splits the bf16 decode kernel folds
+    return int(dtype == torch.bfloat16 and hd in DECODE_BF16_HEAD_DIMS
+               and ps in DECODE_BF16_PAGE_SIZES
+               and H // KV <= DECODE_BF16_MAX_GROUP)
 
 
 def decode_split_plan(B: int, KV: int, P: int, sms: int,
@@ -283,23 +289,12 @@ def decode_split_plan(B: int, KV: int, P: int, sms: int,
     """Splits per (row, kv head), from host-known shapes only (so a CUDA
     graph can capture the call): as many as fill one wave of the card's
     ``sms * resident`` resident blocks, at most one per page-table entry
-    (and :data:`MAX_SPLITS`), and 1 once the rows x kv heads alone fill
-    the wave."""
+    (and :data:`DECODE_MAX_SPLITS`), and 1 once the rows x kv heads alone
+    fill the wave. The kernels cut a row's visible pages into that many
+    near-equal contiguous shares (``split_pages`` in
+    csrc/paged_attention.cu)."""
     slots = sms * max(resident, 1)
-    return max(1, min(P, MAX_SPLITS, slots // max(B * KV, 1)))
-
-
-def decode_split_ranges(length: int, lower: int, ps: int, P: int,
-                        splits: int) -> List[Tuple[int, int]]:
-    """``(first page, pages)`` of each split of one row, as the kernels
-    cut it (``split_pages`` in csrc/paged_attention.cu): the pages that
-    cover ``[lower, length)``, in near-equal contiguous shares; a split is
-    empty only when the row has fewer pages than splits."""
-    begin = lower // ps if lower > 0 else 0
-    end = min(-(-length // ps), P) if length > 0 else 0
-    n = max(end - begin, 0)
-    return [(begin + n * s // splits,
-             n * (s + 1) // splits - n * s // splits) for s in range(splits)]
+    return max(1, min(P, DECODE_MAX_SPLITS, slots // max(B * KV, 1)))
 
 
 def _decode_launch_plan(q: torch.Tensor, k_pools: torch.Tensor,
@@ -323,17 +318,42 @@ def _decode_launch_plan(q: torch.Tensor, k_pools: torch.Tensor,
     return route, splits
 
 
-_COUNTERS: Dict[int, torch.Tensor] = {}
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device, B: int, KV: int) -> torch.Tensor:
+    """The bf16 route's arrival counters for calls on the current stream:
+    one buffer per (device, stream) of :data:`DECODE_MAX_ROW_HEADS`,
+    allocated zeroed at the stream's first splitting call and never
+    replaced, so calls in flight on two streams never count each other's
+    arrivals and a captured CUDA graph keeps a live pointer. Calls on one
+    stream run in order, and each leaves the counters zero. A stream is
+    called once before a graph captures it (the usual warm-up): the
+    buffer is not made inside a capture."""
+    _check(B * KV <= DECODE_MAX_ROW_HEADS,
+           f"bf16 decode takes rows x kv heads up to {DECODE_MAX_ROW_HEADS} "
+           f"(got {B} x {KV})")
+    key = (_device_index(device),
+           torch.cuda.current_stream(device).cuda_stream)
+    counters = _COUNTERS.get(key)
+    if counters is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("bf16 decode: call once on this stream before "
+                               "capturing it (its arrival counters are made "
+                               "at its first call)")
+        counters = torch.zeros(DECODE_MAX_ROW_HEADS, dtype=torch.int32,
+                               device=device)
+        _COUNTERS[key] = counters
+    return counters
 
 
 def _scratch(device, route: int, window: bool, B: int, KV: int, splits: int,
              G: int, hd: int):
     """(part_acc, part_ml, counters) of one decode call, None where the
     call needs none: the bf16 kernel folds its splits and the window
-    itself and needs partials and arrival counters only when it splits;
-    the generic kernel hands partials to the combine kernel whenever it
-    splits or has a window. The counters are allocated zeroed once per
-    device (grown as needed), and every call leaves them zero."""
+    itself and needs partials and arrival counters (:func:`_counters`)
+    only when it splits; the generic kernel hands partials to the combine
+    kernel whenever it splits or has a window."""
     part_acc = part_ml = counters = None
     if splits > 1 or (window and route == 0):
         part_acc = torch.empty((B, KV, splits, G, hd), dtype=torch.float32,
@@ -341,12 +361,7 @@ def _scratch(device, route: int, window: bool, B: int, KV: int, splits: int,
         part_ml = torch.empty((B, KV, splits, G, 2), dtype=torch.float32,
                               device=device)
     if route == 1 and splits > 1:
-        idx = _device_index(device)
-        counters = _COUNTERS.get(idx)
-        if counters is None or counters.numel() < B * KV:
-            counters = torch.zeros(max(B * KV, 1024), dtype=torch.int32,
-                                   device=device)
-            _COUNTERS[idx] = counters
+        counters = _counters(device, B, KV)
     return part_acc, part_ml, counters
 
 

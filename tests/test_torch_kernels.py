@@ -9,7 +9,9 @@ The file imports nothing of JAX, so it runs on a machine without it:
 Tolerances: atol 1e-5 in float32 (same math, another summation order);
 atol 2e-2 + rtol 1e-2 in bfloat16 (one or two bf16 roundings of the
 output at any magnitude; the bf16 prefill kernel also rounds the
-probabilities to bf16 before P V)."""
+probabilities to bf16 before P V). Over rows of thousands of keys, where
+the outputs are as small as that tolerance, the bf16 decode kernel is
+also held to a tenth of the reference's rms."""
 
 import numpy as np
 import pytest
@@ -273,7 +275,12 @@ def test_cuda_bf16_decode_kernel_matches_plain(cuda_device, G, hd, ps):
 def test_cuda_bf16_decode_long_rows(cuda_device, rows):
     """Rows of 40 to 62 pages at the 8B widths: at 3 rows each row's pages
     are split over about 11 blocks, at 24 rows the rows x kv heads fill
-    most of the card and each block walks every page of its row."""
+    most of the card and each block walks every page of its row.
+
+    Over 2,560+ keys the outputs are small (rms ~0.03), so the bf16
+    tolerance alone would pass a kernel that lost a 16-key block per row:
+    the output is also held to a tenth of the reference's rms, which the
+    reference one 16-key block short (``lower + 16``) exceeds."""
     rng = np.random.RandomState(5)
     lengths = [int(x) for x in rng.randint(40 * 64, 62 * 64, rows)]
     lower = [0] * (rows - 1) + [1000]
@@ -283,6 +290,74 @@ def test_cuda_bf16_decode_long_rows(cuda_device, rows):
     # the arrival counters are left at zero: a second call folds alike
     again = _decode_check(cuda_device, q, kp, vp, table, lengths, lower)
     assert torch.equal(first, again)
+    ln, lo = (torch.tensor(x, dtype=torch.int32) for x in (lengths, lower))
+    want = paged_attention_decode_layered(q, kp, vp, 0, table, ln,
+                                          lower=lo).float()
+    short = paged_attention_decode_layered(q, kp, vp, 0, table, ln,
+                                           lower=lo + 16).float()
+    limit = 0.1 * float(want.pow(2).mean().sqrt())
+    assert float((first.float() - want).abs().max()) <= limit
+    assert float((first.float() - short).abs().max()) > limit
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_decode_streams_keep_their_own_counters(cuda_device):
+    """Splitting bf16 calls in flight on two streams at once: each stream
+    has its own arrival counters, so both fold all their partials."""
+    lengths = [3000, 2600, 3900]
+    q, kp, vp, table = _decode_pool(4, 128, 64, [-(-n // 64) for n in lengths],
+                                    KV=8, L=1)
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    want = paged_attention_decode_layered(q, kp, vp, 0, table, ln)
+    d = cuda_device
+    args = [t.to(d) for t in (q, kp, vp, table, ln)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:  # each stream's first call makes its counters
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            paged_attention_decode_layered(args[0], args[1], args[2], 0,
+                                           *args[3:])
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for s, out in zip(streams, outs):
+            with torch.cuda.stream(s):
+                out.append(paged_attention_decode_layered(
+                    args[0], args[1], args[2], 0, *args[3:]))
+    torch.cuda.synchronize()
+    for out in outs:
+        for got in out:
+            np.testing.assert_allclose(_np(got.cpu()), _np(want), rtol=0,
+                                       atol=0.1 * float(want.float().pow(2)
+                                                        .mean().sqrt()))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_bf16_shape_set_matches_the_kernel(cuda_device):
+    """The wrapper's bf16 decode set (decode_route, DECODE_MAX_SPLITS) is
+    the set the C side takes on route 1: shapes inside get an occupancy
+    answer, shapes outside are refused, and so is a split count past
+    DECODE_MAX_SPLITS."""
+    import ctypes
+
+    lib = ops._lib()
+    blocks = ctypes.c_int(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in (32, 64, 96, 128, 256, 512):
+            for ps in (8, 16, 32, 48, 64, 128, 256):
+                for G in (1, 3, 8, 9):
+                    route = ops.decode_route(dtype, 2 * G, 2, ps, hd)
+                    err = lib.dyn_paged_decode_resident(
+                        1, ops._DTYPES[dtype], 2 * G, 2, ps, hd,
+                        ctypes.byref(blocks))
+                    assert (err == 0) == (route == 1), (dtype, hd, ps, G)
+    scratch = torch.zeros(16, device=cuda_device).data_ptr()
+    for splits in (ops.DECODE_MAX_SPLITS, ops.DECODE_MAX_SPLITS + 1):
+        # B = 0: the entry checks its arguments and launches nothing
+        err = lib.dyn_paged_attention_decode(
+            1, 1, *[scratch] * 3, 0, *[scratch] * 9, 0, 8, 2, 4, 64, 128, 256,
+            splits, 1.0, 0.0, torch.cuda.current_stream().cuda_stream)
+        assert (err == 0) == (splits == ops.DECODE_MAX_SPLITS)
 
 
 @pytest.mark.cuda

@@ -385,29 +385,21 @@ def test_decode_work_counts_the_mask(case):
 def test_decode_split_plan_covers_every_page_once(B, KV, P, resident):
     """The split plan from host-known shapes: the grid stays within one
     wave of resident blocks (or is one block per (row, kv head) when those
-    alone pass it), and the splits of every row cover its visible pages
-    exactly once, empty only when the row has fewer pages than splits."""
-    sms, ps = 132, 64
+    alone pass it), a wave with room gets more splits, and there are never
+    more splits than page-table entries, so every split of a full row has
+    a page. That the kernel's cut of a row into these splits covers each
+    page once is checked on the card (tests/test_torch_kernels.py: rows
+    with more pages than splits and with fewer, held to a limit that a
+    row one 16-key block short exceeds)."""
+    sms = 132
     S = ops.decode_split_plan(B, KV, P, sms, resident)
     slots = sms * resident
-    assert 1 <= S <= min(P, ops.MAX_SPLITS)
+    assert 1 <= S <= min(P, ops.DECODE_MAX_SPLITS)
     assert B * KV * S <= max(slots, B * KV)
     if B * KV * 2 <= slots and P >= 2:
         assert S >= 2  # a wave with room for more splits gets them
-    rng = np.random.RandomState(13)
-    for length in [0, 1, 63, 64, 65, 640, P * ps, P * ps + 100,
-                   *rng.randint(1, P * ps, 20)]:
-        for lower in sorted({0, 1, 64, int(length) // 2, int(length)}):
-            if lower > length:
-                continue
-            ranges = ops.decode_split_ranges(int(length), lower, ps, P, S)
-            assert len(ranges) == S
-            covered = [p for first, n in ranges for p in range(first, first + n)]
-            want = list(range(lower // ps, min(-(-int(length) // ps), P)))
-            assert covered == want  # in order, each page once
-            empty = sum(n == 0 for _, n in ranges)
-            assert empty == max(S - len(want), 0)
-            assert max(n for _, n in ranges) - min(n for _, n in ranges) <= 1
+    if S < min(P, ops.DECODE_MAX_SPLITS):  # the wave, not P, set S:
+        assert B * KV * 2 * S > slots      # no half of it left idle
 
 
 @pytest.mark.parametrize("dtype,hd,ps,G,route", [
