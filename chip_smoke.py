@@ -14,13 +14,20 @@ Phases; any failure exits non-zero before the result line:
    second chunk that skips pages, the fourth chunk of a 2048-token prompt;
 4. serve Llama-3-8B-shaped requests (32 layers at full width, random
    weights from a seed, byte tokenizer) over the OpenAI HTTP front end on
-   a local port: concurrent streaming and unary requests, then a repeated
-   greedy request that must give identical tokens; the launch counts of
-   both kernels, reset just before and read just after, must be above 0,
-   and every decode call must have taken the bf16 decode kernel;
-   then prefill and one teacher-forced decode window on the kernel path
-   against the plain path (logits of every step, K/V of every window
-   position), with two injected faults as controls that must fail it;
+   a local port, with pipelined decode windows, each one replay of the
+   CUDA graph warmup() captured for its (batch, page) bucket: every
+   bucket of the warmed grid must be captured, and serving must capture
+   none (post_warmup_compiles_total 0); concurrent streaming and unary
+   requests, then a repeated greedy request that must give identical
+   tokens; the launch counts of both kernels (replays count the launches
+   their capture recorded), reset just before and read just after, must
+   be above 0, and every decode call must have taken the bf16 decode
+   kernel; then prefill and one teacher-forced decode window on the
+   kernel path against the plain path (logits of every step, K/V of every
+   window position), with two injected faults as controls that must fail
+   it; then one 8B window by graph replay against the same window called
+   eagerly from the same inputs and pools (tokens, emitted counts and
+   carry identical, the written K/V within bf16 tolerance);
 5. time each kernel at the serving shapes beside its bound, its plain
    version and scaled_dot_product_attention on the same dense work, and
    hold it against its plain version there (bf16 tolerance): decode in
@@ -427,6 +434,10 @@ async def serve_and_check(engine, mdc):
     route_launches = dict(ops.DECODE_ROUTE_LAUNCHES)
     await svc.stop()
     await engine.stop()
+    compiles = engine.stats()["post_warmup_compiles_total"]
+    if compiles != 0:
+        fail(f"{compiles} decode graphs captured while serving (after "
+             f"warmup): a bucket outside the warmed grid")
 
     for rid, toks in tap.tokens.items():
         if not toks:
@@ -472,6 +483,10 @@ async def serve_and_check(engine, mdc):
         "output_tok_per_s": round(n_tok / wall, 3),
         "wall_s": round(wall, 3), "launches": launches,
         "route_launches": route_launches,
+        "post_warmup_compiles_total": compiles,
+        "decode_graphs": len(engine.graphs.buckets),
+        "graph_capture_s": round(engine.graphs.capture_seconds, 3),
+        "graph_pool_mib": round(engine.graphs.pool_bytes / 2**20, 1),
     }
     return served, tap
 
@@ -617,6 +632,90 @@ def check_paths(engine, cfg, dev) -> dict:
                  f"({got:.4g} <= {PATH_LIMITS[key]}): the check is blind")
     return {"sound": sound, "control": control, "magnitudes": scale,
             "limits": PATH_LIMITS}
+
+
+def check_graph_window(engine, cfg, dev) -> dict:
+    """One fused decode window of the served 8B engine by graph replay
+    (its warmed bucket of 4 rows x 64 pages) against the same window
+    called eagerly from the same inputs and pools: four rows prefilled to
+    40, 300, 500 and 12 positions, greedy rows and one sampled row (the
+    on-device draw runs inside the graph). Tokens, emitted counts and
+    carry must be identical, the K/V written at the window's positions
+    in every layer within bf16 tolerance (atol 2e-2 + rtol 1e-2)."""
+    import torch
+
+    from dynamo_tpu_torch.models.llama import DROP_SLOT
+
+    ecfg = engine.ecfg
+    ps, K, B, P, T = ecfg.page_size, ecfg.decode_steps, 4, 64, 512
+    lens = [40, 300, 500, 12]
+    g = torch.Generator(device="cpu").manual_seed(9)
+    tokens = torch.randint(0, 256, (B, T), generator=g, dtype=torch.int32)
+    positions = torch.full((B, T), -1, dtype=torch.int32)
+    table = torch.zeros((B, P), dtype=torch.int32)
+    slots = torch.full((B, T), DROP_SLOT, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        positions[b, :n] = torch.arange(n)
+        table[b, :10] = torch.arange(1 + 10 * b, 11 + 10 * b)
+        p = torch.arange(n)
+        slots[b, :n] = table[b, p // ps] * ps + p % ps
+    last = torch.tensor([n - 1 for n in lens], dtype=torch.int32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    graphs = engine.graphs
+    with graphs.stream_ctx():
+        logits, _, _ = engine.prefill_fn(
+            engine.params, tokens.to(dev), positions.to(dev), engine.kv_k,
+            engine.kv_v, table.to(dev), slots.to(dev), last.to(dev))
+        inputs = (
+            torch.argmax(logits, -1).to(torch.int32),
+            torch.tensor(lens, **i32), torch.zeros(B, dtype=torch.bool,
+                                                   device=dev),
+            torch.ones(B, **i32), torch.full((B,), 100, **i32),
+            table.to(dev), torch.tensor([0.0, 0.8, 0.0, 0.0], device=dev),
+            torch.tensor([0, 40, 0, 0], **i32),
+            torch.tensor([1.0, 0.95, 1.0, 1.0], device=dev),
+            torch.tensor([0, 7, 0, 0], dtype=torch.int64, device=dev),
+            torch.full((B, ecfg.max_eos_ids), -1, **i32))
+        kk0, vv0 = engine.kv_k.clone(), engine.kv_v.clone()
+
+        def written():
+            return torch.stack([
+                torch.stack([pool[:, int(table[b, (n + i) // ps]), :,
+                                  (n + i) % ps] for pool in
+                             (engine.kv_k, engine.kv_v)])
+                for b, n in enumerate(lens) for i in range(K)])
+
+        e_toks, e_n, e_carry, _, _ = engine.decode_multi_fn(
+            engine.params, *inputs[:5], engine.kv_k, engine.kv_v,
+            *inputs[5:], k_steps=K)
+        e_kv = written()
+        engine.kv_k.copy_(kk0)
+        engine.kv_v.copy_(vv0)
+        del kk0, vv0
+        bk = graphs.buckets[(B, P)]
+        statics = bk.carry_in + (bk.table, bk.temperature, bk.top_k,
+                                 bk.top_p, bk.seeds, bk.eos)
+        for dst, src in zip(statics, inputs):
+            dst.copy_(src)
+        graphs.launch(bk)
+        g_kv = written()
+    torch.cuda.synchronize()
+    same = {"toks": torch.equal(bk.toks, e_toks),
+            "emitted": torch.equal(bk.emitted, e_n),
+            "carry": all(torch.equal(a, b)
+                         for a, b in zip(bk.carry, e_carry))}
+    result = {**same, "kv_max_abs_err": max_err(g_kv, e_kv),
+              "kv_bitwise": torch.equal(g_kv, e_kv),
+              "kv_max_abs": float(e_kv.float().abs().max()),
+              "emitted_per_row": e_n.tolist(),
+              "tokens": e_toks.tolist()}
+    log(f"  graph replay vs eager window: {json.dumps(result)}")
+    if not all(same.values()):
+        fail(f"graph replay differs from the eager window: {same}")
+    if excess(g_kv, e_kv, 2e-2, 1e-2) > 0:
+        fail(f"graph replay K/V differs from the eager window: max abs err "
+             f"{result['kv_max_abs_err']:.4g}")
+    return result
 
 
 # ------------------------------------------------------------ timings
@@ -870,14 +969,26 @@ def main() -> None:
     t = time.monotonic()
     engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda")
     engine.warmup()
+    grid = engine.ecfg.warmed_grid()
+    want = {(B, P) for B in grid["decode_batches"]
+            for P in grid["page_buckets"]}
+    got = {k for k, bk in engine.graphs.buckets.items()
+           if bk.graph is not None}
     log(f"  8B engine (32 layers, D=4096, V=128256, bf16, seed 0) built and "
         f"warmed up in {time.monotonic() - t:.1f}s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; "
+        f"{len(got)} decode graphs captured in "
+        f"{engine.graphs.capture_seconds:.1f}s (warm call + capture each), "
+        f"graph pool {engine.graphs.pool_bytes / 2**20:.0f} MiB")
+    if got != want or len(engine.graphs.buckets) != len(want):
+        fail(f"decode graphs captured {sorted(got)} != the warmed grid "
+             f"{sorted(want)}")
     mdc = ModelDeploymentCard(name="llama3-8b-random")
     mdc.kv_block_size = engine.ecfg.page_size
     served, _ = asyncio.run(serve_and_check(engine, mdc))
     log(f"  served: {json.dumps(served)}")
     paths = check_paths(engine, cfg, dev)
+    graph_window = check_graph_window(engine, cfg, dev)
 
     log("phase 5: kernel timings at the serving shapes")
     # the first prefill chunk of the long prompt (r1-stream)
@@ -908,7 +1019,7 @@ def main() -> None:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "served": served, "paths": paths,
-                       "kernels": rows,
+                       "graph_window": graph_window, "kernels": rows,
                        "decode_errs": {" ".join(k): v
                                        for k, v in dec_errs.items()},
                        "window_errs": {" ".join(k): v

@@ -1,14 +1,24 @@
-"""Batched token sampling with per-request parameters.
+"""Batched token sampling with per-request parameters, as one branchless
+device program.
 
 The PyTorch counterpart of ``dynamo_tpu/engine/sampling.py``
-``sample_tokens``. Greedy rows (temperature 0) take the FIRST index of
-the row's maximum, which is what the JAX package's ``lax.top_k(...)[0]``
-gives, so greedy decoding is token-identical, ties included. Sampled rows
-apply temperature → top-k (static bound ``max_top_k``, per-row k) →
-top-p over the sorted candidates → a categorical draw from a
-``torch.Generator`` seeded per row from (seed, step). The JAX threefry
-stream has no torch equivalent: sampled tokens match the JAX package in
-distribution, not bit for bit. Penalties and logprobs are not ported yet.
+``sample_tokens``. Every row goes through the same fixed-shape ops, so a
+fused decode window that samples can be captured in a CUDA graph and the
+sampler never reads a device value on the host:
+
+- greedy rows (temperature 0) take the FIRST index of the row's maximum
+  (``torch.argmax``), which is what the JAX package's
+  ``lax.top_k(...)[0]`` gives, so greedy decoding is token-identical,
+  ties included (``torch.topk`` promises no order among ties);
+- sampled rows apply temperature, take ``topk`` once with the static
+  bound ``max_top_k``, mask per row by k, then top-p over the sorted
+  candidates, and draw by Gumbel-max over the kept candidates. The noise
+  is a counter-based hash of (seed, step, candidate rank), splitmix64 in
+  int64 torch ops, evaluated on the device.
+
+The JAX threefry stream has no torch equivalent: sampled tokens match the
+JAX package in distribution, not bit for bit. Penalties and logprobs are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +28,38 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-_MASK64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
+_MIX1 = 0xBF58476D1CE4E5B9
+_MIX2 = 0x94D049BB133111EB
+
+
+def _i64(c: int) -> int:
+    """An unsigned 64-bit constant as the int64 with the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _shr(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's ``>>`` is arithmetic)."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix64(z: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finaliser on int64 bits (multiplication wraps)."""
+    z = (z ^ _shr(z, 30)) * _i64(_MIX1)
+    z = (z ^ _shr(z, 27)) * _i64(_MIX2)
+    return z ^ _shr(z, 31)
+
+
+def gumbel_noise(seeds: torch.Tensor, step: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """[B, n] float32 Gumbel(0, 1) noise, a pure function of (seed, step,
+    candidate rank): splitmix64 stream ``mix((seed << 32) ^ step)``, whose
+    (rank + 1)-th output gives the top 24 bits of a uniform in (0, 1)."""
+    base = _mix64((seeds.to(torch.int64) << 32) ^ step.to(torch.int64))
+    rank = torch.arange(1, n + 1, dtype=torch.int64, device=seeds.device)
+    z = _mix64(base[:, None] + rank[None, :] * _i64(_GOLDEN))
+    u = (_shr(z, 40).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
 
 
 @dataclass
@@ -47,47 +88,40 @@ class SamplingBatch:
         return cls(temperature, top_k, top_p, seeds)
 
 
-def _row_seed(seed: int, step: int) -> int:
-    """splitmix64 of (seed, step): one independent stream per row and
-    decode step."""
-    z = ((int(seed) << 32) ^ int(step)) + 0x9E3779B97F4A7C15 & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) & ((1 << 63) - 1)
-
-
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+def _on(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """``x`` as a tensor of ``dtype`` on ``device``: device tensors pass
+    through (a cast at most); host arrays and scalars are uploaded."""
+    if isinstance(x, np.ndarray) and x.dtype == np.uint32:
+        x = x.astype(np.int64)
+    return torch.as_tensor(x, device=device).to(dtype)
 
 
 @torch.no_grad()
 def sample_tokens(logits: torch.Tensor, temperature, top_k, top_p, seeds,
                   step, max_top_k: int = 64) -> torch.Tensor:
-    """Sample one token per row. logits: [B, V] float32 on the device;
-    temperature/top_k/top_p/seeds: [B] (host arrays or tensors); step: a
-    scalar or per-row [B] decode-step counter. Returns int32 [B] on the
-    logits' device."""
+    """Sample one token per row. logits: [B, V] float32; temperature /
+    top_k / top_p / seeds: [B]; step: a scalar or per-row [B] decode-step
+    counter (advances the row's stream). On the device path pass device
+    tensors: host arrays are uploaded, device values are never read back.
+    Returns int32 [B] on the logits' device."""
     B, V = logits.shape
-    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    temp = _host(temperature)
-    rows = np.nonzero(temp > 0)[0]
-    if rows.size == 0:
-        return greedy
-    tk, tp, sd = _host(top_k), _host(top_p), _host(seeds)
-    st = np.broadcast_to(_host(step), (B,))
-    out = greedy.clone()
+    dev = logits.device
+    temperature = _on(temperature, torch.float32, dev)
+    top_k = _on(top_k, torch.int32, dev)
+    top_p = _on(top_p, torch.float32, dev)
+    step = torch.broadcast_to(_on(step, torch.int64, dev), (B,))
+    greedy = torch.argmax(logits, dim=-1)
+    temp = torch.where(temperature > 0, temperature, 1.0)[:, None]
     k = min(max_top_k, V)
-    for i in rows.tolist():
-        vals, idx = torch.topk(logits[i] / float(temp[i]), k)  # descending
-        eff_k = min(int(tk[i]), k) if tk[i] > 0 else k
-        vals[eff_k:] = float("-inf")
-        probs = torch.softmax(vals, dim=-1)
-        # top-p over the sorted candidates: always keep the first
-        keep = (torch.cumsum(probs, dim=-1) - probs) < float(tp[i])
-        probs = torch.softmax(torch.where(keep, vals, torch.full_like(
-            vals, float("-inf"))), dim=-1)
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(_row_seed(int(sd[i]), int(st[i])))
-        choice = torch.multinomial(probs, 1, generator=gen)
-        out[i] = idx[choice[0]].to(torch.int32)
-    return out
+    vals, idx = torch.topk(logits / temp, k)  # descending
+    ranks = torch.arange(k, device=dev)[None, :]
+    eff_k = torch.where(top_k > 0, top_k.clamp(max=k), k)[:, None]
+    vals = torch.where(ranks < eff_k, vals, float("-inf"))
+    # top-p over the sorted candidates: always keep the first
+    probs = torch.softmax(vals, dim=-1)
+    keep = (torch.cumsum(probs, dim=-1) - probs) < top_p[:, None]
+    vals = torch.where(keep, vals, float("-inf"))
+    noise = gumbel_noise(_on(seeds, torch.int64, dev), step, k)
+    choice = torch.argmax(vals + noise, dim=-1, keepdim=True)
+    sampled = torch.gather(idx, 1, choice)[:, 0]
+    return torch.where(temperature > 0, sampled, greedy).to(torch.int32)

@@ -6,17 +6,32 @@ the dense Llama path, speaking the same token-level protocol
 behind ``Backend`` the same way:
 
 - one asyncio scheduler loop owns the device; each iteration runs on a
-  single worker thread: admission, then a chunked prefill over a batch of
-  prompts (prefill priority), then — once nothing is left to prefill — a
-  fused K-step decode window over every running sequence;
+  single worker thread: a chunked prefill over a batch of prompts
+  (prefill priority) or — once nothing is left to prefill — a fused
+  K-step decode window over every running sequence, then admission
+  (``admit_in_step``);
+- decode windows are pipelined (``pipeline_decode``, the JAX default):
+  window N+1 is dispatched before window N is read back, and rows
+  carried over take their state from window N's device carry
+  (:func:`_merge_carry`), so the host's bookkeeping overlaps the device;
+  pages of a row that finished in window N are released only once no
+  window in flight holds the row (``_release_or_defer``);
+- each decode window is one replay of a CUDA graph captured for its
+  (batch, page) bucket (``engine/cuda_graphs.py``); ``warmup()`` captures
+  the whole warmed grid and arms the capture fence
+  (``engine/jit_fence.py``), which counts any later capture in
+  ``stats()["post_warmup_compiles_total"]``. Prefill chunks run eagerly;
+- the host never waits on the device except to read back a window's or
+  a prefill's sampled tokens, on that dispatch's own event: uploads go
+  through pinned staging memory with ``non_blocking`` copies;
 - per-request state is host-side (token lists, page tables from
   ``PageManager``); the device sees only padded arrays;
-- sequences preempt (release pages, requeue) when the pool runs dry.
+- sequences preempt (release pages, requeue) when the pool runs dry,
+  after the pipeline is flushed.
 
-Decode windows run synchronously in this version: a window's tokens are
-read back before the next dispatch (the JAX engine's ``pipeline_decode``
-overlap, CUDA graphs, the host KV tier, speculative decoding and
-disaggregation are not ported yet).
+Not ported yet: penalties and logprobs, the host KV tier, speculative
+decoding, disaggregation, long-prompt ring prefill and budgeted prefill
+mixing.
 """
 
 from __future__ import annotations
@@ -27,7 +42,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import AsyncIterator, List, Optional, Tuple
+from typing import AsyncIterator, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +56,8 @@ from ..models.llama import (DROP_SLOT, KVCacheSpec, check_supported,
                             make_step_fns)
 from ..runtime.device import resolve_device
 from ..runtime.engine import Context
+from .cuda_graphs import DecodeGraphs, to_device, to_host, upload
+from .jit_fence import CompileFence
 from .kv_manager import ChainHashCache, PageManager
 from .sampling import SamplingBatch, sample_tokens
 
@@ -65,11 +82,26 @@ class EngineConfig:
     # fused decode window: K decode+sample steps per dispatch, stop
     # conditions on device
     decode_steps: int = 4
+    # pipelined dispatch: window N+1 (and the next prefill batch) are
+    # enqueued BEFORE window N's tokens are read back; the device-side
+    # carry makes this exact, not speculative
+    pipeline_decode: bool = True
+    # iterations whose prefill sweep dispatched nothing (every candidate
+    # cancelled or cache-covered) dispatch a decode window instead of
+    # idling the device
+    overlap_idle_prefill: bool = True
+    # reuse the uploaded sampler params / page table / stop table while
+    # the batch composition is unchanged (freezes the build-time seeds of
+    # unseeded sampled rows for the cached span, as in the JAX engine)
+    cache_sampler_params: bool = True
+    # admission runs inside the step, after the dispatches, so its host
+    # work overlaps the window in flight
+    admit_in_step: bool = True
     # on-device stop table width (eos + stop ids, -1 padded); rows with
     # more ids fall back to the per-token host check
     max_eos_ids: int = 8
-    # bucketing: padded shapes, as the JAX engine pads them (the JAX
-    # engine compiles one program per bucket; here they only fix shapes)
+    # bucketing: padded shapes, as the JAX engine pads them; warmup()
+    # captures one decode graph per (batch, page) bucket
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
     prefill_buckets: Tuple[int, ...] = (16, 64, 512)
     page_buckets: Tuple[int, ...] = (8, 64)
@@ -105,6 +137,27 @@ class EngineConfig:
 
     def bucket_pages(self, n: int) -> int:
         return self._pick(self.page_buckets, n)
+
+    def warmed_grid(self) -> dict:
+        """The exact images of the bucket helpers over every admissible
+        serving input (enumerated, since ``_pick`` doubles past its last
+        bucket): the shapes warmup() runs, and the decode (batch, page)
+        buckets it captures, so serving never captures."""
+        cap_pages = min(self.page_buckets[-1], max(self.num_pages - 1, 1))
+        return {
+            "prefill_lens": sorted({
+                self.bucket_len(n)
+                for n in range(1, self.prefill_chunk + 1)}),
+            "decode_batches": sorted({
+                self.bucket_batch(n)
+                for n in range(1, self.max_batch + 1)}),
+            "prefill_batches": sorted({
+                self.prefill_bucket_batch(n)
+                for n in range(1, max(self.max_prefill_batch,
+                                      self.max_batch) + 1)}),
+            "page_buckets": sorted({
+                self.bucket_pages(n) for n in range(1, cap_pages + 1)}),
+        }
 
 
 @dataclass(eq=False)  # identity semantics: `in`/`==` must never deep-compare
@@ -151,6 +204,51 @@ class Sequence:
         return self.num_prompt if self.generated == 0 else len(self.tokens) - 1
 
 
+@dataclass
+class _PendingWindow:
+    """A dispatched-but-unread decode window. ``host`` holds pinned copies
+    of (toks [B, K], emitted [B], done [B]), valid once ``event`` has
+    completed; ``carry`` is the window's device carry (the graph's static
+    outputs: valid until that bucket's next launch)."""
+
+    batch: List[Sequence]
+    host: List[torch.Tensor]
+    event: Optional[torch.cuda.Event]
+    carry: tuple                    # (tok, pos, done, steps, remaining)
+    index: Dict[int, int] = field(default_factory=dict)  # id(seq) → row
+    processed: bool = False
+
+
+@dataclass
+class _PendingPrefill:
+    """A dispatched-but-unread prefill batch: ``sampled`` is the pinned
+    host copy of the first-token draw for rows that completed their
+    prompt this chunk (None when no row drew), valid after ``event``."""
+
+    finishing: List[Tuple[int, Sequence]]
+    sampled: Optional[torch.Tensor]
+    event: Optional[torch.cuda.Event] = None
+    processed: bool = False
+
+
+def _merge_carry(c_tok, c_pos, c_done, c_steps, c_rem, src, from_carry,
+                 n_tok, n_pos, n_steps, n_rem, out: Optional[tuple] = None):
+    """Stitch window N+1's inputs (``_merge_carry`` of the JAX engine):
+    rows continuing from the in-flight window gather their state from its
+    device carry (``src`` indexes into the previous batch); fresh rows
+    take the host-provided values. A few fixed-shape ops, no host sync;
+    ``out`` (five tensors) receives the result in place."""
+    out = out or (None,) * 5
+    src = src.long().clamp(0, c_tok.shape[0] - 1)
+    fc = from_carry.to(torch.bool)
+    tok = torch.where(fc, c_tok[src], n_tok, out=out[0])
+    pos = torch.where(fc, c_pos[src], n_pos, out=out[1])
+    done = torch.logical_and(fc, c_done[src], out=out[2])
+    steps = torch.where(fc, c_steps[src], n_steps, out=out[3])
+    rem = torch.where(fc, c_rem[src], n_rem, out=out[4])
+    return tok, pos, done, steps, rem
+
+
 class TorchEngine:
     """AsyncEngine over the PyTorch model (token-level core engine)."""
 
@@ -173,10 +271,26 @@ class TorchEngine:
         self.prefill_fn, _ = make_step_fns(model_cfg)
         self.decode_multi_fn = make_decode_window_fn(
             model_cfg, max_top_k=self.ecfg.max_top_k)
+        # capture fence (armed by warmup) and the decode graphs per bucket
+        self.fence = CompileFence(f"torch-engine-{id(self):x}")
+        self.graphs = DecodeGraphs(
+            self.decode_multi_fn, self.params, self.kv_k, self.kv_v,
+            k_steps=self.ecfg.decode_steps, max_eos_ids=self.ecfg.max_eos_ids,
+            fence=self.fence)
         self.pm = PageManager(self.ecfg.num_pages, self.ecfg.page_size)
         self.waiting: List[Sequence] = []
         self.prefilling: List[Sequence] = []
         self.running: List[Sequence] = []
+        # pipelined dispatch state: windows/prefills enqueued on device but
+        # not yet read back, plus finished sequences whose pages must stay
+        # allocated until every in-flight window containing them completes
+        self._inflight: List[_PendingWindow] = []
+        self._pending: Optional[_PendingWindow] = None
+        self._pending_prefill: Optional[_PendingPrefill] = None
+        self._deferred_free: List[Sequence] = []
+        # cache_sampler_params: the key of the last decode dispatch (its
+        # bucket's static buffers still hold that dispatch's uploads)
+        self._samp_cache: Optional[tuple] = None
         # per-sequence max context: the largest page bucket
         self.cap_pages = min(self.ecfg.page_buckets[-1],
                              max(self.ecfg.num_pages - 1, 1))
@@ -197,31 +311,49 @@ class TorchEngine:
 
     # ---------------------------------------------------------- lifecycle
 
-    def warmup(self) -> None:
-        """Run one prefill chunk and one decode window over padding rows
-        (nothing is written to the pool) so the first request does not pay
-        for CUDA's lazy module loading and cuBLAS set-up."""
+    def warmup(self) -> int:
+        """Run the whole prefill grid (every chunk length x prefill batch
+        x page bucket) eagerly once and capture the whole decode grid
+        (every batch x page bucket), all over padding rows, so nothing is
+        written to the pool; then arm the capture fence. Returns the
+        number of shapes warmed."""
         ecfg = self.ecfg
-        B, T = ecfg.prefill_bucket_batch(1), ecfg.prefill_chunk
-        P = ecfg.bucket_pages(1)
+        grid = ecfg.warmed_grid()
+        pages = grid["page_buckets"]
         i32 = dict(dtype=torch.int32, device=self.device)
-        self.prefill_fn(
-            self.params, torch.zeros((B, T), **i32),
-            torch.full((B, T), -1, **i32), self.kv_k, self.kv_v,
-            torch.zeros((B, P), **i32), torch.full((B, T), DROP_SLOT, **i32),
-            torch.zeros((B,), **i32))
-        B = ecfg.bucket_batch(1)
-        sb = SamplingBatch.build([], B)
-        self.decode_multi_fn(
-            self.params, torch.zeros((B,), **i32), torch.full((B,), -1, **i32),
-            torch.zeros(B, dtype=torch.bool, device=self.device),
-            torch.zeros((B,), **i32), torch.ones((B,), **i32), self.kv_k,
-            self.kv_v, torch.zeros((B, P), **i32), sb.temperature, sb.top_k,
-            sb.top_p, sb.seeds,
-            torch.full((B, ecfg.max_eos_ids), -1, **i32),
-            k_steps=ecfg.decode_steps)
+        n = 0
+        with self.graphs.stream_ctx():
+            for P in pages:
+                for T in grid["prefill_lens"]:
+                    for B in grid["prefill_batches"]:
+                        pslots = (torch.full((B, T // ecfg.page_size),
+                                             ecfg.num_pages, **i32)
+                                  if T % ecfg.page_size == 0 else None)
+                        logits, _, _ = self.prefill_fn(
+                            self.params, torch.zeros((B, T), **i32),
+                            torch.full((B, T), -1, **i32), self.kv_k,
+                            self.kv_v, torch.zeros((B, P), **i32),
+                            torch.full((B, T), DROP_SLOT, **i32),
+                            torch.zeros((B,), **i32), pslots)
+                        sample_tokens(
+                            logits, torch.zeros(B, device=self.device),
+                            torch.zeros((B,), **i32),
+                            torch.ones(B, device=self.device),
+                            torch.zeros(B, dtype=torch.int64,
+                                        device=self.device),
+                            torch.zeros((B,), **i32),
+                            max_top_k=ecfg.max_top_k)
+                        n += 1
+            decode = [(B, P) for P in pages for B in grid["decode_batches"]]
+            self.graphs.capture(decode)
+            n += len(decode)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.fence.arm()
+        log.info("warmup: %d shapes, %d decode graphs captured in %.1fs "
+                 "(%.0f MiB of graph pool)", n, len(decode),
+                 self.graphs.capture_seconds, self.graphs.pool_bytes / 2**20)
+        return n
 
     def start(self) -> None:
         if self._loop_task is None:
@@ -277,41 +409,145 @@ class TorchEngine:
                  max(self.prompt_tokens_total, 1)),
             "prefix_hit_tokens_total": self.prefix_hit_tokens_total,
             "prompt_tokens_total": self.prompt_tokens_total,
+            # decode-graph captures after warmup() armed the fence (0 =
+            # the no-capture serving invariant holds)
+            "post_warmup_compiles_total": self.fence.post_warmup_compiles,
         }
 
     # ------------------------------------------------------- scheduler loop
 
+    def _on_stream(self, fn) -> None:
+        """Run ``fn`` with the engine's device stream current (the stream
+        the decode graphs were captured on), so every dispatch, copy and
+        readback of the engine is ordered on it."""
+        with self.graphs.stream_ctx():
+            fn()
+
     async def _loop(self) -> None:
         loop = asyncio.get_running_loop()
         while not self._stopped:
-            if not (self.waiting or self.prefilling or self.running):
+            if not (self.waiting or self.prefilling or self.running
+                    or self._inflight or self._pending_prefill):
                 self._wake.clear()
                 await self._wake.wait()
                 continue
             try:
-                await loop.run_in_executor(self._exec, self._step)
-                self.running = [s for s in self.running if s.finished is None]
+                if not self.ecfg.admit_in_step:
+                    self._admit()
+                await loop.run_in_executor(self._exec, self._on_stream,
+                                           self._step)
+                self._reap()
             except Exception:  # noqa: BLE001 — engine loop must survive
                 log.exception("engine step failed")
-                await loop.run_in_executor(self._exec, self._abort_all)
+                await loop.run_in_executor(self._exec, self._on_stream,
+                                           self._abort_all)
+        # shutdown: drain in-flight windows so no client hangs on a queue
+        try:
+            await loop.run_in_executor(self._exec, self._on_stream,
+                                       self._shutdown_drain)
+        except Exception:  # noqa: BLE001
+            log.exception("pipeline flush on stop failed")
 
     def _step(self) -> None:
-        """One scheduler iteration (executor thread), prefill priority:
-        prompts waiting to prefill go first; a decode window runs once
-        nothing is left to prefill."""
-        self._admit()
+        """One scheduler iteration (executor thread), prefill priority.
+        Pipelined mode enqueues the next decode window or prefill chunk
+        BEFORE reading back the previous ones, so the host's bookkeeping
+        overlaps the device; unpipelined mode reads each dispatch back
+        before the next."""
+        if not self.ecfg.pipeline_decode:
+            if self.ecfg.admit_in_step:
+                self._admit()
+            if self.prefilling:
+                pf = self._dispatch_prefill()
+                if pf is not None:
+                    self._process_prefill(pf)
+            if self.running and not self.prefilling:
+                pend = self._dispatch_decode_window()
+                if pend is not None:
+                    self._process_window(pend)
+            self._drain_deferred()
+            return
+        prev = self._pending
+        prev_pf = self._pending_prefill
         if self.prefilling:
-            self._dispatch_prefill()
-        if self.running and not self.prefilling:
-            self._dispatch_decode_window()
+            # prefill-priority: prompt batches drain at full cadence; when
+            # the sweep dispatches nothing, fill the bubble with a decode
+            # window (overlap_idle_prefill)
+            self._pending_prefill = self._dispatch_prefill()
+            if (self._pending_prefill is None
+                    and self.ecfg.overlap_idle_prefill):
+                self._pending = self._dispatch_decode_window()
+            else:
+                self._pending = None
+        else:
+            self._pending = self._dispatch_decode_window()
+            self._pending_prefill = None
+        if self.ecfg.admit_in_step:
+            # admission lands AFTER the dispatches: its host work overlaps
+            # the in-flight window; admitted sequences enter prefilling
+            # for the next iteration's sweep
+            self._admit()
+        if prev is not None:
+            self._process_window(prev)
+        if prev_pf is not None:
+            self._process_prefill(prev_pf)
+        self._drain_deferred()
+        # idle drain: with no live work left, read back the remaining
+        # windows now so final tokens/finishes emit and pages free
+        if (not (self.running or self.prefilling or self.waiting)
+                and (self._inflight or self._pending_prefill)):
+            self._flush_pipeline()
+
+    def _flush_pipeline(self) -> None:
+        """Synchronize: read back every in-flight window/prefill so host
+        state is current and all page releases are safe. Called before
+        preemption (pool pressure) and on shutdown."""
+        for w in list(self._inflight):
+            self._process_window(w)
+        self._pending = None
+        if self._pending_prefill is not None:
+            self._process_prefill(self._pending_prefill)
+            self._pending_prefill = None
+        self._drain_deferred()
+
+    def _shutdown_drain(self) -> None:
+        """stop(): flush the pipeline (its tokens and finishes emit), then
+        end every sequence still queued or running as cancelled, so every
+        client sees a finish_reason."""
+        self._flush_pipeline()
+        for seq in self.waiting + self.prefilling + self.running:
+            self._terminate(seq, FINISH_CANCELLED)
+        self.waiting.clear()
+        self.prefilling.clear()
+        self.running.clear()
 
     def _abort_all(self) -> None:
-        """Error path: release everything, fail all in-flight requests."""
-        for seq in self.prefilling + self.running:
+        """Error path: drop pipeline state, release everything, fail all
+        in-flight requests (the loop itself must survive). Covers the
+        sequences parked outside prefilling/running: deferred frees and a
+        pending prefill's finishing rows."""
+        if self.device.type == "cuda":
+            try:
+                torch.cuda.synchronize(self.device)
+            except RuntimeError:
+                log.exception("device sync on abort failed")
+        parked = list(self._deferred_free)
+        if self._pending_prefill is not None:
+            parked += [s for _, s in self._pending_prefill.finishing]
+        self._inflight.clear()
+        self._pending = None
+        self._pending_prefill = None
+        self._deferred_free.clear()
+        self._samp_cache = None
+        for seq in parked + self.prefilling + self.running:
             self._release(seq)
             self._finish(seq, "error")
         self.prefilling.clear()
         self.running.clear()
+
+    def _reap(self) -> None:
+        """Drop finished sequences that linger in running (safety net)."""
+        self.running = [s for s in self.running if s.finished is None]
 
     # ----------------------------------------------------------- admission
 
@@ -349,10 +585,11 @@ class TorchEngine:
 
     # ------------------------------------------------------------- prefill
 
-    def _dispatch_prefill(self) -> None:
-        """One chunked-prefill step over a BATCH of prefilling sequences
-        (each contributes its next chunk); rows that complete their prompt
-        sample their first token."""
+    def _dispatch_prefill(self) -> Optional[_PendingPrefill]:
+        """Enqueue one chunked-prefill step over a BATCH of prefilling
+        sequences (each contributes its next chunk) without reading back;
+        rows that complete their prompt draw their first token on the
+        device. None when nothing was dispatched."""
         candidates: List[Sequence] = []
         for seq in list(self.prefilling):
             if seq.context.stopped:
@@ -367,7 +604,7 @@ class TorchEngine:
                 continue
             candidates.append(seq)
         if not candidates:
-            return
+            return None
         ecfg = self.ecfg
 
         def tbucket(s):
@@ -410,10 +647,12 @@ class TorchEngine:
                 npg = (chunk + ps - 1) // ps
                 pslots[i, :npg] = pages[first:first + npg]
 
-        logits, self.kv_k, self.kv_v = self.prefill_fn(
-            self.params, self._dev(tokens), self._dev(positions), self.kv_k,
-            self.kv_v, self._dev(table), self._dev(slots),
-            self._dev(last_idx), self._dev(pslots) if use_paged else None)
+        dev = self.device
+        logits, _, _ = self.prefill_fn(
+            self.params, to_device(tokens, dev), to_device(positions, dev),
+            self.kv_k, self.kv_v, to_device(table, dev),
+            to_device(slots, dev), to_device(last_idx, dev),
+            to_device(pslots, dev) if use_paged else None)
         self.batch_dispatches_total += 1
 
         finishing: List[Tuple[int, Sequence]] = []
@@ -423,12 +662,40 @@ class TorchEngine:
             if seq.computed >= seq.prefill_extent:
                 self.prefilling.remove(seq)
                 finishing.append((i, seq))
-        if not finishing:
+        if not any(s.generated == 0 for _, s in finishing):
+            # mid-prompt chunks, or resumed rows only (their next token is
+            # already sampled): nothing to read back
+            return _PendingPrefill(finishing=finishing, sampled=None)
+        (sampled,), event = to_host(self._sample(batch, logits))
+        return _PendingPrefill(finishing=finishing, sampled=sampled,
+                               event=event)
+
+    def _sample(self, seqs: List[Sequence], logits) -> torch.Tensor:
+        """First-token draw over the padded prefill batch, on the
+        device."""
+        pad_to = logits.shape[0]
+        sb = SamplingBatch.build([s.req.sampling for s in seqs], pad_to)
+        steps = np.zeros(pad_to, np.int32)
+        steps[:len(seqs)] = [s.generated for s in seqs]
+        dev = self.device
+        return sample_tokens(
+            logits, to_device(sb.temperature, dev), to_device(sb.top_k, dev),
+            to_device(sb.top_p, dev), to_device(sb.seeds.astype(np.int64),
+                                                dev),
+            to_device(steps, dev), max_top_k=self.ecfg.max_top_k)
+
+    def _process_prefill(self, pf: _PendingPrefill) -> None:
+        """Read back a dispatched prefill's first-token draws and admit
+        the finished prompts into decode."""
+        if pf.processed:
             return
+        pf.processed = True
         toks = None
-        if any(s.generated == 0 for _, s in finishing):
-            toks = self._sample(batch, logits).tolist()
-        for i, seq in finishing:
+        if pf.sampled is not None:
+            if pf.event is not None:
+                pf.event.synchronize()
+            toks = pf.sampled.numpy()
+        for i, seq in pf.finishing:
             self._commit_full_pages(seq)
             if seq.generated == 0:
                 self._append_token(seq, int(toks[i]))
@@ -439,26 +706,26 @@ class TorchEngine:
                 seq.last_token = seq.tokens[-1]
                 self.running.append(seq)
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
-    def _sample(self, seqs: List[Sequence], logits) -> torch.Tensor:
-        """First-token draw over the padded prefill batch."""
-        pad_to = logits.shape[0]
-        sb = SamplingBatch.build([s.req.sampling for s in seqs], pad_to)
-        steps = np.zeros(pad_to, np.int32)
-        steps[:len(seqs)] = [s.generated for s in seqs]
-        return sample_tokens(logits, sb.temperature, sb.top_k, sb.top_p,
-                             sb.seeds, steps, max_top_k=self.ecfg.max_top_k)
-
     # -------------------------------------------------------------- decode
 
     def _grow_or_preempt(self, batch: List[Sequence], lookahead: int) -> None:
         """Grow every batch member's pages ``lookahead`` tokens ahead
-        (clamped to the capacity); on pool exhaustion preempt the newest
-        sequences until the batch fits."""
+        (clamped to the capacity); on pool exhaustion, flush the pipeline
+        (so releases are safe and deferred frees land) and preempt the
+        newest sequences until the batch fits."""
         for seq in list(batch):
             if seq not in batch:
+                continue
+            if seq.finished is not None or seq.context.stopped:
+                # a flush below may have finished earlier batch members
+                batch.remove(seq)
+                continue
+            target = min(len(seq.tokens) + lookahead, self.cap_tokens)
+            if self.pm.grow(seq.pages, target):
+                continue
+            self._flush_pipeline()  # host state current; frees landed
+            if seq.finished is not None or seq.context.stopped:
+                batch.remove(seq)  # the flush finished/cancelled it
                 continue
             target = min(len(seq.tokens) + lookahead, self.cap_tokens)
             while not self.pm.grow(seq.pages, target):
@@ -478,58 +745,104 @@ class TorchEngine:
                 if victim is seq:
                     break
 
-    def _dispatch_decode_window(self) -> None:
-        """Run one fused K-step decode window over the running batch and
-        read its tokens back (synchronous)."""
-        K = self.ecfg.decode_steps
+    def _dispatch_decode_window(self) -> Optional[_PendingWindow]:
+        """Enqueue the next fused K-step decode window (one graph replay)
+        WITHOUT reading back. Rows carried over from the in-flight window
+        take their (token, position, done, step, budget) state from its
+        device carry; newly admitted rows are seeded from host state."""
+        ecfg = self.ecfg
+        K = ecfg.decode_steps
         for seq in list(self.running):
             if seq.context.stopped:
                 self._terminate(seq, _cancel_reason(seq.context))
         batch = [s for s in self.running if s.finished is None]
-        batch = batch[:self.ecfg.max_batch]
+        batch = batch[:ecfg.max_batch]
         if not batch:
-            return
-        self._grow_or_preempt(batch, K)
+            return None
+        # grow pages to cover this window AND the in-flight one (device
+        # positions can lead host state by up to K tokens)
+        self._grow_or_preempt(batch, 2 * K)
+        # the flush inside _grow_or_preempt may have finished rows
+        batch = [s for s in batch
+                 if s.finished is None and not s.context.stopped]
         if not batch:
-            return
-        B = self.ecfg.bucket_batch(len(batch))
-        P = self.ecfg.bucket_pages(max(len(s.pages) for s in batch))
-        E = self.ecfg.max_eos_ids
-        table = np.zeros((B, P), np.int32)
-        eos = np.full((B, E), -1, np.int32)
-        tok = np.zeros(B, np.int32)
-        pos = np.full(B, -1, np.int32)
-        steps = np.zeros(B, np.int32)
-        rem = np.ones(B, np.int32)
+            return None
+        prev = self._pending  # None if _grow_or_preempt flushed
+        B = ecfg.bucket_batch(len(batch))
+        P = ecfg.bucket_pages(max(len(s.pages) for s in batch))
+        E = ecfg.max_eos_ids
+        bk = self.graphs.bucket(B, P)
+        # cache_sampler_params: while the batch composition (rows, page
+        # counts, bucket) is unchanged, the page table, stop table and
+        # sampler params already sit in the bucket's static buffers
+        key = ((B, P, list(batch), [len(s.pages) for s in batch])
+               if ecfg.cache_sampler_params else None)
+        if key is None or self._samp_cache != key:
+            table = np.zeros((B, P), np.int32)
+            eos = np.full((B, E), -1, np.int32)
+            for i, seq in enumerate(batch):
+                table[i, :len(seq.pages)] = seq.pages
+                ids = seq.stop_ids
+                if ids:
+                    eos[i, :min(len(ids), E)] = ids[:E]
+            sb = SamplingBatch.build([s.req.sampling for s in batch], B)
+            for dst, a in ((bk.table, table), (bk.eos, eos),
+                           (bk.temperature, sb.temperature),
+                           (bk.top_k, sb.top_k), (bk.top_p, sb.top_p),
+                           (bk.seeds, sb.seeds.astype(np.int64))):
+                upload(dst, a)
+            self._samp_cache = key
+        # host rows: tok, pos, steps, remaining, src, from_carry
+        rows = np.zeros((6, B), np.int32)
+        rows[1] = -1
+        rows[3] = 1
         for i, seq in enumerate(batch):
-            table[i, :len(seq.pages)] = seq.pages
-            ids = seq.stop_ids
-            if ids:
-                eos[i, :min(len(ids), E)] = ids[:E]
-            tok[i] = seq.last_token
-            pos[i] = len(seq.tokens) - 1
-            steps[i] = seq.generated
-            rem[i] = max(min(seq.max_new() - seq.generated,
-                             self.cap_tokens - len(seq.tokens)), 1)
-        sb = SamplingBatch.build([s.req.sampling for s in batch], B)
-        toks, emitted, carry, self.kv_k, self.kv_v = self.decode_multi_fn(
-            self.params, self._dev(tok), self._dev(pos),
-            torch.zeros(B, dtype=torch.bool, device=self.device),
-            self._dev(steps), self._dev(rem), self.kv_k, self.kv_v,
-            self._dev(table), sb.temperature, sb.top_k, sb.top_p, sb.seeds,
-            self._dev(eos), k_steps=K)
+            if prev is not None and id(seq) in prev.index:
+                rows[4, i] = prev.index[id(seq)]
+                rows[5, i] = 1
+            else:
+                rows[0, i] = seq.last_token
+                rows[1, i] = len(seq.tokens) - 1
+                rows[2, i] = seq.generated
+                rows[3, i] = max(min(seq.max_new() - seq.generated,
+                                     self.cap_tokens - len(seq.tokens)), 1)
+        upload(bk.rows, rows)
+        n_tok, n_pos, n_steps, n_rem, src, from_carry = bk.rows
+        if prev is not None:
+            _merge_carry(*prev.carry, src, from_carry, n_tok, n_pos,
+                         n_steps, n_rem, out=bk.carry_in)
+        else:
+            for dst, new in zip((bk.tok, bk.pos, bk.steps, bk.rem),
+                                (n_tok, n_pos, n_steps, n_rem)):
+                dst.copy_(new)
+            bk.done.zero_()
+        self.graphs.launch(bk)
+        host, event = to_host(bk.toks, bk.emitted, bk.carry[2])
         self.batch_dispatches_total += 1
-        self._process_window(batch, toks.cpu().numpy(),
-                             emitted.cpu().numpy(), carry[2].cpu().numpy())
+        pend = _PendingWindow(batch=list(batch), host=host, event=event,
+                              carry=bk.carry,
+                              index={id(s): i for i, s in enumerate(batch)})
+        self._inflight.append(pend)
+        return pend
 
-    def _process_window(self, batch: List[Sequence], toks: np.ndarray,
-                        counts: np.ndarray, done: np.ndarray) -> None:
-        """Host bookkeeping for a window's tokens: emission, stop
-        conditions, prefix commits. Rows whose stop ids all fit the device
-        table take the device's emitted count and done flag; others check
-        stops token by token."""
+    def _process_window(self, pend: _PendingWindow) -> None:
+        """Read back a dispatched window's tokens (waits on its own event
+        only) and apply host bookkeeping: emission, stop conditions,
+        prefix commits. Rows whose stop ids all fit the device table take
+        the device's emitted count and done flag; others check stops token
+        by token."""
+        if pend.processed:
+            return
+        pend.processed = True
+        if pend.event is not None:
+            pend.event.synchronize()
+        toks, counts, done = (h.numpy() for h in pend.host)
+        if pend in self._inflight:
+            self._inflight.remove(pend)
+        if self._pending is pend:
+            self._pending = None
         K = toks.shape[1]
-        for i, seq in enumerate(batch):
+        for i, seq in enumerate(pend.batch):
             if seq.finished is not None:
                 continue
             if (not seq.context.stopped
@@ -574,6 +887,30 @@ class TorchEngine:
               or len(seq.tokens) >= self.cap_tokens):
             self._terminate(seq, FINISH_LENGTH)
 
+    # -------------------------------------------- deferred page reclamation
+
+    def _release_or_defer(self, seq: Sequence) -> None:
+        """Release a sequence's pages unless an in-flight window still
+        writes them (freeing early could hand a page to a new owner while
+        the old window's commit lands). The finish emission rides with
+        the release."""
+        if any(id(seq) in w.index for w in self._inflight):
+            if seq not in self._deferred_free:
+                self._deferred_free.append(seq)
+        else:
+            self._release(seq)
+            self._emit_finish(seq)
+
+    def _drain_deferred(self) -> None:
+        still: List[Sequence] = []
+        for seq in self._deferred_free:
+            if any(id(seq) in w.index for w in self._inflight):
+                still.append(seq)
+            else:
+                self._release(seq)
+                self._emit_finish(seq)
+        self._deferred_free = still
+
     # ------------------------------------------------------------- helpers
 
     def _append_token(self, seq: Sequence, tok: int) -> None:
@@ -596,11 +933,14 @@ class TorchEngine:
             self._terminate(seq, FINISH_LENGTH)
 
     def _terminate(self, seq: Sequence, reason: str) -> None:
-        """Terminal-state a sequence: release its pages, emit its finish."""
+        """Terminal-state a sequence: no more tokens append from now on;
+        the finish emission rides with the page release, which waits for
+        any in-flight window holding the row."""
         if seq in self.running:
             self.running.remove(seq)
-        self._release(seq)
-        self._finish(seq, reason)
+        if seq.finished is None:
+            seq.finished = reason
+        self._release_or_defer(seq)
 
     def _chain(self, seq: Sequence) -> List[int]:
         if seq.hash_cache is None:
@@ -619,12 +959,16 @@ class TorchEngine:
     def _finish(self, seq: Sequence, reason: str) -> None:
         if seq.finished is None:
             seq.finished = reason
-        if not seq.finish_emitted:
-            seq.finish_emitted = True
-            self._emit(seq, EngineOutput(token_ids=[],
-                                         finish_reason=seq.finished,
-                                         prompt_tokens=seq.num_prompt,
-                                         completion_tokens=seq.generated))
+        self._emit_finish(seq)
+
+    def _emit_finish(self, seq: Sequence) -> None:
+        if seq.finish_emitted or seq.finished is None:
+            return
+        seq.finish_emitted = True
+        self._emit(seq, EngineOutput(token_ids=[],
+                                     finish_reason=seq.finished,
+                                     prompt_tokens=seq.num_prompt,
+                                     completion_tokens=seq.generated))
 
     def _emit(self, seq: Sequence, out: EngineOutput) -> None:
         # steps run in the executor thread; asyncio.Queue is not

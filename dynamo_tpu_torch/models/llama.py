@@ -150,7 +150,10 @@ def embed_tokens(params: Params, cfg: ModelConfig,
     """Token embedding lookup; Gemma scales by sqrt(hidden)."""
     h = params["embed"][tokens.long()]
     if cfg.embed_scale:
-        h = h * torch.tensor(math.sqrt(cfg.hidden_size), dtype=h.dtype)
+        # a device scalar (made by a fill, so a CUDA graph can capture
+        # it), rounded to h's dtype as the JAX package rounds it
+        h = h * torch.full((), math.sqrt(cfg.hidden_size), dtype=h.dtype,
+                           device=h.device)
     return h
 
 
@@ -218,16 +221,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return _rotate(x, *rope_cos_sin(positions, inv_freq))
 
 
-def _kept(idx: torch.Tensor, limit: int) -> torch.Tensor:
-    """Indices of the entries of ``idx`` inside ``[0, limit)``: padding
-    rows (DROP_SLOT, or page ids >= num_pages) are masked out explicitly
-    (torch has no drop-mode scatter)."""
-    return torch.nonzero((idx >= 0) & (idx < limit)).flatten()
+DropPlan = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _drop_plan(idx: torch.Tensor, limit: int) -> DropPlan:
+    """The fixed-shape form of a drop-mode scatter over the flat indices
+    ``idx`` (torch has none, and selecting the kept entries needs a device
+    sync with a data-dependent shape). Returns ``(dest, src, any_kept)``:
+    entry j writes row ``src[j]`` to ``dest[j]``. A kept entry (inside
+    ``[0, limit)``) writes itself; a dropped one (DROP_SLOT padding, a
+    page id >= num_pages) repeats the first kept entry's write, the same
+    bytes to the same place. With nothing kept, every entry goes to
+    index 0 and the caller writes that place's own value back, so a
+    dropped entry never changes a byte of the pool."""
+    valid = (idx >= 0) & (idx < limit)
+    first = torch.argmax(valid.to(torch.int32))
+    src = torch.where(valid, torch.arange(idx.numel(), device=idx.device),
+                      first)
+    any_kept = valid.any()
+    return torch.where(any_kept, idx[src], 0), src, any_kept
 
 
 def _scatter_pages_paged(cache_layer: torch.Tensor, new: torch.Tensor,
                          page_slots: torch.Tensor,
-                         keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         plan: Optional[DropPlan] = None) -> torch.Tensor:
     """Page-granular prefill commit, in place: write WHOLE pages. Requires
     chunk starts page-aligned (the engine guarantees it). The tail page
     may carry junk K/V beyond the chunk — safe, because a position's K/V
@@ -235,35 +252,37 @@ def _scatter_pages_paged(cache_layer: torch.Tensor, new: torch.Tensor,
 
     cache_layer: [num_pages, KV, ps, hd]; new: [B, T, KV, hd] (T % ps
     == 0); page_slots: [B, T // ps] destination page ids (>= num_pages →
-    dropped padding); ``keep`` precomputed kept indices (optional)."""
+    dropped padding); ``plan`` precomputed by :func:`_drop_plan`
+    (optional)."""
     N, KV, ps, hd = cache_layer.shape
     B, T = new.shape[:2]
     blocks = new.reshape(B, T // ps, ps, KV, hd).permute(0, 1, 3, 2, 4)
     blocks = blocks.reshape(B * (T // ps), KV, ps, hd)
-    idx = page_slots.reshape(-1).long()
-    if keep is None:
-        keep = _kept(idx, N)
-    cache_layer[idx[keep]] = blocks[keep].to(cache_layer.dtype)
+    if plan is None:
+        plan = _drop_plan(page_slots.reshape(-1).long(), N)
+    dest, src, any_kept = plan
+    cache_layer[dest] = torch.where(any_kept, blocks[src].to(
+        cache_layer.dtype), cache_layer[0])
     return cache_layer
 
 
 def _scatter_pages(cache_layer: torch.Tensor, new: torch.Tensor,
                    flat_slots: torch.Tensor,
-                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   plan: Optional[DropPlan] = None) -> torch.Tensor:
     """Write new K/V rows into the page pool, in place.
 
     cache_layer: [num_pages, KV, page_size, hd]; new: [B, T, KV, hd];
     flat_slots: [B, T] flattened (page*page_size + slot) indices; entries
-    outside the pool (DROP_SLOT) are masked out."""
+    outside the pool (DROP_SLOT) are dropped (see :func:`_drop_plan`)."""
     N, KV, ps, hd = cache_layer.shape
-    idx = flat_slots.reshape(-1).long()
-    rows = new.reshape(-1, KV, hd)
-    if keep is None:
-        keep = _kept(idx, N * ps)
-    idx = idx[keep]
+    if plan is None:
+        plan = _drop_plan(flat_slots.reshape(-1).long(), N * ps)
+    dest, src, any_kept = plan
+    rows = new.reshape(-1, KV, hd)[src].to(cache_layer.dtype)
     # advanced indices (pages, offs) separated by the KV slice put the
     # scatter axis first: target shape [n, KV, hd]
-    cache_layer[idx // ps, :, idx % ps] = rows[keep].to(cache_layer.dtype)
+    cache_layer[dest // ps, :, dest % ps] = torch.where(
+        any_kept, rows, cache_layer[0, :, 0])
     return cache_layer
 
 
@@ -419,22 +438,22 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     h = embed_tokens(params, cfg, tokens)
     act = _act(cfg)
     rope = rope_cos_sin(positions.clamp(min=0), inv_freq)
-    # the padding masks are shared by every layer: computed once
+    # the padding plans are shared by every layer: computed once
     if page_slots is not None:
-        keep = _kept(page_slots.reshape(-1).long(), N)
+        plan = _drop_plan(page_slots.reshape(-1).long(), N)
     else:
-        keep = _kept(flat_slots.reshape(-1).long(), N * ps)
+        plan = _drop_plan(flat_slots.reshape(-1).long(), N * ps)
     keys = _layer_keys(cfg)
     for l in range(cfg.num_layers):
         lp = {k: params[k][l] for k in keys}
         x = rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps, cfg.norm_unit_offset)
         q, k, v = _qkv(cfg, lp, x, B, T, rope)
         if page_slots is not None:
-            _scatter_pages_paged(kv_k[l], k, page_slots, keep)
-            _scatter_pages_paged(kv_v[l], v, page_slots, keep)
+            _scatter_pages_paged(kv_k[l], k, page_slots, plan)
+            _scatter_pages_paged(kv_v[l], v, page_slots, plan)
         else:
-            _scatter_pages(kv_k[l], k, flat_slots, keep)
-            _scatter_pages(kv_v[l], v, flat_slots, keep)
+            _scatter_pages(kv_k[l], k, flat_slots, plan)
+            _scatter_pages(kv_v[l], v, flat_slots, plan)
         attn = _attention(q, kv_k, kv_v, l, page_table, positions, scale,
                           use_kernels=use_kernels,
                           softcap=cfg.attn_logit_softcap,
@@ -590,10 +609,10 @@ def make_decode_window_fn(cfg: ModelConfig, use_kernels: bool = True,
         valid = (start[:, None] >= 0) & (wpos < pos[:, None])
         flat = torch.where(valid, page * ps + wpos % ps,
                            torch.full_like(page, DROP_SLOT))
-        keep = _kept(flat.reshape(-1), N * ps)
+        plan = _drop_plan(flat.reshape(-1), N * ps)
         for l in range(L):
-            _scatter_pages(kv_k[l], wk[l], flat, keep)
-            _scatter_pages(kv_v[l], wv[l], flat, keep)
+            _scatter_pages(kv_k[l], wk[l], flat, plan)
+            _scatter_pages(kv_v[l], wv[l], flat, plan)
         out_toks = torch.stack(toks, dim=1)
         return out_toks, emitted, (tok, pos, done, steps, remaining), kv_k, kv_v
 

@@ -1,15 +1,29 @@
-"""Profile the fused decode window of the 8B model on the GPU.
+"""Profile the fused decode window of the 8B model on the GPU: by CUDA-graph
+replay against eager calls, in one run.
 
-    python -m dynamo_tpu_torch.profile_step [--rows 4] [--context 512]
+    python -m dynamo_tpu_torch.profile_step [--rows 4 32] [--context 512]
+                                            [--windows 10]
 
-Builds the engine at Llama-3-8B widths (random weights, seed 0), prefills
-``--rows`` rows of ``--context`` tokens, then times decode windows
-(``EngineConfig.decode_steps`` steps each) with a device sync after each,
-and traces one window with ``torch.profiler``. Prints one JSON object:
-wall ms per window and per step, the kernels the window launched, the
-device-busy time (the union of the kernels' intervals), the device's
-idle share of the window's wall time, and the kernels that took the most
-device time.
+Builds the engine at Llama-3-8B widths (random weights, seed 0). For
+each ``--rows`` B it prefills B rows of ``--context`` tokens, then runs
+decode windows (``EngineConfig.decode_steps`` steps each) three ways, on
+the engine's stream, each window's carry feeding the next:
+
+- ``eager``: the window function called from Python, tokens read back
+  after each window (a device sync), as the engine decoded before it
+  captured graphs;
+- ``graph``: one replay of the bucket's CUDA graph per window, read back
+  after each (sync);
+- ``graph_pipelined``: as the engine serves: window N+1 is replayed
+  before window N's tokens are read back (pinned copies and an event per
+  window), so the host's work overlaps the device's.
+
+It traces one window of each of the first two with ``torch.profiler``.
+Prints one JSON object per row count: wall ms per window (all windows,
+sorted) and per step, the kernels a traced window ran, the device-busy
+time (the union of the kernels' intervals), the device's idle share of
+the traced and of the untraced window wall (untraced: 1 - busy / median
+wall), and the kernels that took the most device time.
 """
 
 from __future__ import annotations
@@ -33,29 +47,52 @@ def _union_ms(intervals) -> float:
     return busy / 1e3
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--rows", type=int, default=4)
-    ap.add_argument("--context", type=int, default=512)
-    ap.add_argument("--windows", type=int, default=5)
-    args = ap.parse_args()
-
-    import numpy as np
+def _trace(run) -> dict:
+    """Trace one call of ``run`` (ending in a sync): its wall, the kernels
+    it ran and their busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from .engine.sampling import SamplingBatch
-    from .engine.torch_engine import EngineConfig, TorchEngine
-    from .models.config import ModelConfig
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type.name == "CUDA" and e.time_range is not None]
+    busy = _union_ms([(e.time_range.start, e.time_range.end)
+                      for e in kernels])
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"traced_window_wall_ms": wall, "kernels_per_window": len(kernels),
+            "device_busy_ms": busy,
+            "traced_idle_share": 1.0 - busy / wall if wall else None,
+            "top_kernels": [{"name": n[:80], "ms": ms, "launches": c}
+                            for n, (ms, c) in top]}
 
-    cfg = ModelConfig.llama3_8b()
-    ecfg = EngineConfig()
-    engine = TorchEngine(cfg, ecfg, seed=0, device="cuda")
-    engine.warmup()
+
+def profile_rows(engine, B: int, T: int, windows: int) -> dict:
+    import numpy as np
+    import torch
+
+    from .engine.cuda_graphs import to_host
+
+    ecfg = engine.ecfg
     dev = engine.device
-    B, T, ps, K = args.rows, args.context, ecfg.page_size, ecfg.decode_steps
-    pages_per_row = -(-(T + K * (args.windows + 2)) // ps)
+    ps, K = ecfg.page_size, ecfg.decode_steps
+    # every window run below (2 x (windows + 2) sync'ed, 3 x windows
+    # pipelined) writes K more positions per row
+    total = T + K * (5 * windows + 8)
+    pages_per_row = -(-total // ps)
     P = ecfg.bucket_pages(pages_per_row)
+    if B * pages_per_row > ecfg.num_pages - 1:
+        raise SystemExit(f"{B} rows of {total} positions need "
+                         f"{B * pages_per_row} pages; the pool has "
+                         f"{ecfg.num_pages - 1}")
     table = np.zeros((B, P), np.int32)
     for b in range(B):
         table[b, :pages_per_row] = 1 + b * pages_per_row + np.arange(
@@ -65,65 +102,109 @@ def main() -> None:
     positions = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
     slots = (table[:, :, None] * ps + np.arange(ps)).reshape(B, -1)[:, :T]
     i32 = dict(dtype=torch.int32, device=dev)
-    logits, kv_k, kv_v = engine.prefill_fn(
-        engine.params, torch.tensor(tokens, **i32),
-        torch.tensor(positions, **i32), engine.kv_k, engine.kv_v,
-        torch.tensor(table, **i32),
-        torch.tensor(slots.astype(np.int32), **i32),
-        torch.full((B,), T - 1, **i32))
-    sb = SamplingBatch.build([], B)
-    state = {"tok": torch.argmax(logits, -1).to(torch.int32),
-             "pos": torch.full((B,), T, **i32)}
-
-    def window():
-        toks, _, carry, _, _ = engine.decode_multi_fn(
-            engine.params, state["tok"], state["pos"],
-            torch.zeros(B, dtype=torch.bool, device=dev),
-            torch.zeros((B,), **i32), torch.full((B,), 1 << 20, **i32),
-            kv_k, kv_v, torch.tensor(table, **i32), sb.temperature,
-            sb.top_k, sb.top_p, sb.seeds,
-            torch.full((B, ecfg.max_eos_ids), -1, **i32), k_steps=K)
-        toks.cpu()  # the engine reads each window's tokens back
-        state["tok"], state["pos"] = carry[0], carry[1]
-
-    window()
+    graphs = engine.graphs
+    bk = graphs.bucket(B, P)
+    with graphs.stream_ctx():
+        logits, _, _ = engine.prefill_fn(
+            engine.params, torch.tensor(tokens, **i32),
+            torch.tensor(positions, **i32), engine.kv_k, engine.kv_v,
+            torch.tensor(table, **i32),
+            torch.tensor(slots.astype(np.int32), **i32),
+            torch.full((B,), T - 1, **i32))
+        bk.tok.copy_(torch.argmax(logits, -1).to(torch.int32))
+        bk.pos.fill_(T)
+        bk.done.zero_()
+        bk.steps.zero_()
+        bk.rem.fill_(1 << 20)
+        bk.table.copy_(torch.tensor(table, **i32))
+        bk.temperature.zero_()
+        bk.top_k.zero_()
+        bk.top_p.fill_(1.0)
+        bk.seeds.zero_()
+        bk.eos.fill_(-1)
     torch.cuda.synchronize()
-    walls = []
-    for _ in range(args.windows):
+
+    def eager():
+        toks, _, carry, _, _ = engine.decode_multi_fn(
+            engine.params, *bk.carry_in, engine.kv_k, engine.kv_v, bk.table,
+            bk.temperature, bk.top_k, bk.top_p, bk.seeds, bk.eos,
+            k_steps=K)
+        toks.cpu()  # the tokens are read back after each window
+        for dst, src in zip(bk.carry_in, carry):
+            dst.copy_(src)
+
+    def graph():
+        graphs.launch(bk)
+        bk.toks.cpu()
+        for dst, src in zip(bk.carry_in, bk.carry):
+            dst.copy_(src)
+
+    def timed(run, n):
+        walls = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return sorted(walls)
+
+    def pipelined(n):
+        """n windows, each read back after the next is enqueued; wall per
+        window over the run."""
         t0 = time.perf_counter()
-        window()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        window()
-        torch.cuda.synchronize()
-        traced_wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type.name == "CUDA" and e.time_range is not None]
-    busy = _union_ms([(e.time_range.start, e.time_range.end)
-                      for e in kernels])
-    by_name = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        pending = None
+        for _ in range(n):
+            graphs.launch(bk)
+            nxt = to_host(bk.toks)
+            for dst, src in zip(bk.carry_in, bk.carry):
+                dst.copy_(src)
+            if pending is not None:
+                pending[1].synchronize()
+                pending[0][0].numpy()
+            pending = nxt
+        pending[1].synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    out = {"rows": B, "context": T, "steps_per_window": K, "bucket": [B, P]}
+    with graphs.stream_ctx():
+        for name, run in (("eager", eager), ("graph", graph)):
+            run()
+            torch.cuda.synchronize()
+            walls = timed(run, windows)
+            median = walls[len(walls) // 2]
+            tr = _trace(run)
+            out[name] = {
+                "window_wall_ms": walls, "step_wall_ms_median": median / K,
+                "untraced_idle_share": 1.0 - tr["device_busy_ms"] / median,
+                **tr}
+        out["graph_pipelined"] = {
+            "window_wall_ms_mean": [pipelined(windows) for _ in range(3)]}
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rows", type=int, nargs="+", default=[4, 32])
+    ap.add_argument("--context", type=int, default=512)
+    ap.add_argument("--windows", type=int, default=10)
+    args = ap.parse_args()
+
+    import torch
+
+    from .engine.torch_engine import EngineConfig, TorchEngine
+    from .models.config import ModelConfig
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs an NVIDIA GPU")
+    engine = TorchEngine(ModelConfig.llama3_8b(), EngineConfig(), seed=0,
+                         device="cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=30).stdout.strip()
-    print(json.dumps({
-        "card": card, "rows": B, "context": T, "steps_per_window": K,
-        "window_wall_ms": sorted(walls),
-        "step_wall_ms_median": sorted(walls)[len(walls) // 2] / K,
-        "traced_window_wall_ms": traced_wall,
-        "kernels_per_window": len(kernels),
-        "device_busy_ms": busy,
-        "device_idle_share": 1.0 - busy / traced_wall if traced_wall else None,
-        "top_kernels": [{"name": n[:80], "ms": ms, "launches": c}
-                        for n, (ms, c) in top],
-    }, indent=1))
+    for B in args.rows:
+        res = profile_rows(engine, B, args.context, args.windows)
+        print(json.dumps({"card": card, **res}), flush=True)
 
 
 if __name__ == "__main__":

@@ -42,6 +42,10 @@ register_env("DYN_TORCH_KERNEL_BUILD_DIR", None, "ops",
 register_env("DYN_TORCH_NVCC", None, "ops",
              "Path of the nvcc that builds the CUDA kernels. Unset = nvcc "
              "on PATH, else /usr/local/cuda/bin/nvcc.")
+register_env("DYN_JIT_FENCE", None, "engine",
+             "Reaction to a CUDA-graph capture after warmup: unset = count "
+             "only (stats post_warmup_compiles_total), 'warn' = also log, "
+             "'raise' = raise PostWarmupCompileError.")
 register_env("HF_HUB_OFFLINE", "1", "external",
              "Set by dynamo_tpu_torch.llm.tokenizer unless already present: "
              "never hit the HuggingFace hub at serve time.")

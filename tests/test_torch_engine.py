@@ -1,8 +1,11 @@
 """The port's engine and serving chain against the JAX package's, on the
 CPU at ModelConfig.tiny() in float32, with the same (bridged) weights:
-greedy tokens through TorchEngine and JaxEngine must be identical, and
-the port's HTTP server must return the text the JAX LocalChatChain
-produces. Plus the port's isolation (it imports neither jax nor
+greedy tokens through TorchEngine and JaxEngine must be identical (both
+pipelined, the JAX default, and with pipeline_decode=False), and the
+port's HTTP server must return the text the JAX LocalChatChain produces.
+The pipeline's own rules: deferred page release, finishes on cancel and
+stop, the carry merge, the warmed grid, the decode-graph buckets and the
+capture fence. Plus the port's isolation (it imports neither jax nor
 dynamo_tpu) and its refusal to fall back to the CPU."""
 
 import asyncio
@@ -18,6 +21,7 @@ import torch
 
 from dynamo_tpu.engine.jax_engine import EngineConfig as JaxEngineConfig
 from dynamo_tpu.engine.jax_engine import JaxEngine
+from dynamo_tpu.engine.jax_engine import _merge_carry as jax_merge_carry
 from dynamo_tpu.llm.engines import LocalChatChain as JaxChatChain
 from dynamo_tpu.llm.model_card import ModelDeploymentCard as JaxCard
 from dynamo_tpu.llm.protocols.common import (PreprocessedRequest as
@@ -28,7 +32,9 @@ from dynamo_tpu.llm.protocols.openai import (ChatCompletionRequest as
 from dynamo_tpu.models.config import ModelConfig as JaxModelConfig
 from dynamo_tpu.models.llama import init_params as jax_init_params
 from dynamo_tpu.runtime.engine import Context as JaxContext
-from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+from dynamo_tpu_torch.engine.jit_fence import PostWarmupCompileError
+from dynamo_tpu_torch.engine.torch_engine import (EngineConfig, TorchEngine,
+                                                  _merge_carry)
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.protocols.common import (PreprocessedRequest,
                                                    StopConditions)
@@ -43,14 +49,16 @@ ECFG = dict(page_size=8, num_pages=64, max_batch=4, prefill_chunk=16,
             decode_steps=4)
 
 
-def _engines():
+def _engines(**torch_ecfg):
+    """(JaxEngine, TorchEngine) with the same weights; ``torch_ecfg``
+    overrides the port's EngineConfig only."""
     jcfg, tcfg = JaxModelConfig.tiny(), ModelConfig.tiny()
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(3))
     tparams = params_from_numpy({k: np.asarray(v) for k, v in
                                  jparams.items()}, tcfg, device="cpu")
     jeng = JaxEngine(jcfg, JaxEngineConfig(**ECFG), params=jparams)
-    teng = TorchEngine(tcfg, EngineConfig(**ECFG), params=tparams,
-                       device="cpu")
+    teng = TorchEngine(tcfg, EngineConfig(**{**ECFG, **torch_ecfg}),
+                       params=tparams, device="cpu")
     return jeng, teng
 
 
@@ -107,21 +115,28 @@ def test_device_stop_matches_jax_engine():
     assert got[0][1] == "eos" and got[0][0][-1] == eos[0]
 
 
-def test_preemption_resumes_token_identical():
-    """A pool too small for every row forces preemption + resume; the
-    tokens still match an unconstrained run."""
-    _, teng = _engines()
+def test_preemption_resumes_token_identical(caplog):
+    """A pool too small for every row forces preemption (the pipeline is
+    flushed first, so 16 pages: at 20 the flush frees enough) + resume;
+    the tokens still match an unconstrained run and the JAX engine's."""
+    jeng, teng = _engines()
     want = asyncio.run(_generate_all(teng, PreprocessedRequest,
                                      StopConditions, Context,
                                      max_tokens=(20, 20, 20, 20)))
     tcfg = ModelConfig.tiny()
-    small = TorchEngine(tcfg, EngineConfig(**{**ECFG, "num_pages": 20,
+    small = TorchEngine(tcfg, EngineConfig(**{**ECFG, "num_pages": 16,
                                               "watermark_pages": 1}),
                         params=teng.params, device="cpu")
-    got = asyncio.run(_generate_all(small, PreprocessedRequest,
-                                    StopConditions, Context,
-                                    max_tokens=(20, 20, 20, 20)))
+    with caplog.at_level("WARNING", logger="dynamo_tpu_torch.engine"):
+        got = asyncio.run(_generate_all(small, PreprocessedRequest,
+                                        StopConditions, Context,
+                                        max_tokens=(20, 20, 20, 20)))
     assert got == want
+    assert any("preempting" in r.getMessage() for r in caplog.records)
+    jax_want = asyncio.run(_generate_all(jeng, JaxRequest, JaxStop,
+                                         JaxContext,
+                                         max_tokens=(20, 20, 20, 20)))
+    assert got == jax_want
 
 
 def test_warmup_writes_nothing_and_keeps_tokens():
@@ -136,6 +151,238 @@ def test_warmup_writes_nothing_and_keeps_tokens():
     got = asyncio.run(_generate_all(teng, PreprocessedRequest,
                                     StopConditions, Context))
     assert got == want
+
+
+@pytest.mark.parametrize("scenario", ["greedy", "device_stop",
+                                      "preemption"])
+def test_unpipelined_tokens_match_jax_engine(scenario):
+    """pipeline_decode=False (each window read back before the next
+    dispatch) gives the JAX engine's tokens in the greedy, device-stop
+    and preemption scenarios."""
+    jeng, teng = _engines(pipeline_decode=False)
+    kw, eos = {}, None
+    if scenario == "device_stop":
+        # a stop id the model samples mid-run (as in the pipelined test)
+        free = asyncio.run(_generate_all(_engines()[1], PreprocessedRequest,
+                                         StopConditions, Context))
+        eos = [free[0][0][3]]
+    if scenario == "preemption":
+        kw = dict(max_tokens=(20, 20, 20, 20))
+        teng = TorchEngine(ModelConfig.tiny(), EngineConfig(**{
+            **ECFG, "num_pages": 16, "watermark_pages": 1,
+            "pipeline_decode": False}), params=teng.params, device="cpu")
+    want = asyncio.run(_generate_all(jeng, JaxRequest, JaxStop, JaxContext,
+                                     eos=eos, **kw))
+    got = asyncio.run(_generate_all(teng, PreprocessedRequest,
+                                    StopConditions, Context, eos=eos, **kw))
+    assert got == want
+    if scenario == "device_stop":
+        assert got[0][1] == "eos" and got[0][0][-1] == eos[0]
+
+
+@pytest.mark.parametrize("toggle", ["admit_in_step", "overlap_idle_prefill",
+                                    "cache_sampler_params"])
+def test_hot_path_toggles_keep_jax_tokens(toggle):
+    """Each of the JAX engine's hot-path toggles, turned off in the port,
+    moves where host work lands, never the tokens."""
+    jeng, teng = _engines(**{toggle: False})
+    want = asyncio.run(_generate_all(jeng, JaxRequest, JaxStop, JaxContext))
+    got = asyncio.run(_generate_all(teng, PreprocessedRequest,
+                                    StopConditions, Context))
+    assert got == want
+
+
+PREFIX = list(range(200, 220))  # 20 tokens: two full pages of 8
+
+
+async def _stop_then_prefix_hit(engine, request_cls, stop_cls, ctx_cls):
+    """Request A stops after 6 tokens (in its second decode window, so a
+    third window holding it is in flight when the host learns of it);
+    request B then continues A's prompt and tokens and hits A's pages."""
+    async def run(tokens, n):
+        req = request_cls(token_ids=list(tokens), stop=stop_cls(max_tokens=n),
+                          eos_token_ids=[])
+        toks, fin = [], None
+        async for out in engine.generate(req, ctx_cls()):
+            toks += out.token_ids
+            fin = out.finish_reason or fin
+        return toks, fin
+
+    async def long_row():
+        return await run([3, 1, 4, 1, 5], 24)
+
+    try:
+        other = asyncio.ensure_future(long_row())
+        a = await run(PREFIX, 6)
+        b = await run(PREFIX + a[0][:5], 7)
+        c = await other
+    finally:
+        await engine.stop()
+    return [a, b, c], engine.stats()["prefix_hit_tokens_total"]
+
+
+def test_row_stopping_mid_pipeline_defers_release_and_prefix_hit():
+    """A row that finishes in window N while window N+1 (holding it) is in
+    flight: its pages are released, and its finish emitted, only once no
+    window in flight holds it. A later request that prefix-hits those
+    pages gets the JAX engine's tokens."""
+    jeng, teng = _engines()
+    deferred, early = [], []
+    orig_defer, orig_release = teng._release_or_defer, teng._release
+
+    def spy_defer(seq):
+        if any(id(seq) in w.index for w in teng._inflight):
+            deferred.append(seq)
+        orig_defer(seq)
+
+    def spy_release(seq):
+        if seq.pages and any(id(seq) in w.index for w in teng._inflight):
+            early.append(seq)
+        orig_release(seq)
+
+    teng._release_or_defer, teng._release = spy_defer, spy_release
+    want, want_hits = asyncio.run(_stop_then_prefix_hit(
+        jeng, JaxRequest, JaxStop, JaxContext))
+    got, hits = asyncio.run(_stop_then_prefix_hit(
+        teng, PreprocessedRequest, StopConditions, Context))
+    assert got == want
+    assert [f for _, f in got] == ["length"] * 3
+    assert deferred and not early
+    assert hits == want_hits and hits >= 16
+    assert not teng._deferred_free and not teng._inflight
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_cancel_and_stop_in_flight_finish_every_client(pipeline):
+    """One request is cancelled while its windows are in flight, then
+    stop() lands while the others still decode: every client's stream
+    ends with a finish_reason, and nothing stays in flight."""
+    _, teng = _engines(pipeline_decode=pipeline,
+                       page_buckets=(8,), num_pages=64)
+    ctxs = [Context() for _ in range(3)]
+    stopper = []
+
+    async def one(i):
+        req = PreprocessedRequest(token_ids=[5 + i, 6, 7, 8, 9],
+                                  stop=StopConditions(max_tokens=50),
+                                  eos_token_ids=[])
+        chunks, fin = 0, None
+        async for out in teng.generate(req, ctxs[i]):
+            chunks += bool(out.token_ids)
+            if i == 0 and chunks == 2:
+                ctxs[0].stop_generating()
+            if i == 1 and chunks == 3 and not stopper:
+                stopper.append(asyncio.ensure_future(teng.stop()))
+            fin = out.finish_reason or fin
+        return fin
+
+    async def main():
+        fins = await asyncio.wait_for(
+            asyncio.gather(*[one(i) for i in range(3)]), 120)
+        await stopper[0]
+        return fins
+
+    fins = asyncio.run(main())
+    assert fins[0] == "cancelled"
+    assert all(f in ("cancelled", "length") for f in fins[1:]), fins
+    assert not teng._inflight and teng._pending_prefill is None
+    assert not teng.running and not teng._deferred_free
+
+
+def test_merge_carry_matches_jax():
+    """The port's _merge_carry equals the JAX one on seeded random
+    carries (out-of-range src clamps), returned or written in place."""
+    rng = np.random.RandomState(8)
+    for Bp, Bn in ((5, 7), (4, 4), (8, 2)):
+        c = (rng.randint(0, 500, Bp), rng.randint(-1, 300, Bp),
+             rng.rand(Bp) < 0.5, rng.randint(0, 40, Bp),
+             rng.randint(0, 9, Bp))
+        c = tuple(a.astype(bool if a.dtype == bool else np.int32) for a in c)
+        src = rng.randint(-2, Bp + 2, Bn).astype(np.int32)
+        fc = rng.rand(Bn) < 0.6
+        n = tuple(rng.randint(-1, 100, Bn).astype(np.int32) for _ in range(4))
+        want = jax_merge_carry(*c, src, fc, *n)
+        t = [torch.from_numpy(np.asarray(a)) for a in (*c, src, fc, *n)]
+        got = _merge_carry(*t)
+        out = (torch.zeros(Bn, dtype=torch.int32),
+               torch.zeros(Bn, dtype=torch.int32),
+               torch.ones(Bn, dtype=torch.bool),
+               torch.zeros(Bn, dtype=torch.int32),
+               torch.zeros(Bn, dtype=torch.int32))
+        _merge_carry(*t, out=out)
+        for w, g, o in zip(want, got, out):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            np.testing.assert_array_equal(o.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("cfg", [
+    {}, ECFG,
+    # prefill_chunk above the largest prefill bucket, max_batch outside
+    # the batch buckets, a pool smaller than the largest page bucket
+    dict(prefill_chunk=1024, max_batch=48, num_pages=40),
+    dict(page_size=16, prefill_chunk=96, prefill_buckets=(32,),
+         batch_buckets=(3, 5), max_batch=7, max_prefill_batch=2,
+         page_buckets=(2, 4), num_pages=300)])
+def test_warmed_grid_matches_jax(cfg):
+    assert EngineConfig(**cfg).warmed_grid() == \
+        JaxEngineConfig(**cfg).warmed_grid()
+
+
+def test_warmup_captures_the_decode_grid_and_serving_captures_none():
+    """warmup() makes one decode bucket per (batch, page) of the warmed
+    grid and arms the fence; serving then captures nothing. A bucket
+    outside the grid counts in post_warmup_compiles_total, and raises
+    under DYN_JIT_FENCE=raise."""
+    _, teng = _engines()
+    teng.warmup()
+    grid = teng.ecfg.warmed_grid()
+    assert set(teng.graphs.buckets) == {
+        (B, P) for B in grid["decode_batches"] for P in grid["page_buckets"]}
+    assert teng.fence.armed
+    asyncio.run(_generate_all(teng, PreprocessedRequest, StopConditions,
+                              Context))
+    assert teng.stats()["post_warmup_compiles_total"] == 0
+    teng.graphs.bucket(3, 8)
+    assert teng.stats()["post_warmup_compiles_total"] == 1
+    os.environ["DYN_JIT_FENCE"] = "raise"
+    try:
+        with pytest.raises(PostWarmupCompileError, match="B=2, P=16"):
+            teng.graphs.bucket(2, 16)
+    finally:
+        del os.environ["DYN_JIT_FENCE"]
+    assert teng.stats()["post_warmup_compiles_total"] == 2
+    assert (2, 16) not in teng.graphs.buckets
+
+
+def test_decode_buckets_pad_rows_and_copy_out():
+    """Three running rows take the batch bucket of 4: the fourth row of
+    the static inputs is padding (position -1, page table 0). Each
+    window's host copy, read one iteration later, holds what its launch
+    left in the static outputs, though later launches overwrite them."""
+    _, teng = _engines()
+    launched, read = [], []
+    orig_launch, orig_process = teng.graphs.launch, teng._process_window
+
+    def spy_launch(bk):
+        orig_launch(bk)
+        launched.append((bk.B, bk.P, bk.pos.clone(), bk.table.clone(),
+                         bk.toks.clone(), bk.emitted.clone()))
+
+    def spy_process(pend):
+        if not pend.processed:
+            read.append((pend.host[0].clone(), pend.host[1].clone()))
+        orig_process(pend)
+
+    teng.graphs.launch, teng._process_window = spy_launch, spy_process
+    asyncio.run(_generate_all(teng, PreprocessedRequest, StopConditions,
+                              Context, max_tokens=(9, 12, 10)))
+    three = [x for x in launched if int((x[2] >= 0).sum()) == 3]
+    assert three and all(B == 4 and P == 8 for B, P, *_ in three)
+    for _, _, pos, table, _, _ in three:
+        assert int(pos[3]) == -1 and not table[3].any()
+    assert len(read) == len(launched) >= 3
+    for (toks, n), x in zip(read, launched):
+        assert torch.equal(toks, x[4]) and torch.equal(n, x[5])
 
 
 def test_stats_keys_are_jax_engine_keys():

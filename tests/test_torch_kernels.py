@@ -406,3 +406,138 @@ def test_cuda_decode_other_shapes_run_the_generic_kernel(cuda_device, dtype,
     _decode_check(cuda_device, q, kp, vp, table, lengths, lower,
                   tol=1e-5 if f32 else 2e-2, rtol=0.0 if f32 else 1e-2)
     assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 0, "generic": 2}
+
+
+# ------------------------------------------------ decode windows as graphs
+
+
+def _window_case(dev, dtype):
+    """A tiny model at a kernel-route width (head_dim 64, page 16), four
+    rows prefilled to 37, 16 and 5 positions plus a padding row, and the
+    inputs of one fused window: greedy rows, one sampled row, one stop
+    id."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.tiny(head_dim=64, dtype=(
+        "bfloat16" if dtype == torch.bfloat16 else "float32"))
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    ps, N, B, P, T = 16, 40, 4, 8, 48
+    kk, vv = llama.init_kv_cache(cfg, llama.KVCacheSpec(N, ps), device=dev)
+    lens = [37, 16, 5, 0]
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(1, 500, (B, T), generator=g, dtype=torch.int32)
+    positions = torch.full((B, T), -1, dtype=torch.int32)
+    table = torch.zeros((B, P), dtype=torch.int32)
+    slots = torch.full((B, T), llama.DROP_SLOT, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        positions[b, :n] = torch.arange(n)
+        table[b, :5] = torch.arange(1 + 5 * b, 6 + 5 * b)
+        p = torch.arange(n)
+        slots[b, :n] = table[b, p // ps] * ps + p % ps
+    pre, _ = llama.make_step_fns(cfg)
+    last = torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32)
+    pre(params, *(t.to(dev) for t in (tokens, positions)), kk, vv,
+        *(t.to(dev) for t in (table, slots, last)))
+    i32 = dict(dtype=torch.int32, device=dev)
+    inputs = (
+        torch.tensor([7, 8, 9, 0], **i32),
+        torch.tensor([n if n else -1 for n in lens], **i32),
+        torch.zeros(B, dtype=torch.bool, device=dev),
+        torch.tensor([1, 1, 1, 0], **i32), torch.tensor([9, 9, 2, 1], **i32),
+        table.to(dev), torch.tensor([0.0, 0.8, 0.0, 0.0], device=dev),
+        torch.tensor([0, 8, 0, 0], **i32),
+        torch.tensor([1.0, 0.9, 1.0, 1.0], device=dev),
+        torch.tensor([0, 77, 0, 0], dtype=torch.int64, device=dev),
+        torch.tensor([[-1, -1], [-1, -1], [11, -1], [-1, -1]], **i32))
+    window = llama.make_decode_window_fn(cfg, max_top_k=16)
+    return params, kk, vv, window, inputs
+
+
+def _fill(bk, inputs):
+    statics = bk.carry_in + (bk.table, bk.temperature, bk.top_k, bk.top_p,
+                             bk.seeds, bk.eos)
+    for dst, src in zip(statics, inputs):
+        dst.copy_(src)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_graph_window_matches_eager(cuda_device, dtype):
+    """One fused window by graph replay and one called eagerly from the
+    same inputs and pools: tokens, emitted counts and carry identical;
+    the committed K/V within the dtype's tolerance (and, as the same
+    kernels run on the same inputs, expected bitwise equal)."""
+    from dynamo_tpu_torch.engine.cuda_graphs import DecodeGraphs
+
+    params, kk, vv, window, inputs = _window_case(cuda_device, dtype)
+    ek, ev = kk.clone(), vv.clone()
+    e_toks, e_n, e_carry, _, _ = window(params, *inputs[:5], ek, ev,
+                                        *inputs[5:], k_steps=4)
+    graphs = DecodeGraphs(window, params, kk, vv, k_steps=4, max_eos_ids=2)
+    graphs.capture([(4, 8)])
+    bk = graphs.buckets[(4, 8)]
+    assert bk.graph is not None
+    with graphs.stream_ctx():
+        _fill(bk, inputs)
+        graphs.launch(bk)
+    torch.cuda.synchronize()
+    assert torch.equal(bk.toks, e_toks) and torch.equal(bk.emitted, e_n)
+    for a, b in zip(bk.carry, e_carry):
+        assert torch.equal(a, b)
+    assert e_n.tolist()[3] == 0 and e_n.tolist()[0] == 4
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for got, want in ((kk, ek), (vv, ev)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=tol)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_launch_on_an_unwarmed_stream_raises(cuda_device):
+    """The graphs run on the stream they were warmed and captured on (the
+    bf16 decode kernel's arrival counters of that stream are baked in):
+    a launch from any other stream fails loudly, as the decode wrapper
+    does for a capture of a stream it never ran on."""
+    from dynamo_tpu_torch.engine.cuda_graphs import DecodeGraphs
+
+    params, kk, vv, window, inputs = _window_case(cuda_device,
+                                                  torch.bfloat16)
+    graphs = DecodeGraphs(window, params, kk, vv, k_steps=4, max_eos_ids=2)
+    graphs.capture([(4, 8)])
+    bk = graphs.buckets[(4, 8)]
+    with torch.cuda.stream(torch.cuda.Stream()):
+        with pytest.raises(RuntimeError, match="never warmed"):
+            graphs.launch(bk)
+    with graphs.stream_ctx():
+        graphs.launch(bk)  # its own stream: runs
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replay_counts_equal_eager_counts(cuda_device):
+    """A replay adds the launch counts its capture recorded: the same as
+    one eager call of the window, all on the bf16 decode route; the
+    capture itself adds none."""
+    from dynamo_tpu_torch.engine.cuda_graphs import DecodeGraphs
+
+    params, kk, vv, window, inputs = _window_case(cuda_device,
+                                                  torch.bfloat16)
+    ops.reset_launch_counts()
+    window(params, *inputs[:5], kk.clone(), vv.clone(), *inputs[5:],
+           k_steps=4)
+    eager = (dict(ops.LAUNCHES), dict(ops.DECODE_ROUTE_LAUNCHES))
+    graphs = DecodeGraphs(window, params, kk, vv, k_steps=4, max_eos_ids=2)
+    graphs.capture([(4, 8)])
+    ops.reset_launch_counts()
+    graphs.capture([(4, 8)])  # captured already: nothing happens
+    assert sum(ops.LAUNCHES.values()) == 0
+    bk = graphs.buckets[(4, 8)]
+    with graphs.stream_ctx():
+        _fill(bk, inputs)
+        graphs.launch(bk)
+        graphs.launch(bk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {k: 2 * n for k, n in eager[0].items()}
+    assert ops.DECODE_ROUTE_LAUNCHES == {k: 2 * n for k, n in
+                                         eager[1].items()}
+    assert eager[1] == {"bf16_mma": 8, "generic": 0}

@@ -2,7 +2,9 @@
 the CPU at ModelConfig.tiny() in float32: the same params (JAX init,
 bridged through numpy) and the same inputs go through both sides.
 Tolerance atol 1e-4 on logits (float32 end to end; the two frameworks
-sum in different orders); decode-window tokens must be identical."""
+sum in different orders); decode-window tokens must be identical. The
+page scatters and the fused decode window read no tensor value on the
+host (no sync, so the window can be captured in a CUDA graph)."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +17,7 @@ from dynamo_tpu.models.config import ModelConfig as JaxModelConfig
 from dynamo_tpu_torch.models import llama as tl
 from dynamo_tpu_torch.models.bridge import params_from_numpy
 from dynamo_tpu_torch.models.config import ModelConfig
+from torch_sync_guard import NoHostReads
 
 PAGE = 8
 ATOL = 1e-4
@@ -240,6 +243,113 @@ def test_decode_window_tokens_match_jax_with_mid_window_eos():
         np.testing.assert_array_equal(g[:3], w[:3])
     np.testing.assert_allclose(got[3], want[3], atol=1e-5)
     np.testing.assert_allclose(got[4], want[4], atol=1e-5)
+
+
+def _kept_scatter(pool, new, idx, paged):
+    """The scatters as they were before the fixed-shape form: select the
+    kept entries (a data-dependent shape), write only those."""
+    pool = pool.clone()
+    N, KV, ps, hd = pool.shape
+    flat = idx.reshape(-1).long()
+    if paged:
+        B, T = new.shape[:2]
+        rows = new.reshape(B, T // ps, ps, KV, hd).permute(
+            0, 1, 3, 2, 4).reshape(-1, KV, ps, hd)
+        keep = torch.nonzero((flat >= 0) & (flat < N)).flatten()
+        pool[flat[keep]] = rows[keep].to(pool.dtype)
+    else:
+        rows = new.reshape(-1, KV, hd)
+        keep = torch.nonzero((flat >= 0) & (flat < N * ps)).flatten()
+        k = flat[keep]
+        pool[k // ps, :, k % ps] = rows[keep].to(pool.dtype)
+    return pool
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["mixed", "all_dropped", "one_kept"])
+def test_fixed_shape_scatters_equal_kept_scatters(case, dtype):
+    """The fixed-shape scatters (_drop_plan) write exactly what the old
+    kept-index scatters wrote, bit for bit, on pools with DROP_SLOT rows,
+    negative slots and page ids past the pool; page 0 (never handed out
+    by the engine) keeps every byte, also when nothing is kept."""
+    rng = np.random.RandomState(6)
+    N, KV, ps, hd, B, T = 7, 2, 4, 8, 3, 8
+    pool = torch.from_numpy(rng.randn(N, KV, ps, hd).astype(np.float32)).to(
+        dtype)
+    new = torch.from_numpy(rng.randn(B, T, KV, hd).astype(np.float32))
+    flat = torch.from_numpy(rng.randint(ps, N * ps, (B, T)).astype(np.int32))
+    flat = torch.where(torch.from_numpy(rng.rand(B, T) < 0.4),
+                       tl.DROP_SLOT, flat)
+    flat[0, 1] = -3
+    pslots = torch.tensor([[2, N], [N + 5, 4], [-1, 6]], dtype=torch.int32)
+    if case == "all_dropped":
+        flat = torch.full_like(flat, tl.DROP_SLOT)
+        pslots = torch.full_like(pslots, N)
+    elif case == "one_kept":
+        keep = flat[1, 3]
+        flat = torch.full_like(flat, tl.DROP_SLOT)
+        flat[1, 3] = keep if keep < N * ps else ps
+        pslots = torch.full_like(pslots, N)
+        pslots[2, 1] = 3
+    # flat slots are unique (a real commit never writes a slot twice)
+    seen = set()
+    for b in range(B):
+        for t in range(T):
+            v = int(flat[b, t])
+            if 0 <= v < N * ps:
+                while v in seen:
+                    v = ps + (v + 1) % (N * ps - ps)
+                seen.add(v)
+                flat[b, t] = v
+    for paged, idx in ((False, flat), (True, pslots)):
+        want = _kept_scatter(pool, new, idx, paged)
+        fn = tl._scatter_pages_paged if paged else tl._scatter_pages
+        with NoHostReads():
+            got = fn(pool.clone(), new, idx)
+        assert torch.equal(got, want), (case, paged)
+        assert torch.equal(got[0], pool[0])
+        if case == "all_dropped":
+            assert torch.equal(got, pool)
+
+
+def test_decode_window_reads_no_host_value():
+    """The fused window, sampled rows included, runs under a mode that
+    fails any host read of a tensor value, and gives the same tokens,
+    carry and pools as without it."""
+    _, tcfg, _, tp, _, (tk, tv) = _setup()
+    t_pre, _ = tl.make_step_fns(tcfg)
+    B, T, P, K = 3, 16, 4, 4
+    pages = [[1, 2, 3], [4, 5, 6], []]
+    tokens, positions, table, slots, last = _prefill_inputs(
+        B, T, P, [0, 0, 0], [12, 16, 0], pages)
+    _, tk, tv = t_pre(tp, _t(tokens), _t(positions), tk, tv, _t(table),
+                      _t(slots), _t(last))
+    fn = tl.make_decode_window_fn(tcfg, True, 64)
+    args = dict(
+        tokens=_t(np.array([3, 4, 0], np.int32)),
+        positions=_t(np.array([12, 16, -1], np.int32)),
+        done=torch.zeros(B, dtype=torch.bool),
+        steps=_t(np.array([1, 1, 0], np.int32)),
+        remaining=_t(np.array([9, 2, 1], np.int32)), page_table=_t(table),
+        temperature=_t(np.array([0.0, 0.8, 0.0], np.float32)),
+        top_k=_t(np.array([0, 10, 0], np.int32)),
+        top_p=_t(np.array([1.0, 0.9, 1.0], np.float32)),
+        seeds=_t(np.array([0, 77, 0], np.int64)),
+        eos_table=_t(np.full((B, 2), -1, np.int32)))
+    outs = []
+    for guard in (False, True):
+        k, v = tk.clone(), tv.clone()
+        if guard:
+            with NoHostReads():
+                out = fn(tp, kv_k=k, kv_v=v, k_steps=K, **args)
+        else:
+            out = fn(tp, kv_k=k, kv_v=v, k_steps=K, **args)
+        outs.append(out)
+    (ta, ea, ca, ka, va), (tb, eb, cb, kb, vb) = outs
+    assert torch.equal(ta, tb) and torch.equal(ea, eb)
+    assert all(torch.equal(x, y) for x, y in zip(ca, cb))
+    assert torch.equal(ka, kb) and torch.equal(va, vb)
+    assert ea.tolist() == [4, 2, 0]
 
 
 def test_unported_families_raise():
