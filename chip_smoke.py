@@ -14,20 +14,35 @@ Phases; any failure exits non-zero before the result line:
    second chunk that skips pages, the fourth chunk of a 2048-token prompt;
 4. serve Llama-3-8B-shaped requests (32 layers at full width, random
    weights from a seed, byte tokenizer) over the OpenAI HTTP front end on
-   a local port, with pipelined decode windows, each one replay of the
-   CUDA graph warmup() captured for its (batch, page) bucket: every
-   bucket of the warmed grid must be captured, and serving must capture
-   none (post_warmup_compiles_total 0); concurrent streaming and unary
-   requests, then a repeated greedy request that must give identical
-   tokens; the launch counts of both kernels (replays count the launches
-   their capture recorded), reset just before and read just after, must
-   be above 0, and every decode call must have taken the bf16 decode
-   kernel; then prefill and one teacher-forced decode window on the
-   kernel path against the plain path (logits of every step, K/V of every
-   window position), with two injected faults as controls that must fail
-   it; then one 8B window by graph replay against the same window called
-   eagerly from the same inputs and pools (tokens, emitted counts and
-   carry identical, the written K/V within bf16 tolerance);
+   a local port, with pipelined decode windows and prefill chunks, each
+   one replay of the CUDA graph warmup() captured for its bucket (decode
+   per (batch, page), prefill per (prefill batch, chunk length, page)):
+   every bucket of both warmed grids must be captured, and serving must
+   capture none (post_warmup_compiles_total 0); four concurrent streaming
+   and unary requests (the service's first: the cold batch), the same
+   four three times more (the warm batches), once more with the engine's
+   dispatch profiler sampling every iteration (its bucket_cost printed,
+   kept apart from the timed batches since sampling syncs), then a
+   repeated greedy request that must give identical tokens. Each batch's
+   TTFT is broken down per request into stages (client send -> engine
+   entry, queue wait, admission -> first-token read-back, read-back ->
+   emission, emission -> the token reaching the HTTP chain) that must sum
+   to the measured TTFT within 1 ms, and the engine's own TTFT histogram
+   must agree with the stamps. The launch counts of both kernels
+   (replays count the launches their capture recorded), reset just
+   before and read just after, must be above 0 and equal to the graph
+   replays times the calls one replay makes (no eager dispatch), and
+   every decode call must have taken the bf16 decode kernel; then prefill
+   and one teacher-forced decode window on the kernel path against the
+   plain path (logits of every step, K/V of every window position), with
+   two injected faults as controls that must fail it; then one 8B window
+   by graph replay against the same window called eagerly from the same
+   inputs and pools (tokens, emitted counts and carry identical, the
+   written K/V within bf16 tolerance), and two 8B prefill chunks by graph
+   replay against the same chunks called eagerly (a first chunk of 512
+   tokens; a batch of 8 rows of 64 with three real rows, one of them
+   sampled): sampled tokens, logits and the whole K/V pools bitwise
+   equal;
 5. time each kernel at the serving shapes beside its bound, its plain
    version and scaled_dot_product_attention on the same dense work, and
    hold it against its plain version there (bf16 tolerance): decode in
@@ -372,6 +387,71 @@ class TapEngine:
             yield out
 
 
+class StageClock:
+    """Stage stamps of each request's first token, taken by wrapping the
+    engine's first-token read-back (``_process_prefill``: the wait on the
+    chunk's event, done here first), its emission (``_emit``: entry and
+    admission times from the sequence) and both graph sets' launches (a
+    log of the dispatches), on this engine instance only."""
+
+    def __init__(self, engine):
+        self.read = {}        # request id -> first-token read-back time
+        self.emit = {}        # request id -> (arrival, queue wait, emit)
+        self.dispatches = []  # (time, kind, bucket key)
+        process, emit = engine._process_prefill, engine._emit
+
+        def process_prefill(pf):
+            if not pf.processed:
+                if pf.event is not None:
+                    pf.event.synchronize()
+                now = time.monotonic()
+                for _, seq in pf.finishing:
+                    self.read.setdefault(seq.context.id, now)
+            process(pf)
+
+        def emit_first(seq, out):
+            if out.token_ids and seq.context.id not in self.emit:
+                self.emit[seq.context.id] = (seq.arrival, seq.queue_wait_s,
+                                             time.monotonic())
+            emit(seq, out)
+
+        engine._process_prefill = process_prefill
+        engine._emit = emit_first
+        for gs, kind in ((engine.graphs, "decode_window"),
+                         (engine.prefill_graphs, "prefill")):
+            def launch(bk, real=gs.launch, kind=kind):
+                self.dispatches.append((time.monotonic(), kind, bk.key))
+                real(bk)
+            gs.launch = launch
+
+    def stages(self, rid, sent, tap_first) -> dict:
+        """The request's TTFT and its stages (ms), and the dispatches
+        between its admission and its first token's read-back."""
+        arrival, wait, emitted = self.emit[rid]
+        admit, read = arrival + wait, self.read[rid]
+        ahead = [(kind, list(key)) for t, kind, key in self.dispatches
+                 if admit <= t <= read]
+        return {
+            "ttft_ms": (tap_first - sent) * 1e3,
+            "stages_ms": {
+                "send_to_engine": (arrival - sent) * 1e3,
+                "queue_wait": wait * 1e3,
+                "admit_to_readback": (read - admit) * 1e3,
+                "readback_to_emit": (emitted - read) * 1e3,
+                "emit_to_http": (tap_first - emitted) * 1e3},
+            "engine_ttft_ms": (emitted - arrival) * 1e3,
+            "ahead": {"prefill": [k for kind, k in ahead
+                                  if kind == "prefill"],
+                      "decode_windows": sum(kind == "decode_window"
+                                            for kind, _ in ahead)},
+        }
+
+
+def _ttft_hist(engine) -> tuple:
+    h = engine.stats()["latency_hist"].get("unified", {}).get("ttft", {})
+    return h.get("count", 0), h.get("sum", 0.0)
+
+
 async def serve_and_check(engine, mdc):
     import aiohttp
 
@@ -379,6 +459,7 @@ async def serve_and_check(engine, mdc):
     from dynamo_tpu_torch.run import serve_http
 
     tap = TapEngine(engine)
+    clock = StageClock(engine)
     svc = await serve_http(tap, mdc, "127.0.0.1", 0)
     base = f"http://127.0.0.1:{svc.port}"
     sent = {}
@@ -415,29 +496,71 @@ async def serve_and_check(engine, mdc):
             results[rid] = (await r.json())["choices"][0]["finish_reason"]
 
     long_prompt = ("The quick brown fox jumps over the lazy dog. " * 14)[:600]
+
+    async def batch(s, tag, first="T"):
+        """The four concurrent requests; their TTFT stages (checked to sum
+        to the TTFT within 1 ms, and against the engine's histogram).
+        ``first`` replaces the long prompt's first letter: another letter
+        changes the hash of each of its full pages, so the batch misses
+        the prefix cache and prefills what the first batch did (the three
+        short prompts fill no page and never hit it)."""
+        n0, sum0 = _ttft_hist(engine)
+        rids = [f"{tag}r0-stream", f"{tag}r1-stream", f"{tag}r2-unary",
+                f"{tag}r3-completion"]
+        t0 = time.monotonic()
+        await asyncio.gather(
+            chat(s, rids[0], "Tell me about paged attention.", 32, True),
+            chat(s, rids[1], first + long_prompt[1:], 32, True),
+            chat(s, rids[2], "What is an H100?", 24, False),
+            completion(s, rids[3], "Once upon a time", 24))
+        wall = time.monotonic() - t0
+        stages = {r: clock.stages(r, sent[r], tap.times[r][0][0])
+                  for r in rids}
+        for r, st in stages.items():
+            off = abs(sum(st["stages_ms"].values()) - st["ttft_ms"])
+            if off > 1.0:
+                fail(f"{r}: TTFT stages sum {off:.3f} ms off its TTFT")
+        n1, sum1 = _ttft_hist(engine)
+        stamped = sum(st["engine_ttft_ms"] for st in stages.values()) / 1e3
+        if n1 - n0 != len(rids) or abs((sum1 - sum0) - stamped) > 1e-3 * len(
+                rids):
+            fail(f"engine TTFT histogram ({n1 - n0} obs, {sum1 - sum0:.6f} "
+                 f"s) disagrees with the stage stamps ({stamped:.6f} s)")
+        return rids, wall, stages
+
     ops.reset_launch_counts()
-    t0 = time.monotonic()
+    replays0 = (engine.prefill_graphs.replays, engine.graphs.replays)
     async with aiohttp.ClientSession() as s:
         async with s.get(f"{base}/health") as r:
             if r.status != 200:
                 fail("health check failed")
-        await asyncio.gather(
-            chat(s, "r0-stream", "Tell me about paged attention.", 32, True),
-            chat(s, "r1-stream", long_prompt, 32, True),
-            chat(s, "r2-unary", "What is an H100?", 24, False),
-            completion(s, "r3-completion", "Once upon a time", 24))
-        wall = time.monotonic() - t0
+        concurrent, wall, cold = await batch(s, "")
+        warm = [(await batch(s, f"w{k}-", "ABC"[k - 1]))[2]
+                for k in range(1, 4)]
+        # the cold batch's requests again: the long prompt's first nine
+        # pages come from the prefix cache
+        hit = (await batch(s, "hit-"))[2]
+        # the sampled-profiler batch: every iteration drains the device
+        # once per dispatch, so it is timed by the profiler only
+        engine.profiler.sample = 1
+        try:
+            await batch(s, "prof-", "D")
+        finally:
+            engine.profiler.sample = 0
+        bucket_cost = engine.stats()["bucket_cost"]
         # the same greedy request twice, alone: identical tokens
         for rid in ("r4-repeat", "r5-repeat"):
             await chat(s, rid, "Tell me about paged attention.", 32, False)
     launches = dict(ops.LAUNCHES)
     route_launches = dict(ops.DECODE_ROUTE_LAUNCHES)
+    replays = (engine.prefill_graphs.replays - replays0[0],
+               engine.graphs.replays - replays0[1])
     await svc.stop()
     await engine.stop()
     compiles = engine.stats()["post_warmup_compiles_total"]
     if compiles != 0:
-        fail(f"{compiles} decode graphs captured while serving (after "
-             f"warmup): a bucket outside the warmed grid")
+        fail(f"{compiles} graphs captured while serving (after warmup): a "
+             f"bucket outside the warmed grid")
 
     for rid, toks in tap.tokens.items():
         if not toks:
@@ -452,11 +575,24 @@ async def serve_and_check(engine, mdc):
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the served path")
+    # every kernel call of the served path came from a graph replay: the
+    # prefill kernel once per layer of each replayed chunk, the decode
+    # kernel once per layer and step of each replayed window
+    L, K = engine.cfg.num_layers, engine.ecfg.decode_steps
+    if (launches["paged_attention_prefill"] != replays[0] * L
+            or launches["paged_attention_decode"] != replays[1] * L * K):
+        fail(f"launches {launches} are not the graph replays' ({replays[0]} "
+             f"prefill chunks x {L}, {replays[1]} windows x {L * K})")
     # bf16 Llama-3-8B widths: every decode call takes the bf16 kernel
     if route_launches != {"bf16_mma": launches["paged_attention_decode"],
                           "generic": 0}:
         fail(f"decode calls by route on the served path: {route_launches}")
-    concurrent = [r for r in sent if not r.endswith("-repeat")]
+    profiled = {k: v for k, v in bucket_cost.items()
+                if k.startswith(("prefill:", "decode_window:"))}
+    if not any(k.startswith("prefill:") for k in profiled) or not any(
+            k.startswith("decode_window:") for k in profiled):
+        fail(f"the sampled batch profiled no prefill or no window: "
+             f"{sorted(bucket_cost)}")
     ttft = [tap.times[r][0][0] - sent[r] for r in concurrent]
     itl = []
     for r in concurrent:
@@ -464,6 +600,16 @@ async def serve_and_check(engine, mdc):
         for (a, _), (b, n) in zip(ts, ts[1:]):
             itl += [(b - a) / n] * n
     n_tok = sum(len(tap.tokens[r]) for r in concurrent)
+    # per request of the batch, per stage: the warm runs' min and max
+    spread = {}
+    for i, r in enumerate(concurrent):
+        runs = [list(w.values())[i] for w in warm]
+        spread[r] = {
+            stage: [min(x["stages_ms"][stage] for x in runs),
+                    max(x["stages_ms"][stage] for x in runs)]
+            for stage in runs[0]["stages_ms"]}
+        spread[r]["ttft_ms"] = [min(x["ttft_ms"] for x in runs),
+                                max(x["ttft_ms"] for x in runs)]
     served = {
         "requests": len(sent), "concurrent": len(concurrent),
         # informational: the batch of 4 pads to other matmul shapes than a
@@ -472,7 +618,7 @@ async def serve_and_check(engine, mdc):
         == tap.tokens["r0-stream"],
         "tokens_concurrent": n_tok,
         "tokens_total": sum(len(t) for t in tap.tokens.values()),
-        "prompt_tokens": {r: tap.prompt_len[r] for r in sent},
+        "prompt_tokens": {r: tap.prompt_len[r] for r in concurrent},
         # context lengths of the concurrent rows at their last decode
         # window: the shapes the decode kernel saw
         "decode_lengths": [tap.prompt_len[r] + len(tap.tokens[r]) - 1
@@ -483,12 +629,22 @@ async def serve_and_check(engine, mdc):
         "output_tok_per_s": round(n_tok / wall, 3),
         "wall_s": round(wall, 3), "launches": launches,
         "route_launches": route_launches,
+        "replays": {"prefill": replays[0], "decode_window": replays[1]},
         "post_warmup_compiles_total": compiles,
         "decode_graphs": len(engine.graphs.buckets),
-        "graph_capture_s": round(engine.graphs.capture_seconds, 3),
-        "graph_pool_mib": round(engine.graphs.pool_bytes / 2**20, 1),
+        "prefill_graphs": len(engine.prefill_graphs.buckets),
+        "graph_capture_s": {
+            "decode": round(engine.graphs.capture_seconds, 3),
+            "prefill": round(engine.prefill_graphs.capture_seconds, 3)},
+        # the graph pool's own segments, by the captures that added them
+        # (decode first, then prefill)
+        "graph_pool_mib": {
+            "decode": round(engine.graphs.pool_bytes / 2**20, 1),
+            "prefill": round(engine.prefill_graphs.pool_bytes / 2**20, 1)},
     }
-    return served, tap
+    ttft_report = {"cold": cold, "warm": warm, "warm_spread": spread,
+                   "prefix_hit": hit, "bucket_cost_sampled": profiled}
+    return served, ttft_report
 
 
 # Limits of the served-model check (check_paths), set from readings on an
@@ -716,6 +872,91 @@ def check_graph_window(engine, cfg, dev) -> dict:
         fail(f"graph replay K/V differs from the eager window: max abs err "
              f"{result['kv_max_abs_err']:.4g}")
     return result
+
+
+def check_graph_prefill(engine, dev) -> dict:
+    """Two 8B prefill chunks and their first-token draws by graph replay
+    (their warmed buckets) against the same chunks called eagerly from
+    the same inputs and pools: a first chunk of 512 tokens alone (1 x 512
+    x 8 pages, page commit), and a batch of 8 rows of 64 (8 x 64 x 8, page
+    commit) with three real rows (a third chunk at positions 128-191, a
+    row of 40 and a sampled row of 7) and five padding rows. Sampled
+    tokens, logits and the whole K/V pools after the chunk must be
+    bitwise equal (the same kernels on the same inputs)."""
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine.cuda_graphs import to_device
+    from dynamo_tpu_torch.engine.sampling import sample_tokens
+
+    ecfg = engine.ecfg
+    ps = ecfg.page_size
+    graphs = engine.prefill_graphs
+    rng = np.random.RandomState(11)
+    # (bucket, rows of (start, length, pages, temperature, top_k, seed))
+    cases = {
+        "first_chunk_512": ((1, 512, 8, True),
+                            [(0, 512, list(range(1, 9)), 0.0, 0, 0)]),
+        "mixed_8x64": ((8, 64, 8, True),
+                       [(128, 64, [20, 21, 22], 0.0, 0, 0),
+                        (0, 40, [30], 0.0, 0, 0),
+                        (0, 7, [31], 0.8, 40, 7)]),
+    }
+    out = {}
+    for name, (key, rows) in cases.items():
+        bk = graphs.buckets[key]
+        if bk.graph is None:
+            fail(f"prefill bucket {key} has no graph")
+        img, f = bk.host_inputs()
+        for i, (start, n, pages, temp, top_k, seed) in enumerate(rows):
+            pos = np.arange(start, start + n)
+            pg = np.asarray(pages)
+            f["tokens"][i, :n] = rng.randint(0, 256, n)
+            f["positions"][i, :n] = pos
+            f["table"][i, :len(pages)] = pages
+            f["last_idx"][i] = n - 1
+            f["slots"][i, :n] = pg[pos // ps] * ps + pos % ps
+            npg = -(-n // ps)
+            f["pslots"][i, :npg] = pg[start // ps:start // ps + npg]
+            f["temperature"][i], f["top_k"][i] = temp, top_k
+            f["seeds"][i] = seed
+        host = {k: np.array(v) for k, v in f.items()}
+        with graphs.stream_ctx():
+            k0, v0 = engine.kv_k.clone(), engine.kv_v.clone()
+            d = {k: to_device(v, dev) for k, v in host.items()}
+            e_logits, _, _ = engine.prefill_fn(
+                engine.params, d["tokens"], d["positions"], engine.kv_k,
+                engine.kv_v, d["table"], d["slots"], d["last_idx"],
+                d["pslots"])
+            e_tok = sample_tokens(e_logits, d["temperature"], d["top_k"],
+                                  d["top_p"], d["seeds"], d["steps"],
+                                  max_top_k=ecfg.max_top_k)
+            e_k, e_v = engine.kv_k.clone(), engine.kv_v.clone()
+            engine.kv_k.copy_(k0)
+            engine.kv_v.copy_(v0)
+            graphs.run(bk, img)
+        torch.cuda.synchronize()
+        same = {"sampled": torch.equal(bk.sampled, e_tok),
+                "logits": torch.equal(bk.logits, e_logits),
+                "kv": torch.equal(engine.kv_k, e_k)
+                and torch.equal(engine.kv_v, e_v)}
+        # the chunk wrote its rows' pages and nothing else
+        pages = sorted({p for r in rows for p in r[2]})
+        changed = sorted(set(torch.nonzero(
+            (e_k != k0).flatten(2).any(-1).any(0))[:, 0].tolist()))
+        out[name] = {**same, "pages_written": changed,
+                     "logits_max_abs": float(e_logits.abs().max()),
+                     "sampled": bk.sampled.tolist()}
+        del k0, v0, e_k, e_v
+        log(f"  graph replay vs eager prefill {name}: "
+            f"{json.dumps(out[name])}")
+        if not all(same.values()):
+            fail(f"graph replay differs from the eager prefill chunk "
+                 f"{name}: {same}")
+        if not set(changed) <= set(pages) or not changed:
+            fail(f"prefill chunk {name} wrote pages {changed}, its rows own "
+                 f"{pages}")
+    return out
 
 
 # ------------------------------------------------------------ timings
@@ -970,25 +1211,40 @@ def main() -> None:
     engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda")
     engine.warmup()
     grid = engine.ecfg.warmed_grid()
-    want = {(B, P) for B in grid["decode_batches"]
-            for P in grid["page_buckets"]}
-    got = {k for k, bk in engine.graphs.buckets.items()
-           if bk.graph is not None}
+    ps = engine.ecfg.page_size
+    for gs, want in (
+            (engine.graphs, {(B, P) for B in grid["decode_batches"]
+                             for P in grid["page_buckets"]}),
+            (engine.prefill_graphs, {
+                (B, T, P, T % ps == 0) for B in grid["prefill_batches"]
+                for T in grid["prefill_lens"]
+                for P in grid["page_buckets"]})):
+        got = {k for k, bk in gs.buckets.items() if bk.graph is not None}
+        log(f"  {len(got)} {gs.kind} graphs captured in "
+            f"{gs.capture_seconds:.1f}s (warm call + capture each), "
+            f"graph pool +{gs.pool_bytes / 2**20:.0f} MiB")
+        if got != want or len(gs.buckets) != len(want):
+            fail(f"{gs.kind} graphs captured {sorted(got)} != the warmed "
+                 f"grid {sorted(want)}")
     log(f"  8B engine (32 layers, D=4096, V=128256, bf16, seed 0) built and "
         f"warmed up in {time.monotonic() - t:.1f}s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; "
-        f"{len(got)} decode graphs captured in "
-        f"{engine.graphs.capture_seconds:.1f}s (warm call + capture each), "
-        f"graph pool {engine.graphs.pool_bytes / 2**20:.0f} MiB")
-    if got != want or len(engine.graphs.buckets) != len(want):
-        fail(f"decode graphs captured {sorted(got)} != the warmed grid "
-             f"{sorted(want)}")
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     mdc = ModelDeploymentCard(name="llama3-8b-random")
     mdc.kv_block_size = engine.ecfg.page_size
-    served, _ = asyncio.run(serve_and_check(engine, mdc))
+    served, ttft = asyncio.run(serve_and_check(engine, mdc))
     log(f"  served: {json.dumps(served)}")
+    for batch_name, stages in (
+            ("cold", ttft["cold"]),
+            *((f"warm {k + 1}", w) for k, w in enumerate(ttft["warm"])),
+            ("prefix-hit", ttft["prefix_hit"])):
+        log(f"  TTFT stages, {batch_name} batch: {json.dumps(stages)}")
+    log(f"  TTFT stages, warm min-max per request: "
+        f"{json.dumps(ttft['warm_spread'])}")
+    log(f"  bucket_cost, sampled batch: "
+        f"{json.dumps(ttft['bucket_cost_sampled'])}")
     paths = check_paths(engine, cfg, dev)
     graph_window = check_graph_window(engine, cfg, dev)
+    graph_prefill = check_graph_prefill(engine, dev)
 
     log("phase 5: kernel timings at the serving shapes")
     # the first prefill chunk of the long prompt (r1-stream)
@@ -1018,8 +1274,9 @@ def main() -> None:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": card, "served": served, "paths": paths,
-                       "graph_window": graph_window, "kernels": rows,
+            json.dump({"card": card, "served": served, "ttft": ttft,
+                       "paths": paths, "graph_window": graph_window,
+                       "graph_prefill": graph_prefill, "kernels": rows,
                        "decode_errs": {" ".join(k): v
                                        for k, v in dec_errs.items()},
                        "window_errs": {" ".join(k): v
@@ -1033,7 +1290,7 @@ def main() -> None:
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -1,35 +1,53 @@
-"""CUDA graphs of the fused decode window, one per warmed (B, P) bucket.
+"""CUDA graphs of the engine's two dispatches, one per warmed bucket: the
+fused decode window per (B, P) and the prefill chunk per (B, T, P).
 
 This module plays the part of ``jax.jit``'s executable cache in the JAX
 engine (``dynamo_tpu/engine/jax_engine.py`` ``warmup``, which compiles
-one decode-window program per (batch, page) bucket of
-``EngineConfig.warmed_grid``). Each bucket owns static input buffers —
-the carry (tok, pos, done, steps, remaining), the page table [B, P], the
-sampler parameters and the stop table [B, E] — and the static outputs of
-its last launch (toks [B, K], emitted [B], the carry). On a CUDA device
-the window is captured once per bucket into a ``torch.cuda.CUDAGraph``
-and each launch is one replay; on the CPU the same buffers feed a direct
-call of the window function, so the CPU tests reach the bucket choice,
-padding, copy-in and copy-out around the graphs.
+one decode-window program per (batch, page) bucket and one prefill
+program per (page, chunk length, prefill batch) bucket of
+``EngineConfig.warmed_grid``). Each bucket owns static input buffers and
+the static outputs of its last launch. On a CUDA device the function is
+captured once per bucket into a ``torch.cuda.CUDAGraph`` and each launch
+is one replay; on the CPU the same buffers feed a direct call of the
+function, so the CPU tests reach the bucket choice, padding, copy-in and
+copy-out around the graphs.
 
-Rules the caller keeps (the engine does):
+- :class:`DecodeGraphs`: the window's carry (tok, pos, done, steps,
+  remaining), page table [B, P], sampler parameters and stop table
+  [B, E] in; toks [B, K], emitted [B] and the carry out.
+- :class:`PrefillGraphs`: one packed int32 buffer holding every input of
+  a chunk (tokens, positions, table, slots, last_idx, pslots and the
+  first-token sampler's temperature, top_k, top_p, seeds and steps), so
+  a dispatch is one upload, one replay and one copy of the sampled
+  tokens; logits [B, V] and sampled [B] out. Each bucket is captured in
+  the serving form of its shape, as the JAX engine warms it:
+  page-granular commit (``pslots``) when T % page_size == 0, row scatter
+  otherwise; the form is part of the key.
 
-- every launch runs on :attr:`DecodeGraphs.stream`, the stream the
-  graphs were warmed and captured on (the bf16 decode kernel's arrival
-  counters are per stream and are baked into the graphs); a launch from
-  another stream raises;
+Both sets share one stream and one memory pool (the prefill set is built
+over the decode set's). Rules the caller keeps (the engine does):
+
+- every launch runs on :attr:`stream`, the stream the graphs were warmed
+  and captured on (the bf16 decode kernel's arrival counters are per
+  stream and are baked into the graphs); a launch from another stream
+  raises;
 - a bucket's outputs are overwritten by its next launch, and since the
   graphs share one memory pool, by the launch of another bucket too:
   copy what is needed (:func:`to_host`, or the next window's carry
   merge) right after the launch, in stream order, before the next one;
 - a capture after :meth:`CompileFence.arm` is a serving stall and is
-  reported to the fence (``engine/jit_fence.py``).
+  reported to the fence (``engine/jit_fence.py``), a prefill miss as
+  much as a decode one.
 
 A capture or replay error raises: there is no eager fallback on the card.
 Kernel launch counts (``ops.paged_attention.LAUNCHES`` and
 ``DECODE_ROUTE_LAUNCHES``) count Python calls, and a replay makes none:
 each graph records the counts its capture added (and takes them back,
 since a capture launches nothing) and adds them again at every replay.
+:attr:`pool_bytes` is the growth of the pool's own segments (the caching
+allocator's segments of the pool, ``torch.cuda.memory_snapshot``) over
+the set's captures, so blocks the eager warm calls leave cached outside
+the pool do not count.
 """
 
 from __future__ import annotations
@@ -42,8 +60,10 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.llama import DROP_SLOT
 from ..ops import paged_attention as ops
 from .jit_fence import CompileFence
+from .sampling import sample_tokens
 
 _COUNTS = (ops.LAUNCHES, ops.DECODE_ROUTE_LAUNCHES)
 
@@ -86,8 +106,137 @@ def to_host(*tensors: torch.Tensor
     return host, event
 
 
+def pool_segment_bytes(pool, device: torch.device) -> int:
+    """Device memory held by the graph memory pool ``pool``: the sizes
+    of the caching allocator's segments that belong to it."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if s["device"] == index
+               and tuple(s["segment_pool_id"]) == tuple(pool))
+
+
 def _snapshot() -> List[Dict[str, int]]:
     return [dict(c) for c in _COUNTS]
+
+
+class _GraphSet:
+    """One function captured per bucket key over a shared stream and
+    pool; subclasses make a bucket's static buffers (``_new_bucket``)
+    and call the function on them (``_call``). Buckets carry ``graph``
+    and ``counts``."""
+
+    kind = ""
+
+    def __init__(self, device: torch.device,
+                 fence: Optional[CompileFence] = None,
+                 share: Optional["_GraphSet"] = None):
+        self.device = device
+        self.fence = fence
+        self.on_card = device.type == "cuda"
+        self.buckets: Dict[tuple, object] = {}
+        if share is not None:
+            self.stream, self.pool = share.stream, share.pool
+        else:
+            self.stream = (torch.cuda.Stream(device=device)
+                           if self.on_card else None)
+            self.pool = (torch.cuda.graph_pool_handle()
+                         if self.on_card else None)
+        self.capture_seconds = 0.0   # warm calls and captures, summed
+        self.pool_bytes = 0          # pool segments added by this set
+        self.replays = 0             # graph launches (card only)
+
+    def stream_ctx(self):
+        """Context that makes :attr:`stream` current, after the work
+        already queued on the caller's stream (no-op on the CPU)."""
+        if not self.on_card:
+            return contextlib.nullcontext()
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        return torch.cuda.stream(self.stream)
+
+    def _new_bucket(self, *key):
+        raise NotImplementedError
+
+    def _call(self, bk) -> None:
+        raise NotImplementedError
+
+    def _form(self, key: tuple) -> str:
+        raise NotImplementedError
+
+    def capture(self, keys: Iterable[tuple]) -> None:
+        """Capture every bucket of ``keys``, the largest first (so the
+        first capture sizes the shared pool and the smaller ones fit in
+        it)."""
+        t0 = time.monotonic()
+        for key in sorted(set(keys), reverse=True):
+            if key not in self.buckets:
+                self._capture(key)
+        self.capture_seconds += time.monotonic() - t0
+
+    def bucket(self, *key):
+        """The bucket of ``key``, captured now if warmup did not (a
+        fenced capture: counted, and warned or raised per
+        DYN_JIT_FENCE)."""
+        bk = self.buckets.get(key)
+        if bk is None:
+            if self.fence is not None:
+                self.fence.on_compile(self._form(key))
+            t0 = time.monotonic()
+            bk = self._capture(key)
+            self.capture_seconds += time.monotonic() - t0
+        return bk
+
+    def _capture(self, key: tuple):
+        """Warm the function eagerly once on the stream over padding
+        inputs (library loads, the decode kernel's per-stream counters,
+        cuBLAS workspaces, the prefill kernel's driver entry point and
+        shared-memory attribute), then capture it on the same stream."""
+        with self.stream_ctx():
+            bk = self._new_bucket(*key)
+            self._call(bk)
+        if self.on_card:
+            self.stream.synchronize()
+            held = pool_segment_bytes(self.pool, self.device)
+            before = _snapshot()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      stream=self.stream):
+                    self._call(bk)
+            finally:
+                after = _snapshot()
+                # a capture launches nothing: take its counts back
+                for counts, old in zip(_COUNTS, before):
+                    counts.update(old)
+            bk.counts = [{k: a[k] - b[k] for k in a}
+                         for a, b in zip(after, before)]
+            bk.graph = graph
+            self.pool_bytes += pool_segment_bytes(self.pool,
+                                                  self.device) - held
+        self.buckets[key] = bk
+        return bk
+
+    def launch(self, bk) -> None:
+        """Run the bucket's function on its current inputs: one replay on
+        the card (the stream must be :attr:`stream`), a direct call on
+        the CPU."""
+        if bk.graph is None:
+            self._call(bk)
+            return
+        current = torch.cuda.current_stream(self.device)
+        if current != self.stream:
+            raise RuntimeError(
+                f"{self.kind} graph {self._form(bk.key)} launched on "
+                f"stream {current.cuda_stream:#x}, which was never warmed; "
+                f"its graphs run on {self.stream.cuda_stream:#x} only")
+        bk.graph.replay()
+        self.replays += 1
+        for counts, delta in zip(_COUNTS, bk.counts):
+            for k, n in delta.items():
+                counts[k] += n
+
+
+# ------------------------------------------------------------------ decode
 
 
 @dataclass(eq=False)
@@ -116,41 +265,32 @@ class DecodeBucket:
     counts: List[Dict[str, int]] = field(default_factory=list)
 
     @property
+    def key(self) -> Tuple[int, int]:
+        return self.B, self.P
+
+    @property
     def carry_in(self) -> tuple:
         return self.tok, self.pos, self.done, self.steps, self.rem
 
 
-class DecodeGraphs:
+class DecodeGraphs(_GraphSet):
     """One fused decode window per (B, P) bucket: captured CUDA graphs on
     the card, direct calls on the CPU (module docstring)."""
+
+    kind = "decode window"
 
     def __init__(self, window_fn: Callable, params, kv_k: torch.Tensor,
                  kv_v: torch.Tensor, *, k_steps: int, max_eos_ids: int,
                  fence: Optional[CompileFence] = None):
+        super().__init__(kv_k.device, fence)
         self.window_fn = window_fn
         self.params = params
         self.kv_k, self.kv_v = kv_k, kv_v
         self.k_steps = k_steps
         self.max_eos_ids = max_eos_ids
-        self.fence = fence
-        self.device = kv_k.device
-        self.on_card = self.device.type == "cuda"
-        self.buckets: Dict[Tuple[int, int], DecodeBucket] = {}
-        self.stream = (torch.cuda.Stream(device=self.device)
-                       if self.on_card else None)
-        self.pool = torch.cuda.graph_pool_handle() if self.on_card else None
-        self.capture_seconds = 0.0   # warm calls and captures, summed
-        self.pool_bytes = 0          # device memory reserved by captures
 
-    def stream_ctx(self):
-        """Context that makes :attr:`stream` current, after the work
-        already queued on the caller's stream (no-op on the CPU)."""
-        if not self.on_card:
-            return contextlib.nullcontext()
-        self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        return torch.cuda.stream(self.stream)
-
-    # ------------------------------------------------------------ buckets
+    def _form(self, key: tuple) -> str:
+        return f"decode window (B={key[0]}, P={key[1]})"
 
     def _new_bucket(self, B: int, P: int) -> DecodeBucket:
         """Buffers holding padding rows: a launch over them writes
@@ -178,76 +318,123 @@ class DecodeGraphs:
             bk.temperature, bk.top_k, bk.top_p, bk.seeds, bk.eos,
             k_steps=self.k_steps)
 
-    def capture(self, grid: Iterable[Tuple[int, int]]) -> None:
-        """Capture every (B, P) of ``grid``, the largest first (so the
-        shared pool is sized by the first capture and the smaller ones
-        fit in it)."""
-        t0 = time.monotonic()
-        if self.on_card:
-            torch.cuda.synchronize(self.device)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(self.device)
-        for B, P in sorted(set(grid), reverse=True):
-            if (B, P) not in self.buckets:
-                self._capture(B, P)
-        if self.on_card:
-            torch.cuda.synchronize(self.device)
-            self.pool_bytes += torch.cuda.memory_reserved(
-                self.device) - reserved
-        self.capture_seconds += time.monotonic() - t0
 
-    def _capture(self, B: int, P: int) -> DecodeBucket:
-        """Warm the window eagerly once on the stream over padding rows
-        (library loads, the decode kernel's per-stream counters, cuBLAS
-        workspaces), then capture it on the same stream."""
-        with self.stream_ctx():
-            bk = self._new_bucket(B, P)
-            self._call(bk)
-        if self.on_card:
-            self.stream.synchronize()
-            before = _snapshot()
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph, pool=self.pool,
-                                      stream=self.stream):
-                    self._call(bk)
-            finally:
-                after = _snapshot()
-                # a capture launches nothing: take its counts back
-                for counts, old in zip(_COUNTS, before):
-                    counts.update(old)
-            bk.counts = [{k: a[k] - b[k] for k in a}
-                         for a, b in zip(after, before)]
-            bk.graph = graph
-        self.buckets[(B, P)] = bk
-        return bk
+# ----------------------------------------------------------------- prefill
 
-    def bucket(self, B: int, P: int) -> DecodeBucket:
-        """The bucket of (B, P), captured now if warmup did not (a fenced
-        capture: counted, and warned or raised per DYN_JIT_FENCE)."""
-        bk = self.buckets.get((B, P))
-        if bk is None:
-            if self.fence is not None:
-                self.fence.on_compile(f"decode window (B={B}, P={P})")
-            t0 = time.monotonic()
-            bk = self._capture(B, P)
-            self.capture_seconds += time.monotonic() - t0
-        return bk
 
-    def launch(self, bk: DecodeBucket) -> None:
-        """Run the bucket's window on its current inputs: one replay on
-        the card (the stream must be :attr:`stream`), a direct call on
-        the CPU."""
-        if bk.graph is None:
-            self._call(bk)
-            return
-        current = torch.cuda.current_stream(self.device)
-        if current != self.stream:
-            raise RuntimeError(
-                f"decode graph (B={bk.B}, P={bk.P}) launched on stream "
-                f"{current.cuda_stream:#x}, which was never warmed; its "
-                f"graphs run on {self.stream.cuda_stream:#x} only")
-        bk.graph.replay()
-        for counts, delta in zip(_COUNTS, bk.counts):
-            for k, n in delta.items():
-                counts[k] += n
+def _prefill_layout(B: int, T: int, P: int, n_pages: int, drop_slot: int,
+                    num_pages: int) -> List[Tuple[str, Tuple[int, ...],
+                                                  np.dtype, float]]:
+    """(name, shape, dtype, padding value) of each input of a prefill
+    chunk, in packed order: seeds first, so the int64 field starts on an
+    8-byte boundary of the int32 buffer."""
+    i32, f32 = np.dtype(np.int32), np.dtype(np.float32)
+    return [("seeds", (B,), np.dtype(np.int64), 0),
+            ("temperature", (B,), f32, 0.0), ("top_p", (B,), f32, 1.0),
+            ("top_k", (B,), i32, 0), ("steps", (B,), i32, 0),
+            ("last_idx", (B,), i32, 0), ("tokens", (B, T), i32, 0),
+            ("positions", (B, T), i32, -1), ("slots", (B, T), i32, drop_slot),
+            ("table", (B, P), i32, 0),
+            ("pslots", (B, n_pages), i32, num_pages)]
+
+
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64,
+                 np.dtype(np.float32): torch.float32}
+
+
+@dataclass(eq=False)
+class PrefillBucket:
+    """Static buffers of one (B, T, P, paged) bucket: ``packed`` on the
+    device holds every input (``inputs`` are views of it by name);
+    ``blank`` is the host image of a chunk of padding rows, which a
+    dispatch copies, fills and uploads whole."""
+
+    B: int
+    T: int
+    P: int
+    paged: bool
+    packed: torch.Tensor                 # int32 device buffer
+    inputs: Dict[str, torch.Tensor]      # views of packed
+    blank: np.ndarray                    # int32 host image, padding
+    spans: Dict[str, Tuple[int, int, Tuple[int, ...], np.dtype]]
+    logits: Optional[torch.Tensor] = None    # outputs of the last launch
+    sampled: Optional[torch.Tensor] = None
+    graph: Optional["torch.cuda.CUDAGraph"] = None
+    counts: List[Dict[str, int]] = field(default_factory=list)
+
+    @property
+    def key(self) -> Tuple[int, int, int, bool]:
+        return self.B, self.T, self.P, self.paged
+
+    def host_inputs(self) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """A fresh host image of the inputs (padding rows) and numpy
+        views of it by name, to fill and pass to :meth:`PrefillGraphs.run`."""
+        img = self.blank.copy()
+        return img, {name: img[a:b].view(dt).reshape(shape)
+                     for name, (a, b, shape, dt) in self.spans.items()}
+
+
+class PrefillGraphs(_GraphSet):
+    """One prefill chunk and its first-token draw per (B, T, P, paged)
+    bucket: captured CUDA graphs on the card, direct calls on the CPU
+    (module docstring). Built over ``share``'s stream and pool."""
+
+    kind = "prefill chunk"
+
+    def __init__(self, prefill_fn: Callable, params, kv_k: torch.Tensor,
+                 kv_v: torch.Tensor, *, page_size: int, num_pages: int,
+                 max_top_k: int,
+                 fence: Optional[CompileFence] = None,
+                 share: Optional[_GraphSet] = None):
+        super().__init__(kv_k.device, fence, share)
+        self.prefill_fn = prefill_fn
+        self.params = params
+        self.kv_k, self.kv_v = kv_k, kv_v
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self.max_top_k = max_top_k
+
+    def _form(self, key: tuple) -> str:
+        B, T, P, paged = key
+        return (f"prefill chunk (B={B}, T={T}, P={P}, "
+                f"{'page commit' if paged else 'row scatter'})")
+
+    def _new_bucket(self, B: int, T: int, P: int,
+                    paged: bool) -> PrefillBucket:
+        """Buffers holding padding rows (position -1, dropped slots and
+        pages): a launch over them writes nothing to the pool."""
+        layout = _prefill_layout(B, T, P, max(T // self.page_size, 1),
+                                 DROP_SLOT, self.num_pages)
+        spans, words = {}, 0
+        for name, shape, dt, _ in layout:
+            n = int(np.prod(shape)) * dt.itemsize // 4
+            spans[name] = (words, words + n, shape, dt)
+            words += n
+        blank = np.zeros(words, np.int32)
+        for name, _, dt, value in layout:
+            a, b = spans[name][:2]
+            blank[a:b].view(dt)[:] = value
+        packed = torch.from_numpy(blank.copy()).to(self.device)
+        inputs = {name: packed[a:b].view(_TORCH_DTYPES[dt]).view(shape)
+                  for name, (a, b, shape, dt) in spans.items()}
+        return PrefillBucket(B=B, T=T, P=P, paged=paged, packed=packed,
+                             inputs=inputs, blank=blank, spans=spans)
+
+    def _call(self, bk: PrefillBucket) -> None:
+        """The chunk on the bucket's static inputs, then the first-token
+        draw from its logits; outputs into the bucket."""
+        f = bk.inputs
+        bk.logits, _, _ = self.prefill_fn(
+            self.params, f["tokens"], f["positions"], self.kv_k, self.kv_v,
+            f["table"], f["slots"], f["last_idx"],
+            f["pslots"] if bk.paged else None)
+        bk.sampled = sample_tokens(
+            bk.logits, f["temperature"], f["top_k"], f["top_p"], f["seeds"],
+            f["steps"], max_top_k=self.max_top_k)
+
+    def run(self, bk: PrefillBucket, img: np.ndarray) -> None:
+        """Upload a filled host image (:meth:`PrefillBucket.host_inputs`)
+        into the bucket's buffer and launch it."""
+        upload(bk.packed, img)
+        self.launch(bk)

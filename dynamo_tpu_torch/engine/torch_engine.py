@@ -17,13 +17,20 @@ behind ``Backend`` the same way:
   pages of a row that finished in window N are released only once no
   window in flight holds the row (``_release_or_defer``);
 - each decode window is one replay of a CUDA graph captured for its
-  (batch, page) bucket (``engine/cuda_graphs.py``); ``warmup()`` captures
-  the whole warmed grid and arms the capture fence
-  (``engine/jit_fence.py``), which counts any later capture in
-  ``stats()["post_warmup_compiles_total"]``. Prefill chunks run eagerly;
+  (batch, page) bucket, and each prefill chunk, its first-token draw
+  included, one replay of the graph of its (batch, chunk length, page)
+  bucket (``engine/cuda_graphs.py``); ``warmup()`` captures both warmed
+  grids and arms the capture fence (``engine/jit_fence.py``), which
+  counts any later capture in ``stats()["post_warmup_compiles_total"]``;
 - the host never waits on the device except to read back a window's or
   a prefill's sampled tokens, on that dispatch's own event: uploads go
   through pinned staging memory with ``non_blocking`` copies;
+- the JAX engine's instruments, under its names in ``stats()``: the
+  latency recorder (``runtime/slo.py``; queue wait at admission, TTFT
+  and ITL at emission, e2e at the finish) as ``latency_hist``, and the
+  sampled dispatch profiler (``engine/profiler.py``; off at the default
+  ``prof_sample=0``) as ``bucket_cost``, ``device_time_fraction`` and
+  ``profiled_steps_total``;
 - per-request state is host-side (token lists, page tables from
   ``PageManager``); the device sees only padded arrays;
 - sequences preempt (release pages, requeue) when the pool runs dry,
@@ -51,15 +58,17 @@ from ..llm.protocols.common import (FINISH_CANCELLED, FINISH_EOS,
                                     FINISH_LENGTH, FINISH_TIMEOUT,
                                     EngineOutput, PreprocessedRequest)
 from ..models.config import ModelConfig
-from ..models.llama import (DROP_SLOT, KVCacheSpec, check_supported,
-                            init_kv_cache, init_params, make_decode_window_fn,
+from ..models.llama import (KVCacheSpec, check_supported, init_kv_cache,
+                            init_params, make_decode_window_fn,
                             make_step_fns)
 from ..runtime.device import resolve_device
 from ..runtime.engine import Context
-from .cuda_graphs import DecodeGraphs, to_device, to_host, upload
+from ..runtime.slo import LatencyRecorder
+from .cuda_graphs import DecodeGraphs, PrefillGraphs, to_host, upload
 from .jit_fence import CompileFence
 from .kv_manager import ChainHashCache, PageManager
-from .sampling import SamplingBatch, sample_tokens
+from .profiler import EngineProfiler, memory_snapshot
+from .sampling import SamplingBatch
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
@@ -100,8 +109,13 @@ class EngineConfig:
     # on-device stop table width (eos + stop ids, -1 padded); rows with
     # more ids fall back to the per-token host check
     max_eos_ids: int = 8
+    # sampled dispatch profiling: every Nth scheduler iteration times its
+    # dispatches, host and device apart, with one deliberate device sync
+    # each (engine/profiler.py); 0 disables (default)
+    prof_sample: int = 0
     # bucketing: padded shapes, as the JAX engine pads them; warmup()
-    # captures one decode graph per (batch, page) bucket
+    # captures one decode graph per (batch, page) bucket and one prefill
+    # graph per (prefill batch, chunk length, page) bucket
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
     prefill_buckets: Tuple[int, ...] = (16, 64, 512)
     page_buckets: Tuple[int, ...] = (8, 64)
@@ -174,23 +188,34 @@ class Sequence:
     finish_emitted: bool = False
     last_token: int = 0          # next decode input
     arrival: float = field(default_factory=time.monotonic)
+    queue_wait_s: float = 0.0    # arrival → admission
+    last_emit_t: Optional[float] = None  # last token-bearing emission
     hash_cache: Optional[ChainHashCache] = None
+    # the request's eos/stop ids are fixed: built once, on first use (the
+    # per-token append and the per-window row check read them)
+    _stop_set: Optional[frozenset] = field(default=None, repr=False)
+    _stop_ids: Optional[List[int]] = field(default=None, repr=False)
 
     @property
     def stop_set(self) -> frozenset:
-        stop = self.req.stop
-        eos = () if stop.ignore_eos else (self.req.eos_token_ids or ())
-        return frozenset(eos) | frozenset(stop.stop_token_ids or ())
+        if self._stop_set is None:
+            stop = self.req.stop
+            eos = () if stop.ignore_eos else (self.req.eos_token_ids or ())
+            self._stop_set = (frozenset(eos)
+                              | frozenset(stop.stop_token_ids or ()))
+        return self._stop_set
 
     @property
     def stop_ids(self) -> List[int]:
         """The device stop-table row (duplicates kept, as the JAX engine
         seeds it)."""
-        ids: List[int] = []
-        if not self.req.stop.ignore_eos:
-            ids.extend(self.req.eos_token_ids or [])
-        ids.extend(self.req.stop.stop_token_ids or [])
-        return ids
+        if self._stop_ids is None:
+            ids: List[int] = []
+            if not self.req.stop.ignore_eos:
+                ids.extend(self.req.eos_token_ids or [])
+            ids.extend(self.req.stop.stop_token_ids or [])
+            self._stop_ids = ids
+        return self._stop_ids
 
     def max_new(self) -> int:
         mt = self.req.stop.max_tokens
@@ -271,12 +296,27 @@ class TorchEngine:
         self.prefill_fn, _ = make_step_fns(model_cfg)
         self.decode_multi_fn = make_decode_window_fn(
             model_cfg, max_top_k=self.ecfg.max_top_k)
-        # capture fence (armed by warmup) and the decode graphs per bucket
+        # capture fence (armed by warmup) and the graphs per bucket: decode
+        # windows, and prefill chunks on the same stream and pool
         self.fence = CompileFence(f"torch-engine-{id(self):x}")
         self.graphs = DecodeGraphs(
             self.decode_multi_fn, self.params, self.kv_k, self.kv_v,
             k_steps=self.ecfg.decode_steps, max_eos_ids=self.ecfg.max_eos_ids,
             fence=self.fence)
+        self.prefill_graphs = PrefillGraphs(
+            self.prefill_fn, self.params, self.kv_k, self.kv_v,
+            page_size=self.ecfg.page_size, num_pages=self.ecfg.num_pages,
+            max_top_k=self.ecfg.max_top_k, fence=self.fence,
+            share=self.graphs)
+        # sampled host/device split per bucket (sample=0: one compare per
+        # iteration, no sync) and the latency histograms
+        self.profiler = EngineProfiler(f"torch-engine-{id(self):x}",
+                                       self.device,
+                                       sample=self.ecfg.prof_sample)
+        self.latency = LatencyRecorder("unified")
+        # KV bytes per page (both pools), for the memory snapshot
+        self._page_bytes = int(
+            (self.kv_k.nbytes + self.kv_v.nbytes) // self.ecfg.num_pages)
         self.pm = PageManager(self.ecfg.num_pages, self.ecfg.page_size)
         self.waiting: List[Sequence] = []
         self.prefilling: List[Sequence] = []
@@ -312,48 +352,31 @@ class TorchEngine:
     # ---------------------------------------------------------- lifecycle
 
     def warmup(self) -> int:
-        """Run the whole prefill grid (every chunk length x prefill batch
-        x page bucket) eagerly once and capture the whole decode grid
-        (every batch x page bucket), all over padding rows, so nothing is
-        written to the pool; then arm the capture fence. Returns the
-        number of shapes warmed."""
+        """Capture the whole decode grid (every batch x page bucket), then
+        the whole prefill grid (every prefill batch x chunk length x page
+        bucket, in the serving form of its chunk length: page-granular
+        commit when it is a multiple of the page size), each after an
+        eager warm call over padding rows, so nothing is written to the
+        pool; then arm the capture fence. Returns the number of buckets
+        warmed."""
         ecfg = self.ecfg
         grid = ecfg.warmed_grid()
         pages = grid["page_buckets"]
-        i32 = dict(dtype=torch.int32, device=self.device)
-        n = 0
-        with self.graphs.stream_ctx():
-            for P in pages:
-                for T in grid["prefill_lens"]:
-                    for B in grid["prefill_batches"]:
-                        pslots = (torch.full((B, T // ecfg.page_size),
-                                             ecfg.num_pages, **i32)
-                                  if T % ecfg.page_size == 0 else None)
-                        logits, _, _ = self.prefill_fn(
-                            self.params, torch.zeros((B, T), **i32),
-                            torch.full((B, T), -1, **i32), self.kv_k,
-                            self.kv_v, torch.zeros((B, P), **i32),
-                            torch.full((B, T), DROP_SLOT, **i32),
-                            torch.zeros((B,), **i32), pslots)
-                        sample_tokens(
-                            logits, torch.zeros(B, device=self.device),
-                            torch.zeros((B,), **i32),
-                            torch.ones(B, device=self.device),
-                            torch.zeros(B, dtype=torch.int64,
-                                        device=self.device),
-                            torch.zeros((B,), **i32),
-                            max_top_k=ecfg.max_top_k)
-                        n += 1
-            decode = [(B, P) for P in pages for B in grid["decode_batches"]]
-            self.graphs.capture(decode)
-            n += len(decode)
+        decode = [(B, P) for P in pages for B in grid["decode_batches"]]
+        prefill = [(B, T, P, T % ecfg.page_size == 0) for P in pages
+                   for T in grid["prefill_lens"]
+                   for B in grid["prefill_batches"]]
+        self.graphs.capture(decode)
+        self.prefill_graphs.capture(prefill)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.fence.arm()
-        log.info("warmup: %d shapes, %d decode graphs captured in %.1fs "
-                 "(%.0f MiB of graph pool)", n, len(decode),
-                 self.graphs.capture_seconds, self.graphs.pool_bytes / 2**20)
-        return n
+        for name, gs, n in (("decode", self.graphs, len(decode)),
+                            ("prefill", self.prefill_graphs, len(prefill))):
+            log.info("warmup: %d %s graphs captured in %.1fs (%.0f MiB of "
+                     "graph pool)", n, name, gs.capture_seconds,
+                     gs.pool_bytes / 2**20)
+        return len(decode) + len(prefill)
 
     def start(self) -> None:
         if self._loop_task is None:
@@ -409,9 +432,17 @@ class TorchEngine:
                  max(self.prompt_tokens_total, 1)),
             "prefix_hit_tokens_total": self.prefix_hit_tokens_total,
             "prompt_tokens_total": self.prompt_tokens_total,
-            # decode-graph captures after warmup() armed the fence (0 =
-            # the no-capture serving invariant holds)
+            # graph captures after warmup() armed the fence (0 = the
+            # no-capture serving invariant holds)
             "post_warmup_compiles_total": self.fence.post_warmup_compiles,
+            # latency histograms (queue wait, TTFT, ITL, e2e) and the
+            # sampled host/device split per bucket (empty at sample 0)
+            "latency_hist": self.latency.to_wire(),
+            "device_time_fraction":
+                round(self.profiler.device_time_fraction(), 4),
+            "profiled_steps_total": self.profiler.profiled_steps,
+            "bucket_cost": self.profiler.cost_table(),
+            "memory": memory_snapshot(self.pm, self._page_bytes),
         }
 
     # ------------------------------------------------------- scheduler loop
@@ -454,9 +485,10 @@ class TorchEngine:
         BEFORE reading back the previous ones, so the host's bookkeeping
         overlaps the device; unpipelined mode reads each dispatch back
         before the next."""
+        self.profiler.tick()  # one compare at sample=0
         if not self.ecfg.pipeline_decode:
             if self.ecfg.admit_in_step:
-                self._admit()
+                self._admit_in_step()
             if self.prefilling:
                 pf = self._dispatch_prefill()
                 if pf is not None:
@@ -486,7 +518,7 @@ class TorchEngine:
             # admission lands AFTER the dispatches: its host work overlaps
             # the in-flight window; admitted sequences enter prefilling
             # for the next iteration's sweep
-            self._admit()
+            self._admit_in_step()
         if prev is not None:
             self._process_window(prev)
         if prev_pf is not None:
@@ -578,10 +610,22 @@ class TorchEngine:
             seq.pages = pages
             seq.computed = min(cached_tokens, seq.prefill_extent)
             if seq.generated == 0:  # don't double-count resumed sequences
-                self.queue_wait_seconds_total += time.monotonic() - seq.arrival
+                seq.queue_wait_s = time.monotonic() - seq.arrival
+                self.queue_wait_seconds_total += seq.queue_wait_s
+                self.latency.observe("queue_wait", seq.queue_wait_s)
                 self.prefix_hit_tokens_total += seq.computed
                 self.prompt_tokens_total += seq.num_prompt
             self.prefilling.append(seq)
+
+    def _admit_in_step(self) -> None:
+        """Admission inside the step (admit_in_step), bracketed as its own
+        cost-table row; the guard keeps an iteration with no waiters at
+        one compare."""
+        if not self.waiting:
+            return
+        at0 = self.profiler.begin()
+        self._admit()
+        self.profiler.end(at0, "admit", ("host",))
 
     # ------------------------------------------------------------- prefill
 
@@ -626,34 +670,22 @@ class TorchEngine:
         P = ecfg.bucket_pages(max(len(s.pages) for s in batch))
         ps = ecfg.page_size
 
-        tokens = np.zeros((B, T), np.int32)
-        positions = np.full((B, T), -1, np.int32)
-        table = np.zeros((B, P), np.int32)
-        last_idx = np.zeros(B, np.int32)
         use_paged = T % ps == 0 and all(s.computed % ps == 0 for s in batch)
-        slots = np.full((B, T), DROP_SLOT, np.int32)
-        pslots = np.full((B, max(T // ps, 1)), ecfg.num_pages, np.int32)
+        bk = self.prefill_graphs.bucket(B, T, P, use_paged)
+        img, f = bk.host_inputs()  # padding rows, filled below
         for i, (seq, chunk) in enumerate(zip(batch, chunks)):
             start = seq.computed
-            tokens[i, :chunk] = seq.tokens[start:start + chunk]
-            positions[i, :chunk] = np.arange(start, start + chunk)
-            pages = np.asarray(seq.pages, np.int64)
-            table[i, :len(seq.pages)] = seq.pages
-            last_idx[i] = chunk - 1
             pos = np.arange(start, start + chunk)
-            slots[i, :chunk] = pages[pos // ps] * ps + pos % ps
+            pages = np.asarray(seq.pages, np.int64)
+            f["tokens"][i, :chunk] = seq.tokens[start:start + chunk]
+            f["positions"][i, :chunk] = pos
+            f["table"][i, :len(seq.pages)] = seq.pages
+            f["last_idx"][i] = chunk - 1
+            f["slots"][i, :chunk] = pages[pos // ps] * ps + pos % ps
             if use_paged:
                 first = start // ps
                 npg = (chunk + ps - 1) // ps
-                pslots[i, :npg] = pages[first:first + npg]
-
-        dev = self.device
-        logits, _, _ = self.prefill_fn(
-            self.params, to_device(tokens, dev), to_device(positions, dev),
-            self.kv_k, self.kv_v, to_device(table, dev),
-            to_device(slots, dev), to_device(last_idx, dev),
-            to_device(pslots, dev) if use_paged else None)
-        self.batch_dispatches_total += 1
+                f["pslots"][i, :npg] = pages[first:first + npg]
 
         finishing: List[Tuple[int, Sequence]] = []
         for i, (seq, chunk) in enumerate(zip(batch, chunks)):
@@ -662,27 +694,28 @@ class TorchEngine:
             if seq.computed >= seq.prefill_extent:
                 self.prefilling.remove(seq)
                 finishing.append((i, seq))
-        if not any(s.generated == 0 for _, s in finishing):
-            # mid-prompt chunks, or resumed rows only (their next token is
-            # already sampled): nothing to read back
-            return _PendingPrefill(finishing=finishing, sampled=None)
-        (sampled,), event = to_host(self._sample(batch, logits))
+        # rows that completed their prompt draw their first token inside
+        # the graph; mid-prompt chunks and resumed rows (next token already
+        # sampled) leave the sampler's inputs at padding and read nothing
+        draw = any(s.generated == 0 for _, s in finishing)
+        if draw:
+            sb = SamplingBatch.build([s.req.sampling for s in batch], B)
+            f["temperature"][:] = sb.temperature
+            f["top_k"][:] = sb.top_k
+            f["top_p"][:] = sb.top_p
+            f["seeds"][:] = sb.seeds
+            f["steps"][:len(batch)] = [s.generated for s in batch]
+
+        pt0 = self.profiler.begin()
+        self.prefill_graphs.run(bk, img)
+        sampled, event = None, None
+        if draw:
+            (sampled,), event = to_host(bk.sampled)
+        self.profiler.end(pt0, "prefill", (B, T, P), tokens=sum(chunks),
+                          drain=True)
+        self.batch_dispatches_total += 1
         return _PendingPrefill(finishing=finishing, sampled=sampled,
                                event=event)
-
-    def _sample(self, seqs: List[Sequence], logits) -> torch.Tensor:
-        """First-token draw over the padded prefill batch, on the
-        device."""
-        pad_to = logits.shape[0]
-        sb = SamplingBatch.build([s.req.sampling for s in seqs], pad_to)
-        steps = np.zeros(pad_to, np.int32)
-        steps[:len(seqs)] = [s.generated for s in seqs]
-        dev = self.device
-        return sample_tokens(
-            logits, to_device(sb.temperature, dev), to_device(sb.top_k, dev),
-            to_device(sb.top_p, dev), to_device(sb.seeds.astype(np.int64),
-                                                dev),
-            to_device(steps, dev), max_top_k=self.ecfg.max_top_k)
 
     def _process_prefill(self, pf: _PendingPrefill) -> None:
         """Read back a dispatched prefill's first-token draws and admit
@@ -806,6 +839,7 @@ class TorchEngine:
                 rows[2, i] = seq.generated
                 rows[3, i] = max(min(seq.max_new() - seq.generated,
                                      self.cap_tokens - len(seq.tokens)), 1)
+        pt0 = self.profiler.begin()
         upload(bk.rows, rows)
         n_tok, n_pos, n_steps, n_rem, src, from_carry = bk.rows
         if prev is not None:
@@ -818,6 +852,8 @@ class TorchEngine:
             bk.done.zero_()
         self.graphs.launch(bk)
         host, event = to_host(bk.toks, bk.emitted, bk.carry[2])
+        self.profiler.end(pt0, "decode_window", (B, P, K),
+                          tokens=len(batch) * K, drain=True)
         self.batch_dispatches_total += 1
         pend = _PendingWindow(batch=list(batch), host=host, event=event,
                               carry=bk.carry,
@@ -842,6 +878,10 @@ class TorchEngine:
         if self._pending is pend:
             self._pending = None
         K = toks.shape[1]
+        # host-segment bracket: bookkeeping only (the read-back wait
+        # above shows as the window's device time)
+        ht0 = self.profiler.begin()
+        before = self.decode_tokens_total
         for i, seq in enumerate(pend.batch):
             if seq.finished is not None:
                 continue
@@ -854,6 +894,8 @@ class TorchEngine:
                     break  # tokens past EOS/stop are discarded
                 self._append_token(seq, int(toks[i, j]))
                 self.decode_tokens_total += 1
+        self.profiler.end(ht0, "process_window", (len(pend.batch), K),
+                          tokens=self.decode_tokens_total - before)
 
     def _append_row(self, seq: Sequence, row: np.ndarray, n: int,
                     dev_done: bool) -> None:
@@ -965,12 +1007,25 @@ class TorchEngine:
         if seq.finish_emitted or seq.finished is None:
             return
         seq.finish_emitted = True
+        # e2e: arrival → finish emission (cancel and error finishes too)
+        self.latency.observe("e2e", time.monotonic() - seq.arrival)
         self._emit(seq, EngineOutput(token_ids=[],
                                      finish_reason=seq.finished,
                                      prompt_tokens=seq.num_prompt,
                                      completion_tokens=seq.generated))
 
     def _emit(self, seq: Sequence, out: EngineOutput) -> None:
+        if out.token_ids:
+            # the first token-bearing emission is TTFT; later gaps are
+            # per-token ITL (an n-token window emission records n gaps of
+            # gap/n). Host clock reads only.
+            now = time.monotonic()
+            if seq.last_emit_t is None:
+                self.latency.observe("ttft", now - seq.arrival)
+            else:
+                n = len(out.token_ids)
+                self.latency.observe("itl", (now - seq.last_emit_t) / n, n)
+            seq.last_emit_t = now
         # steps run in the executor thread; asyncio.Queue is not
         # thread-safe, so route puts through the loop
         tid = self._aio_loop_tid

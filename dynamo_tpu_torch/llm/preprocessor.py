@@ -19,6 +19,15 @@ from .protocols.openai import (ChatCompletionChunk, ChatCompletionRequest,
                                ChatDeltaGenerator, CompletionRequest, Usage)
 from .tokenizer import Tokenizer
 
+# Sampling fields the port cannot serve yet, each with the values that ask
+# for nothing (as the JAX package's SamplingBatch.build maps them: an unset
+# or zero repetition penalty is 1.0, an unset penalty 0): a request that
+# sets one to any other value is refused.
+_NEUTRAL = {"repetition_penalty": (None, 0, 1.0),
+            "frequency_penalty": (None, 0), "presence_penalty": (None, 0),
+            "logit_bias": (None, {}), "logprobs": (None, False, 0),
+            "top_logprobs": (None, 0)}
+
 ANNOTATION_FORMATTED_PROMPT = "formatted_prompt"
 ANNOTATION_TOKEN_IDS = "token_ids"
 
@@ -81,13 +90,12 @@ class OpenAIPreprocessor:
     def _build(self, request, token_ids: List[int],
                max_tokens: Optional[int]) -> PreprocessedRequest:
         ext = request.extension()
-        unsupported = [k for k in ("logprobs", "top_logprobs",
-                                   "frequency_penalty", "presence_penalty",
-                                   "repetition_penalty", "logit_bias")
-                       if getattr(request, k, None)]
+        unsupported = [k for k, neutral in _NEUTRAL.items()
+                       if getattr(request, k, None) not in neutral]
         if unsupported:
             # the port's sampler has no penalty or logprob path yet: refuse
-            # (HTTP 400) rather than silently serve a different result
+            # (HTTP 400) rather than silently serve a different result;
+            # a field at its neutral value asks for nothing and is served
             raise ValueError(f"not supported by this engine yet: "
                              f"{', '.join(unsupported)}")
         budget = self.mdc.context_length - len(token_ids)

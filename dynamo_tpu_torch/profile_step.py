@@ -1,7 +1,9 @@
-"""Profile the fused decode window of the 8B model on the GPU: by CUDA-graph
-replay against eager calls, in one run.
+"""Profile the fused decode window, or a prefill chunk, of the 8B model
+on the GPU: by CUDA-graph replay against eager calls, in one run.
 
     python -m dynamo_tpu_torch.profile_step [--rows 4 32] [--context 512]
+                                            [--windows 10]
+    python -m dynamo_tpu_torch.profile_step --prefill [PBxTxP ...]
                                             [--windows 10]
 
 Builds the engine at Llama-3-8B widths (random weights, seed 0). For
@@ -24,6 +26,18 @@ sorted) and per step, the kernels a traced window ran, the device-busy
 time (the union of the kernels' intervals), the device's idle share of
 the traced and of the untraced window wall (untraced: 1 - busy / median
 wall), and the kernels that took the most device time.
+
+``--prefill`` profiles prefill chunks instead (default 1x64x8, 1x512x8
+and 8x512x64: prefill batch x chunk length x page bucket), each of PB
+rows of T prompt tokens from position 0 with their first-token draw, two
+ways: ``eager`` as the engine dispatched a chunk before it captured
+prefill graphs (the inputs uploaded, the forward and the draw called from
+Python), and ``graph`` as it dispatches one now (one upload of the packed
+inputs, one replay of the bucket's graph); both then copy the drawn
+tokens to pinned memory and wait on an event. Per mode: the host's time
+until the dispatch returns (µs, all chunks, sorted), the wall per chunk
+including the wait, and the traced figures above; plus whether both
+modes drew the same tokens.
 """
 
 from __future__ import annotations
@@ -73,6 +87,20 @@ def _trace(run) -> dict:
             "traced_idle_share": 1.0 - busy / wall if wall else None,
             "top_kernels": [{"name": n[:80], "ms": ms, "launches": c}
                             for n, (ms, c) in top]}
+
+
+def _timed(run, n: int) -> list:
+    """Sorted walls (ms) of ``n`` calls of ``run``, each ending in a
+    device sync."""
+    import torch
+
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)
 
 
 def profile_rows(engine, B: int, T: int, windows: int) -> dict:
@@ -139,15 +167,6 @@ def profile_rows(engine, B: int, T: int, windows: int) -> dict:
         for dst, src in zip(bk.carry_in, bk.carry):
             dst.copy_(src)
 
-    def timed(run, n):
-        walls = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        return sorted(walls)
-
     def pipelined(n):
         """n windows, each read back after the next is enqueued; wall per
         window over the run."""
@@ -170,7 +189,7 @@ def profile_rows(engine, B: int, T: int, windows: int) -> dict:
         for name, run in (("eager", eager), ("graph", graph)):
             run()
             torch.cuda.synchronize()
-            walls = timed(run, windows)
+            walls = _timed(run, windows)
             median = walls[len(walls) // 2]
             tr = _trace(run)
             out[name] = {
@@ -182,11 +201,88 @@ def profile_rows(engine, B: int, T: int, windows: int) -> dict:
     return out
 
 
+def profile_prefill(engine, B: int, T: int, P: int, chunks: int) -> dict:
+    """One (B, T, P) prefill chunk and its first-token draw, eagerly and
+    by graph replay (module docstring)."""
+    import numpy as np
+    import torch
+
+    from .engine.cuda_graphs import to_device, to_host
+    from .engine.sampling import sample_tokens
+
+    ecfg = engine.ecfg
+    ps = ecfg.page_size
+    npg = -(-T // ps)
+    if npg > P or B * npg > ecfg.num_pages - 1:
+        raise SystemExit(f"{B} rows of {T} positions do not fit {P} pages "
+                         f"a row and a pool of {ecfg.num_pages - 1}")
+    paged = T % ps == 0
+    graphs = engine.prefill_graphs
+    bk = graphs.bucket(B, T, P, paged)
+    img, f = bk.host_inputs()
+    pages = 1 + np.arange(B * npg).reshape(B, npg)
+    pos = np.arange(T)
+    f["tokens"][:] = np.random.RandomState(0).randint(0, 256, (B, T))
+    f["positions"][:] = pos
+    f["table"][:, :npg] = pages
+    f["last_idx"][:] = T - 1
+    f["slots"][:] = pages[:, pos // ps] * ps + pos % ps
+    if paged:
+        f["pslots"][:] = pages
+    host = {k: np.array(v) for k, v in f.items()}
+    host_us = {"eager": [], "graph": []}
+    drawn = {}
+
+    def eager():
+        t0 = time.perf_counter()
+        d = {k: to_device(v, engine.device) for k, v in host.items()}
+        logits, _, _ = engine.prefill_fn(
+            engine.params, d["tokens"], d["positions"], engine.kv_k,
+            engine.kv_v, d["table"], d["slots"], d["last_idx"],
+            d["pslots"] if paged else None)
+        tok = sample_tokens(logits, d["temperature"], d["top_k"],
+                            d["top_p"], d["seeds"], d["steps"],
+                            max_top_k=ecfg.max_top_k)
+        (out,), event = to_host(tok)
+        host_us["eager"].append((time.perf_counter() - t0) * 1e6)
+        event.synchronize()
+        drawn["eager"] = out.tolist()
+
+    def graph():
+        t0 = time.perf_counter()
+        graphs.run(bk, img)
+        (out,), event = to_host(bk.sampled)
+        host_us["graph"].append((time.perf_counter() - t0) * 1e6)
+        event.synchronize()
+        drawn["graph"] = out.tolist()
+
+    out = {"chunk": [B, T, P], "paged": paged}
+    with graphs.stream_ctx():
+        for name, run in (("eager", eager), ("graph", graph)):
+            run()
+            torch.cuda.synchronize()
+            host_us[name].clear()
+            walls = _timed(run, chunks)
+            median = walls[len(walls) // 2]
+            tr = _trace(run)
+            out[name] = {
+                "host_us": sorted(host_us[name][:chunks]),
+                "chunk_wall_ms": walls,
+                "untraced_idle_share": 1.0 - tr["device_busy_ms"] / median,
+                **tr}
+    out["same_tokens"] = drawn["eager"] == drawn["graph"]
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, nargs="+", default=[4, 32])
     ap.add_argument("--context", type=int, default=512)
-    ap.add_argument("--windows", type=int, default=10)
+    ap.add_argument("--windows", type=int, default=10,
+                    help="timed windows (or prefill chunks) per mode")
+    ap.add_argument("--prefill", nargs="*", metavar="PBxTxP", default=None,
+                    help="profile prefill chunks instead of decode windows "
+                         "(default 1x64x8 1x512x8 8x512x64)")
     args = ap.parse_args()
 
     import torch
@@ -202,6 +298,12 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=30).stdout.strip()
+    if args.prefill is not None:
+        for spec in args.prefill or ["1x64x8", "1x512x8", "8x512x64"]:
+            B, T, P = (int(x) for x in spec.split("x"))
+            res = profile_prefill(engine, B, T, P, args.windows)
+            print(json.dumps({"card": card, **res}), flush=True)
+        return
     for B in args.rows:
         res = profile_rows(engine, B, args.context, args.windows)
         print(json.dumps({"card": card, **res}), flush=True)

@@ -5,9 +5,10 @@
 
 Serves the OpenAI HTTP front end (chat + completions + models + health)
 over :class:`~dynamo_tpu_torch.engine.torch_engine.TorchEngine`. Weights
-are random, drawn from ``--seed``, unless ``--model-path`` names a local
-HF-style directory whose ``config.json`` sets the shapes (its tokenizer is
-used when present). The byte tokenizer is the card's default.
+are random, drawn from ``--seed``; the byte tokenizer is the card's
+default. ``--model-path`` is refused: the port has no weights loader yet,
+and serving random weights under a checkpoint's name would pass them off
+as the checkpoint's.
 """
 
 from __future__ import annotations
@@ -26,10 +27,11 @@ def parse_args(argv=None):
         prog="dynamo_tpu_torch.run",
         usage="%(prog)s in=http out=torch [flags]")
     ap.add_argument("io", nargs="*", help="in=… and out=… positionals")
-    ap.add_argument("--model-path", help="local HF-style model directory")
+    ap.add_argument("--model-path",
+                    help="refused: the port cannot load weights yet")
     ap.add_argument("--model-name", help="served model name")
     ap.add_argument("--model", default=None,
-                    help="preset when no --model-path: tiny|1b|8b")
+                    help="preset: tiny (default), 1b or 8b")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -47,14 +49,18 @@ def parse_args(argv=None):
             ap.error(f"positional args must be in=…/out=…, got {tok!r}")
     if args.input != "http" or args.output != "torch":
         ap.error("this launcher serves in=http out=torch only")
+    if args.model_path:
+        ap.error("--model-path: the PyTorch port has no weights loader yet "
+                 "(the dense safetensors loader is next on ROADMAP.md's "
+                 "queue of modules to port), and will not serve random "
+                 "weights under a checkpoint's name; use --model "
+                 "tiny|1b|8b for random weights")
     return args
 
 
 def build_model_config(args):
     from .models.config import ModelConfig
 
-    if args.model_path:
-        return ModelConfig.from_local_path(args.model_path)
     preset = args.model or "tiny"
     if preset == "tiny":
         return ModelConfig.tiny()
@@ -68,7 +74,7 @@ def build_model_config(args):
 def build_engine_config(args):
     from .engine.torch_engine import EngineConfig
 
-    if args.model in (None, "tiny") and not args.model_path:
+    if args.model in (None, "tiny"):
         # the JAX launcher's tiny-model engine config
         return EngineConfig(page_size=16, num_pages=256, max_batch=16,
                             prefill_chunk=128, prefill_buckets=(128,),
@@ -83,12 +89,7 @@ def build_engine(args) -> Tuple[object, object]:
 
     cfg = build_model_config(args)
     ecfg = build_engine_config(args)
-    if args.model_path:
-        mdc = ModelDeploymentCard.from_local_path(args.model_path,
-                                                  name=args.model_name)
-    else:
-        mdc = ModelDeploymentCard(name=args.model_name or
-                                  (args.model or "tiny"))
+    mdc = ModelDeploymentCard(name=args.model_name or (args.model or "tiny"))
     mdc.kv_block_size = ecfg.page_size
     engine = TorchEngine(cfg, ecfg, seed=args.seed, device=args.device)
     if not args.no_warmup:

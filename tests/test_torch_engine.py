@@ -385,9 +385,196 @@ def test_decode_buckets_pad_rows_and_copy_out():
         assert torch.equal(toks, x[4]) and torch.equal(n, x[5])
 
 
+def test_warmup_captures_the_prefill_grid_and_a_miss_counts():
+    """warmup() makes one prefill bucket per (prefill batch, chunk length,
+    page) of the warmed grid, in the serving form of its length (page
+    commit when a multiple of the page size), as the JAX engine warms it;
+    serving captures none. A chunk outside the grid (another form) is
+    captured on the spot and counts in post_warmup_compiles_total, and
+    raises under DYN_JIT_FENCE=raise."""
+    _, teng = _engines(prefill_buckets=(4, 16), page_buckets=(4, 8))
+    teng.warmup()
+    grid = teng.ecfg.warmed_grid()
+    assert set(teng.prefill_graphs.buckets) == {
+        (B, T, P, T % 8 == 0) for B in grid["prefill_batches"]
+        for T in grid["prefill_lens"] for P in grid["page_buckets"]}
+    assert (1, 4, 8, False) in teng.prefill_graphs.buckets
+    asyncio.run(_generate_all(teng, PreprocessedRequest, StopConditions,
+                              Context))
+    assert teng.stats()["post_warmup_compiles_total"] == 0
+    teng.prefill_graphs.bucket(1, 16, 8, False)
+    assert teng.stats()["post_warmup_compiles_total"] == 1
+    os.environ["DYN_JIT_FENCE"] = "raise"
+    try:
+        with pytest.raises(PostWarmupCompileError,
+                           match="B=4, T=16, P=8, row scatter"):
+            teng.prefill_graphs.bucket(4, 16, 8, False)
+    finally:
+        del os.environ["DYN_JIT_FENCE"]
+    assert (4, 16, 8, False) not in teng.prefill_graphs.buckets
+
+
+def test_prefill_bucket_packs_every_input_in_one_buffer():
+    """A prefill bucket's inputs are views of one int32 buffer: a blank
+    host image holds padding rows (position -1, dropped slots and pages,
+    greedy sampler), and one upload of a filled image sets every view to
+    the host values, dtypes included."""
+    from dynamo_tpu_torch.engine.cuda_graphs import upload
+    from dynamo_tpu_torch.models.llama import DROP_SLOT
+
+    _, teng = _engines()
+    bk = teng.prefill_graphs.bucket(4, 16, 8, True)
+    img, f = bk.host_inputs()
+    assert (f["positions"] == -1).all() and (f["slots"] == DROP_SLOT).all()
+    assert (f["pslots"] == 64).all() and (f["top_p"] == 1.0).all()
+    assert f["pslots"].shape == (4, 2) and f["seeds"].dtype == np.int64
+    rng = np.random.RandomState(0)
+    for name, a in f.items():
+        a[...] = (rng.rand(*a.shape) if a.dtype == np.float32 else
+                  rng.randint(-5, 1 << 20, a.shape))
+    f["seeds"][0] = (1 << 40) + 3
+    upload(bk.packed, img)
+    for name, a in f.items():
+        got = bk.inputs[name]
+        assert got.shape == a.shape and got.numpy().dtype == a.dtype, name
+        np.testing.assert_array_equal(got.numpy(), a)
+    a, b = bk.spans["positions"][:2]
+    assert (bk.blank[a:b] == -1).all()  # each image is a fresh copy
+
+
+def test_graph_pool_bytes_count_the_pools_own_segments(monkeypatch):
+    """The graph-pool figure sums the allocator segments of the graph
+    pool on the engine's device only: blocks the eager warm calls leave
+    cached in the default pool, and other pools or devices, do not
+    count."""
+    from dynamo_tpu_torch.engine import cuda_graphs
+
+    segments = [
+        {"device": 0, "segment_pool_id": (0, 0), "total_size": 1 << 30},
+        {"device": 0, "segment_pool_id": (7, 2), "total_size": 3 << 20},
+        {"device": 0, "segment_pool_id": [7, 2], "total_size": 2 << 20},
+        {"device": 1, "segment_pool_id": (7, 2), "total_size": 5 << 20},
+        {"device": 0, "segment_pool_id": (8, 2), "total_size": 9 << 20},
+    ]
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: segments)
+    got = cuda_graphs.pool_segment_bytes((7, 2), torch.device("cuda", 0))
+    assert got == 5 << 20
+
+
+def test_prefill_graphs_match_jax_engine_at_every_chunk_length():
+    """Prompts of mixed lengths through the prefill graphs, hitting chunk
+    lengths 16 (row scatter: shorter than a page), 64 and 512 (page
+    commit) and a prompt of two chunks: greedy tokens identical to
+    JaxEngine's."""
+    cfg = dict(page_size=32, num_pages=96, max_batch=8, prefill_chunk=512,
+               prefill_buckets=(16, 64, 512), batch_buckets=(1, 2, 4, 8),
+               page_buckets=(8, 32), decode_steps=4)
+    jcfg, tcfg = JaxModelConfig.tiny(), ModelConfig.tiny()
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(5))
+    tparams = params_from_numpy({k: np.asarray(v) for k, v in
+                                 jparams.items()}, tcfg, device="cpu")
+    jeng = JaxEngine(jcfg, JaxEngineConfig(**cfg), params=jparams)
+    teng = TorchEngine(tcfg, EngineConfig(**cfg), params=tparams,
+                       device="cpu")
+    keys = []
+    launch = teng.prefill_graphs.launch
+
+    def spy(bk):
+        keys.append(bk.key)
+        launch(bk)
+
+    teng.prefill_graphs.launch = spy
+    rng = np.random.RandomState(4)
+    prompts = [list(rng.randint(1, 500, n)) for n in (9, 50, 300, 600)]
+
+    async def run(engine, req_cls, stop_cls, ctx_cls):
+        async def one(p, delay):
+            await asyncio.sleep(delay)
+            req = req_cls(token_ids=[int(t) for t in p],
+                          stop=stop_cls(max_tokens=6))
+            toks = []
+            async for out in engine.generate(req, ctx_cls()):
+                toks += out.token_ids
+            return toks
+
+        try:
+            return await asyncio.gather(*[
+                one(p, 0.05 * i) for i, p in enumerate(prompts)])
+        finally:
+            await engine.stop()
+
+    want = asyncio.run(run(jeng, JaxRequest, JaxStop, JaxContext))
+    got = asyncio.run(run(teng, PreprocessedRequest, StopConditions,
+                          Context))
+    assert got == want and all(len(t) == 6 for t in got)
+    assert {T for _, T, _, _ in keys} == {16, 64, 512}
+    assert {(T, paged) for _, T, _, paged in keys} >= {
+        (16, False), (64, True), (512, True)}
+
+
+def test_model_path_is_refused(tmp_path, capsys):
+    """--model-path names a checkpoint the port cannot load: the launcher
+    refuses it, saying why, instead of serving random weights under the
+    checkpoint's name."""
+    from dynamo_tpu_torch.run import parse_args
+
+    (tmp_path / "config.json").write_text("{}")
+    with pytest.raises(SystemExit):
+        parse_args(["in=http", "out=torch", "--model-path", str(tmp_path)])
+    assert "no weights loader" in capsys.readouterr().err
+    assert parse_args(["in=http", "out=torch", "--model", "8b"]).model == "8b"
+
+
+@pytest.mark.parametrize("fields,served", [
+    ({"repetition_penalty": 1.0}, True),
+    ({"frequency_penalty": 0, "presence_penalty": 0.0}, True),
+    ({"logit_bias": {}, "logprobs": False, "top_logprobs": 0}, True),
+    ({"repetition_penalty": 1.2}, False),
+    ({"presence_penalty": 0.5}, False),
+    ({"frequency_penalty": -0.1}, False),
+    ({"logit_bias": {"5": 10}}, False),
+    ({"logprobs": True}, False),
+])
+def test_neutral_sampling_values_are_served(fields, served):
+    """A penalty, bias or logprob field at its neutral value (as the JAX
+    package's SamplingBatch.build maps it) asks for nothing and is
+    served; any other value is still refused (HTTP 400)."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
+
+    pre = OpenAIPreprocessor(ModelDeploymentCard(name="tiny"))
+    req = ChatCompletionRequest(**{**_chat_body(False), **fields})
+    if served:
+        assert pre.preprocess_chat(req)[0].token_ids
+    else:
+        with pytest.raises(ValueError, match="not supported"):
+            pre.preprocess_chat(req)
+
+
+def test_stop_ids_are_built_once_per_sequence():
+    """The eos/stop ids a sequence checks every token are built on first
+    use and reused, as the JAX engine caches them."""
+    from dynamo_tpu_torch.engine.torch_engine import Sequence
+
+    req = PreprocessedRequest(token_ids=[1, 2],
+                              stop=StopConditions(stop_token_ids=[9, 4]),
+                              eos_token_ids=[4, 7])
+    seq = Sequence(req=req, context=Context(), out=None, tokens=[1, 2],
+                   num_prompt=2)
+    assert seq.stop_set is seq.stop_set
+    assert seq.stop_ids is seq.stop_ids
+    assert seq.stop_set == {4, 7, 9} and seq.stop_ids == [4, 7, 9, 4]
+    req.stop.ignore_eos = True
+    ignoring = Sequence(req=req, context=Context(), out=None, tokens=[1],
+                        num_prompt=1)
+    assert ignoring.stop_set == {9, 4} and ignoring.stop_ids == [9, 4]
+
+
 def test_stats_keys_are_jax_engine_keys():
     jeng, teng = _engines()
     assert set(teng.stats()) <= set(jeng.stats())
+    assert {"latency_hist", "bucket_cost", "device_time_fraction",
+            "profiled_steps_total", "memory"} <= set(teng.stats())
 
 
 def _chat_body(stream: bool):

@@ -541,3 +541,82 @@ def test_cuda_graph_replay_counts_equal_eager_counts(cuda_device):
     assert ops.DECODE_ROUTE_LAUNCHES == {k: 2 * n for k, n in
                                          eager[1].items()}
     assert eager[1] == {"bf16_mma": 8, "generic": 0}
+
+
+# ------------------------------------------------ prefill chunks as graphs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_graph_prefill_matches_eager(cuda_device, dtype):
+    """One prefill chunk and its first-token draw by graph replay and the
+    same called eagerly from the same inputs and pools, at a kernel-route
+    width (head_dim 64, page 16): a batch bucket of 4 rows of 32 with a
+    third chunk, a short row, a sampled row and a padding row. Logits,
+    drawn tokens and the whole pools bitwise equal; the replay adds the
+    prefill kernel's launches of one eager chunk (one per layer), and the
+    capture only those of its eager warm call."""
+    from dynamo_tpu_torch.engine.cuda_graphs import PrefillGraphs, to_device
+    from dynamo_tpu_torch.engine.sampling import sample_tokens
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.tiny(head_dim=64, dtype=(
+        "bfloat16" if dtype == torch.bfloat16 else "float32"))
+    params = llama.init_params(cfg, torch.Generator(
+        device=cuda_device).manual_seed(0))
+    ps, N = 16, 40
+    kk, vv = llama.init_kv_cache(cfg, llama.KVCacheSpec(N, ps),
+                                 device=cuda_device)
+    kk.normal_()
+    vv.normal_()
+    pre, _ = llama.make_step_fns(cfg)
+    graphs = PrefillGraphs(pre, params, kk, vv, page_size=ps, num_pages=N,
+                           max_top_k=16)
+    ops.reset_launch_counts()
+    graphs.capture([(4, 32, 8, True)])
+    assert ops.LAUNCHES == {"paged_attention_decode": 0,
+                            "paged_attention_prefill": cfg.num_layers}
+    bk = graphs.buckets[(4, 32, 8, True)]
+    assert bk.graph is not None
+    img, f = bk.host_inputs()
+    rng = np.random.RandomState(3)
+    # (start, length, pages, temperature, top_k, seed)
+    rows = [(32, 32, [1, 2, 3, 4], 0.0, 0, 0), (0, 20, [5, 6], 0.0, 0, 0),
+            (0, 5, [7], 0.8, 8, 77)]
+    for i, (start, n, pages, temp, top_k, seed) in enumerate(rows):
+        pos = np.arange(start, start + n)
+        pg = np.asarray(pages)
+        f["tokens"][i, :n] = rng.randint(1, 500, n)
+        f["positions"][i, :n] = pos
+        f["table"][i, :len(pages)] = pages
+        f["last_idx"][i] = n - 1
+        f["slots"][i, :n] = pg[pos // ps] * ps + pos % ps
+        npg = -(-n // ps)
+        f["pslots"][i, :npg] = pg[start // ps:start // ps + npg]
+        f["temperature"][i], f["top_k"][i], f["seeds"][i] = temp, top_k, seed
+    k0, v0 = kk.clone(), vv.clone()
+    with graphs.stream_ctx():
+        d = {k: to_device(np.array(v), cuda_device) for k, v in f.items()}
+        ops.reset_launch_counts()
+        e_logits, _, _ = pre(params, d["tokens"], d["positions"], kk, vv,
+                             d["table"], d["slots"], d["last_idx"],
+                             d["pslots"])
+        e_tok = sample_tokens(e_logits, d["temperature"], d["top_k"],
+                              d["top_p"], d["seeds"], d["steps"],
+                              max_top_k=16)
+        eager = dict(ops.LAUNCHES)
+        e_k, e_v = kk.clone(), vv.clone()
+        kk.copy_(k0)
+        vv.copy_(v0)
+        ops.reset_launch_counts()
+        graphs.run(bk, img)
+    torch.cuda.synchronize()
+    assert eager["paged_attention_prefill"] == cfg.num_layers
+    assert ops.LAUNCHES == eager
+    assert torch.equal(bk.logits, e_logits)
+    assert torch.equal(bk.sampled, e_tok)
+    assert torch.equal(kk, e_k) and torch.equal(vv, e_v)
+    # the chunk wrote its rows' pages only
+    changed = (e_k != k0).flatten(2).any(-1).any(0).nonzero()[:, 0]
+    assert set(changed.tolist()) <= {1, 2, 3, 4, 5, 6, 7}
