@@ -51,7 +51,31 @@ Phases; any failure exits non-zero before the result line:
    output's rms, with a row one 16-key block short as the control that
    must exceed it; prefill at the served first chunk and at
    a deep chunk (positions 1536-2047). Bounds count the work of this
-   run's inputs (ops.paged_attention.decode_work and prefill_work).
+   run's inputs (ops.paged_attention.decode_work and prefill_work);
+6. hold the tensor-parallel wrappers (paged_attention_decode_sharded, its
+   window form, paged_attention_prefill_sharded) against the plain
+   versions at the heads one rank holds of the 8B widths at tp 2, 4 and
+   8, float32 and bfloat16, and time them at those heads at the served
+   shapes (the 4-row window, with the decode splits the launch plan
+   picks; a first chunk of 512);
+7. tensor parallel at model=2 with both ranks on the one card (each with
+   its own NCCL_HOSTID, NCCL over the loopback socket): two ranks of this
+   script build a tp=2 engine, warm it, and run check_paths' prefill and
+   teacher-forced window on their shards, whose logits must stay within
+   PATH_LIMITS of phase 4's tp=1 logits (same seed, same inputs) with
+   equal argmax wherever tp=1's top-2 margin exceeds the limit; each
+   rank also holds its replayed window and prefill chunks (NCCL
+   collectives captured inside) against the same calls made eagerly,
+   as phase 4 does at tp=1, and checks that every eager and replayed
+   all-reduce of distinct per-rank inputs gives the exact sum; then two
+   ranks of the launcher serve
+   the phase-4 requests over HTTP to rank 0, in both launch forms (one
+   process per rank with ``--coordinator ... --process-id r``; one
+   command that starts rank 1 itself), and each rank's serving summary
+   must show no capture after warmup, mesh model=2, every kernel call
+   from a graph replay on the bf16 routes, and the same counts on both
+   ranks. Every rank process is killed at the end of the phase. Its
+   times are two ranks sharing one card, not a TP speed.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -63,10 +87,14 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import gc
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -656,35 +684,35 @@ PATH_LIMITS = {"prefill_logits": 0.25, "window_logits": 0.25,
                "window_kv": 0.25}
 
 
-def check_paths(engine, cfg, dev) -> dict:
-    """Prefill and one fused decode window of the served 8B model, kernel
-    path against plain path: same weights, same inputs, fresh pools. The
-    window is teacher-forced (the same input token at every step on both
-    paths), so every step's logits and the K/V committed at all K window
-    positions in every layer are compared; steps 1.. are where the combine
-    kernel folds 2.. in-flight keys. Two controls, each a fault on the
-    kernel path, show the check can see one: prefill queries that miss
-    their own key, and a window step that folds one in-flight key too few.
-    Each control must land above its limit."""
+# check_paths' inputs: a full chunk, a padded row, and a short row (at
+# 12 positions each in-flight key weighs enough that a fault in folding
+# it shows above the bf16 noise of 32 layers; at 300+ positions it does
+# not), then a teacher-forced window of PATH_K steps
+PATH_LENS, PATH_T, PATH_K = [512, 300, 12], 512, 4
+
+
+def path_run(params, cfg, dev, use: bool, mesh=None):
+    """Prefill of check_paths' three rows, then its teacher-forced window
+    (the same input token at every step whatever the logits), on fresh
+    pools: (prefill logits [B, V], every step's logits [K, B, V], the K/V
+    committed at the window's K positions in every layer). With ``mesh``,
+    one tensor-parallel rank's run on its shards (its K/V: its kv
+    heads)."""
     import numpy as np
     import torch
 
     from dynamo_tpu_torch.engine import sampling
-    from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.llama import (KVCacheSpec, init_kv_cache,
                                                make_decode_window_fn,
                                                make_step_fns)
 
-    ps, T, B, K = 64, 512, 3, 4
+    ps, T, K, lens = 64, PATH_T, PATH_K, PATH_LENS
+    B = len(lens)
     spec = KVCacheSpec(num_pages=64, page_size=ps)
     g = torch.Generator(device="cpu").manual_seed(5)
     tokens = torch.randint(0, 256, (B, T), generator=g, dtype=torch.int32)
     forced = torch.randint(0, 256, (B, K + 1), generator=g,
                            dtype=torch.int32).to(dev)
-    # a full chunk, a padded row, and a short row: at 12 positions each
-    # in-flight key weighs enough that a fault in folding it shows above
-    # the bf16 noise of 32 layers (at 300+ positions it does not)
-    lens = [T, 300, 12]
     positions = torch.full((B, T), -1, dtype=torch.int32)
     table = torch.zeros((B, 16), dtype=torch.int32)
     slots = torch.full((B, T), 1 << 30, dtype=torch.int32)
@@ -695,40 +723,56 @@ def check_paths(engine, cfg, dev) -> dict:
         slots[b, :n] = table[b, p // ps] * ps + p % ps
     last = torch.tensor([n - 1 for n in lens], dtype=torch.int32)
 
+    kk, vv = init_kv_cache(cfg, spec, device=dev, mesh=mesh)
+    pre, _ = make_step_fns(cfg, use_kernels=use, mesh=mesh)
+    logits, kk, vv = pre(params, tokens.to(dev), positions.to(dev), kk, vv,
+                         table.to(dev), slots.to(dev), last.to(dev))
+    step_logits = []
+
+    def forcing(lg, *args, **kwargs):
+        step_logits.append(lg.float().clone())
+        return forced[:, len(step_logits)]
+
+    real = sampling.sample_tokens
+    sampling.sample_tokens = forcing
+    try:
+        win = make_decode_window_fn(cfg, use_kernels=use, mesh=mesh)
+    finally:
+        sampling.sample_tokens = real
+    win(params, forced[:, 0].contiguous(),
+        torch.tensor(lens, dtype=torch.int32, device=dev),
+        torch.zeros(B, dtype=torch.bool, device=dev),
+        torch.zeros(B, dtype=torch.int32, device=dev),
+        torch.full((B,), 100, dtype=torch.int32, device=dev), kk, vv,
+        table.to(dev), np.zeros(B, np.float32), np.zeros(B, np.int32),
+        np.ones(B, np.float32), np.zeros(B, np.uint32),
+        torch.full((B, 1), -1, dtype=torch.int32, device=dev), k_steps=K)
+    torch.cuda.synchronize()
+    kv = torch.stack([
+        torch.stack([pool[:, table[b, (n + i) // ps].item(), :, (n + i) % ps]
+                     for pool in (kk, vv)])
+        for b, n in enumerate(lens) for i in range(K)])
+    return logits.float(), torch.stack(step_logits), kv
+
+
+def check_paths(engine, cfg, dev) -> tuple:
+    """Prefill and one fused decode window of the served 8B model, kernel
+    path against plain path (:func:`path_run`): same weights, same
+    inputs, fresh pools. The window is teacher-forced, so every step's
+    logits and the K/V committed at all K window positions in every
+    layer are compared; steps 1.. are where the combine kernel folds 2..
+    in-flight keys. Two controls, each a fault on the kernel path, show
+    the check can see one: prefill queries that miss their own key, and a
+    window step that folds one in-flight key too few. Each control must
+    land above its limit. Returns the report and the kernel path's
+    (prefill logits, step logits) on the host: the tp=1 reference of the
+    tensor-parallel phase."""
+    import torch
+
+    from dynamo_tpu_torch.models import llama
+
     def run(use: bool):
-        kk, vv = init_kv_cache(cfg, spec, device=dev)
-        pre, _ = make_step_fns(cfg, use_kernels=use)
-        logits, kk, vv = pre(engine.params, tokens.to(dev),
-                             positions.to(dev), kk, vv, table.to(dev),
-                             slots.to(dev), last.to(dev))
-        step_logits = []
-
-        def forcing(lg, *args, **kwargs):
-            step_logits.append(lg.float().clone())
-            return forced[:, len(step_logits)]
-
-        real = sampling.sample_tokens
-        sampling.sample_tokens = forcing
-        try:
-            win = make_decode_window_fn(cfg, use_kernels=use)
-        finally:
-            sampling.sample_tokens = real
-        win(engine.params, forced[:, 0].contiguous(),
-            torch.tensor(lens, dtype=torch.int32, device=dev),
-            torch.zeros(B, dtype=torch.bool, device=dev),
-            torch.zeros(B, dtype=torch.int32, device=dev),
-            torch.full((B,), 100, dtype=torch.int32, device=dev), kk, vv,
-            table.to(dev), np.zeros(B, np.float32), np.zeros(B, np.int32),
-            np.ones(B, np.float32), np.zeros(B, np.uint32),
-            torch.full((B, 1), -1, dtype=torch.int32, device=dev), k_steps=K)
-        torch.cuda.synchronize()
-        # K/V committed at the window's K positions, every layer
-        kv = torch.stack([
-            torch.stack([pool[:, table[b, (n + i) // ps].item(), :,
-                              (n + i) % ps]
-                         for pool in (kk, vv)])
-            for b, n in enumerate(lens) for i in range(K)])
-        return logits.float(), torch.stack(step_logits), kv
+        return path_run(engine.params, cfg, dev, use)
 
     def errs(a, b):
         return {"prefill_logits": max_err(a[0], b[0]),
@@ -786,8 +830,8 @@ def check_paths(engine, cfg, dev) -> dict:
         if got <= PATH_LIMITS[key]:
             fail(f"control fault stays within the {key} limit "
                  f"({got:.4g} <= {PATH_LIMITS[key]}): the check is blind")
-    return {"sound": sound, "control": control, "magnitudes": scale,
-            "limits": PATH_LIMITS}
+    return ({"sound": sound, "control": control, "magnitudes": scale,
+             "limits": PATH_LIMITS}, (kern[0].cpu(), kern[1].cpu()))
 
 
 def check_graph_window(engine, cfg, dev) -> dict:
@@ -962,21 +1006,27 @@ def check_graph_prefill(engine, dev) -> dict:
 # ------------------------------------------------------------ timings
 
 
-def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g) -> dict:
+def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
+                mesh=None) -> dict:
     """The decode kernel in the window form at one shape
-    (time_attention.decode_case):
+    (time_attention.decode_case), through its tensor-parallel wrapper on
+    the rank's heads when ``mesh`` is given (``kp``/``vp`` then hold the
+    rank's kv heads):
     device time (CUDA graph), eager time, its plain version, one SDPA
     call on the same dense work, the bound counted from the inputs
     (ops.paged_attention.decode_work); held to the plain version at the
     bf16 tolerance (as check_decode) and within DECODE_REL_RMS of the
     plain output's rms, a limit the plain version one 16-key block short
-    in every row must pass (else the check is blind)."""
+    in every row must pass (else the check is blind). Also the route
+    and the splits per (row, kv head) that the launch plan picks."""
     import torch
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.paged_attention import (
-        decode_work, paged_attention_decode_layered,
-        paged_attention_decode_window, window_reference)
+        DECODE_ROUTES, _decode_launch_plan, decode_work,
+        paged_attention_decode_layered,
+        paged_attention_decode_window, paged_attention_decode_window_sharded,
+        window_reference)
     from time_attention import decode_case
 
     dev = kp.device
@@ -985,6 +1035,10 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g) -> dict:
     scale = hd ** -0.5
     dec = lambda: paged_attention_decode_window(  # noqa: E731
         q, kp, vp, 0, table, start, qp, wk, wv, K)
+    if mesh is not None:
+        dec = lambda: paged_attention_decode_window_sharded(  # noqa: E731
+            q, kp, vp, 0, table, start, qp, wk, wv, K, mesh=mesh,
+            kv_heads=KV * mesh.model)
     t_k, t_eager = time_ms(dec, iters=50), eager_ms(dec)
     t_p = time_ms(lambda: window_reference(q, kp, vp, 0, table, start, qp,
                                            wk, wv, K, scale), iters=5)
@@ -1021,8 +1075,10 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g) -> dict:
         ln, None, torch.where(start >= 0, K, 0), heads=H, kv_heads=KV,
         head_dim=hd, elem_bytes=kp.element_size())
     flops = 4 * keys * H * hd
+    route, splits = _decode_launch_plan(q, kp, vp, B, P)
     return {
         "max_abs_err": err, "err_limit": limit, "control_err": control,
+        "decode_route": DECODE_ROUTES[route], "splits": splits,
         "ms": t_k, "plain_ms": t_p,
         "bound_ms": max(bytes_ / H100_BYTES_PER_S,
                         flops / H100_BF16_FLOPS) * 1e3,
@@ -1036,22 +1092,84 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g) -> dict:
     }
 
 
-def time_kernels(engine, cfg, dev, served) -> list:
+def time_prefill(k0, v0, ecfg, start: int, n: int, H: int, g,
+                 mesh=None) -> dict:
+    """Kernel, plain version and SDPA on one prompt chunk of n tokens at
+    positions start .. start + n - 1 (the row's earlier pages in the
+    pool ``k0``/``v0`` [N, KV, ps, hd]), in the served bucket shapes; the
+    kernel is held to its plain version (bf16 tolerance, as in
+    check_prefill). With ``mesh``, through the tensor-parallel wrapper on
+    the rank's heads (the pool holds the rank's kv heads)."""
     import torch
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.paged_attention import (
-        NO_WINDOW, paged_attention_decode_layered,
-        paged_attention_decode_window, paged_attention_prefill,
-        prefill_reference, prefill_work, window_reference)
+        NO_WINDOW, paged_attention_prefill, paged_attention_prefill_sharded,
+        prefill_reference, prefill_work)
+
+    dev = k0.device
+    N, KV, ps, hd = k0.shape
+    el = k0.element_size()
+    scale = hd ** -0.5
+    T = ecfg.bucket_len(n)
+    B = ecfg.prefill_bucket_batch(1)
+    used = -(-(start + n) // ps)
+    P = ecfg.bucket_pages(used)
+    table = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    table[0, :used] = torch.randperm(N - 1, generator=g,
+                                     device=dev)[:used] + 1
+    pos = torch.full((B, T), -1, dtype=torch.int32, device=dev)
+    pos[0, :n] = torch.arange(start, start + n, device=dev)
+    win = torch.full((B,), NO_WINDOW, dtype=torch.int32, device=dev)
+    qf = torch.randn(B, T, H, hd, generator=g, device=dev).to(k0.dtype)
+    pf = lambda: paged_attention_prefill(  # noqa: E731
+        qf, k0, v0, table, pos, eff_win=win)
+    if mesh is not None:
+        pf = lambda: paged_attention_prefill_sharded(  # noqa: E731
+            qf, k0, v0, table, pos, mesh=mesh, kv_heads=KV * mesh.model,
+            eff_win=win)
+    t_k, t_eager = time_ms(pf, iters=20), eager_ms(pf, iters=20)
+    t_p = time_ms(lambda: prefill_reference(qf, k0, v0, table, pos,
+                                            scale, None, win), iters=5)
+    got, want = pf(), prefill_reference(qf, k0, v0, table, pos, scale,
+                                        None, win)
+    err = max_err(got, want)
+    if excess(got, want, 2e-2, 1e-2) > 0:
+        fail(f"prefill at positions {start}..{start + n - 1} (H={H}, "
+             f"KV={KV}): max abs err {err:.3g}")
+    S = P * ps
+    kd = k0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    vd = v0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    qpos = pos[:, :, None].long()
+    kvpos = torch.arange(S, device=dev)[None, None, :]
+    mask = ((kvpos <= qpos) | (qpos < 0))[:, None]
+    qt = qf.transpose(1, 2)
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kd, vd, attn_mask=mask, enable_gqa=True), iters=20)
+    queries, pairs, keys = prefill_work(pos, win)
+    bytes_ = (2 * keys * KV * hd * el + 2 * queries * H * hd * el
+              + table.numel() * 4 + pos.numel() * 4)
+    flops = 4 * pairs * H * hd
+    return {
+        "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+        "bound_ms": max(bytes_ / H100_BYTES_PER_S,
+                        flops / H100_BF16_FLOPS) * 1e3,
+        "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
+                     >= flops / H100_BF16_FLOPS else "operations"),
+        "library_ms": t_lib, "eager_ms": t_eager,
+        "work": {"queries": queries, "pairs": pairs, "kv_positions": keys,
+                 "bytes": bytes_, "flops": flops},
+        "shape": {"B": B, "T": T, "start": start, "valid": n, "H": H,
+                  "KV": KV, "hd": hd, "ps": ps, "P": P},
+    }
+
+
+def time_kernels(engine, cfg, dev, served) -> list:
+    import torch
 
     ecfg = engine.ecfg
-    KV, hd, H = cfg.num_kv_heads, cfg.head_dim_, cfg.num_heads
-    ps = ecfg.page_size
+    H, ps = cfg.num_heads, ecfg.page_size
     kp, vp = engine.kv_k, engine.kv_v
-    N = kp.shape[1]
-    el = kp.element_size()
-    scale = hd ** -0.5
     g = torch.Generator(device=dev).manual_seed(7)
     # random K/V in layer 0 of the served pool (the engine has stopped):
     # most pages were never written, and zeros would hide any error
@@ -1087,66 +1205,12 @@ def time_kernels(engine, cfg, dev, served) -> list:
         **dec, "shapes": shapes,
     })
 
-    def time_prefill(start: int, n: int) -> dict:
-        """Kernel, plain version and SDPA on one prompt chunk of n tokens
-        at positions start .. start + n - 1 (the row's earlier pages in
-        the pool), in the served bucket shapes; the kernel is held to its
-        plain version (bf16 tolerance, as in check_prefill)."""
-        T = ecfg.bucket_len(n)
-        B = ecfg.prefill_bucket_batch(1)
-        used = -(-(start + n) // ps)
-        P = ecfg.bucket_pages(used)
-        table = torch.zeros((B, P), dtype=torch.int32, device=dev)
-        table[0, :used] = torch.randperm(N - 1, generator=g,
-                                         device=dev)[:used] + 1
-        pos = torch.full((B, T), -1, dtype=torch.int32, device=dev)
-        pos[0, :n] = torch.arange(start, start + n, device=dev)
-        win = torch.full((B,), NO_WINDOW, dtype=torch.int32, device=dev)
-        qf = torch.randn(B, T, H, hd, generator=g, device=dev).to(kp.dtype)
-        k0, v0 = kp[0], vp[0]
-        pf = lambda: paged_attention_prefill(  # noqa: E731
-            qf, k0, v0, table, pos, eff_win=win)
-        t_k, t_eager = time_ms(pf, iters=20), eager_ms(pf, iters=20)
-        t_p = time_ms(lambda: prefill_reference(qf, k0, v0, table, pos,
-                                                scale, None, win), iters=5)
-        got, want = pf(), prefill_reference(qf, k0, v0, table, pos, scale,
-                                            None, win)
-        err = max_err(got, want)
-        if excess(got, want, 2e-2, 1e-2) > 0:
-            fail(f"prefill at positions {start}..{start + n - 1}: max abs "
-                 f"err {err:.3g}")
-        S = P * ps
-        kd = k0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
-        vd = v0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
-        qpos = pos[:, :, None].long()
-        kvpos = torch.arange(S, device=dev)[None, None, :]
-        mask = ((kvpos <= qpos) | (qpos < 0))[:, None]
-        qt = qf.transpose(1, 2)
-        t_lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kd, vd, attn_mask=mask, enable_gqa=True), iters=20)
-        queries, pairs, keys = prefill_work(pos, win)
-        bytes_ = (2 * keys * KV * hd * el + 2 * queries * H * hd * el
-                  + table.numel() * 4 + pos.numel() * 4)
-        flops = 4 * pairs * H * hd
-        return {
-            "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-            "bound_ms": max(bytes_ / H100_BYTES_PER_S,
-                            flops / H100_BF16_FLOPS) * 1e3,
-            "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
-                         >= flops / H100_BF16_FLOPS else "operations"),
-            "library_ms": t_lib, "eager_ms": t_eager,
-            "work": {"queries": queries, "pairs": pairs, "kv_positions": keys,
-                     "bytes": bytes_, "flops": flops},
-            "shape": {"B": B, "T": T, "start": start, "valid": n, "H": H,
-                      "KV": KV, "hd": hd, "ps": ps, "P": P},
-        }
-
     # prefill at the served first chunk's shapes (one prompt chunk of
     # prefill_chunk tokens from position 0), and at a deep chunk of the
     # same size: the fourth chunk of a 2048-token prompt
-    first = time_prefill(0, served["prefill_chunk"])
+    first = time_prefill(kp[0], vp[0], ecfg, 0, served["prefill_chunk"], H, g)
     chunk = ecfg.prefill_chunk
-    deep = time_prefill(3 * chunk, chunk)
+    deep = time_prefill(kp[0], vp[0], ecfg, 3 * chunk, chunk, H, g)
     rows.append({
         "name": "paged_attention_prefill", "route": "cuda",
         "source": "dynamo_tpu_torch/ops/csrc/paged_prefill.cu",
@@ -1158,6 +1222,564 @@ def time_kernels(engine, cfg, dev, served) -> list:
     return rows
 
 
+def log_kernel_row(r: dict) -> None:
+    log(f"  {r['name']}: {r['ms']:.4f} ms on the device, {r['eager_ms']:.4f}"
+        f" ms called eagerly (bound {r['bound_ms']:.4f} ms by "
+        f"{r['bound_by']}; plain {r['plain_ms']:.4f} ms; SDPA "
+        f"{r['library_ms']:.4f} ms); launches {r['launches']}"
+        + (f" ({r['launches_per_token']:.1f}/token)"
+           if "launches_per_token" in r else "")
+        + f"; max abs err {r['max_abs_err']:.4g}" + (
+            f" (limit {r['err_limit']:.4g}, control {r['control_err']:.4g})"
+            if "err_limit" in r else "") + f"; shape {r['shape']}")
+    for shape, d in ([("deep chunk", r["deep_chunk"])]
+                     if "deep_chunk" in r else []) + list(
+                         r.get("shapes", {}).items()):
+        log(f"  {r['name']} {shape}: {json.dumps(d)}")
+
+
+# ------------------------------------------------------ tensor parallel
+
+TP_SIZES = (2, 4, 8)
+# the served tensor-parallel phase: ranks of the model axis on the one card
+TP_RANKS = 2
+
+
+def check_local_shapes(dev) -> dict:
+    """The tensor-parallel wrappers at the heads one rank holds of the 8B
+    widths at tp = 2, 4 and 8 (32/tp q heads, 8/tp kv heads, GQA group 4
+    on every rank): the decode kernel in the layered form with stats and
+    in the window form, and the prefill kernel (a first chunk of 512 and a
+    second chunk), against their plain versions under the limits of
+    phases 2 and 3, in float32 and bfloat16. The bf16 decode calls must
+    take the bf16 kernel. Few kv heads mean few (row, kv head) pairs, so
+    the split plan gives the most splits here (up to one per page)."""
+    import torch
+
+    from dynamo_tpu_torch.ops import paged_attention as ops
+    from dynamo_tpu_torch.ops.paged_attention import (
+        NO_WINDOW, decode_reference, prefill_reference, window_reference)
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec
+
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(13)
+    L, N, ps, hd, P, Kw = 2, 96, 64, 128, 16, 4
+    lengths = [0, 1, 64, 300, 700, 1000]
+    lower = [0, 0, 10, 200, 0, 900]
+    B = len(lengths)
+    i32 = dict(dtype=torch.int32, device=dev)
+    for tp in TP_SIZES:
+        H, KV = 32 // tp, 8 // tp
+        mesh = MeshSpec(model=tp).view(tp - 1)
+        for dtype, tol, rtol in ((torch.float32, 1e-5, 0.0),
+                                 (torch.bfloat16, 2e-2, 1e-2)):
+            dt = str(dtype).split(".")[-1]
+            kp = torch.randn(L, N, KV, ps, hd, generator=g,
+                             device=dev).to(dtype)
+            vp = torch.randn(L, N, KV, ps, hd, generator=g,
+                             device=dev).to(dtype)
+            q = torch.randn(B, H, hd, generator=g, device=dev).to(dtype)
+            table = torch.stack([torch.randperm(N - 1, generator=g,
+                                                device=dev)[:P] + 1
+                                 for _ in range(B)]).to(torch.int32)
+            ln = torch.tensor(lengths, **i32)
+            lo = torch.tensor(lower, **i32)
+            ops.reset_launch_counts()
+            calls = 0
+            got = ops.paged_attention_decode_sharded(
+                q, kp, vp, 1, table, ln, mesh=mesh, kv_heads=8,
+                return_stats=True, softcap=30.0, lower=lo)
+            calls += 1
+            torch.cuda.synchronize()
+            want = decode_reference(q, kp, vp, 1, table, ln, lo, hd ** -0.5,
+                                    30.0)
+            rel = ((got[2] - want[2]).abs()
+                   / want[2].abs().clamp(min=1.0)).max().item()
+            if (excess(got[0], want[0], tol, rtol) > 0 or rel > 1e-4
+                    or max_err(got[1], want[1]) > 1e-4):
+                fail(f"sharded decode tp={tp} {dt}: out "
+                     f"{max_err(got[0], want[0]):.3g}, l rel {rel:.3g}")
+            e = max_err(got[0], want[0])
+            start = torch.tensor([n - 1 if n else -1 for n in lengths], **i32)
+            wk = torch.randn(B, Kw, KV, hd, generator=g, device=dev).to(dtype)
+            wv = torch.randn(B, Kw, KV, hd, generator=g, device=dev).to(dtype)
+            for n_win in range(1, Kw + 1):
+                qp = (start.clamp(min=0) + n_win - 1).to(torch.int32)
+                eff = torch.full((B,), 100, **i32) if n_win == Kw else None
+                out = ops.paged_attention_decode_window_sharded(
+                    q, kp, vp, 0, table, start, qp, wk, wv, n_win, mesh=mesh,
+                    kv_heads=8, eff_win=eff)
+                calls += 1
+                torch.cuda.synchronize()
+                ref = window_reference(q, kp, vp, 0, table, start, qp, wk,
+                                       wv, n_win, hd ** -0.5, None, eff)
+                if excess(out, ref, tol, rtol) > 0:
+                    fail(f"sharded decode window tp={tp} {dt} n_win={n_win}:"
+                         f" max abs err {max_err(out, ref):.3g}")
+                e = max(e, max_err(out, ref))
+            routes = dict(ops.DECODE_ROUTE_LAUNCHES)
+            if (ops.LAUNCHES["paged_attention_decode"] != calls
+                    or (dtype == torch.bfloat16
+                        and routes["bf16_mma"] != calls)):
+                fail(f"sharded decode tp={tp} {dt}: {calls} calls, counts "
+                     f"{ops.LAUNCHES}, routes {routes}")
+            errs[(f"decode-tp{tp}", dt)] = e
+            # prefill: a first chunk of 512 and a 256-token second chunk
+            pos = torch.full((2, 512), -1, dtype=torch.int32)
+            pos[0] = torch.arange(512)
+            pos[1, :256] = torch.arange(512, 768)
+            qf = torch.randn(2, 512, H, hd, generator=g,
+                             device=dev).to(dtype)
+            pt = table[:2].contiguous()
+            w = torch.tensor([NO_WINDOW, 300], **i32)
+            out = ops.paged_attention_prefill_sharded(
+                qf, kp[0], vp[0], pt, pos.to(dev), mesh=mesh, kv_heads=8,
+                softcap=20.0, eff_win=w)
+            torch.cuda.synchronize()
+            ref = prefill_reference(qf, kp[0], vp[0], pt, pos.to(dev),
+                                    hd ** -0.5, 20.0, w)
+            if excess(out, ref, tol, rtol) > 0:
+                fail(f"sharded prefill tp={tp} {dt}: max abs err "
+                     f"{max_err(out, ref):.3g}")
+            if ops.LAUNCHES["paged_attention_prefill"] != 1:
+                fail(f"sharded prefill tp={tp} {dt}: counts {ops.LAUNCHES}")
+            errs[(f"prefill-tp{tp}", dt)] = max_err(out, ref)
+    for (name, dt), e in sorted(errs.items()):
+        log(f"  {name:12s} {dt:8s} max_abs_err {e:.3g}")
+    return errs
+
+
+def time_local_shapes(dev, ecfg, served) -> dict:
+    """The two tensor-parallel wrappers timed at the heads one rank holds
+    of the 8B widths at tp = 2, 4 and 8 (32/tp q heads, 8/tp kv heads) at
+    the served shapes: the served 4-row window (its contexts from phase
+    4) and a first chunk of 512. Each decode result names the splits per
+    (row, kv head) that the launch plan picks: fewer kv heads, more
+    splits. Keyed by tp."""
+    import torch
+
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    N, ps, hd = ecfg.num_pages, ecfg.page_size, 128
+    ctx = served["decode_lengths"]
+    B = ecfg.bucket_batch(len(ctx))
+    P = ecfg.bucket_pages(max(-(-n // ps) for n in ctx))
+    out = {}
+    for tp in TP_SIZES:
+        mesh = MeshSpec(model=tp).view(0)
+        H, KV = 32 // tp, 8 // tp
+        kp = torch.randn(1, N, KV, ps, hd, generator=g,
+                         device=dev).to(torch.bfloat16)
+        vp = torch.randn(1, N, KV, ps, hd, generator=g,
+                         device=dev).to(torch.bfloat16)
+        dec = time_decode(kp, vp, ctx, B, P, ecfg.decode_steps, H, g,
+                          mesh=mesh)
+        pf = time_prefill(kp[0], vp[0], ecfg, 0, ecfg.prefill_chunk, H, g,
+                          mesh=mesh)
+        out[tp] = {"decode": dec, "prefill": pf}
+        for name, r in (("decode window", dec), ("prefill chunk", pf)):
+            log(f"  tp={tp} ({H} q heads, {KV} kv heads) {name}: "
+                f"{r['ms']:.4f} ms on the device (bound {r['bound_ms']:.5f}"
+                f" ms by {r['bound_by']}; plain {r['plain_ms']:.4f} ms; SDPA"
+                f" {r['library_ms']:.4f} ms)"
+                + (f"; {r['splits']} splits per (row, kv head)"
+                   if "splits" in r else ""))
+    return out
+
+
+def tp_worker(rank: int, coordinator: str, out_dir: str) -> None:
+    """One rank of the tensor-parallel check (a process of its own): an
+    engine of model=TP_RANKS on the 8B weights of seed 0 (this rank's
+    shard), warmed as the launcher warms it; then :func:`path_run` on its
+    shards (eager), :func:`check_graph_window` and
+    :func:`check_graph_prefill` (its replayed window and chunks, NCCL
+    collectives inside, against the same calls made eagerly on this
+    rank; each fails the rank on a difference) and :func:`collective_ms`.
+    Every rank makes the same calls in the same order, so their
+    collectives pair up. The results go to ``out_dir``."""
+    import torch
+
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec, initialize_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(coordinator, TP_RANKS, rank)
+    mesh = MeshSpec(model=TP_RANKS).build("cuda")
+    cfg = ModelConfig.llama3_8b()
+    engine = TorchEngine(cfg, EngineConfig(), seed=0, mesh=mesh)
+    engine.warmup()
+    dev = mesh.device
+    logits, steps, _ = path_run(engine.params, cfg, dev, True, mesh=mesh)
+    window = check_graph_window(engine, cfg, dev)
+    prefill = check_graph_prefill(engine, dev)
+    torch.save({"prefill": logits.cpu(), "steps": steps.cpu(),
+                "graph_window": window, "graph_prefill": prefill,
+                "collective_ms": collective_ms(mesh)},
+               os.path.join(out_dir, f"tp_rank{rank}.pt"))
+    log(f"tp worker {rank}: done")
+
+
+def collective_ms(mesh) -> dict:
+    """Host wall per all-reduce of one decode step's hidden row
+    ([4, 4096] bf16) over the mesh: 50 eager calls, and a CUDA graph of a
+    window's 264 (4 steps x (1 + 2 x 32 + 1)) replayed 3 times; and
+    whether every call gave the sum over the ranks. Call i reduces a
+    buffer of its own, filled from the rank's input plus i % 32 (a small
+    kernel before each call, in the graph too), and the input changes
+    before each replay (rank r holds base x (r + 1) x (replay + 1), base
+    0..4) with the buffers zeroed: a replay that returned a stale sum or
+    left out a rank's part shows. Every value is an integer below 256,
+    exact in bf16."""
+    import torch
+
+    n, dev = 264, mesh.device
+    shares = mesh.model * (mesh.model + 1) // 2  # sum of (r + 1) over ranks
+    base = (torch.arange(4 * 4096, device=dev) % 5).view(4, 4096).float()
+    src = torch.empty(4, 4096, dtype=torch.bfloat16, device=dev)
+    bufs = torch.zeros((n, 4, 4096), dtype=torch.bfloat16, device=dev)
+    off = (torch.arange(n, device=dev) % 32).view(n, 1, 1).float()
+
+    def reduce(k):
+        for i in range(k):
+            torch.add(src, i % 32, out=bufs[i])
+            mesh.all_reduce(bufs[i])
+
+    def exact(k, rep):
+        want = base * (shares * (rep + 1)) + mesh.model * off[:k]
+        return bool(torch.equal(bufs[:k].float(), want))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        src.copy_(base * (mesh.model_rank + 1))
+        reduce(3)
+        bufs.zero_()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        reduce(50)
+        torch.cuda.synchronize()
+        eager = (time.monotonic() - t0) / 50 * 1e3
+        exact_eager = exact(50, 0)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            reduce(n)
+        replayed, exact_replays = 0.0, []
+        for rep in range(3):
+            src.copy_(base * ((mesh.model_rank + 1) * (rep + 1)))
+            bufs.zero_()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            graph.replay()
+            torch.cuda.synchronize()
+            replayed += time.monotonic() - t0
+            exact_replays.append(exact(n, rep))
+    return {"eager": eager, "replayed": replayed / (3 * n) * 1e3,
+            "sums_exact": {"eager": exact_eager, "replays": exact_replays}}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_env(rank: int) -> dict:
+    """The environment of rank ``rank`` of TP_RANKS: where ranks share a
+    card, its own NCCL host id (the launcher's shared_device_env)."""
+    import torch
+
+    from dynamo_tpu_torch.run import shared_device_env
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    env.update(shared_device_env(rank, TP_RANKS, torch.cuda.device_count()))
+    return env
+
+
+def _run_ranks(cmds, logs, limit: float, until=None, rank_env=True):
+    """Start one process per command (in rank r's environment unless
+    ``rank_env`` is False), call ``until(procs)`` if given, then wait for
+    every process up to ``limit`` seconds in all, or until one exits
+    with an error (the others would wait on it in a collective); every
+    process, and what it started, is killed at the end whatever happens.
+    Returns the exit codes."""
+    procs = []
+    t0 = time.monotonic()
+    try:
+        for r, (cmd, path) in enumerate(zip(cmds, logs)):
+            env = _rank_env(r)
+            if not rank_env:
+                env = {k: v for k, v in env.items()
+                       if not k.startswith("NCCL_")}
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(
+                    cmd, env=env, cwd=REPO, stdout=f,
+                    stderr=subprocess.STDOUT, start_new_session=True))
+        if until is not None:
+            until(procs)
+        while time.monotonic() - t0 < limit:
+            rcs = [p.poll() for p in procs]
+            if any(rcs) or all(rc is not None for rc in rcs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            try:  # ranks the process started itself
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    return [p.returncode for p in procs]
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def check_tp_logits(reference, out_dir: str) -> dict:
+    """Two ranks of :func:`tp_worker` on the one card against the tp=1
+    reference (check_paths' kernel path, same weights and inputs):
+    prefill logits and every teacher-forced window step's logits within
+    PATH_LIMITS (the bf16 noise budget of 32 layers that the kernel path
+    keeps against the plain path); the ranks' logits bitwise equal (each
+    holds the gathered logits); argmax equal to tp=1's wherever tp=1's
+    top-2 margin exceeds that limit (random weights make near-ties
+    common: elsewhere bf16 rounding may swap the top two). Each rank's
+    replayed decode window and prefill chunks must have matched its
+    eager calls (tokens, emitted counts and carry identical, window K/V
+    within bf16 tolerance, chunk logits, draws and pools bitwise), with
+    the same tokens and draws on both ranks, and every eager and
+    replayed all-reduce of :func:`collective_ms` must give the exact
+    sum."""
+    import torch
+
+    coordinator = f"127.0.0.1:{_free_port()}"
+    cmds = [[sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--tp-worker", str(r), "--tp-coordinator", coordinator,
+             "--tp-dir", out_dir] for r in range(TP_RANKS)]
+    logs = [os.path.join(out_dir, f"tp_logits_rank{r}.log")
+            for r in range(TP_RANKS)]
+    t0 = time.monotonic()
+    rcs = _run_ranks(cmds, logs, 480)
+    # a rank that failed first, before one killed after it
+    for r in sorted(range(TP_RANKS), key=lambda r: rcs[r] is None
+                    or rcs[r] < 0):
+        if rcs[r] != 0:
+            fail(f"tp logits rank {r} exited {rcs[r]}:\n{_tail(logs[r])}")
+    got = [torch.load(os.path.join(out_dir, f"tp_rank{r}.pt"))
+           for r in range(TP_RANKS)]
+    for r in range(1, TP_RANKS):
+        if not all(torch.equal(got[0][k], got[r][k])
+                   for k in ("prefill", "steps")):
+            fail(f"tp rank {r}'s logits differ from rank 0's")
+    graphs = []
+    for r, g in enumerate(got):
+        gw, gp = g["graph_window"], g["graph_prefill"]
+        sums = g["collective_ms"]["sums_exact"]
+        same = {"window": gw["toks"] and gw["emitted"] and gw["carry"],
+                **{f"prefill {k}": c["sampled"] and c["logits"] and c["kv"]
+                   for k, c in gp.items()},
+                "all_reduce sums": sums["eager"] and all(sums["replays"])}
+        graphs.append({"rank": r, **same,
+                       "window_kv_bitwise": gw["kv_bitwise"],
+                       "window_kv_max_abs_err": gw["kv_max_abs_err"]})
+        if not all(same.values()):
+            fail(f"tp rank {r}: graph replay or collective differs: {same}")
+        if r and (gw["tokens"] != got[0]["graph_window"]["tokens"]
+                  or any(c["sampled"] != got[0]["graph_prefill"][k]["sampled"]
+                         for k, c in gp.items())):
+            fail(f"tp rank {r}'s replayed tokens differ from rank 0's")
+    want_pf, want_steps = reference
+    err = {"collective_ms": [g["collective_ms"] for g in got],
+           "graph_replay_vs_eager": graphs,
+           "prefill_logits": max_err(got[0]["prefill"], want_pf),
+           "window_logits_by_step": [max_err(a, b) for a, b in
+                                     zip(got[0]["steps"], want_steps)]}
+    err["window_logits"] = max(err["window_logits_by_step"])
+    # top-2 margins of the tp=1 logits, every (step, row); the prefill's
+    # first tokens first
+    ref = torch.cat([want_pf[None], want_steps])
+    tp2 = torch.cat([got[0]["prefill"][None], got[0]["steps"]])
+    top2 = ref.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    decided = margin > PATH_LIMITS["window_logits"]
+    same = ref.argmax(-1) == tp2.argmax(-1)
+    result = {**err, "limits": {k: PATH_LIMITS[k] for k in
+                                ("prefill_logits", "window_logits")},
+              "argmax_checked": int(decided.sum()),
+              "argmax_of": int(decided.numel()),
+              "argmax_equal_all": int(same.sum()),
+              "tp1_top2_margins": [round(float(m), 4)
+                                   for m in margin.flatten()],
+              "seconds": time.monotonic() - t0}
+    log(f"  tp=2 vs tp=1 logits, tp=2 replays vs eager: "
+        f"{json.dumps(result)}")
+    for key in ("prefill_logits", "window_logits"):
+        if err[key] > PATH_LIMITS[key]:
+            fail(f"tp=2 {key} differ from tp=1 by {err[key]:.4g} > "
+                 f"{PATH_LIMITS[key]}")
+    if not bool(same[decided].all()):
+        fail(f"tp=2 argmax differs from tp=1 where tp=1's top-2 margin "
+             f"exceeds {PATH_LIMITS['window_logits']}")
+    return result
+
+
+async def _serve_remote(base: str, name: str) -> dict:
+    """Phase 4's four concurrent requests against a server at ``base``
+    (two streaming chats, one unary chat, one completion): each must
+    answer 200 and finish by length or stop."""
+    import aiohttp
+
+    long_prompt = ("The quick brown fox jumps over the lazy dog. " * 14)[:600]
+
+    async def chat(s, content, max_tokens, stream):
+        body = {"model": name, "stream": stream, "max_tokens": max_tokens,
+                "messages": [{"role": "user", "content": content}]}
+        async with s.post(f"{base}/v1/chat/completions", json=body) as r:
+            if r.status != 200:
+                fail(f"tp serve: HTTP {r.status}: {await r.text()}")
+            if not stream:
+                return (await r.json())["choices"][0]["finish_reason"]
+            lines = [ln.decode().strip() async for ln in r.content]
+            data = [ln[6:] for ln in lines if ln.startswith("data: ")]
+            if data[-1] != "[DONE]":
+                fail("tp serve: stream did not end with [DONE]")
+            fin = [c["finish_reason"] for d in data[:-1]
+                   for c in json.loads(d)["choices"] if c.get("finish_reason")]
+            return fin[-1] if fin else None
+
+    async def completion(s, prompt, max_tokens):
+        async with s.post(f"{base}/v1/completions", json={
+                "model": name, "prompt": prompt,
+                "max_tokens": max_tokens}) as r:
+            if r.status != 200:
+                fail(f"tp serve: HTTP {r.status}: {await r.text()}")
+            return (await r.json())["choices"][0]["finish_reason"]
+
+    async with aiohttp.ClientSession() as s:
+        t0 = time.monotonic()
+        fins = await asyncio.gather(
+            chat(s, "Tell me about paged attention.", 32, True),
+            chat(s, long_prompt, 32, True),
+            chat(s, "What is an H100?", 24, False),
+            completion(s, "Once upon a time", 24))
+        wall = time.monotonic() - t0
+    if any(f not in ("length", "stop") for f in fins):
+        fail(f"tp serve: finish reasons {fins}")
+    return {"finish_reasons": fins, "wall_s": wall}
+
+
+def serve_tp(cfg, out_dir: str, one_command: bool) -> dict:
+    """The served tensor-parallel phase: two ranks of the launcher on the
+    one card, in one of its two forms: one process per rank
+    (``--tensor-parallel-size 2 --coordinator ... --process-id r``, each
+    given its NCCL host id here), or one command that starts rank 1
+    itself (``--tensor-parallel-size 2`` alone; it must set the NCCL host
+    ids itself, and say so). The phase-4 requests go over HTTP to rank 0,
+    then SIGTERM to rank 0, which stops rank 1. Each rank's serving
+    summary must show no capture after warmup, mesh model=2, every kernel
+    call from a graph replay (prefill: one per layer of a replayed chunk;
+    decode: one per layer and step of a replayed window), all decode
+    calls on the bf16 route (with a mesh the model calls the kernels
+    only through the sharded wrappers), and the same counts on both
+    ranks."""
+    import urllib.request
+
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig
+
+    port = _free_port()
+    base = [sys.executable, "-m", "dynamo_tpu_torch.run", "in=http",
+            "out=torch", "--model", "8b", "--model-name", "llama3-8b-tp2",
+            "--tensor-parallel-size", str(TP_RANKS), "--http-host",
+            "127.0.0.1", "--http-port", str(port)]
+    form = "one_command" if one_command else "coordinator"
+    if one_command:
+        cmds = [base]
+    else:
+        coordinator = f"127.0.0.1:{_free_port()}"
+        cmds = [base + ["--coordinator", coordinator, "--num-processes",
+                        str(TP_RANKS), "--process-id", str(r)]
+                for r in range(TP_RANKS)]
+    logs = [os.path.join(out_dir, f"tp_serve_{form}_{r}.log")
+            for r in range(len(cmds))]
+    report = {"form": form}
+
+    def drive(procs):
+        t0 = time.monotonic()
+        while True:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                            timeout=2) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            for i, p in enumerate(procs):
+                if p.poll() is not None:
+                    fail(f"tp process {i} exited {p.returncode} before "
+                         f"serving:\n{_tail(logs[i])}")
+            if time.monotonic() - t0 > 420:
+                fail(f"tp ranks not serving after 420 s:\n{_tail(logs[0])}")
+            time.sleep(1)
+        report["start_s"] = time.monotonic() - t0
+        report.update(asyncio.run(_serve_remote(f"http://127.0.0.1:{port}",
+                                                "llama3-8b-tp2")))
+        procs[0].send_signal(signal.SIGTERM)
+
+    rcs = _run_ranks(cmds, logs, 600, until=drive, rank_env=not one_command)
+    summaries = {}
+    for i, path in enumerate(logs):
+        with open(path) as f:
+            text = f.read()
+        for line in text.splitlines():
+            if "serving summary " in line:
+                s = json.loads(line.split("serving summary ", 1)[1])
+                summaries[s["rank"]] = s
+        if rcs[i] != 0:
+            fail(f"tp process {i} exited {rcs[i]}:\n{_tail(path)}")
+        if one_command and "each rank gets its own NCCL_HOSTID" not in text:
+            fail(f"the one-command launcher did not set the ranks' NCCL "
+                 f"host ids:\n{_tail(path)}")
+    if sorted(summaries) != list(range(TP_RANKS)):
+        fail(f"tp serving summaries of ranks {sorted(summaries)}:\n"
+             f"{_tail(logs[0])}")
+    L, K = cfg.num_layers, EngineConfig().decode_steps
+    for r, s in summaries.items():
+        pf, win = s["replays"]["prefill"], s["replays"]["decode_window"]
+        lc = s["launches"]
+        problems = []
+        if s["post_warmup_compiles_total"] != 0:
+            problems.append("captures after warmup")
+        if s["mesh_shape"] != "model=2":
+            problems.append(f"mesh_shape {s['mesh_shape']}")
+        if pf <= 0 or win <= 0:
+            problems.append("no replay")
+        if (lc["paged_attention_prefill"] != pf * L
+                or lc["paged_attention_decode"] != win * L * K):
+            problems.append("launches are not the replays'")
+        if s["route_launches"] != {"bf16_mma": lc["paged_attention_decode"],
+                                   "generic": 0}:
+            problems.append(f"decode routes {s['route_launches']}")
+        if problems:
+            fail(f"tp rank {r}: {problems}: {json.dumps(s)}")
+    first = {k: v for k, v in summaries[0].items() if k != "rank"}
+    for r in range(1, TP_RANKS):
+        if {k: v for k, v in summaries[r].items() if k != "rank"} != first:
+            fail(f"tp rank {r}'s summary differs from rank 0's: "
+                 f"{json.dumps(summaries[r])} vs {json.dumps(summaries[0])}")
+    report["summaries"] = summaries
+    log(f"  tp=2 served, {form} form (two ranks sharing one card; not a "
+        f"TP speed): {json.dumps(report)}")
+    return report
+
+
 # --------------------------------------------------------------- main
 
 
@@ -1165,6 +1787,11 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
                     help="also write the full results as JSON here")
+    # one rank of phase 7's logits check (the script starts them itself)
+    ap.add_argument("--tp-worker", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-coordinator", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.monotonic()
     try:
@@ -1176,6 +1803,9 @@ def main() -> None:
     if not os.path.isdir(os.path.join(REPO, "dynamo_tpu_torch")):
         fail("dynamo_tpu_torch/ not found beside chip_smoke.py")
     sys.path.insert(0, REPO)
+    if args.tp_worker is not None:
+        tp_worker(args.tp_worker, args.tp_coordinator, args.tp_dir)
+        return
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1242,7 +1872,7 @@ def main() -> None:
         f"{json.dumps(ttft['warm_spread'])}")
     log(f"  bucket_cost, sampled batch: "
         f"{json.dumps(ttft['bucket_cost_sampled'])}")
-    paths = check_paths(engine, cfg, dev)
+    paths, tp1_logits = check_paths(engine, cfg, dev)
     graph_window = check_graph_window(engine, cfg, dev)
     graph_prefill = check_graph_prefill(engine, dev)
 
@@ -1254,18 +1884,46 @@ def main() -> None:
     tokens_total = served["tokens_total"]
     for r in rows:
         r["launches_per_token"] = r["launches"] / max(tokens_total, 1)
-        log(f"  {r['name']}: {r['ms']:.4f} ms on the device, {r['eager_ms']:.4f}"
-            f" ms called eagerly (bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}; plain {r['plain_ms']:.4f} ms; SDPA "
-            f"{r['library_ms']:.4f} ms); launches {r['launches']} "
-            f"({r['launches_per_token']:.1f}/token); max abs err "
-            f"{r['max_abs_err']:.4g}" + (
-                f" (limit {r['err_limit']:.4g}, control {r['control_err']:.4g})"
-                if "err_limit" in r else "") + f"; shape {r['shape']}")
-        for shape, d in ([("deep chunk", r["deep_chunk"])]
-                         if "deep_chunk" in r else []) + list(
-                             r.get("shapes", {}).items()):
-            log(f"  {r['name']} {shape}: {json.dumps(d)}")
+        log_kernel_row(r)
+
+    log("phase 6: the tensor-parallel wrappers at one rank's heads "
+        f"(tp {', '.join(map(str, TP_SIZES))})")
+    local_errs = check_local_shapes(dev)
+    local_times = time_local_shapes(dev, engine.ecfg, served)
+    # the tp=1 engine leaves the card before the ranks start
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"phase 7: tensor-parallel serving, {TP_RANKS} ranks of the "
+        f"launcher on the one card")
+    tp_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        tp_logits = check_tp_logits(tp1_logits, tp_dir)
+        tp_served = serve_tp(cfg, tp_dir, one_command=False)
+        tp_served_one = serve_tp(cfg, tp_dir, one_command=True)
+    finally:
+        shutil.rmtree(tp_dir, ignore_errors=True)
+    # the served tp=2 phase's rank 0 (rank 1 is checked equal): with a
+    # mesh every kernel call goes through a sharded wrapper
+    rank0 = tp_served["summaries"][0]["launches"]
+    for name, line, src, kernel, launches, times in (
+            ("paged_attention_decode_sharded", 161,
+             "dynamo_tpu_torch/ops/csrc/paged_attention.cu",
+             DECODE_KERNELS["bf16_mma"], rank0["paged_attention_decode"],
+             local_times[2]["decode"]),
+            ("paged_attention_prefill_sharded", 293,
+             "dynamo_tpu_torch/ops/csrc/paged_prefill.cu",
+             "paged_prefill_bf16_kernel", rank0["paged_attention_prefill"],
+             local_times[2]["prefill"])):
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"dynamo_tpu/ops/paged_attention.py:{line}",
+            "kernel": f"{name} (ops/paged_attention.py) -> {kernel}",
+            "launches": launches, **times,
+            "timed_at": "one rank's heads of tp=2 (two ranks share the "
+                        "card in phase 7: not a TP speed)"})
+        log_kernel_row(rows[-1])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1277,6 +1935,11 @@ def main() -> None:
             json.dump({"card": card, "served": served, "ttft": ttft,
                        "paths": paths, "graph_window": graph_window,
                        "graph_prefill": graph_prefill, "kernels": rows,
+                       "tp_local_errs": {" ".join(k): v for k, v in
+                                         local_errs.items()},
+                       "tp_local_times": local_times,
+                       "tp_logits": tp_logits, "tp_served": tp_served,
+                       "tp_served_one_command": tp_served_one,
                        "decode_errs": {" ".join(k): v
                                        for k, v in dec_errs.items()},
                        "window_errs": {" ".join(k): v
@@ -1284,6 +1947,9 @@ def main() -> None:
                        "prefill_errs": {" ".join(k): v
                                         for k, v in pf_errs.items()},
                        "seconds": time.monotonic() - t_start}, f, indent=1)
+    for r in rows:
+        if r["route"] not in ("cuda", "triton"):
+            fail(f"kernel row {r['name']}: route {r['route']!r}")
     keys = ("name", "route", "kernel", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -44,6 +44,15 @@ Kernel launch counts (``ops.paged_attention.LAUNCHES`` and
 ``DECODE_ROUTE_LAUNCHES``) count Python calls, and a replay makes none:
 each graph records the counts its capture added (and takes them back,
 since a capture launches nothing) and adds them again at every replay.
+
+Under tensor parallelism the captured functions hold NCCL collectives
+(``models/llama.py``). Each rank captures the same buckets in the same
+order at warmup (:meth:`_GraphSet.capture` sorts its keys), and a rank
+captures a missing bucket only when rank 0 has announced the dispatch
+that needs it, so the collectives of the warm calls, the captures and
+the replays pair up across ranks. The device group's communicator is
+made by an eager collective before any capture (``parallel/mesh.py``
+``MeshSpec.build``).
 :attr:`pool_bytes` is the growth of the pool's own segments (the caching
 allocator's segments of the pool, ``torch.cuda.memory_snapshot``) over
 the set's captures, so blocks the eager warm calls leave cached outside
@@ -370,9 +379,14 @@ class PrefillBucket:
     def host_inputs(self) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
         """A fresh host image of the inputs (padding rows) and numpy
         views of it by name, to fill and pass to :meth:`PrefillGraphs.run`."""
-        img = self.blank.copy()
-        return img, {name: img[a:b].view(dt).reshape(shape)
-                     for name, (a, b, shape, dt) in self.spans.items()}
+        return _host_image(self.blank, self.spans)
+
+
+def _host_image(blank: np.ndarray, spans) -> Tuple[np.ndarray,
+                                                   Dict[str, np.ndarray]]:
+    img = blank.copy()
+    return img, {name: img[a:b].view(dt).reshape(shape)
+                 for name, (a, b, shape, dt) in spans.items()}
 
 
 class PrefillGraphs(_GraphSet):
@@ -394,27 +408,47 @@ class PrefillGraphs(_GraphSet):
         self.page_size = page_size
         self.num_pages = num_pages
         self.max_top_k = max_top_k
+        self._layouts: Dict[Tuple[int, int, int], tuple] = {}
 
     def _form(self, key: tuple) -> str:
         B, T, P, paged = key
         return (f"prefill chunk (B={B}, T={T}, P={P}, "
                 f"{'page commit' if paged else 'row scatter'})")
 
+    def _layout(self, B: int, T: int, P: int):
+        """(spans, blank) of a chunk's packed inputs: each input's word
+        range, shape and dtype, and the host image of padding rows
+        (position -1, dropped slots and pages: a launch over them writes
+        nothing to the pool)."""
+        if (B, T, P) not in self._layouts:
+            layout = _prefill_layout(B, T, P, max(T // self.page_size, 1),
+                                     DROP_SLOT, self.num_pages)
+            spans, words = {}, 0
+            for name, shape, dt, _ in layout:
+                n = int(np.prod(shape)) * dt.itemsize // 4
+                spans[name] = (words, words + n, shape, dt)
+                words += n
+            blank = np.zeros(words, np.int32)
+            for name, _, dt, value in layout:
+                a, b = spans[name][:2]
+                blank[a:b].view(dt)[:] = value
+            self._layouts[(B, T, P)] = spans, blank
+        return self._layouts[(B, T, P)]
+
+    def host_inputs(self, B: int, T: int, P: int, paged: bool
+                    ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """A fresh host image of bucket (B, T, P, paged)'s inputs and
+        numpy views of it by name (:meth:`PrefillBucket.host_inputs`),
+        without making the bucket: a tensor-parallel rank 0 fills and
+        sends the image before any rank captures a missing bucket."""
+        spans, blank = self._layout(B, T, P)
+        return _host_image(blank, spans)
+
     def _new_bucket(self, B: int, T: int, P: int,
                     paged: bool) -> PrefillBucket:
-        """Buffers holding padding rows (position -1, dropped slots and
-        pages): a launch over them writes nothing to the pool."""
-        layout = _prefill_layout(B, T, P, max(T // self.page_size, 1),
-                                 DROP_SLOT, self.num_pages)
-        spans, words = {}, 0
-        for name, shape, dt, _ in layout:
-            n = int(np.prod(shape)) * dt.itemsize // 4
-            spans[name] = (words, words + n, shape, dt)
-            words += n
-        blank = np.zeros(words, np.int32)
-        for name, _, dt, value in layout:
-            a, b = spans[name][:2]
-            blank[a:b].view(dt)[:] = value
+        """Buffers holding padding rows: a launch over them writes nothing
+        to the pool."""
+        spans, blank = self._layout(B, T, P)
         packed = torch.from_numpy(blank.copy()).to(self.device)
         inputs = {name: packed[a:b].view(_TORCH_DTYPES[dt]).view(shape)
                   for name, (a, b, shape, dt) in spans.items()}

@@ -34,7 +34,21 @@ behind ``Backend`` the same way:
 - per-request state is host-side (token lists, page tables from
   ``PageManager``); the device sees only padded arrays;
 - sequences preempt (release pages, requeue) when the pool runs dry,
-  after the pipeline is flushed.
+  after the pipeline is flushed;
+- tensor parallel (``mesh``, a ``parallel/mesh.py`` ``MeshView`` of
+  ``model=N``): every rank holds its Megatron shard of the params and
+  the pool and captures the same graphs in the same order at warmup.
+  Rank 0 owns what the JAX single controller owns (the scheduler,
+  ``PageManager``, the pipeline, and the HTTP front end around it);
+  before each dispatch it sends the followers (ranks > 0, :meth:`follow`)
+  the dispatch's bucket key and every host input it uploads, packed as
+  one int32 message over the gloo control group, so each follower makes
+  the same uploads and replays the same graph on its own shard, and the
+  collectives inside the graphs pair up. A bucket missing after warmup
+  is announced like any dispatch, so every rank captures it (and counts
+  it in ``post_warmup_compiles_total``). A follower keeps its own device
+  carry, which equals rank 0's: every rank samples the same tokens from
+  the same gathered logits.
 
 Not ported yet: penalties and logprobs, the host KV tier, speculative
 decoding, disaggregation, long-prompt ring prefill and budgeted prefill
@@ -53,6 +67,7 @@ from typing import AsyncIterator, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..llm.protocols.common import (FINISH_CANCELLED, FINISH_EOS,
                                     FINISH_LENGTH, FINISH_TIMEOUT,
@@ -61,6 +76,7 @@ from ..models.config import ModelConfig
 from ..models.llama import (KVCacheSpec, check_supported, init_kv_cache,
                             init_params, make_decode_window_fn,
                             make_step_fns)
+from ..parallel.mesh import MeshView, shard_param
 from ..runtime.device import resolve_device
 from ..runtime.engine import Context
 from ..runtime.slo import LatencyRecorder
@@ -71,6 +87,12 @@ from .profiler import EngineProfiler, memory_snapshot
 from .sampling import SamplingBatch
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
+
+# tensor parallel: rank 0's messages to the followers, each an int64
+# header [kind, payload words, bucket key and flags ...] then, when it has
+# one, an int32 payload (engine docstring)
+_STOP, _PREFILL, _DECODE = 0, 1, 2
+_HEADER_WORDS = 8
 
 
 def _cancel_reason(ctx: Context) -> str:
@@ -241,6 +263,7 @@ class _PendingWindow:
     event: Optional[torch.cuda.Event]
     carry: tuple                    # (tok, pos, done, steps, remaining)
     index: Dict[int, int] = field(default_factory=dict)  # id(seq) → row
+    key: Tuple[int, int] = (0, 0)   # the bucket whose outputs hold carry
     processed: bool = False
 
 
@@ -274,28 +297,66 @@ def _merge_carry(c_tok, c_pos, c_done, c_steps, c_rem, src, from_carry,
     return tok, pos, done, steps, rem
 
 
+def _pack_sampler(samp: tuple) -> np.ndarray:
+    """The decode bucket's sampler uploads (table, eos, temperature,
+    top_k, top_p, seeds) as one int32 array, for the followers."""
+    return np.concatenate([np.ascontiguousarray(a).reshape(-1).view(np.int32)
+                           for a in samp])
+
+
+def _unpack_sampler(words: np.ndarray, B: int, P: int, E: int) -> tuple:
+    out, at = [], 0
+    for shape, dt in (((B, P), np.int32), ((B, E), np.int32),
+                      ((B,), np.float32), ((B,), np.int32),
+                      ((B,), np.float32), ((B,), np.int64)):
+        n = int(np.prod(shape)) * np.dtype(dt).itemsize // 4
+        # a copy, so the int64 field starts on an 8-byte boundary
+        out.append(words[at:at + n].copy().view(dt).reshape(shape))
+        at += n
+    return tuple(out)
+
+
 class TorchEngine:
     """AsyncEngine over the PyTorch model (token-level core engine)."""
 
     def __init__(self, model_cfg: ModelConfig,
                  engine_cfg: Optional[EngineConfig] = None, params=None,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda",
+                 mesh: Optional[MeshView] = None):
+        """``mesh``: the rank's view of a tensor-parallel mesh
+        (``parallel/mesh.py MeshSpec.build``); the engine then runs on the
+        mesh's device, and ``params``, when given, are the rank's shard
+        (``models/bridge.py params_from_numpy(rank=, size=)``). Random
+        params are drawn whole, one param at a time, and cut to the
+        rank's shard, so every tensor-parallel size serves the weights of
+        the same seed."""
         check_supported(model_cfg)
+        shard = None
+        if mesh is not None:
+            if mesh.data > 1:
+                raise NotImplementedError(
+                    "the data axis inside one engine is not ported yet")
+            device = mesh.device
+            shard = lambda name, t: shard_param(  # noqa: E731
+                name, t, model_cfg, mesh)
+        self.mesh = mesh
+        self.mesh_devices = mesh.size if mesh is not None else 1
+        self.mesh_shape = mesh.shape if mesh is not None else "single"
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.ecfg = engine_cfg or EngineConfig()
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            params = init_params(model_cfg, gen)
+            params = init_params(model_cfg, gen, shard=shard)
         self.params = params
         spec = KVCacheSpec(self.ecfg.num_pages, self.ecfg.page_size)
         self.kv_k, self.kv_v = init_kv_cache(model_cfg, spec,
-                                             device=self.device)
+                                             device=self.device, mesh=mesh)
         # the engine decodes in fused windows only (no K=1 decode steps)
-        self.prefill_fn, _ = make_step_fns(model_cfg)
+        self.prefill_fn, _ = make_step_fns(model_cfg, mesh=mesh)
         self.decode_multi_fn = make_decode_window_fn(
-            model_cfg, max_top_k=self.ecfg.max_top_k)
+            model_cfg, max_top_k=self.ecfg.max_top_k, mesh=mesh)
         # capture fence (armed by warmup) and the graphs per bucket: decode
         # windows, and prefill chunks on the same stream and pool
         self.fence = CompileFence(f"torch-engine-{id(self):x}")
@@ -340,6 +401,7 @@ class TorchEngine:
         self._aio_loop: Optional[asyncio.AbstractEventLoop] = None
         self._aio_loop_tid: Optional[int] = None
         self._stopped = False
+        self._followers_stopped = False
         self._exec = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="torch-step")
         self.batch_dispatches_total = 0
@@ -385,11 +447,89 @@ class TorchEngine:
             self._loop_task = asyncio.ensure_future(self._loop())
 
     async def stop(self) -> None:
+        """Stop the scheduler (its shutdown drain ends every client), then
+        release the tensor-parallel followers."""
         self._stopped = True
         self._wake.set()
         if self._loop_task:
             await self._loop_task
+        if self._leads and not self._followers_stopped:
+            # the loop has ended: no dispatch is in progress
+            self._announce([_STOP])
+            self._followers_stopped = True
         self._exec.shutdown(wait=True)
+
+    # ----------------------------------------------------- tensor parallel
+
+    @property
+    def _leads(self) -> bool:
+        """Rank 0 of a tensor-parallel mesh, which sends followers their
+        dispatches."""
+        return (self.mesh is not None and self.mesh.size > 1
+                and self.mesh.rank == 0)
+
+    def _announce(self, header: List[int],
+                  payload: Optional[np.ndarray] = None) -> None:
+        """Rank 0: send one dispatch to the followers, before launching
+        or capturing it (a no-op without followers). ``header`` starts
+        with the kind; the payload's length goes in as its second word."""
+        if not self._leads:
+            return
+        n = 0 if payload is None else int(payload.size)
+        words = [header[0], n, *header[1:]]
+        head = torch.zeros(_HEADER_WORDS, dtype=torch.int64)
+        head[:len(words)] = torch.tensor(words, dtype=torch.int64)
+        dist.broadcast(head, src=0, group=self.mesh.cpu_group)
+        if n:
+            dist.broadcast(torch.from_numpy(payload), src=0,
+                           group=self.mesh.cpu_group)
+
+    def _receive(self) -> Tuple[List[int], Optional[np.ndarray]]:
+        """A follower: the next dispatch from rank 0 (header without its
+        length word, and the int32 payload)."""
+        head = torch.empty(_HEADER_WORDS, dtype=torch.int64)
+        dist.broadcast(head, src=0, group=self.mesh.cpu_group)
+        words = head.tolist()
+        payload = None
+        if words[1]:
+            buf = torch.empty(words[1], dtype=torch.int32)
+            dist.broadcast(buf, src=0, group=self.mesh.cpu_group)
+            payload = buf.numpy()
+        return [words[0]] + words[2:], payload
+
+    def follow(self) -> None:
+        """Ranks > 0 of a tensor-parallel mesh: replay rank 0's dispatches
+        on this rank's shard until rank 0 stops (blocking; after
+        :meth:`warmup`). Each dispatch takes the bucket rank 0 takes, with
+        the host inputs rank 0 uploads; the carry of a pipelined window
+        comes from this rank's own previous window, as on rank 0."""
+        if self.mesh is None or self.mesh.rank == 0:
+            raise RuntimeError("follow() runs on the ranks > 0 of a mesh")
+        E = self.ecfg.max_eos_ids
+        with self.graphs.stream_ctx():
+            while True:
+                header, payload = self._receive()
+                kind = header[0]
+                if kind == _STOP:
+                    break
+                if kind == _PREFILL:
+                    B, T, P, paged = header[1:5]
+                    bk = self.prefill_graphs.bucket(B, T, P, bool(paged))
+                    self.prefill_graphs.run(bk, payload)
+                elif kind == _DECODE:
+                    B, P, samp, pB, pP = header[1:6]
+                    bk = self.graphs.bucket(B, P)
+                    rows = payload[:6 * B].reshape(6, B)
+                    if samp:
+                        self._upload_sampler(bk, _unpack_sampler(
+                            payload[6 * B:], B, P, E))
+                    prev = self.graphs.buckets[(pB, pP)].carry if pB else None
+                    self._launch_window(bk, rows, prev)
+                else:
+                    raise RuntimeError(f"unknown dispatch kind {kind}")
+                self.batch_dispatches_total += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------ AsyncEngine API
 
@@ -416,6 +556,8 @@ class TorchEngine:
         """The subset of the JAX engine's stats() this engine tracks, under
         the same key names."""
         return {
+            "mesh_shape": self.mesh_shape,
+            "mesh_devices": self.mesh_devices,
             "batch_dispatches_total": self.batch_dispatches_total,
             "kv_free_blocks": len(self.pm.free),
             "kv_cached_blocks": len(self.pm.reusable),
@@ -671,8 +813,8 @@ class TorchEngine:
         ps = ecfg.page_size
 
         use_paged = T % ps == 0 and all(s.computed % ps == 0 for s in batch)
-        bk = self.prefill_graphs.bucket(B, T, P, use_paged)
-        img, f = bk.host_inputs()  # padding rows, filled below
+        key = (B, T, P, use_paged)
+        img, f = self.prefill_graphs.host_inputs(*key)  # padding rows
         for i, (seq, chunk) in enumerate(zip(batch, chunks)):
             start = seq.computed
             pos = np.arange(start, start + chunk)
@@ -706,6 +848,8 @@ class TorchEngine:
             f["seeds"][:] = sb.seeds
             f["steps"][:len(batch)] = [s.generated for s in batch]
 
+        self._announce([_PREFILL, B, T, P, int(use_paged)], img)
+        bk = self.prefill_graphs.bucket(*key)
         pt0 = self.profiler.begin()
         self.prefill_graphs.run(bk, img)
         sampled, event = None, None
@@ -804,12 +948,12 @@ class TorchEngine:
         B = ecfg.bucket_batch(len(batch))
         P = ecfg.bucket_pages(max(len(s.pages) for s in batch))
         E = ecfg.max_eos_ids
-        bk = self.graphs.bucket(B, P)
         # cache_sampler_params: while the batch composition (rows, page
         # counts, bucket) is unchanged, the page table, stop table and
         # sampler params already sit in the bucket's static buffers
         key = ((B, P, list(batch), [len(s.pages) for s in batch])
                if ecfg.cache_sampler_params else None)
+        samp = None
         if key is None or self._samp_cache != key:
             table = np.zeros((B, P), np.int32)
             eos = np.full((B, E), -1, np.int32)
@@ -819,11 +963,9 @@ class TorchEngine:
                 if ids:
                     eos[i, :min(len(ids), E)] = ids[:E]
             sb = SamplingBatch.build([s.req.sampling for s in batch], B)
-            for dst, a in ((bk.table, table), (bk.eos, eos),
-                           (bk.temperature, sb.temperature),
-                           (bk.top_k, sb.top_k), (bk.top_p, sb.top_p),
-                           (bk.seeds, sb.seeds.astype(np.int64))):
-                upload(dst, a)
+            samp = (table, eos, sb.temperature.astype(np.float32),
+                    sb.top_k.astype(np.int32), sb.top_p.astype(np.float32),
+                    sb.seeds.astype(np.int64))
             self._samp_cache = key
         # host rows: tok, pos, steps, remaining, src, from_carry
         rows = np.zeros((6, B), np.int32)
@@ -839,11 +981,45 @@ class TorchEngine:
                 rows[2, i] = seq.generated
                 rows[3, i] = max(min(seq.max_new() - seq.generated,
                                      self.cap_tokens - len(seq.tokens)), 1)
+        pB, pP = prev.key if prev is not None else (0, 0)
+        self._announce(
+            [_DECODE, B, P, int(samp is not None), pB, pP],
+            rows.reshape(-1) if samp is None
+            else np.concatenate([rows.reshape(-1), _pack_sampler(samp)]))
+        bk = self.graphs.bucket(B, P)
+        if samp is not None:
+            self._upload_sampler(bk, samp)
         pt0 = self.profiler.begin()
+        self._launch_window(bk, rows,
+                            prev.carry if prev is not None else None)
+        host, event = to_host(bk.toks, bk.emitted, bk.carry[2])
+        self.profiler.end(pt0, "decode_window", (B, P, K),
+                          tokens=len(batch) * K, drain=True)
+        self.batch_dispatches_total += 1
+        pend = _PendingWindow(batch=list(batch), host=host, event=event,
+                              carry=bk.carry,
+                              index={id(s): i for i, s in enumerate(batch)},
+                              key=(B, P))
+        self._inflight.append(pend)
+        return pend
+
+    @staticmethod
+    def _upload_sampler(bk, samp: tuple) -> None:
+        """A decode bucket's page table, stop table and sampler params."""
+        for dst, a in zip((bk.table, bk.eos, bk.temperature, bk.top_k,
+                           bk.top_p, bk.seeds), samp):
+            upload(dst, a)
+
+    def _launch_window(self, bk, rows: np.ndarray,
+                       prev_carry: Optional[tuple]) -> None:
+        """Upload a window's host rows (tok, pos, steps, remaining, src,
+        from_carry) and launch it: rows carried over from the previous
+        window take their state from ``prev_carry`` (:func:`_merge_carry`),
+        the others from the rows."""
         upload(bk.rows, rows)
         n_tok, n_pos, n_steps, n_rem, src, from_carry = bk.rows
-        if prev is not None:
-            _merge_carry(*prev.carry, src, from_carry, n_tok, n_pos,
+        if prev_carry is not None:
+            _merge_carry(*prev_carry, src, from_carry, n_tok, n_pos,
                          n_steps, n_rem, out=bk.carry_in)
         else:
             for dst, new in zip((bk.tok, bk.pos, bk.steps, bk.rem),
@@ -851,15 +1027,6 @@ class TorchEngine:
                 dst.copy_(new)
             bk.done.zero_()
         self.graphs.launch(bk)
-        host, event = to_host(bk.toks, bk.emitted, bk.carry[2])
-        self.profiler.end(pt0, "decode_window", (B, P, K),
-                          tokens=len(batch) * K, drain=True)
-        self.batch_dispatches_total += 1
-        pend = _PendingWindow(batch=list(batch), host=host, event=event,
-                              carry=bk.carry,
-                              index={id(s): i for i, s in enumerate(batch)})
-        self._inflight.append(pend)
-        return pend
 
     def _process_window(self, pend: _PendingWindow) -> None:
         """Read back a dispatched window's tokens (waits on its own event

@@ -8,18 +8,24 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..parallel.mesh import MeshSpec, shard_param
 from ..runtime.device import resolve_device
 from .config import ModelConfig
 from .llama import Params, check_supported
 
 
 def params_from_numpy(params: Dict[str, np.ndarray], cfg: ModelConfig,
-                      device="cuda") -> Params:
+                      device="cuda", *, rank: int = 0,
+                      size: int = 1) -> Params:
     """Stacked-layer params as tensors on ``device`` in the config's
     dtype. Arrays in a numpy type torch lacks (ml_dtypes bfloat16) go
-    through float32, which holds every bfloat16 value exactly."""
+    through float32, which holds every bfloat16 value exactly. With
+    ``size`` > 1, the Megatron shard of tensor-parallel rank ``rank`` of
+    ``size`` (``parallel/mesh.py shard_param``), cut on the host: only the
+    shard reaches the device."""
     check_supported(cfg)
     device = resolve_device(device)
+    mesh = MeshSpec(model=size).view(rank)
     out: Params = {}
     for k, a in params.items():
         a = np.asarray(a)
@@ -28,6 +34,7 @@ def params_from_numpy(params: Dict[str, np.ndarray], cfg: ModelConfig,
         elif a.dtype.kind == "f" and a.dtype.itemsize == 2 \
                 and a.dtype != np.float16:
             a = a.astype(np.float32)
+        a = shard_param(k, a, cfg, mesh)
         out[k] = torch.from_numpy(np.array(a, order="C")).to(
             device=device, dtype=cfg.torch_dtype)
     return out

@@ -22,6 +22,16 @@ wrappers compute their plain versions. ``use_kernels=False`` takes the
 gather paths (``_paged_attention``, ``_pool_window_attention``), the
 plain reference the kernel path is held against.
 
+Tensor parallelism (the JAX package's mesh branches): with a ``mesh``
+(the rank's ``parallel/mesh.py`` ``MeshView``) each rank holds its
+Megatron shard of the params and of the pool (``shard_params``,
+``shard_kv_cache``) and runs its own heads: the sharded attention
+wrappers on its q and kv heads, an all-reduce over the model axis after
+``wo``, after ``w_down`` and after the vocab-sharded embedding lookup,
+and an all-gather of the vocab-sharded logits, so every rank samples the
+same tokens from the same full logits. GSPMD inserts those collectives
+in the JAX package.
+
 MoE and MLA configurations raise ``NotImplementedError``.
 """
 
@@ -29,15 +39,20 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.paged_attention import (NEG_INF, effective_window,
                                    paged_attention_decode_layered,
+                                   paged_attention_decode_sharded,
                                    paged_attention_decode_window,
-                                   paged_attention_prefill, prefill_reference)
+                                   paged_attention_decode_window_sharded,
+                                   paged_attention_prefill,
+                                   paged_attention_prefill_sharded,
+                                   prefill_reference)
+from ..parallel.mesh import MeshView, local_heads
 from ..runtime.device import resolve_device
 from .config import ModelConfig
 
@@ -70,9 +85,12 @@ class KVCacheSpec:
 
 
 def init_kv_cache(cfg: ModelConfig, spec: KVCacheSpec, dtype=None,
-                  device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+                  device="cuda", mesh: Optional[MeshView] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed pools; with ``mesh``, the rank's shard (its kv heads)."""
     device = resolve_device(device)
-    shape = spec.shape(cfg)
+    shape = list(spec.shape(cfg))
+    shape[2] = local_heads(cfg, mesh)[1]
     dtype = dtype or cfg.torch_dtype
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
@@ -82,10 +100,16 @@ def init_kv_cache(cfg: ModelConfig, spec: KVCacheSpec, dtype=None,
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=None) -> Params:
+                dtype=None,
+                shard: Optional[Callable[[str, torch.Tensor],
+                                         torch.Tensor]] = None) -> Params:
     """Random-init params (stacked layers on axis 0) on the generator's
     device, drawn from ``generator``: normal / sqrt(fan_in) for
-    matrices, ones for norms, zeros for biases."""
+    matrices, ones for norms, zeros for biases. ``shard(name, tensor)``,
+    when given, keeps a part of each param as soon as it is drawn (a
+    tensor-parallel rank's block, ``parallel/mesh.py shard_param``): the
+    draws are the same as without it, so the blocks are those of the
+    unsharded params, and only one whole param is held at a time."""
     check_supported(cfg)
     dtype = dtype or cfg.torch_dtype
     device = generator.device
@@ -102,31 +126,35 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                         device=device)
         return x.mul_(scale).to(dtype)
 
-    p: Params = {
-        "embed": w(V, D),
-        "wq": w(L, D, H * hd),
-        "wk": w(L, D, KV * hd),
-        "wv": w(L, D, KV * hd),
-        "wo": w(L, H * hd, D),
-        "w_gate": w(L, D, I),
-        "w_up": w(L, D, I),
-        "w_down": w(L, I, D),
-        "ln_attn": ones(L, D),
-        "ln_mlp": ones(L, D),
-        "ln_final": ones(D),
-    }
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    p: Params = {}
+
+    def put(name: str, make, *shape) -> None:
+        t = make(*shape)
+        p[name] = shard(name, t) if shard is not None else t
+
+    for name, make, shape in (
+            ("embed", w, (V, D)), ("wq", w, (L, D, H * hd)),
+            ("wk", w, (L, D, KV * hd)), ("wv", w, (L, D, KV * hd)),
+            ("wo", w, (L, H * hd, D)), ("w_gate", w, (L, D, I)),
+            ("w_up", w, (L, D, I)), ("w_down", w, (L, I, D)),
+            ("ln_attn", ones, (L, D)), ("ln_mlp", ones, (L, D)),
+            ("ln_final", ones, (D,))):
+        put(name, make, *shape)
     if cfg.attn_bias:  # Qwen2-style q/k/v projection bias
-        p["bq"] = torch.zeros((L, H * hd), dtype=dtype, device=device)
-        p["bk"] = torch.zeros((L, KV * hd), dtype=dtype, device=device)
-        p["bv"] = torch.zeros((L, KV * hd), dtype=dtype, device=device)
+        put("bq", zeros, L, H * hd)
+        put("bk", zeros, L, KV * hd)
+        put("bv", zeros, L, KV * hd)
     if cfg.sandwich_norms:  # Gemma-2 post-attention/feedforward norms
-        p["ln_attn_post"] = ones(L, D)
-        p["ln_mlp_post"] = ones(L, D)
+        put("ln_attn_post", ones, L, D)
+        put("ln_mlp_post", ones, L, D)
     if cfg.qk_norm:  # Qwen3 per-head q/k norms
-        p["q_norm"] = ones(L, hd)
-        p["k_norm"] = ones(L, hd)
+        put("q_norm", ones, L, hd)
+        put("k_norm", ones, L, hd)
     if not cfg.tie_word_embeddings:
-        p["lm_head"] = w(D, V)
+        put("lm_head", w, D, V)
     return p
 
 
@@ -145,10 +173,20 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
     return normed.to(x.dtype) * w
 
 
-def embed_tokens(params: Params, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding lookup; Gemma scales by sqrt(hidden)."""
-    h = params["embed"][tokens.long()]
+def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 mesh: Optional[MeshView] = None) -> torch.Tensor:
+    """Token embedding lookup; Gemma scales by sqrt(hidden). With a
+    vocab-sharded table (``mesh``), each rank looks up the tokens in its
+    block of the vocab, zeros the others, and the model axis sums."""
+    table = params["embed"]
+    if mesh is None or mesh.model == 1:
+        h = table[tokens.long()]
+    else:
+        n = table.shape[0]
+        local = tokens.long() - mesh.model_rank * n
+        h = table[local.clamp(0, n - 1)].masked_fill(
+            ((local < 0) | (local >= n))[..., None], 0)
+        mesh.all_reduce(h)
     if cfg.embed_scale:
         # a device scalar (made by a fill, so a CUDA graph can capture
         # it), rounded to h's dtype as the JAX package rounds it
@@ -157,14 +195,19 @@ def embed_tokens(params: Params, cfg: ModelConfig,
     return h
 
 
-def project_logits(params: Params, cfg: ModelConfig,
-                   h: torch.Tensor) -> torch.Tensor:
+def project_logits(params: Params, cfg: ModelConfig, h: torch.Tensor,
+                   mesh: Optional[MeshView] = None) -> torch.Tensor:
     """LM head (tied to the embedding when absent) + the optional
-    final-logit softcap; float32 logits."""
+    final-logit softcap; float32 logits. With a vocab-sharded head
+    (``mesh``), each rank's block of the vocab is gathered over the model
+    axis, so every rank holds the whole row."""
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    logits = (h @ head).float()
+    logits = h @ head
+    if mesh is not None:
+        logits = mesh.gather_last(logits)
+    logits = logits.float()
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -299,10 +342,13 @@ def _attention(q: torch.Tensor, kv_k: torch.Tensor, kv_v: torch.Tensor,
                q_positions: torch.Tensor, scale: float,
                use_kernels: bool = True, softcap: Optional[float] = None,
                window: Optional[int] = None,
-               is_sliding: bool = False) -> torch.Tensor:
+               is_sliding: bool = False, mesh: Optional[MeshView] = None,
+               kv_heads: int = 0) -> torch.Tensor:
     """Dispatch: decode (T == 1) → the decode kernel on layer ``layer`` of
     the stacked pool; T > 1 → the prefill kernel on ``pool[layer]`` (a
-    view). ``use_kernels=False`` takes the gather path."""
+    view); with ``mesh``, their sharded wrappers on the rank's heads
+    (``kv_heads``: the model's, over all ranks). ``use_kernels=False``
+    takes the gather path."""
     B, T = q.shape[:2]
     if not use_kernels:
         return _paged_attention(q, kv_k[layer], kv_v[layer], page_table,
@@ -321,9 +367,19 @@ def _attention(q: torch.Tensor, kv_k: torch.Tensor, kv_v: torch.Tensor,
             lower = torch.minimum(
                 (lengths - eff).clamp(min=0),
                 (lengths - 1).clamp(min=0)).to(torch.int32)
+        if mesh is not None:
+            return paged_attention_decode_sharded(
+                q[:, 0].contiguous(), kv_k, kv_v, layer, page_table,
+                lengths, mesh=mesh, kv_heads=kv_heads, scale=scale,
+                return_stats=False, softcap=softcap, lower=lower)[:, None]
         return paged_attention_decode_layered(
             q[:, 0].contiguous(), kv_k, kv_v, layer, page_table, lengths,
             scale=scale, softcap=softcap, lower=lower)[:, None]
+    if mesh is not None:
+        return paged_attention_prefill_sharded(
+            q.contiguous(), kv_k[layer], kv_v[layer], page_table,
+            q_positions, mesh=mesh, kv_heads=kv_heads, scale=scale,
+            softcap=softcap, eff_win=eff)
     return paged_attention_prefill(q.contiguous(), kv_k[layer], kv_v[layer],
                                    page_table, q_positions, scale=scale,
                                    softcap=softcap, eff_win=eff)
@@ -393,10 +449,12 @@ def _sliding_flag(cfg: ModelConfig, l_idx: int) -> bool:
     return cfg.sliding_window is not None and l_idx % 2 == 0
 
 
-def _qkv(cfg: ModelConfig, lp, x, B: int, T: int, rope):
+def _qkv(cfg: ModelConfig, lp, x, B: int, T: int, rope,
+         heads: Tuple[int, int]):
     """Projections, optional bias / qk-norm, RoPE with ``rope`` = (cos,
-    sin) from :func:`rope_cos_sin`: (q, k, v) as [B, T, H|KV, hd]."""
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    sin) from :func:`rope_cos_sin`: (q, k, v) as [B, T, H|KV, hd], with
+    ``heads`` = (H, KV) the heads this rank holds."""
+    (H, KV), hd = heads, cfg.head_dim_
     xq, xk, xv = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
     if cfg.attn_bias:
         xq, xk, xv = xq + lp["bq"], xk + lp["bk"], xv + lp["bv"]
@@ -405,10 +463,16 @@ def _qkv(cfg: ModelConfig, lp, x, B: int, T: int, rope):
     return _rotate(q, *rope), _rotate(k, *rope), xv.reshape(B, T, KV, hd)
 
 
-def _mlp_block(cfg: ModelConfig, lp, h, act):
+def _reduce(t: torch.Tensor, mesh: Optional[MeshView]) -> torch.Tensor:
+    """A row-parallel projection's partial sums summed over the model
+    axis (in place; no-op without a mesh)."""
+    return mesh.all_reduce(t) if mesh is not None else t
+
+
+def _mlp_block(cfg: ModelConfig, lp, h, act, mesh=None):
     x = rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps, cfg.norm_unit_offset)
-    return _residual_add(h, _mlp(x, lp["w_gate"], lp["w_up"], lp["w_down"],
-                                 act), lp, "ln_mlp_post", cfg)
+    out = _reduce(_mlp(x, lp["w_gate"], lp["w_up"], lp["w_down"], act), mesh)
+    return _residual_add(h, out, lp, "ln_mlp_post", cfg)
 
 
 @torch.no_grad()
@@ -416,9 +480,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, kv_k: torch.Tensor, kv_v: torch.Tensor,
             page_table: torch.Tensor, flat_slots: torch.Tensor,
             use_kernels: bool = True,
-            page_slots: Optional[torch.Tensor] = None
+            page_slots: Optional[torch.Tensor] = None,
+            mesh: Optional[MeshView] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Shared prefill/decode forward.
+    """Shared prefill/decode forward (a tensor-parallel rank's, with
+    ``mesh``: its params and pool shards, its heads).
 
     tokens: [B, T] (T=1 for decode); positions: [B, T] absolute positions
     (-1 for padding rows); page_table: [B, P] int32; flat_slots: [B, T]
@@ -433,9 +499,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     B, T = tokens.shape
     inv_freq = rope_freqs(cfg, device=tokens.device)
     scale = cfg.attn_scale
-    H, hd = cfg.num_heads, cfg.head_dim_
+    heads = local_heads(cfg, mesh)
+    H, hd = heads[0], cfg.head_dim_
     _, N, _, ps, _ = kv_k.shape
-    h = embed_tokens(params, cfg, tokens)
+    h = embed_tokens(params, cfg, tokens, mesh)
     act = _act(cfg)
     rope = rope_cos_sin(positions.clamp(min=0), inv_freq)
     # the padding plans are shared by every layer: computed once
@@ -447,7 +514,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for l in range(cfg.num_layers):
         lp = {k: params[k][l] for k in keys}
         x = rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps, cfg.norm_unit_offset)
-        q, k, v = _qkv(cfg, lp, x, B, T, rope)
+        q, k, v = _qkv(cfg, lp, x, B, T, rope, heads)
         if page_slots is not None:
             _scatter_pages_paged(kv_k[l], k, page_slots, plan)
             _scatter_pages_paged(kv_v[l], v, page_slots, plan)
@@ -458,29 +525,34 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                           use_kernels=use_kernels,
                           softcap=cfg.attn_logit_softcap,
                           window=cfg.sliding_window,
-                          is_sliding=_sliding_flag(cfg, l))
-        h = _residual_add(h, attn.reshape(B, T, H * hd) @ lp["wo"], lp,
-                          "ln_attn_post", cfg)
-        h = _mlp_block(cfg, lp, h, act)
+                          is_sliding=_sliding_flag(cfg, l), mesh=mesh,
+                          kv_heads=cfg.num_kv_heads)
+        h = _residual_add(h, _reduce(attn.reshape(B, T, H * hd) @ lp["wo"],
+                                     mesh), lp, "ln_attn_post", cfg)
+        h = _mlp_block(cfg, lp, h, act, mesh)
     h = rms_norm(h, params["ln_final"], cfg.rms_norm_eps, cfg.norm_unit_offset)
     return h, kv_k, kv_v
 
 
 def logits_at(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
-              gather_idx: torch.Tensor) -> torch.Tensor:
+              gather_idx: torch.Tensor,
+              mesh: Optional[MeshView] = None) -> torch.Tensor:
     """LM head at selected positions. hidden: [B, T, D];
     gather_idx: [B] position per row → logits [B, V] (float32)."""
     B = hidden.shape[0]
     rows = torch.arange(B, device=hidden.device)
-    return project_logits(params, cfg, hidden[rows, gather_idx.long()])
+    return project_logits(params, cfg, hidden[rows, gather_idx.long()],
+                          mesh)
 
 
 # ------------------------------------------------------------ entry points
 
 
-def make_step_fns(cfg: ModelConfig, use_kernels: bool = True):
-    """Build the (prefill_step, decode_step) pair for one config. Both
-    write the pools in place (the JAX package donates them instead)."""
+def make_step_fns(cfg: ModelConfig, use_kernels: bool = True,
+                  mesh: Optional[MeshView] = None):
+    """Build the (prefill_step, decode_step) pair for one config (a
+    tensor-parallel rank's, with ``mesh``). Both write the pools in place
+    (the JAX package donates them instead)."""
 
     def prefill_step(params: Params, tokens, positions, kv_k, kv_v,
                      page_table, flat_slots, last_idx, page_slots=None):
@@ -489,8 +561,8 @@ def make_step_fns(cfg: ModelConfig, use_kernels: bool = True):
         h, kv_k, kv_v = forward(params, cfg, tokens, positions, kv_k, kv_v,
                                 page_table, flat_slots,
                                 use_kernels=use_kernels,
-                                page_slots=page_slots)
-        return logits_at(params, cfg, h, last_idx), kv_k, kv_v
+                                page_slots=page_slots, mesh=mesh)
+        return logits_at(params, cfg, h, last_idx, mesh), kv_k, kv_v
 
     def decode_step(params: Params, tokens, positions, kv_k, kv_v,
                     page_table, flat_slots):
@@ -498,8 +570,9 @@ def make_step_fns(cfg: ModelConfig, use_kernels: bool = True):
         (logits [B, V], kv_k, kv_v)."""
         h, kv_k, kv_v = forward(params, cfg, tokens[:, None],
                                 positions[:, None], kv_k, kv_v, page_table,
-                                flat_slots[:, None], use_kernels=use_kernels)
-        return project_logits(params, cfg, h[:, 0]), kv_k, kv_v
+                                flat_slots[:, None], use_kernels=use_kernels,
+                                mesh=mesh)
+        return project_logits(params, cfg, h[:, 0], mesh), kv_k, kv_v
 
     return prefill_step, decode_step
 
@@ -527,17 +600,21 @@ def carry_step_update(nxt, tok, pos, done, steps, remaining, eos_table):
 
 
 def make_decode_window_fn(cfg: ModelConfig, use_kernels: bool = True,
-                          max_top_k: int = 64):
+                          max_top_k: int = 64,
+                          mesh: Optional[MeshView] = None):
     """Fused K-step decode with a READ-ONLY pool and an on-device
     sequence carry (``dynamo_tpu/models/llama.py`` make_decode_window_fn).
     The K new tokens' K/V accumulate in a per-layer window buffer that
     attention reads alongside the pool; ONE scatter at the end commits the
     window into the pool (in place). Stop conditions run on device: a row
     freezes as soon as it samples a stop token or exhausts its budget, and
-    ``emitted`` counts the tokens each row really produced."""
+    ``emitted`` counts the tokens each row really produced. With ``mesh``,
+    a tensor-parallel rank's window: every rank samples the same tokens
+    from the gathered logits, so the carries agree."""
     from ..engine.sampling import sample_tokens
 
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    heads = local_heads(cfg, mesh)
+    (H, KV), hd = heads, cfg.head_dim_
     scale = cfg.attn_scale
 
     @torch.no_grad()
@@ -564,14 +641,14 @@ def make_decode_window_fn(cfg: ModelConfig, use_kernels: bool = True,
         toks = []
         emitted = torch.zeros((B,), dtype=torch.int32, device=dev)
         for i in range(k_steps):
-            h = embed_tokens(params, cfg, tok)[:, None]  # [B, 1, D]
+            h = embed_tokens(params, cfg, tok, mesh)[:, None]  # [B, 1, D]
             safe_pos = pos.clamp(min=0)[:, None]
             rope = rope_cos_sin(safe_pos, inv_freq)
             for l in range(L):
                 lp = {k: params[k][l] for k in keys}
                 x = rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps,
                              cfg.norm_unit_offset)
-                q, k, v = _qkv(cfg, lp, x, B, 1, rope)
+                q, k, v = _qkv(cfg, lp, x, B, 1, rope, heads)
                 wk[l, :, i] = k[:, 0].to(wk.dtype)
                 wv[l, :, i] = v[:, 0].to(wv.dtype)
                 win_args = dict(softcap=cfg.attn_logit_softcap,
@@ -581,17 +658,19 @@ def make_decode_window_fn(cfg: ModelConfig, use_kernels: bool = True,
                 if use_kernels:
                     attn = _pool_window_attention_kernel(
                         q, kv_k, kv_v, l, page_table, start, wk[l], wv[l],
-                        i, scale, **win_args)
+                        i, scale, mesh=mesh, kv_heads=cfg.num_kv_heads,
+                        **win_args)
                 else:
                     attn = _pool_window_attention(
                         q, kv_k[l], kv_v[l], page_table, start, wk[l],
                         wv[l], i, scale, **win_args)
-                h = _residual_add(h, attn.reshape(B, 1, H * hd) @ lp["wo"],
-                                  lp, "ln_attn_post", cfg)
-                h = _mlp_block(cfg, lp, h, act)
+                h = _residual_add(
+                    h, _reduce(attn.reshape(B, 1, H * hd) @ lp["wo"], mesh),
+                    lp, "ln_attn_post", cfg)
+                h = _mlp_block(cfg, lp, h, act, mesh)
             h = rms_norm(h, params["ln_final"], cfg.rms_norm_eps,
                          cfg.norm_unit_offset)
-            logits = project_logits(params, cfg, h[:, 0])
+            logits = project_logits(params, cfg, h[:, 0], mesh)
             nxt = sample_tokens(logits, temperature, top_k, top_p, seeds,
                                 steps, max_top_k=max_top_k)
             emitted = emitted + carry_active(done, pos).to(torch.int32)
@@ -622,7 +701,9 @@ def make_decode_window_fn(cfg: ModelConfig, use_kernels: bool = True,
 def _pool_window_attention_kernel(q, k_pools, v_pools, layer: int,
                                   page_table, start, wk_l, wv_l, i: int,
                                   scale: float, softcap=None, window=None,
-                                  is_sliding: bool = False, q_pos=None):
+                                  is_sliding: bool = False, q_pos=None,
+                                  mesh: Optional[MeshView] = None,
+                                  kv_heads: int = 0):
     """Decode attention for one fused-window step, the kernel side
     (``_pool_window_attention_pallas`` in the JAX package): the frozen
     paged pool of layer ``layer`` (taken as an offset, no copy) and the
@@ -633,10 +714,17 @@ def _pool_window_attention_kernel(q, k_pools, v_pools, layer: int,
 
     q: [B, 1, H, hd]; *_pools: [L, pages, KV, ps, hd]; wk_l/wv_l:
     [B, K, KV, hd]; start: [B]; i: step index; q_pos: [B] current query
-    position (sliding window)."""
+    position (sliding window). With ``mesh``, the sharded wrapper on the
+    rank's heads (``kv_heads``: the model's, over all ranks)."""
     eff = None
     if window is not None:
         eff = effective_window(window, is_sliding, q.shape[0], q.device)
+    if mesh is not None:
+        return paged_attention_decode_window_sharded(
+            q[:, 0].contiguous(), k_pools, v_pools, layer, page_table, start,
+            q_pos.contiguous(), wk_l, wv_l, i + 1, mesh=mesh,
+            kv_heads=kv_heads, scale=scale, softcap=softcap,
+            eff_win=eff)[:, None]
     out = paged_attention_decode_window(
         q[:, 0].contiguous(), k_pools, v_pools, layer, page_table, start,
         q_pos.contiguous(), wk_l, wv_l, i + 1, scale=scale, softcap=softcap,

@@ -27,12 +27,20 @@ what bounds it on an H100 and what its design does about it:
   ``paged_attention_prefill``: chunked-prefill attention with causal
   visibility by absolute ``q_positions`` (-1 = padding) intersected with
   the per-row sliding window ``eff_win``.
+- :func:`paged_attention_decode_sharded` (and its window form
+  :func:`paged_attention_decode_window_sharded`) and
+  :func:`paged_attention_prefill_sharded` replace the JAX package's
+  ``shard_map`` wrappers of the same names: one rank's call of the
+  kernels above on its own heads and its ``data`` rows (see
+  :func:`_data_rows`), no collectives inside.
 
 Each wrapper checks device, dtype, shape and contiguity. For tensors on
 the CPU it computes its plain PyTorch version (the CPU tests' path); for
 CUDA tensors it launches its kernel on the current stream or raises —
 there is no fallback. Every wrapper call that launches adds one to
-``LAUNCHES[name]``, once per call: a bf16 decode call is one kernel,
+``LAUNCHES[name]``, once per call (a sharded wrapper's call counts as
+a call of its kernel; with a mesh the model calls only the sharded
+wrappers): a bf16 decode call is one kernel,
 which folds its splits and the window keys itself; a generic decode call
 is the split kernel and, when it folds (pages split over blocks, or a
 window buffer), ``paged_decode_combine``. ``DECODE_ROUTE_LAUNCHES``
@@ -620,6 +628,94 @@ def prefill_reference(q, k_pages, v_pages, page_table, q_positions,
     out = torch.where((q_positions >= 0)[:, :, None, None, None], out,
                       torch.zeros_like(out))
     return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+# --------------------------------------------------------- tensor parallel
+
+
+def _data_rows(mesh, B: int, kv_heads: int, local_kv: int) -> slice:
+    """The rows of a ``B``-row batch that ``mesh``'s rank attends to (its
+    block on the ``data`` axis), once the batch and the kv heads are
+    seen to split. Where they do not, the JAX package's model takes
+    XLA's gather path instead of its sharded kernel
+    (``dynamo_tpu/models/llama.py`` ``_attention``); on the card that
+    would hide the kernel, so this raises."""
+    if kv_heads % mesh.model:
+        raise ValueError(f"{kv_heads} kv heads do not split over "
+                         f"model={mesh.model}")
+    if local_kv != kv_heads // mesh.model:
+        raise ValueError(f"the pool shard holds {local_kv} kv heads; a "
+                         f"rank of model={mesh.model} holds "
+                         f"{kv_heads // mesh.model} of {kv_heads}")
+    if B % mesh.data:
+        raise ValueError(f"{B} rows do not split over data={mesh.data}")
+    n = B // mesh.data
+    return slice(mesh.data_rank * n, (mesh.data_rank + 1) * n)
+
+
+def paged_attention_decode_sharded(
+        q: torch.Tensor, k_pools: torch.Tensor, v_pools: torch.Tensor,
+        layer: int, page_table: torch.Tensor, lengths: torch.Tensor, *,
+        mesh, kv_heads: int, scale: Optional[float] = None,
+        return_stats: bool = True, softcap: Optional[float] = None,
+        lower: Optional[torch.Tensor] = None):
+    """One rank's part of the JAX package's
+    ``paged_attention_decode_sharded`` (``shard_map`` of the layered decode
+    kernel, heads with their kv heads over ``model``, rows over ``data``):
+    the decode kernel on the rank's heads and its rows.
+
+    q: [B, H/model, hd], the rank's q heads of every row; k_pools/v_pools:
+    the rank's pool shard [L, N, kv_heads/model, ps, hd]
+    (``parallel/mesh.py`` ``shard_kv_cache``); page_table [B, P],
+    lengths and lower [B]: every row; kv_heads: the model's kv heads over
+    all ranks; mesh: the rank's ``MeshView``. Returns the rank's block:
+    out [B/data, H/model, hd] and, with ``return_stats``, (m, l)
+    [B/data, H/model] float32."""
+    rows = _data_rows(mesh, q.shape[0], kv_heads, k_pools.shape[2])
+    return paged_attention_decode_layered(
+        q[rows], k_pools, v_pools, layer, page_table[rows], lengths[rows],
+        scale=scale, return_stats=return_stats, softcap=softcap,
+        lower=lower[rows] if lower is not None else None)
+
+
+def paged_attention_decode_window_sharded(
+        q: torch.Tensor, k_pools: torch.Tensor, v_pools: torch.Tensor,
+        layer: int, page_table: torch.Tensor, start: torch.Tensor,
+        q_pos: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor, n_win: int,
+        *, mesh, kv_heads: int, scale: Optional[float] = None,
+        softcap: Optional[float] = None,
+        eff_win: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The window form of :func:`paged_attention_decode_sharded`, the one
+    the fused decode window takes (the JAX package reaches its sharded
+    wrapper there, ``dynamo_tpu/models/llama.py``
+    ``_pool_window_attention_pallas``): :func:`paged_attention_decode_window`
+    on the rank's heads and rows. wk/wv: [B, Kw, kv_heads/model, hd], the
+    rank's kv heads of every row; other operands as there, every row.
+    Returns [B/data, H/model, hd]."""
+    rows = _data_rows(mesh, q.shape[0], kv_heads, k_pools.shape[2])
+    return paged_attention_decode_window(
+        q[rows], k_pools, v_pools, layer, page_table[rows], start[rows],
+        q_pos[rows], wk[rows], wv[rows], n_win, scale=scale, softcap=softcap,
+        eff_win=eff_win[rows] if eff_win is not None else None)
+
+
+def paged_attention_prefill_sharded(
+        q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+        page_table: torch.Tensor, q_positions: torch.Tensor, *, mesh,
+        kv_heads: int, scale: Optional[float] = None,
+        softcap: Optional[float] = None,
+        eff_win: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One rank's part of the JAX package's
+    ``paged_attention_prefill_sharded``: :func:`paged_attention_prefill`
+    on the rank's heads and rows. q: [B, T, H/model, hd], the rank's q
+    heads of every row; k_pages/v_pages: one layer of the rank's pool
+    shard [N, kv_heads/model, ps, hd]; page_table [B, P], q_positions
+    [B, T], eff_win [B]: every row. Returns [B/data, T, H/model, hd]."""
+    rows = _data_rows(mesh, q.shape[0], kv_heads, k_pages.shape[1])
+    return paged_attention_prefill(
+        q[rows], k_pages, v_pages, page_table[rows], q_positions[rows],
+        scale=scale, softcap=softcap,
+        eff_win=eff_win[rows] if eff_win is not None else None)
 
 
 def prefill_work(q_positions: torch.Tensor,

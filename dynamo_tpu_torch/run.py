@@ -9,15 +9,41 @@ are random, drawn from ``--seed``; the byte tokenizer is the card's
 default. ``--model-path`` is refused: the port has no weights loader yet,
 and serving random weights under a checkpoint's name would pass them off
 as the checkpoint's.
+
+Tensor parallel, under the JAX launcher's flag names
+(``--tensor-parallel-size``, ``--coordinator``, ``--num-processes``,
+``--process-id``), one process per rank:
+
+    # every process runs the same command with its own --process-id
+    python -m dynamo_tpu_torch.run in=http out=torch --model 8b \
+        --tensor-parallel-size 2 --coordinator 127.0.0.1:29500 \
+        --num-processes 2 --process-id 0      # and --process-id 1
+    # or one command, which starts ranks 1..N-1 on this host itself
+    python -m dynamo_tpu_torch.run in=http out=torch --model 8b \
+        --tensor-parallel-size 2
+
+Process 0 serves HTTP and schedules; the others follow its dispatches
+(``TorchEngine.follow``). Rank r runs on ``cuda:{r % device_count}``.
+Where two ranks share a card, NCCL must see them as two hosts (it
+refuses two ranks of one communicator on one device): each rank then
+needs its own ``NCCL_HOSTID`` and ``NCCL_SOCKET_IFNAME=lo``, which the
+one-command form sets itself (:func:`shared_device_env`). Every rank
+prints one ``serving summary`` JSON line when it ends: its capture count
+after warmup and its kernel launches and graph replays since warmup.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
+import os
 import signal
-from typing import Tuple
+import socket
+import subprocess
+import sys
+from typing import Dict, List, Tuple
 
 log = logging.getLogger("dynamo_tpu_torch.run")
 
@@ -38,6 +64,16 @@ def parse_args(argv=None):
     ap.add_argument("--http-host", default="0.0.0.0")
     ap.add_argument("--http-port", type=int, default=8080)
     ap.add_argument("--no-warmup", action="store_true")
+    ap.add_argument("--tensor-parallel-size", type=int, default=1,
+                    help="ranks of the model axis (Megatron tensor "
+                         "parallel), one process each")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0's rendezvous; every "
+                         "process passes the same value (without it, "
+                         "--tensor-parallel-size N starts ranks 1..N-1 "
+                         "on this host)")
+    ap.add_argument("--num-processes", type=int, default=1)
+    ap.add_argument("--process-id", type=int, default=0)
     args = ap.parse_args(argv)
     args.input, args.output = "http", "torch"
     for tok in args.io:
@@ -49,6 +85,18 @@ def parse_args(argv=None):
             ap.error(f"positional args must be in=…/out=…, got {tok!r}")
     if args.input != "http" or args.output != "torch":
         ap.error("this launcher serves in=http out=torch only")
+    tp = args.tensor_parallel_size
+    if tp < 1:
+        ap.error("--tensor-parallel-size must be >= 1")
+    if args.coordinator and args.num_processes != tp:
+        ap.error(f"--num-processes ({args.num_processes}) must equal "
+                 f"--tensor-parallel-size ({tp}): one process per rank")
+    if not args.coordinator and (args.num_processes != 1
+                                 or args.process_id != 0):
+        ap.error("--num-processes/--process-id need --coordinator")
+    if not 0 <= args.process_id < args.num_processes:
+        ap.error(f"--process-id {args.process_id} outside "
+                 f"[0, {args.num_processes})")
     if args.model_path:
         ap.error("--model-path: the PyTorch port has no weights loader yet "
                  "(the dense safetensors loader is next on ROADMAP.md's "
@@ -83,18 +131,54 @@ def build_engine_config(args):
 
 
 def build_engine(args) -> Tuple[object, object]:
-    """(TorchEngine, model card) for the parsed arguments."""
+    """(TorchEngine, model card) for the parsed arguments: with
+    ``--coordinator``, this process's rank of the tensor-parallel mesh
+    (it joins the process group here). The kernel launch counts restart
+    after warmup, so the serving summary counts the served path alone."""
     from .engine.torch_engine import TorchEngine
     from .llm.model_card import ModelDeploymentCard
+    from .ops.paged_attention import reset_launch_counts
+    from .runtime.device import resolve_device
 
     cfg = build_model_config(args)
     ecfg = build_engine_config(args)
     mdc = ModelDeploymentCard(name=args.model_name or (args.model or "tiny"))
     mdc.kv_block_size = ecfg.page_size
-    engine = TorchEngine(cfg, ecfg, seed=args.seed, device=args.device)
+    mesh = None
+    if args.coordinator:
+        from .parallel.mesh import MeshSpec, initialize_multihost
+
+        initialize_multihost(args.coordinator, args.num_processes,
+                             args.process_id)
+        mesh = MeshSpec(model=args.tensor_parallel_size).build(
+            resolve_device(args.device).type)
+    engine = TorchEngine(cfg, ecfg, seed=args.seed, device=args.device,
+                         mesh=mesh)
     if not args.no_warmup:
         engine.warmup()
+    reset_launch_counts()
     return engine, mdc
+
+
+def serving_summary(engine) -> dict:
+    """What a rank did since warmup: captures after warmup, kernel
+    launches (by kernel and by decode route, replays counting the calls
+    their capture recorded) and graph replays."""
+    from .ops import paged_attention as ops
+
+    return {"rank": engine.mesh.rank if engine.mesh is not None else 0,
+            "mesh_shape": engine.mesh_shape,
+            "post_warmup_compiles_total": engine.fence.post_warmup_compiles,
+            "batch_dispatches_total": engine.batch_dispatches_total,
+            "launches": dict(ops.LAUNCHES),
+            "route_launches": dict(ops.DECODE_ROUTE_LAUNCHES),
+            "replays": {"prefill": engine.prefill_graphs.replays,
+                        "decode_window": engine.graphs.replays}}
+
+
+def _print_summary(engine) -> None:
+    print(f"serving summary {json.dumps(serving_summary(engine))}",
+          flush=True)
 
 
 async def serve_http(engine, mdc, host: str, port: int):
@@ -125,13 +209,79 @@ async def run_http(args) -> None:
     await stop.wait()
     await svc.stop()
     await engine.stop()
+    _print_summary(engine)
+
+
+def run_follower(args) -> None:
+    """A rank > 0: build its shard of the engine, warm up with rank 0,
+    then replay rank 0's dispatches until it stops."""
+    engine, _ = build_engine(args)
+    engine.follow()
+    _print_summary(engine)
+
+
+def shared_device_env(rank: int, ranks: int, devices: int) -> Dict[str, str]:
+    """The NCCL settings rank ``rank`` of ``ranks`` needs when some ranks
+    share one of ``devices`` cards (rank r runs on card r % devices): NCCL
+    refuses two ranks of one communicator on one device, so each rank
+    gets a host id of its own and the ranks talk over the loopback
+    socket. Empty when every rank has a card of its own."""
+    if ranks <= devices:
+        return {}
+    return {"NCCL_HOSTID": f"dynamo-tp-rank-{rank}",
+            "NCCL_SOCKET_IFNAME": "lo"}
+
+
+def spawn_local_ranks(args, argv: List[str]) -> List[subprocess.Popen]:
+    """The one-command form: start ranks 1..N-1 of ``argv`` on this host
+    with a rendezvous on a free local port, and make this process rank 0
+    of the same group."""
+    import torch
+
+    n = args.tensor_parallel_size
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    args.coordinator = f"127.0.0.1:{port}"
+    args.num_processes = n
+    devices = (torch.cuda.device_count()
+               if args.device.startswith("cuda") else n)
+    shared = shared_device_env(0, n, devices)
+    if shared:
+        log.info("%d ranks on %d card(s): each rank gets its own "
+                 "NCCL_HOSTID, and NCCL talks over the loopback socket",
+                 n, devices)
+    os.environ.update(shared)
+    procs = []
+    for r in range(1, n):
+        cmd = [sys.executable, "-m", "dynamo_tpu_torch.run", *argv,
+               "--coordinator", args.coordinator, "--num-processes", str(n),
+               "--process-id", str(r)]
+        procs.append(subprocess.Popen(
+            cmd, env={**os.environ, **shared_device_env(r, n, devices)}))
+    return procs
 
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    asyncio.run(run_http(parse_args(argv)))
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    ranks = []
+    if args.tensor_parallel_size > 1 and not args.coordinator:
+        ranks = spawn_local_ranks(args, argv)
+    try:
+        if args.process_id == 0:
+            asyncio.run(run_http(args))
+        else:
+            run_follower(args)
+    finally:
+        for p in ranks:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
 
 
 if __name__ == "__main__":

@@ -620,3 +620,78 @@ def test_cuda_graph_prefill_matches_eager(cuda_device, dtype):
     # the chunk wrote its rows' pages only
     changed = (e_k != k0).flatten(2).any(-1).any(0).nonzero()[:, 0]
     assert set(changed.tolist()) <= {1, 2, 3, 4, 5, 6, 7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,rtol", [(torch.float32, 1e-5, 0.0),
+                                            (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_cuda_sharded_wrappers_at_one_ranks_heads(cuda_device, tp, dtype,
+                                                  tol, rtol):
+    """The tensor-parallel wrappers at the heads one rank of tp holds of
+    the 8B widths (32/tp q heads, 8/tp kv heads, group 4): the decode
+    kernel with stats, in the window form at every step, and the prefill
+    kernel (a first chunk of 512, a second chunk with a sliding window),
+    against their plain versions (the same wrappers on the CPU). At 8/tp
+    kv heads the split plan gives a row up to one split per page; the
+    bf16 calls stay on the bf16 decode kernel."""
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec
+
+    d = cuda_device
+    mesh = MeshSpec(model=tp).view(tp - 1)
+    lengths = [0, 1, 64, 300, 700, 1000]
+    q, kp, vp, table = _decode_pool(4, 128, 64, [16] * len(lengths),
+                                    KV=8 // tp, dtype=dtype, seed=tp)
+    B, Kw = len(lengths), 4
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    lo = torch.tensor([0, 0, 10, 200, 0, 900], dtype=torch.int32)
+    cuda = [t.to(d) for t in (q, kp, vp, table, ln, lo)]
+    ops.reset_launch_counts()
+    want = ops.paged_attention_decode_sharded(
+        q, kp, vp, 1, table, ln, mesh=mesh, kv_heads=8, softcap=30.0,
+        lower=lo)
+    got = ops.paged_attention_decode_sharded(
+        *cuda[:3], 1, *cuda[3:5], mesh=mesh, kv_heads=8, softcap=30.0,
+        lower=cuda[5])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(got[0].cpu()), _np(want[0]), rtol=rtol,
+                               atol=tol)
+    for w, x in zip(want[1:], got[1:]):
+        np.testing.assert_allclose(_np(x.cpu()), _np(w), rtol=1e-4,
+                                   atol=1e-4)
+    g = torch.Generator().manual_seed(tp)
+    wk = torch.randn(B, Kw, 8 // tp, 128, generator=g).to(dtype)
+    wv = torch.randn(B, Kw, 8 // tp, 128, generator=g).to(dtype)
+    start = torch.tensor([n - 1 if n else -1 for n in lengths],
+                         dtype=torch.int32)
+    for n_win in range(1, Kw + 1):
+        qp = (start.clamp(min=0) + n_win - 1).to(torch.int32)
+        args = (q, kp, vp, 0, table, start, qp, wk, wv, n_win)
+        want = ops.paged_attention_decode_window_sharded(
+            *args, mesh=mesh, kv_heads=8)
+        got = ops.paged_attention_decode_window_sharded(
+            *(a.to(d) if torch.is_tensor(a) else a for a in args),
+            mesh=mesh, kv_heads=8)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_np(got.cpu()), _np(want), rtol=rtol,
+                                   atol=tol)
+    assert ops.LAUNCHES == {"paged_attention_decode": 1 + Kw,
+                            "paged_attention_prefill": 0}
+    if dtype == torch.bfloat16:
+        assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 1 + Kw,
+                                             "generic": 0}
+    pos = torch.full((2, 512), -1, dtype=torch.int32)
+    pos[0] = torch.arange(512)
+    pos[1, :256] = torch.arange(512, 768)
+    qf = torch.randn(2, 512, 32 // tp, 128, generator=g).to(dtype)
+    win = torch.tensor([ops.NO_WINDOW, 300], dtype=torch.int32)
+    args = (qf, kp[0], vp[0], table[:2].contiguous(), pos)
+    want = ops.paged_attention_prefill_sharded(
+        *args, mesh=mesh, kv_heads=8, softcap=20.0, eff_win=win)
+    got = ops.paged_attention_prefill_sharded(
+        *(a.to(d) for a in args), mesh=mesh, kv_heads=8, softcap=20.0,
+        eff_win=win.to(d))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(got.cpu()), _np(want), rtol=rtol,
+                               atol=tol)
+    assert ops.LAUNCHES["paged_attention_prefill"] == 1
