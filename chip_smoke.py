@@ -56,8 +56,10 @@ Phases; any failure exits non-zero before the result line:
    window form, paged_attention_prefill_sharded) against the plain
    versions at the heads one rank holds of the 8B widths at tp 2, 4 and
    8, float32 and bfloat16, and time them at those heads at the served
-   shapes (the 4-row window, with the decode splits the launch plan
-   picks; a first chunk of 512);
+   shapes (the 4-row window, with the cluster of splits the launch plan
+   picks and each row's live splits, beside tp=1's full heads timed in
+   the same phase; a first chunk of 512), and the decode at tp=8's heads
+   on the long-row guard (8 rows of 3,968 positions);
 7. tensor parallel at model=2 with both ranks on the one card (each with
    its own NCCL_HOSTID, NCCL over the loopback socket): two ranks of this
    script build a tp=2 engine, warm it, and run check_paths' prefill and
@@ -1017,8 +1019,9 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
     (ops.paged_attention.decode_work); held to the plain version at the
     bf16 tolerance (as check_decode) and within DECODE_REL_RMS of the
     plain output's rms, a limit the plain version one 16-key block short
-    in every row must pass (else the check is blind). Also the route
-    and the splits per (row, kv head) that the launch plan picks."""
+    in every row must pass (else the check is blind). Also the route,
+    the splits per (row, kv head) that the launch plan picks and, on the
+    bf16 route (one cluster of those splits), each row's live splits."""
     import torch
     import torch.nn.functional as F
 
@@ -1079,6 +1082,8 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
     return {
         "max_abs_err": err, "err_limit": limit, "control_err": control,
         "decode_route": DECODE_ROUTES[route], "splits": splits,
+        "live_splits": (live_splits(ctx, ps, splits)
+                        if DECODE_ROUTES[route] == "bf16_mma" else None),
         "ms": t_k, "plain_ms": t_p,
         "bound_ms": max(bytes_ / H100_BYTES_PER_S,
                         flops / H100_BF16_FLOPS) * 1e3,
@@ -1090,6 +1095,16 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
         "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "ps": ps, "P": P,
                   "pool": list(ctx), "window": K},
     }
+
+
+def live_splits(ctx, ps: int, S: int) -> list:
+    """The splits of a cluster of ``S`` that read pages, per row of pool
+    contexts ``ctx``, by the bf16 decode kernel's cut (``db_min_pages`` in
+    dynamo_tpu_torch/ops/csrc/paged_attention.cu): a row of n pages takes
+    min(S, ceil(n / max(192 // ps, 1))) splits, one ring of keys each at
+    least."""
+    least = max(192 // ps, 1)
+    return [min(S, -(-(-(-n // ps)) // least)) for n in ctx]
 
 
 def time_prefill(k0, v0, ecfg, start: int, n: int, H: int, g,
@@ -1253,7 +1268,7 @@ def check_local_shapes(dev) -> dict:
     second chunk), against their plain versions under the limits of
     phases 2 and 3, in float32 and bfloat16. The bf16 decode calls must
     take the bf16 kernel. Few kv heads mean few (row, kv head) pairs, so
-    the split plan gives the most splits here (up to one per page)."""
+    the split plan gives whole clusters of 8 splits here."""
     import torch
 
     from dynamo_tpu_torch.ops import paged_attention as ops
@@ -1353,9 +1368,12 @@ def time_local_shapes(dev, ecfg, served) -> dict:
     """The two tensor-parallel wrappers timed at the heads one rank holds
     of the 8B widths at tp = 2, 4 and 8 (32/tp q heads, 8/tp kv heads) at
     the served shapes: the served 4-row window (its contexts from phase
-    4) and a first chunk of 512. Each decode result names the splits per
-    (row, kv head) that the launch plan picks: fewer kv heads, more
-    splits. Keyed by tp."""
+    4) and a first chunk of 512; the decode also at tp=1's full heads
+    (the plain wrapper) on the same window, for a comparison within this
+    phase, and at tp=8's heads on the long-row guard (8 rows of 3,968
+    positions). Each decode result names the cluster of splits per (row,
+    kv head) that the launch plan picks and each row's live splits.
+    Keyed by tp."""
     import torch
 
     from dynamo_tpu_torch.parallel.mesh import MeshSpec
@@ -1365,26 +1383,41 @@ def time_local_shapes(dev, ecfg, served) -> dict:
     ctx = served["decode_lengths"]
     B = ecfg.bucket_batch(len(ctx))
     P = ecfg.bucket_pages(max(-(-n // ps) for n in ctx))
+    long_ctx = [3968] * 8
     out = {}
-    for tp in TP_SIZES:
-        mesh = MeshSpec(model=tp).view(0)
+    for tp in (1,) + TP_SIZES:
+        mesh = MeshSpec(model=tp).view(0) if tp > 1 else None
         H, KV = 32 // tp, 8 // tp
         kp = torch.randn(1, N, KV, ps, hd, generator=g,
                          device=dev).to(torch.bfloat16)
         vp = torch.randn(1, N, KV, ps, hd, generator=g,
                          device=dev).to(torch.bfloat16)
-        dec = time_decode(kp, vp, ctx, B, P, ecfg.decode_steps, H, g,
-                          mesh=mesh)
-        pf = time_prefill(kp[0], vp[0], ecfg, 0, ecfg.prefill_chunk, H, g,
-                          mesh=mesh)
-        out[tp] = {"decode": dec, "prefill": pf}
-        for name, r in (("decode window", dec), ("prefill chunk", pf)):
+        out[tp] = {"decode": time_decode(kp, vp, ctx, B, P,
+                                         ecfg.decode_steps, H, g, mesh=mesh)}
+        if mesh is not None:
+            out[tp]["prefill"] = time_prefill(
+                kp[0], vp[0], ecfg, 0, ecfg.prefill_chunk, H, g, mesh=mesh)
+        if tp == 8:
+            out[tp]["decode_long8"] = time_decode(
+                kp, vp, long_ctx, ecfg.bucket_batch(len(long_ctx)),
+                ecfg.bucket_pages(-(-long_ctx[0] // ps)), ecfg.decode_steps,
+                H, g, mesh=mesh)
+        for name, r in out[tp].items():
             log(f"  tp={tp} ({H} q heads, {KV} kv heads) {name}: "
                 f"{r['ms']:.4f} ms on the device (bound {r['bound_ms']:.5f}"
                 f" ms by {r['bound_by']}; plain {r['plain_ms']:.4f} ms; SDPA"
                 f" {r['library_ms']:.4f} ms)"
-                + (f"; {r['splits']} splits per (row, kv head)"
+                + (f"; a cluster of {r['splits']} splits per (row, kv head)"
+                   f", live splits per row {r['live_splits']}"
                    if "splits" in r else ""))
+    base = out[1]["decode"]["ms"]
+    for tp in TP_SIZES:
+        r = out[tp]["decode"]
+        log(f"  served window at tp={tp}'s heads: {r['ms']:.4f} ms, "
+            f"{'at or below' if r['ms'] <= r['library_ms'] else 'ABOVE'} "
+            f"SDPA's {r['library_ms']:.4f} ms and "
+            f"{'at or below' if r['ms'] <= 1.05 * base else 'ABOVE'} 1.05 x "
+            f"tp=1's {base:.4f} ms")
     return out
 
 

@@ -28,9 +28,10 @@ Both sets share one stream and one memory pool (the prefill set is built
 over the decode set's). Rules the caller keeps (the engine does):
 
 - every launch runs on :attr:`stream`, the stream the graphs were warmed
-  and captured on (the bf16 decode kernel's arrival counters are per
-  stream and are baked into the graphs); a launch from another stream
-  raises;
+  and captured on, where the caller writes a bucket's static inputs and
+  reads its outputs, and whose order alone keeps one launch's use of the
+  shared memory pool from overlapping the next; a launch from another
+  stream raises;
 - a bucket's outputs are overwritten by its next launch, and since the
   graphs share one memory pool, by the launch of another bucket too:
   copy what is needed (:func:`to_host`, or the next window's carry
@@ -197,7 +198,7 @@ class _GraphSet:
 
     def _capture(self, key: tuple):
         """Warm the function eagerly once on the stream over padding
-        inputs (library loads, the decode kernel's per-stream counters,
+        inputs (library loads, the decode kernels' occupancy queries,
         cuBLAS workspaces, the prefill kernel's driver entry point and
         shared-memory attribute), then capture it on the same stream."""
         with self.stream_ctx():

@@ -8,7 +8,7 @@
 //
 //   route 1  paged_decode_bf16_kernel<hd>  bfloat16 at head_dim 64/128/256,
 //            page size 16/32/64/128, GQA groups 1-8 (the llama3_8b and 1b
-//            presets: the serving path); one launch per call
+//            presets: the serving path); one cluster launch per call
 //   route 0  paged_decode_kernel<T>         float32, and bfloat16 shapes
 //            + paged_decode_combine<T>      outside that set (CUDA-core FMAs
 //                                           from shared memory)
@@ -52,27 +52,42 @@
 //   chunks are XOR-swizzled by row % 8 (ldmatrix reads free of bank
 //   conflicts). Completion is tracked per stage by an mbarrier that each
 //   lane's cp.async arrives on (cp.async.mbarrier.arrive.noinc); a warp
-//   waits on its own barriers only. Two blocks of 103,008 B share an SM
-//   at head_dim 128 (160 registers a thread, no spills): up to 192 KB of
+//   waits on its own barriers only. Two blocks of 107,104 B share an SM
+//   at head_dim 128 (146 registers a thread, no spills): up to 192 KB of
 //   stages in flight per SM.
 //   2 or 4 stages measured no faster on an H100 (PERF.md, Findings).
-// * The split plan (ops/paged_attention.py decode_split_plan) comes from
-//   host-known shapes only: rows x kv heads, the page-table width, the SM
-//   count and this kernel's resident blocks per SM
-//   (dyn_paged_decode_resident), so that one wave fills the card. A split
-//   takes a near-equal contiguous share of the row's visible pages and is
-//   empty only when the row has fewer pages than splits; an empty split
-//   exits at once.
-// * One launch. With two or more live splits, each writes its partial
-//   (unnormalized output, m, l) and arrives on a counter per (row, kv
-//   head); the last to arrive folds the partials and the fused window's
-//   in-flight keys into the output and resets the counter, so no host
-//   memset is needed and a CUDA graph can replay the call. The wrapper
-//   gives each stream its own counters, so calls on two streams never
-//   count each other's arrivals. A row held by
-//   one block folds its own result and writes no partial. Every block
-//   scores the window keys and stages their V rows at its start, where
-//   those loads overlap the first stages', not after the arrival.
+// * The splits of one (row, kv head) are one thread-block cluster, and
+//   they fold through its distributed shared memory, in one launch. The
+//   split plan (ops/paged_attention.py decode_cluster_plan) comes from
+//   host-known shapes only: the cluster size S in 8, 4, 2, 1 (8 is the
+//   portable maximum), at most the page-table width, the largest whose
+//   rows x kv heads clusters the card holds at once
+//   (cudaOccupancyMaxActiveClusters; 30 of 8 blocks, 62 of 4 on an H100
+//   at head_dim 128), so one wave fills the card where the pairs allow.
+//   On the device a row's pages are cut into n_live = min(S, ceil(n /
+//   min_pages)) near-equal contiguous shares, the first n_live splits;
+//   the others read nothing. min_pages is one ring of keys (DB_RING_KEYS
+//   = 192 keys: 3 pages at page size 64), so a live split fills its
+//   warps' rings: an H100 sweep of forced split counts at the served
+//   4-row window (PERF.md, Findings) was fastest at about 3 pages a
+//   split and slowed as splits grew past it, the fold over them included.
+// * The fold. Each live split merges its warps into its partial (output
+//   at its own max, and its (m, l) per head) in its own shared memory and
+//   meets the cluster's barrier; split 0 then reads the live splits'
+//   partials through distributed shared memory (mapa): one warp per head
+//   takes the joint max and sum over them and the window keys by
+//   shuffles, and each output element loads its live sources together. A
+//   second cluster barrier keeps every split's shared memory alive until
+//   split 0 is done. No partials go to global memory and no counter
+//   needs resetting, so calls on any stream, and graph replays, are
+//   independent.
+// * Only split 0 takes the fused window's keys: it stages their K and V
+//   rows into shared memory behind its first stages and, after its loop,
+//   scores them on the tensor cores as one more 16-key block (the K rows
+//   swizzled as a stage's), in place of 128-wide dot products from
+//   global memory in its prologue (4-5% faster at tp 4 and 8 heads, 3.5%
+//   at 32 rows on an H100). Staging them, and loading Q, ahead of every
+//   other load was tried and dropped: 1.5% slower on long rows.
 // * Pages outside [lower, length) are never read, and a page id outside
 //   the pool is skipped, as the TPU kernel's clamp does.
 //
@@ -115,14 +130,21 @@ __device__ __forceinline__ void row_extent(int b, const int* lengths,
   }
 }
 
-// The pages [p_begin, p_begin + n) of split `split` of S: the row's pages
-// that cover [lo, len), cut into S near-equal contiguous shares (a split
+// The row's pages that cover [lo, len): [row_begin, row_begin + n).
+__device__ __forceinline__ int row_pages(int len, int lo, int ps, int P,
+                                         int& row_begin) {
+  row_begin = lo > 0 ? lo / ps : 0;
+  const int row_end = len > 0 ? min((len + ps - 1) / ps, P) : 0;
+  return max(row_end - row_begin, 0);
+}
+
+// The pages [p_begin, p_begin + n) of split `split` of S on the generic
+// route: the row's pages cut into S near-equal contiguous shares (a split
 // is empty only when the row has fewer pages than splits).
 __device__ __forceinline__ int split_pages(int len, int lo, int ps, int P,
                                            int S, int split, int& p_begin) {
-  const int row_begin = lo > 0 ? lo / ps : 0;
-  const int row_end = len > 0 ? min((len + ps - 1) / ps, P) : 0;
-  const int n = max(row_end - row_begin, 0);
+  int row_begin;
+  const int n = row_pages(len, lo, ps, P, row_begin);
   p_begin = row_begin + (int)((long long)n * split / S);
   return row_begin + (int)((long long)n * (split + 1) / S) - p_begin;
 }
@@ -376,24 +398,34 @@ constexpr int DB_WARPS = 4;                 // independent warps per block
 constexpr int DB_THREADS = DB_WARPS * 32;
 constexpr int DB_KB = 16;                   // keys per stage
 constexpr int DB_STAGES = 3;                // stages in each warp's ring
-constexpr int MAX_SPLITS = 128;             // splits the bf16 kernel folds
+// keys the block's rings hold at once: a split takes at least this many
+// of a long enough row (DB_MIN_PAGES)
+constexpr int DB_RING_KEYS = DB_WARPS * DB_STAGES * DB_KB;
+constexpr int MAX_SPLITS = 8;               // one cluster: the portable maximum
 constexpr int MAX_KW = 16;                  // in-flight window keys it folds
+
+// a split's fewest pages: one ring of keys (3 pages at page size 64)
+__device__ __forceinline__ int db_min_pages(int ps) {
+  return max(DB_RING_KEYS / ps, 1);
+}
 
 template <int HD> struct DecodeTile {
   static constexpr int KV_BYTES = DB_KB * HD * 2;  // the K (or V) of a stage
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int RING_BYTES = DB_WARPS * DB_STAGES * STAGE_BYTES;
-  // the end-of-loop merge and fold reuse the rings, in float32: each
-  // warp's output fragment [MAX_G, HD], its (m, l) and weight; then the
-  // sources' (m, l) and weights [MAX_SPLITS, MAX_G], the heads' sums and
-  // the last-block flag
+  // after the loop the rings hold, in float32: each warp's output
+  // fragment [MAX_G, HD] (warp 0's slot then holds the block's partial,
+  // which split 0 reads through distributed shared memory), the warps'
+  // (m, l) and weights, the block's (m, l) per head (read by split 0 as
+  // well), and split 0's fold weights [MAX_G, MAX_SPLITS] and sums
   static constexpr int MERGE_BYTES =
-      4 * (DB_WARPS * MAX_G * HD + 3 * DB_WARPS * MAX_G +
-           3 * MAX_SPLITS * MAX_G + MAX_G + 1);
+      4 * (DB_WARPS * MAX_G * HD + 3 * DB_WARPS * MAX_G + 2 * MAX_G +
+           MAX_G * MAX_SPLITS + MAX_G);
   static constexpr int WIN_OFFSET = RING_BYTES > MERGE_BYTES ? RING_BYTES : MERGE_BYTES;
-  // the window's V rows of the block's kv head [MAX_KW, HD] (bf16) and
-  // the slots' scores, then weights, [MAX_G, MAX_KW] (float32)
-  static constexpr int WIN_BYTES = MAX_KW * HD * 2 + 4 * MAX_G * MAX_KW;
+  // the window's K rows of the block's kv head as one 16-key tile
+  // (swizzled, see dswz) and its V rows [MAX_KW, HD] (bf16), then the
+  // slots' scores, then weights, [MAX_G, MAX_KW] (float32)
+  static constexpr int WIN_BYTES = 2 * MAX_KW * HD * 2 + 4 * MAX_G * MAX_KW;
   static constexpr int SMEM = WIN_OFFSET + WIN_BYTES + DB_WARPS * DB_STAGES * 8;
 };
 
@@ -442,14 +474,50 @@ __device__ __forceinline__ void mma_rows8(float& d0, float& d1, uint32_t a0,
         "f"(0.f));
 }
 
-// grid (B, KV, S); block DB_THREADS: four warps, each an independent
-// worker over the 16-key blocks w, w + 4, ... of the split's visible
-// range. Lane t of a warp works for head g = t / 4 (rows >= G are zero)
-// and its quad position qd = t % 4: in S it holds keys 2qd, 2qd + 1 and
-// 8 + 2qd, 8 + 2qd + 1 of a block, in O head_dim elements 8n + 2qd, + 1
-// of every 8-wide column tile n. Shared: the warps' rings of DB_STAGES
-// stages (K tile, then V tile, swizzled, see dswz), then one mbarrier per
-// stage; the merge at the end reuses the rings.
+// The cluster's barrier: every thread of every block arrives, and wait
+// returns once all have. The release/acquire form orders shared-memory
+// writes before it with reads after it, across the cluster's blocks.
+__device__ __forceinline__ void cluster_sync_acq_rel() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n"
+               "barrier.cluster.wait;\n" ::: "memory");
+}
+
+// The address in block `rank` of the cluster of this block's shared
+// address `addr`, and loads through it (distributed shared memory).
+__device__ __forceinline__ uint32_t dsmem_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float2 ld_dsmem_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_dsmem_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
+  return v;
+}
+
+// grid (B, KV, S), clusters (1, 1, S): the S splits of one (row, kv head)
+// are one cluster, split = blockIdx.z = the block's rank in it. Block
+// DB_THREADS: four warps, each an independent worker over the 16-key
+// blocks w, w + 4, ... of the split's visible range. Lane t of a warp
+// works for head g = t / 4 (rows >= G are zero) and its quad position
+// qd = t % 4: in S it holds keys 2qd, 2qd + 1 and 8 + 2qd, 8 + 2qd + 1 of
+// a block, in O head_dim elements 8n + 2qd, + 1 of every 8-wide column
+// tile n. Shared: the warps' rings of DB_STAGES stages (K tile, then V
+// tile, swizzled, see dswz), then one mbarrier per stage; the merge and
+// the fold at the end reuse the rings.
 template <int HD>
 __global__ void __launch_bounds__(DB_THREADS)
 paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -461,9 +529,6 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                          const int* __restrict__ lower,
                          __nv_bfloat16* __restrict__ out,
                          float* __restrict__ m_out, float* __restrict__ l_out,
-                         float* __restrict__ part_acc,
-                         float* __restrict__ part_ml,
-                         int* __restrict__ counters,
                          const int* __restrict__ start,
                          const int* __restrict__ q_pos,
                          const int* __restrict__ eff_win,
@@ -479,14 +544,24 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, qd = lane & 3;
 
-  int len, lo, p_begin;
+  // the row's pages that cover [lo, len), cut into n_live near-equal
+  // contiguous shares of at least db_min_pages pages (the first n_live
+  // splits; the rest have nothing to read)
+  int len, lo, row_begin;
   row_extent(b, lengths, lower, start, q_pos, eff_win, len, lo);
-  const int n_pages = split_pages(len, lo, ps, P, S, split, p_begin);
-  int p0;
-  const int n_live = min(split_pages(len, lo, ps, P, 1, 0, p0), S);
-  // a split without pages has nothing to do — unless no split has pages:
-  // then split 0 writes the output (zeros, or the window keys alone)
-  if (n_pages == 0 && !(n_live == 0 && split == 0)) return;
+  const int n = row_pages(len, lo, ps, P, row_begin);
+  const int min_pages = db_min_pages(ps);
+  const int n_live = min(S, (n + min_pages - 1) / min_pages);
+  // a split without pages only keeps the cluster's two barriers; split 0
+  // folds even when no split has pages (zeros, or the window keys alone)
+  if (split > 0 && split >= n_live) {
+    cluster_sync_acq_rel();
+    cluster_sync_relaxed();
+    return;
+  }
+  const int p_begin = split < n_live ? row_begin + n * split / n_live : row_begin;
+  const int n_pages =
+      split < n_live ? row_begin + n * (split + 1) / n_live - p_begin : 0;
 
   uint8_t* ring = smem + warp * DB_STAGES * Tile::STAGE_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(
@@ -505,7 +580,7 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int jb = k_lo / DB_KB;
   const int je = k_hi > k_lo ? (k_hi + DB_KB - 1) / DB_KB : jb;
   const int nblk = je - jb > warp ? (je - jb - warp + DB_WARPS - 1) / DB_WARPS : 0;
-  const int* row_pages = page_table + (long long)b * P;
+  const int* row_table = page_table + (long long)b * P;
   const long long page_elems = (long long)KV * ps * HD;
   const __nv_bfloat16* k_head = k_pools + layer_offset + (long long)kv * ps * HD;
   const __nv_bfloat16* v_head = v_pools + layer_offset + (long long)kv * ps * HD;
@@ -514,7 +589,7 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // read; the stage's barrier still completes and its compute is skipped)
   auto issue = [&](int i) {
     const int key0 = (jb + warp + i * DB_WARPS) * DB_KB;
-    const int page = row_pages[key0 / ps];
+    const int page = row_table[key0 / ps];
     uint8_t* st = ring + (i % DB_STAGES) * Tile::STAGE_BYTES;
     if (page >= 0 && page < N) {
       const long long off = page * page_elems + (long long)(key0 % ps) * HD;
@@ -532,47 +607,18 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < DB_STAGES - 1; ++i)
     if (i < nblk) issue(i);
 
-  // the fused window's in-flight keys, early, so that their loads overlap
-  // the first stages': slot w holds position start + w, visible when w <
-  // n_win, start >= 0 and start + w > q_pos - eff_win (the merge of
-  // dynamo_tpu/models/llama.py:981-1006). Each slot's score per head (one
-  // thread per (head, slot), 16-byte loads), and the slots' V rows of this
-  // kv head into shared memory (waited for before the fold).
-  const int nw = wk != nullptr ? Kw : 0;
-  __nv_bfloat16* wv_s = reinterpret_cast<__nv_bfloat16*>(smem + Tile::WIN_OFFSET);
+  // split 0 folds the fused window's in-flight keys: their K and V rows
+  // of this kv head are staged into shared memory behind the first
+  // stages (waited for after the loop, where they are scored)
+  const int nw = wk != nullptr && split == 0 ? Kw : 0;
+  uint8_t* wk_s = smem + Tile::WIN_OFFSET;  // [MAX_KW, HD] swizzled
+  __nv_bfloat16* wv_s = reinterpret_cast<__nv_bfloat16*>(wk_s + MAX_KW * HD * 2);
   float* wsc_s = reinterpret_cast<float*>(wv_s + MAX_KW * HD);  // [MAX_G][MAX_KW]
-  if (nw > 0) {
-    for (int c = tid; c < nw * CH; c += DB_THREADS) {
-      const int w = c / CH, cc = c - w * CH;
-      cp_async16(wv_s + w * HD + cc * 8,
-                 wv + (((long long)b * Kw + w) * KV + kv) * HD + cc * 8);
-    }
-    const int st = start[b];
-    const int floor_pos = eff_win != nullptr ? q_pos[b] - eff_win[b] : INT_MIN;
-    for (int pair = tid; pair < G * nw; pair += DB_THREADS) {
-      const int gi = pair / nw, w = pair - gi * nw;
-      float sc = -INFINITY;  // weighs exactly 0 in the fold
-      if (w < n_win && st >= 0 && st + w > floor_pos) {
-        const uint4* qr = reinterpret_cast<const uint4*>(
-            q + ((long long)b * H + kv * G + gi) * HD);
-        const uint4* kr = reinterpret_cast<const uint4*>(
-            wk + (((long long)b * Kw + w) * KV + kv) * HD);
-        float dot = 0.f;
-#pragma unroll
-        for (int c = 0; c < CH; ++c) {
-          const uint4 qa4 = qr[c], ka4 = kr[c];
-          const __nv_bfloat162* qh = reinterpret_cast<const __nv_bfloat162*>(&qa4);
-          const __nv_bfloat162* kh = reinterpret_cast<const __nv_bfloat162*>(&ka4);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 x = __bfloat1622float2(qh[e]), y = __bfloat1622float2(kh[e]);
-            dot += x.x * y.x + x.y * y.y;
-          }
-        }
-        sc = cap(dot * scale, softcap);
-      }
-      wsc_s[gi * MAX_KW + w] = sc;
-    }
+  for (int c = tid; c < nw * CH; c += DB_THREADS) {
+    const int w = c / CH, cc = c - w * CH;
+    const long long row = (((long long)b * Kw + w) * KV + kv) * HD + cc * 8;
+    cp_async16(wk_s + dswz<HD>(w, cc), wk + row);
+    cp_async16(wv_s + w * HD + cc * 8, wv + row);
   }
 
   // Q of head g as the A operand (rows 0-7; a row past G is zero)
@@ -588,7 +634,7 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   float o[CH][2];
 #pragma unroll
-  for (int n = 0; n < CH; ++n) o[n][0] = o[n][1] = 0.f;
+  for (int n8 = 0; n8 < CH; ++n8) o[n8][0] = o[n8][1] = 0.f;
   float m = NEG_INF, l = 0.f;
 
   // ldmatrix lane addresses inside a tile: K (B of S, k = head_dim): lanes
@@ -602,7 +648,7 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < nblk; ++i) {
     if (i + DB_STAGES - 1 < nblk) issue(i + DB_STAGES - 1);
     const int key0 = (jb + warp + i * DB_WARPS) * DB_KB;
-    const int page = row_pages[key0 / ps];
+    const int page = row_table[key0 / ps];
     mbar_wait(&full[i % DB_STAGES], (i / DB_STAGES) & 1);
     if (page >= 0 && page < N) {  // uniform across the warp
       const uint32_t ks = smem_u32(ring + (i % DB_STAGES) * Tile::STAGE_BYTES);
@@ -644,15 +690,15 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
       // O = O * alpha + P V: two 8-wide head_dim tiles per ldmatrix
 #pragma unroll
-      for (int n = 0; n < CH; n += 2) {
+      for (int n8 = 0; n8 < CH; n8 += 2) {
         uint32_t vb[4];
-        ldsm_x4_t(vb, vs + dswz<HD>(v_row, n + v_sub));
-        o[n][0] *= alpha;
-        o[n][1] *= alpha;
-        o[n + 1][0] *= alpha;
-        o[n + 1][1] *= alpha;
-        mma_rows8(o[n][0], o[n][1], pa0, pa2, vb[0], vb[1]);
-        mma_rows8(o[n + 1][0], o[n + 1][1], pa0, pa2, vb[2], vb[3]);
+        ldsm_x4_t(vb, vs + dswz<HD>(v_row, n8 + v_sub));
+        o[n8][0] *= alpha;
+        o[n8][1] *= alpha;
+        o[n8 + 1][0] *= alpha;
+        o[n8 + 1][1] *= alpha;
+        mma_rows8(o[n8][0], o[n8][1], pa0, pa2, vb[0], vb[1]);
+        mma_rows8(o[n8 + 1][0], o[n8 + 1][1], pa0, pa2, vb[2], vb[3]);
       }
     }
     __syncwarp();  // every lane is done with the stage before it refills
@@ -661,27 +707,53 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   l += __shfl_xor_sync(0xffffffffu, l, 2);
 
   // merge the warps, the first block-wide barrier, after the loop (no
-  // copy is in flight: every block a warp staged it also consumed)
+  // ring copy is in flight: every block a warp staged it also consumed;
+  // split 0's window rows have landed once each thread has waited)
+  if (nw > 0) asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
   float* o_s = reinterpret_cast<float*>(smem);     // [DB_WARPS][MAX_G][HD]
   float* ml_s = o_s + DB_WARPS * MAX_G * HD;       // [DB_WARPS][MAX_G][2]
   float* w_s = ml_s + 2 * DB_WARPS * MAX_G;        // [DB_WARPS][MAX_G]
-  float* fm_s = w_s + DB_WARPS * MAX_G;            // [MAX_SPLITS][MAX_G][2]
-  float* fw_s = fm_s + 2 * MAX_SPLITS * MAX_G;     // [MAX_SPLITS][MAX_G]
-  float* L_s = fw_s + MAX_SPLITS * MAX_G;          // [MAX_G]
-  int* last_s = reinterpret_cast<int*>(L_s + MAX_G);
+  float* part_ml = w_s + DB_WARPS * MAX_G;         // [MAX_G][2]
+  float* fw_s = part_ml + 2 * MAX_G;               // [MAX_G][MAX_SPLITS]
+  float* L_s = fw_s + MAX_G * MAX_SPLITS;          // [MAX_G]
   if (g < G) {
     float* orow = o_s + (warp * MAX_G + g) * HD + 2 * qd;
 #pragma unroll
-    for (int n = 0; n < CH; ++n)
-      *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(o[n][0], o[n][1]);
+    for (int n8 = 0; n8 < CH; ++n8)
+      *reinterpret_cast<float2*>(orow + 8 * n8) = make_float2(o[n8][0], o[n8][1]);
     if (qd == 0) {
       ml_s[(warp * MAX_G + g) * 2] = m;
       ml_s[(warp * MAX_G + g) * 2 + 1] = l;
     }
   }
   __syncthreads();
-  // the block's (m, l) per head: source 0 of the fold below
+  // split 0, warp 1: the window slots' scores, one more 16-key block on
+  // the tensor cores (its K tile staged at the start). Slot w holds
+  // position start + w, visible when w < n_win, start >= 0 and start + w
+  // > q_pos - eff_win (the merge of dynamo_tpu/models/llama.py:981-1006);
+  // a slot out of view scores -inf, which weighs exactly 0 in the fold.
+  if (nw > 0 && warp == 1) {
+    const uint32_t ks = smem_u32(wk_s);
+    float s0[2] = {0.f, 0.f}, s1[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t kb[4];
+      ldsm_x4(kb, ks + dswz<HD>(k_row, 2 * kk + k_sub));
+      mma_rows8(s0[0], s0[1], qa[kk][0], qa[kk][1], kb[0], kb[1]);
+      mma_rows8(s1[0], s1[1], qa[kk][0], qa[kk][1], kb[2], kb[3]);
+    }
+    const int st = start[b];
+    const int floor_pos = eff_win != nullptr ? q_pos[b] - eff_win[b] : INT_MIN;
+    const float x[4] = {s0[0], s0[1], s1[0], s1[1]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int w = 2 * qd + (e & 1) + 8 * (e >> 1);
+      const bool vis = w < nw && w < n_win && st >= 0 && st + w > floor_pos;
+      if (g < G) wsc_s[g * MAX_KW + w] = vis ? cap(x[e] * scale, softcap) : -INFINITY;
+    }
+  }
+  // the block's (m, l) per head, and each warp's weight in it
   if (tid < G) {
     float M = NEG_INF;
 #pragma unroll
@@ -693,96 +765,104 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       w_s[w * MAX_G + tid] = e;
       L += e * ml_s[(w * MAX_G + tid) * 2 + 1];
     }
-    fm_s[tid * 2] = M;
-    fm_s[tid * 2 + 1] = L;
+    part_ml[tid * 2] = M;
+    part_ml[tid * 2 + 1] = L;
   }
   __syncthreads();
-
-  // With two or more live splits, each writes its partial (unnormalized
-  // output, m, l) and the last to arrive on the (row, kv head)'s counter
-  // folds them all and resets the counter for the next call. Otherwise
-  // this block holds the whole row and folds its own result.
-  const long long pbase = ((long long)b * KV + kv) * S * G;  // split 0
-  int n_src = 1;
-  if (n_live >= 2) {
-    for (int i = tid; i < G * HD; i += DB_THREADS) {
-      const int gi = i / HD, d = i - gi * HD;
-      float a = 0.f;
+  // the block's partial (unnormalized output at the block's max) in warp
+  // 0's slot: each element is read and written by one thread
+  for (int i = tid; i < G * HD / 4; i += DB_THREADS) {
+    const int gi = i / (HD / 4), d = (i - gi * (HD / 4)) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int w = 0; w < DB_WARPS; ++w)
-        a += w_s[w * MAX_G + gi] * o_s[(w * MAX_G + gi) * HD + d];
-      part_acc[(pbase + split * G + gi) * HD + d] = a;
+    for (int w = 0; w < DB_WARPS; ++w) {
+      const float e = w_s[w * MAX_G + gi];
+      const float4 x = *reinterpret_cast<const float4*>(o_s + (w * MAX_G + gi) * HD + d);
+      a.x += e * x.x;
+      a.y += e * x.y;
+      a.z += e * x.z;
+      a.w += e * x.w;
     }
-    if (tid < G) {
-      part_ml[(pbase + split * G + tid) * 2] = fm_s[tid * 2];
-      part_ml[(pbase + split * G + tid) * 2 + 1] = fm_s[tid * 2 + 1];
-    }
-    __threadfence();  // the partial is visible before the arrival
-    __syncthreads();
-    if (tid == 0) {
-      const int arrived = atomicAdd(&counters[b * KV + kv], 1) + 1;
-      *last_s = arrived == n_live;
-      if (arrived == n_live) atomicExch(&counters[b * KV + kv], 0);
-    }
-    __syncthreads();
-    if (*last_s == 0) return;
-    __threadfence();
-    // every split's (m, l) from L2; a split without pages weighs 0
-    for (int i = tid; i < S * G; i += DB_THREADS) {
-      const bool live = split_pages(len, lo, ps, P, S, i / G, p0) > 0;
-      fm_s[i * 2] = live ? __ldcg(&part_ml[(pbase + i) * 2]) : -INFINITY;
-      fm_s[i * 2 + 1] = live ? __ldcg(&part_ml[(pbase + i) * 2 + 1]) : 0.f;
-    }
-    n_src = S;
+    *reinterpret_cast<float4*>(o_s + gi * HD + d) = a;
+  }
+  // every live split's partial is in its shared memory before split 0
+  // reads it
+  cluster_sync_acq_rel();
+  if (split != 0) {
+    cluster_sync_relaxed();  // keeps this block's partial alive for split 0
+    return;
   }
 
-  // the window's V rows have landed (the ring's copies were all consumed)
-  if (nw > 0) asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-  // per head: the joint max, each source's and slot's weight, the sum
-  if (tid < G) {
-    float M = NEG_INF;
-    for (int s = 0; s < n_src; ++s) M = fmaxf(M, fm_s[(s * G + tid) * 2]);
-    for (int w = 0; w < nw; ++w) M = fmaxf(M, wsc_s[tid * MAX_KW + w]);
-    float L = 0.f;
-    for (int s = 0; s < n_src; ++s) {
-      const float e = exp2f((fm_s[(s * G + tid) * 2] - M) * LOG2E);
-      fw_s[s * G + tid] = e;
-      L += e * fm_s[(s * G + tid) * 2 + 1];
+  // Split 0 folds the live splits' partials (its own included) and the
+  // window keys. Per head, one warp: lanes 0-7 take the splits' (m, l),
+  // lanes 8-23 the window slots' scores; the joint max and sum by
+  // shuffles, each source's and slot's weight to shared memory.
+  const int n_src = max(n_live, 1);
+  const uint32_t ml_local = smem_u32(part_ml), o_local = smem_u32(o_s);
+  for (int gi = warp; gi < G; gi += DB_WARPS) {
+    float x = -INFINITY, mass = 0.f;  // -inf weighs exactly 0
+    if (lane < n_src) {
+      const float2 v = ld_dsmem_f2(dsmem_addr(ml_local + gi * 8, lane));
+      x = v.x;
+      mass = v.y;
+    } else if (lane >= MAX_SPLITS && lane - MAX_SPLITS < nw) {
+      x = wsc_s[gi * MAX_KW + lane - MAX_SPLITS];
+      mass = 1.f;
     }
-    for (int w = 0; w < nw; ++w) {
-      const float e = exp2f((wsc_s[tid * MAX_KW + w] - M) * LOG2E);
-      wsc_s[tid * MAX_KW + w] = e;
-      L += e;
-    }
-    L_s[tid] = L;
-    if (m_out != nullptr) {
-      m_out[(long long)b * H + kv * G + tid] = M;
-      l_out[(long long)b * H + kv * G + tid] = L;
-    }
-  }
-  __syncthreads();
-  const long long obase = ((long long)b * H + kv * G) * HD;
-  for (int i = tid; i < G * HD; i += DB_THREADS) {
-    const int gi = i / HD, d = i - gi * HD;
-    float a = 0.f;
-    if (n_src == 1) {
-#pragma unroll
-      for (int w = 0; w < DB_WARPS; ++w)
-        a += w_s[w * MAX_G + gi] * o_s[(w * MAX_G + gi) * HD + d];
-      a *= fw_s[gi];
-    } else {
-      for (int s = 0; s < n_src; ++s) {
-        const float e = fw_s[s * G + gi];
-        // a split without pages wrote nothing (a live one whose weight
-        // underflows to 0 adds 0 either way)
-        if (e != 0.f) a += e * __ldcg(&part_acc[(pbase + s * G + gi) * HD + d]);
+    const float M = fmaxf(warp_max(x), NEG_INF);
+    const float e = exp2f((x - M) * LOG2E);
+    const float L = warp_sum(e * mass);
+    if (lane < MAX_SPLITS)
+      fw_s[gi * MAX_SPLITS + lane] = e;
+    else if (lane - MAX_SPLITS < MAX_KW)
+      wsc_s[gi * MAX_KW + lane - MAX_SPLITS] = e;  // the slot's weight now
+    if (lane == 0) {
+      L_s[gi] = L;
+      if (m_out != nullptr) {
+        m_out[(long long)b * H + kv * G + gi] = M;
+        l_out[(long long)b * H + kv * G + gi] = L;
       }
     }
-    for (int w = 0; w < nw; ++w)
-      a += wsc_s[gi * MAX_KW + w] * __bfloat162float(wv_s[w * HD + d]);
-    out[obase + i] = __float2bfloat16(a / fmaxf(L_s[gi], 1e-9f));
   }
+  __syncthreads();
+  // the output, four head_dim elements of one head a thread: the live
+  // splits' partials loaded together through distributed shared memory
+  const long long obase = ((long long)b * H + kv * G) * HD;
+  for (int i = tid; i < G * HD / 4; i += DB_THREADS) {
+    const int gi = i / (HD / 4), d = (i - gi * (HD / 4)) * 4;
+    const uint32_t src = o_local + (uint32_t)(gi * HD + d) * 4;
+    float4 x[MAX_SPLITS];
+#pragma unroll
+    for (int s = 0; s < MAX_SPLITS; ++s)
+      if (s < n_src) x[s] = ld_dsmem_f4(dsmem_addr(src, s));
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < MAX_SPLITS; ++s) {
+      if (s < n_src) {
+        const float e = fw_s[gi * MAX_SPLITS + s];
+        a.x += e * x[s].x;
+        a.y += e * x[s].y;
+        a.z += e * x[s].z;
+        a.w += e * x[s].w;
+      }
+    }
+    for (int w = 0; w < nw; ++w) {
+      const float e = wsc_s[gi * MAX_KW + w];
+      const __nv_bfloat162* v =
+          reinterpret_cast<const __nv_bfloat162*>(wv_s + w * HD + d);
+      const float2 v0 = __bfloat1622float2(v[0]), v1 = __bfloat1622float2(v[1]);
+      a.x += e * v0.x;
+      a.y += e * v0.y;
+      a.z += e * v1.x;
+      a.w += e * v1.y;
+    }
+    const float Lc = fmaxf(L_s[gi], 1e-9f);
+    uint2 packed;
+    packed.x = pack_bf16(a.x / Lc, a.y / Lc);
+    packed.y = pack_bf16(a.z / Lc, a.w / Lc);
+    *reinterpret_cast<uint2*>(out + obase + gi * HD + d) = packed;
+  }
+  cluster_sync_relaxed();  // the other splits' shared memory outlives the reads
 }
 
 // ---------------------------------------------------------- combine
@@ -901,9 +981,8 @@ struct DecodeArgs {
   void* out;
   float* m_out;
   float* l_out;
-  float* part_acc;  // null: the generic route does not fold
+  float* part_acc;  // the generic route's partials (null: it does not fold)
   float* part_ml;
-  int* counters;    // the bf16 route's arrivals per (row, kv head)
   int B, H, KV, N, ps, hd, P, splits;
   float scale, softcap;
 };
@@ -938,29 +1017,50 @@ int launch_generic(const DecodeArgs& a, const Window& win, cudaStream_t st) {
   return launch_combine<T>(a, win, st);
 }
 
-// one launch: the bf16 kernel folds its splits and the window itself
+// A launch of the bf16 kernel at head_dim HD: grid `grid`, in clusters of
+// (1, 1, grid.z) blocks (the splits of one (row, kv head)). Built in
+// place: the config points at the attribute beside it.
+template <int HD> struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(dim3 grid, cudaStream_t st) : cfg{} {
+    cudaFuncSetAttribute(paged_decode_bf16_kernel<HD>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         DecodeTile<HD>::SMEM);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = grid.z;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(DB_THREADS);
+    cfg.dynamicSmemBytes = DecodeTile<HD>::SMEM;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// one cluster launch: the bf16 kernel folds its splits and the window
+// itself; a launch the card refuses returns its error
 template <int HD>
 int launch_bf16(const DecodeArgs& a, const Window& win, cudaStream_t st) {
-  using Tile = DecodeTile<HD>;
   const long long layer_offset = a.layer * (long long)a.N * a.KV * a.ps * HD;
-  cudaFuncSetAttribute(paged_decode_bf16_kernel<HD>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
-  paged_decode_bf16_kernel<HD>
-      <<<dim3(a.B, a.KV, a.splits), DB_THREADS, Tile::SMEM, st>>>(
-          static_cast<const __nv_bfloat16*>(a.q),
-          static_cast<const __nv_bfloat16*>(a.k_pools),
-          static_cast<const __nv_bfloat16*>(a.v_pools), layer_offset,
-          a.page_table, a.lengths, a.lower,
-          static_cast<__nv_bfloat16*>(a.out), a.m_out, a.l_out, a.part_acc,
-          a.part_ml, a.counters, win.start, win.q_pos, win.eff_win,
-          static_cast<const __nv_bfloat16*>(win.wk),
-          static_cast<const __nv_bfloat16*>(win.wv), win.n_win, win.Kw, a.H,
-          a.KV, a.N, a.ps, a.P, a.scale, a.softcap);
-  return (int)cudaGetLastError();
+  ClusterLaunch<HD> l(dim3(a.B, a.KV, a.splits), st);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &l.cfg, paged_decode_bf16_kernel<HD>,
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k_pools),
+      static_cast<const __nv_bfloat16*>(a.v_pools), layer_offset,
+      a.page_table, a.lengths, a.lower, static_cast<__nv_bfloat16*>(a.out),
+      a.m_out, a.l_out, win.start, win.q_pos, win.eff_win,
+      static_cast<const __nv_bfloat16*>(win.wk),
+      static_cast<const __nv_bfloat16*>(win.wv), win.n_win, win.Kw, a.H,
+      a.KV, a.N, a.ps, a.P, a.scale, a.softcap);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // The bf16 kernel's shapes; the wrapper's DECODE_BF16_* (and
-// DECODE_MAX_SPLITS for MAX_SPLITS) list the same, and
+// DECODE_BF16_MAX_SPLITS for MAX_SPLITS) list the same, and
 // tests/test_torch_kernels.py holds the two against each other.
 bool bf16_shape(int H, int KV, int ps, int hd) {
   const int G = KV > 0 ? H / KV : 0;
@@ -983,14 +1083,11 @@ int check_decode(int route, int dtype, int H, int KV, int ps, int hd,
   return 0;
 }
 
-// The scratch a call needs: the bf16 route the partials and counters
-// when it splits; the generic route the partials whenever it folds
-// (splits, or a window).
+// The scratch a call needs: none on the bf16 route (its splits fold
+// through the cluster's shared memory); on the generic route the
+// partials whenever it folds (splits, or a window).
 bool has_scratch(int route, const DecodeArgs& a, bool window) {
-  if (route == 1)
-    return a.splits == 1 || (a.part_acc != nullptr && a.part_ml != nullptr &&
-                             a.counters != nullptr);
-  return !(a.splits > 1 || window) ||
+  return route == 1 || !(a.splits > 1 || window) ||
          (a.part_acc != nullptr && a.part_ml != nullptr);
 }
 
@@ -1016,26 +1113,19 @@ int resident(K kernel, int threads, int smem, int* blocks) {
                                                             threads, smem);
 }
 
-// route: 1 = the bf16 tensor-core kernel, 0 = the generic kernel (the
-// wrapper picks it from the shape; see bf16_shape). dtype: 0 = float32,
-// 1 = bfloat16.
-//
-// *blocks = the decode kernel's resident blocks per SM at this shape
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for the split plan.
-extern "C" int dyn_paged_decode_resident(int route, int dtype, int H, int KV,
-                                         int ps, int hd, int* blocks) {
-  const int bad = check_decode(route, dtype, H, KV, ps, hd, 1);
+template <int HD> int resident_clusters(int splits, int* clusters) {
+  ClusterLaunch<HD> l(dim3(1, 1, splits), nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      clusters, paged_decode_bf16_kernel<HD>, &l.cfg);
+}
+
+// *blocks = the generic decode kernel's resident blocks per SM at this
+// shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for its split
+// plan.
+extern "C" int dyn_paged_decode_resident(int dtype, int H, int KV, int ps,
+                                         int hd, int* blocks) {
+  const int bad = check_decode(0, dtype, H, KV, ps, hd, 1);
   if (bad) return bad;
-  if (route == 1) {
-    switch (hd) {
-      case 64: return resident(paged_decode_bf16_kernel<64>, DB_THREADS,
-                               DecodeTile<64>::SMEM, blocks);
-      case 128: return resident(paged_decode_bf16_kernel<128>, DB_THREADS,
-                                DecodeTile<128>::SMEM, blocks);
-      case 256: return resident(paged_decode_bf16_kernel<256>, DB_THREADS,
-                                DecodeTile<256>::SMEM, blocks);
-    }
-  }
   const int smem = (int)decode_smem_bytes(H / KV, ps, hd, dtype == 0 ? 4 : 2);
   return dtype == 0
              ? resident(paged_decode_kernel<float>, DEC_THREADS, smem, blocks)
@@ -1043,24 +1133,40 @@ extern "C" int dyn_paged_decode_resident(int route, int dtype, int H, int KV,
                         blocks);
 }
 
-// Each entry returns cudaGetLastError() after its launches (0 =
-// cudaSuccess). Scratch the caller allocates (see has_scratch): part_acc
-// [B*KV*splits*G*hd] and part_ml [B*KV*splits*G*2] in float32, and for
-// the bf16 route counters [B*KV] int32, zero before the first call (each
-// call leaves them zero). m_out/l_out may be null (no stats).
+// *clusters = how many clusters of `splits` blocks of the bf16 kernel the
+// card holds at once at this shape (cudaOccupancyMaxActiveClusters), for
+// its split plan; refused for a shape or split count it does not take.
+extern "C" int dyn_paged_decode_clusters(int H, int KV, int ps, int hd,
+                                         int splits, int* clusters) {
+  const int bad = check_decode(1, 1, H, KV, ps, hd, splits);
+  if (bad) return bad;
+  switch (hd) {
+    case 64: return resident_clusters<64>(splits, clusters);
+    case 128: return resident_clusters<128>(splits, clusters);
+    case 256: return resident_clusters<256>(splits, clusters);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// route: 1 = the bf16 tensor-core kernel, 0 = the generic kernel (the
+// wrapper picks it from the shape; see bf16_shape). dtype: 0 = float32,
+// 1 = bfloat16. Each entry returns cudaGetLastError() after its launches
+// (0 = cudaSuccess), or the launch's own error. Scratch the caller allocates
+// for the generic route (see has_scratch): part_acc [B*KV*splits*G*hd]
+// and part_ml [B*KV*splits*G*2] in float32; the bf16 route takes none.
+// m_out/l_out may be null (no stats).
 extern "C" int dyn_paged_attention_decode(
     int route, int dtype, const void* q, const void* k_pools,
     const void* v_pools, long long layer, const int* page_table,
     const int* lengths, const int* lower, void* out, float* m_out,
-    float* l_out, float* part_acc, float* part_ml, int* counters, int B,
-    int H, int KV, int N, int ps, int hd, int P, int splits, float scale,
-    float softcap, void* stream) {
+    float* l_out, float* part_acc, float* part_ml, int B, int H, int KV,
+    int N, int ps, int hd, int P, int splits, float scale, float softcap,
+    void* stream) {
   const int bad = check_decode(route, dtype, H, KV, ps, hd, splits);
   if (splits == 1) part_acc = part_ml = nullptr;
   const DecodeArgs a = {q, k_pools, v_pools, layer, page_table, lengths,
-                        lower, out, m_out, l_out, part_acc, part_ml,
-                        counters, B, H, KV, N, ps, hd, P, splits, scale,
-                        softcap};
+                        lower, out, m_out, l_out, part_acc, part_ml, B, H,
+                        KV, N, ps, hd, P, splits, scale, softcap};
   if (bad || !has_scratch(route, a, false))
     return bad ? bad : (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
@@ -1078,13 +1184,12 @@ extern "C" int dyn_paged_attention_decode_window(
     const void* v_pools, long long layer, const int* page_table,
     const int* start, const int* q_pos, const int* eff_win, const void* wk,
     const void* wv, int n_win, int Kw, void* out, float* part_acc,
-    float* part_ml, int* counters, int B, int H, int KV, int N, int ps,
-    int hd, int P, int splits, float scale, float softcap, void* stream) {
+    float* part_ml, int B, int H, int KV, int N, int ps, int hd, int P,
+    int splits, float scale, float softcap, void* stream) {
   const int bad = check_decode(route, dtype, H, KV, ps, hd, splits);
   const DecodeArgs a = {q, k_pools, v_pools, layer, page_table, nullptr,
                         nullptr, out, nullptr, nullptr, part_acc, part_ml,
-                        counters, B, H, KV, N, ps, hd, P, splits, scale,
-                        softcap};
+                        B, H, KV, N, ps, hd, P, splits, scale, softcap};
   if (bad || !has_scratch(route, a, true) || wk == nullptr || wv == nullptr ||
       Kw < 1 || (route == 1 && Kw > MAX_KW))
     return bad ? bad : (int)cudaErrorInvalidValue;

@@ -18,11 +18,12 @@ what bounds it on an H100 and what its design does about it:
   head_dim 64/128/256, page size 16/32/64/128 and GQA groups up to 8 (the
   ``llama3_8b`` and ``1b`` presets) run ``paged_decode_bf16_kernel``
   (independent warps, tensor-core products, a per-warp ``cp.async`` ring
-  of 16-key blocks, the splits and window keys folded by the last block
-  of each row and kv head); float32 and other bfloat16 shapes run the
-  generic ``paged_decode_kernel`` and ``paged_decode_combine``. Both
-  split a row's pages over blocks by :func:`decode_split_plan`, which
-  takes host-known shapes only.
+  of 16-key blocks; the splits of a row and kv head are one thread-block
+  cluster, :func:`decode_cluster_plan`, and fold with the window keys
+  through its distributed shared memory); float32 and other bfloat16
+  shapes run the generic ``paged_decode_kernel`` and
+  ``paged_decode_combine``, split by :func:`decode_split_plan`. Both
+  plans take host-known shapes only.
 - :func:`paged_attention_prefill` replaces the TPU kernel reached through
   ``paged_attention_prefill``: chunked-prefill attention with causal
   visibility by absolute ``q_positions`` (-1 = padding) intersected with
@@ -76,9 +77,11 @@ PREFILL_BF16_MAX_GROUP = 8
 DECODE_BF16_HEAD_DIMS = (64, 128, 256)
 DECODE_BF16_PAGE_SIZES = (16, 32, 64, 128)
 DECODE_BF16_MAX_GROUP = 8
+DECODE_BF16_MAX_SPLITS = 8  # one cluster: the portable maximum size
+# the cluster sizes the bf16 plan picks from, largest first
+DECODE_CLUSTER_SIZES = (8, 4, 2, 1)
+# the generic kernel's most splits per (row, kv head)
 DECODE_MAX_SPLITS = 128
-# (row, kv head) arrival counters of one stream's bf16 decode calls
-DECODE_MAX_ROW_HEADS = 1 << 16
 
 
 def reset_launch_counts() -> None:
@@ -103,16 +106,19 @@ def _lib():
     if not getattr(lib, "_dyn_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dyn_paged_attention_decode.argtypes = [
-            i, i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, p, p, p,
+            i, i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, p, p,
             i, i, i, i, i, i, i, i, f, f, p]
         lib.dyn_paged_attention_decode.restype = i
         lib.dyn_paged_attention_decode_window.argtypes = [
             i, i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, i, i, p, p,
-            p, p, i, i, i, i, i, i, i, i, f, f, p]
+            p, i, i, i, i, i, i, i, i, f, f, p]
         lib.dyn_paged_attention_decode_window.restype = i
         lib.dyn_paged_decode_resident.argtypes = [
-            i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+            i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         lib.dyn_paged_decode_resident.restype = i
+        lib.dyn_paged_decode_clusters.argtypes = [
+            i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.dyn_paged_decode_clusters.restype = i
         lib._dyn_typed = True
     return lib
 
@@ -133,6 +139,7 @@ def _prefill_lib():
 
 _SMS: Dict[int, int] = {}
 _RESIDENT: Dict[tuple, int] = {}
+_CLUSTERS: Dict[tuple, Dict[int, int]] = {}
 
 
 def _device_index(device: torch.device) -> int:
@@ -147,22 +154,43 @@ def _sm_count(device: torch.device) -> int:
     return _SMS[idx]
 
 
-def _resident(device: torch.device, route: int, dtype: torch.dtype, H: int,
-              KV: int, ps: int, hd: int) -> int:
-    """Resident blocks per SM of the decode kernel of ``route`` at this
-    shape, queried once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    key = (_device_index(device), route, dtype, H // KV, ps, hd)
+def _resident(device: torch.device, dtype: torch.dtype, H: int, KV: int,
+              ps: int, hd: int) -> int:
+    """Resident blocks per SM of the generic decode kernel at this shape,
+    queried once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    key = (_device_index(device), dtype, H // KV, ps, hd)
     if key not in _RESIDENT:
         blocks = ctypes.c_int(0)
         with torch.cuda.device(key[0]):
             err = _lib().dyn_paged_decode_resident(
-                route, _DTYPES[dtype], H, KV, ps, hd, ctypes.byref(blocks))
+                _DTYPES[dtype], H, KV, ps, hd, ctypes.byref(blocks))
         if err != 0:
             raise RuntimeError(f"decode occupancy query failed: CUDA error "
-                               f"{err} (route {route} H={H} KV={KV} ps={ps} "
-                               f"hd={hd})")
+                               f"{err} (H={H} KV={KV} ps={ps} hd={hd})")
         _RESIDENT[key] = blocks.value
     return _RESIDENT[key]
+
+
+def _clusters(device: torch.device, H: int, KV: int, ps: int,
+              hd: int) -> Dict[int, int]:
+    """Clusters of each size in :data:`DECODE_CLUSTER_SIZES` that the card
+    holds at once of the bf16 decode kernel at this shape, queried once
+    (cudaOccupancyMaxActiveClusters)."""
+    key = (_device_index(device), H // KV, ps, hd)
+    if key not in _CLUSTERS:
+        found = {}
+        for S in DECODE_CLUSTER_SIZES:
+            n = ctypes.c_int(0)
+            with torch.cuda.device(key[0]):
+                err = _lib().dyn_paged_decode_clusters(H, KV, ps, hd, S,
+                                                       ctypes.byref(n))
+            if err != 0:
+                raise RuntimeError(f"decode cluster occupancy query failed: "
+                                   f"CUDA error {err} (H={H} KV={KV} "
+                                   f"ps={ps} hd={hd} cluster {S})")
+            found[S] = n.value
+        _CLUSTERS[key] = found
+    return _CLUSTERS[key]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -259,8 +287,8 @@ def paged_attention_decode_layered(
     if return_stats:
         m = torch.empty((B, H), dtype=torch.float32, device=q.device)
         l = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    part_acc, part_ml, counters = _scratch(q.device, route, False, B, KV,
-                                           splits, G, hd)
+    part_acc, part_ml = _scratch(q.device, route, False, B, KV, splits, G,
+                                 hd)
     err = _lib().dyn_paged_attention_decode(
         route, _DTYPES[q.dtype], q.data_ptr(), k_pools.data_ptr(),
         v_pools.data_ptr(), layer, page_table.data_ptr(), lengths.data_ptr(),
@@ -269,7 +297,6 @@ def paged_attention_decode_layered(
         l.data_ptr() if l is not None else None,
         part_acc.data_ptr() if part_acc is not None else None,
         part_ml.data_ptr() if part_ml is not None else None,
-        counters.data_ptr() if counters is not None else None,
         B, H, KV, N, ps, hd, P, splits, float(scale), float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -294,15 +321,32 @@ def decode_route(dtype: torch.dtype, H: int, KV: int, ps: int,
 
 def decode_split_plan(B: int, KV: int, P: int, sms: int,
                       resident: int) -> int:
-    """Splits per (row, kv head), from host-known shapes only (so a CUDA
-    graph can capture the call): as many as fill one wave of the card's
-    ``sms * resident`` resident blocks, at most one per page-table entry
-    (and :data:`DECODE_MAX_SPLITS`), and 1 once the rows x kv heads alone
-    fill the wave. The kernels cut a row's visible pages into that many
-    near-equal contiguous shares (``split_pages`` in
+    """The generic kernel's splits per (row, kv head), from host-known
+    shapes only (so a CUDA graph can capture the call): as many as fill
+    one wave of the card's ``sms * resident`` resident blocks, at most one
+    per page-table entry (and :data:`DECODE_MAX_SPLITS`), and 1 once the
+    rows x kv heads alone fill the wave. The kernel cuts a row's visible
+    pages into that many near-equal contiguous shares (``split_pages`` in
     csrc/paged_attention.cu)."""
     slots = sms * max(resident, 1)
     return max(1, min(P, DECODE_MAX_SPLITS, slots // max(B * KV, 1)))
+
+
+def decode_cluster_plan(B: int, KV: int, P: int,
+                        clusters: Dict[int, int]) -> int:
+    """The bf16 kernel's splits per (row, kv head), one thread-block
+    cluster, from host-known shapes only: the largest size of
+    :data:`DECODE_CLUSTER_SIZES`, at most ``P``, of which the card holds
+    all ``B * KV`` clusters at once (``clusters[S]``, from
+    cudaOccupancyMaxActiveClusters), else 1. The kernel cuts a row's
+    visible pages into at most that many contiguous shares of at least
+    one ring of keys each (``db_min_pages`` in csrc/paged_attention.cu):
+    short rows leave the cluster's last splits idle."""
+    pairs = B * KV
+    for S in DECODE_CLUSTER_SIZES:
+        if S <= P and pairs <= clusters.get(S, 0):
+            return S
+    return 1
 
 
 def _decode_launch_plan(q: torch.Tensor, k_pools: torch.Tensor,
@@ -320,57 +364,27 @@ def _decode_launch_plan(q: torch.Tensor, k_pools: torch.Tensor,
                f"multiple of 8 (got {G}, {hd})")
     _check(k_pools.data_ptr() % 16 == 0 and v_pools.data_ptr() % 16 == 0,
            "pools must be 16-byte aligned (16-byte page copies)")
+    if route == 1:
+        return route, decode_cluster_plan(
+            B, KV, P, _clusters(q.device, H, KV, ps, hd))
     splits = decode_split_plan(
         B, KV, P, _sm_count(q.device),
-        _resident(q.device, route, q.dtype, H, KV, ps, hd))
+        _resident(q.device, q.dtype, H, KV, ps, hd))
     return route, splits
-
-
-_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _counters(device, B: int, KV: int) -> torch.Tensor:
-    """The bf16 route's arrival counters for calls on the current stream:
-    one buffer per (device, stream) of :data:`DECODE_MAX_ROW_HEADS`,
-    allocated zeroed at the stream's first splitting call and never
-    replaced, so calls in flight on two streams never count each other's
-    arrivals and a captured CUDA graph keeps a live pointer. Calls on one
-    stream run in order, and each leaves the counters zero. A stream is
-    called once before a graph captures it (the usual warm-up): the
-    buffer is not made inside a capture."""
-    _check(B * KV <= DECODE_MAX_ROW_HEADS,
-           f"bf16 decode takes rows x kv heads up to {DECODE_MAX_ROW_HEADS} "
-           f"(got {B} x {KV})")
-    key = (_device_index(device),
-           torch.cuda.current_stream(device).cuda_stream)
-    counters = _COUNTERS.get(key)
-    if counters is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("bf16 decode: call once on this stream before "
-                               "capturing it (its arrival counters are made "
-                               "at its first call)")
-        counters = torch.zeros(DECODE_MAX_ROW_HEADS, dtype=torch.int32,
-                               device=device)
-        _COUNTERS[key] = counters
-    return counters
 
 
 def _scratch(device, route: int, window: bool, B: int, KV: int, splits: int,
              G: int, hd: int):
-    """(part_acc, part_ml, counters) of one decode call, None where the
-    call needs none: the bf16 kernel folds its splits and the window
-    itself and needs partials and arrival counters (:func:`_counters`)
-    only when it splits; the generic kernel hands partials to the combine
-    kernel whenever it splits or has a window."""
-    part_acc = part_ml = counters = None
-    if splits > 1 or (window and route == 0):
-        part_acc = torch.empty((B, KV, splits, G, hd), dtype=torch.float32,
-                               device=device)
-        part_ml = torch.empty((B, KV, splits, G, 2), dtype=torch.float32,
-                              device=device)
-    if route == 1 and splits > 1:
-        counters = _counters(device, B, KV)
-    return part_acc, part_ml, counters
+    """(part_acc, part_ml) of one decode call, None where the call needs
+    none: the bf16 kernel folds its splits (through the cluster's shared
+    memory) and the window itself; the generic kernel hands partials to
+    the combine kernel whenever it splits or has a window."""
+    if route == 1 or not (splits > 1 or window):
+        return None, None
+    return (torch.empty((B, KV, splits, G, hd), dtype=torch.float32,
+                        device=device),
+            torch.empty((B, KV, splits, G, 2), dtype=torch.float32,
+                        device=device))
 
 
 def paged_attention_decode_window(
@@ -431,8 +445,8 @@ def paged_attention_decode_window(
     route, splits = _decode_launch_plan(q, k_pools, v_pools, B, P)
     _check(route == 0 or all(t.data_ptr() % 16 == 0 for t in (q, wk, wv)),
            "q, wk and wv must be 16-byte aligned (16-byte loads)")
-    part_acc, part_ml, counters = _scratch(q.device, route, True, B, KV,
-                                           splits, H // KV, hd)
+    part_acc, part_ml = _scratch(q.device, route, True, B, KV, splits,
+                                 H // KV, hd)
     out = torch.empty_like(q)
     err = _lib().dyn_paged_attention_decode_window(
         route, _DTYPES[q.dtype], q.data_ptr(), k_pools.data_ptr(),
@@ -441,7 +455,6 @@ def paged_attention_decode_window(
         wk.data_ptr(), wv.data_ptr(), n_win, Kw, out.data_ptr(),
         part_acc.data_ptr() if part_acc is not None else None,
         part_ml.data_ptr() if part_ml is not None else None,
-        counters.data_ptr() if counters is not None else None,
         B, H, KV, N, ps, hd, P,
         splits, float(scale), float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -287,7 +287,7 @@ def test_cuda_bf16_decode_long_rows(cuda_device, rows):
     q, kp, vp, table = _decode_pool(4, 128, 64, [-(-n // 64) for n in lengths],
                                     KV=8, L=1)
     first = _decode_check(cuda_device, q, kp, vp, table, lengths, lower)
-    # the arrival counters are left at zero: a second call folds alike
+    # a second call folds alike (no state is left between calls)
     again = _decode_check(cuda_device, q, kp, vp, table, lengths, lower)
     assert torch.equal(first, again)
     ln, lo = (torch.tensor(x, dtype=torch.int32) for x in (lengths, lower))
@@ -300,64 +300,187 @@ def test_cuda_bf16_decode_long_rows(cuda_device, rows):
     assert float((first.float() - short).abs().max()) > limit
 
 
+def _rows_within_rms(got, want, short, rows):
+    """Each of ``rows`` of the kernel's output within a tenth of the plain
+    output's rms in that row, a limit the plain version one 16-key block
+    short (``short``, the control) exceeds in that row."""
+    for b in rows:
+        limit = 0.1 * float(want[b].float().pow(2).mean().sqrt())
+        assert float((got[b].float() - want[b].float()).abs().max()) <= limit
+        assert float((short[b].float() - want[b].float()).abs().max()) > limit
+
+
 @pytest.mark.cuda
-def test_cuda_bf16_decode_streams_keep_their_own_counters(cuda_device):
-    """Splitting bf16 calls in flight on two streams at once: each stream
-    has its own arrival counters, so both fold all their partials."""
-    lengths = [3000, 2600, 3900]
-    q, kp, vp, table = _decode_pool(4, 128, 64, [-(-n // 64) for n in lengths],
-                                    KV=8, L=1)
+@pytest.mark.parametrize("tp", [1, 2, 4, 8])
+def test_cuda_bf16_decode_cluster_splits_at_one_ranks_heads(cuda_device, tp):
+    """The bf16 kernel's cluster of splits at the heads one rank of tp
+    holds of the 8B widths (32/tp q heads, 8/tp kv heads) in the 64-page
+    bucket, where the plan takes clusters of 4 (tp=1) or 8: rows of no
+    page, of one key, of fewer pages than one split's least (one live
+    split), of 7 pages (3 live splits), of 40 pages (more than the
+    splits), and of 5 pages whose last page id lies outside the pool
+    (skipped: held to the same row without that page). Stats form with
+    softcap and ``lower``, then the window form at step 3 of K = 4 with a
+    row whose only keys are the window's. Held to the plain version at
+    the bf16 tolerance and per row to a tenth of its rms, which the plain
+    version one 16-key block short exceeds."""
+    KV, G, hd, ps, P = 8 // tp, 4, 128, 64, 64
+    pages = [0, 1, 3, 7, 40, 5]
+    lengths = [0, 1, 3 * ps - 20, 7 * ps - 1, 40 * ps - 9, 5 * ps - 3]
+    lo = torch.tensor([0, 0, 0, 70, 1000, 0], dtype=torch.int32)
+    q, kp, vp, narrow = _decode_pool(G, hd, ps, pages, KV=KV, L=1, seed=tp)
+    B, N = len(pages), kp.shape[1]
+    table = torch.zeros((B, P), dtype=torch.int32)
+    table[:, :narrow.shape[1]] = narrow
+    table[5, 4] = N + 7
     ln = torch.tensor(lengths, dtype=torch.int32)
-    want = paged_attention_decode_layered(q, kp, vp, 0, table, ln)
+    # the plain version sees row 5 without its last page
+    t_ref, ln_ref = table.clone(), ln.clone()
+    t_ref[5, 4], ln_ref[5] = 0, 4 * ps
+    scale, d = hd ** -0.5, cuda_device
+    want = ops.decode_reference(q, kp, vp, 0, t_ref, ln_ref, lo, scale, 30.0)
+    short = ops.decode_reference(q, kp, vp, 0, t_ref, ln_ref, lo + 16, scale,
+                                 30.0)
+    ops.reset_launch_counts()
+    got = paged_attention_decode_layered(
+        q.to(d), kp.to(d), vp.to(d), 0, table.to(d), ln.to(d),
+        return_stats=True, softcap=30.0, lower=lo.to(d))
+    torch.cuda.synchronize()
+    got = [t.cpu() for t in got]
+    np.testing.assert_allclose(_np(got[0]), _np(want[0]), rtol=1e-2,
+                               atol=2e-2)
+    np.testing.assert_allclose(_np(got[1]), _np(want[1]), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(_np(got[2]), _np(want[2]), rtol=1e-4,
+                               atol=1e-5)
+    assert (got[0][0] == 0).all() and (got[2][0] == 0).all()
+    assert (got[1][0] == ops.NEG_INF).all()
+    _rows_within_rms(got[0], want[0], short[0], range(1, B))
+
+    Kw, n_win = 4, 3
+    g = torch.Generator().manual_seed(10 + tp)
+    wk = torch.randn(B, Kw, KV, hd, generator=g).to(torch.bfloat16)
+    wv = torch.randn(B, Kw, KV, hd, generator=g).to(torch.bfloat16)
+    start = torch.tensor([-1, 0] + lengths[2:5] + [4 * ps],
+                         dtype=torch.int32)
+    qp = (start.clamp(min=0) + n_win - 1).to(torch.int32)
+    args = (q, kp, vp, 0, t_ref, start, qp, wk, wv, n_win)
+    want = window_reference(*args, scale)
+    short = window_reference(*args, scale, None, (qp + 1 - 16).to(torch.int32))
+    out = paged_attention_decode_window(
+        *(a.to(d) if torch.is_tensor(a) else a for a in args)).cpu()
+    np.testing.assert_allclose(_np(out), _np(want), rtol=1e-2, atol=2e-2)
+    assert (out[0] == 0).all()
+    _rows_within_rms(out, want, short, range(1, B))
+    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 2, "generic": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("KV", [8, 1])
+def test_cuda_bf16_decode_graph_replay_equals_eager(cuda_device, KV):
+    """A captured cluster launch, replayed, gives the eager call's output
+    and stats bit for bit, at full heads (clusters of 4) and at tp=8's
+    (clusters of 8); layered with stats, and the window form."""
+    lengths = [40, 64 * 11 - 3, 0, 86]
+    q, kp, vp, narrow = _decode_pool(4, 128, 64, [1, 11, 0, 2], KV=KV, L=1)
     d = cuda_device
-    args = [t.to(d) for t in (q, kp, vp, table, ln)]
-    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
-    for s in streams:  # each stream's first call makes its counters
-        s.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(s):
-            paged_attention_decode_layered(args[0], args[1], args[2], 0,
-                                           *args[3:])
+    B = len(lengths)
+    table = torch.zeros((B, 64), dtype=torch.int32)
+    table[:, :narrow.shape[1]] = narrow
+    q, kp, vp, table = (t.to(d) for t in (q, kp, vp, table))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=d)
+    g = torch.Generator().manual_seed(3)
+    wk = torch.randn(B, 4, KV, 128, generator=g).to(torch.bfloat16).to(d)
+    wv = torch.randn(B, 4, KV, 128, generator=g).to(torch.bfloat16).to(d)
+    start = torch.tensor([40, 701, -1, 86], dtype=torch.int32, device=d)
+    qp = (start.clamp(min=0) + 3).to(torch.int32)
+
+    def calls():
+        return (*paged_attention_decode_layered(q, kp, vp, 0, table, ln,
+                                                return_stats=True),
+                paged_attention_decode_window(q, kp, vp, 0, table, start, qp,
+                                              wk, wv, 4))
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = calls()
+    graph.replay()
     torch.cuda.synchronize()
-    outs = [[], []]
-    for _ in range(20):
-        for s, out in zip(streams, outs):
-            with torch.cuda.stream(s):
-                out.append(paged_attention_decode_layered(
-                    args[0], args[1], args[2], 0, *args[3:]))
-    torch.cuda.synchronize()
-    for out in outs:
-        for got in out:
-            np.testing.assert_allclose(_np(got.cpu()), _np(want), rtol=0,
-                                       atol=0.1 * float(want.float().pow(2)
-                                                        .mean().sqrt()))
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_decode_calls_in_flight_on_two_streams(cuda_device):
+    """Splitting bf16 calls in flight on two streams at once, each stream
+    with its own queries, at full heads and at tp=8's: every call folds
+    its own splits (no state is shared between calls)."""
+    lengths = [3000, 2600, 3900, 700]
+    d = cuda_device
+    for KV in (8, 1):
+        q, kp, vp, table = _decode_pool(4, 128, 64,
+                                        [-(-n // 64) for n in lengths],
+                                        KV=KV, L=1)
+        q2 = torch.flip(q, dims=[0]).contiguous()
+        ln = torch.tensor(lengths, dtype=torch.int32)
+        wants = [paged_attention_decode_layered(x, kp, vp, 0, table, ln)
+                 for x in (q, q2)]
+        kd, vd, td, lnd = (t.to(d) for t in (kp, vp, table, ln))
+        qs = [q.to(d), q2.to(d)]
+        paged_attention_decode_layered(qs[0], kd, vd, 0, td, lnd)  # plan
+        streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+        outs = [[], []]
+        for _ in range(20):
+            for s, x, out in zip(streams, qs, outs):
+                with torch.cuda.stream(s):
+                    out.append(paged_attention_decode_layered(x, kd, vd, 0,
+                                                              td, lnd))
+        torch.cuda.synchronize()
+        for want, out in zip(wants, outs):
+            limit = 0.1 * float(want.float().pow(2).mean().sqrt())
+            for got in out:
+                np.testing.assert_allclose(_np(got.cpu()), _np(want),
+                                           rtol=0, atol=limit)
 
 
 @pytest.mark.cuda
 def test_cuda_decode_bf16_shape_set_matches_the_kernel(cuda_device):
-    """The wrapper's bf16 decode set (decode_route, DECODE_MAX_SPLITS) is
-    the set the C side takes on route 1: shapes inside get an occupancy
-    answer, shapes outside are refused, and so is a split count past
-    DECODE_MAX_SPLITS."""
+    """The wrapper's bf16 decode set (decode_route,
+    DECODE_BF16_MAX_SPLITS) is the set the C side takes on route 1:
+    shapes inside get a cluster occupancy answer (at least one cluster of
+    every size the plan picks from), shapes outside are refused, and so
+    are a cluster past DECODE_BF16_MAX_SPLITS and float32."""
     import ctypes
 
     lib = ops._lib()
-    blocks = ctypes.c_int(0)
-    for dtype in (torch.bfloat16, torch.float32):
-        for hd in (32, 64, 96, 128, 256, 512):
-            for ps in (8, 16, 32, 48, 64, 128, 256):
-                for G in (1, 3, 8, 9):
-                    route = ops.decode_route(dtype, 2 * G, 2, ps, hd)
-                    err = lib.dyn_paged_decode_resident(
-                        1, ops._DTYPES[dtype], 2 * G, 2, ps, hd,
-                        ctypes.byref(blocks))
-                    assert (err == 0) == (route == 1), (dtype, hd, ps, G)
+    n = ctypes.c_int(0)
+    for hd in (32, 64, 96, 128, 256, 512):
+        for ps in (8, 16, 32, 48, 64, 128, 256):
+            for G in (1, 3, 8, 9):
+                route = ops.decode_route(torch.bfloat16, 2 * G, 2, ps, hd)
+                err = lib.dyn_paged_decode_clusters(2 * G, 2, ps, hd, 1,
+                                                    ctypes.byref(n))
+                assert (err == 0) == (route == 1), (hd, ps, G)
+                assert ops.decode_route(torch.float32, 2 * G, 2, ps, hd) == 0
+    for hd in ops.DECODE_BF16_HEAD_DIMS:
+        for S in ops.DECODE_CLUSTER_SIZES:
+            n.value = 0
+            assert lib.dyn_paged_decode_clusters(32, 8, 64, hd, S,
+                                                 ctypes.byref(n)) == 0
+            assert n.value >= 1, (hd, S)
     scratch = torch.zeros(16, device=cuda_device).data_ptr()
-    for splits in (ops.DECODE_MAX_SPLITS, ops.DECODE_MAX_SPLITS + 1):
+    S = ops.DECODE_BF16_MAX_SPLITS
+    for dtype, splits in ((1, S), (1, S + 1), (0, S)):
         # B = 0: the entry checks its arguments and launches nothing
         err = lib.dyn_paged_attention_decode(
-            1, 1, *[scratch] * 3, 0, *[scratch] * 9, 0, 8, 2, 4, 64, 128, 256,
-            splits, 1.0, 0.0, torch.cuda.current_stream().cuda_stream)
-        assert (err == 0) == (splits == ops.DECODE_MAX_SPLITS)
+            1, dtype, *[scratch] * 3, 0, *[scratch] * 8, 0, 8, 2, 4, 64, 128,
+            256, splits, 1.0, 0.0, torch.cuda.current_stream().cuda_stream)
+        assert (err == 0) == (dtype == 1 and splits <= S)
 
 
 @pytest.mark.cuda
@@ -494,10 +617,9 @@ def test_cuda_graph_window_matches_eager(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_cuda_graph_launch_on_an_unwarmed_stream_raises(cuda_device):
-    """The graphs run on the stream they were warmed and captured on (the
-    bf16 decode kernel's arrival counters of that stream are baked in):
-    a launch from any other stream fails loudly, as the decode wrapper
-    does for a capture of a stream it never ran on."""
+    """The graphs run on the stream they were warmed and captured on,
+    where the caller stages their inputs and reads their outputs: a
+    launch from any other stream fails loudly."""
     from dynamo_tpu_torch.engine.cuda_graphs import DecodeGraphs
 
     params, kk, vv, window, inputs = _window_case(cuda_device,

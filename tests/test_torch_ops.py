@@ -374,6 +374,12 @@ def test_decode_work_counts_the_mask(case):
     assert moved == (2 * positions * KV * hd + 2 * rows * H * hd) * el
 
 
+# clusters of 1/2/4/8 bf16 decode blocks an H100 holds at once at head_dim
+# 128 (cudaOccupancyMaxActiveClusters: 264 blocks, but a cluster's blocks
+# share one GPC, so 30 clusters of 8 rather than 33)
+H100_CLUSTERS = {1: 264, 2: 132, 4: 62, 8: 30}
+
+
 @pytest.mark.parametrize("B,KV,P,resident", [
     (4, 8, 64, 2),     # the served window: 8 splits, most rows short
     (32, 8, 64, 2),    # rows x kv heads fill the wave: no split
@@ -381,17 +387,40 @@ def test_decode_work_counts_the_mask(case):
     (1, 1, 3, 4),      # fewer pages than the wave could take
     (40, 8, 4, 1),     # more (row, kv head) blocks than resident slots
     (2, 4, 16, 3),
+    (4, 4, 64, 2),     # the served window at tp=2's heads
+    (4, 2, 64, 2),     # ... tp=4's
+    (4, 1, 64, 2),     # ... tp=8's
+    (8, 1, 64, 2),     # the long-row guard at tp=8's heads
 ])
-def test_decode_split_plan_covers_every_page_once(B, KV, P, resident):
-    """The split plan from host-known shapes: the grid stays within one
-    wave of resident blocks (or is one block per (row, kv head) when those
-    alone pass it), a wave with room gets more splits, and there are never
-    more splits than page-table entries, so every split of a full row has
-    a page. That the kernel's cut of a row into these splits covers each
-    page once is checked on the card (tests/test_torch_kernels.py: rows
-    with more pages than splits and with fewer, held to a limit that a
-    row one 16-key block short exceeds)."""
+@pytest.mark.parametrize("route", [0, 1])
+def test_decode_split_plan_covers_every_page_once(route, B, KV, P, resident):
+    """The split plans from host-known shapes. The generic kernel's
+    (route 0): the grid stays within one wave of resident blocks (or is
+    one block per (row, kv head) when those alone pass it), a wave with
+    room gets more splits, and there are never more splits than
+    page-table entries, so every split of a full row has a page. The bf16
+    kernel's (route 1): one cluster per (row, kv head), a size of
+    DECODE_CLUSTER_SIZES no larger than the page table, all clusters
+    resident at once (unless the pairs alone pass the card), and the
+    next size up would not fit. That the kernels' cut of a row into these
+    splits covers each page once is checked on the card
+    (tests/test_torch_kernels.py: rows with more pages than splits and
+    with fewer, held to a limit that a row one 16-key block short
+    exceeds)."""
     sms = 132
+    pairs = B * KV
+    if route == 1:
+        clusters = (H100_CLUSTERS if resident == 2 else
+                    {S: sms * resident // S for S in ops.DECODE_CLUSTER_SIZES})
+        S = ops.decode_cluster_plan(B, KV, P, clusters)
+        assert S in ops.DECODE_CLUSTER_SIZES
+        assert S <= min(P, ops.DECODE_BF16_MAX_SPLITS)
+        assert S == 1 or pairs <= clusters[S]
+        if 2 * S <= min(P, ops.DECODE_BF16_MAX_SPLITS):  # the wave set S:
+            assert pairs > clusters[2 * S]  # the next size would not fit
+        if KV <= 2 and B <= 8 and P >= 8:  # few pairs: a whole cluster
+            assert S == ops.DECODE_BF16_MAX_SPLITS
+        return
     S = ops.decode_split_plan(B, KV, P, sms, resident)
     slots = sms * resident
     assert 1 <= S <= min(P, ops.DECODE_MAX_SPLITS)
@@ -400,6 +429,22 @@ def test_decode_split_plan_covers_every_page_once(B, KV, P, resident):
         assert S >= 2  # a wave with room for more splits gets them
     if S < min(P, ops.DECODE_MAX_SPLITS):  # the wave, not P, set S:
         assert B * KV * 2 * S > slots      # no half of it left idle
+
+
+def test_decode_cluster_plan_at_the_served_shapes():
+    """The bf16 plan on an H100 at the 8B widths' served 4-row window
+    (64-page bucket): tp=1's 32 (row, kv head) pairs pass the 30
+    resident clusters of 8, so 4 splits; tp 2, 4 and 8 take whole
+    clusters of 8, as does the long-row guard (8 rows, 1 kv head); 8
+    rows at full heads take 2 (64 pairs pass the 62 clusters of 4);
+    32 rows do not split."""
+    plan = ops.decode_cluster_plan
+    assert plan(4, 8, 64, H100_CLUSTERS) == 4
+    assert [plan(4, 8 // tp, 64, H100_CLUSTERS) for tp in (2, 4, 8)] == [8] * 3
+    assert plan(8, 1, 64, H100_CLUSTERS) == 8
+    assert plan(8, 8, 64, H100_CLUSTERS) == 2
+    assert plan(32, 8, 64, H100_CLUSTERS) == 1
+    assert plan(4, 1, 3, H100_CLUSTERS) == 2  # no more splits than pages
 
 
 @pytest.mark.parametrize("dtype,hd,ps,G,route", [

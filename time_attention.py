@@ -10,7 +10,12 @@ pool of 512 pages and queries from a seed:
   fourth chunk of a 2048-token prompt (positions 1536-2047, table of 64);
 - decode, window form, the last step of a K = 4 window (table of 64):
   the served window (4 rows of 40, 64, 86 and 656 positions), 32 rows of
-  520 positions, 8 rows of 3,968 positions.
+  520 positions, 8 rows of 3,968 positions;
+- the same through the tensor-parallel wrapper
+  (paged_attention_decode_window_sharded) at the heads one rank holds at
+  tp 2, 4 and 8 (32/tp q heads, 8/tp kv heads; a pool of those kv
+  heads): the served window, and at tp=8 the long-row guard, 8 rows of
+  3,968 positions.
 Each shape is timed three times (CUDA graph of 50 launches,
 chip_smoke.time_ms) and held to its plain version (bf16 tolerance).
 Prints one JSON line. The script uses only what earlier trees of the
@@ -27,6 +32,11 @@ import sys
 
 DECODE_SHAPES = (("served", [40, 64, 86, 656]), ("rows32", [520] * 32),
                  ("long8", [3968] * 8))
+# (name, tp, contexts): the sharded wrapper at one rank's heads
+SHARDED_SHAPES = (("served_tp2", 2, [40, 64, 86, 656]),
+                  ("served_tp4", 4, [40, 64, 86, 656]),
+                  ("served_tp8", 8, [40, 64, 86, 656]),
+                  ("long8_tp8", 8, [3968] * 8))
 
 
 def decode_case(kp, vp, ctx, B: int, P: int, K: int, H: int, g):
@@ -60,8 +70,10 @@ def main() -> None:
 
     from chip_smoke import excess, fail, time_ms
     from dynamo_tpu_torch.ops.paged_attention import (
-        NO_WINDOW, paged_attention_decode_window, paged_attention_prefill,
+        NO_WINDOW, paged_attention_decode_window,
+        paged_attention_decode_window_sharded, paged_attention_prefill,
         prefill_reference, window_reference)
+    from dynamo_tpu_torch.parallel.mesh import MeshSpec
 
     if not torch.cuda.is_available():
         fail("no CUDA GPU available")
@@ -96,6 +108,24 @@ def main() -> None:
         run = lambda: paged_attention_decode_window(  # noqa: E731
             q, kp, vp, 0, table, start, qp, wk, wv, K)
         over = excess(run(), window_reference(q, kp, vp, 0, table, start, qp,
+                                              wk, wv, K, hd ** -0.5),
+                      2e-2, 1e-2)
+        if over > 0:
+            fail(f"decode {name}: off its plain version by {over:.3g}")
+        res[f"decode_{name}"] = [time_ms(run, iters=50) for _ in range(3)]
+    for name, tp, ctx in SHARDED_SHAPES:
+        kv, h = KV // tp, H // tp
+        kl = torch.randn(1, N, kv, ps, hd, generator=g,
+                         device=dev).to(torch.bfloat16)
+        vl = torch.randn(1, N, kv, ps, hd, generator=g,
+                         device=dev).to(torch.bfloat16)
+        B, P = len(ctx), 64
+        q, table, start, qp, wk, wv = decode_case(kl, vl, ctx, B, P, K, h, g)
+        mesh = MeshSpec(model=tp).view(0)
+        run = lambda: paged_attention_decode_window_sharded(  # noqa: E731
+            q, kl, vl, 0, table, start, qp, wk, wv, K, mesh=mesh,
+            kv_heads=KV)
+        over = excess(run(), window_reference(q, kl, vl, 0, table, start, qp,
                                               wk, wv, K, hd ** -0.5),
                       2e-2, 1e-2)
         if over > 0:
