@@ -32,7 +32,12 @@ Phases; any failure exits non-zero before the result line:
    (replays count the launches their capture recorded), reset just
    before and read just after, must be above 0 and equal to the graph
    replays times the calls one replay makes (no eager dispatch), and
-   every decode call must have taken the bf16 decode kernel; then prefill
+   every decode call must have taken the bf16 decode kernel. The four
+   requests then go again one at a time, greedy, with logprobs and the
+   top 5 (the logprobs variants warmup() captured by default): every
+   token's logprob must be the top-1 logprob, and each logprob and top
+   value within LOGPROB_LIMIT of the plain path teacher-forced with the
+   served tokens; these results are phase 8's reference. Then prefill
    and one teacher-forced decode window on the kernel path against the
    plain path (logits of every step, K/V of every window position), with
    two injected faults as controls that must fail it; then one 8B window
@@ -42,7 +47,8 @@ Phases; any failure exits non-zero before the result line:
    replay against the same chunks called eagerly (a first chunk of 512
    tokens; a batch of 8 rows of 64 with three real rows, one of them
    sampled): sampled tokens, logits and the whole K/V pools bitwise
-   equal;
+   equal; the same window and chunks again in the logprobs variants,
+   their logprobs bitwise equal too;
 5. time each kernel at the serving shapes beside its bound, its plain
    version and scaled_dot_product_attention on the same dense work, and
    hold it against its plain version there (bf16 tolerance): decode in
@@ -77,7 +83,29 @@ Phases; any failure exits non-zero before the result line:
    must show no capture after warmup, mesh model=2, every kernel call
    from a graph replay on the bf16 routes, and the same counts on both
    ranks. Every rank process is killed at the end of the phase. Its
-   times are two ranks sharing one card, not a TP speed.
+   times are two ranks sharing one card, not a TP speed;
+8. the seed-0 8B weights at full width and depth written as a BF16
+   HuggingFace checkpoint (four shards, their index and config.json, no
+   tokenizer files: the byte tokenizer serves), by this script's own
+   writer, into a temporary directory; loaded by
+   ``dynamo_tpu_torch/models/loader.py`` (seconds, GB/s and peak host
+   RSS printed) and held bitwise against the seed-0 params; then served
+   with ``python -m dynamo_tpu_torch.run --model-path``: at tp=1 the
+   four phase-4 requests one at a time must give phase 4's results
+   bitwise (text, every logprob and top value: the same tokens), and at
+   tp=2 (two launcher ranks, each loading its shard, with its load line)
+   tp=1's tokens wherever tp=1's top-2 margin exceeds twice
+   LOGPROB_LIMIT; each launch's serving summaries checked as phase 7's;
+9. an engine on the loaded weights warmed with ``warmup_penalties``: the
+   plain and the penalised window variants over every bucket (graph pool
+   MiB by variant printed), the penalised window's replay bitwise equal
+   to its eager call, with the three penalties and logit_bias and with
+   logit_bias alone over a state left unrebuilt; repetition, frequency and
+   presence penalties served over HTTP in one batch, then logit_bias +100
+   alone: the biased request emits the token at every step, the others'
+   greedy tokens agree with the plain path's penalised argmax where the
+   margin exceeds twice LOGPROB_LIMIT, and nothing is captured after
+   warmup.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -118,7 +146,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# the monotonic time each phase began ("phase N" -> seconds)
+PHASE_START = {}
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):
+        PHASE_START[msg.split(":", 1)[0]] = time.monotonic()
     print(msg, flush=True)
 
 
@@ -405,15 +439,21 @@ class TapEngine:
         self.tokens = {}
         self.times = {}
         self.prompt_len = {}
+        self.prompt_ids = {}
+        self.logprobs = {}   # request id -> [(logprob, {id: logprob})]
 
     async def generate(self, request, context):
         self.prompt_len[context.id] = len(request.token_ids)
+        self.prompt_ids[context.id] = list(request.token_ids)
         toks = self.tokens.setdefault(context.id, [])
         times = self.times.setdefault(context.id, [])
         async for out in self.engine.generate(request, context):
             if out.token_ids:
                 toks.extend(out.token_ids)
                 times.append((time.monotonic(), len(out.token_ids)))
+            if out.logprobs:
+                self.logprobs.setdefault(context.id, []).extend(
+                    zip(out.logprobs, out.top_logprobs))
             yield out
 
 
@@ -559,7 +599,7 @@ async def serve_and_check(engine, mdc):
         return rids, wall, stages
 
     ops.reset_launch_counts()
-    replays0 = (engine.prefill_graphs.replays, engine.graphs.replays)
+    replays0 = engine.graph_replays()
     async with aiohttp.ClientSession() as s:
         async with s.get(f"{base}/health") as r:
             if r.status != 200:
@@ -581,10 +621,14 @@ async def serve_and_check(engine, mdc):
         # the same greedy request twice, alone: identical tokens
         for rid in ("r4-repeat", "r5-repeat"):
             await chat(s, rid, "Tell me about paged attention.", 32, False)
+    # the four requests again, one at a time, with logprobs (top 5): the
+    # warmed logprobs variants; phase 8's reference
+    solo = await solo_logprobs(base, mdc.name, "solo")
     launches = dict(ops.LAUNCHES)
     route_launches = dict(ops.DECODE_ROUTE_LAUNCHES)
-    replays = (engine.prefill_graphs.replays - replays0[0],
-               engine.graphs.replays - replays0[1])
+    replayed = engine.graph_replays()
+    replays = (replayed["prefill"] - replays0["prefill"],
+               replayed["decode_window"] - replays0["decode_window"])
     await svc.stop()
     await engine.stop()
     compiles = engine.stats()["post_warmup_compiles_total"]
@@ -600,6 +644,11 @@ async def serve_and_check(engine, mdc):
             fail(f"{rid}: no tokens")
         if results.get(rid) not in ("length", "stop"):
             fail(f"{rid}: finish_reason {results.get(rid)!r}")
+    for i, res in enumerate(solo):
+        rid = f"solo{i}"
+        if len(res["lp"]) != len(tap.tokens.get(rid, ())):
+            fail(f"{rid}: {len(res['lp'])} logprob entries for "
+                 f"{len(tap.tokens.get(rid, ()))} tokens")
     if tap.tokens["r4-repeat"] != tap.tokens["r5-repeat"]:
         fail("repeated greedy request gave different tokens")
     for name, n in launches.items():
@@ -661,20 +710,159 @@ async def serve_and_check(engine, mdc):
         "route_launches": route_launches,
         "replays": {"prefill": replays[0], "decode_window": replays[1]},
         "post_warmup_compiles_total": compiles,
-        "decode_graphs": len(engine.graphs.buckets),
-        "prefill_graphs": len(engine.prefill_graphs.buckets),
+        "decode_graphs": sum(len(gs.buckets) for gs in
+                             engine.decode_variants.values()),
+        "prefill_graphs": sum(len(gs.buckets) for gs in
+                              engine.prefill_variants.values()),
         "graph_capture_s": {
-            "decode": round(engine.graphs.capture_seconds, 3),
-            "prefill": round(engine.prefill_graphs.capture_seconds, 3)},
+            f"{gs.kind}, {gs.variant}": round(gs.capture_seconds, 3)
+            for gs in (*engine.decode_variants.values(),
+                       *engine.prefill_variants.values())},
         # the graph pool's own segments, by the captures that added them
-        # (decode first, then prefill)
-        "graph_pool_mib": {
-            "decode": round(engine.graphs.pool_bytes / 2**20, 1),
-            "prefill": round(engine.prefill_graphs.pool_bytes / 2**20, 1)},
+        # (each decode variant, then each prefill variant)
+        "graph_pool_mib": {k: round(v, 1)
+                           for k, v in engine.graph_pool_mib().items()},
+        "solo_rids": [f"solo{i}" for i in range(len(solo))],
     }
     ttft_report = {"cold": cold, "warm": warm, "warm_spread": spread,
                    "prefix_hit": hit, "bucket_cost_sampled": profiled}
-    return served, ttft_report
+    reference = {"http": solo, "tap": {
+        rid: {"prompt_ids": tap.prompt_ids[rid], "tokens": tap.tokens[rid],
+              "logprobs": tap.logprobs.get(rid, [])}
+        for rid in served["solo_rids"]}}
+    return served, ttft_report, reference
+
+
+# phase 4's four requests (kind, prompt, max tokens), sent one at a time;
+# the long prompt starts with a letter no batch used, so it never hits the
+# prefix cache (its pages are computed as a fresh server computes them)
+SOLO = [("chat", "Tell me about paged attention.", 32),
+        ("chat", "S" + ("The quick brown fox jumps over the lazy dog. "
+                        * 14)[1:600], 32),
+        ("chat", "What is an H100?", 24),
+        ("completion", "Once upon a time", 24)]
+SOLO_TOP = 5
+
+
+async def solo_logprobs(base: str, name: str, prefix: str) -> list:
+    """:data:`SOLO`'s requests against the server at ``base``, one at a
+    time (each decodes alone, in the 1-row buckets, so two servers of the
+    same weights and kernels give the same tokens), greedy, with
+    logprobs and the top :data:`SOLO_TOP`: per request its finish, text,
+    chosen-token logprobs and the top values (completions key their top
+    entries by token string, so ids that decode alike keep one)."""
+    import aiohttp
+
+    out = []
+    async with aiohttp.ClientSession() as s:
+        for i, (kind, prompt, n) in enumerate(SOLO):
+            hdrs = {"X-Request-Id": f"{prefix}{i}"}
+            if kind == "chat":
+                url, body = "/v1/chat/completions", {
+                    "model": name, "max_tokens": n, "logprobs": True,
+                    "top_logprobs": SOLO_TOP,
+                    "messages": [{"role": "user", "content": prompt}]}
+            else:
+                url, body = "/v1/completions", {
+                    "model": name, "prompt": prompt, "max_tokens": n,
+                    "logprobs": SOLO_TOP}
+            async with s.post(base + url, json=body, headers=hdrs) as r:
+                if r.status != 200:
+                    fail(f"{prefix}{i}: HTTP {r.status}: {await r.text()}")
+                c = (await r.json())["choices"][0]
+            if kind == "chat":
+                entries = c["logprobs"]["content"]
+                res = {"text": c["message"]["content"],
+                       "lp": [e["logprob"] for e in entries],
+                       "top": [[t["logprob"] for t in e["top_logprobs"]]
+                               for e in entries]}
+            else:
+                lp = c["logprobs"]
+                res = {"text": c["text"], "lp": lp["token_logprobs"],
+                       "top": [sorted(d.values(), reverse=True)
+                               for d in lp["top_logprobs"]]}
+            res["finish"] = c["finish_reason"]
+            if res["finish"] not in ("length", "stop") or not res["lp"]:
+                fail(f"{prefix}{i}: finish {res['finish']!r}, "
+                     f"{len(res['lp'])} logprob entries")
+            out.append(res)
+    return out
+
+
+# logprobs of the served path against the plain path (check_logprobs):
+# the bf16 tolerance of the window logits (PATH_LIMITS), since a logprob
+# is a logit less the row's log-sum-exp
+LOGPROB_LIMIT = 0.25
+# tp=2 against tp=1 on the same weights (compare_tp_solo,
+# tp_teacher_forced): three bf16 ulps of a logit in [4, 8), where the
+# seed-0 8B's logits lie; on an H100 80GB HBM3 (700 W) the two differed
+# by 0 to 1 ulp (0.031) at every step of the same token (PERF.md)
+TP_LOGPROB_LIMIT = 0.1
+
+
+def plain_logits(params, cfg, dev, ids: list):
+    """Logits [len(ids), V] at every position of one sequence, by one
+    forward of the plain path (the gather attention, no kernel) over
+    fresh pools."""
+    import torch
+
+    from dynamo_tpu_torch.models import llama as tl
+
+    T, ps = len(ids), 64
+    npg = -(-T // ps)
+    kv_k, kv_v = tl.init_kv_cache(cfg, tl.KVCacheSpec(npg + 1, ps),
+                                  device=dev)
+    pos = torch.arange(T, device=dev, dtype=torch.int32)
+    table = torch.arange(1, npg + 1, device=dev, dtype=torch.int32)
+    slots = table[pos // ps] * ps + pos % ps
+    h, _, _ = tl.forward(params, cfg,
+                         torch.tensor([ids], device=dev, dtype=torch.int32),
+                         pos[None], kv_k, kv_v, table[None], slots[None],
+                         use_kernels=False)
+    return tl.project_logits(params, cfg, h[0])
+
+
+def check_logprobs(engine, cfg, dev, reference) -> dict:
+    """Phase 4's logprobs requests (greedy, top 5): every token's logprob
+    is the top-1 logprob (the greedy token is the argmax), and each
+    token's logprob and top values are within LOGPROB_LIMIT of the plain
+    path's, teacher-forced with the served tokens."""
+    import torch
+
+    out = {}
+    worst = 0.0
+    for rid, ref in reference["tap"].items():
+        toks, entries = ref["tokens"], ref["logprobs"]
+        if len(entries) != len(toks):
+            fail(f"{rid}: {len(entries)} logprob entries for {len(toks)} "
+                 f"tokens")
+        P = len(ref["prompt_ids"])
+        with torch.no_grad():
+            logp = torch.log_softmax(plain_logits(
+                engine.params, cfg, dev, ref["prompt_ids"] + toks[:-1])[
+                    P - 1:].float(), dim=-1)
+        top = torch.topk(logp, SOLO_TOP).values.cpu()
+        chosen = logp.gather(1, torch.tensor(toks, device=dev)[:, None])[
+            :, 0].cpu()
+        not_top1, err = 0, 0.0
+        for j, (lp, tops) in enumerate(entries):
+            if abs(lp - max(tops.values())) > 1e-6:
+                not_top1 += 1
+            err = max(err, abs(lp - float(chosen[j])), *(
+                abs(a - float(b)) for a, b in zip(
+                    sorted(tops.values(), reverse=True), top[j])))
+        out[rid] = {"tokens": len(toks), "max_abs_err": err,
+                    "not_top1": not_top1}
+        worst = max(worst, err)
+        if not_top1:
+            fail(f"{rid}: {not_top1} greedy tokens whose logprob is not the "
+                 f"top-1 logprob")
+    log(f"  logprobs vs the plain path: {json.dumps(out)} (limit "
+        f"{LOGPROB_LIMIT})")
+    if worst > LOGPROB_LIMIT:
+        fail(f"served logprobs differ from the plain path by {worst:.4g} > "
+             f"{LOGPROB_LIMIT}")
+    return out
 
 
 # Limits of the served-model check (check_paths), set from readings on an
@@ -836,16 +1024,26 @@ def check_paths(engine, cfg, dev) -> tuple:
              "limits": PATH_LIMITS}, (kern[0].cpu(), kern[1].cpu()))
 
 
-def check_graph_window(engine, cfg, dev) -> dict:
+def check_graph_window(engine, cfg, dev, topn: int = 0,
+                       form: int = 0, counts: bool = True) -> dict:
     """One fused decode window of the served 8B engine by graph replay
-    (its warmed bucket of 4 rows x 64 pages) against the same window
-    called eagerly from the same inputs and pools: four rows prefilled to
-    40, 300, 500 and 12 positions, greedy rows and one sampled row (the
-    on-device draw runs inside the graph). Tokens, emitted counts and
-    carry must be identical, the K/V written at the window's positions
-    in every layer within bf16 tolerance (atol 2e-2 + rtol 1e-2)."""
+    (its warmed bucket of 4 rows x 64 pages, in variant (``topn``,
+    ``form``)) against the same window called eagerly from the same
+    inputs and pools: four rows prefilled to 40, 300, 500 and 12
+    positions, greedy rows and one sampled row (the on-device draw runs
+    inside the graph). A penalised variant reads the shared penalty
+    buffers, set here: row 2's logit_bias +100 on token 1234 (which it
+    must then emit at every step) and, with ``counts``, repetition,
+    frequency and presence penalties over a state rebuilt from the rows'
+    prompts; without, neutral penalties over the state as it was left
+    (the engine's logit_bias-only batches). Tokens, emitted counts,
+    carry and the logprobs aux must be
+    identical, the K/V written at the window's positions in every layer
+    within bf16 tolerance (atol 2e-2 + rtol 1e-2)."""
     import torch
 
+    from dynamo_tpu_torch.engine.cuda_graphs import PEN_NONE
+    from dynamo_tpu_torch.engine.sampling import fill_penalty_state
     from dynamo_tpu_torch.models.llama import DROP_SLOT
 
     ecfg = engine.ecfg
@@ -863,8 +1061,29 @@ def check_graph_window(engine, cfg, dev) -> dict:
         slots[b, :n] = table[b, p // ps] * ps + p % ps
     last = torch.tensor([n - 1 for n in lens], dtype=torch.int32)
     i32 = dict(dtype=torch.int32, device=dev)
-    graphs = engine.graphs
+    graphs = engine.decode_set(topn, form)
+    bk = graphs.buckets[(B, P)]
+    if bk.graph is None:
+        fail(f"decode bucket {(B, P)} ({graphs.variant}) has no graph")
     with graphs.stream_ctx():
+        if form != PEN_NONE:
+            bufs = engine.penalty_buffers
+            full = counts
+            f32 = dict(dtype=torch.float32, device=dev)
+            bufs.rep[:B] = torch.tensor([1.0, 1.3, 1.0, 0.8] if full
+                                        else [1.0] * B, **f32)
+            bufs.freq[:B] = torch.tensor([0.0, 0.4, 0.0, 0.2] if full
+                                         else [0.0] * B, **f32)
+            bufs.pres[:B] = torch.tensor([0.0, 0.3, 0.6, 0.0] if full
+                                         else [0.0] * B, **f32)
+            bufs.bias[:B].zero_()
+            bufs.bias[2, 1234] = 100.0
+            bufs.bias[1, 77] = -5.0
+            if full:
+                ids = torch.where(positions >= 0, tokens, -1).to(dev)
+                fill_penalty_state(
+                    bufs.counts[:B], bufs.presence[:B], ids,
+                    torch.tensor([n // 2 for n in lens], **i32))
         logits, _, _ = engine.prefill_fn(
             engine.params, tokens.to(dev), positions.to(dev), engine.kv_k,
             engine.kv_v, table.to(dev), slots.to(dev), last.to(dev))
@@ -887,14 +1106,15 @@ def check_graph_window(engine, cfg, dev) -> dict:
                              (engine.kv_k, engine.kv_v)])
                 for b, n in enumerate(lens) for i in range(K)])
 
-        e_toks, e_n, e_carry, _, _ = engine.decode_multi_fn(
+        e_out = engine.decode_multi_fn(
             engine.params, *inputs[:5], engine.kv_k, engine.kv_v,
-            *inputs[5:], k_steps=K)
+            *inputs[5:], bk.pen, k_steps=K, logprobs_topn=topn)
+        e_toks, e_n, e_carry = e_out[0], e_out[1], e_out[-3]
+        e_aux = e_out[2] if topn else ()
         e_kv = written()
         engine.kv_k.copy_(kk0)
         engine.kv_v.copy_(vv0)
         del kk0, vv0
-        bk = graphs.buckets[(B, P)]
         statics = bk.carry_in + (bk.table, bk.temperature, bk.top_k,
                                  bk.top_p, bk.seeds, bk.eos)
         for dst, src in zip(statics, inputs):
@@ -905,8 +1125,16 @@ def check_graph_window(engine, cfg, dev) -> dict:
     same = {"toks": torch.equal(bk.toks, e_toks),
             "emitted": torch.equal(bk.emitted, e_n),
             "carry": all(torch.equal(a, b)
-                         for a, b in zip(bk.carry, e_carry))}
-    result = {**same, "kv_max_abs_err": max_err(g_kv, e_kv),
+                         for a, b in zip(bk.carry, e_carry)),
+            "aux": all(torch.equal(a, b)
+                       for a, b in zip(bk.aux or (), e_aux))}
+    if form != PEN_NONE and not bool((e_toks[2] == 1234).all()):
+        fail(f"logit_bias +100 on token 1234 did not force row 2's tokens "
+             f"({graphs.variant}): {e_toks[2].tolist()}")
+    result = {"variant": graphs.variant + (
+                  "" if form == PEN_NONE or counts else " (logit_bias only)"),
+              **same,
+              "kv_max_abs_err": max_err(g_kv, e_kv),
               "kv_bitwise": torch.equal(g_kv, e_kv),
               "kv_max_abs": float(e_kv.float().abs().max()),
               "emitted_per_row": e_n.tolist(),
@@ -920,24 +1148,25 @@ def check_graph_window(engine, cfg, dev) -> dict:
     return result
 
 
-def check_graph_prefill(engine, dev) -> dict:
+def check_graph_prefill(engine, dev, topn: int = 0) -> dict:
     """Two 8B prefill chunks and their first-token draws by graph replay
-    (their warmed buckets) against the same chunks called eagerly from
-    the same inputs and pools: a first chunk of 512 tokens alone (1 x 512
-    x 8 pages, page commit), and a batch of 8 rows of 64 (8 x 64 x 8, page
+    (their warmed buckets; with ``topn``, of the variant whose draw also
+    gives its logprobs) against the same chunks called eagerly from the
+    same inputs and pools: a first chunk of 512 tokens alone (1 x 512 x 8
+    pages, page commit), and a batch of 8 rows of 64 (8 x 64 x 8, page
     commit) with three real rows (a third chunk at positions 128-191, a
     row of 40 and a sampled row of 7) and five padding rows. Sampled
-    tokens, logits and the whole K/V pools after the chunk must be
-    bitwise equal (the same kernels on the same inputs)."""
+    tokens, logits, the logprobs aux and the whole K/V pools after the
+    chunk must be bitwise equal (the same kernels on the same inputs)."""
     import numpy as np
     import torch
 
     from dynamo_tpu_torch.engine.cuda_graphs import to_device
-    from dynamo_tpu_torch.engine.sampling import sample_tokens
+    from dynamo_tpu_torch.engine.sampling import logprob_aux, sample_tokens
 
     ecfg = engine.ecfg
     ps = ecfg.page_size
-    graphs = engine.prefill_graphs
+    graphs = engine.prefill_set(topn)
     rng = np.random.RandomState(11)
     # (bucket, rows of (start, length, pages, temperature, top_k, seed))
     cases = {
@@ -977,6 +1206,7 @@ def check_graph_prefill(engine, dev) -> dict:
             e_tok = sample_tokens(e_logits, d["temperature"], d["top_k"],
                                   d["top_p"], d["seeds"], d["steps"],
                                   max_top_k=ecfg.max_top_k)
+            e_aux = logprob_aux(e_logits, e_tok, topn) if topn else ()
             e_k, e_v = engine.kv_k.clone(), engine.kv_v.clone()
             engine.kv_k.copy_(k0)
             engine.kv_v.copy_(v0)
@@ -984,6 +1214,8 @@ def check_graph_prefill(engine, dev) -> dict:
         torch.cuda.synchronize()
         same = {"sampled": torch.equal(bk.sampled, e_tok),
                 "logits": torch.equal(bk.logits, e_logits),
+                "aux": all(torch.equal(a, b)
+                           for a, b in zip(bk.aux or (), e_aux)),
                 "kv": torch.equal(engine.kv_k, e_k)
                 and torch.equal(engine.kv_v, e_v)}
         # the chunk wrote its rows' pages and nothing else
@@ -994,7 +1226,7 @@ def check_graph_prefill(engine, dev) -> dict:
                      "logits_max_abs": float(e_logits.abs().max()),
                      "sampled": bk.sampled.tolist()}
         del k0, v0, e_k, e_v
-        log(f"  graph replay vs eager prefill {name}: "
+        log(f"  graph replay vs eager prefill {name} ({graphs.variant}): "
             f"{json.dumps(out[name])}")
         if not all(same.values()):
             fail(f"graph replay differs from the eager prefill chunk "
@@ -1424,7 +1656,7 @@ def time_local_shapes(dev, ecfg, served) -> dict:
 def tp_worker(rank: int, coordinator: str, out_dir: str) -> None:
     """One rank of the tensor-parallel check (a process of its own): an
     engine of model=TP_RANKS on the 8B weights of seed 0 (this rank's
-    shard), warmed as the launcher warms it; then :func:`path_run` on its
+    shard), its plain variant warmed as the launcher warms it; then :func:`path_run` on its
     shards (eager), :func:`check_graph_window` and
     :func:`check_graph_prefill` (its replayed window and chunks, NCCL
     collectives inside, against the same calls made eagerly on this
@@ -1441,7 +1673,10 @@ def tp_worker(rank: int, coordinator: str, out_dir: str) -> None:
     initialize_multihost(coordinator, TP_RANKS, rank)
     mesh = MeshSpec(model=TP_RANKS).build("cuda")
     cfg = ModelConfig.llama3_8b()
-    engine = TorchEngine(cfg, EngineConfig(), seed=0, mesh=mesh)
+    # the plain variant alone: the rank checks no logprobs window, and at
+    # tp=2 on one card each warm call's collectives cost ~1 s a window
+    engine = TorchEngine(cfg, EngineConfig(warmup_logprobs=False), seed=0,
+                         mesh=mesh)
     engine.warmup()
     dev = mesh.device
     logits, steps, _ = path_run(engine.params, cfg, dev, True, mesh=mesh)
@@ -1520,8 +1755,8 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_env(rank: int) -> dict:
-    """The environment of rank ``rank`` of TP_RANKS: where ranks share a
+def _rank_env(rank: int, ranks: int = TP_RANKS) -> dict:
+    """The environment of rank ``rank`` of ``ranks``: where ranks share a
     card, its own NCCL host id (the launcher's shared_device_env)."""
     import torch
 
@@ -1529,7 +1764,7 @@ def _rank_env(rank: int) -> dict:
 
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    env.update(shared_device_env(rank, TP_RANKS, torch.cuda.device_count()))
+    env.update(shared_device_env(rank, ranks, torch.cuda.device_count()))
     return env
 
 
@@ -1544,7 +1779,7 @@ def _run_ranks(cmds, logs, limit: float, until=None, rank_env=True):
     t0 = time.monotonic()
     try:
         for r, (cmd, path) in enumerate(zip(cmds, logs)):
-            env = _rank_env(r)
+            env = _rank_env(r, len(cmds))
             if not rank_env:
                 env = {k: v for k, v in env.items()
                        if not k.startswith("NCCL_")}
@@ -1716,33 +1951,44 @@ def serve_tp(cfg, out_dir: str, one_command: bool) -> dict:
     given its NCCL host id here), or one command that starts rank 1
     itself (``--tensor-parallel-size 2`` alone; it must set the NCCL host
     ids itself, and say so). The phase-4 requests go over HTTP to rank 0,
-    then SIGTERM to rank 0, which stops rank 1. Each rank's serving
-    summary must show no capture after warmup, mesh model=2, every kernel
-    call from a graph replay (prefill: one per layer of a replayed chunk;
-    decode: one per layer and step of a replayed window), all decode
-    calls on the bf16 route (with a mesh the model calls the kernels
-    only through the sharded wrappers), and the same counts on both
-    ranks."""
+    then SIGTERM to rank 0, which stops rank 1 (:func:`serve_launcher`,
+    whose checks of the ranks' serving summaries apply)."""
+    return serve_launcher(cfg, out_dir, ["--model", "8b"], "llama3-8b-tp2",
+                          TP_RANKS, one_command, _serve_remote)
+
+
+def serve_launcher(cfg, out_dir: str, model_args: list, name: str,
+                   ranks: int, one_command: bool, requests) -> dict:
+    """``ranks`` ranks of the launcher (``model_args`` choose the weights)
+    on the one card, in the one-command form or one process per rank;
+    ``requests(base, name)`` drives rank 0 over HTTP, then SIGTERM to
+    rank 0, which stops the others. Each rank's serving summary must
+    show no capture after warmup, its mesh, every kernel call from a
+    graph replay (prefill: one per layer of a replayed chunk; decode:
+    one per layer and step of a replayed window), all decode calls on the
+    bf16 route (with a mesh the model calls the kernels only through the
+    sharded wrappers), and the same counts on every rank. Each rank's
+    ``checkpoint loaded`` line, when it prints one, is kept."""
     import urllib.request
 
     from dynamo_tpu_torch.engine.torch_engine import EngineConfig
 
     port = _free_port()
     base = [sys.executable, "-m", "dynamo_tpu_torch.run", "in=http",
-            "out=torch", "--model", "8b", "--model-name", "llama3-8b-tp2",
-            "--tensor-parallel-size", str(TP_RANKS), "--http-host",
+            "out=torch", *model_args, "--model-name", name,
+            "--tensor-parallel-size", str(ranks), "--http-host",
             "127.0.0.1", "--http-port", str(port)]
-    form = "one_command" if one_command else "coordinator"
-    if one_command:
+    form = "one_command" if one_command or ranks == 1 else "coordinator"
+    if form == "one_command":
         cmds = [base]
     else:
         coordinator = f"127.0.0.1:{_free_port()}"
         cmds = [base + ["--coordinator", coordinator, "--num-processes",
-                        str(TP_RANKS), "--process-id", str(r)]
-                for r in range(TP_RANKS)]
-    logs = [os.path.join(out_dir, f"tp_serve_{form}_{r}.log")
+                        str(ranks), "--process-id", str(r)]
+                for r in range(ranks)]
+    logs = [os.path.join(out_dir, f"serve_{name}_{form}_{r}.log")
             for r in range(len(cmds))]
-    report = {"form": form}
+    report = {"form": form, "ranks": ranks}
 
     def drive(procs):
         t0 = time.monotonic()
@@ -1762,12 +2008,13 @@ def serve_tp(cfg, out_dir: str, one_command: bool) -> dict:
                 fail(f"tp ranks not serving after 420 s:\n{_tail(logs[0])}")
             time.sleep(1)
         report["start_s"] = time.monotonic() - t0
-        report.update(asyncio.run(_serve_remote(f"http://127.0.0.1:{port}",
-                                                "llama3-8b-tp2")))
+        report.update(asyncio.run(requests(f"http://127.0.0.1:{port}",
+                                           name)))
         procs[0].send_signal(signal.SIGTERM)
 
-    rcs = _run_ranks(cmds, logs, 600, until=drive, rank_env=not one_command)
-    summaries = {}
+    rcs = _run_ranks(cmds, logs, 600, until=drive,
+                     rank_env=form != "one_command")
+    summaries, loads = {}, {}
     for i, path in enumerate(logs):
         with open(path) as f:
             text = f.read()
@@ -1775,12 +2022,17 @@ def serve_tp(cfg, out_dir: str, one_command: bool) -> dict:
             if "serving summary " in line:
                 s = json.loads(line.split("serving summary ", 1)[1])
                 summaries[s["rank"]] = s
+            if "checkpoint loaded " in line:
+                ld = json.loads(line.split("checkpoint loaded ", 1)[1])
+                loads[ld["rank"]] = ld
         if rcs[i] != 0:
             fail(f"tp process {i} exited {rcs[i]}:\n{_tail(path)}")
-        if one_command and "each rank gets its own NCCL_HOSTID" not in text:
+        if (form == "one_command" and ranks > 1
+                and "each rank gets its own NCCL_HOSTID" not in text):
             fail(f"the one-command launcher did not set the ranks' NCCL "
                  f"host ids:\n{_tail(path)}")
-    if sorted(summaries) != list(range(TP_RANKS)):
+    report["loads"] = loads
+    if sorted(summaries) != list(range(ranks)):
         fail(f"tp serving summaries of ranks {sorted(summaries)}:\n"
              f"{_tail(logs[0])}")
     L, K = cfg.num_layers, EngineConfig().decode_steps
@@ -1790,7 +2042,7 @@ def serve_tp(cfg, out_dir: str, one_command: bool) -> dict:
         problems = []
         if s["post_warmup_compiles_total"] != 0:
             problems.append("captures after warmup")
-        if s["mesh_shape"] != "model=2":
+        if s["mesh_shape"] != (f"model={ranks}" if ranks > 1 else "single"):
             problems.append(f"mesh_shape {s['mesh_shape']}")
         if pf <= 0 or win <= 0:
             problems.append("no replay")
@@ -1803,13 +2055,435 @@ def serve_tp(cfg, out_dir: str, one_command: bool) -> dict:
         if problems:
             fail(f"tp rank {r}: {problems}: {json.dumps(s)}")
     first = {k: v for k, v in summaries[0].items() if k != "rank"}
-    for r in range(1, TP_RANKS):
+    for r in range(1, ranks):
         if {k: v for k, v in summaries[r].items() if k != "rank"} != first:
             fail(f"tp rank {r}'s summary differs from rank 0's: "
                  f"{json.dumps(summaries[r])} vs {json.dumps(summaries[0])}")
     report["summaries"] = summaries
-    log(f"  tp=2 served, {form} form (two ranks sharing one card; not a "
-        f"TP speed): {json.dumps(report)}")
+    log(f"  {name} served by {ranks} launcher rank(s), {form} form (ranks "
+        f"sharing one card: not a TP speed): {json.dumps(report)}")
+    return report
+
+
+# ------------------------------------------- checkpoint and penalties
+
+
+def check_warmed(engine, decode_variants, prefill_variants) -> None:
+    """Every bucket of the warmed grid captured in each of the variants
+    warmup() was to warm, and no other variant made; logs each set's
+    capture time and the graph pool it added."""
+    grid = engine.ecfg.warmed_grid()
+    ps = engine.ecfg.page_size
+    want_d = {(B, P) for B in grid["decode_batches"]
+              for P in grid["page_buckets"]}
+    want_p = {(B, T, P, T % ps == 0) for B in grid["prefill_batches"]
+              for T in grid["prefill_lens"] for P in grid["page_buckets"]}
+    if (sorted(engine.decode_variants) != sorted(decode_variants)
+            or sorted(engine.prefill_variants) != sorted(prefill_variants)):
+        fail(f"warmed variants {sorted(engine.decode_variants)} / "
+             f"{sorted(engine.prefill_variants)}, expected "
+             f"{sorted(decode_variants)} / {sorted(prefill_variants)}")
+    for gs, want in ([(g, want_d) for g in engine.decode_variants.values()]
+                     + [(g, want_p)
+                        for g in engine.prefill_variants.values()]):
+        got = {k for k, bk in gs.buckets.items() if bk.graph is not None}
+        log(f"  {len(got)} {gs.kind} graphs ({gs.variant}) captured in "
+            f"{gs.capture_seconds:.1f}s (warm call + capture each), "
+            f"graph pool +{gs.pool_bytes / 2**20:.0f} MiB")
+        if got != want or len(gs.buckets) != len(want):
+            fail(f"{gs.kind} graphs ({gs.variant}) captured {sorted(got)} "
+                 f"!= the warmed grid {sorted(want)}")
+
+
+def hf_tensors(params, cfg) -> list:
+    """(HF name, tensor in the HF layout) of every param: projections
+    back to ``[out, in]``, the stacked layers one by one (the inverse of
+    ``models/loader.py``)."""
+    out = [("model.embed_tokens.weight", params["embed"]),
+           ("model.norm.weight", params["ln_final"])]
+    if "lm_head" in params:
+        out.append(("lm_head.weight", params["lm_head"].T))
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        out += [(pre + "input_layernorm.weight", params["ln_attn"][i]),
+                (pre + "post_attention_layernorm.weight",
+                 params["ln_mlp"][i])]
+        for key, proj in (("wq", "q_proj"), ("wk", "k_proj"),
+                          ("wv", "v_proj"), ("wo", "o_proj")):
+            out.append((pre + f"self_attn.{proj}.weight", params[key][i].T))
+        for key, proj in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                          ("w_down", "down_proj")):
+            out.append((pre + f"mlp.{proj}.weight", params[key][i].T))
+    return out
+
+
+def write_checkpoint(params, cfg, path: str, shards: int = 4) -> int:
+    """The params as a BF16 HF-layout checkpoint under ``path``: ``shards``
+    ``model-0000k-of-0000n.safetensors`` files of about equal size (each
+    an 8-byte little-endian header length, the JSON header padded to 8
+    bytes, then the raw little-endian tensors), their
+    ``model.safetensors.index.json`` and a Llama ``config.json``; no
+    tokenizer files. Returns the bytes of tensor data."""
+    import torch
+
+    tensors = hf_tensors(params, cfg)
+    sizes = [t.numel() * 2 for _, t in tensors]
+    total, per, groups, acc = sum(sizes), sum(sizes) / shards, [[]], 0
+    for item, n in zip(tensors, sizes):
+        if acc >= per * len(groups) and len(groups) < shards:
+            groups.append([])
+        groups[-1].append(item)
+        acc += n
+    weight_map = {}
+    for k, group in enumerate(groups):
+        fname = f"model-{k + 1:05d}-of-{len(groups):05d}.safetensors"
+        header, at = {"__metadata__": {"format": "pt"}}, 0
+        for name, t in group:
+            n = t.numel() * 2
+            header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                            "data_offsets": [at, at + n]}
+            at += n
+            weight_map[name] = fname
+        head = json.dumps(header).encode()
+        head += b" " * (-len(head) % 8)
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(len(head).to_bytes(8, "little"))
+            f.write(head)
+            for _, t in group:
+                host = t.to(torch.bfloat16).contiguous().cpu()
+                f.write(host.view(torch.uint8).numpy().data)
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+            "tie_word_embeddings": cfg.tie_word_embeddings,
+            "max_position_embeddings": 8192, "torch_dtype": "bfloat16"}, f)
+    return total
+
+
+def compare_solo(got: list, ref: list) -> None:
+    """Served SOLO results equal to the reference's: text, finish, every
+    token's logprob and top values, bitwise (the same weights and
+    kernels give the same tokens)."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g != r:
+            fail(f"request {i} ({SOLO[i][0]}) differs from phase 4's: "
+                 f"{json.dumps(g)[:600]} vs {json.dumps(r)[:600]}")
+    if len(got) != len(ref):
+        fail(f"{len(got)} results for {len(ref)} requests")
+
+
+def compare_tp_solo(got: list, ref_tap: dict) -> dict:
+    """tp=2's SOLO results against tp=1's (phase 4, by token id). The
+    byte tokenizer decodes ids past 255 to nothing, so tp=2's tokens show
+    only through their logprobs: a step whose tp=1 top-2 margin exceeds
+    twice TP_LOGPROB_LIMIT has one greedy token at any rounding within
+    the limit, so there tp=2's token must be tp=1's, which its logprob
+    shows (a different token's would lie more than the limit below);
+    past the first closer step the two may part, and are not compared.
+    Returns the steps compared."""
+    compared = []
+    for i, (g, rid) in enumerate(zip(got, sorted(ref_tap))):
+        ref = ref_tap[rid]["logprobs"]
+        n = 0
+        for j, (lp1, tops) in enumerate(ref):
+            vals = sorted(tops.values(), reverse=True)
+            if len(vals) < 2 or vals[0] - vals[1] <= 2 * TP_LOGPROB_LIMIT:
+                break
+            if j >= len(g["lp"]):
+                fail(f"tp=2 request {i} ended at step {j} where tp=1 "
+                     f"goes on with a margin of {vals[0] - vals[1]:.3f}")
+            if abs(g["lp"][j] - lp1) > TP_LOGPROB_LIMIT:
+                fail(f"tp=2 request {i} step {j}: logprob {g['lp'][j]:.4f} "
+                     f"vs tp=1's {lp1:.4f} (margin {vals[0] - vals[1]:.3f}):"
+                     f" another token")
+            n += 1
+        compared.append(n)
+    return {"steps_compared": compared,
+            "steps": [len(g["lp"]) for g in got]}
+
+
+TEACHER_STEPS = 8
+
+
+async def tp_teacher_forced(base: str, name: str, ref_tap: dict) -> dict:
+    """tp=2 along tp=1's greedy path: for the first TEACHER_STEPS tokens
+    of each SOLO request (phase 4, by token id), a completion of one
+    greedy token from the prompt's ids and tp=1's tokens before the
+    step, with logprobs. Its token's logprob, the maximum of tp=2's
+    distribution, must be within TP_LOGPROB_LIMIT of tp=1's top-1
+    logprob at every step, and where tp=1's top-2 margin exceeds twice
+    the limit, that token is tp=1's (compare_tp_solo's argument)."""
+    import aiohttp
+
+    worst, steps, decided = 0.0, 0, 0
+    async with aiohttp.ClientSession() as s:
+        for rid in sorted(ref_tap):
+            ref = ref_tap[rid]
+            for j, (lp1, tops) in enumerate(
+                    ref["logprobs"][:TEACHER_STEPS]):
+                body = {"model": name, "max_tokens": 1, "logprobs": 1,
+                        "prompt": ref["prompt_ids"] + ref["tokens"][:j]}
+                async with s.post(f"{base}/v1/completions", json=body) as r:
+                    if r.status != 200:
+                        fail(f"teacher-forced {rid} step {j}: HTTP "
+                             f"{r.status}: {await r.text()}")
+                    lp2 = (await r.json())["choices"][0]["logprobs"][
+                        "token_logprobs"][0]
+                top1 = max(tops.values())
+                worst = max(worst, abs(lp2 - top1))
+                if abs(lp2 - top1) > TP_LOGPROB_LIMIT:
+                    fail(f"teacher-forced {rid} step {j}: tp=2's greedy "
+                         f"logprob {lp2:.4f} vs tp=1's top-1 {top1:.4f}")
+                vals = sorted(tops.values(), reverse=True)
+                decided += vals[0] - vals[1] > 2 * TP_LOGPROB_LIMIT
+                steps += 1
+    return {"teacher_forced": {"steps": steps, "token_decided": decided,
+                               "max_abs_err": worst}}
+
+
+def checkpoint_phase(cfg, dev, ckpt_dir: str, solo_ref) -> tuple:
+    """Phase 8: the seed-0 8B weights (as the engine draws them) written
+    as a BF16 HF checkpoint in four shards; loaded here by
+    ``models/loader.py`` (timed) and held bitwise against the seed-0
+    params, its config equal to the preset's; then served by the
+    launcher with ``--model-path`` at tp=1, whose SOLO results must equal
+    phase 4's bitwise, and at tp=2 (two ranks, each loading its shard),
+    held against tp=1's (compare_tp_solo). Returns (report, the loaded
+    params)."""
+    import torch
+
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.models.llama import init_params
+    from dynamo_tpu_torch.models.loader import load_params
+    from dynamo_tpu_torch.run import peak_rss_gib
+
+    report = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen)
+    t = time.monotonic()
+    nbytes = write_checkpoint(params, cfg, ckpt_dir)
+    report["write_s"] = time.monotonic() - t
+    report["bytes"] = nbytes
+    report["files"] = sorted(os.listdir(ckpt_dir))
+    if ModelConfig.from_local_path(ckpt_dir) != cfg:
+        fail(f"the checkpoint's config {ModelConfig.from_local_path(ckpt_dir)}"
+             f" is not the preset's {cfg}")
+    torch.cuda.synchronize()
+    rss0 = peak_rss_gib()
+    t = time.monotonic()
+    loaded = load_params(ckpt_dir, device=dev)
+    seconds = time.monotonic() - t
+    report["load"] = {
+        "seconds": seconds, "gb_per_s": nbytes / 1e9 / seconds,
+        "peak_rss_gib_before": rss0, "peak_rss_gib_after": peak_rss_gib()}
+    unequal = sorted(k for k in params
+                     if k not in loaded or not torch.equal(params[k],
+                                                           loaded[k]))
+    if unequal or set(loaded) != set(params):
+        fail(f"loaded params differ from the seed-0 params: {unequal}")
+    report["bitwise_equal_keys"] = len(params)
+    del params
+    torch.cuda.empty_cache()
+    log(f"  wrote {nbytes / 1e9:.2f} GB in {report['write_s']:.1f}s; loaded "
+        f"in {seconds:.2f}s ({report['load']['gb_per_s']:.2f} GB/s), "
+        f"bitwise equal to the seed-0 params ({len(loaded)} tensors); "
+        f"{json.dumps(report)}")
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_logs_")
+    try:
+        for ranks in (1, TP_RANKS):
+            async def requests(base, name, ranks=ranks):
+                out = {"solo": await solo_logprobs(base, name, "ckpt")}
+                if ranks > 1:
+                    out.update(await tp_teacher_forced(base, name,
+                                                       solo_ref["tap"]))
+                return out
+
+            res = serve_launcher(cfg, out_dir, ["--model-path", ckpt_dir],
+                                 f"llama3-8b-ckpt-tp{ranks}", ranks, False,
+                                 requests)
+            if sorted(res["loads"]) != list(range(ranks)):
+                fail(f"tp={ranks}: load lines of ranks "
+                     f"{sorted(res['loads'])}")
+            for r, ld in res["loads"].items():
+                if abs(ld["bytes"] * ranks - nbytes) > nbytes * 0.02:
+                    fail(f"tp={ranks} rank {r} loaded {ld['bytes']} bytes "
+                         f"of {nbytes}: not its shard")
+            if ranks == 1:
+                compare_solo(res["solo"], solo_ref["http"])
+            else:
+                res["vs_tp1"] = compare_tp_solo(res["solo"], solo_ref["tap"])
+            report[f"tp{ranks}"] = res
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return report, loaded
+
+
+PENALTY_REQUESTS = [
+    ("pen-rep", "Tell me about paged attention.", {"repetition_penalty": 2.0}),
+    ("pen-freq", "What is an H100?", {"frequency_penalty": 1.5}),
+    ("pen-pres", "Once upon a time", {"presence_penalty": 2.0}),
+    ("pen-bias", "Tell me about paged attention.",
+     {"logit_bias": {"1000": 100.0}}),
+]
+
+
+def plain_penalties(row, context: list, generated: list, kw: dict):
+    """One row of logits [V] penalised from the definitions, on its own
+    (not the port's ``apply_penalties``): HF's repetition penalty over
+    every token of ``context`` (a positive logit divided by it, a
+    negative one multiplied), then OpenAI's frequency and presence
+    penalties over the ``generated`` tokens (``freq * count + pres``
+    off each), then the logit_bias map added."""
+    import collections
+
+    import torch
+
+    out = row.float().clone()
+    rep = kw.get("repetition_penalty", 1.0)
+    if rep != 1.0:
+        ids = torch.tensor(sorted(set(context)), device=row.device)
+        v = out[ids]
+        out[ids] = torch.where(v > 0, v / rep, v * rep)
+    counts = collections.Counter(generated)
+    if counts:
+        ids = torch.tensor(list(counts), device=row.device)
+        n = torch.tensor(list(counts.values()), device=row.device,
+                         dtype=torch.float32)
+        out[ids] -= (kw.get("frequency_penalty", 0.0) * n
+                     + kw.get("presence_penalty", 0.0))
+    for t, b in (kw.get("logit_bias") or {}).items():
+        out[int(t)] += b
+    return out
+
+
+def check_penalised_tokens(engine, cfg, dev, tap, rid, kw) -> dict:
+    """A penalised greedy request's tokens against the plain path,
+    teacher-forced with the served tokens, each step's logits penalised
+    by :func:`plain_penalties` (the context and generated tokens before
+    the step): at every step the served token's penalised
+    logit must be within LOGPROB_LIMIT of the maximum (a penalty left out
+    would let a repeated token win by its penalty, 1.5 to 2 here), and it
+    must be the maximum wherever the top-2 margin exceeds twice the
+    limit. Also counts the served tokens that repeat an earlier one."""
+    import torch
+
+    prompt, toks = tap.prompt_ids[rid], tap.tokens[rid]
+    with torch.no_grad():
+        logits = plain_logits(engine.params, cfg, dev,
+                              prompt + toks[:-1])[len(prompt) - 1:]
+        decided, worst = 0, 0.0
+        for j, tok in enumerate(toks):
+            pen = plain_penalties(logits[j], prompt + toks[:j], toks[:j], kw)
+            top = torch.topk(pen, 2)
+            short = float(top.values[0] - pen[tok])
+            worst = max(worst, short)
+            if short > LOGPROB_LIMIT:
+                fail(f"{rid} step {j}: served token {tok}'s penalised logit "
+                     f"is {short:.4f} below the plain path's maximum")
+            if float(top.values[0] - top.values[1]) > 2 * LOGPROB_LIMIT:
+                if int(top.indices[0]) != tok:
+                    fail(f"{rid} step {j}: served token {tok}, the plain "
+                         f"path's penalised argmax {int(top.indices[0])}")
+                decided += 1
+    return {"steps": len(toks), "decided": decided,
+            "max_below_max": worst,
+            "repeats": len(toks) - len(set(toks))}
+
+
+def penalty_phase(cfg, dev, params) -> dict:
+    """Phase 9: an engine on ``params`` warmed with warmup_penalties (no
+    logprobs variants): the plain and the penalised window variants
+    captured over every bucket; the penalised window's replay bitwise
+    equal to its eager call, with the three penalties and with logit_bias
+    alone (check_graph_window); then repetition,
+    frequency and presence penalties and a logit_bias of +100 on token
+    1000 served concurrently over HTTP: the biased request emits 1000 at
+    every step, the others' greedy tokens agree with the plain path's
+    penalised argmax (check_penalised_tokens), and nothing is captured
+    after warmup. Reports the graph pool by variant."""
+    import aiohttp
+    import torch
+
+    from dynamo_tpu_torch.engine.cuda_graphs import PEN_FULL
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.run import serve_http
+
+    t = time.monotonic()
+    engine = TorchEngine(cfg, EngineConfig(warmup_penalties=True,
+                                           warmup_logprobs=False),
+                         params=params, device=dev)
+    engine.warmup()
+    check_warmed(engine, [(0, 0), (0, PEN_FULL)], [0])
+    report = {"warmup_s": time.monotonic() - t,
+              "graph_pool_mib": engine.graph_pool_mib(),
+              "penalty_buffers_mib":
+                  engine.penalty_buffers.nbytes / 2**20}
+    log(f"  warmed in {report['warmup_s']:.1f}s; graph pool MiB by "
+        f"variant {json.dumps(report['graph_pool_mib'])}, penalty buffers "
+        f"{report['penalty_buffers_mib']:.0f} MiB")
+    report["graph_window"] = {
+        name: check_graph_window(engine, cfg, dev, form=PEN_FULL,
+                                 counts=counts)
+        for name, counts in (("penalties", True), ("logit_bias", False))}
+    tap = TapEngine(engine)
+    mdc = ModelDeploymentCard(name="llama3-8b-ckpt")
+    mdc.kv_block_size = engine.ecfg.page_size
+
+    async def serve():
+        svc = await serve_http(tap, mdc, "127.0.0.1", 0)
+        base = f"http://127.0.0.1:{svc.port}"
+
+        async def one(s, rid, prompt, kw):
+            body = {"model": mdc.name, "max_tokens": 24, "messages": [
+                {"role": "user", "content": prompt}], **kw}
+            async with s.post(f"{base}/v1/chat/completions", json=body,
+                              headers={"X-Request-Id": rid}) as r:
+                if r.status != 200:
+                    fail(f"{rid}: HTTP {r.status}: {await r.text()}")
+                return (await r.json())["choices"][0]["finish_reason"]
+
+        try:
+            async with aiohttp.ClientSession() as s:
+                # the three count-driven penalties in one batch (the state
+                # rebuilt per dispatch), then logit_bias alone (no rebuild)
+                fins = await asyncio.gather(*[
+                    one(s, rid, prompt, kw)
+                    for rid, prompt, kw in PENALTY_REQUESTS[:3]])
+                return fins + [await one(s, *PENALTY_REQUESTS[3])]
+        finally:
+            await svc.stop()
+            await engine.stop()
+
+    report["finish"] = asyncio.run(serve())
+    report["post_warmup_compiles_total"] = \
+        engine.stats()["post_warmup_compiles_total"]
+    if report["post_warmup_compiles_total"] != 0:
+        fail(f"{report['post_warmup_compiles_total']} captures after warmup "
+             f"in the penalty phase")
+    if tap.tokens["pen-bias"] != [1000] * len(tap.tokens["pen-bias"]) or \
+            not tap.tokens["pen-bias"]:
+        fail(f"logit_bias +100 did not force token 1000: "
+             f"{tap.tokens['pen-bias']}")
+    report["vs_plain"] = {
+        rid: check_penalised_tokens(engine, cfg, dev, tap, rid, kw)
+        for rid, _, kw in PENALTY_REQUESTS}
+    report["tokens"] = {rid: len(t) for rid, t in tap.tokens.items()}
+    report["replays"] = engine.graph_replays()
+    log(f"  penalties served: {json.dumps(report, default=str)}")
+    del engine, tap
+    torch.cuda.empty_cache()
     return report
 
 
@@ -1873,29 +2547,17 @@ def main() -> None:
     t = time.monotonic()
     engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda")
     engine.warmup()
-    grid = engine.ecfg.warmed_grid()
-    ps = engine.ecfg.page_size
-    for gs, want in (
-            (engine.graphs, {(B, P) for B in grid["decode_batches"]
-                             for P in grid["page_buckets"]}),
-            (engine.prefill_graphs, {
-                (B, T, P, T % ps == 0) for B in grid["prefill_batches"]
-                for T in grid["prefill_lens"]
-                for P in grid["page_buckets"]})):
-        got = {k for k, bk in gs.buckets.items() if bk.graph is not None}
-        log(f"  {len(got)} {gs.kind} graphs captured in "
-            f"{gs.capture_seconds:.1f}s (warm call + capture each), "
-            f"graph pool +{gs.pool_bytes / 2**20:.0f} MiB")
-        if got != want or len(gs.buckets) != len(want):
-            fail(f"{gs.kind} graphs captured {sorted(got)} != the warmed "
-                 f"grid {sorted(want)}")
+    # the default engine warms the plain and the logprobs variants
+    topn = engine.ecfg.max_top_logprobs
+    check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
     log(f"  8B engine (32 layers, D=4096, V=128256, bf16, seed 0) built and "
         f"warmed up in {time.monotonic() - t:.1f}s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     mdc = ModelDeploymentCard(name="llama3-8b-random")
     mdc.kv_block_size = engine.ecfg.page_size
-    served, ttft = asyncio.run(serve_and_check(engine, mdc))
+    served, ttft, solo_ref = asyncio.run(serve_and_check(engine, mdc))
     log(f"  served: {json.dumps(served)}")
+    logprobs_check = check_logprobs(engine, cfg, dev, solo_ref)
     for batch_name, stages in (
             ("cold", ttft["cold"]),
             *((f"warm {k + 1}", w) for k, w in enumerate(ttft["warm"])),
@@ -1908,6 +2570,8 @@ def main() -> None:
     paths, tp1_logits = check_paths(engine, cfg, dev)
     graph_window = check_graph_window(engine, cfg, dev)
     graph_prefill = check_graph_prefill(engine, dev)
+    graph_window_lp = check_graph_window(engine, cfg, dev, topn=topn)
+    graph_prefill_lp = check_graph_prefill(engine, dev, topn=topn)
 
     log("phase 5: kernel timings at the serving shapes")
     # the first prefill chunk of the long prompt (r1-stream)
@@ -1937,6 +2601,18 @@ def main() -> None:
         tp_served_one = serve_tp(cfg, tp_dir, one_command=True)
     finally:
         shutil.rmtree(tp_dir, ignore_errors=True)
+
+    log("phase 8: a BF16 HF checkpoint of the seed-0 8B weights, loaded "
+        "and served with --model-path at tp=1 and tp=2")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        checkpoint, loaded = checkpoint_phase(cfg, dev, ckpt_dir, solo_ref)
+        log("phase 9: penalties and logit_bias on an engine warmed with "
+            "warmup_penalties, on the loaded weights")
+        penalties = penalty_phase(cfg, dev, loaded)
+        del loaded
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     # the served tp=2 phase's rank 0 (rank 1 is checked equal): with a
     # mesh every kernel call goes through a sharded wrapper
     rank0 = tp_served["summaries"][0]["launches"]
@@ -1967,7 +2643,12 @@ def main() -> None:
         with open(args.out, "w") as f:
             json.dump({"card": card, "served": served, "ttft": ttft,
                        "paths": paths, "graph_window": graph_window,
-                       "graph_prefill": graph_prefill, "kernels": rows,
+                       "graph_prefill": graph_prefill,
+                       "graph_window_logprobs": graph_window_lp,
+                       "graph_prefill_logprobs": graph_prefill_lp,
+                       "logprobs": logprobs_check,
+                       "checkpoint": checkpoint, "penalties": penalties,
+                       "kernels": rows,
                        "tp_local_errs": {" ".join(k): v for k, v in
                                          local_errs.items()},
                        "tp_local_times": local_times,
@@ -1979,6 +2660,8 @@ def main() -> None:
                                        for k, v in win_errs.items()},
                        "prefill_errs": {" ".join(k): v
                                         for k, v in pf_errs.items()},
+                       "phase_start_s": {k: v - t_start for k, v in
+                                         PHASE_START.items()},
                        "seconds": time.monotonic() - t_start}, f, indent=1)
     for r in rows:
         if r["route"] not in ("cuda", "triton"):

@@ -24,8 +24,17 @@ copy-out around the graphs.
   page-granular commit (``pslots``) when T % page_size == 0, row scatter
   otherwise; the form is part of the key.
 
-Both sets share one stream and one memory pool (the prefill set is built
-over the decode set's). Rules the caller keeps (the engine does):
+A set is one VARIANT of its function, the JAX engine's static
+arguments: a bucket's full key is (variant, shape). A decode variant is
+the logprobs width (``logprobs_topn``: 0, or the engine's
+``max_top_logprobs``; aux = (lp [B, K], top_vals [B, K, n], top_ids
+[B, K, n]) out) and the penalty form (:data:`PENALTY_FORMS`: none, or
+the sampler's penalty tuple), whose inputs are views of one
+:class:`PenaltyBuffers` at the largest batch; a prefill variant is
+whether the first-token draw also gives its logprobs.
+
+Every set shares one stream and one memory pool (each is built over the
+plain decode set's). Rules the caller keeps (the engine does):
 
 - every launch runs on :attr:`stream`, the stream the graphs were warmed
   and captured on, where the caller writes a bucket's static inputs and
@@ -73,9 +82,15 @@ import torch
 from ..models.llama import DROP_SLOT
 from ..ops import paged_attention as ops
 from .jit_fence import CompileFence
-from .sampling import sample_tokens
+from .sampling import fill_penalty_state, logprob_aux, sample_tokens
 
 _COUNTS = (ops.LAUNCHES, ops.DECODE_ROUTE_LAUNCHES)
+
+# a decode window's penalty form: none, or the sampler's penalty tuple
+# (the [B, V] counts and presence, the per-row rep, freq and pres and the
+# [B, V] logit_bias rows), for a batch with any penalty or logit_bias
+PEN_NONE, PEN_FULL = 0, 1
+PENALTY_FORMS = {PEN_NONE: "no penalties", PEN_FULL: "penalties"}
 
 
 def upload(dst: torch.Tensor, a: np.ndarray) -> None:
@@ -250,6 +265,74 @@ class _GraphSet:
 
 
 @dataclass(eq=False)
+class PenaltyBuffers:
+    """The penalised dispatches' sampler inputs at the largest batch,
+    shared by every penalised decode bucket and the prefill's penalised
+    first-token draw (each reads views of its first B rows; one dispatch
+    runs at a time, on one stream): the (counts, presence) state that
+    :meth:`fill` rebuilds from the rows' token ids, and the per-request
+    parameters that :meth:`upload` sets. A row whose rep, freq and pres
+    are neutral reads nothing of the state (``apply_penalties`` gives
+    exactly its logits plus its bias), so a batch without a count-driven
+    penalty skips :meth:`fill` and leaves the state as it was. Neutral at
+    rest, so a warm call over them changes no logit."""
+
+    counts: torch.Tensor     # [Bmax, V] int32, generated-token counts
+    presence: torch.Tensor   # [Bmax, V] int8, context presence
+    rep: torch.Tensor        # [Bmax] float32
+    freq: torch.Tensor       # [Bmax] float32
+    pres: torch.Tensor       # [Bmax] float32
+    bias: torch.Tensor       # [Bmax, V] float32, logit_bias rows
+
+    @classmethod
+    def make(cls, rows: int, vocab: int,
+             device: torch.device) -> "PenaltyBuffers":
+        def full(shape, value, dtype):
+            return torch.full(shape, value, dtype=dtype, device=device)
+
+        f32 = torch.float32
+        return cls(counts=full((rows, vocab), 0, torch.int32),
+                   presence=full((rows, vocab), 0, torch.int8),
+                   rep=full((rows,), 1.0, f32), freq=full((rows,), 0.0, f32),
+                   pres=full((rows,), 0.0, f32),
+                   bias=full((rows, vocab), 0.0, f32))
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.nbytes for t in (self.counts, self.presence, self.rep,
+                                      self.freq, self.pres, self.bias))
+
+    def penalties(self, B: int) -> tuple:
+        """The sampler's penalty tuple over the first B rows (views)."""
+        return (self.counts[:B], self.presence[:B], self.rep[:B],
+                self.freq[:B], self.pres[:B], self.bias[:B])
+
+    def upload(self, B: int, rep: np.ndarray, freq: np.ndarray,
+               pres: np.ndarray, bias_at: np.ndarray,
+               bias_val: np.ndarray) -> None:
+        """Set the first B rows' parameters: rep, freq, pres [B] float32,
+        and logit_bias as its N entries (``bias_at`` [2, N] int32 rows
+        and token ids, each pair once; ``bias_val`` [N] float32),
+        scattered into the zeroed bias rows on the device."""
+        for dst, a in ((self.rep, rep), (self.freq, freq),
+                       (self.pres, pres)):
+            upload(dst[:B], a)
+        self.bias[:B].zero_()
+        if bias_val.size:
+            at = to_device(bias_at, self.bias.device).long()
+            self.bias.index_put_((at[0], at[1]),
+                                 to_device(bias_val, self.bias.device))
+
+    def fill(self, B: int, ids: np.ndarray, starts: np.ndarray) -> None:
+        """Rebuild the first B rows' state on the device from their token
+        ids [B, C] (-1 padded) and first generated positions [B]
+        (``engine/sampling.py fill_penalty_state``)."""
+        dev = self.counts.device
+        fill_penalty_state(self.counts[:B], self.presence[:B],
+                           to_device(ids, dev), to_device(starts, dev))
+
+
+@dataclass(eq=False)
 class DecodeBucket:
     """Static buffers of one (B, P) bucket; see the module docstring."""
 
@@ -267,8 +350,11 @@ class DecodeBucket:
     seeds: torch.Tensor          # [B] int64
     eos: torch.Tensor            # [B, E] int32
     rows: torch.Tensor           # [6, B] int32 host rows (engine staging)
+    # the sampler's penalty tuple (PenaltyBuffers views), None if plain
+    pen: Optional[tuple] = None
     toks: Optional[torch.Tensor] = None      # outputs of the last launch
     emitted: Optional[torch.Tensor] = None
+    aux: Optional[tuple] = None              # logprobs variants only
     carry: Optional[tuple] = None
     graph: Optional["torch.cuda.CUDAGraph"] = None
     # launch counts one replay adds (the capture's own)
@@ -283,24 +369,44 @@ class DecodeBucket:
         return self.tok, self.pos, self.done, self.steps, self.rem
 
 
+def variant_name(logprobs_topn: int, penalty_form: int = PEN_NONE) -> str:
+    """A graph variant's name: "plain", or its logprobs width and its
+    penalty form."""
+    parts = [f"logprobs {logprobs_topn}"] if logprobs_topn else []
+    if penalty_form != PEN_NONE:
+        parts.append(PENALTY_FORMS[penalty_form])
+    return ", ".join(parts) or "plain"
+
+
 class DecodeGraphs(_GraphSet):
-    """One fused decode window per (B, P) bucket: captured CUDA graphs on
-    the card, direct calls on the CPU (module docstring)."""
+    """One fused decode window per (B, P) bucket of one variant (module
+    docstring): captured CUDA graphs on the card, direct calls on the
+    CPU."""
 
     kind = "decode window"
 
     def __init__(self, window_fn: Callable, params, kv_k: torch.Tensor,
                  kv_v: torch.Tensor, *, k_steps: int, max_eos_ids: int,
-                 fence: Optional[CompileFence] = None):
-        super().__init__(kv_k.device, fence)
+                 logprobs_topn: int = 0, penalty_form: int = PEN_NONE,
+                 penalty_buffers: Optional[PenaltyBuffers] = None,
+                 fence: Optional[CompileFence] = None,
+                 share: Optional[_GraphSet] = None):
+        super().__init__(kv_k.device, fence, share)
+        if penalty_form != PEN_NONE and penalty_buffers is None:
+            raise ValueError("a penalised variant needs PenaltyBuffers")
         self.window_fn = window_fn
         self.params = params
         self.kv_k, self.kv_v = kv_k, kv_v
         self.k_steps = k_steps
         self.max_eos_ids = max_eos_ids
+        self.logprobs_topn = logprobs_topn
+        self.penalty_form = penalty_form
+        self.penalty_buffers = penalty_buffers
+        self.variant = variant_name(logprobs_topn, penalty_form)
 
     def _form(self, key: tuple) -> str:
-        return f"decode window (B={key[0]}, P={key[1]})"
+        extra = "" if self.variant == "plain" else f", {self.variant}"
+        return f"decode window (B={key[0]}, P={key[1]}{extra})"
 
     def _new_bucket(self, B: int, P: int) -> DecodeBucket:
         """Buffers holding padding rows: a launch over them writes
@@ -319,14 +425,20 @@ class DecodeGraphs(_GraphSet):
             top_k=full((B,), 0, i32), top_p=full((B,), 1.0, torch.float32),
             seeds=full((B,), 0, torch.int64),
             eos=full((B, self.max_eos_ids), -1, i32),
-            rows=full((6, B), 0, i32))
+            rows=full((6, B), 0, i32),
+            pen=(self.penalty_buffers.penalties(B)
+                 if self.penalty_form != PEN_NONE else None))
 
     def _call(self, bk: DecodeBucket) -> None:
         """The window on the bucket's static inputs; outputs into it."""
-        bk.toks, bk.emitted, bk.carry, _, _ = self.window_fn(
+        out = self.window_fn(
             self.params, *bk.carry_in, self.kv_k, self.kv_v, bk.table,
-            bk.temperature, bk.top_k, bk.top_p, bk.seeds, bk.eos,
-            k_steps=self.k_steps)
+            bk.temperature, bk.top_k, bk.top_p, bk.seeds, bk.eos, bk.pen,
+            k_steps=self.k_steps, logprobs_topn=self.logprobs_topn)
+        if self.logprobs_topn:
+            bk.toks, bk.emitted, bk.aux, bk.carry, _, _ = out
+        else:
+            bk.toks, bk.emitted, bk.carry, _, _ = out
 
 
 # ----------------------------------------------------------------- prefill
@@ -370,6 +482,7 @@ class PrefillBucket:
     spans: Dict[str, Tuple[int, int, Tuple[int, ...], np.dtype]]
     logits: Optional[torch.Tensor] = None    # outputs of the last launch
     sampled: Optional[torch.Tensor] = None
+    aux: Optional[tuple] = None              # logprobs variant only
     graph: Optional["torch.cuda.CUDAGraph"] = None
     counts: List[Dict[str, int]] = field(default_factory=list)
 
@@ -392,14 +505,15 @@ def _host_image(blank: np.ndarray, spans) -> Tuple[np.ndarray,
 
 class PrefillGraphs(_GraphSet):
     """One prefill chunk and its first-token draw per (B, T, P, paged)
-    bucket: captured CUDA graphs on the card, direct calls on the CPU
+    bucket of one variant (with ``logprobs_topn`` > 0 the draw's logprobs
+    too): captured CUDA graphs on the card, direct calls on the CPU
     (module docstring). Built over ``share``'s stream and pool."""
 
     kind = "prefill chunk"
 
     def __init__(self, prefill_fn: Callable, params, kv_k: torch.Tensor,
                  kv_v: torch.Tensor, *, page_size: int, num_pages: int,
-                 max_top_k: int,
+                 max_top_k: int, logprobs_topn: int = 0,
                  fence: Optional[CompileFence] = None,
                  share: Optional[_GraphSet] = None):
         super().__init__(kv_k.device, fence, share)
@@ -409,12 +523,15 @@ class PrefillGraphs(_GraphSet):
         self.page_size = page_size
         self.num_pages = num_pages
         self.max_top_k = max_top_k
+        self.logprobs_topn = logprobs_topn
+        self.variant = variant_name(logprobs_topn)
         self._layouts: Dict[Tuple[int, int, int], tuple] = {}
 
     def _form(self, key: tuple) -> str:
         B, T, P, paged = key
+        extra = "" if self.variant == "plain" else f", {self.variant}"
         return (f"prefill chunk (B={B}, T={T}, P={P}, "
-                f"{'page commit' if paged else 'row scatter'})")
+                f"{'page commit' if paged else 'row scatter'}{extra})")
 
     def _layout(self, B: int, T: int, P: int):
         """(spans, blank) of a chunk's packed inputs: each input's word
@@ -467,6 +584,8 @@ class PrefillGraphs(_GraphSet):
         bk.sampled = sample_tokens(
             bk.logits, f["temperature"], f["top_k"], f["top_p"], f["seeds"],
             f["steps"], max_top_k=self.max_top_k)
+        if self.logprobs_topn:
+            bk.aux = logprob_aux(bk.logits, bk.sampled, self.logprobs_topn)
 
     def run(self, bk: PrefillBucket, img: np.ndarray) -> None:
         """Upload a filled host image (:meth:`PrefillBucket.host_inputs`)

@@ -17,8 +17,17 @@ sampler never reads a device value on the host:
   int64 torch ops, evaluated on the device.
 
 The JAX threefry stream has no torch equivalent: sampled tokens match the
-JAX package in distribution, not bit for bit. Penalties and logprobs are
-not ported yet.
+JAX package in distribution, not bit for bit.
+
+Penalties and logprobs as the JAX package applies them:
+:func:`apply_penalties` (repetition over the whole context, then
+frequency and presence over the generated tokens, then the additive
+``logit_bias``, all on the raw logits before temperature),
+:func:`update_penalty_state` (a window step's tokens folded into the
+state) and :func:`logprob_aux` (log-probabilities of the RAW model
+logits). :func:`fill_penalty_state` builds the (counts, presence) state
+on the device from the rows' token ids, which is what the JAX engine's
+``_penalty_state`` builds on the host.
 """
 
 from __future__ import annotations
@@ -70,22 +79,38 @@ class SamplingBatch:
     top_k: np.ndarray        # [B] int32; 0 → disabled
     top_p: np.ndarray        # [B] float32; 1.0 → disabled
     seeds: np.ndarray        # [B] uint32 per-row RNG streams
+    # OpenAI/HF penalties; neutral values disable each
+    rep: np.ndarray          # [B] float32; 1.0 → disabled (HF semantics)
+    freq: np.ndarray         # [B] float32; 0.0 → disabled
+    pres: np.ndarray         # [B] float32; 0.0 → disabled
 
     @classmethod
     def build(cls, rows, pad_to: int) -> "SamplingBatch":
         """rows: SamplingOptions-like objects with .temperature, .top_k,
-        .top_p, .seed."""
+        .top_p, .seed (+ the penalty fields)."""
         temperature = np.zeros(pad_to, np.float32)
         top_k = np.zeros(pad_to, np.int32)
         top_p = np.ones(pad_to, np.float32)
         seeds = np.zeros(pad_to, np.uint32)
+        rep = np.ones(pad_to, np.float32)
+        freq = np.zeros(pad_to, np.float32)
+        pres = np.zeros(pad_to, np.float32)
         for i, s in enumerate(rows):
             temperature[i] = s.temperature if s.temperature is not None else 0.0
             top_k[i] = s.top_k or 0
             top_p[i] = s.top_p if s.top_p is not None else 1.0
             seeds[i] = (s.seed if s.seed is not None
                         else np.random.randint(0, 2**31)) & 0xFFFFFFFF
-        return cls(temperature, top_k, top_p, seeds)
+            rep[i] = (s.repetition_penalty
+                      if getattr(s, "repetition_penalty", None) else 1.0)
+            freq[i] = getattr(s, "frequency_penalty", None) or 0.0
+            pres[i] = getattr(s, "presence_penalty", None) or 0.0
+        return cls(temperature, top_k, top_p, seeds, rep, freq, pres)
+
+    @property
+    def has_penalties(self) -> bool:
+        return bool((self.rep != 1.0).any() or (self.freq != 0.0).any()
+                    or (self.pres != 0.0).any())
 
 
 def _on(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -96,14 +121,92 @@ def _on(x, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(dtype)
 
 
+def apply_penalties(logits: torch.Tensor, counts, presence, rep, freq, pres,
+                    bias=None) -> torch.Tensor:
+    """Sampling penalties on raw logits (before temperature), in vLLM's
+    order and semantics, as the JAX package applies them:
+
+    - repetition (HF ``RepetitionPenaltyLogitsProcessor``): tokens present
+      ANYWHERE in the context (prompt + generated) get positive logits
+      divided / negative logits multiplied by the penalty;
+    - frequency/presence (OpenAI): subtract ``freq·count`` and
+      ``pres·(count>0)`` where ``count`` is over GENERATED tokens only;
+    - ``bias`` [B, V] (OpenAI ``logit_bias``): added last.
+
+    counts: [B, V] generated-token counts; presence: [B, V] context
+    presence; penalties are per-row [B]. A row with neutral rep, freq and
+    pres gets exactly its logits plus its bias, whatever its state."""
+    dev = logits.device
+    rp = _on(rep, torch.float32, dev)[:, None]
+    present = torch.as_tensor(presence, device=dev) > 0
+    logits = torch.where(present & (rp != 1.0),
+                         torch.where(logits > 0, logits / rp, logits * rp),
+                         logits)
+    cf = torch.as_tensor(counts, device=dev).to(torch.float32)
+    logits = (logits - _on(freq, torch.float32, dev)[:, None] * cf
+              - _on(pres, torch.float32, dev)[:, None] * (cf > 0))
+    if bias is not None:
+        logits = logits + _on(bias, torch.float32, dev)
+    return logits
+
+
+def update_penalty_state(penalties, sampled: torch.Tensor,
+                         done: torch.Tensor):
+    """Fold a window step's sampled tokens into the penalty state
+    (out of place). ``done`` is the PRE-step mask: tokens sampled while a
+    row was live are the ones the host will append. Returns the updated
+    tuple, or None through the penalty-free path."""
+    if penalties is None:
+        return None
+    counts, presence, rest = penalties[0], penalties[1], penalties[2:]
+    rows = torch.arange(counts.shape[0], device=counts.device)
+    idx = (rows, sampled.long())
+    live = torch.logical_not(done).to(counts.dtype)
+    counts = counts.index_put(idx, live, accumulate=True)
+    presence = presence.index_put(idx, torch.maximum(
+        presence[idx], live.to(presence.dtype)))
+    return (counts, presence) + tuple(rest)
+
+
+@torch.no_grad()
+def fill_penalty_state(counts: torch.Tensor, presence: torch.Tensor,
+                       ids: torch.Tensor, starts: torch.Tensor) -> None:
+    """Rebuild, in place, the penalty state of the rows' host token lists
+    (the JAX engine's ``_penalty_state``): ``counts`` [B, V] int32 of the
+    GENERATED tokens and ``presence`` [B, V] int8 over the whole context,
+    from ``ids`` [B, C] (each row's tokens, -1 padded) and ``starts`` [B]
+    (the row's first generated position). Ids outside the vocabulary are
+    skipped. Fixed-shape scatters: a padded entry adds 0 to the counts
+    and re-marks the row's first token present (padding rows, all -1,
+    write 0 to token 0)."""
+    V = counts.shape[1]
+    ids = ids.long()
+    valid = (ids >= 0) & (ids < V)
+    head = valid[:, :1]
+    idx = torch.where(valid, ids,
+                      torch.where(head, ids[:, :1], 0))
+    pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+    gen = valid & (pos >= starts.long()[:, None])
+    counts.zero_()
+    counts.scatter_add_(1, idx, gen.to(counts.dtype))
+    presence.zero_()
+    presence.scatter_(1, idx, (valid | head).to(presence.dtype))
+
+
 @torch.no_grad()
 def sample_tokens(logits: torch.Tensor, temperature, top_k, top_p, seeds,
-                  step, max_top_k: int = 64) -> torch.Tensor:
+                  step, max_top_k: int = 64,
+                  penalties=None) -> torch.Tensor:
     """Sample one token per row. logits: [B, V] float32; temperature /
     top_k / top_p / seeds: [B]; step: a scalar or per-row [B] decode-step
-    counter (advances the row's stream). On the device path pass device
-    tensors: host arrays are uploaded, device values are never read back.
-    Returns int32 [B] on the logits' device."""
+    counter (advances the row's stream); ``penalties``, when given, the
+    tuple ``(counts, presence, rep, freq, pres[, bias])`` of
+    :func:`apply_penalties`, applied first (greedy rows take the argmax
+    of the penalised logits). On the device path pass device tensors:
+    host arrays are uploaded, device values are never read back. Returns
+    int32 [B] on the logits' device."""
+    if penalties is not None:
+        logits = apply_penalties(logits, *penalties)
     B, V = logits.shape
     dev = logits.device
     temperature = _on(temperature, torch.float32, dev)
@@ -125,3 +228,15 @@ def sample_tokens(logits: torch.Tensor, temperature, top_k, top_p, seeds,
     choice = torch.argmax(vals + noise, dim=-1, keepdim=True)
     sampled = torch.gather(idx, 1, choice)[:, 0]
     return torch.where(temperature > 0, sampled, greedy).to(torch.int32)
+
+
+def logprob_aux(logits: torch.Tensor, chosen: torch.Tensor, topn: int):
+    """(chosen_logprob [B], top_vals [B, topn], top_ids [B, topn] int32)
+    over the RAW model logits: OpenAI logprobs describe the model's
+    distribution, so penalties and temperature are not reflected (the
+    JAX package's documented contract). ``torch.topk`` and ``lax.top_k``
+    may order tied values differently."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tv, ti = torch.topk(logp, topn)
+    return (logp.gather(1, chosen.long()[:, None])[:, 0], tv,
+            ti.to(torch.int32))

@@ -19,9 +19,26 @@ behind ``Backend`` the same way:
 - each decode window is one replay of a CUDA graph captured for its
   (batch, page) bucket, and each prefill chunk, its first-token draw
   included, one replay of the graph of its (batch, chunk length, page)
-  bucket (``engine/cuda_graphs.py``); ``warmup()`` captures both warmed
-  grids and arms the capture fence (``engine/jit_fence.py``), which
-  counts any later capture in ``stats()["post_warmup_compiles_total"]``;
+  bucket (``engine/cuda_graphs.py``), in the variant the batch needs
+  (one graph set per variant, the JAX window's static arguments): the
+  logprobs width (0, or ``max_top_logprobs`` when a row asks for
+  logprobs) and, for decode, the penalty form (none, or the penalty
+  tuple when a row sets a penalty or ``logit_bias``); ``warmup()``
+  captures the plain grids, the logprobs variants (``warmup_logprobs``)
+  and the penalised one (``warmup_penalties``), then arms the capture
+  fence
+  (``engine/jit_fence.py``), which counts any later capture in
+  ``stats()["post_warmup_compiles_total"]``;
+- the OpenAI sampling surface as the JAX engine serves it: logprobs of
+  the raw logits (``_lp_entry``) on every emitting path, and repetition,
+  frequency and presence penalties and ``logit_bias`` inside the
+  windows (``engine/sampling.py``), over one set of shared device
+  buffers (``cuda_graphs.PenaltyBuffers``): logit_bias goes up as its
+  sparse entries, and the penalty state is rebuilt on the device from
+  the host token lists before each dispatch with a count-driven penalty,
+  so such a batch lands the in-flight window first (the pipelining
+  barrier); a penalised first-token draw samples from the prefill
+  graph's logits over the same buffers, eagerly;
 - the host never waits on the device except to read back a window's or
   a prefill's sampled tokens, on that dispatch's own event: uploads go
   through pinned staging memory with ``non_blocking`` copies;
@@ -50,9 +67,8 @@ behind ``Backend`` the same way:
   carry, which equals rank 0's: every rank samples the same tokens from
   the same gathered logits.
 
-Not ported yet: penalties and logprobs, the host KV tier, speculative
-decoding, disaggregation, long-prompt ring prefill and budgeted prefill
-mixing.
+Not ported yet: the host KV tier, speculative decoding, disaggregation,
+long-prompt ring prefill and budgeted prefill mixing.
 """
 
 from __future__ import annotations
@@ -80,23 +96,34 @@ from ..parallel.mesh import MeshView, shard_param
 from ..runtime.device import resolve_device
 from ..runtime.engine import Context
 from ..runtime.slo import LatencyRecorder
-from .cuda_graphs import DecodeGraphs, PrefillGraphs, to_host, upload
+from .cuda_graphs import (PEN_FULL, PEN_NONE, DecodeGraphs,
+                          PenaltyBuffers, PrefillGraphs, to_host, upload)
 from .jit_fence import CompileFence
 from .kv_manager import ChainHashCache, PageManager
 from .profiler import EngineProfiler, memory_snapshot
-from .sampling import SamplingBatch
+from .sampling import SamplingBatch, logprob_aux, sample_tokens
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
 # tensor parallel: rank 0's messages to the followers, each an int64
-# header [kind, payload words, bucket key and flags ...] then, when it has
-# one, an int32 payload (engine docstring)
+# header [kind, payload words, bucket key, variant and flags ...] then,
+# when it has one, an int32 payload (engine docstring)
 _STOP, _PREFILL, _DECODE = 0, 1, 2
-_HEADER_WORDS = 8
+_HEADER_WORDS = 13
 
 
 def _cancel_reason(ctx: Context) -> str:
     return FINISH_TIMEOUT if ctx.expired else FINISH_CANCELLED
+
+
+def _wants_count_state(s) -> bool:
+    """True when the row needs ACCURATE token counts (the three
+    count-driven penalties): these force the pipelining barrier.
+    logit_bias is static per request and needs neither counts nor the
+    barrier."""
+    return bool((getattr(s, "repetition_penalty", None) or 1.0) != 1.0
+                or getattr(s, "frequency_penalty", None)
+                or getattr(s, "presence_penalty", None))
 
 
 @dataclass
@@ -135,6 +162,17 @@ class EngineConfig:
     # dispatches, host and device apart, with one deliberate device sync
     # each (engine/profiler.py); 0 disables (default)
     prof_sample: int = 0
+    # top-N alternatives returned per token when a request asks for
+    # logprobs (OpenAI's cap of 20): ONE width, so every logprobs request
+    # shares a graph variant (the requested count is sliced on the host)
+    max_top_logprobs: int = 20
+    # capture the logprobs variants at warmup (any OpenAI client can ask
+    # for logprobs, so an unwarmed variant is routinely reachable)
+    warmup_logprobs: bool = True
+    # capture the penalised variants too (off by default: most
+    # deployments never send penalties, and a first penalty request pays
+    # one fenced capture per bucket)
+    warmup_penalties: bool = False
     # bucketing: padded shapes, as the JAX engine pads them; warmup()
     # captures one decode graph per (batch, page) bucket and one prefill
     # graph per (prefill batch, chunk length, page) bucket
@@ -217,6 +255,10 @@ class Sequence:
     # per-token append and the per-window row check read them)
     _stop_set: Optional[frozenset] = field(default=None, repr=False)
     _stop_ids: Optional[List[int]] = field(default=None, repr=False)
+    # the request's logit_bias entries (token ids, values), built on
+    # first use
+    _bias: Optional[Tuple[np.ndarray, np.ndarray]] = field(default=None,
+                                                           repr=False)
 
     @property
     def stop_set(self) -> frozenset:
@@ -254,16 +296,19 @@ class Sequence:
 @dataclass
 class _PendingWindow:
     """A dispatched-but-unread decode window. ``host`` holds pinned copies
-    of (toks [B, K], emitted [B], done [B]), valid once ``event`` has
-    completed; ``carry`` is the window's device carry (the graph's static
-    outputs: valid until that bucket's next launch)."""
+    of (toks [B, K], emitted [B], done [B]) and, in a logprobs variant,
+    of its aux (lp [B, K], top_vals [B, K, n], top_ids [B, K, n]), valid
+    once ``event`` has completed; ``carry`` is the window's device carry
+    (the graph's static outputs: valid until that bucket's next
+    launch)."""
 
     batch: List[Sequence]
     host: List[torch.Tensor]
     event: Optional[torch.cuda.Event]
     carry: tuple                    # (tok, pos, done, steps, remaining)
     index: Dict[int, int] = field(default_factory=dict)  # id(seq) → row
-    key: Tuple[int, int] = (0, 0)   # the bucket whose outputs hold carry
+    # the bucket whose outputs hold carry: (B, P, logprobs_topn, form)
+    key: Tuple[int, int, int, int] = (0, 0, 0, 0)
     processed: bool = False
 
 
@@ -271,11 +316,14 @@ class _PendingWindow:
 class _PendingPrefill:
     """A dispatched-but-unread prefill batch: ``sampled`` is the pinned
     host copy of the first-token draw for rows that completed their
-    prompt this chunk (None when no row drew), valid after ``event``."""
+    prompt this chunk (None when no row drew), ``aux`` that of its
+    logprobs (lp [B], top_vals [B, n], top_ids [B, n]) when a row asked,
+    valid after ``event``."""
 
     finishing: List[Tuple[int, Sequence]]
     sampled: Optional[torch.Tensor]
     event: Optional[torch.cuda.Event] = None
+    aux: Optional[List[torch.Tensor]] = None
     processed: bool = False
 
 
@@ -299,21 +347,33 @@ def _merge_carry(c_tok, c_pos, c_done, c_steps, c_rem, src, from_carry,
 
 def _pack_sampler(samp: tuple) -> np.ndarray:
     """The decode bucket's sampler uploads (table, eos, temperature,
-    top_k, top_p, seeds) as one int32 array, for the followers."""
+    top_k, top_p, seeds, then for a penalised variant rep, freq, pres
+    and the logit_bias entries) as one int32 array, for the followers."""
     return np.concatenate([np.ascontiguousarray(a).reshape(-1).view(np.int32)
                            for a in samp])
 
 
-def _unpack_sampler(words: np.ndarray, B: int, P: int, E: int) -> tuple:
+def _sampler_layout(B: int, P: int, E: int, form: int, NB: int) -> list:
+    """:func:`_pack_sampler`'s arrays, NB = the logit_bias entries."""
+    f32 = np.float32
+    layout = [((B, P), np.int32), ((B, E), np.int32), ((B,), f32),
+              ((B,), np.int32), ((B,), f32), ((B,), np.int64)]
+    if form != PEN_NONE:
+        layout += [((B,), f32), ((B,), f32), ((B,), f32),
+                   ((2, NB), np.int32), ((NB,), f32)]
+    return layout
+
+
+def _unpack_sampler(words: np.ndarray, layout: list) -> Tuple[tuple, int]:
+    """(the arrays of ``layout`` packed at the start of ``words``, the
+    words they take)."""
     out, at = [], 0
-    for shape, dt in (((B, P), np.int32), ((B, E), np.int32),
-                      ((B,), np.float32), ((B,), np.int32),
-                      ((B,), np.float32), ((B,), np.int64)):
+    for shape, dt in layout:
         n = int(np.prod(shape)) * np.dtype(dt).itemsize // 4
         # a copy, so the int64 field starts on an 8-byte boundary
         out.append(words[at:at + n].copy().view(dt).reshape(shape))
         at += n
-    return tuple(out)
+    return tuple(out), at
 
 
 class TorchEngine:
@@ -357,8 +417,9 @@ class TorchEngine:
         self.prefill_fn, _ = make_step_fns(model_cfg, mesh=mesh)
         self.decode_multi_fn = make_decode_window_fn(
             model_cfg, max_top_k=self.ecfg.max_top_k, mesh=mesh)
-        # capture fence (armed by warmup) and the graphs per bucket: decode
-        # windows, and prefill chunks on the same stream and pool
+        # capture fence (armed by warmup) and the graphs per bucket, one
+        # set per variant: decode windows, and prefill chunks, all on the
+        # plain decode set's stream and pool
         self.fence = CompileFence(f"torch-engine-{id(self):x}")
         self.graphs = DecodeGraphs(
             self.decode_multi_fn, self.params, self.kv_k, self.kv_v,
@@ -369,6 +430,12 @@ class TorchEngine:
             page_size=self.ecfg.page_size, num_pages=self.ecfg.num_pages,
             max_top_k=self.ecfg.max_top_k, fence=self.fence,
             share=self.graphs)
+        # (logprobs_topn, penalty form) → decode set; topn → prefill set
+        self.decode_variants: Dict[Tuple[int, int], DecodeGraphs] = {
+            (0, PEN_NONE): self.graphs}
+        self.prefill_variants: Dict[int, PrefillGraphs] = {
+            0: self.prefill_graphs}
+        self.penalty_buffers: Optional[PenaltyBuffers] = None
         # sampled host/device split per bucket (sample=0: one compare per
         # iteration, no sync) and the latency histograms
         self.profiler = EngineProfiler(f"torch-engine-{id(self):x}",
@@ -414,13 +481,17 @@ class TorchEngine:
     # ---------------------------------------------------------- lifecycle
 
     def warmup(self) -> int:
-        """Capture the whole decode grid (every batch x page bucket), then
-        the whole prefill grid (every prefill batch x chunk length x page
-        bucket, in the serving form of its chunk length: page-granular
-        commit when it is a multiple of the page size), each after an
-        eager warm call over padding rows, so nothing is written to the
-        pool; then arm the capture fence. Returns the number of buckets
-        warmed."""
+        """Capture the whole decode grid (every batch x page bucket) in
+        each warmed variant, then the whole prefill grid (every prefill
+        batch x chunk length x page bucket, in the serving form of its
+        chunk length: page-granular commit when it is a multiple of the
+        page size) in each, every bucket after an eager warm call over
+        padding rows, so nothing is written to the pool; then arm the
+        capture fence. The variants, as the JAX engine warms them: the
+        plain one always, the logprobs one with ``warmup_logprobs``, the
+        penalised one with ``warmup_penalties``; one variant
+        at a time, so each set's ``pool_bytes`` is what it added to the
+        pool. Returns the number of graphs warmed."""
         ecfg = self.ecfg
         grid = ecfg.warmed_grid()
         pages = grid["page_buckets"]
@@ -428,17 +499,81 @@ class TorchEngine:
         prefill = [(B, T, P, T % ecfg.page_size == 0) for P in pages
                    for T in grid["prefill_lens"]
                    for B in grid["prefill_batches"]]
-        self.graphs.capture(decode)
-        self.prefill_graphs.capture(prefill)
+        topns = [0]
+        if ecfg.warmup_logprobs and ecfg.max_top_logprobs > 0:
+            topns.append(ecfg.max_top_logprobs)
+        forms = [PEN_NONE] + ([PEN_FULL] if ecfg.warmup_penalties else [])
+        sets = [self.decode_set(n, f) for f in forms for n in topns]
+        for gs in sets:
+            gs.capture(decode)
+        psets = [self.prefill_set(n) for n in topns]
+        for gs in psets:
+            gs.capture(prefill)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.fence.arm()
-        for name, gs, n in (("decode", self.graphs, len(decode)),
-                            ("prefill", self.prefill_graphs, len(prefill))):
-            log.info("warmup: %d %s graphs captured in %.1fs (%.0f MiB of "
-                     "graph pool)", n, name, gs.capture_seconds,
-                     gs.pool_bytes / 2**20)
-        return len(decode) + len(prefill)
+        for gs, n in ([(g, len(decode)) for g in sets]
+                      + [(g, len(prefill)) for g in psets]):
+            log.info("warmup: %d %s graphs (%s) captured in %.1fs (+%.0f MiB "
+                     "of graph pool)", n, gs.kind, gs.variant,
+                     gs.capture_seconds, gs.pool_bytes / 2**20)
+        if self.penalty_buffers is not None:
+            log.info("warmup: penalty buffers %.0f MiB",
+                     self.penalty_buffers.nbytes / 2**20)
+        return len(decode) * len(sets) + len(prefill) * len(psets)
+
+    def decode_set(self, topn: int, form: int) -> DecodeGraphs:
+        """The decode graph set of variant (logprobs width, penalty form),
+        made on first use over the plain set's stream and pool."""
+        gs = self.decode_variants.get((topn, form))
+        if gs is None:
+            gs = DecodeGraphs(
+                self.decode_multi_fn, self.params, self.kv_k, self.kv_v,
+                k_steps=self.ecfg.decode_steps,
+                max_eos_ids=self.ecfg.max_eos_ids, logprobs_topn=topn,
+                penalty_form=form,
+                penalty_buffers=(self.penalties()
+                                 if form != PEN_NONE else None),
+                fence=self.fence, share=self.graphs)
+            self.decode_variants[(topn, form)] = gs
+        return gs
+
+    def penalties(self) -> PenaltyBuffers:
+        """The shared penalty buffers, made on first use."""
+        if self.penalty_buffers is None:
+            self.penalty_buffers = PenaltyBuffers.make(
+                self.ecfg.bucket_batch(self.ecfg.max_batch),
+                self.cfg.vocab_size, self.device)
+        return self.penalty_buffers
+
+    def prefill_set(self, topn: int) -> PrefillGraphs:
+        """The prefill graph set whose draw also gives ``topn``
+        logprobs, made on first use over the plain set's stream and
+        pool."""
+        gs = self.prefill_variants.get(topn)
+        if gs is None:
+            gs = PrefillGraphs(
+                self.prefill_fn, self.params, self.kv_k, self.kv_v,
+                page_size=self.ecfg.page_size,
+                num_pages=self.ecfg.num_pages, max_top_k=self.ecfg.max_top_k,
+                logprobs_topn=topn, fence=self.fence, share=self.graphs)
+            self.prefill_variants[topn] = gs
+        return gs
+
+    def graph_replays(self) -> Dict[str, int]:
+        """Graph launches so far, every variant's, by kind."""
+        return {"prefill": sum(gs.replays
+                               for gs in self.prefill_variants.values()),
+                "decode_window": sum(gs.replays
+                                     for gs in self.decode_variants.values())}
+
+    def graph_pool_mib(self) -> Dict[str, float]:
+        """MiB of the shared graph pool each graph set added while it
+        captured, by kind and variant."""
+        sets = list(self.decode_variants.values()) + list(
+            self.prefill_variants.values())
+        return {f"{gs.kind}, {gs.variant}": gs.pool_bytes / 2**20
+                for gs in sets}
 
     def start(self) -> None:
         if self._loop_task is None:
@@ -513,18 +648,27 @@ class TorchEngine:
                 if kind == _STOP:
                     break
                 if kind == _PREFILL:
-                    B, T, P, paged = header[1:5]
-                    bk = self.prefill_graphs.bucket(B, T, P, bool(paged))
-                    self.prefill_graphs.run(bk, payload)
+                    B, T, P, paged, topn = header[1:6]
+                    gs = self.prefill_set(topn)
+                    gs.run(gs.bucket(B, T, P, bool(paged)), payload)
                 elif kind == _DECODE:
-                    B, P, samp, pB, pP = header[1:6]
-                    bk = self.graphs.bucket(B, P)
-                    rows = payload[:6 * B].reshape(6, B)
+                    (B, P, topn, form, samp, C, NB, pB, pP, ptopn,
+                     pform) = header[1:12]
+                    gs = self.decode_set(topn, form)
+                    bk = gs.bucket(B, P)
+                    rows, at = payload[:6 * B].reshape(6, B), 6 * B
                     if samp:
-                        self._upload_sampler(bk, _unpack_sampler(
-                            payload[6 * B:], B, P, E))
-                    prev = self.graphs.buckets[(pB, pP)].carry if pB else None
-                    self._launch_window(bk, rows, prev)
+                        arrays, n = _unpack_sampler(
+                            payload[at:], _sampler_layout(B, P, E, form, NB))
+                        self._upload_sampler(bk, arrays)
+                        at += n
+                    if C:
+                        ids = payload[at:at + B * C].reshape(B, C)
+                        self.penalty_buffers.fill(
+                            B, ids, payload[at + B * C:at + B * C + B])
+                    prev = (self.decode_variants[(ptopn, pform)]
+                            .buckets[(pB, pP)].carry if pB else None)
+                    self._launch_window(gs, bk, rows, prev)
                 else:
                     raise RuntimeError(f"unknown dispatch kind {kind}")
                 self.batch_dispatches_total += 1
@@ -838,8 +982,13 @@ class TorchEngine:
                 finishing.append((i, seq))
         # rows that completed their prompt draw their first token inside
         # the graph; mid-prompt chunks and resumed rows (next token already
-        # sampled) leave the sampler's inputs at padding and read nothing
+        # sampled) leave the sampler's inputs at padding and read nothing.
+        # A batch with a penalty or logit_bias draws eagerly from the
+        # graph's logits instead (_penalised_draw)
         draw = any(s.generated == 0 for _, s in finishing)
+        topn = (self.ecfg.max_top_logprobs
+                if draw and self._wants_logprobs(batch) else 0)
+        penalised = draw and self._penalty_form(batch) != PEN_NONE
         if draw:
             sb = SamplingBatch.build([s.req.sampling for s in batch], B)
             f["temperature"][:] = sb.temperature
@@ -847,19 +996,52 @@ class TorchEngine:
             f["top_p"][:] = sb.top_p
             f["seeds"][:] = sb.seeds
             f["steps"][:len(batch)] = [s.generated for s in batch]
+        graph_topn = 0 if penalised else topn
 
-        self._announce([_PREFILL, B, T, P, int(use_paged)], img)
-        bk = self.prefill_graphs.bucket(*key)
+        self._announce([_PREFILL, B, T, P, int(use_paged), graph_topn], img)
+        gs = self.prefill_set(graph_topn)
+        bk = gs.bucket(*key)
         pt0 = self.profiler.begin()
-        self.prefill_graphs.run(bk, img)
-        sampled, event = None, None
+        gs.run(bk, img)
+        sampled, aux, event = None, None, None
         if draw:
-            (sampled,), event = to_host(bk.sampled)
+            toks, dev_aux = bk.sampled, bk.aux
+            if penalised:
+                toks, dev_aux = self._penalised_draw(
+                    bk, self._penalty_args(batch, sb, B),
+                    self._penalty_state(batch, B) if sb.has_penalties
+                    else None, topn)
+            (sampled, *aux), event = to_host(toks, *(dev_aux or ()))
         self.profiler.end(pt0, "prefill", (B, T, P), tokens=sum(chunks),
                           drain=True)
         self.batch_dispatches_total += 1
         return _PendingPrefill(finishing=finishing, sampled=sampled,
-                               event=event)
+                               event=event, aux=aux or None)
+
+    def _penalised_draw(self, bk, pargs: tuple,
+                        state: Optional[Tuple[np.ndarray, np.ndarray]],
+                        topn: int):
+        """The first-token draw of a prefill batch with a penalty or
+        logit_bias (the JAX engine's ``_sample_device`` with its penalty
+        tuple), sampled eagerly from the replayed chunk's logits with the
+        sampler inputs the chunk uploaded, over the shared penalty
+        buffers as a decode window reads them: ``pargs`` and ``state``
+        as :meth:`_penalty_args` and :meth:`_penalty_state` give them
+        (``state`` None when no row has a count-driven penalty). Returns
+        (tokens [B], aux or None)."""
+        f, B = bk.inputs, bk.B
+        pb = self.penalties()
+        pb.upload(B, *pargs)
+        if state is not None:
+            pb.fill(B, *state)
+        # the buffers no longer hold the last decode dispatch's uploads
+        self._samp_cache = None
+        toks = sample_tokens(bk.logits, f["temperature"], f["top_k"],
+                             f["top_p"], f["seeds"], f["steps"],
+                             max_top_k=self.ecfg.max_top_k,
+                             penalties=pb.penalties(B))
+        aux = logprob_aux(bk.logits, toks, topn) if topn else None
+        return toks, aux
 
     def _process_prefill(self, pf: _PendingPrefill) -> None:
         """Read back a dispatched prefill's first-token draws and admit
@@ -867,15 +1049,18 @@ class TorchEngine:
         if pf.processed:
             return
         pf.processed = True
-        toks = None
+        toks = aux = None
         if pf.sampled is not None:
             if pf.event is not None:
                 pf.event.synchronize()
             toks = pf.sampled.numpy()
+            if pf.aux is not None:
+                aux = tuple(a.numpy() for a in pf.aux)
         for i, seq in pf.finishing:
             self._commit_full_pages(seq)
             if seq.generated == 0:
-                self._append_token(seq, int(toks[i]))
+                self._append_token(seq, int(toks[i]),
+                                   lp=self._lp_entry(seq, aux, i))
                 if seq.finished is None:
                     self.running.append(seq)
             else:
@@ -945,13 +1130,30 @@ class TorchEngine:
         if not batch:
             return None
         prev = self._pending  # None if _grow_or_preempt flushed
+        # sampling penalties need ACCURATE host token lists (the state is
+        # rebuilt from seq.tokens each dispatch): land the in-flight
+        # window first, trading the pipelining overlap away only for
+        # batches that use count-driven penalties
+        if prev is not None and any(_wants_count_state(s.req.sampling)
+                                    for s in batch):
+            self._process_window(prev)
+            prev = None
+            # the read-back may have finished rows (EOS/length) and freed
+            # their pages: dispatching them would scatter into page 0
+            batch = [s for s in batch
+                     if s.finished is None and not s.context.stopped]
+            if not batch:
+                return None
         B = ecfg.bucket_batch(len(batch))
         P = ecfg.bucket_pages(max(len(s.pages) for s in batch))
         E = ecfg.max_eos_ids
+        topn = ecfg.max_top_logprobs if self._wants_logprobs(batch) else 0
+        form = self._penalty_form(batch)
         # cache_sampler_params: while the batch composition (rows, page
-        # counts, bucket) is unchanged, the page table, stop table and
-        # sampler params already sit in the bucket's static buffers
-        key = ((B, P, list(batch), [len(s.pages) for s in batch])
+        # counts, bucket, variant) is unchanged, the page table, stop
+        # table and sampler params already sit in the bucket's static
+        # buffers (and the shared penalty buffers)
+        key = ((B, P, topn, form, list(batch), [len(s.pages) for s in batch])
                if ecfg.cache_sampler_params else None)
         samp = None
         if key is None or self._samp_cache != key:
@@ -966,7 +1168,12 @@ class TorchEngine:
             samp = (table, eos, sb.temperature.astype(np.float32),
                     sb.top_k.astype(np.int32), sb.top_p.astype(np.float32),
                     sb.seeds.astype(np.int64))
+            if form != PEN_NONE:
+                samp += self._penalty_args(batch, sb, B)
             self._samp_cache = key
+        state = (self._penalty_state(batch, B)
+                 if any(_wants_count_state(s.req.sampling) for s in batch)
+                 else None)
         # host rows: tok, pos, steps, remaining, src, from_carry
         rows = np.zeros((6, B), np.int32)
         rows[1] = -1
@@ -981,36 +1188,51 @@ class TorchEngine:
                 rows[2, i] = seq.generated
                 rows[3, i] = max(min(seq.max_new() - seq.generated,
                                      self.cap_tokens - len(seq.tokens)), 1)
-        pB, pP = prev.key if prev is not None else (0, 0)
-        self._announce(
-            [_DECODE, B, P, int(samp is not None), pB, pP],
-            rows.reshape(-1) if samp is None
-            else np.concatenate([rows.reshape(-1), _pack_sampler(samp)]))
-        bk = self.graphs.bucket(B, P)
+        pB, pP, ptopn, pform = prev.key if prev is not None else (0,) * 4
+        if self._leads:
+            parts = [rows.reshape(-1)]
+            if samp is not None:
+                parts.append(_pack_sampler(samp))
+            if state is not None:
+                parts += [state[0].reshape(-1), state[1]]
+            C = state[0].shape[1] if state is not None else 0
+            NB = samp[-1].size if samp is not None and form else 0
+            self._announce([_DECODE, B, P, topn, form, int(samp is not None),
+                            C, NB, pB, pP, ptopn, pform],
+                           np.concatenate(parts))
+        gs = self.decode_set(topn, form)
+        bk = gs.bucket(B, P)
         if samp is not None:
             self._upload_sampler(bk, samp)
+        if state is not None:
+            self.penalty_buffers.fill(B, *state)
         pt0 = self.profiler.begin()
-        self._launch_window(bk, rows,
+        self._launch_window(gs, bk, rows,
                             prev.carry if prev is not None else None)
-        host, event = to_host(bk.toks, bk.emitted, bk.carry[2])
+        host, event = to_host(bk.toks, bk.emitted, bk.carry[2],
+                              *(bk.aux or ()))
         self.profiler.end(pt0, "decode_window", (B, P, K),
                           tokens=len(batch) * K, drain=True)
         self.batch_dispatches_total += 1
         pend = _PendingWindow(batch=list(batch), host=host, event=event,
                               carry=bk.carry,
                               index={id(s): i for i, s in enumerate(batch)},
-                              key=(B, P))
+                              key=(B, P, topn, form))
         self._inflight.append(pend)
         return pend
 
-    @staticmethod
-    def _upload_sampler(bk, samp: tuple) -> None:
-        """A decode bucket's page table, stop table and sampler params."""
-        for dst, a in zip((bk.table, bk.eos, bk.temperature, bk.top_k,
-                           bk.top_p, bk.seeds), samp):
+    def _upload_sampler(self, bk, samp: tuple) -> None:
+        """A decode bucket's page table, stop table and sampler params,
+        and for a penalised variant the rows' rep, freq, pres and
+        logit_bias entries (into the shared penalty buffers)."""
+        dsts = (bk.table, bk.eos, bk.temperature, bk.top_k, bk.top_p,
+                bk.seeds)
+        for dst, a in zip(dsts, samp):
             upload(dst, a)
+        if bk.pen is not None:
+            self.penalty_buffers.upload(bk.B, *samp[len(dsts):])
 
-    def _launch_window(self, bk, rows: np.ndarray,
+    def _launch_window(self, gs: DecodeGraphs, bk, rows: np.ndarray,
                        prev_carry: Optional[tuple]) -> None:
         """Upload a window's host rows (tok, pos, steps, remaining, src,
         from_carry) and launch it: rows carried over from the previous
@@ -1026,7 +1248,7 @@ class TorchEngine:
                                 (n_tok, n_pos, n_steps, n_rem)):
                 dst.copy_(new)
             bk.done.zero_()
-        self.graphs.launch(bk)
+        gs.launch(bk)
 
     def _process_window(self, pend: _PendingWindow) -> None:
         """Read back a dispatched window's tokens (waits on its own event
@@ -1039,7 +1261,8 @@ class TorchEngine:
         pend.processed = True
         if pend.event is not None:
             pend.event.synchronize()
-        toks, counts, done = (h.numpy() for h in pend.host)
+        toks, counts, done, *aux = (h.numpy() for h in pend.host)
+        aux = tuple(aux) or None
         if pend in self._inflight:
             self._inflight.remove(pend)
         if self._pending is pend:
@@ -1054,18 +1277,20 @@ class TorchEngine:
                 continue
             if (not seq.context.stopped
                     and len(seq.stop_ids) <= self.ecfg.max_eos_ids):
-                self._append_row(seq, toks[i], int(counts[i]), bool(done[i]))
+                self._append_row(seq, toks[i], int(counts[i]), bool(done[i]),
+                                 aux, i)
                 continue
             for j in range(K):
                 if seq.finished is not None or seq.context.stopped:
                     break  # tokens past EOS/stop are discarded
-                self._append_token(seq, int(toks[i, j]))
+                self._append_token(seq, int(toks[i, j]),
+                                   lp=self._lp_entry(seq, aux, i, j))
                 self.decode_tokens_total += 1
         self.profiler.end(ht0, "process_window", (len(pend.batch), K),
                           tokens=self.decode_tokens_total - before)
 
     def _append_row(self, seq: Sequence, row: np.ndarray, n: int,
-                    dev_done: bool) -> None:
+                    dev_done: bool, aux=None, i: int = 0) -> None:
         """Bulk-append one window row using the device's valid-token count:
         one EngineOutput for the whole window."""
         n = min(n, row.shape[0])
@@ -1079,8 +1304,14 @@ class TorchEngine:
         seq.last_token = ids[-1]
         seq.generated += n
         self.decode_tokens_total += n
+        lps = tops = None
+        if aux is not None and seq.req.output.logprobs is not None:
+            entries = [self._lp_entry(seq, aux, i, j) for j in range(n)]
+            lps = [e[0] for e in entries]
+            tops = [e[1] for e in entries]
         self._emit(seq, EngineOutput(token_ids=ids,
-                                     prompt_tokens=seq.num_prompt))
+                                     prompt_tokens=seq.num_prompt,
+                                     logprobs=lps, top_logprobs=tops))
         # prefix-cache publish when the row crossed a page boundary (the
         # newest token's KV is not written yet: publishable extent is
         # len(tokens) - 1)
@@ -1122,14 +1353,16 @@ class TorchEngine:
 
     # ------------------------------------------------------------- helpers
 
-    def _append_token(self, seq: Sequence, tok: int) -> None:
-        """Record a generated token: emit, check termination, commit
-        pages."""
+    def _append_token(self, seq: Sequence, tok: int, lp=None) -> None:
+        """Record a generated token: emit (with its logprobs entry, when
+        the request asked), check termination, commit pages."""
         seq.tokens.append(tok)
         seq.last_token = tok
         seq.generated += 1
-        self._emit(seq, EngineOutput(token_ids=[tok],
-                                     prompt_tokens=seq.num_prompt))
+        self._emit(seq, EngineOutput(
+            token_ids=[tok], prompt_tokens=seq.num_prompt,
+            logprobs=[lp[0]] if lp is not None else None,
+            top_logprobs=[lp[1]] if lp is not None else None))
         filled = len(seq.tokens)
         ps = self.ecfg.page_size
         if (filled - 1) >= ps and (filled - 1) % ps == 0:
@@ -1150,6 +1383,81 @@ class TorchEngine:
         if seq.finished is None:
             seq.finished = reason
         self._release_or_defer(seq)
+
+    # ------------------------------------------- penalties and logprobs
+
+    @staticmethod
+    def _penalty_form(seqs: List[Sequence]) -> int:
+        """The penalty form a batch needs: the penalty tuple when a row
+        has a penalty or logit_bias, none otherwise."""
+        if any(_wants_count_state(s.req.sampling) or s.req.sampling.logit_bias
+               for s in seqs):
+            return PEN_FULL
+        return PEN_NONE
+
+    def _penalty_state(self, seqs: List[Sequence], pad_to: int
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """What the device rebuilds the (counts of GENERATED tokens,
+        presence over the whole context) state from, per dispatch (the
+        JAX engine's stateless-per-dispatch form): each row's token ids
+        [pad_to, C] (-1 padded) and its first generated position [pad_to]
+        (``engine/sampling.py fill_penalty_state``)."""
+        C = max(len(s.tokens) for s in seqs)
+        ids = np.full((pad_to, C), -1, np.int32)
+        starts = np.zeros(pad_to, np.int32)
+        for i, s in enumerate(seqs):
+            ids[i, :len(s.tokens)] = s.tokens
+            starts[i] = s.num_prompt
+        return ids, starts
+
+    def _penalty_args(self, seqs: List[Sequence], sb: SamplingBatch,
+                      pad_to: int) -> tuple:
+        """The per-request part of the sampler's penalty tuple, as
+        ``PenaltyBuffers.upload`` takes it: (rep, freq, pres [pad_to]
+        float32, the rows' logit_bias entries: [2, N] int32 (row, token
+        id) and [N] float32 values)."""
+        at, vals = [np.zeros((2, 0), np.int32)], [np.zeros(0, np.float32)]
+        for i, s in enumerate(seqs):
+            if s.req.sampling.logit_bias:
+                toks, v = self._bias_entries(s)
+                at.append(np.stack([np.full_like(toks, i), toks]))
+                vals.append(v)
+        return (sb.rep.astype(np.float32), sb.freq.astype(np.float32),
+                sb.pres.astype(np.float32), np.concatenate(at, axis=1),
+                np.concatenate(vals))
+
+    def _bias_entries(self, seq: Sequence) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-sequence logit_bias entries (token ids [n] int32, each
+        once, and their biases [n] float32), built once and cached on the
+        Sequence (the map is fixed per request; only the batch assembly
+        runs per dispatch). Ids outside the vocabulary are dropped."""
+        if seq._bias is None:
+            V = self.cfg.vocab_size
+            bias = {int(t): float(v)
+                    for t, v in (seq.req.sampling.logit_bias or {}).items()
+                    if 0 <= int(t) < V}
+            seq._bias = (np.fromiter(bias, np.int32, len(bias)),
+                         np.fromiter(bias.values(), np.float32, len(bias)))
+        return seq._bias
+
+    @staticmethod
+    def _wants_logprobs(seqs: List[Sequence]) -> bool:
+        return any(s.req.output.logprobs is not None for s in seqs)
+
+    @staticmethod
+    def _lp_entry(seq: Sequence, aux, i: int, j: Optional[int] = None):
+        """(logprob, {token_id: logprob, ...}) for row i (step j in a
+        window); None unless this sequence asked for logprobs."""
+        if aux is None or seq.req.output.logprobs is None:
+            return None
+        lp, tv, ti = aux
+        if j is None:
+            chosen, vals, ids = lp[i], tv[i], ti[i]
+        else:
+            chosen, vals, ids = lp[i, j], tv[i, j], ti[i, j]
+        topn = min(int(seq.req.output.logprobs), len(ids))
+        top = {int(t): float(v) for t, v in zip(ids[:topn], vals[:topn])}
+        return float(chosen), top
 
     def _chain(self, seq: Sequence) -> List[int]:
         if seq.hash_cache is None:

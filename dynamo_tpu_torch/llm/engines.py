@@ -15,7 +15,7 @@ from typing import AsyncIterator, Optional
 from ..runtime.engine import Context
 from .backend import Backend
 from .model_card import ModelDeploymentCard
-from .preprocessor import OpenAIPreprocessor
+from .preprocessor import OpenAIPreprocessor, completion_logprobs
 from .protocols.openai import (ChatCompletionRequest, CompletionRequest,
                                _finish_reason_openai)
 
@@ -63,25 +63,34 @@ class LocalCompletionChain:
         rid = f"cmpl-{context.id or uuid.uuid4().hex}"
         created = int(time.time())
         completion_tokens = 0
+        text_off = 0
         if pre.output.echo_prompt:
             # OpenAI completions echo=true: the response text starts with
-            # the prompt (reconstructed from the request token ids)
+            # the prompt (reconstructed from the request token ids);
+            # generated-token offsets then start AFTER it
+            echo_text = self.preprocessor.tokenizer.decode(
+                list(pre.token_ids))
+            text_off = len(echo_text)
             yield {
                 "id": rid, "object": "text_completion", "created": created,
                 "model": request.model,
-                "choices": [{"index": 0,
-                             "text": self.preprocessor.tokenizer.decode(
-                                 list(pre.token_ids)),
+                "choices": [{"index": 0, "text": echo_text,
                              "finish_reason": None}],
             }
         async for out in self.backend.generate(pre, context):
             completion_tokens += len(out.token_ids)
-            if out.text or out.finish_reason:
+            if out.text or out.finish_reason or out.logprobs:
+                choice = {"index": 0, "text": out.text or "",
+                          "finish_reason":
+                              _finish_reason_openai(out.finish_reason)}
+                lp = completion_logprobs(out, self.preprocessor.tokenizer,
+                                         text_off)
+                if lp:
+                    choice["logprobs"] = lp
+                text_off += len(out.text or "")
                 yield {"id": rid, "object": "text_completion",
                        "created": created, "model": request.model,
-                       "choices": [{"index": 0, "text": out.text or "",
-                                    "finish_reason": _finish_reason_openai(
-                                        out.finish_reason)}]}
+                       "choices": [choice]}
             if out.finish_reason:
                 if request.stream_options and request.stream_options.include_usage:
                     yield {"id": rid, "object": "text_completion",

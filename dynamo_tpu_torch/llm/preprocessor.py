@@ -3,8 +3,10 @@
 A copy of ``dynamo_tpu/llm/preprocessor.py`` without tracing spans and
 the usage cost extension: renders the chat template, tokenizes, maps
 sampling/stop options into the internal ``PreprocessedRequest``, emits
-request annotations (``formatted_prompt``, ``token_ids``), and on the way
-back turns the token-level engine stream into OpenAI chat chunks.
+request annotations (``formatted_prompt``, ``token_ids``), validates
+``logprobs``/``top_logprobs``, and on the way back turns the token-level
+engine stream into OpenAI chat chunks, with their logprobs
+(:func:`chat_logprobs_content`, :func:`completion_logprobs`).
 """
 
 from __future__ import annotations
@@ -18,15 +20,6 @@ from .protocols.common import (EngineOutput, OutputOptions, PreprocessedRequest,
 from .protocols.openai import (ChatCompletionChunk, ChatCompletionRequest,
                                ChatDeltaGenerator, CompletionRequest, Usage)
 from .tokenizer import Tokenizer
-
-# Sampling fields the port cannot serve yet, each with the values that ask
-# for nothing (as the JAX package's SamplingBatch.build maps them: an unset
-# or zero repetition penalty is 1.0, an unset penalty 0): a request that
-# sets one to any other value is refused.
-_NEUTRAL = {"repetition_penalty": (None, 0, 1.0),
-            "frequency_penalty": (None, 0), "presence_penalty": (None, 0),
-            "logit_bias": (None, {}), "logprobs": (None, False, 0),
-            "top_logprobs": (None, 0)}
 
 ANNOTATION_FORMATTED_PROMPT = "formatted_prompt"
 ANNOTATION_TOKEN_IDS = "token_ids"
@@ -90,14 +83,6 @@ class OpenAIPreprocessor:
     def _build(self, request, token_ids: List[int],
                max_tokens: Optional[int]) -> PreprocessedRequest:
         ext = request.extension()
-        unsupported = [k for k, neutral in _NEUTRAL.items()
-                       if getattr(request, k, None) not in neutral]
-        if unsupported:
-            # the port's sampler has no penalty or logprob path yet: refuse
-            # (HTTP 400) rather than silently serve a different result;
-            # a field at its neutral value asks for nothing and is served
-            raise ValueError(f"not supported by this engine yet: "
-                             f"{', '.join(unsupported)}")
         budget = self.mdc.context_length - len(token_ids)
         if budget <= 0:
             raise ValueError(
@@ -122,7 +107,23 @@ class OpenAIPreprocessor:
             stop=request.stop_list(),
             min_tokens=getattr(request, "min_tokens", None),
             ignore_eos=bool(ext.ignore_eos))
+        raw_logprobs = getattr(request, "logprobs", None)
+        top_lp: Optional[int] = getattr(request, "top_logprobs", None)
+        if top_lp is not None and raw_logprobs is not True:
+            # OpenAI: top_logprobs requires logprobs=true (400 otherwise)
+            raise ValueError("top_logprobs requires logprobs to be true")
+        logprobs: Optional[int] = top_lp
+        if logprobs is None:
+            if raw_logprobs is True:
+                logprobs = 0  # sampled-token logprob only
+            elif (isinstance(raw_logprobs, int)
+                  and not isinstance(raw_logprobs, bool)):
+                logprobs = raw_logprobs  # completions-style integer
+        if logprobs is not None and not 0 <= logprobs <= 20:
+            raise ValueError("logprobs/top_logprobs must be between 0 "
+                             "and 20")
         output = OutputOptions(
+            logprobs=logprobs,
             echo_prompt=bool(getattr(request, "echo", False)))
         return PreprocessedRequest(
             token_ids=token_ids, sampling=sampling, stop=stop, output=output,
@@ -159,8 +160,10 @@ class OpenAIPreprocessor:
             completion_tokens += len(out.token_ids)
             if out.completion_tokens is not None:
                 completion_tokens = out.completion_tokens
-            if out.text or out.finish_reason:
-                yield gen.content_chunk(out.text or "", out.finish_reason)
+            lp = chat_logprobs_content(out, self.tokenizer)
+            if out.text or out.finish_reason or lp:
+                yield gen.content_chunk(out.text or "", out.finish_reason,
+                                        logprobs=lp)
             if out.finish_reason:
                 finish = out.finish_reason
                 break
@@ -171,3 +174,50 @@ class OpenAIPreprocessor:
                 prompt_tokens=prompt_tokens,
                 completion_tokens=completion_tokens,
                 total_tokens=prompt_tokens + completion_tokens))
+
+
+def chat_logprobs_content(out, tokenizer) -> Optional[dict]:
+    """EngineOutput logprob fields → the OpenAI chat ``logprobs`` object
+    ({"content": [{token, logprob, bytes, top_logprobs}]}). None when the
+    request did not ask (the engine attaches the fields only then).
+    Logprobs describe the RAW model distribution: sampling penalties and
+    temperature are not reflected. "bytes" come from the DECODED string,
+    so a byte-fallback token that splits a multi-byte character shows
+    the replacement character's bytes."""
+    if not out.logprobs or not out.token_ids:
+        return None
+
+    def entry(tid: int, lp: float, tops: dict) -> dict:
+        s = tokenizer.decode([int(tid)])
+        return {"token": s, "logprob": lp, "bytes": list(s.encode()),
+                "top_logprobs": [
+                    {"token": tokenizer.decode([int(t)]), "logprob": v,
+                     "bytes": list(tokenizer.decode([int(t)]).encode())}
+                    for t, v in (tops or {}).items()]}
+
+    tops_list = out.top_logprobs or [{}] * len(out.token_ids)
+    return {"content": [entry(t, lp, tp) for t, lp, tp in
+                        zip(out.token_ids, out.logprobs, tops_list)]}
+
+
+def completion_logprobs(out, tokenizer, offset: int) -> Optional[dict]:
+    """Legacy completions logprobs object: parallel ``tokens`` /
+    ``token_logprobs`` / ``top_logprobs`` / ``text_offset`` lists.
+
+    ``offset`` is the caller's position in the ASSEMBLED response text
+    (echoed prompt included) at the start of this chunk; every token in
+    the chunk reports that offset (per-token decode lengths would drift
+    off the text: the incremental detokenizer holds UTF-8 bytes and
+    jailed stop prefixes)."""
+    if not out.logprobs or not out.token_ids:
+        return None
+    tokens, t_lps, tops, offs = [], [], [], []
+    tops_list = out.top_logprobs or [{}] * len(out.token_ids)
+    for tid, lp, tp in zip(out.token_ids, out.logprobs, tops_list):
+        tokens.append(tokenizer.decode([int(tid)]))
+        t_lps.append(lp)
+        tops.append({tokenizer.decode([int(t)]): v
+                     for t, v in (tp or {}).items()})
+        offs.append(offset)
+    return {"tokens": tokens, "token_logprobs": t_lps,
+            "top_logprobs": tops, "text_offset": offs}

@@ -610,8 +610,15 @@ def make_decode_window_fn(cfg: ModelConfig, use_kernels: bool = True,
     freezes as soon as it samples a stop token or exhausts its budget, and
     ``emitted`` counts the tokens each row really produced. With ``mesh``,
     a tensor-parallel rank's window: every rank samples the same tokens
-    from the gathered logits, so the carries agree."""
-    from ..engine.sampling import sample_tokens
+    from the gathered logits, so the carries agree.
+
+    ``penalties`` (the ``engine/sampling.py apply_penalties`` tuple,
+    replicated on every rank) apply before each of the K draws, and each
+    step's token folds into the state with the PRE-step done mask, so the
+    carries still agree across ranks; ``logprobs_topn`` > 0 also returns
+    each step's logprobs of the raw logits."""
+    from ..engine.sampling import (logprob_aux, sample_tokens,
+                                   update_penalty_state)
 
     heads = local_heads(cfg, mesh)
     (H, KV), hd = heads, cfg.head_dim_
@@ -620,11 +627,15 @@ def make_decode_window_fn(cfg: ModelConfig, use_kernels: bool = True,
     @torch.no_grad()
     def decode_window(params, tokens, positions, done, steps, remaining,
                       kv_k, kv_v, page_table, temperature, top_k, top_p,
-                      seeds, eos_table, *, k_steps: int):
+                      seeds, eos_table, penalties=None, *, k_steps: int,
+                      logprobs_topn: int = 0):
         """tokens/positions/done/steps/remaining: [B] carry (position -1 =
         padding row); temperature/top_k/top_p/seeds: [B] sampler params;
-        eos_table: [B, E] stop ids (-1 pad). Returns (tokens [B, K],
-        emitted [B], carry, kv_k, kv_v)."""
+        eos_table: [B, E] stop ids (-1 pad); penalties: None or the
+        sampler's penalty tuple. Returns (tokens [B, K], emitted [B],
+        carry, kv_k, kv_v), with ``aux`` = (lp [B, K], top_vals
+        [B, K, n], top_ids [B, K, n]) after ``emitted`` when
+        ``logprobs_topn`` = n > 0."""
         check_supported(cfg)
         B = tokens.shape[0]
         L = cfg.num_layers
@@ -639,6 +650,7 @@ def make_decode_window_fn(cfg: ModelConfig, use_kernels: bool = True,
         keys = _layer_keys(cfg)
         tok, pos = tokens, positions
         toks = []
+        lps, tvs, tis = [], [], []
         emitted = torch.zeros((B,), dtype=torch.int32, device=dev)
         for i in range(k_steps):
             h = embed_tokens(params, cfg, tok, mesh)[:, None]  # [B, 1, D]
@@ -672,7 +684,14 @@ def make_decode_window_fn(cfg: ModelConfig, use_kernels: bool = True,
                          cfg.norm_unit_offset)
             logits = project_logits(params, cfg, h[:, 0], mesh)
             nxt = sample_tokens(logits, temperature, top_k, top_p, seeds,
-                                steps, max_top_k=max_top_k)
+                                steps, max_top_k=max_top_k,
+                                penalties=penalties)
+            if logprobs_topn:
+                lp, tv, ti = logprob_aux(logits, nxt, logprobs_topn)
+                lps.append(lp)
+                tvs.append(tv)
+                tis.append(ti)
+            penalties = update_penalty_state(penalties, nxt, done)
             emitted = emitted + carry_active(done, pos).to(torch.int32)
             tok, pos, done, steps, remaining = carry_step_update(
                 nxt, tok, pos, done, steps, remaining, eos_table)
@@ -693,7 +712,12 @@ def make_decode_window_fn(cfg: ModelConfig, use_kernels: bool = True,
             _scatter_pages(kv_k[l], wk[l], flat, plan)
             _scatter_pages(kv_v[l], wv[l], flat, plan)
         out_toks = torch.stack(toks, dim=1)
-        return out_toks, emitted, (tok, pos, done, steps, remaining), kv_k, kv_v
+        carry = (tok, pos, done, steps, remaining)
+        if logprobs_topn:
+            aux = (torch.stack(lps, dim=1), torch.stack(tvs, dim=1),
+                   torch.stack(tis, dim=1))
+            return out_toks, emitted, aux, carry, kv_k, kv_v
+        return out_toks, emitted, carry, kv_k, kv_v
 
     return decode_window
 

@@ -2,9 +2,10 @@
 on the GPU: by CUDA-graph replay against eager calls, in one run.
 
     python -m dynamo_tpu_torch.profile_step [--rows 4 32] [--context 512]
-                                            [--windows 10]
+                                            [--windows 10] [--logprobs]
+                                            [--penalties]
     python -m dynamo_tpu_torch.profile_step --prefill [PBxTxP ...]
-                                            [--windows 10]
+                                            [--windows 10] [--penalties]
 
 Builds the engine at Llama-3-8B widths (random weights, seed 0). For
 each ``--rows`` B it prefills B rows of ``--context`` tokens, then runs
@@ -20,7 +21,17 @@ the engine's stream, each window's carry feeding the next:
   before window N's tokens are read back (pinned copies and an event per
   window), so the host's work overlaps the device's.
 
-It traces one window of each of the first two with ``torch.profiler``.
+``--logprobs`` runs the windows in the engine's logprobs variant (each
+step also returns the ``max_top_logprobs`` top logprobs of its raw
+logits, as a window with a logprobs request does; the variant's graph
+set). ``--penalties`` runs them in the penalised variant, as a window of
+a batch with penalties is dispatched: every row with repetition 1.1,
+frequency 0.5, presence 0.5 and four logit_bias entries, uploaded once
+(``PenaltyBuffers.upload``), and the penalty state rebuilt on the device
+from the rows' [B, context] token ids before every window
+(``PenaltyBuffers.fill``; the host's assembly of those ids is not
+timed). It traces one window of each of the first two with
+``torch.profiler``.
 Prints one JSON object per row count: wall ms per window (all windows,
 sorted) and per step, the kernels a traced window ran, the device-busy
 time (the union of the kernels' intervals), the device's idle share of
@@ -37,7 +48,11 @@ inputs, one replay of the bucket's graph); both then copy the drawn
 tokens to pinned memory and wait on an event. Per mode: the host's time
 until the dispatch returns (µs, all chunks, sorted), the wall per chunk
 including the wait, and the traced figures above; plus whether both
-modes drew the same tokens.
+modes drew the same tokens. With ``--penalties`` a third mode,
+``graph_penalised``, replays the same graph and then draws the first
+tokens eagerly with penalties and logit_bias, as the engine does for a
+batch with either (``TorchEngine._penalised_draw``): its chunk wall less
+``graph``'s is the penalised draw's cost.
 """
 
 from __future__ import annotations
@@ -103,11 +118,33 @@ def _timed(run, n: int) -> list:
     return sorted(walls)
 
 
-def profile_rows(engine, B: int, T: int, windows: int) -> dict:
+def _penalty_inputs(B: int, T: int, V: int, tokens):
+    """The ``--penalties`` sampler inputs of B rows whose last T//2
+    tokens of ``tokens`` [B, T] count as generated: (``pargs`` of
+    ``PenaltyBuffers.upload``, (ids, starts) of ``PenaltyBuffers.fill``)."""
+    import numpy as np
+
+    rng = np.random.RandomState(1)
+    f32 = np.float32
+    at = np.stack([np.repeat(np.arange(B), 4),
+                   rng.randint(0, V, 4 * B)]).astype(np.int32)
+    # one entry per (row, token)
+    _, first = np.unique(at[0].astype(np.int64) * V + at[1],
+                         return_index=True)
+    at = at[:, np.sort(first)]
+    pargs = (np.full(B, 1.1, f32), np.full(B, 0.5, f32),
+             np.full(B, 0.5, f32), at,
+             rng.uniform(-5, 5, at.shape[1]).astype(f32))
+    return pargs, (np.ascontiguousarray(tokens, np.int32),
+                   np.full(B, T // 2, np.int32))
+
+
+def profile_rows(engine, B: int, T: int, windows: int,
+                 logprobs: bool = False, penalties: bool = False) -> dict:
     import numpy as np
     import torch
 
-    from .engine.cuda_graphs import to_host
+    from .engine.cuda_graphs import PEN_FULL, PEN_NONE, to_host
 
     ecfg = engine.ecfg
     dev = engine.device
@@ -130,9 +167,15 @@ def profile_rows(engine, B: int, T: int, windows: int) -> dict:
     positions = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
     slots = (table[:, :, None] * ps + np.arange(ps)).reshape(B, -1)[:, :T]
     i32 = dict(dtype=torch.int32, device=dev)
-    graphs = engine.graphs
+    topn = ecfg.max_top_logprobs if logprobs else 0
+    graphs = engine.decode_set(topn, PEN_FULL if penalties else PEN_NONE)
     bk = graphs.bucket(B, P)
+    state = None
     with graphs.stream_ctx():
+        if penalties:
+            pargs, state = _penalty_inputs(B, T, engine.cfg.vocab_size,
+                                           tokens)
+            engine.penalties().upload(B, *pargs)
         logits, _, _ = engine.prefill_fn(
             engine.params, torch.tensor(tokens, **i32),
             torch.tensor(positions, **i32), engine.kv_k, engine.kv_v,
@@ -152,16 +195,24 @@ def profile_rows(engine, B: int, T: int, windows: int) -> dict:
         bk.eos.fill_(-1)
     torch.cuda.synchronize()
 
+    def rebuild():
+        """The state a penalised dispatch rebuilds before its window."""
+        if state is not None:
+            engine.penalty_buffers.fill(B, *state)
+
     def eager():
-        toks, _, carry, _, _ = engine.decode_multi_fn(
+        rebuild()
+        out = engine.decode_multi_fn(
             engine.params, *bk.carry_in, engine.kv_k, engine.kv_v, bk.table,
-            bk.temperature, bk.top_k, bk.top_p, bk.seeds, bk.eos,
-            k_steps=K)
+            bk.temperature, bk.top_k, bk.top_p, bk.seeds, bk.eos, bk.pen,
+            k_steps=K, logprobs_topn=topn)
+        toks, carry = out[0], out[-3]
         toks.cpu()  # the tokens are read back after each window
         for dst, src in zip(bk.carry_in, carry):
             dst.copy_(src)
 
     def graph():
+        rebuild()
         graphs.launch(bk)
         bk.toks.cpu()
         for dst, src in zip(bk.carry_in, bk.carry):
@@ -173,8 +224,9 @@ def profile_rows(engine, B: int, T: int, windows: int) -> dict:
         t0 = time.perf_counter()
         pending = None
         for _ in range(n):
+            rebuild()
             graphs.launch(bk)
-            nxt = to_host(bk.toks)
+            nxt = to_host(bk.toks, *(bk.aux or ()))
             for dst, src in zip(bk.carry_in, bk.carry):
                 dst.copy_(src)
             if pending is not None:
@@ -184,7 +236,8 @@ def profile_rows(engine, B: int, T: int, windows: int) -> dict:
         pending[1].synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
 
-    out = {"rows": B, "context": T, "steps_per_window": K, "bucket": [B, P]}
+    out = {"rows": B, "context": T, "steps_per_window": K, "bucket": [B, P],
+           "variant": graphs.variant}
     with graphs.stream_ctx():
         for name, run in (("eager", eager), ("graph", graph)):
             run()
@@ -201,7 +254,8 @@ def profile_rows(engine, B: int, T: int, windows: int) -> dict:
     return out
 
 
-def profile_prefill(engine, B: int, T: int, P: int, chunks: int) -> dict:
+def profile_prefill(engine, B: int, T: int, P: int, chunks: int,
+                    penalties: bool = False) -> dict:
     """One (B, T, P) prefill chunk and its first-token draw, eagerly and
     by graph replay (module docstring)."""
     import numpy as np
@@ -230,7 +284,9 @@ def profile_prefill(engine, B: int, T: int, P: int, chunks: int) -> dict:
     if paged:
         f["pslots"][:] = pages
     host = {k: np.array(v) for k, v in f.items()}
-    host_us = {"eager": [], "graph": []}
+    host_us = {"eager": [], "graph": [], "graph_penalised": []}
+    if penalties:
+        pen = _penalty_inputs(B, T, engine.cfg.vocab_size, f["tokens"])
     drawn = {}
 
     def eager():
@@ -256,9 +312,20 @@ def profile_prefill(engine, B: int, T: int, P: int, chunks: int) -> dict:
         event.synchronize()
         drawn["graph"] = out.tolist()
 
+    def graph_penalised():
+        t0 = time.perf_counter()
+        graphs.run(bk, img)
+        tok, _ = engine._penalised_draw(bk, *pen, 0)
+        (out,), event = to_host(tok)
+        host_us["graph_penalised"].append((time.perf_counter() - t0) * 1e6)
+        event.synchronize()
+
     out = {"chunk": [B, T, P], "paged": paged}
+    modes = [("eager", eager), ("graph", graph)]
+    if penalties:
+        modes.append(("graph_penalised", graph_penalised))
     with graphs.stream_ctx():
-        for name, run in (("eager", eager), ("graph", graph)):
+        for name, run in modes:
             run()
             torch.cuda.synchronize()
             host_us[name].clear()
@@ -280,6 +347,12 @@ def main() -> None:
     ap.add_argument("--context", type=int, default=512)
     ap.add_argument("--windows", type=int, default=10,
                     help="timed windows (or prefill chunks) per mode")
+    ap.add_argument("--logprobs", action="store_true",
+                    help="decode windows in the logprobs variant")
+    ap.add_argument("--penalties", action="store_true",
+                    help="decode windows in the penalised variant, and a "
+                         "penalised first-token draw after each prefill "
+                         "chunk")
     ap.add_argument("--prefill", nargs="*", metavar="PBxTxP", default=None,
                     help="profile prefill chunks instead of decode windows "
                          "(default 1x64x8 1x512x8 8x512x64)")
@@ -301,11 +374,13 @@ def main() -> None:
     if args.prefill is not None:
         for spec in args.prefill or ["1x64x8", "1x512x8", "8x512x64"]:
             B, T, P = (int(x) for x in spec.split("x"))
-            res = profile_prefill(engine, B, T, P, args.windows)
+            res = profile_prefill(engine, B, T, P, args.windows,
+                                  args.penalties)
             print(json.dumps({"card": card, **res}), flush=True)
         return
     for B in args.rows:
-        res = profile_rows(engine, B, args.context, args.windows)
+        res = profile_rows(engine, B, args.context, args.windows,
+                           args.logprobs, args.penalties)
         print(json.dumps({"card": card, **res}), flush=True)
 
 

@@ -1,14 +1,20 @@
 """Launcher for the PyTorch port: ``in=http out=torch``.
 
+    python -m dynamo_tpu_torch.run in=http out=torch --model-path DIR
     python -m dynamo_tpu_torch.run in=http out=torch --model 8b
     python -m dynamo_tpu_torch.run in=http out=torch --model tiny --device cpu
 
 Serves the OpenAI HTTP front end (chat + completions + models + health)
-over :class:`~dynamo_tpu_torch.engine.torch_engine.TorchEngine`. Weights
-are random, drawn from ``--seed``; the byte tokenizer is the card's
-default. ``--model-path`` is refused: the port has no weights loader yet,
-and serving random weights under a checkpoint's name would pass them off
-as the checkpoint's.
+over :class:`~dynamo_tpu_torch.engine.torch_engine.TorchEngine`. With
+``--model-path``, a local HF-style dense checkpoint (``config.json`` and
+safetensors, one file or shards with their index): its config, the
+default ``EngineConfig()``, its weights (``models/loader.py``; each
+tensor-parallel rank loads its own shard) and its card, with the HF
+tokenizer when ``tokenizer.json`` or ``tokenizer_config.json`` is there
+and the byte tokenizer otherwise. A path with no weights is an error:
+random weights are never served under a checkpoint's name. Without it,
+a ``--model`` preset with random weights drawn from ``--seed`` and the
+byte tokenizer.
 
 Tensor parallel, under the JAX launcher's flag names
 (``--tensor-parallel-size``, ``--coordinator``, ``--num-processes``,
@@ -39,10 +45,12 @@ import asyncio
 import json
 import logging
 import os
+import resource
 import signal
 import socket
 import subprocess
 import sys
+import time
 from typing import Dict, List, Tuple
 
 log = logging.getLogger("dynamo_tpu_torch.run")
@@ -54,7 +62,8 @@ def parse_args(argv=None):
         usage="%(prog)s in=http out=torch [flags]")
     ap.add_argument("io", nargs="*", help="in=… and out=… positionals")
     ap.add_argument("--model-path",
-                    help="refused: the port cannot load weights yet")
+                    help="local HF-style checkpoint directory (config.json "
+                         "+ safetensors) to serve")
     ap.add_argument("--model-name", help="served model name")
     ap.add_argument("--model", default=None,
                     help="preset: tiny (default), 1b or 8b")
@@ -97,18 +106,14 @@ def parse_args(argv=None):
     if not 0 <= args.process_id < args.num_processes:
         ap.error(f"--process-id {args.process_id} outside "
                  f"[0, {args.num_processes})")
-    if args.model_path:
-        ap.error("--model-path: the PyTorch port has no weights loader yet "
-                 "(the dense safetensors loader is next on ROADMAP.md's "
-                 "queue of modules to port), and will not serve random "
-                 "weights under a checkpoint's name; use --model "
-                 "tiny|1b|8b for random weights")
     return args
 
 
 def build_model_config(args):
     from .models.config import ModelConfig
 
+    if args.model_path:
+        return ModelConfig.from_local_path(args.model_path)
     preset = args.model or "tiny"
     if preset == "tiny":
         return ModelConfig.tiny()
@@ -122,7 +127,7 @@ def build_model_config(args):
 def build_engine_config(args):
     from .engine.torch_engine import EngineConfig
 
-    if args.model in (None, "tiny"):
+    if not args.model_path and args.model in (None, "tiny"):
         # the JAX launcher's tiny-model engine config
         return EngineConfig(page_size=16, num_pages=256, max_batch=16,
                             prefill_chunk=128, prefill_buckets=(128,),
@@ -130,11 +135,27 @@ def build_engine_config(args):
     return EngineConfig()
 
 
+def peak_rss_gib() -> float:
+    """This process's peak resident set (GiB): ``VmHWM`` of
+    /proc/self/status, else ``ru_maxrss``. Some container runtimes
+    report one figure for every process of the container."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) / 2**20
+    except OSError:
+        pass
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
 def build_engine(args) -> Tuple[object, object]:
     """(TorchEngine, model card) for the parsed arguments: with
     ``--coordinator``, this process's rank of the tensor-parallel mesh
-    (it joins the process group here). The kernel launch counts restart
-    after warmup, so the serving summary counts the served path alone."""
+    (it joins the process group here); with ``--model-path``, the
+    checkpoint's weights (the rank's shard), or FileNotFoundError when
+    the path holds none. The kernel launch counts restart after warmup,
+    so the serving summary counts the served path alone."""
     from .engine.torch_engine import TorchEngine
     from .llm.model_card import ModelDeploymentCard
     from .ops.paged_attention import reset_launch_counts
@@ -142,7 +163,12 @@ def build_engine(args) -> Tuple[object, object]:
 
     cfg = build_model_config(args)
     ecfg = build_engine_config(args)
-    mdc = ModelDeploymentCard(name=args.model_name or (args.model or "tiny"))
+    if args.model_path:
+        mdc = ModelDeploymentCard.from_local_path(args.model_path,
+                                                  name=args.model_name)
+    else:
+        mdc = ModelDeploymentCard(
+            name=args.model_name or (args.model or "tiny"))
     mdc.kv_block_size = ecfg.page_size
     mesh = None
     if args.coordinator:
@@ -152,8 +178,26 @@ def build_engine(args) -> Tuple[object, object]:
                              args.process_id)
         mesh = MeshSpec(model=args.tensor_parallel_size).build(
             resolve_device(args.device).type)
-    engine = TorchEngine(cfg, ecfg, seed=args.seed, device=args.device,
-                         mesh=mesh)
+    params = None
+    if args.model_path:
+        from .models.loader import load_params
+
+        rank, size = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+        t0 = time.monotonic()
+        params = load_params(args.model_path, cfg,
+                             mesh.device if mesh is not None else args.device,
+                             rank=rank, size=size)
+        seconds = time.monotonic() - t0
+        nbytes = sum(t.nbytes for t in params.values())
+        # one JSON line: the rank's load (its shard's bytes), its rate and
+        # the process's peak host RSS so far (ru_maxrss is in KiB)
+        log.info("checkpoint loaded %s", json.dumps({
+            "rank": rank, "path": args.model_path, "tensors": len(params),
+            "bytes": nbytes, "seconds": seconds,
+            "gb_per_s": nbytes / 1e9 / max(seconds, 1e-9),
+            "peak_rss_gib": peak_rss_gib()}))
+    engine = TorchEngine(cfg, ecfg, params=params, seed=args.seed,
+                         device=args.device, mesh=mesh)
     if not args.no_warmup:
         engine.warmup()
     reset_launch_counts()
@@ -163,7 +207,7 @@ def build_engine(args) -> Tuple[object, object]:
 def serving_summary(engine) -> dict:
     """What a rank did since warmup: captures after warmup, kernel
     launches (by kernel and by decode route, replays counting the calls
-    their capture recorded) and graph replays."""
+    their capture recorded) and graph replays (every variant's)."""
     from .ops import paged_attention as ops
 
     return {"rank": engine.mesh.rank if engine.mesh is not None else 0,
@@ -172,13 +216,15 @@ def serving_summary(engine) -> dict:
             "batch_dispatches_total": engine.batch_dispatches_total,
             "launches": dict(ops.LAUNCHES),
             "route_launches": dict(ops.DECODE_ROUTE_LAUNCHES),
-            "replays": {"prefill": engine.prefill_graphs.replays,
-                        "decode_window": engine.graphs.replays}}
+            "replays": engine.graph_replays()}
 
 
 def _print_summary(engine) -> None:
-    print(f"serving summary {json.dumps(serving_summary(engine))}",
-          flush=True)
+    # one write of the whole line: ranks sharing a log file must not
+    # interleave inside each other's lines (print writes the end apart)
+    sys.stdout.write(f"serving summary {json.dumps(serving_summary(engine))}"
+                     "\n")
+    sys.stdout.flush()
 
 
 async def serve_http(engine, mdc, host: str, port: int):

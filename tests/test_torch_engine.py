@@ -513,15 +513,23 @@ def test_prefill_graphs_match_jax_engine_at_every_chunk_length():
 
 
 def test_model_path_is_refused(tmp_path, capsys):
-    """--model-path names a checkpoint the port cannot load: the launcher
-    refuses it, saying why, instead of serving random weights under the
-    checkpoint's name."""
-    from dynamo_tpu_torch.run import parse_args
+    """--model-path is served now (tests/test_torch_golden_checkpoint.py),
+    but a path that holds no weights is still refused, before any work,
+    instead of serving random weights under the checkpoint's name."""
+    from dynamo_tpu_torch.run import build_engine, parse_args
 
-    (tmp_path / "config.json").write_text("{}")
-    with pytest.raises(SystemExit):
-        parse_args(["in=http", "out=torch", "--model-path", str(tmp_path)])
-    assert "no weights loader" in capsys.readouterr().err
+    (tmp_path / "config.json").write_text(json.dumps(
+        {"vocab_size": 512, "hidden_size": 64, "intermediate_size": 128,
+         "num_hidden_layers": 2, "num_attention_heads": 4}))
+    args = parse_args(["in=http", "out=torch", "--model-path", str(tmp_path),
+                       "--device", "cpu"])
+    assert args.model_path == str(tmp_path)
+    with pytest.raises(FileNotFoundError, match="no safetensors"):
+        build_engine(args)
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        build_engine(parse_args(["in=http", "out=torch", "--model-path",
+                                 str(tmp_path / "missing"),
+                                 "--device", "cpu"]))
     assert parse_args(["in=http", "out=torch", "--model", "8b"]).model == "8b"
 
 
@@ -536,19 +544,35 @@ def test_model_path_is_refused(tmp_path, capsys):
     ({"logprobs": True}, False),
 ])
 def test_neutral_sampling_values_are_served(fields, served):
-    """A penalty, bias or logprob field at its neutral value (as the JAX
-    package's SamplingBatch.build maps it) asks for nothing and is
-    served; any other value is still refused (HTTP 400)."""
+    """Penalty, bias and logprob fields are no longer refused as
+    unsupported: the port's preprocessor gives what the JAX package's
+    gives. ``served`` marks the cases at their neutral value (as the JAX
+    package's SamplingBatch.build maps it), which ask for nothing: the
+    neutral sampler and no logprobs. One of them, top_logprobs without
+    logprobs=true, is a 400 under the JAX package's OpenAI validation,
+    on both sides."""
+    from dynamo_tpu.llm.preprocessor import OpenAIPreprocessor as JaxPre
+    from dynamo_tpu_torch.engine.sampling import SamplingBatch
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
     from dynamo_tpu_torch.llm.protocols.openai import ChatCompletionRequest
 
     pre = OpenAIPreprocessor(ModelDeploymentCard(name="tiny"))
     req = ChatCompletionRequest(**{**_chat_body(False), **fields})
-    if served:
-        assert pre.preprocess_chat(req)[0].token_ids
-    else:
-        with pytest.raises(ValueError, match="not supported"):
-            pre.preprocess_chat(req)
+    if "top_logprobs" in fields and fields.get("logprobs") is not True:
+        for p in (pre, JaxPre(JaxCard(name="tiny"))):
+            with pytest.raises(ValueError, match="requires logprobs"):
+                p.preprocess_chat(req)
+        return
+    got = pre.preprocess_chat(req)[0]
+    assert got.token_ids
+    sb = SamplingBatch.build([got.sampling], 1)
+    neutral = (not sb.has_penalties and not got.sampling.logit_bias
+               and got.output.logprobs is None)
+    assert neutral == served
+    want = JaxPre(JaxCard(name="tiny")).preprocess_chat(
+        JaxChatRequest(**{**_chat_body(False), **fields}))[0]
+    assert got.sampling.to_dict() == want.sampling.to_dict()
+    assert got.output.logprobs == want.output.logprobs
 
 
 def test_stop_ids_are_built_once_per_sequence():
@@ -628,7 +652,7 @@ async def _http_round_trip(engine):
                     "model": "nope", "messages": []}) as r:
                 missing = r.status
             async with s.post(f"{base}/v1/chat/completions", json={
-                    **_chat_body(False), "logprobs": True}) as r:
+                    **_chat_body(False), "top_logprobs": 2}) as r:
                 unsupported = r.status
     finally:
         await svc.stop()
@@ -656,20 +680,24 @@ def test_http_round_trip_matches_jax_chat_chain():
 
 
 def test_port_imports_neither_jax_nor_dynamo_tpu():
-    """Importing every module of the port pulls in no jax and no
-    dynamo_tpu module."""
+    """Importing every module of the port (the weights loader and the
+    sampler included) and chip_smoke.py pulls in no jax, no dynamo_tpu
+    module and no safetensors (the loader reads the format itself)."""
     code = """
 import importlib, pkgutil, sys
 import dynamo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__,
                                                "dynamo_tpu_torch.")]
-for n in names:
+for n in names + ["chip_smoke"]:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-             or m == "dynamo_tpu" or m.startswith("dynamo_tpu."))
+             or m == "dynamo_tpu" or m.startswith("dynamo_tpu.")
+             or m == "safetensors" or m.startswith("safetensors."))
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
+assert {"dynamo_tpu_torch.models.loader",
+        "dynamo_tpu_torch.engine.sampling"} <= set(names), names
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

@@ -665,6 +665,62 @@ def test_cuda_graph_replay_counts_equal_eager_counts(cuda_device):
     assert eager[1] == {"bf16_mma": 8, "generic": 0}
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("topn,form,counts", [
+    (3, 0, False), (0, 1, False), (0, 1, True), (3, 1, True)])
+def test_cuda_graph_window_variants_match_eager(cuda_device, topn, form,
+                                                counts):
+    """The logprobs and penalised variants of the window by graph replay
+    against the same window called eagerly on the same inputs, pools and
+    penalty buffers: tokens, emitted counts, carry and logprobs aux
+    identical; logit_bias +100 on token 5 forces row 0 at every step;
+    the state rebuilt on the device from the rows' ids, read with the
+    rows' penalties (``counts``) or left unread under neutral ones (a
+    logit_bias-only batch)."""
+    from dynamo_tpu_torch.engine.cuda_graphs import (PEN_FULL, DecodeGraphs,
+                                                     PenaltyBuffers)
+    from dynamo_tpu_torch.engine.sampling import fill_penalty_state
+
+    params, kk, vv, window, inputs = _window_case(cuda_device,
+                                                  torch.bfloat16)
+    bufs = None
+    if form:
+        bufs = PenaltyBuffers.make(4, params["embed"].shape[0], cuda_device)
+        f32 = dict(dtype=torch.float32, device=cuda_device)
+        bufs.bias[0, 5] = 100.0
+        if counts:
+            bufs.rep.copy_(torch.tensor([1.0, 1.5, 1.2, 1.0], **f32))
+            bufs.freq.copy_(torch.tensor([0.0, 0.5, 0.0, 0.0], **f32))
+            bufs.pres.copy_(torch.tensor([0.0, 0.0, 0.7, 0.0], **f32))
+        ids = torch.randint(0, 500, (4, 20), generator=torch.Generator(
+            ).manual_seed(2), dtype=torch.int32).to(cuda_device)
+        fill_penalty_state(bufs.counts, bufs.presence, ids,
+                           torch.tensor([10, 5, 0, 20], device=cuda_device))
+    assert form in (0, PEN_FULL)
+    graphs = DecodeGraphs(window, params, kk, vv, k_steps=4, max_eos_ids=2,
+                          logprobs_topn=topn, penalty_form=form,
+                          penalty_buffers=bufs)
+    graphs.capture([(4, 8)])
+    bk = graphs.buckets[(4, 8)]
+    ek, ev = kk.clone(), vv.clone()
+    out = window(params, *inputs[:5], ek, ev, *inputs[5:], bk.pen,
+                 k_steps=4, logprobs_topn=topn)
+    with graphs.stream_ctx():
+        _fill(bk, inputs)
+        graphs.launch(bk)
+    torch.cuda.synchronize()
+    assert torch.equal(bk.toks, out[0]) and torch.equal(bk.emitted, out[1])
+    for a, b in zip(bk.carry, out[-3]):
+        assert torch.equal(a, b)
+    if topn:
+        assert len(bk.aux) == 3 and bk.aux[1].shape == (4, 4, topn)
+        for a, b in zip(bk.aux, out[2]):
+            assert torch.equal(a, b)
+    if form:
+        assert bk.toks[0].tolist() == [5] * 4
+    assert torch.equal(kk, ek) and torch.equal(vv, ev)
+
+
 # ------------------------------------------------ prefill chunks as graphs
 
 
