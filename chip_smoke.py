@@ -96,6 +96,11 @@ Phases; any failure exits non-zero before the result line:
    tp=2 (two launcher ranks, each loading its shard, with its load line)
    tp=1's tokens wherever tp=1's top-2 margin exceeds twice
    LOGPROB_LIMIT; each launch's serving summaries checked as phase 7's;
+   then loaded with quant="int8": at tp=1 bitwise ``quantize_int8`` of
+   the seed-0 params on the card, at tp=2 (two ranks of this script on
+   the one card) each rank's int8 shard bitwise the cut of tp=1's, and
+   its logits on check_paths' inputs within PATH_LIMITS of phase 10's
+   tp=1 int8 logits;
 9. an engine on the loaded weights warmed with ``warmup_penalties``: the
    plain and the penalised window variants over every bucket (graph pool
    MiB by variant printed), the penalised window's replay bitwise equal
@@ -106,6 +111,24 @@ Phases; any failure exits non-zero before the result line:
    greedy tokens agree with the plain path's penalised argmax where the
    margin exceeds twice LOGPROB_LIMIT, and nothing is captured after
    warmup.
+10. (run after phase 6, once the bf16 engine has left the card) the
+   weight-only int8 GEMM (``ops/csrc/int8_gemm.cu``) held against the
+   float32 evaluation of its plain version, within one bf16 rounding of
+   the output plus the float32 summation order
+   (``ops/int8_gemm.py int8_gemm_tolerance``), at every projection shape
+   of the 8B model at M = 1, 4, 64, 512 and 4,096, at tp=2's shapes and
+   at ragged M, N and K, with one scale perturbed as the control that
+   must fail; timed at M = 4, 64, 512 and 4,096 beside its bound, its
+   plain version, bf16 ``torch.matmul`` on the dequantized weight and
+   ``torch._weight_int8pack_mm`` where it runs on CUDA; then the 8B model
+   built by the launcher's ``--dtype int8`` path and checked as phase 4
+   checks the bf16 one (phase 4's requests over HTTP, every bucket
+   captured, none after warmup, int8 GEMM launches equal to the replays
+   times 7 x 32 + 1 a forward, logprobs against the int8 plain path,
+   the teacher-forced kernel path against the int8 plain path with an
+   int8 fault among its controls, one window and two chunks by replay
+   against eager calls) and its logits held within rel_l2 INT8_REL_L2 of
+   the bf16 engine's on the same seed-0 weights.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -190,6 +213,21 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return a.elapsed_time(b) / (iters * reps)
 
 
+def once_ms(fn) -> float:
+    """Device time of one call, between two CUDA events (for a call too
+    slow to repeat)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
 def eager_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     """Wall time per call when called back to back from Python: the larger
     of the device time and the host's launch overhead."""
@@ -206,6 +244,12 @@ def eager_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
 
 
 def max_err(a, b) -> float:
@@ -525,6 +569,7 @@ def _ttft_hist(engine) -> tuple:
 async def serve_and_check(engine, mdc):
     import aiohttp
 
+    from dynamo_tpu_torch.ops import int8_gemm
     from dynamo_tpu_torch.ops import paged_attention as ops
     from dynamo_tpu_torch.run import serve_http
 
@@ -599,6 +644,7 @@ async def serve_and_check(engine, mdc):
         return rids, wall, stages
 
     ops.reset_launch_counts()
+    int8_gemm.reset_launch_counts()
     replays0 = engine.graph_replays()
     async with aiohttp.ClientSession() as s:
         async with s.get(f"{base}/health") as r:
@@ -626,6 +672,7 @@ async def serve_and_check(engine, mdc):
     solo = await solo_logprobs(base, mdc.name, "solo")
     launches = dict(ops.LAUNCHES)
     route_launches = dict(ops.DECODE_ROUTE_LAUNCHES)
+    int8_launches = dict(int8_gemm.INT8_GEMM_LAUNCHES)
     replayed = engine.graph_replays()
     replays = (replayed["prefill"] - replays0["prefill"],
                replayed["decode_window"] - replays0["decode_window"])
@@ -666,6 +713,14 @@ async def serve_and_check(engine, mdc):
     if route_launches != {"bf16_mma": launches["paged_attention_decode"],
                           "generic": 0}:
         fail(f"decode calls by route on the served path: {route_launches}")
+    # int8 weights: every projection of every replayed chunk and window
+    # step through the int8 GEMM (7 a layer, and the head); none in bf16
+    per_pass = (7 * L + 1) if engine.quant == "int8" else 0
+    if sum(int8_launches.values()) != (replays[0] + replays[1] * K) \
+            * per_pass:
+        fail(f"int8 GEMM launches {int8_launches} are not the graph "
+             f"replays' ({replays[0]} prefill chunks, {replays[1]} windows "
+             f"x {K} steps, x {per_pass} products)")
     profiled = {k: v for k, v in bucket_cost.items()
                 if k.startswith(("prefill:", "decode_window:"))}
     if not any(k.startswith("prefill:") for k in profiled) or not any(
@@ -708,6 +763,7 @@ async def serve_and_check(engine, mdc):
         "output_tok_per_s": round(n_tok / wall, 3),
         "wall_s": round(wall, 3), "launches": launches,
         "route_launches": route_launches,
+        "int8_gemm_launches": int8_launches,
         "replays": {"prefill": replays[0], "decode_window": replays[1]},
         "post_warmup_compiles_total": compiles,
         "decode_graphs": sum(len(gs.buckets) for gs in
@@ -800,6 +856,16 @@ LOGPROB_LIMIT = 0.25
 TP_LOGPROB_LIMIT = 0.1
 
 
+def plain_params(params) -> dict:
+    """The params of the plain path: int8 weights multiplied through the
+    int8 GEMM's plain version (``QuantInt8.as_plain``), the rest as
+    they are."""
+    from dynamo_tpu_torch.models.quant import QuantInt8
+
+    return {k: v.as_plain() if isinstance(v, QuantInt8) else v
+            for k, v in params.items()}
+
+
 def plain_logits(params, cfg, dev, ids: list):
     """Logits [len(ids), V] at every position of one sequence, by one
     forward of the plain path (the gather attention, no kernel) over
@@ -839,8 +905,8 @@ def check_logprobs(engine, cfg, dev, reference) -> dict:
         P = len(ref["prompt_ids"])
         with torch.no_grad():
             logp = torch.log_softmax(plain_logits(
-                engine.params, cfg, dev, ref["prompt_ids"] + toks[:-1])[
-                    P - 1:].float(), dim=-1)
+                plain_params(engine.params), cfg, dev,
+                ref["prompt_ids"] + toks[:-1])[P - 1:].float(), dim=-1)
         top = torch.topk(logp, SOLO_TOP).values.cpu()
         chosen = logp.gather(1, torch.tensor(toks, device=dev)[:, None])[
             :, 0].cpu()
@@ -953,19 +1019,24 @@ def check_paths(engine, cfg, dev) -> tuple:
     layer are compared; steps 1.. are where the combine kernel folds 2..
     in-flight keys. Two controls, each a fault on the kernel path, show
     the check can see one: prefill queries that miss their own key, and a
-    window step that folds one in-flight key too few. Each control must
-    land above its limit. Returns the report and the kernel path's
+    window step that folds one in-flight key too few; with int8 weights
+    (whose plain path multiplies through the int8 GEMM's plain version)
+    instead every int8 GEMM call leaving out the last 16 of its K. Each
+    control must land above its limit. Returns the report and the kernel path's
     (prefill logits, step logits) on the host: the tp=1 reference of the
     tensor-parallel phase."""
     import torch
 
-    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models import llama, quant
 
     def run(use: bool):
-        return path_run(engine.params, cfg, dev, use)
+        return path_run(engine.params if use else plain_params(engine.params),
+                        cfg, dev, use)
 
     def errs(a, b):
-        return {"prefill_logits": max_err(a[0], b[0]),
+        return {"rel_l2_logits": rel_l2(torch.cat([a[0][None], a[1]]),
+                                        torch.cat([b[0][None], b[1]])),
+                "prefill_logits": max_err(a[0], b[0]),
                 "window_logits_by_step": [max_err(x, y)
                                           for x, y in zip(a[1], b[1])],
                 "window_logits": max_err(a[1], b[1]),
@@ -987,19 +1058,30 @@ def check_paths(engine, cfg, dev) -> tuple:
         return real_win(q, kp, vp, layer, table_, start, qp, wk, wv,
                         max(1, n_win - 1), **kw)
 
-    def with_fault(name, fault):
-        real = getattr(llama, name)
-        setattr(llama, name, fault)
+    real_int8 = quant.int8_matmul
+
+    def int8_k_tail_dropped(x, q, s):
+        k = q.shape[1] - 16
+        return real_int8(x[..., :k].contiguous(), q[:, :k].contiguous(), s)
+
+    def with_fault(name, fault, module=llama):
+        real = getattr(module, name)
+        setattr(module, name, fault)
         try:
             return errs(run(True), plain)
         finally:
-            setattr(llama, name, real)
+            setattr(module, name, real)
 
-    control = {
-        "prefill_misses_own_key": with_fault("paged_attention_prefill",
-                                             pf_miss_own_key),
-        "window_one_key_short": with_fault("paged_attention_decode_window",
-                                           win_one_key_short)}
+    if engine.quant == "int8":
+        # the attention kernels are phase 4's, controlled there
+        control = {"int8_k_tail_dropped": with_fault(
+            "int8_matmul", int8_k_tail_dropped, quant)}
+    else:
+        control = {
+            "prefill_misses_own_key": with_fault("paged_attention_prefill",
+                                                 pf_miss_own_key),
+            "window_one_key_short": with_fault(
+                "paged_attention_decode_window", win_one_key_short)}
 
     scale = {"prefill_logits_max_abs": float(plain[0].abs().max()),
              "window_logits_max_abs": float(plain[1].abs().max()),
@@ -1012,11 +1094,18 @@ def check_paths(engine, cfg, dev) -> tuple:
         if sound[key] > limit:
             fail(f"kernel path differs from plain path: {key} "
                  f"{sound[key]:.4g} > {limit}")
-    # the window fault leaves step 0 alone (one key is all it has)
-    cp, cw = control["prefill_misses_own_key"], control["window_one_key_short"]
-    for key, got in (("prefill_logits", cp["prefill_logits"]),
-                     ("window_logits", max(cw["window_logits_by_step"][1:])),
-                     ("window_kv", cw["window_kv"])):
+    if "int8_k_tail_dropped" in control:
+        ci = control["int8_k_tail_dropped"]
+        checks = [("prefill_logits", ci["prefill_logits"]),
+                  ("window_logits", ci["window_logits"])]
+    else:
+        # the window fault leaves step 0 alone (one key is all it has)
+        cp = control["prefill_misses_own_key"]
+        cw = control["window_one_key_short"]
+        checks = [("prefill_logits", cp["prefill_logits"]),
+                  ("window_logits", max(cw["window_logits_by_step"][1:])),
+                  ("window_kv", cw["window_kv"])]
+    for key, got in checks:
         if got <= PATH_LIMITS[key]:
             fail(f"control fault stays within the {key} limit "
                  f"({got:.4g} <= {PATH_LIMITS[key]}): the check is blind")
@@ -1485,6 +1574,328 @@ def log_kernel_row(r: dict) -> None:
         log(f"  {r['name']} {shape}: {json.dumps(d)}")
 
 
+# ---------------------------------------------------------------- int8
+
+# the int8 GEMM's shapes on the 8B main path (K, N): wq and wo, wk and
+# wv, w_gate and w_up, w_down, lm_head; one rank's at tp=2; ragged M, N
+# and K (not a multiple of the kernel's 64-wide chunk)
+INT8_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
+               "gate_up": (4096, 14336), "down": (14336, 4096),
+               "lm_head": (4096, 128256)}
+INT8_TP2_SHAPES = {"wq": (4096, 2048), "wk_wv": (4096, 512),
+                   "gate_up": (4096, 7168), "lm_head": (4096, 64128),
+                   "wo": (2048, 4096), "down": (7168, 4096)}
+INT8_RAGGED = [(3, 4096, 1000), (37, 4096, 130), (100, 4096, 4100),
+               (300, 1040, 1000)]
+# the rows M of a decode window (4 at the served batch, 64 at the
+# largest bucket) and of a prefill chunk (one of 512 tokens, 8 x 512)
+INT8_ROWS = (1, 4, 64, 512, 4096)
+INT8_TIMED_ROWS = (4, 64, 512, 4096)
+# the kernels line carries the served window's and first chunk's rows
+INT8_LINE_ROWS = (4, 512)
+# timed calls cycle over copies of the weights holding this many int8
+# bytes, so each call finds its weights out of the 50 MB L2 as a layer's
+# call does
+INT8_COLD_BYTES = 256 * 2**20
+# the int8 logits against the bf16 logits of the same seed-0 weights, as
+# rel_l2. tests/test_quant.py bounds the scheme's error by 0.05 on a
+# 2-layer model of width 64; the error grows with depth and width, and
+# the 8B's 32 layers of 4096 read 0.060 on an H100 80GB HBM3 (PERF.md,
+# Findings) with the int8 path at its plain version's bf16 noise
+# (check_paths). 0.1 keeps this a check on the scheme's scale; the
+# int8 fault of check_paths reports its own rel_l2 beside it.
+INT8_REL_L2 = 0.1
+INT8_SOURCE = "dynamo_tpu_torch/ops/csrc/int8_gemm.cu"
+# no TPU kernel: QuantInt8.__rmatmul__, an XLA fusion
+INT8_REPLACES = "dynamo_tpu/models/quant.py:87"
+
+
+def int8_case(dev, M: int, K: int, N: int, seed: int = 0):
+    """bf16 x [M, K] and a random [K, N] weight quantized on the card:
+    (x, q [N, K], s [N], the QuantInt8)."""
+    import torch
+
+    from dynamo_tpu_torch.models.quant import quantize_int8
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    qw = quantize_int8(torch.randn(K, N, generator=g, device=dev)
+                       / K ** 0.5)
+    return x, qw.q, qw.s.reshape(-1), qw
+
+
+def int8_excess(y, x, q, s) -> tuple:
+    """(largest amount by which y passes the stated tolerance, its max
+    abs error) against the float32 evaluation of the plain version."""
+    from dynamo_tpu_torch.ops.int8_gemm import int8_gemm_tolerance
+
+    ref, tol = int8_gemm_tolerance(x, q, s)
+    y = y.float().reshape(ref.shape)
+    return float(((y - ref).abs() - tol).max()), max_err(y, ref)
+
+
+def check_int8_gemm(dev) -> dict:
+    """The int8 GEMM against the float32 evaluation of its plain version
+    (TF32 off) at every shape of INT8_SHAPES at every M of INT8_ROWS,
+    at tp=2's shapes (M = 4 and 512) and at ragged M, N and K: within
+    ``ops/int8_gemm.py int8_gemm_tolerance``, one bf16 rounding of the
+    output (2^-8 of it) plus the float32 sums in another order (2^-16 of
+    the sum of the terms' magnitudes). The control, one scale 1 + 2^-5
+    off, must pass the tolerance at both routes."""
+    import torch
+
+    from dynamo_tpu_torch.ops.int8_gemm import int8_matmul
+
+    cases = ([(n, M, K, N) for n, (K, N) in INT8_SHAPES.items()
+              for M in INT8_ROWS]
+             + [(f"tp2 {n}", M, K, N) for n, (K, N) in INT8_TP2_SHAPES.items()
+                for M in INT8_LINE_ROWS]
+             + [("ragged", M, K, N) for M, K, N in INT8_RAGGED])
+    out = {}
+    for name, M, K, N in cases:
+        x, q, s, _ = int8_case(dev, M, K, N)
+        ex, err = int8_excess(int8_matmul(x, q, s), x, q, s)
+        out[f"{name} {K}x{N} M={M}"] = {"max_abs_err": err, "excess": ex}
+        if ex > 0:
+            fail(f"int8 GEMM {name} {K}x{N} M={M}: {ex:.4g} past the "
+                 f"tolerance (max abs err {err:.4g})")
+        del x, q, s
+    for M in INT8_LINE_ROWS:
+        x, q, s, _ = int8_case(dev, M, 4096, 1024)
+        bad = s.clone()
+        bad[7] *= 1 + 2.0 ** -5
+        ex, err = int8_excess(int8_matmul(x, q, bad), x, q, s)
+        out[f"control: scale 7 off by 2^-5, 4096x1024 M={M}"] = {
+            "max_abs_err": err, "excess": ex}
+        if ex <= 0:
+            fail(f"the perturbed-scale control stays within the int8 "
+                 f"tolerance at M={M}: the check is blind")
+    torch.cuda.empty_cache()
+    worst = max(v["excess"] for k, v in out.items()
+                if not k.startswith("control"))
+    log(f"  int8 GEMM vs plain, {len(cases)} shapes within tolerance "
+        f"(largest excess {worst:.4g} <= 0); controls "
+        f"{json.dumps({k: v for k, v in out.items() if k.startswith('control')})}")
+    return out
+
+
+def time_int8_gemm(dev, errs: dict) -> list:
+    """The int8 GEMM timed at the served shapes (INT8_SHAPES at every M
+    of INT8_TIMED_ROWS) in a CUDA graph of calls that cycle over copies
+    of the weights (INT8_COLD_BYTES), beside its bound
+    (``int8_gemm_work``), its plain version, bf16 ``torch.matmul`` on
+    the dequantized weight (the bf16 path's cost of the same product)
+    and, where the card's torch runs it on CUDA,
+    ``torch._weight_int8pack_mm`` (one PyTorch call of the same
+    function, timed over fewer calls; the port never calls it)."""
+    import itertools
+
+    import torch
+
+    from dynamo_tpu_torch.ops.int8_gemm import (int8_gemm_work, int8_matmul,
+                                                int8_matmul_plain)
+
+    def library(x, q, s):
+        return torch._weight_int8pack_mm(x, q, s.to(x.dtype))
+
+    x, q, s, _ = int8_case(dev, 4, 64, 32)
+    try:
+        library(x, q, s)
+        torch.cuda.synchronize()
+        library_note = None
+    except (RuntimeError, NotImplementedError) as e:
+        library_note = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        log(f"  torch._weight_int8pack_mm does not run on CUDA here: "
+            f"{library_note}")
+    rows = []
+    for name, (K, N) in INT8_SHAPES.items():
+        copies = max(1, min(64, -(-INT8_COLD_BYTES // (K * N))))
+        ws = []
+        for c in range(copies):
+            _, q, s, qw = int8_case(dev, 1, K, N, seed=10 + c)
+            ws.append((q, s, qw.dequant(torch.bfloat16).contiguous()))
+        for M in INT8_TIMED_ROWS:
+            x = torch.randn(M, K, device=dev).to(torch.bfloat16)
+            turn = itertools.count()
+
+            def pick():
+                return ws[next(turn) % copies]
+
+            def kern():
+                q, s, _ = pick()
+                return int8_matmul(x, q, s)
+
+            def plain():
+                q, s, _ = pick()
+                return int8_matmul_plain(x, q, s)
+
+            def bf16():
+                return x @ pick()[2]
+
+            def lib():
+                q, s, _ = pick()
+                return library(x, q, s)
+
+            work = int8_gemm_work(M, K, N)
+            iters = (20 if work["bound_ms"] < 0.2 else
+                     5 if work["bound_ms"] < 2 else 2)
+            route = "small_m" if M <= 64 else "large_m"
+            rows.append({
+                "name": f"int8_gemm {name} {K}x{N} M={M}", "route": "cuda",
+                "source": INT8_SOURCE, "replaces": INT8_REPLACES,
+                "kernel": f"int8_matmul (ops/int8_gemm.py) -> "
+                          f"int8_gemm_{route.split('_')[0]}_kernel",
+                "int8_route": route, "M": M, "K": K, "N": N,
+                "launches": 0,
+                "max_abs_err": errs[f"{name} {K}x{N} M={M}"]["max_abs_err"],
+                "ms": time_ms(kern, iters), "plain_ms": time_ms(plain, iters),
+                "bf16_matmul_ms": time_ms(bf16, iters),
+                "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+                # the library call is far slower than the kernel: a
+                # graph of two calls at decode rows, one call at prefill's
+                "library_ms": (None if library_note is not None else
+                               time_ms(lib, 2, warmup=1) if M <= 64
+                               else once_ms(lib)),
+                "library": "torch._weight_int8pack_mm" + (
+                    "" if library_note is None
+                    else f" (not on CUDA: {library_note})")})
+            log(f"  {rows[-1]['name']}: {rows[-1]['ms']:.4f} ms (bound "
+                f"{work['bound_ms']:.4f}, {work['bound_by']}; plain "
+                f"{rows[-1]['plain_ms']:.4f}; bf16 matmul "
+                f"{rows[-1]['bf16_matmul_ms']:.4f}; library "
+                f"{rows[-1]['library_ms']})")
+        del ws
+        torch.cuda.empty_cache()
+    return rows
+
+
+def same_param(a, b) -> bool:
+    """Bitwise equal params: a tensor, or an int8 weight's q and s."""
+    import torch
+
+    from dynamo_tpu_torch.models.quant import QuantInt8
+
+    if isinstance(a, QuantInt8) or isinstance(b, QuantInt8):
+        return (isinstance(a, QuantInt8) and isinstance(b, QuantInt8)
+                and torch.equal(a.q, b.q) and torch.equal(a.s, b.s))
+    return torch.equal(a, b)
+
+
+def compare_int8_bf16(int8_logits, bf16_logits) -> dict:
+    """check_paths' teacher-forced logits (prefill, then every window
+    step) of the int8 engine against the bf16 engine's on the same seed-0
+    weights: rel_l2 below INT8_REL_L2, and the greedy agreement."""
+    import torch
+
+    a = torch.cat([int8_logits[0][None], int8_logits[1]])
+    b = torch.cat([bf16_logits[0][None], bf16_logits[1]])
+    rel = rel_l2(a, b)
+    agree = a.argmax(-1) == b.argmax(-1)
+    out = {"rel_l2": rel, "limit": INT8_REL_L2,
+           "rel_l2_by_step": [rel_l2(x, y) for x, y in zip(a, b)],
+           "greedy_agree": int(agree.sum()), "greedy_of": agree.numel()}
+    log(f"  int8 vs bf16 logits (same seed-0 weights): {json.dumps(out)}")
+    if not rel < INT8_REL_L2:
+        fail(f"int8 logits rel_l2 {rel:.4g} from bf16's >= {INT8_REL_L2}")
+    return out
+
+
+def int8_phase(cfg, dev, bf16_logits) -> tuple:
+    """Phase 10: the int8 GEMM held against its plain version and timed
+    (check_int8_gemm, time_int8_gemm); then the 8B model built by the
+    launcher's ``--dtype int8`` path (random seed-0 weights quantized as
+    drawn, every graph of the bf16 engine's grid warmed) and checked as
+    phase 4 checks the bf16 one: phase 4's requests over HTTP, every
+    projection of every replayed chunk and window step through the
+    kernel and no capture after warmup (serve_and_check), served
+    logprobs against the int8 plain path (check_logprobs), the kernel
+    path against the plain path teacher-forced with its controls
+    (check_paths), the logits against the bf16 engine's on the same
+    weights (compare_int8_bf16), one window and two chunks by replay
+    against eager calls (check_graph_window, check_graph_prefill).
+    Returns (report, the kernel rows, check_paths' int8 logits)."""
+    import torch
+
+    from dynamo_tpu_torch.models.quant import QuantInt8
+    from dynamo_tpu_torch.run import build_engine, parse_args
+
+    errs = check_int8_gemm(dev)
+    rows = time_int8_gemm(dev, errs)
+    t = time.monotonic()
+    engine, mdc = build_engine(parse_args([
+        "in=http", "out=torch", "--model", "8b", "--dtype", "int8",
+        "--model-name", "llama3-8b-int8-random"]))
+    topn = engine.ecfg.max_top_logprobs
+    check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
+    weights = {"int8_projections_bytes": sum(
+        v.nbytes for v in engine.params.values() if isinstance(v, QuantInt8)),
+        "other_bytes": sum(v.nbytes for v in engine.params.values()
+                           if not isinstance(v, QuantInt8))}
+    log(f"  8B int8 engine (--dtype int8: 32 layers, seed 0 quantized) "
+        f"built and warmed up in {time.monotonic() - t:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; "
+        f"weights {json.dumps(weights)}")
+    served, ttft, solo_ref = asyncio.run(serve_and_check(engine, mdc))
+    log(f"  served int8: {json.dumps(served)}")
+    for batch_name, stages in (("cold", ttft["cold"]),
+                               ("warm 1", ttft["warm"][0])):
+        log(f"  int8 TTFT stages, {batch_name} batch: {json.dumps(stages)}")
+    logprobs = check_logprobs(engine, cfg, dev, solo_ref)
+    paths, logits = check_paths(engine, cfg, dev)
+    vs_bf16 = compare_int8_bf16(logits, bf16_logits)
+    graph_window = check_graph_window(engine, cfg, dev)
+    graph_prefill = check_graph_prefill(engine, dev)
+    for r in rows:
+        r["launches"] = served["int8_gemm_launches"][r["int8_route"]]
+    report = {"weights": weights, "served": served,
+              "ttft": {"cold": ttft["cold"], "warm_spread":
+                       ttft["warm_spread"]},
+              "logprobs": logprobs, "paths": paths, "vs_bf16": vs_bf16,
+              "graph_window": graph_window, "graph_prefill": graph_prefill,
+              "kernel_errs": errs}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, rows, logits
+
+
+def check_tp_int8(ckpt_dir: str, reference, out_dir: str) -> dict:
+    """Two ranks of :func:`tp_worker` in its int8 mode on the one card:
+    each loads its shard of the phase-8 checkpoint with quant="int8",
+    which must be bitwise the cut of tp=1's (the engine's seed-0 weights
+    quantized whole and cut, as random init does at tp=2), and runs
+    check_paths' inputs on it; its logits must stay within tp=1 int8's
+    limits (compare_tp_logits against phase 10's), the ranks' bitwise
+    equal."""
+    import torch
+
+    coordinator = f"127.0.0.1:{_free_port()}"
+    cmds = [[sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--tp-worker", str(r), "--tp-coordinator", coordinator,
+             "--tp-dir", out_dir, "--tp-int8", ckpt_dir]
+            for r in range(TP_RANKS)]
+    logs = [os.path.join(out_dir, f"tp_int8_rank{r}.log")
+            for r in range(TP_RANKS)]
+    t0 = time.monotonic()
+    rcs = _run_ranks(cmds, logs, 360)
+    for r in sorted(range(TP_RANKS), key=lambda r: rcs[r] is None
+                    or rcs[r] < 0):
+        if rcs[r] != 0:
+            fail(f"tp int8 rank {r} exited {rcs[r]}:\n{_tail(logs[r])}")
+    got = [torch.load(os.path.join(out_dir, f"tp_int8_rank{r}.pt"))
+           for r in range(TP_RANKS)]
+    for r in range(1, TP_RANKS):
+        if not all(torch.equal(got[0][k], got[r][k])
+                   for k in ("prefill", "steps")):
+            fail(f"tp int8 rank {r}'s logits differ from rank 0's")
+    result = {"keys_equal": [g["keys_equal"] for g in got],
+              "load_s": [g["load_s"] for g in got],
+              **compare_tp_logits(got[0], reference, "tp=2 int8"),
+              "seconds": time.monotonic() - t0}
+    log(f"  tp=2 int8 shards and logits vs tp=1 int8: {json.dumps(result)}")
+    return result
+
+
 # ------------------------------------------------------ tensor parallel
 
 TP_SIZES = (2, 4, 8)
@@ -1653,7 +2064,8 @@ def time_local_shapes(dev, ecfg, served) -> dict:
     return out
 
 
-def tp_worker(rank: int, coordinator: str, out_dir: str) -> None:
+def tp_worker(rank: int, coordinator: str, out_dir: str,
+              int8_ckpt: str = None) -> None:
     """One rank of the tensor-parallel check (a process of its own): an
     engine of model=TP_RANKS on the 8B weights of seed 0 (this rank's
     shard), its plain variant warmed as the launcher warms it; then :func:`path_run` on its
@@ -1662,7 +2074,12 @@ def tp_worker(rank: int, coordinator: str, out_dir: str) -> None:
     collectives inside, against the same calls made eagerly on this
     rank; each fails the rank on a difference) and :func:`collective_ms`.
     Every rank makes the same calls in the same order, so their
-    collectives pair up. The results go to ``out_dir``."""
+    collectives pair up. The results go to ``out_dir``. With
+    ``int8_ckpt`` (the int8 mode, :func:`check_tp_int8`): the rank's
+    shard of that checkpoint loaded with quant="int8" must equal, param
+    by param and bitwise, the rank's weights of an int8 engine of seed 0
+    (each param drawn whole, quantized whole, then cut); then
+    :func:`path_run` on the loaded shard."""
     import torch
 
     from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
@@ -1673,6 +2090,29 @@ def tp_worker(rank: int, coordinator: str, out_dir: str) -> None:
     initialize_multihost(coordinator, TP_RANKS, rank)
     mesh = MeshSpec(model=TP_RANKS).build("cuda")
     cfg = ModelConfig.llama3_8b()
+    if int8_ckpt:
+        from dynamo_tpu_torch.models.loader import load_params
+
+        drawn = TorchEngine(cfg, EngineConfig(warmup_logprobs=False),
+                            seed=0, mesh=mesh, quant="int8").params
+        t = time.monotonic()
+        loaded = load_params(int8_ckpt, cfg, mesh.device, rank=rank,
+                             size=TP_RANKS, quant="int8")
+        load_s = time.monotonic() - t
+        unequal = sorted(k for k in drawn if k not in loaded
+                         or not same_param(loaded[k], drawn[k]))
+        if unequal or set(loaded) != set(drawn):
+            fail(f"tp int8 rank {rank}: loaded shards differ from the cut "
+                 f"of tp=1's: {unequal}")
+        del drawn
+        torch.cuda.empty_cache()
+        logits, steps, _ = path_run(loaded, cfg, mesh.device, True,
+                                    mesh=mesh)
+        torch.save({"prefill": logits.cpu(), "steps": steps.cpu(),
+                    "keys_equal": len(loaded), "load_s": load_s},
+                   os.path.join(out_dir, f"tp_int8_rank{rank}.pt"))
+        log(f"tp int8 worker {rank}: done")
+        return
     # the plain variant alone: the rank checks no logprobs window, and at
     # tp=2 on one card each warm call's collectives cost ~1 s a window
     engine = TorchEngine(cfg, EngineConfig(warmup_logprobs=False), seed=0,
@@ -1864,39 +2304,50 @@ def check_tp_logits(reference, out_dir: str) -> dict:
                   or any(c["sampled"] != got[0]["graph_prefill"][k]["sampled"]
                          for k, c in gp.items())):
             fail(f"tp rank {r}'s replayed tokens differ from rank 0's")
+    result = {"collective_ms": [g["collective_ms"] for g in got],
+              "graph_replay_vs_eager": graphs,
+              **compare_tp_logits(got[0], reference),
+              "seconds": time.monotonic() - t0}
+    log(f"  tp=2 vs tp=1 logits, tp=2 replays vs eager: "
+        f"{json.dumps(result)}")
+    return result
+
+
+def compare_tp_logits(got: dict, reference, what: str = "tp=2") -> dict:
+    """A tp=2 rank's prefill and window-step logits (``got``) against the
+    tp=1 reference (check_paths' kernel path, same weights and inputs):
+    within PATH_LIMITS, and the same argmax wherever tp=1's top-2 margin
+    exceeds that limit (random weights make near-ties common: elsewhere
+    bf16 rounding may swap the top two)."""
+    import torch
+
     want_pf, want_steps = reference
-    err = {"collective_ms": [g["collective_ms"] for g in got],
-           "graph_replay_vs_eager": graphs,
-           "prefill_logits": max_err(got[0]["prefill"], want_pf),
+    err = {"prefill_logits": max_err(got["prefill"], want_pf),
            "window_logits_by_step": [max_err(a, b) for a, b in
-                                     zip(got[0]["steps"], want_steps)]}
+                                     zip(got["steps"], want_steps)]}
     err["window_logits"] = max(err["window_logits_by_step"])
     # top-2 margins of the tp=1 logits, every (step, row); the prefill's
     # first tokens first
     ref = torch.cat([want_pf[None], want_steps])
-    tp2 = torch.cat([got[0]["prefill"][None], got[0]["steps"]])
+    tp2 = torch.cat([got["prefill"][None], got["steps"]])
     top2 = ref.topk(2, dim=-1).values
     margin = top2[..., 0] - top2[..., 1]
     decided = margin > PATH_LIMITS["window_logits"]
     same = ref.argmax(-1) == tp2.argmax(-1)
-    result = {**err, "limits": {k: PATH_LIMITS[k] for k in
-                                ("prefill_logits", "window_logits")},
-              "argmax_checked": int(decided.sum()),
-              "argmax_of": int(decided.numel()),
-              "argmax_equal_all": int(same.sum()),
-              "tp1_top2_margins": [round(float(m), 4)
-                                   for m in margin.flatten()],
-              "seconds": time.monotonic() - t0}
-    log(f"  tp=2 vs tp=1 logits, tp=2 replays vs eager: "
-        f"{json.dumps(result)}")
     for key in ("prefill_logits", "window_logits"):
         if err[key] > PATH_LIMITS[key]:
-            fail(f"tp=2 {key} differ from tp=1 by {err[key]:.4g} > "
+            fail(f"{what} {key} differ from tp=1 by {err[key]:.4g} > "
                  f"{PATH_LIMITS[key]}")
     if not bool(same[decided].all()):
-        fail(f"tp=2 argmax differs from tp=1 where tp=1's top-2 margin "
+        fail(f"{what} argmax differs from tp=1 where tp=1's top-2 margin "
              f"exceeds {PATH_LIMITS['window_logits']}")
-    return result
+    return {**err, "limits": {k: PATH_LIMITS[k] for k in
+                              ("prefill_logits", "window_logits")},
+            "argmax_checked": int(decided.sum()),
+            "argmax_of": int(decided.numel()),
+            "argmax_equal_all": int(same.sum()),
+            "tp1_top2_margins": [round(float(m), 4)
+                                 for m in margin.flatten()]}
 
 
 async def _serve_remote(base: str, name: str) -> dict:
@@ -2250,20 +2701,26 @@ async def tp_teacher_forced(base: str, name: str, ref_tap: dict) -> dict:
                                "max_abs_err": worst}}
 
 
-def checkpoint_phase(cfg, dev, ckpt_dir: str, solo_ref) -> tuple:
+def checkpoint_phase(cfg, dev, ckpt_dir: str, solo_ref,
+                     int8_logits) -> tuple:
     """Phase 8: the seed-0 8B weights (as the engine draws them) written
     as a BF16 HF checkpoint in four shards; loaded here by
     ``models/loader.py`` (timed) and held bitwise against the seed-0
     params, its config equal to the preset's; then served by the
     launcher with ``--model-path`` at tp=1, whose SOLO results must equal
     phase 4's bitwise, and at tp=2 (two ranks, each loading its shard),
-    held against tp=1's (compare_tp_solo). Returns (report, the loaded
+    held against tp=1's (compare_tp_solo). Then loaded with
+    quant="int8": at tp=1 bitwise ``quantize_int8`` of the seed-0 params
+    on the card, and at tp=2 (:func:`check_tp_int8`) each rank's shard
+    bitwise the cut of tp=1's, with logits within tp=1 int8's limits
+    (``int8_logits``, phase 10's). Returns (report, the loaded
     params)."""
     import torch
 
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.models.llama import init_params
     from dynamo_tpu_torch.models.loader import load_params
+    from dynamo_tpu_torch.models.quant import quantize_params
     from dynamo_tpu_torch.run import peak_rss_gib
 
     report = {}
@@ -2324,6 +2781,23 @@ def checkpoint_phase(cfg, dev, ckpt_dir: str, solo_ref) -> tuple:
             else:
                 res["vs_tp1"] = compare_tp_solo(res["solo"], solo_ref["tap"])
             report[f"tp{ranks}"] = res
+        t = time.monotonic()
+        q8 = load_params(ckpt_dir, device=dev, quant="int8")
+        load_s = time.monotonic() - t
+        want = quantize_params(loaded)
+        unequal = sorted(k for k in want if k not in q8
+                         or not same_param(q8[k], want[k]))
+        if unequal or set(q8) != set(want):
+            fail(f"the int8 load differs from quantize_int8 of the seed-0 "
+                 f"params: {unequal}")
+        report["int8"] = {"tp1": {
+            "load_s": load_s, "keys_equal": len(q8),
+            "bytes": sum(v.nbytes for v in q8.values())}}
+        del q8, want
+        torch.cuda.empty_cache()
+        log(f"  int8 load at tp=1 bitwise quantize_int8 of the seed-0 "
+            f"params: {json.dumps(report['int8']['tp1'])}")
+        report["int8"]["tp2"] = check_tp_int8(ckpt_dir, int8_logits, out_dir)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     return report, loaded
@@ -2499,6 +2973,7 @@ def main() -> None:
                     help=argparse.SUPPRESS)
     ap.add_argument("--tp-coordinator", help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-int8", help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.monotonic()
     try:
@@ -2511,7 +2986,8 @@ def main() -> None:
         fail("dynamo_tpu_torch/ not found beside chip_smoke.py")
     sys.path.insert(0, REPO)
     if args.tp_worker is not None:
-        tp_worker(args.tp_worker, args.tp_coordinator, args.tp_dir)
+        tp_worker(args.tp_worker, args.tp_coordinator, args.tp_dir,
+                  args.tp_int8)
         return
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2587,10 +3063,15 @@ def main() -> None:
         f"(tp {', '.join(map(str, TP_SIZES))})")
     local_errs = check_local_shapes(dev)
     local_times = time_local_shapes(dev, engine.ecfg, served)
-    # the tp=1 engine leaves the card before the ranks start
+    # the tp=1 engine leaves the card before the int8 one and the ranks
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+
+    log("phase 10: the int8 GEMM vs its plain version and timed; the 8B "
+        "served with --dtype int8")
+    int8_report, int8_rows, int8_logits = int8_phase(cfg, dev, tp1_logits)
+    rows += [r for r in int8_rows if r["M"] in INT8_LINE_ROWS]
 
     log(f"phase 7: tensor-parallel serving, {TP_RANKS} ranks of the "
         f"launcher on the one card")
@@ -2606,7 +3087,8 @@ def main() -> None:
         "and served with --model-path at tp=1 and tp=2")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        checkpoint, loaded = checkpoint_phase(cfg, dev, ckpt_dir, solo_ref)
+        checkpoint, loaded = checkpoint_phase(cfg, dev, ckpt_dir, solo_ref,
+                                              int8_logits)
         log("phase 9: penalties and logit_bias on an engine warmed with "
             "warmup_penalties, on the loaded weights")
         penalties = penalty_phase(cfg, dev, loaded)
@@ -2648,7 +3130,8 @@ def main() -> None:
                        "graph_prefill_logprobs": graph_prefill_lp,
                        "logprobs": logprobs_check,
                        "checkpoint": checkpoint, "penalties": penalties,
-                       "kernels": rows,
+                       "kernels": rows, "int8": int8_report,
+                       "int8_gemm_timings": int8_rows,
                        "tp_local_errs": {" ".join(k): v for k, v in
                                          local_errs.items()},
                        "tp_local_times": local_times,

@@ -92,7 +92,8 @@ from ..models.config import ModelConfig
 from ..models.llama import (KVCacheSpec, check_supported, init_kv_cache,
                             init_params, make_decode_window_fn,
                             make_step_fns)
-from ..parallel.mesh import MeshView, shard_param
+from ..models.quant import QUANT_KEYS, quantize_int8, quantize_params
+from ..parallel.mesh import MeshView, quantize_shard, shard_param
 from ..runtime.device import resolve_device
 from ..runtime.engine import Context
 from ..runtime.slo import LatencyRecorder
@@ -382,23 +383,39 @@ class TorchEngine:
     def __init__(self, model_cfg: ModelConfig,
                  engine_cfg: Optional[EngineConfig] = None, params=None,
                  seed: int = 0, device="cuda",
-                 mesh: Optional[MeshView] = None):
+                 mesh: Optional[MeshView] = None,
+                 quant: Optional[str] = None):
         """``mesh``: the rank's view of a tensor-parallel mesh
         (``parallel/mesh.py MeshSpec.build``); the engine then runs on the
         mesh's device, and ``params``, when given, are the rank's shard
         (``models/bridge.py params_from_numpy(rank=, size=)``). Random
         params are drawn whole, one param at a time, and cut to the
         rank's shard, so every tensor-parallel size serves the weights of
-        the same seed."""
+        the same seed. ``quant="int8"``: weight-only int8 serving
+        (``models/quant.py``; ``jax_engine.py`` ``quant``): given params
+        are quantized (a rank's shard to the scales of the whole weight,
+        ``parallel/mesh.py quantize_shard``), and random params are
+        quantized as each is drawn, whole, then cut (the JAX package's
+        ``host_init_quantized``), so the bfloat16 tree never exists whole
+        on the card."""
         check_supported(model_cfg)
-        shard = None
+        if quant not in (None, "int8"):
+            raise ValueError(f"unknown quant mode {quant!r} (expected "
+                             f"'int8')")
+        int8 = quant == "int8"
+
+        def keep(name, t):
+            if int8 and name in QUANT_KEYS:
+                t = quantize_int8(t)
+            if mesh is not None:
+                t = shard_param(name, t, model_cfg, mesh)
+            return t
+
         if mesh is not None:
             if mesh.data > 1:
                 raise NotImplementedError(
                     "the data axis inside one engine is not ported yet")
             device = mesh.device
-            shard = lambda name, t: shard_param(  # noqa: E731
-                name, t, model_cfg, mesh)
         self.mesh = mesh
         self.mesh_devices = mesh.size if mesh is not None else 1
         self.mesh_shape = mesh.shape if mesh is not None else "single"
@@ -408,7 +425,12 @@ class TorchEngine:
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            params = init_params(model_cfg, gen, shard=shard)
+            params = init_params(model_cfg, gen, shard=keep)
+        elif int8:
+            params = quantize_params(params, quantize=(
+                None if mesh is None else lambda name, w: quantize_shard(
+                    name, w, model_cfg, mesh)))
+        self.quant = quant
         self.params = params
         spec = KVCacheSpec(self.ecfg.num_pages, self.ecfg.page_size)
         self.kv_k, self.kv_v = init_kv_cache(model_cfg, spec,

@@ -32,6 +32,11 @@ and an all-gather of the vocab-sharded logits, so every rank samples the
 same tokens from the same full logits. GSPMD inserts those collectives
 in the JAX package.
 
+Weight-only int8 (``models/quant.py``): a projection param may be a
+``QuantInt8`` (its ``[layer]`` a ``QuantInt8`` too), and ``x @ w`` runs
+the int8 GEMM; the code has no int8 branches. A tied head (``embed.T``)
+stays in the model's dtype, as ``embed`` is not quantized.
+
 MoE and MLA configurations raise ``NotImplementedError``.
 """
 
@@ -56,6 +61,7 @@ from ..parallel.mesh import MeshView, local_heads
 from ..runtime.device import resolve_device
 from .config import ModelConfig
 
+# a projection may be a models/quant.py QuantInt8
 Params = Dict[str, torch.Tensor]
 
 # scatter sentinel for padded rows: out of range, so the scatter drops it
@@ -99,6 +105,31 @@ def init_kv_cache(cfg: ModelConfig, spec: KVCacheSpec, dtype=None,
 # ------------------------------------------------------------------ params
 
 
+def param_table(cfg: ModelConfig) -> list:
+    """(name, kind, shape) of every param, in the order :func:`init_params`
+    draws them; kind is "w" (normal / sqrt(fan_in)), "ones" or "zeros"."""
+    D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    V = cfg.vocab_size
+    table = [("embed", "w", (V, D)), ("wq", "w", (L, D, H * hd)),
+             ("wk", "w", (L, D, KV * hd)), ("wv", "w", (L, D, KV * hd)),
+             ("wo", "w", (L, H * hd, D)), ("w_gate", "w", (L, D, I)),
+             ("w_up", "w", (L, D, I)), ("w_down", "w", (L, I, D)),
+             ("ln_attn", "ones", (L, D)), ("ln_mlp", "ones", (L, D)),
+             ("ln_final", "ones", (D,))]
+    if cfg.attn_bias:  # Qwen2-style q/k/v projection bias
+        table += [("bq", "zeros", (L, H * hd)), ("bk", "zeros", (L, KV * hd)),
+                  ("bv", "zeros", (L, KV * hd))]
+    if cfg.sandwich_norms:  # Gemma-2 post-attention/feedforward norms
+        table += [("ln_attn_post", "ones", (L, D)),
+                  ("ln_mlp_post", "ones", (L, D))]
+    if cfg.qk_norm:  # Qwen3 per-head q/k norms
+        table += [("q_norm", "ones", (L, hd)), ("k_norm", "ones", (L, hd))]
+    if not cfg.tie_word_embeddings:
+        table.append(("lm_head", "w", (D, V)))
+    return table
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=None,
                 shard: Optional[Callable[[str, torch.Tensor],
@@ -106,19 +137,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random-init params (stacked layers on axis 0) on the generator's
     device, drawn from ``generator``: normal / sqrt(fan_in) for
     matrices, ones for norms, zeros for biases. ``shard(name, tensor)``,
-    when given, keeps a part of each param as soon as it is drawn (a
-    tensor-parallel rank's block, ``parallel/mesh.py shard_param``): the
-    draws are the same as without it, so the blocks are those of the
-    unsharded params, and only one whole param is held at a time."""
+    when given, transforms each param as soon as it is drawn (a
+    tensor-parallel rank's block, ``parallel/mesh.py shard_param``, or
+    the int8 weights of it): the draws are the same as without it, so
+    the blocks are those of the unsharded params, and only one whole
+    param is held at a time."""
     check_supported(cfg)
     dtype = dtype or cfg.torch_dtype
     device = generator.device
-    D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    V = cfg.vocab_size
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=device)
 
     def w(*shape):
         scale = 1.0 / math.sqrt(shape[-2]) if len(shape) > 1 else 0.02
@@ -126,35 +152,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                         device=device)
         return x.mul_(scale).to(dtype)
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
+    make = {"w": w,
+            "ones": lambda *shape: torch.ones(shape, dtype=dtype,
+                                              device=device),
+            "zeros": lambda *shape: torch.zeros(shape, dtype=dtype,
+                                                device=device)}
     p: Params = {}
-
-    def put(name: str, make, *shape) -> None:
-        t = make(*shape)
+    for name, kind, shape in param_table(cfg):
+        t = make[kind](*shape)
         p[name] = shard(name, t) if shard is not None else t
-
-    for name, make, shape in (
-            ("embed", w, (V, D)), ("wq", w, (L, D, H * hd)),
-            ("wk", w, (L, D, KV * hd)), ("wv", w, (L, D, KV * hd)),
-            ("wo", w, (L, H * hd, D)), ("w_gate", w, (L, D, I)),
-            ("w_up", w, (L, D, I)), ("w_down", w, (L, I, D)),
-            ("ln_attn", ones, (L, D)), ("ln_mlp", ones, (L, D)),
-            ("ln_final", ones, (D,))):
-        put(name, make, *shape)
-    if cfg.attn_bias:  # Qwen2-style q/k/v projection bias
-        put("bq", zeros, L, H * hd)
-        put("bk", zeros, L, KV * hd)
-        put("bv", zeros, L, KV * hd)
-    if cfg.sandwich_norms:  # Gemma-2 post-attention/feedforward norms
-        put("ln_attn_post", ones, L, D)
-        put("ln_mlp_post", ones, L, D)
-    if cfg.qk_norm:  # Qwen3 per-head q/k norms
-        put("q_norm", ones, L, hd)
-        put("k_norm", ones, L, hd)
-    if not cfg.tie_word_embeddings:
-        put("lm_head", w, D, V)
     return p
 
 

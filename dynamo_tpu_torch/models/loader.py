@@ -9,8 +9,8 @@ is absent when ``tie_word_embeddings`` is set; Qwen2's q/k/v biases,
 Qwen3's ``q_norm``/``k_norm`` and Gemma-2's sandwich norms
 (``pre_feedforward_layernorm`` → ``ln_mlp``, ``post_attention_layernorm``
 → ``ln_attn_post``, ``post_feedforward_layernorm`` → ``ln_mlp_post``).
-MoE and MLA checkpoints, and ``quant="int8"``, raise
-``NotImplementedError``.
+MoE and MLA checkpoints raise ``NotImplementedError``; ``quant="int8"``
+gives the projections as ``models/quant.py QuantInt8`` (``load_params``).
 
 The files are read by :class:`SafetensorsFile`, this module's own reader
 (the format: an 8-byte little-endian header length, a JSON header, then
@@ -37,6 +37,7 @@ from ..parallel.mesh import MeshSpec, param_pspecs, shard
 from ..runtime.device import resolve_device
 from .config import ModelConfig
 from .llama import Params
+from .quant import QUANT_KEYS, QuantInt8, quantize_rows
 
 _DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
            "F32": torch.float32}
@@ -114,7 +115,14 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
     with ``model.safetensors.index.json``) into the model's params, on
     ``device`` in ``dtype`` (default the config's). With ``size`` > 1,
     the Megatron shard of tensor-parallel rank ``rank`` of ``size``:
-    only the shard is read into the process and sent to the device."""
+    only the shard is read into the process and sent to the device.
+    ``quant="int8"``: the projection weights (``models/quant.py
+    QUANT_KEYS``) as ``QuantInt8``, quantized on the device from the
+    file's values (in float32) one layer at a time, so the bfloat16 tree
+    never exists whole on the card; a row-parallel shard (``wo``,
+    ``w_down``) takes the scales of the whole rows, which the rank reads
+    for that. The result is bitwise the JAX loader's ``quant="int8"``
+    cut to the rank."""
     cfg = cfg or ModelConfig.from_local_path(path)
     if cfg.num_experts > 0:
         raise NotImplementedError(
@@ -124,16 +132,13 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
         raise NotImplementedError(
             "MLA checkpoints are not loaded by the port yet "
             "(_load_mla_attention of dynamo_tpu/models/loader.py)")
-    if quant == "int8":
-        raise NotImplementedError(
-            "quant='int8' is not ported yet: it needs the weight-only int8 "
-            "GEMM of ROADMAP.md queue 1 item 3")
-    if quant is not None:
+    if quant not in (None, "int8"):
         raise ValueError(f"unknown quant mode {quant!r} (expected 'int8')")
     device = resolve_device(device)
     dtype = dtype or cfg.torch_dtype
     mesh = MeshSpec(model=size).view(rank)
     specs = param_pspecs(cfg)
+    qkeys = QUANT_KEYS if quant == "int8" else frozenset()
     wmap = _index(path)
     files: Dict[str, SafetensorsFile] = {}
 
@@ -156,18 +161,47 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
         dst.copy_(moved.T if linear else moved)
         f.release(key)
 
+    def put_int8(dst: QuantInt8, name: str, spec) -> None:
+        """Quantize entry ``name`` (``[out, in]``, the kernel's layout of
+        ``q``) into ``dst``, the rank's shard: the rows of the rank's
+        ``out`` go to the device whole along ``in``, so the scales are
+        those of the whole rows (JAX quantizes the whole weight and then
+        shards it), and are cut to the rank's ``in`` there."""
+        f, key = entry(name)
+        src = f.get(key)
+        out_spec, in_spec = spec[-1], spec[-2]
+        rows = shard(src, (out_spec, None), mesh).to(device)
+        qw = quantize_rows(rows)
+        dst.q.copy_(shard(qw.q, (None, in_spec), mesh))
+        dst.s.copy_(qw.s)
+        f.release(key)
+
     def alloc(key: str, shape) -> torch.Tensor:
-        """The rank's shard of param ``key``, uninitialised."""
+        """The rank's shard of param ``key``, uninitialised (int8 weights:
+        a QuantInt8 of ``q`` and ``s``)."""
         spec = specs.get(key, (None,) * len(shape))
         part = shard(torch.empty(shape, device="meta"), spec, mesh)
+        if key in qkeys:
+            *lead, inp, out = part.shape
+            return QuantInt8(
+                torch.empty((*lead, out, inp), dtype=torch.int8,
+                            device=device),
+                torch.empty((*lead, 1, out), dtype=torch.float32,
+                            device=device))
         return torch.empty(part.shape, dtype=dtype, device=device)
+
+    def fill(dst, name: str, spec, linear: bool) -> None:
+        if isinstance(dst, QuantInt8):
+            put_int8(dst, name, spec)
+        else:
+            put(dst, name, spec, linear)
 
     def single(key: str, name: str, linear: bool = False) -> None:
         f, k = entry(name)
         e = f.entries[k]["shape"]
         shape = tuple(reversed(e)) if linear else tuple(e)
         p[key] = alloc(key, shape)
-        put(p[key], name, specs.get(key, (None,) * len(shape)), linear)
+        fill(p[key], name, specs.get(key, (None,) * len(shape)), linear)
 
     def stack(key: str, fmt: str, linear: bool = True) -> None:
         L = cfg.num_layers
@@ -177,7 +211,7 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
         p[key] = alloc(key, shape)
         spec = specs.get(key, (None,) * len(shape))[1:]
         for i in range(L):
-            put(p[key][i], fmt.format(i), spec, linear)
+            fill(p[key][i], fmt.format(i), spec, linear)
 
     p: Params = {}
     single("embed", "model.embed_tokens.weight")

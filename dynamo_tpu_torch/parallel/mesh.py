@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.config import ModelConfig
+from ..models.quant import QuantInt8, quantize_int8, quantize_rows, scale_of
 
 log = logging.getLogger("dynamo_tpu_torch.parallel")
 
@@ -251,9 +252,35 @@ def shard(a, spec: Spec, mesh: MeshView):
 
 def shard_param(name: str, a, cfg: ModelConfig, mesh: MeshView):
     """The rank's block of param ``name`` (replicated when it has no
-    spec, as in the JAX package)."""
+    spec, as in the JAX package). An int8 weight (``models/quant.py
+    QuantInt8``) is cut as the JAX package's ``shard_params`` cuts it:
+    ``q`` under the param's spec (its last two axes swapped, since ``q``
+    is stored ``[..., out, in]``), ``s [..., 1, out]`` under the same spec
+    with the contraction axis unsharded. So a column-parallel weight cuts
+    its scales along ``out`` and a row-parallel one keeps them whole."""
     spec = param_pspecs(cfg).get(name, (None,) * len(a.shape))
+    if isinstance(a, QuantInt8):
+        return QuantInt8(shard(a.q, (*spec[:-2], spec[-1], spec[-2]), mesh),
+                         shard(a.s, (*spec[:-2], None, spec[-1]), mesh),
+                         a.plain)
     return shard(a, spec, mesh)
+
+
+def quantize_shard(name: str, w: torch.Tensor, cfg: ModelConfig,
+                   mesh: MeshView) -> QuantInt8:
+    """Quantize the rank's shard ``w [..., in, out]`` of param ``name``
+    to the scales of the whole param: where the spec splits the
+    contraction axis (a row-parallel weight), the per-rank amax is
+    all-reduced with MAX over the model axis first, so the scales, and
+    with them every int8 value, are those of quantizing the whole weight
+    and cutting it (a per-shard amax would not be)."""
+    spec = param_pspecs(cfg).get(name, (None,) * w.dim())
+    if spec[-2] is None or mesh.model == 1:
+        return quantize_int8(w)
+    wt = w.transpose(-1, -2)
+    amax = wt.float().abs().amax(dim=-1, keepdim=True)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=mesh.group)
+    return quantize_rows(wt, scale_of(amax))
 
 
 def shard_params(params: Dict[str, Any], cfg: ModelConfig,

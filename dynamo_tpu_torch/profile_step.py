@@ -6,9 +6,15 @@ on the GPU: by CUDA-graph replay against eager calls, in one run.
                                             [--penalties]
     python -m dynamo_tpu_torch.profile_step --prefill [PBxTxP ...]
                                             [--windows 10] [--penalties]
+    ... [--dtype bf16 int8]
 
-Builds the engine at Llama-3-8B widths (random weights, seed 0). For
-each ``--rows`` B it prefills B rows of ``--context`` tokens, then runs
+Builds the engine at Llama-3-8B widths (random weights, seed 0), once
+per ``--dtype`` in turn (``int8``: weight-only int8 projections through
+the int8 GEMM, ``TorchEngine(quant="int8")``), so one run traces the
+bf16 and the int8 window, or chunk, side by side; every JSON line names
+its dtype.
+
+For each ``--rows`` B it prefills B rows of ``--context`` tokens, then runs
 decode windows (``EngineConfig.decode_steps`` steps each) three ways, on
 the engine's stream, each window's carry feeding the next:
 
@@ -36,7 +42,9 @@ Prints one JSON object per row count: wall ms per window (all windows,
 sorted) and per step, the kernels a traced window ran, the device-busy
 time (the union of the kernels' intervals), the device's idle share of
 the traced and of the untraced window wall (untraced: 1 - busy / median
-wall), and the kernels that took the most device time.
+wall), the projections' share of the busy time (kernels named as cuBLAS's
+and the int8 GEMM's, :data:`MATMUL_KERNELS`), and the kernels that took
+the most device time.
 
 ``--prefill`` profiles prefill chunks instead (default 1x64x8, 1x512x8
 and 8x512x64: prefill batch x chunk length x page bucket), each of PB
@@ -61,6 +69,11 @@ import argparse
 import json
 import subprocess
 import time
+
+
+# names of the projection products' kernels: cuBLAS's (bf16) and the
+# int8 GEMM's
+MATMUL_KERNELS = ("gemm", "gemv", "xmma", "nvjet", "cutlass")
 
 
 def _union_ms(intervals) -> float:
@@ -97,9 +110,13 @@ def _trace(run) -> dict:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    matmul = sum(ms for n, (ms, _) in by_name.items()
+                 if any(k in n for k in MATMUL_KERNELS))
     return {"traced_window_wall_ms": wall, "kernels_per_window": len(kernels),
             "device_busy_ms": busy,
             "traced_idle_share": 1.0 - busy / wall if wall else None,
+            "matmul_ms": matmul,
+            "matmul_share": matmul / busy if busy else None,
             "top_kernels": [{"name": n[:80], "ms": ms, "launches": c}
                             for n, (ms, c) in top]}
 
@@ -356,7 +373,14 @@ def main() -> None:
     ap.add_argument("--prefill", nargs="*", metavar="PBxTxP", default=None,
                     help="profile prefill chunks instead of decode windows "
                          "(default 1x64x8 1x512x8 8x512x64)")
+    ap.add_argument("--dtype", nargs="+", default=["bf16"],
+                    choices=["bf16", "int8"],
+                    help="the engine's weights, one engine after the other "
+                         "in one run (int8: weight-only int8, the launcher's "
+                         "--dtype int8)")
     args = ap.parse_args()
+
+    import gc
 
     import torch
 
@@ -365,23 +389,29 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs an NVIDIA GPU")
-    engine = TorchEngine(ModelConfig.llama3_8b(), EngineConfig(), seed=0,
-                         device="cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=30).stdout.strip()
-    if args.prefill is not None:
-        for spec in args.prefill or ["1x64x8", "1x512x8", "8x512x64"]:
-            B, T, P = (int(x) for x in spec.split("x"))
-            res = profile_prefill(engine, B, T, P, args.windows,
-                                  args.penalties)
-            print(json.dumps({"card": card, **res}), flush=True)
-        return
-    for B in args.rows:
-        res = profile_rows(engine, B, args.context, args.windows,
-                           args.logprobs, args.penalties)
-        print(json.dumps({"card": card, **res}), flush=True)
+    for dtype in args.dtype:
+        engine = TorchEngine(ModelConfig.llama3_8b(), EngineConfig(), seed=0,
+                             device="cuda",
+                             quant="int8" if dtype == "int8" else None)
+        head = {"card": card, "dtype": dtype}
+        if args.prefill is not None:
+            for spec in args.prefill or ["1x64x8", "1x512x8", "8x512x64"]:
+                B, T, P = (int(x) for x in spec.split("x"))
+                res = profile_prefill(engine, B, T, P, args.windows,
+                                      args.penalties)
+                print(json.dumps({**head, **res}), flush=True)
+        else:
+            for B in args.rows:
+                res = profile_rows(engine, B, args.context, args.windows,
+                                   args.logprobs, args.penalties)
+                print(json.dumps({**head, **res}), flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

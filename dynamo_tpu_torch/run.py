@@ -2,6 +2,7 @@
 
     python -m dynamo_tpu_torch.run in=http out=torch --model-path DIR
     python -m dynamo_tpu_torch.run in=http out=torch --model 8b
+    python -m dynamo_tpu_torch.run in=http out=torch --model 8b --dtype int8
     python -m dynamo_tpu_torch.run in=http out=torch --model tiny --device cpu
 
 Serves the OpenAI HTTP front end (chat + completions + models + health)
@@ -14,7 +15,10 @@ tokenizer when ``tokenizer.json`` or ``tokenizer_config.json`` is there
 and the byte tokenizer otherwise. A path with no weights is an error:
 random weights are never served under a checkpoint's name. Without it,
 a ``--model`` preset with random weights drawn from ``--seed`` and the
-byte tokenizer.
+byte tokenizer. ``--dtype int8`` serves weight-only int8 projections
+(``models/quant.py``, the int8 GEMM kernel) at every
+``--tensor-parallel-size``, for random weights and for ``--model-path``
+(quantized on the device at load).
 
 Tensor parallel, under the JAX launcher's flag names
 (``--tensor-parallel-size``, ``--coordinator``, ``--num-processes``,
@@ -35,7 +39,8 @@ refuses two ranks of one communicator on one device): each rank then
 needs its own ``NCCL_HOSTID`` and ``NCCL_SOCKET_IFNAME=lo``, which the
 one-command form sets itself (:func:`shared_device_env`). Every rank
 prints one ``serving summary`` JSON line when it ends: its capture count
-after warmup and its kernel launches and graph replays since warmup.
+after warmup and its kernel launches (int8 GEMM calls by route) and
+graph replays since warmup.
 """
 
 from __future__ import annotations
@@ -73,6 +78,11 @@ def parse_args(argv=None):
     ap.add_argument("--http-host", default="0.0.0.0")
     ap.add_argument("--http-port", type=int, default=8080)
     ap.add_argument("--no-warmup", action="store_true")
+    ap.add_argument("--dtype", default="bf16", choices=["bf16", "int8"],
+                    help="int8 = weight-only int8 serving (models/quant.py, "
+                         "the int8 GEMM kernel): random weights quantized "
+                         "as drawn, checkpoints on the device at load; "
+                         "half the weight bytes of bf16")
     ap.add_argument("--tensor-parallel-size", type=int, default=1,
                     help="ranks of the model axis (Megatron tensor "
                          "parallel), one process each")
@@ -158,6 +168,7 @@ def build_engine(args) -> Tuple[object, object]:
     so the serving summary counts the served path alone."""
     from .engine.torch_engine import TorchEngine
     from .llm.model_card import ModelDeploymentCard
+    from .ops import int8_gemm
     from .ops.paged_attention import reset_launch_counts
     from .runtime.device import resolve_device
 
@@ -179,6 +190,7 @@ def build_engine(args) -> Tuple[object, object]:
         mesh = MeshSpec(model=args.tensor_parallel_size).build(
             resolve_device(args.device).type)
     params = None
+    quant = "int8" if args.dtype == "int8" else None
     if args.model_path:
         from .models.loader import load_params
 
@@ -186,7 +198,7 @@ def build_engine(args) -> Tuple[object, object]:
         t0 = time.monotonic()
         params = load_params(args.model_path, cfg,
                              mesh.device if mesh is not None else args.device,
-                             rank=rank, size=size)
+                             rank=rank, size=size, quant=quant)
         seconds = time.monotonic() - t0
         nbytes = sum(t.nbytes for t in params.values())
         # one JSON line: the rank's load (its shard's bytes), its rate and
@@ -197,10 +209,11 @@ def build_engine(args) -> Tuple[object, object]:
             "gb_per_s": nbytes / 1e9 / max(seconds, 1e-9),
             "peak_rss_gib": peak_rss_gib()}))
     engine = TorchEngine(cfg, ecfg, params=params, seed=args.seed,
-                         device=args.device, mesh=mesh)
+                         device=args.device, mesh=mesh, quant=quant)
     if not args.no_warmup:
         engine.warmup()
     reset_launch_counts()
+    int8_gemm.reset_launch_counts()
     return engine, mdc
 
 
@@ -208,6 +221,7 @@ def serving_summary(engine) -> dict:
     """What a rank did since warmup: captures after warmup, kernel
     launches (by kernel and by decode route, replays counting the calls
     their capture recorded) and graph replays (every variant's)."""
+    from .ops import int8_gemm
     from .ops import paged_attention as ops
 
     return {"rank": engine.mesh.rank if engine.mesh is not None else 0,
@@ -216,6 +230,7 @@ def serving_summary(engine) -> dict:
             "batch_dispatches_total": engine.batch_dispatches_total,
             "launches": dict(ops.LAUNCHES),
             "route_launches": dict(ops.DECODE_ROUTE_LAUNCHES),
+            "int8_gemm_launches": dict(int8_gemm.INT8_GEMM_LAUNCHES),
             "replays": engine.graph_replays()}
 
 

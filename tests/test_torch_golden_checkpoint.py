@@ -12,7 +12,7 @@ tests/test_loader.py:
 - a BF16 checkpoint read by the port's own reader is bitwise what
   ``safetensors.torch.load_file`` reads;
 - a tensor-parallel rank's load is exactly ``shard_param`` of the whole;
-- MoE, MLA and int8 raise; the launcher serves ``--model-path``."""
+- MoE and MLA raise (int8 too); the launcher serves ``--model-path``."""
 
 import asyncio
 import dataclasses
@@ -278,19 +278,22 @@ def _write_config(path, **hf):
 
 def test_moe_mla_and_int8_raise(checkpoints, tmp_path):
     """What the port does not load yet raises NotImplementedError before
-    reading a weight: MoE (Mixtral, Qwen3-MoE experts), MLA (DeepSeek),
-    int8; an unknown quant mode is a ValueError."""
+    reading a weight: MoE (Mixtral, Qwen3-MoE experts) and MLA
+    (DeepSeek), with or without int8 (a dense checkpoint loads in int8:
+    tests/test_torch_quant.py); an unknown quant mode is a ValueError."""
     mixtral = _write_config(tmp_path / "mixtral", model_type="mixtral",
                             num_local_experts=4)
     with pytest.raises(NotImplementedError, match="MoE"):
         load_params(mixtral, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        load_params(mixtral, device="cpu", quant="int8")
     mla = _write_config(tmp_path / "mla", model_type="deepseek_v2",
                         kv_lora_rank=8, n_routed_experts=0)
     with pytest.raises(NotImplementedError, match="MLA"):
         load_params(mla, device="cpu")
+    with pytest.raises(NotImplementedError, match="MLA"):
+        load_params(mla, device="cpu", quant="int8")
     path, _ = checkpoints["llama"]
-    with pytest.raises(NotImplementedError, match="item 3"):
-        load_params(path, device="cpu", quant="int8")
     with pytest.raises(ValueError, match="unknown quant"):
         load_params(path, device="cpu", quant="int4")
 

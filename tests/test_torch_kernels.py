@@ -11,13 +11,20 @@ atol 2e-2 + rtol 1e-2 in bfloat16 (one or two bf16 roundings of the
 output at any magnitude; the bf16 prefill kernel also rounds the
 probabilities to bf16 before P V). Over rows of thousands of keys, where
 the outputs are as small as that tolerance, the bf16 decode kernel is
-also held to a tenth of the reference's rms."""
+also held to a tenth of the reference's rms. The int8 GEMM is held to
+the float32 evaluation of its plain version within one bf16 rounding of
+the output plus the float32 summation order (``ops/int8_gemm.py
+int8_gemm_tolerance``)."""
 
 import numpy as np
 import pytest
 import torch
 
+from dynamo_tpu_torch.models.quant import QuantInt8, quantize_int8
+from dynamo_tpu_torch.ops import int8_gemm
 from dynamo_tpu_torch.ops import paged_attention as ops
+from dynamo_tpu_torch.ops.int8_gemm import (int8_gemm_tolerance, int8_matmul,
+                                            int8_matmul_plain)
 from dynamo_tpu_torch.ops.paged_attention import (
     paged_attention_decode_layered, paged_attention_decode_window,
     paged_attention_prefill, window_reference)
@@ -873,3 +880,136 @@ def test_cuda_sharded_wrappers_at_one_ranks_heads(cuda_device, tp, dtype,
     np.testing.assert_allclose(_np(got.cpu()), _np(want), rtol=rtol,
                                atol=tol)
     assert ops.LAUNCHES["paged_attention_prefill"] == 1
+
+
+# ------------------------------------------------------- int8 GEMM
+
+
+# the 8B model's projections (K, N): wq and wo, wk and wv, w_gate and
+# w_up, w_down, lm_head; and one rank's at tp=2
+INT8_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
+               "gate_up": (4096, 14336), "down": (14336, 4096),
+               "lm_head": (4096, 128256)}
+INT8_TP2_SHAPES = {"wq": (4096, 2048), "wk_wv": (4096, 512),
+                   "gate_up": (4096, 7168), "lm_head": (4096, 64128),
+                   "wo": (2048, 4096), "down": (7168, 4096)}
+
+
+def _int8_case(dev, M, K, N, seed=0):
+    """bf16 x [M, K] and the int8 weights of a random [K, N] weight
+    (quantize_int8 on the card): (x, q [N, K], s [N])."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(K, N, generator=g, device=dev) / K ** 0.5
+    qw = quantize_int8(w)
+    return x, qw.q, qw.s.reshape(-1)
+
+
+def _int8_excess(y, x, q, s) -> float:
+    """The largest amount by which the kernel's output passes the stated
+    tolerance (ops/int8_gemm.py int8_gemm_tolerance; <= 0 within it)."""
+    ref, tol = int8_gemm_tolerance(x, q, s)
+    return float(((y.float().reshape(ref.shape) - ref).abs() - tol).max())
+
+
+def _int8_check(dev, M, K, N, seed=0):
+    x, q, s = _int8_case(dev, M, K, N, seed)
+    int8_gemm.reset_launch_counts()
+    y = int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (M, N)
+    assert _int8_excess(y, x, q, s) <= 0
+    route = "small_m" if M <= int8_gemm.SMALL_M_MAX else "large_m"
+    assert int8_gemm.INT8_GEMM_LAUNCHES[route] == 1
+    assert sum(int8_gemm.INT8_GEMM_LAUNCHES.values()) == 1
+    return x, q, s, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 64, 512, 4096])
+@pytest.mark.parametrize("shape", sorted(INT8_SHAPES))
+def test_cuda_int8_gemm_matches_plain(cuda_device, shape, M):
+    """The kernel at the served shapes, both routes, within the stated
+    tolerance of the float32 evaluation of its plain version."""
+    _int8_check(cuda_device, M, *INT8_SHAPES[shape])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 512])
+@pytest.mark.parametrize("shape", sorted(INT8_TP2_SHAPES))
+def test_cuda_int8_gemm_at_tp2_shapes(cuda_device, shape, M):
+    _int8_check(cuda_device, M, *INT8_TP2_SHAPES[shape])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(3, 4096, 1000), (37, 4096, 130),
+                                   (100, 4096, 4100), (300, 1040, 1000),
+                                   (17, 16, 33), (129, 48, 7)])
+def test_cuda_int8_gemm_ragged(cuda_device, M, K, N):
+    """Ragged M and N (masked loads and stores), and K not a multiple of
+    the 64-wide chunk."""
+    _int8_check(cuda_device, M, K, N, seed=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 512])
+def test_cuda_int8_gemm_perturbed_scale_fails_the_check(cuda_device, M):
+    """The control: one scale 1 + 2^-5 off must show in the check."""
+    x, q, s, y = _int8_check(cuda_device, M, 4096, 1024)
+    bad = s.clone()
+    bad[7] *= 1 + 2.0 ** -5
+    assert _int8_excess(int8_matmul(x, q, bad), x, q, s) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N", [(4, 1024), (64, 14336), (512, 4096)])
+def test_cuda_int8_gemm_replay_equals_eager(cuda_device, M, N):
+    """Deterministic: two eager calls and a captured graph's replay give
+    the same bits (the K splits fold in a fixed order)."""
+    x, q, s = _int8_case(cuda_device, M, 4096, N, seed=2)
+    eager = int8_matmul(x, q, s)
+    assert torch.equal(int8_matmul(x, q, s), eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = int8_matmul(x, q, s)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_gemm_refuses_what_it_does_not_take(cuda_device):
+    d = cuda_device
+    q = torch.zeros(8, 4100, dtype=torch.int8, device=d)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int8_matmul(torch.zeros(2, 4100, dtype=torch.bfloat16, device=d), q,
+                    torch.ones(8, device=d))
+    q = torch.zeros(8, 64, dtype=torch.int8, device=d)
+    s = torch.ones(8, device=d)
+    with pytest.raises(ValueError, match="bfloat16"):
+        int8_matmul(torch.zeros(2, 64, device=d), q, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul(torch.zeros(2, 128, dtype=torch.bfloat16,
+                                device=d)[:, ::2], q, s)
+    with pytest.raises(ValueError, match="mixed"):
+        int8_matmul(torch.zeros(2, 64, dtype=torch.bfloat16, device=d),
+                    q.cpu(), s)
+
+
+@pytest.mark.cuda
+def test_cuda_quant_int8_rmatmul_reaches_the_kernel(cuda_device):
+    """``x @ QuantInt8`` on the card (torch's __matmul__ defers to
+    __rmatmul__) launches the kernel over leading dimensions; the plain
+    flag takes the plain version."""
+    x, q, s = _int8_case(cuda_device, 6, 256, 96, seed=3)
+    qw = QuantInt8(q, s.reshape(1, -1))
+    int8_gemm.reset_launch_counts()
+    y = x.reshape(2, 3, 256) @ qw
+    assert tuple(y.shape) == (2, 3, 96)
+    assert int8_gemm.INT8_GEMM_LAUNCHES["small_m"] == 1
+    plain = x @ qw.as_plain()
+    assert int8_gemm.INT8_GEMM_LAUNCHES["small_m"] == 1
+    assert torch.equal(plain, int8_matmul_plain(x, q, s))
+    assert _int8_excess(y, x, q, s) <= 0
