@@ -112,23 +112,28 @@ Phases; any failure exits non-zero before the result line:
    margin exceeds twice LOGPROB_LIMIT, and nothing is captured after
    warmup.
 10. (run after phase 6, once the bf16 engine has left the card) the
-   weight-only int8 GEMM (``ops/csrc/int8_gemm.cu``) held against the
-   float32 evaluation of its plain version, within one bf16 rounding of
-   the output plus the float32 summation order
-   (``ops/int8_gemm.py int8_gemm_tolerance``), at every projection shape
-   of the 8B model at M = 1, 4, 64, 512 and 4,096, at tp=2's shapes and
-   at ragged M, N and K, with one scale perturbed as the control that
-   must fail; timed at M = 4, 64, 512 and 4,096 beside its bound, its
-   plain version, bf16 ``torch.matmul`` on the dequantized weight and
+   weight-only int8 GEMM (``ops/csrc/int8_gemm.cu``: the small_m, wgmma
+   and simt routes) held against the float32 evaluation of its plain
+   version, within one rounding of the output to its dtype plus the
+   float32 summation order (``ops/int8_gemm.py int8_gemm_tolerance``), at
+   every projection shape of the 8B model at M = 1, 4, 16, 32, 48, 64,
+   512 and 4,096, at tp=2's shapes and at ragged M, N and K (bf16, and
+   float32 for the simt route), with one scale perturbed as the control
+   that must fail at every route; timed at M = 4 to 4,096 (both bf16
+   routes at 4 to 64 rows, where they cross) and at the tiny preset's
+   shapes in float32, beside its bound, its plain version,
+   ``torch.matmul`` on the dequantized weight and
    ``torch._weight_int8pack_mm`` where it runs on CUDA; then the 8B model
    built by the launcher's ``--dtype int8`` path and checked as phase 4
    checks the bf16 one (phase 4's requests over HTTP, every bucket
-   captured, none after warmup, int8 GEMM launches equal to the replays
-   times 7 x 32 + 1 a forward, logprobs against the int8 plain path,
-   the teacher-forced kernel path against the int8 plain path with an
-   int8 fault among its controls, one window and two chunks by replay
-   against eager calls) and its logits held within rel_l2 INT8_REL_L2 of
-   the bf16 engine's on the same seed-0 weights.
+   captured, none after warmup, int8 GEMM launches by route summing to
+   the replays times 7 x 32 + 1 a forward, logprobs against the int8
+   plain path, the teacher-forced kernel path against the int8 plain
+   path with an int8 fault among its controls, one window and two chunks
+   by replay against eager calls) and its logits held within rel_l2
+   INT8_REL_L2 of the bf16 engine's on the same seed-0 weights; then the
+   launcher's defaults with ``--dtype int8`` (the float32 tiny preset)
+   answer one completion, every product on the simt route.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -1587,12 +1592,28 @@ INT8_TP2_SHAPES = {"wq": (4096, 2048), "wk_wv": (4096, 512),
                    "wo": (2048, 4096), "down": (7168, 4096)}
 INT8_RAGGED = [(3, 4096, 1000), (37, 4096, 130), (100, 4096, 4100),
                (300, 1040, 1000)]
-# the rows M of a decode window (4 at the served batch, 64 at the
-# largest bucket) and of a prefill chunk (one of 512 tokens, 8 x 512)
-INT8_ROWS = (1, 4, 64, 512, 4096)
-INT8_TIMED_ROWS = (4, 64, 512, 4096)
+# the rows M of a decode window (4 at the served batch, 16 to 64 about
+# the routes' crossover, 64 at the largest bucket) and of a prefill chunk
+# (one of 512 tokens, 8 x 512)
+INT8_ROWS = (1, 4, 16, 32, 48, 64, 512, 4096)
+INT8_TIMED_ROWS = (4, 16, 32, 48, 64, 512, 4096)
+# rows where both bf16 routes are timed, to place their crossover
+INT8_CROSS_ROWS = (4, 16, 32, 48, 64)
 # the kernels line carries the served window's and first chunk's rows
 INT8_LINE_ROWS = (4, 512)
+# the float32 tiny preset's projections (K, N), the launcher's default
+# model: wq and wo, wk and wv, w_gate and w_up, w_down, lm_head; served
+# through the simt route, at the rows of a decode window and a chunk
+INT8_TINY_SHAPES = {"wq_wo": (64, 64), "wk_wv": (64, 32),
+                    "gate_up": (64, 128), "down": (128, 64),
+                    "lm_head": (64, 512)}
+INT8_TINY_ROWS = (4, 128)
+# the checks and controls of each route: (name, M, K, N, dtype)
+INT8_ROUTE_CASES = [("small_m", 4, 4096, 1024, "bfloat16"),
+                    ("wgmma", 32, 4096, 4096, "bfloat16"),
+                    ("wgmma", 512, 4096, 1024, "bfloat16"),
+                    ("simt", 4, 4096, 1024, "float32"),
+                    ("simt", 4, 4096, 1024, "float16")]
 # timed calls cycle over copies of the weights holding this many int8
 # bytes, so each call finds its weights out of the 50 MB L2 as a layer's
 # call does
@@ -1610,15 +1631,16 @@ INT8_SOURCE = "dynamo_tpu_torch/ops/csrc/int8_gemm.cu"
 INT8_REPLACES = "dynamo_tpu/models/quant.py:87"
 
 
-def int8_case(dev, M: int, K: int, N: int, seed: int = 0):
-    """bf16 x [M, K] and a random [K, N] weight quantized on the card:
-    (x, q [N, K], s [N], the QuantInt8)."""
+def int8_case(dev, M: int, K: int, N: int, seed: int = 0,
+              dtype: str = "bfloat16"):
+    """x [M, K] in ``dtype`` (bfloat16 unless named) and a random [K, N]
+    weight quantized on the card: (x, q [N, K], s [N], the QuantInt8)."""
     import torch
 
     from dynamo_tpu_torch.models.quant import quantize_int8
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn(M, K, generator=g, device=dev).to(getattr(torch, dtype))
     qw = quantize_int8(torch.randn(K, N, generator=g, device=dev)
                        / K ** 0.5)
     return x, qw.q, qw.s.reshape(-1), qw
@@ -1637,133 +1659,195 @@ def int8_excess(y, x, q, s) -> tuple:
 def check_int8_gemm(dev) -> dict:
     """The int8 GEMM against the float32 evaluation of its plain version
     (TF32 off) at every shape of INT8_SHAPES at every M of INT8_ROWS,
-    at tp=2's shapes (M = 4 and 512) and at ragged M, N and K: within
-    ``ops/int8_gemm.py int8_gemm_tolerance``, one bf16 rounding of the
-    output (2^-8 of it) plus the float32 sums in another order (2^-16 of
-    the sum of the terms' magnitudes). The control, one scale 1 + 2^-5
-    off, must pass the tolerance at both routes."""
+    at tp=2's shapes (M = 4, 32 and 512) and at ragged M, N and K, in
+    bfloat16 (the small_m and wgmma routes) and, for tp=2's and the
+    ragged shapes at M = 4, in float32 (the simt route): within
+    ``ops/int8_gemm.py int8_gemm_tolerance``, one rounding of the output
+    to its dtype (2^-8 of it in bf16, 2^-24 in float32) plus the float32
+    sums in another order (2^-16 of the sum of the terms' magnitudes).
+    Each case records the route it took. The control, one scale 1 + 2^-5
+    off, must pass the tolerance at every route (INT8_ROUTE_CASES)."""
     import torch
 
-    from dynamo_tpu_torch.ops.int8_gemm import int8_matmul
+    from dynamo_tpu_torch.ops.int8_gemm import device_plan, int8_matmul
 
-    cases = ([(n, M, K, N) for n, (K, N) in INT8_SHAPES.items()
+    cases = ([(n, M, K, N, "bfloat16") for n, (K, N) in INT8_SHAPES.items()
               for M in INT8_ROWS]
-             + [(f"tp2 {n}", M, K, N) for n, (K, N) in INT8_TP2_SHAPES.items()
-                for M in INT8_LINE_ROWS]
-             + [("ragged", M, K, N) for M, K, N in INT8_RAGGED])
+             + [(f"tp2 {n}", M, K, N, "bfloat16")
+                for n, (K, N) in INT8_TP2_SHAPES.items()
+                for M in INT8_LINE_ROWS + (32,)]
+             + [("ragged", M, K, N, "bfloat16") for M, K, N in INT8_RAGGED]
+             + [(f"tp2 {n}", 4, K, N, "float32")
+                for n, (K, N) in INT8_TP2_SHAPES.items()]
+             + [("ragged", M, K, N, "float32") for M, K, N in INT8_RAGGED])
     out = {}
-    for name, M, K, N in cases:
-        x, q, s, _ = int8_case(dev, M, K, N)
+    for name, M, K, N, dtype in cases:
+        x, q, s, _ = int8_case(dev, M, K, N, dtype=dtype)
+        route = device_plan(M, N, K, dev, x.dtype).route
         ex, err = int8_excess(int8_matmul(x, q, s), x, q, s)
-        out[f"{name} {K}x{N} M={M}"] = {"max_abs_err": err, "excess": ex}
+        key = f"{name} {K}x{N} M={M}" + ("" if dtype == "bfloat16"
+                                          else f" {dtype}")
+        out[key] = {"max_abs_err": err, "excess": ex, "route": route}
         if ex > 0:
-            fail(f"int8 GEMM {name} {K}x{N} M={M}: {ex:.4g} past the "
-                 f"tolerance (max abs err {err:.4g})")
+            fail(f"int8 GEMM {key} ({route}): {ex:.4g} past the tolerance "
+                 f"(max abs err {err:.4g})")
         del x, q, s
-    for M in INT8_LINE_ROWS:
-        x, q, s, _ = int8_case(dev, M, 4096, 1024)
+    for want, M, K, N, dtype in INT8_ROUTE_CASES:
+        x, q, s, _ = int8_case(dev, M, K, N, dtype=dtype)
+        route = device_plan(M, N, K, dev, x.dtype).route
+        if route != want:
+            fail(f"int8 control {M}x{K}x{N} {dtype} took route {route}, "
+                 f"not {want}")
         bad = s.clone()
         bad[7] *= 1 + 2.0 ** -5
         ex, err = int8_excess(int8_matmul(x, q, bad), x, q, s)
-        out[f"control: scale 7 off by 2^-5, 4096x1024 M={M}"] = {
-            "max_abs_err": err, "excess": ex}
+        out[f"control: scale 7 off by 2^-5, {K}x{N} M={M} {dtype} "
+            f"({route})"] = {"max_abs_err": err, "excess": ex,
+                             "route": route}
         if ex <= 0:
             fail(f"the perturbed-scale control stays within the int8 "
-                 f"tolerance at M={M}: the check is blind")
+                 f"tolerance at M={M} {dtype} ({route}): the check is blind")
     torch.cuda.empty_cache()
     worst = max(v["excess"] for k, v in out.items()
                 if not k.startswith("control"))
+    by_route = {}
+    for k, v in out.items():
+        if not k.startswith("control"):
+            by_route[v["route"]] = by_route.get(v["route"], 0) + 1
     log(f"  int8 GEMM vs plain, {len(cases)} shapes within tolerance "
-        f"(largest excess {worst:.4g} <= 0); controls "
+        f"(largest excess {worst:.4g} <= 0; cases by route "
+        f"{json.dumps(by_route)}); controls "
         f"{json.dumps({k: v for k, v in out.items() if k.startswith('control')})}")
     return out
 
 
 def time_int8_gemm(dev, errs: dict) -> list:
     """The int8 GEMM timed at the served shapes (INT8_SHAPES at every M
-    of INT8_TIMED_ROWS) in a CUDA graph of calls that cycle over copies
-    of the weights (INT8_COLD_BYTES), beside its bound
-    (``int8_gemm_work``), its plain version, bf16 ``torch.matmul`` on
-    the dequantized weight (the bf16 path's cost of the same product)
-    and, where the card's torch runs it on CUDA,
-    ``torch._weight_int8pack_mm`` (one PyTorch call of the same
-    function, timed over fewer calls; the port never calls it)."""
+    of INT8_TIMED_ROWS, bfloat16) and at the tiny preset's
+    (INT8_TINY_SHAPES at INT8_TINY_ROWS, float32: the simt route) in a
+    CUDA graph of calls that cycle over copies of the weights
+    (INT8_COLD_BYTES), beside its bound (``int8_gemm_work``), its plain
+    version, ``torch.matmul`` on the dequantized weight in x's dtype (the
+    unquantized path's cost of the same product), the other bf16 route
+    at INT8_CROSS_ROWS (forced, to place the crossover) and, where the
+    card's torch runs it on CUDA, ``torch._weight_int8pack_mm`` (one
+    PyTorch call of the same function, timed over fewer calls; the port
+    never calls it)."""
     import itertools
 
     import torch
 
-    from dynamo_tpu_torch.ops.int8_gemm import (int8_gemm_work, int8_matmul,
-                                                int8_matmul_plain)
+    from dynamo_tpu_torch.ops.int8_gemm import (device_plan, int8_gemm_work,
+                                                int8_matmul, int8_matmul_plain,
+                                                resident_of, small_m_plan,
+                                                wgmma_plan)
 
     def library(x, q, s):
         return torch._weight_int8pack_mm(x, q, s.to(x.dtype))
 
-    x, q, s, _ = int8_case(dev, 4, 64, 32)
-    try:
-        library(x, q, s)
-        torch.cuda.synchronize()
-        library_note = None
-    except (RuntimeError, NotImplementedError) as e:
-        library_note = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
-        log(f"  torch._weight_int8pack_mm does not run on CUDA here: "
-            f"{library_note}")
+    notes = {}
+    for dtype in ("bfloat16", "float32"):
+        x, q, s, _ = int8_case(dev, 4, 64, 32, dtype=dtype)
+        try:
+            library(x, q, s)
+            torch.cuda.synchronize()
+            notes[dtype] = None
+        except (RuntimeError, NotImplementedError) as e:
+            notes[dtype] = (f"{type(e).__name__}: "
+                            f"{str(e).splitlines()[0][:160]}")
+            log(f"  torch._weight_int8pack_mm does not run on CUDA here "
+                f"for {dtype} x: {notes[dtype]}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def other_plan(M, N, K, plan):
+        """The other bf16 route's launch of the same call."""
+        if plan.route == "wgmma":
+            return small_m_plan(M, N, K, sms)
+        return wgmma_plan(M, N, K, resident_of(dev))
+
     rows = []
-    for name, (K, N) in INT8_SHAPES.items():
+    cells = ([(n, K, N, M, "bfloat16") for n, (K, N) in INT8_SHAPES.items()
+              for M in INT8_TIMED_ROWS]
+             + [(f"tiny {n}", K, N, M, "float32")
+                for n, (K, N) in INT8_TINY_SHAPES.items()
+                for M in INT8_TINY_ROWS])
+    for (name, K, N), group in itertools.groupby(
+            cells, key=lambda c: c[:3]):
         copies = max(1, min(64, -(-INT8_COLD_BYTES // (K * N))))
+        group = list(group)
+        dtype = group[0][4]
         ws = []
         for c in range(copies):
             _, q, s, qw = int8_case(dev, 1, K, N, seed=10 + c)
-            ws.append((q, s, qw.dequant(torch.bfloat16).contiguous()))
-        for M in INT8_TIMED_ROWS:
-            x = torch.randn(M, K, device=dev).to(torch.bfloat16)
+            ws.append((q, s, qw.dequant(getattr(torch, dtype)).contiguous()))
+        for _, _, _, M, dtype in group:
+            x = torch.randn(M, K, device=dev).to(getattr(torch, dtype))
             turn = itertools.count()
+            plan = device_plan(M, N, K, dev, x.dtype)
 
             def pick():
                 return ws[next(turn) % copies]
 
-            def kern():
+            def kern(p=None):
                 q, s, _ = pick()
-                return int8_matmul(x, q, s)
+                return int8_matmul(x, q, s, plan=p)
 
             def plain():
                 q, s, _ = pick()
                 return int8_matmul_plain(x, q, s)
 
-            def bf16():
+            def dense():
                 return x @ pick()[2]
 
             def lib():
                 q, s, _ = pick()
                 return library(x, q, s)
 
-            work = int8_gemm_work(M, K, N)
+            work = int8_gemm_work(M, K, N, x.dtype)
             iters = (20 if work["bound_ms"] < 0.2 else
                      5 if work["bound_ms"] < 2 else 2)
-            route = "small_m" if M <= 64 else "large_m"
-            rows.append({
-                "name": f"int8_gemm {name} {K}x{N} M={M}", "route": "cuda",
+            key = f"{name} {K}x{N} M={M}"
+            row = {
+                "name": f"int8_gemm {key}", "route": "cuda",
                 "source": INT8_SOURCE, "replaces": INT8_REPLACES,
                 "kernel": f"int8_matmul (ops/int8_gemm.py) -> "
-                          f"int8_gemm_{route.split('_')[0]}_kernel",
-                "int8_route": route, "M": M, "K": K, "N": N,
-                "launches": 0,
-                "max_abs_err": errs[f"{name} {K}x{N} M={M}"]["max_abs_err"],
+                          f"int8_gemm_{plan.route.split('_')[0]}_kernel",
+                "int8_route": plan.route, "plan": list(plan), "M": M, "K": K,
+                "N": N, "dtype": dtype, "launches": 0,
+                "max_abs_err": (errs[key]["max_abs_err"] if key in errs
+                                else None),
                 "ms": time_ms(kern, iters), "plain_ms": time_ms(plain, iters),
-                "bf16_matmul_ms": time_ms(bf16, iters),
+                "matmul_ms": time_ms(dense, iters), "matmul_dtype": dtype,
                 "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
                 # the library call is far slower than the kernel: a
                 # graph of two calls at decode rows, one call at prefill's
-                "library_ms": (None if library_note is not None else
+                "library_ms": (None if notes[dtype] is not None else
                                time_ms(lib, 2, warmup=1) if M <= 64
                                else once_ms(lib)),
                 "library": "torch._weight_int8pack_mm" + (
-                    "" if library_note is None
-                    else f" (not on CUDA: {library_note})")})
-            log(f"  {rows[-1]['name']}: {rows[-1]['ms']:.4f} ms (bound "
-                f"{work['bound_ms']:.4f}, {work['bound_by']}; plain "
-                f"{rows[-1]['plain_ms']:.4f}; bf16 matmul "
-                f"{rows[-1]['bf16_matmul_ms']:.4f}; library "
-                f"{rows[-1]['library_ms']})")
+                    "" if notes[dtype] is None
+                    else f" (not on CUDA: {notes[dtype]})")}
+            if row["max_abs_err"] is None:
+                # a shape only timed here (the tiny preset's): held to
+                # the tolerance on this call
+                q, s, _ = ws[0]
+                ex, row["max_abs_err"] = int8_excess(int8_matmul(x, q, s),
+                                                     x, q, s)
+                if ex > 0:
+                    fail(f"int8 GEMM {key} {dtype}: {ex:.4g} past the "
+                         f"tolerance")
+            if dtype == "bfloat16" and M in INT8_CROSS_ROWS:
+                other = other_plan(M, N, K, plan)
+                row["other_route"] = other.route
+                row["other_plan"] = list(other)
+                row["other_ms"] = time_ms(lambda: kern(other), iters)
+            rows.append(row)
+            log(f"  {row['name']} {dtype} ({plan.route}): {row['ms']:.4f} "
+                f"ms (bound {work['bound_ms']:.4f}, {work['bound_by']}; "
+                f"plain {row['plain_ms']:.4f}; {dtype} matmul "
+                f"{row['matmul_ms']:.4f}; library {row['library_ms']}"
+                + (f"; {row['other_route']} {row['other_ms']:.4f}"
+                   if "other_ms" in row else "") + ")")
         del ws
         torch.cuda.empty_cache()
     return rows
@@ -1798,6 +1882,88 @@ def compare_int8_bf16(int8_logits, bf16_logits) -> dict:
     if not rel < INT8_REL_L2:
         fail(f"int8 logits rel_l2 {rel:.4g} from bf16's >= {INT8_REL_L2}")
     return out
+
+
+def serve_tiny_int8(out_dir: str) -> dict:
+    """The launcher's defaults with ``--dtype int8``: the float32 tiny
+    preset on the card (``python -m dynamo_tpu_torch.run in=http
+    out=torch --dtype int8``), which must answer one completion; its
+    serving summary must show no capture after warmup and every
+    projection of every replayed chunk and window step (7 a layer and
+    the head) through the int8 GEMM's simt route, and no other route."""
+    import urllib.request
+
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    port = _free_port()
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.run", "in=http",
+           "out=torch", "--dtype", "int8", "--model-name", "tiny-int8",
+           "--http-host", "127.0.0.1", "--http-port", str(port)]
+    path = os.path.join(out_dir, "serve_tiny_int8.log")
+    report = {}
+
+    def drive(procs):
+        t0 = time.monotonic()
+        while True:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                            timeout=2) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            if procs[0].poll() is not None:
+                fail(f"the tiny int8 launcher exited {procs[0].returncode} "
+                     f"before serving:\n{_tail(path)}")
+            if time.monotonic() - t0 > 300:
+                fail(f"the tiny int8 launcher is not serving after 300 s:\n"
+                     f"{_tail(path)}")
+            time.sleep(0.5)
+        report["start_s"] = time.monotonic() - t0
+        body = json.dumps({"model": "tiny-int8", "prompt": "Once upon a time",
+                           "max_tokens": 12}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/completions", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            if r.status != 200:
+                fail(f"tiny int8 completion: HTTP {r.status}")
+            out = json.loads(r.read())
+        report["finish_reason"] = out["choices"][0]["finish_reason"]
+        report["usage"] = out.get("usage")
+        if report["finish_reason"] not in ("length", "stop"):
+            fail(f"tiny int8 completion finished by "
+                 f"{report['finish_reason']!r}")
+        procs[0].send_signal(signal.SIGTERM)
+
+    rcs = _run_ranks([cmd], [path], 420, until=drive, rank_env=False)
+    if rcs[0] != 0:
+        fail(f"the tiny int8 launcher exited {rcs[0]}:\n{_tail(path)}")
+    summary = None
+    with open(path) as f:
+        for line in f:
+            if "serving summary " in line:
+                summary = json.loads(line.split("serving summary ", 1)[1])
+    if summary is None:
+        fail(f"the tiny int8 launcher printed no serving summary:\n"
+             f"{_tail(path)}")
+    L = ModelConfig.tiny().num_layers
+    K = EngineConfig().decode_steps
+    pf = summary["replays"]["prefill"]
+    win = summary["replays"]["decode_window"]
+    int8 = summary["int8_gemm_launches"]
+    want = (pf + win * K) * (7 * L + 1)
+    if (summary["post_warmup_compiles_total"] != 0 or win <= 0
+            or int8 != {"small_m": 0, "wgmma": 0, "simt": want}):
+        fail(f"tiny int8 serving summary: int8 GEMM launches {int8}, not "
+             f"{want} on the simt route alone ({pf} chunk replays, {win} "
+             f"windows x {K} steps x {7 * L + 1}), or a capture after "
+             f"warmup: {json.dumps(summary)}")
+    report["summary"] = summary
+    log(f"  tiny preset served with --dtype int8 (float32, simt route): "
+        f"{json.dumps(report)}")
+    return report
 
 
 def int8_phase(cfg, dev, bf16_logits) -> tuple:
@@ -1845,17 +2011,27 @@ def int8_phase(cfg, dev, bf16_logits) -> tuple:
     vs_bf16 = compare_int8_bf16(logits, bf16_logits)
     graph_window = check_graph_window(engine, cfg, dev)
     graph_prefill = check_graph_prefill(engine, dev)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny_dir = tempfile.mkdtemp(prefix="chip_smoke_tiny_")
+    try:
+        tiny = serve_tiny_int8(tiny_dir)
+    finally:
+        shutil.rmtree(tiny_dir, ignore_errors=True)
     for r in rows:
-        r["launches"] = served["int8_gemm_launches"][r["int8_route"]]
-    report = {"weights": weights, "served": served,
+        launched = (tiny["summary"] if r["dtype"] == "float32"
+                    else served)["int8_gemm_launches"]
+        r["launches"] = launched[r["int8_route"]]
+        if r["M"] in INT8_LINE_ROWS and r["launches"] <= 0:
+            fail(f"{r['name']}: its route {r['int8_route']} was not "
+                 f"launched on the served path")
+    report = {"weights": weights, "served": served, "tiny": tiny,
               "ttft": {"cold": ttft["cold"], "warm_spread":
                        ttft["warm_spread"]},
               "logprobs": logprobs, "paths": paths, "vs_bf16": vs_bf16,
               "graph_window": graph_window, "graph_prefill": graph_prefill,
               "kernel_errs": errs}
-    del engine
-    gc.collect()
-    torch.cuda.empty_cache()
     return report, rows, logits
 
 

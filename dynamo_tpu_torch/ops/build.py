@@ -54,13 +54,25 @@ def sources() -> List[str]:
     return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
 
 
+def _headers(src: bytes) -> List[str]:
+    """The csrc headers a source includes, directly or through another
+    csrc header, sorted."""
+    seen, todo = set(), set(_INCLUDE.findall(src.decode()))
+    while todo:
+        header = todo.pop()
+        seen.add(header)
+        with open(os.path.join(CSRC, header)) as f:
+            todo |= set(_INCLUDE.findall(f.read())) - seen
+    return sorted(seen)
+
+
 def _target(name: str) -> str:
     """The library's path, named by a hash of its source, the csrc headers
-    the source includes, and the flags."""
+    it includes (:func:`_headers`), and the flags."""
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
         src = f.read()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
-    for header in sorted(set(_INCLUDE.findall(src.decode()))):
+    for header in _headers(src):
         with open(os.path.join(CSRC, header), "rb") as f:
             digest.update(f.read())
     return os.path.join(build_dir(), f"lib{name}-{digest.hexdigest()[:16]}.so")

@@ -1,10 +1,13 @@
 // Helpers shared by the paged-attention kernels (paged_attention.cu for
-// decode, paged_prefill.cu for prefill). build.py hashes this header into
-// the name of every library whose source includes it.
+// decode, paged_prefill.cu for prefill). build.py hashes this header (and
+// the one it includes) into the name of every library whose source
+// includes it.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "tma_wgmma.cuh"  // smem_u32 and the mbarriers
 
 namespace {
 
@@ -41,32 +44,9 @@ __device__ __forceinline__ float cap(float s, float softcap) {
   return softcap > 0.f ? softcap * tanhf(s / softcap) : s;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count) : "memory");
-}
-
-// wait until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity) : "memory");
 }
 
 }  // namespace

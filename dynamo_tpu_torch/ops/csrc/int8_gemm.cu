@@ -1,37 +1,36 @@
 // Weight-only int8 GEMM for Hopper (sm_90a): y = (x @ q^T) * s.
 //
-// x [M, K] bfloat16 activations (row-major), q [N, K] int8 weights (the
+// x [M, K] activations (row-major), q [N, K] int8 weights (the
 // checkpoint's [out, in] layout: each output channel's K weights are
-// contiguous), s [N] float32 per-output-channel scales, y [M, N] bfloat16.
-// Sums in float32, the scale applied once in the epilogue, one rounding to
-// bfloat16.
+// contiguous), s [N] float32 per-output-channel scales, y [M, N] in x's
+// dtype. Sums in float32, the scale applied once in the epilogue, one
+// rounding to y's dtype.
 //
 // What it stands for: QuantInt8.__rmatmul__ of the JAX package
 // (dynamo_tpu/models/quant.py:87-92), `(x @ q.astype(x.dtype)) * s`, which
 // XLA fuses into one dot whose weight operand is widened on chip, so the
-// bfloat16 weights never exist in device memory. There is no Pallas kernel
+// widened weights never exist in device memory. There is no Pallas kernel
 // behind it. PyTorch has no such fusion: `x @ q.to(bf16)` writes a bf16
 // copy of the weights and reads it back, more bytes than the bf16 path.
 // Plain C entries return cudaGetLastError() (or the launch's own error)
 // and are loaded with ctypes by dynamo_tpu_torch/ops/int8_gemm.py, which
-// picks the route and the split from the shape alone.
+// picks the route, the tile, the splits and the grid from the shape alone
+// (int8_gemm_plan).
 //
 // What bounds it on an H100 SXM. Decode (M <= 64 rows) does 2M operations
 // per weight byte: at most 128, below the ~295 operations per byte where
 // 989 TF/s would bind, so it is bound by the bytes of q (K x N) at
-// 3.35 TB/s, once ~25 KB are in flight per SM. A prefill chunk of 512 or
-// more rows is bound by the tensor cores (989 TF/s, which only wgmma
-// reaches).
+// 3.35 TB/s. A prefill chunk of 512 or more rows is bound by the tensor
+// cores (989 TF/s, which only wgmma reaches).
 //
-// The design.
-// * Both routes widen the weights to bf16 on chip, in registers (small
-//   M) or shared memory (large M), never in device memory: int8
-//   -127..127 is exact in bf16. The widening is a byte permute into the
-//   mantissa of 2^23 and a subtraction per value, and one byte permute
-//   per pair (cvt to bf16x2 issues at a quarter of the integer rate).
-// * Small M (route 0, M <= 64), mma.sync m16n8k16 (bf16 in, f32
-//   accumulate): the contraction order within each 64-wide chunk of K is
-//   permuted, the same way for both operands, so that every lane of a
+// Three routes. The two bf16 routes widen the weights to bf16 on chip, in
+// registers, never in device memory: int8 -127..127 is exact in bf16. The widening
+// (widen_i8x4) is a byte permute into the mantissa of 2^23 and a
+// subtraction per value, and one byte permute per pair (cvt to bf16x2
+// issues at a quarter of the integer rate).
+// * small_m (route 0, bf16 x, decode rows), mma.sync m16n8k16 (bf16 in,
+//   f32 accumulate): the contraction order within each 64-wide chunk of K
+//   is permuted, the same way for both operands, so that every lane of a
 //   quad loads its column's weights as one 16-byte load: lane (g, t)
 //   holds k = 16t .. 16t + 15 of the chunk for column g, and in step j of
 //   the chunk feeds k = 16t + 4j .. 16t + 4j + 3 where the fragment
@@ -41,27 +40,45 @@
 //   tensor cores. A block is four warps on 32 output columns; the warps
 //   take interleaved 64-wide chunks of the block's share of K, each with
 //   the next chunk's weights in flight while it computes the current
-//   one. Few output tiles exist (N = 1024 gives 32), so K is also split
-//   over the S <= 8 blocks of one thread-block cluster (the plan,
-//   ops/int8_gemm.py int8_gemm_plan, fills ~4 blocks an SM). The warps'
-//   partials sum through shared memory and the cluster's through
-//   distributed shared memory, each in a fixed order: the result does not
-//   depend on timing, so a replayed graph gives the eager call's bits. No
-//   atomics, no scratch in device memory.
-// * Large M (route 1), wgmma m64n128k16 (bf16 in, f32 accumulate, both
-//   operands from shared memory, 128-byte swizzle): 128 x 128 output
-//   tiles of two warpgroups, K in chunks of 64. The x tile comes by
-//   cp.async one chunk ahead; each thread loads 32 of the q tile's
-//   weights into registers two chunks ahead and widens them into the
-//   next chunk's bf16 tile while the current chunk's wgmmas run, and a
-//   warpgroup keeps one chunk's wgmmas in flight: one barrier a chunk.
-//   Each weight is widened once a block (mma.sync fragments would widen
-//   it once a warp that reads it). TMA, warp specialisation and a
-//   persistent grid are later work.
+//   one. K is also split over the S <= 8 blocks of one thread-block
+//   cluster, folded through distributed shared memory in a fixed order.
+// * wgmma (route 1, bf16 x: prefill chunks, decode batches above the
+//   measured crossover and the widest decode products): the product is
+//   computed transposed, y^T = q x^T, so that the weights are wgmma's A
+//   operand, from registers, and the tokens its N (16 .. 256). A block
+//   is a producer warpgroup and two consumer warpgroups on a tile of 128
+//   output channels (64 a warpgroup) by BT tokens; setmaxnreg moves the
+//   producer's registers to the consumers (40 and 232 a thread), so the
+//   256-token tile's 128 accumulators a thread do not spill. One
+//   producer thread keeps a ring of stages in flight with TMA, each a
+//   [BT, 64] bf16 tile of x (128-byte swizzle, the K-major B operand of
+//   wgmma m64nBTk16) and a [128, 64] int8 tile of q (64-byte swizzle),
+//   completion counted in bytes on the stage's full mbarrier; the
+//   consumers release a stage on its empty mbarrier once its wgmmas have
+//   completed. A consumer thread gathers its A fragment (k = 2t, 2t + 1,
+//   2t + 8, 2t + 9 of rows g and g + 8 in each k16 step) with two 32-bit
+//   shared loads and one byte permute a row and step (the swizzle makes
+//   them conflict-free), widens it in registers, and issues the chunk's
+//   four wgmmas while one (BT >= 128) or two (BT <= 64) earlier chunks'
+//   are still running, each with its own A fragment registers. The grid
+//   is persistent: each cluster walks the tiles tile = cluster + i *
+//   clusters, tokens fastest (neighbouring tiles share their weights
+//   through L2), as many clusters as the card holds at once. Where the
+//   tiles are too few to fill the card, K is split over the S <= 8
+//   blocks of one cluster: each block writes its partial sums to shared
+//   memory and the blocks fold them through distributed shared memory in
+//   rank order. No atomics and no global counters: a replayed CUDA graph
+//   gives the eager call's bits.
+// * simt (route 2, float32 and float16 x): an untuned tiled loop in
+//   float32 FMAs, for the models that are not served in bf16 (the tiny
+//   preset is float32).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma_wgmma.cuh"
 
 namespace {
 
@@ -110,24 +127,6 @@ __device__ __forceinline__ uint4 ld_stream(const void* p) {
   return v;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // the cluster's barrier (release/acquire: shared-memory writes before it
 // are seen by reads after it, across the cluster's blocks), its relaxed
 // form, and loads from a peer's shared memory
@@ -149,6 +148,13 @@ __device__ __forceinline__ float ld_dsmem(uint32_t addr) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
                : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_dsmem_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
   return v;
 }
 
@@ -315,193 +321,342 @@ int8_gemm_small_kernel(const __nv_bfloat16* __restrict__ x,
   cluster_sync_relaxed();
 }
 
-// ------------------------------------------------------- route 1: large M
+// ------------------------------------------------- route 1: TMA + wgmma
 
-constexpr int LG_THREADS = 256;   // two warpgroups, 64 rows each
-constexpr int LG_BM = 128, LG_BN = 128;
-// three x tiles and three widened q tiles: chunk kt's are read by its
-// wgmmas, which stay in flight through chunk kt + 1, while chunk kt + 2's
-// are written
-constexpr int LG_STAGES = 3;
-// a [128, 64] bf16 tile: rows of 128 bytes, 16-byte chunks XOR-swizzled
-// by row % 8 (the layout a 128-byte-swizzle wgmma descriptor reads)
-constexpr int LG_TILE = 128 * 128;
-// 1024 bytes of slack to align the tiles, the x tiles, the q tiles
-constexpr int LG_SMEM = 1024 + 2 * LG_STAGES * LG_TILE;  // 99,328
+constexpr int WG_CONSUMER_WARPS = 8;  // two warpgroups, 64 channels each
+constexpr int WG_CONSUMERS = 32 * WG_CONSUMER_WARPS;
+// + the producer warpgroup, so that registers move between whole
+// warpgroups (setmaxnreg): the producer keeps WG_PRODUCER_REGS a thread
+// and the consumers take WG_CONSUMER_REGS (128 x 40 + 256 x 232 <= 64K)
+constexpr int WG_THREADS = WG_CONSUMERS + 128;
+constexpr int WG_PRODUCER_REGS = 40;
+constexpr int WG_CONSUMER_REGS = 232;
+constexpr int WG_BN = 128;  // output channels a tile
+constexpr int WG_BK = 64;   // K a stage: 128 bytes of an x row, 64 of q's
+constexpr int WG_Q_BYTES = WG_BN * WG_BK;
+constexpr int WG_PART_LD = WG_BN + 4;  // floats a token row of the fold
+                                       // buffer (conflict-free writes)
 
-__device__ __forceinline__ uint32_t swz128(int r, int c) {
-  return (uint32_t)(r * 128 + (((c ^ r) & 7) << 4));
+// Shared memory of a tile of BT tokens: STAGES ring stages, each the x
+// tile [BT, 64] bf16 (rows of 128 bytes, 128-byte swizzle) then the q
+// tile [128, 64] int8 (rows of 64 bytes, 64-byte swizzle), and a full
+// and an empty mbarrier a stage. With K splits, the fold buffer [BT,
+// WG_PART_LD] float32 takes the ring's place between a tile's last chunk
+// and the next tile's first (the producer loads nothing then). 1024
+// bytes of slack align the ring for the swizzles.
+template <int BT> struct WgTile {
+  static constexpr int X_BYTES = BT * 128;
+  static constexpr int STAGE_BYTES = X_BYTES + WG_Q_BYTES;
+  static constexpr int STAGES = BT == 256 ? 5 : 8;
+  // chunks whose wgmmas a consumer warpgroup keeps in flight: three
+  // where a chunk's products are short (their latency, not the tensor
+  // cores, sets the pace), two at 128 tokens and more, where a third
+  // would leave the producer too few stages to fill ahead
+  static constexpr int DEPTH = BT <= 64 ? 3 : 2;
+  static constexpr int PART_BYTES = BT * WG_PART_LD * 4;
+  static_assert(PART_BYTES <= STAGES * STAGE_BYTES, "fold buffer > ring");
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+};
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
 }
 
-__device__ __forceinline__ void sts128(uint32_t addr, uint32_t a, uint32_t b,
-                                       uint32_t c, uint32_t d) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(a), "r"(b), "r"(c), "r"(d)
-               : "memory");
+// registers that an in-flight wgmma reads or writes stay where they are
+// until this point (the compiler sees them used here)
+__device__ __forceinline__ void hold(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    asm volatile("" : "+r"(a[i][0]), "+r"(a[i][1]), "+r"(a[i][2]),
+                 "+r"(a[i][3]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-// wgmma descriptor of a 128-byte swizzled, K-major operand at shared
-// address addr (groups of 8 rows 1024 bytes apart)
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(16 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// wgmma m64n128k16, bf16 in, f32 accumulators, A and B from shared
-// memory, both K-major; d[4j + e]: row 16 (warp % 4) + lane / 4 (+ 8 for
-// e >= 2), column 8j + 2 (lane % 4) + (e & 1), as mma.sync's m16n8
-// fragment
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// grid (ceil(N / 128), ceil(M / 128)); warpgroup wg computes rows
-// 64 wg .. + 63 and all 128 columns of the block's tile. Chunk kt of K
-// (64 wide): its x tile is copied (cp.async) one chunk ahead; each thread
-// holds 32 of the q tile's weights in registers, loaded two chunks ahead,
-// and widens them into chunk kt + 1's bf16 tile while chunk kt's wgmmas
-// run; a warpgroup keeps one chunk's wgmmas in flight (one barrier a
-// chunk; the widening and the copies overlap the products).
-__global__ void __launch_bounds__(LG_THREADS, 2)
-int8_gemm_large_kernel(const __nv_bfloat16* __restrict__ x,
-                       const int8_t* __restrict__ q,
-                       const float* __restrict__ s,
-                       __nv_bfloat16* __restrict__ y, int M, int N, int K) {
-  extern __shared__ unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wg = warp >> 2;
-  const int m0 = blockIdx.y * LG_BM, n0 = blockIdx.x * LG_BN;
-  const int KT = (K + CHUNK_K - 1) / CHUNK_K;
-  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
-  const uint32_t w_base = base + LG_STAGES * LG_TILE;
-
-  // one chunk of the x tile into stage st: 128 rows of 8 16-byte pieces,
-  // 4 a thread
-  auto load_x = [&](int st, int kt) {
-    const uint32_t a_s = base + st * LG_TILE;
-    const int k0 = kt * CHUNK_K;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int id = tid + i * LG_THREADS;
-      const int row = id >> 3, piece = id & 7;
-      const int m = m0 + row, k = k0 + piece * 8;
-      const bool ok = m < M && k < K;
-      cp_async16(a_s + swz128(row, piece),
-                 ok ? (const void*)(x + (size_t)m * K + k) : (const void*)x,
-                 ok);
-    }
-  };
-  // this thread's 32 weights of a chunk: row wrow of the q tile, k =
-  // 32 wh .. + 31 (two 16-byte pieces; zeros past N or K)
-  const int wrow = tid >> 1, wh = tid & 1;
-  const bool wok = n0 + wrow < N;
-  const int8_t* wsrc = q + (size_t)(wok ? n0 + wrow : 0) * K + 32 * wh;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  auto load_w = [&](int kt, uint4 (&r)[2]) {
-    const int k = kt * CHUNK_K + 32 * wh;
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      r[h] = (wok && kt < KT && k + 16 * h < K)
-                 ? ld_stream(wsrc + (size_t)kt * CHUNK_K + 16 * h)
-                 : zero;
-  };
-  auto widen_w = [&](int buf, const uint4 (&r)[2]) {
-    const uint32_t dst = w_base + buf * LG_TILE;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint32_t o[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) widen_i8x4(word(r[h], i), o[2 * i], o[2 * i + 1]);
-      const int c = 4 * wh + 2 * h;  // 16-byte chunk: 8 bf16 of k
-      sts128(dst + swz128(wrow, c), o[0], o[1], o[2], o[3]);
-      sts128(dst + swz128(wrow, c + 1), o[4], o[5], o[6], o[7]);
-    }
-  };
-
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-
-  load_x(0, 0);
-  cp_async_commit();
-  uint4 wreg[2];
-  load_w(0, wreg);
-  widen_w(0, wreg);
-  load_w(1, wreg);
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<0>();
-    // this thread's copies and stores of chunk kt made visible to the
-    // wgmmas (the async proxy); after the barrier, every thread's, and
-    // every warpgroup is done with chunk kt - 2 (its x and q tiles are
-    // chunk kt + 1's)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (kt + 1 < KT) load_x((kt + 1) % LG_STAGES, kt + 1);
-    cp_async_commit();
-
-    const uint32_t a_s = base + (kt % LG_STAGES) * LG_TILE + wg * 64 * 128;
-    const uint32_t b_s = w_base + (kt % LG_STAGES) * LG_TILE;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int kk = 0; kk < CHUNK_K / 16; ++kk)
-      wgmma_ss_n128(acc, wgmma_desc(a_s + kk * 32),
-                    wgmma_desc(b_s + kk * 32));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    if (kt + 1 < KT) {
-      // the next chunk's weights into its tile, then the weights of the
-      // chunk after it into the registers
-      widen_w((kt + 1) % LG_STAGES, wreg);
-      load_w(kt + 2, wreg);
-    }
-    // chunk kt - 1's wgmmas done; chunk kt's stay in flight
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+// four sums (tokens m, channels n .. n + 3) scaled and rounded to bf16
+__device__ __forceinline__ void store4(__nv_bfloat16* y, const float* s,
+                                       int M, int N, int m, int n, float4 v) {
+  if (m >= M) return;
+  __nv_bfloat16* row = y + (size_t)m * N;
+  if ((N & 3) == 0 && n + 3 < N) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x * s[n], v.y * s[n + 1]);
+    const __nv_bfloat162 hi =
+        __floats2bfloat162_rn(v.z * s[n + 2], v.w * s[n + 3]);
+    uint2 packed;
+    packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+    packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(row + n) = packed;
+    return;
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  cp_async_wait<0>();
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (n + i < N) row[n + i] = __float2bfloat16_rn(e[i] * s[n + i]);
+}
 
-  const int r0 = m0 + wg * 64 + (warp & 3) * 16 + g;
+// grid: clusters of `splits` blocks (1..8), as many clusters as the card
+// holds at once (or fewer where the tiles are fewer). Cluster c walks the
+// tiles c, c + clusters, ...; tile i covers tokens (i % TT) * BT .. + BT -
+// 1 and channels (i / TT) * 128 .. + 127. Block r of a cluster takes the
+// 64-wide chunks [r * cps, (r + 1) * cps) of K. Warps 0-7 are the
+// consumers (warpgroup wg computes channels 64 wg .. + 63 of the
+// block's 128, warp w its rows 16 (w % 4) + g and + 8), warps 8-11 the
+// producer warpgroup (one thread issues the copies). x_map: x as [M, K]
+// bf16, box [BT, 64], 128-byte swizzle; q_map: q as [N, K] uint8, box [128, 64],
+// 64-byte swizzle (zeros past M, N and K).
+template <int BT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                       const __grid_constant__ CUtensorMap q_map,
+                       const float* __restrict__ s,
+                       __nv_bfloat16* __restrict__ y, int M, int N, int K,
+                       int splits, int cps) {
+  using Tile = WgTile<BT>;
+  constexpr int STAGES = Tile::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* part = reinterpret_cast<float*>(smem);  // K splits: see WgTile
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + STAGES * Tile::STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = blockIdx.x % splits, cluster = blockIdx.x / splits;
+  const int clusters = gridDim.x / splits;
+  const int TT = (M + BT - 1) / BT;
+  const int tiles = TT * ((N + WG_BN - 1) / WG_BN);
+  const int C = (K + WG_BK - 1) / WG_BK;
+  const int c_begin = min(C, rank * cps), c_end = min(C, c_begin + cps);
+
+  if (tid == 0) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int n = n0 + j * 8 + 2 * t;
-    const float s0 = n < N ? s[n] : 0.f;
-    const float s1 = n + 1 < N ? s[n + 1] : 0.f;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = r0 + 8 * r;
-      if (m >= M) continue;
-      const float v0 = acc[4 * j + 2 * r] * s0;
-      const float v1 = acc[4 * j + 2 * r + 1] * s1;
-      if (n + 1 < N && (N & 1) == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)m * N + n) =
-            __floats2bfloat162_rn(v0, v1);
-      } else {
-        store_out(y, M, N, m, n, v0);
-        store_out(y, M, N, m, n + 1, v1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);                   // the producer + TMA bytes
+      mbar_init(&empty[i], WG_CONSUMER_WARPS);  // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= WG_CONSUMER_WARPS) {
+    // ---- producer: one thread keeps the ring full; with K splits the
+    // whole warpgroup takes part in the fold's two cluster barriers a tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        WG_PRODUCER_REGS));
+    if (splits == 1 && tid != WG_CONSUMERS) return;
+    int it = 0;
+    for (int tile = cluster; tile < tiles; tile += clusters) {
+      if (tid == WG_CONSUMERS) {
+        const int m0 = (tile % TT) * BT, n0 = (tile / TT) * WG_BN;
+        for (int c = c_begin; c < c_end; ++c, ++it) {
+          const int st = it % STAGES;
+          mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[st], Tile::STAGE_BYTES);
+          const uint32_t xs = smem_u32(smem + st * Tile::STAGE_BYTES);
+          tma_load_2d(xs, &x_map, c * WG_BK, m0, &full[st]);
+          tma_load_2d(xs + Tile::X_BYTES, &q_map, c * WG_BK, n0, &full[st]);
+        }
+      }
+      if (splits > 1) {
+        cluster_sync_relaxed();
+        cluster_sync_relaxed();
       }
     }
+    return;
+  }
+
+  // ---- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      WG_CONSUMER_REGS));
+  const int g = lane >> 2, t = lane & 3;
+  const int crow = (warp >> 2) * 64 + (warp & 3) * 16 + g;  // q tile row
+  // the byte permute that takes k = 2t, 2t + 1 from the word at t / 2
+  // and k = 2t + 8, 2t + 9 from the word at t / 2 + 2 of a 16-byte chunk
+  const uint32_t sel = (t & 1) ? 0x7632u : 0x5410u;
+  // byte offsets of those words in the q tile, chunk kk of row crow (row
+  // crow + 8 is 512 bytes further and has the same swizzle): the 64-byte
+  // swizzle stores chunk kk of row r at kk ^ ((r / 2) % 4)
+  uint32_t qoff[4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    qoff[kk] = crow * 64 + ((kk ^ ((crow >> 1) & 3)) << 4) + ((t >> 1) << 2);
+
+  // the A fragments of the four k16 steps of the stage's q tile: a[kk] =
+  // {row crow, k 16kk + 2t..; row crow + 8, same k; row crow, k 16kk + 8
+  // + 2t..; row crow + 8, same k}, mma.sync's m16n8k16 A fragment
+  auto load_a = [&](uint32_t qs, uint32_t (&a)[4][4]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t addr = qs + qoff[kk] + h * 512;
+        widen_i8x4(__byte_perm(lds32(addr), lds32(addr + 8), sel), a[kk][h],
+                   a[kk][2 + h]);
+      }
+  };
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+
+  float acc[BT / 2];
+  constexpr int DEPTH = Tile::DEPTH;
+  uint32_t afrag[DEPTH][4][4];  // one chunk's A fragments a buffer
+  int it = 0;
+  for (int tile = cluster; tile < tiles; tile += clusters) {
+    const int m0 = (tile % TT) * BT, n0 = (tile / TT) * WG_BN;
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) acc[i] = 0.f;
+    // chunk i of the tile: its A fragments into `a` (buffer i % DEPTH)
+    // while the DEPTH - 1 chunks before it run, then its four wgmmas; once
+    // they are issued, chunk i - DEPTH + 1's have completed: its stage is
+    // released and its buffer `done` may be written again
+    auto chunk = [&](uint32_t (&a)[4][4], uint32_t (&done)[4][4], int i) {
+      const int st = it % STAGES;
+      mbar_wait(&full[st], (it / STAGES) & 1);
+      const uint32_t xs = smem_u32(smem + st * Tile::STAGE_BYTES);
+      load_a(xs + Tile::X_BYTES, a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<BT, 0>(acc, a[kk], wgmma_desc(xs + kk * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<DEPTH - 1>();
+      hold(done);
+      if (i >= DEPTH - 1) release((it + STAGES - DEPTH + 1) % STAGES);
+      ++it;
+    };
+    const int nc = c_end - c_begin;
+    int i = 0;
+    for (; i + DEPTH - 1 < nc; i += DEPTH) {
+#pragma unroll
+      for (int d = 0; d < DEPTH; ++d)
+        chunk(afrag[d], afrag[(d + 1) % DEPTH], i + d);
+    }
+#pragma unroll
+    for (int d = 0; d < DEPTH - 1; ++d)
+      if (i + d < nc) chunk(afrag[d], afrag[(d + 1) % DEPTH], i + d);
+    wgmma_wait<0>();
+    hold(acc);
+#pragma unroll
+    for (int d = 0; d < DEPTH; ++d) hold(afrag[d]);
+    for (int j = max(nc - DEPTH + 1, 0); j < nc; ++j)
+      release((it - nc + j) % STAGES);
+
+    // accumulator d[4j + e]: channel crow + 8 (e / 2), token 8j + 2t +
+    // (e % 2) of the tile
+    if (splits == 1) {
+      const int na = n0 + crow, nb = na + 8;
+      const float sa = na < N ? s[na] : 0.f, sb = nb < N ? s[nb] : 0.f;
+#pragma unroll
+      for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + 8 * j + 2 * t + (e & 1);
+          const int n = e < 2 ? na : nb;
+          if (m < M && n < N)
+            y[(size_t)m * N + n] =
+                __float2bfloat16_rn(acc[4 * j + e] * (e < 2 ? sa : sb));
+        }
+      continue;
+    }
+    {
+      // K splits: the block's partial sums into its fold buffer [token]
+      // [channel], over the ring once every consumer's wgmmas are done
+      // (the producer waits at the cluster barriers); then block r
+      // finishes float4 u = r * 256 + tid, + 256 S, ... of the tile, the
+      // ranks' partials summed in rank order
+      asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS) : "memory");
+#pragma unroll
+      for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          part[(8 * j + 2 * t + (e & 1)) * WG_PART_LD + crow + 8 * (e >> 1)] =
+              acc[4 * j + e];
+      cluster_sync_acq_rel();
+      const uint32_t base = smem_u32(part);
+      for (int u = rank * WG_CONSUMERS + tid; u < BT * (WG_BN / 4);
+           u += splits * WG_CONSUMERS) {
+        const int tl = u / (WG_BN / 4), cl = (u % (WG_BN / 4)) * 4;
+        const uint32_t off = base + 4u * (tl * WG_PART_LD + cl);
+        float4 v = ld_dsmem_f4(dsmem_addr(off, 0));
+        for (int r = 1; r < splits; ++r) {
+          const float4 w = ld_dsmem_f4(dsmem_addr(off, r));
+          v.x += w.x;
+          v.y += w.y;
+          v.z += w.z;
+          v.w += w.w;
+        }
+        store4(y, s, M, N, m0 + tl, n0 + cl, v);
+      }
+      // the fold buffer's generic accesses before the next tile's copies
+      // (the async proxy) into the ring; no block reloads its ring, or
+      // leaves, while a peer may still read its fold buffer
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      cluster_sync_relaxed();
+    }
+  }
+}
+
+// ------------------------------------- route 2: float32 and float16 x
+
+constexpr int ST_THREADS = 256;  // 32 x 8
+constexpr int ST_TILE = 32;      // tokens and channels a block
+
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32<__half>(__half v) {
+  return __half2float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// grid (ceil(N / 32), ceil(M / 32)): a block computes 32 tokens x 32
+// channels, thread (tx, ty) channel tx of tokens ty, ty + 8, ty + 16,
+// ty + 24, over 32-wide chunks of K staged in shared memory as float32.
+template <typename T>
+__global__ void __launch_bounds__(ST_THREADS)
+int8_gemm_simt_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
+                      const float* __restrict__ s, T* __restrict__ y, int M,
+                      int N, int K) {
+  __shared__ float xs[ST_TILE][ST_TILE + 1];
+  __shared__ float qs[ST_TILE][ST_TILE + 1];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int n0 = blockIdx.x * ST_TILE, m0 = blockIdx.y * ST_TILE;
+  float acc[ST_TILE / 8] = {0.f, 0.f, 0.f, 0.f};
+  for (int k0 = 0; k0 < K; k0 += ST_TILE) {
+    const int k = k0 + tx;
+    for (int i = ty; i < ST_TILE; i += 8) {
+      const int m = m0 + i, n = n0 + i;
+      xs[i][tx] = (m < M && k < K) ? to_f32(x[(size_t)m * K + k]) : 0.f;
+      qs[i][tx] = (n < N && k < K) ? (float)q[(size_t)n * K + k] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < ST_TILE; ++kk) {
+      const float w = qs[tx][kk];
+#pragma unroll
+      for (int i = 0; i < ST_TILE / 8; ++i)
+        acc[i] = fmaf(xs[ty + 8 * i][kk], w, acc[i]);
+    }
+    __syncthreads();
+  }
+  const int n = n0 + tx;
+  if (n >= N) return;
+  const float sn = s[n];
+#pragma unroll
+  for (int i = 0; i < ST_TILE / 8; ++i) {
+    const int m = m0 + ty + 8 * i;
+    if (m < M) y[(size_t)m * N + n] = from_f32<T>(acc[i] * sn);
   }
 }
 
@@ -528,16 +683,91 @@ int launch_small(const __nv_bfloat16* x, const int8_t* q, const float* s,
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
+
+cudaLaunchConfig_t wgmma_config(int splits, int grid, cudaStream_t st,
+                                cudaLaunchAttribute* attr) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int BT>
+int launch_wgmma(const void* x, const void* q, const float* s,
+                 __nv_bfloat16* y, int M, int N, int K, int splits, int grid,
+                 cudaStream_t st) {
+  using Tile = WgTile<BT>;
+  if (splits < 1 || splits > MAX_SPLITS || grid < splits ||
+      grid % splits != 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap x_map, q_map;
+  if (!tile_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K,
+                2ull * K, BT, WG_BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tile_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, K, K, WG_BN,
+                WG_BK, CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_gemm_wgmma_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int C = (K + WG_BK - 1) / WG_BK;
+  const int cps = (C + splits - 1) / splits;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = wgmma_config(splits, grid, st, attr);
+  cfg.dynamicSmemBytes = Tile::SMEM;
+  err = cudaLaunchKernelEx(&cfg, int8_gemm_wgmma_kernel<BT>, x_map, q_map, s,
+                           y, M, N, K, splits, cps);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// clusters of `splits` blocks of the BT-token kernel the card holds at
+// once (negative: a CUDA error)
+template <int BT>
+int wgmma_resident(int splits) {
+  using Tile = WgTile<BT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_gemm_wgmma_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile::SMEM);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = wgmma_config(splits, splits, nullptr, attr);
+  cfg.dynamicSmemBytes = Tile::SMEM;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, int8_gemm_wgmma_kernel<BT>, &cfg);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
+template <typename T>
+int launch_simt(const void* x, const int8_t* q, const float* s, void* y,
+                int M, int N, int K, cudaStream_t st) {
+  const dim3 grid((N + ST_TILE - 1) / ST_TILE, (M + ST_TILE - 1) / ST_TILE);
+  int8_gemm_simt_kernel<T><<<grid, ST_THREADS, 0, st>>>(
+      static_cast<const T*>(x), q, s, static_cast<T*>(y), M, N, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// y [M, N] = (x [M, K] @ q [N, K]^T) * s [N]. route 0: the small-M kernel
-// with `mt` m16 tiles (1, 2 or 4; M <= 16 mt) and `splits` blocks of K a
-// cluster (1..8); route 1: the large-M kernel (mt and splits unused). K
-// must be a multiple of 16 and x and q 16-byte aligned; the wrapper
-// checks both, and the entry refuses what it does not take.
+// y [M, N] = (x [M, K] @ q [N, K]^T) * s [N]; dtype of x and y: 0
+// bfloat16, 1 float16, 2 float32. route 0 (small_m, bfloat16): `tile` m16
+// tiles (1, 2 or 4; M <= 16 tile) and `splits` blocks of K a cluster
+// (1..8); route 1 (wgmma, bfloat16): `tile` tokens a tile (16, 32, 64,
+// 128 or 256), `splits` blocks of K a cluster and
+// `grid` blocks (a multiple of splits); route 2 (simt, float16 or
+// float32): tile, splits and grid unused. K must be a multiple of 16 and
+// x and q 16-byte aligned; the wrapper checks both, and the entry refuses
+// what it does not take.
 extern "C" int dyn_int8_gemm(const void* x, const void* q, const void* s,
-                             void* y, int M, int N, int K, int route, int mt,
-                             int splits, void* stream) {
+                             void* y, int M, int N, int K, int route,
+                             int tile, int splits, int grid, int dtype,
+                             void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
@@ -545,10 +775,16 @@ extern "C" int dyn_int8_gemm(const void* x, const void* q, const void* s,
   const auto* sb = static_cast<const float*>(s);
   auto* yb = static_cast<__nv_bfloat16*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 2) {
+    if (dtype == 1) return launch_simt<__half>(x, qb, sb, y, M, N, K, st);
+    if (dtype == 2) return launch_simt<float>(x, qb, sb, y, M, N, K, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   if (route == 0) {
-    if (splits < 1 || splits > MAX_SPLITS || M > 16 * mt)
+    if (splits < 1 || splits > MAX_SPLITS || M > 16 * tile)
       return (int)cudaErrorInvalidValue;
-    switch (mt) {
+    switch (tile) {
       case 1: return launch_small<1>(xb, qb, sb, yb, M, N, K, splits, st);
       case 2: return launch_small<2>(xb, qb, sb, yb, M, N, K, splits, st);
       case 4: return launch_small<4>(xb, qb, sb, yb, M, N, K, splits, st);
@@ -556,12 +792,27 @@ extern "C" int dyn_int8_gemm(const void* x, const void* q, const void* s,
     }
   }
   if (route != 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_gemm_large_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      LG_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + LG_BN - 1) / LG_BN, (M + LG_BM - 1) / LG_BM);
-  int8_gemm_large_kernel<<<grid, LG_THREADS, LG_SMEM, st>>>(xb, qb, sb, yb, M,
-                                                            N, K);
-  return (int)cudaGetLastError();
+  switch (tile) {
+    case 16: return launch_wgmma<16>(x, q, sb, yb, M, N, K, splits, grid, st);
+    case 32: return launch_wgmma<32>(x, q, sb, yb, M, N, K, splits, grid, st);
+    case 64: return launch_wgmma<64>(x, q, sb, yb, M, N, K, splits, grid, st);
+    case 128: return launch_wgmma<128>(x, q, sb, yb, M, N, K, splits, grid, st);
+    case 256: return launch_wgmma<256>(x, q, sb, yb, M, N, K, splits, grid, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// How many clusters of `splits` blocks of the wgmma route's
+// `tile`-token kernel the card holds at once (the persistent grid's
+// size); a negative value is a CUDA error.
+extern "C" int dyn_int8_gemm_resident(int tile, int splits) {
+  if (splits < 1 || splits > MAX_SPLITS) return -(int)cudaErrorInvalidValue;
+  switch (tile) {
+    case 16: return wgmma_resident<16>(splits);
+    case 32: return wgmma_resident<32>(splits);
+    case 64: return wgmma_resident<64>(splits);
+    case 128: return wgmma_resident<128>(splits);
+    case 256: return wgmma_resident<256>(splits);
+  }
+  return -(int)cudaErrorInvalidValue;
 }

@@ -1,44 +1,70 @@
-"""Weight-only int8 GEMM: the CUDA kernel's wrapper and its plain version.
+"""Weight-only int8 GEMM: the CUDA kernels' wrapper and their plain version.
 
-:func:`int8_matmul` computes ``(x @ q^T) * s`` for bfloat16 activations
-``x [..., K]``, int8 weights ``q [N, K]`` (the checkpoint's ``[out, in]``
-layout, one output channel's weights contiguous) and float32
-per-output-channel scales ``s [N]``, giving ``[..., N]`` in x's dtype.
-It is what ``models/quant.py QuantInt8`` runs for ``x @ w``: the JAX
-package's ``QuantInt8.__rmatmul__`` (``dynamo_tpu/models/quant.py:87-92``),
-where XLA fuses the int8 widening and the scale into the dot. There is
-no Pallas kernel behind it; ``csrc/int8_gemm.cu`` is the port's own, and
-its note says what bounds it on an H100 and what its design does about
-it.
+:func:`int8_matmul` computes ``(x @ q^T) * s`` for activations ``x [...,
+K]`` (bfloat16, float16 or float32), int8 weights ``q [N, K]`` (the
+checkpoint's ``[out, in]`` layout, one output channel's weights
+contiguous) and float32 per-output-channel scales ``s [N]``, giving
+``[..., N]`` in x's dtype. It is what ``models/quant.py QuantInt8`` runs
+for ``x @ w``: the JAX package's ``QuantInt8.__rmatmul__``
+(``dynamo_tpu/models/quant.py:87-92``), where XLA fuses the int8 widening
+and the scale into the dot. There is no Pallas kernel behind it;
+``csrc/int8_gemm.cu`` is the port's own, and its note says what bounds it
+on an H100 and what its design does about it.
 
 For tensors on the CPU the wrapper computes the plain version
 (:func:`int8_matmul_plain`, the JAX package's order: the product with
 the weights widened to x's dtype, then the scale in x's dtype); for CUDA
-tensors it launches the kernel on the current stream or raises — there
-is no fallback. The route comes from the shape (:func:`int8_gemm_plan`):
-``small_m`` (M <= :data:`SMALL_M_MAX` rows, decode: bound by the weight
-bytes, K split over a thread-block cluster) or ``large_m`` (prefill
-chunks: 128 x 128 tiles). Every launching call adds one to
-``INT8_GEMM_LAUNCHES[route]``; a CUDA graph's replay adds the counts its
-capture recorded (``engine/cuda_graphs.py``).
+tensors it launches a kernel on the current stream or raises — there is
+no fallback. :func:`int8_gemm_plan` picks the route, its tile, its K
+splits and its grid from the shape alone, so a CUDA graph can capture
+them:
+- ``small_m`` (bfloat16, decode: the few rows of the narrower products,
+  :data:`SMALL_M_TAKES`): bound by the weight bytes, ``mma.sync``
+  straight from device memory, K split over a thread-block cluster;
+- ``wgmma`` (bfloat16, the rest: prefill chunks, the larger decode
+  batches, and w_gate/w_up and lm_head at any rows): a TMA ring feeding
+  warp-specialised register-A ``wgmma`` on persistent tiles of 128
+  channels by 16-256 tokens, K split over a cluster where the tiles do
+  not fill the card;
+- ``simt`` (float16 and float32, as the tiny preset serves): an untuned
+  float32 FMA loop.
+Every launching call adds one to ``INT8_GEMM_LAUNCHES[route]``; a CUDA
+graph's replay adds the counts its capture recorded
+(``engine/cuda_graphs.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import functools
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+# the routes, in the C entry's numbering
+INT8_GEMM_ROUTES = ("small_m", "wgmma", "simt")
 # launching wrapper calls since the last reset, by route
-INT8_GEMM_LAUNCHES: Dict[str, int] = {"small_m": 0, "large_m": 0}
-INT8_GEMM_ROUTES = ("small_m", "large_m")  # the C entry's route numbers
+INT8_GEMM_LAUNCHES: Dict[str, int] = {r: 0 for r in INT8_GEMM_ROUTES}
+# x's dtype in the C entry's numbering
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
-SMALL_M_MAX = 64     # rows the small-M route takes (four m16 tiles)
+# The crossover (both routes timed at the 8B model's shapes and one
+# rank's at tp=2, M = 4 to 64 rows, on an H100; PERF.md, Findings): the
+# small-M route takes M rows of N channels where M <= rows and N <=
+# channels of an entry; the wgmma route the rest. Up to 16 rows of at
+# most 4,096 channels (wq, wo, w_down, wk/wv and their tp=2 shards:
+# 5.0-30.0 against 7.3-40.8 us), where w_gate/w_up and lm_head (7,168
+# channels or more) are faster on the wgmma route (15.8-194.9 against
+# 16.9-195.6 us); and up to 32 rows of at most 1,024 channels (wk/wv:
+# 6.0-7.2 against 7.4-8.2 us at 24 and 32 rows).
+SMALL_M_TAKES = ((16, 4096), (32, 1024))
 SMALL_TILE_N = 32    # output columns a small-M block
 CHUNK_K = 64         # the kernels' step along K
 MAX_SPLITS = 8       # blocks of one cluster splitting K (portable maximum)
 BLOCKS_PER_SM = 4    # the small-M plan's target of blocks in flight an SM
+WG_TILE_N = 128      # output channels a wgmma tile (64 a warpgroup)
+WG_TOKENS = (16, 32, 64, 128, 256)  # tokens a wgmma tile (wgmma's N)
+SIMT_TILE = 32       # tokens and channels a simt block
 
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory and the
 # dense bf16 tensor-core rate
@@ -46,66 +72,168 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
 
+class Int8Plan(NamedTuple):
+    """One call's launch: its route; its tile (small_m: m16 tiles, 1, 2
+    or 4; wgmma: tokens a tile, :data:`WG_TOKENS`; simt:
+    :data:`SIMT_TILE`); the blocks of one cluster that split K; and the
+    blocks launched."""
+    route: str
+    tile: int
+    splits: int
+    grid: int
+
+
 def reset_launch_counts() -> None:
     for k in INT8_GEMM_LAUNCHES:
         INT8_GEMM_LAUNCHES[k] = 0
 
 
-def int8_gemm_plan(M: int, N: int, K: int, sms: int) -> Tuple[int, int, int]:
-    """(route, m16 tiles, splits) of a call, from host-known shapes only
-    (so a CUDA graph can capture it). Small M: the m16 tiles that cover
-    M (1, 2 or 4) and the K splits of each 32-column tile, a power of two
-    up to :data:`MAX_SPLITS`, enough for ``BLOCKS_PER_SM * sms`` blocks
-    where the tiles alone are fewer, with at least eight 64-wide chunks
-    of K a split (two a warp). Large M: (1, 0, 0)."""
-    if M > SMALL_M_MAX:
-        return 1, 0, 0
+# The wgmma plan's model of an H100 SXM (700 W), fitted to the kernel's
+# times over the served shapes (``python -m
+# dynamo_tpu_torch.ops.time_int8_gemm --plans``; PERF.md, Findings): a
+# block's time for one 64-wide chunk of K, by tokens a tile, and
+# a K split's fold: WG_FOLD_US, + WG_FOLD_SPLIT_US a split, + 1 us a 64
+# tokens of the tile.
+WG_CHUNK_US = {16: 0.40, 32: 0.41, 64: 0.44, 128: 0.53, 256: 0.80}
+WG_FOLD_US = 1.0
+WG_FOLD_SPLIT_US = 0.47
+
+
+def resident_model(tokens: int, splits: int, sms: int) -> int:
+    """Clusters of ``splits`` wgmma blocks a card of ``sms`` SMs holds at
+    once, one block an SM, as the CUDA driver counts them on an H100 SXM's
+    132 SMs (``cudaOccupancyMaxActiveClusters`` at every tile width: 132,
+    66, 30 and 15 clusters of 1, 2, 4 and 8 blocks; PERF.md). On the
+    card the wrapper asks the CUDA driver instead."""
+    return {1: sms, 2: sms // 2, 4: sms * 30 // 132,
+            8: sms * 15 // 132}[splits]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wgmma_plan(M: int, N: int, K: int,
+                resident: Callable[[int, int], int]) -> Int8Plan:
+    """The wgmma route's tile, splits and grid: the candidate with the
+    least estimated time. A cluster walks ceil(tiles / resident) tiles
+    one after the other, each of ceil(chunks / splits) 64-wide chunks of
+    K at :data:`WG_CHUNK_US` a chunk, plus its fold if split
+    (:data:`WG_FOLD_US`); never less than the bytes of q and x at
+    :data:`HBM_BYTES_PER_S`. Ties go to fewer splits, then to fewer
+    padded rows. Each split takes at least two chunks."""
+    chunks = _cdiv(K, CHUNK_K)
+    floor_us = (N * K + 2 * M * K) / HBM_BYTES_PER_S * 1e6
+    best = None
+    for tokens in WG_TOKENS:
+        rows = _cdiv(M, tokens)
+        tiles = rows * _cdiv(N, WG_TILE_N)
+        for splits in (1, 2, 4, 8):
+            if splits > 1 and chunks < 2 * splits:
+                continue
+            res = resident(tokens, splits)
+            fold_us = (WG_FOLD_US + WG_FOLD_SPLIT_US * splits + tokens / 64
+                       if splits > 1 else 0.0)
+            est = max(floor_us, _cdiv(tiles, res) * (
+                _cdiv(chunks, splits) * WG_CHUNK_US[tokens] + fold_us))
+            key = (round(est, 3), splits, rows * tokens)
+            if best is None or key < best[0]:
+                best = (key, Int8Plan("wgmma", tokens, splits,
+                                      min(tiles, res) * splits))
+    return best[1]
+
+
+def int8_gemm_plan(M: int, N: int, K: int, sms: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   resident: Optional[Callable[[int, int], int]] = None
+                   ) -> Int8Plan:
+    """The launch of one call (:class:`Int8Plan`), from host-known shapes
+    only (so a CUDA graph can capture it). float16 and float32 x: simt.
+    bfloat16 x where :func:`small_m_takes` (the measured crossover):
+    small_m, the m16 tiles that cover M (1, 2 or 4) and the K splits of
+    each 32-column tile, a power of two up to :data:`MAX_SPLITS`, enough
+    for ``BLOCKS_PER_SM * sms`` blocks where the tiles alone are fewer,
+    with at least eight 64-wide chunks of K a split (two a warp;
+    :func:`small_m_plan`). Otherwise wgmma (:func:`wgmma_plan`), a
+    persistent grid of as many clusters as the card holds at once
+    (``resident(tokens, splits)``; by default :func:`resident_model`) or
+    as there are tiles."""
+    if dtype != torch.bfloat16:
+        return Int8Plan("simt", SIMT_TILE, 1,
+                        _cdiv(N, SIMT_TILE) * _cdiv(M, SIMT_TILE))
+    if small_m_takes(M, N):
+        return small_m_plan(M, N, K, sms)
+    if resident is None:
+        def resident(tokens, splits):
+            return resident_model(tokens, splits, sms)
+    return wgmma_plan(M, N, K, resident)
+
+
+def small_m_takes(M: int, N: int) -> bool:
+    """Whether a bfloat16 call of M rows and N channels goes to the
+    small-M route (the crossover, :data:`SMALL_M_TAKES`)."""
+    return any(M <= rows and N <= n for rows, n in SMALL_M_TAKES)
+
+
+def small_m_plan(M: int, N: int, K: int, sms: int) -> Int8Plan:
+    """The small_m route's launch (M <= 64): the m16 tiles that cover M
+    and the K splits :func:`int8_gemm_plan` names."""
     mt = 1 if M <= 16 else 2 if M <= 32 else 4
-    tiles = -(-N // SMALL_TILE_N)
-    want = -(-(BLOCKS_PER_SM * sms) // tiles)
-    chunks = -(-K // CHUNK_K)
+    tiles = _cdiv(N, SMALL_TILE_N)
+    want = _cdiv(BLOCKS_PER_SM * sms, tiles)
+    chunks = _cdiv(K, CHUNK_K)
     cap = min(MAX_SPLITS, want, max(chunks // 8, 1))
     splits = 1
     while splits * 2 <= cap:
         splits *= 2
-    return 0, mt, splits
+    return Int8Plan("small_m", mt, splits, tiles * splits)
 
 
-def int8_gemm_work(M: int, K: int, N: int) -> dict:
+# dense peak rate for the activations' type: the tensor cores' for the
+# 16-bit types, the CUDA cores' for float32 (NVIDIA's data sheet)
+PEAK_FLOPS = {torch.bfloat16: BF16_FLOPS, torch.float16: BF16_FLOPS,
+              torch.float32: 67e12}
+
+
+def int8_gemm_work(M: int, K: int, N: int,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
     """The least work of one call: each input read once and the output
-    written once (``K N`` int8 weights, ``4 N`` bytes of scales, ``2 M K``
-    of bf16 x, ``2 M N`` of bf16 y) at :data:`HBM_BYTES_PER_S`, and
-    ``2 M K N`` operations at :data:`BF16_FLOPS`; the bound is the
-    larger of the two times."""
-    nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
+    written once (``K N`` int8 weights, ``4 N`` bytes of scales, ``M K``
+    of x and ``M N`` of y in ``dtype``) at :data:`HBM_BYTES_PER_S`, and
+    ``2 M K N`` operations at the type's peak (:data:`PEAK_FLOPS`); the
+    bound is the larger of the two times."""
+    e = torch.empty((), dtype=dtype).element_size()
+    nbytes = K * N + 4 * N + e * M * K + e * M * N
     flops = 2 * M * K * N
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return {"bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-# The kernel against the float32 evaluation of its plain version
-# (int8_gemm_tolerance): one bf16 rounding of the output, 2^-8 of it,
-# plus the float32 sums taken in another order, within 2^-16 of the sum
-# of the terms' magnitudes (a few times sqrt(K) float32 roundings for K
-# up to 16,384).
-OUT_RTOL = 2.0 ** -8
+# A kernel against the float32 evaluation of its plain version
+# (int8_gemm_tolerance): one rounding of the output to its dtype (2^-8 of
+# it in bfloat16, 2^-11 in float16, 2^-24 in float32), plus the float32
+# sums taken in another order, within 2^-16 of the sum of the terms'
+# magnitudes (a few times sqrt(K) float32 roundings for K up to 16,384).
+OUT_RTOL = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11,
+            torch.float32: 2.0 ** -24}
 SUM_RTOL = 2.0 ** -16
 
 
-def int8_gemm_tolerance(x: torch.Tensor, q: torch.Tensor,
-                        s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(reference, tolerance) of a call, both [M, N] float32: the plain
-    version evaluated in float32 (TF32 off), and ``OUT_RTOL |ref| +
-    SUM_RTOL (|x| @ |q|^T) s``."""
+def int8_gemm_tolerance(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(reference, tolerance) of a call (its output is in x's dtype), both
+    [M, N] float32: the plain version evaluated in float32 (TF32 off),
+    and ``OUT_RTOL[x.dtype] |ref| + SUM_RTOL (|x| @ |q|^T) s``."""
+    rtol = OUT_RTOL[x.dtype]
     xf = x.float().reshape(-1, q.shape[1])
     qf = q.float()
     sf = s.reshape(-1).float()
     ref = int8_matmul_plain(xf, q, sf)
     mag = (xf.abs() @ qf.abs().t()) * sf
-    return ref, OUT_RTOL * ref.abs() + SUM_RTOL * mag
+    return ref, rtol * ref.abs() + SUM_RTOL * mag
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
@@ -117,26 +245,55 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
     return y * s.reshape(-1).to(x.dtype)
 
 
-_SMS: Dict[int, int] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None \
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None \
         else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
+
+
+def resident_of(device: torch.device) -> Callable[[int, int], int]:
+    """resident(tokens, splits) of the card: the CUDA driver's count of
+    co-resident clusters of ``splits`` blocks of the wgmma kernel."""
+    idx = _device_index(device)
+    return functools.partial(_resident, idx)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(idx: int, tokens: int, splits: int) -> int:
+    n = _lib().dyn_int8_gemm_resident(tokens, splits)
+    if n <= 0:
+        raise RuntimeError(
+            f"int8 GEMM: no cluster of {splits} blocks of the "
+            f"{tokens}-token wgmma kernel fits (CUDA error {-n})")
+    return n
+
+
+def device_plan(M: int, N: int, K: int, device: torch.device,
+                dtype: torch.dtype = torch.bfloat16) -> Int8Plan:
+    """The plan :func:`int8_matmul` takes for these shapes on a CUDA
+    device: :func:`int8_gemm_plan` with the card's SM count and its
+    co-resident clusters, searched once a shape."""
+    return _device_plan(M, N, K, _device_index(device), dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(M: int, N: int, K: int, idx: int,
+                 dtype: torch.dtype) -> Int8Plan:
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    return int8_gemm_plan(M, N, K, sms, dtype,
+                          functools.partial(_resident, idx))
 
 
 def _lib():
-    """The kernel's library (``csrc/int8_gemm.cu``)."""
+    """The kernels' library (``csrc/int8_gemm.cu``)."""
     from .build import library
 
     lib = library("int8_gemm")
     if not getattr(lib, "_dyn_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dyn_int8_gemm.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.dyn_int8_gemm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.dyn_int8_gemm.restype = i
+        lib.dyn_int8_gemm_resident.argtypes = [i, i]
+        lib.dyn_int8_gemm_resident.restype = i
         lib._dyn_typed = True
     return lib
 
@@ -146,13 +303,14 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def int8_matmul(x: torch.Tensor, q: torch.Tensor,
-                s: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                plan: Optional[Int8Plan] = None) -> torch.Tensor:
     """``(x @ q^T) * s``: x [..., K]; q [N, K] int8, contiguous; s [N]
     float32 (or [1, N]). On the CPU the plain version; on a CUDA device
-    the kernel, which takes bfloat16 x, K a multiple of 16, contiguous
-    operands and 16-byte-aligned x and q, and raises on anything else.
-    Returns [..., N] in x's dtype."""
+    a kernel, which takes bfloat16, float16 or float32 x, K a multiple of
+    16, contiguous operands and 16-byte-aligned x and q, and raises on
+    anything else. ``plan`` overrides :func:`int8_gemm_plan`'s (to time
+    one route against another). Returns [..., N] in x's dtype."""
     _check(q.dim() == 2 and q.dtype == torch.int8,
            f"q must be [N, K] int8, got {tuple(q.shape)} {q.dtype}")
     N, K = q.shape
@@ -166,8 +324,9 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     _check(len(devs) == 1 and x.is_cuda,
            f"int8 GEMM operands on mixed or unsupported devices: "
            f"{sorted(str(d) for d in devs)}")
-    _check(x.dtype == torch.bfloat16,
-           f"the int8 GEMM kernel takes bfloat16 x, got {x.dtype}")
+    _check(x.dtype in _DTYPES,
+           f"the int8 GEMM kernels take bfloat16, float16 or float32 x, "
+           f"got {x.dtype}")
     _check(K % 16 == 0, f"K={K} is not a multiple of 16")
     for name, t in (("x", x), ("q", q), ("s", s)):
         _check(t.is_contiguous(), f"{name} must be contiguous")
@@ -178,14 +337,15 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     y = torch.empty(lead + (N,), dtype=x.dtype, device=x.device)
     if M == 0:
         return y
-    route, mt, splits = int8_gemm_plan(M, N, K, _sm_count(x.device))
+    if plan is None:
+        plan = device_plan(M, N, K, x.device, x.dtype)
     err = _lib().dyn_int8_gemm(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), M, N, K,
-        route, mt, splits, torch.cuda.current_stream(x.device).cuda_stream)
+        INT8_GEMM_ROUTES.index(plan.route), plan.tile, plan.splits,
+        plan.grid, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 GEMM launch failed: CUDA error {err} "
-                           f"(M={M} N={N} K={K} route "
-                           f"{INT8_GEMM_ROUTES[route]}, {mt} m16 tiles, "
-                           f"{splits} splits)")
-    INT8_GEMM_LAUNCHES[INT8_GEMM_ROUTES[route]] += 1
+                           f"(M={M} N={N} K={K} {x.dtype}, {plan})")
+    INT8_GEMM_LAUNCHES[plan.route] += 1
     return y

@@ -1,0 +1,223 @@
+"""Device time of the int8 GEMM (``int8_matmul``) at the 8B model's
+projection shapes, for comparing two trees on one card.
+
+    python -m dynamo_tpu_torch.ops.time_int8_gemm   # from a checkout's root
+
+Shapes (K x N): wq/wo 4096 x 4096, wk/wv 4096 x 1024, w_gate/w_up
+4096 x 14336, w_down 14336 x 4096, lm_head 4096 x 128256, at M = 4, 16,
+32, 48, 64, 512 and 4,096 rows of bfloat16 x (seeded). Each call is
+timed three times: a CUDA graph of calls that cycle over copies of the
+weights holding 256 MiB of int8 (so each call finds its weights out of
+the 50 MB L2, as a layer's call does), replayed between two CUDA events.
+Each output is first held to ``int8_gemm_tolerance``. Prints one JSON
+line: the card, its power limit, and per shape and M the three times in
+µs beside ``int8_gemm_work``'s bound.
+
+The module uses only what every tree of the port since int8 serving has
+(``int8_matmul``, ``int8_gemm_tolerance``, ``int8_gemm_work``), so to
+compare a change with its parent, unpack the parent into a git-ignored
+directory, copy this file into its ``dynamo_tpu_torch/ops/``, and run,
+in one chip call, parent, change, change, parent.
+
+    python -m dynamo_tpu_torch.ops.time_int8_gemm --plans
+
+instead times, at the same shapes and rows (ROWS, or ``--rows``), the
+launch ``int8_gemm_plan`` picks, the small-M route where it can take
+the rows, and every wgmma tile and split that fits the card in one
+round or more (this tree only): the measurements the plan's crossover
+and its time model (``WG_CHUNK_US``, ``WG_FOLD_US``) are fitted to.
+``rule`` names the swept launch a fixed rule would take instead of the
+model's (:func:`fixed_rule`). One JSON line per shape and M.
+``--shapes tp2`` takes one rank's shapes at tensor-parallel size 2
+instead (TP2_SHAPES), ``--shapes all`` both sets.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import subprocess
+import sys
+
+SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
+          "gate_up": (4096, 14336), "down": (14336, 4096),
+          "lm_head": (4096, 128256)}
+# one rank's at tp=2: column-parallel wq, wk/wv, w_gate/w_up and lm_head
+# halve N, row-parallel wo and w_down halve K
+TP2_SHAPES = {"tp2 wq": (4096, 2048), "tp2 wk_wv": (4096, 512),
+              "tp2 gate_up": (4096, 7168), "tp2 lm_head": (4096, 64128),
+              "tp2 wo": (2048, 4096), "tp2 down": (7168, 4096)}
+ROWS = (4, 16, 32, 48, 64, 512, 4096)
+COLD_BYTES = 256 * 2**20
+REPEATS = 3
+
+
+def time_us(fn, iters: int) -> float:
+    """Device µs per call: ``iters`` calls captured in one CUDA graph,
+    replayed five times between two CUDA events (warmed on the stream
+    that is then captured)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(5):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) * 1e3 / (iters * 5)
+
+
+def power_limit() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e}"
+
+
+def fixed_rule(M: int, N: int, K: int, sms: int, resident) -> tuple:
+    """(tokens, splits) of the fixed rule the wgmma plan's time model is
+    held against: the smallest tile of at least min(M, 256) tokens, then
+    the splits doubled while every tile's cluster fits on the card at
+    once, the blocks stay fewer than the card's ``sms`` and each
+    split keeps two 64-wide chunks of K."""
+    from dynamo_tpu_torch.ops.int8_gemm import (MAX_SPLITS, WG_TILE_N,
+                                                WG_TOKENS)
+
+    tokens = next(t for t in WG_TOKENS if t >= min(M, WG_TOKENS[-1]))
+    tiles = -(-M // tokens) * -(-N // WG_TILE_N)
+    splits = 1
+    while (splits < MAX_SPLITS and tiles * splits < sms
+           and -(-K // 64) >= 4 * splits
+           and tiles <= resident(tokens, 2 * splits)):
+        splits *= 2
+    return tokens, splits
+
+
+def sweep_plans(x, ws, M: int, K: int, N: int) -> dict:
+    """µs of every launch of one call: the plan's, the small-M route's
+    (M <= 64) and each wgmma (tokens, splits) whose tile is no more than
+    twice the rows; and which of them :func:`fixed_rule` takes."""
+    from dynamo_tpu_torch.ops.int8_gemm import (MAX_SPLITS, WG_TILE_N,
+                                                WG_TOKENS, Int8Plan,
+                                                device_plan, int8_matmul,
+                                                int8_gemm_work, resident_of,
+                                                small_m_plan)
+
+    plans = {"chosen": device_plan(M, N, K, x.device)}
+    if M <= 64:
+        plans["small_m"] = small_m_plan(M, N, K, _sms(x.device))
+    resident = resident_of(x.device)
+    for tokens in WG_TOKENS:
+        if tokens > 2 * max(M, 16) or (tokens < M // 4 and tokens < 128):
+            continue
+        tiles = -(-M // tokens) * -(-N // WG_TILE_N)
+        splits = 1
+        while splits <= MAX_SPLITS and -(-K // 64) >= 2 * splits:
+            plans[f"{tokens}/{splits}"] = Int8Plan(
+                "wgmma", tokens, splits,
+                min(tiles, resident(tokens, splits)) * splits)
+            splits *= 2
+    turn = itertools.count()
+    work = int8_gemm_work(M, K, N)
+    iters = 20 if work["bound_ms"] < 0.2 else 5 if work["bound_ms"] < 2 else 2
+    out = {}
+    for key, plan in plans.items():
+        def call(plan=plan):
+            q, s = ws[next(turn) % len(ws)]
+            return int8_matmul(x, q, s, plan=plan)
+        out[key] = {"plan": list(plan), "us": round(time_us(call, iters), 2)}
+    out["rule"] = "%d/%d" % fixed_rule(M, N, K, _sms(x.device), resident)
+    return out
+
+
+def _sms(device) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def main() -> None:
+    import argparse
+
+    import torch
+
+    from dynamo_tpu_torch.models.quant import quantize_int8
+    from dynamo_tpu_torch.ops.int8_gemm import (int8_gemm_tolerance,
+                                                int8_gemm_work, int8_matmul)
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--plans", action="store_true",
+                    help="time every launch of each call (this tree only)")
+    ap.add_argument("--rows", type=int, nargs="+", default=list(ROWS))
+    ap.add_argument("--shapes", choices=("tp1", "tp2", "all"),
+                    default="tp1")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("time_int8_gemm: no CUDA GPU available")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    res = {"tree": os.getcwd(), "card": power_limit(), "us": {}}
+    shapes = {"tp1": SHAPES, "tp2": TP2_SHAPES,
+              "all": {**SHAPES, **TP2_SHAPES}}[args.shapes]
+    for name, (K, N) in shapes.items():
+        copies = max(1, min(64, -(-COLD_BYTES // (K * N))))
+        ws = []
+        for _ in range(copies):
+            qw = quantize_int8(torch.randn(K, N, generator=g, device=dev)
+                               / K ** 0.5)
+            ws.append((qw.q, qw.s.reshape(-1)))
+        for M in args.rows:
+            x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+            q, s = ws[0]
+            ref, tol = int8_gemm_tolerance(x, q, s)
+            over = float(((int8_matmul(x, q, s).float() - ref).abs()
+                          - tol).max())
+            if over > 0:
+                sys.exit(f"time_int8_gemm: {name} M={M} is {over:.3g} past "
+                         f"its tolerance")
+            del ref, tol
+            if args.plans:
+                print(json.dumps({"card": res["card"], "shape": name,
+                                  "M": M, "K": K, "N": N,
+                                  "us": sweep_plans(x, ws, M, K, N)}),
+                      flush=True)
+                continue
+            turn = itertools.count()
+
+            def call():
+                q, s = ws[next(turn) % copies]
+                return int8_matmul(x, q, s)
+
+            work = int8_gemm_work(M, K, N)
+            iters = (20 if work["bound_ms"] < 0.2 else
+                     5 if work["bound_ms"] < 2 else 2)
+            res["us"][f"{name} M={M}"] = {
+                "times": [round(time_us(call, iters), 2)
+                          for _ in range(REPEATS)],
+                "bound": round(work["bound_ms"] * 1e3, 2)}
+        del ws
+        torch.cuda.empty_cache()
+    if not args.plans:
+        print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.getcwd())
+    main()

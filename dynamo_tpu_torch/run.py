@@ -219,8 +219,9 @@ def build_engine(args) -> Tuple[object, object]:
 
 def serving_summary(engine) -> dict:
     """What a rank did since warmup: captures after warmup, kernel
-    launches (by kernel and by decode route, replays counting the calls
-    their capture recorded) and graph replays (every variant's)."""
+    launches (by kernel, by decode route and, for the int8 GEMM, by
+    route: small_m, wgmma, simt; replays counting the calls their
+    capture recorded) and graph replays (every variant's)."""
     from .ops import int8_gemm
     from .ops import paged_attention as ops
 

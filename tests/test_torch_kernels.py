@@ -895,11 +895,11 @@ INT8_TP2_SHAPES = {"wq": (4096, 2048), "wk_wv": (4096, 512),
                    "wo": (2048, 4096), "down": (7168, 4096)}
 
 
-def _int8_case(dev, M, K, N, seed=0):
-    """bf16 x [M, K] and the int8 weights of a random [K, N] weight
-    (quantize_int8 on the card): (x, q [N, K], s [N])."""
+def _int8_case(dev, M, K, N, seed=0, dtype=torch.bfloat16):
+    """x [M, K] in ``dtype`` and the int8 weights of a random [K, N]
+    weight (quantize_int8 on the card): (x, q [N, K], s [N])."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn(M, K, generator=g, device=dev).to(dtype)
     w = torch.randn(K, N, generator=g, device=dev) / K ** 0.5
     qw = quantize_int8(w)
     return x, qw.q, qw.s.reshape(-1)
@@ -912,25 +912,28 @@ def _int8_excess(y, x, q, s) -> float:
     return float(((y.float().reshape(ref.shape) - ref).abs() - tol).max())
 
 
-def _int8_check(dev, M, K, N, seed=0):
-    x, q, s = _int8_case(dev, M, K, N, seed)
+def _int8_check(dev, M, K, N, seed=0, dtype=torch.bfloat16):
+    x, q, s = _int8_case(dev, M, K, N, seed, dtype)
     int8_gemm.reset_launch_counts()
     y = int8_matmul(x, q, s)
     torch.cuda.synchronize()
-    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (M, N)
+    assert y.dtype == dtype and tuple(y.shape) == (M, N)
     assert _int8_excess(y, x, q, s) <= 0
-    route = "small_m" if M <= int8_gemm.SMALL_M_MAX else "large_m"
+    route = int8_gemm.int8_gemm_plan(
+        M, N, K, torch.cuda.get_device_properties(dev).multi_processor_count,
+        dtype).route
     assert int8_gemm.INT8_GEMM_LAUNCHES[route] == 1
     assert sum(int8_gemm.INT8_GEMM_LAUNCHES.values()) == 1
     return x, q, s, y
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 4, 64, 512, 4096])
+@pytest.mark.parametrize("M", [1, 4, 16, 32, 48, 64, 512, 4096])
 @pytest.mark.parametrize("shape", sorted(INT8_SHAPES))
 def test_cuda_int8_gemm_matches_plain(cuda_device, shape, M):
-    """The kernel at the served shapes, both routes, within the stated
-    tolerance of the float32 evaluation of its plain version."""
+    """The kernels at the served shapes, both bf16 routes and the rows
+    about their crossover, within the stated tolerance of the float32
+    evaluation of their plain version."""
     _int8_check(cuda_device, M, *INT8_SHAPES[shape])
 
 
@@ -952,20 +955,37 @@ def test_cuda_int8_gemm_ragged(cuda_device, M, K, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [4, 512])
-def test_cuda_int8_gemm_perturbed_scale_fails_the_check(cuda_device, M):
-    """The control: one scale 1 + 2^-5 off must show in the check."""
-    x, q, s, y = _int8_check(cuda_device, M, 4096, 1024)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("M,K,N", [(1, 64, 192), (7, 64, 64), (33, 128, 64),
+                                   (300, 1040, 1000)])
+def test_cuda_int8_gemm_simt_route(cuda_device, M, K, N, dtype):
+    """float32 and float16 x (the tiny preset serves float32) take the
+    simt route, within one rounding to x's dtype and the summation
+    order."""
+    _int8_check(cuda_device, M, K, N, seed=4, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,dtype", [(4, torch.bfloat16), (32, torch.bfloat16),
+                                     (512, torch.bfloat16),
+                                     (4, torch.float32), (4, torch.float16)])
+def test_cuda_int8_gemm_perturbed_scale_fails_the_check(cuda_device, M,
+                                                        dtype):
+    """The control, at every route: one scale 1 + 2^-5 off must show in
+    the check."""
+    x, q, s, y = _int8_check(cuda_device, M, 4096, 1024, dtype=dtype)
     bad = s.clone()
     bad[7] *= 1 + 2.0 ** -5
     assert _int8_excess(int8_matmul(x, q, bad), x, q, s) > 0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,N", [(4, 1024), (64, 14336), (512, 4096)])
+@pytest.mark.parametrize("M,N", [(4, 1024), (64, 14336), (512, 4096),
+                                 (512, 1024), (48, 4096)])
 def test_cuda_int8_gemm_replay_equals_eager(cuda_device, M, N):
     """Deterministic: two eager calls and a captured graph's replay give
-    the same bits (the K splits fold in a fixed order)."""
+    the same bits (the K splits fold in a fixed order; 512 x 1024 and
+    48 x 4096 split K over the wgmma route's clusters)."""
     x, q, s = _int8_case(cuda_device, M, 4096, N, seed=2)
     eager = int8_matmul(x, q, s)
     assert torch.equal(int8_matmul(x, q, s), eager)
@@ -986,10 +1006,11 @@ def test_cuda_int8_gemm_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="multiple of 16"):
         int8_matmul(torch.zeros(2, 4100, dtype=torch.bfloat16, device=d), q,
                     torch.ones(8, device=d))
-    q = torch.zeros(8, 64, dtype=torch.int8, device=d)
-    s = torch.ones(8, device=d)
-    with pytest.raises(ValueError, match="bfloat16"):
-        int8_matmul(torch.zeros(2, 64, device=d), q, s)
+    # float32 x is served (the simt route), float64 refused
+    x, q, s = _int8_case(d, 2, 64, 8, seed=5, dtype=torch.float32)
+    assert _int8_excess(int8_matmul(x, q, s), x, q, s) <= 0
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        int8_matmul(torch.zeros(2, 64, dtype=torch.float64, device=d), q, s)
     with pytest.raises(ValueError, match="contiguous"):
         int8_matmul(torch.zeros(2, 128, dtype=torch.bfloat16,
                                 device=d)[:, ::2], q, s)
@@ -1013,3 +1034,58 @@ def test_cuda_quant_int8_rmatmul_reaches_the_kernel(cuda_device):
     assert int8_gemm.INT8_GEMM_LAUNCHES["small_m"] == 1
     assert torch.equal(plain, int8_matmul_plain(x, q, s))
     assert _int8_excess(y, x, q, s) <= 0
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_int8_engine_matches_its_plain_path(cuda_device):
+    """The launcher's default model (the float32 tiny preset) served in
+    int8 on the card: its greedy tokens equal those of the same int8
+    weights multiplied through the plain version (``QuantInt8.as_plain``),
+    and its products went through the simt route."""
+    import asyncio
+
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.llm.protocols.common import (PreprocessedRequest,
+                                                       StopConditions)
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    ecfg = dict(page_size=8, num_pages=64, max_batch=4, prefill_chunk=16,
+                prefill_buckets=(16,), batch_buckets=(1, 2, 4),
+                page_buckets=(8,), decode_steps=4)
+    prompts = [list(range(1, 6)), list(range(30, 70)), [7, 7, 7]]
+    max_tokens = [9, 12, 5]
+
+    def run(engine):
+        async def one(p, n):
+            req = PreprocessedRequest(token_ids=list(p),
+                                      stop=StopConditions(max_tokens=n))
+            toks = []
+            async for out in engine.generate(req, Context()):
+                toks += out.token_ids
+            return toks
+
+        async def all_():
+            try:
+                return await asyncio.gather(*[
+                    one(p, n) for p, n in zip(prompts, max_tokens)])
+            finally:
+                await engine.stop()
+        return asyncio.run(all_())
+
+    engine = TorchEngine(ModelConfig.tiny(), EngineConfig(**ecfg), seed=0,
+                         device="cuda", quant="int8")
+    plain_params = {k: v.as_plain() if isinstance(v, QuantInt8) else v
+                    for k, v in engine.params.items()}
+    plain = TorchEngine(ModelConfig.tiny(), EngineConfig(**ecfg),
+                        params=plain_params, device="cuda")
+    int8_gemm.reset_launch_counts()
+    got = run(engine)
+    assert int8_gemm.INT8_GEMM_LAUNCHES["simt"] > 0
+    assert int8_gemm.INT8_GEMM_LAUNCHES["small_m"] == 0
+    assert int8_gemm.INT8_GEMM_LAUNCHES["wgmma"] == 0
+    launches = dict(int8_gemm.INT8_GEMM_LAUNCHES)
+    want = run(plain)
+    assert int8_gemm.INT8_GEMM_LAUNCHES == launches
+    assert got == want
+    assert [len(t) for t in got] == max_tokens

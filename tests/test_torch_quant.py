@@ -171,17 +171,32 @@ def test_wrapper_checks_shapes_and_plan():
         int8_matmul(torch.zeros(2, 32), q.float(), s)
     with pytest.raises(ValueError, match="float32 scales"):
         int8_matmul(torch.zeros(2, 32), q, s[:4])
-    assert int8_gemm_plan(4, 1024, 4096, 132) == (0, 1, 8)      # wk, wv
-    assert int8_gemm_plan(4, 4096, 4096, 132) == (0, 1, 4)      # wq, wo
-    assert int8_gemm_plan(64, 14336, 4096, 132) == (0, 4, 2)    # gate, up
-    assert int8_gemm_plan(32, 4096, 14336, 132) == (0, 2, 4)    # down
-    assert int8_gemm_plan(4, 128256, 4096, 132) == (0, 1, 1)    # lm_head
-    assert int8_gemm_plan(4, 64, 32, 132) == (0, 1, 1)          # short K
-    assert int8_gemm_plan(65, 4096, 4096, 132) == (1, 0, 0)
+    # (route, tile, splits, grid): small_m's m16 tiles and K splits of
+    # 32-column tiles; wgmma's tokens a tile, K splits and persistent grid
+    assert int8_gemm_plan(4, 1024, 4096, 132) == \
+        ("small_m", 1, 8, 256)                                  # wk, wv
+    assert int8_gemm_plan(4, 4096, 4096, 132) == \
+        ("small_m", 1, 4, 512)                                  # wq, wo
+    assert int8_gemm_plan(64, 14336, 4096, 132) == \
+        ("wgmma", 64, 1, 112)                                   # gate, up
+    assert int8_gemm_plan(4, 14336, 4096, 132) == \
+        ("wgmma", 16, 1, 112)                                   # at 4 rows
+    assert int8_gemm_plan(32, 4096, 14336, 132) == \
+        ("wgmma", 16, 2, 128)                                   # down
+    assert int8_gemm_plan(4, 128256, 4096, 132) == \
+        ("wgmma", 16, 1, 132)                                   # lm_head
+    assert int8_gemm_plan(4, 64, 32, 132) == \
+        ("small_m", 1, 1, 2)                                    # short K
+    assert int8_gemm_plan(512, 4096, 4096, 132) == \
+        ("wgmma", 256, 2, 128)                                  # a chunk
+    assert int8_gemm_plan(4, 64, 32, 132, torch.float32) == \
+        ("simt", 32, 1, 2)                                      # float32
     w = int8_gemm_work(4, 4096, 1024)
     assert w["bytes"] == 4096 * 1024 + 4 * 1024 + 2 * 4 * 4096 + 2 * 4 * 1024
     assert w["flops"] == 2 * 4 * 4096 * 1024 and w["bound_by"] == "bytes"
     assert int8_gemm_work(4096, 4096, 4096)["bound_by"] == "operations"
+    w = int8_gemm_work(4, 64, 64, torch.float32)  # float32 x and y
+    assert w["bytes"] == 64 * 64 + 4 * 64 + 4 * 4 * 64 + 4 * 4 * 64
 
 
 # -------------------------------------------------------- model, engine
@@ -452,7 +467,8 @@ def test_launcher_dtype_int8(llama_ckpt):
         assert torch.equal(engine.params[k].q, want[k].q), k
         assert torch.equal(engine.params[k].s, want[k].s), k
     summary = serving_summary(engine)
-    assert summary["int8_gemm_launches"] == {"small_m": 0, "large_m": 0}
+    assert summary["int8_gemm_launches"] == {"small_m": 0, "wgmma": 0,
+                                             "simt": 0}
 
     args = parse_args(["in=http", "out=torch", "--model-path", llama_ckpt,
                        "--device", "cpu", "--dtype", "int8", "--no-warmup"])

@@ -17,7 +17,9 @@ pool of 512 pages and queries from a seed:
   heads): the served window, and at tp=8 the long-row guard, 8 rows of
   3,968 positions.
 Each shape is timed three times (CUDA graph of 50 launches,
-chip_smoke.time_ms) and held to its plain version (bf16 tolerance).
+chip_smoke.time_ms) and held to its plain version (bf16 tolerance); the
+line also carries a digest of each output's bits (``digest``), so that
+two trees' kernels can be shown bitwise equal on the same seeded inputs.
 Prints one JSON line. The script uses only what earlier trees of the
 port have as well, so to compare a change with its parent, unpack the
 parent into a git-ignored directory, copy this script beside its
@@ -26,6 +28,7 @@ chip_smoke.py, and run, in one chip call, parent, change, change, parent.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import sys
@@ -64,6 +67,14 @@ def decode_case(kp, vp, ctx, B: int, P: int, K: int, H: int, g):
     return q, table, start, qp, wk, wv
 
 
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    import torch
+
+    raw = t.contiguous().cpu().view(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
+
+
 def main() -> None:
     sys.path.insert(0, os.getcwd())
     import torch
@@ -84,7 +95,8 @@ def main() -> None:
                      device=dev).to(torch.bfloat16)
     vp = torch.randn(1, N, KV, ps, hd, generator=g,
                      device=dev).to(torch.bfloat16)
-    res = {"tree": os.getcwd(), "card": torch.cuda.get_device_name(0)}
+    res = {"tree": os.getcwd(), "card": torch.cuda.get_device_name(0),
+           "digest": {}}
     for name, start, P in (("first_chunk", 0, 8), ("deep_chunk", 1536, 64)):
         used = (start + T) // ps
         table = torch.zeros((1, P), dtype=torch.int32, device=dev)
@@ -101,6 +113,7 @@ def main() -> None:
                       2e-2, 1e-2)
         if over > 0:
             fail(f"prefill {name}: off its plain version by {over:.3g}")
+        res["digest"][name] = digest(run())
         res[name] = [time_ms(run, iters=50) for _ in range(3)]
     for name, ctx in DECODE_SHAPES:
         B, P = len(ctx), 64
@@ -112,6 +125,7 @@ def main() -> None:
                       2e-2, 1e-2)
         if over > 0:
             fail(f"decode {name}: off its plain version by {over:.3g}")
+        res["digest"][f"decode_{name}"] = digest(run())
         res[f"decode_{name}"] = [time_ms(run, iters=50) for _ in range(3)]
     for name, tp, ctx in SHARDED_SHAPES:
         kv, h = KV // tp, H // tp
@@ -130,6 +144,7 @@ def main() -> None:
                       2e-2, 1e-2)
         if over > 0:
             fail(f"decode {name}: off its plain version by {over:.3g}")
+        res["digest"][f"decode_{name}"] = digest(run())
         res[f"decode_{name}"] = [time_ms(run, iters=50) for _ in range(3)]
     print(json.dumps(res))
 
