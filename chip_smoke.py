@@ -56,8 +56,10 @@ Phases; any failure exits non-zero before the result line:
    at 8 rows of 3,968 positions, also within DECODE_REL_RMS of the plain
    output's rms, with a row one 16-key block short as the control that
    must exceed it; prefill at the served first chunk and at
-   a deep chunk (positions 1536-2047). Bounds count the work of this
-   run's inputs (ops.paged_attention.decode_work and prefill_work);
+   a deep chunk (positions 1536-2047); the float32 routes (the tiny
+   preset's) at the served window and first chunk, on a float32 copy of
+   the pool. Bounds count the work of this run's inputs
+   (ops.paged_attention.decode_work and prefill_work);
 6. hold the tensor-parallel wrappers (paged_attention_decode_sharded, its
    window form, paged_attention_prefill_sharded) against the plain
    versions at the heads one rank holds of the 8B widths at tp 2, 4 and
@@ -116,13 +118,16 @@ Phases; any failure exits non-zero before the result line:
    and simt routes) held against the float32 evaluation of its plain
    version, within one rounding of the output to its dtype plus the
    float32 summation order (``ops/int8_gemm.py int8_gemm_tolerance``), at
-   every projection shape of the 8B model at M = 1, 4, 16, 32, 48, 64,
-   512 and 4,096, at tp=2's shapes and at ragged M, N and K (bf16, and
-   float32 for the simt route), with one scale perturbed as the control
-   that must fail at every route; timed at M = 4 to 4,096 (both bf16
-   routes at 4 to 64 rows, where they cross) and at the tiny preset's
-   shapes in float32, beside its bound, its plain version,
-   ``torch.matmul`` on the dequantized weight and
+   every projection shape of the 8B model at M = 1, 4, 16, 24, 32, 48,
+   64, 512 and 4,096, at tp=2's shapes and at ragged M, N and K (bf16,
+   and float32 for the simt route), with one scale perturbed as the
+   control that must fail at every route; the small-M route's
+   programmatic launches captured in a graph, replayed bitwise equal to
+   the eager calls, and timed with and without programmatic launch;
+   timed at M = 4 to 4,096 (both bf16 routes at 4 to 32 rows, where they
+   cross; the small-M route also after a kernel that writes its x) and
+   at the tiny preset's shapes in float32, beside its bound, its plain
+   version, ``torch.matmul`` on the dequantized weight and
    ``torch._weight_int8pack_mm`` where it runs on CUDA; then the 8B model
    built by the launcher's ``--dtype int8`` path and checked as phase 4
    checks the bf16 one (phase 4's requests over HTTP, every bucket
@@ -159,6 +164,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores
+H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
 # the decode kernels of each route (ops.paged_attention.decode_route)
 DECODE_KERNELS = {"bf16_mma": "paged_decode_bf16_kernel",
                   "generic": "paged_decode_kernel + paged_decode_combine"}
@@ -1335,7 +1341,7 @@ def check_graph_prefill(engine, dev, topn: int = 0) -> dict:
 
 
 def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
-                mesh=None) -> dict:
+                mesh=None, peak_flops: float = H100_BF16_FLOPS) -> dict:
     """The decode kernel in the window form at one shape
     (time_attention.decode_case), through its tensor-parallel wrapper on
     the rank's heads when ``mesh`` is given (``kp``/``vp`` then hold the
@@ -1347,7 +1353,9 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
     plain output's rms, a limit the plain version one 16-key block short
     in every row must pass (else the check is blind). Also the route,
     the splits per (row, kv head) that the launch plan picks and, on the
-    bf16 route (one cluster of those splits), each row's live splits."""
+    bf16 route (one cluster of those splits), each row's live splits.
+    ``peak_flops``: the rate of the operands' type the bound counts
+    (float32 pools: H100_F32_FLOPS)."""
     import torch
     import torch.nn.functional as F
 
@@ -1412,9 +1420,9 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
                         if DECODE_ROUTES[route] == "bf16_mma" else None),
         "ms": t_k, "plain_ms": t_p,
         "bound_ms": max(bytes_ / H100_BYTES_PER_S,
-                        flops / H100_BF16_FLOPS) * 1e3,
+                        flops / peak_flops) * 1e3,
         "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
-                     >= flops / H100_BF16_FLOPS else "operations"),
+                     >= flops / peak_flops else "operations"),
         "library_ms": t_lib, "eager_ms": t_eager, "stats_form_ms": stats_ms,
         "work": {"rows": live, "kv_positions": keys, "bytes": bytes_,
                  "flops": flops},
@@ -1434,13 +1442,14 @@ def live_splits(ctx, ps: int, S: int) -> list:
 
 
 def time_prefill(k0, v0, ecfg, start: int, n: int, H: int, g,
-                 mesh=None) -> dict:
+                 mesh=None, peak_flops: float = H100_BF16_FLOPS) -> dict:
     """Kernel, plain version and SDPA on one prompt chunk of n tokens at
     positions start .. start + n - 1 (the row's earlier pages in the
     pool ``k0``/``v0`` [N, KV, ps, hd]), in the served bucket shapes; the
     kernel is held to its plain version (bf16 tolerance, as in
     check_prefill). With ``mesh``, through the tensor-parallel wrapper on
-    the rank's heads (the pool holds the rank's kv heads)."""
+    the rank's heads (the pool holds the rank's kv heads). ``peak_flops``
+    as in :func:`time_decode`."""
     import torch
     import torch.nn.functional as F
 
@@ -1493,10 +1502,11 @@ def time_prefill(k0, v0, ecfg, start: int, n: int, H: int, g,
     flops = 4 * pairs * H * hd
     return {
         "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+
         "bound_ms": max(bytes_ / H100_BYTES_PER_S,
-                        flops / H100_BF16_FLOPS) * 1e3,
+                        flops / peak_flops) * 1e3,
         "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
-                     >= flops / H100_BF16_FLOPS else "operations"),
+                     >= flops / peak_flops else "operations"),
         "library_ms": t_lib, "eager_ms": t_eager,
         "work": {"queries": queries, "pairs": pairs, "kv_positions": keys,
                  "bytes": bytes_, "flops": flops},
@@ -1560,6 +1570,29 @@ def time_kernels(engine, cfg, dev, served) -> list:
         "launches": served["launches"]["paged_attention_prefill"],
         **first, "deep_chunk": deep,
     })
+
+    # the float32 routes (the tiny preset serves float32; their launches
+    # are the tiny preset's, filled in by phase 10) at the served window's
+    # and first chunk's shapes, on a float32 copy of layer 0 of the pool
+    kp32, vp32 = kp[:1].float(), vp[:1].float()
+    dec32 = time_decode(kp32, vp32, ctx, ecfg.bucket_batch(len(ctx)),
+                        ecfg.bucket_pages(max(-(-n // ps) for n in ctx)),
+                        K, H, g, peak_flops=H100_F32_FLOPS)
+    pf32 = time_prefill(kp32[0], vp32[0], ecfg, 0, served["prefill_chunk"],
+                        H, g, peak_flops=H100_F32_FLOPS)
+    del kp32, vp32
+    torch.cuda.empty_cache()
+    for name, line, src, kernel, times in (
+            ("paged_attention_decode float32", 52, "paged_attention.cu",
+             DECODE_KERNELS["generic"], dec32),
+            ("paged_attention_prefill float32", 336, "paged_prefill.cu",
+             "paged_prefill_kernel<float>", pf32)):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"dynamo_tpu_torch/ops/csrc/{src}",
+            "replaces": f"dynamo_tpu/ops/paged_attention.py:{line}",
+            "kernel": kernel, "launches": 0, **times,
+            "launches_from": "the tiny preset served in float32 (phase 10)"})
     return rows
 
 
@@ -1591,11 +1624,11 @@ INT8_TP2_SHAPES = {"wq": (4096, 2048), "wk_wv": (4096, 512),
                    "gate_up": (4096, 7168), "lm_head": (4096, 64128),
                    "wo": (2048, 4096), "down": (7168, 4096)}
 INT8_RAGGED = [(3, 4096, 1000), (37, 4096, 130), (100, 4096, 4100),
-               (300, 1040, 1000)]
+               (300, 1040, 1000), (17, 48, 33), (5, 1040, 130)]
 # the rows M of a decode window (4 at the served batch, 16 to 64 about
 # the routes' crossover, 64 at the largest bucket) and of a prefill chunk
 # (one of 512 tokens, 8 x 512)
-INT8_ROWS = (1, 4, 16, 32, 48, 64, 512, 4096)
+INT8_ROWS = (1, 4, 16, 24, 32, 48, 64, 512, 4096)
 INT8_TIMED_ROWS = (4, 16, 32, 48, 64, 512, 4096)
 # rows where both bf16 routes are timed, to place their crossover
 INT8_CROSS_ROWS = (4, 16, 32, 48, 64)
@@ -1610,7 +1643,8 @@ INT8_TINY_SHAPES = {"wq_wo": (64, 64), "wk_wv": (64, 32),
 INT8_TINY_ROWS = (4, 128)
 # the checks and controls of each route: (name, M, K, N, dtype)
 INT8_ROUTE_CASES = [("small_m", 4, 4096, 1024, "bfloat16"),
-                    ("wgmma", 32, 4096, 4096, "bfloat16"),
+                    ("small_m", 32, 4096, 4096, "bfloat16"),
+                    ("wgmma", 48, 4096, 4096, "bfloat16"),
                     ("wgmma", 512, 4096, 1024, "bfloat16"),
                     ("simt", 4, 4096, 1024, "float32"),
                     ("simt", 4, 4096, 1024, "float16")]
@@ -1729,18 +1763,25 @@ def time_int8_gemm(dev, errs: dict) -> list:
     (INT8_COLD_BYTES), beside its bound (``int8_gemm_work``), its plain
     version, ``torch.matmul`` on the dequantized weight in x's dtype (the
     unquantized path's cost of the same product), the other bf16 route
-    at INT8_CROSS_ROWS (forced, to place the crossover) and, where the
-    card's torch runs it on CUDA, ``torch._weight_int8pack_mm`` (one
-    PyTorch call of the same function, timed over fewer calls; the port
-    never calls it)."""
+    at INT8_CROSS_ROWS where it takes the rows (forced, to place the
+    crossover) and, where the card's torch runs it on CUDA,
+    ``torch._weight_int8pack_mm`` (one PyTorch call of the same function,
+    timed over fewer calls; the port never calls it). The small-M route
+    is timed both ways (its launch is programmatic, so back to back a
+    call overlaps the one before it): ``ms``, a graph of calls back to
+    back, and ``after_write_ms``, after a kernel that writes its x
+    (:func:`after_write_ms`), as wq, wo and w_down follow a norm,
+    attention or SiLU-mul; and back to back with programmatic launch
+    switched off (``ms_without_pdl``)."""
     import itertools
 
     import torch
 
-    from dynamo_tpu_torch.ops.int8_gemm import (device_plan, int8_gemm_work,
-                                                int8_matmul, int8_matmul_plain,
-                                                resident_of, small_m_plan,
-                                                wgmma_plan)
+    from dynamo_tpu_torch.ops.int8_gemm import (SMALL_M_ROWS, device_plan,
+                                                int8_gemm_work, int8_matmul,
+                                                int8_matmul_plain,
+                                                resident_of, set_programmatic,
+                                                small_m_plan, wgmma_plan)
 
     def library(x, q, s):
         return torch._weight_int8pack_mm(x, q, s.to(x.dtype))
@@ -1760,10 +1801,13 @@ def time_int8_gemm(dev, errs: dict) -> list:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def other_plan(M, N, K, plan):
-        """The other bf16 route's launch of the same call."""
-        if plan.route == "wgmma":
-            return small_m_plan(M, N, K, sms)
-        return wgmma_plan(M, N, K, resident_of(dev))
+        """The other bf16 route's launch of the same call (None where the
+        small-M route cannot take the rows)."""
+        if plan.route == "small_m":
+            return wgmma_plan(M, N, K, resident_of(dev))
+        if M <= SMALL_M_ROWS:
+            return small_m_plan(M, N, K, sms, resident_of(dev))
+        return None
 
     rows = []
     cells = ([(n, K, N, M, "bfloat16") for n, (K, N) in INT8_SHAPES.items()
@@ -1836,21 +1880,103 @@ def time_int8_gemm(dev, errs: dict) -> list:
                 if ex > 0:
                     fail(f"int8 GEMM {key} {dtype}: {ex:.4g} past the "
                          f"tolerance")
-            if dtype == "bfloat16" and M in INT8_CROSS_ROWS:
-                other = other_plan(M, N, K, plan)
+            if plan.route == "small_m":
+                row["after_write_ms"] = after_write_ms(kern, x, iters)
+                set_programmatic(False)
+                try:
+                    row["ms_without_pdl"] = time_ms(kern, iters)
+                finally:
+                    set_programmatic(True)
+            other = (other_plan(M, N, K, plan)
+                     if dtype == "bfloat16" and M in INT8_CROSS_ROWS
+                     else None)
+            if other is not None:
                 row["other_route"] = other.route
                 row["other_plan"] = list(other)
                 row["other_ms"] = time_ms(lambda: kern(other), iters)
+                if other.route == "small_m":
+                    row["other_after_write_ms"] = after_write_ms(
+                        lambda: kern(other), x, iters)
             rows.append(row)
             log(f"  {row['name']} {dtype} ({plan.route}): {row['ms']:.4f} "
                 f"ms (bound {work['bound_ms']:.4f}, {work['bound_by']}; "
                 f"plain {row['plain_ms']:.4f}; {dtype} matmul "
                 f"{row['matmul_ms']:.4f}; library {row['library_ms']}"
+                + (f"; after a writer {row['after_write_ms']:.4f}, without "
+                   f"PDL {row['ms_without_pdl']:.4f}"
+                   if "after_write_ms" in row else "")
                 + (f"; {row['other_route']} {row['other_ms']:.4f}"
-                   if "other_ms" in row else "") + ")")
+                   if "other_ms" in row else "")
+                + (f" (after a writer {row['other_after_write_ms']:.4f})"
+                   if "other_after_write_ms" in row else "") + ")")
         del ws
         torch.cuda.empty_cache()
     return rows
+
+
+def after_write_ms(fn, x, iters: int) -> float:
+    """Device ms of ``fn`` after a kernel that writes its x: a graph of
+    (``torch.add(x_src, 0, out=x)``, ``fn``) pairs less a graph of the
+    writer alone (x_src: a copy of x, so x keeps its values)."""
+    import torch
+
+    x_src = x.clone()
+
+    def write():
+        torch.add(x_src, 0, out=x)
+
+    def pair():
+        write()
+        return fn()
+
+    return time_ms(pair, iters) - time_ms(write, iters)
+
+
+def check_programmatic_replay(dev) -> dict:
+    """Programmatic launch under CUDA-graph capture: a graph of 20 small-M
+    calls back to back (wk/wv's shape at 4 rows, the weights cycling
+    over copies out of the L2), replayed with the launches programmatic
+    and then not; the replay must give the eager call's bits either way.
+    A replay that is faster with it shows the captured launch kept its
+    programmatic edge (the result records both times)."""
+    import itertools
+
+    import torch
+
+    from dynamo_tpu_torch.ops.int8_gemm import int8_matmul, set_programmatic
+
+    M, K, N = 4, 4096, 1024
+    x, q, s, _ = int8_case(dev, M, K, N, seed=20)
+    copies = max(1, INT8_COLD_BYTES // (K * N))
+    ws = [int8_case(dev, 1, K, N, seed=21 + c)[1:3] for c in range(copies)]
+    eager = [int8_matmul(x, wq, ws_) for wq, ws_ in ws[:2]]
+    out = {}
+    for on in (True, False):
+        set_programmatic(on)
+        try:
+            turn = itertools.count()
+
+            def call():
+                wq, ws_ = ws[next(turn) % copies]
+                return int8_matmul(x, wq, ws_)
+
+            out["ms_pdl" if on else "ms_no_pdl"] = time_ms(call, 20)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                got = [int8_matmul(x, wq, ws_) for wq, ws_ in ws[:2]]
+            graph.replay()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, eager)):
+                fail(f"small-M replay (programmatic={on}) differs from the "
+                     f"eager calls")
+        finally:
+            set_programmatic(True)
+    out["replay_bitwise_eager"] = True
+    log(f"  small-M launches in a graph, programmatic vs not (ms a call, "
+        f"back to back): {json.dumps(out)}")
+    return out
 
 
 def same_param(a, b) -> bool:
@@ -1986,6 +2112,7 @@ def int8_phase(cfg, dev, bf16_logits) -> tuple:
     from dynamo_tpu_torch.run import build_engine, parse_args
 
     errs = check_int8_gemm(dev)
+    programmatic = check_programmatic_replay(dev)
     rows = time_int8_gemm(dev, errs)
     t = time.monotonic()
     engine, mdc = build_engine(parse_args([
@@ -2031,7 +2158,7 @@ def int8_phase(cfg, dev, bf16_logits) -> tuple:
                        ttft["warm_spread"]},
               "logprobs": logprobs, "paths": paths, "vs_bf16": vs_bf16,
               "graph_window": graph_window, "graph_prefill": graph_prefill,
-              "kernel_errs": errs}
+              "kernel_errs": errs, "programmatic_replay": programmatic}
     return report, rows, logits
 
 
@@ -3248,6 +3375,16 @@ def main() -> None:
         "served with --dtype int8")
     int8_report, int8_rows, int8_logits = int8_phase(cfg, dev, tp1_logits)
     rows += [r for r in int8_rows if r["M"] in INT8_LINE_ROWS]
+    # the float32 attention routes served the tiny preset
+    tiny = int8_report["tiny"]["summary"]
+    for r in rows:
+        if "launches_from" in r:
+            r["launches"] = (tiny["route_launches"]["generic"]
+                             if "decode" in r["name"]
+                             else tiny["launches"]["paged_attention_prefill"])
+            if r["launches"] <= 0:
+                fail(f"{r['name']}: not launched by the tiny preset served "
+                     f"in float32: {json.dumps(tiny)}")
 
     log(f"phase 7: tensor-parallel serving, {TP_RANKS} ranks of the "
         f"launcher on the one card")

@@ -24,24 +24,49 @@
 // cores (989 TF/s, which only wgmma reaches).
 //
 // Three routes. The two bf16 routes widen the weights to bf16 on chip, in
-// registers, never in device memory: int8 -127..127 is exact in bf16. The widening
-// (widen_i8x4) is a byte permute into the mantissa of 2^23 and a
-// subtraction per value, and one byte permute per pair (cvt to bf16x2
-// issues at a quarter of the integer rate).
-// * small_m (route 0, bf16 x, decode rows), mma.sync m16n8k16 (bf16 in,
-//   f32 accumulate): the contraction order within each 64-wide chunk of K
-//   is permuted, the same way for both operands, so that every lane of a
-//   quad loads its column's weights as one 16-byte load: lane (g, t)
-//   holds k = 16t .. 16t + 15 of the chunk for column g, and in step j of
-//   the chunk feeds k = 16t + 4j .. 16t + 4j + 3 where the fragment
-//   layout names k' = 2t, 2t + 1, 2t + 8, 2t + 9. Its A fragment takes x
-//   at the same k, which is again contiguous (8 bytes a row a step). No
-//   shared memory and no shuffles stand between device memory and the
-//   tensor cores. A block is four warps on 32 output columns; the warps
-//   take interleaved 64-wide chunks of the block's share of K, each with
-//   the next chunk's weights in flight while it computes the current
-//   one. K is also split over the S <= 8 blocks of one thread-block
-//   cluster, folded through distributed shared memory in a fixed order.
+// registers, never in device memory: int8 -127..127 is exact in bf16.
+// The wgmma route's widening (widen_i8x4) is a byte permute into the
+// mantissa of 2^23 and a subtraction per value, and one byte permute per
+// pair; the small-M route's (widen_i8x4_split) two masks a pair and one
+// bf16x2 fma, no permute (cvt to bf16x2 issues at a quarter of the
+// integer rate). At decode rows the widening, on the integer pipe, is
+// what a block's compute costs: about 40 GB of weights a second an SM.
+// * small_m (route 0, bf16 x, decode rows M <= 32), mma.sync m16n8k16
+//   (bf16 in, f32 accumulate), both operands from shared memory. A block
+//   is 64 output channels by a share of K, one producer warp and eight
+//   consumer warps. One producer thread streams the share through a ring
+//   of 128-wide stages with TMA, each the [64, 128] int8 tile of q
+//   (128-byte swizzle) and two [16 MT, 64] bf16 boxes of x (128-byte
+//   swizzle), completion counted in bytes on the stage's full mbarrier,
+//   keeping four stages of q in flight (with all of a block's stages in
+//   flight every stage lands at the end of the burst, and compute cannot
+//   overlap it); the two consumer warps of a stage release it on its
+//   empty mbarrier. The launch is programmatic (PDL): q and s are
+//   read-only while serving, so the producer issues the first stages of
+//   weights before griddepcontrol.wait, and only then x; no thread reads
+//   x or writes y before that wait. Once its last weight stage is issued
+//   the block executes griddepcontrol.launch_dependents (unless its share
+//   is long and the grid one block an SM: launch_small), so the next
+//   call's blocks (about 101 or 73 KB of shared memory: two blocks fit an
+//   SM) start streaming their weights during this call's tail. The
+//   consumer warps are two channel halves by four K groups (group g takes
+//   the stages g, g + 4, ...; a ring slot is always one group's). The
+//   contraction order of a lane is permuted, the same way for both
+//   operands: lane (g, t) takes k = 32t .. 32t + 31 of each stage, in step
+//   j feeding 4 of them (k, k + 2 as k' = 2t, 2t + 1 and k + 1, k + 3 as
+//   k' = 2t + 8, 2t + 9: a weight word's even and odd bytes, and x's
+//   halves by one byte permute), so that its weights are two 16-byte
+//   shared loads a column and its x four a row; lanes t >= 2 walk their
+//   steps rotated by four, which with the swizzle makes both kinds of
+//   load free of bank conflicts. The K groups fold through shared memory
+//   in order. K is also split over the S <= 8 blocks of a thread-block
+//   cluster, as many as still place every tile's cluster one block an SM
+//   (two blocks on an SM compute at half speed, and a cluster waits for
+//   its slowest): each block stores its partial sums asynchronously into
+//   the block that owns them (st.async, counted in bytes on the owner's
+//   mbarrier), and each owner sums its slices in rank order. No block
+//   reads a peer's shared memory, so no closing cluster barrier: a
+//   replay gives the eager call's bits.
 // * wgmma (route 1, bf16 x: prefill chunks, decode batches above the
 //   measured crossover and the widest decode products): the product is
 //   computed transposed, y^T = q x^T, so that the weights are wgmma's A
@@ -114,22 +139,36 @@ __device__ __forceinline__ void widen_i8x4(uint32_t w, uint32_t& lo,
   hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
+// a - b of two bf16 pairs, as b * -1 + a (exact where the difference is)
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d) : "r"(b), "r"(0xBF80BF80u), "r"(a));
+  return d;
+}
+
+// four int8 (one 32-bit word, lowest byte first) as two bf16 pairs, bytes
+// 0 and 2 in `even` and bytes 1 and 3 in `odd`, the lower byte in the
+// lower half. A byte b is (128 + (b & 127)) - (b < 0 ? 256 : 128), and
+// both terms are bf16 built by masking the byte into 0x4300 (128, whose
+// mantissa steps by 1) and its sign into the exponent's lowest bit (0x4380
+// is 256): two logic ops a term, one fma a pair, no byte permute.
+__device__ __forceinline__ void widen_i8x4_split(uint32_t w, uint32_t& even,
+                                                 uint32_t& odd) {
+  const uint32_t w8 = w >> 8;
+  even = bf16x2_sub((w & 0x007F007Fu) | 0x43004300u,
+                    (w & 0x00800080u) | 0x43004300u);
+  odd = bf16x2_sub((w8 & 0x007F007Fu) | 0x43004300u,
+                   (w8 & 0x00800080u) | 0x43004300u);
+}
+
 __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// 16 bytes of weights, read once: no L1 allocation
-__device__ __forceinline__ uint4 ld_stream(const void* p) {
-  uint4 v;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
-}
-
 // the cluster's barrier (release/acquire: shared-memory writes before it
 // are seen by reads after it, across the cluster's blocks), its relaxed
-// form, and loads from a peer's shared memory
+// form, its two halves, and accesses to a peer's shared memory
 __device__ __forceinline__ void cluster_sync_acq_rel() {
   asm volatile("barrier.cluster.arrive.release;\n"
                "barrier.cluster.wait.acquire;\n" ::: "memory");
@@ -138,17 +177,17 @@ __device__ __forceinline__ void cluster_sync_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed;\n"
                "barrier.cluster.wait;\n" ::: "memory");
 }
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
 __device__ __forceinline__ uint32_t dsmem_addr(uint32_t addr, uint32_t rank) {
   uint32_t r;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(r) : "r"(addr), "r"(rank));
   return r;
-}
-__device__ __forceinline__ float ld_dsmem(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
-               : "=f"(v) : "r"(addr) : "memory");
-  return v;
 }
 __device__ __forceinline__ float4 ld_dsmem_f4(uint32_t addr) {
   float4 v;
@@ -157,168 +196,345 @@ __device__ __forceinline__ float4 ld_dsmem_f4(uint32_t addr) {
                : "r"(addr) : "memory");
   return v;
 }
+// four floats into a peer's shared memory, their 16 bytes counted on the
+// peer's mbarrier (both addresses the peer's, from dsmem_addr)
+__device__ __forceinline__ void st_async_f4(uint32_t addr, float4 v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar) : "memory");
+}
+// wait until the phase of the given parity has completed, acquiring at
+// cluster scope what the peers' asynchronous stores wrote
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity) : "memory");
+}
 
-__device__ __forceinline__ void store_out(__nv_bfloat16* y, int M, int N,
-                                          int m, int n, float v) {
-  if (m < M && n < N) y[(size_t)m * N + n] = __float2bfloat16_rn(v);
+// programmatic dependent launch: wait until the grids this one depends on
+// have completed and their writes are visible; let the grids that depend
+// on this one launch once every block has said so (or exited)
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// two sums (token m, channels n0 + c, + 1) scaled (sc: the scales of
+// channels n0 ..) and rounded to bf16
+__device__ __forceinline__ void store2(__nv_bfloat16* y, const float* sc,
+                                       int N, int m, int n0, int c, float a,
+                                       float b) {
+  const int n = n0 + c;
+  __nv_bfloat16* out = y + (size_t)m * N + n;
+  if ((N & 1) == 0 && n + 1 < N) {
+    *reinterpret_cast<__nv_bfloat162*>(out) =
+        __floats2bfloat162_rn(a * sc[c], b * sc[c + 1]);
+    return;
+  }
+  if (n < N) out[0] = __float2bfloat16_rn(a * sc[c]);
+  if (n + 1 < N) out[1] = __float2bfloat16_rn(b * sc[c + 1]);
 }
 
 // ------------------------------------------------------- route 0: small M
 
-constexpr int SM_THREADS = 128;  // four warps
-constexpr int SM_WARPS = SM_THREADS / 32;
-constexpr int SM_TILE_N = 32;    // output columns a block (four n8 tiles)
-constexpr int SM_NT = SM_TILE_N / 8;
-constexpr int CHUNK_K = 64;
-constexpr int SM_RED_LD = 36;    // floats a row of the warps' partials
-constexpr int MAX_SPLITS = 8;    // one cluster: the portable maximum
+constexpr int SM_BN = 64;   // output channels a block
+constexpr int SM_BK = 128;  // K a ring stage: 128 bytes of a q row
+constexpr int SM_KGROUPS = 4;
+constexpr int SM_CONSUMER_WARPS = 2 * SM_KGROUPS;  // channel halves x groups
+constexpr int SM_CONSUMERS = 32 * SM_CONSUMER_WARPS;
+constexpr int SM_THREADS = SM_CONSUMERS + 32;  // + the producer warp
+constexpr int SM_Q_BYTES = SM_BN * SM_BK;
+constexpr int SM_RED_LD = SM_BN + 8;  // floats a row of the K groups'
+                                      // partials (conflict-free writes)
+constexpr int MAX_SPLITS = 8;  // one cluster: the portable maximum
 
-// grid (ceil(N / 32), S), clusters (1, S, 1): the S blocks of a cluster
-// split the 64-wide chunks of K of one 32-column tile, block r taking
-// chunks [r * cps, (r + 1) * cps). MT m16 tiles cover rows 0 .. 16 MT - 1
-// (rows >= M are zeros and never stored).
+// Shared memory of MT m16 tiles (16 MT token rows): STAGES ring stages,
+// each the q tile [64, 128] int8 then x's two boxes [16 MT, 64] bf16 (k
+// 0-63, 64-127 of the stage), all 128-byte swizzled (1024-byte aligned);
+// the cluster fold buffer (S slices of the owner's share of the partial
+// sums, one a rank); the block's 64 scales; a full and an empty mbarrier
+// a stage and the fold buffer's mbarrier. The K groups'
+// partials [4][16 MT][SM_RED_LD] take the ring's place once every stage
+// is consumed. 1024 bytes of slack align the ring.
+template <int MT> struct SmTile {
+  static constexpr int ROWS = 16 * MT;
+  static constexpr int X_BOX_BYTES = ROWS * 128;
+  static constexpr int STAGE_BYTES = SM_Q_BYTES + 2 * X_BOX_BYTES;
+  // a multiple of the K groups, so that a slot is always the same
+  // group's (its full barrier's phases are then waited for in order)
+  static constexpr int STAGES = MT == 1 ? 8 : 4;
+  static_assert(STAGES % SM_KGROUPS == 0, "a slot is one group's");
+  // stages of q the producer keeps in flight ahead of the oldest one
+  // that has not landed: about what the card's memory needs in flight
+  // with one block an SM; more only delays every stage's arrival
+  static constexpr int LEAD = 4;
+  static constexpr int FOLD_FLOATS = ROWS * SM_BN + 4 * MAX_SPLITS;
+  static constexpr int RED_BYTES = SM_KGROUPS * ROWS * SM_RED_LD * 4;
+  static_assert(RED_BYTES <= STAGES * STAGE_BYTES, "partials > ring");
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES +
+                              (FOLD_FLOATS + SM_BN) * 4 + (2 * STAGES + 1) * 8;
+};
+
+// grid: S blocks a 64-channel tile, clusters of S (blockIdx.x = tile * S
+// + rank); block r takes the 128-wide stages [r * cps, (r + 1) * cps) of
+// K. early: let the next grid launch once the last weight stage is
+// issued (else when this one ends; see launch_small). x_map: x as [M, K]
+// bf16, box [16 MT, 64]; q_map: q as [N, K] uint8, box [64, 128]; both
+// 128-byte swizzle, zeros past M, N and K.
 template <int MT>
-__global__ void __launch_bounds__(SM_THREADS)
-int8_gemm_small_kernel(const __nv_bfloat16* __restrict__ x,
-                       const int8_t* __restrict__ q,
+__global__ void __launch_bounds__(SM_THREADS, 2)
+int8_gemm_small_kernel(const __grid_constant__ CUtensorMap x_map,
+                       const __grid_constant__ CUtensorMap q_map,
                        const float* __restrict__ s,
                        __nv_bfloat16* __restrict__ y, int M, int N, int K,
-                       int cps) {
-  __shared__ __align__(16) float red[SM_WARPS][MT * 16][SM_RED_LD];
-  __shared__ __align__(16) float part[MT * 16][SM_TILE_N];
+                       int splits, int cps, int early) {
+  using Tile = SmTile<MT>;
+  constexpr int STAGES = Tile::STAGES;
+  constexpr int ROWS = Tile::ROWS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* red = reinterpret_cast<float*>(smem);  // aliases the ring
+  float* fold = reinterpret_cast<float*>(smem + STAGES * Tile::STAGE_BYTES);
+  float* sc = fold + Tile::FOLD_FLOATS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sc + SM_BN);
+  uint64_t* empty = full + STAGES;
+  uint64_t* folded = empty + STAGES;  // the fold buffer's bytes, K split
+
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * SM_TILE_N;
-  const int C = (K + CHUNK_K - 1) / CHUNK_K;
-  const int c_begin = blockIdx.y * cps;
-  const int c_end = min(C, c_begin + cps);
+  const int rank = blockIdx.x % splits;
+  const int n0 = (blockIdx.x / splits) * SM_BN;
+  const int C = (K + SM_BK - 1) / SM_BK;
+  const int c_begin = min(C, rank * cps);
+  const int n_st = min(C, c_begin + cps) - c_begin;  // this block's stages
+  const int pre = min(n_st, Tile::LEAD);  // stages issued before the wait
+  // K split: the quads (four columns of a row < M) of the partial sums
+  // and the quads each rank owns (the last ranks may own fewer, or none)
+  const int quads = min(M, ROWS) * (SM_BN / 4);
+  const int per = (quads + splits - 1) / splits;
+  const int owned = max(0, min(quads, (rank + 1) * per) - rank * per);
 
-  float acc[MT][SM_NT][4];
+  if (tid == SM_CONSUMERS) {
+    // the producer thread: the barriers, then at once the first stages
+    // of weights (q is not written by any grid this one may overlap)
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);   // the producer + TMA bytes
+      mbar_init(&empty[i], 2);  // the stage's two consumer warps
+    }
+    mbar_init(folded, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // every rank's slice of the quads this block owns
+    if (splits > 1 && owned > 0) mbar_expect_tx(folded, splits * owned * 16);
+    for (int i = 0; i < pre; ++i) {
+      mbar_expect_tx(&full[i], Tile::STAGE_BYTES);
+      tma_load_2d(smem_u32(smem + i * Tile::STAGE_BYTES), &q_map,
+                  (c_begin + i) * SM_BK, n0, &full[i]);
+    }
+  } else if (tid < SM_BN) {  // the scales, read-only too
+    sc[tid] = n0 + tid < N ? s[n0 + tid] : 0.f;
+  }
+  __syncthreads();
+  // the first half of the barrier that tells a block its peers have
+  // started (so their shared memory may be written); its wait comes at
+  // the fold, long after (threads that exit sooner are not waited for)
+  if (splits > 1) cluster_arrive_relaxed();
+
+  if (warp == SM_CONSUMER_WARPS) {
+    // ---- producer: once the grid dependency resolves, x for the first
+    // ring of stages, then the rest stage by stage
+    if (lane == 0) {
+      if (early && pre == n_st) grid_dep_launch();
+      grid_dep_wait();
+      for (int i = 0; i < n_st; ++i) {
+        const int st = i % STAGES;
+        if (i >= pre) {
+          if (i >= STAGES) mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+          if (i >= Tile::LEAD) {
+            const int j = i - Tile::LEAD;
+            mbar_wait(&full[j % STAGES], (j / STAGES) & 1);
+          }
+          mbar_expect_tx(&full[st], Tile::STAGE_BYTES);
+          tma_load_2d(smem_u32(smem + st * Tile::STAGE_BYTES), &q_map,
+                      (c_begin + i) * SM_BK, n0, &full[st]);
+        }
+        const uint32_t xs =
+            smem_u32(smem + st * Tile::STAGE_BYTES + SM_Q_BYTES);
+        const int k = (c_begin + i) * SM_BK;
+        tma_load_2d(xs, &x_map, k, 0, &full[st]);
+        tma_load_2d(xs + Tile::X_BOX_BYTES, &x_map, k + 64, 0, &full[st]);
+      }
+      if (early && pre < n_st) grid_dep_launch();
+    }
+    return;
+  }
+
+  // ---- consumers: warp (half, group) computes channels 32 half .. + 31
+  // of the block's 64 (four n8 tiles) over the stages group, group + 4, ...
+  grid_dep_wait();
+  const int half = warp & 1, group = warp >> 1;
+  const int g = lane >> 2, t = lane & 3, u = t >> 1;
+  // lane (g, t) takes k = 32t .. 32t + 31 of a stage. Its weights of
+  // column c: the 16-byte chunks 2t and 2t + 1 of q's row, in the order
+  // (w + u) % 2 for w = 0, 1; its x of row m: chunks 4 (t % 2) .. + 3 of
+  // box u (8 values each), in the order (i + 2u) % 4 for i = 0 .. 3. Step
+  // j (4 values of k a lane) of the stage is then word j % 4 of weight
+  // slot j / 4 and half j % 2 of x slot j / 2 for every lane, and lanes
+  // t >= 2 walk k rotated by 64 (the 128-byte swizzle stores chunk c of
+  // row r at c ^ (r % 8), and rows n, m = g modulo 8)
+  uint32_t qoff[4][2], xoff[MT][2][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+      qoff[nt][w] = (32 * half + 8 * nt + g) * 128 +
+                    (((2 * t + ((w + u) & 1)) ^ g) << 4);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < SM_NT; ++nt)
+    for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+      for (int i = 0; i < 4; ++i)
+        xoff[mt][r][i] = SM_Q_BYTES + u * Tile::X_BOX_BYTES +
+                         (16 * mt + 8 * r + g) * 128 +
+                         (((4 * (t & 1) + ((i + 2 * u) & 3)) ^ g) << 4);
 
-  // this lane's weight rows (output columns n0 + 8 nt + g) and x rows
-  const int8_t* qrow[SM_NT];
-  bool nok[SM_NT];
-#pragma unroll
-  for (int nt = 0; nt < SM_NT; ++nt) {
-    const int n = n0 + nt * 8 + g;
-    nok[nt] = n < N;
-    qrow[nt] = q + (size_t)(nok[nt] ? n : 0) * K;
-  }
-  const __nv_bfloat16* xrow[MT][2];
-  bool mok[MT][2];
+  float acc[MT][4][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = mt * 16 + g + 8 * r;
-      mok[mt][r] = m < M;
-      xrow[mt][r] = x + (size_t)(mok[mt][r] ? m : 0) * K;
-    }
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  uint4 bcur[SM_NT], bnext[SM_NT];
-  int c = c_begin + warp;
-  if (c < c_end) {
-    const int k = c * CHUNK_K + 16 * t;
+  for (int i = group; i < n_st; i += SM_KGROUPS) {
+    const int st = i % STAGES;
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    const uint32_t base = smem_u32(smem + st * Tile::STAGE_BYTES);
 #pragma unroll
-    for (int nt = 0; nt < SM_NT; ++nt)
-      bcur[nt] = (nok[nt] && k < K) ? ld_stream(qrow[nt] + k) : zero;
-  }
-  for (; c < c_end; c += SM_WARPS) {
-    const int k = c * CHUNK_K + 16 * t;
-    const bool kok = k < K;
-    const int kn = k + SM_WARPS * CHUNK_K;
-    if (c + SM_WARPS < c_end) {
+    for (int w = 0; w < 2; ++w) {
+      uint4 bq[4];
 #pragma unroll
-      for (int nt = 0; nt < SM_NT; ++nt)
-        bnext[nt] = (nok[nt] && kn < K) ? ld_stream(qrow[nt] + kn) : zero;
-    }
+      for (int nt = 0; nt < 4; ++nt) bq[nt] = lds128(base + qoff[nt][w]);
 #pragma unroll
-    for (int jp = 0; jp < 2; ++jp) {
-      // x at k .. k + 15 of rows g and g + 8 of each m16 tile, 8 values
-      // (two steps) at a time
-      uint4 a[MT][2];
+      for (int xi = 2 * w; xi < 2 * w + 2; ++xi) {
+        uint4 ax[MT][2];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          a[mt][r] = (mok[mt][r] && kok)
-                         ? __ldg(reinterpret_cast<const uint4*>(
-                               xrow[mt][r] + k + 8 * jp))
-                         : zero;
+          for (int r = 0; r < 2; ++r) ax[mt][r] = lds128(base + xoff[mt][r][xi]);
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = 2 * jp + jj;
-        uint32_t b0[SM_NT], b1[SM_NT];
+        for (int h = 0; h < 2; ++h) {
+          const int j = 2 * xi + h;  // the step: word j % 4 of slot w
+          uint32_t b0[4], b1[4];
 #pragma unroll
-        for (int nt = 0; nt < SM_NT; ++nt)
-          widen_i8x4(word(bcur[nt], j), b0[nt], b1[nt]);
+          for (int nt = 0; nt < 4; ++nt)
+            widen_i8x4_split(word(bq[nt], j & 3), b0[nt], b1[nt]);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const uint32_t a0 = word(a[mt][0], 2 * jj);
-          const uint32_t a1 = word(a[mt][1], 2 * jj);
-          const uint32_t a2 = word(a[mt][0], 2 * jj + 1);
-          const uint32_t a3 = word(a[mt][1], 2 * jj + 1);
+          for (int mt = 0; mt < MT; ++mt) {
+            // x at k, k + 2 and k + 1, k + 3 of the step's four, as the
+            // weights' even and odd bytes
+            const uint32_t a0 = __byte_perm(word(ax[mt][0], 2 * h),
+                                            word(ax[mt][0], 2 * h + 1), 0x5410);
+            const uint32_t a1 = __byte_perm(word(ax[mt][1], 2 * h),
+                                            word(ax[mt][1], 2 * h + 1), 0x5410);
+            const uint32_t a2 = __byte_perm(word(ax[mt][0], 2 * h),
+                                            word(ax[mt][0], 2 * h + 1), 0x7632);
+            const uint32_t a3 = __byte_perm(word(ax[mt][1], 2 * h),
+                                            word(ax[mt][1], 2 * h + 1), 0x7632);
 #pragma unroll
-          for (int nt = 0; nt < SM_NT; ++nt)
-            mma16816(acc[mt][nt], a0, a1, a2, a3, b0[nt], b1[nt]);
+            for (int nt = 0; nt < 4; ++nt)
+              mma16816(acc[mt][nt], a0, a1, a2, a3, b0[nt], b1[nt]);
+          }
         }
       }
     }
-#pragma unroll
-    for (int nt = 0; nt < SM_NT; ++nt) bcur[nt] = bnext[nt];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
   }
 
-  // the warps' partials: lane (g, t) holds rows g, g + 8 and columns
-  // 2t, 2t + 1 of each n8 tile
+  // the K groups' partials over the ring, once every consumer is done
+  // with it (every copy issued has landed: each was waited for); lane
+  // (g, t) holds rows g, g + 8 and columns 2t, 2t + 1 of each n8 tile
+  asm volatile("bar.sync 1, %0;\n" ::"n"(SM_CONSUMERS) : "memory");
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < SM_NT; ++nt) {
-      const int row = mt * 16 + g, col = nt * 8 + 2 * t;
-      *reinterpret_cast<float2*>(&red[warp][row][col]) =
-          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<float2*>(&red[warp][row + 8][col]) =
+    for (int nt = 0; nt < 4; ++nt) {
+      float* p = red + (group * ROWS + 16 * mt + g) * SM_RED_LD + 32 * half +
+                 8 * nt + 2 * t;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(p + 8 * SM_RED_LD) =
           make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
-  __syncthreads();
-  const int rows = min(M, MT * 16);
-  const int S = gridDim.y;
-  // the block's partial, warps summed in order
-  for (int e = tid; e < rows * SM_TILE_N; e += SM_THREADS) {
-    const int row = e / SM_TILE_N, col = e % SM_TILE_N;
-    float v = red[0][row][col];
+  asm volatile("bar.sync 1, %0;\n" ::"n"(SM_CONSUMERS) : "memory");
+
+  // the block's partial, groups summed in order: quad e = (row, four
+  // columns) of the rows < M. Unsplit: scaled and stored. Split: stored
+  // asynchronously into slice [this rank] of its owner's fold buffer
+  // (rank e / per), counted on the owner's mbarrier; each owner waits for
+  // its slices, sums them over the ranks in order, scales and stores. No
+  // block reads a peer's shared memory, so none waits for its peers to
+  // finish.
+  if (splits > 1) cluster_wait_acquire();  // every peer has started
+  for (int e = tid; e < quads; e += SM_CONSUMERS) {
+    const int row = e / (SM_BN / 4), col = 4 * (e % (SM_BN / 4));
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int w = 1; w < SM_WARPS; ++w) v += red[w][row][col];
-    if (S == 1) {
-      const int n = n0 + col;
-      store_out(y, M, N, row, n, n < N ? v * s[n] : 0.f);
+    for (int gr = 0; gr < SM_KGROUPS; ++gr) {
+      const float4 w = *reinterpret_cast<const float4*>(
+          red + (gr * ROWS + row) * SM_RED_LD + col);
+      v.x += w.x;
+      v.y += w.y;
+      v.z += w.z;
+      v.w += w.w;
+    }
+    if (splits == 1) {
+      store2(y, sc, N, row, n0, col, v.x, v.y);
+      store2(y, sc, N, row, n0, col + 2, v.z, v.w);
     } else {
-      part[row][col] = v;
+      const int owner = e / per;
+      st_async_f4(
+          dsmem_addr(smem_u32(fold + 4 * (rank * per + e - owner * per)),
+                     owner),
+          v, dsmem_addr(smem_u32(folded), owner));
     }
   }
-  if (S == 1) return;
-  // the cluster's partials, ranks summed in order; block r finishes the
-  // elements r * 128 + tid, + S * 128, ...
-  cluster_sync_acq_rel();
-  const uint32_t rank = blockIdx.y;
-  const uint32_t base = smem_u32(&part[0][0]);
-  for (int e = rank * SM_THREADS + tid; e < rows * SM_TILE_N;
-       e += S * SM_THREADS) {
-    const uint32_t off = base + 4u * e;
-    float v = 0.f;
-    for (int r = 0; r < S; ++r) v += ld_dsmem(dsmem_addr(off, r));
-    const int row = e / SM_TILE_N, n = n0 + e % SM_TILE_N;
-    store_out(y, M, N, row, n, n < N ? v * s[n] : 0.f);
+  if (splits == 1 || owned == 0) return;
+  mbar_wait_cluster(folded, 0);
+  for (int j = tid; j < owned; j += SM_CONSUMERS) {
+    float4 v = *reinterpret_cast<const float4*>(fold + 4 * j);
+    for (int r = 1; r < splits; ++r) {
+      const float4 w = *reinterpret_cast<const float4*>(fold + 4 * (r * per + j));
+      v.x += w.x;
+      v.y += w.y;
+      v.z += w.z;
+      v.w += w.w;
+    }
+    const int e = rank * per + j;
+    const int row = e / (SM_BN / 4), col = 4 * (e % (SM_BN / 4));
+    store2(y, sc, N, row, n0, col, v.x, v.y);
+    store2(y, sc, N, row, n0, col + 2, v.z, v.w);
   }
-  // no block leaves while a peer may still read its shared memory
-  cluster_sync_relaxed();
 }
 
 // ------------------------------------------------- route 1: TMA + wgmma
@@ -660,29 +876,92 @@ int8_gemm_simt_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-template <int MT>
-int launch_small(const __nv_bfloat16* x, const int8_t* q, const float* s,
-                 __nv_bfloat16* y, int M, int N, int K, int splits,
-                 cudaStream_t st) {
-  const int C = (K + CHUNK_K - 1) / CHUNK_K;
-  const int cps = (C + splits - 1) / splits;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = splits;
-  attr[0].val.clusterDim.z = 1;
+// launches of the small-M route are programmatic unless switched off
+// (dyn_int8_gemm_programmatic), to time the two side by side
+int g_programmatic = 1;
+
+// a cluster of `splits` blocks where K is split (or always: `cluster`),
+// and programmatic launch where switched on
+cudaLaunchConfig_t small_config(int splits, int grid, cudaStream_t st,
+                                cudaLaunchAttribute* attr,
+                                bool cluster = false) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + SM_TILE_N - 1) / SM_TILE_N, splits, 1);
+  int n = 0;
+  if (splits > 1 || cluster) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = splits;
+    attr[n].val.clusterDim.y = 1;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (g_programmatic) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  cfg.gridDim = dim3(grid, 1, 1);
   cfg.blockDim = dim3(SM_THREADS);
-  cfg.dynamicSmemBytes = 0;
   cfg.stream = st;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, int8_gemm_small_kernel<MT>, x, q, s, y, M, N, K, cps);
+  cfg.numAttrs = n;
+  return cfg;
+}
+
+template <int MT>
+int launch_small(const void* x, const void* q, const float* s,
+                 __nv_bfloat16* y, int M, int N, int K, int splits, int grid,
+                 cudaStream_t st) {
+  using Tile = SmTile<MT>;
+  if (splits < 1 || splits > MAX_SPLITS ||
+      grid != (N + SM_BN - 1) / SM_BN * splits)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap x_map, q_map;
+  if (!tile_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, 2ull * K,
+                Tile::ROWS, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tile_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, K, K, SM_BN,
+                SM_BK, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_gemm_small_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int C = (K + SM_BK - 1) / SM_BK;
+  const int cps = (C + splits - 1) / splits;
+  // The next grid's blocks, launched early, take the SMs' free slots: where
+  // this grid holds one block an SM for a long share (w_down's 56 stages)
+  // some land two to an SM and run at half speed to their end, slower
+  // than launched when this grid ends. So the early launch is for short
+  // shares, and for grids that already hold more blocks than SMs.
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  const int early = cps <= 4 * Tile::STAGES || grid > sms;
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = small_config(splits, grid, st, attr);
+  cfg.dynamicSmemBytes = Tile::SMEM;
+  err = cudaLaunchKernelEx(&cfg, int8_gemm_small_kernel<MT>, x_map, q_map, s,
+                           y, M, N, K, splits, cps, early);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
+// blocks of the MT-tile small-M kernel (clusters of `splits`) the card
+// holds at once (negative: a CUDA error)
+template <int MT>
+int small_resident(int splits) {
+  using Tile = SmTile<MT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_gemm_small_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile::SMEM);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = small_config(splits, splits, nullptr, attr, true);
+  cfg.dynamicSmemBytes = Tile::SMEM;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, int8_gemm_small_kernel<MT>, &cfg);
+  return err != cudaSuccess ? -(int)err : n * splits;
+}
 
 cudaLaunchConfig_t wgmma_config(int splits, int grid, cudaStream_t st,
                                 cudaLaunchAttribute* attr) {
@@ -757,20 +1036,19 @@ int launch_simt(const void* x, const int8_t* q, const float* s, void* y,
 
 // y [M, N] = (x [M, K] @ q [N, K]^T) * s [N]; dtype of x and y: 0
 // bfloat16, 1 float16, 2 float32. route 0 (small_m, bfloat16): `tile` m16
-// tiles (1, 2 or 4; M <= 16 tile) and `splits` blocks of K a cluster
-// (1..8); route 1 (wgmma, bfloat16): `tile` tokens a tile (16, 32, 64,
-// 128 or 256), `splits` blocks of K a cluster and
-// `grid` blocks (a multiple of splits); route 2 (simt, float16 or
-// float32): tile, splits and grid unused. K must be a multiple of 16 and
-// x and q 16-byte aligned; the wrapper checks both, and the entry refuses
-// what it does not take.
+// tiles (1 or 2; M <= 16 tile), `splits` blocks of K a cluster (1..8)
+// and `grid` = ceil(N / 64) * splits blocks; route 1 (wgmma, bfloat16):
+// `tile` tokens a tile (16, 32, 64, 128 or 256), `splits` blocks of K a
+// cluster and `grid` blocks (a multiple of splits); route 2 (simt,
+// float16 or float32): tile, splits and grid unused. K must be a
+// multiple of 16 and x and q 16-byte aligned; the wrapper checks both,
+// and the entry refuses what it does not take.
 extern "C" int dyn_int8_gemm(const void* x, const void* q, const void* s,
                              void* y, int M, int N, int K, int route,
                              int tile, int splits, int grid, int dtype,
                              void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* qb = static_cast<const int8_t*>(q);
   const auto* sb = static_cast<const float*>(s);
   auto* yb = static_cast<__nv_bfloat16*>(y);
@@ -782,12 +1060,10 @@ extern "C" int dyn_int8_gemm(const void* x, const void* q, const void* s,
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   if (route == 0) {
-    if (splits < 1 || splits > MAX_SPLITS || M > 16 * tile)
-      return (int)cudaErrorInvalidValue;
+    if (M > 16 * tile) return (int)cudaErrorInvalidValue;
     switch (tile) {
-      case 1: return launch_small<1>(xb, qb, sb, yb, M, N, K, splits, st);
-      case 2: return launch_small<2>(xb, qb, sb, yb, M, N, K, splits, st);
-      case 4: return launch_small<4>(xb, qb, sb, yb, M, N, K, splits, st);
+      case 1: return launch_small<1>(x, q, sb, yb, M, N, K, splits, grid, st);
+      case 2: return launch_small<2>(x, q, sb, yb, M, N, K, splits, grid, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -804,10 +1080,14 @@ extern "C" int dyn_int8_gemm(const void* x, const void* q, const void* s,
 
 // How many clusters of `splits` blocks of the wgmma route's
 // `tile`-token kernel the card holds at once (the persistent grid's
-// size); a negative value is a CUDA error.
+// size), or, for tile 1 or 2, how many blocks of the small-M route's
+// kernel of that many m16 tiles in clusters of `splits`; a negative value
+// is a CUDA error.
 extern "C" int dyn_int8_gemm_resident(int tile, int splits) {
   if (splits < 1 || splits > MAX_SPLITS) return -(int)cudaErrorInvalidValue;
   switch (tile) {
+    case 1: return small_resident<1>(splits);
+    case 2: return small_resident<2>(splits);
     case 16: return wgmma_resident<16>(splits);
     case 32: return wgmma_resident<32>(splits);
     case 64: return wgmma_resident<64>(splits);
@@ -815,4 +1095,12 @@ extern "C" int dyn_int8_gemm_resident(int tile, int splits) {
     case 256: return wgmma_resident<256>(splits);
   }
   return -(int)cudaErrorInvalidValue;
+}
+
+// Switch programmatic launch of the small-M route on (1) or off (0), to
+// time the two; returns the previous setting.
+extern "C" int dyn_int8_gemm_programmatic(int on) {
+  const int was = g_programmatic;
+  g_programmatic = on != 0;
+  return was;
 }

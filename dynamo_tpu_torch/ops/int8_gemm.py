@@ -18,11 +18,14 @@ tensors it launches a kernel on the current stream or raises — there is
 no fallback. :func:`int8_gemm_plan` picks the route, its tile, its K
 splits and its grid from the shape alone, so a CUDA graph can capture
 them:
-- ``small_m`` (bfloat16, decode: the few rows of the narrower products,
-  :data:`SMALL_M_TAKES`): bound by the weight bytes, ``mma.sync``
-  straight from device memory, K split over a thread-block cluster;
+- ``small_m`` (bfloat16, decode: up to 16 rows of every product and 32
+  of the narrower ones, :data:`SMALL_M_TAKES`): bound by the weight
+  bytes; a TMA ring streams 64-channel tiles of q and the rows of x into
+  shared memory for ``mma.sync``, K split over a thread-block cluster;
+  launched programmatically (PDL), so a call streams its first weights
+  while the kernel before it finishes;
 - ``wgmma`` (bfloat16, the rest: prefill chunks, the larger decode
-  batches, and w_gate/w_up and lm_head at any rows): a TMA ring feeding
+  batches, and w_gate/w_up and lm_head above 16 rows): a TMA ring feeding
   warp-specialised register-A ``wgmma`` on persistent tiles of 128
   channels by 16-256 tokens, K split over a cluster where the tiles do
   not fill the card;
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -49,19 +53,21 @@ INT8_GEMM_LAUNCHES: Dict[str, int] = {r: 0 for r in INT8_GEMM_ROUTES}
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 # The crossover (both routes timed at the 8B model's shapes and one
-# rank's at tp=2, M = 4 to 64 rows, on an H100; PERF.md, Findings): the
+# rank's at tp=2, M = 1 to 64 rows, on an H100; PERF.md, Findings): the
 # small-M route takes M rows of N channels where M <= rows and N <=
-# channels of an entry; the wgmma route the rest. Up to 16 rows of at
-# most 4,096 channels (wq, wo, w_down, wk/wv and their tp=2 shards:
-# 5.0-30.0 against 7.3-40.8 us), where w_gate/w_up and lm_head (7,168
-# channels or more) are faster on the wgmma route (15.8-194.9 against
-# 16.9-195.6 us); and up to 32 rows of at most 1,024 channels (wk/wv:
-# 6.0-7.2 against 7.4-8.2 us at 24 and 32 rows).
-SMALL_M_TAKES = ((16, 4096), (32, 1024))
-SMALL_TILE_N = 32    # output columns a small-M block
-CHUNK_K = 64         # the kernels' step along K
+# channels of an entry; the wgmma route the rest. Up to 16 rows of every
+# product (w_gate/w_up and lm_head included: 14.5-187 against 16.1-201
+# us), and up to 32 rows of at most 4,096 channels (wq, wo, wk/wv,
+# w_down and their tp=2 shards: 4.4-31.4 against 7.6-40.0 us); w_gate/
+# w_up at 24-32 rows are faster on the wgmma route, and lm_head there is
+# within 2% either way (a tie, to wgmma).
+SMALL_M_TAKES = ((16, math.inf), (32, 4096))
+SMALL_M_ROWS = 32    # the most rows the small-M kernel takes (2 m16 tiles)
+SMALL_TILE_N = 64    # output channels a small-M block
+SMALL_STAGE_K = 128  # the small-M kernel's ring stage along K
+SMALL_MIN_STAGES = 4  # stages a small-M split at least: one a K group
+CHUNK_K = 64         # the wgmma kernel's step along K
 MAX_SPLITS = 8       # blocks of one cluster splitting K (portable maximum)
-BLOCKS_PER_SM = 4    # the small-M plan's target of blocks in flight an SM
 WG_TILE_N = 128      # output channels a wgmma tile (64 a warpgroup)
 WG_TOKENS = (16, 32, 64, 128, 256)  # tokens a wgmma tile (wgmma's N)
 SIMT_TILE = 32       # tokens and channels a simt block
@@ -73,8 +79,8 @@ BF16_FLOPS = 989e12
 
 
 class Int8Plan(NamedTuple):
-    """One call's launch: its route; its tile (small_m: m16 tiles, 1, 2
-    or 4; wgmma: tokens a tile, :data:`WG_TOKENS`; simt:
+    """One call's launch: its route; its tile (small_m: m16 tiles, 1 or
+    2; wgmma: tokens a tile, :data:`WG_TOKENS`; simt:
     :data:`SIMT_TILE`); the blocks of one cluster that split K; and the
     blocks launched."""
     route: str
@@ -100,13 +106,14 @@ WG_FOLD_SPLIT_US = 0.47
 
 
 def resident_model(tokens: int, splits: int, sms: int) -> int:
-    """Clusters of ``splits`` wgmma blocks a card of ``sms`` SMs holds at
-    once, one block an SM, as the CUDA driver counts them on an H100 SXM's
-    132 SMs (``cudaOccupancyMaxActiveClusters`` at every tile width: 132,
-    66, 30 and 15 clusters of 1, 2, 4 and 8 blocks; PERF.md). On the
-    card the wrapper asks the CUDA driver instead."""
-    return {1: sms, 2: sms // 2, 4: sms * 30 // 132,
-            8: sms * 15 // 132}[splits]
+    """Clusters of ``splits`` blocks a card of ``sms`` SMs holds at once,
+    one block an SM, as the CUDA driver counts them for the wgmma kernel
+    on an H100 SXM's 132 SMs (``cudaOccupancyMaxActiveClusters`` at every
+    tile width: 132, 66, 39, 30, 22, 17, 15 and 15 clusters of 1 to 8
+    blocks; PERF.md). On the card the wrapper asks the CUDA driver
+    instead."""
+    return sms * {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
+                  8: 15}[splits] // 132
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -150,22 +157,18 @@ def int8_gemm_plan(M: int, N: int, K: int, sms: int,
     """The launch of one call (:class:`Int8Plan`), from host-known shapes
     only (so a CUDA graph can capture it). float16 and float32 x: simt.
     bfloat16 x where :func:`small_m_takes` (the measured crossover):
-    small_m, the m16 tiles that cover M (1, 2 or 4) and the K splits of
-    each 32-column tile, a power of two up to :data:`MAX_SPLITS`, enough
-    for ``BLOCKS_PER_SM * sms`` blocks where the tiles alone are fewer,
-    with at least eight 64-wide chunks of K a split (two a warp;
-    :func:`small_m_plan`). Otherwise wgmma (:func:`wgmma_plan`), a
+    small_m (:func:`small_m_plan`). Otherwise wgmma (:func:`wgmma_plan`), a
     persistent grid of as many clusters as the card holds at once
     (``resident(tokens, splits)``; by default :func:`resident_model`) or
     as there are tiles."""
     if dtype != torch.bfloat16:
         return Int8Plan("simt", SIMT_TILE, 1,
                         _cdiv(N, SIMT_TILE) * _cdiv(M, SIMT_TILE))
-    if small_m_takes(M, N):
-        return small_m_plan(M, N, K, sms)
     if resident is None:
         def resident(tokens, splits):
             return resident_model(tokens, splits, sms)
+    if small_m_takes(M, N):
+        return small_m_plan(M, N, K, sms, resident)
     return wgmma_plan(M, N, K, resident)
 
 
@@ -175,18 +178,30 @@ def small_m_takes(M: int, N: int) -> bool:
     return any(M <= rows and N <= n for rows, n in SMALL_M_TAKES)
 
 
-def small_m_plan(M: int, N: int, K: int, sms: int) -> Int8Plan:
-    """The small_m route's launch (M <= 64): the m16 tiles that cover M
-    and the K splits :func:`int8_gemm_plan` names."""
-    mt = 1 if M <= 16 else 2 if M <= 32 else 4
+def small_m_plan(M: int, N: int, K: int, sms: int,
+                 resident: Optional[Callable[[int, int], int]] = None
+                 ) -> Int8Plan:
+    """The small_m route's launch (M <= :data:`SMALL_M_ROWS`): the m16
+    tiles that cover M, and the K splits of each 64-channel tile (1 to
+    :data:`MAX_SPLITS`, a cluster): the fewest 128-wide stages of K a
+    block (ties to fewer splits), each split keeping
+    :data:`SMALL_MIN_STAGES`, with every tile's cluster on the card at
+    once one block an SM (``resident(tokens, splits)``, the wgmma
+    kernel's count, by default :func:`resident_model`): placed two to an
+    SM, a block computes at half speed, and its cluster waits for it."""
+    if resident is None:
+        def resident(tokens, splits):
+            return resident_model(tokens, splits, sms)
+    mt = 1 if M <= 16 else 2
     tiles = _cdiv(N, SMALL_TILE_N)
-    want = _cdiv(BLOCKS_PER_SM * sms, tiles)
-    chunks = _cdiv(K, CHUNK_K)
-    cap = min(MAX_SPLITS, want, max(chunks // 8, 1))
-    splits = 1
-    while splits * 2 <= cap:
-        splits *= 2
-    return Int8Plan("small_m", mt, splits, tiles * splits)
+    stages = _cdiv(K, SMALL_STAGE_K)
+    best = 1
+    for splits in range(2, MAX_SPLITS + 1):
+        if (_cdiv(stages, splits) >= SMALL_MIN_STAGES
+                and tiles <= resident(WG_TOKENS[0], splits)
+                and _cdiv(stages, splits) < _cdiv(stages, best)):
+            best = splits
+    return Int8Plan("small_m", mt, best, tiles * best)
 
 
 # dense peak rate for the activations' type: the tensor cores' for the
@@ -294,8 +309,16 @@ def _lib():
         lib.dyn_int8_gemm.restype = i
         lib.dyn_int8_gemm_resident.argtypes = [i, i]
         lib.dyn_int8_gemm_resident.restype = i
+        lib.dyn_int8_gemm_programmatic.argtypes = [i]
+        lib.dyn_int8_gemm_programmatic.restype = i
         lib._dyn_typed = True
     return lib
+
+
+def set_programmatic(on: bool) -> bool:
+    """Switch programmatic launch (PDL) of the small-M route on or off
+    (on by default), to time the two; returns the previous setting."""
+    return bool(_lib().dyn_int8_gemm_programmatic(int(on)))
 
 
 def _check(cond: bool, msg: str) -> None:

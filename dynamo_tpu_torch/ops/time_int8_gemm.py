@@ -13,6 +13,16 @@ Each output is first held to ``int8_gemm_tolerance``. Prints one JSON
 line: the card, its power limit, and per shape and M the three times in
 µs beside ``int8_gemm_work``'s bound.
 
+    python -m dynamo_tpu_torch.ops.time_int8_gemm --write-x
+
+also times each call after a kernel that writes its x
+(``torch.add(x_src, 0, out=x)``), as a layer's wq, wo and w_down follow
+a norm, attention or SiLU-mul: a graph of (writer, call) pairs less a
+graph of the writer alone (``after_write``, three times, µs). Back to
+back, a call whose launch is programmatic overlaps the call before it,
+as wq, wk and wv do in a layer; after a writer it can overlap only the
+writer.
+
 The module uses only what every tree of the port since int8 serving has
 (``int8_matmul``, ``int8_gemm_tolerance``, ``int8_gemm_work``), so to
 compare a change with its parent, unpack the parent into a git-ignored
@@ -23,13 +33,16 @@ in one chip call, parent, change, change, parent.
 
 instead times, at the same shapes and rows (ROWS, or ``--rows``), the
 launch ``int8_gemm_plan`` picks, the small-M route where it can take
-the rows, and every wgmma tile and split that fits the card in one
+the rows (with ``--write-x``, also after a writer: ``small_m
+after_write``), and every wgmma tile and split that fits the card in one
 round or more (this tree only): the measurements the plan's crossover
 and its time model (``WG_CHUNK_US``, ``WG_FOLD_US``) are fitted to.
 ``rule`` names the swept launch a fixed rule would take instead of the
 model's (:func:`fixed_rule`). One JSON line per shape and M.
 ``--shapes tp2`` takes one rank's shapes at tensor-parallel size 2
-instead (TP2_SHAPES), ``--shapes all`` both sets.
+instead (TP2_SHAPES), ``--shapes all`` both sets. Its first line holds
+the CUDA driver's co-resident counts the plans use
+(:func:`resident_counts`).
 """
 
 from __future__ import annotations
@@ -81,6 +94,24 @@ def time_us(fn, iters: int) -> float:
     return a.elapsed_time(b) * 1e3 / (iters * 5)
 
 
+def after_write_us(fn, x, iters: int) -> float:
+    """Device µs of ``fn`` after a kernel that writes x: a graph of
+    (``torch.add(x_src, 0, out=x)``, ``fn``) pairs less a graph of the
+    writer alone (x_src: a copy of x)."""
+    import torch
+
+    x_src = x.clone()
+
+    def write():
+        torch.add(x_src, 0, out=x)
+
+    def pair():
+        write()
+        return fn()
+
+    return time_us(pair, iters) - time_us(write, iters)
+
+
 def power_limit() -> str:
     try:
         return subprocess.run(
@@ -110,20 +141,23 @@ def fixed_rule(M: int, N: int, K: int, sms: int, resident) -> tuple:
     return tokens, splits
 
 
-def sweep_plans(x, ws, M: int, K: int, N: int) -> dict:
+def sweep_plans(x, ws, M: int, K: int, N: int,
+                write_x: bool = False) -> dict:
     """µs of every launch of one call: the plan's, the small-M route's
-    (M <= 64) and each wgmma (tokens, splits) whose tile is no more than
-    twice the rows; and which of them :func:`fixed_rule` takes."""
-    from dynamo_tpu_torch.ops.int8_gemm import (MAX_SPLITS, WG_TILE_N,
-                                                WG_TOKENS, Int8Plan,
-                                                device_plan, int8_matmul,
-                                                int8_gemm_work, resident_of,
-                                                small_m_plan)
+    (M <= SMALL_M_ROWS; with ``write_x`` also after a kernel that writes
+    x, :func:`after_write_us`) and each wgmma (tokens, splits) whose
+    tile is no more than twice the rows; and which of them
+    :func:`fixed_rule` takes."""
+    from dynamo_tpu_torch.ops.int8_gemm import (MAX_SPLITS, SMALL_M_ROWS,
+                                                WG_TILE_N, WG_TOKENS,
+                                                Int8Plan, device_plan,
+                                                int8_matmul, int8_gemm_work,
+                                                resident_of, small_m_plan)
 
     plans = {"chosen": device_plan(M, N, K, x.device)}
-    if M <= 64:
-        plans["small_m"] = small_m_plan(M, N, K, _sms(x.device))
     resident = resident_of(x.device)
+    if M <= SMALL_M_ROWS:
+        plans["small_m"] = small_m_plan(M, N, K, _sms(x.device), resident)
     for tokens in WG_TOKENS:
         if tokens > 2 * max(M, 16) or (tokens < M // 4 and tokens < 128):
             continue
@@ -143,8 +177,30 @@ def sweep_plans(x, ws, M: int, K: int, N: int) -> dict:
             q, s = ws[next(turn) % len(ws)]
             return int8_matmul(x, q, s, plan=plan)
         out[key] = {"plan": list(plan), "us": round(time_us(call, iters), 2)}
+    if write_x and "small_m" in plans:
+        def small(plan=plans["small_m"]):
+            q, s = ws[next(turn) % len(ws)]
+            return int8_matmul(x, q, s, plan=plan)
+        out["small_m after_write"] = {
+            "plan": list(plans["small_m"]),
+            "us": round(after_write_us(small, x, iters), 2)}
     out["rule"] = "%d/%d" % fixed_rule(M, N, K, _sms(x.device), resident)
     return out
+
+
+def resident_counts() -> dict:
+    """The CUDA driver's counts the plans use, by cluster size 1 to
+    MAX_SPLITS: clusters of the wgmma kernel (one block an SM; the
+    16-token tile's) and blocks of the small-M kernel (1 and 2 m16
+    tiles) the card holds at once."""
+    from dynamo_tpu_torch.ops.int8_gemm import MAX_SPLITS, _lib
+
+    lib = _lib()
+    return {f"{name} (tile {tile})": [lib.dyn_int8_gemm_resident(tile, s)
+                                      for s in range(1, MAX_SPLITS + 1)]
+            for name, tile in (("wgmma clusters", 16),
+                               ("small_m blocks", 1),
+                               ("small_m blocks", 2))}
 
 
 def _sms(device) -> int:
@@ -168,12 +224,18 @@ def main() -> None:
     ap.add_argument("--rows", type=int, nargs="+", default=list(ROWS))
     ap.add_argument("--shapes", choices=("tp1", "tp2", "all"),
                     default="tp1")
+    ap.add_argument("--write-x", action="store_true",
+                    help="also time each call after a kernel that writes "
+                         "its x")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_int8_gemm: no CUDA GPU available")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
     res = {"tree": os.getcwd(), "card": power_limit(), "us": {}}
+    if args.plans:
+        print(json.dumps({"card": res["card"],
+                          "resident": resident_counts()}), flush=True)
     shapes = {"tp1": SHAPES, "tp2": TP2_SHAPES,
               "all": {**SHAPES, **TP2_SHAPES}}[args.shapes]
     for name, (K, N) in shapes.items():
@@ -196,7 +258,8 @@ def main() -> None:
             if args.plans:
                 print(json.dumps({"card": res["card"], "shape": name,
                                   "M": M, "K": K, "N": N,
-                                  "us": sweep_plans(x, ws, M, K, N)}),
+                                  "us": sweep_plans(x, ws, M, K, N,
+                                                    args.write_x)}),
                       flush=True)
                 continue
             turn = itertools.count()
@@ -208,10 +271,13 @@ def main() -> None:
             work = int8_gemm_work(M, K, N)
             iters = (20 if work["bound_ms"] < 0.2 else
                      5 if work["bound_ms"] < 2 else 2)
-            res["us"][f"{name} M={M}"] = {
+            cell = res["us"][f"{name} M={M}"] = {
                 "times": [round(time_us(call, iters), 2)
                           for _ in range(REPEATS)],
                 "bound": round(work["bound_ms"] * 1e3, 2)}
+            if args.write_x:
+                cell["after_write"] = [round(after_write_us(call, x, iters),
+                                             2) for _ in range(REPEATS)]
         del ws
         torch.cuda.empty_cache()
     if not args.plans:

@@ -22,13 +22,13 @@ TP2_SHAPES = {"wq": (4096, 2048), "wk_wv": (4096, 512),
               "wo": (2048, 4096), "down": (7168, 4096)}
 SERVED = sorted(SHAPES.items()) + sorted(
     (f"tp2 {k}", v) for k, v in TP2_SHAPES.items())
-ROWS = (1, 4, 16, 32, 64, 512, 4096)
-# the route each served shape takes at few rows (M <= 16), as measured
-# at tp=1 and tp=2 (PERF.md, Findings): wgmma for the products of 7,168
-# channels or more
-FEW_ROWS_WGMMA = {"gate_up", "lm_head", "tp2 gate_up", "tp2 lm_head"}
-# the shapes whose small-M route is faster up to 32 rows (N <= 1,024)
-NARROW = {"wk_wv", "tp2 wk_wv"}
+ROWS = (1, 4, 16, 24, 32, 48, 64, 512, 4096)
+# the route each served shape takes at few rows, as measured at tp=1 and
+# tp=2 (PERF.md, Findings): small_m up to 16 rows everywhere, and up to
+# 32 rows of the shapes whose small-M route is faster there (N <= 4,096;
+# w_gate/w_up and lm_head take wgmma from 17 rows)
+NARROW = {"wq_wo", "wk_wv", "down", "tp2 wq", "tp2 wk_wv", "tp2 wo",
+          "tp2 down"}
 
 
 def _resident(tokens, splits):
@@ -40,9 +40,16 @@ def _valid(plan: Int8Plan, M: int, N: int, K: int) -> None:
     tile of M x N."""
     assert plan.route in INT8_GEMM_ROUTES
     if plan.route == "small_m":
-        assert plan.tile in (1, 2, 4) and M <= 16 * plan.tile
+        assert plan.tile in (1, 2) and M <= 16 * plan.tile
         assert 1 <= plan.splits <= MAX_SPLITS
-        assert plan.grid == -(-N // int8_gemm.SMALL_TILE_N) * plan.splits
+        tiles = -(-N // int8_gemm.SMALL_TILE_N)
+        assert plan.grid == tiles * plan.splits
+        # every split has a stage of K for each of the block's K groups,
+        # and the tiles' clusters fit the card one block an SM
+        stages = -(-K // int8_gemm.SMALL_STAGE_K)
+        assert (plan.splits == 1 or -(-stages // plan.splits)
+                >= int8_gemm.SMALL_MIN_STAGES)
+        assert plan.splits == 1 or tiles <= _resident(16, plan.splits)
         return
     assert plan.route == "wgmma"
     assert plan.tile in WG_TOKENS
@@ -58,12 +65,11 @@ def _valid(plan: Int8Plan, M: int, N: int, K: int) -> None:
 @pytest.mark.parametrize("name,shape", SERVED)
 def test_served_shapes_take_the_measured_route(name, shape, M):
     """Every served bf16 shape goes to the route the measured crossover
-    names: small_m up to 16 rows (but w_gate, w_up and lm_head, at tp=1
-    and tp=2) and up to 32 rows of wk and wv; wgmma for the rest."""
+    names: small_m up to 16 rows of every product and up to 32 rows of
+    wq, wo, wk, wv and w_down (at tp=1 and tp=2); wgmma for the rest."""
     K, N = shape
     plan = int8_gemm_plan(M, N, K, SMS)
-    small = (M <= 16 and name not in FEW_ROWS_WGMMA) or (
-        M <= 32 and name in NARROW)
+    small = M <= 16 or (M <= 32 and name in NARROW)
     assert plan.route == ("small_m" if small else "wgmma")
     _valid(plan, M, N, K)
 
@@ -88,15 +94,22 @@ FILL = 0.8
 @pytest.mark.parametrize("name,shape", SERVED)
 def test_blocks_fill_the_card(name, shape, M):
     """The blocks fill the card at every served shape: at least FILL of
-    the SMs busy, unless the splits reached their cap (small_m: eight
-    64-wide chunks a split or MAX_SPLITS; wgmma: MAX_SPLITS, two chunks a
-    split, or as many as let every tile's cluster be on the card at
-    once)."""
+    the SMs busy, unless the splits reached their cap (small_m: no more
+    splits give a block fewer stages while keeping SMALL_MIN_STAGES a
+    split and every tile's cluster on the card one block an SM; wgmma:
+    MAX_SPLITS, two chunks a split, or as many as let every tile's
+    cluster be on the card at once)."""
     K, N = shape
     plan = int8_gemm_plan(M, N, K, SMS)
     chunks = -(-K // 64)
     if plan.route == "small_m":
-        capped = plan.splits * 2 > min(MAX_SPLITS, max(chunks // 8, 1))
+        stages = -(-K // int8_gemm.SMALL_STAGE_K)
+        tiles = -(-N // int8_gemm.SMALL_TILE_N)
+        capped = not any(
+            -(-stages // s) < -(-stages // plan.splits)
+            and -(-stages // s) >= int8_gemm.SMALL_MIN_STAGES
+            and tiles <= _resident(16, s)
+            for s in range(plan.splits + 1, MAX_SPLITS + 1))
     else:
         tiles = -(-M // plan.tile) * -(-N // WG_TILE_N)
         capped = (plan.splits == MAX_SPLITS or chunks < 4 * plan.splits
@@ -113,10 +126,24 @@ def test_float32_and_float16_take_the_simt_route(dtype, M, K, N):
 
 
 def test_resident_model_is_the_h100s():
-    """The CUDA driver's counts on an H100 SXM, at every tile width."""
+    """The CUDA driver's counts on an H100 SXM, at every tile width and
+    cluster size."""
     for tokens in WG_TOKENS:
-        assert [resident_model(tokens, s, SMS) for s in (1, 2, 4, 8)] == \
-            [132, 66, 30, 15]
+        assert [resident_model(tokens, s, SMS) for s in range(1, 9)] == \
+            [132, 66, 39, 30, 22, 17, 15, 15]
+
+
+def test_small_m_plan_uses_the_cards_resident_count():
+    """The small-M plan splits K only as far as every tile's cluster fits
+    the card one block an SM: a card that holds fewer clusters gets fewer
+    splits."""
+    assert int8_gemm_plan(4, 1024, 4096, SMS) == ("small_m", 1, 6, 96)
+    few = int8_gemm_plan(4, 1024, 4096, SMS,
+                         resident=lambda tokens, splits: 16 // splits)
+    assert few == ("small_m", 1, 1, 16)
+    half = int8_gemm_plan(4, 1024, 4096, SMS,
+                          resident=lambda tokens, splits: 16)
+    assert half == ("small_m", 1, 8, 128)
 
 
 def test_plan_uses_the_cards_resident_count():

@@ -979,13 +979,59 @@ def test_cuda_int8_gemm_perturbed_scale_fails_the_check(cuda_device, M,
     assert _int8_excess(int8_matmul(x, q, bad), x, q, s) > 0
 
 
+def _small_m_plan(dev, M, N, K):
+    """The small-M route's launch of a call on this card (the CUDA
+    driver's cluster counts), whichever route the crossover names."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return int8_gemm.small_m_plan(M, N, K, sms, int8_gemm.resident_of(dev))
+
+
+def _small_m_check(dev, M, K, N, seed=0):
+    x, q, s = _int8_case(dev, M, K, N, seed)
+    int8_gemm.reset_launch_counts()
+    y = int8_matmul(x, q, s, plan=_small_m_plan(dev, M, N, K))
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (M, N)
+    assert _int8_excess(y, x, q, s) <= 0
+    assert int8_gemm.INT8_GEMM_LAUNCHES == {"small_m": 1, "wgmma": 0,
+                                            "simt": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 16, 24, 32])
+@pytest.mark.parametrize("shape", sorted(INT8_SHAPES) + [
+    f"tp2 {n}" for n in sorted(INT8_TP2_SHAPES)])
+def test_cuda_int8_small_m_at_served_shapes(cuda_device, shape, M):
+    """The small-M route (TMA ring, programmatic launch, K split over a
+    cluster of up to 8 blocks) at every served shape, tp=1 and tp=2, at
+    every row count it can take, forced where the crossover sends the
+    call to the wgmma route."""
+    K, N = (INT8_TP2_SHAPES[shape[4:]] if shape.startswith("tp2 ")
+            else INT8_SHAPES[shape])
+    _small_m_check(cuda_device, M, K, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 5, 17, 32])
+@pytest.mark.parametrize("K,N", [(4096, 33), (4096, 130), (4096, 1000),
+                                 (16, 1000), (48, 1000), (1040, 1000)])
+def test_cuda_int8_small_m_ragged(cuda_device, M, K, N):
+    """The small-M route on ragged N (a partial 64-channel tile, odd N)
+    and K tails (less than one 128-wide stage; a stage past K's end),
+    where TMA fills the boxes past the tensors with zeros."""
+    _small_m_check(cuda_device, M, K, N, seed=6)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,N", [(4, 1024), (64, 14336), (512, 4096),
-                                 (512, 1024), (48, 4096)])
+                                 (512, 1024), (48, 4096), (4, 512),
+                                 (32, 512)])
 def test_cuda_int8_gemm_replay_equals_eager(cuda_device, M, N):
     """Deterministic: two eager calls and a captured graph's replay give
     the same bits (the K splits fold in a fixed order; 512 x 1024 and
-    48 x 4096 split K over the wgmma route's clusters)."""
+    48 x 4096 split K over the wgmma route's clusters, 4 x 512 and 32 x
+    512 over the small-M route's deepest, eight blocks; the small-M
+    launch is programmatic in the graph too)."""
     x, q, s = _int8_case(cuda_device, M, 4096, N, seed=2)
     eager = int8_matmul(x, q, s)
     assert torch.equal(int8_matmul(x, q, s), eager)
@@ -997,6 +1043,85 @@ def test_cuda_int8_gemm_replay_equals_eager(cuda_device, M, N):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, eager)
+
+
+def _graph(fn, stream):
+    """A CUDA graph of ``fn`` captured on ``stream`` after one warm-up
+    call there."""
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    out = {}
+    with torch.cuda.graph(graph, stream=stream):
+        out["y"] = fn()
+    return graph, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 4096), (4, 4096, 1024),
+                                   (32, 4096, 1024), (16, 4096, 512)])
+def test_cuda_int8_small_m_reads_x_after_the_kernel_that_writes_it(
+        cuda_device, M, K, N):
+    """The race programmatic launch opens: in one graph a kernel writes x
+    (``torch.add(x_src, 0, out=x)``) and the small-M launch, which may
+    start before that kernel ends, reads it. Over 20 replays with a new
+    x each, every output is within the tolerance of the plain version on
+    that x: the kernel touches x only after griddepcontrol.wait."""
+    dev = cuda_device
+    _, q, s = _int8_case(dev, M, K, N, seed=7)
+    assert int8_gemm.device_plan(M, N, K, dev).route == "small_m"
+    x_src = torch.zeros(M, K, dtype=torch.bfloat16, device=dev)
+    x = torch.empty_like(x_src)
+
+    def step():
+        torch.add(x_src, 0, out=x)
+        return int8_matmul(x, q, s)
+
+    graph, out = _graph(step, torch.cuda.Stream())
+    g = torch.Generator(device=dev).manual_seed(8)
+    for _ in range(20):
+        x_src.copy_(torch.randn(M, K, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _int8_excess(out["y"], x_src, q, s) <= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(4, 4096, 4096), (16, 4096, 1024)])
+def test_cuda_int8_small_m_writes_y_after_the_kernel_that_reads_it(
+        cuda_device, M, K, N):
+    """The other side of the race: y's storage is memory the caching
+    allocator has just freed from a tensor that the kernel before it
+    (in the same graph) reads. That kernel's output must hold what it
+    read, 20 replays over, and y the product: the small-M kernel writes
+    y only after griddepcontrol.wait."""
+    dev = cuda_device
+    x, q, s = _int8_case(dev, M, K, N, seed=9)
+    src = torch.zeros(M, N, dtype=torch.bfloat16, device=dev)
+    z = torch.empty_like(src)
+    ptrs = {}
+
+    def step():
+        tmp = src.clone()
+        torch.add(tmp, 0, out=z)
+        ptrs["tmp"] = tmp.data_ptr()
+        del tmp
+        y = int8_matmul(x, q, s)
+        ptrs["y"] = y.data_ptr()
+        return y
+
+    graph, out = _graph(step, torch.cuda.Stream())
+    assert ptrs["y"] == ptrs["tmp"], "y did not reuse the freed storage"
+    g = torch.Generator(device=dev).manual_seed(10)
+    for _ in range(20):
+        src.copy_(torch.randn(M, N, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(z, src)
+        assert _int8_excess(out["y"], x, q, s) <= 0
 
 
 @pytest.mark.cuda
@@ -1017,6 +1142,10 @@ def test_cuda_int8_gemm_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="mixed"):
         int8_matmul(torch.zeros(2, 64, dtype=torch.bfloat16, device=d),
                     q.cpu(), s)
+    # the small-M kernel takes at most 32 rows (two m16 tiles)
+    x, q, s = _int8_case(d, 33, 64, 8, seed=5)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        int8_matmul(x, q, s, plan=int8_gemm.Int8Plan("small_m", 4, 1, 1))
 
 
 @pytest.mark.cuda

@@ -172,21 +172,21 @@ def test_wrapper_checks_shapes_and_plan():
     with pytest.raises(ValueError, match="float32 scales"):
         int8_matmul(torch.zeros(2, 32), q, s[:4])
     # (route, tile, splits, grid): small_m's m16 tiles and K splits of
-    # 32-column tiles; wgmma's tokens a tile, K splits and persistent grid
+    # 64-channel tiles; wgmma's tokens a tile, K splits and persistent grid
     assert int8_gemm_plan(4, 1024, 4096, 132) == \
-        ("small_m", 1, 8, 256)                                  # wk, wv
+        ("small_m", 1, 6, 96)                                   # wk, wv
     assert int8_gemm_plan(4, 4096, 4096, 132) == \
-        ("small_m", 1, 4, 512)                                  # wq, wo
+        ("small_m", 1, 2, 128)                                  # wq, wo
     assert int8_gemm_plan(64, 14336, 4096, 132) == \
         ("wgmma", 64, 1, 112)                                   # gate, up
     assert int8_gemm_plan(4, 14336, 4096, 132) == \
-        ("wgmma", 16, 1, 112)                                   # at 4 rows
+        ("small_m", 1, 1, 224)                                  # at 4 rows
     assert int8_gemm_plan(32, 4096, 14336, 132) == \
-        ("wgmma", 16, 2, 128)                                   # down
+        ("small_m", 2, 2, 128)                                  # down
     assert int8_gemm_plan(4, 128256, 4096, 132) == \
-        ("wgmma", 16, 1, 132)                                   # lm_head
+        ("small_m", 1, 1, 2004)                                 # lm_head
     assert int8_gemm_plan(4, 64, 32, 132) == \
-        ("small_m", 1, 1, 2)                                    # short K
+        ("small_m", 1, 1, 1)                                    # short K
     assert int8_gemm_plan(512, 4096, 4096, 132) == \
         ("wgmma", 256, 2, 128)                                  # a chunk
     assert int8_gemm_plan(4, 64, 32, 132, torch.float32) == \
