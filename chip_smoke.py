@@ -9,9 +9,16 @@ Phases; any failure exits non-zero before the result line:
    source, in parallel);
 2. hold the decode kernel against its plain PyTorch version on the card:
    with and without stats, rows of length 0, softcap and a lower bound,
-   float32 (atol 1e-5) and bfloat16 (atol 2e-2 + rtol 1e-2);
+   and in the fused-window form, float32 (atol 1e-5; the float32 route at
+   head_dim 32 to 128) and bfloat16 (atol 2e-2 + rtol 1e-2; the bf16
+   route), and in both dtypes a case at head_dim 96, page 4, outside both
+   routes' sets, on the generic kernel and its combine step; each call
+   must have taken its shape's route (the launch counts), and every
+   route must have been taken;
 3. the same for the prefill kernel: padding queries, a sliding window, a
-   second chunk that skips pages, the fourth chunk of a 2048-token prompt;
+   second chunk that skips pages, the fourth chunk of a 2048-token prompt
+   (float32 on the 3xTF32 route; page 4, outside its set, on the
+   generic kernel; bfloat16 on the bf16 route);
 4. serve Llama-3-8B-shaped requests (32 layers at full width, random
    weights from a seed, byte tokenizer) over the OpenAI HTTP front end on
    a local port, with pipelined decode windows and prefill chunks, each
@@ -32,7 +39,7 @@ Phases; any failure exits non-zero before the result line:
    (replays count the launches their capture recorded), reset just
    before and read just after, must be above 0 and equal to the graph
    replays times the calls one replay makes (no eager dispatch), and
-   every decode call must have taken the bf16 decode kernel. The four
+   every decode and prefill call must have taken the bf16 route. The four
    requests then go again one at a time, greedy, with logprobs and the
    top 5 (the logprobs variants warmup() captured by default): every
    token's logprob must be the top-1 logprob, and each logprob and top
@@ -56,10 +63,13 @@ Phases; any failure exits non-zero before the result line:
    at 8 rows of 3,968 positions, also within DECODE_REL_RMS of the plain
    output's rms, with a row one 16-key block short as the control that
    must exceed it; prefill at the served first chunk and at
-   a deep chunk (positions 1536-2047); the float32 routes (the tiny
-   preset's) at the served window and first chunk, on a float32 copy of
-   the pool. Bounds count the work of this run's inputs
-   (ops.paged_attention.decode_work and prefill_work);
+   a deep chunk (positions 1536-2047); the float32 routes (atol 1e-5) at
+   the served window and first chunk at the 1b's heads (the row, whose
+   launches phase 11 counts), the 8B's and the tiny preset's (page 16,
+   its own served request), on float32 pools from a seed, the prefill
+   bound at 3xTF32 (three TF32 products an operation, 494.7 TF/s) with
+   the FFMA bound (67 TF/s) beside it. Bounds count the work of this
+   run's inputs (ops.paged_attention.decode_work and prefill_work);
 6. hold the tensor-parallel wrappers (paged_attention_decode_sharded, its
    window form, paged_attention_prefill_sharded) against the plain
    versions at the heads one rank holds of the 8B widths at tp 2, 4 and
@@ -138,7 +148,19 @@ Phases; any failure exits non-zero before the result line:
    by replay against eager calls) and its logits held within rel_l2
    INT8_REL_L2 of the bf16 engine's on the same seed-0 weights; then the
    launcher's defaults with ``--dtype int8`` (the float32 tiny preset)
-   answer one completion, every product on the simt route.
+   answer one completion, every product on the simt route and every
+   attention call on the float32 routes.
+11. (run last, once the 8B engines have left the card) a float32 engine
+   of Llama-3.2-1B's widths (16 layers, D 2048, I 8192, H 32 on 8 kv
+   heads of head_dim 64, V 128256, ~6 GB of seed-0 random weights with
+   an untied head; the default EngineConfig): warmed, phase 4's requests
+   served over HTTP and checked as phase 4 checks them (no capture after
+   warmup; decode launches on the float32 route equal to the window
+   replays x 16 layers x K, prefill launches on the float32 route to the
+   chunk replays x 16); then its kernel path against its plain path
+   teacher-forced at F32_PATH_LIMITS, with the same two fault controls,
+   beside the plain path's own float32 noise (every weight moved one
+   ulp). Its launches fill the float32 rows of the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -165,8 +187,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores
 H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
+H100_TF32_FLOPS = 494.7e12     # dense TF32 tensor cores
 # the decode kernels of each route (ops.paged_attention.decode_route)
 DECODE_KERNELS = {"bf16_mma": "paged_decode_bf16_kernel",
+                  "f32": "paged_decode_f32_kernel",
                   "generic": "paged_decode_kernel + paged_decode_combine"}
 # phase 5's decode shapes: max abs error over the plain output's rms. The
 # bf16 tolerance alone is as large as the outputs of rows of thousands of
@@ -267,6 +291,16 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max().item()) if a.numel() else 0.0
 
 
+def tolerance(dtype) -> tuple:
+    """(atol, rtol) of a kernel against its plain version: float32 atol
+    1e-5 (the same math, another summation order; 3xTF32 products within
+    ~1e-6 of float32 ones); bfloat16 atol 2e-2 + rtol 1e-2 (one or two
+    bf16 roundings of the output at any magnitude)."""
+    import torch
+
+    return (1e-5, 0.0) if dtype == torch.float32 else (2e-2, 1e-2)
+
+
 def excess(got, want, atol: float, rtol: float) -> float:
     """Largest amount by which |got - want| passes atol + rtol * |want|
     (<= 0 when every element is within tolerance)."""
@@ -282,10 +316,12 @@ def excess(got, want, atol: float, rtol: float) -> float:
 def check_decode(dev) -> dict:
     import torch
 
+    from dynamo_tpu_torch.ops import paged_attention as ops
     from dynamo_tpu_torch.ops.paged_attention import (
         decode_reference, paged_attention_decode_layered)
 
     errs = {}
+    routes = set()  # (dtype, route) of the calls
     g = torch.Generator(device=dev).manual_seed(0)
     cases = [
         # (name, L, N, KV, G, ps, hd, P, lengths, lower, softcap)
@@ -299,6 +335,10 @@ def check_decode(dev) -> dict:
         # enough rows x kv heads to fill the card: no page split
         ("8b-b40", 1, 64, 8, 4, 64, 128, 4, [(7 * i) % 257 for i in range(40)],
          [max(0, (7 * i) % 257 - 100) for i in range(40)], None),
+        # head_dim 96, page 4: outside the float32 and the bf16 kernels'
+        # sets, on the generic kernel and its combine step in both dtypes
+        ("generic", 2, 32, 2, 3, 4, 96, 8, [0, 5, 17, 32], [0, 0, 3, 20],
+         20.0),
     ]
     # float32: atol 1e-5 (same math, another summation order); bfloat16:
     # atol 2e-2 + rtol 1e-2, i.e. one or two bf16 roundings of the output
@@ -314,12 +354,19 @@ def check_decode(dev) -> dict:
                                   dtype=torch.int32)
             ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
             lo = torch.tensor(lower, dtype=torch.int32, device=dev)
+            route = ops.DECODE_ROUTES[ops.decode_route(dtype, H, KV, ps,
+                                                       hd)]
             for layer in range(L):
                 for stats in (True, False):
+                    before = dict(ops.DECODE_ROUTE_LAUNCHES)
                     got = paged_attention_decode_layered(
                         q, kp, vp, layer, table, ln, return_stats=stats,
                         softcap=softcap, lower=lo)
                     torch.cuda.synchronize()
+                    if ops.DECODE_ROUTE_LAUNCHES[route] != before[route] + 1:
+                        fail(f"decode {name} {dtype}: not on the {route} "
+                             f"route")
+                    routes.add((dtype, route))
                     want = decode_reference(q, kp, vp, layer, table, ln, lo,
                                             hd ** -0.5, softcap)
                     got = got if stats else (got,)
@@ -342,33 +389,56 @@ def check_decode(dev) -> dict:
                         fail(f"decode {name}: length-0 rows not zero")
                     key = (name, str(dtype).split(".")[-1])
                     errs[key] = max(errs.get(key, 0.0), e)
+    need_routes(routes, "decode", [
+        (torch.float32, "f32"), (torch.float32, "generic"),
+        (torch.bfloat16, "bf16_mma"), (torch.bfloat16, "generic")])
     for (name, dt), e in sorted(errs.items()):
         log(f"  decode {name:10s} {dt:8s} max_abs_err {e:.3g}")
     return errs
 
 
+def need_routes(routes: set, what: str, required) -> None:
+    """Fail unless a check's calls (``routes``: the (dtype, route) each
+    call took, by the launch counts) took every (dtype, route) of
+    ``required``, so that each kernel of a route was held to its plain
+    version."""
+    for dtype, route in required:
+        if (dtype, route) not in routes:
+            fail(f"{what}: no {dtype} call on the {route} route")
+
+
 def check_window(dev) -> dict:
-    """The fused-window form of the decode kernel (pool + in-flight buffer
-    folded by the combine step) against its plain version."""
+    """The fused-window form of the decode kernel (pool + in-flight buffer,
+    folded in the float32 and bf16 kernels, by the combine step on the
+    generic route) against its plain version."""
     import torch
 
+    from dynamo_tpu_torch.ops import paged_attention as ops
     from dynamo_tpu_torch.ops.paged_attention import (
         paged_attention_decode_window, window_reference)
 
     errs = {}
+    routes = set()  # (dtype, route) of the calls
     g = torch.Generator(device=dev).manual_seed(2)
-    L, N, KV, G, ps, hd, Kw = 2, 700, 8, 4, 64, 128, 4
-    H = KV * G
-    layouts = (
-        # rows of 0 to 12 pages, a padding row
-        ("mixed", 12, [-1, 0, 64, 300, 511, 700]),
-        # the served decode shapes: the batch bucket of 4 rows, the page
-        # bucket of 64 (so most of the flash-decoding splits are empty),
-        # the served contexts of 40 to 656 positions
-        ("served", 64, [40, 64, 86, 656]),
+    L, Kw = 2, 4
+    pools = (
+        # (N, KV, G, ps, hd, layouts): the 8B's heads
+        (700, 8, 4, 64, 128, (
+            # rows of 0 to 12 pages, a padding row
+            ("mixed", 12, [-1, 0, 64, 300, 511, 700]),
+            # the served decode shapes: the batch bucket of 4 rows, the
+            # page bucket of 64 (so most of the flash-decoding splits are
+            # empty), the served contexts of 40 to 656 positions
+            ("served", 64, [40, 64, 86, 656]))),
+        # head_dim 96, page 4: outside the float32 and the bf16 kernels'
+        # sets, on the generic kernel and its combine step
+        (64, 2, 3, 4, 96, (("generic", 8, [-1, 0, 5, 17, 30]),)),
     )
-    for dtype, tol, rtol in ((torch.float32, 1e-5, 0.0),
-                             (torch.bfloat16, 2e-2, 1e-2)):
+    for (dtype, tol, rtol), (N, KV, G, ps, hd, layouts) in (
+            (d, p) for d in ((torch.float32, 1e-5, 0.0),
+                             (torch.bfloat16, 2e-2, 1e-2)) for p in pools):
+        H = KV * G
+        route = ops.DECODE_ROUTES[ops.decode_route(dtype, H, KV, ps, hd)]
         kp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
         vp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
         for lay, P, starts in layouts:
@@ -389,10 +459,15 @@ def check_window(dev) -> dict:
                            torch.full((B,), win, dtype=torch.int32,
                                       device=dev))
                     for layer in range(L):
+                        before = ops.DECODE_ROUTE_LAUNCHES[route]
                         got = paged_attention_decode_window(
                             q, kp, vp, layer, table, start, qp, wk, wv,
                             n_win, softcap=softcap, eff_win=eff)
                         torch.cuda.synchronize()
+                        if ops.DECODE_ROUTE_LAUNCHES[route] != before + 1:
+                            fail(f"decode window {lay} {dtype}: not on the "
+                                 f"{route} route")
+                        routes.add((dtype, route))
                         want = window_reference(q, kp, vp, layer, table,
                                                 start, qp, wk, wv, n_win,
                                                 hd ** -0.5, softcap, eff)
@@ -405,6 +480,9 @@ def check_window(dev) -> dict:
                             fail("decode window: padding row not zero")
                         key = (f"{lay}-{name}", str(dtype).split(".")[-1])
                         errs[key] = max(errs.get(key, 0.0), e)
+    need_routes(routes, "decode window", [
+        (torch.float32, "f32"), (torch.float32, "generic"),
+        (torch.bfloat16, "bf16_mma"), (torch.bfloat16, "generic")])
     for (name, dt), e in sorted(errs.items()):
         log(f"  window {name:15s} {dt:8s} max_abs_err {e:.3g}")
     return errs
@@ -413,11 +491,13 @@ def check_window(dev) -> dict:
 def check_prefill(dev) -> dict:
     import torch
 
+    from dynamo_tpu_torch.ops import paged_attention as ops
     from dynamo_tpu_torch.ops.paged_attention import (NO_WINDOW,
                                                       paged_attention_prefill,
                                                       prefill_reference)
 
     errs = {}
+    routes = set()  # (dtype, route) of the calls
     g = torch.Generator(device=dev).manual_seed(1)
     # tolerances as in check_decode; the bf16 tensor-core form also rounds
     # the probabilities to bf16 before P V, as the gather path does
@@ -465,9 +545,15 @@ def check_prefill(dev) -> dict:
                                                  device=dev)[:used] + 1
             qp = pos.to(dev)
             w = torch.tensor(win, dtype=torch.int32, device=dev)
+            route = ops.PREFILL_ROUTES[ops.prefill_route(dtype, H, KV, ps,
+                                                         hd)]
+            before = ops.PREFILL_ROUTE_LAUNCHES[route]
             got = paged_attention_prefill(q, kp, vp, table, qp,
                                           softcap=softcap, eff_win=w)
             torch.cuda.synchronize()
+            if ops.PREFILL_ROUTE_LAUNCHES[route] != before + 1:
+                fail(f"prefill {name} {dtype}: not on the {route} route")
+            routes.add((dtype, route))
             want = prefill_reference(q, kp, vp, table, qp, hd ** -0.5,
                                      softcap, w)
             e = max_err(got, want)
@@ -477,6 +563,9 @@ def check_prefill(dev) -> dict:
             if (qp < 0).any() and got[qp < 0].abs().max().item() != 0.0:
                 fail(f"prefill {name}: padding queries not zero")
             errs[(name, str(dtype).split(".")[-1])] = e
+    need_routes(routes, "prefill", [
+        (torch.float32, "f32"), (torch.float32, "generic"),
+        (torch.bfloat16, "bf16")])
     for (name, dt), e in sorted(errs.items()):
         log(f"  prefill {name:10s} {dt:8s} max_abs_err {e:.3g}")
     return errs
@@ -575,6 +664,23 @@ class StageClock:
 def _ttft_hist(engine) -> tuple:
     h = engine.stats()["latency_hist"].get("unified", {}).get("ttft", {})
     return h.get("count", 0), h.get("sum", 0.0)
+
+
+def only(routes, route: str, n: int) -> dict:
+    """Launch counts by route with all ``n`` on ``route``."""
+    return {r: n if r == route else 0 for r in routes}
+
+
+def served_routes(engine) -> tuple:
+    """The decode and prefill routes an engine's attention shape takes
+    (ops.paged_attention.decode_route, prefill_route), by name."""
+    from dynamo_tpu_torch.ops import paged_attention as ops
+
+    c = engine.cfg
+    shape = (c.torch_dtype, c.num_heads, c.num_kv_heads,
+             engine.ecfg.page_size, c.head_dim_)
+    return (ops.DECODE_ROUTES[ops.decode_route(*shape)],
+            ops.PREFILL_ROUTES[ops.prefill_route(*shape)])
 
 
 async def serve_and_check(engine, mdc):
@@ -683,6 +789,7 @@ async def serve_and_check(engine, mdc):
     solo = await solo_logprobs(base, mdc.name, "solo")
     launches = dict(ops.LAUNCHES)
     route_launches = dict(ops.DECODE_ROUTE_LAUNCHES)
+    prefill_routes = dict(ops.PREFILL_ROUTE_LAUNCHES)
     int8_launches = dict(int8_gemm.INT8_GEMM_LAUNCHES)
     replayed = engine.graph_replays()
     replays = (replayed["prefill"] - replays0["prefill"],
@@ -720,10 +827,15 @@ async def serve_and_check(engine, mdc):
             or launches["paged_attention_decode"] != replays[1] * L * K):
         fail(f"launches {launches} are not the graph replays' ({replays[0]} "
              f"prefill chunks x {L}, {replays[1]} windows x {L * K})")
-    # bf16 Llama-3-8B widths: every decode call takes the bf16 kernel
-    if route_launches != {"bf16_mma": launches["paged_attention_decode"],
-                          "generic": 0}:
+    # every call takes the route its shape names (bf16 Llama-3-8B widths:
+    # the bf16 kernels; float32 at the 1b widths: the float32 kernels)
+    want_dec, want_pf = served_routes(engine)
+    if route_launches != only(ops.DECODE_ROUTES, want_dec,
+                              launches["paged_attention_decode"]):
         fail(f"decode calls by route on the served path: {route_launches}")
+    if prefill_routes != only(ops.PREFILL_ROUTES, want_pf,
+                              launches["paged_attention_prefill"]):
+        fail(f"prefill calls by route on the served path: {prefill_routes}")
     # int8 weights: every projection of every replayed chunk and window
     # step through the int8 GEMM (7 a layer, and the head); none in bf16
     per_pass = (7 * L + 1) if engine.quant == "int8" else 0
@@ -774,6 +886,7 @@ async def serve_and_check(engine, mdc):
         "output_tok_per_s": round(n_tok / wall, 3),
         "wall_s": round(wall, 3), "launches": launches,
         "route_launches": route_launches,
+        "prefill_route_launches": prefill_routes,
         "int8_gemm_launches": int8_launches,
         "replays": {"prefill": replays[0], "decode_window": replays[1]},
         "post_warmup_compiles_total": compiles,
@@ -1022,7 +1135,7 @@ def path_run(params, cfg, dev, use: bool, mesh=None):
     return logits.float(), torch.stack(step_logits), kv
 
 
-def check_paths(engine, cfg, dev) -> tuple:
+def check_paths(engine, cfg, dev, limits=None) -> tuple:
     """Prefill and one fused decode window of the served 8B model, kernel
     path against plain path (:func:`path_run`): same weights, same
     inputs, fresh pools. The window is teacher-forced, so every step's
@@ -1033,12 +1146,15 @@ def check_paths(engine, cfg, dev) -> tuple:
     window step that folds one in-flight key too few; with int8 weights
     (whose plain path multiplies through the int8 GEMM's plain version)
     instead every int8 GEMM call leaving out the last 16 of its K. Each
-    control must land above its limit. Returns the report and the kernel path's
-    (prefill logits, step logits) on the host: the tp=1 reference of the
+    control must land above its limit. ``limits``: PATH_LIMITS (bf16)
+    unless given. Returns the report and the kernel path's (prefill
+    logits, step logits) on the host: the tp=1 reference of the
     tensor-parallel phase."""
     import torch
 
     from dynamo_tpu_torch.models import llama, quant
+
+    limits = limits or PATH_LIMITS
 
     def run(use: bool):
         return path_run(engine.params if use else plain_params(engine.params),
@@ -1100,8 +1216,8 @@ def check_paths(engine, cfg, dev) -> tuple:
     log(f"  kernel vs plain path: {json.dumps(sound)}")
     log(f"  control faults vs plain path: {json.dumps(control)}")
     log(f"  magnitudes: {json.dumps(scale)}; limits "
-        f"{json.dumps(PATH_LIMITS)}")
-    for key, limit in PATH_LIMITS.items():
+        f"{json.dumps(limits)}")
+    for key, limit in limits.items():
         if sound[key] > limit:
             fail(f"kernel path differs from plain path: {key} "
                  f"{sound[key]:.4g} > {limit}")
@@ -1117,11 +1233,11 @@ def check_paths(engine, cfg, dev) -> tuple:
                   ("window_logits", max(cw["window_logits_by_step"][1:])),
                   ("window_kv", cw["window_kv"])]
     for key, got in checks:
-        if got <= PATH_LIMITS[key]:
+        if got <= limits[key]:
             fail(f"control fault stays within the {key} limit "
-                 f"({got:.4g} <= {PATH_LIMITS[key]}): the check is blind")
+                 f"({got:.4g} <= {limits[key]}): the check is blind")
     return ({"sound": sound, "control": control, "magnitudes": scale,
-             "limits": PATH_LIMITS}, (kern[0].cpu(), kern[1].cpu()))
+             "limits": limits}, (kern[0].cpu(), kern[1].cpu()))
 
 
 def check_graph_window(engine, cfg, dev, topn: int = 0,
@@ -1355,7 +1471,8 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
     the splits per (row, kv head) that the launch plan picks and, on the
     bf16 route (one cluster of those splits), each row's live splits.
     ``peak_flops``: the rate of the operands' type the bound counts
-    (float32 pools: H100_F32_FLOPS)."""
+    (float32 pools: H100_F32_FLOPS, the float32 kernel's FFMA). float32
+    pools are held to atol 1e-5 in place of the bf16 tolerance."""
     import torch
     import torch.nn.functional as F
 
@@ -1383,7 +1500,7 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
                                         wv, K, scale)
     err = max_err(got, want)
     limit = DECODE_REL_RMS * float(want.float().pow(2).mean().sqrt())
-    if excess(got, want, 2e-2, 1e-2) > 0 or err > limit:
+    if excess(got, want, *tolerance(kp.dtype)) > 0 or err > limit:
         fail(f"decode window at {len(ctx)} rows of {max(ctx)} positions: "
              f"max abs err {err:.3g} (limit {limit:.3g})")
     # control: the first 16 pool keys of every row out of view
@@ -1416,8 +1533,9 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
     return {
         "max_abs_err": err, "err_limit": limit, "control_err": control,
         "decode_route": DECODE_ROUTES[route], "splits": splits,
-        "live_splits": (live_splits(ctx, ps, splits)
-                        if DECODE_ROUTES[route] == "bf16_mma" else None),
+        "live_splits": (live_splits(ctx, ps, splits,
+                                    DECODE_ROUTES[route] == "f32")
+                        if DECODE_ROUTES[route] != "generic" else None),
         "ms": t_k, "plain_ms": t_p,
         "bound_ms": max(bytes_ / H100_BYTES_PER_S,
                         flops / peak_flops) * 1e3,
@@ -1431,13 +1549,14 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
     }
 
 
-def live_splits(ctx, ps: int, S: int) -> list:
+def live_splits(ctx, ps: int, S: int, f32: bool = False) -> list:
     """The splits of a cluster of ``S`` that read pages, per row of pool
-    contexts ``ctx``, by the bf16 decode kernel's cut (``db_min_pages`` in
+    contexts ``ctx``, by the bf16 and float32 decode kernels' cut
+    (``db_min_pages`` and ``DecodeF32Tile::RING_KEYS`` in
     dynamo_tpu_torch/ops/csrc/paged_attention.cu): a row of n pages takes
-    min(S, ceil(n / max(192 // ps, 1))) splits, one ring of keys each at
-    least."""
-    least = max(192 // ps, 1)
+    min(S, ceil(n / max(ring // ps, 1))) splits, one ring of keys each at
+    least (192 keys; 96 on the float32 route)."""
+    least = max((96 if f32 else 192) // ps, 1)
     return [min(S, -(-(-(-n // ps)) // least)) for n in ctx]
 
 
@@ -1446,10 +1565,13 @@ def time_prefill(k0, v0, ecfg, start: int, n: int, H: int, g,
     """Kernel, plain version and SDPA on one prompt chunk of n tokens at
     positions start .. start + n - 1 (the row's earlier pages in the
     pool ``k0``/``v0`` [N, KV, ps, hd]), in the served bucket shapes; the
-    kernel is held to its plain version (bf16 tolerance, as in
-    check_prefill). With ``mesh``, through the tensor-parallel wrapper on
-    the rank's heads (the pool holds the rank's kv heads). ``peak_flops``
-    as in :func:`time_decode`."""
+    kernel is held to its plain version (the tolerance of its dtype, as
+    in check_prefill). With ``mesh``, through the tensor-parallel wrapper
+    on the rank's heads (the pool holds the rank's kv heads).
+    ``peak_flops``: the rate the bound counts the operations at (the
+    float32 kernel's 3xTF32 does three TF32 products for each: a third of
+    H100_TF32_FLOPS). A float32 row also carries ``bound_ffma_ms``, the
+    bound at H100_F32_FLOPS."""
     import torch
     import torch.nn.functional as F
 
@@ -1484,9 +1606,9 @@ def time_prefill(k0, v0, ecfg, start: int, n: int, H: int, g,
     got, want = pf(), prefill_reference(qf, k0, v0, table, pos, scale,
                                         None, win)
     err = max_err(got, want)
-    if excess(got, want, 2e-2, 1e-2) > 0:
+    if excess(got, want, *tolerance(k0.dtype)) > 0:
         fail(f"prefill at positions {start}..{start + n - 1} (H={H}, "
-             f"KV={KV}): max abs err {err:.3g}")
+             f"KV={KV}, hd={hd}, {k0.dtype}): max abs err {err:.3g}")
     S = P * ps
     kd = k0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
     vd = v0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
@@ -1500,14 +1622,17 @@ def time_prefill(k0, v0, ecfg, start: int, n: int, H: int, g,
     bytes_ = (2 * keys * KV * hd * el + 2 * queries * H * hd * el
               + table.numel() * 4 + pos.numel() * 4)
     flops = 4 * pairs * H * hd
+    extra = {}
+    if k0.dtype == torch.float32:
+        extra["bound_ffma_ms"] = max(bytes_ / H100_BYTES_PER_S,
+                                     flops / H100_F32_FLOPS) * 1e3
     return {
         "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-
         "bound_ms": max(bytes_ / H100_BYTES_PER_S,
                         flops / peak_flops) * 1e3,
         "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
                      >= flops / peak_flops else "operations"),
-        "library_ms": t_lib, "eager_ms": t_eager,
+        **extra, "library_ms": t_lib, "eager_ms": t_eager,
         "work": {"queries": queries, "pairs": pairs, "kv_positions": keys,
                  "bytes": bytes_, "flops": flops},
         "shape": {"B": B, "T": T, "start": start, "valid": n, "H": H,
@@ -1571,29 +1696,58 @@ def time_kernels(engine, cfg, dev, served) -> list:
         **first, "deep_chunk": deep,
     })
 
-    # the float32 routes (the tiny preset serves float32; their launches
-    # are the tiny preset's, filled in by phase 10) at the served window's
-    # and first chunk's shapes, on a float32 copy of layer 0 of the pool
-    kp32, vp32 = kp[:1].float(), vp[:1].float()
-    dec32 = time_decode(kp32, vp32, ctx, ecfg.bucket_batch(len(ctx)),
-                        ecfg.bucket_pages(max(-(-n // ps) for n in ctx)),
-                        K, H, g, peak_flops=H100_F32_FLOPS)
-    pf32 = time_prefill(kp32[0], vp32[0], ecfg, 0, served["prefill_chunk"],
-                        H, g, peak_flops=H100_F32_FLOPS)
-    del kp32, vp32
-    torch.cuda.empty_cache()
+    # the float32 routes at the heads of the presets served in float32,
+    # on float32 pools from a seed: the 1b's (phase 11 serves it, and its
+    # launches fill the rows), the 8B's, and the tiny preset's (phase 10
+    # serves it, with its own engine config: page 16)
+    dec32, pf32 = {}, {}
+    for name, (H32, KV32, hd32, ec, ctx32, chunk32) in f32_shapes(
+            ecfg, ctx, served["prefill_chunk"]).items():
+        N32 = ec.num_pages
+        k32 = torch.randn(1, N32, KV32, ec.page_size, hd32, generator=g,
+                          device=dev)
+        v32 = torch.randn(1, N32, KV32, ec.page_size, hd32, generator=g,
+                          device=dev)
+        dec32[name] = time_decode(
+            k32, v32, ctx32, ec.bucket_batch(len(ctx32)),
+            ec.bucket_pages(max(-(-n // ec.page_size) for n in ctx32)),
+            ec.decode_steps, H32, g, peak_flops=H100_F32_FLOPS)
+        pf32[name] = time_prefill(k32[0], v32[0], ec, 0, chunk32, H32, g,
+                                  peak_flops=H100_TF32_FLOPS / 3)
+        del k32, v32
+        torch.cuda.empty_cache()
     for name, line, src, kernel, times in (
             ("paged_attention_decode float32", 52, "paged_attention.cu",
-             DECODE_KERNELS["generic"], dec32),
+             DECODE_KERNELS["f32"], dec32),
             ("paged_attention_prefill float32", 336, "paged_prefill.cu",
-             "paged_prefill_kernel<float>", pf32)):
+             "paged_prefill_f32_kernel (3xTF32)", pf32)):
         rows.append({
             "name": name, "route": "cuda",
             "source": f"dynamo_tpu_torch/ops/csrc/{src}",
             "replaces": f"dynamo_tpu/ops/paged_attention.py:{line}",
-            "kernel": kernel, "launches": 0, **times,
-            "launches_from": "the tiny preset served in float32 (phase 10)"})
+            "kernel": kernel, "launches": 0, **times["1b"],
+            "shapes": {k: v for k, v in times.items() if k != "1b"},
+            "launches_from": "the 1b preset served in float32 (phase 11)"})
     return rows
+
+
+# the tiny preset's served request (phase 10: one completion of a
+# 16-token prompt and 12 tokens): its window's context and first chunk
+TINY_SERVED_CTX, TINY_SERVED_CHUNK = [28], 16
+
+
+def f32_shapes(ecfg, ctx, chunk) -> dict:
+    """Phase 5's float32 shapes: name -> (H, KV, head_dim, engine config,
+    window contexts, first chunk): the 1b's and the 8B's heads at the
+    served window (phase 4's contexts) and first chunk, the tiny preset's
+    at its own served request."""
+    from dynamo_tpu_torch.run import build_engine_config, parse_args
+
+    tiny_ecfg = build_engine_config(parse_args(["in=http", "out=torch"]))
+    return {"1b": (32, 8, 64, ecfg, ctx, chunk),
+            "8b": (32, 8, 128, ecfg, ctx, chunk),
+            "tiny": (4, 2, 16, tiny_ecfg, TINY_SERVED_CTX,
+                     TINY_SERVED_CHUNK)}
 
 
 def log_kernel_row(r: dict) -> None:
@@ -1603,6 +1757,8 @@ def log_kernel_row(r: dict) -> None:
         f"{r['library_ms']:.4f} ms); launches {r['launches']}"
         + (f" ({r['launches_per_token']:.1f}/token)"
            if "launches_per_token" in r else "")
+        + (f"; FFMA bound {r['bound_ffma_ms']:.4f} ms"
+           if "bound_ffma_ms" in r else "")
         + f"; max abs err {r['max_abs_err']:.4g}" + (
             f" (limit {r['err_limit']:.4g}, control {r['control_err']:.4g})"
             if "err_limit" in r else "") + f"; shape {r['shape']}")
@@ -2086,6 +2242,15 @@ def serve_tiny_int8(out_dir: str) -> dict:
              f"{want} on the simt route alone ({pf} chunk replays, {win} "
              f"windows x {K} steps x {7 * L + 1}), or a capture after "
              f"warmup: {json.dumps(summary)}")
+    # the tiny preset's attention (head_dim 16, page 16, group 2) on the
+    # float32 routes
+    lc = summary["launches"]
+    if (summary["route_launches"]["f32"] != lc["paged_attention_decode"]
+            or summary["prefill_route_launches"]["f32"]
+            != lc["paged_attention_prefill"]
+            or lc["paged_attention_decode"] != win * L * K):
+        fail(f"tiny int8 serving summary: attention calls not all on the "
+             f"float32 routes: {json.dumps(summary)}")
     report["summary"] = summary
     log(f"  tiny preset served with --dtype int8 (float32, simt route): "
         f"{json.dumps(report)}")
@@ -2212,8 +2377,8 @@ def check_local_shapes(dev) -> dict:
     on every rank): the decode kernel in the layered form with stats and
     in the window form, and the prefill kernel (a first chunk of 512 and a
     second chunk), against their plain versions under the limits of
-    phases 2 and 3, in float32 and bfloat16. The bf16 decode calls must
-    take the bf16 kernel. Few kv heads mean few (row, kv head) pairs, so
+    phases 2 and 3, in float32 and bfloat16. Every call must take the
+    bf16 or the float32 route. Few kv heads mean few (row, kv head) pairs, so
     the split plan gives whole clusters of 8 splits here."""
     import torch
 
@@ -2280,8 +2445,8 @@ def check_local_shapes(dev) -> dict:
                 e = max(e, max_err(out, ref))
             routes = dict(ops.DECODE_ROUTE_LAUNCHES)
             if (ops.LAUNCHES["paged_attention_decode"] != calls
-                    or (dtype == torch.bfloat16
-                        and routes["bf16_mma"] != calls)):
+                    or routes[("bf16_mma" if dtype == torch.bfloat16
+                               else "f32")] != calls):
                 fail(f"sharded decode tp={tp} {dt}: {calls} calls, counts "
                      f"{ops.LAUNCHES}, routes {routes}")
             errs[(f"decode-tp{tp}", dt)] = e
@@ -2302,8 +2467,10 @@ def check_local_shapes(dev) -> dict:
             if excess(out, ref, tol, rtol) > 0:
                 fail(f"sharded prefill tp={tp} {dt}: max abs err "
                      f"{max_err(out, ref):.3g}")
-            if ops.LAUNCHES["paged_attention_prefill"] != 1:
-                fail(f"sharded prefill tp={tp} {dt}: counts {ops.LAUNCHES}")
+            if ops.PREFILL_ROUTE_LAUNCHES[("bf16" if dtype == torch.bfloat16
+                                           else "f32")] != 1:
+                fail(f"sharded prefill tp={tp} {dt}: counts {ops.LAUNCHES}"
+                     f", routes {ops.PREFILL_ROUTE_LAUNCHES}")
             errs[(f"prefill-tp{tp}", dt)] = max_err(out, ref)
     for (name, dt), e in sorted(errs.items()):
         log(f"  {name:12s} {dt:8s} max_abs_err {e:.3g}")
@@ -2719,13 +2886,14 @@ def serve_launcher(cfg, out_dir: str, model_args: list, name: str,
     rank 0, which stops the others. Each rank's serving summary must
     show no capture after warmup, its mesh, every kernel call from a
     graph replay (prefill: one per layer of a replayed chunk; decode:
-    one per layer and step of a replayed window), all decode calls on the
-    bf16 route (with a mesh the model calls the kernels only through the
-    sharded wrappers), and the same counts on every rank. Each rank's
+    one per layer and step of a replayed window), all attention calls on
+    the bf16 routes (with a mesh the model calls the kernels only through
+    the sharded wrappers), and the same counts on every rank. Each rank's
     ``checkpoint loaded`` line, when it prints one, is kept."""
     import urllib.request
 
     from dynamo_tpu_torch.engine.torch_engine import EngineConfig
+    from dynamo_tpu_torch.ops import paged_attention as ops
 
     port = _free_port()
     base = [sys.executable, "-m", "dynamo_tpu_torch.run", "in=http",
@@ -2803,9 +2971,12 @@ def serve_launcher(cfg, out_dir: str, model_args: list, name: str,
         if (lc["paged_attention_prefill"] != pf * L
                 or lc["paged_attention_decode"] != win * L * K):
             problems.append("launches are not the replays'")
-        if s["route_launches"] != {"bf16_mma": lc["paged_attention_decode"],
-                                   "generic": 0}:
+        if s["route_launches"] != only(ops.DECODE_ROUTES, "bf16_mma",
+                                       lc["paged_attention_decode"]):
             problems.append(f"decode routes {s['route_launches']}")
+        if s["prefill_route_launches"] != only(
+                ops.PREFILL_ROUTES, "bf16", lc["paged_attention_prefill"]):
+            problems.append(f"prefill routes {s['prefill_route_launches']}")
         if problems:
             fail(f"tp rank {r}: {problems}: {json.dumps(s)}")
     first = {k: v for k, v in summaries[0].items() if k != "rank"}
@@ -3264,6 +3435,82 @@ def penalty_phase(cfg, dev, params) -> dict:
     return report
 
 
+# ------------------------------------------------------------ float32
+
+# Limits of phase 11's teacher-forced check (check_paths on the float32 1b
+# engine), set from the plain path's float32 noise: that path against
+# itself with every weight moved by at most one float32 ulp (f32_noise,
+# printed by the phase) read 1.17e-5 (prefill logits), 0.96e-5 (window
+# logits) and 0.79e-5 (K/V) on an H100 80GB HBM3 at 700 W (PERF.md,
+# Findings); 2e-4 is about 20x that noise. The sound kernel path read
+# 1.05e-5, 0.80e-5 and 0.58e-5 there, and the weakest control faults
+# 0.87 (window steps 1-3), 1.42 (K/V) and 5.0 (prefill).
+F32_PATH_LIMITS = {"prefill_logits": 2e-4, "window_logits": 2e-4,
+                   "window_kv": 2e-4}
+
+
+def f32_noise(engine, cfg, dev) -> dict:
+    """The plain path's float32 noise on check_paths' inputs: its logits
+    and K/V against the same path with every float32 weight multiplied by
+    1 + 2^-23 (moved by at most one ulp, by rounding), max abs."""
+    import torch
+
+    base = path_run(plain_params(engine.params), cfg, dev, False)
+    moved = {k: v * (1 + 2 ** -23) if v.dtype == torch.float32 else v
+             for k, v in plain_params(engine.params).items()}
+    other = path_run(moved, cfg, dev, False)
+    del moved
+    return {"prefill_logits": max_err(base[0], other[0]),
+            "window_logits": max_err(base[1], other[1]),
+            "window_kv": max_err(base[2], other[2])}
+
+
+def f32_phase(dev) -> dict:
+    """Phase 11: a TorchEngine of Llama-3.2-1B's widths in float32 (16
+    layers, D 2048, I 8192, H 32 on KV 8, head_dim 64, V 128256, an
+    untied head; seed-0 random weights, the default EngineConfig) warmed
+    (every bucket of both grids captured), phase 4's requests served over
+    HTTP (serve_and_check: no capture after warmup, every attention call
+    from a graph replay on the float32 routes: decode launches the window
+    replays x 16 layers x K, prefill launches the chunk replays x 16),
+    then the kernel path against the plain path teacher-forced
+    (check_paths at F32_PATH_LIMITS, with its two fault controls) beside
+    the plain path's own float32 noise (f32_noise)."""
+    import dataclasses
+
+    import torch
+
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    cfg = dataclasses.replace(ModelConfig.llama_1b(), dtype="float32")
+    t = time.monotonic()
+    engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda")
+    engine.warmup()
+    topn = engine.ecfg.max_top_logprobs
+    check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
+    log(f"  1b float32 engine (16 layers, D=2048, V=128256, seed 0) built "
+        f"and warmed up in {time.monotonic() - t:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    mdc = ModelDeploymentCard(name="llama-1b-f32-random")
+    mdc.kv_block_size = engine.ecfg.page_size
+    t = time.monotonic()
+    served, _, _ = asyncio.run(serve_and_check(engine, mdc))
+    log(f"  served float32 in {time.monotonic() - t:.1f}s: "
+        f"{json.dumps(served)}")
+    t = time.monotonic()
+    noise = f32_noise(engine, cfg, dev)
+    log(f"  the plain path's float32 noise (weights moved one ulp): "
+        f"{json.dumps(noise)}")
+    paths, _ = check_paths(engine, cfg, dev, F32_PATH_LIMITS)
+    log(f"  teacher-forced check in {time.monotonic() - t:.1f}s")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"served": served, "noise": noise, "paths": paths}
+
+
 # --------------------------------------------------------------- main
 
 
@@ -3375,16 +3622,6 @@ def main() -> None:
         "served with --dtype int8")
     int8_report, int8_rows, int8_logits = int8_phase(cfg, dev, tp1_logits)
     rows += [r for r in int8_rows if r["M"] in INT8_LINE_ROWS]
-    # the float32 attention routes served the tiny preset
-    tiny = int8_report["tiny"]["summary"]
-    for r in rows:
-        if "launches_from" in r:
-            r["launches"] = (tiny["route_launches"]["generic"]
-                             if "decode" in r["name"]
-                             else tiny["launches"]["paged_attention_prefill"])
-            if r["launches"] <= 0:
-                fail(f"{r['name']}: not launched by the tiny preset served "
-                     f"in float32: {json.dumps(tiny)}")
 
     log(f"phase 7: tensor-parallel serving, {TP_RANKS} ranks of the "
         f"launcher on the one card")
@@ -3408,6 +3645,21 @@ def main() -> None:
         del loaded
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 11: a float32 Llama-3.2-1B-shaped engine served over HTTP "
+        "on the float32 attention routes")
+    f32_report = f32_phase(dev)
+    # the float32 attention rows take their launches from phase 11
+    for r in rows:
+        if "launches_from" in r:
+            r["launches"] = f32_report["served"][
+                "route_launches" if "decode" in r["name"]
+                else "prefill_route_launches"]["f32"]
+            if r["launches"] <= 0:
+                fail(f"{r['name']}: not launched by the float32 1b engine: "
+                     f"{json.dumps(f32_report['served'])}")
     # the served tp=2 phase's rank 0 (rank 1 is checked equal): with a
     # mesh every kernel call goes through a sharded wrapper
     rank0 = tp_served["summaries"][0]["launches"]
@@ -3443,6 +3695,7 @@ def main() -> None:
                        "graph_prefill_logprobs": graph_prefill_lp,
                        "logprobs": logprobs_check,
                        "checkpoint": checkpoint, "penalties": penalties,
+                       "f32_1b": f32_report,
                        "kernels": rows, "int8": int8_report,
                        "int8_gemm_timings": int8_rows,
                        "tp_local_errs": {" ".join(k): v for k, v in

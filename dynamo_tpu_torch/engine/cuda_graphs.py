@@ -51,8 +51,9 @@ plain decode set's). Rules the caller keeps (the engine does):
 
 A capture or replay error raises: there is no eager fallback on the card.
 Kernel launch counts (``ops.paged_attention.LAUNCHES``,
-``DECODE_ROUTE_LAUNCHES`` and ``ops.int8_gemm.INT8_GEMM_LAUNCHES``, the
-last by route: small_m, wgmma and simt) count Python calls, and a replay
+``DECODE_ROUTE_LAUNCHES``, ``PREFILL_ROUTE_LAUNCHES`` and
+``ops.int8_gemm.INT8_GEMM_LAUNCHES``, the last by route: small_m, wgmma
+and simt) count Python calls, and a replay
 makes none:
 each graph records the counts its capture added (and takes them back,
 since a capture launches nothing) and adds them again at every replay.
@@ -88,7 +89,7 @@ from .jit_fence import CompileFence
 from .sampling import fill_penalty_state, logprob_aux, sample_tokens
 
 _COUNTS = (ops.LAUNCHES, ops.DECODE_ROUTE_LAUNCHES,
-           int8_gemm.INT8_GEMM_LAUNCHES)
+           ops.PREFILL_ROUTE_LAUNCHES, int8_gemm.INT8_GEMM_LAUNCHES)
 
 # a decode window's penalty form: none, or the sampler's penalty tuple
 # (the [B, V] counts and presence, the per-row rep, freq and pres and the

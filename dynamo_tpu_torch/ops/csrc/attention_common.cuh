@@ -49,4 +49,73 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The shapes both float32 kernels (route 2: paged_decode_f32_kernel,
+// paged_prefill_f32_kernel) are built for, by GQA group, page size and
+// head_dim; ops/paged_attention.py F32_* lists the same, and
+// tests/test_torch_kernels.py holds the two against each other.
+bool f32_shape(int G, int ps, int hd) {
+  return G >= 1 && G <= 8 &&
+         (hd == 16 || hd == 32 || hd == 64 || hd == 128 || hd == 256) &&
+         (ps == 8 || ps == 16 || ps == 32 || ps == 64 || ps == 128);
+}
+
+// Key position `pos` is visible to a query at `qp` under the row's sliding
+// window `win`: the causal mask intersected with the window (qp = -1, a
+// padding query, sees nothing).
+__device__ __forceinline__ bool visible(int pos, int qp, int win) {
+  return pos <= qp && pos > qp - win;
+}
+
+// Pool position `pos` lies in a decode row's visible extent [lo, len).
+__device__ __forceinline__ bool in_extent(int pos, int lo, int len) {
+  return pos >= lo && pos < len;
+}
+
+// ---- 3xTF32: float32 products on the TF32 tensor cores. An operand x is
+// split into big = tf32(x) (round to nearest, ties away from zero: 10
+// mantissa bits) and small = x - big, which the tensor cores read as a
+// TF32 value (its 13 low bits dropped); a product a * b is taken as
+// a_small * b_big + a_big * b_small + a_big * b_big, in float32
+// accumulators, the small * small term dropped. The error is that of
+// about 21 mantissa bits a product (one TF32 product alone keeps 10).
+// tf32_rna is cvt.rna.tf32.f32 as two integer operations: half a TF32 ulp
+// added to the magnitude, the 13 low bits cleared (the cvt form made the
+// prefill kernel's first 512-token chunk at Llama-3-8B's heads 0.130 ms
+// against 0.105 on an H100: PERF.md, Findings).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// mma.sync m16n8k8, tf32 in, f32 accumulate: A a[0..3] (rows g, g + 8 at
+// k t; rows g, g + 8 at k t + 4), B b0 (k t), b1 (k t + 4) at column g,
+// D d[0..3] (row g cols 2t, 2t + 1; row g + 8 the same), g = lane / 4,
+// t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in the 3xTF32 form, from the split operands: the two small
+// terms first, then the big one. The tensor cores round each of these
+// accumulations toward zero, a bias that grows with the adds a sum takes
+// from them: a running sum over many key blocks (the prefill kernel's O)
+// takes each block's products from zero and adds them in float32.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* a_big,
+                                           const uint32_t* a_small,
+                                           const uint32_t* b_big,
+                                           const uint32_t* b_small) {
+  mma_tf32(d, a_small, b_big[0], b_big[1]);
+  mma_tf32(d, a_big, b_small[0], b_small[1]);
+  mma_tf32(d, a_big, b_big[0], b_big[1]);
+}
+
 }  // namespace

@@ -6,12 +6,17 @@
 // loaded with ctypes by dynamo_tpu_torch/ops/paged_attention.py, which
 // picks the route from the shape (the `route` argument; never retried):
 //
-//   route 1  paged_decode_bf16_kernel<hd>  bfloat16 at head_dim 64/128/256,
-//            page size 16/32/64/128, GQA groups 1-8 (the llama3_8b and 1b
-//            presets: the serving path); one cluster launch per call
-//   route 0  paged_decode_kernel<T>         float32, and bfloat16 shapes
-//            + paged_decode_combine<T>      outside that set (CUDA-core FMAs
-//                                           from shared memory)
+//   route 1  paged_decode_bf16_kernel<hd>      bfloat16 at head_dim
+//            64/128/256, page size 16/32/64/128, GQA groups 1-8 (the
+//            llama3_8b and 1b presets: the serving path); one cluster
+//            launch per call
+//   route 2  paged_decode_f32_kernel<hd, lpg>  float32 at head_dim
+//            16/32/64/128/256, page size 8-128, GQA groups 1-8 (the tiny,
+//            1b and llama3_8b presets in float32); one cluster launch per
+//            call
+//   route 0  paged_decode_kernel<T>            the shapes outside both
+//            + paged_decode_combine<T>         sets (CUDA-core FMAs from
+//                                              shared memory)
 //
 // The prefill kernel (the TPU kernel _prefill_kernel) lives in
 // paged_prefill.cu.
@@ -90,6 +95,29 @@
 //   other load was tried and dropped: 1.5% slower on long rows.
 // * Pages outside [lower, length) are never read, and a page id outside
 //   the pool is skipped, as the TPU kernel's clamp does.
+//
+// What the float32 design (route 2) does: the bf16 route's, with float32
+// tiles and CUDA-core products.
+// * Decode does 2-4 operations a byte of float32 K/V (4 * G * hd a key
+//   against 8 * hd bytes): far below what FFMA sustains (67 TF/s against
+//   3.35 TB/s is 20 a byte), so the tensor cores would buy nothing and the
+//   products are FFMA. What matters is the bf16 route's shape: no
+//   block-wide barrier in the key loop, independent warps with their own
+//   rings, m, l and output, and the splits of a (row, kv head) one
+//   cluster folded with the window keys through distributed shared memory.
+// * Lanes by head: the G heads of a kv head take 32 / G lanes each (a power
+//   of two, df_lanes), and a lane holds the 16-byte chunks s, s + lanes,
+//   ... of q and of its output row. A score is the lane's FFMAs over its
+//   chunks and a butterfly over the head's lanes, which leaves it in every
+//   lane of the head: the softmax needs no broadcast, and P V is each
+//   lane's FFMAs on its own chunks of V. The head's lanes read consecutive
+//   chunks of a K or V row (no bank conflict), the heads the same ones.
+// * A ring of 3 stages a warp of 8 keys, plain rows of float32 filled by
+//   16-byte cp.async, completion on an mbarrier per stage as on route 1:
+//   8 KB a stage at head_dim 128, as a bf16 stage of 16 keys, so the
+//   block takes 113 KB and two blocks share an SM. 16-key stages (192 KB
+//   of rings, one block an SM, 2 splits at the served window) and 4
+//   stages of 8 keys were slower on an H100 (PERF.md, Findings).
 //
 // Semantics shared with the TPU kernel: online softmax in float32 with
 // the finite NEG_INF = -1e30; exp() only where a key is visible, so an
@@ -865,6 +893,381 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   cluster_sync_relaxed();  // the other splits' shared memory outlives the reads
 }
 
+// ---------------------------------------------------- route 2: float32
+constexpr int DF_STAGES = 3;  // stages in each warp's ring
+// keys a stage holds: as many bytes as a bf16 stage of 16 keys, and never
+// more than a page (the smallest is 8)
+constexpr int DF_KB = 8;
+
+template <int HD> struct DecodeF32Tile {
+  static constexpr int KB = DF_KB;
+  static constexpr int KV_BYTES = KB * HD * 4;  // the K (or V) of a stage
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int RING_BYTES = DB_WARPS * DF_STAGES * STAGE_BYTES;
+  // keys the block's rings hold at once: a split's fewest
+  static constexpr int RING_KEYS = DB_WARPS * DF_STAGES * KB;
+  // the merge and the fold reuse the rings as the bf16 kernel's do
+  static constexpr int MERGE_BYTES =
+      4 * (DB_WARPS * MAX_G * HD + 3 * DB_WARPS * MAX_G + 2 * MAX_G +
+           MAX_G * MAX_SPLITS + MAX_G);
+  static constexpr int WIN_OFFSET = RING_BYTES > MERGE_BYTES ? RING_BYTES : MERGE_BYTES;
+  // the window's K and V rows of the block's kv head [MAX_KW, HD], then
+  // the slots' scores, then weights, [MAX_G, MAX_KW] (all float32)
+  static constexpr int WIN_BYTES = 2 * MAX_KW * HD * 4 + 4 * MAX_G * MAX_KW;
+  static constexpr int SMEM = WIN_OFFSET + WIN_BYTES + DB_WARPS * DF_STAGES * 8;
+};
+
+// The lanes a head takes in the float32 kernel: 32 / G rounded down to a
+// power of two, at most one 16-byte chunk of its row each (head_dim / 4).
+int df_lanes(int hd, int G) {
+  int gp = 1;
+  while (gp < G) gp <<= 1;
+  return 32 / gp < hd / 4 ? 32 / gp : hd / 4;
+}
+
+// This lane's part of q . K[j] for the NK rows of a float32 tile (rows of
+// HD floats), summed over the LPG lanes of its head, so that every lane of
+// the head holds the whole dot product. Lane s of a head holds the 16-byte
+// chunks s, s + LPG, s + 2 LPG, ... of a row: the head's lanes read
+// consecutive chunks (no bank conflict), the heads the same (a broadcast).
+template <int HD, int LPG, int NK>
+__device__ __forceinline__ void df_dots(float* x, const uint8_t* tile,
+                                        const float4* qv, int s) {
+  constexpr int NV = HD / (4 * LPG);
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    float a = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const float4 k = *reinterpret_cast<const float4*>(
+          tile + j * HD * 4 + 16 * (i * LPG + s));
+      a = fmaf(qv[i].x, k.x, a);
+      a = fmaf(qv[i].y, k.y, a);
+      a = fmaf(qv[i].z, k.z, a);
+      a = fmaf(qv[i].w, k.w, a);
+    }
+    x[j] = a;
+  }
+#pragma unroll
+  for (int o = 1; o < LPG; o <<= 1)
+#pragma unroll
+    for (int j = 0; j < NK; ++j) x[j] += __shfl_xor_sync(0xffffffffu, x[j], o);
+}
+
+// grid (B, KV, S), clusters (1, 1, S), as the bf16 kernel's: the S splits
+// of one (row, kv head) are one cluster and fold through its distributed
+// shared memory. Block DB_THREADS: four warps, each an independent worker
+// over the KB-key blocks w, w + 4, ... of the split's visible range, with
+// its own ring of DF_STAGES stages (K tile, then V tile, plain rows of HD
+// floats, from one page). Lane t works for head g = t / LPG (rows >= G
+// are zero) and holds the head_dim chunks of df_dots in q and in its
+// output. Products on the CUDA cores (FFMA):
+// scores by df_dots, P V by each lane on its own chunks.
+template <int HD, int LPG>
+__global__ void __launch_bounds__(DB_THREADS)
+paged_decode_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k_pools,
+                        const float* __restrict__ v_pools,
+                        long long layer_offset,
+                        const int* __restrict__ page_table,
+                        const int* __restrict__ lengths,
+                        const int* __restrict__ lower,
+                        float* __restrict__ out, float* __restrict__ m_out,
+                        float* __restrict__ l_out,
+                        const int* __restrict__ start,
+                        const int* __restrict__ q_pos,
+                        const int* __restrict__ eff_win,
+                        const float* __restrict__ wk,
+                        const float* __restrict__ wv, int n_win, int Kw,
+                        int H, int KV, int N, int ps, int P, float scale,
+                        float softcap) {
+  using Tile = DecodeF32Tile<HD>;
+  constexpr int KB = Tile::KB;
+  constexpr int CH = HD / 4;          // 16-byte chunks in a row
+  constexpr int NV = HD / (4 * LPG);  // chunks a lane holds
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int b = blockIdx.x, kv = blockIdx.y, split = blockIdx.z;
+  const int S = gridDim.z, G = H / KV;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane / LPG, sl = lane % LPG;
+
+  // the row's pages that cover [lo, len), cut into n_live near-equal
+  // contiguous shares of at least one ring of keys (the first n_live
+  // splits; the rest have nothing to read), as the bf16 kernel cuts them
+  int len, lo, row_begin;
+  row_extent(b, lengths, lower, start, q_pos, eff_win, len, lo);
+  const int n = row_pages(len, lo, ps, P, row_begin);
+  const int min_pages = max(Tile::RING_KEYS / ps, 1);
+  const int n_live = min(S, (n + min_pages - 1) / min_pages);
+  if (split > 0 && split >= n_live) {
+    cluster_sync_acq_rel();
+    cluster_sync_relaxed();
+    return;
+  }
+  const int p_begin = split < n_live ? row_begin + n * split / n_live : row_begin;
+  const int n_pages =
+      split < n_live ? row_begin + n * (split + 1) / n_live - p_begin : 0;
+
+  uint8_t* ring = smem + warp * DF_STAGES * Tile::STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+                       smem + (Tile::SMEM - DB_WARPS * DF_STAGES * 8)) +
+                   warp * DF_STAGES;
+  if (lane == 0) {
+#pragma unroll
+    for (int s = 0; s < DF_STAGES; ++s) mbar_init(&full[s], 32);
+  }
+  __syncwarp();
+
+  // the split's visible keys [k_lo, k_hi), in KB-key blocks
+  const int k_lo = max(lo, p_begin * ps);
+  const int k_hi = min(len, (p_begin + n_pages) * ps);
+  const int jb = k_lo / KB;
+  const int je = k_hi > k_lo ? (k_hi + KB - 1) / KB : jb;
+  const int nblk = je - jb > warp ? (je - jb - warp + DB_WARPS - 1) / DB_WARPS : 0;
+  const int* row_table = page_table + (long long)b * P;
+  const long long page_elems = (long long)KV * ps * HD;
+  const float* k_head = k_pools + layer_offset + (long long)kv * ps * HD;
+  const float* v_head = v_pools + layer_offset + (long long)kv * ps * HD;
+  // page sizes are powers of two: shifts, not divisions, in the key loop
+  const int ps_log = __ffs(ps) - 1;
+
+  // stage block i of this warp's walk, KB rows of one page (a page id
+  // outside the pool is never read; the stage's barrier still completes
+  // and its compute is skipped)
+  auto issue = [&](int i) {
+    const int key0 = (jb + warp + i * DB_WARPS) * KB;
+    const int page = row_table[key0 >> ps_log];
+    uint8_t* st = ring + (i % DF_STAGES) * Tile::STAGE_BYTES;
+    if (page >= 0 && page < N) {
+      const long long off = page * page_elems + (long long)(key0 & (ps - 1)) * HD;
+#pragma unroll
+      for (int c = lane; c < KB * CH; c += 32) {
+        cp_async16(st + c * 16, k_head + off + c * 4);
+        cp_async16(st + Tile::KV_BYTES + c * 16, v_head + off + c * 4);
+      }
+    }
+    cp_async_arrive(&full[i % DF_STAGES]);
+  };
+#pragma unroll
+  for (int i = 0; i < DF_STAGES - 1; ++i)
+    if (i < nblk) issue(i);
+
+  // split 0 folds the fused window's in-flight keys: their K and V rows
+  // of this kv head are staged behind the first stages
+  const int nw = wk != nullptr && split == 0 ? Kw : 0;
+  uint8_t* wk_s = smem + Tile::WIN_OFFSET;                        // [MAX_KW, HD]
+  float* wv_s = reinterpret_cast<float*>(wk_s + MAX_KW * HD * 4);  // [MAX_KW, HD]
+  float* wsc_s = wv_s + MAX_KW * HD;                              // [MAX_G][MAX_KW]
+  for (int c = tid; c < nw * CH; c += DB_THREADS) {
+    const int w = c / CH, cc = c - w * CH;
+    const long long row = (((long long)b * Kw + w) * KV + kv) * HD + cc * 4;
+    cp_async16(wk_s + c * 16, wk + row);
+    cp_async16(wv_s + w * HD + cc * 4, wv + row);
+  }
+
+  // q of head g, this lane's chunks (zero for a lane past the group)
+  float4 qv[NV];
+  {
+    const float* qr = q + ((long long)b * H + kv * G + (g < G ? g : 0)) * HD;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      qv[i] = g < G ? *reinterpret_cast<const float4*>(qr + 4 * (i * LPG + sl))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float4 o[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float m = NEG_INF, l = 0.f;
+
+  for (int i = 0; i < nblk; ++i) {
+    if (i + DF_STAGES - 1 < nblk) issue(i + DF_STAGES - 1);
+    const int key0 = (jb + warp + i * DB_WARPS) * KB;
+    const int page = row_table[key0 >> ps_log];
+    mbar_wait(&full[i % DF_STAGES], (i / DF_STAGES) & 1);
+    if (page >= 0 && page < N) {  // uniform across the warp
+      const uint8_t* ks = ring + (i % DF_STAGES) * Tile::STAGE_BYTES;
+      const uint8_t* vs = ks + Tile::KV_BYTES;
+      float x[KB];
+      df_dots<HD, LPG, KB>(x, ks, qv, sl);
+      // online softmax of head g over the block's visible keys
+      float mx = NEG_INF;
+      bool vis[KB];
+#pragma unroll
+      for (int j = 0; j < KB; ++j) {
+        const int pos = key0 + j;
+        x[j] = cap(x[j] * scale, softcap);
+        vis[j] = in_extent(pos, lo, len);
+        if (vis[j]) mx = fmaxf(mx, x[j]);
+      }
+      const float m_new = fmaxf(m, mx);
+      const float alpha = exp2f((m - m_new) * LOG2E);
+      m = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KB; ++j) {
+        x[j] = vis[j] ? exp2f((x[j] - m_new) * LOG2E) : 0.f;
+        sum += x[j];
+      }
+      l = l * alpha + sum;
+      // O = O * alpha + P V on this lane's chunks
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        o[c].x *= alpha;
+        o[c].y *= alpha;
+        o[c].z *= alpha;
+        o[c].w *= alpha;
+      }
+#pragma unroll
+      for (int j = 0; j < KB; ++j)
+#pragma unroll
+        for (int c = 0; c < NV; ++c) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              vs + j * HD * 4 + 16 * (c * LPG + sl));
+          o[c].x = fmaf(x[j], v.x, o[c].x);
+          o[c].y = fmaf(x[j], v.y, o[c].y);
+          o[c].z = fmaf(x[j], v.z, o[c].z);
+          o[c].w = fmaf(x[j], v.w, o[c].w);
+        }
+    }
+    __syncwarp();  // every lane is done with the stage before it refills
+  }
+
+  // merge the warps, the first block-wide barrier, after the loop
+  if (nw > 0) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  float* o_s = reinterpret_cast<float*>(smem);     // [DB_WARPS][MAX_G][HD]
+  float* ml_s = o_s + DB_WARPS * MAX_G * HD;       // [DB_WARPS][MAX_G][2]
+  float* w_s = ml_s + 2 * DB_WARPS * MAX_G;        // [DB_WARPS][MAX_G]
+  float* part_ml = w_s + DB_WARPS * MAX_G;         // [MAX_G][2]
+  float* fw_s = part_ml + 2 * MAX_G;               // [MAX_G][MAX_SPLITS]
+  float* L_s = fw_s + MAX_G * MAX_SPLITS;          // [MAX_G]
+  if (g < G) {
+    float* orow = o_s + (warp * MAX_G + g) * HD;
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+      *reinterpret_cast<float4*>(orow + 4 * (c * LPG + sl)) = o[c];
+    if (sl == 0) {
+      ml_s[(warp * MAX_G + g) * 2] = m;
+      ml_s[(warp * MAX_G + g) * 2 + 1] = l;
+    }
+  }
+  __syncthreads();
+  // split 0, warp 1: the window slots' scores (a slot out of view scores
+  // -inf, which weighs exactly 0 in the fold), as the bf16 kernel's
+  if (nw > 0 && warp == 1) {
+    float x[MAX_KW];
+    df_dots<HD, LPG, MAX_KW>(x, wk_s, qv, sl);
+    const int st = start[b];
+    const int floor_pos = eff_win != nullptr ? q_pos[b] - eff_win[b] : INT_MIN;
+#pragma unroll
+    for (int w = 0; w < MAX_KW; ++w) {
+      const bool vis = w < nw && w < n_win && st >= 0 && st + w > floor_pos;
+      if (g < G && sl == 0)
+        wsc_s[g * MAX_KW + w] = vis ? cap(x[w] * scale, softcap) : -INFINITY;
+    }
+  }
+  // the block's (m, l) per head, and each warp's weight in it
+  if (tid < G) {
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < DB_WARPS; ++w) M = fmaxf(M, ml_s[(w * MAX_G + tid) * 2]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < DB_WARPS; ++w) {
+      const float e = exp2f((ml_s[(w * MAX_G + tid) * 2] - M) * LOG2E);
+      w_s[w * MAX_G + tid] = e;
+      L += e * ml_s[(w * MAX_G + tid) * 2 + 1];
+    }
+    part_ml[tid * 2] = M;
+    part_ml[tid * 2 + 1] = L;
+  }
+  __syncthreads();
+  // the block's partial (unnormalized output at the block's max) in warp
+  // 0's slot
+  for (int i = tid; i < G * HD / 4; i += DB_THREADS) {
+    const int gi = i / (HD / 4), d = (i - gi * (HD / 4)) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < DB_WARPS; ++w) {
+      const float e = w_s[w * MAX_G + gi];
+      const float4 x = *reinterpret_cast<const float4*>(o_s + (w * MAX_G + gi) * HD + d);
+      a.x += e * x.x;
+      a.y += e * x.y;
+      a.z += e * x.z;
+      a.w += e * x.w;
+    }
+    *reinterpret_cast<float4*>(o_s + gi * HD + d) = a;
+  }
+  cluster_sync_acq_rel();
+  if (split != 0) {
+    cluster_sync_relaxed();  // keeps this block's partial alive for split 0
+    return;
+  }
+
+  // split 0 folds the live splits' partials and the window keys, as the
+  // bf16 kernel does
+  const int n_src = max(n_live, 1);
+  const uint32_t ml_local = smem_u32(part_ml), o_local = smem_u32(o_s);
+  for (int gi = warp; gi < G; gi += DB_WARPS) {
+    float x = -INFINITY, mass = 0.f;
+    if (lane < n_src) {
+      const float2 v = ld_dsmem_f2(dsmem_addr(ml_local + gi * 8, lane));
+      x = v.x;
+      mass = v.y;
+    } else if (lane >= MAX_SPLITS && lane - MAX_SPLITS < nw) {
+      x = wsc_s[gi * MAX_KW + lane - MAX_SPLITS];
+      mass = 1.f;
+    }
+    const float M = fmaxf(warp_max(x), NEG_INF);
+    const float e = exp2f((x - M) * LOG2E);
+    const float L = warp_sum(e * mass);
+    if (lane < MAX_SPLITS)
+      fw_s[gi * MAX_SPLITS + lane] = e;
+    else if (lane - MAX_SPLITS < MAX_KW)
+      wsc_s[gi * MAX_KW + lane - MAX_SPLITS] = e;
+    if (lane == 0) {
+      L_s[gi] = L;
+      if (m_out != nullptr) {
+        m_out[(long long)b * H + kv * G + gi] = M;
+        l_out[(long long)b * H + kv * G + gi] = L;
+      }
+    }
+  }
+  __syncthreads();
+  const long long obase = ((long long)b * H + kv * G) * HD;
+  for (int i = tid; i < G * HD / 4; i += DB_THREADS) {
+    const int gi = i / (HD / 4), d = (i - gi * (HD / 4)) * 4;
+    const uint32_t src = o_local + (uint32_t)(gi * HD + d) * 4;
+    float4 x[MAX_SPLITS];
+#pragma unroll
+    for (int s = 0; s < MAX_SPLITS; ++s)
+      if (s < n_src) x[s] = ld_dsmem_f4(dsmem_addr(src, s));
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < MAX_SPLITS; ++s) {
+      if (s < n_src) {
+        const float e = fw_s[gi * MAX_SPLITS + s];
+        a.x += e * x[s].x;
+        a.y += e * x[s].y;
+        a.z += e * x[s].z;
+        a.w += e * x[s].w;
+      }
+    }
+    for (int w = 0; w < nw; ++w) {
+      const float e = wsc_s[gi * MAX_KW + w];
+      const float4 v = *reinterpret_cast<const float4*>(wv_s + w * HD + d);
+      a.x += e * v.x;
+      a.y += e * v.y;
+      a.z += e * v.z;
+      a.w += e * v.w;
+    }
+    const float Lc = fmaxf(L_s[gi], 1e-9f);
+    *reinterpret_cast<float4*>(out + obase + gi * HD + d) =
+        make_float4(a.x / Lc, a.y / Lc, a.z / Lc, a.w / Lc);
+  }
+  cluster_sync_relaxed();  // the other splits' shared memory outlives the reads
+}
+
 // ---------------------------------------------------------- combine
 // The generic route's second kernel. grid (B, KV); dynamic shared
 // (2 * Kw + S + 1) * G floats. Folds the S splits' partials of each (row,
@@ -1017,23 +1420,24 @@ int launch_generic(const DecodeArgs& a, const Window& win, cudaStream_t st) {
   return launch_combine<T>(a, win, st);
 }
 
-// A launch of the bf16 kernel at head_dim HD: grid `grid`, in clusters of
-// (1, 1, grid.z) blocks (the splits of one (row, kv head)). Built in
-// place: the config points at the attribute beside it.
-template <int HD> struct ClusterLaunch {
+// A launch of a cluster kernel (the bf16 or the float32 route) with
+// `smem` bytes of shared memory: grid `grid`, in clusters of (1, 1,
+// grid.z) blocks (the splits of one (row, kv head)). Built in place: the
+// config points at the attribute beside it.
+struct ClusterLaunch {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  ClusterLaunch(dim3 grid, cudaStream_t st) : cfg{} {
-    cudaFuncSetAttribute(paged_decode_bf16_kernel<HD>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         DecodeTile<HD>::SMEM);
+  template <typename K>
+  ClusterLaunch(K kernel, int smem, dim3 grid, cudaStream_t st) : cfg{} {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = 1;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = grid.z;
     cfg.gridDim = grid;
     cfg.blockDim = dim3(DB_THREADS);
-    cfg.dynamicSmemBytes = DecodeTile<HD>::SMEM;
+    cfg.dynamicSmemBytes = smem;
     cfg.stream = st;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
@@ -1045,7 +1449,8 @@ template <int HD> struct ClusterLaunch {
 template <int HD>
 int launch_bf16(const DecodeArgs& a, const Window& win, cudaStream_t st) {
   const long long layer_offset = a.layer * (long long)a.N * a.KV * a.ps * HD;
-  ClusterLaunch<HD> l(dim3(a.B, a.KV, a.splits), st);
+  ClusterLaunch l(paged_decode_bf16_kernel<HD>, DecodeTile<HD>::SMEM,
+                  dim3(a.B, a.KV, a.splits), st);
   const cudaError_t err = cudaLaunchKernelEx(
       &l.cfg, paged_decode_bf16_kernel<HD>,
       static_cast<const __nv_bfloat16*>(a.q),
@@ -1057,6 +1462,49 @@ int launch_bf16(const DecodeArgs& a, const Window& win, cudaStream_t st) {
       static_cast<const __nv_bfloat16*>(win.wv), win.n_win, win.Kw, a.H,
       a.KV, a.N, a.ps, a.P, a.scale, a.softcap);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// f(kernel, smem) on the float32 kernel's instantiation for head_dim HD
+// and G query heads a kv head (its lanes a head, df_lanes)
+template <int HD, typename F>
+int f32_lanes(int G, F f) {
+  constexpr int SMEM = DecodeF32Tile<HD>::SMEM;
+  switch (df_lanes(HD, G)) {
+    case 4: return f(paged_decode_f32_kernel<HD, 4>, SMEM);
+    case 8: if constexpr (HD >= 32) return f(paged_decode_f32_kernel<HD, 8>, SMEM); break;
+    case 16: if constexpr (HD >= 64) return f(paged_decode_f32_kernel<HD, 16>, SMEM); break;
+    case 32: if constexpr (HD >= 128) return f(paged_decode_f32_kernel<HD, 32>, SMEM); break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename F>
+int with_f32_kernel(int hd, int G, F f) {
+  switch (hd) {
+    case 16: return f32_lanes<16>(G, f);
+    case 32: return f32_lanes<32>(G, f);
+    case 64: return f32_lanes<64>(G, f);
+    case 128: return f32_lanes<128>(G, f);
+    case 256: return f32_lanes<256>(G, f);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// one cluster launch of the float32 kernel, as launch_bf16
+int launch_f32(const DecodeArgs& a, const Window& win, cudaStream_t st) {
+  const long long layer_offset = a.layer * (long long)a.N * a.KV * a.ps * a.hd;
+  return with_f32_kernel(a.hd, a.H / a.KV, [&](auto kernel, int smem) {
+    ClusterLaunch l(kernel, smem, dim3(a.B, a.KV, a.splits), st);
+    const cudaError_t err = cudaLaunchKernelEx(
+        &l.cfg, kernel, static_cast<const float*>(a.q),
+        static_cast<const float*>(a.k_pools),
+        static_cast<const float*>(a.v_pools), layer_offset, a.page_table,
+        a.lengths, a.lower, static_cast<float*>(a.out), a.m_out, a.l_out,
+        win.start, win.q_pos, win.eff_win, static_cast<const float*>(win.wk),
+        static_cast<const float*>(win.wv), win.n_win, win.Kw, a.H, a.KV,
+        a.N, a.ps, a.P, a.scale, a.softcap);
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  });
 }
 
 // The bf16 kernel's shapes; the wrapper's DECODE_BF16_* (and
@@ -1075,6 +1523,9 @@ int check_decode(int route, int dtype, int H, int KV, int ps, int hd,
   if (route == 1)
     return dtype == 1 && bf16_shape(H, KV, ps, hd) && splits <= MAX_SPLITS
                ? 0 : (int)cudaErrorInvalidValue;
+  if (route == 2)
+    return dtype == 0 && f32_shape(H / KV, ps, hd) && splits <= MAX_SPLITS
+               ? 0 : (int)cudaErrorInvalidValue;
   const int G = H / KV;
   const int elem = dtype == 0 ? 4 : 2;
   if (route != 0 || G > MAX_G || hd > DEC_THREADS * DEC_MAX_DPT ||
@@ -1083,11 +1534,11 @@ int check_decode(int route, int dtype, int H, int KV, int ps, int hd,
   return 0;
 }
 
-// The scratch a call needs: none on the bf16 route (its splits fold
-// through the cluster's shared memory); on the generic route the
-// partials whenever it folds (splits, or a window).
+// The scratch a call needs: none on the bf16 and float32 routes (their
+// splits fold through the cluster's shared memory); on the generic route
+// the partials whenever it folds (splits, or a window).
 bool has_scratch(int route, const DecodeArgs& a, bool window) {
-  return route == 1 || !(a.splits > 1 || window) ||
+  return route != 0 || !(a.splits > 1 || window) ||
          (a.part_acc != nullptr && a.part_ml != nullptr);
 }
 
@@ -1101,6 +1552,7 @@ int launch_decode(int route, int dtype, const DecodeArgs& a,
     }
     return (int)cudaErrorInvalidValue;
   }
+  if (route == 2) return launch_f32(a, win, st);
   return dtype == 0 ? launch_generic<float>(a, win, st)
                     : launch_generic<__nv_bfloat16>(a, win, st);
 }
@@ -1113,10 +1565,10 @@ int resident(K kernel, int threads, int smem, int* blocks) {
                                                             threads, smem);
 }
 
-template <int HD> int resident_clusters(int splits, int* clusters) {
-  ClusterLaunch<HD> l(dim3(1, 1, splits), nullptr);
-  return (int)cudaOccupancyMaxActiveClusters(
-      clusters, paged_decode_bf16_kernel<HD>, &l.cfg);
+template <typename K>
+int resident_clusters(K kernel, int smem, int splits, int* clusters) {
+  ClusterLaunch l(kernel, smem, dim3(1, 1, splits), nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &l.cfg);
 }
 
 // *blocks = the generic decode kernel's resident blocks per SM at this
@@ -1133,27 +1585,40 @@ extern "C" int dyn_paged_decode_resident(int dtype, int H, int KV, int ps,
                         blocks);
 }
 
-// *clusters = how many clusters of `splits` blocks of the bf16 kernel the
-// card holds at once at this shape (cudaOccupancyMaxActiveClusters), for
-// its split plan; refused for a shape or split count it does not take.
-extern "C" int dyn_paged_decode_clusters(int H, int KV, int ps, int hd,
-                                         int splits, int* clusters) {
-  const int bad = check_decode(1, 1, H, KV, ps, hd, splits);
+// *clusters = how many clusters of `splits` blocks of the route's kernel
+// (1 = bf16, 2 = float32) the card holds at once at this shape
+// (cudaOccupancyMaxActiveClusters), for its split plan; refused for a
+// route, shape or split count it does not take.
+extern "C" int dyn_paged_decode_clusters(int route, int H, int KV, int ps,
+                                         int hd, int splits, int* clusters) {
+  if (route != 1 && route != 2) return (int)cudaErrorInvalidValue;
+  const int bad = check_decode(route, route == 1 ? 1 : 0, H, KV, ps, hd, splits);
   if (bad) return bad;
+  auto query = [&](auto kernel, int smem) {
+    return resident_clusters(kernel, smem, splits, clusters);
+  };
+  if (route == 2) return with_f32_kernel(hd, H / KV, query);
   switch (hd) {
-    case 64: return resident_clusters<64>(splits, clusters);
-    case 128: return resident_clusters<128>(splits, clusters);
-    case 256: return resident_clusters<256>(splits, clusters);
+    case 64: return query(paged_decode_bf16_kernel<64>, DecodeTile<64>::SMEM);
+    case 128: return query(paged_decode_bf16_kernel<128>, DecodeTile<128>::SMEM);
+    case 256: return query(paged_decode_bf16_kernel<256>, DecodeTile<256>::SMEM);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// route: 1 = the bf16 tensor-core kernel, 0 = the generic kernel (the
-// wrapper picks it from the shape; see bf16_shape). dtype: 0 = float32,
-// 1 = bfloat16. Each entry returns cudaGetLastError() after its launches
+// DecodeF32Tile<hd>::SMEM, the float32 kernel's shared memory a block,
+// for a head_dim of f32_shape (ops/paged_attention.py decode_f32_smem
+// mirrors it; the card tests hold the two equal).
+extern "C" int dyn_paged_decode_f32_smem(int hd) {
+  return with_f32_kernel(hd, 1, [](auto, int smem) { return smem; });
+}
+
+// route: 1 = the bf16 tensor-core kernel, 2 = the float32 kernel, 0 = the
+// generic kernel (the wrapper picks it from the shape; see bf16_shape and
+// f32_shape). dtype: 0 = float32, 1 = bfloat16. Each entry returns cudaGetLastError() after its launches
 // (0 = cudaSuccess), or the launch's own error. Scratch the caller allocates
 // for the generic route (see has_scratch): part_acc [B*KV*splits*G*hd]
-// and part_ml [B*KV*splits*G*2] in float32; the bf16 route takes none.
+// and part_ml [B*KV*splits*G*2] in float32; the other routes take none.
 // m_out/l_out may be null (no stats).
 extern "C" int dyn_paged_attention_decode(
     int route, int dtype, const void* q, const void* k_pools,
@@ -1176,9 +1641,9 @@ extern "C" int dyn_paged_attention_decode(
 
 // One fused-window decode step: the pool's positions [lower, start) of
 // each row (lower from q_pos and eff_win) and the in-flight keys wk/wv
-// [B, Kw, KV, hd] (slots < n_win) in one softmax — folded in the bf16
-// kernel, or by the combine kernel on the generic route. eff_win may be
-// null (no sliding window).
+// [B, Kw, KV, hd] (slots < n_win) in one softmax — folded in the bf16 and
+// float32 kernels, or by the combine kernel on the generic route. eff_win
+// may be null (no sliding window).
 extern "C" int dyn_paged_attention_decode_window(
     int route, int dtype, const void* q, const void* k_pools,
     const void* v_pools, long long layer, const int* page_table,
@@ -1191,7 +1656,7 @@ extern "C" int dyn_paged_attention_decode_window(
                         nullptr, out, nullptr, nullptr, part_acc, part_ml,
                         B, H, KV, N, ps, hd, P, splits, scale, softcap};
   if (bad || !has_scratch(route, a, true) || wk == nullptr || wv == nullptr ||
-      Kw < 1 || (route == 1 && Kw > MAX_KW))
+      Kw < 1 || (route != 0 && Kw > MAX_KW))
     return bad ? bad : (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const Window win = {wk, wv, start, q_pos, eff_win, n_win, Kw};

@@ -4,10 +4,16 @@
 // paged_attention_prefill (dynamo_tpu/ops/paged_attention.py:336,466).
 // One C entry, dyn_paged_attention_prefill, returns cudaGetLastError()
 // after its launch and is loaded with ctypes by
-// dynamo_tpu_torch/ops/paged_attention.py. Two kernels behind it:
+// dynamo_tpu_torch/ops/paged_attention.py, which picks the route from the
+// shape (prefill_route; never retried). Three kernels behind it:
 //
-//   paged_prefill_bf16_kernel   bfloat16, the serving path
-//   paged_prefill_kernel<float> float32 (CUDA-core FMAs from shared memory)
+//   route 1  paged_prefill_bf16_kernel<hd, ps>  bfloat16 at head_dim
+//            64/128/256, page 16-128, GQA groups 1-8 (the serving path)
+//   route 2  paged_prefill_f32_kernel<hd, kb>   float32 at head_dim
+//            16/32/64/128/256, page 8-128, GQA groups 1-8 (3xTF32 on the
+//            tensor cores: the tiny, 1b and llama3_8b presets in float32)
+//   route 0  paged_prefill_kernel<float>        float32 shapes outside
+//            that set (CUDA-core FMAs from shared memory)
 //
 // Pool layout: [N, KV, ps, hd] for one layer (a view of the stacked pool),
 // contiguous; a page of one kv head is one contiguous [ps, hd] tile.
@@ -58,13 +64,50 @@
 // S product inside the warpgroup (the two blocks on an SM overlap each
 // other instead), and a persistent grid.
 //
+// What the float32 design (route 2) does about it. Float32 on CUDA cores
+// peaks at 67 TF/s (a first 512-token chunk at Llama-3-8B's heads: 32 us
+// of FFMA), so the products go to the TF32 tensor cores in the 3xTF32
+// form (attention_common.cuh): each operand split into a TF32 value and a
+// TF32 remainder, three products, the small x small one dropped; within
+// ~1e-6 of float32 products where one TF32 product is ~1e-3 off. The
+// bound is then 3x the operations at 494.7 TF/s dense TF32 (13 us).
+// * Work split, producer warp, TMA ring on full/empty mbarriers and the
+//   key-block walk are the bf16 kernel's. Float32 boxes are [KB, 32]
+//   (128 bytes a row, the 128-byte swizzle; at head_dim 16 one unswizzled
+//   [KB, 16] box); a stage holds KB = min(ps, 64, 4096 / hd) keys (32 KB of
+//   K and V at most), two stages, so that at head_dim <= 128 two blocks
+//   share an SM (99 KB a block at head_dim 128).
+// * Both products on mma.sync m16n8k8 .tf32 (wgmma's tf32 form needs both
+//   operands K-major, so V would need a transpose; a warp's 16 rows per
+//   mma.sync match the warpgroup's 64). Q sits in shared memory, stored
+//   once per block and read back as A fragments at each key block (Q's
+//   two halves in registers would take 128 of them at head_dim 128).
+//   S = Q K^T: thread t's head_dim pair of a k-step is one 8-byte load
+//   from a chunk picked so that eight rows meet eight bank groups
+//   (kstep_d).
+// * P V without shuffles: the m16n8k8 accumulator holds keys 2t and 2t + 1
+//   of a row where the tf32 A operand wants keys t and t + 4, so A's
+//   columns are read as keys 2t and 2t + 1 and V's rows are taken in the
+//   same order (P V sums over keys in any order); with the swizzle these
+//   V loads are free of bank conflicts too.
+// * Softmax in registers with the bf16 kernel's masking, in float32.
+// What bounds it as built (H100, PERF.md, Findings): mma.sync's TF32 rate.
+// In one build the first 512-token chunk at Llama-3-8B's heads took 0.107
+// ms with three TF32 products and 0.062 with one (an mma.sync m16n8k8
+// .tf32 every ~14 cycles of an SM sub-partition, ~140 TF/s over the card,
+// against wgmma's 495), 0.090 without the splits. Adding each key block's
+// P V to O in float32, not on the tensor cores (mma_3xtf32), costs ~10%
+// (0.113 ms); separate accumulators for the small products were no
+// faster, 16-key stages at head_dim 128 slower (0.119 ms). wgmma would
+// need V K-major: a transposing split pass.
+//
 // Semantics shared with the TPU kernel: causal visibility by absolute
 // query position (-1 = padding, gives zeros) intersected with the row's
 // sliding window; the Gemma-2 softcap before the mask; online softmax in
 // f32 with the finite NEG_INF, and exp only where a key is visible (an
-// all-masked row keeps m = NEG_INF, l = 0 and returns zeros); the
-// probabilities enter P V rounded to bf16, as the gather path's einsum
-// takes them.
+// all-masked row keeps m = NEG_INF, l = 0 and returns zeros); the bf16
+// kernel's probabilities enter P V rounded to bf16, as the gather path's
+// einsum takes them.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -587,21 +630,412 @@ int launch_bf16_ps(int ps, const void* q, const void* k_pages,
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------- float32 kernel (3xTF32)
+constexpr int PF_F32_STAGES = 2;  // K/V stages in the ring
+
+// Keys a stage of the float32 kernel holds: a stage of K and V is at most
+// 32 KB.
+__host__ __device__ constexpr int f32_stage_keys(int hd) {
+  return hd >= 256 ? 16 : hd >= 128 ? 32 : 64;
+}
+
+// Shared memory of a block of the float32 kernel at head_dim hd, kb keys
+// a stage: 1024 bytes of slack to align the tiles for the swizzle, Q
+// [PF_ROWS, hd], the stages of K and V, then a full and an empty
+// mbarrier per stage (ops/paged_attention.py prefill_f32_smem mirrors
+// it; dyn_paged_prefill_f32_smem lets the card tests hold the two equal).
+__host__ __device__ constexpr int f32_tile_smem(int hd, int kb) {
+  return 1024 + PF_ROWS * hd * 4 + PF_F32_STAGES * 2 * kb * hd * 4 +
+         2 * PF_F32_STAGES * 8;
+}
+
+template <int HD, int KB> struct PrefillF32Tile {
+  // floats in a row of one column block: 32 (128 bytes, read with the
+  // 128-byte swizzle) or, at head_dim 16, the whole row (64 bytes, plain)
+  static constexpr int COLS = HD < 32 ? HD : 32;
+  static constexpr int CB = HD / COLS;  // column blocks
+  static constexpr int Q_BYTES = PF_ROWS * HD * 4;
+  static constexpr int KV_BYTES = KB * HD * 4;  // the K (or V) tile of a stage
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int SMEM = f32_tile_smem(HD, KB);
+};
+
+// Byte offset of element d of row r in a [rows, HD] float32 tile stored
+// as HD / 32 column blocks of [rows, 128 bytes], the 16-byte chunk index
+// XOR-swizzled by r % 8: what TMA's 128-byte swizzle writes for a box of
+// [rows, 32] float32 into a 1024-byte aligned block. At head_dim 16,
+// plain rows of 64 bytes.
+template <int HD>
+__device__ __forceinline__ uint32_t fswz(int r, int d, int rows) {
+  if constexpr (HD >= 32) {
+    return (uint32_t)((d >> 5) * rows * 128 + r * 128 +
+                      ((((d >> 2) & 7) ^ (r & 7)) << 4) + (d & 3) * 4);
+  } else {
+    return (uint32_t)(r * HD * 4 + d * 4);
+  }
+}
+
+// The head_dim elements d, d + 1 (returned: d) that column t and t + 4 of
+// S = Q K^T's A operand (rows t and t + 4 of its B operand) stand for in
+// k-step kk, thread t of a quad. Any assignment that pairs A and B alike
+// gives the same S; this one puts both elements in one 8-byte load, and
+// k-step s of a 32-float column block takes 16-byte chunks s and s + 4,
+// so that a warp's loads of eight rows meet eight different chunks after
+// the swizzle (no bank conflict).
+template <int HD>
+__device__ __forceinline__ int kstep_d(int kk, int t) {
+  constexpr int KPG = (HD < 32 ? HD : 32) / 8;  // k-steps a column block
+  return (kk / KPG) * 32 + ((kk % KPG) + KPG * (t & 1)) * 4 + 2 * (t >> 1);
+}
+
+// grid (B * KV, ceil(T / TQ)), TQ = 64 / G; block PF_BF16_THREADS: warps
+// 0-3 consume (row r = t_local * G + g; warp w holds rows 16w .. 16w + 15
+// of every fragment), warp 4 is the producer. Shared: Q [64, HD], then
+// PF_F32_STAGES stages of K and V [KB, HD] (swizzled, see fswz), then the
+// stages' mbarriers. k_map / v_map: the layer's pool as a 2-D
+// [N * KV * ps, HD] float32 array, box [KB, min(HD, 32)].
+template <int HD, int KB>
+__global__ void __launch_bounds__(PF_BF16_THREADS, HD <= 128 ? 2 : 1)
+paged_prefill_f32_kernel(const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const float* __restrict__ q,
+                         const int* __restrict__ page_table,
+                         const int* __restrict__ q_positions,
+                         const int* __restrict__ eff_win,
+                         float* __restrict__ out, int Tq, int H, int KV,
+                         int N, int ps, int P, float scale, float softcap) {
+  using Tile = PrefillF32Tile<HD, KB>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* q_s = smem;
+  uint8_t* stages = q_s + Tile::Q_BYTES;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(stages + PF_F32_STAGES * Tile::STAGE_BYTES);
+  uint64_t* empty = full + PF_F32_STAGES;
+
+  const int b = blockIdx.x / KV, kv = blockIdx.x - b * KV;
+  const int G = H / KV, TQ = PF_ROWS / G, R = TQ * G;
+  const int t0 = (gridDim.y - 1 - blockIdx.y) * TQ;  // heaviest tiles first
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int win = eff_win[b];
+  const int subs = ps / KB;  // stages a page
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < PF_F32_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], PF_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the block's key blocks [j_begin, j_end) of KB keys, as the bf16
+  // kernel takes them
+  int maxq = -1, minq = 1 << 30;
+  for (int i = lane; i < TQ; i += 32) {
+    const int t = t0 + i;
+    const int qp = t < Tq ? q_positions[(long long)b * Tq + t] : -1;
+    maxq = max(maxq, qp);
+    if (qp >= 0) minq = min(minq, qp);
+  }
+  maxq = warp_max_i(maxq);
+  minq = warp_min_i(minq);
+  const int length = maxq + 1;
+  const int lo = min(max(minq + 1 - win, 0), max(length - 1, 0));
+  const int j_begin = lo / KB;
+  const int j_end = min((length + KB - 1) / KB, P * subs);
+  const int* row_pages = page_table + (long long)b * P;
+  __syncthreads();  // the mbarriers are initialised
+
+  if (warp == PF_CONSUMERS / 32) {
+    // ---- producer: one thread keeps the ring full with TMA
+    if (lane != 0) return;
+    int it = 0;
+    for (int j = j_begin; j < j_end; ++j) {
+      const int page = row_pages[j / subs];
+      if (page < 0 || page >= N) continue;  // never read outside the pool
+      const int s = it % PF_F32_STAGES;
+      mbar_wait(&empty[s], ((it / PF_F32_STAGES) & 1) ^ 1);
+      mbar_expect_tx(&full[s], Tile::STAGE_BYTES);
+      const int row0 = (page * KV + kv) * ps + (j % subs) * KB;
+      const uint32_t ks = smem_u32(stages + s * Tile::STAGE_BYTES);
+#pragma unroll
+      for (int a = 0; a < Tile::CB; ++a) {
+        tma_load_2d(ks + a * KB * Tile::COLS * 4, &k_map, a * Tile::COLS,
+                    row0, &full[s]);
+        tma_load_2d(ks + Tile::KV_BYTES + a * KB * Tile::COLS * 4, &v_map,
+                    a * Tile::COLS, row0, &full[s]);
+      }
+      ++it;
+    }
+    return;
+  }
+
+  // ---- consumers: Q into shared memory once (rows past R or past the
+  // chunk are zeros), read back as A fragments at every key block
+  for (int i = tid; i < PF_ROWS * HD / 4; i += PF_CONSUMERS) {
+    const int r = i / (HD / 4), d = (i - r * (HD / 4)) * 4;
+    const int tl = r / G, t = t0 + tl;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < R && t < Tq)
+      v = *reinterpret_cast<const float4*>(
+          q + (((long long)b * Tq + t) * H + kv * G + (r - tl * G)) * HD + d);
+    *reinterpret_cast<float4*>(q_s + fswz<HD>(r, d, PF_ROWS)) = v;
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(PF_CONSUMERS) : "memory");
+
+  // this thread's rows r0 and r0 + 8, their query positions, and its
+  // place in the quad
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = warp * 16 + g;
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i, t = t0 + r / G;
+    qpos[i] = (r < R && t < Tq) ? q_positions[(long long)b * Tq + t] : -1;
+  }
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  int it = 0;
+  for (int j = j_begin; j < j_end; ++j) {
+    const int page = row_pages[j / subs];
+    if (page < 0 || page >= N) continue;
+    const int s = it % PF_F32_STAGES;
+    mbar_wait(&full[s], (it / PF_F32_STAGES) & 1);
+    const uint8_t* ks = stages + s * Tile::STAGE_BYTES;
+    const uint8_t* vs = ks + Tile::KV_BYTES;
+
+    // S = Q K^T: [16, KB] a warp, k-steps of 8 along head_dim (kstep_d)
+    float sc[KB / 8][4];
+#pragma unroll
+    for (int jn = 0; jn < KB / 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[jn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const int d = kstep_d<HD>(kk, tq);
+      const float2 x0 = *reinterpret_cast<const float2*>(q_s + fswz<HD>(r0, d, PF_ROWS));
+      const float2 x1 = *reinterpret_cast<const float2*>(q_s + fswz<HD>(r0 + 8, d, PF_ROWS));
+      uint32_t ab[4], as[4];
+      split_tf32(x0.x, ab[0], as[0]);
+      split_tf32(x1.x, ab[1], as[1]);
+      split_tf32(x0.y, ab[2], as[2]);
+      split_tf32(x1.y, ab[3], as[3]);
+#pragma unroll
+      for (int jn = 0; jn < KB / 8; ++jn) {
+        const float2 kx = *reinterpret_cast<const float2*>(ks + fswz<HD>(8 * jn + g, d, KB));
+        uint32_t bb[2], bs[2];
+        split_tf32(kx.x, bb[0], bs[0]);
+        split_tf32(kx.y, bb[1], bs[1]);
+        mma_3xtf32(sc[jn], ab, as, bb, bs);
+      }
+    }
+
+    // online softmax on the fragment, as the bf16 kernel takes it:
+    // element e of block jn is row r0 + 8 * (e >> 1), key
+    // j * KB + 8 * jn + 2 * tq + (e & 1); log2 units, masked keys -inf
+    const int kbase = j * KB + 2 * tq;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int jn = 0; jn < KB / 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = cap(sc[jn][e] * scale, softcap) * LOG2E;
+        sc[jn][e] = visible(kbase + 8 * jn + (e & 1), qpos[e >> 1], win)
+                        ? x : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[jn][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int jn = 0; jn < KB / 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[jn][e] = exp2f(sc[jn][e] - m[e >> 1]);
+        l[e >> 1] += sc[jn][e];
+      }
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nd][e] *= alpha[e >> 1];
+
+    // O += P V, k-steps of 8 keys. The S accumulator is the A operand as
+    // it stands: column t of A stands for key 2t and column t + 4 for key
+    // 2t + 1 (so no shuffle), and B's rows t and t + 4 are V's rows 2t
+    // and 2t + 1 to match; the swizzle keeps these loads conflict-free.
+    // Each 8-wide column tile of O takes the key block's products from
+    // zero and one float32 add (see mma_3xtf32): added on the tensor
+    // cores, outputs near 5 missed atol 1e-5 by up to 3e-6 (PERF.md,
+    // Findings).
+    uint32_t pb[KB / 8][4], psm[KB / 8][4];
+#pragma unroll
+    for (int jn = 0; jn < KB / 8; ++jn) {
+      split_tf32(sc[jn][0], pb[jn][0], psm[jn][0]);
+      split_tf32(sc[jn][2], pb[jn][1], psm[jn][1]);
+      split_tf32(sc[jn][1], pb[jn][2], psm[jn][2]);
+      split_tf32(sc[jn][3], pb[jn][3], psm[jn][3]);
+    }
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) {
+      const int dc = 8 * nd + g;
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int jn = 0; jn < KB / 8; ++jn) {
+        const int key = 8 * jn + 2 * tq;
+        uint32_t bb[2], bs[2];
+        split_tf32(*reinterpret_cast<const float*>(vs + fswz<HD>(key, dc, KB)),
+                   bb[0], bs[0]);
+        split_tf32(*reinterpret_cast<const float*>(vs + fswz<HD>(key + 1, dc, KB)),
+                   bb[1], bs[1]);
+        mma_3xtf32(t, pb[jn], psm[jn], bb, bs);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nd][e] += t[e];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+    ++it;
+  }
+
+  // epilogue: row sums over the quad, O / max(l, 1e-9)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = r0 + 8 * i, tl = r / G, t = t0 + tl;
+    if (r >= R || t >= Tq) continue;
+    const float lc = fmaxf(l[i], 1e-9f);
+    float* orow = out + (((long long)b * Tq + t) * H + kv * G + (r - tl * G)) * HD +
+                  2 * tq;
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd)
+      *reinterpret_cast<float2*>(orow + 8 * nd) =
+          make_float2(o[nd][2 * i] / lc, o[nd][2 * i + 1] / lc);
+  }
+}
+
+// The layer's pool [N, KV, ps, hd] as a 2-D [N * KV * ps, hd] float32
+// array, read in boxes of [kb rows, min(hd, 32) columns]: the 128-byte
+// swizzle, or none at head_dim 16.
+bool pool_map_f32(CUtensorMap* map, const void* pool, long long rows, int hd,
+                  int kb) {
+  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, pool, rows, hd,
+                  (unsigned long long)hd * 4, kb, hd < 32 ? hd : 32,
+                  hd < 32 ? CU_TENSOR_MAP_SWIZZLE_NONE
+                          : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int HD, int KB>
+int launch_f32(const void* q, const void* k_pages, const void* v_pages,
+               const int* page_table, const int* q_positions,
+               const int* eff_win, void* out, int B, int Tq, int H, int KV,
+               int N, int ps, int P, float scale, float softcap,
+               cudaStream_t st) {
+  using Tile = PrefillF32Tile<HD, KB>;
+  CUtensorMap k_map, v_map;
+  const long long rows = (long long)N * KV * ps;
+  if (rows > INT_MAX || !pool_map_f32(&k_map, k_pages, rows, HD, KB) ||
+      !pool_map_f32(&v_map, v_pages, rows, HD, KB))
+    return (int)cudaErrorInvalidValue;
+  const int TQ = PF_ROWS / (H / KV);
+  cudaFuncSetAttribute(paged_prefill_f32_kernel<HD, KB>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
+  paged_prefill_f32_kernel<HD, KB>
+      <<<dim3(B * KV, (Tq + TQ - 1) / TQ), PF_BF16_THREADS, Tile::SMEM, st>>>(
+          k_map, v_map, static_cast<const float*>(q), page_table, q_positions,
+          eff_win, static_cast<float*>(out), Tq, H, KV, N, ps, P, scale,
+          softcap);
+  return (int)cudaGetLastError();
+}
+
+// the float32 kernel with KB keys a stage (KB = min(ps, f32_stage_keys)):
+// tries KB, KB / 2, ... down to 8
+template <int HD, int KB>
+int launch_f32_kb(int kb, const void* q, const void* k_pages,
+                  const void* v_pages, const int* page_table,
+                  const int* q_positions, const int* eff_win, void* out,
+                  int B, int Tq, int H, int KV, int N, int ps, int P,
+                  float scale, float softcap, cudaStream_t st) {
+  if (kb == KB)
+    return launch_f32<HD, KB>(q, k_pages, v_pages, page_table, q_positions,
+                              eff_win, out, B, Tq, H, KV, N, ps, P, scale,
+                              softcap, st);
+  if constexpr (KB > 8)
+    return launch_f32_kb<HD, KB / 2>(kb, q, k_pages, v_pages, page_table,
+                                     q_positions, eff_win, out, B, Tq, H, KV,
+                                     N, ps, P, scale, softcap, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int HD>
+int launch_f32_hd(const void* q, const void* k_pages, const void* v_pages,
+                  const int* page_table, const int* q_positions,
+                  const int* eff_win, void* out, int B, int Tq, int H,
+                  int KV, int N, int ps, int P, float scale, float softcap,
+                  cudaStream_t st) {
+  constexpr int KBM = f32_stage_keys(HD);
+  return launch_f32_kb<HD, KBM>(ps < KBM ? ps : KBM, q, k_pages, v_pages,
+                                page_table, q_positions, eff_win, out, B, Tq,
+                                H, KV, N, ps, P, scale, softcap, st);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. bfloat16 takes head_dim 64, 128 or
-// 256, page size 16, 32, 64 or 128 and GQA groups of 1 to 8 (the wrapper
-// checks and names what it refuses); float32 takes what fits in shared
-// memory. Returns cudaGetLastError() after the launch.
+// The float32 kernel's shared memory a block at head_dim hd and page size
+// ps (the stage size launch_f32_hd picks), for a shape of f32_shape.
+extern "C" int dyn_paged_prefill_f32_smem(int hd, int ps) {
+  const int kb = f32_stage_keys(hd);
+  return f32_tile_smem(hd, ps < kb ? ps : kb);
+}
+
+// route (the wrapper picks it from the shape, ops/paged_attention.py
+// prefill_route; never retried): 1 = paged_prefill_bf16_kernel (dtype 1:
+// head_dim 64, 128 or 256, page size 16, 32, 64 or 128, GQA groups of 1
+// to 8), 2 = paged_prefill_f32_kernel (dtype 0: f32_shape in
+// attention_common.cuh), 0 =
+// paged_prefill_kernel<float> (dtype 0, what fits in shared memory).
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
+// launch.
 extern "C" int dyn_paged_attention_prefill(
-    int dtype, const void* q, const void* k_pages, const void* v_pages,
-    const int* page_table, const int* q_positions, const int* eff_win,
-    void* out, int B, int Tq, int H, int KV, int N, int ps, int hd, int P,
-    float scale, float softcap, void* stream) {
-  if (B == 0 || Tq == 0) return (int)cudaSuccess;
+    int route, int dtype, const void* q, const void* k_pages,
+    const void* v_pages, const int* page_table, const int* q_positions,
+    const int* eff_win, void* out, int B, int Tq, int H, int KV, int N,
+    int ps, int hd, int P, float scale, float softcap, void* stream) {
+  if (KV < 1 || H % KV != 0 || route < 0 || route > 2 ||
+      dtype != (route == 1 ? 1 : 0))
+    return (int)cudaErrorInvalidValue;
   const int G = H / KV;
+  if (route == 2 && !f32_shape(G, ps, hd)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Tq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (route == 2) {
+    switch (hd) {
+#define PF_F32_CASE(HD)                                                       \
+  case HD:                                                                    \
+    return launch_f32_hd<HD>(q, k_pages, v_pages, page_table, q_positions,    \
+                             eff_win, out, B, Tq, H, KV, N, ps, P, scale,     \
+                             softcap, st);
+      PF_F32_CASE(16) PF_F32_CASE(32) PF_F32_CASE(64) PF_F32_CASE(128)
+      PF_F32_CASE(256)
+#undef PF_F32_CASE
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == 1) {
     if (G < 1 || G > 8) return (int)cudaErrorInvalidValue;
     switch (hd) {
       case 64:
@@ -619,9 +1053,9 @@ extern "C" int dyn_paged_attention_prefill(
     }
     return (int)cudaErrorInvalidValue;
   }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  // float32: ~64 (query, head) rows per block, fewer queries while the
-  // block's shared memory would pass the limit
+  // route 0, the generic float32 kernel: ~64 (query, head) rows per
+  // block, fewer queries while the block's shared memory would pass the
+  // limit
   int TQ = G < 64 ? 64 / G : 1;
   while (TQ > 1 && prefill_smem_bytes(TQ, G, ps, hd) > PF_F32_SMEM_LIMIT) TQ /= 2;
   const size_t smem = prefill_smem_bytes(TQ, G, ps, hd);

@@ -20,14 +20,22 @@ what bounds it on an H100 and what its design does about it:
   (independent warps, tensor-core products, a per-warp ``cp.async`` ring
   of 16-key blocks; the splits of a row and kv head are one thread-block
   cluster, :func:`decode_cluster_plan`, and fold with the window keys
-  through its distributed shared memory); float32 and other bfloat16
-  shapes run the generic ``paged_decode_kernel`` and
-  ``paged_decode_combine``, split by :func:`decode_split_plan`. Both
-  plans take host-known shapes only.
+  through its distributed shared memory); float32 at head_dim
+  16/32/64/128/256, page size 8 to 128 and GQA groups up to 8 (the
+  ``tiny``, ``1b`` and ``llama3_8b`` presets in float32) run
+  ``paged_decode_f32_kernel``, the same design with float32 rings and
+  CUDA-core products; other shapes run the generic
+  ``paged_decode_kernel`` and ``paged_decode_combine``, split by
+  :func:`decode_split_plan`. The plans take host-known shapes only.
 - :func:`paged_attention_prefill` replaces the TPU kernel reached through
   ``paged_attention_prefill``: chunked-prefill attention with causal
   visibility by absolute ``q_positions`` (-1 = padding) intersected with
-  the per-row sliding window ``eff_win``.
+  the per-row sliding window ``eff_win``. The route comes from the shape
+  (:func:`prefill_route`): ``paged_prefill_bf16_kernel`` (``wgmma`` and a
+  TMA ring) for bfloat16 at its shapes, ``paged_prefill_f32_kernel``
+  (3xTF32 on ``mma.sync``, the same TMA ring) for float32 at the float32
+  decode route's shapes, the generic ``paged_prefill_kernel<float>`` for
+  other float32 shapes; other bfloat16 shapes raise.
 - :func:`paged_attention_decode_sharded` (and its window form
   :func:`paged_attention_decode_window_sharded`) and
   :func:`paged_attention_prefill_sharded` replace the JAX package's
@@ -41,11 +49,11 @@ CUDA tensors it launches its kernel on the current stream or raises —
 there is no fallback. Every wrapper call that launches adds one to
 ``LAUNCHES[name]``, once per call (a sharded wrapper's call counts as
 a call of its kernel; with a mesh the model calls only the sharded
-wrappers): a bf16 decode call is one kernel,
+wrappers): a bf16 or float32 decode call is one kernel,
 which folds its splits and the window keys itself; a generic decode call
 is the split kernel and, when it folds (pages split over blocks, or a
-window buffer), ``paged_decode_combine``. ``DECODE_ROUTE_LAUNCHES``
-counts the same calls by route.
+window buffer), ``paged_decode_combine``. ``DECODE_ROUTE_LAUNCHES`` and
+``PREFILL_ROUTE_LAUNCHES`` count the same calls by route.
 """
 
 from __future__ import annotations
@@ -62,9 +70,12 @@ NO_WINDOW = 1 << 30  # "infinite" effective sliding window (int32-safe)
 # counts its kernel pair (split kernel + combine) once
 LAUNCHES: Dict[str, int] = {"paged_attention_decode": 0,
                             "paged_attention_prefill": 0}
-# the same decode calls by route (see decode_route)
-DECODE_ROUTE_LAUNCHES: Dict[str, int] = {"bf16_mma": 0, "generic": 0}
-DECODE_ROUTES = ("generic", "bf16_mma")  # the C entries' route numbers
+# the C entries' route numbers, and the same calls by route (see
+# decode_route and prefill_route)
+DECODE_ROUTES = ("generic", "bf16_mma", "f32")
+DECODE_ROUTE_LAUNCHES: Dict[str, int] = {r: 0 for r in DECODE_ROUTES}
+PREFILL_ROUTES = ("generic", "bf16", "f32")
+PREFILL_ROUTE_LAUNCHES: Dict[str, int] = {r: 0 for r in PREFILL_ROUTES}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # shapes the bfloat16 prefill kernel is built for
@@ -82,10 +93,17 @@ DECODE_BF16_MAX_SPLITS = 8  # one cluster: the portable maximum size
 DECODE_CLUSTER_SIZES = (8, 4, 2, 1)
 # the generic kernel's most splits per (row, kv head)
 DECODE_MAX_SPLITS = 128
+# shapes the float32 decode and prefill kernels are built for (f32_shape
+# in csrc/attention_common.cuh)
+F32_HEAD_DIMS = (16, 32, 64, 128, 256)
+F32_PAGE_SIZES = (8, 16, 32, 64, 128)
+F32_MAX_GROUP = 8
+# shared memory a block may take on an H100 (227 KB, after opting in)
+SMEM_LIMIT = 232448
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, DECODE_ROUTE_LAUNCHES):
+    for counts in (LAUNCHES, DECODE_ROUTE_LAUNCHES, PREFILL_ROUTE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -117,7 +135,7 @@ def _lib():
             i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         lib.dyn_paged_decode_resident.restype = i
         lib.dyn_paged_decode_clusters.argtypes = [
-            i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+            i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         lib.dyn_paged_decode_clusters.restype = i
         lib._dyn_typed = True
     return lib
@@ -131,7 +149,7 @@ def _prefill_lib():
     if not getattr(lib, "_dyn_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dyn_paged_attention_prefill.argtypes = [
-            i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, p]
+            i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, p]
         lib.dyn_paged_attention_prefill.restype = i
         lib._dyn_typed = True
     return lib
@@ -171,19 +189,19 @@ def _resident(device: torch.device, dtype: torch.dtype, H: int, KV: int,
     return _RESIDENT[key]
 
 
-def _clusters(device: torch.device, H: int, KV: int, ps: int,
+def _clusters(device: torch.device, route: int, H: int, KV: int, ps: int,
               hd: int) -> Dict[int, int]:
     """Clusters of each size in :data:`DECODE_CLUSTER_SIZES` that the card
-    holds at once of the bf16 decode kernel at this shape, queried once
-    (cudaOccupancyMaxActiveClusters)."""
-    key = (_device_index(device), H // KV, ps, hd)
+    holds at once of the route's decode kernel (1 = bf16, 2 = float32) at
+    this shape, queried once (cudaOccupancyMaxActiveClusters)."""
+    key = (_device_index(device), route, H // KV, ps, hd)
     if key not in _CLUSTERS:
         found = {}
         for S in DECODE_CLUSTER_SIZES:
             n = ctypes.c_int(0)
             with torch.cuda.device(key[0]):
-                err = _lib().dyn_paged_decode_clusters(H, KV, ps, hd, S,
-                                                       ctypes.byref(n))
+                err = _lib().dyn_paged_decode_clusters(route, H, KV, ps, hd,
+                                                       S, ctypes.byref(n))
             if err != 0:
                 raise RuntimeError(f"decode cluster occupancy query failed: "
                                    f"CUDA error {err} (H={H} KV={KV} "
@@ -308,15 +326,58 @@ def paged_attention_decode_layered(
     return (out, m, l) if return_stats else out
 
 
+def _f32_shape(dtype: torch.dtype, H: int, KV: int, ps: int,
+               hd: int) -> bool:
+    return (dtype == torch.float32 and hd in F32_HEAD_DIMS
+            and ps in F32_PAGE_SIZES and H // KV <= F32_MAX_GROUP)
+
+
 def decode_route(dtype: torch.dtype, H: int, KV: int, ps: int,
                  hd: int) -> int:
     """The decode kernel a shape runs on, by shape alone: 1 (``bf16_mma``,
     ``paged_decode_bf16_kernel``) for bfloat16 at the ``DECODE_BF16_*``
-    head dims, page sizes and GQA groups, else 0 (``generic``,
-    ``paged_decode_kernel``)."""
-    return int(dtype == torch.bfloat16 and hd in DECODE_BF16_HEAD_DIMS
-               and ps in DECODE_BF16_PAGE_SIZES
-               and H // KV <= DECODE_BF16_MAX_GROUP)
+    head dims, page sizes and GQA groups, 2 (``f32``,
+    ``paged_decode_f32_kernel``) for float32 at the ``F32_*`` ones, else 0
+    (``generic``, ``paged_decode_kernel``)."""
+    if (dtype == torch.bfloat16 and hd in DECODE_BF16_HEAD_DIMS
+            and ps in DECODE_BF16_PAGE_SIZES
+            and H // KV <= DECODE_BF16_MAX_GROUP):
+        return 1
+    return 2 if _f32_shape(dtype, H, KV, ps, hd) else 0
+
+
+def prefill_route(dtype: torch.dtype, H: int, KV: int, ps: int,
+                  hd: int) -> int:
+    """The prefill kernel a shape runs on, by shape alone: 1 (``bf16``,
+    ``paged_prefill_bf16_kernel``) for bfloat16 at the ``PREFILL_BF16_*``
+    head dims, page sizes and GQA groups, 2 (``f32``,
+    ``paged_prefill_f32_kernel``) for float32 at the ``F32_*`` ones, else
+    0 (``generic``, ``paged_prefill_kernel<float>``, float32 only)."""
+    if (dtype == torch.bfloat16 and hd in PREFILL_BF16_HEAD_DIMS
+            and ps in PREFILL_BF16_PAGE_SIZES
+            and H // KV <= PREFILL_BF16_MAX_GROUP):
+        return 1
+    return 2 if _f32_shape(dtype, H, KV, ps, hd) else 0
+
+
+def decode_f32_smem(hd: int) -> int:
+    """Shared memory of a block of the float32 decode kernel
+    (``DecodeF32Tile<hd>::SMEM`` in csrc/paged_attention.cu, which the
+    card tests hold this equal to): four warps' rings of 3 stages of K
+    and V of 8 keys, the window's K and V rows (16 slots) and scores, the
+    stages' mbarriers."""
+    ring = 4 * 3 * 2 * 8 * hd * 4
+    merge = 4 * (4 * 8 * hd + 3 * 4 * 8 + 2 * 8 + 8 * 8 + 8)
+    return max(ring, merge) + 2 * 16 * hd * 4 + 4 * 8 * 16 + 4 * 3 * 8
+
+
+def prefill_f32_smem(hd: int, ps: int) -> int:
+    """Shared memory of a block of the float32 prefill kernel
+    (``f32_tile_smem`` in csrc/paged_prefill.cu, which the card tests
+    hold this equal to): 1 KB of alignment slack, Q [64, hd], two stages
+    of K and V of min(ps, 64, 4096 // hd) keys, the stages' mbarriers."""
+    kb = min(ps, 16 if hd >= 256 else 32 if hd >= 128 else 64)
+    return 1024 + 64 * hd * 4 + 2 * 2 * kb * hd * 4 + 2 * 2 * 8
 
 
 def decode_split_plan(B: int, KV: int, P: int, sms: int,
@@ -364,9 +425,11 @@ def _decode_launch_plan(q: torch.Tensor, k_pools: torch.Tensor,
                f"multiple of 8 (got {G}, {hd})")
     _check(k_pools.data_ptr() % 16 == 0 and v_pools.data_ptr() % 16 == 0,
            "pools must be 16-byte aligned (16-byte page copies)")
-    if route == 1:
+    _check(route != 2 or q.data_ptr() % 16 == 0,
+           "q must be 16-byte aligned (16-byte loads)")
+    if route != 0:
         return route, decode_cluster_plan(
-            B, KV, P, _clusters(q.device, H, KV, ps, hd))
+            B, KV, P, _clusters(q.device, route, H, KV, ps, hd))
     splits = decode_split_plan(
         B, KV, P, _sm_count(q.device),
         _resident(q.device, q.dtype, H, KV, ps, hd))
@@ -376,10 +439,11 @@ def _decode_launch_plan(q: torch.Tensor, k_pools: torch.Tensor,
 def _scratch(device, route: int, window: bool, B: int, KV: int, splits: int,
              G: int, hd: int):
     """(part_acc, part_ml) of one decode call, None where the call needs
-    none: the bf16 kernel folds its splits (through the cluster's shared
-    memory) and the window itself; the generic kernel hands partials to
-    the combine kernel whenever it splits or has a window."""
-    if route == 1 or not (splits > 1 or window):
+    none: the bf16 and float32 kernels fold their splits (through the
+    cluster's shared memory) and the window themselves; the generic kernel
+    hands partials to the combine kernel whenever it splits or has a
+    window."""
+    if route != 0 or not (splits > 1 or window):
         return None, None
     return (torch.empty((B, KV, splits, G, hd), dtype=torch.float32,
                         device=device),
@@ -582,10 +646,9 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
                                  q_positions, scale, softcap, eff_win)
 
     G = H // KV
+    route = prefill_route(q.dtype, H, KV, ps, hd)
     if q.dtype == torch.bfloat16:
-        _check(hd in PREFILL_BF16_HEAD_DIMS
-               and ps in PREFILL_BF16_PAGE_SIZES
-               and G <= PREFILL_BF16_MAX_GROUP,
+        _check(route == 1,
                f"bfloat16 prefill kernel takes head_dim in "
                f"{PREFILL_BF16_HEAD_DIMS}, page_size in "
                f"{PREFILL_BF16_PAGE_SIZES} and GQA groups up to "
@@ -596,7 +659,7 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     lib = _prefill_lib()
     out = torch.empty_like(q)
     err = lib.dyn_paged_attention_prefill(
-        _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+        route, _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), q_positions.data_ptr(),
         eff_win.data_ptr(), out.data_ptr(), B, T, H, KV, N, ps, hd, P,
         float(scale), float(softcap or 0.0),
@@ -604,8 +667,9 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"paged_attention_prefill launch failed: CUDA "
                            f"error {err} (B={B} T={T} H={H} KV={KV} ps={ps} "
-                           f"hd={hd})")
+                           f"hd={hd} route {PREFILL_ROUTES[route]})")
     LAUNCHES["paged_attention_prefill"] += 1
+    PREFILL_ROUTE_LAUNCHES[PREFILL_ROUTES[route]] += 1
     return out
 
 

@@ -219,8 +219,8 @@ def build_engine(args) -> Tuple[object, object]:
 
 def serving_summary(engine) -> dict:
     """What a rank did since warmup: captures after warmup, kernel
-    launches (by kernel, by decode route and, for the int8 GEMM, by
-    route: small_m, wgmma, simt; replays counting the calls their
+    launches (by kernel, by decode and prefill route and, for the int8
+    GEMM, by route: small_m, wgmma, simt; replays counting the calls their
     capture recorded) and graph replays (every variant's)."""
     from .ops import int8_gemm
     from .ops import paged_attention as ops
@@ -231,6 +231,7 @@ def serving_summary(engine) -> dict:
             "batch_dispatches_total": engine.batch_dispatches_total,
             "launches": dict(ops.LAUNCHES),
             "route_launches": dict(ops.DECODE_ROUTE_LAUNCHES),
+            "prefill_route_launches": dict(ops.PREFILL_ROUTE_LAUNCHES),
             "int8_gemm_launches": dict(int8_gemm.INT8_GEMM_LAUNCHES),
             "replays": engine.graph_replays()}
 

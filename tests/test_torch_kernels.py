@@ -273,7 +273,8 @@ def test_cuda_bf16_decode_kernel_matches_plain(cuda_device, G, hd, ps):
     ops.reset_launch_counts()
     got = _decode_check(cuda_device, q, kp, vp, table, lengths, lower,
                         softcap=30.0 if G == 7 else None)
-    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 2, "generic": 0}
+    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 2, "generic": 0,
+                                         "f32": 0}
     assert (got[3] == 0).all() and (got[4] == 0).all()
 
 
@@ -379,7 +380,8 @@ def test_cuda_bf16_decode_cluster_splits_at_one_ranks_heads(cuda_device, tp):
     np.testing.assert_allclose(_np(out), _np(want), rtol=1e-2, atol=2e-2)
     assert (out[0] == 0).all()
     _rows_within_rms(out, want, short, range(1, B))
-    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 2, "generic": 0}
+    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 2, "generic": 0,
+                                         "f32": 0}
 
 
 @pytest.mark.cuda
@@ -461,7 +463,8 @@ def test_cuda_decode_bf16_shape_set_matches_the_kernel(cuda_device):
     DECODE_BF16_MAX_SPLITS) is the set the C side takes on route 1:
     shapes inside get a cluster occupancy answer (at least one cluster of
     every size the plan picks from), shapes outside are refused, and so
-    are a cluster past DECODE_BF16_MAX_SPLITS and float32."""
+    are a cluster past DECODE_BF16_MAX_SPLITS and float32. float32 takes
+    route 2 (the float32 kernel's set) or 0, never route 1."""
     import ctypes
 
     lib = ops._lib()
@@ -470,14 +473,15 @@ def test_cuda_decode_bf16_shape_set_matches_the_kernel(cuda_device):
         for ps in (8, 16, 32, 48, 64, 128, 256):
             for G in (1, 3, 8, 9):
                 route = ops.decode_route(torch.bfloat16, 2 * G, 2, ps, hd)
-                err = lib.dyn_paged_decode_clusters(2 * G, 2, ps, hd, 1,
+                err = lib.dyn_paged_decode_clusters(1, 2 * G, 2, ps, hd, 1,
                                                     ctypes.byref(n))
                 assert (err == 0) == (route == 1), (hd, ps, G)
-                assert ops.decode_route(torch.float32, 2 * G, 2, ps, hd) == 0
+                assert ops.decode_route(torch.float32, 2 * G, 2, ps, hd) in (
+                    0, 2)
     for hd in ops.DECODE_BF16_HEAD_DIMS:
         for S in ops.DECODE_CLUSTER_SIZES:
             n.value = 0
-            assert lib.dyn_paged_decode_clusters(32, 8, 64, hd, S,
+            assert lib.dyn_paged_decode_clusters(1, 32, 8, 64, hd, S,
                                                  ctypes.byref(n)) == 0
             assert n.value >= 1, (hd, S)
     scratch = torch.zeros(16, device=cuda_device).data_ptr()
@@ -514,28 +518,395 @@ def test_cuda_bf16_decode_window_steps(cuda_device, n_win, window):
         q.to(d), kp.to(d), vp.to(d), 1, table.to(d), start.to(d), qp.to(d),
         wk.to(d), wv.to(d), n_win,
         eff_win=None if eff is None else eff.to(d)).cpu()
-    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 1, "generic": 0}
+    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 1, "generic": 0,
+                                         "f32": 0}
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=2e-2)
     assert (got[0] == 0).all()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,hd,ps,G", [
-    (torch.float32, 128, 64, 4),    # float32 at the 8B shape
+    (torch.float32, 96, 64, 4),     # head_dim outside the float32 set
     (torch.bfloat16, 32, 16, 1),    # head_dim outside the bf16 set
     (torch.bfloat16, 64, 8, 2),     # page size outside the bf16 set
 ])
 def test_cuda_decode_other_shapes_run_the_generic_kernel(cuda_device, dtype,
                                                          hd, ps, G):
-    """float32, and bfloat16 shapes outside the bf16 kernel's set, still
-    run on the generic kernel, chosen by shape."""
+    """float32 shapes outside the float32 kernel's set, and bfloat16
+    shapes outside the bf16 kernel's, still run on the generic kernel,
+    chosen by shape."""
     lengths, lower = [3 * ps + 1, 0, 2 * ps], [0, 0, ps + 1]
     q, kp, vp, table = _decode_pool(G, hd, ps, [4, 0, 2], dtype=dtype)
     ops.reset_launch_counts()
     f32 = dtype == torch.float32
     _decode_check(cuda_device, q, kp, vp, table, lengths, lower,
                   tol=1e-5 if f32 else 2e-2, rtol=0.0 if f32 else 1e-2)
-    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 0, "generic": 2}
+    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 0, "generic": 2,
+                                         "f32": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,ps,G", [(96, 64, 4), (32, 4, 2)])
+def test_cuda_decode_window_other_shapes_run_the_generic_kernel(
+        cuda_device, hd, ps, G):
+    """The window form of float32 shapes outside the float32 kernel's set
+    (a head_dim of 96; page 4, chip_smoke.py's check shape) runs on the
+    generic kernel and its combine step, chosen by shape: every step of
+    K = 4 with a sliding window, the softcap and a padding row."""
+    d, Kw = cuda_device, 4
+    q, kp, vp, table = _decode_pool(G, hd, ps, [5, 2, 3, 1],
+                                    dtype=torch.float32)
+    B, KV = q.shape[0], kp.shape[2]
+    g = torch.Generator().manual_seed(hd + ps)
+    wk = torch.randn(B, Kw, KV, hd, generator=g)
+    wv = torch.randn(B, Kw, KV, hd, generator=g)
+    start = torch.tensor([5 * ps - 3, 2 * ps, 3 * ps - 1, -1],
+                         dtype=torch.int32)
+    eff = torch.full((B,), 2 * ps + 3, dtype=torch.int32)
+    ops.reset_launch_counts()
+    for n_win in range(1, Kw + 1):
+        qp = (start.clamp(min=0) + n_win - 1).to(torch.int32)
+        args = (q, kp, vp, 1, table, start, qp, wk, wv, n_win)
+        want = window_reference(*args, hd ** -0.5, 30.0, eff)
+        got = paged_attention_decode_window(
+            *(a.to(d) if torch.is_tensor(a) else a for a in args),
+            softcap=30.0, eff_win=eff.to(d)).cpu()
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
+        assert (got[3] == 0).all()
+    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 0, "generic": Kw,
+                                         "f32": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,ps,G", [(96, 64, 4), (32, 4, 2)])
+def test_cuda_prefill_other_shapes_run_the_generic_kernel(cuda_device, hd,
+                                                          ps, G):
+    """float32 prefill outside the float32 kernel's set (a head_dim of 96;
+    page 4, chip_smoke.py's check shape) runs on the generic kernel
+    (paged_prefill_kernel<float>), chosen by shape: a chunk continuing at
+    position 40 and a row with padding queries, then the same with
+    sliding windows and the softcap."""
+    d, g = cuda_device, torch.Generator().manual_seed(hd + ps)
+    KV, T = 2, 48
+    pos = torch.full((2, T), -1, dtype=torch.int32)
+    pos[0] = torch.arange(40, 40 + T)
+    pos[1, :21] = torch.arange(21)
+    used = -(-(40 + T) // ps)
+    N = 2 * used + 4
+    kp = torch.randn(N, KV, ps, hd, generator=g)
+    vp = torch.randn(N, KV, ps, hd, generator=g)
+    q = torch.randn(2, T, KV * G, hd, generator=g)
+    table = torch.zeros((2, used + 1), dtype=torch.int32)
+    for b in range(2):
+        table[b, :used] = torch.randperm(N - 1, generator=g)[:used] + 1
+    ops.reset_launch_counts()
+    for win, softcap in ((None, None),
+                         (torch.tensor([ps + 7, 9], dtype=torch.int32),
+                          30.0)):
+        want = paged_attention_prefill(q, kp, vp, table, pos,
+                                       softcap=softcap, eff_win=win)
+        got = paged_attention_prefill(
+            q.to(d), kp.to(d), vp.to(d), table.to(d), pos.to(d),
+            softcap=softcap, eff_win=None if win is None else win.to(d))
+        torch.cuda.synchronize()
+        got = got.cpu()
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
+        assert (got[1, 21:] == 0).all()
+    assert ops.PREFILL_ROUTE_LAUNCHES == {"generic": 2, "bf16": 0, "f32": 0}
+
+
+# ------------------------------------------------------ the float32 routes
+# the float32 kernels' set (ops.F32_*), every head_dim, at pages and groups
+# that take each code path: page 8 is one decode stage and one prefill
+# stage, G = 3 leaves idle lanes and padding rows in a prefill block
+F32_CASES = [(hd, ps, G) for hd in ops.F32_HEAD_DIMS
+             for ps in (8, 16, 64, 128) for G in (1, 3, 4, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,ps,G", F32_CASES)
+def test_cuda_f32_decode_kernel_matches_plain(cuda_device, hd, ps, G):
+    """paged_decode_f32_kernel against its plain version at atol 1e-5:
+    the stats form with softcap and ``lower`` on rows of no page, of an
+    empty view (lower = length: m = NEG_INF, l = 0), of 3, 7 and 13 pages,
+    and of 5 pages whose last page id lies outside the pool (its keys
+    skipped: held to the same row without that page); then the window
+    form at every step of K = 4 with a sliding window and a padding row.
+    Every call on route 2."""
+    KV, P, d = 2, 16, cuda_device
+    pages = [0, 1, 3, 7, 13, 5]
+    lengths = [0, 1, 3 * ps - 5, 7 * ps - 1, 13 * ps - 2, 5 * ps - 3]
+    lo = torch.tensor([0, 1, 0, ps + 3, 2 * ps, 0], dtype=torch.int32)
+    q, kp, vp, narrow = _decode_pool(G, hd, ps, pages, KV=KV, L=2,
+                                     seed=hd + ps + G, dtype=torch.float32)
+    B, N = len(pages), kp.shape[1]
+    table = torch.zeros((B, P), dtype=torch.int32)
+    table[:, :narrow.shape[1]] = narrow
+    table[5, 4] = N + 7
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    t_ref, ln_ref = table.clone(), ln.clone()
+    t_ref[5, 4], ln_ref[5] = 0, 4 * ps
+    scale = hd ** -0.5
+    ops.reset_launch_counts()
+    for layer in range(2):
+        want = ops.decode_reference(q, kp, vp, layer, t_ref, ln_ref, lo,
+                                    scale, 30.0)
+        got = paged_attention_decode_layered(
+            q.to(d), kp.to(d), vp.to(d), layer, table.to(d), ln.to(d),
+            return_stats=True, softcap=30.0, lower=lo.to(d))
+        torch.cuda.synchronize()
+        got = [t.cpu() for t in got]
+        np.testing.assert_allclose(_np(got[0]), _np(want[0]), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(_np(got[1]), _np(want[1]), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(_np(got[2]), _np(want[2]), rtol=1e-5,
+                                   atol=1e-5)
+        for r in (0, 1):
+            assert (got[0][r] == 0).all() and (got[2][r] == 0).all()
+            assert (got[1][r] == ops.NEG_INF).all()
+
+    Kw = 4
+    g = torch.Generator().manual_seed(ps)
+    wk = torch.randn(B, Kw, KV, hd, generator=g)
+    wv = torch.randn(B, Kw, KV, hd, generator=g)
+    start = torch.tensor([-1, 0] + lengths[2:5] + [4 * ps],
+                         dtype=torch.int32)
+    eff = torch.full((B,), 3 * ps // 2, dtype=torch.int32)
+    for n_win in range(1, Kw + 1):
+        qp = (start.clamp(min=0) + n_win - 1).to(torch.int32)
+        args = (q, kp, vp, 1, t_ref, start, qp, wk, wv, n_win)
+        want = window_reference(*args, scale, None, eff)
+        got = paged_attention_decode_window(
+            *(a.to(d) if torch.is_tensor(a) else a for a in args),
+            eff_win=eff.to(d)).cpu()
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
+        assert (got[0] == 0).all()
+    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 0, "generic": 0,
+                                         "f32": 2 + Kw}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,ps,G", F32_CASES)
+def test_cuda_f32_prefill_kernel_matches_plain(cuda_device, hd, ps, G):
+    """paged_prefill_f32_kernel (3xTF32) against its plain version at atol
+    1e-5: a chunk continuing at position 40, a row with padding queries
+    at its end, a row of padding only, and a page id outside the pool
+    past the chunk's pages (never read); then a second chunk with
+    sliding windows and the softcap. Every call on route 2."""
+    d, g = cuda_device, torch.Generator().manual_seed(hd * ps + G)
+    KV, T = 2, 80
+    pos = torch.full((3, T), -1, dtype=torch.int32)
+    pos[0] = torch.arange(40, 40 + T)
+    pos[1, :33] = torch.arange(33)
+    used = -(-(40 + T) // ps)
+    N, P = 2 * used + 4, used + 2
+    kp = torch.randn(N, KV, ps, hd, generator=g)
+    vp = torch.randn(N, KV, ps, hd, generator=g)
+    q = torch.randn(3, T, KV * G, hd, generator=g)
+    table = torch.zeros((3, P), dtype=torch.int32)
+    for b in range(3):
+        table[b, :used] = torch.randperm(N - 1, generator=g)[:used] + 1
+    t_dev = table.clone()
+    t_dev[0, used + 1] = N + 5
+    ops.reset_launch_counts()
+    for win, softcap in ((None, None),
+                         (torch.tensor([ps + 7, 9, 1], dtype=torch.int32),
+                          30.0)):
+        want = paged_attention_prefill(q, kp, vp, table, pos,
+                                       softcap=softcap, eff_win=win)
+        got = paged_attention_prefill(
+            q.to(d), kp.to(d), vp.to(d), t_dev.to(d), pos.to(d),
+            softcap=softcap, eff_win=None if win is None else win.to(d))
+        torch.cuda.synchronize()
+        got = got.cpu()
+        np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
+        assert (got[1, 33:] == 0).all() and (got[2] == 0).all()
+    assert ops.PREFILL_ROUTE_LAUNCHES == {"generic": 0, "bf16": 0, "f32": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,ps,G", [(128, 64, 4), (64, 64, 4)])
+def test_cuda_f32_prefill_first_chunk_at_served_heads(cuda_device, hd, ps,
+                                                      G):
+    """A first 512-token chunk at the 8B's and the 1b's heads (8 kv
+    heads), as phase 5 of chip_smoke.py times it: every tile of 64 rows
+    walks up to the whole chunk's keys."""
+    d, g = cuda_device, torch.Generator().manual_seed(hd)
+    KV, T = 8, 512
+    N = T // ps + 2
+    kp = torch.randn(N, KV, ps, hd, generator=g)
+    vp = torch.randn(N, KV, ps, hd, generator=g)
+    q = torch.randn(1, T, KV * G, hd, generator=g)
+    table = (torch.randperm(N - 1, generator=g)[:T // ps] + 1)[None].to(
+        torch.int32)
+    pos = torch.arange(T, dtype=torch.int32)[None]
+    want = paged_attention_prefill(q, kp, vp, table, pos)
+    got = paged_attention_prefill(q.to(d), kp.to(d), vp.to(d), table.to(d),
+                                  pos.to(d)).cpu()
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_shape_set_matches_the_kernels(cuda_device):
+    """The wrapper's float32 set (ops.F32_*) is the set the C side takes
+    on route 2 of both kernels: shapes inside get a cluster occupancy
+    answer from the decode kernel (at least one cluster of every size
+    the plan picks from) and are taken by the prefill entry, shapes
+    outside are refused by both, and so is bfloat16. The shared memory
+    the CPU tests hold to the card's limit (ops.decode_f32_smem,
+    ops.prefill_f32_smem) is the kernels' own."""
+    import ctypes
+
+    lib, plib = ops._lib(), ops._prefill_lib()
+    n = ctypes.c_int(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    scratch = torch.zeros(16, device=cuda_device).data_ptr()
+    for hd in (16, 24, 32, 64, 96, 128, 256, 512):
+        for ps in (4, 8, 16, 48, 64, 128, 256):
+            for G in (1, 3, 8, 9):
+                inside = ops.decode_route(torch.float32, 2 * G, 2, ps,
+                                          hd) == 2
+                assert inside == (ops.prefill_route(torch.float32, 2 * G, 2,
+                                                    ps, hd) == 2)
+                err = lib.dyn_paged_decode_clusters(2, 2 * G, 2, ps, hd, 1,
+                                                    ctypes.byref(n))
+                assert (err == 0) == inside, (hd, ps, G)
+                # B = 0: the entry checks its arguments, launches nothing
+                err = plib.dyn_paged_attention_prefill(
+                    2, 0, *[scratch] * 7, 0, 4, 2 * G, 2, 8, ps, hd, 4, 1.0,
+                    0.0, stream)
+                assert (err == 0) == inside, (hd, ps, G)
+    for hd in ops.F32_HEAD_DIMS:
+        for S in ops.DECODE_CLUSTER_SIZES:
+            n.value = 0
+            assert lib.dyn_paged_decode_clusters(2, 32, 8, 64, hd, S,
+                                                 ctypes.byref(n)) == 0
+            assert n.value >= 1, (hd, S)
+        assert lib.dyn_paged_decode_f32_smem(hd) == ops.decode_f32_smem(hd)
+        for ps in ops.F32_PAGE_SIZES:
+            assert plib.dyn_paged_prefill_f32_smem(hd, ps) == (
+                ops.prefill_f32_smem(hd, ps)), (hd, ps)
+    assert plib.dyn_paged_attention_prefill(
+        2, 1, *[scratch] * 7, 0, 4, 8, 2, 8, 64, 128, 4, 1.0, 0.0,
+        stream) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["stats", "window"])
+def test_cuda_f32_decode_repeats_bitwise_under_contention(cuda_device,
+                                                          form):
+    """The float32 decode kernel's result does not depend on when its
+    blocks run: 200 calls on the inputs of
+    test_cuda_decode_kernel_matches_plain[5-float32] (8B heads, rows of
+    0 to 384 positions, clusters of splits), with a side stream's matrix
+    products holding SMs between them, are bitwise equal and within atol
+    1e-5 of the plain version, computed on the card. A race in the rings,
+    the warps' merge or the cluster fold would show as calls that
+    differ."""
+    d = cuda_device
+    g = torch.Generator().manual_seed(0)
+    L, N, KV, ps, hd, H, P, B = 1, 40, 8, 64, 128, 32, 6, 5
+    kp = torch.randn(L, N, KV, ps, hd, generator=g).to(d)
+    vp = torch.randn(L, N, KV, ps, hd, generator=g).to(d)
+    q = torch.randn(B, H, hd, generator=g).to(d)
+    table = torch.randint(1, N, (B, P), generator=g,
+                          dtype=torch.int32).to(d)
+    lengths = torch.tensor([0, 1, 64, 300, 384], dtype=torch.int32,
+                           device=d)
+    lower = torch.tensor([0, 0, 10, 200, 0], dtype=torch.int32, device=d)
+    Kw = 4
+    wk = torch.randn(B, Kw, KV, hd, generator=g).to(d)
+    wv = torch.randn(B, Kw, KV, hd, generator=g).to(d)
+    qp = (lengths + Kw - 1).to(torch.int32)
+    if form == "stats":
+        run = lambda: paged_attention_decode_layered(  # noqa: E731
+            q, kp, vp, 0, table, lengths, return_stats=True, softcap=30.0,
+            lower=lower)
+        want = ops.decode_reference(q, kp, vp, 0, table, lengths, lower,
+                                    hd ** -0.5, 30.0)[0]
+    else:
+        run = lambda: (paged_attention_decode_window(  # noqa: E731
+            q, kp, vp, 0, table, lengths, qp, wk, wv, Kw),)
+        want = window_reference(q, kp, vp, 0, table, lengths, qp, wk, wv,
+                                Kw, hd ** -0.5)
+    a = torch.randn(2048, 2048, device=d)
+    b = torch.empty_like(a)
+    side = torch.cuda.Stream()
+    ops.reset_launch_counts()
+    outs = []
+    for i in range(200):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(i % 4):
+                torch.mm(a, a, out=b)
+        outs.append(torch.cat([t.reshape(-1) for t in run()]))
+    torch.cuda.synchronize()
+    assert ops.DECODE_ROUTE_LAUNCHES["f32"] == 200
+    np.testing.assert_allclose(_np(outs[0][:want.numel()].cpu()),
+                               _np(want.reshape(-1)), rtol=0, atol=1e-5)
+    differ = [i for i, o in enumerate(outs) if not torch.equal(o, outs[0])]
+    assert not differ, f"calls {differ[:10]} differ from the first"
+
+
+@pytest.mark.cuda
+def test_cuda_host_plain_decode_repeats_bitwise(cuda_device):
+    """The card tests hold the kernels to their plain versions computed on
+    the host's CPU, so the host's plain version must give one answer: 100
+    calls a layer of the float32 plain decode on the inputs of
+    test_cuda_decode_kernel_matches_plain[5-float32] are bitwise equal.
+    A host that fails this fails the kernel tests at random, with the
+    kernel right."""
+    g = torch.Generator().manual_seed(0)
+    L, N, KV, ps, hd, H, P, B = 2, 40, 8, 64, 128, 32, 6, 5
+    kp = torch.randn(L, N, KV, ps, hd, generator=g)
+    vp = torch.randn(L, N, KV, ps, hd, generator=g)
+    q = torch.randn(B, H, hd, generator=g)
+    table = torch.randint(1, N, (B, P), generator=g, dtype=torch.int32)
+    lengths = torch.tensor([0, 1, 64, 300, 384], dtype=torch.int32)
+    lower = torch.tensor([0, 0, 10, 200, 0], dtype=torch.int32)
+    differ = []
+    for layer in range(L):
+        runs = [ops.decode_reference(q, kp, vp, layer, table, lengths, lower,
+                                     hd ** -0.5, 30.0)[0] for _ in range(100)]
+        for i, o in enumerate(runs[1:], 1):
+            if not torch.equal(o, runs[0]):
+                e = (o - runs[0]).abs().reshape(B, KV, -1).amax(-1)
+                differ.append((layer, i, float(e.max()),
+                               [(b, k) for b in range(B) for k in range(KV)
+                                if e[b, k] > 0]))
+    assert not differ, (f"{len(differ)} of 198 calls differ from their "
+                        f"layer's first: {differ[:4]}")
+
+
+@pytest.mark.cuda
+def test_cuda_f32_decode_graph_replay_equals_eager(cuda_device):
+    """The float32 decode kernel (one cluster launch, no scratch) captured
+    in a CUDA graph replays bitwise its eager call."""
+    d = cuda_device
+    q, kp, vp, table = _decode_pool(4, 128, 64, [3, 7, 1, 0], KV=8, L=1,
+                                    dtype=torch.float32)
+    q, kp, vp, table = (t.to(d) for t in (q, kp, vp, table))
+    g = torch.Generator().manual_seed(9)
+    wk = torch.randn(4, 4, 8, 128, generator=g).to(d)
+    wv = torch.randn(4, 4, 8, 128, generator=g).to(d)
+    start = torch.tensor([3 * 64 - 2, 7 * 64 - 9, 5, -1], dtype=torch.int32,
+                         device=d)
+    qp = (start.clamp(min=0) + 3).to(torch.int32)
+    run = lambda: paged_attention_decode_window(  # noqa: E731
+        q, kp, vp, 0, table, start, qp, wk, wv, 4)
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 # ------------------------------------------------ decode windows as graphs
@@ -669,7 +1040,7 @@ def test_cuda_graph_replay_counts_equal_eager_counts(cuda_device):
     assert ops.LAUNCHES == {k: 2 * n for k, n in eager[0].items()}
     assert ops.DECODE_ROUTE_LAUNCHES == {k: 2 * n for k, n in
                                          eager[1].items()}
-    assert eager[1] == {"bf16_mma": 8, "generic": 0}
+    assert eager[1] == {"bf16_mma": 8, "generic": 0, "f32": 0}
 
 
 @pytest.mark.cuda
@@ -864,7 +1235,7 @@ def test_cuda_sharded_wrappers_at_one_ranks_heads(cuda_device, tp, dtype,
                             "paged_attention_prefill": 0}
     if dtype == torch.bfloat16:
         assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 1 + Kw,
-                                             "generic": 0}
+                                             "generic": 0, "f32": 0}
     pos = torch.full((2, 512), -1, dtype=torch.int32)
     pos[0] = torch.arange(512)
     pos[1, :256] = torch.arange(512, 768)

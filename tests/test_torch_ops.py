@@ -452,7 +452,7 @@ def test_decode_cluster_plan_at_the_served_shapes():
     (torch.bfloat16, 64, 64, 4, 1),    # the 1b preset
     (torch.bfloat16, 256, 16, 8, 1),
     (torch.bfloat16, 128, 128, 1, 1),
-    (torch.float32, 128, 64, 4, 0),    # float32: the generic kernel
+    (torch.float32, 128, 64, 4, 2),    # float32 at the 8B shape: f32
     (torch.bfloat16, 16, 64, 4, 0),    # the tiny preset's head_dim
     (torch.bfloat16, 32, 16, 1, 0),    # chip_smoke's "small" case
     (torch.bfloat16, 64, 8, 2, 0),     # chip_smoke's "mha-64" case

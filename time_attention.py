@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Device time of the bf16 attention kernels at chip_smoke.py's phase-5
+"""Device time of the attention kernels at chip_smoke.py's phase-5
 shapes, for comparing two trees on one card.
 
-    python3 time_attention.py          # from the root of a checkout
+    python3 time_attention.py [--dtype bfloat16|float32]   # from a checkout
 
 Llama-3-8B attention widths (H=32, KV=8, head_dim 128, page 64), a random
 pool of 512 pages and queries from a seed:
@@ -16,10 +16,16 @@ pool of 512 pages and queries from a seed:
   tp 2, 4 and 8 (32/tp q heads, 8/tp kv heads; a pool of those kv
   heads): the served window, and at tp=8 the long-row guard, 8 rows of
   3,968 positions.
+With ``--dtype float32`` the same prefill and decode shapes run on
+float32 pools (the float32 routes), with the served window also in the
+order chip_smoke.py's phase 4 served its rows, and the 1b's heads
+(head_dim 64) at the first chunk and the served window beside them; the
+sharded shapes are bf16 only.
 Each shape is timed three times (CUDA graph of 50 launches,
-chip_smoke.time_ms) and held to its plain version (bf16 tolerance); the
-line also carries a digest of each output's bits (``digest``), so that
-two trees' kernels can be shown bitwise equal on the same seeded inputs.
+chip_smoke.time_ms) and held to its plain version (the tolerance of its
+dtype: bf16 atol 2e-2 + rtol 1e-2, float32 atol 1e-5); the line also
+carries a digest of each output's bits (``digest``), so that two trees'
+kernels can be shown bitwise equal on the same seeded inputs.
 Prints one JSON line. The script uses only what earlier trees of the
 port have as well, so to compare a change with its parent, unpack the
 parent into a git-ignored directory, copy this script beside its
@@ -28,6 +34,7 @@ chip_smoke.py, and run, in one chip call, parent, change, change, parent.
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import os
@@ -35,6 +42,10 @@ import sys
 
 DECODE_SHAPES = (("served", [40, 64, 86, 656]), ("rows32", [520] * 32),
                  ("long8", [3968] * 8))
+# float32 only: the served window's rows in the order phase 4 of
+# chip_smoke.py served them, the order its phase 5 times (the row of 656
+# positions second, not last)
+F32_DECODE_SHAPES = (("served_phase4_order", [86, 656, 64, 40]),)
 # (name, tp, contexts): the sharded wrapper at one rank's heads
 SHARDED_SHAPES = (("served_tp2", 2, [40, 64, 86, 656]),
                   ("served_tp4", 4, [40, 64, 86, 656]),
@@ -76,57 +87,42 @@ def digest(t) -> str:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
+    args = ap.parse_args()
     sys.path.insert(0, os.getcwd())
     import torch
 
     from chip_smoke import excess, fail, time_ms
     from dynamo_tpu_torch.ops.paged_attention import (
-        NO_WINDOW, paged_attention_decode_window,
-        paged_attention_decode_window_sharded, paged_attention_prefill,
-        prefill_reference, window_reference)
+        paged_attention_decode_window_sharded, window_reference)
     from dynamo_tpu_torch.parallel.mesh import MeshSpec
 
     if not torch.cuda.is_available():
         fail("no CUDA GPU available")
     dev = torch.device("cuda")
+    dtype = getattr(torch, args.dtype)
+    # chip_smoke.tolerance, spelled out: the parent trees' chip_smoke.py
+    # this script runs beside may not have it
+    tol = (1e-5, 0.0) if dtype == torch.float32 else (2e-2, 1e-2)
     g = torch.Generator(device=dev).manual_seed(7)
     N, KV, H, hd, ps, T, K = 512, 8, 32, 128, 64, 512, 4
-    kp = torch.randn(1, N, KV, ps, hd, generator=g,
-                     device=dev).to(torch.bfloat16)
-    vp = torch.randn(1, N, KV, ps, hd, generator=g,
-                     device=dev).to(torch.bfloat16)
+    kp = torch.randn(1, N, KV, ps, hd, generator=g, device=dev).to(dtype)
+    vp = torch.randn(1, N, KV, ps, hd, generator=g, device=dev).to(dtype)
     res = {"tree": os.getcwd(), "card": torch.cuda.get_device_name(0),
-           "digest": {}}
-    for name, start, P in (("first_chunk", 0, 8), ("deep_chunk", 1536, 64)):
-        used = (start + T) // ps
-        table = torch.zeros((1, P), dtype=torch.int32, device=dev)
-        table[0, :used] = torch.randperm(N - 1, generator=g,
-                                         device=dev)[:used] + 1
-        pos = torch.arange(start, start + T, dtype=torch.int32,
-                           device=dev)[None]
-        win = torch.full((1,), NO_WINDOW, dtype=torch.int32, device=dev)
-        q = torch.randn(1, T, H, hd, generator=g, device=dev).to(torch.bfloat16)
-        run = lambda: paged_attention_prefill(  # noqa: E731
-            q, kp[0], vp[0], table, pos, eff_win=win)
-        over = excess(run(), prefill_reference(q, kp[0], vp[0], table, pos,
-                                               hd ** -0.5, None, win),
-                      2e-2, 1e-2)
-        if over > 0:
-            fail(f"prefill {name}: off its plain version by {over:.3g}")
-        res["digest"][name] = digest(run())
-        res[name] = [time_ms(run, iters=50) for _ in range(3)]
-    for name, ctx in DECODE_SHAPES:
-        B, P = len(ctx), 64
-        q, table, start, qp, wk, wv = decode_case(kp, vp, ctx, B, P, K, H, g)
-        run = lambda: paged_attention_decode_window(  # noqa: E731
-            q, kp, vp, 0, table, start, qp, wk, wv, K)
-        over = excess(run(), window_reference(q, kp, vp, 0, table, start, qp,
-                                              wk, wv, K, hd ** -0.5),
-                      2e-2, 1e-2)
-        if over > 0:
-            fail(f"decode {name}: off its plain version by {over:.3g}")
-        res["digest"][f"decode_{name}"] = digest(run())
-        res[f"decode_{name}"] = [time_ms(run, iters=50) for _ in range(3)]
+           "dtype": args.dtype, "digest": {}}
+    f32 = dtype == torch.float32
+    time_shapes(res, kp, vp, g, tol, T, K, H, "",
+                decode=DECODE_SHAPES + (F32_DECODE_SHAPES if f32 else ()))
+    if f32:
+        # the 1b's heads: head_dim 64
+        k64 = torch.randn(1, N, KV, ps, 64, generator=g, device=dev)
+        v64 = torch.randn(1, N, KV, ps, 64, generator=g, device=dev)
+        time_shapes(res, k64, v64, g, tol, T, K, H, "_hd64", deep=False,
+                    decode=DECODE_SHAPES[:1])
+        print(json.dumps(res))
+        return
     for name, tp, ctx in SHARDED_SHAPES:
         kv, h = KV // tp, H // tp
         kl = torch.randn(1, N, kv, ps, hd, generator=g,
@@ -147,6 +143,54 @@ def main() -> None:
         res["digest"][f"decode_{name}"] = digest(run())
         res[f"decode_{name}"] = [time_ms(run, iters=50) for _ in range(3)]
     print(json.dumps(res))
+
+
+def time_shapes(res: dict, kp, vp, g, tol, T: int, K: int, H: int,
+                tag: str, deep: bool = True, decode=DECODE_SHAPES) -> None:
+    """Time and digest the prefill chunks (the first, and the deep one
+    when ``deep``) and the ``decode`` window shapes on the pools
+    ``kp``/``vp`` [1, N, KV, ps, hd] into ``res``, each key suffixed by
+    ``tag``."""
+    import torch
+
+    from chip_smoke import excess, fail, time_ms
+    from dynamo_tpu_torch.ops.paged_attention import (
+        NO_WINDOW, paged_attention_decode_window, paged_attention_prefill,
+        prefill_reference, window_reference)
+
+    dev = kp.device
+    N, KV, ps, hd = kp.shape[1:]
+    chunks = (("first_chunk", 0, 8), ("deep_chunk", 1536, 64))
+    for name, start, P in chunks[:2 if deep else 1]:
+        name += tag
+        used = (start + T) // ps
+        table = torch.zeros((1, P), dtype=torch.int32, device=dev)
+        table[0, :used] = torch.randperm(N - 1, generator=g,
+                                         device=dev)[:used] + 1
+        pos = torch.arange(start, start + T, dtype=torch.int32,
+                           device=dev)[None]
+        win = torch.full((1,), NO_WINDOW, dtype=torch.int32, device=dev)
+        q = torch.randn(1, T, H, hd, generator=g, device=dev).to(kp.dtype)
+        run = lambda: paged_attention_prefill(  # noqa: E731
+            q, kp[0], vp[0], table, pos, eff_win=win)
+        over = excess(run(), prefill_reference(q, kp[0], vp[0], table, pos,
+                                               hd ** -0.5, None, win), *tol)
+        if over > 0:
+            fail(f"prefill {name}: off its plain version by {over:.3g}")
+        res["digest"][name] = digest(run())
+        res[name] = [time_ms(run, iters=50) for _ in range(3)]
+    for name, ctx in decode:
+        name = f"decode_{name}{tag}"
+        B, P = len(ctx), 64
+        q, table, start, qp, wk, wv = decode_case(kp, vp, ctx, B, P, K, H, g)
+        run = lambda: paged_attention_decode_window(  # noqa: E731
+            q, kp, vp, 0, table, start, qp, wk, wv, K)
+        over = excess(run(), window_reference(q, kp, vp, 0, table, start, qp,
+                                              wk, wv, K, hd ** -0.5), *tol)
+        if over > 0:
+            fail(f"{name}: off its plain version by {over:.3g}")
+        res["digest"][name] = digest(run())
+        res[name] = [time_ms(run, iters=50) for _ in range(3)]
 
 
 if __name__ == "__main__":
