@@ -10,15 +10,17 @@ Phases; any failure exits non-zero before the result line:
 2. hold the decode kernel against its plain PyTorch version on the card:
    with and without stats, rows of length 0, softcap and a lower bound,
    and in the fused-window form, float32 (atol 1e-5; the float32 route at
-   head_dim 32 to 128) and bfloat16 (atol 2e-2 + rtol 1e-2; the bf16
-   route), and in both dtypes a case at head_dim 96, page 4, outside both
-   routes' sets, on the generic kernel and its combine step; each call
-   must have taken its shape's route (the launch counts), and every
+   head_dim 32 to 128), bfloat16 (atol 2e-2 + rtol 1e-2; the bf16 route)
+   and float16 (the same tolerance; the bf16 kernel's float16 form, route
+   f16_mma), and in every dtype a case at head_dim 96, page 4, outside
+   the routes' sets, on the generic kernel and its combine step; each
+   call must have taken its shape's route (the launch counts), and every
    route must have been taken;
 3. the same for the prefill kernel: padding queries, a sliding window, a
    second chunk that skips pages, the fourth chunk of a 2048-token prompt
    (float32 on the 3xTF32 route; page 4, outside its set, on the
-   generic kernel; bfloat16 on the bf16 route);
+   generic kernel; bfloat16 on the bf16 route, float16 on its float16
+   form, route f16);
 4. serve Llama-3-8B-shaped requests (32 layers at full width, random
    weights from a seed, byte tokenizer) over the OpenAI HTTP front end on
    a local port, with pipelined decode windows and prefill chunks, each
@@ -68,12 +70,15 @@ Phases; any failure exits non-zero before the result line:
    launches phase 11 counts), the 8B's and the tiny preset's (page 16,
    its own served request), on float32 pools from a seed, the prefill
    bound at 3xTF32 (three TF32 products an operation, 494.7 TF/s) with
-   the FFMA bound (67 TF/s) beside it. Bounds count the work of this
-   run's inputs (ops.paged_attention.decode_work and prefill_work);
+   the FFMA bound (67 TF/s) beside it; the float16 forms at the served
+   window and first chunk on float16 pools from a seed (the rows whose
+   launches phase 12 counts). Bounds count the work of this run's inputs
+   (ops.paged_attention.decode_work and prefill_work);
 6. hold the tensor-parallel wrappers (paged_attention_decode_sharded, its
    window form, paged_attention_prefill_sharded) against the plain
    versions at the heads one rank holds of the 8B widths at tp 2, 4 and
-   8, float32 and bfloat16, and time them at those heads at the served
+   8, float32, bfloat16 and float16, and time them at those heads at the
+   served
    shapes (the 4-row window, with the cluster of splits the launch plan
    picks and each row's live splits, beside tp=1's full heads timed in
    the same phase; a first chunk of 512), and the decode at tp=8's heads
@@ -129,16 +134,19 @@ Phases; any failure exits non-zero before the result line:
    version, within one rounding of the output to its dtype plus the
    float32 summation order (``ops/int8_gemm.py int8_gemm_tolerance``), at
    every projection shape of the 8B model at M = 1, 4, 16, 24, 32, 48,
-   64, 512 and 4,096, at tp=2's shapes and at ragged M, N and K (bf16,
-   and float32 for the simt route), with one scale perturbed as the
-   control that must fail at every route; the small-M route's
-   programmatic launches captured in a graph, replayed bitwise equal to
-   the eager calls, and timed with and without programmatic launch;
-   timed at M = 4 to 4,096 (both bf16 routes at 4 to 32 rows, where they
-   cross; the small-M route also after a kernel that writes its x) and
-   at the tiny preset's shapes in float32, beside its bound, its plain
-   version, ``torch.matmul`` on the dequantized weight and
-   ``torch._weight_int8pack_mm`` where it runs on CUDA; then the 8B model
+   64, 512 and 4,096 in bf16 and in float16 (the float16 forms of the
+   small_m and wgmma routes), at tp=2's shapes and at ragged M, N and K
+   (bf16, and float32 for the simt route), with one scale perturbed as
+   the control that must fail at every route and form; the small-M
+   route's programmatic launches captured in a graph, replayed bitwise
+   equal to the eager calls, and timed with and without programmatic
+   launch; timed at M = 4 to 4,096 in bf16 and float16 (both bf16 routes
+   at 4 to 32 rows, where they cross; the small-M route also after a
+   kernel that writes its x), at the tiny preset's shapes and at the 1b's
+   (M = 4 and 512) in float32 on the simt route, beside its bound, its
+   plain version, ``torch.matmul`` on the dequantized weight in x's dtype
+   and ``torch._weight_int8pack_mm`` where it runs on CUDA; then the 8B
+   model
    built by the launcher's ``--dtype int8`` path and checked as phase 4
    checks the bf16 one (phase 4's requests over HTTP, every bucket
    captured, none after warmup, int8 GEMM launches by route summing to
@@ -161,6 +169,23 @@ Phases; any failure exits non-zero before the result line:
    teacher-forced at F32_PATH_LIMITS, with the same two fault controls,
    beside the plain path's own float32 noise (every weight moved one
    ulp). Its launches fill the float32 rows of the kernels line.
+12. (run after phase 11) the 8B model in float16 (``ModelConfig.llama3_8b``
+   with dtype float16: 32 layers at full width, seed-0 weights, the
+   default EngineConfig), an engine built directly (the launchers offer
+   no float16): warmed, every bucket of both grids captured, phase 4's
+   requests served over HTTP with no capture after warmup, every decode
+   call on the float16 form of the bf16 decode kernel (window replays x
+   32 x K) and every prefill call on the float16 prefill form (chunk
+   replays x 32), none on another route; its kernel path against its
+   plain path teacher-forced at PATH_LIMITS with the two fault controls;
+   then the same weights with quant="int8" and float16 activations,
+   served alike, every product on the float16 forms of small_m and
+   wgmma (replays x (7 x 32 + 1), none on simt or a bf16 form), its
+   teacher-forced check with the int8 fault among its controls, and its
+   logits within INT8_REL_L2 of the float16 engine's. Every plain logit
+   must be finite (the plain int8 order rounds x @ q to float16 before
+   the scale, which overflows past 65504). Its launches fill the float16
+   rows of the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -190,6 +215,7 @@ H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
 H100_TF32_FLOPS = 494.7e12     # dense TF32 tensor cores
 # the decode kernels of each route (ops.paged_attention.decode_route)
 DECODE_KERNELS = {"bf16_mma": "paged_decode_bf16_kernel",
+                  "f16_mma": "paged_decode_bf16_kernel<hd, __half>",
                   "f32": "paged_decode_f32_kernel",
                   "generic": "paged_decode_kernel + paged_decode_combine"}
 # phase 5's decode shapes: max abs error over the plain output's rms. The
@@ -336,15 +362,15 @@ def check_decode(dev) -> dict:
         ("8b-b40", 1, 64, 8, 4, 64, 128, 4, [(7 * i) % 257 for i in range(40)],
          [max(0, (7 * i) % 257 - 100) for i in range(40)], None),
         # head_dim 96, page 4: outside the float32 and the bf16 kernels'
-        # sets, on the generic kernel and its combine step in both dtypes
+        # sets, on the generic kernel and its combine step in every dtype
         ("generic", 2, 32, 2, 3, 4, 96, 8, [0, 5, 17, 32], [0, 0, 3, 20],
          20.0),
     ]
-    # float32: atol 1e-5 (same math, another summation order); bfloat16:
-    # atol 2e-2 + rtol 1e-2, i.e. one or two bf16 roundings of the output
-    # at any magnitude
-    for dtype, tol, rtol in ((torch.float32, 1e-5, 0.0),
-                             (torch.bfloat16, 2e-2, 1e-2)):
+    # float32: atol 1e-5 (same math, another summation order); bfloat16
+    # and float16: atol 2e-2 + rtol 1e-2, i.e. one or two bf16 roundings
+    # of the output at any magnitude
+    for dname, tol, rtol in DTYPE_TOLS:
+        dtype = getattr(torch, dname)
         for name, L, N, KV, G, ps, hd, P, lengths, lower, softcap in cases:
             B, H = len(lengths), KV * G
             kp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
@@ -389,20 +415,32 @@ def check_decode(dev) -> dict:
                         fail(f"decode {name}: length-0 rows not zero")
                     key = (name, str(dtype).split(".")[-1])
                     errs[key] = max(errs.get(key, 0.0), e)
-    need_routes(routes, "decode", [
-        (torch.float32, "f32"), (torch.float32, "generic"),
-        (torch.bfloat16, "bf16_mma"), (torch.bfloat16, "generic")])
+    need_routes(routes, "decode", DECODE_NEEDS)
     for (name, dt), e in sorted(errs.items()):
         log(f"  decode {name:10s} {dt:8s} max_abs_err {e:.3g}")
     return errs
+
+
+# (dtype, atol, rtol) of the kernel checks, each dtype's routes that
+# phases 2 and 3 must take
+DTYPE_TOLS = (("float32", 1e-5, 0.0), ("bfloat16", 2e-2, 1e-2),
+              ("float16", 2e-2, 1e-2))
+DECODE_NEEDS = [("float32", "f32"), ("float32", "generic"),
+                ("bfloat16", "bf16_mma"), ("bfloat16", "generic"),
+                ("float16", "f16_mma"), ("float16", "generic")]
+PREFILL_NEEDS = [("float32", "f32"), ("float32", "generic"),
+                 ("bfloat16", "bf16"), ("float16", "f16")]
 
 
 def need_routes(routes: set, what: str, required) -> None:
     """Fail unless a check's calls (``routes``: the (dtype, route) each
     call took, by the launch counts) took every (dtype, route) of
     ``required``, so that each kernel of a route was held to its plain
-    version."""
-    for dtype, route in required:
+    version (dtypes by name)."""
+    import torch
+
+    for name, route in required:
+        dtype = getattr(torch, name)
         if (dtype, route) not in routes:
             fail(f"{what}: no {dtype} call on the {route} route")
 
@@ -434,9 +472,9 @@ def check_window(dev) -> dict:
         # sets, on the generic kernel and its combine step
         (64, 2, 3, 4, 96, (("generic", 8, [-1, 0, 5, 17, 30]),)),
     )
-    for (dtype, tol, rtol), (N, KV, G, ps, hd, layouts) in (
-            (d, p) for d in ((torch.float32, 1e-5, 0.0),
-                             (torch.bfloat16, 2e-2, 1e-2)) for p in pools):
+    for (dname, tol, rtol), (N, KV, G, ps, hd, layouts) in (
+            (d, p) for d in DTYPE_TOLS for p in pools):
+        dtype = getattr(torch, dname)
         H = KV * G
         route = ops.DECODE_ROUTES[ops.decode_route(dtype, H, KV, ps, hd)]
         kp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
@@ -480,9 +518,7 @@ def check_window(dev) -> dict:
                             fail("decode window: padding row not zero")
                         key = (f"{lay}-{name}", str(dtype).split(".")[-1])
                         errs[key] = max(errs.get(key, 0.0), e)
-    need_routes(routes, "decode window", [
-        (torch.float32, "f32"), (torch.float32, "generic"),
-        (torch.bfloat16, "bf16_mma"), (torch.bfloat16, "generic")])
+    need_routes(routes, "decode window", DECODE_NEEDS)
     for (name, dt), e in sorted(errs.items()):
         log(f"  window {name:15s} {dt:8s} max_abs_err {e:.3g}")
     return errs
@@ -499,10 +535,11 @@ def check_prefill(dev) -> dict:
     errs = {}
     routes = set()  # (dtype, route) of the calls
     g = torch.Generator(device=dev).manual_seed(1)
-    # tolerances as in check_decode; the bf16 tensor-core form also rounds
-    # the probabilities to bf16 before P V, as the gather path does
-    for dtype, tol, rtol in ((torch.float32, 1e-5, 0.0),
-                             (torch.bfloat16, 2e-2, 1e-2)):
+    # tolerances as in check_decode; the 16-bit tensor-core forms also
+    # round the probabilities to their type before P V, as the gather path
+    # does
+    for dname, tol, rtol in DTYPE_TOLS:
+        dtype = getattr(torch, dname)
         cases = []
         # 8B: first chunk of 512 with a padding row and a short row
         N, KV, G, ps, hd, P, T = 64, 8, 4, 64, 128, 16, 512
@@ -563,9 +600,7 @@ def check_prefill(dev) -> dict:
             if (qp < 0).any() and got[qp < 0].abs().max().item() != 0.0:
                 fail(f"prefill {name}: padding queries not zero")
             errs[(name, str(dtype).split(".")[-1])] = e
-    need_routes(routes, "prefill", [
-        (torch.float32, "f32"), (torch.float32, "generic"),
-        (torch.bfloat16, "bf16")])
+    need_routes(routes, "prefill", PREFILL_NEEDS)
     for (name, dt), e in sorted(errs.items()):
         log(f"  prefill {name:10s} {dt:8s} max_abs_err {e:.3g}")
     return errs
@@ -1170,6 +1205,12 @@ def check_paths(engine, cfg, dev, limits=None) -> tuple:
                 "window_kv": max_err(a[2], b[2])}
 
     kern, plain = run(True), run(False)
+    for side, out in (("kernel", kern), ("plain", plain)):
+        for what, t in zip(("prefill logits", "window logits", "window K/V"),
+                           out):
+            if not bool(torch.isfinite(t).all()):
+                fail(f"{side} path: non-finite {what} "
+                     f"({int((~torch.isfinite(t)).sum())} of {t.numel()})")
     sound = errs(kern, plain)
 
     # controls: the kernel path with one fault each, against the plain path
@@ -1728,6 +1769,32 @@ def time_kernels(engine, cfg, dev, served) -> list:
             "kernel": kernel, "launches": 0, **times["1b"],
             "shapes": {k: v for k, v in times.items() if k != "1b"},
             "launches_from": "the 1b preset served in float32 (phase 11)"})
+
+    # the float16 forms at the served window and first chunk, on float16
+    # pools of the 8B's heads from a seed (phase 12 serves the 8B in
+    # float16, and its launches fill the rows)
+    k16 = torch.randn(1, ecfg.num_pages, cfg.num_kv_heads, ps, cfg.head_dim_,
+                      generator=g, device=dev).to(torch.float16)
+    v16 = torch.randn(1, ecfg.num_pages, cfg.num_kv_heads, ps, cfg.head_dim_,
+                      generator=g, device=dev).to(torch.float16)
+    B = ecfg.bucket_batch(len(ctx))
+    P = ecfg.bucket_pages(max(-(-n // ps) for n in ctx))
+    for name, line, src, kernel, times in (
+            ("paged_attention_decode float16", 52, "paged_attention.cu",
+             DECODE_KERNELS["f16_mma"],
+             time_decode(k16, v16, ctx, B, P, K, H, g)),
+            ("paged_attention_prefill float16", 336, "paged_prefill.cu",
+             "paged_prefill_bf16_kernel<hd, ps, __half>",
+             time_prefill(k16[0], v16[0], ecfg, 0, served["prefill_chunk"], H,
+                          g))):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"dynamo_tpu_torch/ops/csrc/{src}",
+            "replaces": f"dynamo_tpu/ops/paged_attention.py:{line}",
+            "kernel": kernel, "launches": 0, **times,
+            "launches_from": "the 8B served in float16 (phase 12)"})
+    del k16, v16
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1797,13 +1864,23 @@ INT8_TINY_SHAPES = {"wq_wo": (64, 64), "wk_wv": (64, 32),
                     "gate_up": (64, 128), "down": (128, 64),
                     "lm_head": (64, 512)}
 INT8_TINY_ROWS = (4, 128)
-# the checks and controls of each route: (name, M, K, N, dtype)
+# Llama-3.2-1B's projections (K, N), where the simt route is timed in
+# float32 beside float32 torch.matmul and torch._weight_int8pack_mm, at
+# the rows of a decode window and a chunk
+INT8_1B_SHAPES = {"wq_wo": (2048, 2048), "wk_wv": (2048, 512),
+                  "gate_up": (2048, 8192), "down": (8192, 2048),
+                  "lm_head": (2048, 128256)}
+INT8_1B_ROWS = (4, 512)
+# the checks and controls of each route and form: (name, M, K, N, dtype)
 INT8_ROUTE_CASES = [("small_m", 4, 4096, 1024, "bfloat16"),
                     ("small_m", 32, 4096, 4096, "bfloat16"),
                     ("wgmma", 48, 4096, 4096, "bfloat16"),
                     ("wgmma", 512, 4096, 1024, "bfloat16"),
                     ("simt", 4, 4096, 1024, "float32"),
-                    ("simt", 4, 4096, 1024, "float16")]
+                    ("small_m", 4, 4096, 1024, "float16"),
+                    ("small_m", 32, 4096, 4096, "float16"),
+                    ("wgmma", 48, 4096, 4096, "float16"),
+                    ("wgmma", 512, 4096, 1024, "float16")]
 # timed calls cycle over copies of the weights holding this many int8
 # bytes, so each call finds its weights out of the 50 MB L2 as a layer's
 # call does
@@ -1848,21 +1925,24 @@ def int8_excess(y, x, q, s) -> tuple:
 
 def check_int8_gemm(dev) -> dict:
     """The int8 GEMM against the float32 evaluation of its plain version
-    (TF32 off) at every shape of INT8_SHAPES at every M of INT8_ROWS,
-    at tp=2's shapes (M = 4, 32 and 512) and at ragged M, N and K, in
-    bfloat16 (the small_m and wgmma routes) and, for tp=2's and the
-    ragged shapes at M = 4, in float32 (the simt route): within
-    ``ops/int8_gemm.py int8_gemm_tolerance``, one rounding of the output
-    to its dtype (2^-8 of it in bf16, 2^-24 in float32) plus the float32
+    (TF32 off) at every shape of INT8_SHAPES at every M of INT8_ROWS in
+    bfloat16 (the small_m and wgmma routes) and in float16 (their
+    float16 forms), at tp=2's shapes (M = 4, 32 and 512) and at ragged M,
+    N and K, in bfloat16 and, for tp=2's and the ragged shapes at M = 4,
+    in float32 (the simt route): within ``ops/int8_gemm.py
+    int8_gemm_tolerance``, one rounding of the output to its dtype (2^-8
+    of it in bf16, 2^-11 in float16, 2^-24 in float32) plus the float32
     sums in another order (2^-16 of the sum of the terms' magnitudes).
-    Each case records the route it took. The control, one scale 1 + 2^-5
-    off, must pass the tolerance at every route (INT8_ROUTE_CASES)."""
+    Each case records the route it took (with ``_f16`` for a float16
+    form). The control, one scale 1 + 2^-5 off, must pass the tolerance
+    at every route and form (INT8_ROUTE_CASES)."""
     import torch
 
-    from dynamo_tpu_torch.ops.int8_gemm import device_plan, int8_matmul
+    from dynamo_tpu_torch.ops.int8_gemm import (device_plan, int8_matmul,
+                                                launch_key)
 
-    cases = ([(n, M, K, N, "bfloat16") for n, (K, N) in INT8_SHAPES.items()
-              for M in INT8_ROWS]
+    cases = ([(n, M, K, N, d) for d in ("bfloat16", "float16")
+              for n, (K, N) in INT8_SHAPES.items() for M in INT8_ROWS]
              + [(f"tp2 {n}", M, K, N, "bfloat16")
                 for n, (K, N) in INT8_TP2_SHAPES.items()
                 for M in INT8_LINE_ROWS + (32,)]
@@ -1873,7 +1953,7 @@ def check_int8_gemm(dev) -> dict:
     out = {}
     for name, M, K, N, dtype in cases:
         x, q, s, _ = int8_case(dev, M, K, N, dtype=dtype)
-        route = device_plan(M, N, K, dev, x.dtype).route
+        route = launch_key(device_plan(M, N, K, dev, x.dtype).route, x.dtype)
         ex, err = int8_excess(int8_matmul(x, q, s), x, q, s)
         key = f"{name} {K}x{N} M={M}" + ("" if dtype == "bfloat16"
                                           else f" {dtype}")
@@ -1888,6 +1968,7 @@ def check_int8_gemm(dev) -> dict:
         if route != want:
             fail(f"int8 control {M}x{K}x{N} {dtype} took route {route}, "
                  f"not {want}")
+        route = launch_key(route, x.dtype)
         bad = s.clone()
         bad[7] *= 1 + 2.0 ** -5
         ex, err = int8_excess(int8_matmul(x, q, bad), x, q, s)
@@ -1913,29 +1994,31 @@ def check_int8_gemm(dev) -> dict:
 
 def time_int8_gemm(dev, errs: dict) -> list:
     """The int8 GEMM timed at the served shapes (INT8_SHAPES at every M
-    of INT8_TIMED_ROWS, bfloat16) and at the tiny preset's
-    (INT8_TINY_SHAPES at INT8_TINY_ROWS, float32: the simt route) in a
-    CUDA graph of calls that cycle over copies of the weights
+    of INT8_TIMED_ROWS, bfloat16 and float16), at the tiny preset's
+    (INT8_TINY_SHAPES at INT8_TINY_ROWS, float32: the simt route) and at
+    the 1b's (INT8_1B_SHAPES at INT8_1B_ROWS, float32, the simt route
+    beside float32 torch.matmul) in a CUDA graph of calls that cycle over
+    copies of the weights
     (INT8_COLD_BYTES), beside its bound (``int8_gemm_work``), its plain
     version, ``torch.matmul`` on the dequantized weight in x's dtype (the
     unquantized path's cost of the same product), the other bf16 route
     at INT8_CROSS_ROWS where it takes the rows (forced, to place the
-    crossover) and, where the card's torch runs it on CUDA,
+    crossover; bfloat16 only) and, where the card's torch runs it on CUDA,
     ``torch._weight_int8pack_mm`` (one PyTorch call of the same function,
     timed over fewer calls; the port never calls it). The small-M route
     is timed both ways (its launch is programmatic, so back to back a
     call overlaps the one before it): ``ms``, a graph of calls back to
-    back, and ``after_write_ms``, after a kernel that writes its x
-    (:func:`after_write_ms`), as wq, wo and w_down follow a norm,
-    attention or SiLU-mul; and back to back with programmatic launch
-    switched off (``ms_without_pdl``)."""
+    back, and, in bfloat16, ``after_write_ms``, after a kernel that
+    writes its x (:func:`after_write_ms`), as wq, wo and w_down follow a
+    norm, attention or SiLU-mul; and back to back with programmatic
+    launch switched off (``ms_without_pdl``)."""
     import itertools
 
     import torch
 
     from dynamo_tpu_torch.ops.int8_gemm import (SMALL_M_ROWS, device_plan,
                                                 int8_gemm_work, int8_matmul,
-                                                int8_matmul_plain,
+                                                int8_matmul_plain, launch_key,
                                                 resident_of, set_programmatic,
                                                 small_m_plan, wgmma_plan)
 
@@ -1943,7 +2026,7 @@ def time_int8_gemm(dev, errs: dict) -> list:
         return torch._weight_int8pack_mm(x, q, s.to(x.dtype))
 
     notes = {}
-    for dtype in ("bfloat16", "float32"):
+    for dtype in ("bfloat16", "float16", "float32"):
         x, q, s, _ = int8_case(dev, 4, 64, 32, dtype=dtype)
         try:
             library(x, q, s)
@@ -1966,13 +2049,17 @@ def time_int8_gemm(dev, errs: dict) -> list:
         return None
 
     rows = []
-    cells = ([(n, K, N, M, "bfloat16") for n, (K, N) in INT8_SHAPES.items()
+    cells = ([(n, K, N, M, d) for d in ("bfloat16", "float16")
+              for n, (K, N) in INT8_SHAPES.items()
               for M in INT8_TIMED_ROWS]
              + [(f"tiny {n}", K, N, M, "float32")
                 for n, (K, N) in INT8_TINY_SHAPES.items()
-                for M in INT8_TINY_ROWS])
-    for (name, K, N), group in itertools.groupby(
-            cells, key=lambda c: c[:3]):
+                for M in INT8_TINY_ROWS]
+             + [(f"1b {n}", K, N, M, "float32")
+                for n, (K, N) in INT8_1B_SHAPES.items()
+                for M in INT8_1B_ROWS])
+    for (name, K, N, _), group in itertools.groupby(
+            cells, key=lambda c: c[:3] + (c[4],)):
         copies = max(1, min(64, -(-INT8_COLD_BYTES // (K * N))))
         group = list(group)
         dtype = group[0][4]
@@ -2006,13 +2093,16 @@ def time_int8_gemm(dev, errs: dict) -> list:
             work = int8_gemm_work(M, K, N, x.dtype)
             iters = (20 if work["bound_ms"] < 0.2 else
                      5 if work["bound_ms"] < 2 else 2)
-            key = f"{name} {K}x{N} M={M}"
+            key = f"{name} {K}x{N} M={M}" + ("" if dtype == "bfloat16"
+                                              else f" {dtype}")
+            form = "<..., __half>" if dtype == "float16" else ""
             row = {
                 "name": f"int8_gemm {key}", "route": "cuda",
                 "source": INT8_SOURCE, "replaces": INT8_REPLACES,
                 "kernel": f"int8_matmul (ops/int8_gemm.py) -> "
-                          f"int8_gemm_{plan.route.split('_')[0]}_kernel",
-                "int8_route": plan.route, "plan": list(plan), "M": M, "K": K,
+                          f"int8_gemm_{plan.route.split('_')[0]}_kernel{form}",
+                "int8_route": launch_key(plan.route, x.dtype),
+                "plan": list(plan), "M": M, "K": K,
                 "N": N, "dtype": dtype, "launches": 0,
                 "max_abs_err": (errs[key]["max_abs_err"] if key in errs
                                 else None),
@@ -2028,15 +2118,15 @@ def time_int8_gemm(dev, errs: dict) -> list:
                     "" if notes[dtype] is None
                     else f" (not on CUDA: {notes[dtype]})")}
             if row["max_abs_err"] is None:
-                # a shape only timed here (the tiny preset's): held to
-                # the tolerance on this call
+                # a shape only timed here (the tiny preset's, the 1b's):
+                # held to the tolerance on this call
                 q, s, _ = ws[0]
                 ex, row["max_abs_err"] = int8_excess(int8_matmul(x, q, s),
                                                      x, q, s)
                 if ex > 0:
                     fail(f"int8 GEMM {key} {dtype}: {ex:.4g} past the "
                          f"tolerance")
-            if plan.route == "small_m":
+            if plan.route == "small_m" and dtype == "bfloat16":
                 row["after_write_ms"] = after_write_ms(kern, x, iters)
                 set_programmatic(False)
                 try:
@@ -2054,7 +2144,7 @@ def time_int8_gemm(dev, errs: dict) -> list:
                     row["other_after_write_ms"] = after_write_ms(
                         lambda: kern(other), x, iters)
             rows.append(row)
-            log(f"  {row['name']} {dtype} ({plan.route}): {row['ms']:.4f} "
+            log(f"  {row['name']} ({row['int8_route']}): {row['ms']:.4f} "
                 f"ms (bound {work['bound_ms']:.4f}, {work['bound_by']}; "
                 f"plain {row['plain_ms']:.4f}; {dtype} matmul "
                 f"{row['matmul_ms']:.4f}; library {row['library_ms']}"
@@ -2147,10 +2237,11 @@ def same_param(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def compare_int8_bf16(int8_logits, bf16_logits) -> dict:
+def compare_int8_bf16(int8_logits, bf16_logits, what: str = "bf16") -> dict:
     """check_paths' teacher-forced logits (prefill, then every window
-    step) of the int8 engine against the bf16 engine's on the same seed-0
-    weights: rel_l2 below INT8_REL_L2, and the greedy agreement."""
+    step) of the int8 engine against the bf16 engine's (``what``: the
+    float16 engine's in phase 12) on the same seed-0 weights: rel_l2
+    below INT8_REL_L2, and the greedy agreement."""
     import torch
 
     a = torch.cat([int8_logits[0][None], int8_logits[1]])
@@ -2160,9 +2251,9 @@ def compare_int8_bf16(int8_logits, bf16_logits) -> dict:
     out = {"rel_l2": rel, "limit": INT8_REL_L2,
            "rel_l2_by_step": [rel_l2(x, y) for x, y in zip(a, b)],
            "greedy_agree": int(agree.sum()), "greedy_of": agree.numel()}
-    log(f"  int8 vs bf16 logits (same seed-0 weights): {json.dumps(out)}")
+    log(f"  int8 vs {what} logits (same seed-0 weights): {json.dumps(out)}")
     if not rel < INT8_REL_L2:
-        fail(f"int8 logits rel_l2 {rel:.4g} from bf16's >= {INT8_REL_L2}")
+        fail(f"int8 logits rel_l2 {rel:.4g} from {what}'s >= {INT8_REL_L2}")
     return out
 
 
@@ -2237,7 +2328,7 @@ def serve_tiny_int8(out_dir: str) -> dict:
     int8 = summary["int8_gemm_launches"]
     want = (pf + win * K) * (7 * L + 1)
     if (summary["post_warmup_compiles_total"] != 0 or win <= 0
-            or int8 != {"small_m": 0, "wgmma": 0, "simt": want}):
+            or int8 != {k: want if k == "simt" else 0 for k in int8}):
         fail(f"tiny int8 serving summary: int8 GEMM launches {int8}, not "
              f"{want} on the simt route alone ({pf} chunk replays, {win} "
              f"windows x {K} steps x {7 * L + 1}), or a capture after "
@@ -2312,6 +2403,12 @@ def int8_phase(cfg, dev, bf16_logits) -> tuple:
     finally:
         shutil.rmtree(tiny_dir, ignore_errors=True)
     for r in rows:
+        if r["dtype"] == "float16":
+            r["launches_from"] = "the 8B served in float16 with int8 " \
+                                 "weights (phase 12)"
+            continue  # phase 12 serves the float16 forms
+        if r["dtype"] == "float32":
+            r["launches_from"] = "the tiny preset served with --dtype int8"
         launched = (tiny["summary"] if r["dtype"] == "float32"
                     else served)["int8_gemm_launches"]
         r["launches"] = launched[r["int8_route"]]
@@ -2377,9 +2474,10 @@ def check_local_shapes(dev) -> dict:
     on every rank): the decode kernel in the layered form with stats and
     in the window form, and the prefill kernel (a first chunk of 512 and a
     second chunk), against their plain versions under the limits of
-    phases 2 and 3, in float32 and bfloat16. Every call must take the
-    bf16 or the float32 route. Few kv heads mean few (row, kv head) pairs, so
-    the split plan gives whole clusters of 8 splits here."""
+    phases 2 and 3, in float32, bfloat16 and float16. Every call must
+    take its dtype's route: the float32 route, the bf16 kernels or their
+    float16 forms. Few kv heads mean few (row, kv head) pairs, so the
+    split plan gives whole clusters of 8 splits here."""
     import torch
 
     from dynamo_tpu_torch.ops import paged_attention as ops
@@ -2397,9 +2495,11 @@ def check_local_shapes(dev) -> dict:
     for tp in TP_SIZES:
         H, KV = 32 // tp, 8 // tp
         mesh = MeshSpec(model=tp).view(tp - 1)
-        for dtype, tol, rtol in ((torch.float32, 1e-5, 0.0),
-                                 (torch.bfloat16, 2e-2, 1e-2)):
-            dt = str(dtype).split(".")[-1]
+        for dt, tol, rtol in DTYPE_TOLS:
+            dtype = getattr(torch, dt)
+            dec_route, pf_route = {"float32": ("f32", "f32"),
+                                   "bfloat16": ("bf16_mma", "bf16"),
+                                   "float16": ("f16_mma", "f16")}[dt]
             kp = torch.randn(L, N, KV, ps, hd, generator=g,
                              device=dev).to(dtype)
             vp = torch.randn(L, N, KV, ps, hd, generator=g,
@@ -2445,8 +2545,7 @@ def check_local_shapes(dev) -> dict:
                 e = max(e, max_err(out, ref))
             routes = dict(ops.DECODE_ROUTE_LAUNCHES)
             if (ops.LAUNCHES["paged_attention_decode"] != calls
-                    or routes[("bf16_mma" if dtype == torch.bfloat16
-                               else "f32")] != calls):
+                    or routes[dec_route] != calls):
                 fail(f"sharded decode tp={tp} {dt}: {calls} calls, counts "
                      f"{ops.LAUNCHES}, routes {routes}")
             errs[(f"decode-tp{tp}", dt)] = e
@@ -2467,8 +2566,7 @@ def check_local_shapes(dev) -> dict:
             if excess(out, ref, tol, rtol) > 0:
                 fail(f"sharded prefill tp={tp} {dt}: max abs err "
                      f"{max_err(out, ref):.3g}")
-            if ops.PREFILL_ROUTE_LAUNCHES[("bf16" if dtype == torch.bfloat16
-                                           else "f32")] != 1:
+            if ops.PREFILL_ROUTE_LAUNCHES[pf_route] != 1:
                 fail(f"sharded prefill tp={tp} {dt}: counts {ops.LAUNCHES}"
                      f", routes {ops.PREFILL_ROUTE_LAUNCHES}")
             errs[(f"prefill-tp{tp}", dt)] = max_err(out, ref)
@@ -3511,6 +3609,74 @@ def f32_phase(dev) -> dict:
     return {"served": served, "noise": noise, "paths": paths}
 
 
+# ------------------------------------------------------------ float16
+
+
+def f16_phase(dev) -> dict:
+    """Phase 12: the 8B model in float16 (seed-0 weights, the default
+    EngineConfig), an engine built directly: warmed (every bucket of both
+    grids captured), phase 4's requests served over HTTP (serve_and_check:
+    no capture after warmup, every attention call from a graph replay on
+    the float16 routes, decode launches the window replays x 32 x K,
+    prefill launches the chunk replays x 32), its kernel path against its
+    plain path teacher-forced (check_paths at PATH_LIMITS with the two
+    fault controls); then the same with quant="int8" and float16
+    activations: served alike with every product on the float16 forms of
+    small_m and wgmma, its check_paths with the int8 fault, and its
+    logits within INT8_REL_L2 of the float16 engine's."""
+    import dataclasses
+
+    import torch
+
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    cfg = dataclasses.replace(ModelConfig.llama3_8b(), dtype="float16")
+    report = {}
+    logits = None
+    for quant in (None, "int8"):
+        tag = "float16" + (" int8" if quant else "")
+        t = time.monotonic()
+        engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda",
+                             quant=quant)
+        engine.warmup()
+        topn = engine.ecfg.max_top_logprobs
+        check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
+        log(f"  8B {tag} engine (32 layers, D=4096, V=128256, seed 0) built "
+            f"and warmed up in {time.monotonic() - t:.1f}s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        mdc = ModelDeploymentCard(name="llama3-8b-" + tag.replace(" ", "-"))
+        mdc.kv_block_size = engine.ecfg.page_size
+        t = time.monotonic()
+        served, _, _ = asyncio.run(serve_and_check(engine, mdc))
+        log(f"  served {tag} in {time.monotonic() - t:.1f}s: "
+            f"{json.dumps(served)}")
+        if served_routes(engine) != ("f16_mma", "f16"):
+            fail(f"the {tag} engine's attention shape is not on the float16 "
+                 f"routes: {served_routes(engine)}")
+        if quant == "int8":
+            int8 = served["int8_gemm_launches"]
+            off = {k: n for k, n in int8.items()
+                   if n and not k.endswith("_f16")}
+            if off or not all(int8[k] > 0 for k in ("small_m_f16",
+                                                     "wgmma_f16")):
+                fail(f"{tag}: int8 GEMM launches {int8} are not all on the "
+                     f"float16 forms of small_m and wgmma")
+        t = time.monotonic()
+        paths, got = check_paths(engine, cfg, dev)
+        log(f"  {tag} teacher-forced check in {time.monotonic() - t:.1f}s")
+        entry = {"served": served, "paths": paths}
+        if quant == "int8":
+            entry["vs_float16"] = compare_int8_bf16(got, logits, "float16")
+        logits = got
+        report[tag] = entry
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
 # --------------------------------------------------------------- main
 
 
@@ -3651,15 +3817,33 @@ def main() -> None:
     log("phase 11: a float32 Llama-3.2-1B-shaped engine served over HTTP "
         "on the float32 attention routes")
     f32_report = f32_phase(dev)
-    # the float32 attention rows take their launches from phase 11
+
+    log("phase 12: the 8B served in float16 over HTTP on the float16 forms "
+        "of the bf16 attention kernels, then with int8 weights on the "
+        "float16 forms of the int8 GEMM's tensor-core routes")
+    f16_report = f16_phase(dev)
+    # the float32 attention rows take their launches from phase 11, the
+    # float16 rows (attention and int8) theirs from phase 12
+    f16_served = f16_report["float16"]["served"]
+    f16_int8 = f16_report["float16 int8"]["served"]["int8_gemm_launches"]
     for r in rows:
-        if "launches_from" in r:
+        decode = r["name"].startswith("paged_attention_decode")
+        if "int8_route" in r:  # an int8 GEMM row
+            if r["dtype"] != "float16":
+                continue
+            r["launches"] = f16_int8[r["int8_route"]]
+        elif r["name"].endswith(" float16"):
+            r["launches"] = (f16_served["route_launches"]["f16_mma"] if decode
+                             else f16_served["prefill_route_launches"]["f16"])
+        elif r["name"].endswith(" float32"):
             r["launches"] = f32_report["served"][
-                "route_launches" if "decode" in r["name"]
+                "route_launches" if decode
                 else "prefill_route_launches"]["f32"]
-            if r["launches"] <= 0:
-                fail(f"{r['name']}: not launched by the float32 1b engine: "
-                     f"{json.dumps(f32_report['served'])}")
+        else:
+            continue
+        if r["launches"] <= 0:
+            fail(f"{r['name']}: not launched on its served path "
+                 f"({r.get('launches_from')})")
     # the served tp=2 phase's rank 0 (rank 1 is checked equal): with a
     # mesh every kernel call goes through a sharded wrapper
     rank0 = tp_served["summaries"][0]["launches"]
@@ -3695,7 +3879,7 @@ def main() -> None:
                        "graph_prefill_logprobs": graph_prefill_lp,
                        "logprobs": logprobs_check,
                        "checkpoint": checkpoint, "penalties": penalties,
-                       "f32_1b": f32_report,
+                       "f32_1b": f32_report, "f16_8b": f16_report,
                        "kernels": rows, "int8": int8_report,
                        "int8_gemm_timings": int8_rows,
                        "tp_local_errs": {" ".join(k): v for k, v in

@@ -52,8 +52,9 @@ plain decode set's). Rules the caller keeps (the engine does):
 A capture or replay error raises: there is no eager fallback on the card.
 Kernel launch counts (``ops.paged_attention.LAUNCHES``,
 ``DECODE_ROUTE_LAUNCHES``, ``PREFILL_ROUTE_LAUNCHES`` and
-``ops.int8_gemm.INT8_GEMM_LAUNCHES``, the last by route: small_m, wgmma
-and simt) count Python calls, and a replay
+``ops.int8_gemm.INT8_GEMM_LAUNCHES``, the last by route and form:
+small_m, wgmma, simt and the float16 forms small_m_f16, wgmma_f16) count
+Python calls, and a replay
 makes none:
 each graph records the counts its capture added (and takes them back,
 since a capture launches nothing) and adds them again at every replay.

@@ -7,25 +7,13 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "tma_wgmma.cuh"  // smem_u32 and the mbarriers
+#include "tma_wgmma.cuh"  // the element types, smem_u32, the mbarriers
 
 namespace {
 
 // finite "masked" value of the online softmax: keeps exp() NaN-free
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -42,11 +30,6 @@ __device__ __forceinline__ float warp_max(float v) {
 // Gemma-2 logit softcap (0 = off); applied before the mask
 __device__ __forceinline__ float cap(float s, float softcap) {
   return softcap > 0.f ? softcap * tanhf(s / softcap) : s;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // The shapes both float32 kernels (route 2: paged_decode_f32_kernel,

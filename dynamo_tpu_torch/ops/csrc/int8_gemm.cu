@@ -23,20 +23,27 @@
 // 3.35 TB/s. A prefill chunk of 512 or more rows is bound by the tensor
 // cores (989 TF/s, which only wgmma reaches).
 //
-// Three routes. The two bf16 routes widen the weights to bf16 on chip, in
-// registers, never in device memory: int8 -127..127 is exact in bf16.
-// The wgmma route's widening (widen_i8x4) is a byte permute into the
-// mantissa of 2^23 and a subtraction per value, and one byte permute per
-// pair; the small-M route's (widen_i8x4_split) two masks a pair and one
-// bf16x2 fma, no permute (cvt to bf16x2 issues at a quarter of the
-// integer rate). At decode rows the widening, on the integer pipe, is
-// what a block's compute costs: about 40 GB of weights a second an SM.
-// * small_m (route 0, bf16 x, decode rows M <= 32), mma.sync m16n8k16
-//   (bf16 in, f32 accumulate), both operands from shared memory. A block
+// Three routes. The two tensor-core routes take bf16 or float16 x (T) and
+// widen the weights to T on chip, in registers, never in device memory:
+// int8 -127..127 is exact in bf16 (8 significant bits) and in float16
+// (11). In bf16 the wgmma route's widening (widen_i8x4) is a byte permute
+// into the mantissa of 2^23 and a subtraction per value, and one byte
+// permute per pair; the small-M route's (widen_i8x4_split) two masks a
+// pair and one bf16x2 fma, no permute (cvt to bf16x2 issues at a quarter
+// of the integer rate). In float16 both are one half2 subtraction a pair
+// (widen_f16x4, widen_f16x4_split): the byte, offset to 0..255, is the
+// low mantissa byte of 1024 (whose ulp is 1), and 1024 + 128 comes off.
+// At decode rows the widening, on the integer pipe, is what a block's
+// compute costs: about 40 GB of weights a second an SM. The float16 forms
+// are the bf16 designs with mma.sync's and wgmma's .f16 forms, a float16
+// tensor map of x and half2 stores.
+// * small_m (route 0, bf16 or float16 x, decode rows M <= 32), mma.sync
+//   m16n8k16
+//   (T in, f32 accumulate), both operands from shared memory. A block
 //   is 64 output channels by a share of K, one producer warp and eight
 //   consumer warps. One producer thread streams the share through a ring
 //   of 128-wide stages with TMA, each the [64, 128] int8 tile of q
-//   (128-byte swizzle) and two [16 MT, 64] bf16 boxes of x (128-byte
+//   (128-byte swizzle) and two [16 MT, 64] 16-bit boxes of x (128-byte
 //   swizzle), completion counted in bytes on the stage's full mbarrier,
 //   keeping four stages of q in flight (with all of a block's stages in
 //   flight every stage lands at the end of the burst, and compute cannot
@@ -67,36 +74,34 @@
 //   mbarrier), and each owner sums its slices in rank order. No block
 //   reads a peer's shared memory, so no closing cluster barrier: a
 //   replay gives the eager call's bits.
-// * wgmma (route 1, bf16 x: prefill chunks, decode batches above the
-//   measured crossover and the widest decode products): the product is
+// * wgmma (route 1, bf16 or float16 x: prefill chunks, decode batches above
+//   the measured crossover and the widest decode products): the product is
 //   computed transposed, y^T = q x^T, so that the weights are wgmma's A
-//   operand, from registers, and the tokens its N (16 .. 256). A block
-//   is a producer warpgroup and two consumer warpgroups on a tile of 128
-//   output channels (64 a warpgroup) by BT tokens; setmaxnreg moves the
-//   producer's registers to the consumers (40 and 232 a thread), so the
-//   256-token tile's 128 accumulators a thread do not spill. One
-//   producer thread keeps a ring of stages in flight with TMA, each a
-//   [BT, 64] bf16 tile of x (128-byte swizzle, the K-major B operand of
-//   wgmma m64nBTk16) and a [128, 64] int8 tile of q (64-byte swizzle),
-//   completion counted in bytes on the stage's full mbarrier; the
-//   consumers release a stage on its empty mbarrier once its wgmmas have
-//   completed. A consumer thread gathers its A fragment (k = 2t, 2t + 1,
-//   2t + 8, 2t + 9 of rows g and g + 8 in each k16 step) with two 32-bit
-//   shared loads and one byte permute a row and step (the swizzle makes
-//   them conflict-free), widens it in registers, and issues the chunk's
-//   four wgmmas while one (BT >= 128) or two (BT <= 64) earlier chunks'
-//   are still running, each with its own A fragment registers. The grid
-//   is persistent: each cluster walks the tiles tile = cluster + i *
-//   clusters, tokens fastest (neighbouring tiles share their weights
-//   through L2), as many clusters as the card holds at once. Where the
-//   tiles are too few to fill the card, K is split over the S <= 8
-//   blocks of one cluster: each block writes its partial sums to shared
-//   memory and the blocks fold them through distributed shared memory in
-//   rank order. No atomics and no global counters: a replayed CUDA graph
-//   gives the eager call's bits.
-// * simt (route 2, float32 and float16 x): an untuned tiled loop in
-//   float32 FMAs, for the models that are not served in bf16 (the tiny
-//   preset is float32).
+//   operand, from registers, and the tokens its N (16 .. 256). A block is a
+//   producer warpgroup and two consumer warpgroups on a tile of 128 output
+//   channels (64 a warpgroup) by BT tokens; setmaxnreg moves the producer's
+//   registers to the consumers (40 and 232 a thread), so the 256-token
+//   tile's 128 accumulators a thread do not spill. One producer thread
+//   keeps a ring of stages in flight with TMA, each a [BT, 64] 16-bit tile
+//   of x (128-byte swizzle, the K-major B operand of wgmma m64nBTk16) and a
+//   [128, 64] int8 tile of q (64-byte swizzle), completion counted in bytes
+//   on the stage's full mbarrier; the consumers release a stage on its
+//   empty mbarrier once its wgmmas have completed. A consumer thread
+//   gathers its A fragment (k = 2t, 2t + 1, 2t + 8, 2t + 9 of rows g and g
+//   + 8 in each k16 step) with two 32-bit shared loads and one byte permute
+//   a row and step (the swizzle makes them conflict-free), widens it in
+//   registers, and issues the chunk's four wgmmas while one (BT >= 128) or
+//   two (BT <= 64) earlier chunks' are still running, each with its own A
+//   fragment registers. The grid is persistent: each cluster walks the
+//   tiles tile = cluster + i * clusters, tokens fastest (neighbouring tiles
+//   share their weights through L2), as many clusters as the card holds at
+//   once. Where the tiles are too few to fill the card, K is split over the
+//   S <= 8 blocks of one cluster: each block writes its partial sums to
+//   shared memory and the blocks fold them through distributed shared
+//   memory in rank order. No atomics and no global counters: a replayed
+//   CUDA graph gives the eager call's bits.
+// * simt (route 2, float32 x): an untuned tiled loop in float32 FMAs, for
+//   the models served in float32 (the tiny preset).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -109,16 +114,20 @@ namespace {
 
 // ---------------------------------------------------------------- helpers
 
-// mma.sync m16n8k16, bf16 in, f32 accumulate: d += a b
+// mma.sync m16n8k16, T (bf16 or f16) in, f32 accumulate: d += a b
+template <typename T>
 __device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+#define DYN_MMA16816(AB)                                                    \
+  asm volatile(                                                             \
+      "mma.sync.aligned.m16n8k16.row.col.f32." AB "." AB ".f32 "           \
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                     \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1))
+  DYN_AB(T, DYN_MMA16816);
+#undef DYN_MMA16816
 }
 
 // four int8 (one 32-bit word, lowest byte first) as two bf16 pairs: lo
@@ -160,6 +169,52 @@ __device__ __forceinline__ void widen_i8x4_split(uint32_t w, uint32_t& even,
                     (w & 0x00800080u) | 0x43004300u);
   odd = bf16x2_sub((w8 & 0x007F007Fu) | 0x43004300u,
                    (w8 & 0x00800080u) | 0x43004300u);
+}
+
+// a - b of two float16 pairs (exact where the difference is)
+__device__ __forceinline__ uint32_t f16x2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// 1024 + 128 in both halves of a float16 pair
+constexpr uint32_t F16X2_1152 = 0x64806480u;
+
+// widen_i8x4 in float16: four int8 (one word, lowest byte first) as two
+// float16 pairs, bytes 0, 1 in lo and 2, 3 in hi. Each byte, offset to
+// 0..255, becomes the low mantissa byte of 1024 (0x6400: float16 steps by
+// 1 there) by one byte permute a pair; subtracting 1024 + 128 gives the
+// signed value exactly.
+__device__ __forceinline__ void widen_f16x4(uint32_t w, uint32_t& lo,
+                                            uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  lo = f16x2_sub(__byte_perm(u, 0x64646464u, 0x4140), F16X2_1152);
+  hi = f16x2_sub(__byte_perm(u, 0x64646464u, 0x4342), F16X2_1152);
+}
+
+// widen_i8x4_split in float16: bytes 0 and 2 in `even` and 1 and 3 in
+// `odd`, each byte offset to 0..255 masked into the low mantissa byte of
+// 1024, less 1024 + 128: one logic op and one subtraction a pair.
+__device__ __forceinline__ void widen_f16x4_split(uint32_t w, uint32_t& even,
+                                                  uint32_t& odd) {
+  const uint32_t u = w ^ 0x80808080u;
+  even = f16x2_sub((u & 0x00FF00FFu) | 0x64006400u, F16X2_1152);
+  odd = f16x2_sub(((u >> 8) & 0x00FF00FFu) | 0x64006400u, F16X2_1152);
+}
+
+// the widenings of T: bf16's forms above, or their float16 forms
+template <typename T>
+__device__ __forceinline__ void widen_pair(uint32_t w, uint32_t& lo,
+                                           uint32_t& hi) {
+  if constexpr (is_f16<T>) widen_f16x4(w, lo, hi);
+  else widen_i8x4(w, lo, hi);
+}
+template <typename T>
+__device__ __forceinline__ void widen_split(uint32_t w, uint32_t& even,
+                                            uint32_t& odd) {
+  if constexpr (is_f16<T>) widen_f16x4_split(w, even, odd);
+  else widen_i8x4_split(w, even, odd);
 }
 
 __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
@@ -239,19 +294,18 @@ __device__ __forceinline__ uint4 lds128(uint32_t addr) {
 }
 
 // two sums (token m, channels n0 + c, + 1) scaled (sc: the scales of
-// channels n0 ..) and rounded to bf16
-__device__ __forceinline__ void store2(__nv_bfloat16* y, const float* sc,
-                                       int N, int m, int n0, int c, float a,
-                                       float b) {
+// channels n0 ..) and rounded to T
+template <typename T>
+__device__ __forceinline__ void store2(T* y, const float* sc, int N, int m,
+                                       int n0, int c, float a, float b) {
   const int n = n0 + c;
-  __nv_bfloat16* out = y + (size_t)m * N + n;
+  T* out = y + (size_t)m * N + n;
   if ((N & 1) == 0 && n + 1 < N) {
-    *reinterpret_cast<__nv_bfloat162*>(out) =
-        __floats2bfloat162_rn(a * sc[c], b * sc[c + 1]);
+    *reinterpret_cast<uint32_t*>(out) = pack2<T>(a * sc[c], b * sc[c + 1]);
     return;
   }
-  if (n < N) out[0] = __float2bfloat16_rn(a * sc[c]);
-  if (n + 1 < N) out[1] = __float2bfloat16_rn(b * sc[c + 1]);
+  if (n < N) out[0] = from_f<T>(a * sc[c]);
+  if (n + 1 < N) out[1] = from_f<T>(b * sc[c + 1]);
 }
 
 // ------------------------------------------------------- route 0: small M
@@ -268,7 +322,7 @@ constexpr int SM_RED_LD = SM_BN + 8;  // floats a row of the K groups'
 constexpr int MAX_SPLITS = 8;  // one cluster: the portable maximum
 
 // Shared memory of MT m16 tiles (16 MT token rows): STAGES ring stages,
-// each the q tile [64, 128] int8 then x's two boxes [16 MT, 64] bf16 (k
+// each the q tile [64, 128] int8 then x's two boxes [16 MT, 64] 16-bit (k
 // 0-63, 64-127 of the stage), all 128-byte swizzled (1024-byte aligned);
 // the cluster fold buffer (S slices of the owner's share of the partial
 // sums, one a rank); the block's 64 scales; a full and an empty mbarrier
@@ -298,15 +352,14 @@ template <int MT> struct SmTile {
 // + rank); block r takes the 128-wide stages [r * cps, (r + 1) * cps) of
 // K. early: let the next grid launch once the last weight stage is
 // issued (else when this one ends; see launch_small). x_map: x as [M, K]
-// bf16, box [16 MT, 64]; q_map: q as [N, K] uint8, box [64, 128]; both
-// 128-byte swizzle, zeros past M, N and K.
-template <int MT>
+// T (bfloat16 or float16), box [16 MT, 64]; q_map: q as [N, K] uint8, box
+// [64, 128]; both 128-byte swizzle, zeros past M, N and K.
+template <int MT, typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(SM_THREADS, 2)
 int8_gemm_small_kernel(const __grid_constant__ CUtensorMap x_map,
                        const __grid_constant__ CUtensorMap q_map,
-                       const float* __restrict__ s,
-                       __nv_bfloat16* __restrict__ y, int M, int N, int K,
-                       int splits, int cps, int early) {
+                       const float* __restrict__ s, T* __restrict__ y, int M,
+                       int N, int K, int splits, int cps, int early) {
   using Tile = SmTile<MT>;
   constexpr int STAGES = Tile::STAGES;
   constexpr int ROWS = Tile::ROWS;
@@ -448,7 +501,7 @@ int8_gemm_small_kernel(const __grid_constant__ CUtensorMap x_map,
           uint32_t b0[4], b1[4];
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt)
-            widen_i8x4_split(word(bq[nt], j & 3), b0[nt], b1[nt]);
+            widen_split<T>(word(bq[nt], j & 3), b0[nt], b1[nt]);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
             // x at k, k + 2 and k + 1, k + 3 of the step's four, as the
@@ -463,7 +516,7 @@ int8_gemm_small_kernel(const __grid_constant__ CUtensorMap x_map,
                                             word(ax[mt][1], 2 * h + 1), 0x7632);
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt)
-              mma16816(acc[mt][nt], a0, a1, a2, a3, b0[nt], b1[nt]);
+              mma16816<T>(acc[mt][nt], a0, a1, a2, a3, b0[nt], b1[nt]);
           }
         }
       }
@@ -554,7 +607,7 @@ constexpr int WG_PART_LD = WG_BN + 4;  // floats a token row of the fold
                                        // buffer (conflict-free writes)
 
 // Shared memory of a tile of BT tokens: STAGES ring stages, each the x
-// tile [BT, 64] bf16 (rows of 128 bytes, 128-byte swizzle) then the q
+// tile [BT, 64] 16-bit (rows of 128 bytes, 128-byte swizzle) then the q
 // tile [128, 64] int8 (rows of 64 bytes, 64-byte swizzle), and a full
 // and an empty mbarrier a stage. With K splits, the fold buffer [BT,
 // WG_PART_LD] float32 takes the ring's place between a tile's last chunk
@@ -594,25 +647,23 @@ __device__ __forceinline__ void hold(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-// four sums (tokens m, channels n .. n + 3) scaled and rounded to bf16
-__device__ __forceinline__ void store4(__nv_bfloat16* y, const float* s,
-                                       int M, int N, int m, int n, float4 v) {
+// four sums (tokens m, channels n .. n + 3) scaled and rounded to T
+template <typename T>
+__device__ __forceinline__ void store4(T* y, const float* s, int M, int N,
+                                       int m, int n, float4 v) {
   if (m >= M) return;
-  __nv_bfloat16* row = y + (size_t)m * N;
+  T* row = y + (size_t)m * N;
   if ((N & 3) == 0 && n + 3 < N) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x * s[n], v.y * s[n + 1]);
-    const __nv_bfloat162 hi =
-        __floats2bfloat162_rn(v.z * s[n + 2], v.w * s[n + 3]);
     uint2 packed;
-    packed.x = *reinterpret_cast<const uint32_t*>(&lo);
-    packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+    packed.x = pack2<T>(v.x * s[n], v.y * s[n + 1]);
+    packed.y = pack2<T>(v.z * s[n + 2], v.w * s[n + 3]);
     *reinterpret_cast<uint2*>(row + n) = packed;
     return;
   }
   const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    if (n + i < N) row[n + i] = __float2bfloat16_rn(e[i] * s[n + i]);
+    if (n + i < N) row[n + i] = from_f<T>(e[i] * s[n + i]);
 }
 
 // grid: clusters of `splits` blocks (1..8), as many clusters as the card
@@ -623,15 +674,14 @@ __device__ __forceinline__ void store4(__nv_bfloat16* y, const float* s,
 // consumers (warpgroup wg computes channels 64 wg .. + 63 of the
 // block's 128, warp w its rows 16 (w % 4) + g and + 8), warps 8-11 the
 // producer warpgroup (one thread issues the copies). x_map: x as [M, K]
-// bf16, box [BT, 64], 128-byte swizzle; q_map: q as [N, K] uint8, box [128, 64],
-// 64-byte swizzle (zeros past M, N and K).
-template <int BT>
+// T (bfloat16 or float16), box [BT, 64], 128-byte swizzle; q_map: q as
+// [N, K] uint8, box [128, 64], 64-byte swizzle (zeros past M, N and K).
+template <int BT, typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                        const __grid_constant__ CUtensorMap q_map,
-                       const float* __restrict__ s,
-                       __nv_bfloat16* __restrict__ y, int M, int N, int K,
-                       int splits, int cps) {
+                       const float* __restrict__ s, T* __restrict__ y, int M,
+                       int N, int K, int splits, int cps) {
   using Tile = WgTile<BT>;
   constexpr int STAGES = Tile::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -712,8 +762,8 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const uint32_t addr = qs + qoff[kk] + h * 512;
-        widen_i8x4(__byte_perm(lds32(addr), lds32(addr + 8), sel), a[kk][h],
-                   a[kk][2 + h]);
+        widen_pair<T>(__byte_perm(lds32(addr), lds32(addr + 8), sel),
+                      a[kk][h], a[kk][2 + h]);
       }
   };
   auto release = [&](int st) {
@@ -741,7 +791,7 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<BT, 0>(acc, a[kk], wgmma_desc(xs + kk * 32, 16, 1024));
+        wgmma_rs<BT, 0, T>(acc, a[kk], wgmma_desc(xs + kk * 32, 16, 1024));
       wgmma_commit();
       wgmma_wait<DEPTH - 1>();
       hold(done);
@@ -778,7 +828,7 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
           const int n = e < 2 ? na : nb;
           if (m < M && n < N)
             y[(size_t)m * N + n] =
-                __float2bfloat16_rn(acc[4 * j + e] * (e < 2 ? sa : sb));
+                from_f<T>(acc[4 * j + e] * (e < 2 ? sa : sb));
         }
       continue;
     }
@@ -820,30 +870,19 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// ------------------------------------- route 2: float32 and float16 x
+// ------------------------------------------------ route 2: float32 x
 
 constexpr int ST_THREADS = 256;  // 32 x 8
 constexpr int ST_TILE = 32;      // tokens and channels a block
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__half>(__half v) {
-  return __half2float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
-
 // grid (ceil(N / 32), ceil(M / 32)): a block computes 32 tokens x 32
 // channels, thread (tx, ty) channel tx of tokens ty, ty + 8, ty + 16,
-// ty + 24, over 32-wide chunks of K staged in shared memory as float32.
-template <typename T>
+// ty + 24, over 32-wide chunks of K staged in shared memory.
 __global__ void __launch_bounds__(ST_THREADS)
-int8_gemm_simt_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-                      const float* __restrict__ s, T* __restrict__ y, int M,
-                      int N, int K) {
+int8_gemm_simt_kernel(const float* __restrict__ x,
+                      const int8_t* __restrict__ q,
+                      const float* __restrict__ s, float* __restrict__ y,
+                      int M, int N, int K) {
   __shared__ float xs[ST_TILE][ST_TILE + 1];
   __shared__ float qs[ST_TILE][ST_TILE + 1];
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
@@ -853,7 +892,7 @@ int8_gemm_simt_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
     const int k = k0 + tx;
     for (int i = ty; i < ST_TILE; i += 8) {
       const int m = m0 + i, n = n0 + i;
-      xs[i][tx] = (m < M && k < K) ? to_f32(x[(size_t)m * K + k]) : 0.f;
+      xs[i][tx] = (m < M && k < K) ? x[(size_t)m * K + k] : 0.f;
       qs[i][tx] = (n < N && k < K) ? (float)q[(size_t)n * K + k] : 0.f;
     }
     __syncthreads();
@@ -872,7 +911,7 @@ int8_gemm_simt_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < ST_TILE / 8; ++i) {
     const int m = m0 + ty + 8 * i;
-    if (m < M) y[(size_t)m * N + n] = from_f32<T>(acc[i] * sn);
+    if (m < M) y[(size_t)m * N + n] = acc[i] * sn;
   }
 }
 
@@ -907,23 +946,29 @@ cudaLaunchConfig_t small_config(int splits, int grid, cudaStream_t st,
   return cfg;
 }
 
-template <int MT>
-int launch_small(const void* x, const void* q, const float* s,
-                 __nv_bfloat16* y, int M, int N, int K, int splits, int grid,
-                 cudaStream_t st) {
+// the tensor-map type of T
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return is_f16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+template <int MT, typename T>
+int launch_small(const void* x, const void* q, const float* s, T* y, int M,
+                 int N, int K, int splits, int grid, cudaStream_t st) {
   using Tile = SmTile<MT>;
   if (splits < 1 || splits > MAX_SPLITS ||
       grid != (N + SM_BN - 1) / SM_BN * splits)
     return (int)cudaErrorInvalidValue;
   CUtensorMap x_map, q_map;
-  if (!tile_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, 2ull * K,
-                Tile::ROWS, 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!tile_map(&x_map, map_type<T>(), x, M, K, 2ull * K, Tile::ROWS, 64,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tile_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, K, K, SM_BN,
                 SM_BK, CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      int8_gemm_small_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile::SMEM);
+      int8_gemm_small_kernel<MT, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int C = (K + SM_BK - 1) / SM_BK;
   const int cps = (C + splits - 1) / splits;
@@ -941,25 +986,26 @@ int launch_small(const void* x, const void* q, const float* s,
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg = small_config(splits, grid, st, attr);
   cfg.dynamicSmemBytes = Tile::SMEM;
-  err = cudaLaunchKernelEx(&cfg, int8_gemm_small_kernel<MT>, x_map, q_map, s,
-                           y, M, N, K, splits, cps, early);
+  err = cudaLaunchKernelEx(&cfg, int8_gemm_small_kernel<MT, T>, x_map, q_map,
+                           s, y, M, N, K, splits, cps, early);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// blocks of the MT-tile small-M kernel (clusters of `splits`) the card
-// holds at once (negative: a CUDA error)
-template <int MT>
+// blocks of the MT-tile small-M kernel in T (clusters of `splits`) the
+// card holds at once (negative: a CUDA error)
+template <int MT, typename T>
 int small_resident(int splits) {
   using Tile = SmTile<MT>;
   cudaError_t err = cudaFuncSetAttribute(
-      int8_gemm_small_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile::SMEM);
+      int8_gemm_small_kernel<MT, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg = small_config(splits, splits, nullptr, attr, true);
   cfg.dynamicSmemBytes = Tile::SMEM;
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, int8_gemm_small_kernel<MT>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, int8_gemm_small_kernel<MT, T>,
+                                       &cfg);
   return err != cudaSuccess ? -(int)err : n * splits;
 }
 
@@ -978,123 +1024,140 @@ cudaLaunchConfig_t wgmma_config(int splits, int grid, cudaStream_t st,
   return cfg;
 }
 
-template <int BT>
-int launch_wgmma(const void* x, const void* q, const float* s,
-                 __nv_bfloat16* y, int M, int N, int K, int splits, int grid,
-                 cudaStream_t st) {
+template <int BT, typename T>
+int launch_wgmma(const void* x, const void* q, const float* s, T* y, int M,
+                 int N, int K, int splits, int grid, cudaStream_t st) {
   using Tile = WgTile<BT>;
   if (splits < 1 || splits > MAX_SPLITS || grid < splits ||
       grid % splits != 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap x_map, q_map;
-  if (!tile_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K,
-                2ull * K, BT, WG_BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!tile_map(&x_map, map_type<T>(), x, M, K, 2ull * K, BT, WG_BK,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tile_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, K, K, WG_BN,
                 WG_BK, CU_TENSOR_MAP_SWIZZLE_64B))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      int8_gemm_wgmma_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile::SMEM);
+      int8_gemm_wgmma_kernel<BT, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int C = (K + WG_BK - 1) / WG_BK;
   const int cps = (C + splits - 1) / splits;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = wgmma_config(splits, grid, st, attr);
   cfg.dynamicSmemBytes = Tile::SMEM;
-  err = cudaLaunchKernelEx(&cfg, int8_gemm_wgmma_kernel<BT>, x_map, q_map, s,
-                           y, M, N, K, splits, cps);
+  err = cudaLaunchKernelEx(&cfg, int8_gemm_wgmma_kernel<BT, T>, x_map, q_map,
+                           s, y, M, N, K, splits, cps);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// clusters of `splits` blocks of the BT-token kernel the card holds at
-// once (negative: a CUDA error)
-template <int BT>
+// clusters of `splits` blocks of the BT-token kernel in T the card holds
+// at once (negative: a CUDA error)
+template <int BT, typename T>
 int wgmma_resident(int splits) {
   using Tile = WgTile<BT>;
   cudaError_t err = cudaFuncSetAttribute(
-      int8_gemm_wgmma_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile::SMEM);
+      int8_gemm_wgmma_kernel<BT, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = wgmma_config(splits, splits, nullptr, attr);
   cfg.dynamicSmemBytes = Tile::SMEM;
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, int8_gemm_wgmma_kernel<BT>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, int8_gemm_wgmma_kernel<BT, T>,
+                                       &cfg);
   return err != cudaSuccess ? -(int)err : n;
 }
 
-template <typename T>
 int launch_simt(const void* x, const int8_t* q, const float* s, void* y,
                 int M, int N, int K, cudaStream_t st) {
   const dim3 grid((N + ST_TILE - 1) / ST_TILE, (M + ST_TILE - 1) / ST_TILE);
-  int8_gemm_simt_kernel<T><<<grid, ST_THREADS, 0, st>>>(
-      static_cast<const T*>(x), q, s, static_cast<T*>(y), M, N, K);
+  int8_gemm_simt_kernel<<<grid, ST_THREADS, 0, st>>>(
+      static_cast<const float*>(x), q, s, static_cast<float*>(y), M, N, K);
   return (int)cudaGetLastError();
+}
+
+// the tensor-core routes in T: route 0 (small_m) or 1 (wgmma)
+template <typename T>
+int launch_tc(const void* x, const void* q, const float* s, void* y, int M,
+              int N, int K, int route, int tile, int splits, int grid,
+              cudaStream_t st) {
+  T* yt = static_cast<T*>(y);
+  if (route == 0) {
+    if (M > 16 * tile) return (int)cudaErrorInvalidValue;
+    switch (tile) {
+      case 1: return launch_small<1, T>(x, q, s, yt, M, N, K, splits, grid, st);
+      case 2: return launch_small<2, T>(x, q, s, yt, M, N, K, splits, grid, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (route != 1) return (int)cudaErrorInvalidValue;
+  switch (tile) {
+#define WG_CASE(BT) \
+  case BT: return launch_wgmma<BT, T>(x, q, s, yt, M, N, K, splits, grid, st);
+    WG_CASE(16) WG_CASE(32) WG_CASE(64) WG_CASE(128) WG_CASE(256)
+#undef WG_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // y [M, N] = (x [M, K] @ q [N, K]^T) * s [N]; dtype of x and y: 0
-// bfloat16, 1 float16, 2 float32. route 0 (small_m, bfloat16): `tile` m16
-// tiles (1 or 2; M <= 16 tile), `splits` blocks of K a cluster (1..8)
-// and `grid` = ceil(N / 64) * splits blocks; route 1 (wgmma, bfloat16):
-// `tile` tokens a tile (16, 32, 64, 128 or 256), `splits` blocks of K a
-// cluster and `grid` blocks (a multiple of splits); route 2 (simt,
-// float16 or float32): tile, splits and grid unused. K must be a
-// multiple of 16 and x and q 16-byte aligned; the wrapper checks both,
-// and the entry refuses what it does not take.
+// bfloat16, 1 float16, 2 float32. route 0 (small_m, bfloat16 or
+// float16): `tile` m16 tiles (1 or 2; M <= 16 tile), `splits` blocks of K
+// a cluster (1..8) and `grid` = ceil(N / 64) * splits blocks; route 1
+// (wgmma, bfloat16 or float16): `tile` tokens a tile (16, 32, 64, 128 or
+// 256), `splits` blocks of K a cluster and `grid` blocks (a multiple of
+// splits); route 2 (simt, float32): tile, splits and grid unused. K must
+// be a multiple of 16 and x and q 16-byte aligned; the wrapper checks
+// both, and the entry refuses what it does not take.
 extern "C" int dyn_int8_gemm(const void* x, const void* q, const void* s,
                              void* y, int M, int N, int K, int route,
                              int tile, int splits, int grid, int dtype,
                              void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const auto* qb = static_cast<const int8_t*>(q);
   const auto* sb = static_cast<const float*>(s);
-  auto* yb = static_cast<__nv_bfloat16*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == 2) {
-    if (dtype == 1) return launch_simt<__half>(x, qb, sb, y, M, N, K, st);
-    if (dtype == 2) return launch_simt<float>(x, qb, sb, y, M, N, K, st);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  if (route == 0) {
-    if (M > 16 * tile) return (int)cudaErrorInvalidValue;
-    switch (tile) {
-      case 1: return launch_small<1>(x, q, sb, yb, M, N, K, splits, grid, st);
-      case 2: return launch_small<2>(x, q, sb, yb, M, N, K, splits, grid, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (route != 1) return (int)cudaErrorInvalidValue;
-  switch (tile) {
-    case 16: return launch_wgmma<16>(x, q, sb, yb, M, N, K, splits, grid, st);
-    case 32: return launch_wgmma<32>(x, q, sb, yb, M, N, K, splits, grid, st);
-    case 64: return launch_wgmma<64>(x, q, sb, yb, M, N, K, splits, grid, st);
-    case 128: return launch_wgmma<128>(x, q, sb, yb, M, N, K, splits, grid, st);
-    case 256: return launch_wgmma<256>(x, q, sb, yb, M, N, K, splits, grid, st);
-  }
+  if (route == 2)
+    return dtype == 2 ? launch_simt(x, static_cast<const int8_t*>(q), sb, y,
+                                    M, N, K, st)
+                      : (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_tc<__nv_bfloat16>(x, q, sb, y, M, N, K, route, tile,
+                                    splits, grid, st);
+  if (dtype == 1)
+    return launch_tc<__half>(x, q, sb, y, M, N, K, route, tile, splits,
+                             grid, st);
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int resident_of(int tile, int splits) {
+  switch (tile) {
+    case 1: return small_resident<1, T>(splits);
+    case 2: return small_resident<2, T>(splits);
+    case 16: return wgmma_resident<16, T>(splits);
+    case 32: return wgmma_resident<32, T>(splits);
+    case 64: return wgmma_resident<64, T>(splits);
+    case 128: return wgmma_resident<128, T>(splits);
+    case 256: return wgmma_resident<256, T>(splits);
+  }
+  return -(int)cudaErrorInvalidValue;
 }
 
 // How many clusters of `splits` blocks of the wgmma route's
 // `tile`-token kernel the card holds at once (the persistent grid's
 // size), or, for tile 1 or 2, how many blocks of the small-M route's
-// kernel of that many m16 tiles in clusters of `splits`; a negative value
-// is a CUDA error.
-extern "C" int dyn_int8_gemm_resident(int tile, int splits) {
-  if (splits < 1 || splits > MAX_SPLITS) return -(int)cudaErrorInvalidValue;
-  switch (tile) {
-    case 1: return small_resident<1>(splits);
-    case 2: return small_resident<2>(splits);
-    case 16: return wgmma_resident<16>(splits);
-    case 32: return wgmma_resident<32>(splits);
-    case 64: return wgmma_resident<64>(splits);
-    case 128: return wgmma_resident<128>(splits);
-    case 256: return wgmma_resident<256>(splits);
-  }
-  return -(int)cudaErrorInvalidValue;
+// kernel of that many m16 tiles in clusters of `splits`, in the form for
+// dtype (0 bfloat16, 1 float16: the plans take the bfloat16 counts, and
+// the card tests hold the two equal); a negative value is a CUDA error.
+extern "C" int dyn_int8_gemm_resident(int tile, int splits, int dtype) {
+  if (splits < 1 || splits > MAX_SPLITS || dtype < 0 || dtype > 1)
+    return -(int)cudaErrorInvalidValue;
+  return dtype == 0 ? resident_of<__nv_bfloat16>(tile, splits)
+                    : resident_of<__half>(tile, splits);
 }
 
 // Switch programmatic launch of the small-M route on (1) or off (0), to

@@ -10,13 +10,17 @@
 //            64/128/256, page size 16/32/64/128, GQA groups 1-8 (the
 //            llama3_8b and 1b presets: the serving path); one cluster
 //            launch per call
+//   route 3  paged_decode_bf16_kernel<hd,      its float16 form, at the
+//            __half>                           same shapes (the presets
+//                                              served in float16)
 //   route 2  paged_decode_f32_kernel<hd, lpg>  float32 at head_dim
 //            16/32/64/128/256, page size 8-128, GQA groups 1-8 (the tiny,
 //            1b and llama3_8b presets in float32); one cluster launch per
 //            call
-//   route 0  paged_decode_kernel<T>            the shapes outside both
-//            + paged_decode_combine<T>         sets (CUDA-core FMAs from
-//                                              shared memory)
+//   route 0  paged_decode_kernel<T>            the shapes outside these
+//            + paged_decode_combine<T>         sets, float32, bfloat16 or
+//                                              float16 (CUDA-core FMAs
+//                                              from shared memory)
 //
 // The prefill kernel (the TPU kernel _prefill_kernel) lives in
 // paged_prefill.cu.
@@ -119,14 +123,21 @@
 //   of rings, one block an SM, 2 splits at the served window) and 4
 //   stages of 8 keys were slower on an H100 (PERF.md, Findings).
 //
+// The float16 form (route 3) is the bf16 kernel with the float16 forms
+// of its instructions (mma.sync .f16, half2 packing of P and of the
+// output): the same shapes, tiles and plan. Scores, the running max, l
+// and every sum stay float32; only P (in [0, 1]) and the output round to
+// float16, whose 10 mantissa bits hold them closer than bf16's 7.
+//
 // Semantics shared with the TPU kernel: online softmax in float32 with
 // the finite NEG_INF = -1e30; exp() only where a key is visible, so an
 // all-masked view returns m = NEG_INF, l = 0 and a zero output; the
 // Gemma-2 tanh softcap comes before the mask. The bf16 kernel rounds the
-// probabilities to bf16 before P V, as the gather path's einsum takes
-// them.
+// probabilities to bf16 (its float16 form to float16) before P V, as the
+// gather path's einsum takes them.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <stdint.h>
@@ -190,13 +201,14 @@ __device__ __forceinline__ void cp_async_wait_1() {
 }
 
 // ---------------------------------------------------- route 0: generic
-// One 16-byte vector of T as floats (8 bf16 or 4 float).
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* f) {
+// One 16-byte vector of T as floats (8 bf16 or float16, or 4 float).
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* f) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const T* h = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
+    const float2 x = unpack2(h + 2 * i);
     f[2 * i] = x.x;
     f[2 * i + 1] = x.y;
   }
@@ -488,18 +500,23 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
       : "r"(addr));
 }
 
-// mma.sync m16n8k16, bf16 in, f32 accumulate, for an A whose rows 8-15 are
-// zero: a0/a2 are rows 0-7 (k 0-7 and 8-15 of the thread's quad), d0/d1
-// the accumulators of row lane / 4; rows 8-15 of D are discarded.
+// mma.sync m16n8k16, T (bf16 or f16) in, f32 accumulate, for an A whose
+// rows 8-15 are zero: a0/a2 are rows 0-7 (k 0-7 and 8-15 of the thread's
+// quad), d0/d1 the accumulators of row lane / 4; rows 8-15 of D are
+// discarded.
+template <typename T>
 __device__ __forceinline__ void mma_rows8(float& d0, float& d1, uint32_t a0,
                                           uint32_t a2, uint32_t b0,
                                           uint32_t b1) {
-  asm("{\n.reg .f32 t<2>;\n"
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, t0, t1}, {%2, %3, %4, %5}, {%6, %7}, {%0, %1, %8, %9};\n}\n"
-      : "+f"(d0), "+f"(d1)
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1), "f"(0.f),
-        "f"(0.f));
+#define DYN_MMA_ROWS8(AB)                                                   \
+  asm("{\n.reg .f32 t<2>;\n"                                              \
+      "mma.sync.aligned.m16n8k16.row.col.f32." AB "." AB ".f32 "           \
+      "{%0, %1, t0, t1}, {%2, %3, %4, %5}, {%6, %7}, {%0, %1, %8, %9};\n}\n" \
+      : "+f"(d0), "+f"(d1)                                                 \
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1), "f"(0.f),    \
+        "f"(0.f))
+  DYN_AB(T, DYN_MMA_ROWS8);
+#undef DYN_MMA_ROWS8
 }
 
 // The cluster's barrier: every thread of every block arrives, and wait
@@ -537,7 +554,8 @@ __device__ __forceinline__ float4 ld_dsmem_f4(uint32_t addr) {
 }
 
 // grid (B, KV, S), clusters (1, 1, S): the S splits of one (row, kv head)
-// are one cluster, split = blockIdx.z = the block's rank in it. Block
+// are one cluster, split = blockIdx.z = the block's rank in it. T: the
+// element type, bfloat16 (route 1) or float16 (route 3). Block
 // DB_THREADS: four warps, each an independent worker over the 16-key
 // blocks w, w + 4, ... of the split's visible range. Lane t of a warp
 // works for head g = t / 4 (rows >= G are zero) and its quad position
@@ -546,22 +564,22 @@ __device__ __forceinline__ float4 ld_dsmem_f4(uint32_t addr) {
 // tile n. Shared: the warps' rings of DB_STAGES stages (K tile, then V
 // tile, swizzled, see dswz), then one mbarrier per stage; the merge and
 // the fold at the end reuse the rings.
-template <int HD>
+template <int HD, typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(DB_THREADS)
-paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k_pools,
-                         const __nv_bfloat16* __restrict__ v_pools,
+paged_decode_bf16_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k_pools,
+                         const T* __restrict__ v_pools,
                          long long layer_offset,
                          const int* __restrict__ page_table,
                          const int* __restrict__ lengths,
                          const int* __restrict__ lower,
-                         __nv_bfloat16* __restrict__ out,
+                         T* __restrict__ out,
                          float* __restrict__ m_out, float* __restrict__ l_out,
                          const int* __restrict__ start,
                          const int* __restrict__ q_pos,
                          const int* __restrict__ eff_win,
-                         const __nv_bfloat16* __restrict__ wk,
-                         const __nv_bfloat16* __restrict__ wv, int n_win,
+                         const T* __restrict__ wk,
+                         const T* __restrict__ wv, int n_win,
                          int Kw, int H, int KV, int N, int ps, int P,
                          float scale, float softcap) {
   using Tile = DecodeTile<HD>;
@@ -610,8 +628,8 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int nblk = je - jb > warp ? (je - jb - warp + DB_WARPS - 1) / DB_WARPS : 0;
   const int* row_table = page_table + (long long)b * P;
   const long long page_elems = (long long)KV * ps * HD;
-  const __nv_bfloat16* k_head = k_pools + layer_offset + (long long)kv * ps * HD;
-  const __nv_bfloat16* v_head = v_pools + layer_offset + (long long)kv * ps * HD;
+  const T* k_head = k_pools + layer_offset + (long long)kv * ps * HD;
+  const T* v_head = v_pools + layer_offset + (long long)kv * ps * HD;
 
   // stage block i of this warp's walk (a page id outside the pool is never
   // read; the stage's barrier still completes and its compute is skipped)
@@ -640,7 +658,7 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // stages (waited for after the loop, where they are scored)
   const int nw = wk != nullptr && split == 0 ? Kw : 0;
   uint8_t* wk_s = smem + Tile::WIN_OFFSET;  // [MAX_KW, HD] swizzled
-  __nv_bfloat16* wv_s = reinterpret_cast<__nv_bfloat16*>(wk_s + MAX_KW * HD * 2);
+  T* wv_s = reinterpret_cast<T*>(wk_s + MAX_KW * HD * 2);
   float* wsc_s = reinterpret_cast<float*>(wv_s + MAX_KW * HD);  // [MAX_G][MAX_KW]
   for (int c = tid; c < nw * CH; c += DB_THREADS) {
     const int w = c / CH, cc = c - w * CH;
@@ -688,8 +706,8 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int kk = 0; kk < HD / 16; ++kk) {
         uint32_t kb[4];
         ldsm_x4(kb, ks + dswz<HD>(k_row, 2 * kk + k_sub));
-        mma_rows8(s0[0], s0[1], qa[kk][0], qa[kk][1], kb[0], kb[1]);
-        mma_rows8(s1[0], s1[1], qa[kk][0], qa[kk][1], kb[2], kb[3]);
+        mma_rows8<T>(s0[0], s0[1], qa[kk][0], qa[kk][1], kb[0], kb[1]);
+        mma_rows8<T>(s1[0], s1[1], qa[kk][0], qa[kk][1], kb[2], kb[3]);
       }
 
       // online softmax of head g over the block's visible keys; the four
@@ -714,7 +732,7 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e)
         p[e] = vis[e] ? exp2f((x[e] - m_new) * LOG2E) : 0.f;
       l = l * alpha + (p[0] + p[1]) + (p[2] + p[3]);
-      const uint32_t pa0 = pack_bf16(p[0], p[1]), pa2 = pack_bf16(p[2], p[3]);
+      const uint32_t pa0 = pack2<T>(p[0], p[1]), pa2 = pack2<T>(p[2], p[3]);
 
       // O = O * alpha + P V: two 8-wide head_dim tiles per ldmatrix
 #pragma unroll
@@ -725,8 +743,8 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         o[n8][1] *= alpha;
         o[n8 + 1][0] *= alpha;
         o[n8 + 1][1] *= alpha;
-        mma_rows8(o[n8][0], o[n8][1], pa0, pa2, vb[0], vb[1]);
-        mma_rows8(o[n8 + 1][0], o[n8 + 1][1], pa0, pa2, vb[2], vb[3]);
+        mma_rows8<T>(o[n8][0], o[n8][1], pa0, pa2, vb[0], vb[1]);
+        mma_rows8<T>(o[n8 + 1][0], o[n8 + 1][1], pa0, pa2, vb[2], vb[3]);
       }
     }
     __syncwarp();  // every lane is done with the stage before it refills
@@ -768,8 +786,8 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < HD / 16; ++kk) {
       uint32_t kb[4];
       ldsm_x4(kb, ks + dswz<HD>(k_row, 2 * kk + k_sub));
-      mma_rows8(s0[0], s0[1], qa[kk][0], qa[kk][1], kb[0], kb[1]);
-      mma_rows8(s1[0], s1[1], qa[kk][0], qa[kk][1], kb[2], kb[3]);
+      mma_rows8<T>(s0[0], s0[1], qa[kk][0], qa[kk][1], kb[0], kb[1]);
+      mma_rows8<T>(s1[0], s1[1], qa[kk][0], qa[kk][1], kb[2], kb[3]);
     }
     const int st = start[b];
     const int floor_pos = eff_win != nullptr ? q_pos[b] - eff_win[b] : INT_MIN;
@@ -876,9 +894,8 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     for (int w = 0; w < nw; ++w) {
       const float e = wsc_s[gi * MAX_KW + w];
-      const __nv_bfloat162* v =
-          reinterpret_cast<const __nv_bfloat162*>(wv_s + w * HD + d);
-      const float2 v0 = __bfloat1622float2(v[0]), v1 = __bfloat1622float2(v[1]);
+      const float2 v0 = unpack2(wv_s + w * HD + d);
+      const float2 v1 = unpack2(wv_s + w * HD + d + 2);
       a.x += e * v0.x;
       a.y += e * v0.y;
       a.z += e * v1.x;
@@ -886,8 +903,8 @@ paged_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     const float Lc = fmaxf(L_s[gi], 1e-9f);
     uint2 packed;
-    packed.x = pack_bf16(a.x / Lc, a.y / Lc);
-    packed.y = pack_bf16(a.z / Lc, a.w / Lc);
+    packed.x = pack2<T>(a.x / Lc, a.y / Lc);
+    packed.y = pack2<T>(a.z / Lc, a.w / Lc);
     *reinterpret_cast<uint2*>(out + obase + gi * HD + d) = packed;
   }
   cluster_sync_relaxed();  // the other splits' shared memory outlives the reads
@@ -1444,24 +1461,35 @@ struct ClusterLaunch {
   }
 };
 
-// one cluster launch: the bf16 kernel folds its splits and the window
-// itself; a launch the card refuses returns its error
-template <int HD>
+// f(kernel, smem) on the bf16 kernel's instantiation for head_dim hd in
+// element type T (bfloat16, or float16 for its float16 form)
+template <typename T, typename F>
+int with_mma_kernel(int hd, F f) {
+  switch (hd) {
+    case 64: return f(paged_decode_bf16_kernel<64, T>, DecodeTile<64>::SMEM);
+    case 128: return f(paged_decode_bf16_kernel<128, T>, DecodeTile<128>::SMEM);
+    case 256: return f(paged_decode_bf16_kernel<256, T>, DecodeTile<256>::SMEM);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// one cluster launch: the bf16 kernel (or its float16 form, T = __half)
+// folds its splits and the window itself; a launch the card refuses
+// returns its error
+template <typename T>
 int launch_bf16(const DecodeArgs& a, const Window& win, cudaStream_t st) {
-  const long long layer_offset = a.layer * (long long)a.N * a.KV * a.ps * HD;
-  ClusterLaunch l(paged_decode_bf16_kernel<HD>, DecodeTile<HD>::SMEM,
-                  dim3(a.B, a.KV, a.splits), st);
-  const cudaError_t err = cudaLaunchKernelEx(
-      &l.cfg, paged_decode_bf16_kernel<HD>,
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k_pools),
-      static_cast<const __nv_bfloat16*>(a.v_pools), layer_offset,
-      a.page_table, a.lengths, a.lower, static_cast<__nv_bfloat16*>(a.out),
-      a.m_out, a.l_out, win.start, win.q_pos, win.eff_win,
-      static_cast<const __nv_bfloat16*>(win.wk),
-      static_cast<const __nv_bfloat16*>(win.wv), win.n_win, win.Kw, a.H,
-      a.KV, a.N, a.ps, a.P, a.scale, a.softcap);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  const long long layer_offset = a.layer * (long long)a.N * a.KV * a.ps * a.hd;
+  return with_mma_kernel<T>(a.hd, [&](auto kernel, int smem) {
+    ClusterLaunch l(kernel, smem, dim3(a.B, a.KV, a.splits), st);
+    const cudaError_t err = cudaLaunchKernelEx(
+        &l.cfg, kernel, static_cast<const T*>(a.q),
+        static_cast<const T*>(a.k_pools), static_cast<const T*>(a.v_pools),
+        layer_offset, a.page_table, a.lengths, a.lower, static_cast<T*>(a.out),
+        a.m_out, a.l_out, win.start, win.q_pos, win.eff_win,
+        static_cast<const T*>(win.wk), static_cast<const T*>(win.wv),
+        win.n_win, win.Kw, a.H, a.KV, a.N, a.ps, a.P, a.scale, a.softcap);
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  });
 }
 
 // f(kernel, smem) on the float32 kernel's instantiation for head_dim HD
@@ -1507,7 +1535,8 @@ int launch_f32(const DecodeArgs& a, const Window& win, cudaStream_t st) {
   });
 }
 
-// The bf16 kernel's shapes; the wrapper's DECODE_BF16_* (and
+// The bf16 kernel's shapes (and its float16 form's); the wrapper's
+// DECODE_BF16_* (and
 // DECODE_BF16_MAX_SPLITS for MAX_SPLITS) list the same, and
 // tests/test_torch_kernels.py holds the two against each other.
 bool bf16_shape(int H, int KV, int ps, int hd) {
@@ -1516,12 +1545,16 @@ bool bf16_shape(int H, int KV, int ps, int hd) {
          (ps == 16 || ps == 32 || ps == 64 || ps == 128);
 }
 
+// dtype of x, the pools and the output: 0 = float32, 1 = bfloat16, 2 =
+// float16
 int check_decode(int route, int dtype, int H, int KV, int ps, int hd,
                  int splits) {
-  if (splits < 1 || splits > 1024 || KV < 1 || H % KV != 0)
+  if (splits < 1 || splits > 1024 || KV < 1 || H % KV != 0 || dtype < 0 ||
+      dtype > 2)
     return (int)cudaErrorInvalidValue;
-  if (route == 1)
-    return dtype == 1 && bf16_shape(H, KV, ps, hd) && splits <= MAX_SPLITS
+  if (route == 1 || route == 3)
+    return dtype == (route == 1 ? 1 : 2) && bf16_shape(H, KV, ps, hd) &&
+                   splits <= MAX_SPLITS
                ? 0 : (int)cudaErrorInvalidValue;
   if (route == 2)
     return dtype == 0 && f32_shape(H / KV, ps, hd) && splits <= MAX_SPLITS
@@ -1544,17 +1577,12 @@ bool has_scratch(int route, const DecodeArgs& a, bool window) {
 
 int launch_decode(int route, int dtype, const DecodeArgs& a,
                   const Window& win, cudaStream_t st) {
-  if (route == 1) {
-    switch (a.hd) {
-      case 64: return launch_bf16<64>(a, win, st);
-      case 128: return launch_bf16<128>(a, win, st);
-      case 256: return launch_bf16<256>(a, win, st);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
+  if (route == 1) return launch_bf16<__nv_bfloat16>(a, win, st);
+  if (route == 3) return launch_bf16<__half>(a, win, st);
   if (route == 2) return launch_f32(a, win, st);
-  return dtype == 0 ? launch_generic<float>(a, win, st)
-                    : launch_generic<__nv_bfloat16>(a, win, st);
+  return dtype == 0   ? launch_generic<float>(a, win, st)
+         : dtype == 1 ? launch_generic<__nv_bfloat16>(a, win, st)
+                      : launch_generic<__half>(a, win, st);
 }
 
 template <typename K>
@@ -1579,31 +1607,30 @@ extern "C" int dyn_paged_decode_resident(int dtype, int H, int KV, int ps,
   const int bad = check_decode(0, dtype, H, KV, ps, hd, 1);
   if (bad) return bad;
   const int smem = (int)decode_smem_bytes(H / KV, ps, hd, dtype == 0 ? 4 : 2);
-  return dtype == 0
-             ? resident(paged_decode_kernel<float>, DEC_THREADS, smem, blocks)
-             : resident(paged_decode_kernel<__nv_bfloat16>, DEC_THREADS, smem,
-                        blocks);
+  return dtype == 0 ? resident(paged_decode_kernel<float>, DEC_THREADS, smem,
+                               blocks)
+         : dtype == 1 ? resident(paged_decode_kernel<__nv_bfloat16>,
+                                 DEC_THREADS, smem, blocks)
+                      : resident(paged_decode_kernel<__half>, DEC_THREADS,
+                                 smem, blocks);
 }
 
 // *clusters = how many clusters of `splits` blocks of the route's kernel
-// (1 = bf16, 2 = float32) the card holds at once at this shape
-// (cudaOccupancyMaxActiveClusters), for its split plan; refused for a
-// route, shape or split count it does not take.
+// (1 = bf16, 2 = float32, 3 = float16) the card holds at once at this
+// shape (cudaOccupancyMaxActiveClusters), for its split plan; refused for
+// a route, shape or split count it does not take.
 extern "C" int dyn_paged_decode_clusters(int route, int H, int KV, int ps,
                                          int hd, int splits, int* clusters) {
-  if (route != 1 && route != 2) return (int)cudaErrorInvalidValue;
-  const int bad = check_decode(route, route == 1 ? 1 : 0, H, KV, ps, hd, splits);
+  if (route < 1 || route > 3) return (int)cudaErrorInvalidValue;
+  const int dtype = route == 1 ? 1 : route == 2 ? 0 : 2;
+  const int bad = check_decode(route, dtype, H, KV, ps, hd, splits);
   if (bad) return bad;
   auto query = [&](auto kernel, int smem) {
     return resident_clusters(kernel, smem, splits, clusters);
   };
   if (route == 2) return with_f32_kernel(hd, H / KV, query);
-  switch (hd) {
-    case 64: return query(paged_decode_bf16_kernel<64>, DecodeTile<64>::SMEM);
-    case 128: return query(paged_decode_bf16_kernel<128>, DecodeTile<128>::SMEM);
-    case 256: return query(paged_decode_bf16_kernel<256>, DecodeTile<256>::SMEM);
-  }
-  return (int)cudaErrorInvalidValue;
+  return route == 1 ? with_mma_kernel<__nv_bfloat16>(hd, query)
+                    : with_mma_kernel<__half>(hd, query);
 }
 
 // DecodeF32Tile<hd>::SMEM, the float32 kernel's shared memory a block,
@@ -1613,11 +1640,13 @@ extern "C" int dyn_paged_decode_f32_smem(int hd) {
   return with_f32_kernel(hd, 1, [](auto, int smem) { return smem; });
 }
 
-// route: 1 = the bf16 tensor-core kernel, 2 = the float32 kernel, 0 = the
-// generic kernel (the wrapper picks it from the shape; see bf16_shape and
-// f32_shape). dtype: 0 = float32, 1 = bfloat16. Each entry returns cudaGetLastError() after its launches
-// (0 = cudaSuccess), or the launch's own error. Scratch the caller allocates
-// for the generic route (see has_scratch): part_acc [B*KV*splits*G*hd]
+// route: 1 = the bf16 tensor-core kernel, 3 = its float16 form, 2 = the
+// float32 kernel, 0 = the generic kernel (the wrapper picks it from the
+// shape; see bf16_shape and f32_shape). dtype: 0 = float32, 1 =
+// bfloat16, 2 = float16. Each entry returns cudaGetLastError() after its
+// launches (0 = cudaSuccess), or the launch's own error. Scratch the
+// caller allocates for the generic route (see has_scratch): part_acc
+// [B*KV*splits*G*hd]
 // and part_ml [B*KV*splits*G*2] in float32; the other routes take none.
 // m_out/l_out may be null (no stats).
 extern "C" int dyn_paged_attention_decode(

@@ -9,6 +9,8 @@
 //
 //   route 1  paged_prefill_bf16_kernel<hd, ps>  bfloat16 at head_dim
 //            64/128/256, page 16-128, GQA groups 1-8 (the serving path)
+//   route 3  paged_prefill_bf16_kernel<hd, ps,  its float16 form, at the
+//            __half>                            same shapes
 //   route 2  paged_prefill_f32_kernel<hd, kb>   float32 at head_dim
 //            16/32/64/128/256, page 8-128, GQA groups 1-8 (3xTF32 on the
 //            tensor cores: the tiny, 1b and llama3_8b presets in float32)
@@ -63,6 +65,10 @@
 // Not done yet: overlap of one key block's softmax with the next block's
 // S product inside the warpgroup (the two blocks on an SM overlap each
 // other instead), and a persistent grid.
+// Its float16 form (route 3) is the same kernel with wgmma's .f16 form,
+// a float16 tensor map and half2 packing of P and of the output: scores,
+// the running max, l and O stay float32; P and the output round to
+// float16.
 //
 // What the float32 design (route 2) does about it. Float32 on CUDA cores
 // peaks at 67 TF/s (a first 512-token chunk at Llama-3-8B's heads: 32 us
@@ -106,11 +112,12 @@
 // sliding window; the Gemma-2 softcap before the mask; online softmax in
 // f32 with the finite NEG_INF, and exp only where a key is visible (an
 // all-masked row keeps m = NEG_INF, l = 0 and returns zeros); the bf16
-// kernel's probabilities enter P V rounded to bf16, as the gather path's
-// einsum takes them.
+// kernel's probabilities enter P V rounded to bf16 (its float16 form's to
+// float16), as the gather path's einsum takes them.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <stdint.h>
@@ -293,61 +300,73 @@ __device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
   return (uint32_t)((c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
 }
 
-// wgmma m64nNk16, bf16 in, f32 accumulators (d: N / 2 per thread of the
-// warpgroup; warp w holds rows 16w + lane / 4 and + 8, as mma.sync's
-// m16n8 fragment does), A and B from shared memory, both K-major (the
-// register-A form, for P V, is tma_wgmma.cuh's wgmma_rs).
+// wgmma m64nNk16, T (bf16 or f16) in, f32 accumulators (d: N / 2 per
+// thread of the warpgroup; warp w holds rows 16w + lane / 4 and + 8, as
+// mma.sync's m16n8 fragment does), A and B from shared memory, both
+// K-major (the register-A form, for P V, is tma_wgmma.cuh's wgmma_rs).
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t da,
                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define DYN_WG_SS_N16(AB)                                                   \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." AB "." AB " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7"                                      \
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"                                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7])                                              \
+      : "l"(da), "l"(db), "r"(scale_d))
+  DYN_AB(T, DYN_WG_SS_N16);
+#undef DYN_WG_SS_N16
 }
 
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define DYN_WG_SS_N32(AB)                                                   \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
+      "%12, %13, %14, %15"                                                  \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])     \
+      : "l"(da), "l"(db), "r"(scale_d))
+  DYN_AB(T, DYN_WG_SS_N32);
+#undef DYN_WG_SS_N32
 }
 
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define DYN_WG_SS_N64(AB)                                                   \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                  \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "        \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                              \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),    \
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),    \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
+        "+f"(d[31])                                                         \
+      : "l"(da), "l"(db), "r"(scale_d))
+  DYN_AB(T, DYN_WG_SS_N64);
+#undef DYN_WG_SS_N64
 }
 
-template <int N>
+template <int N, typename T>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int scale_d) {
-  if constexpr (N == 16) wgmma_ss_n16(d, da, db, scale_d);
-  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  if constexpr (N == 16) wgmma_ss_n16<T>(d, da, db, scale_d);
+  if constexpr (N == 32) wgmma_ss_n32<T>(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_ss_n64<T>(d, da, db, scale_d);
 }
 
 __device__ __forceinline__ int warp_max_i(int v) {
@@ -367,16 +386,17 @@ __device__ __forceinline__ int warp_min_i(int v) {
 // rows 16w .. 16w + 15 of every fragment), warp 4 the producer. Shared:
 // Q [64, HD], then PF_STAGES stages of K and V [KB, HD] (all swizzled, see
 // swz), then the stages' mbarriers. k_map / v_map: the layer's pool as a
-// 2-D [N * KV * PS, HD] array, box [KB, 64], 128-byte swizzle.
-template <int HD, int PS>
+// 2-D [N * KV * PS, HD] array, box [KB, 64], 128-byte swizzle. T: the
+// element type, bfloat16 (route 1) or float16 (route 3).
+template <int HD, int PS, typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(PF_BF16_THREADS, HD <= 128 ? 2 : 1)
 paged_prefill_bf16_kernel(const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
-                          const __nv_bfloat16* __restrict__ q,
+                          const T* __restrict__ q,
                           const int* __restrict__ page_table,
                           const int* __restrict__ q_positions,
                           const int* __restrict__ eff_win,
-                          __nv_bfloat16* __restrict__ out, int Tq, int H,
+                          T* __restrict__ out, int Tq, int H,
                           int KV, int N, int P, float scale, float softcap) {
   using Tile = PrefillTile<HD, PS>;
   constexpr int KB = Tile::KB, SUBS = Tile::SUBS;
@@ -496,7 +516,7 @@ paged_prefill_bf16_kernel(const __grid_constant__ CUtensorMap k_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss<KB>(&sc[0][0],
+      wgmma_ss<KB, T>(&sc[0][0],
                    wgmma_desc(q_u32 + (kk >> 2) * PF_ROWS * 128 + (kk & 3) * 32,
                               16, 1024),
                    wgmma_desc(ks + (kk >> 2) * KB * 128 + (kk & 3) * 32, 16,
@@ -548,15 +568,16 @@ paged_prefill_bf16_kernel(const __grid_constant__ CUtensorMap k_map,
     uint32_t pa[KB / 16][4];
 #pragma unroll
     for (int kk = 0; kk < KB / 16; ++kk) {
-      pa[kk][0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      pa[kk][1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      pa[kk][2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+      pa[kk][0] = pack2<T>(sc[2 * kk][0], sc[2 * kk][1]);
+      pa[kk][1] = pack2<T>(sc[2 * kk][2], sc[2 * kk][3]);
+      pa[kk][2] = pack2<T>(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pa[kk][3] = pack2<T>(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
     }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KB / 16; ++kk)
-      wgmma_rs<HD, 1>(&o[0][0], pa[kk], wgmma_desc(vs + kk * 2048, KB * 128, 1024));
+      wgmma_rs<HD, 1, T>(&o[0][0], pa[kk],
+                         wgmma_desc(vs + kk * 2048, KB * 128, 1024));
     wgmma_commit();
     wgmma_wait_all();
     __syncwarp();
@@ -564,7 +585,7 @@ paged_prefill_bf16_kernel(const __grid_constant__ CUtensorMap k_map,
     ++it;
   }
 
-  // epilogue: row sums over the quad, O / max(l, 1e-9) as bf16
+  // epilogue: row sums over the quad, O / max(l, 1e-9) as T
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -572,25 +593,29 @@ paged_prefill_bf16_kernel(const __grid_constant__ CUtensorMap k_map,
     const int r = r0 + 8 * i, tl = r / G, t = t0 + tl;
     if (r >= R || t >= Tq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-9f);
-    __nv_bfloat16* orow =
-        out + (((long long)b * Tq + t) * H + kv * G + (r - tl * G)) * HD +
-        2 * (lane & 3);
+    T* orow = out + (((long long)b * Tq + t) * H + kv * G + (r - tl * G)) * HD +
+              2 * (lane & 3);
 #pragma unroll
     for (int jd = 0; jd < HD / 8; ++jd)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd) = __floats2bfloat162_rn(
-          o[jd][2 * i] * inv, o[jd][2 * i + 1] * inv);
+      *reinterpret_cast<uint32_t*>(orow + 8 * jd) =
+          pack2<T>(o[jd][2 * i] * inv, o[jd][2 * i + 1] * inv);
   }
 }
 
-// The layer's pool [N, KV, ps, hd] as a 2-D [N * KV * ps, hd] bf16 array,
-// read in boxes of [kb rows, 64 columns] with the 128-byte swizzle.
+// The layer's pool [N, KV, ps, hd] as a 2-D [N * KV * ps, hd] array of T
+// (bfloat16 or float16), read in boxes of [kb rows, 64 columns] with the
+// 128-byte swizzle.
+template <typename T>
 bool pool_map(CUtensorMap* map, const void* pool, long long rows, int hd,
               int kb) {
-  return tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, pool, rows, hd,
-                  (unsigned long long)hd * 2, kb, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  return tile_map(map,
+                  is_f16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  pool, rows, hd, (unsigned long long)hd * 2, kb, 64,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int HD, int PS>
+template <int HD, int PS, typename T>
 int launch_bf16(const void* q, const void* k_pages, const void* v_pages,
                 const int* page_table, const int* q_positions,
                 const int* eff_win, void* out, int B, int Tq, int H, int KV,
@@ -598,21 +623,20 @@ int launch_bf16(const void* q, const void* k_pages, const void* v_pages,
   using Tile = PrefillTile<HD, PS>;
   CUtensorMap k_map, v_map;
   const long long rows = (long long)N * KV * PS;
-  if (rows > INT_MAX || !pool_map(&k_map, k_pages, rows, HD, Tile::KB) ||
-      !pool_map(&v_map, v_pages, rows, HD, Tile::KB))
+  if (rows > INT_MAX || !pool_map<T>(&k_map, k_pages, rows, HD, Tile::KB) ||
+      !pool_map<T>(&v_map, v_pages, rows, HD, Tile::KB))
     return (int)cudaErrorInvalidValue;
   const int TQ = PF_ROWS / (H / KV);
-  cudaFuncSetAttribute(paged_prefill_bf16_kernel<HD, PS>,
+  cudaFuncSetAttribute(paged_prefill_bf16_kernel<HD, PS, T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
-  paged_prefill_bf16_kernel<HD, PS>
+  paged_prefill_bf16_kernel<HD, PS, T>
       <<<dim3(B * KV, (Tq + TQ - 1) / TQ), PF_BF16_THREADS, Tile::SMEM, st>>>(
-          k_map, v_map, static_cast<const __nv_bfloat16*>(q), page_table,
-          q_positions, eff_win, static_cast<__nv_bfloat16*>(out), Tq, H, KV,
-          N, P, scale, softcap);
+          k_map, v_map, static_cast<const T*>(q), page_table, q_positions,
+          eff_win, static_cast<T*>(out), Tq, H, KV, N, P, scale, softcap);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, typename T>
 int launch_bf16_ps(int ps, const void* q, const void* k_pages,
                    const void* v_pages, const int* page_table,
                    const int* q_positions, const int* eff_win, void* out,
@@ -621,11 +645,29 @@ int launch_bf16_ps(int ps, const void* q, const void* k_pages,
   switch (ps) {
 #define PF_CASE(PS)                                                         \
   case PS:                                                                  \
-    return launch_bf16<HD, PS>(q, k_pages, v_pages, page_table, q_positions, \
-                               eff_win, out, B, Tq, H, KV, N, P, scale,     \
-                               softcap, st);
+    return launch_bf16<HD, PS, T>(q, k_pages, v_pages, page_table,          \
+                                  q_positions, eff_win, out, B, Tq, H, KV,  \
+                                  N, P, scale, softcap, st);
     PF_CASE(16) PF_CASE(32) PF_CASE(64) PF_CASE(128)
 #undef PF_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_bf16_hd(int hd, int ps, const void* q, const void* k_pages,
+                   const void* v_pages, const int* page_table,
+                   const int* q_positions, const int* eff_win, void* out,
+                   int B, int Tq, int H, int KV, int N, int P, float scale,
+                   float softcap, cudaStream_t st) {
+  switch (hd) {
+#define PF_HD_CASE(HD)                                                       \
+  case HD:                                                                   \
+    return launch_bf16_ps<HD, T>(ps, q, k_pages, v_pages, page_table,        \
+                                 q_positions, eff_win, out, B, Tq, H, KV, N, \
+                                 P, scale, softcap, st);
+    PF_HD_CASE(64) PF_HD_CASE(128) PF_HD_CASE(256)
+#undef PF_HD_CASE
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -995,6 +1037,14 @@ int launch_f32_hd(const void* q, const void* k_pages, const void* v_pages,
 
 }  // namespace
 
+// The shapes the bf16 kernel and its float16 form are built for; the
+// wrapper's PREFILL_BF16_* list the same, and tests/test_torch_kernels.py
+// holds the two against each other.
+bool bf16_prefill_shape(int G, int ps, int hd) {
+  return G >= 1 && G <= 8 && (hd == 64 || hd == 128 || hd == 256) &&
+         (ps == 16 || ps == 32 || ps == 64 || ps == 128);
+}
+
 // The float32 kernel's shared memory a block at head_dim hd and page size
 // ps (the stage size launch_f32_hd picks), for a shape of f32_shape.
 extern "C" int dyn_paged_prefill_f32_smem(int hd, int ps) {
@@ -1005,21 +1055,23 @@ extern "C" int dyn_paged_prefill_f32_smem(int hd, int ps) {
 // route (the wrapper picks it from the shape, ops/paged_attention.py
 // prefill_route; never retried): 1 = paged_prefill_bf16_kernel (dtype 1:
 // head_dim 64, 128 or 256, page size 16, 32, 64 or 128, GQA groups of 1
-// to 8), 2 = paged_prefill_f32_kernel (dtype 0: f32_shape in
-// attention_common.cuh), 0 =
-// paged_prefill_kernel<float> (dtype 0, what fits in shared memory).
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch.
+// to 8), 3 = its float16 form (dtype 2, the same shapes), 2 =
+// paged_prefill_f32_kernel (dtype 0: f32_shape in attention_common.cuh),
+// 0 = paged_prefill_kernel<float> (dtype 0, what fits in shared memory).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns
+// cudaGetLastError() after the launch.
 extern "C" int dyn_paged_attention_prefill(
     int route, int dtype, const void* q, const void* k_pages,
     const void* v_pages, const int* page_table, const int* q_positions,
     const int* eff_win, void* out, int B, int Tq, int H, int KV, int N,
     int ps, int hd, int P, float scale, float softcap, void* stream) {
-  if (KV < 1 || H % KV != 0 || route < 0 || route > 2 ||
-      dtype != (route == 1 ? 1 : 0))
+  if (KV < 1 || H % KV != 0 || route < 0 || route > 3 ||
+      dtype != (route == 1 ? 1 : route == 3 ? 2 : 0))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
-  if (route == 2 && !f32_shape(G, ps, hd)) return (int)cudaErrorInvalidValue;
+  if ((route == 2 && !f32_shape(G, ps, hd)) ||
+      ((route == 1 || route == 3) && !bf16_prefill_shape(G, ps, hd)))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 2) {
@@ -1035,23 +1087,15 @@ extern "C" int dyn_paged_attention_prefill(
     }
     return (int)cudaErrorInvalidValue;
   }
-  if (route == 1) {
-    if (G < 1 || G > 8) return (int)cudaErrorInvalidValue;
-    switch (hd) {
-      case 64:
-        return launch_bf16_ps<64>(ps, q, k_pages, v_pages, page_table,
-                                  q_positions, eff_win, out, B, Tq, H, KV, N,
-                                  P, scale, softcap, st);
-      case 128:
-        return launch_bf16_ps<128>(ps, q, k_pages, v_pages, page_table,
-                                   q_positions, eff_win, out, B, Tq, H, KV, N,
-                                   P, scale, softcap, st);
-      case 256:
-        return launch_bf16_ps<256>(ps, q, k_pages, v_pages, page_table,
-                                   q_positions, eff_win, out, B, Tq, H, KV, N,
-                                   P, scale, softcap, st);
-    }
-    return (int)cudaErrorInvalidValue;
+  if (route == 1 || route == 3) {
+    return route == 1 ? launch_bf16_hd<__nv_bfloat16>(
+                            hd, ps, q, k_pages, v_pages, page_table,
+                            q_positions, eff_win, out, B, Tq, H, KV, N, P,
+                            scale, softcap, st)
+                      : launch_bf16_hd<__half>(
+                            hd, ps, q, k_pages, v_pages, page_table,
+                            q_positions, eff_win, out, B, Tq, H, KV, N, P,
+                            scale, softcap, st);
   }
   // route 0, the generic float32 kernel: ~64 (query, head) rows per
   // block, fewer queries while the block's shared memory would pass the

@@ -18,22 +18,25 @@ tensors it launches a kernel on the current stream or raises — there is
 no fallback. :func:`int8_gemm_plan` picks the route, its tile, its K
 splits and its grid from the shape alone, so a CUDA graph can capture
 them:
-- ``small_m`` (bfloat16, decode: up to 16 rows of every product and 32
-  of the narrower ones, :data:`SMALL_M_TAKES`): bound by the weight
-  bytes; a TMA ring streams 64-channel tiles of q and the rows of x into
-  shared memory for ``mma.sync``, K split over a thread-block cluster;
-  launched programmatically (PDL), so a call streams its first weights
-  while the kernel before it finishes;
-- ``wgmma`` (bfloat16, the rest: prefill chunks, the larger decode
-  batches, and w_gate/w_up and lm_head above 16 rows): a TMA ring feeding
-  warp-specialised register-A ``wgmma`` on persistent tiles of 128
-  channels by 16-256 tokens, K split over a cluster where the tiles do
-  not fill the card;
-- ``simt`` (float16 and float32, as the tiny preset serves): an untuned
-  float32 FMA loop.
-Every launching call adds one to ``INT8_GEMM_LAUNCHES[route]``; a CUDA
-graph's replay adds the counts its capture recorded
-(``engine/cuda_graphs.py``).
+- ``small_m`` (bfloat16 and float16, decode: up to 16 rows of every
+  product and 32 of the narrower ones, :data:`SMALL_M_TAKES`): bound by
+  the weight bytes; a TMA ring streams 64-channel tiles of q and the rows
+  of x into shared memory for ``mma.sync``, K split over a thread-block
+  cluster; launched programmatically (PDL), so a call streams its first
+  weights while the kernel before it finishes;
+- ``wgmma`` (bfloat16 and float16, the rest: prefill chunks, the larger
+  decode batches, and w_gate/w_up and lm_head above 16 rows): a TMA ring
+  feeding warp-specialised register-A ``wgmma`` on persistent tiles of
+  128 channels by 16-256 tokens, K split over a cluster where the tiles
+  do not fill the card;
+- ``simt`` (float32, as the tiny preset serves): an untuned float32 FMA
+  loop.
+The float16 forms of ``small_m`` and ``wgmma`` are the same designs with
+float16 tensor-core products and a float16 widening of the weights.
+Every launching call adds one to ``INT8_GEMM_LAUNCHES[launch_key(route,
+dtype)]``: the route's name, with ``_f16`` for a float16 call, so the
+two forms count apart; a CUDA graph's replay adds the counts its capture
+recorded (``engine/cuda_graphs.py``).
 """
 
 from __future__ import annotations
@@ -47,8 +50,12 @@ import torch
 
 # the routes, in the C entry's numbering
 INT8_GEMM_ROUTES = ("small_m", "wgmma", "simt")
-# launching wrapper calls since the last reset, by route
-INT8_GEMM_LAUNCHES: Dict[str, int] = {r: 0 for r in INT8_GEMM_ROUTES}
+# the routes that take float16 x, in their float16 forms
+F16_ROUTES = ("small_m", "wgmma")
+# launching wrapper calls since the last reset, by route and form
+# (launch_key)
+INT8_GEMM_LAUNCHES: Dict[str, int] = {
+    r: 0 for r in INT8_GEMM_ROUTES + tuple(f"{r}_f16" for r in F16_ROUTES)}
 # x's dtype in the C entry's numbering
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
@@ -92,6 +99,12 @@ class Int8Plan(NamedTuple):
 def reset_launch_counts() -> None:
     for k in INT8_GEMM_LAUNCHES:
         INT8_GEMM_LAUNCHES[k] = 0
+
+
+def launch_key(route: str, dtype: torch.dtype) -> str:
+    """The :data:`INT8_GEMM_LAUNCHES` key of a call: the route, with
+    ``_f16`` for its float16 form."""
+    return f"{route}_f16" if dtype == torch.float16 else route
 
 
 # The wgmma plan's model of an H100 SXM (700 W), fitted to the kernel's
@@ -155,13 +168,14 @@ def int8_gemm_plan(M: int, N: int, K: int, sms: int,
                    resident: Optional[Callable[[int, int], int]] = None
                    ) -> Int8Plan:
     """The launch of one call (:class:`Int8Plan`), from host-known shapes
-    only (so a CUDA graph can capture it). float16 and float32 x: simt.
-    bfloat16 x where :func:`small_m_takes` (the measured crossover):
-    small_m (:func:`small_m_plan`). Otherwise wgmma (:func:`wgmma_plan`), a
-    persistent grid of as many clusters as the card holds at once
-    (``resident(tokens, splits)``; by default :func:`resident_model`) or
-    as there are tiles."""
-    if dtype != torch.bfloat16:
+    only (so a CUDA graph can capture it). float32 x: simt. bfloat16 and
+    float16 x (the float16 forms run at the bfloat16 rate, and take the
+    bfloat16 crossover) where :func:`small_m_takes` (the measured
+    crossover): small_m (:func:`small_m_plan`). Otherwise wgmma
+    (:func:`wgmma_plan`), a persistent grid of as many clusters as the
+    card holds at once (``resident(tokens, splits)``; by default
+    :func:`resident_model`) or as there are tiles."""
+    if dtype == torch.float32:
         return Int8Plan("simt", SIMT_TILE, 1,
                         _cdiv(N, SIMT_TILE) * _cdiv(M, SIMT_TILE))
     if resident is None:
@@ -173,8 +187,8 @@ def int8_gemm_plan(M: int, N: int, K: int, sms: int,
 
 
 def small_m_takes(M: int, N: int) -> bool:
-    """Whether a bfloat16 call of M rows and N channels goes to the
-    small-M route (the crossover, :data:`SMALL_M_TAKES`)."""
+    """Whether a bfloat16 or float16 call of M rows and N channels goes
+    to the small-M route (the crossover, :data:`SMALL_M_TAKES`)."""
     return any(M <= rows and N <= n for rows, n in SMALL_M_TAKES)
 
 
@@ -255,7 +269,10 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
                       s: torch.Tensor) -> torch.Tensor:
     """The plain version, in the JAX package's order: ``x @ q`` with the
     weights widened to x's dtype (so the product rounds to x's dtype),
-    then the scale in x's dtype. q: [N, K] int8; s: [N] (or [1, N])."""
+    then the scale in x's dtype. q: [N, K] int8; s: [N] (or [1, N]).
+    In float16 the product before the scale overflows to inf where
+    ``|x @ q|`` passes 65504, which the kernels (float32 sums, the scale
+    applied before the one rounding) never do."""
     y = x @ q.t().to(x.dtype)
     return y * s.reshape(-1).to(x.dtype)
 
@@ -267,19 +284,30 @@ def _device_index(device: torch.device) -> int:
 
 def resident_of(device: torch.device) -> Callable[[int, int], int]:
     """resident(tokens, splits) of the card: the CUDA driver's count of
-    co-resident clusters of ``splits`` blocks of the wgmma kernel."""
+    co-resident clusters of ``splits`` blocks of the wgmma kernel (its
+    bfloat16 form; the float16 form's counts are the same, which the card
+    tests hold)."""
     idx = _device_index(device)
     return functools.partial(_resident, idx)
 
 
 @functools.lru_cache(maxsize=None)
 def _resident(idx: int, tokens: int, splits: int) -> int:
-    n = _lib().dyn_int8_gemm_resident(tokens, splits)
+    n = resident_count(tokens, splits, torch.bfloat16)
     if n <= 0:
         raise RuntimeError(
             f"int8 GEMM: no cluster of {splits} blocks of the "
             f"{tokens}-token wgmma kernel fits (CUDA error {-n})")
     return n
+
+
+def resident_count(tile: int, splits: int, dtype: torch.dtype) -> int:
+    """The CUDA driver's count for the form of ``dtype`` (bfloat16 or
+    float16) on the current device: clusters of ``splits`` blocks of the
+    ``tile``-token wgmma kernel, or, for tile 1 or 2, blocks of the
+    small-M kernel of that many m16 tiles in clusters of ``splits``
+    (negative: a CUDA error)."""
+    return _lib().dyn_int8_gemm_resident(tile, splits, _DTYPES[dtype])
 
 
 def device_plan(M: int, N: int, K: int, device: torch.device,
@@ -307,7 +335,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dyn_int8_gemm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.dyn_int8_gemm.restype = i
-        lib.dyn_int8_gemm_resident.argtypes = [i, i]
+        lib.dyn_int8_gemm_resident.argtypes = [i, i, i]
         lib.dyn_int8_gemm_resident.restype = i
         lib.dyn_int8_gemm_programmatic.argtypes = [i]
         lib.dyn_int8_gemm_programmatic.restype = i
@@ -330,7 +358,8 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                 plan: Optional[Int8Plan] = None) -> torch.Tensor:
     """``(x @ q^T) * s``: x [..., K]; q [N, K] int8, contiguous; s [N]
     float32 (or [1, N]). On the CPU the plain version; on a CUDA device
-    a kernel, which takes bfloat16, float16 or float32 x, K a multiple of
+    a kernel, which takes bfloat16, float16 or float32 x (float32 on the
+    simt route alone, the 16-bit types on the other two), K a multiple of
     16, contiguous operands and 16-byte-aligned x and q, and raises on
     anything else. ``plan`` overrides :func:`int8_gemm_plan`'s (to time
     one route against another). Returns [..., N] in x's dtype."""
@@ -370,5 +399,5 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"int8 GEMM launch failed: CUDA error {err} "
                            f"(M={M} N={N} K={K} {x.dtype}, {plan})")
-    INT8_GEMM_LAUNCHES[plan.route] += 1
+    INT8_GEMM_LAUNCHES[launch_key(plan.route, x.dtype)] += 1
     return y

@@ -20,7 +20,8 @@ what bounds it on an H100 and what its design does about it:
   (independent warps, tensor-core products, a per-warp ``cp.async`` ring
   of 16-key blocks; the splits of a row and kv head are one thread-block
   cluster, :func:`decode_cluster_plan`, and fold with the window keys
-  through its distributed shared memory); float32 at head_dim
+  through its distributed shared memory), and float16 at the same shapes
+  its float16 form (route ``f16_mma``); float32 at head_dim
   16/32/64/128/256, page size 8 to 128 and GQA groups up to 8 (the
   ``tiny``, ``1b`` and ``llama3_8b`` presets in float32) run
   ``paged_decode_f32_kernel``, the same design with float32 rings and
@@ -35,7 +36,9 @@ what bounds it on an H100 and what its design does about it:
   TMA ring) for bfloat16 at its shapes, ``paged_prefill_f32_kernel``
   (3xTF32 on ``mma.sync``, the same TMA ring) for float32 at the float32
   decode route's shapes, the generic ``paged_prefill_kernel<float>`` for
-  other float32 shapes; other bfloat16 shapes raise.
+  other float32 shapes; float16 at the bfloat16 kernel's shapes takes
+  its float16 form (route ``f16``); other bfloat16 and float16 shapes
+  raise.
 - :func:`paged_attention_decode_sharded` (and its window form
   :func:`paged_attention_decode_window_sharded`) and
   :func:`paged_attention_prefill_sharded` replace the JAX package's
@@ -71,20 +74,24 @@ NO_WINDOW = 1 << 30  # "infinite" effective sliding window (int32-safe)
 LAUNCHES: Dict[str, int] = {"paged_attention_decode": 0,
                             "paged_attention_prefill": 0}
 # the C entries' route numbers, and the same calls by route (see
-# decode_route and prefill_route)
-DECODE_ROUTES = ("generic", "bf16_mma", "f32")
+# decode_route and prefill_route): route 3 is the float16 form of route
+# 1's kernel, so float16 calls count apart from bfloat16's
+DECODE_ROUTES = ("generic", "bf16_mma", "f32", "f16_mma")
 DECODE_ROUTE_LAUNCHES: Dict[str, int] = {r: 0 for r in DECODE_ROUTES}
-PREFILL_ROUTES = ("generic", "bf16", "f32")
+PREFILL_ROUTES = ("generic", "bf16", "f32", "f16")
 PREFILL_ROUTE_LAUNCHES: Dict[str, int] = {r: 0 for r in PREFILL_ROUTES}
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# shapes the bfloat16 prefill kernel is built for
+# the dtypes the wrappers take, in the C entries' numbering
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_NAMES = "float32/bfloat16/float16"
+# shapes the bfloat16 prefill kernel and its float16 form are built for
 PREFILL_BF16_HEAD_DIMS = (64, 128, 256)
 PREFILL_BF16_PAGE_SIZES = (16, 32, 64, 128)
 PREFILL_BF16_MAX_GROUP = 8
-# shapes and splits the bfloat16 decode kernel is built for (bf16_shape
-# and MAX_SPLITS in csrc/paged_attention.cu, which refuses any other;
-# tests/test_torch_kernels.py holds the two sides against each other)
+# shapes and splits the bfloat16 decode kernel and its float16 form are
+# built for (bf16_shape and MAX_SPLITS in csrc/paged_attention.cu, which
+# refuses any other; tests/test_torch_kernels.py holds the two sides
+# against each other)
 DECODE_BF16_HEAD_DIMS = (64, 128, 256)
 DECODE_BF16_PAGE_SIZES = (16, 32, 64, 128)
 DECODE_BF16_MAX_GROUP = 8
@@ -192,8 +199,9 @@ def _resident(device: torch.device, dtype: torch.dtype, H: int, KV: int,
 def _clusters(device: torch.device, route: int, H: int, KV: int, ps: int,
               hd: int) -> Dict[int, int]:
     """Clusters of each size in :data:`DECODE_CLUSTER_SIZES` that the card
-    holds at once of the route's decode kernel (1 = bf16, 2 = float32) at
-    this shape, queried once (cudaOccupancyMaxActiveClusters)."""
+    holds at once of the route's decode kernel (1 = bf16, 2 = float32,
+    3 = float16) at this shape, queried once
+    (cudaOccupancyMaxActiveClusters)."""
     key = (_device_index(device), route, H // KV, ps, hd)
     if key not in _CLUSTERS:
         found = {}
@@ -262,10 +270,10 @@ def paged_attention_decode_layered(
     """Paged GQA decode attention against ONE layer of the stacked pools.
 
     q: [B, H, hd]; k_pools/v_pools: [L, N, KV, ps, hd] (same dtype as q,
-    float32 or bfloat16); layer: int; page_table: [B, P] int32 (padded with
-    0); lengths: [B] int32 — context per row INCLUDING the token just
-    written (0 = padding row → zeros); lower: [B] int32 first visible
-    position (sliding window), default 0.
+    float32, bfloat16 or float16); layer: int; page_table: [B, P] int32
+    (padded with 0); lengths: [B] int32 — context per row INCLUDING the
+    token just written (0 = padding row → zeros); lower: [B] int32 first
+    visible position (sliding window), default 0.
     Returns out [B, H, hd] in q.dtype; with ``return_stats`` also the
     online-softmax stats (m, l) as float32 [B, H] — an all-masked view
     gives m = NEG_INF, l = 0.
@@ -278,7 +286,7 @@ def paged_attention_decode_layered(
     _check(hd_k == hd and H % KV == 0, "head_dim / GQA mismatch")
     _check(q.dtype in _DTYPES and k_pools.dtype == q.dtype
            and v_pools.dtype == q.dtype,
-           f"dtypes must match and be float32/bfloat16: "
+           f"dtypes must match and be {_DTYPE_NAMES}: "
            f"{q.dtype}, {k_pools.dtype}, {v_pools.dtype}")
     layer = int(layer)
     _check(0 <= layer < L, f"layer {layer} out of range [0, {L})")
@@ -335,28 +343,32 @@ def _f32_shape(dtype: torch.dtype, H: int, KV: int, ps: int,
 def decode_route(dtype: torch.dtype, H: int, KV: int, ps: int,
                  hd: int) -> int:
     """The decode kernel a shape runs on, by shape alone: 1 (``bf16_mma``,
-    ``paged_decode_bf16_kernel``) for bfloat16 at the ``DECODE_BF16_*``
-    head dims, page sizes and GQA groups, 2 (``f32``,
-    ``paged_decode_f32_kernel``) for float32 at the ``F32_*`` ones, else 0
-    (``generic``, ``paged_decode_kernel``)."""
-    if (dtype == torch.bfloat16 and hd in DECODE_BF16_HEAD_DIMS
+    ``paged_decode_bf16_kernel``) for bfloat16 and 3 (``f16_mma``, its
+    float16 form) for float16 at the ``DECODE_BF16_*`` head dims, page
+    sizes and GQA groups, 2 (``f32``, ``paged_decode_f32_kernel``) for
+    float32 at the ``F32_*`` ones, else 0 (``generic``,
+    ``paged_decode_kernel``)."""
+    if (dtype in (torch.bfloat16, torch.float16)
+            and hd in DECODE_BF16_HEAD_DIMS
             and ps in DECODE_BF16_PAGE_SIZES
             and H // KV <= DECODE_BF16_MAX_GROUP):
-        return 1
+        return 1 if dtype == torch.bfloat16 else 3
     return 2 if _f32_shape(dtype, H, KV, ps, hd) else 0
 
 
 def prefill_route(dtype: torch.dtype, H: int, KV: int, ps: int,
                   hd: int) -> int:
     """The prefill kernel a shape runs on, by shape alone: 1 (``bf16``,
-    ``paged_prefill_bf16_kernel``) for bfloat16 at the ``PREFILL_BF16_*``
-    head dims, page sizes and GQA groups, 2 (``f32``,
-    ``paged_prefill_f32_kernel``) for float32 at the ``F32_*`` ones, else
-    0 (``generic``, ``paged_prefill_kernel<float>``, float32 only)."""
-    if (dtype == torch.bfloat16 and hd in PREFILL_BF16_HEAD_DIMS
+    ``paged_prefill_bf16_kernel``) for bfloat16 and 3 (``f16``, its
+    float16 form) for float16 at the ``PREFILL_BF16_*`` head dims, page
+    sizes and GQA groups, 2 (``f32``, ``paged_prefill_f32_kernel``) for
+    float32 at the ``F32_*`` ones, else 0 (``generic``,
+    ``paged_prefill_kernel<float>``, float32 only)."""
+    if (dtype in (torch.bfloat16, torch.float16)
+            and hd in PREFILL_BF16_HEAD_DIMS
             and ps in PREFILL_BF16_PAGE_SIZES
             and H // KV <= PREFILL_BF16_MAX_GROUP):
-        return 1
+        return 1 if dtype == torch.bfloat16 else 3
     return 2 if _f32_shape(dtype, H, KV, ps, hd) else 0
 
 
@@ -484,7 +496,9 @@ def paged_attention_decode_window(
     _check(hd_k == hd and H % KV == 0, "head_dim / GQA mismatch")
     _check(q.dtype in _DTYPES and all(t.dtype == q.dtype for t in
                                       (k_pools, v_pools, wk, wv)),
-           "dtypes must match and be float32/bfloat16")
+           f"dtypes must match and be {_DTYPE_NAMES}: "
+           f"{q.dtype}, {k_pools.dtype}, {v_pools.dtype}, {wk.dtype}, "
+           f"{wv.dtype}")
     layer = int(layer)
     _check(0 <= layer < L, f"layer {layer} out of range [0, {L})")
     _check(1 <= n_win <= Kw, f"n_win {n_win} out of range [1, {Kw}]")
@@ -626,7 +640,7 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     _check(hd_k == hd and H % KV == 0, "head_dim / GQA mismatch")
     _check(q.dtype in _DTYPES and k_pages.dtype == q.dtype
            and v_pages.dtype == q.dtype,
-           f"dtypes must match and be float32/bfloat16: "
+           f"dtypes must match and be {_DTYPE_NAMES}: "
            f"{q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
     _check(page_table.dim() == 2 and page_table.shape[0] == B,
            "page_table must be [B, P]")
@@ -647,9 +661,9 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
 
     G = H // KV
     route = prefill_route(q.dtype, H, KV, ps, hd)
-    if q.dtype == torch.bfloat16:
-        _check(route == 1,
-               f"bfloat16 prefill kernel takes head_dim in "
+    if q.dtype != torch.float32:
+        _check(route in (1, 3),
+               f"{q.dtype} prefill kernel takes head_dim in "
                f"{PREFILL_BF16_HEAD_DIMS}, page_size in "
                f"{PREFILL_BF16_PAGE_SIZES} and GQA groups up to "
                f"{PREFILL_BF16_MAX_GROUP} (got head_dim {hd}, page_size "

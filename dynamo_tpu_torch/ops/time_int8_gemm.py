@@ -5,13 +5,20 @@ projection shapes, for comparing two trees on one card.
 
 Shapes (K x N): wq/wo 4096 x 4096, wk/wv 4096 x 1024, w_gate/w_up
 4096 x 14336, w_down 14336 x 4096, lm_head 4096 x 128256, at M = 4, 16,
-32, 48, 64, 512 and 4,096 rows of bfloat16 x (seeded). Each call is
+32, 48, 64, 512 and 4,096 rows of bfloat16 x (seeded). ``--dtype
+float16`` takes float16 x at the same shapes (the float16 forms of the
+small-M and wgmma routes); ``--dtype float32`` float32 x at
+Llama-3.2-1B's projections (wq/wo 2048 x 2048, wk/wv 2048 x 512,
+w_gate/w_up 2048 x 8192, w_down 8192 x 2048, lm_head 2048 x 128256: the
+simt route). Each call is
 timed three times: a CUDA graph of calls that cycle over copies of the
 weights holding 256 MiB of int8 (so each call finds its weights out of
 the 50 MB L2, as a layer's call does), replayed between two CUDA events.
 Each output is first held to ``int8_gemm_tolerance``. Prints one JSON
 line: the card, its power limit, and per shape and M the three times in
-µs beside ``int8_gemm_work``'s bound.
+µs beside ``int8_gemm_work``'s bound, and a digest of the output's bits
+(``digest``), so that two trees' kernels can be shown bitwise equal on
+the same seeded inputs.
 
     python -m dynamo_tpu_torch.ops.time_int8_gemm --write-x
 
@@ -47,6 +54,7 @@ the CUDA driver's co-resident counts the plans use
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import json
 import os
@@ -56,6 +64,10 @@ import sys
 SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
           "gate_up": (4096, 14336), "down": (14336, 4096),
           "lm_head": (4096, 128256)}
+# Llama-3.2-1B's, the float32 (simt) shapes
+SHAPES_1B = {"1b wq_wo": (2048, 2048), "1b wk_wv": (2048, 512),
+             "1b gate_up": (2048, 8192), "1b down": (8192, 2048),
+             "1b lm_head": (2048, 128256)}
 # one rank's at tp=2: column-parallel wq, wk/wv, w_gate/w_up and lm_head
 # halve N, row-parallel wo and w_down halve K
 TP2_SHAPES = {"tp2 wq": (4096, 2048), "tp2 wk_wv": (4096, 512),
@@ -112,6 +124,14 @@ def after_write_us(fn, x, iters: int) -> float:
     return time_us(pair, iters) - time_us(write, iters)
 
 
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    import torch
+
+    raw = t.contiguous().cpu().view(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
+
+
 def power_limit() -> str:
     try:
         return subprocess.run(
@@ -154,7 +174,7 @@ def sweep_plans(x, ws, M: int, K: int, N: int,
                                                 int8_matmul, int8_gemm_work,
                                                 resident_of, small_m_plan)
 
-    plans = {"chosen": device_plan(M, N, K, x.device)}
+    plans = {"chosen": device_plan(M, N, K, x.device, x.dtype)}
     resident = resident_of(x.device)
     if M <= SMALL_M_ROWS:
         plans["small_m"] = small_m_plan(M, N, K, _sms(x.device), resident)
@@ -169,7 +189,7 @@ def sweep_plans(x, ws, M: int, K: int, N: int,
                 min(tiles, resident(tokens, splits)) * splits)
             splits *= 2
     turn = itertools.count()
-    work = int8_gemm_work(M, K, N)
+    work = int8_gemm_work(M, K, N, x.dtype)
     iters = 20 if work["bound_ms"] < 0.2 else 5 if work["bound_ms"] < 2 else 2
     out = {}
     for key, plan in plans.items():
@@ -193,10 +213,11 @@ def resident_counts() -> dict:
     MAX_SPLITS: clusters of the wgmma kernel (one block an SM; the
     16-token tile's) and blocks of the small-M kernel (1 and 2 m16
     tiles) the card holds at once."""
-    from dynamo_tpu_torch.ops.int8_gemm import MAX_SPLITS, _lib
+    import torch
 
-    lib = _lib()
-    return {f"{name} (tile {tile})": [lib.dyn_int8_gemm_resident(tile, s)
+    from dynamo_tpu_torch.ops.int8_gemm import MAX_SPLITS, resident_count
+
+    return {f"{name} (tile {tile})": [resident_count(tile, s, torch.bfloat16)
                                       for s in range(1, MAX_SPLITS + 1)]
             for name, tile in (("wgmma clusters", 16),
                                ("small_m blocks", 1),
@@ -227,17 +248,24 @@ def main() -> None:
     ap.add_argument("--write-x", action="store_true",
                     help="also time each call after a kernel that writes "
                          "its x")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float16", "float32"),
+                    help="x's dtype (float32: at the 1b's shapes)")
     args = ap.parse_args()
+    dtype = getattr(torch, args.dtype)
     if not torch.cuda.is_available():
         sys.exit("time_int8_gemm: no CUDA GPU available")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
-    res = {"tree": os.getcwd(), "card": power_limit(), "us": {}}
+    res = {"tree": os.getcwd(), "card": power_limit(), "dtype": args.dtype,
+           "us": {}, "digest": {}}
     if args.plans:
         print(json.dumps({"card": res["card"],
                           "resident": resident_counts()}), flush=True)
     shapes = {"tp1": SHAPES, "tp2": TP2_SHAPES,
               "all": {**SHAPES, **TP2_SHAPES}}[args.shapes]
+    if dtype == torch.float32:
+        shapes = SHAPES_1B
     for name, (K, N) in shapes.items():
         copies = max(1, min(64, -(-COLD_BYTES // (K * N))))
         ws = []
@@ -246,15 +274,16 @@ def main() -> None:
                                / K ** 0.5)
             ws.append((qw.q, qw.s.reshape(-1)))
         for M in args.rows:
-            x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+            x = torch.randn(M, K, generator=g, device=dev).to(dtype)
             q, s = ws[0]
             ref, tol = int8_gemm_tolerance(x, q, s)
-            over = float(((int8_matmul(x, q, s).float() - ref).abs()
-                          - tol).max())
+            y = int8_matmul(x, q, s)
+            over = float(((y.float() - ref).abs() - tol).max())
             if over > 0:
                 sys.exit(f"time_int8_gemm: {name} M={M} is {over:.3g} past "
                          f"its tolerance")
-            del ref, tol
+            res["digest"][f"{name} M={M}"] = digest(y)
+            del ref, tol, y
             if args.plans:
                 print(json.dumps({"card": res["card"], "shape": name,
                                   "M": M, "K": K, "N": N,
@@ -268,7 +297,7 @@ def main() -> None:
                 q, s = ws[next(turn) % copies]
                 return int8_matmul(x, q, s)
 
-            work = int8_gemm_work(M, K, N)
+            work = int8_gemm_work(M, K, N, dtype)
             iters = (20 if work["bound_ms"] < 0.2 else
                      5 if work["bound_ms"] < 2 else 2)
             cell = res["us"][f"{name} M={M}"] = {

@@ -6,13 +6,14 @@ on the GPU: by CUDA-graph replay against eager calls, in one run.
                                             [--penalties]
     python -m dynamo_tpu_torch.profile_step --prefill [PBxTxP ...]
                                             [--windows 10] [--penalties]
-    ... [--dtype bf16 int8]
+    ... [--dtype bf16 int8 f16 f16-int8]
 
 Builds the engine at Llama-3-8B widths (random weights, seed 0), once
 per ``--dtype`` in turn (``int8``: weight-only int8 projections through
-the int8 GEMM, ``TorchEngine(quant="int8")``), so one run traces the
-bf16 and the int8 window, or chunk, side by side; every JSON line names
-its dtype.
+the int8 GEMM, ``TorchEngine(quant="int8")``; ``f16``: the model in
+float16, ``f16-int8`` the same with int8 projections), so one run traces
+the bf16 and the int8 window, or chunk, side by side; every JSON line
+names its dtype.
 
 For each ``--rows`` B it prefills B rows of ``--context`` tokens, then runs
 decode windows (``EngineConfig.decode_steps`` steps each) three ways, on
@@ -374,12 +375,14 @@ def main() -> None:
                     help="profile prefill chunks instead of decode windows "
                          "(default 1x64x8 1x512x8 8x512x64)")
     ap.add_argument("--dtype", nargs="+", default=["bf16"],
-                    choices=["bf16", "int8"],
+                    choices=["bf16", "int8", "f16", "f16-int8"],
                     help="the engine's weights, one engine after the other "
                          "in one run (int8: weight-only int8, the launcher's "
-                         "--dtype int8)")
+                         "--dtype int8; f16: float16 activations and "
+                         "weights; f16-int8: float16 with int8 weights)")
     args = ap.parse_args()
 
+    import dataclasses
     import gc
 
     import torch
@@ -394,9 +397,11 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=30).stdout.strip()
     for dtype in args.dtype:
-        engine = TorchEngine(ModelConfig.llama3_8b(), EngineConfig(), seed=0,
-                             device="cuda",
-                             quant="int8" if dtype == "int8" else None)
+        cfg = ModelConfig.llama3_8b()
+        if dtype.startswith("f16"):
+            cfg = dataclasses.replace(cfg, dtype="float16")
+        engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda",
+                             quant="int8" if dtype.endswith("int8") else None)
         head = {"card": card, "dtype": dtype}
         if args.prefill is not None:
             for spec in args.prefill or ["1x64x8", "1x512x8", "8x512x64"]:

@@ -220,8 +220,9 @@ def build_engine(args) -> Tuple[object, object]:
 def serving_summary(engine) -> dict:
     """What a rank did since warmup: captures after warmup, kernel
     launches (by kernel, by decode and prefill route and, for the int8
-    GEMM, by route: small_m, wgmma, simt; replays counting the calls their
-    capture recorded) and graph replays (every variant's)."""
+    GEMM, by route and form: small_m, wgmma, simt, small_m_f16,
+    wgmma_f16; replays counting the calls their capture recorded) and
+    graph replays (every variant's)."""
     from .ops import int8_gemm
     from .ops import paged_attention as ops
 

@@ -121,8 +121,15 @@ def test_blocks_fill_the_card(name, shape, M):
 @pytest.mark.parametrize("M,K,N", [(1, 64, 64), (4, 64, 192),
                                    (512, 128, 64), (4096, 4096, 4096)])
 def test_float32_and_float16_take_the_simt_route(dtype, M, K, N):
+    """float32 x takes the simt route; float16 x, which took it too until
+    the tensor-core routes had float16 forms, takes the bfloat16 plan
+    (small_m or wgmma), never simt."""
     plan = int8_gemm_plan(M, N, K, SMS, dtype)
-    assert plan == Int8Plan("simt", 32, 1, -(-N // 32) * -(-M // 32))
+    if dtype == torch.float32:
+        assert plan == Int8Plan("simt", 32, 1, -(-N // 32) * -(-M // 32))
+    else:
+        assert plan == int8_gemm_plan(M, N, K, SMS, torch.bfloat16)
+        assert plan.route in ("small_m", "wgmma")
 
 
 def test_resident_model_is_the_h100s():

@@ -7,14 +7,17 @@ The file imports nothing of JAX, so it runs on a machine without it:
     python -m pytest -m cuda tests/test_torch_kernels.py
 
 Tolerances: atol 1e-5 in float32 (same math, another summation order);
-atol 2e-2 + rtol 1e-2 in bfloat16 (one or two bf16 roundings of the
-output at any magnitude; the bf16 prefill kernel also rounds the
-probabilities to bf16 before P V). Over rows of thousands of keys, where
-the outputs are as small as that tolerance, the bf16 decode kernel is
-also held to a tenth of the reference's rms. The int8 GEMM is held to
-the float32 evaluation of its plain version within one bf16 rounding of
-the output plus the float32 summation order (``ops/int8_gemm.py
-int8_gemm_tolerance``)."""
+atol 2e-2 + rtol 1e-2 in bfloat16 and in float16 (one or two bf16
+roundings of the output at any magnitude, more than two float16 ones;
+the bf16 kernels and their float16 forms also round the probabilities to
+their type before P V). Over rows of thousands of keys, where the outputs
+are as small as that tolerance, the bf16 decode kernel and its float16
+form are also held to a tenth of the reference's rms. The int8 GEMM is
+held to the float32 evaluation of its plain version within one rounding
+of the output to x's dtype plus the float32 summation order
+(``ops/int8_gemm.py int8_gemm_tolerance``). Each bf16 kernel's check
+runs in both 16-bit types (``HALF``): bfloat16 on the bf16 kernel,
+float16 on its float16 form."""
 
 import numpy as np
 import pytest
@@ -34,6 +37,19 @@ def _np(x):
     return x.float().cpu().numpy()
 
 
+# the 16-bit types, and the decode and prefill routes of each at the bf16
+# kernels' shapes
+HALF = [torch.bfloat16, torch.float16]
+MMA_ROUTE = {torch.bfloat16: "bf16_mma", torch.float16: "f16_mma"}
+PF_ROUTE = {torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def _counts(routes, **n):
+    """Launch counts by route: ``n`` where named, 0 elsewhere."""
+    assert set(n) <= set(routes), n
+    return {r: n.get(r, 0) for r in routes}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -41,9 +57,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
+DTYPE_TOLS = [(torch.float32, 1e-5, 0.0), (torch.bfloat16, 2e-2, 1e-2),
+              (torch.float16, 2e-2, 1e-2)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol,rtol", [(torch.float32, 1e-5, 0.0),
-                                            (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("dtype,tol,rtol", DTYPE_TOLS)
 @pytest.mark.parametrize("rows", [5, 48])  # pages split over blocks / not
 def test_cuda_decode_kernel_matches_plain(cuda_device, dtype, tol, rtol,
                                           rows):
@@ -75,8 +94,7 @@ def test_cuda_decode_kernel_matches_plain(cuda_device, dtype, tol, rtol,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol,rtol", [(torch.float32, 1e-5, 0.0),
-                                            (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("dtype,tol,rtol", DTYPE_TOLS)
 def test_cuda_prefill_kernel_matches_plain(cuda_device, dtype, tol, rtol):
     g = torch.Generator().manual_seed(1)
     N, KV, ps, hd, B, H, P, T = 40, 8, 64, 128, 2, 32, 8, 96
@@ -97,8 +115,7 @@ def test_cuda_prefill_kernel_matches_plain(cuda_device, dtype, tol, rtol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol,rtol", [(torch.float32, 1e-5, 0.0),
-                                            (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("dtype,tol,rtol", DTYPE_TOLS)
 @pytest.mark.parametrize("window", [None, 50])
 def test_cuda_decode_window_matches_plain(cuda_device, dtype, tol, rtol,
                                           window):
@@ -133,33 +150,39 @@ def test_cuda_decode_window_matches_plain(cuda_device, dtype, tol, rtol,
 
 
 def _prefill_case(dev, G, hd, ps, pos, win=None, softcap=None, KV=2,
-                  seed=3):
-    """The bf16 prefill kernel and its plain version on one input: q and
-    the pool from a seed, each row's pages distinct and shuffled."""
+                  seed=3, dtype=torch.bfloat16):
+    """The bf16 prefill kernel (or its float16 form) and its plain version
+    on one input: q and the pool from a seed, each row's pages distinct
+    and shuffled."""
     g = torch.Generator().manual_seed(seed)
     B, T = pos.shape
     used = -(-(int(pos.max()) + 1) // ps)
     N, P = 2 * used + 4, used + 2  # trailing table entries stay 0
-    kp = torch.randn(N, KV, ps, hd, generator=g).to(torch.bfloat16)
-    vp = torch.randn(N, KV, ps, hd, generator=g).to(torch.bfloat16)
-    q = torch.randn(B, T, KV * G, hd, generator=g).to(torch.bfloat16)
+    kp = torch.randn(N, KV, ps, hd, generator=g).to(dtype)
+    vp = torch.randn(N, KV, ps, hd, generator=g).to(dtype)
+    q = torch.randn(B, T, KV * G, hd, generator=g).to(dtype)
     table = torch.zeros((B, P), dtype=torch.int32)
     for b in range(B):
         table[b, :used] = torch.randperm(N - 1, generator=g)[:used] + 1
     want = paged_attention_prefill(q, kp, vp, table, pos, softcap=softcap,
                                    eff_win=win)
+    ops.reset_launch_counts()
     got = paged_attention_prefill(
         *(t.to(dev) for t in (q, kp, vp, table, pos)), softcap=softcap,
         eff_win=None if win is None else win.to(dev))
     torch.cuda.synchronize()
+    assert ops.PREFILL_ROUTE_LAUNCHES == _counts(ops.PREFILL_ROUTES,
+                                                 **{PF_ROUTE[dtype]: 1})
     return got.cpu(), want
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("ps", [16, 64])
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("G", [1, 4, 7, 8])
-def test_cuda_bf16_prefill_kernel_matches_plain(cuda_device, G, hd, ps):
+def test_cuda_bf16_prefill_kernel_matches_plain(cuda_device, G, hd, ps,
+                                                dtype):
     """Groups that do and do not divide the 64 rows of a block (G = 7:
     9 queries, one padding row): a chunk continuing at position 40, a
     row with padding queries at its end, and a row of padding only."""
@@ -167,23 +190,26 @@ def test_cuda_bf16_prefill_kernel_matches_plain(cuda_device, G, hd, ps):
     pos = torch.full((3, T), -1, dtype=torch.int32)
     pos[0] = torch.arange(40, 40 + T)
     pos[1, :33] = torch.arange(33)
-    got, want = _prefill_case(cuda_device, G, hd, ps, pos)
+    got, want = _prefill_case(cuda_device, G, hd, ps, pos, dtype=dtype)
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=2e-2)
     assert (got[1, 33:] == 0).all() and (got[2] == 0).all()
 
 
 @pytest.mark.cuda
-def test_cuda_bf16_prefill_deep_chunk(cuda_device):
+@pytest.mark.parametrize("dtype", HALF)
+def test_cuda_bf16_prefill_deep_chunk(cuda_device, dtype):
     """The fourth 512-token chunk of a 2048-token prompt at the 8B widths:
     every block walks 25 to 32 pages."""
     pos = torch.arange(1536, 2048, dtype=torch.int32)[None]
-    got, want = _prefill_case(cuda_device, 4, 128, 64, pos, KV=8)
+    got, want = _prefill_case(cuda_device, 4, 128, 64, pos, KV=8,
+                              dtype=dtype)
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=2e-2)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("ps", [16, 128])
-def test_cuda_bf16_prefill_window_and_softcap(cuda_device, ps):
+def test_cuda_bf16_prefill_window_and_softcap(cuda_device, ps, dtype):
     """Sliding windows of 100 and 7 keys with the Gemma-2 softcap: key
     blocks wholly below a block's window are skipped."""
     T = 96
@@ -192,22 +218,24 @@ def test_cuda_bf16_prefill_window_and_softcap(cuda_device, ps):
     pos[1, 70:] = -1
     win = torch.tensor([100, 7], dtype=torch.int32)
     got, want = _prefill_case(cuda_device, 4, 128, ps, pos, win=win,
-                              softcap=30.0)
+                              softcap=30.0, dtype=dtype)
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=2e-2)
     assert (got[1, 70:] == 0).all()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("hd,ps,G", [(32, 64, 4), (96, 64, 4), (128, 8, 4),
                                      (128, 48, 4), (128, 64, 16)])
 def test_cuda_bf16_prefill_refuses_shapes_it_is_not_built_for(
-        cuda_device, hd, ps, G):
-    """The bf16 prefill kernel is built for head_dim 64/128/256, pages of
-    16/32/64/128 and groups up to 8; anything else raises, naming the
-    shape (there is no second bf16 path to fall back on)."""
-    d, bf = cuda_device, torch.bfloat16
+        cuda_device, hd, ps, G, dtype):
+    """The bf16 prefill kernel and its float16 form are built for head_dim
+    64/128/256, pages of 16/32/64/128 and groups up to 8; anything else
+    raises, naming the shape (there is no second 16-bit path to fall back
+    on)."""
+    d, bf = cuda_device, dtype
     pool = torch.zeros(4, 1, ps, hd, dtype=bf, device=d)
-    with pytest.raises(ValueError, match="bfloat16 prefill kernel takes"):
+    with pytest.raises(ValueError, match=f"{dtype} prefill kernel takes"):
         paged_attention_prefill(
             torch.zeros(1, 4, G, hd, dtype=bf, device=d), pool, pool,
             torch.ones(1, 2, dtype=torch.int32, device=d),
@@ -258,10 +286,12 @@ def _decode_check(dev, q, kp, vp, table, lengths, lower, softcap=None,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("ps", [16, 32, 64, 128])
 @pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("G", [1, 4, 7, 8])
-def test_cuda_bf16_decode_kernel_matches_plain(cuda_device, G, hd, ps):
+def test_cuda_bf16_decode_kernel_matches_plain(cuda_device, G, hd, ps,
+                                               dtype):
     """Every head_dim x page size of the bf16 kernel, GQA groups that fill
     1 to 8 of the 8 head rows: rows of one key, of a page and a bit, of
     several pages with ``lower`` inside a page, a length-0 row, and a
@@ -269,18 +299,19 @@ def test_cuda_bf16_decode_kernel_matches_plain(cuda_device, G, hd, ps):
     lengths = [1, ps + 3, 5 * ps - 7, 0, 2 * ps + 5, 3 * ps]
     lower = [0, 0, ps + 9, 0, 2 * ps + 5, ps // 2]
     pages = [-(-n // ps) for n in lengths]
-    q, kp, vp, table = _decode_pool(G, hd, ps, pages)
+    q, kp, vp, table = _decode_pool(G, hd, ps, pages, dtype=dtype)
     ops.reset_launch_counts()
     got = _decode_check(cuda_device, q, kp, vp, table, lengths, lower,
                         softcap=30.0 if G == 7 else None)
-    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 2, "generic": 0,
-                                         "f32": 0}
+    assert ops.DECODE_ROUTE_LAUNCHES == _counts(ops.DECODE_ROUTES,
+                                                **{MMA_ROUTE[dtype]: 2})
     assert (got[3] == 0).all() and (got[4] == 0).all()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("rows", [3, 24])
-def test_cuda_bf16_decode_long_rows(cuda_device, rows):
+def test_cuda_bf16_decode_long_rows(cuda_device, rows, dtype):
     """Rows of 40 to 62 pages at the 8B widths: at 3 rows each row's pages
     are split over about 11 blocks, at 24 rows the rows x kv heads fill
     most of the card and each block walks every page of its row.
@@ -293,7 +324,7 @@ def test_cuda_bf16_decode_long_rows(cuda_device, rows):
     lengths = [int(x) for x in rng.randint(40 * 64, 62 * 64, rows)]
     lower = [0] * (rows - 1) + [1000]
     q, kp, vp, table = _decode_pool(4, 128, 64, [-(-n // 64) for n in lengths],
-                                    KV=8, L=1)
+                                    KV=8, L=1, dtype=dtype)
     first = _decode_check(cuda_device, q, kp, vp, table, lengths, lower)
     # a second call folds alike (no state is left between calls)
     again = _decode_check(cuda_device, q, kp, vp, table, lengths, lower)
@@ -319,8 +350,10 @@ def _rows_within_rms(got, want, short, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("tp", [1, 2, 4, 8])
-def test_cuda_bf16_decode_cluster_splits_at_one_ranks_heads(cuda_device, tp):
+def test_cuda_bf16_decode_cluster_splits_at_one_ranks_heads(cuda_device, tp,
+                                                            dtype):
     """The bf16 kernel's cluster of splits at the heads one rank of tp
     holds of the 8B widths (32/tp q heads, 8/tp kv heads) in the 64-page
     bucket, where the plan takes clusters of 4 (tp=1) or 8: rows of no
@@ -336,7 +369,8 @@ def test_cuda_bf16_decode_cluster_splits_at_one_ranks_heads(cuda_device, tp):
     pages = [0, 1, 3, 7, 40, 5]
     lengths = [0, 1, 3 * ps - 20, 7 * ps - 1, 40 * ps - 9, 5 * ps - 3]
     lo = torch.tensor([0, 0, 0, 70, 1000, 0], dtype=torch.int32)
-    q, kp, vp, narrow = _decode_pool(G, hd, ps, pages, KV=KV, L=1, seed=tp)
+    q, kp, vp, narrow = _decode_pool(G, hd, ps, pages, KV=KV, L=1, seed=tp,
+                                     dtype=dtype)
     B, N = len(pages), kp.shape[1]
     table = torch.zeros((B, P), dtype=torch.int32)
     table[:, :narrow.shape[1]] = narrow
@@ -367,8 +401,8 @@ def test_cuda_bf16_decode_cluster_splits_at_one_ranks_heads(cuda_device, tp):
 
     Kw, n_win = 4, 3
     g = torch.Generator().manual_seed(10 + tp)
-    wk = torch.randn(B, Kw, KV, hd, generator=g).to(torch.bfloat16)
-    wv = torch.randn(B, Kw, KV, hd, generator=g).to(torch.bfloat16)
+    wk = torch.randn(B, Kw, KV, hd, generator=g).to(dtype)
+    wv = torch.randn(B, Kw, KV, hd, generator=g).to(dtype)
     start = torch.tensor([-1, 0] + lengths[2:5] + [4 * ps],
                          dtype=torch.int32)
     qp = (start.clamp(min=0) + n_win - 1).to(torch.int32)
@@ -380,18 +414,20 @@ def test_cuda_bf16_decode_cluster_splits_at_one_ranks_heads(cuda_device, tp):
     np.testing.assert_allclose(_np(out), _np(want), rtol=1e-2, atol=2e-2)
     assert (out[0] == 0).all()
     _rows_within_rms(out, want, short, range(1, B))
-    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 2, "generic": 0,
-                                         "f32": 0}
+    assert ops.DECODE_ROUTE_LAUNCHES == _counts(ops.DECODE_ROUTES,
+                                                **{MMA_ROUTE[dtype]: 2})
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("KV", [8, 1])
-def test_cuda_bf16_decode_graph_replay_equals_eager(cuda_device, KV):
+def test_cuda_bf16_decode_graph_replay_equals_eager(cuda_device, KV, dtype):
     """A captured cluster launch, replayed, gives the eager call's output
     and stats bit for bit, at full heads (clusters of 4) and at tp=8's
     (clusters of 8); layered with stats, and the window form."""
     lengths = [40, 64 * 11 - 3, 0, 86]
-    q, kp, vp, narrow = _decode_pool(4, 128, 64, [1, 11, 0, 2], KV=KV, L=1)
+    q, kp, vp, narrow = _decode_pool(4, 128, 64, [1, 11, 0, 2], KV=KV, L=1,
+                                     dtype=dtype)
     d = cuda_device
     B = len(lengths)
     table = torch.zeros((B, 64), dtype=torch.int32)
@@ -399,8 +435,8 @@ def test_cuda_bf16_decode_graph_replay_equals_eager(cuda_device, KV):
     q, kp, vp, table = (t.to(d) for t in (q, kp, vp, table))
     ln = torch.tensor(lengths, dtype=torch.int32, device=d)
     g = torch.Generator().manual_seed(3)
-    wk = torch.randn(B, 4, KV, 128, generator=g).to(torch.bfloat16).to(d)
-    wv = torch.randn(B, 4, KV, 128, generator=g).to(torch.bfloat16).to(d)
+    wk = torch.randn(B, 4, KV, 128, generator=g).to(dtype).to(d)
+    wv = torch.randn(B, 4, KV, 128, generator=g).to(dtype).to(d)
     start = torch.tensor([40, 701, -1, 86], dtype=torch.int32, device=d)
     qp = (start.clamp(min=0) + 3).to(torch.int32)
 
@@ -458,55 +494,76 @@ def test_cuda_bf16_decode_calls_in_flight_on_two_streams(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_decode_bf16_shape_set_matches_the_kernel(cuda_device):
+@pytest.mark.parametrize("dtype", HALF)
+def test_cuda_decode_bf16_shape_set_matches_the_kernel(cuda_device, dtype):
     """The wrapper's bf16 decode set (decode_route,
-    DECODE_BF16_MAX_SPLITS) is the set the C side takes on route 1:
-    shapes inside get a cluster occupancy answer (at least one cluster of
-    every size the plan picks from), shapes outside are refused, and so
-    are a cluster past DECODE_BF16_MAX_SPLITS and float32. float32 takes
-    route 2 (the float32 kernel's set) or 0, never route 1."""
+    DECODE_BF16_MAX_SPLITS) is the set the C side takes on route 1 (bf16)
+    and route 3 (its float16 form): shapes inside get a cluster occupancy
+    answer (at least one cluster of every size the plan picks from, as
+    many as the bf16 kernel's), shapes outside are refused, and so are a
+    cluster past DECODE_BF16_MAX_SPLITS and the other types. float32
+    takes route 2 (the float32 kernel's set) or 0, never route 1 or 3;
+    the float16 prefill set is the bf16 one, on route 3."""
     import ctypes
 
-    lib = ops._lib()
-    n = ctypes.c_int(0)
+    lib, plib = ops._lib(), ops._prefill_lib()
+    rt = 1 if dtype == torch.bfloat16 else 3
+    code = ops._DTYPES[dtype]
+    n, n_bf16 = ctypes.c_int(0), ctypes.c_int(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    scratch = torch.zeros(16, device=cuda_device).data_ptr()
     for hd in (32, 64, 96, 128, 256, 512):
         for ps in (8, 16, 32, 48, 64, 128, 256):
             for G in (1, 3, 8, 9):
-                route = ops.decode_route(torch.bfloat16, 2 * G, 2, ps, hd)
-                err = lib.dyn_paged_decode_clusters(1, 2 * G, 2, ps, hd, 1,
+                route = ops.decode_route(dtype, 2 * G, 2, ps, hd)
+                assert route in (0, rt)
+                err = lib.dyn_paged_decode_clusters(rt, 2 * G, 2, ps, hd, 1,
                                                     ctypes.byref(n))
-                assert (err == 0) == (route == 1), (hd, ps, G)
+                assert (err == 0) == (route == rt), (hd, ps, G)
                 assert ops.decode_route(torch.float32, 2 * G, 2, ps, hd) in (
                     0, 2)
+                assert ops.prefill_route(dtype, 2 * G, 2, ps, hd) == route
+                # B = 0: the prefill entry checks its arguments only
+                err = plib.dyn_paged_attention_prefill(
+                    rt, code, *[scratch] * 7, 0, 4, 2 * G, 2, 8, ps, hd, 4,
+                    1.0, 0.0, stream)
+                assert (err == 0) == (route == rt), (hd, ps, G)
     for hd in ops.DECODE_BF16_HEAD_DIMS:
         for S in ops.DECODE_CLUSTER_SIZES:
-            n.value = 0
-            assert lib.dyn_paged_decode_clusters(1, 32, 8, 64, hd, S,
+            n.value = n_bf16.value = 0
+            assert lib.dyn_paged_decode_clusters(rt, 32, 8, 64, hd, S,
                                                  ctypes.byref(n)) == 0
-            assert n.value >= 1, (hd, S)
-    scratch = torch.zeros(16, device=cuda_device).data_ptr()
+            assert lib.dyn_paged_decode_clusters(1, 32, 8, 64, hd, S,
+                                                 ctypes.byref(n_bf16)) == 0
+            assert n.value >= 1 and n.value == n_bf16.value, (hd, S)
     S = ops.DECODE_BF16_MAX_SPLITS
-    for dtype, splits in ((1, S), (1, S + 1), (0, S)):
+    for dt, splits in ((code, S), (code, S + 1), (0, S), (3 - code, S)):
         # B = 0: the entry checks its arguments and launches nothing
         err = lib.dyn_paged_attention_decode(
-            1, dtype, *[scratch] * 3, 0, *[scratch] * 8, 0, 8, 2, 4, 64, 128,
-            256, splits, 1.0, 0.0, torch.cuda.current_stream().cuda_stream)
-        assert (err == 0) == (dtype == 1 and splits <= S)
+            rt, dt, *[scratch] * 3, 0, *[scratch] * 8, 0, 8, 2, 4, 64, 128,
+            256, splits, 1.0, 0.0, stream)
+        assert (err == 0) == (dt == code and splits <= S)
+    assert plib.dyn_paged_attention_prefill(
+        rt, 3 - code, *[scratch] * 7, 0, 4, 8, 2, 8, 64, 128, 4, 1.0, 0.0,
+        stream) != 0
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("window", [None, 3, 70])
 @pytest.mark.parametrize("n_win", [1, 2, 3, 4])
-def test_cuda_bf16_decode_window_steps(cuda_device, n_win, window):
-    """The window form on the bf16 kernel at every step of a K = 4 window,
-    without and with a sliding window (3 keys: the pool is out of view)."""
+def test_cuda_bf16_decode_window_steps(cuda_device, n_win, window, dtype):
+    """The window form on the bf16 kernel (and its float16 form) at every
+    step of a K = 4 window, without and with a sliding window (3 keys: the
+    pool is out of view)."""
     Kw, KV, G, hd, ps = 4, 8, 4, 128, 64
     start = torch.tensor([-1, 0, 64, 300, 700], dtype=torch.int32)
-    q, kp, vp, table = _decode_pool(G, hd, ps, [0, 0, 1, 5, 11], KV=KV)
+    q, kp, vp, table = _decode_pool(G, hd, ps, [0, 0, 1, 5, 11], KV=KV,
+                                    dtype=dtype)
     g = torch.Generator().manual_seed(6)
     B = start.numel()
-    wk = torch.randn(B, Kw, KV, hd, generator=g).to(torch.bfloat16)
-    wv = torch.randn(B, Kw, KV, hd, generator=g).to(torch.bfloat16)
+    wk = torch.randn(B, Kw, KV, hd, generator=g).to(dtype)
+    wv = torch.randn(B, Kw, KV, hd, generator=g).to(dtype)
     qp = (start.clamp(min=0) + n_win - 1).to(torch.int32)
     eff = None if window is None else torch.full((B,), window,
                                                  dtype=torch.int32)
@@ -518,8 +575,8 @@ def test_cuda_bf16_decode_window_steps(cuda_device, n_win, window):
         q.to(d), kp.to(d), vp.to(d), 1, table.to(d), start.to(d), qp.to(d),
         wk.to(d), wv.to(d), n_win,
         eff_win=None if eff is None else eff.to(d)).cpu()
-    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 1, "generic": 0,
-                                         "f32": 0}
+    assert ops.DECODE_ROUTE_LAUNCHES == _counts(ops.DECODE_ROUTES,
+                                                **{MMA_ROUTE[dtype]: 1})
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=2e-2)
     assert (got[0] == 0).all()
 
@@ -529,37 +586,42 @@ def test_cuda_bf16_decode_window_steps(cuda_device, n_win, window):
     (torch.float32, 96, 64, 4),     # head_dim outside the float32 set
     (torch.bfloat16, 32, 16, 1),    # head_dim outside the bf16 set
     (torch.bfloat16, 64, 8, 2),     # page size outside the bf16 set
+    (torch.float16, 32, 16, 1),     # and in float16
+    (torch.float16, 96, 4, 3),      # chip_smoke.py's check shape
 ])
 def test_cuda_decode_other_shapes_run_the_generic_kernel(cuda_device, dtype,
                                                          hd, ps, G):
-    """float32 shapes outside the float32 kernel's set, and bfloat16
-    shapes outside the bf16 kernel's, still run on the generic kernel,
-    chosen by shape."""
+    """float32 shapes outside the float32 kernel's set, and bfloat16 and
+    float16 shapes outside the bf16 kernel's, still run on the generic
+    kernel, chosen by shape."""
     lengths, lower = [3 * ps + 1, 0, 2 * ps], [0, 0, ps + 1]
     q, kp, vp, table = _decode_pool(G, hd, ps, [4, 0, 2], dtype=dtype)
     ops.reset_launch_counts()
     f32 = dtype == torch.float32
     _decode_check(cuda_device, q, kp, vp, table, lengths, lower,
                   tol=1e-5 if f32 else 2e-2, rtol=0.0 if f32 else 1e-2)
-    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 0, "generic": 2,
-                                         "f32": 0}
+    assert ops.DECODE_ROUTE_LAUNCHES == _counts(ops.DECODE_ROUTES, generic=2)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,ps,G", [(96, 64, 4), (32, 4, 2)])
+@pytest.mark.parametrize("dtype,hd,ps,G", [
+    (torch.float32, 96, 64, 4), (torch.float32, 32, 4, 2),
+    (torch.float16, 96, 4, 3)])
 def test_cuda_decode_window_other_shapes_run_the_generic_kernel(
-        cuda_device, hd, ps, G):
+        cuda_device, hd, ps, G, dtype):
     """The window form of float32 shapes outside the float32 kernel's set
-    (a head_dim of 96; page 4, chip_smoke.py's check shape) runs on the
-    generic kernel and its combine step, chosen by shape: every step of
-    K = 4 with a sliding window, the softcap and a padding row."""
+    (a head_dim of 96; page 4, chip_smoke.py's check shape), and of a
+    float16 one outside the bf16 kernel's, runs on the generic kernel and
+    its combine step, chosen by shape: every step of K = 4 with a sliding
+    window, the softcap and a padding row (float32 at atol 1e-5, float16
+    at its tolerance)."""
     d, Kw = cuda_device, 4
-    q, kp, vp, table = _decode_pool(G, hd, ps, [5, 2, 3, 1],
-                                    dtype=torch.float32)
+    q, kp, vp, table = _decode_pool(G, hd, ps, [5, 2, 3, 1], dtype=dtype)
     B, KV = q.shape[0], kp.shape[2]
     g = torch.Generator().manual_seed(hd + ps)
-    wk = torch.randn(B, Kw, KV, hd, generator=g)
-    wv = torch.randn(B, Kw, KV, hd, generator=g)
+    wk = torch.randn(B, Kw, KV, hd, generator=g).to(dtype)
+    wv = torch.randn(B, Kw, KV, hd, generator=g).to(dtype)
+    tol, rtol = (1e-5, 0) if dtype == torch.float32 else (2e-2, 1e-2)
     start = torch.tensor([5 * ps - 3, 2 * ps, 3 * ps - 1, -1],
                          dtype=torch.int32)
     eff = torch.full((B,), 2 * ps + 3, dtype=torch.int32)
@@ -571,10 +633,10 @@ def test_cuda_decode_window_other_shapes_run_the_generic_kernel(
         got = paged_attention_decode_window(
             *(a.to(d) if torch.is_tensor(a) else a for a in args),
             softcap=30.0, eff_win=eff.to(d)).cpu()
-        np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=tol)
         assert (got[3] == 0).all()
-    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 0, "generic": Kw,
-                                         "f32": 0}
+    assert ops.DECODE_ROUTE_LAUNCHES == _counts(ops.DECODE_ROUTES,
+                                                generic=Kw)
 
 
 @pytest.mark.cuda
@@ -612,7 +674,8 @@ def test_cuda_prefill_other_shapes_run_the_generic_kernel(cuda_device, hd,
         got = got.cpu()
         np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
         assert (got[1, 21:] == 0).all()
-    assert ops.PREFILL_ROUTE_LAUNCHES == {"generic": 2, "bf16": 0, "f32": 0}
+    assert ops.PREFILL_ROUTE_LAUNCHES == _counts(ops.PREFILL_ROUTES,
+                                                 generic=2)
 
 
 # ------------------------------------------------------ the float32 routes
@@ -682,8 +745,8 @@ def test_cuda_f32_decode_kernel_matches_plain(cuda_device, hd, ps, G):
             eff_win=eff.to(d)).cpu()
         np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
         assert (got[0] == 0).all()
-    assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 0, "generic": 0,
-                                         "f32": 2 + Kw}
+    assert ops.DECODE_ROUTE_LAUNCHES == _counts(ops.DECODE_ROUTES,
+                                                f32=2 + Kw)
 
 
 @pytest.mark.cuda
@@ -722,7 +785,7 @@ def test_cuda_f32_prefill_kernel_matches_plain(cuda_device, hd, ps, G):
         got = got.cpu()
         np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
         assert (got[1, 33:] == 0).all() and (got[2] == 0).all()
-    assert ops.PREFILL_ROUTE_LAUNCHES == {"generic": 0, "bf16": 0, "f32": 2}
+    assert ops.PREFILL_ROUTE_LAUNCHES == _counts(ops.PREFILL_ROUTES, f32=2)
 
 
 @pytest.mark.cuda
@@ -1040,7 +1103,7 @@ def test_cuda_graph_replay_counts_equal_eager_counts(cuda_device):
     assert ops.LAUNCHES == {k: 2 * n for k, n in eager[0].items()}
     assert ops.DECODE_ROUTE_LAUNCHES == {k: 2 * n for k, n in
                                          eager[1].items()}
-    assert eager[1] == {"bf16_mma": 8, "generic": 0, "f32": 0}
+    assert eager[1] == _counts(ops.DECODE_ROUTES, bf16_mma=8)
 
 
 @pytest.mark.cuda
@@ -1179,8 +1242,7 @@ def test_cuda_graph_prefill_matches_eager(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol,rtol", [(torch.float32, 1e-5, 0.0),
-                                            (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("dtype,tol,rtol", DTYPE_TOLS)
 @pytest.mark.parametrize("tp", [2, 4, 8])
 def test_cuda_sharded_wrappers_at_one_ranks_heads(cuda_device, tp, dtype,
                                                   tol, rtol):
@@ -1190,7 +1252,8 @@ def test_cuda_sharded_wrappers_at_one_ranks_heads(cuda_device, tp, dtype,
     kernel (a first chunk of 512, a second chunk with a sliding window),
     against their plain versions (the same wrappers on the CPU). At 8/tp
     kv heads the split plan gives a row up to one split per page; the
-    bf16 calls stay on the bf16 decode kernel."""
+    bf16 and float16 calls stay on the bf16 decode kernel's form of their
+    type, and on the prefill kernel's."""
     from dynamo_tpu_torch.parallel.mesh import MeshSpec
 
     d = cuda_device
@@ -1233,9 +1296,9 @@ def test_cuda_sharded_wrappers_at_one_ranks_heads(cuda_device, tp, dtype,
                                    atol=tol)
     assert ops.LAUNCHES == {"paged_attention_decode": 1 + Kw,
                             "paged_attention_prefill": 0}
-    if dtype == torch.bfloat16:
-        assert ops.DECODE_ROUTE_LAUNCHES == {"bf16_mma": 1 + Kw,
-                                             "generic": 0, "f32": 0}
+    route = MMA_ROUTE.get(dtype, "f32")
+    assert ops.DECODE_ROUTE_LAUNCHES == _counts(ops.DECODE_ROUTES,
+                                                **{route: 1 + Kw})
     pos = torch.full((2, 512), -1, dtype=torch.int32)
     pos[0] = torch.arange(512)
     pos[1, :256] = torch.arange(512, 768)
@@ -1251,6 +1314,8 @@ def test_cuda_sharded_wrappers_at_one_ranks_heads(cuda_device, tp, dtype,
     np.testing.assert_allclose(_np(got.cpu()), _np(want), rtol=rtol,
                                atol=tol)
     assert ops.LAUNCHES["paged_attention_prefill"] == 1
+    assert ops.PREFILL_ROUTE_LAUNCHES == _counts(
+        ops.PREFILL_ROUTES, **{PF_ROUTE.get(dtype, "f32"): 1})
 
 
 # ------------------------------------------------------- int8 GEMM
@@ -1293,36 +1358,40 @@ def _int8_check(dev, M, K, N, seed=0, dtype=torch.bfloat16):
     route = int8_gemm.int8_gemm_plan(
         M, N, K, torch.cuda.get_device_properties(dev).multi_processor_count,
         dtype).route
-    assert int8_gemm.INT8_GEMM_LAUNCHES[route] == 1
-    assert sum(int8_gemm.INT8_GEMM_LAUNCHES.values()) == 1
+    assert (route == "simt") == (dtype == torch.float32)
+    assert int8_gemm.INT8_GEMM_LAUNCHES == _counts(
+        int8_gemm.INT8_GEMM_LAUNCHES, **{int8_gemm.launch_key(route, dtype): 1})
     return x, q, s, y
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("M", [1, 4, 16, 32, 48, 64, 512, 4096])
 @pytest.mark.parametrize("shape", sorted(INT8_SHAPES))
-def test_cuda_int8_gemm_matches_plain(cuda_device, shape, M):
-    """The kernels at the served shapes, both bf16 routes and the rows
-    about their crossover, within the stated tolerance of the float32
-    evaluation of their plain version."""
-    _int8_check(cuda_device, M, *INT8_SHAPES[shape])
+def test_cuda_int8_gemm_matches_plain(cuda_device, shape, M, dtype):
+    """The kernels at the served shapes, both tensor-core routes (bf16 and
+    their float16 forms) and the rows about their crossover, within the
+    stated tolerance of the float32 evaluation of their plain version."""
+    _int8_check(cuda_device, M, *INT8_SHAPES[shape], dtype=dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("M", [4, 512])
 @pytest.mark.parametrize("shape", sorted(INT8_TP2_SHAPES))
-def test_cuda_int8_gemm_at_tp2_shapes(cuda_device, shape, M):
-    _int8_check(cuda_device, M, *INT8_TP2_SHAPES[shape])
+def test_cuda_int8_gemm_at_tp2_shapes(cuda_device, shape, M, dtype):
+    _int8_check(cuda_device, M, *INT8_TP2_SHAPES[shape], dtype=dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("M,K,N", [(3, 4096, 1000), (37, 4096, 130),
                                    (100, 4096, 4100), (300, 1040, 1000),
                                    (17, 16, 33), (129, 48, 7)])
-def test_cuda_int8_gemm_ragged(cuda_device, M, K, N):
+def test_cuda_int8_gemm_ragged(cuda_device, M, K, N, dtype):
     """Ragged M and N (masked loads and stores), and K not a multiple of
     the 64-wide chunk."""
-    _int8_check(cuda_device, M, K, N, seed=1)
+    _int8_check(cuda_device, M, K, N, seed=1, dtype=dtype)
 
 
 @pytest.mark.cuda
@@ -1330,16 +1399,33 @@ def test_cuda_int8_gemm_ragged(cuda_device, M, K, N):
 @pytest.mark.parametrize("M,K,N", [(1, 64, 192), (7, 64, 64), (33, 128, 64),
                                    (300, 1040, 1000)])
 def test_cuda_int8_gemm_simt_route(cuda_device, M, K, N, dtype):
-    """float32 and float16 x (the tiny preset serves float32) take the
-    simt route, within one rounding to x's dtype and the summation
-    order."""
+    """float32 x (the tiny preset serves float32) takes the simt route,
+    and float16 x the float16 forms of the tensor-core routes (never
+    simt), within one rounding to x's dtype and the summation order."""
     _int8_check(cuda_device, M, K, N, seed=4, dtype=dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_f16_forms_hold_as_many_blocks_as_bf16(cuda_device):
+    """The plans take the bf16 kernels' co-resident counts for both
+    forms: the CUDA driver's counts of the float16 forms are the same at
+    every tile and cluster size; and the simt route refuses float16."""
+    for tile in (1, 2) + int8_gemm.WG_TOKENS:
+        for splits in range(1, int8_gemm.MAX_SPLITS + 1):
+            bf = int8_gemm.resident_count(tile, splits, torch.bfloat16)
+            assert bf > 0, (tile, splits)
+            assert int8_gemm.resident_count(tile, splits,
+                                            torch.float16) == bf
+    x, q, s = _int8_case(cuda_device, 4, 64, 64, dtype=torch.float16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        int8_matmul(x, q, s, plan=int8_gemm.Int8Plan("simt", 32, 1, 2))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,dtype", [(4, torch.bfloat16), (32, torch.bfloat16),
                                      (512, torch.bfloat16),
-                                     (4, torch.float32), (4, torch.float16)])
+                                     (4, torch.float32), (4, torch.float16),
+                                     (512, torch.float16)])
 def test_cuda_int8_gemm_perturbed_scale_fails_the_check(cuda_device, M,
                                                         dtype):
     """The control, at every route: one scale 1 + 2^-5 off must show in
@@ -1357,53 +1443,57 @@ def _small_m_plan(dev, M, N, K):
     return int8_gemm.small_m_plan(M, N, K, sms, int8_gemm.resident_of(dev))
 
 
-def _small_m_check(dev, M, K, N, seed=0):
-    x, q, s = _int8_case(dev, M, K, N, seed)
+def _small_m_check(dev, M, K, N, seed=0, dtype=torch.bfloat16):
+    x, q, s = _int8_case(dev, M, K, N, seed, dtype)
     int8_gemm.reset_launch_counts()
     y = int8_matmul(x, q, s, plan=_small_m_plan(dev, M, N, K))
     torch.cuda.synchronize()
-    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (M, N)
+    assert y.dtype == dtype and tuple(y.shape) == (M, N)
     assert _int8_excess(y, x, q, s) <= 0
-    assert int8_gemm.INT8_GEMM_LAUNCHES == {"small_m": 1, "wgmma": 0,
-                                            "simt": 0}
+    assert int8_gemm.INT8_GEMM_LAUNCHES == _counts(
+        int8_gemm.INT8_GEMM_LAUNCHES,
+        **{int8_gemm.launch_key("small_m", dtype): 1})
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("M", [1, 2, 4, 8, 16, 24, 32])
 @pytest.mark.parametrize("shape", sorted(INT8_SHAPES) + [
     f"tp2 {n}" for n in sorted(INT8_TP2_SHAPES)])
-def test_cuda_int8_small_m_at_served_shapes(cuda_device, shape, M):
+def test_cuda_int8_small_m_at_served_shapes(cuda_device, shape, M, dtype):
     """The small-M route (TMA ring, programmatic launch, K split over a
     cluster of up to 8 blocks) at every served shape, tp=1 and tp=2, at
     every row count it can take, forced where the crossover sends the
     call to the wgmma route."""
     K, N = (INT8_TP2_SHAPES[shape[4:]] if shape.startswith("tp2 ")
             else INT8_SHAPES[shape])
-    _small_m_check(cuda_device, M, K, N)
+    _small_m_check(cuda_device, M, K, N, dtype=dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("M", [1, 5, 17, 32])
 @pytest.mark.parametrize("K,N", [(4096, 33), (4096, 130), (4096, 1000),
                                  (16, 1000), (48, 1000), (1040, 1000)])
-def test_cuda_int8_small_m_ragged(cuda_device, M, K, N):
+def test_cuda_int8_small_m_ragged(cuda_device, M, K, N, dtype):
     """The small-M route on ragged N (a partial 64-channel tile, odd N)
     and K tails (less than one 128-wide stage; a stage past K's end),
     where TMA fills the boxes past the tensors with zeros."""
-    _small_m_check(cuda_device, M, K, N, seed=6)
+    _small_m_check(cuda_device, M, K, N, seed=6, dtype=dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("M,N", [(4, 1024), (64, 14336), (512, 4096),
                                  (512, 1024), (48, 4096), (4, 512),
                                  (32, 512)])
-def test_cuda_int8_gemm_replay_equals_eager(cuda_device, M, N):
+def test_cuda_int8_gemm_replay_equals_eager(cuda_device, M, N, dtype):
     """Deterministic: two eager calls and a captured graph's replay give
     the same bits (the K splits fold in a fixed order; 512 x 1024 and
     48 x 4096 split K over the wgmma route's clusters, 4 x 512 and 32 x
     512 over the small-M route's deepest, eight blocks; the small-M
     launch is programmatic in the graph too)."""
-    x, q, s = _int8_case(cuda_device, M, 4096, N, seed=2)
+    x, q, s = _int8_case(cuda_device, M, 4096, N, seed=2, dtype=dtype)
     eager = int8_matmul(x, q, s)
     assert torch.equal(int8_matmul(x, q, s), eager)
     side = torch.cuda.Stream()
@@ -1582,8 +1672,8 @@ def test_cuda_tiny_int8_engine_matches_its_plain_path(cuda_device):
     int8_gemm.reset_launch_counts()
     got = run(engine)
     assert int8_gemm.INT8_GEMM_LAUNCHES["simt"] > 0
-    assert int8_gemm.INT8_GEMM_LAUNCHES["small_m"] == 0
-    assert int8_gemm.INT8_GEMM_LAUNCHES["wgmma"] == 0
+    assert sum(int8_gemm.INT8_GEMM_LAUNCHES.values()) == (
+        int8_gemm.INT8_GEMM_LAUNCHES["simt"])
     launches = dict(int8_gemm.INT8_GEMM_LAUNCHES)
     want = run(plain)
     assert int8_gemm.INT8_GEMM_LAUNCHES == launches

@@ -468,7 +468,8 @@ def test_launcher_dtype_int8(llama_ckpt):
         assert torch.equal(engine.params[k].s, want[k].s), k
     summary = serving_summary(engine)
     assert summary["int8_gemm_launches"] == {"small_m": 0, "wgmma": 0,
-                                             "simt": 0}
+                                             "simt": 0, "small_m_f16": 0,
+                                             "wgmma_f16": 0}
 
     args = parse_args(["in=http", "out=torch", "--model-path", llama_ckpt,
                        "--device", "cpu", "--dtype", "int8", "--no-warmup"])

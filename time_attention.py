@@ -2,7 +2,7 @@
 """Device time of the attention kernels at chip_smoke.py's phase-5
 shapes, for comparing two trees on one card.
 
-    python3 time_attention.py [--dtype bfloat16|float32]   # from a checkout
+    python3 time_attention.py [--dtype bfloat16|float16|float32]  # from a checkout
 
 Llama-3-8B attention widths (H=32, KV=8, head_dim 128, page 64), a random
 pool of 512 pages and queries from a seed:
@@ -20,10 +20,13 @@ With ``--dtype float32`` the same prefill and decode shapes run on
 float32 pools (the float32 routes), with the served window also in the
 order chip_smoke.py's phase 4 served its rows, and the 1b's heads
 (head_dim 64) at the first chunk and the served window beside them; the
-sharded shapes are bf16 only.
+sharded shapes are bf16 and float16 only. ``--dtype float16`` takes
+every shape of the bf16 run in float16 (the float16 forms of the bf16
+kernels).
 Each shape is timed three times (CUDA graph of 50 launches,
 chip_smoke.time_ms) and held to its plain version (the tolerance of its
-dtype: bf16 atol 2e-2 + rtol 1e-2, float32 atol 1e-5); the line also
+dtype: bf16 and float16 atol 2e-2 + rtol 1e-2, float32 atol 1e-5); the
+line also
 carries a digest of each output's bits (``digest``), so that two trees'
 kernels can be shown bitwise equal on the same seeded inputs.
 Prints one JSON line. The script uses only what earlier trees of the
@@ -89,7 +92,7 @@ def digest(t) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dtype", default="bfloat16",
-                    choices=("bfloat16", "float32"))
+                    choices=("bfloat16", "float16", "float32"))
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())
     import torch
@@ -125,10 +128,8 @@ def main() -> None:
         return
     for name, tp, ctx in SHARDED_SHAPES:
         kv, h = KV // tp, H // tp
-        kl = torch.randn(1, N, kv, ps, hd, generator=g,
-                         device=dev).to(torch.bfloat16)
-        vl = torch.randn(1, N, kv, ps, hd, generator=g,
-                         device=dev).to(torch.bfloat16)
+        kl = torch.randn(1, N, kv, ps, hd, generator=g, device=dev).to(dtype)
+        vl = torch.randn(1, N, kv, ps, hd, generator=g, device=dev).to(dtype)
         B, P = len(ctx), 64
         q, table, start, qp, wk, wv = decode_case(kl, vl, ctx, B, P, K, h, g)
         mesh = MeshSpec(model=tp).view(0)
