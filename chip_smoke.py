@@ -72,8 +72,11 @@ Phases; any failure exits non-zero before the result line:
    bound at 3xTF32 (three TF32 products an operation, 494.7 TF/s) with
    the FFMA bound (67 TF/s) beside it; the float16 forms at the served
    window and first chunk on float16 pools from a seed (the rows whose
-   launches phase 12 counts). Bounds count the work of this run's inputs
-   (ops.paged_attention.decode_work and prefill_work);
+   launches phase 12 counts); the generic kernels (decode in every dtype,
+   prefill in float32, the only one it takes) at the 8B's heads with
+   head_dim 96, outside every fast set, at the served window and first
+   chunk (no preset serves them). Bounds count the work of this run's
+   inputs (ops.paged_attention.decode_work and prefill_work);
 6. hold the tensor-parallel wrappers (paged_attention_decode_sharded, its
    window form, paged_attention_prefill_sharded) against the plain
    versions at the heads one rank holds of the 8B widths at tp 2, 4 and
@@ -129,24 +132,26 @@ Phases; any failure exits non-zero before the result line:
    margin exceeds twice LOGPROB_LIMIT, and nothing is captured after
    warmup.
 10. (run after phase 6, once the bf16 engine has left the card) the
-   weight-only int8 GEMM (``ops/csrc/int8_gemm.cu``: the small_m, wgmma
-   and simt routes) held against the float32 evaluation of its plain
-   version, within one rounding of the output to its dtype plus the
-   float32 summation order (``ops/int8_gemm.py int8_gemm_tolerance``), at
-   every projection shape of the 8B model at M = 1, 4, 16, 24, 32, 48,
-   64, 512 and 4,096 in bf16 and in float16 (the float16 forms of the
-   small_m and wgmma routes), at tp=2's shapes and at ragged M, N and K
-   (bf16, and float32 for the simt route), with one scale perturbed as
-   the control that must fail at every route and form; the small-M
+   weight-only int8 GEMM (``ops/csrc/int8_gemm.cu``: the small_m and
+   wgmma routes, each in a bf16, a float16 and a float32 form) held
+   against the float32 evaluation of its plain version, within one
+   rounding of the output to its dtype plus the float32 summation order
+   (``ops/int8_gemm.py int8_gemm_tolerance``), at every projection shape
+   of the 8B model at M = 1, 4, 16, 24, 32, 48, 64, 512 and 4,096 in bf16
+   and in float16, at the 1b's in float32 (the 2xTF32 forms), at tp=2's
+   shapes and at ragged M, N and K (bf16 and float32), with one scale
+   perturbed as the control that must fail at every route and form; the
+   small-M
    route's programmatic launches captured in a graph, replayed bitwise
    equal to the eager calls, and timed with and without programmatic
    launch; timed at M = 4 to 4,096 in bf16 and float16 (both bf16 routes
    at 4 to 32 rows, where they cross; the small-M route also after a
    kernel that writes its x), at the tiny preset's shapes and at the 1b's
-   (M = 4 and 512) in float32 on the simt route, beside its bound, its
-   plain version, ``torch.matmul`` on the dequantized weight in x's dtype
-   and ``torch._weight_int8pack_mm`` where it runs on CUDA; then the 8B
-   model
+   (M = 4 and 512) in float32 on the float32 forms, beside its bound (in
+   float32 both: two TF32 products an operation or the bytes, and the
+   FFMA rate), its plain version, ``torch.matmul`` on the dequantized
+   weight in x's dtype and ``torch._weight_int8pack_mm`` where it runs on
+   CUDA; then the 8B model
    built by the launcher's ``--dtype int8`` path and checked as phase 4
    checks the bf16 one (phase 4's requests over HTTP, every bucket
    captured, none after warmup, int8 GEMM launches by route summing to
@@ -156,7 +161,7 @@ Phases; any failure exits non-zero before the result line:
    by replay against eager calls) and its logits held within rel_l2
    INT8_REL_L2 of the bf16 engine's on the same seed-0 weights; then the
    launcher's defaults with ``--dtype int8`` (the float32 tiny preset)
-   answer one completion, every product on the simt route and every
+   answer one completion, every product on the float32 forms and every
    attention call on the float32 routes.
 11. (run last, once the 8B engines have left the card) a float32 engine
    of Llama-3.2-1B's widths (16 layers, D 2048, I 8192, H 32 on 8 kv
@@ -168,7 +173,13 @@ Phases; any failure exits non-zero before the result line:
    chunk replays x 16); then its kernel path against its plain path
    teacher-forced at F32_PATH_LIMITS, with the same two fault controls,
    beside the plain path's own float32 noise (every weight moved one
-   ulp). Its launches fill the float32 rows of the kernels line.
+   ulp); then the same seed-0 weights with quant="int8" and float32
+   activations, served alike with every product on the float32 forms of
+   small_m and wgmma (replays x (7 x 16 + 1), none on a bf16 or float16
+   form), its kernel path against its int8 plain path at
+   F32_PATH_LIMITS with the int8 fault as its control, beside that plain
+   path's noise, and its logits within INT8_REL_L2 of the float32
+   engine's. Its launches fill the float32 rows of the kernels line.
 12. (run after phase 11) the 8B model in float16 (``ModelConfig.llama3_8b``
    with dtype float16: 32 layers at full width, seed-0 weights, the
    default EngineConfig), an engine built directly (the launchers offer
@@ -180,7 +191,7 @@ Phases; any failure exits non-zero before the result line:
    plain path teacher-forced at PATH_LIMITS with the two fault controls;
    then the same weights with quant="int8" and float16 activations,
    served alike, every product on the float16 forms of small_m and
-   wgmma (replays x (7 x 32 + 1), none on simt or a bf16 form), its
+   wgmma (replays x (7 x 32 + 1), none on another form), its
    teacher-forced check with the int8 fault among its controls, and its
    logits within INT8_REL_L2 of the float16 engine's. Every plain logit
    must be finite (the plain int8 order rounds x @ q to float16 before
@@ -1795,6 +1806,34 @@ def time_kernels(engine, cfg, dev, served) -> list:
             "launches_from": "the 8B served in float16 (phase 12)"})
     del k16, v16
     torch.cuda.empty_cache()
+
+    # the generic kernels (paged_decode_kernel + paged_decode_combine, and
+    # paged_prefill_kernel<float>, which takes float32 alone) at the 8B's
+    # heads with head_dim 96, outside every fast set, on pools from a
+    # seed: the served window in bfloat16, float16 and float32 (under the
+    # decode row's shapes) and the first chunk in float32 (under the
+    # float32 prefill row's); no preset serves them
+    pf32_row = next(r for r in rows
+                    if r["name"] == "paged_attention_prefill float32")
+    for dtype, peak in ((torch.bfloat16, H100_BF16_FLOPS),
+                        (torch.float16, H100_BF16_FLOPS),
+                        (torch.float32, H100_F32_FLOPS)):
+        kg = torch.randn(1, ecfg.num_pages, cfg.num_kv_heads, ps, 96,
+                         generator=g, device=dev).to(dtype)
+        vg = torch.randn(1, ecfg.num_pages, cfg.num_kv_heads, ps, 96,
+                         generator=g, device=dev).to(dtype)
+        name = str(dtype).split(".")[-1]
+        dec_g = time_decode(kg, vg, ctx, B, P, K, H, g, peak_flops=peak)
+        if dec_g["decode_route"] != "generic":
+            fail(f"decode at head_dim 96 in {name} took route "
+                 f"{dec_g['decode_route']}, not the generic kernel")
+        rows[0]["shapes"][f"generic hd96 {name}"] = dec_g
+        if dtype == torch.float32:
+            pf32_row["shapes"]["generic hd96"] = time_prefill(
+                kg[0], vg[0], ecfg, 0, served["prefill_chunk"], H, g,
+                peak_flops=H100_F32_FLOPS)
+        del kg, vg
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1859,14 +1898,14 @@ INT8_CROSS_ROWS = (4, 16, 32, 48, 64)
 INT8_LINE_ROWS = (4, 512)
 # the float32 tiny preset's projections (K, N), the launcher's default
 # model: wq and wo, wk and wv, w_gate and w_up, w_down, lm_head; served
-# through the simt route, at the rows of a decode window and a chunk
+# through the float32 forms, at the rows of a decode window and a chunk
 INT8_TINY_SHAPES = {"wq_wo": (64, 64), "wk_wv": (64, 32),
                     "gate_up": (64, 128), "down": (128, 64),
                     "lm_head": (64, 512)}
 INT8_TINY_ROWS = (4, 128)
-# Llama-3.2-1B's projections (K, N), where the simt route is timed in
-# float32 beside float32 torch.matmul and torch._weight_int8pack_mm, at
-# the rows of a decode window and a chunk
+# Llama-3.2-1B's projections (K, N), where phase 11 serves the float32
+# forms: held at INT8_ROWS, and timed beside float32 torch.matmul and
+# torch._weight_int8pack_mm at the rows of a decode window and a chunk
 INT8_1B_SHAPES = {"wq_wo": (2048, 2048), "wk_wv": (2048, 512),
                   "gate_up": (2048, 8192), "down": (8192, 2048),
                   "lm_head": (2048, 128256)}
@@ -1876,7 +1915,10 @@ INT8_ROUTE_CASES = [("small_m", 4, 4096, 1024, "bfloat16"),
                     ("small_m", 32, 4096, 4096, "bfloat16"),
                     ("wgmma", 48, 4096, 4096, "bfloat16"),
                     ("wgmma", 512, 4096, 1024, "bfloat16"),
-                    ("simt", 4, 4096, 1024, "float32"),
+                    ("small_m", 4, 2048, 2048, "float32"),
+                    ("small_m", 16, 2048, 512, "float32"),
+                    ("wgmma", 48, 2048, 2048, "float32"),
+                    ("wgmma", 512, 2048, 512, "float32"),
                     ("small_m", 4, 4096, 1024, "float16"),
                     ("small_m", 32, 4096, 4096, "float16"),
                     ("wgmma", 48, 4096, 4096, "float16"),
@@ -1927,14 +1969,16 @@ def check_int8_gemm(dev) -> dict:
     """The int8 GEMM against the float32 evaluation of its plain version
     (TF32 off) at every shape of INT8_SHAPES at every M of INT8_ROWS in
     bfloat16 (the small_m and wgmma routes) and in float16 (their
-    float16 forms), at tp=2's shapes (M = 4, 32 and 512) and at ragged M,
-    N and K, in bfloat16 and, for tp=2's and the ragged shapes at M = 4,
-    in float32 (the simt route): within ``ops/int8_gemm.py
+    float16 forms), at every shape of INT8_1B_SHAPES at every M of
+    INT8_ROWS in float32 (their float32 forms), at tp=2's shapes (M = 4,
+    32 and 512) and at ragged M, N and K, in bfloat16 and, for tp=2's
+    shapes at M = 4 and the ragged shapes, in float32: within
+    ``ops/int8_gemm.py
     int8_gemm_tolerance``, one rounding of the output to its dtype (2^-8
     of it in bf16, 2^-11 in float16, 2^-24 in float32) plus the float32
     sums in another order (2^-16 of the sum of the terms' magnitudes).
-    Each case records the route it took (with ``_f16`` for a float16
-    form). The control, one scale 1 + 2^-5 off, must pass the tolerance
+    Each case records the route it took (with ``_f16`` or ``_f32`` for
+    a float16 or float32 form). The control, one scale 1 + 2^-5 off, must pass the tolerance
     at every route and form (INT8_ROUTE_CASES)."""
     import torch
 
@@ -1943,6 +1987,8 @@ def check_int8_gemm(dev) -> dict:
 
     cases = ([(n, M, K, N, d) for d in ("bfloat16", "float16")
               for n, (K, N) in INT8_SHAPES.items() for M in INT8_ROWS]
+             + [(f"1b {n}", M, K, N, "float32")
+                for n, (K, N) in INT8_1B_SHAPES.items() for M in INT8_ROWS]
              + [(f"tp2 {n}", M, K, N, "bfloat16")
                 for n, (K, N) in INT8_TP2_SHAPES.items()
                 for M in INT8_LINE_ROWS + (32,)]
@@ -1995,11 +2041,11 @@ def check_int8_gemm(dev) -> dict:
 def time_int8_gemm(dev, errs: dict) -> list:
     """The int8 GEMM timed at the served shapes (INT8_SHAPES at every M
     of INT8_TIMED_ROWS, bfloat16 and float16), at the tiny preset's
-    (INT8_TINY_SHAPES at INT8_TINY_ROWS, float32: the simt route) and at
-    the 1b's (INT8_1B_SHAPES at INT8_1B_ROWS, float32, the simt route
-    beside float32 torch.matmul) in a CUDA graph of calls that cycle over
-    copies of the weights
-    (INT8_COLD_BYTES), beside its bound (``int8_gemm_work``), its plain
+    (INT8_TINY_SHAPES at INT8_TINY_ROWS, float32: the float32 forms) and
+    at the 1b's (INT8_1B_SHAPES at INT8_1B_ROWS, float32, beside float32
+    torch.matmul) in a CUDA graph of calls that cycle over copies of the
+    weights (INT8_COLD_BYTES), beside its bound (``int8_gemm_work``; in
+    float32 also the FFMA bound, ``bound_ffma_ms``), its plain
     version, ``torch.matmul`` on the dequantized weight in x's dtype (the
     unquantized path's cost of the same product), the other bf16 route
     at INT8_CROSS_ROWS where it takes the rows (forced, to place the
@@ -2095,7 +2141,8 @@ def time_int8_gemm(dev, errs: dict) -> list:
                      5 if work["bound_ms"] < 2 else 2)
             key = f"{name} {K}x{N} M={M}" + ("" if dtype == "bfloat16"
                                               else f" {dtype}")
-            form = "<..., __half>" if dtype == "float16" else ""
+            form = {"float16": "<..., __half>",
+                    "float32": "<..., float>"}.get(dtype, "")
             row = {
                 "name": f"int8_gemm {key}", "route": "cuda",
                 "source": INT8_SOURCE, "replaces": INT8_REPLACES,
@@ -2109,6 +2156,8 @@ def time_int8_gemm(dev, errs: dict) -> list:
                 "ms": time_ms(kern, iters), "plain_ms": time_ms(plain, iters),
                 "matmul_ms": time_ms(dense, iters), "matmul_dtype": dtype,
                 "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+                **({"bound_ffma_ms": work["bound_ffma_ms"]}
+                   if "bound_ffma_ms" in work else {}),
                 # the library call is far slower than the kernel: a
                 # graph of two calls at decode rows, one call at prefill's
                 "library_ms": (None if notes[dtype] is not None else
@@ -2145,7 +2194,9 @@ def time_int8_gemm(dev, errs: dict) -> list:
                         lambda: kern(other), x, iters)
             rows.append(row)
             log(f"  {row['name']} ({row['int8_route']}): {row['ms']:.4f} "
-                f"ms (bound {work['bound_ms']:.4f}, {work['bound_by']}; "
+                f"ms (bound {work['bound_ms']:.4f}, {work['bound_by']}"
+                + (f", FFMA {row['bound_ffma_ms']:.4f}"
+                   if "bound_ffma_ms" in row else "") + "; "
                 f"plain {row['plain_ms']:.4f}; {dtype} matmul "
                 f"{row['matmul_ms']:.4f}; library {row['library_ms']}"
                 + (f"; after a writer {row['after_write_ms']:.4f}, without "
@@ -2263,7 +2314,7 @@ def serve_tiny_int8(out_dir: str) -> dict:
     out=torch --dtype int8``), which must answer one completion; its
     serving summary must show no capture after warmup and every
     projection of every replayed chunk and window step (7 a layer and
-    the head) through the int8 GEMM's simt route, and no other route."""
+    the head) through the int8 GEMM's float32 forms, and no other form."""
     import urllib.request
 
     from dynamo_tpu_torch.engine.torch_engine import EngineConfig
@@ -2328,9 +2379,10 @@ def serve_tiny_int8(out_dir: str) -> dict:
     int8 = summary["int8_gemm_launches"]
     want = (pf + win * K) * (7 * L + 1)
     if (summary["post_warmup_compiles_total"] != 0 or win <= 0
-            or int8 != {k: want if k == "simt" else 0 for k in int8}):
+            or sum(int8.values()) != want
+            or any(n for k, n in int8.items() if not k.endswith("_f32"))):
         fail(f"tiny int8 serving summary: int8 GEMM launches {int8}, not "
-             f"{want} on the simt route alone ({pf} chunk replays, {win} "
+             f"{want} on the float32 forms alone ({pf} chunk replays, {win} "
              f"windows x {K} steps x {7 * L + 1}), or a capture after "
              f"warmup: {json.dumps(summary)}")
     # the tiny preset's attention (head_dim 16, page 16, group 2) on the
@@ -2343,7 +2395,7 @@ def serve_tiny_int8(out_dir: str) -> dict:
         fail(f"tiny int8 serving summary: attention calls not all on the "
              f"float32 routes: {json.dumps(summary)}")
     report["summary"] = summary
-    log(f"  tiny preset served with --dtype int8 (float32, simt route): "
+    log(f"  tiny preset served with --dtype int8 (float32 forms): "
         f"{json.dumps(report)}")
     return report
 
@@ -2407,6 +2459,10 @@ def int8_phase(cfg, dev, bf16_logits) -> tuple:
             r["launches_from"] = "the 8B served in float16 with int8 " \
                                  "weights (phase 12)"
             continue  # phase 12 serves the float16 forms
+        if r["name"].startswith("int8_gemm 1b "):
+            r["launches_from"] = "the 1b served in float32 with int8 " \
+                                 "weights (phase 11)"
+            continue  # phase 11 serves the 1b's float32 forms
         if r["dtype"] == "float32":
             r["launches_from"] = "the tiny preset served with --dtype int8"
         launched = (tiny["summary"] if r["dtype"] == "float32"
@@ -3549,15 +3605,22 @@ F32_PATH_LIMITS = {"prefill_logits": 2e-4, "window_logits": 2e-4,
 
 def f32_noise(engine, cfg, dev) -> dict:
     """The plain path's float32 noise on check_paths' inputs: its logits
-    and K/V against the same path with every float32 weight multiplied by
-    1 + 2^-23 (moved by at most one ulp, by rounding), max abs."""
+    and K/V against the same path with every float32 weight (an int8
+    weight's scales) multiplied by 1 + 2^-23 (moved by at most one ulp,
+    by rounding), max abs."""
     import torch
 
+    from dynamo_tpu_torch.models.quant import QuantInt8
+
+    def moved(v):
+        if isinstance(v, QuantInt8):
+            return QuantInt8(v.q, v.s * (1 + 2 ** -23), v.plain)
+        return v * (1 + 2 ** -23) if v.dtype == torch.float32 else v
+
     base = path_run(plain_params(engine.params), cfg, dev, False)
-    moved = {k: v * (1 + 2 ** -23) if v.dtype == torch.float32 else v
-             for k, v in plain_params(engine.params).items()}
-    other = path_run(moved, cfg, dev, False)
-    del moved
+    other = path_run({k: moved(v)
+                      for k, v in plain_params(engine.params).items()},
+                     cfg, dev, False)
     return {"prefill_logits": max_err(base[0], other[0]),
             "window_logits": max_err(base[1], other[1]),
             "window_kv": max_err(base[2], other[2])}
@@ -3573,7 +3636,13 @@ def f32_phase(dev) -> dict:
     replays x 16 layers x K, prefill launches the chunk replays x 16),
     then the kernel path against the plain path teacher-forced
     (check_paths at F32_PATH_LIMITS, with its two fault controls) beside
-    the plain path's own float32 noise (f32_noise)."""
+    the plain path's own float32 noise (f32_noise); then the same with
+    quant="int8" and float32 activations: served alike with every
+    product on the float32 forms of small_m and wgmma (the chunk and
+    window replays x (7 x 16 + 1) launches), its check_paths against the
+    int8 plain path at F32_PATH_LIMITS with the int8 fault, beside that
+    path's noise, and its logits within INT8_REL_L2 of the float32
+    engine's."""
     import dataclasses
 
     import torch
@@ -3583,30 +3652,52 @@ def f32_phase(dev) -> dict:
     from dynamo_tpu_torch.models.config import ModelConfig
 
     cfg = dataclasses.replace(ModelConfig.llama_1b(), dtype="float32")
-    t = time.monotonic()
-    engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda")
-    engine.warmup()
-    topn = engine.ecfg.max_top_logprobs
-    check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
-    log(f"  1b float32 engine (16 layers, D=2048, V=128256, seed 0) built "
-        f"and warmed up in {time.monotonic() - t:.1f}s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
-    mdc = ModelDeploymentCard(name="llama-1b-f32-random")
-    mdc.kv_block_size = engine.ecfg.page_size
-    t = time.monotonic()
-    served, _, _ = asyncio.run(serve_and_check(engine, mdc))
-    log(f"  served float32 in {time.monotonic() - t:.1f}s: "
-        f"{json.dumps(served)}")
-    t = time.monotonic()
-    noise = f32_noise(engine, cfg, dev)
-    log(f"  the plain path's float32 noise (weights moved one ulp): "
-        f"{json.dumps(noise)}")
-    paths, _ = check_paths(engine, cfg, dev, F32_PATH_LIMITS)
-    log(f"  teacher-forced check in {time.monotonic() - t:.1f}s")
-    del engine
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"served": served, "noise": noise, "paths": paths}
+    report = {}
+    logits = None
+    for quant in (None, "int8"):
+        tag = "float32" + (" int8" if quant else "")
+        t = time.monotonic()
+        engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda",
+                             quant=quant)
+        engine.warmup()
+        topn = engine.ecfg.max_top_logprobs
+        check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
+        log(f"  1b {tag} engine (16 layers, D=2048, V=128256, seed 0) "
+            f"built and warmed up in {time.monotonic() - t:.1f}s; "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        mdc = ModelDeploymentCard(name="llama-1b-" + tag.replace(" ", "-")
+                                  + "-random")
+        mdc.kv_block_size = engine.ecfg.page_size
+        t = time.monotonic()
+        served, _, _ = asyncio.run(serve_and_check(engine, mdc))
+        log(f"  served {tag} in {time.monotonic() - t:.1f}s: "
+            f"{json.dumps(served)}")
+        if served_routes(engine) != ("f32", "f32"):
+            fail(f"the {tag} engine's attention shape is not on the float32 "
+                 f"routes: {served_routes(engine)}")
+        if quant == "int8":
+            int8 = served["int8_gemm_launches"]
+            off = {k: n for k, n in int8.items()
+                   if n and not k.endswith("_f32")}
+            if off or not all(int8[k] > 0 for k in ("small_m_f32",
+                                                     "wgmma_f32")):
+                fail(f"{tag}: int8 GEMM launches {int8} are not all on the "
+                     f"float32 forms of small_m and wgmma")
+        t = time.monotonic()
+        noise = f32_noise(engine, cfg, dev)
+        log(f"  the {tag} plain path's float32 noise (weights moved one "
+            f"ulp): {json.dumps(noise)}")
+        paths, got = check_paths(engine, cfg, dev, F32_PATH_LIMITS)
+        log(f"  {tag} teacher-forced check in {time.monotonic() - t:.1f}s")
+        entry = {"served": served, "noise": noise, "paths": paths}
+        if quant == "int8":
+            entry["vs_float32"] = compare_int8_bf16(got, logits, "float32")
+        logits = got
+        report[tag] = entry
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
 
 
 # ------------------------------------------------------------ float16
@@ -3815,28 +3906,35 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     log("phase 11: a float32 Llama-3.2-1B-shaped engine served over HTTP "
-        "on the float32 attention routes")
+        "on the float32 attention routes, then with int8 weights on the "
+        "float32 forms of the int8 GEMM")
     f32_report = f32_phase(dev)
 
     log("phase 12: the 8B served in float16 over HTTP on the float16 forms "
         "of the bf16 attention kernels, then with int8 weights on the "
         "float16 forms of the int8 GEMM's tensor-core routes")
     f16_report = f16_phase(dev)
-    # the float32 attention rows take their launches from phase 11, the
-    # float16 rows (attention and int8) theirs from phase 12
+    # the float32 rows (attention, and the 1b's int8 products) take their
+    # launches from phase 11, the float16 rows (attention and int8) theirs
+    # from phase 12
     f16_served = f16_report["float16"]["served"]
     f16_int8 = f16_report["float16 int8"]["served"]["int8_gemm_launches"]
+    f32_served = f32_report["float32"]["served"]
+    f32_int8 = f32_report["float32 int8"]["served"]["int8_gemm_launches"]
     for r in rows:
         decode = r["name"].startswith("paged_attention_decode")
         if "int8_route" in r:  # an int8 GEMM row
-            if r["dtype"] != "float16":
+            if r["dtype"] == "float16":
+                r["launches"] = f16_int8[r["int8_route"]]
+            elif r["name"].startswith("int8_gemm 1b "):
+                r["launches"] = f32_int8[r["int8_route"]]
+            else:
                 continue
-            r["launches"] = f16_int8[r["int8_route"]]
         elif r["name"].endswith(" float16"):
             r["launches"] = (f16_served["route_launches"]["f16_mma"] if decode
                              else f16_served["prefill_route_launches"]["f16"])
         elif r["name"].endswith(" float32"):
-            r["launches"] = f32_report["served"][
+            r["launches"] = f32_served[
                 "route_launches" if decode
                 else "prefill_route_launches"]["f32"]
         else:

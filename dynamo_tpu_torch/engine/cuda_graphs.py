@@ -53,7 +53,8 @@ A capture or replay error raises: there is no eager fallback on the card.
 Kernel launch counts (``ops.paged_attention.LAUNCHES``,
 ``DECODE_ROUTE_LAUNCHES``, ``PREFILL_ROUTE_LAUNCHES`` and
 ``ops.int8_gemm.INT8_GEMM_LAUNCHES``, the last by route and form:
-small_m, wgmma, simt and the float16 forms small_m_f16, wgmma_f16) count
+small_m, wgmma and the float16 and float32 forms small_m_f16,
+wgmma_f16, small_m_f32, wgmma_f32) count
 Python calls, and a replay
 makes none:
 each graph records the counts its capture added (and takes them back,

@@ -21,24 +21,41 @@
 // per weight byte: at most 128, below the ~295 operations per byte where
 // 989 TF/s would bind, so it is bound by the bytes of q (K x N) at
 // 3.35 TB/s. A prefill chunk of 512 or more rows is bound by the tensor
-// cores (989 TF/s, which only wgmma reaches).
+// cores (989 TF/s, which only wgmma reaches). In float32 both routes take
+// two TF32 products an operation (below), so the tensor-core bound is
+// 2 x 2MKN at 494.7 TF/s, and at decode rows the bytes still bind.
 //
-// Three routes. The two tensor-core routes take bf16 or float16 x (T) and
-// widen the weights to T on chip, in registers, never in device memory:
-// int8 -127..127 is exact in bf16 (8 significant bits) and in float16
-// (11). In bf16 the wgmma route's widening (widen_i8x4) is a byte permute
-// into the mantissa of 2^23 and a subtraction per value, and one byte
-// permute per pair; the small-M route's (widen_i8x4_split) two masks a
-// pair and one bf16x2 fma, no permute (cvt to bf16x2 issues at a quarter
-// of the integer rate). In float16 both are one half2 subtraction a pair
-// (widen_f16x4, widen_f16x4_split): the byte, offset to 0..255, is the
-// low mantissa byte of 1024 (whose ulp is 1), and 1024 + 128 comes off.
+// Two routes, each in three forms: bf16, float16 and float32 x (T). The
+// weights are widened to T on chip, in registers, never in device memory:
+// int8 -127..127 is exact in bf16 (8 significant bits), in float16 (11)
+// and in TF32 (11). In bf16 the wgmma route's widening (widen_i8x4) is a
+// byte permute into the mantissa of 2^23 and a subtraction per value, and
+// one byte permute per pair; the small-M route's (widen_i8x4_split) two
+// masks a pair and one bf16x2 fma, no permute (cvt to bf16x2 issues at a
+// quarter of the integer rate). In float16 both are one half2 subtraction
+// a pair (widen_f16x4, widen_f16x4_split): the byte, offset to 0..255, is
+// the low mantissa byte of 1024 (whose ulp is 1), and 1024 + 128 comes
+// off. In float32 it is widen_i8x4's first half alone (widen_f32x4): the
+// byte permute and one subtraction a value, no cvt (I2F issues at a
+// quarter rate); the result is the exact integer, whose 13 low mantissa
+// bits are zero, so the tensor cores read it exactly as TF32.
 // At decode rows the widening, on the integer pipe, is what a block's
 // compute costs: about 40 GB of weights a second an SM. The float16 forms
 // are the bf16 designs with mma.sync's and wgmma's .f16 forms, a float16
 // tensor map of x and half2 stores.
-// * small_m (route 0, bf16 or float16 x, decode rows M <= 32), mma.sync
-//   m16n8k16
+// The float32 forms ("2xTF32") run on the TF32 tensor cores, which read
+// an operand's float32 bits with the 13 low ones dropped: x's TF32 part
+// hi = x with those bits cleared, and lo = x - hi (exact in float32) read
+// as TF32 in turn; q is exact. Each product is lo q + hi q, two TF32
+// products, and the error is lo's dropped bits, below 2^-20 of |x| (one
+// TF32 product alone errs by up to 2^-10). The tensor cores round each
+// accumulation toward zero, a bias that grows with the adds a chain takes
+// (a K = 8,192 product chains 2,048 of them, and with x and q of one sign
+// the bias passes 2^-16 of the sum of the terms' magnitudes): so each
+// ring stage (small_m, 32 adds) or 64-wide chunk (wgmma, 16) sums its
+// products from zero and adds them to a float32 register sum.
+// * small_m (route 0, decode rows: M <= 32 in bf16 or float16, 16 in
+//   float32), mma.sync m16n8k16
 //   (T in, f32 accumulate), both operands from shared memory. A block
 //   is 64 output channels by a share of K, one producer warp and eight
 //   consumer warps. One producer thread streams the share through a ring
@@ -74,7 +91,18 @@
 //   mbarrier), and each owner sums its slices in rank order. No block
 //   reads a peer's shared memory, so no closing cluster barrier: a
 //   replay gives the eager call's bits.
-// * wgmma (route 1, bf16 or float16 x: prefill chunks, decode batches above
+//   The float32 form (small_m_f32) computes the product transposed, y^T
+//   = q x^T, on mma.sync m16n8k8 .tf32: the weights are A (16 channels),
+//   the tokens B (n8), so a 4-row call pads to 8 tokens, not 16; two
+//   products at n8 cost 32 operations a weight byte, about 107 TF/s at
+//   the byte rate, under mma.sync's TF32 rate on this card (~140 TF/s,
+//   paged_prefill.cu). x comes in four [8 NT, 32] float32 boxes a stage
+//   (a 128-byte swizzle row holds 32 floats); lane (g, t) takes box t,
+//   k = 32t .. 32t + 31 again, a weight word feeding two k8 steps (bytes
+//   0, 1 as k' = t, t + 4, then bytes 2, 3) and x's float4 the same two
+//   steps, split once a fragment and used for both of the warp's channel
+//   tiles.
+// * wgmma (route 1: prefill chunks, decode batches above
 //   the measured crossover and the widest decode products): the product is
 //   computed transposed, y^T = q x^T, so that the weights are wgmma's A
 //   operand, from registers, and the tokens its N (16 .. 256). A block is a
@@ -100,8 +128,17 @@
 //   shared memory and the blocks fold them through distributed shared
 //   memory in rank order. No atomics and no global counters: a replayed
 //   CUDA graph gives the eager call's bits.
-// * simt (route 2, float32 x): an untuned tiled loop in float32 FMAs, for
-//   the models served in float32 (the tiny preset).
+//   The float32 form (wgmma_f32, BT 16 .. 128) runs wgmma m64nBTk8 .tf32,
+//   which reads both operands K-major: q stays register A (float32 bits,
+//   four registers a k8 step: k t and t + 4 of rows g and g + 8, byte t
+//   of a word widened), x B from shared memory as two [BT, 32] float32
+//   boxes a stage. lo must be in shared memory too: once a stage lands,
+//   the 256 consumer threads write lo = x - hi beside x (the same bytes
+//   at the same swizzle), fence the generic writes to the async proxy and
+//   meet at a named barrier; then a chunk's 16 wgmmas (lo, hi per k8
+//   step) run into a zeroed sum while the next stage is split and its A
+//   fragment widened, and the chunk's sum is added to the accumulators.
+//   The second sum (BT / 2 registers) caps BT at 128.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -217,6 +254,51 @@ __device__ __forceinline__ void widen_split(uint32_t w, uint32_t& even,
   else widen_i8x4_split(w, even, odd);
 }
 
+// ---- float32 x: 2xTF32
+
+template <typename T>
+constexpr bool is_f32 = std::is_same<T, float>::value;
+
+// four int8 (one word, lowest byte first) as four floats, exactly:
+// widen_i8x4's byte permute into the mantissa of 2^23 and subtraction.
+// Each is an integer of at most 8 significant bits, so its 13 low
+// mantissa bits are zero and the tensor cores read it as TF32 exactly.
+__device__ __forceinline__ void widen_f32x4(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+// byte `sel & 3` of the word u (a weight word already XORed with
+// 0x80808080), as that int8's exact float: sel = 0x7540 + the byte
+__device__ __forceinline__ uint32_t widen_f32_byte(uint32_t u, uint32_t sel) {
+  return __float_as_uint(
+      __uint_as_float(__byte_perm(u, 0x4B000000u, sel)) - 8388736.f);
+}
+
+// x's low TF32 part: the tensor cores read x itself as hi (x with its 13
+// low bits dropped), and lo = x - hi is exact in float32
+__device__ __forceinline__ uint32_t tf32_lo(float x) {
+  return __float_as_uint(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u));
+}
+
+// mma.sync m16n8k8, tf32 in, f32 accumulate: d += a b. A a0 (row g, k
+// t), a1 (row g + 8, k t), a2 (row g, k t + 4), a3 (row g + 8, k t + 4);
+// B b0 (k t), b1 (k t + 4) at column g; D (row g, columns 2t, 2t + 1),
+// (row g + 8, the same); g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma1688_tf32(float (&d)[4], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
@@ -301,7 +383,10 @@ __device__ __forceinline__ void store2(T* y, const float* sc, int N, int m,
   const int n = n0 + c;
   T* out = y + (size_t)m * N + n;
   if ((N & 1) == 0 && n + 1 < N) {
-    *reinterpret_cast<uint32_t*>(out) = pack2<T>(a * sc[c], b * sc[c + 1]);
+    if constexpr (is_f32<T>)
+      *reinterpret_cast<float2*>(out) = make_float2(a * sc[c], b * sc[c + 1]);
+    else
+      *reinterpret_cast<uint32_t*>(out) = pack2<T>(a * sc[c], b * sc[c + 1]);
     return;
   }
   if (n < N) out[0] = from_f<T>(a * sc[c]);
@@ -321,18 +406,22 @@ constexpr int SM_RED_LD = SM_BN + 8;  // floats a row of the K groups'
                                       // partials (conflict-free writes)
 constexpr int MAX_SPLITS = 8;  // one cluster: the portable maximum
 
-// Shared memory of MT m16 tiles (16 MT token rows): STAGES ring stages,
-// each the q tile [64, 128] int8 then x's two boxes [16 MT, 64] 16-bit (k
-// 0-63, 64-127 of the stage), all 128-byte swizzled (1024-byte aligned);
-// the cluster fold buffer (S slices of the owner's share of the partial
-// sums, one a rank); the block's 64 scales; a full and an empty mbarrier
-// a stage and the fold buffer's mbarrier. The K groups'
-// partials [4][16 MT][SM_RED_LD] take the ring's place once every stage
-// is consumed. 1024 bytes of slack align the ring.
-template <int MT> struct SmTile {
-  static constexpr int ROWS = 16 * MT;
+// Shared memory of MT tiles of tokens (16-bit T: m16 tiles, 16 MT token
+// rows; float32: n8 tiles, 8 MT rows): STAGES ring stages, each the q
+// tile [64, 128] int8 then x's boxes of 128-byte rows (k 0-63 and 64-127
+// of the stage in 16-bit T, two boxes [16 MT, 64]; float32, four [8 MT,
+// 32]), all 128-byte swizzled (1024-byte aligned); the cluster fold
+// buffer (S slices of the owner's share of the partial sums, one a rank);
+// the block's 64 scales; a full and an empty mbarrier a stage and the
+// fold buffer's mbarrier. The K groups' partials [4][ROWS][SM_RED_LD]
+// take the ring's place once every stage is consumed. 1024 bytes of
+// slack align the ring.
+template <int MT, typename T> struct SmTile {
+  static constexpr int ROWS = (is_f32<T> ? 8 : 16) * MT;
+  static constexpr int X_BOXES = (int)sizeof(T) * SM_BK / 128;
+  static constexpr int BOX_K = SM_BK / X_BOXES;  // k a box row
   static constexpr int X_BOX_BYTES = ROWS * 128;
-  static constexpr int STAGE_BYTES = SM_Q_BYTES + 2 * X_BOX_BYTES;
+  static constexpr int STAGE_BYTES = SM_Q_BYTES + X_BOXES * X_BOX_BYTES;
   // a multiple of the K groups, so that a slot is always the same
   // group's (its full barrier's phases are then waited for in order)
   static constexpr int STAGES = MT == 1 ? 8 : 4;
@@ -348,103 +437,17 @@ template <int MT> struct SmTile {
                               (FOLD_FLOATS + SM_BN) * 4 + (2 * STAGES + 1) * 8;
 };
 
-// grid: S blocks a 64-channel tile, clusters of S (blockIdx.x = tile * S
-// + rank); block r takes the 128-wide stages [r * cps, (r + 1) * cps) of
-// K. early: let the next grid launch once the last weight stage is
-// issued (else when this one ends; see launch_small). x_map: x as [M, K]
-// T (bfloat16 or float16), box [16 MT, 64]; q_map: q as [N, K] uint8, box
-// [64, 128]; both 128-byte swizzle, zeros past M, N and K.
-template <int MT, typename T = __nv_bfloat16>
-__global__ void __launch_bounds__(SM_THREADS, 2)
-int8_gemm_small_kernel(const __grid_constant__ CUtensorMap x_map,
-                       const __grid_constant__ CUtensorMap q_map,
-                       const float* __restrict__ s, T* __restrict__ y, int M,
-                       int N, int K, int splits, int cps, int early) {
-  using Tile = SmTile<MT>;
+// The 16-bit forms' consumer warp: channels 32 half .. + 31 of the
+// block's 64 (four n8 tiles, B) by its 16 MT tokens (MT m16 tiles, A),
+// over the stages group, group + 4, ... of its n_st; the partial sums
+// stored to the group's slice of `red` [group][token][SM_RED_LD].
+template <int MT, typename T>
+__device__ __forceinline__ void small_consume(
+    uint8_t* smem, float* red, uint64_t* full, uint64_t* empty, int n_st,
+    int half, int group, int lane) {
+  using Tile = SmTile<MT, T>;
   constexpr int STAGES = Tile::STAGES;
   constexpr int ROWS = Tile::ROWS;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  float* red = reinterpret_cast<float*>(smem);  // aliases the ring
-  float* fold = reinterpret_cast<float*>(smem + STAGES * Tile::STAGE_BYTES);
-  float* sc = fold + Tile::FOLD_FLOATS;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sc + SM_BN);
-  uint64_t* empty = full + STAGES;
-  uint64_t* folded = empty + STAGES;  // the fold buffer's bytes, K split
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rank = blockIdx.x % splits;
-  const int n0 = (blockIdx.x / splits) * SM_BN;
-  const int C = (K + SM_BK - 1) / SM_BK;
-  const int c_begin = min(C, rank * cps);
-  const int n_st = min(C, c_begin + cps) - c_begin;  // this block's stages
-  const int pre = min(n_st, Tile::LEAD);  // stages issued before the wait
-  // K split: the quads (four columns of a row < M) of the partial sums
-  // and the quads each rank owns (the last ranks may own fewer, or none)
-  const int quads = min(M, ROWS) * (SM_BN / 4);
-  const int per = (quads + splits - 1) / splits;
-  const int owned = max(0, min(quads, (rank + 1) * per) - rank * per);
-
-  if (tid == SM_CONSUMERS) {
-    // the producer thread: the barriers, then at once the first stages
-    // of weights (q is not written by any grid this one may overlap)
-#pragma unroll
-    for (int i = 0; i < STAGES; ++i) {
-      mbar_init(&full[i], 1);   // the producer + TMA bytes
-      mbar_init(&empty[i], 2);  // the stage's two consumer warps
-    }
-    mbar_init(folded, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    // every rank's slice of the quads this block owns
-    if (splits > 1 && owned > 0) mbar_expect_tx(folded, splits * owned * 16);
-    for (int i = 0; i < pre; ++i) {
-      mbar_expect_tx(&full[i], Tile::STAGE_BYTES);
-      tma_load_2d(smem_u32(smem + i * Tile::STAGE_BYTES), &q_map,
-                  (c_begin + i) * SM_BK, n0, &full[i]);
-    }
-  } else if (tid < SM_BN) {  // the scales, read-only too
-    sc[tid] = n0 + tid < N ? s[n0 + tid] : 0.f;
-  }
-  __syncthreads();
-  // the first half of the barrier that tells a block its peers have
-  // started (so their shared memory may be written); its wait comes at
-  // the fold, long after (threads that exit sooner are not waited for)
-  if (splits > 1) cluster_arrive_relaxed();
-
-  if (warp == SM_CONSUMER_WARPS) {
-    // ---- producer: once the grid dependency resolves, x for the first
-    // ring of stages, then the rest stage by stage
-    if (lane == 0) {
-      if (early && pre == n_st) grid_dep_launch();
-      grid_dep_wait();
-      for (int i = 0; i < n_st; ++i) {
-        const int st = i % STAGES;
-        if (i >= pre) {
-          if (i >= STAGES) mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
-          if (i >= Tile::LEAD) {
-            const int j = i - Tile::LEAD;
-            mbar_wait(&full[j % STAGES], (j / STAGES) & 1);
-          }
-          mbar_expect_tx(&full[st], Tile::STAGE_BYTES);
-          tma_load_2d(smem_u32(smem + st * Tile::STAGE_BYTES), &q_map,
-                      (c_begin + i) * SM_BK, n0, &full[st]);
-        }
-        const uint32_t xs =
-            smem_u32(smem + st * Tile::STAGE_BYTES + SM_Q_BYTES);
-        const int k = (c_begin + i) * SM_BK;
-        tma_load_2d(xs, &x_map, k, 0, &full[st]);
-        tma_load_2d(xs + Tile::X_BOX_BYTES, &x_map, k + 64, 0, &full[st]);
-      }
-      if (early && pre < n_st) grid_dep_launch();
-    }
-    return;
-  }
-
-  // ---- consumers: warp (half, group) computes channels 32 half .. + 31
-  // of the block's 64 (four n8 tiles) over the stages group, group + 4, ...
-  grid_dep_wait();
-  const int half = warp & 1, group = warp >> 1;
   const int g = lane >> 2, t = lane & 3, u = t >> 1;
   // lane (g, t) takes k = 32t .. 32t + 31 of a stage. Its weights of
   // column c: the 16-byte chunks 2t and 2t + 1 of q's row, in the order
@@ -540,6 +543,229 @@ int8_gemm_small_kernel(const __grid_constant__ CUtensorMap x_map,
           make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
   asm volatile("bar.sync 1, %0;\n" ::"n"(SM_CONSUMERS) : "memory");
+}
+
+// The float32 form's consumer warp: channels 32 half .. + 31 of the
+// block's 64 (two m16 tiles, the A operand) by the block's 8 MT tokens
+// (MT n8 tiles, B), over the stages group, group + 4, ... of its n_st;
+// the block's partial sums of those channels and tokens stored to the
+// group's slice of `red` [group][token][SM_RED_LD] (once every consumer
+// is done with the ring, which `red` aliases).
+template <int MT>
+__device__ __forceinline__ void small_f32_consume(
+    uint8_t* smem, float* red, uint64_t* full, uint64_t* empty, int n_st,
+    int half, int group, int lane) {
+  using Tile = SmTile<MT, float>;
+  constexpr int STAGES = Tile::STAGES;
+  constexpr int ROWS = Tile::ROWS;
+  const int g = lane >> 2, t = lane & 3, u = t >> 1;
+  // lane (g, t) takes k = 32t .. 32t + 31 of a stage: q bytes 32t ..
+  // (16-byte chunks 2t, 2t + 1 of a row) and x box t. Its weights of
+  // channel row r: chunk 2t + (w + u) % 2 for slot w = 0, 1; word i of
+  // slot w feeds two k8 steps (bytes 0 and 1 as k' = t and t + 4, then 2
+  // and 3), as the floats of x's chunk 4 ((w + u) % 2) + i of its token
+  // row do. Lanes t >= 2 take their two slots in the other order, so that
+  // lanes t and t + 2 load other banks (the swizzle stores chunk c of row
+  // r at c ^ (r % 8), and rows = g modulo 8).
+  uint32_t qoff[4][2];  // rows 16 mt + g + 8 (r % 2) for r = 2 mt + (0, 1)
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+      qoff[r][w] = (32 * half + 16 * (r >> 1) + 8 * (r & 1) + g) * 128 +
+                   (((2 * t + ((w + u) & 1)) ^ g) << 4);
+  const uint32_t xbase = SM_Q_BYTES + t * Tile::X_BOX_BYTES + g * 128;
+
+  float acc[2][MT][4], sum[2][MT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < MT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int i = group; i < n_st; i += SM_KGROUPS) {
+    const int st = i % STAGES;
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    const uint32_t base = smem_u32(smem + st * Tile::STAGE_BYTES);
+    // the stage's products from zero (see the note on 2xTF32)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < MT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      uint4 wq[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) wq[r] = lds128(base + qoff[r][w]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        // x's floats of k 4c' .. 4c' + 3 of the lane's 32 (c' = 4 ((w + u)
+        // % 2) + c), each n8 tile's token row g: hi as read, and lo
+        uint32_t xh[MT][4], xl[MT][4];
+#pragma unroll
+        for (int nt = 0; nt < MT; ++nt) {
+          const uint4 v = lds128(base + xbase + nt * 1024 +
+                                 (((4 * ((w + u) & 1) + c) ^ g) << 4));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            xh[nt][e] = word(v, e);
+            xl[nt][e] = tf32_lo(__uint_as_float(xh[nt][e]));
+          }
+        }
+        float f[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) widen_f32x4(word(wq[r], c), f[r]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const uint32_t a0 = __float_as_uint(f[2 * mt][2 * h]);
+            const uint32_t a1 = __float_as_uint(f[2 * mt + 1][2 * h]);
+            const uint32_t a2 = __float_as_uint(f[2 * mt][2 * h + 1]);
+            const uint32_t a3 = __float_as_uint(f[2 * mt + 1][2 * h + 1]);
+#pragma unroll
+            for (int nt = 0; nt < MT; ++nt) {
+              mma1688_tf32(sum[mt][nt], a0, a1, a2, a3, xl[nt][2 * h],
+                           xl[nt][2 * h + 1]);
+              mma1688_tf32(sum[mt][nt], a0, a1, a2, a3, xh[nt][2 * h],
+                           xh[nt][2 * h + 1]);
+            }
+          }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < MT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += sum[mt][nt][e];
+  }
+
+  // the partials over the ring once every consumer is done with it; lane
+  // (g, t) holds channels 16 mt + g (e < 2) and + 8 (e >= 2) of tokens 8
+  // nt + 2t + e % 2
+  asm volatile("bar.sync 1, %0;\n" ::"n"(SM_CONSUMERS) : "memory");
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < MT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(group * ROWS + 8 * nt + 2 * t + (e & 1)) * SM_RED_LD +
+            32 * half + 16 * mt + 8 * (e >> 1) + g] = acc[mt][nt][e];
+  asm volatile("bar.sync 1, %0;\n" ::"n"(SM_CONSUMERS) : "memory");
+}
+
+// grid: S blocks a 64-channel tile, clusters of S (blockIdx.x = tile * S
+// + rank); block r takes the 128-wide stages [r * cps, (r + 1) * cps) of
+// K. early: let the next grid launch once the last weight stage is
+// issued (else when this one ends; see launch_small). x_map: x as [M, K]
+// T, box [ROWS, BOX_K] (bfloat16 or float16 [16 MT, 64], float32 [8 MT,
+// 32]); q_map: q as [N, K] uint8, box [64, 128]; both 128-byte swizzle,
+// zeros past M, N and K.
+template <int MT, typename T = __nv_bfloat16>
+__global__ void __launch_bounds__(SM_THREADS, 2)
+int8_gemm_small_kernel(const __grid_constant__ CUtensorMap x_map,
+                       const __grid_constant__ CUtensorMap q_map,
+                       const float* __restrict__ s, T* __restrict__ y, int M,
+                       int N, int K, int splits, int cps, int early) {
+  using Tile = SmTile<MT, T>;
+  constexpr int STAGES = Tile::STAGES;
+  constexpr int ROWS = Tile::ROWS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* red = reinterpret_cast<float*>(smem);  // aliases the ring
+  float* fold = reinterpret_cast<float*>(smem + STAGES * Tile::STAGE_BYTES);
+  float* sc = fold + Tile::FOLD_FLOATS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sc + SM_BN);
+  uint64_t* empty = full + STAGES;
+  uint64_t* folded = empty + STAGES;  // the fold buffer's bytes, K split
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = blockIdx.x % splits;
+  const int n0 = (blockIdx.x / splits) * SM_BN;
+  const int C = (K + SM_BK - 1) / SM_BK;
+  const int c_begin = min(C, rank * cps);
+  const int n_st = min(C, c_begin + cps) - c_begin;  // this block's stages
+  const int pre = min(n_st, Tile::LEAD);  // stages issued before the wait
+  // K split: the quads (four columns of a row < M) of the partial sums
+  // and the quads each rank owns (the last ranks may own fewer, or none)
+  const int quads = min(M, ROWS) * (SM_BN / 4);
+  const int per = (quads + splits - 1) / splits;
+  const int owned = max(0, min(quads, (rank + 1) * per) - rank * per);
+
+  if (tid == SM_CONSUMERS) {
+    // the producer thread: the barriers, then at once the first stages
+    // of weights (q is not written by any grid this one may overlap)
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);   // the producer + TMA bytes
+      mbar_init(&empty[i], 2);  // the stage's two consumer warps
+    }
+    mbar_init(folded, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // every rank's slice of the quads this block owns
+    if (splits > 1 && owned > 0) mbar_expect_tx(folded, splits * owned * 16);
+    for (int i = 0; i < pre; ++i) {
+      mbar_expect_tx(&full[i], Tile::STAGE_BYTES);
+      tma_load_2d(smem_u32(smem + i * Tile::STAGE_BYTES), &q_map,
+                  (c_begin + i) * SM_BK, n0, &full[i]);
+    }
+  } else if (tid < SM_BN) {  // the scales, read-only too
+    sc[tid] = n0 + tid < N ? s[n0 + tid] : 0.f;
+  }
+  __syncthreads();
+  // the first half of the barrier that tells a block its peers have
+  // started (so their shared memory may be written); its wait comes at
+  // the fold, long after (threads that exit sooner are not waited for)
+  if (splits > 1) cluster_arrive_relaxed();
+
+  if (warp == SM_CONSUMER_WARPS) {
+    // ---- producer: once the grid dependency resolves, x for the first
+    // ring of stages, then the rest stage by stage
+    if (lane == 0) {
+      if (early && pre == n_st) grid_dep_launch();
+      grid_dep_wait();
+      for (int i = 0; i < n_st; ++i) {
+        const int st = i % STAGES;
+        if (i >= pre) {
+          if (i >= STAGES) mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+          if (i >= Tile::LEAD) {
+            const int j = i - Tile::LEAD;
+            mbar_wait(&full[j % STAGES], (j / STAGES) & 1);
+          }
+          mbar_expect_tx(&full[st], Tile::STAGE_BYTES);
+          tma_load_2d(smem_u32(smem + st * Tile::STAGE_BYTES), &q_map,
+                      (c_begin + i) * SM_BK, n0, &full[st]);
+        }
+        const uint32_t xs =
+            smem_u32(smem + st * Tile::STAGE_BYTES + SM_Q_BYTES);
+        const int k = (c_begin + i) * SM_BK;
+#pragma unroll
+        for (int b = 0; b < Tile::X_BOXES; ++b)
+          tma_load_2d(xs + b * Tile::X_BOX_BYTES, &x_map, k + b * Tile::BOX_K,
+                      0, &full[st]);
+      }
+      if (early && pre < n_st) grid_dep_launch();
+    }
+    return;
+  }
+
+  // ---- consumers: warp (half, group) computes channels 32 half .. + 31
+  // of the block's 64 over the stages group, group + 4, ...
+  grid_dep_wait();
+  const int half = warp & 1, group = warp >> 1;
+  if constexpr (is_f32<T>) {
+    small_f32_consume<MT>(smem, red, full, empty, n_st, half, group, lane);
+  } else {
+    small_consume<MT, T>(smem, red, full, empty, n_st, half, group, lane);
+  }
 
   // the block's partial, groups summed in order: quad e = (row, four
   // columns) of the rows < M. Unsplit: scaled and stored. Split: stored
@@ -607,23 +833,35 @@ constexpr int WG_PART_LD = WG_BN + 4;  // floats a token row of the fold
                                        // buffer (conflict-free writes)
 
 // Shared memory of a tile of BT tokens: STAGES ring stages, each the x
-// tile [BT, 64] 16-bit (rows of 128 bytes, 128-byte swizzle) then the q
-// tile [128, 64] int8 (rows of 64 bytes, 64-byte swizzle), and a full
-// and an empty mbarrier a stage. With K splits, the fold buffer [BT,
-// WG_PART_LD] float32 takes the ring's place between a tile's last chunk
-// and the next tile's first (the producer loads nothing then). 1024
-// bytes of slack align the ring for the swizzles.
-template <int BT> struct WgTile {
-  static constexpr int X_BYTES = BT * 128;
-  static constexpr int STAGE_BYTES = X_BYTES + WG_Q_BYTES;
-  static constexpr int STAGES = BT == 256 ? 5 : 8;
-  // chunks whose wgmmas a consumer warpgroup keeps in flight: three
-  // where a chunk's products are short (their latency, not the tensor
-  // cores, sets the pace), two at 128 tokens and more, where a third
-  // would leave the producer too few stages to fill ahead
+// tile of K 64 (16-bit T: [BT, 64]; float32: two boxes [BT, 32], then
+// their lo parts, the same bytes at the same swizzle; rows of 128 bytes,
+// 128-byte swizzle) then the q tile [128, 64] int8 (rows of 64 bytes,
+// 64-byte swizzle), and a full and an empty mbarrier a stage. With K
+// splits, the fold buffer [BT, WG_PART_LD] float32 takes the ring's place
+// between a tile's last chunk and the next tile's first (the producer
+// loads nothing then). 1024 bytes of slack align the ring for the
+// swizzles.
+template <int BT, typename T> struct WgTile {
+  static constexpr int X_BOXES = (int)sizeof(T) / 2;
+  static constexpr int BOX_K = WG_BK / X_BOXES;  // k a box row
+  static constexpr int X_BOX_BYTES = BT * 128;
+  static constexpr int X_BYTES = X_BOXES * X_BOX_BYTES;
+  static constexpr int Q_OFF = (is_f32<T> ? 2 : 1) * X_BYTES;
+  static constexpr int STAGE_BYTES = Q_OFF + WG_Q_BYTES;
+  static constexpr int TX_BYTES = X_BYTES + WG_Q_BYTES;  // what TMA writes
+  static constexpr int STAGES =
+      !is_f32<T> ? (BT == 256 ? 5 : 8)
+                 : (232448 - 1024 - 16 * 8) / STAGE_BYTES < 8
+                       ? (232448 - 1024 - 16 * 8) / STAGE_BYTES
+                       : 8;
+  // chunks whose wgmmas a consumer warpgroup keeps in flight (16-bit
+  // forms): three where a chunk's products are short (their latency, not
+  // the tensor cores, sets the pace), two at 128 tokens and more, where a
+  // third would leave the producer too few stages to fill ahead
   static constexpr int DEPTH = BT <= 64 ? 3 : 2;
   static constexpr int PART_BYTES = BT * WG_PART_LD * 4;
   static_assert(PART_BYTES <= STAGES * STAGE_BYTES, "fold buffer > ring");
+  static_assert(!is_f32<T> || BT <= 128, "float32 tiles hold <= 128 tokens");
   static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
 };
 
@@ -633,11 +871,22 @@ __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
   return v;
 }
 
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
 // registers that an in-flight wgmma reads or writes stay where they are
 // until this point (the compiler sees them used here)
 __device__ __forceinline__ void hold(uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
+    asm volatile("" : "+r"(a[i][0]), "+r"(a[i][1]), "+r"(a[i][2]),
+                 "+r"(a[i][3]) :: "memory");
+}
+__device__ __forceinline__ void hold(uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
     asm volatile("" : "+r"(a[i][0]), "+r"(a[i][1]), "+r"(a[i][2]),
                  "+r"(a[i][3]) :: "memory");
 }
@@ -653,7 +902,14 @@ __device__ __forceinline__ void store4(T* y, const float* s, int M, int N,
                                        int m, int n, float4 v) {
   if (m >= M) return;
   T* row = y + (size_t)m * N;
-  if ((N & 3) == 0 && n + 3 < N) {
+  if constexpr (is_f32<T>) {
+    if ((N & 3) == 0 && n + 3 < N) {
+      *reinterpret_cast<float4*>(row + n) =
+          make_float4(v.x * s[n], v.y * s[n + 1], v.z * s[n + 2],
+                      v.w * s[n + 3]);
+      return;
+    }
+  } else if ((N & 3) == 0 && n + 3 < N) {
     uint2 packed;
     packed.x = pack2<T>(v.x * s[n], v.y * s[n + 1]);
     packed.y = pack2<T>(v.z * s[n + 2], v.w * s[n + 3]);
@@ -664,6 +920,253 @@ __device__ __forceinline__ void store4(T* y, const float* s, int M, int N,
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     if (n + i < N) row[n + i] = from_f<T>(e[i] * s[n + i]);
+}
+
+// Register-A wgmma m64nNk8, tf32 in, f32 accumulators (d: N / 2 a thread
+// of the warpgroup, laid out as wgmma_rs's): a is mma.sync's m16n8k8 tf32
+// A fragment (a thread's k t and t + 4 of rows g and g + 8 of its warp's
+// 16), B comes from shared memory through db, K-major (tf32 takes no
+// transpose). SD = 0 writes d = a b, ignoring what d held; SD = 1 adds.
+#define DYN_F8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define DYN_F32(i) DYN_F8(i), DYN_F8(i + 8), DYN_F8(i + 16), DYN_F8(i + 24)
+
+template <int SD>
+__device__ __forceinline__ void wgmma_tf32_n16(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : DYN_F8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(SD));
+}
+
+template <int SD>
+__device__ __forceinline__ void wgmma_tf32_n32(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : DYN_F8(0), DYN_F8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(SD));
+}
+
+template <int SD>
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : DYN_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(SD));
+}
+
+template <int SD>
+__device__ __forceinline__ void wgmma_tf32_n128(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : DYN_F32(0), DYN_F32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(SD));
+}
+
+#undef DYN_F32
+#undef DYN_F8
+
+template <int N, int SD>
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a,
+                                           uint64_t db) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "wgmma_tf32: N must be 16, 32, 64 or 128");
+  if constexpr (N == 16) wgmma_tf32_n16<SD>(d, a, db);
+  if constexpr (N == 32) wgmma_tf32_n32<SD>(d, a, db);
+  if constexpr (N == 64) wgmma_tf32_n64<SD>(d, a, db);
+  if constexpr (N == 128) wgmma_tf32_n128<SD>(d, a, db);
+}
+
+// The 16-bit forms' chunks of one tile: the nc chunks of a consumer
+// warpgroup's 64 channels (thread rows crow, crow + 8) by BT tokens into
+// acc, starting at ring position `it` (advanced past them).
+template <int BT, typename T>
+__device__ __forceinline__ void wgmma_chunks(
+    float (&acc)[BT / 2], uint8_t* smem, uint64_t* full, uint64_t* empty,
+    int& it, int nc, int crow, int lane) {
+  using Tile = WgTile<BT, T>;
+  constexpr int STAGES = Tile::STAGES;
+  const int t = lane & 3;
+  // the byte permute that takes k = 2t, 2t + 1 from the word at t / 2
+  // and k = 2t + 8, 2t + 9 from the word at t / 2 + 2 of a 16-byte chunk
+  const uint32_t sel = (t & 1) ? 0x7632u : 0x5410u;
+  // byte offsets of those words in the q tile, chunk kk of row crow (row
+  // crow + 8 is 512 bytes further and has the same swizzle): the 64-byte
+  // swizzle stores chunk kk of row r at kk ^ ((r / 2) % 4)
+  uint32_t qoff[4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    qoff[kk] = crow * 64 + ((kk ^ ((crow >> 1) & 3)) << 4) + ((t >> 1) << 2);
+
+  // the A fragments of the four k16 steps of the stage's q tile: a[kk] =
+  // {row crow, k 16kk + 2t..; row crow + 8, same k; row crow, k 16kk + 8
+  // + 2t..; row crow + 8, same k}, mma.sync's m16n8k16 A fragment
+  auto load_a = [&](uint32_t qs, uint32_t (&a)[4][4]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t addr = qs + qoff[kk] + h * 512;
+        widen_pair<T>(__byte_perm(lds32(addr), lds32(addr + 8), sel),
+                      a[kk][h], a[kk][2 + h]);
+      }
+  };
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+
+  constexpr int DEPTH = Tile::DEPTH;
+  uint32_t afrag[DEPTH][4][4];  // one chunk's A fragments a buffer
+  // chunk i of the tile: its A fragments into `a` (buffer i % DEPTH)
+  // while the DEPTH - 1 chunks before it run, then its four wgmmas; once
+  // they are issued, chunk i - DEPTH + 1's have completed: its stage is
+  // released and its buffer `done` may be written again
+  auto chunk = [&](uint32_t (&a)[4][4], uint32_t (&done)[4][4], int i) {
+    const int st = it % STAGES;
+    mbar_wait(&full[st], (it / STAGES) & 1);
+    const uint32_t xs = smem_u32(smem + st * Tile::STAGE_BYTES);
+    load_a(xs + Tile::Q_OFF, a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<BT, 0, T>(acc, a[kk], wgmma_desc(xs + kk * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<DEPTH - 1>();
+    hold(done);
+    if (i >= DEPTH - 1) release((it + STAGES - DEPTH + 1) % STAGES);
+    ++it;
+  };
+  int i = 0;
+  for (; i + DEPTH - 1 < nc; i += DEPTH) {
+#pragma unroll
+    for (int d = 0; d < DEPTH; ++d)
+      chunk(afrag[d], afrag[(d + 1) % DEPTH], i + d);
+  }
+#pragma unroll
+  for (int d = 0; d < DEPTH - 1; ++d)
+    if (i + d < nc) chunk(afrag[d], afrag[(d + 1) % DEPTH], i + d);
+  wgmma_wait<0>();
+  hold(acc);
+#pragma unroll
+  for (int d = 0; d < DEPTH; ++d) hold(afrag[d]);
+  for (int j = max(nc - DEPTH + 1, 0); j < nc; ++j)
+    release((it - nc + j) % STAGES);
+}
+
+// The float32 form's chunks of one tile: the nc chunks of a consumer
+// warpgroup's 64 channels (thread rows crow, crow + 8) by BT tokens into
+// acc, starting at ring position `it` (advanced past them). Chunk i:
+// prep (wait for its stage; the 256 consumer threads write lo = x - hi
+// beside x and fence those writes to the async proxy; this thread widens
+// its A fragment, byte t of each word of rows crow and crow + 8), then,
+// once every consumer's prep is done (a named barrier), its 16 wgmmas
+// (lo then hi a k8 step) into `sum` from zero while chunk i + 1 is
+// prepped; then sum is added to acc and the stage released.
+template <int BT>
+__device__ __forceinline__ void wgmma_f32_chunks(
+    float (&acc)[BT / 2], uint8_t* smem, uint64_t* full, uint64_t* empty,
+    int& it, int nc, int crow, int tid, int lane) {
+  using Tile = WgTile<BT, float>;
+  constexpr int STAGES = Tile::STAGES;
+  const uint32_t sel = 0x7540u | (lane & 3);
+  // chunk kk of the q tile's row crow (row crow + 8 is 512 bytes on, with
+  // the same swizzle): the 64-byte swizzle stores it at kk ^ ((r / 2) % 4)
+  uint32_t qoff[4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    qoff[kk] = crow * 64 + ((kk ^ ((crow >> 1) & 3)) << 4);
+  float sum[BT / 2];
+  uint32_t afrag[2][8][4];
+  auto prep = [&](int i, uint32_t (&a)[8][4]) {
+    const int st = (it + i) % STAGES;
+    mbar_wait(&full[st], ((it + i) / STAGES) & 1);
+    const uint32_t xs = smem_u32(smem + st * Tile::STAGE_BYTES);
+    for (int p = tid; p < Tile::X_BYTES / 16; p += WG_CONSUMERS) {
+      const uint4 v = lds128(xs + 16 * p);
+      sts128(xs + Tile::X_BYTES + 16 * p,
+             make_uint4(tf32_lo(__uint_as_float(v.x)),
+                        tf32_lo(__uint_as_float(v.y)),
+                        tf32_lo(__uint_as_float(v.z)),
+                        tf32_lo(__uint_as_float(v.w))));
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // step 2kk: words 0 (k 0-3) and 1 (k 4-7) of chunk kk; step 2kk + 1:
+    // words 2 and 3; a = {row crow k t, row crow + 8 k t, row crow k t +
+    // 4, row crow + 8 k t + 4}
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint4 v = lds128(xs + Tile::Q_OFF + qoff[kk] + h * 512);
+        a[2 * kk][h] = widen_f32_byte(v.x ^ 0x80808080u, sel);
+        a[2 * kk][2 + h] = widen_f32_byte(v.y ^ 0x80808080u, sel);
+        a[2 * kk + 1][h] = widen_f32_byte(v.z ^ 0x80808080u, sel);
+        a[2 * kk + 1][2 + h] = widen_f32_byte(v.w ^ 0x80808080u, sel);
+      }
+  };
+  auto chunk = [&](uint32_t (&a)[8][4], uint32_t (&next)[8][4], int i) {
+    const int st = (it + i) % STAGES;
+    const uint32_t xs = smem_u32(smem + st * Tile::STAGE_BYTES);
+    hold(sum);
+    wgmma_fence();
+#pragma unroll
+    for (int k8 = 0; k8 < 8; ++k8) {
+      const uint32_t off = (k8 >> 2) * Tile::X_BOX_BYTES + (k8 & 3) * 32;
+      const uint64_t lo = wgmma_desc(xs + Tile::X_BYTES + off, 16, 1024);
+      const uint64_t hi = wgmma_desc(xs + off, 16, 1024);
+      if (k8 == 0) wgmma_tf32<BT, 0>(sum, a[k8], lo);
+      else wgmma_tf32<BT, 1>(sum, a[k8], lo);
+      wgmma_tf32<BT, 1>(sum, a[k8], hi);
+    }
+    wgmma_commit();
+    if (i + 1 < nc) prep(i + 1, next);
+    wgmma_wait<0>();
+    hold(sum);
+    hold(a);
+#pragma unroll
+    for (int e = 0; e < BT / 2; ++e) acc[e] += sum[e];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+    // every consumer's lo of chunk i + 1 is written and fenced
+    asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS) : "memory");
+  };
+  if (nc > 0) {
+    prep(0, afrag[0]);
+    asm volatile("bar.sync 1, %0;\n" ::"n"(WG_CONSUMERS) : "memory");
+  }
+  int i = 0;
+  for (; i + 1 < nc; i += 2) {
+    chunk(afrag[0], afrag[1], i);
+    chunk(afrag[1], afrag[0], i + 1);
+  }
+  if (i < nc) chunk(afrag[0], afrag[1], i);
+  it += nc;
 }
 
 // grid: clusters of `splits` blocks (1..8), as many clusters as the card
@@ -682,7 +1185,7 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                        const __grid_constant__ CUtensorMap q_map,
                        const float* __restrict__ s, T* __restrict__ y, int M,
                        int N, int K, int splits, int cps) {
-  using Tile = WgTile<BT>;
+  using Tile = WgTile<BT, T>;
   constexpr int STAGES = Tile::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -723,10 +1226,13 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
         for (int c = c_begin; c < c_end; ++c, ++it) {
           const int st = it % STAGES;
           mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
-          mbar_expect_tx(&full[st], Tile::STAGE_BYTES);
+          mbar_expect_tx(&full[st], Tile::TX_BYTES);
           const uint32_t xs = smem_u32(smem + st * Tile::STAGE_BYTES);
-          tma_load_2d(xs, &x_map, c * WG_BK, m0, &full[st]);
-          tma_load_2d(xs + Tile::X_BYTES, &q_map, c * WG_BK, n0, &full[st]);
+#pragma unroll
+          for (int b = 0; b < Tile::X_BOXES; ++b)
+            tma_load_2d(xs + b * Tile::X_BOX_BYTES, &x_map,
+                        c * WG_BK + b * Tile::BOX_K, m0, &full[st]);
+          tma_load_2d(xs + Tile::Q_OFF, &q_map, c * WG_BK, n0, &full[st]);
         }
       }
       if (splits > 1) {
@@ -742,78 +1248,18 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       WG_CONSUMER_REGS));
   const int g = lane >> 2, t = lane & 3;
   const int crow = (warp >> 2) * 64 + (warp & 3) * 16 + g;  // q tile row
-  // the byte permute that takes k = 2t, 2t + 1 from the word at t / 2
-  // and k = 2t + 8, 2t + 9 from the word at t / 2 + 2 of a 16-byte chunk
-  const uint32_t sel = (t & 1) ? 0x7632u : 0x5410u;
-  // byte offsets of those words in the q tile, chunk kk of row crow (row
-  // crow + 8 is 512 bytes further and has the same swizzle): the 64-byte
-  // swizzle stores chunk kk of row r at kk ^ ((r / 2) % 4)
-  uint32_t qoff[4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    qoff[kk] = crow * 64 + ((kk ^ ((crow >> 1) & 3)) << 4) + ((t >> 1) << 2);
-
-  // the A fragments of the four k16 steps of the stage's q tile: a[kk] =
-  // {row crow, k 16kk + 2t..; row crow + 8, same k; row crow, k 16kk + 8
-  // + 2t..; row crow + 8, same k}, mma.sync's m16n8k16 A fragment
-  auto load_a = [&](uint32_t qs, uint32_t (&a)[4][4]) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t addr = qs + qoff[kk] + h * 512;
-        widen_pair<T>(__byte_perm(lds32(addr), lds32(addr + 8), sel),
-                      a[kk][h], a[kk][2 + h]);
-      }
-  };
-  auto release = [&](int st) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[st]);
-  };
-
   float acc[BT / 2];
-  constexpr int DEPTH = Tile::DEPTH;
-  uint32_t afrag[DEPTH][4][4];  // one chunk's A fragments a buffer
   int it = 0;
   for (int tile = cluster; tile < tiles; tile += clusters) {
     const int m0 = (tile % TT) * BT, n0 = (tile / TT) * WG_BN;
 #pragma unroll
     for (int i = 0; i < BT / 2; ++i) acc[i] = 0.f;
-    // chunk i of the tile: its A fragments into `a` (buffer i % DEPTH)
-    // while the DEPTH - 1 chunks before it run, then its four wgmmas; once
-    // they are issued, chunk i - DEPTH + 1's have completed: its stage is
-    // released and its buffer `done` may be written again
-    auto chunk = [&](uint32_t (&a)[4][4], uint32_t (&done)[4][4], int i) {
-      const int st = it % STAGES;
-      mbar_wait(&full[st], (it / STAGES) & 1);
-      const uint32_t xs = smem_u32(smem + st * Tile::STAGE_BYTES);
-      load_a(xs + Tile::X_BYTES, a);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<BT, 0, T>(acc, a[kk], wgmma_desc(xs + kk * 32, 16, 1024));
-      wgmma_commit();
-      wgmma_wait<DEPTH - 1>();
-      hold(done);
-      if (i >= DEPTH - 1) release((it + STAGES - DEPTH + 1) % STAGES);
-      ++it;
-    };
-    const int nc = c_end - c_begin;
-    int i = 0;
-    for (; i + DEPTH - 1 < nc; i += DEPTH) {
-#pragma unroll
-      for (int d = 0; d < DEPTH; ++d)
-        chunk(afrag[d], afrag[(d + 1) % DEPTH], i + d);
-    }
-#pragma unroll
-    for (int d = 0; d < DEPTH - 1; ++d)
-      if (i + d < nc) chunk(afrag[d], afrag[(d + 1) % DEPTH], i + d);
-    wgmma_wait<0>();
-    hold(acc);
-#pragma unroll
-    for (int d = 0; d < DEPTH; ++d) hold(afrag[d]);
-    for (int j = max(nc - DEPTH + 1, 0); j < nc; ++j)
-      release((it - nc + j) % STAGES);
+    if constexpr (is_f32<T>)
+      wgmma_f32_chunks<BT>(acc, smem, full, empty, it, c_end - c_begin, crow,
+                           tid, lane);
+    else
+      wgmma_chunks<BT, T>(acc, smem, full, empty, it, c_end - c_begin, crow,
+                          lane);
 
     // accumulator d[4j + e]: channel crow + 8 (e / 2), token 8j + 2t +
     // (e % 2) of the tile
@@ -870,51 +1316,6 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// ------------------------------------------------ route 2: float32 x
-
-constexpr int ST_THREADS = 256;  // 32 x 8
-constexpr int ST_TILE = 32;      // tokens and channels a block
-
-// grid (ceil(N / 32), ceil(M / 32)): a block computes 32 tokens x 32
-// channels, thread (tx, ty) channel tx of tokens ty, ty + 8, ty + 16,
-// ty + 24, over 32-wide chunks of K staged in shared memory.
-__global__ void __launch_bounds__(ST_THREADS)
-int8_gemm_simt_kernel(const float* __restrict__ x,
-                      const int8_t* __restrict__ q,
-                      const float* __restrict__ s, float* __restrict__ y,
-                      int M, int N, int K) {
-  __shared__ float xs[ST_TILE][ST_TILE + 1];
-  __shared__ float qs[ST_TILE][ST_TILE + 1];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * ST_TILE, m0 = blockIdx.y * ST_TILE;
-  float acc[ST_TILE / 8] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < K; k0 += ST_TILE) {
-    const int k = k0 + tx;
-    for (int i = ty; i < ST_TILE; i += 8) {
-      const int m = m0 + i, n = n0 + i;
-      xs[i][tx] = (m < M && k < K) ? x[(size_t)m * K + k] : 0.f;
-      qs[i][tx] = (n < N && k < K) ? (float)q[(size_t)n * K + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < ST_TILE; ++kk) {
-      const float w = qs[tx][kk];
-#pragma unroll
-      for (int i = 0; i < ST_TILE / 8; ++i)
-        acc[i] = fmaf(xs[ty + 8 * i][kk], w, acc[i]);
-    }
-    __syncthreads();
-  }
-  const int n = n0 + tx;
-  if (n >= N) return;
-  const float sn = s[n];
-#pragma unroll
-  for (int i = 0; i < ST_TILE / 8; ++i) {
-    const int m = m0 + ty + 8 * i;
-    if (m < M) y[(size_t)m * N + n] = acc[i] * sn;
-  }
-}
-
 // launches of the small-M route are programmatic unless switched off
 // (dyn_int8_gemm_programmatic), to time the two side by side
 int g_programmatic = 1;
@@ -949,20 +1350,21 @@ cudaLaunchConfig_t small_config(int splits, int grid, cudaStream_t st,
 // the tensor-map type of T
 template <typename T>
 constexpr CUtensorMapDataType map_type() {
-  return is_f16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return is_f32<T>   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : is_f16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 template <int MT, typename T>
 int launch_small(const void* x, const void* q, const float* s, T* y, int M,
                  int N, int K, int splits, int grid, cudaStream_t st) {
-  using Tile = SmTile<MT>;
+  using Tile = SmTile<MT, T>;
   if (splits < 1 || splits > MAX_SPLITS ||
       grid != (N + SM_BN - 1) / SM_BN * splits)
     return (int)cudaErrorInvalidValue;
   CUtensorMap x_map, q_map;
-  if (!tile_map(&x_map, map_type<T>(), x, M, K, 2ull * K, Tile::ROWS, 64,
-                CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!tile_map(&x_map, map_type<T>(), x, M, K, sizeof(T) * K, Tile::ROWS,
+                Tile::BOX_K, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tile_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, K, K, SM_BN,
                 SM_BK, CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
@@ -995,7 +1397,7 @@ int launch_small(const void* x, const void* q, const float* s, T* y, int M,
 // card holds at once (negative: a CUDA error)
 template <int MT, typename T>
 int small_resident(int splits) {
-  using Tile = SmTile<MT>;
+  using Tile = SmTile<MT, T>;
   cudaError_t err = cudaFuncSetAttribute(
       int8_gemm_small_kernel<MT, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
@@ -1027,13 +1429,13 @@ cudaLaunchConfig_t wgmma_config(int splits, int grid, cudaStream_t st,
 template <int BT, typename T>
 int launch_wgmma(const void* x, const void* q, const float* s, T* y, int M,
                  int N, int K, int splits, int grid, cudaStream_t st) {
-  using Tile = WgTile<BT>;
+  using Tile = WgTile<BT, T>;
   if (splits < 1 || splits > MAX_SPLITS || grid < splits ||
       grid % splits != 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap x_map, q_map;
-  if (!tile_map(&x_map, map_type<T>(), x, M, K, 2ull * K, BT, WG_BK,
-                CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!tile_map(&x_map, map_type<T>(), x, M, K, sizeof(T) * K, BT,
+                Tile::BOX_K, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tile_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, K, K, WG_BN,
                 WG_BK, CU_TENSOR_MAP_SWIZZLE_64B))
     return (int)cudaErrorInvalidValue;
@@ -1055,7 +1457,7 @@ int launch_wgmma(const void* x, const void* q, const float* s, T* y, int M,
 // at once (negative: a CUDA error)
 template <int BT, typename T>
 int wgmma_resident(int splits) {
-  using Tile = WgTile<BT>;
+  using Tile = WgTile<BT, T>;
   cudaError_t err = cudaFuncSetAttribute(
       int8_gemm_wgmma_kernel<BT, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM);
@@ -1069,22 +1471,16 @@ int wgmma_resident(int splits) {
   return err != cudaSuccess ? -(int)err : n;
 }
 
-int launch_simt(const void* x, const int8_t* q, const float* s, void* y,
-                int M, int N, int K, cudaStream_t st) {
-  const dim3 grid((N + ST_TILE - 1) / ST_TILE, (M + ST_TILE - 1) / ST_TILE);
-  int8_gemm_simt_kernel<<<grid, ST_THREADS, 0, st>>>(
-      static_cast<const float*>(x), q, s, static_cast<float*>(y), M, N, K);
-  return (int)cudaGetLastError();
-}
-
-// the tensor-core routes in T: route 0 (small_m) or 1 (wgmma)
+// the routes in T: route 0 (small_m; tile: m16 tiles in bfloat16 or
+// float16, n8 tiles in float32, 1 or 2) or 1 (wgmma; tile: BT tokens, 16
+// .. 256, at most 128 in float32)
 template <typename T>
 int launch_tc(const void* x, const void* q, const float* s, void* y, int M,
               int N, int K, int route, int tile, int splits, int grid,
               cudaStream_t st) {
   T* yt = static_cast<T*>(y);
   if (route == 0) {
-    if (M > 16 * tile) return (int)cudaErrorInvalidValue;
+    if (M > SmTile<1, T>::ROWS * tile) return (int)cudaErrorInvalidValue;
     switch (tile) {
       case 1: return launch_small<1, T>(x, q, s, yt, M, N, K, splits, grid, st);
       case 2: return launch_small<2, T>(x, q, s, yt, M, N, K, splits, grid, st);
@@ -1095,8 +1491,11 @@ int launch_tc(const void* x, const void* q, const float* s, void* y, int M,
   switch (tile) {
 #define WG_CASE(BT) \
   case BT: return launch_wgmma<BT, T>(x, q, s, yt, M, N, K, splits, grid, st);
-    WG_CASE(16) WG_CASE(32) WG_CASE(64) WG_CASE(128) WG_CASE(256)
+    WG_CASE(16) WG_CASE(32) WG_CASE(64) WG_CASE(128)
 #undef WG_CASE
+    case 256:
+      if constexpr (!is_f32<T>)
+        return launch_wgmma<256, T>(x, q, s, yt, M, N, K, splits, grid, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1104,12 +1503,12 @@ int launch_tc(const void* x, const void* q, const float* s, void* y, int M,
 }  // namespace
 
 // y [M, N] = (x [M, K] @ q [N, K]^T) * s [N]; dtype of x and y: 0
-// bfloat16, 1 float16, 2 float32. route 0 (small_m, bfloat16 or
-// float16): `tile` m16 tiles (1 or 2; M <= 16 tile), `splits` blocks of K
-// a cluster (1..8) and `grid` = ceil(N / 64) * splits blocks; route 1
-// (wgmma, bfloat16 or float16): `tile` tokens a tile (16, 32, 64, 128 or
-// 256), `splits` blocks of K a cluster and `grid` blocks (a multiple of
-// splits); route 2 (simt, float32): tile, splits and grid unused. K must
+// bfloat16, 1 float16, 2 float32. route 0 (small_m): `tile` tiles of
+// tokens (1 or 2: m16 tiles in bfloat16 and float16, M <= 16 tile; n8
+// tiles in float32, M <= 8 tile), `splits` blocks of K a cluster (1..8)
+// and `grid` = ceil(N / 64) * splits blocks; route 1 (wgmma): `tile`
+// tokens a tile (16, 32, 64, 128, or 256 outside float32), `splits`
+// blocks of K a cluster and `grid` blocks (a multiple of splits). K must
 // be a multiple of 16 and x and q 16-byte aligned; the wrapper checks
 // both, and the entry refuses what it does not take.
 extern "C" int dyn_int8_gemm(const void* x, const void* q, const void* s,
@@ -1120,16 +1519,15 @@ extern "C" int dyn_int8_gemm(const void* x, const void* q, const void* s,
     return (int)cudaErrorInvalidValue;
   const auto* sb = static_cast<const float*>(s);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == 2)
-    return dtype == 2 ? launch_simt(x, static_cast<const int8_t*>(q), sb, y,
-                                    M, N, K, st)
-                      : (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_tc<__nv_bfloat16>(x, q, sb, y, M, N, K, route, tile,
                                     splits, grid, st);
   if (dtype == 1)
     return launch_tc<__half>(x, q, sb, y, M, N, K, route, tile, splits,
                              grid, st);
+  if (dtype == 2)
+    return launch_tc<float>(x, q, sb, y, M, N, K, route, tile, splits, grid,
+                            st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1142,7 +1540,8 @@ int resident_of(int tile, int splits) {
     case 32: return wgmma_resident<32, T>(splits);
     case 64: return wgmma_resident<64, T>(splits);
     case 128: return wgmma_resident<128, T>(splits);
-    case 256: return wgmma_resident<256, T>(splits);
+    case 256:
+      if constexpr (!is_f32<T>) return wgmma_resident<256, T>(splits);
   }
   return -(int)cudaErrorInvalidValue;
 }
@@ -1150,14 +1549,15 @@ int resident_of(int tile, int splits) {
 // How many clusters of `splits` blocks of the wgmma route's
 // `tile`-token kernel the card holds at once (the persistent grid's
 // size), or, for tile 1 or 2, how many blocks of the small-M route's
-// kernel of that many m16 tiles in clusters of `splits`, in the form for
-// dtype (0 bfloat16, 1 float16: the plans take the bfloat16 counts, and
-// the card tests hold the two equal); a negative value is a CUDA error.
+// kernel of that many token tiles in clusters of `splits`, in the form
+// for dtype (0 bfloat16, 1 float16, 2 float32: the plans take each form's
+// own counts); a negative value is a CUDA error.
 extern "C" int dyn_int8_gemm_resident(int tile, int splits, int dtype) {
-  if (splits < 1 || splits > MAX_SPLITS || dtype < 0 || dtype > 1)
+  if (splits < 1 || splits > MAX_SPLITS || dtype < 0 || dtype > 2)
     return -(int)cudaErrorInvalidValue;
-  return dtype == 0 ? resident_of<__nv_bfloat16>(tile, splits)
-                    : resident_of<__half>(tile, splits);
+  return dtype == 0   ? resident_of<__nv_bfloat16>(tile, splits)
+         : dtype == 1 ? resident_of<__half>(tile, splits)
+                      : resident_of<float>(tile, splits);
 }
 
 // Switch programmatic launch of the small-M route on (1) or off (0), to

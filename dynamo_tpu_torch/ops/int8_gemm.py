@@ -28,15 +28,22 @@ them:
   decode batches, and w_gate/w_up and lm_head above 16 rows): a TMA ring
   feeding warp-specialised register-A ``wgmma`` on persistent tiles of
   128 channels by 16-256 tokens, K split over a cluster where the tiles
-  do not fill the card;
-- ``simt`` (float32, as the tiny preset serves): an untuned float32 FMA
-  loop.
+  do not fill the card.
 The float16 forms of ``small_m`` and ``wgmma`` are the same designs with
-float16 tensor-core products and a float16 widening of the weights.
+float16 tensor-core products and a float16 widening of the weights. The
+float32 forms ("2xTF32", float32 x as the tiny preset and the 1b-shaped
+float32 engine serve) run on the TF32 tensor cores: x split into a TF32
+part and its remainder, two TF32 products an operation (the int8 weights
+are exact in TF32), each stage's or chunk's products summed from zero and
+added in float32; ``small_m`` (``mma.sync`` m16n8k8, the weights as A and
+the tokens as n8, up to :data:`SMALL_M_ROWS_F32` rows) and ``wgmma``
+(``wgmma`` m64nBTk8, 16-128 tokens a tile), with their own crossover
+(:data:`SMALL_M_TAKES_F32`) and time model (:data:`WG_CHUNK_US_F32`).
 Every launching call adds one to ``INT8_GEMM_LAUNCHES[launch_key(route,
-dtype)]``: the route's name, with ``_f16`` for a float16 call, so the
-two forms count apart; a CUDA graph's replay adds the counts its capture
-recorded (``engine/cuda_graphs.py``).
+dtype)]``: the route's name, with ``_f16`` for a float16 call and
+``_f32`` for a float32 one, so the three forms count apart; a CUDA
+graph's replay adds the counts its capture recorded
+(``engine/cuda_graphs.py``).
 """
 
 from __future__ import annotations
@@ -48,14 +55,16 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-# the routes, in the C entry's numbering
-INT8_GEMM_ROUTES = ("small_m", "wgmma", "simt")
-# the routes that take float16 x, in their float16 forms
-F16_ROUTES = ("small_m", "wgmma")
+# the routes, in the C entry's numbering; each has a bfloat16, a float16
+# and a float32 form
+INT8_GEMM_ROUTES = ("small_m", "wgmma")
+# the forms' suffixes in the launch counts' keys (launch_key)
+FORM_SUFFIX = {torch.bfloat16: "", torch.float16: "_f16",
+               torch.float32: "_f32"}
 # launching wrapper calls since the last reset, by route and form
 # (launch_key)
 INT8_GEMM_LAUNCHES: Dict[str, int] = {
-    r: 0 for r in INT8_GEMM_ROUTES + tuple(f"{r}_f16" for r in F16_ROUTES)}
+    r + f: 0 for f in FORM_SUFFIX.values() for r in INT8_GEMM_ROUTES}
 # x's dtype in the C entry's numbering
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
@@ -69,7 +78,14 @@ _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # w_up at 24-32 rows are faster on the wgmma route, and lm_head there is
 # within 2% either way (a tie, to wgmma).
 SMALL_M_TAKES = ((16, math.inf), (32, 4096))
+# The float32 forms' crossover, in the same form (both float32 forms
+# timed at Llama-3.2-1B's and the 8B model's projections, M = 1 to 64
+# rows, on an H100; PERF.md, Findings): the float32 small-M kernel,
+# which holds at most SMALL_M_ROWS_F32 rows (two n8 tiles), is the faster
+# up to there at every N (3.7-215 against 6.7-370 us)
+SMALL_M_TAKES_F32 = ((16, math.inf),)
 SMALL_M_ROWS = 32    # the most rows the small-M kernel takes (2 m16 tiles)
+SMALL_M_ROWS_F32 = 16  # ... in its float32 form (2 n8 tiles)
 SMALL_TILE_N = 64    # output channels a small-M block
 SMALL_STAGE_K = 128  # the small-M kernel's ring stage along K
 SMALL_MIN_STAGES = 4  # stages a small-M split at least: one a K group
@@ -77,19 +93,24 @@ CHUNK_K = 64         # the wgmma kernel's step along K
 MAX_SPLITS = 8       # blocks of one cluster splitting K (portable maximum)
 WG_TILE_N = 128      # output channels a wgmma tile (64 a warpgroup)
 WG_TOKENS = (16, 32, 64, 128, 256)  # tokens a wgmma tile (wgmma's N)
-SIMT_TILE = 32       # tokens and channels a simt block
+# ... in the float32 form, whose chunk sums take a second BT / 2
+# registers a thread
+WG_TOKENS_F32 = (16, 32, 64, 128)
 
-# H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory and the
-# dense bf16 tensor-core rate
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): device memory, the dense
+# bf16 and TF32 tensor-core rates and float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 494.7e12
+FFMA_FLOPS = 67e12
 
 
 class Int8Plan(NamedTuple):
-    """One call's launch: its route; its tile (small_m: m16 tiles, 1 or
-    2; wgmma: tokens a tile, :data:`WG_TOKENS`; simt:
-    :data:`SIMT_TILE`); the blocks of one cluster that split K; and the
-    blocks launched."""
+    """One call's launch: its route; its tile (small_m: tiles of tokens,
+    1 or 2, m16 tiles in bfloat16 and float16, n8 tiles in float32;
+    wgmma: tokens a tile, :data:`WG_TOKENS`, :data:`WG_TOKENS_F32` in
+    float32); the blocks of one cluster that split K; and the blocks
+    launched."""
     route: str
     tile: int
     splits: int
@@ -103,8 +124,8 @@ def reset_launch_counts() -> None:
 
 def launch_key(route: str, dtype: torch.dtype) -> str:
     """The :data:`INT8_GEMM_LAUNCHES` key of a call: the route, with
-    ``_f16`` for its float16 form."""
-    return f"{route}_f16" if dtype == torch.float16 else route
+    ``_f16`` for its float16 form and ``_f32`` for its float32 form."""
+    return route + FORM_SUFFIX[dtype]
 
 
 # The wgmma plan's model of an H100 SXM (700 W), fitted to the kernel's
@@ -116,6 +137,10 @@ def launch_key(route: str, dtype: torch.dtype) -> str:
 WG_CHUNK_US = {16: 0.40, 32: 0.41, 64: 0.44, 128: 0.53, 256: 0.80}
 WG_FOLD_US = 1.0
 WG_FOLD_SPLIT_US = 0.47
+# the float32 form's chunk time, fitted the same way (``--plans --dtype
+# float32``): two TF32 products, lo's pass over the stage and a float32
+# add of the chunk's sums, one chunk in flight
+WG_CHUNK_US_F32 = {16: 0.70, 32: 0.76, 64: 1.05, 128: 1.65}
 
 
 def resident_model(tokens: int, splits: int, sms: int) -> int:
@@ -134,18 +159,22 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def wgmma_plan(M: int, N: int, K: int,
-                resident: Callable[[int, int], int]) -> Int8Plan:
+                resident: Callable[[int, int], int],
+                dtype: torch.dtype = torch.bfloat16) -> Int8Plan:
     """The wgmma route's tile, splits and grid: the candidate with the
     least estimated time. A cluster walks ceil(tiles / resident) tiles
     one after the other, each of ceil(chunks / splits) 64-wide chunks of
-    K at :data:`WG_CHUNK_US` a chunk, plus its fold if split
-    (:data:`WG_FOLD_US`); never less than the bytes of q and x at
-    :data:`HBM_BYTES_PER_S`. Ties go to fewer splits, then to fewer
-    padded rows. Each split takes at least two chunks."""
+    K at :data:`WG_CHUNK_US` a chunk (:data:`WG_CHUNK_US_F32` in
+    float32), plus its fold if split (:data:`WG_FOLD_US`); never less
+    than the bytes of q and x at :data:`HBM_BYTES_PER_S`. Ties go to
+    fewer splits, then to fewer padded rows. Each split takes at least
+    two chunks."""
+    f32 = dtype == torch.float32
+    chunk_us = WG_CHUNK_US_F32 if f32 else WG_CHUNK_US
     chunks = _cdiv(K, CHUNK_K)
-    floor_us = (N * K + 2 * M * K) / HBM_BYTES_PER_S * 1e6
+    floor_us = (N * K + (4 if f32 else 2) * M * K) / HBM_BYTES_PER_S * 1e6
     best = None
-    for tokens in WG_TOKENS:
+    for tokens in WG_TOKENS_F32 if f32 else WG_TOKENS:
         rows = _cdiv(M, tokens)
         tiles = rows * _cdiv(N, WG_TILE_N)
         for splits in (1, 2, 4, 8):
@@ -155,7 +184,7 @@ def wgmma_plan(M: int, N: int, K: int,
             fold_us = (WG_FOLD_US + WG_FOLD_SPLIT_US * splits + tokens / 64
                        if splits > 1 else 0.0)
             est = max(floor_us, _cdiv(tiles, res) * (
-                _cdiv(chunks, splits) * WG_CHUNK_US[tokens] + fold_us))
+                _cdiv(chunks, splits) * chunk_us[tokens] + fold_us))
             key = (round(est, 3), splits, rows * tokens)
             if best is None or key < best[0]:
                 best = (key, Int8Plan("wgmma", tokens, splits,
@@ -168,45 +197,48 @@ def int8_gemm_plan(M: int, N: int, K: int, sms: int,
                    resident: Optional[Callable[[int, int], int]] = None
                    ) -> Int8Plan:
     """The launch of one call (:class:`Int8Plan`), from host-known shapes
-    only (so a CUDA graph can capture it). float32 x: simt. bfloat16 and
-    float16 x (the float16 forms run at the bfloat16 rate, and take the
-    bfloat16 crossover) where :func:`small_m_takes` (the measured
-    crossover): small_m (:func:`small_m_plan`). Otherwise wgmma
-    (:func:`wgmma_plan`), a persistent grid of as many clusters as the
-    card holds at once (``resident(tokens, splits)``; by default
-    :func:`resident_model`) or as there are tiles."""
-    if dtype == torch.float32:
-        return Int8Plan("simt", SIMT_TILE, 1,
-                        _cdiv(N, SIMT_TILE) * _cdiv(M, SIMT_TILE))
+    only (so a CUDA graph can capture it), in the form of x's dtype.
+    bfloat16 and float16 x (the float16 forms run at the bfloat16 rate,
+    and take the bfloat16 crossover), and float32 x with its own
+    crossover, where :func:`small_m_takes` (the measured crossover):
+    small_m (:func:`small_m_plan`). Otherwise wgmma (:func:`wgmma_plan`),
+    a persistent grid of as many clusters as the card holds at once
+    (``resident(tokens, splits)``; by default :func:`resident_model`) or
+    as there are tiles."""
     if resident is None:
         def resident(tokens, splits):
             return resident_model(tokens, splits, sms)
-    if small_m_takes(M, N):
-        return small_m_plan(M, N, K, sms, resident)
-    return wgmma_plan(M, N, K, resident)
+    if small_m_takes(M, N, dtype):
+        return small_m_plan(M, N, K, sms, resident, dtype)
+    return wgmma_plan(M, N, K, resident, dtype)
 
 
-def small_m_takes(M: int, N: int) -> bool:
-    """Whether a bfloat16 or float16 call of M rows and N channels goes
-    to the small-M route (the crossover, :data:`SMALL_M_TAKES`)."""
-    return any(M <= rows and N <= n for rows, n in SMALL_M_TAKES)
+def small_m_takes(M: int, N: int,
+                  dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether a call of M rows and N channels goes to the small-M route
+    (the crossover: :data:`SMALL_M_TAKES` for bfloat16 and float16,
+    :data:`SMALL_M_TAKES_F32` for float32)."""
+    takes = SMALL_M_TAKES_F32 if dtype == torch.float32 else SMALL_M_TAKES
+    return any(M <= rows and N <= n for rows, n in takes)
 
 
 def small_m_plan(M: int, N: int, K: int, sms: int,
-                 resident: Optional[Callable[[int, int], int]] = None
-                 ) -> Int8Plan:
-    """The small_m route's launch (M <= :data:`SMALL_M_ROWS`): the m16
-    tiles that cover M, and the K splits of each 64-channel tile (1 to
-    :data:`MAX_SPLITS`, a cluster): the fewest 128-wide stages of K a
-    block (ties to fewer splits), each split keeping
-    :data:`SMALL_MIN_STAGES`, with every tile's cluster on the card at
-    once one block an SM (``resident(tokens, splits)``, the wgmma
-    kernel's count, by default :func:`resident_model`): placed two to an
-    SM, a block computes at half speed, and its cluster waits for it."""
+                 resident: Optional[Callable[[int, int], int]] = None,
+                 dtype: torch.dtype = torch.bfloat16) -> Int8Plan:
+    """The small_m route's launch (M <= :data:`SMALL_M_ROWS`, or
+    :data:`SMALL_M_ROWS_F32` in float32): the tiles of tokens that cover
+    M (m16 tiles; n8 tiles in float32), and the K splits of each
+    64-channel tile (1 to :data:`MAX_SPLITS`, a cluster): the fewest
+    128-wide stages of K a block (ties to fewer splits), each split
+    keeping :data:`SMALL_MIN_STAGES`, with every tile's cluster on the
+    card at once one block an SM (``resident(tokens, splits)``, the
+    wgmma kernel's count in the same form, by default
+    :func:`resident_model`): placed two to an SM, a block computes at
+    half speed, and its cluster waits for it."""
     if resident is None:
         def resident(tokens, splits):
             return resident_model(tokens, splits, sms)
-    mt = 1 if M <= 16 else 2
+    mt = _cdiv(M, 8 if dtype == torch.float32 else 16)
     tiles = _cdiv(N, SMALL_TILE_N)
     stages = _cdiv(K, SMALL_STAGE_K)
     best = 1
@@ -218,10 +250,11 @@ def small_m_plan(M: int, N: int, K: int, sms: int,
     return Int8Plan("small_m", mt, best, tiles * best)
 
 
-# dense peak rate for the activations' type: the tensor cores' for the
-# 16-bit types, the CUDA cores' for float32 (NVIDIA's data sheet)
-PEAK_FLOPS = {torch.bfloat16: BF16_FLOPS, torch.float16: BF16_FLOPS,
-              torch.float32: 67e12}
+# the operations the tensor cores do for one of the product's, and their
+# dense peak rate, by the activations' type (NVIDIA's data sheet): the
+# 16-bit types one at the bf16 rate, float32 two TF32 products (2xTF32)
+TC_OPS = {torch.bfloat16: (1, BF16_FLOPS), torch.float16: (1, BF16_FLOPS),
+          torch.float32: (2, TF32_FLOPS)}
 
 
 def int8_gemm_work(M: int, K: int, N: int,
@@ -229,16 +262,24 @@ def int8_gemm_work(M: int, K: int, N: int,
     """The least work of one call: each input read once and the output
     written once (``K N`` int8 weights, ``4 N`` bytes of scales, ``M K``
     of x and ``M N`` of y in ``dtype``) at :data:`HBM_BYTES_PER_S`, and
-    ``2 M K N`` operations at the type's peak (:data:`PEAK_FLOPS`); the
-    bound is the larger of the two times."""
+    ``2 M K N`` operations on the tensor cores as the kernels do them
+    (:data:`TC_OPS`: in float32 two TF32 products each, 4 M K N at
+    :data:`TF32_FLOPS`); the bound is the larger of the two times. A
+    float32 call also carries ``bound_ffma_ms``, its operations at the
+    CUDA cores' float32 rate (:data:`FFMA_FLOPS`), the larger of that and
+    the bytes."""
     e = torch.empty((), dtype=dtype).element_size()
     nbytes = K * N + 4 * N + e * M * K + e * M * N
     flops = 2 * M * K * N
+    times, peak = TC_OPS[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return {"bytes": nbytes, "flops": flops,
+    t_ops = times * flops / peak * 1e3
+    work = {"bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if dtype == torch.float32:
+        work["bound_ffma_ms"] = max(t_bytes, flops / FFMA_FLOPS * 1e3)
+    return work
 
 
 # A kernel against the float32 evaluation of its plain version
@@ -282,31 +323,33 @@ def _device_index(device: torch.device) -> int:
         else torch.cuda.current_device()
 
 
-def resident_of(device: torch.device) -> Callable[[int, int], int]:
+def resident_of(device: torch.device, dtype: torch.dtype = torch.bfloat16
+                ) -> Callable[[int, int], int]:
     """resident(tokens, splits) of the card: the CUDA driver's count of
-    co-resident clusters of ``splits`` blocks of the wgmma kernel (its
-    bfloat16 form; the float16 form's counts are the same, which the card
-    tests hold)."""
+    co-resident clusters of ``splits`` blocks of the wgmma kernel's form
+    for ``dtype`` (the float16 form shares the bfloat16 form's counts,
+    which the card tests hold; the float32 form has its own)."""
     idx = _device_index(device)
-    return functools.partial(_resident, idx)
+    form = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    return functools.partial(_resident, idx, form)
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(idx: int, tokens: int, splits: int) -> int:
-    n = resident_count(tokens, splits, torch.bfloat16)
+def _resident(idx: int, dtype: torch.dtype, tokens: int, splits: int) -> int:
+    n = resident_count(tokens, splits, dtype)
     if n <= 0:
         raise RuntimeError(
             f"int8 GEMM: no cluster of {splits} blocks of the "
-            f"{tokens}-token wgmma kernel fits (CUDA error {-n})")
+            f"{tokens}-token {dtype} wgmma kernel fits (CUDA error {-n})")
     return n
 
 
 def resident_count(tile: int, splits: int, dtype: torch.dtype) -> int:
-    """The CUDA driver's count for the form of ``dtype`` (bfloat16 or
-    float16) on the current device: clusters of ``splits`` blocks of the
-    ``tile``-token wgmma kernel, or, for tile 1 or 2, blocks of the
-    small-M kernel of that many m16 tiles in clusters of ``splits``
-    (negative: a CUDA error)."""
+    """The CUDA driver's count for the form of ``dtype`` (bfloat16,
+    float16 or float32) on the current device: clusters of ``splits``
+    blocks of the ``tile``-token wgmma kernel, or, for tile 1 or 2,
+    blocks of the small-M kernel of that many token tiles in clusters of
+    ``splits`` (negative: a CUDA error)."""
     return _lib().dyn_int8_gemm_resident(tile, splits, _DTYPES[dtype])
 
 
@@ -323,7 +366,7 @@ def _device_plan(M: int, N: int, K: int, idx: int,
                  dtype: torch.dtype) -> Int8Plan:
     sms = torch.cuda.get_device_properties(idx).multi_processor_count
     return int8_gemm_plan(M, N, K, sms, dtype,
-                          functools.partial(_resident, idx))
+                          resident_of(torch.device("cuda", idx), dtype))
 
 
 def _lib():
@@ -358,10 +401,9 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                 plan: Optional[Int8Plan] = None) -> torch.Tensor:
     """``(x @ q^T) * s``: x [..., K]; q [N, K] int8, contiguous; s [N]
     float32 (or [1, N]). On the CPU the plain version; on a CUDA device
-    a kernel, which takes bfloat16, float16 or float32 x (float32 on the
-    simt route alone, the 16-bit types on the other two), K a multiple of
-    16, contiguous operands and 16-byte-aligned x and q, and raises on
-    anything else. ``plan`` overrides :func:`int8_gemm_plan`'s (to time
+    a kernel, which takes bfloat16, float16 or float32 x (each route in
+    the form of x's dtype), K a multiple of 16, contiguous operands and
+    16-byte-aligned x and q, and raises on anything else. ``plan`` overrides :func:`int8_gemm_plan`'s (to time
     one route against another). Returns [..., N] in x's dtype."""
     _check(q.dim() == 2 and q.dtype == torch.int8,
            f"q must be [N, K] int8, got {tuple(q.shape)} {q.dtype}")

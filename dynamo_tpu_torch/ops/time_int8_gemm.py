@@ -10,7 +10,9 @@ float16`` takes float16 x at the same shapes (the float16 forms of the
 small-M and wgmma routes); ``--dtype float32`` float32 x at
 Llama-3.2-1B's projections (wq/wo 2048 x 2048, wk/wv 2048 x 512,
 w_gate/w_up 2048 x 8192, w_down 8192 x 2048, lm_head 2048 x 128256: the
-simt route). Each call is
+float32 forms of both routes, small-M at 16 rows and fewer; ``--shapes
+all`` adds the 8B model's), its cells also carrying the FFMA bound
+(``bound_ffma``) where the tree's ``int8_gemm_work`` gives it. Each call is
 timed three times: a CUDA graph of calls that cycle over copies of the
 weights holding 256 MiB of int8 (so each call finds its weights out of
 the 50 MB L2, as a layer's call does), replayed between two CUDA events.
@@ -64,7 +66,7 @@ import sys
 SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
           "gate_up": (4096, 14336), "down": (14336, 4096),
           "lm_head": (4096, 128256)}
-# Llama-3.2-1B's, the float32 (simt) shapes
+# Llama-3.2-1B's, the shapes served in float32
 SHAPES_1B = {"1b wq_wo": (2048, 2048), "1b wk_wv": (2048, 512),
              "1b gate_up": (2048, 8192), "1b down": (8192, 2048),
              "1b lm_head": (2048, 128256)}
@@ -168,17 +170,22 @@ def sweep_plans(x, ws, M: int, K: int, N: int,
     x, :func:`after_write_us`) and each wgmma (tokens, splits) whose
     tile is no more than twice the rows; and which of them
     :func:`fixed_rule` takes."""
+    import torch
+
     from dynamo_tpu_torch.ops.int8_gemm import (MAX_SPLITS, SMALL_M_ROWS,
-                                                WG_TILE_N, WG_TOKENS,
+                                                SMALL_M_ROWS_F32, WG_TILE_N,
+                                                WG_TOKENS, WG_TOKENS_F32,
                                                 Int8Plan, device_plan,
                                                 int8_matmul, int8_gemm_work,
                                                 resident_of, small_m_plan)
 
+    f32 = x.dtype == torch.float32
     plans = {"chosen": device_plan(M, N, K, x.device, x.dtype)}
-    resident = resident_of(x.device)
-    if M <= SMALL_M_ROWS:
-        plans["small_m"] = small_m_plan(M, N, K, _sms(x.device), resident)
-    for tokens in WG_TOKENS:
+    resident = resident_of(x.device, x.dtype)
+    if M <= (SMALL_M_ROWS_F32 if f32 else SMALL_M_ROWS):
+        plans["small_m"] = small_m_plan(M, N, K, _sms(x.device), resident,
+                                        x.dtype)
+    for tokens in WG_TOKENS_F32 if f32 else WG_TOKENS:
         if tokens > 2 * max(M, 16) or (tokens < M // 4 and tokens < 128):
             continue
         tiles = -(-M // tokens) * -(-N // WG_TILE_N)
@@ -204,20 +211,20 @@ def sweep_plans(x, ws, M: int, K: int, N: int,
         out["small_m after_write"] = {
             "plan": list(plans["small_m"]),
             "us": round(after_write_us(small, x, iters), 2)}
-    out["rule"] = "%d/%d" % fixed_rule(M, N, K, _sms(x.device), resident)
+    if not f32:
+        out["rule"] = "%d/%d" % fixed_rule(M, N, K, _sms(x.device),
+                                           resident)
     return out
 
 
-def resident_counts() -> dict:
-    """The CUDA driver's counts the plans use, by cluster size 1 to
-    MAX_SPLITS: clusters of the wgmma kernel (one block an SM; the
-    16-token tile's) and blocks of the small-M kernel (1 and 2 m16
-    tiles) the card holds at once."""
-    import torch
-
+def resident_counts(dtype) -> dict:
+    """The CUDA driver's counts the plans use for the form of ``dtype``,
+    by cluster size 1 to MAX_SPLITS: clusters of the wgmma kernel (one
+    block an SM; the 16-token tile's) and blocks of the small-M kernel
+    (1 and 2 tiles of tokens) the card holds at once."""
     from dynamo_tpu_torch.ops.int8_gemm import MAX_SPLITS, resident_count
 
-    return {f"{name} (tile {tile})": [resident_count(tile, s, torch.bfloat16)
+    return {f"{name} (tile {tile})": [resident_count(tile, s, dtype)
                                       for s in range(1, MAX_SPLITS + 1)]
             for name, tile in (("wgmma clusters", 16),
                                ("small_m blocks", 1),
@@ -261,11 +268,11 @@ def main() -> None:
            "us": {}, "digest": {}}
     if args.plans:
         print(json.dumps({"card": res["card"],
-                          "resident": resident_counts()}), flush=True)
+                          "resident": resident_counts(dtype)}), flush=True)
     shapes = {"tp1": SHAPES, "tp2": TP2_SHAPES,
               "all": {**SHAPES, **TP2_SHAPES}}[args.shapes]
     if dtype == torch.float32:
-        shapes = SHAPES_1B
+        shapes = {**SHAPES_1B, **(SHAPES if args.shapes == "all" else {})}
     for name, (K, N) in shapes.items():
         copies = max(1, min(64, -(-COLD_BYTES // (K * N))))
         ws = []
@@ -304,6 +311,8 @@ def main() -> None:
                 "times": [round(time_us(call, iters), 2)
                           for _ in range(REPEATS)],
                 "bound": round(work["bound_ms"] * 1e3, 2)}
+            if "bound_ffma_ms" in work:
+                cell["bound_ffma"] = round(work["bound_ffma_ms"] * 1e3, 2)
             if args.write_x:
                 cell["after_write"] = [round(after_write_us(call, x, iters),
                                              2) for _ in range(REPEATS)]

@@ -65,10 +65,18 @@ __device__ __forceinline__ unsigned long long gtime() {
   return t;
 }
 """)
-    patch("                       int splits, int cps, int early) {" + NL
-          + "  using Tile = SmTile<MT>;",
-          "                       int splits, int cps, int early, "
-          "int trace_slot) {" + NL + "  using Tile = SmTile<MT>;")
+    patch("int splits, int cps, int early) {" + NL
+          + "  using Tile = SmTile<MT, T>;",
+          "int splits, int cps, int early, int trace_slot) {" + NL
+          + "  using Tile = SmTile<MT, T>;")
+    # the 16-bit consumer warps' loop (small_consume) stamps too
+    patch("    int half, int group, int lane) {" + NL
+          + "  using Tile = SmTile<MT, T>;",
+          "    int half, int group, int lane, unsigned long long* tr, "
+          "int tid) {" + NL + "  using Tile = SmTile<MT, T>;")
+    patch("small_consume<MT, T>(smem, red, full, empty, n_st, half, group, "
+          "lane);", "small_consume<MT, T>(smem, red, full, empty, n_st, "
+          "half, group, lane, tr, tid);")
     patch("  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;"
           + NL + "  const int rank = blockIdx.x % splits;",
           "  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;"
@@ -146,7 +154,7 @@ def load(patches):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dyn_int8_gemm.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.dyn_int8_gemm.restype = i
-    lib.dyn_int8_gemm_resident.argtypes = [i, i]
+    lib.dyn_int8_gemm_resident.argtypes = [i, i, i]
     lib.dyn_int8_gemm_resident.restype = i
     lib.dyn_int8_gemm_programmatic.argtypes = [i]
     lib.dyn_int8_gemm_programmatic.restype = i

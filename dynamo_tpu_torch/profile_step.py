@@ -6,14 +6,16 @@ on the GPU: by CUDA-graph replay against eager calls, in one run.
                                             [--penalties]
     python -m dynamo_tpu_torch.profile_step --prefill [PBxTxP ...]
                                             [--windows 10] [--penalties]
-    ... [--dtype bf16 int8 f16 f16-int8]
+    ... [--dtype bf16 int8 f16 f16-int8 f32-1b f32-1b-int8]
 
 Builds the engine at Llama-3-8B widths (random weights, seed 0), once
 per ``--dtype`` in turn (``int8``: weight-only int8 projections through
 the int8 GEMM, ``TorchEngine(quant="int8")``; ``f16``: the model in
-float16, ``f16-int8`` the same with int8 projections), so one run traces
-the bf16 and the int8 window, or chunk, side by side; every JSON line
-names its dtype.
+float16, ``f16-int8`` the same with int8 projections; ``f32-1b``: the
+model at Llama-3.2-1B's widths in float32, as chip_smoke.py's phase 11
+serves it, ``f32-1b-int8`` the same with int8 projections, the int8
+GEMM's float32 forms), so one run traces the bf16 and the int8 window,
+or chunk, side by side; every JSON line names its dtype.
 
 For each ``--rows`` B it prefills B rows of ``--context`` tokens, then runs
 decode windows (``EngineConfig.decode_steps`` steps each) three ways, on
@@ -375,11 +377,14 @@ def main() -> None:
                     help="profile prefill chunks instead of decode windows "
                          "(default 1x64x8 1x512x8 8x512x64)")
     ap.add_argument("--dtype", nargs="+", default=["bf16"],
-                    choices=["bf16", "int8", "f16", "f16-int8"],
+                    choices=["bf16", "int8", "f16", "f16-int8", "f32-1b",
+                             "f32-1b-int8"],
                     help="the engine's weights, one engine after the other "
                          "in one run (int8: weight-only int8, the launcher's "
                          "--dtype int8; f16: float16 activations and "
-                         "weights; f16-int8: float16 with int8 weights)")
+                         "weights; f16-int8: float16 with int8 weights; "
+                         "f32-1b: Llama-3.2-1B's widths in float32; "
+                         "f32-1b-int8: the same with int8 weights)")
     args = ap.parse_args()
 
     import dataclasses
@@ -400,6 +405,8 @@ def main() -> None:
         cfg = ModelConfig.llama3_8b()
         if dtype.startswith("f16"):
             cfg = dataclasses.replace(cfg, dtype="float16")
+        if dtype.startswith("f32-1b"):
+            cfg = dataclasses.replace(ModelConfig.llama_1b(), dtype="float32")
         engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda",
                              quant="int8" if dtype.endswith("int8") else None)
         head = {"card": card, "dtype": dtype}

@@ -220,8 +220,8 @@ def build_engine(args) -> Tuple[object, object]:
 def serving_summary(engine) -> dict:
     """What a rank did since warmup: captures after warmup, kernel
     launches (by kernel, by decode and prefill route and, for the int8
-    GEMM, by route and form: small_m, wgmma, simt, small_m_f16,
-    wgmma_f16; replays counting the calls their capture recorded) and
+    GEMM, by route and form: small_m, wgmma, small_m_f16, wgmma_f16,
+    small_m_f32, wgmma_f32; replays counting the calls their capture recorded) and
     graph replays (every variant's)."""
     from .ops import int8_gemm
     from .ops import paged_attention as ops

@@ -253,21 +253,24 @@ def test_f16_routes_take_the_bf16_set(hd):
 
 def test_f16_int8_plan_takes_the_tensor_core_routes():
     """float16 x takes small_m and wgmma with the bf16 plans at every
-    served shape and row count, never simt; float32 x takes simt; the
-    launches of a float16 call count under the route's ``_f16`` key."""
+    served shape and row count; float32 x takes the float32 forms of the
+    same routes; the launches of a float16 call count under the route's
+    ``_f16`` key."""
     shapes = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
               (4096, 128256), (2048, 512)]
     for K, N in shapes:
         for M in (1, 4, 16, 24, 32, 48, 64, 512, 4096):
             bf = int8_gemm.int8_gemm_plan(M, N, K, H100_SMS, torch.bfloat16)
             f16 = int8_gemm.int8_gemm_plan(M, N, K, H100_SMS, torch.float16)
-            assert f16 == bf and f16.route in int8_gemm.F16_ROUTES
-            assert int8_gemm.int8_gemm_plan(M, N, K, H100_SMS,
-                                            torch.float32).route == "simt"
+            assert f16 == bf and f16.route in int8_gemm.INT8_GEMM_ROUTES
+            assert int8_gemm.int8_gemm_plan(
+                M, N, K, H100_SMS,
+                torch.float32).route in int8_gemm.INT8_GEMM_ROUTES
     assert int8_gemm.launch_key("wgmma", torch.float16) == "wgmma_f16"
     assert int8_gemm.launch_key("small_m", torch.bfloat16) == "small_m"
     assert set(int8_gemm.INT8_GEMM_LAUNCHES) == {
-        "small_m", "wgmma", "simt", "small_m_f16", "wgmma_f16"}
+        "small_m", "wgmma", "small_m_f16", "wgmma_f16", "small_m_f32",
+        "wgmma_f32"}
 
 
 def test_f16_int8_gemm_work_counts_two_byte_activations():

@@ -121,12 +121,22 @@ def test_blocks_fill_the_card(name, shape, M):
 @pytest.mark.parametrize("M,K,N", [(1, 64, 64), (4, 64, 192),
                                    (512, 128, 64), (4096, 4096, 4096)])
 def test_float32_and_float16_take_the_simt_route(dtype, M, K, N):
-    """float32 x takes the simt route; float16 x, which took it too until
-    the tensor-core routes had float16 forms, takes the bfloat16 plan
-    (small_m or wgmma), never simt."""
+    """Neither float32 nor float16 x takes the simt route any more (it is
+    gone): float16 x takes the bfloat16 plan (small_m or wgmma), float32 x
+    the float32 forms of the same two routes, by its own crossover and
+    time model."""
     plan = int8_gemm_plan(M, N, K, SMS, dtype)
+    assert plan.route in INT8_GEMM_ROUTES == ("small_m", "wgmma")
     if dtype == torch.float32:
-        assert plan == Int8Plan("simt", 32, 1, -(-N // 32) * -(-M // 32))
+        small = M <= int8_gemm.SMALL_M_ROWS_F32
+        assert plan.route == ("small_m" if small else "wgmma")
+        if small:
+            assert plan == int8_gemm.small_m_plan(M, N, K, SMS, _resident,
+                                                  dtype)
+            assert plan.tile == -(-M // 8)
+        else:
+            assert plan == int8_gemm.wgmma_plan(M, N, K, _resident, dtype)
+            assert plan.tile in int8_gemm.WG_TOKENS_F32
     else:
         assert plan == int8_gemm_plan(M, N, K, SMS, torch.bfloat16)
         assert plan.route in ("small_m", "wgmma")

@@ -1329,6 +1329,12 @@ INT8_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
 INT8_TP2_SHAPES = {"wq": (4096, 2048), "wk_wv": (4096, 512),
                    "gate_up": (4096, 7168), "lm_head": (4096, 64128),
                    "wo": (2048, 4096), "down": (7168, 4096)}
+# Llama-3.2-1B's projections, where the float32 forms are served
+INT8_1B_SHAPES = {"1b wq_wo": (2048, 2048), "1b wk_wv": (2048, 512),
+                  "1b gate_up": (2048, 8192), "1b down": (8192, 2048),
+                  "1b lm_head": (2048, 128256)}
+# every form: bfloat16, float16 and float32 x
+FORMS = HALF + [torch.float32]
 
 
 def _int8_case(dev, M, K, N, seed=0, dtype=torch.bfloat16):
@@ -1358,7 +1364,8 @@ def _int8_check(dev, M, K, N, seed=0, dtype=torch.bfloat16):
     route = int8_gemm.int8_gemm_plan(
         M, N, K, torch.cuda.get_device_properties(dev).multi_processor_count,
         dtype).route
-    assert (route == "simt") == (dtype == torch.float32)
+    assert route in int8_gemm.INT8_GEMM_ROUTES
+    # one launch, on the form of x's dtype (the float32 forms for float32)
     assert int8_gemm.INT8_GEMM_LAUNCHES == _counts(
         int8_gemm.INT8_GEMM_LAUNCHES, **{int8_gemm.launch_key(route, dtype): 1})
     return x, q, s, y
@@ -1376,7 +1383,19 @@ def test_cuda_int8_gemm_matches_plain(cuda_device, shape, M, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("M", [1, 4, 16, 24, 32, 48, 64, 512, 4096])
+@pytest.mark.parametrize("shape", sorted(INT8_SHAPES) + sorted(INT8_1B_SHAPES))
+def test_cuda_int8_gemm_f32_matches_plain(cuda_device, shape, M):
+    """The float32 forms (2xTF32 small_m and wgmma) at every projection of
+    the 1b and the 8B model, over their crossover and a chunk's rows,
+    within the stated tolerance (2^-24 of the output plus 2^-16 of the
+    sum of the terms' magnitudes)."""
+    K, N = {**INT8_SHAPES, **INT8_1B_SHAPES}[shape]
+    _int8_check(cuda_device, M, K, N, dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FORMS)
 @pytest.mark.parametrize("M", [4, 512])
 @pytest.mark.parametrize("shape", sorted(INT8_TP2_SHAPES))
 def test_cuda_int8_gemm_at_tp2_shapes(cuda_device, shape, M, dtype):
@@ -1384,7 +1403,7 @@ def test_cuda_int8_gemm_at_tp2_shapes(cuda_device, shape, M, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("dtype", FORMS)
 @pytest.mark.parametrize("M,K,N", [(3, 4096, 1000), (37, 4096, 130),
                                    (100, 4096, 4100), (300, 1040, 1000),
                                    (17, 16, 33), (129, 48, 7)])
@@ -1399,17 +1418,19 @@ def test_cuda_int8_gemm_ragged(cuda_device, M, K, N, dtype):
 @pytest.mark.parametrize("M,K,N", [(1, 64, 192), (7, 64, 64), (33, 128, 64),
                                    (300, 1040, 1000)])
 def test_cuda_int8_gemm_simt_route(cuda_device, M, K, N, dtype):
-    """float32 x (the tiny preset serves float32) takes the simt route,
-    and float16 x the float16 forms of the tensor-core routes (never
-    simt), within one rounding to x's dtype and the summation order."""
+    """The shapes the simt route took (the tiny preset's, served in
+    float32) on the tensor-core routes' forms that replaced it: float32
+    x on the float32 forms (2xTF32), float16 x on the float16 forms,
+    within one rounding to x's dtype and the summation order."""
     _int8_check(cuda_device, M, K, N, seed=4, dtype=dtype)
 
 
 @pytest.mark.cuda
 def test_cuda_int8_f16_forms_hold_as_many_blocks_as_bf16(cuda_device):
-    """The plans take the bf16 kernels' co-resident counts for both
-    forms: the CUDA driver's counts of the float16 forms are the same at
-    every tile and cluster size; and the simt route refuses float16."""
+    """The plans take the bf16 kernels' co-resident counts for the
+    float16 forms: the CUDA driver's counts of the float16 forms are the
+    same at every tile and cluster size; and a route the C entry does not
+    know (the simt route's old number) is refused."""
     for tile in (1, 2) + int8_gemm.WG_TOKENS:
         for splits in range(1, int8_gemm.MAX_SPLITS + 1):
             bf = int8_gemm.resident_count(tile, splits, torch.bfloat16)
@@ -1417,14 +1438,47 @@ def test_cuda_int8_f16_forms_hold_as_many_blocks_as_bf16(cuda_device):
             assert int8_gemm.resident_count(tile, splits,
                                             torch.float16) == bf
     x, q, s = _int8_case(cuda_device, 4, 64, 64, dtype=torch.float16)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        int8_matmul(x, q, s, plan=int8_gemm.Int8Plan("simt", 32, 1, 2))
+    y = torch.empty(4, 64, dtype=torch.float16, device=cuda_device)
+    for dtype in (0, 1, 2):
+        assert int8_gemm._lib().dyn_int8_gemm(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), 4, 64,
+            64, 2, 32, 1, 2, dtype,
+            torch.cuda.current_stream().cuda_stream) != 0
+
+
+@pytest.mark.cuda
+def test_cuda_int8_f32_plan_uses_its_forms_resident_count(cuda_device):
+    """The float32 plans take the float32 forms' own co-resident counts
+    from the CUDA driver (its kernels hold other shared memory than the
+    bf16 ones): positive at every float32 tile and cluster size, the
+    counts resident_of hands the plan, and a float32 plan's grid within
+    them; the float32 forms refuse a 256-token tile and more than 16 rows
+    on small_m."""
+    dev = cuda_device
+    resident = int8_gemm.resident_of(dev, torch.float32)
+    for tile in (1, 2) + int8_gemm.WG_TOKENS_F32:
+        for splits in range(1, int8_gemm.MAX_SPLITS + 1):
+            n = int8_gemm.resident_count(tile, splits, torch.float32)
+            assert n > 0, (tile, splits)
+            if tile > 2:
+                assert resident(tile, splits) == n
+    for M, K, N in ((4096, 2048, 2048), (512, 2048, 128256), (48, 8192, 2048)):
+        plan = int8_gemm.device_plan(M, N, K, dev, torch.float32)
+        assert plan.route == "wgmma"
+        assert plan.grid // plan.splits <= int8_gemm.resident_count(
+            plan.tile, plan.splits, torch.float32)
+    x, q, s = _int8_case(dev, 17, 64, 64, dtype=torch.float32)
+    for bad in (int8_gemm.Int8Plan("wgmma", 256, 1, 1),
+                int8_gemm.Int8Plan("small_m", 2, 1, 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            int8_matmul(x, q, s, plan=bad)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,dtype", [(4, torch.bfloat16), (32, torch.bfloat16),
                                      (512, torch.bfloat16),
-                                     (4, torch.float32), (4, torch.float16),
+                                     (4, torch.float32), (16, torch.float32),
+                                     (512, torch.float32), (4, torch.float16),
                                      (512, torch.float16)])
 def test_cuda_int8_gemm_perturbed_scale_fails_the_check(cuda_device, M,
                                                         dtype):
@@ -1436,17 +1490,18 @@ def test_cuda_int8_gemm_perturbed_scale_fails_the_check(cuda_device, M,
     assert _int8_excess(int8_matmul(x, q, bad), x, q, s) > 0
 
 
-def _small_m_plan(dev, M, N, K):
+def _small_m_plan(dev, M, N, K, dtype=torch.bfloat16):
     """The small-M route's launch of a call on this card (the CUDA
     driver's cluster counts), whichever route the crossover names."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return int8_gemm.small_m_plan(M, N, K, sms, int8_gemm.resident_of(dev))
+    return int8_gemm.small_m_plan(M, N, K, sms,
+                                  int8_gemm.resident_of(dev, dtype), dtype)
 
 
 def _small_m_check(dev, M, K, N, seed=0, dtype=torch.bfloat16):
     x, q, s = _int8_case(dev, M, K, N, seed, dtype)
     int8_gemm.reset_launch_counts()
-    y = int8_matmul(x, q, s, plan=_small_m_plan(dev, M, N, K))
+    y = int8_matmul(x, q, s, plan=_small_m_plan(dev, M, N, K, dtype))
     torch.cuda.synchronize()
     assert y.dtype == dtype and tuple(y.shape) == (M, N)
     assert _int8_excess(y, x, q, s) <= 0
@@ -1483,7 +1538,62 @@ def test_cuda_int8_small_m_ragged(cuda_device, M, K, N, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 9, 12, 16])
+@pytest.mark.parametrize("shape", sorted(INT8_1B_SHAPES) + sorted(INT8_SHAPES)
+                         + [f"tp2 {n}" for n in sorted(INT8_TP2_SHAPES)])
+def test_cuda_int8_small_m_f32_at_served_shapes(cuda_device, shape, M):
+    """The small-M route's float32 form (2xTF32 mma.sync m16n8k8, the
+    weights as A and the tokens as n8) at every row count it takes (one
+    or two n8 tiles), forced where the crossover names wgmma."""
+    K, N = ({**INT8_1B_SHAPES, **INT8_SHAPES}.get(shape)
+            or INT8_TP2_SHAPES[shape[4:]])
+    _small_m_check(cuda_device, M, K, N, dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 5, 16])
+@pytest.mark.parametrize("K,N", [(4096, 33), (4096, 130), (16, 1000),
+                                 (48, 1000), (1040, 1000), (64, 64)])
+def test_cuda_int8_small_m_f32_ragged(cuda_device, M, K, N):
+    """The float32 small-M form on ragged N and K tails (boxes of 32
+    floats past K's end filled with zeros)."""
+    _small_m_check(cuda_device, M, K, N, seed=6, dtype=torch.float32)
+
+
+# (M, K, N, tokens a tile, K splits) of the float32 wgmma form's forced
+# launches: every tile width at K splits of 1, 2 and 8 where a split keeps
+# two 64-wide chunks (K = 48 has one chunk: splits 1 alone)
+WGMMA_F32_LAUNCHES = [
+    (M, K, N, tokens, splits)
+    for M, K, N in ((5, 2048, 2048), (100, 8192, 2048), (300, 1040, 1000),
+                    (17, 48, 33))
+    for tokens in (16, 32, 64, 128) for splits in (1, 2, 8)
+    if splits == 1 or -(-K // 64) >= 2 * splits]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,tokens,splits", WGMMA_F32_LAUNCHES)
+def test_cuda_int8_wgmma_f32_every_tile(cuda_device, M, K, N, tokens,
+                                        splits):
+    """The float32 wgmma form at every tile width and K splits of 1, 2
+    and 8 (forced), ragged M, N and K among them: within the tolerance,
+    one launch under wgmma_f32."""
+    dev = cuda_device
+    x, q, s = _int8_case(dev, M, K, N, seed=11, dtype=torch.float32)
+    tiles = -(-M // tokens) * -(-N // int8_gemm.WG_TILE_N)
+    res = int8_gemm.resident_of(dev, torch.float32)(tokens, splits)
+    plan = int8_gemm.Int8Plan("wgmma", tokens, splits,
+                              min(tiles, res) * splits)
+    int8_gemm.reset_launch_counts()
+    y = int8_matmul(x, q, s, plan=plan)
+    torch.cuda.synchronize()
+    assert _int8_excess(y, x, q, s) <= 0
+    assert int8_gemm.INT8_GEMM_LAUNCHES == _counts(
+        int8_gemm.INT8_GEMM_LAUNCHES, wgmma_f32=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FORMS)
 @pytest.mark.parametrize("M,N", [(4, 1024), (64, 14336), (512, 4096),
                                  (512, 1024), (48, 4096), (4, 512),
                                  (32, 512)])
@@ -1592,7 +1702,7 @@ def test_cuda_int8_gemm_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="multiple of 16"):
         int8_matmul(torch.zeros(2, 4100, dtype=torch.bfloat16, device=d), q,
                     torch.ones(8, device=d))
-    # float32 x is served (the simt route), float64 refused
+    # float32 x is served (the float32 forms), float64 refused
     x, q, s = _int8_case(d, 2, 64, 8, seed=5, dtype=torch.float32)
     assert _int8_excess(int8_matmul(x, q, s), x, q, s) <= 0
     with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
@@ -1631,7 +1741,7 @@ def test_cuda_tiny_int8_engine_matches_its_plain_path(cuda_device):
     """The launcher's default model (the float32 tiny preset) served in
     int8 on the card: its greedy tokens equal those of the same int8
     weights multiplied through the plain version (``QuantInt8.as_plain``),
-    and its products went through the simt route."""
+    and its products went through the float32 forms alone."""
     import asyncio
 
     from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
@@ -1671,9 +1781,10 @@ def test_cuda_tiny_int8_engine_matches_its_plain_path(cuda_device):
                         params=plain_params, device="cuda")
     int8_gemm.reset_launch_counts()
     got = run(engine)
-    assert int8_gemm.INT8_GEMM_LAUNCHES["simt"] > 0
-    assert sum(int8_gemm.INT8_GEMM_LAUNCHES.values()) == (
-        int8_gemm.INT8_GEMM_LAUNCHES["simt"])
+    f32 = {k: n for k, n in int8_gemm.INT8_GEMM_LAUNCHES.items()
+           if k.endswith("_f32")}
+    assert f32["small_m_f32"] > 0
+    assert sum(int8_gemm.INT8_GEMM_LAUNCHES.values()) == sum(f32.values())
     launches = dict(int8_gemm.INT8_GEMM_LAUNCHES)
     want = run(plain)
     assert int8_gemm.INT8_GEMM_LAUNCHES == launches

@@ -190,7 +190,7 @@ def test_wrapper_checks_shapes_and_plan():
     assert int8_gemm_plan(512, 4096, 4096, 132) == \
         ("wgmma", 256, 2, 128)                                  # a chunk
     assert int8_gemm_plan(4, 64, 32, 132, torch.float32) == \
-        ("simt", 32, 1, 2)                                      # float32
+        ("small_m", 1, 1, 1)                                    # float32
     w = int8_gemm_work(4, 4096, 1024)
     assert w["bytes"] == 4096 * 1024 + 4 * 1024 + 2 * 4 * 4096 + 2 * 4 * 1024
     assert w["flops"] == 2 * 4 * 4096 * 1024 and w["bound_by"] == "bytes"
@@ -467,9 +467,9 @@ def test_launcher_dtype_int8(llama_ckpt):
         assert torch.equal(engine.params[k].q, want[k].q), k
         assert torch.equal(engine.params[k].s, want[k].s), k
     summary = serving_summary(engine)
-    assert summary["int8_gemm_launches"] == {"small_m": 0, "wgmma": 0,
-                                             "simt": 0, "small_m_f16": 0,
-                                             "wgmma_f16": 0}
+    assert summary["int8_gemm_launches"] == {
+        "small_m": 0, "wgmma": 0, "small_m_f16": 0, "wgmma_f16": 0,
+        "small_m_f32": 0, "wgmma_f32": 0}
 
     args = parse_args(["in=http", "out=torch", "--model-path", llama_ckpt,
                        "--device", "cpu", "--dtype", "int8", "--no-warmup"])

@@ -22,7 +22,11 @@ order chip_smoke.py's phase 4 served its rows, and the 1b's heads
 (head_dim 64) at the first chunk and the served window beside them; the
 sharded shapes are bf16 and float16 only. ``--dtype float16`` takes
 every shape of the bf16 run in float16 (the float16 forms of the bf16
-kernels).
+kernels). Every dtype also times the generic kernels at the 8B's heads
+with head_dim 96, outside every fast set (``_hd96`` keys): decode
+(``paged_decode_kernel`` + ``paged_decode_combine``) at the served
+window and, in float32, the only dtype it takes, prefill
+(``paged_prefill_kernel<float>``) at the first chunk.
 Each shape is timed three times (CUDA graph of 50 launches,
 chip_smoke.time_ms) and held to its plain version (the tolerance of its
 dtype: bf16 and float16 atol 2e-2 + rtol 1e-2, float32 atol 1e-5); the
@@ -118,6 +122,12 @@ def main() -> None:
     f32 = dtype == torch.float32
     time_shapes(res, kp, vp, g, tol, T, K, H, "",
                 decode=DECODE_SHAPES + (F32_DECODE_SHAPES if f32 else ()))
+    # the generic kernels: head_dim 96 is in no fast set
+    k96 = torch.randn(1, N, KV, ps, 96, generator=g, device=dev).to(dtype)
+    v96 = torch.randn(1, N, KV, ps, 96, generator=g, device=dev).to(dtype)
+    time_shapes(res, k96, v96, g, tol, T, K, H, "_hd96", deep=False,
+                decode=DECODE_SHAPES[:1], prefill=f32)
+    del k96, v96
     if f32:
         # the 1b's heads: head_dim 64
         k64 = torch.randn(1, N, KV, ps, 64, generator=g, device=dev)
@@ -147,11 +157,12 @@ def main() -> None:
 
 
 def time_shapes(res: dict, kp, vp, g, tol, T: int, K: int, H: int,
-                tag: str, deep: bool = True, decode=DECODE_SHAPES) -> None:
-    """Time and digest the prefill chunks (the first, and the deep one
-    when ``deep``) and the ``decode`` window shapes on the pools
-    ``kp``/``vp`` [1, N, KV, ps, hd] into ``res``, each key suffixed by
-    ``tag``."""
+                tag: str, deep: bool = True, decode=DECODE_SHAPES,
+                prefill: bool = True) -> None:
+    """Time and digest the prefill chunks (the first, when ``prefill``,
+    and the deep one when ``deep`` too) and the ``decode`` window shapes
+    on the pools ``kp``/``vp`` [1, N, KV, ps, hd] into ``res``, each key
+    suffixed by ``tag``."""
     import torch
 
     from chip_smoke import excess, fail, time_ms
@@ -162,7 +173,7 @@ def time_shapes(res: dict, kp, vp, g, tol, T: int, K: int, H: int,
     dev = kp.device
     N, KV, ps, hd = kp.shape[1:]
     chunks = (("first_chunk", 0, 8), ("deep_chunk", 1536, 64))
-    for name, start, P in chunks[:2 if deep else 1]:
+    for name, start, P in chunks[:(2 if deep else 1) if prefill else 0]:
         name += tag
         used = (start + T) // ps
         table = torch.zeros((1, P), dtype=torch.int32, device=dev)
