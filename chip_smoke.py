@@ -18,9 +18,13 @@ Phases; any failure exits non-zero before the result line:
    route must have been taken;
 3. the same for the prefill kernel: padding queries, a sliding window, a
    second chunk that skips pages, the fourth chunk of a 2048-token prompt
-   (float32 on the 3xTF32 route; page 4, outside its set, on the
-   generic kernel; bfloat16 on the bf16 route, float16 on its float16
-   form, route f16);
+   (float32 on the 3xTF32 route; bfloat16 on the bf16 route, float16 on
+   its float16 form, route f16), and in every dtype the generic kernel
+   outside those sets: head_dim 96 at page 4, the deep chunk (positions
+   1536-2047) at head_dim 96 and page 8, 71 heads on one kv head at
+   head_dim 80, page 48, with a window and the softcap, and the shapes
+   phase 13's tiny engines serve (head_dim 16 at page 16, float32 at
+   page 4);
 4. serve Llama-3-8B-shaped requests (32 layers at full width, random
    weights from a seed, byte tokenizer) over the OpenAI HTTP front end on
    a local port, with pipelined decode windows and prefill chunks, each
@@ -72,11 +76,13 @@ Phases; any failure exits non-zero before the result line:
    bound at 3xTF32 (three TF32 products an operation, 494.7 TF/s) with
    the FFMA bound (67 TF/s) beside it; the float16 forms at the served
    window and first chunk on float16 pools from a seed (the rows whose
-   launches phase 12 counts); the generic kernels (decode in every dtype,
-   prefill in float32, the only one it takes) at the 8B's heads with
-   head_dim 96, outside every fast set, at the served window and first
-   chunk (no preset serves them). Bounds count the work of this run's
-   inputs (ops.paged_attention.decode_work and prefill_work);
+   launches phase 12 counts); the generic kernels in every dtype at the
+   8B's heads with head_dim 96, outside every fast set, at the served
+   window and first chunk (a prefill row each, its launches from phase
+   13's engines at their own head_dim, whose shapes phases 3 and 5 hold
+   to the plain version), and the generic prefill at the chunk phase 13 serves
+   (the 1b's heads in bfloat16 at page 8). Bounds count the work of this
+   run's inputs (ops.paged_attention.decode_work and prefill_work);
 6. hold the tensor-parallel wrappers (paged_attention_decode_sharded, its
    window form, paged_attention_prefill_sharded) against the plain
    versions at the heads one rank holds of the 8B widths at tp 2, 4 and
@@ -102,8 +108,13 @@ Phases; any failure exits non-zero before the result line:
    command that starts rank 1 itself), and each rank's serving summary
    must show no capture after warmup, mesh model=2, every kernel call
    from a graph replay on the bf16 routes, and the same counts on both
-   ranks. Every rank process is killed at the end of the phase. Its
-   times are two ranks sharing one card, not a TP speed;
+   ranks. The launcher ranks of phases 7 and 8 run with
+   ``--max-batch-size 4`` (the requests here are four at most), the
+   check's ranks with batches up to 8, so each warms fewer decode
+   graphs; every launcher rank's ``engine ready`` line (where its start
+   went: imports, process group, load, weights, warmup) is kept. Every
+   rank process is killed at the end of the phase. Its times are two
+   ranks sharing one card, not a TP speed;
 8. the seed-0 8B weights at full width and depth written as a BF16
    HuggingFace checkpoint (four shards, their index and config.json, no
    tokenizer files: the byte tokenizer serves), by this script's own
@@ -197,6 +208,18 @@ Phases; any failure exits non-zero before the result line:
    must be finite (the plain int8 order rounds x @ q to float16 before
    the scale, which overflows past 65504). Its launches fill the float16
    rows of the kernels line.
+13. (run last) the generic prefill kernel on served paths: Llama-3.2-1B's
+   widths in bfloat16 (the launcher's ``1b`` preset, seed-0 weights) at
+   page size 8, as the reference's ``--kv-cache-block-size 8`` gives
+   (1,024 pages, page buckets 16 and 128, the default chunk of 512):
+   warmed, phase 4's requests served over HTTP with no capture after
+   warmup, every prefill call on the generic prefill kernel and every
+   decode call on the generic decode kernel, its kernel path against its
+   plain path teacher-forced at page 8 (PATH_LIMITS, the two fault
+   controls); then the tiny preset (head_dim 16) in float16 and
+   bfloat16 at page 16 and in float32 at page 4, one request each on the
+   card with every prefill call on the generic kernel. Its launches fill
+   the generic prefill rows of the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -440,7 +463,8 @@ DECODE_NEEDS = [("float32", "f32"), ("float32", "generic"),
                 ("bfloat16", "bf16_mma"), ("bfloat16", "generic"),
                 ("float16", "f16_mma"), ("float16", "generic")]
 PREFILL_NEEDS = [("float32", "f32"), ("float32", "generic"),
-                 ("bfloat16", "bf16"), ("float16", "f16")]
+                 ("bfloat16", "bf16"), ("bfloat16", "generic"),
+                 ("float16", "f16"), ("float16", "generic")]
 
 
 def need_routes(routes: set, what: str, required) -> None:
@@ -579,6 +603,29 @@ def check_prefill(dev) -> dict:
         f32 = dtype == torch.float32
         cases.append(("small", 32, 2, 2, 4 if f32 else 16, 32 if f32 else 64,
                       8, 8, pos, [NO_WINDOW, 5], None))
+        # the generic kernel in every dtype: head_dim 96 at page 4, the
+        # deep chunk (positions 1536-2047) at head_dim 96 and page 8, and
+        # MQA (71 heads on one kv head: two head tiles) at head_dim 80
+        # and page 48 with a window and the softcap
+        cases.append(("generic", 32, 2, 2, 4, 96, 8, 8, pos, [NO_WINDOW, 5],
+                      None))
+        pos = (1536 + torch.arange(512, dtype=torch.int32))[None]
+        cases.append(("generic-deep", 300, 8, 4, 8, 96, 256, 256, pos,
+                      [NO_WINDOW], None))
+        pos = torch.stack([torch.arange(90, 130),
+                           torch.arange(40)]).to(torch.int32)
+        pos[1, 25:] = -1
+        cases.append(("generic-mqa", 12, 1, 71, 48, 80, 4, 3, pos,
+                      [NO_WINDOW, 30], 20.0))
+        # the shapes phase 13's tiny engines serve (4 heads on 2 kv heads,
+        # head_dim 16: the kernel's narrowest width): page 16 in the
+        # 16-bit types, page 4 in float32; the served 16-token chunk and a
+        # chunk continuing mid-sequence with padding and a window
+        pos = torch.stack([torch.arange(16),
+                           torch.arange(12, 28)]).to(torch.int32)
+        pos[1, 12:] = -1
+        cases.append(("generic-tiny", 32, 2, 2, 4 if f32 else 16, 16, 8, 8,
+                      pos, [NO_WINDOW, 5], None))
         for name, N, KV, G, ps, hd, P, used, pos, win, softcap in cases:
             B, T = pos.shape
             H = KV * G
@@ -601,6 +648,9 @@ def check_prefill(dev) -> dict:
             torch.cuda.synchronize()
             if ops.PREFILL_ROUTE_LAUNCHES[route] != before + 1:
                 fail(f"prefill {name} {dtype}: not on the {route} route")
+            if name.startswith("generic") and route != "generic":
+                fail(f"prefill {name} {dtype}: on the {route} route, not "
+                     f"the generic kernel")
             routes.add((dtype, route))
             want = prefill_reference(q, kp, vp, table, qp, hd ** -0.5,
                                      softcap, w)
@@ -1117,13 +1167,13 @@ PATH_LIMITS = {"prefill_logits": 0.25, "window_logits": 0.25,
 PATH_LENS, PATH_T, PATH_K = [512, 300, 12], 512, 4
 
 
-def path_run(params, cfg, dev, use: bool, mesh=None):
+def path_run(params, cfg, dev, use: bool, mesh=None, ps: int = 64):
     """Prefill of check_paths' three rows, then its teacher-forced window
     (the same input token at every step whatever the logits), on fresh
-    pools: (prefill logits [B, V], every step's logits [K, B, V], the K/V
-    committed at the window's K positions in every layer). With ``mesh``,
-    one tensor-parallel rank's run on its shards (its K/V: its kv
-    heads)."""
+    pools of page size ``ps``: (prefill logits [B, V], every step's logits
+    [K, B, V], the K/V committed at the window's K positions in every
+    layer). With ``mesh``, one tensor-parallel rank's run on its shards
+    (its K/V: its kv heads)."""
     import numpy as np
     import torch
 
@@ -1132,19 +1182,21 @@ def path_run(params, cfg, dev, use: bool, mesh=None):
                                                make_decode_window_fn,
                                                make_step_fns)
 
-    ps, T, K, lens = 64, PATH_T, PATH_K, PATH_LENS
+    T, K, lens = PATH_T, PATH_K, PATH_LENS
     B = len(lens)
-    spec = KVCacheSpec(num_pages=64, page_size=ps)
+    # pages a row: its longest context and the window, and one spare
+    per = -(-(max(lens) + K) // ps) + 1
+    spec = KVCacheSpec(num_pages=max(64, 1 + B * per), page_size=ps)
     g = torch.Generator(device="cpu").manual_seed(5)
     tokens = torch.randint(0, 256, (B, T), generator=g, dtype=torch.int32)
     forced = torch.randint(0, 256, (B, K + 1), generator=g,
                            dtype=torch.int32).to(dev)
     positions = torch.full((B, T), -1, dtype=torch.int32)
-    table = torch.zeros((B, 16), dtype=torch.int32)
+    table = torch.zeros((B, max(16, per)), dtype=torch.int32)
     slots = torch.full((B, T), 1 << 30, dtype=torch.int32)
     for b, n in enumerate(lens):
         positions[b, :n] = torch.arange(n)
-        table[b, :10] = torch.arange(1 + 10 * b, 11 + 10 * b)
+        table[b, :per] = torch.arange(1 + per * b, 1 + per * (b + 1))
         p = torch.arange(n)
         slots[b, :n] = table[b, p // ps] * ps + p % ps
     last = torch.tensor([n - 1 for n in lens], dtype=torch.int32)
@@ -1204,7 +1256,7 @@ def check_paths(engine, cfg, dev, limits=None) -> tuple:
 
     def run(use: bool):
         return path_run(engine.params if use else plain_params(engine.params),
-                        cfg, dev, use)
+                        cfg, dev, use, ps=engine.ecfg.page_size)
 
     def errs(a, b):
         return {"rel_l2_logits": rel_l2(torch.cat([a[0][None], a[1]]),
@@ -1627,6 +1679,7 @@ def time_prefill(k0, v0, ecfg, start: int, n: int, H: int, g,
     import torch
     import torch.nn.functional as F
 
+    from dynamo_tpu_torch.ops import paged_attention as ops
     from dynamo_tpu_torch.ops.paged_attention import (
         NO_WINDOW, paged_attention_prefill, paged_attention_prefill_sharded,
         prefill_reference, prefill_work)
@@ -1680,6 +1733,8 @@ def time_prefill(k0, v0, ecfg, start: int, n: int, H: int, g,
                                      flops / H100_F32_FLOPS) * 1e3
     return {
         "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+        "prefill_route": ops.PREFILL_ROUTES[ops.prefill_route(
+            k0.dtype, H, KV, ps, hd)],
         "bound_ms": max(bytes_ / H100_BYTES_PER_S,
                         flops / peak_flops) * 1e3,
         "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
@@ -1808,38 +1863,82 @@ def time_kernels(engine, cfg, dev, served) -> list:
     torch.cuda.empty_cache()
 
     # the generic kernels (paged_decode_kernel + paged_decode_combine, and
-    # paged_prefill_kernel<float>, which takes float32 alone) at the 8B's
-    # heads with head_dim 96, outside every fast set, on pools from a
-    # seed: the served window in bfloat16, float16 and float32 (under the
-    # decode row's shapes) and the first chunk in float32 (under the
-    # float32 prefill row's); no preset serves them
-    pf32_row = next(r for r in rows
-                    if r["name"] == "paged_attention_prefill float32")
+    # paged_prefill_generic_kernel) at the 8B's heads with head_dim 96,
+    # outside every fast set, on pools from a seed: the served window in
+    # bfloat16, float16 and float32 (under the decode row's shapes) and
+    # the first chunk in each (a row each, its launches from phase 13's
+    # engines; float32 bound at 3xTF32, as the f32 route's)
     for dtype, peak in ((torch.bfloat16, H100_BF16_FLOPS),
                         (torch.float16, H100_BF16_FLOPS),
-                        (torch.float32, H100_F32_FLOPS)):
+                        (torch.float32, H100_TF32_FLOPS / 3)):
         kg = torch.randn(1, ecfg.num_pages, cfg.num_kv_heads, ps, 96,
                          generator=g, device=dev).to(dtype)
         vg = torch.randn(1, ecfg.num_pages, cfg.num_kv_heads, ps, 96,
                          generator=g, device=dev).to(dtype)
         name = str(dtype).split(".")[-1]
-        dec_g = time_decode(kg, vg, ctx, B, P, K, H, g, peak_flops=peak)
+        dec_g = time_decode(kg, vg, ctx, B, P, K, H, g,
+                            peak_flops=(H100_F32_FLOPS
+                                        if dtype == torch.float32 else peak))
         if dec_g["decode_route"] != "generic":
             fail(f"decode at head_dim 96 in {name} took route "
                  f"{dec_g['decode_route']}, not the generic kernel")
         rows[0]["shapes"][f"generic hd96 {name}"] = dec_g
-        if dtype == torch.float32:
-            pf32_row["shapes"]["generic hd96"] = time_prefill(
-                kg[0], vg[0], ecfg, 0, served["prefill_chunk"], H, g,
-                peak_flops=H100_F32_FLOPS)
+        pf_g = time_prefill(kg[0], vg[0], ecfg, 0, served["prefill_chunk"], H,
+                            g, peak_flops=peak)
+        if pf_g["prefill_route"] != "generic":
+            fail(f"prefill at head_dim 96 in {name} took route "
+                 f"{pf_g['prefill_route']}, not the generic kernel")
+        rows.append({
+            "name": f"paged_attention_prefill generic {name}",
+            "route": "cuda",
+            "source": "dynamo_tpu_torch/ops/csrc/paged_prefill.cu",
+            "replaces": "dynamo_tpu/ops/paged_attention.py:336",
+            "kernel": f"paged_prefill_generic_kernel ({name}, head_dim 96)",
+            "launches": 0, **pf_g, "launches_from": GENERIC_SERVED[name][0]})
         del kg, vg
         torch.cuda.empty_cache()
+    # the chunk phase 13 serves: Llama-3.2-1B's heads (head_dim 64) in
+    # bfloat16 at page 8, its engine config, on pools from a seed
+    ec8 = generic_1b_ecfg()
+    k8 = torch.randn(ec8.num_pages, 8, ec8.page_size, 64, generator=g,
+                     device=dev).to(torch.bfloat16)
+    v8 = torch.randn(ec8.num_pages, 8, ec8.page_size, 64, generator=g,
+                     device=dev).to(torch.bfloat16)
+    pf8 = time_prefill(k8, v8, ec8, 0, served["prefill_chunk"], 32, g)
+    if pf8["prefill_route"] != "generic":
+        fail(f"the 1b's page-8 chunk took route {pf8['prefill_route']}")
+    next(r for r in rows if r["name"] == "paged_attention_prefill generic "
+         "bfloat16")["shapes"] = {"1b page 8 (served, phase 13)": pf8}
+    del k8, v8
+    torch.cuda.empty_cache()
     return rows
 
 
 # the tiny preset's served request (phase 10: one completion of a
 # 16-token prompt and 12 tokens): its window's context and first chunk
 TINY_SERVED_CTX, TINY_SERVED_CHUNK = [28], 16
+# the generic prefill rows of the kernels line by dtype: the phase-13
+# engine whose launches fill the row (what, its report key, the served
+# shape's head_dim and where that shape is held to its plain version)
+GENERIC_SERVED = {
+    "bfloat16": ("the 1b in bfloat16 at page 8 (phase 13)",
+                 "1b bf16 page 8", 64, "phase 5, the row's 1b page-8 chunk"),
+    "float16": ("the tiny preset in float16 (phase 13)",
+                "tiny float16 page 16", 16, "phase 3, generic-tiny"),
+    "float32": ("the tiny preset in float32 at page 4 (phase 13)",
+                "tiny float32 page 4", 16, "phase 3, generic-tiny")}
+# phase 13's tiny engines: (dtype, page size)
+TINY_GENERIC = (("float16", 16), ("float32", 4), ("bfloat16", 16))
+
+
+def generic_1b_ecfg():
+    """Phase 13's engine config for the 1b in bfloat16: page 8 (the
+    reference's --kv-cache-block-size 8), 1,024 pages, page buckets 16 and
+    128 (1,024 tokens a row: phase 4's 625-token prompt and its tokens),
+    the default chunk of 512."""
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig
+
+    return EngineConfig(page_size=8, num_pages=1024, page_buckets=(16, 128))
 
 
 def f32_shapes(ecfg, ctx, chunk) -> dict:
@@ -2738,8 +2837,11 @@ def tp_worker(rank: int, coordinator: str, out_dir: str,
         log(f"tp int8 worker {rank}: done")
         return
     # the plain variant alone: the rank checks no logprobs window, and at
-    # tp=2 on one card each warm call's collectives cost ~1 s a window
-    engine = TorchEngine(cfg, EngineConfig(warmup_logprobs=False), seed=0,
+    # tp=2 on one card each warm call's collectives cost ~1 s a window;
+    # batches up to 8, the largest bucket its checks replay (a window of
+    # 4 rows, a prefill batch of 8)
+    engine = TorchEngine(cfg, EngineConfig(max_batch=8,
+                                           warmup_logprobs=False), seed=0,
                          mesh=mesh)
     engine.warmup()
     dev = mesh.device
@@ -3032,12 +3134,18 @@ def serve_tp(cfg, out_dir: str, one_command: bool) -> dict:
                           TP_RANKS, one_command, _serve_remote)
 
 
+# the launcher ranks' --max-batch-size in phases 7 and 8
+LAUNCHER_MAX_BATCH = 4
+
+
 def serve_launcher(cfg, out_dir: str, model_args: list, name: str,
                    ranks: int, one_command: bool, requests) -> dict:
     """``ranks`` ranks of the launcher (``model_args`` choose the weights)
     on the one card, in the one-command form or one process per rank;
     ``requests(base, name)`` drives rank 0 over HTTP, then SIGTERM to
-    rank 0, which stops the others. Each rank's serving summary must
+    rank 0, which stops the others. The ranks take ``--max-batch-size``
+    LAUNCHER_MAX_BATCH, and each must print its ``engine ready`` line
+    (kept in the report). Each rank's serving summary must
     show no capture after warmup, its mesh, every kernel call from a
     graph replay (prefill: one per layer of a replayed chunk; decode:
     one per layer and step of a replayed window), all attention calls on
@@ -3050,10 +3158,14 @@ def serve_launcher(cfg, out_dir: str, model_args: list, name: str,
     from dynamo_tpu_torch.ops import paged_attention as ops
 
     port = _free_port()
+    # batches of up to 4 rows (the requests here are 4 at most): the ranks
+    # warm 12 decode graphs where the default batch of 64 warms 28, and at
+    # tp=2 on one card each warm call's collectives cost ~1 s a window
     base = [sys.executable, "-m", "dynamo_tpu_torch.run", "in=http",
             "out=torch", *model_args, "--model-name", name,
-            "--tensor-parallel-size", str(ranks), "--http-host",
-            "127.0.0.1", "--http-port", str(port)]
+            "--tensor-parallel-size", str(ranks), "--max-batch-size",
+            str(LAUNCHER_MAX_BATCH), "--http-host", "127.0.0.1",
+            "--http-port", str(port)]
     form = "one_command" if one_command or ranks == 1 else "coordinator"
     if form == "one_command":
         cmds = [base]
@@ -3090,7 +3202,7 @@ def serve_launcher(cfg, out_dir: str, model_args: list, name: str,
 
     rcs = _run_ranks(cmds, logs, 600, until=drive,
                      rank_env=form != "one_command")
-    summaries, loads = {}, {}
+    summaries, loads, ready = {}, {}, {}
     for i, path in enumerate(logs):
         with open(path) as f:
             text = f.read()
@@ -3101,6 +3213,9 @@ def serve_launcher(cfg, out_dir: str, model_args: list, name: str,
             if "checkpoint loaded " in line:
                 ld = json.loads(line.split("checkpoint loaded ", 1)[1])
                 loads[ld["rank"]] = ld
+            if "engine ready " in line:
+                rd = json.loads(line.split("engine ready ", 1)[1])
+                ready[rd["rank"]] = rd
         if rcs[i] != 0:
             fail(f"tp process {i} exited {rcs[i]}:\n{_tail(path)}")
         if (form == "one_command" and ranks > 1
@@ -3108,6 +3223,12 @@ def serve_launcher(cfg, out_dir: str, model_args: list, name: str,
             fail(f"the one-command launcher did not set the ranks' NCCL "
                  f"host ids:\n{_tail(path)}")
     report["loads"] = loads
+    # where each rank's start went (the launcher's engine-ready line)
+    report["ready"] = ready
+    if sorted(ready) != list(range(ranks)) or any(
+            rd["max_batch"] != LAUNCHER_MAX_BATCH for rd in ready.values()):
+        fail(f"engine-ready lines of ranks {sorted(ready)}: "
+             f"{json.dumps(ready)}")
     if sorted(summaries) != list(range(ranks)):
         fail(f"tp serving summaries of ranks {sorted(summaries)}:\n"
              f"{_tail(logs[0])}")
@@ -3768,6 +3889,119 @@ def f16_phase(dev) -> dict:
     return report
 
 
+# ------------------------------------------------------- generic prefill
+
+
+def serve_one_tiny(dtype: str, ps: int) -> dict:
+    """The tiny preset (head_dim 16) in ``dtype`` with the launcher's tiny
+    engine config at page size ``ps``, seed-0 weights, warmed, then one
+    request on the card (16 prompt tokens, 12 generated, greedy): no
+    capture after warmup, every prefill call on the generic kernel and
+    every decode call on the generic decode kernel."""
+    import dataclasses
+
+    import torch
+
+    from dynamo_tpu_torch.engine.torch_engine import TorchEngine
+    from dynamo_tpu_torch.llm.protocols.common import (PreprocessedRequest,
+                                                       StopConditions)
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import paged_attention as ops
+    from dynamo_tpu_torch.run import build_engine_config, parse_args
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    ecfg = dataclasses.replace(
+        build_engine_config(parse_args(["in=http", "out=torch"])),
+        page_size=ps)
+    engine = TorchEngine(ModelConfig.tiny(dtype=dtype), ecfg, seed=0,
+                         device="cuda")
+    engine.warmup()
+    ops.reset_launch_counts()
+
+    async def one():
+        toks = []
+        try:
+            req = PreprocessedRequest(
+                token_ids=list(range(30, 30 + TINY_SERVED_CHUNK)),
+                stop=StopConditions(max_tokens=12, ignore_eos=True))
+            async for out in engine.generate(req, Context()):
+                toks += out.token_ids
+        finally:
+            await engine.stop()
+        return toks
+
+    toks = asyncio.run(one())
+    torch.cuda.synchronize()
+    got = {"dtype": dtype, "page_size": ps, "tokens": toks,
+           "launches": dict(ops.LAUNCHES),
+           "route_launches": dict(ops.DECODE_ROUTE_LAUNCHES),
+           "prefill_route_launches": dict(ops.PREFILL_ROUTE_LAUNCHES),
+           "post_warmup_compiles_total":
+               engine.stats()["post_warmup_compiles_total"]}
+    n_pf, n_dec = (got["launches"]["paged_attention_prefill"],
+                   got["launches"]["paged_attention_decode"])
+    if (len(toks) != 12 or got["post_warmup_compiles_total"] != 0
+            or n_pf <= 0 or n_dec <= 0
+            or got["prefill_route_launches"] != only(ops.PREFILL_ROUTES,
+                                                     "generic", n_pf)
+            or got["route_launches"] != only(ops.DECODE_ROUTES, "generic",
+                                             n_dec)):
+        fail(f"tiny {dtype} engine at page {ps}: {json.dumps(got)}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def generic_phase(dev) -> dict:
+    """Phase 13: the generic prefill kernel on served paths. Llama-3.2-1B's
+    widths in bfloat16 (the JAX launcher's ``1b`` preset, seed-0 weights)
+    at page size 8, as the reference's ``--kv-cache-block-size 8`` gives
+    (:func:`generic_1b_ecfg`): warmed (every bucket of both grids
+    captured), phase 4's requests served over HTTP (serve_and_check: no
+    capture after warmup, every attention call from a graph replay, every
+    prefill call on the generic kernel, every decode call on the generic
+    decode kernel), then its kernel path against its plain path
+    teacher-forced at page 8 (check_paths at PATH_LIMITS with the two
+    fault controls); then the tiny preset in bfloat16 and float16 (head
+    dim 16, page 16) and in float32 at page 4, one request each on the
+    generic kernel (:func:`serve_one_tiny`)."""
+    import torch
+
+    from dynamo_tpu_torch.engine.torch_engine import TorchEngine
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.llama_1b()
+    t = time.monotonic()
+    engine = TorchEngine(cfg, generic_1b_ecfg(), seed=0, device="cuda")
+    engine.warmup()
+    topn = engine.ecfg.max_top_logprobs
+    check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
+    log(f"  1b bf16 engine at page 8 (16 layers, D=2048, V=128256, seed 0) "
+        f"built and warmed up in {time.monotonic() - t:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    if served_routes(engine) != ("generic", "generic"):
+        fail(f"the 1b at page 8 is not on the generic kernels: "
+             f"{served_routes(engine)}")
+    mdc = ModelDeploymentCard(name="llama-1b-page8-random")
+    mdc.kv_block_size = engine.ecfg.page_size
+    t = time.monotonic()
+    served, _, _ = asyncio.run(serve_and_check(engine, mdc))
+    log(f"  served in {time.monotonic() - t:.1f}s: {json.dumps(served)}")
+    t = time.monotonic()
+    paths, _ = check_paths(engine, cfg, dev)
+    log(f"  teacher-forced check at page 8 in {time.monotonic() - t:.1f}s")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = {"1b bf16 page 8": {"served": served, "paths": paths}}
+    for dtype, ps in TINY_GENERIC:
+        report[f"tiny {dtype} page {ps}"] = got = serve_one_tiny(dtype, ps)
+        log(f"  tiny {dtype} engine at page {ps}: {json.dumps(got)}")
+    return report
+
+
 # --------------------------------------------------------------- main
 
 
@@ -3914,6 +4148,26 @@ def main() -> None:
         "of the bf16 attention kernels, then with int8 weights on the "
         "float16 forms of the int8 GEMM's tensor-core routes")
     f16_report = f16_phase(dev)
+
+    log("phase 13: the generic prefill kernel served: the 1b in bfloat16 "
+        "at page 8 over HTTP, then the tiny preset in bfloat16, float16 and "
+        "float32")
+    generic_report = generic_phase(dev)
+    # the generic prefill rows take their launches from phase 13's engines
+    # (its head_dim 16 or 64, another instantiation than the timed head
+    # dim 96: the row's kernel says which shape each number is from)
+    for dtype, (what, key, hd, held) in GENERIC_SERVED.items():
+        rep = generic_report[key]
+        row = next(r for r in rows
+                   if r["name"] == f"paged_attention_prefill generic {dtype}")
+        row["launches"] = rep.get("served", rep)["prefill_route_launches"][
+            "generic"]
+        if row["launches"] <= 0:
+            fail(f"{row['name']}: not launched on its served path ({what})")
+        row["kernel"] = (f"paged_prefill_generic_kernel ({dtype}): times "
+                         f"and max_abs_err at head_dim 96, launches from "
+                         f"{what} at head_dim {hd}, held to its plain "
+                         f"version in {held}")
     # the float32 rows (attention, and the 1b's int8 products) take their
     # launches from phase 11, the float16 rows (attention and int8) theirs
     # from phase 12
@@ -3923,6 +4177,8 @@ def main() -> None:
     f32_int8 = f32_report["float32 int8"]["served"]["int8_gemm_launches"]
     for r in rows:
         decode = r["name"].startswith("paged_attention_decode")
+        if " generic " in r["name"]:  # phase 13's, above
+            continue
         if "int8_route" in r:  # an int8 GEMM row
             if r["dtype"] == "float16":
                 r["launches"] = f16_int8[r["int8_route"]]
@@ -3978,6 +4234,7 @@ def main() -> None:
                        "logprobs": logprobs_check,
                        "checkpoint": checkpoint, "penalties": penalties,
                        "f32_1b": f32_report, "f16_8b": f16_report,
+                       "generic_prefill": generic_report,
                        "kernels": rows, "int8": int8_report,
                        "int8_gemm_timings": int8_rows,
                        "tp_local_errs": {" ".join(k): v for k, v in

@@ -14,8 +14,11 @@
 //   route 2  paged_prefill_f32_kernel<hd, kb>   float32 at head_dim
 //            16/32/64/128/256, page 8-128, GQA groups 1-8 (3xTF32 on the
 //            tensor cores: the tiny, 1b and llama3_8b presets in float32)
-//   route 0  paged_prefill_kernel<float>        float32 shapes outside
-//            that set (CUDA-core FMAs from shared memory)
+//   route 0  paged_prefill_generic_kernel      every other shape, in
+//            <T, hdp>                           float32, bfloat16 and
+//            float16: any page size and GQA group, head_dim up to 256 (a
+//            multiple of 8 in 16 bits); mma.sync tensor-core products
+//            from a cp.async ring
 //
 // Pool layout: [N, KV, ps, hd] for one layer (a view of the stacked pool),
 // contiguous; a page of one kv head is one contiguous [ps, hd] tile.
@@ -107,13 +110,43 @@
 // faster, 16-key stages at head_dim 128 slower (0.119 ms). wgmma would
 // need V K-major: a transposing split pass.
 //
+// What the generic design (route 0) does about it. The bound is the
+// same, and every shape outside routes 1-3 lands here (the tiny preset's
+// head_dim 16, page 8 as the reference's --kv-cache-block-size allows,
+// head_dim 80 or 96, groups above 8, MQA), so it takes what the other
+// routes' TMA boxes cannot: a box's rows lie in one page and its strides
+// are multiples of 16 bytes.
+// * Work split as routes 1-3: a block owns 64 (query, head) rows of one
+//   (row, kv head), 64 / G queries times G heads; past G = 64 one query
+//   times 64 heads, the grid gaining head tiles. Four warps of 16 rows,
+//   the query tiles reversed (heaviest first).
+// * Keys in blocks of KB positions, not pages: position j lies on page
+//   page_table[b, j / ps] at slot j % ps, so a block crosses page
+//   boundaries freely and keeps a tensor-core width at any page size. A
+//   block walks only its visible extent.
+// * A ring of two stages filled with cp.async by all four warps (16-byte
+//   copies where a row is a multiple of 16 bytes, else 8 or 4), rows in
+//   padded strides so that ldmatrix and the fragment loads meet
+//   different banks, head_dim padded to 16..256 with zero columns. The
+//   row offsets of block j + 2 are loaded while block j computes. A row
+//   whose page id lies outside [0, N) is zero-filled (never read) and
+//   masked.
+// * bfloat16 / float16: mma.sync m16n8k16 (f32 accumulate), Q and K
+//   fragments by ldmatrix, P straight from the S accumulator rounded to
+//   T (the C layout is the A layout), V by ldmatrix.trans. float32:
+//   route 2's 3xTF32 m16n8k8 with its key order for P V, each block's
+//   P V summed from zero. wgmma would want the 128-byte canonical layouts
+//   (and V K-major for TF32) that TMA boxes give routes 1-3.
+// * Softmax in registers per quad, O in registers until the epilogue.
+//
 // Semantics shared with the TPU kernel: causal visibility by absolute
 // query position (-1 = padding, gives zeros) intersected with the row's
 // sliding window; the Gemma-2 softcap before the mask; online softmax in
 // f32 with the finite NEG_INF, and exp only where a key is visible (an
-// all-masked row keeps m = NEG_INF, l = 0 and returns zeros); the bf16
-// kernel's probabilities enter P V rounded to bf16 (its float16 form's to
-// float16), as the gather path's einsum takes them.
+// all-masked row keeps m = NEG_INF, l = 0 and returns zeros); the 16-bit
+// kernels' probabilities enter P V rounded to their type (bfloat16 or
+// float16), as the gather path's einsum takes them; a page id outside
+// [0, N) contributes nothing and is never read.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -126,152 +159,6 @@
 #include "tma_wgmma.cuh"
 
 namespace {
-
-// ------------------------------------------------------- float32 kernel
-constexpr int PF_THREADS = 256;
-constexpr size_t PF_F32_SMEM_LIMIT = 200 * 1024;
-
-// grid (B, KV, ceil(T / TQ)); block PF_THREADS. Rows r = t_local * G + g
-// (R = TQ * G of them). Shared: q [R*hd], K page [ps*(hd+1)] (padded row
-// stride: conflict-free score reads), V page [ps*hd], scores/probs
-// [R*ps], acc [R*hd], m, l, alpha [R], q positions [TQ] and the block's
-// page bounds.
-template <typename T>
-__global__ void __launch_bounds__(PF_THREADS)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                     const T* __restrict__ v_pages,
-                     const int* __restrict__ page_table,
-                     const int* __restrict__ q_positions,
-                     const int* __restrict__ eff_win, T* __restrict__ out,
-                     int Tq, int H, int KV, int N, int ps, int hd, int P,
-                     int TQ, float scale, float softcap) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, kv = blockIdx.y, t0 = blockIdx.z * TQ;
-  const int G = H / KV, R = TQ * G;
-  float* q_s = smem;
-  float* k_s = q_s + R * hd;
-  float* v_s = k_s + ps * (hd + 1);
-  float* s_s = v_s + ps * hd;
-  float* acc = s_s + R * ps;
-  float* m_s = acc + R * hd;
-  float* l_s = m_s + R;
-  float* a_s = l_s + R;
-  int* qpos_s = reinterpret_cast<int*>(a_s + R);
-  int* bounds = qpos_s + TQ;  // [page_begin, page_end)
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int win = eff_win[b];
-
-  for (int i = tid; i < TQ; i += blockDim.x) {
-    const int t = t0 + i;
-    qpos_s[i] = t < Tq ? q_positions[(long long)b * Tq + t] : -1;
-  }
-  for (int i = tid; i < R * hd; i += blockDim.x) {
-    const int r = i / hd, d = i - r * hd;
-    const int t = t0 + r / G, g = r - (r / G) * G;
-    q_s[i] = t < Tq ? to_f(q[(((long long)b * Tq + t) * H + kv * G + g) * hd + d]) : 0.f;
-    acc[i] = 0.f;
-  }
-  for (int r = tid; r < R; r += blockDim.x) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    // this block's visible extent, as the TPU wrapper computes it per row
-    // (dynamo_tpu/ops/paged_attention.py:431-438) but over the block's own
-    // queries: length = max position + 1, lower = min position + 1 - window
-    int maxq = -1, minq = 1 << 30;
-    for (int i = 0; i < TQ; ++i) {
-      const int qp = qpos_s[i];
-      maxq = max(maxq, qp);
-      if (qp >= 0) minq = min(minq, qp);
-    }
-    const int length = maxq + 1;
-    const int lo = min(max(minq + 1 - win, 0), max(length - 1, 0));
-    bounds[0] = lo / ps;
-    bounds[1] = min((length + ps - 1) / ps, P);
-  }
-  __syncthreads();
-  const int p_begin = bounds[0], p_end = bounds[1];
-  const long long page_elems = (long long)KV * ps * hd;
-  const long long head_off = (long long)kv * ps * hd;
-
-  for (int p = p_begin; p < p_end; ++p) {
-    const int page = page_table[(long long)b * P + p];
-    if (page < 0 || page >= N) continue;  // never read outside the pool
-    const T* kp = k_pages + page * page_elems + head_off;
-    const T* vp = v_pages + page * page_elems + head_off;
-    for (int i = tid; i < ps * hd; i += blockDim.x) {
-      const int j = i / hd, d = i - j * hd;
-      k_s[j * (hd + 1) + d] = to_f(kp[i]);
-      v_s[i] = to_f(vp[i]);
-    }
-    __syncthreads();
-
-    for (int i = tid; i < R * ps; i += blockDim.x) {
-      const int r = i / ps, j = i - r * ps;
-      const float* qr = q_s + r * hd;
-      const float* kj = k_s + j * (hd + 1);
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s += qr[d] * kj[d];
-      s_s[i] = cap(s * scale, softcap);
-    }
-    __syncthreads();
-
-    for (int r = warp; r < R; r += nwarps) {
-      const int qp = qpos_s[r / G];
-      float mx = NEG_INF;
-      for (int j = lane; j < ps; j += 32) {
-        const int kvp = p * ps + j;
-        if (kvp <= qp && kvp > qp - win) mx = fmaxf(mx, s_s[r * ps + j]);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < ps; j += 32) {
-        const int kvp = p * ps + j;
-        const float pe = (kvp <= qp && kvp > qp - win)
-                             ? expf(s_s[r * ps + j] - m_new) : 0.f;
-        s_s[r * ps + j] = pe;
-        sum += pe;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < R * hd; i += blockDim.x) {
-      const int r = i / hd, d = i - r * hd;
-      const float* pr = s_s + r * ps;
-      float a = acc[i] * a_s[r];
-      for (int j = 0; j < ps; ++j) a += pr[j] * v_s[j * hd + d];
-      acc[i] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < R * hd; i += blockDim.x) {
-    const int r = i / hd, d = i - r * hd;
-    const int t = t0 + r / G, g = r - (r / G) * G;
-    if (t < Tq)
-      out[(((long long)b * Tq + t) * H + kv * G + g) * hd + d] =
-          from_f<T>(acc[i] / fmaxf(l_s[r], 1e-9f));
-  }
-}
-
-size_t prefill_smem_bytes(int TQ, int G, int ps, int hd) {
-  const size_t R = (size_t)TQ * G;
-  return sizeof(float) * (R * hd + (size_t)ps * (hd + 1) + (size_t)ps * hd +
-                          R * ps + R * hd + 3 * R) +
-         sizeof(int) * ((size_t)TQ + 2);
-}
 
 // ------------------------------------------------------ bfloat16 kernel
 constexpr int PF_ROWS = 64;             // (query, head) rows per block
@@ -1035,6 +922,494 @@ int launch_f32_hd(const void* q, const void* k_pages, const void* v_pages,
                                 H, KV, N, ps, P, scale, softcap, st);
 }
 
+// ------------------------------------------------- generic kernel (route 0)
+constexpr int GN_ROWS = 64;      // (query, head) rows per block
+constexpr int GN_THREADS = 128;  // four warps of 16 rows
+constexpr int GN_STAGES = 2;     // K/V stages in the cp.async ring
+
+// head_dim as the products take it: the next of 16, 32, 64, 96, 128, 192
+// and 256 (columns past hd are zeros in shared memory)
+__host__ __device__ constexpr int gn_hdp(int hd) {
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 96 ? 96
+       : hd <= 128 ? 128 : hd <= 192 ? 192 : 256;
+}
+
+// keys a stage, by element size: 16-bit 64 (32 past head_dim 128), float32
+// 64 / 32 / 16 as route 2 takes them
+__host__ __device__ constexpr int gn_keys(int esize, int hdp) {
+  return esize == 4 ? (hdp <= 64 ? 64 : hdp <= 128 ? 32 : 16)
+                    : (hdp <= 128 ? 64 : 32);
+}
+
+// Row strides in elements. Q and K: hdp + 8, so that the eight 16-byte
+// rows of an ldmatrix phase (16-bit) or the float2 fragment loads of a
+// half warp (float32) meet different banks. V: the same in 16 bits (read
+// by ldmatrix.trans); hdp + 4 in float32, where lane (g, t) reads column
+// g of keys 2t and 2t + 1.
+__host__ __device__ constexpr int gn_v_stride(int esize, int hdp) {
+  return esize == 4 ? hdp + 4 : hdp + 8;
+}
+
+// Shared memory of a block: Q [64, hdp + 8], the stages' K and V rows,
+// each stage's key positions (int) and a ring of two key blocks' row
+// offsets (long long). ops/paged_attention.py prefill_generic_plan
+// mirrors it; dyn_paged_prefill_generic_smem lets the card tests hold the
+// two equal.
+__host__ __device__ constexpr int gn_smem(int esize, int hdp) {
+  return (GN_ROWS * (hdp + 8) +
+          GN_STAGES * gn_keys(esize, hdp) * (hdp + 8 + gn_v_stride(esize, hdp))) *
+             esize +
+         GN_STAGES * gn_keys(esize, hdp) * 4 + 2 * gn_keys(esize, hdp) * 8;
+}
+
+// cp.async of BYTES (4, 8 or 16) from global to shared memory; where
+// `valid` is false nothing is read and the destination is zero-filled
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
+                                               bool valid) {
+  const uint32_t d = smem_u32(dst);
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES), "r"(n) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)) : "memory");
+}
+
+// mma.sync m16n8k16, T (bf16 or f16) in, f32 accumulate: A a[0..3] (rows
+// g, g + 8 at k 2t, 2t + 1; the same at k + 8), B b0 (k 2t, 2t + 1), b1
+// (k + 8) at column g, D d[0..3] (row g cols 2t, 2t + 1; row g + 8 the
+// same), g = lane / 4, t = lane % 4.
+template <typename T>
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
+                                          uint32_t b0, uint32_t b1) {
+#define DYN_MMA_16816(AB)                                                   \
+  asm("mma.sync.aligned.m16n8k16.row.col.f32." AB "." AB ".f32 "            \
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                     \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+  DYN_AB(T, DYN_MMA_16816);
+#undef DYN_MMA_16816
+}
+
+// Element offset, in the layer's pool, of key position `key`'s row of kv
+// head kv: page page_table[b, key / ps], slot key % ps; -1 where the
+// entry lies past the table or the page id outside [0, N) (never read).
+__device__ __forceinline__ long long gn_key_src(const int* row_pages, int key,
+                                                int ps, int P, int N, int KV,
+                                                int kv, int hd) {
+  const int p = key / ps;
+  if (p >= P) return -1;
+  const int page = row_pages[p];
+  if (page < 0 || page >= N) return -1;
+  return (((long long)page * KV + kv) * ps + (key - p * ps)) * hd;
+}
+
+// The cp.async copies of one key block's K and V rows into a stage, BYTES
+// a copy, consecutive threads on consecutive copies of a row; a row whose
+// offset is -1 is zero-filled. Columns past hd are not written.
+template <typename T, int HDP, int BYTES>
+__device__ __forceinline__ void gn_issue(T* ks, const long long* src,
+                                         const T* k_pages, const T* v_pages,
+                                         int hd, int tid) {
+  constexpr int KB = gn_keys(sizeof(T), HDP), QS = HDP + 8;
+  constexpr int VS = gn_v_stride(sizeof(T), HDP), CE = BYTES / sizeof(T);
+  T* vs = ks + KB * QS;
+  const int cpr = hd / CE;  // copies a row
+  const int n = KB * cpr;
+  for (int task = tid; task < 2 * n; task += GN_THREADS) {
+    const bool v = task >= n;
+    const int tk = v ? task - n : task;
+    const int i = tk / cpr, c = tk - i * cpr;
+    const long long off = src[i];
+    const T* g = (v ? v_pages : k_pages) + (off >= 0 ? off + c * CE : 0);
+    cp_async_zfill<BYTES>((v ? vs + i * VS : ks + i * QS) + c * CE, g,
+                          off >= 0);
+  }
+}
+
+// grid (B * KV * head tiles, query tiles), the tile index reversed (the
+// causal tiles that walk the most keys first); block GN_THREADS: warp w
+// holds rows 16w .. 16w + 15 of every fragment. Row r of a block is
+// (query t0 + r / GT, head h0 + r % GT) of kv head kv, GT = min(G, 64)
+// heads and TQ = 64 / GT queries a block; past G = 64 a block takes one
+// query and 64 heads (head tile h0 / 64 of ceil(G / 64)). Shared memory:
+// see gn_smem. T: float (3xTF32), __nv_bfloat16 or __half.
+template <typename T, int HDP>
+__global__ void __launch_bounds__(GN_THREADS, HDP <= 128 ? 2 : 1)
+paged_prefill_generic_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k_pages,
+                             const T* __restrict__ v_pages,
+                             const int* __restrict__ page_table,
+                             const int* __restrict__ q_positions,
+                             const int* __restrict__ eff_win,
+                             T* __restrict__ out, int Tq, int H, int KV, int N,
+                             int ps, int hd, int P, int HT, float scale,
+                             float softcap) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int ES = sizeof(T), KB = gn_keys(ES, HDP), QS = HDP + 8;
+  constexpr int VS = gn_v_stride(ES, HDP), STAGE = KB * (QS + VS);
+  extern __shared__ __align__(16) uint8_t gn_smem_raw[];
+  T* q_s = reinterpret_cast<T*>(gn_smem_raw);
+  T* kv_s = q_s + GN_ROWS * QS;
+  int* kpos_s = reinterpret_cast<int*>(kv_s + GN_STAGES * STAGE);
+  long long* src_s = reinterpret_cast<long long*>(kpos_s + GN_STAGES * KB);
+
+  const int G = H / KV, GT = G < GN_ROWS ? G : GN_ROWS, TQ = GN_ROWS / GT;
+  const int tile = blockIdx.x % HT, bk = blockIdx.x / HT;
+  const int b = bk / KV, kv = bk - b * KV, h0 = tile * GN_ROWS;
+  const int t0 = (gridDim.y - 1 - blockIdx.y) * TQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int win = eff_win[b];
+  const int* row_pages = page_table + (long long)b * P;
+
+  // the block's key blocks [j_begin, j_end) of KB keys: the visible
+  // extent of its queries, as routes 1-3 take it; every warp computes it
+  int maxq = -1, minq = 1 << 30;
+  for (int i = lane; i < TQ; i += 32) {
+    const int t = t0 + i;
+    const int qp = t < Tq ? q_positions[(long long)b * Tq + t] : -1;
+    maxq = max(maxq, qp);
+    if (qp >= 0) minq = min(minq, qp);
+  }
+  maxq = warp_max_i(maxq);
+  minq = warp_min_i(minq);
+  const int length = maxq + 1;
+  const int lo = min(max(minq + 1 - win, 0), max(length - 1, 0));
+  const int j_begin = lo / KB;
+  const int j_end = (int)min((long long)(length + KB - 1) / KB,
+                             ((long long)P * ps + KB - 1) / KB);
+
+  // Q into shared memory once: rows past the block's (query, head) pairs
+  // and columns past hd are zeros
+  constexpr int QC = 16 / ES;  // elements a 16-byte chunk
+  for (int i = tid; i < GN_ROWS * HDP / QC; i += GN_THREADS) {
+    const int r = i / (HDP / QC), d = (i - r * (HDP / QC)) * QC;
+    const int tl = r / GT, g = h0 + r - tl * GT, t = t0 + tl;
+    const bool row = tl < TQ && g < G && t < Tq;
+    const T* src = q + (((long long)b * Tq + t) * H + kv * G + g) * hd + d;
+    if (hd % QC == 0) {
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (row && d < hd) v = *reinterpret_cast<const uint4*>(src);
+      *reinterpret_cast<uint4*>(q_s + r * QS + d) = v;
+    } else {  // float32 rows that are not 16-byte multiples
+#pragma unroll
+      for (int e = 0; e < QC; ++e)
+        q_s[r * QS + d + e] = row && d + e < hd ? src[e] : from_f<T>(0.f);
+    }
+  }
+  // columns hd .. HDP - 1 of every stage's K and V rows stay zero (the
+  // copies write the first hd); the row offsets of the first two blocks
+  const int pad = HDP - hd;
+  for (int i = tid; i < GN_STAGES * KB * pad; i += GN_THREADS) {
+    const int row = i / pad, d = hd + i - row * pad;
+    T* ks = kv_s + (row / KB) * STAGE;
+    const int kr = row % KB;
+    ks[kr * QS + d] = from_f<T>(0.f);
+    ks[KB * QS + kr * VS + d] = from_f<T>(0.f);
+  }
+  if (tid < KB)
+    for (int a = 0; a < 2; ++a)
+      src_s[((j_begin + a) & 1) * KB + tid] =
+          gn_key_src(row_pages, (j_begin + a) * KB + tid, ps, P, N, KV, kv, hd);
+  __syncthreads();
+
+  // copies of key block jj into stage s (16-byte copies where a row is a
+  // multiple of 16 bytes, else 8 or 4), and its key positions: a row not
+  // read takes INT_MAX, which no query sees
+  const int row_bytes = hd * ES;
+  auto issue = [&](int jj, int s) {
+    T* ks = kv_s + s * STAGE;
+    const long long* src = src_s + (jj & 1) * KB;
+    if constexpr (F32) {
+      if (row_bytes % 16 == 0)
+        gn_issue<T, HDP, 16>(ks, src, k_pages, v_pages, hd, tid);
+      else if (row_bytes % 8 == 0)
+        gn_issue<T, HDP, 8>(ks, src, k_pages, v_pages, hd, tid);
+      else
+        gn_issue<T, HDP, 4>(ks, src, k_pages, v_pages, hd, tid);
+    } else {
+      gn_issue<T, HDP, 16>(ks, src, k_pages, v_pages, hd, tid);
+    }
+    if (tid < KB) kpos_s[s * KB + tid] = src[tid] >= 0 ? jj * KB + tid : INT_MAX;
+  };
+
+  // this thread's rows r0 and r0 + 8, their query positions (-1: padding
+  // query, or a head past G), and its place in the quad
+  const int g8 = lane >> 2, tq = lane & 3;
+  const int r0 = warp * 16 + g8;
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i, tl = r / GT, g = h0 + r - tl * GT, t = t0 + tl;
+    qpos[i] = (tl < TQ && g < G && t < Tq) ? q_positions[(long long)b * Tq + t]
+                                           : -1;
+  }
+
+  float o[HDP / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < HDP / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  if (j_begin < j_end) issue(j_begin, 0);
+  cp_async_commit_group();
+  int s = 0;
+  for (int j = j_begin; j < j_end; ++j, s ^= 1) {
+    cp_async_wait_all();  // block j's copies (this thread's) have landed
+    __syncthreads();      // everyone's; and everyone is done with block j - 1
+    if (j + 1 < j_end) issue(j + 1, s ^ 1);
+    cp_async_commit_group();
+    // the row offsets of block j + 2, loaded while block j computes
+    long long nxt = -1;
+    if (tid < KB && j + 2 < j_end)
+      nxt = gn_key_src(row_pages, (j + 2) * KB + tid, ps, P, N, KV, kv, hd);
+    const T* ks = kv_s + s * STAGE;
+    const T* vs = ks + KB * QS;
+    const int* kp = kpos_s + s * KB;
+
+    // S = Q K^T: [16, KB] a warp
+    float sc[KB / 8][4];
+#pragma unroll
+    for (int jn = 0; jn < KB / 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[jn][e] = 0.f;
+    if constexpr (F32) {
+      // 3xTF32 m16n8k8, k-steps of 8 along head_dim: thread t's k = t and
+      // t + 4 stand for elements d and d + 1 (one 8-byte load), A and B
+      // alike, as route 2 takes them
+#pragma unroll
+      for (int kk = 0; kk < HDP / 8; ++kk) {
+        const int d = 8 * kk + 2 * tq;
+        const float2 x0 = *reinterpret_cast<const float2*>(q_s + r0 * QS + d);
+        const float2 x1 =
+            *reinterpret_cast<const float2*>(q_s + (r0 + 8) * QS + d);
+        uint32_t ab[4], as[4];
+        split_tf32(x0.x, ab[0], as[0]);
+        split_tf32(x1.x, ab[1], as[1]);
+        split_tf32(x0.y, ab[2], as[2]);
+        split_tf32(x1.y, ab[3], as[3]);
+#pragma unroll
+        for (int jn = 0; jn < KB / 8; ++jn) {
+          const float2 kx =
+              *reinterpret_cast<const float2*>(ks + (8 * jn + g8) * QS + d);
+          uint32_t bb[2], bs[2];
+          split_tf32(kx.x, bb[0], bs[0]);
+          split_tf32(kx.y, bb[1], bs[1]);
+          mma_3xtf32(sc[jn], ab, as, bb, bs);
+        }
+      }
+    } else {
+      // m16n8k16: Q's A fragment and two key blocks' B fragments a k-step,
+      // each one ldmatrix.x4
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, q_s + (warp * 16 + (lane & 15)) * QS + kk * 16 +
+                       (lane >> 4) * 8);
+#pragma unroll
+        for (int jp = 0; jp < KB / 16; ++jp) {
+          uint32_t bk[4];
+          ldsm_x4(bk, ks + (jp * 16 + ((lane >> 4) << 3) + (lane & 7)) * QS +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_16816<T>(sc[2 * jp], a, bk[0], bk[1]);
+          mma_16816<T>(sc[2 * jp + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+
+    // online softmax on the fragment, as routes 1-3 take it: element e of
+    // block jn is row r0 + 8 * (e >> 1), key slot 8 * jn + 2 * tq + (e & 1)
+    // at position kp[slot]; log2 units, masked keys -inf
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int jn = 0; jn < KB / 8; ++jn) {
+      const int2 kq = *reinterpret_cast<const int2*>(kp + 8 * jn + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = cap(sc[jn][e] * scale, softcap) * LOG2E;
+        sc[jn][e] = visible((e & 1) ? kq.y : kq.x, qpos[e >> 1], win)
+                        ? x : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[jn][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int jn = 0; jn < KB / 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[jn][e] = exp2f(sc[jn][e] - m[e >> 1]);
+        l[e >> 1] += sc[jn][e];
+      }
+#pragma unroll
+    for (int nd = 0; nd < HDP / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nd][e] *= alpha[e >> 1];
+
+    if constexpr (F32) {
+      // O += P V in 3xTF32, k-steps of 8 keys: the accumulator is the A
+      // operand as it stands (columns t and t + 4 stand for keys 2t and
+      // 2t + 1), B's rows are V's rows 2t and 2t + 1 to match; each
+      // 8-wide column tile takes the block's products from zero and one
+      // float32 add (the tensor cores round accumulations toward zero)
+      uint32_t pb[KB / 8][4], psm[KB / 8][4];
+#pragma unroll
+      for (int jn = 0; jn < KB / 8; ++jn) {
+        split_tf32(sc[jn][0], pb[jn][0], psm[jn][0]);
+        split_tf32(sc[jn][2], pb[jn][1], psm[jn][1]);
+        split_tf32(sc[jn][1], pb[jn][2], psm[jn][2]);
+        split_tf32(sc[jn][3], pb[jn][3], psm[jn][3]);
+      }
+#pragma unroll
+      for (int nd = 0; nd < HDP / 8; ++nd) {
+        const int dc = 8 * nd + g8;
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int jn = 0; jn < KB / 8; ++jn) {
+          const int key = 8 * jn + 2 * tq;
+          uint32_t bb[2], bs[2];
+          split_tf32(vs[key * VS + dc], bb[0], bs[0]);
+          split_tf32(vs[(key + 1) * VS + dc], bb[1], bs[1]);
+          mma_3xtf32(t, pb[jn], psm[jn], bb, bs);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nd][e] += t[e];
+      }
+    } else {
+      // O += P V, k-steps of 16 keys: the S fragments of keys 16kk ..
+      // 16kk + 15, rounded to T, are the A operand (the m16n8k16 C layout
+      // is its A layout); V's B fragments by ldmatrix.trans, two 8-wide
+      // column tiles an x4
+#pragma unroll
+      for (int kk = 0; kk < KB / 16; ++kk) {
+        uint32_t pa[4];
+        pa[0] = pack2<T>(sc[2 * kk][0], sc[2 * kk][1]);
+        pa[1] = pack2<T>(sc[2 * kk][2], sc[2 * kk][3]);
+        pa[2] = pack2<T>(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+        pa[3] = pack2<T>(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+#pragma unroll
+        for (int ndp = 0; ndp < HDP / 16; ++ndp) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * VS +
+                            ndp * 16 + (lane >> 4) * 8);
+          mma_16816<T>(o[2 * ndp], pa, bv[0], bv[1]);
+          mma_16816<T>(o[2 * ndp + 1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+    if (tid < KB && j + 2 < j_end) src_s[(j & 1) * KB + tid] = nxt;
+  }
+
+  // epilogue: row sums over the quad, O / max(l, 1e-9) in T; columns past
+  // hd are not written
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = r0 + 8 * i, tl = r / GT, g = h0 + r - tl * GT, t = t0 + tl;
+    if (tl >= TQ || g >= G || t >= Tq) continue;
+    T* orow = out + (((long long)b * Tq + t) * H + kv * G + g) * hd;
+    if constexpr (F32) {
+      const float lc = fmaxf(l[i], 1e-9f);
+#pragma unroll
+      for (int nd = 0; nd < HDP / 8; ++nd) {
+        const int d = 8 * nd + 2 * tq;
+        if (hd % 2 == 0) {
+          if (d < hd)
+            *reinterpret_cast<float2*>(orow + d) =
+                make_float2(o[nd][2 * i] / lc, o[nd][2 * i + 1] / lc);
+        } else {
+          if (d < hd) orow[d] = o[nd][2 * i] / lc;
+          if (d + 1 < hd) orow[d + 1] = o[nd][2 * i + 1] / lc;
+        }
+      }
+    } else {
+      const float inv = 1.f / fmaxf(l[i], 1e-9f);
+#pragma unroll
+      for (int nd = 0; nd < HDP / 8; ++nd) {
+        const int d = 8 * nd + 2 * tq;
+        if (d < hd)
+          *reinterpret_cast<uint32_t*>(orow + d) =
+              pack2<T>(o[nd][2 * i] * inv, o[nd][2 * i + 1] * inv);
+      }
+    }
+  }
+}
+
+template <typename T, int HDP>
+int launch_generic(const void* q, const void* k_pages, const void* v_pages,
+                   const int* page_table, const int* q_positions,
+                   const int* eff_win, void* out, int B, int Tq, int H,
+                   int KV, int N, int ps, int hd, int P, float scale,
+                   float softcap, cudaStream_t st) {
+  const int G = H / KV, GT = G < GN_ROWS ? G : GN_ROWS, TQ = GN_ROWS / GT;
+  const int HT = (G + GN_ROWS - 1) / GN_ROWS;
+  const long long blocks = (long long)B * KV * HT, tiles = (Tq + TQ - 1) / TQ;
+  if (blocks > INT_MAX || tiles > 65535) return (int)cudaErrorInvalidValue;
+  constexpr int SMEM = gn_smem(sizeof(T), HDP);
+  cudaFuncSetAttribute(paged_prefill_generic_kernel<T, HDP>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  paged_prefill_generic_kernel<T, HDP>
+      <<<dim3((unsigned)blocks, (unsigned)tiles), GN_THREADS, SMEM, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k_pages),
+          static_cast<const T*>(v_pages), page_table, q_positions, eff_win,
+          static_cast<T*>(out), Tq, H, KV, N, ps, hd, P, HT, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_generic_hd(const void* q, const void* k_pages, const void* v_pages,
+                      const int* page_table, const int* q_positions,
+                      const int* eff_win, void* out, int B, int Tq, int H,
+                      int KV, int N, int ps, int hd, int P, float scale,
+                      float softcap, cudaStream_t st) {
+  switch (gn_hdp(hd)) {
+#define GN_CASE(HDP)                                                        \
+  case HDP:                                                                 \
+    return launch_generic<T, HDP>(q, k_pages, v_pages, page_table,          \
+                                  q_positions, eff_win, out, B, Tq, H, KV,  \
+                                  N, ps, hd, P, scale, softcap, st);
+    GN_CASE(16) GN_CASE(32) GN_CASE(64) GN_CASE(96) GN_CASE(128) GN_CASE(192)
+    GN_CASE(256)
+#undef GN_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // The shapes the bf16 kernel and its float16 form are built for; the
@@ -1052,12 +1427,27 @@ extern "C" int dyn_paged_prefill_f32_smem(int hd, int ps) {
   return f32_tile_smem(hd, ps < kb ? ps : kb);
 }
 
+// The shapes the generic kernel takes, in every dtype (0 = float32, 1 =
+// bfloat16, 2 = float16): any page size and GQA group, head_dim up to 256,
+// a multiple of 8 in the 16-bit types (16-byte rows for its copies and
+// ldmatrix). ops/paged_attention.py prefill_generic_shape lists the same.
+bool generic_prefill_shape(int dtype, int G, int ps, int hd) {
+  return dtype >= 0 && dtype <= 2 && G >= 1 && ps >= 1 && hd >= 1 &&
+         hd <= 256 && (dtype == 0 || hd % 8 == 0);
+}
+
+// The generic kernel's shared memory a block at head_dim hd in dtype
+// (gn_smem; ops/paged_attention.py prefill_generic_plan mirrors it).
+extern "C" int dyn_paged_prefill_generic_smem(int dtype, int hd) {
+  return gn_smem(dtype == 0 ? 4 : 2, gn_hdp(hd));
+}
+
 // route (the wrapper picks it from the shape, ops/paged_attention.py
 // prefill_route; never retried): 1 = paged_prefill_bf16_kernel (dtype 1:
 // head_dim 64, 128 or 256, page size 16, 32, 64 or 128, GQA groups of 1
 // to 8), 3 = its float16 form (dtype 2, the same shapes), 2 =
 // paged_prefill_f32_kernel (dtype 0: f32_shape in attention_common.cuh),
-// 0 = paged_prefill_kernel<float> (dtype 0, what fits in shared memory).
+// 0 = paged_prefill_generic_kernel (any dtype, generic_prefill_shape).
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns
 // cudaGetLastError() after the launch.
 extern "C" int dyn_paged_attention_prefill(
@@ -1065,12 +1455,13 @@ extern "C" int dyn_paged_attention_prefill(
     const void* v_pages, const int* page_table, const int* q_positions,
     const int* eff_win, void* out, int B, int Tq, int H, int KV, int N,
     int ps, int hd, int P, float scale, float softcap, void* stream) {
-  if (KV < 1 || H % KV != 0 || route < 0 || route > 3 ||
-      dtype != (route == 1 ? 1 : route == 3 ? 2 : 0))
+  if (KV < 1 || H % KV != 0 || route < 0 || route > 3 || dtype < 0 ||
+      dtype > 2 || (route != 0 && dtype != (route == 1 ? 1 : route == 3 ? 2 : 0)))
     return (int)cudaErrorInvalidValue;
   const int G = H / KV;
   if ((route == 2 && !f32_shape(G, ps, hd)) ||
-      ((route == 1 || route == 3) && !bf16_prefill_shape(G, ps, hd)))
+      ((route == 1 || route == 3) && !bf16_prefill_shape(G, ps, hd)) ||
+      (route == 0 && !generic_prefill_shape(dtype, G, ps, hd)))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1097,19 +1488,16 @@ extern "C" int dyn_paged_attention_prefill(
                             q_positions, eff_win, out, B, Tq, H, KV, N, P,
                             scale, softcap, st);
   }
-  // route 0, the generic float32 kernel: ~64 (query, head) rows per
-  // block, fewer queries while the block's shared memory would pass the
-  // limit
-  int TQ = G < 64 ? 64 / G : 1;
-  while (TQ > 1 && prefill_smem_bytes(TQ, G, ps, hd) > PF_F32_SMEM_LIMIT) TQ /= 2;
-  const size_t smem = prefill_smem_bytes(TQ, G, ps, hd);
-  if (smem > PF_F32_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(paged_prefill_kernel<float>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  paged_prefill_kernel<float><<<dim3(B, KV, (Tq + TQ - 1) / TQ), PF_THREADS,
-                                smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_pages),
-      static_cast<const float*>(v_pages), page_table, q_positions, eff_win,
-      static_cast<float*>(out), Tq, H, KV, N, ps, hd, P, TQ, scale, softcap);
-  return (int)cudaGetLastError();
+  // route 0, the generic kernel, in the call's dtype
+  switch (dtype) {
+#define GN_DTYPE_CASE(D, T)                                                 \
+  case D:                                                                   \
+    return launch_generic_hd<T>(q, k_pages, v_pages, page_table,            \
+                                q_positions, eff_win, out, B, Tq, H, KV, N, \
+                                ps, hd, P, scale, softcap, st);
+    GN_DTYPE_CASE(0, float) GN_DTYPE_CASE(1, __nv_bfloat16)
+    GN_DTYPE_CASE(2, __half)
+#undef GN_DTYPE_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }

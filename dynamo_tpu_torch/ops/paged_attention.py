@@ -35,10 +35,14 @@ what bounds it on an H100 and what its design does about it:
   (:func:`prefill_route`): ``paged_prefill_bf16_kernel`` (``wgmma`` and a
   TMA ring) for bfloat16 at its shapes, ``paged_prefill_f32_kernel``
   (3xTF32 on ``mma.sync``, the same TMA ring) for float32 at the float32
-  decode route's shapes, the generic ``paged_prefill_kernel<float>`` for
-  other float32 shapes; float16 at the bfloat16 kernel's shapes takes
-  its float16 form (route ``f16``); other bfloat16 and float16 shapes
-  raise.
+  decode route's shapes; float16 at the bfloat16 kernel's shapes takes
+  its float16 form (route ``f16``). Every other shape, in every dtype,
+  runs the generic ``paged_prefill_generic_kernel`` (route ``generic``:
+  ``mma.sync`` products in the call's type, 3xTF32 in float32, from a
+  ``cp.async`` ring of key blocks that cross page boundaries, so any
+  page size and GQA group; head_dim up to 256, a multiple of 8 in 16
+  bits, :func:`prefill_generic_shape`, planned by
+  :func:`prefill_generic_plan`); a shape outside that raises.
 - :func:`paged_attention_decode_sharded` (and its window form
   :func:`paged_attention_decode_window_sharded`) and
   :func:`paged_attention_prefill_sharded` replace the JAX package's
@@ -62,7 +66,7 @@ window buffer), ``paged_decode_combine``. ``DECODE_ROUTE_LAUNCHES`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -107,6 +111,10 @@ F32_PAGE_SIZES = (8, 16, 32, 64, 128)
 F32_MAX_GROUP = 8
 # shared memory a block may take on an H100 (227 KB, after opting in)
 SMEM_LIMIT = 232448
+# the generic prefill kernel: head_dim up to this (a multiple of 8 in the
+# 16-bit types), padded for its products to the next of these widths
+PREFILL_GENERIC_MAX_HEAD_DIM = 256
+PREFILL_GENERIC_HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
 
 
 def reset_launch_counts() -> None:
@@ -158,6 +166,8 @@ def _prefill_lib():
         lib.dyn_paged_attention_prefill.argtypes = [
             i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, p]
         lib.dyn_paged_attention_prefill.restype = i
+        lib.dyn_paged_prefill_generic_smem.argtypes = [i, i]
+        lib.dyn_paged_prefill_generic_smem.restype = i
         lib._dyn_typed = True
     return lib
 
@@ -363,7 +373,8 @@ def prefill_route(dtype: torch.dtype, H: int, KV: int, ps: int,
     float16 form) for float16 at the ``PREFILL_BF16_*`` head dims, page
     sizes and GQA groups, 2 (``f32``, ``paged_prefill_f32_kernel``) for
     float32 at the ``F32_*`` ones, else 0 (``generic``,
-    ``paged_prefill_kernel<float>``, float32 only)."""
+    ``paged_prefill_generic_kernel``, in every dtype; it takes the shapes
+    of :func:`prefill_generic_shape`)."""
     if (dtype in (torch.bfloat16, torch.float16)
             and hd in PREFILL_BF16_HEAD_DIMS
             and ps in PREFILL_BF16_PAGE_SIZES
@@ -390,6 +401,56 @@ def prefill_f32_smem(hd: int, ps: int) -> int:
     of K and V of min(ps, 64, 4096 // hd) keys, the stages' mbarriers."""
     kb = min(ps, 16 if hd >= 256 else 32 if hd >= 128 else 64)
     return 1024 + 64 * hd * 4 + 2 * 2 * kb * hd * 4 + 2 * 2 * 8
+
+
+def prefill_generic_shape(dtype: torch.dtype, hd: int) -> bool:
+    """Whether the generic prefill kernel takes head_dim ``hd`` in
+    ``dtype`` (``generic_prefill_shape`` in csrc/paged_prefill.cu): any
+    page size and GQA group, head_dim 1 to 256 in float32, a multiple of
+    8 up to 256 in bfloat16 and float16 (16-byte rows for its copies and
+    ``ldmatrix``)."""
+    return (1 <= hd <= PREFILL_GENERIC_MAX_HEAD_DIM
+            and (dtype == torch.float32 or hd % 8 == 0))
+
+
+class GenericPrefillPlan(NamedTuple):
+    """How the generic prefill kernel cuts one call (its launch in
+    csrc/paged_prefill.cu): a block owns ``rows`` (query, head) rows,
+    ``queries`` queries times ``heads`` heads of one (row, kv head) and
+    head tile (``head_tiles`` a kv head: one past 64 heads); it walks key
+    blocks of ``keys`` positions in a ring of ``stages``, at head_dim
+    ``head_dim`` (padded); ``smem`` bytes of shared memory a block."""
+    rows: int
+    queries: int
+    heads: int
+    head_tiles: int
+    keys: int
+    stages: int
+    head_dim: int
+    smem: int
+
+
+def prefill_generic_plan(G: int, ps: int, hd: int,
+                         dtype: torch.dtype) -> GenericPrefillPlan:
+    """The generic prefill kernel's plan at GQA group ``G``, page size
+    ``ps`` and head_dim ``hd`` in ``dtype``: a mirror of ``gn_hdp``,
+    ``gn_keys`` and ``gn_smem`` in csrc/paged_prefill.cu, whose
+    ``dyn_paged_prefill_generic_smem`` the card tests hold equal to
+    ``smem``. The page size changes nothing: key blocks cross pages."""
+    rows = 64
+    heads = min(G, rows)
+    hdp = next(w for w in PREFILL_GENERIC_HEAD_DIMS if w >= hd)
+    esize = 4 if dtype == torch.float32 else 2
+    if esize == 4:
+        keys = 64 if hdp <= 64 else 32 if hdp <= 128 else 16
+    else:
+        keys = 64 if hdp <= 128 else 32
+    stages = 2
+    v_stride = hdp + 4 if esize == 4 else hdp + 8
+    smem = ((rows * (hdp + 8) + stages * keys * (hdp + 8 + v_stride))
+            * esize + stages * keys * 4 + 2 * keys * 8)
+    return GenericPrefillPlan(rows, rows // heads, heads, -(-G // rows),
+                              keys, stages, hdp, smem)
 
 
 def decode_split_plan(B: int, KV: int, P: int, sms: int,
@@ -661,13 +722,12 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
 
     G = H // KV
     route = prefill_route(q.dtype, H, KV, ps, hd)
-    if q.dtype != torch.float32:
-        _check(route in (1, 3),
-               f"{q.dtype} prefill kernel takes head_dim in "
-               f"{PREFILL_BF16_HEAD_DIMS}, page_size in "
-               f"{PREFILL_BF16_PAGE_SIZES} and GQA groups up to "
-               f"{PREFILL_BF16_MAX_GROUP} (got head_dim {hd}, page_size "
-               f"{ps}, group {G})")
+    if route == 0:
+        _check(prefill_generic_shape(q.dtype, hd),
+               f"{q.dtype} generic prefill kernel takes head_dim up to "
+               f"{PREFILL_GENERIC_MAX_HEAD_DIM}"
+               f"{'' if q.dtype == torch.float32 else ', a multiple of 8'} "
+               f"(got head_dim {hd}, page_size {ps}, group {G})")
     _check(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
            "q and the pools must be 16-byte aligned (16-byte loads)")
     lib = _prefill_lib()

@@ -18,7 +18,11 @@ a ``--model`` preset with random weights drawn from ``--seed`` and the
 byte tokenizer. ``--dtype int8`` serves weight-only int8 projections
 (``models/quant.py``, the int8 GEMM kernel) at every
 ``--tensor-parallel-size``, for random weights and for ``--model-path``
-(quantized on the device at load).
+(quantized on the device at load). ``--kv-cache-block-size``,
+``--num-pages`` and ``--max-batch-size`` override the engine config as
+the JAX launcher maps them (page size, with the prefill chunk kept a
+multiple of it; pages; batch rows); a smaller batch also warms fewer
+decode graphs.
 
 Tensor parallel, under the JAX launcher's flag names
 (``--tensor-parallel-size``, ``--coordinator``, ``--num-processes``,
@@ -59,6 +63,8 @@ import time
 from typing import Dict, List, Tuple
 
 log = logging.getLogger("dynamo_tpu_torch.run")
+# when this module was imported: the start of a rank's engine-ready clock
+_T0 = time.monotonic()
 
 
 def parse_args(argv=None):
@@ -78,6 +84,12 @@ def parse_args(argv=None):
     ap.add_argument("--http-host", default="0.0.0.0")
     ap.add_argument("--http-port", type=int, default=8080)
     ap.add_argument("--no-warmup", action="store_true")
+    ap.add_argument("--kv-cache-block-size", type=int, default=None,
+                    help="tokens per KV page (the JAX launcher's flag)")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="KV pages in the pool")
+    ap.add_argument("--max-batch-size", type=int, default=None,
+                    help="most requests the engine serves at once")
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "int8"],
                     help="int8 = weight-only int8 serving (models/quant.py, "
                          "the int8 GEMM kernel): random weights quantized "
@@ -135,14 +147,33 @@ def build_model_config(args):
 
 
 def build_engine_config(args):
+    """The engine config the JAX launcher builds for these arguments
+    (``dynamo_tpu/run.py`` ``_jax_engine_setup``): its tiny-model config
+    or the default, then ``--kv-cache-block-size`` (the prefill chunk
+    rounded down to a multiple of it, at least one page),
+    ``--num-pages`` and ``--max-batch-size``, checked as a direct
+    construction is."""
+    import dataclasses
+
     from .engine.torch_engine import EngineConfig
 
+    ecfg = EngineConfig()
     if not args.model_path and args.model in (None, "tiny"):
         # the JAX launcher's tiny-model engine config
-        return EngineConfig(page_size=16, num_pages=256, max_batch=16,
+        ecfg = EngineConfig(page_size=16, num_pages=256, max_batch=16,
                             prefill_chunk=128, prefill_buckets=(128,),
                             batch_buckets=(4, 16), page_buckets=(16,))
-    return EngineConfig()
+    overrides = {}
+    if args.kv_cache_block_size:
+        overrides["page_size"] = args.kv_cache_block_size
+        overrides["prefill_chunk"] = max(
+            ecfg.prefill_chunk // args.kv_cache_block_size, 1
+        ) * args.kv_cache_block_size
+    if args.num_pages:
+        overrides["num_pages"] = args.num_pages
+    if args.max_batch_size:
+        overrides["max_batch"] = args.max_batch_size
+    return dataclasses.replace(ecfg, **overrides) if overrides else ecfg
 
 
 def peak_rss_gib() -> float:
@@ -165,7 +196,11 @@ def build_engine(args) -> Tuple[object, object]:
     (it joins the process group here); with ``--model-path``, the
     checkpoint's weights (the rank's shard), or FileNotFoundError when
     the path holds none. The kernel launch counts restart after warmup,
-    so the serving summary counts the served path alone."""
+    so the serving summary counts the served path alone. Logs one
+    ``engine ready`` JSON line: where the rank's start went, in seconds
+    since this module's import (imports, the process group, the
+    checkpoint load, the engine's weights and pools, warmup)."""
+    t = {"start": time.monotonic()}
     from .engine.torch_engine import TorchEngine
     from .llm.model_card import ModelDeploymentCard
     from .ops import int8_gemm
@@ -181,6 +216,7 @@ def build_engine(args) -> Tuple[object, object]:
         mdc = ModelDeploymentCard(
             name=args.model_name or (args.model or "tiny"))
     mdc.kv_block_size = ecfg.page_size
+    t["imports"] = time.monotonic()
     mesh = None
     if args.coordinator:
         from .parallel.mesh import MeshSpec, initialize_multihost
@@ -189,6 +225,7 @@ def build_engine(args) -> Tuple[object, object]:
                              args.process_id)
         mesh = MeshSpec(model=args.tensor_parallel_size).build(
             resolve_device(args.device).type)
+    t["process_group"] = time.monotonic()
     params = None
     quant = "int8" if args.dtype == "int8" else None
     if args.model_path:
@@ -208,10 +245,18 @@ def build_engine(args) -> Tuple[object, object]:
             "bytes": nbytes, "seconds": seconds,
             "gb_per_s": nbytes / 1e9 / max(seconds, 1e-9),
             "peak_rss_gib": peak_rss_gib()}))
+    t["load"] = time.monotonic()
     engine = TorchEngine(cfg, ecfg, params=params, seed=args.seed,
                          device=args.device, mesh=mesh, quant=quant)
-    if not args.no_warmup:
-        engine.warmup()
+    t["engine"] = time.monotonic()
+    graphs = 0 if args.no_warmup else engine.warmup()
+    t["warmup"] = time.monotonic()
+    stages = list(t)
+    log.info("engine ready %s", json.dumps({
+        "rank": mesh.rank if mesh is not None else 0, "graphs": graphs,
+        "max_batch": ecfg.max_batch, "page_size": ecfg.page_size,
+        "seconds": t["warmup"] - _T0,
+        **{f"{b}_s": t[b] - t[a] for a, b in zip(stages, stages[1:])}}))
     reset_launch_counts()
     int8_gemm.reset_launch_counts()
     return engine, mdc

@@ -238,8 +238,8 @@ def test_f16_sharded_wrappers_match_jax_at_tp2():
 def test_f16_routes_take_the_bf16_set(hd):
     """float16 takes the float16 forms (decode 3, ``f16_mma``; prefill 3,
     ``f16``) exactly where bfloat16 takes the bf16 kernels; elsewhere the
-    generic decode kernel (0), and prefill raises on the card as bf16
-    does; float16 never takes the float32 route."""
+    generic decode and prefill kernels (0), as bf16 does; float16 never
+    takes the float32 route."""
     for ps in (4, 8, 16, 32, 48, 64, 128, 256):
         for G in (1, 3, 4, 8, 9):
             bf = ops.decode_route(torch.bfloat16, 2 * G, 2, ps, hd)

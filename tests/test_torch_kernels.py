@@ -150,10 +150,10 @@ def test_cuda_decode_window_matches_plain(cuda_device, dtype, tol, rtol,
 
 
 def _prefill_case(dev, G, hd, ps, pos, win=None, softcap=None, KV=2,
-                  seed=3, dtype=torch.bfloat16):
-    """The bf16 prefill kernel (or its float16 form) and its plain version
-    on one input: q and the pool from a seed, each row's pages distinct
-    and shuffled."""
+                  seed=3, dtype=torch.bfloat16, route=None):
+    """The bf16 prefill kernel (or its float16 form; or ``route``) and its
+    plain version on one input: q and the pool from a seed, each row's
+    pages distinct and shuffled."""
     g = torch.Generator().manual_seed(seed)
     B, T = pos.shape
     used = -(-(int(pos.max()) + 1) // ps)
@@ -171,8 +171,8 @@ def _prefill_case(dev, G, hd, ps, pos, win=None, softcap=None, KV=2,
         *(t.to(dev) for t in (q, kp, vp, table, pos)), softcap=softcap,
         eff_win=None if win is None else win.to(dev))
     torch.cuda.synchronize()
-    assert ops.PREFILL_ROUTE_LAUNCHES == _counts(ops.PREFILL_ROUTES,
-                                                 **{PF_ROUTE[dtype]: 1})
+    assert ops.PREFILL_ROUTE_LAUNCHES == _counts(
+        ops.PREFILL_ROUTES, **{route or PF_ROUTE[dtype]: 1})
     return got.cpu(), want
 
 
@@ -230,16 +230,24 @@ def test_cuda_bf16_prefill_window_and_softcap(cuda_device, ps, dtype):
 def test_cuda_bf16_prefill_refuses_shapes_it_is_not_built_for(
         cuda_device, hd, ps, G, dtype):
     """The bf16 prefill kernel and its float16 form are built for head_dim
-    64/128/256, pages of 16/32/64/128 and groups up to 8; anything else
-    raises, naming the shape (there is no second 16-bit path to fall back
-    on)."""
-    d, bf = cuda_device, dtype
-    pool = torch.zeros(4, 1, ps, hd, dtype=bf, device=d)
-    with pytest.raises(ValueError, match=f"{dtype} prefill kernel takes"):
-        paged_attention_prefill(
-            torch.zeros(1, 4, G, hd, dtype=bf, device=d), pool, pool,
-            torch.ones(1, 2, dtype=torch.int32, device=d),
-            torch.arange(4, dtype=torch.int32, device=d)[None])
+    64/128/256, pages of 16/32/64/128 and groups up to 8; the shapes
+    outside (head_dim 32 or 96, page 8 or 48, a group of 16) run the
+    generic kernel in the same 16-bit type, held to its plain version at
+    the bf16 tolerance: a chunk continuing at position 40, a row with
+    padding queries and a row of padding only, then the same with a
+    sliding window and the softcap."""
+    T = 80
+    pos = torch.full((3, T), -1, dtype=torch.int32)
+    pos[0] = torch.arange(40, 40 + T)
+    pos[1, :33] = torch.arange(33)
+    win = torch.tensor([30, 7, 1 << 30], dtype=torch.int32)
+    for w, softcap in ((None, None), (win, 20.0)):
+        got, want = _prefill_case(cuda_device, G, hd, ps, pos, win=w,
+                                  softcap=softcap, dtype=dtype,
+                                  route="generic")
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2,
+                                   atol=2e-2)
+        assert (got[1, 33:] == 0).all() and (got[2] == 0).all()
 
 
 def _decode_pool(G, hd, ps, rows_pages, KV=2, L=2, seed=4,
@@ -640,14 +648,16 @@ def test_cuda_decode_window_other_shapes_run_the_generic_kernel(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,rtol", DTYPE_TOLS)
 @pytest.mark.parametrize("hd,ps,G", [(96, 64, 4), (32, 4, 2)])
 def test_cuda_prefill_other_shapes_run_the_generic_kernel(cuda_device, hd,
-                                                          ps, G):
-    """float32 prefill outside the float32 kernel's set (a head_dim of 96;
-    page 4, chip_smoke.py's check shape) runs on the generic kernel
-    (paged_prefill_kernel<float>), chosen by shape: a chunk continuing at
-    position 40 and a row with padding queries, then the same with
-    sliding windows and the softcap."""
+                                                          ps, G, dtype, tol,
+                                                          rtol):
+    """Prefill outside the fast sets (a head_dim of 96; page 4,
+    chip_smoke.py's check shape) runs on the generic kernel
+    (paged_prefill_generic_kernel) in every dtype, chosen by shape: a
+    chunk continuing at position 40 and a row with padding queries, then
+    the same with sliding windows and the softcap."""
     d, g = cuda_device, torch.Generator().manual_seed(hd + ps)
     KV, T = 2, 48
     pos = torch.full((2, T), -1, dtype=torch.int32)
@@ -655,9 +665,9 @@ def test_cuda_prefill_other_shapes_run_the_generic_kernel(cuda_device, hd,
     pos[1, :21] = torch.arange(21)
     used = -(-(40 + T) // ps)
     N = 2 * used + 4
-    kp = torch.randn(N, KV, ps, hd, generator=g)
-    vp = torch.randn(N, KV, ps, hd, generator=g)
-    q = torch.randn(2, T, KV * G, hd, generator=g)
+    kp = torch.randn(N, KV, ps, hd, generator=g).to(dtype)
+    vp = torch.randn(N, KV, ps, hd, generator=g).to(dtype)
+    q = torch.randn(2, T, KV * G, hd, generator=g).to(dtype)
     table = torch.zeros((2, used + 1), dtype=torch.int32)
     for b in range(2):
         table[b, :used] = torch.randperm(N - 1, generator=g)[:used] + 1
@@ -672,10 +682,81 @@ def test_cuda_prefill_other_shapes_run_the_generic_kernel(cuda_device, hd,
             softcap=softcap, eff_win=None if win is None else win.to(d))
         torch.cuda.synchronize()
         got = got.cpu()
-        np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=tol)
         assert (got[1, 21:] == 0).all()
     assert ops.PREFILL_ROUTE_LAUNCHES == _counts(ops.PREFILL_ROUTES,
                                                  generic=2)
+
+
+def _prefill_masking_bad_pages(q, kp, vp, table, pos, softcap):
+    """prefill_reference's arithmetic (float32, exp only where visible)
+    with the keys of a table entry outside [0, N) masked, as the kernels
+    take them; a query that sees no key gives zeros."""
+    B, T, H, hd = q.shape
+    N, KV, ps, _ = kp.shape
+    G, S = H // KV, table.shape[1] * ps
+    ok = ((table >= 0) & (table < N)).repeat_interleave(ps, dim=1)
+    idx = table.clamp(0, N - 1).long()
+    k = kp[idx].permute(0, 1, 3, 2, 4).reshape(B, S, KV, hd).float()
+    v = vp[idx].permute(0, 1, 3, 2, 4).reshape(B, S, KV, hd).float()
+    s = torch.einsum("btkgh,bskh->bkgts", q.reshape(B, T, KV, G, hd).float(),
+                     k) * hd ** -0.5
+    s = softcap * torch.tanh(s / softcap)
+    qp = pos.long()[:, :, None]
+    vis = ((torch.arange(S)[None, None] <= qp) & ok[:, None])[:, None, None]
+    s = torch.where(vis, s, torch.full_like(s, ops.NEG_INF))
+    p = torch.where(vis, torch.exp(s - s.amax(-1, keepdim=True)),
+                    torch.zeros_like(s))
+    out = torch.einsum("bkgts,bskh->btkgh", p, v) / p.sum(-1).clamp(
+        min=1e-9).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,rtol", DTYPE_TOLS)
+@pytest.mark.parametrize("hd,ps,G,KV", [(16, 1, 3, 2), (8, 3, 71, 1),
+                                        (80, 48, 130, 1), (256, 5, 2, 2),
+                                        (7, 2, 4, 1), (30, 9, 1, 3)])
+def test_cuda_generic_prefill_odd_shapes(cuda_device, hd, ps, G, KV, dtype,
+                                         tol, rtol):
+    """The generic kernel where no other route reaches: page sizes of 1,
+    2, 3, 5 and 9 (key blocks over many pages), groups of 71 and 130 (two
+    and three head tiles), head_dim 256, and in float32 head_dim 7 and 30
+    (4- and 8-byte copies); row 1's first two table entries past the pool
+    and negative, whose keys are masked and never read. Held in its
+    dtype's tolerance to the plain version with those keys masked
+    (:func:`_prefill_masking_bad_pages`), which is prefill_reference's
+    where every page is in the pool (row 0)."""
+    if dtype != torch.float32 and hd % 8:
+        pytest.skip("16-bit head_dim must be a multiple of 8")
+    d, g = cuda_device, torch.Generator().manual_seed(hd * ps + G)
+    T, start = 24, 13
+    used = -(-(start + T) // ps)
+    N = used + 5
+    kp = torch.randn(N, KV, ps, hd, generator=g).to(dtype)
+    vp = torch.randn(N, KV, ps, hd, generator=g).to(dtype)
+    q = torch.randn(2, T, KV * G, hd, generator=g).to(dtype)
+    table = torch.zeros((2, used + 1), dtype=torch.int32)
+    for b in range(2):
+        table[b, :used] = torch.randperm(N - 1, generator=g)[:used] + 1
+    pos = torch.stack([torch.arange(start, start + T),
+                       torch.arange(T)]).to(torch.int32)
+    pos[1, T - 5:] = -1
+    table[1, 0], table[1, 1] = N + 3, -2
+    ops.reset_launch_counts()
+    got = paged_attention_prefill(q.to(d), kp.to(d), vp.to(d),
+                                  table.to(d), pos.to(d),
+                                  softcap=25.0).cpu()
+    torch.cuda.synchronize()
+    want = _prefill_masking_bad_pages(q, kp, vp, table, pos, 25.0)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=tol)
+    np.testing.assert_allclose(
+        _np(want[:1]), _np(paged_attention_prefill(
+            q[:1], kp, vp, table[:1], pos[:1], softcap=25.0)),
+        rtol=rtol, atol=tol)
+    assert (got[1, T - 5:] == 0).all()
+    assert ops.PREFILL_ROUTE_LAUNCHES == _counts(ops.PREFILL_ROUTES,
+                                                 generic=1)
 
 
 # ------------------------------------------------------ the float32 routes
@@ -853,6 +934,55 @@ def test_cuda_f32_shape_set_matches_the_kernels(cuda_device):
     assert plib.dyn_paged_attention_prefill(
         2, 1, *[scratch] * 7, 0, 4, 8, 2, 8, 64, 128, 4, 1.0, 0.0,
         stream) != 0
+
+
+@pytest.mark.cuda
+def test_cuda_generic_prefill_plan_matches_the_kernel(cuda_device):
+    """The generic kernel's shared memory (dyn_paged_prefill_generic_smem,
+    its gn_smem) equals the wrapper's mirror (prefill_generic_plan) at
+    every head_dim it takes in every dtype; the C entry takes route 0 in
+    every dtype exactly at prefill_generic_shape (B = 0: it checks its
+    arguments and launches nothing) and refuses the other dtype codes."""
+    plib = ops._prefill_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    scratch = torch.zeros(16, device=cuda_device).data_ptr()
+    for dtype, code in ops._DTYPES.items():
+        for hd in range(1, 300):
+            inside = ops.prefill_generic_shape(dtype, hd)
+            if inside:
+                assert plib.dyn_paged_prefill_generic_smem(code, hd) == (
+                    ops.prefill_generic_plan(4, 8, hd, dtype).smem), (dtype,
+                                                                     hd)
+            for ps, G in ((1, 1), (8, 71), (48, 4)):
+                err = plib.dyn_paged_attention_prefill(
+                    0, code, *[scratch] * 7, 0, 4, 2 * G, 2, 8, ps, hd, 4,
+                    1.0, 0.0, stream)
+                assert (err == 0) == inside, (dtype, hd, ps, G)
+    for code in (-1, 3):
+        assert plib.dyn_paged_attention_prefill(
+            0, code, *[scratch] * 7, 0, 4, 8, 2, 8, 8, 64, 4, 1.0, 0.0,
+            stream) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("hd", [264, 320, 512])
+def test_cuda_prefill_above_head_dim_256_raises(cuda_device, dtype, hd):
+    """No prefill kernel takes head_dim above 256: the wrapper raises
+    ValueError naming the dtype and the shape, in every dtype, and
+    launches nothing."""
+    d = cuda_device
+    pool = torch.zeros(4, 1, 16, hd, dtype=dtype, device=d)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match=f"{dtype} generic prefill kernel "
+                       f"takes head_dim up to 256.*got head_dim {hd}, "
+                       f"page_size 16, group 4"):
+        paged_attention_prefill(
+            torch.zeros(1, 4, 4, hd, dtype=dtype, device=d), pool, pool,
+            torch.ones(1, 2, dtype=torch.int32, device=d),
+            torch.arange(4, dtype=torch.int32, device=d)[None])
+    assert sum(ops.PREFILL_ROUTE_LAUNCHES.values()) == 0
 
 
 @pytest.mark.cuda

@@ -1,0 +1,66 @@
+"""The launcher's engine-config flags against the JAX launcher's mapping.
+
+``--kv-cache-block-size``, ``--num-pages`` and ``--max-batch-size`` are the
+JAX launcher's flags (``dynamo_tpu/run.py`` parse_args); its
+``_jax_engine_setup`` maps them onto its EngineConfig (page size, with the
+prefill chunk rounded down to a multiple of it and at least one page;
+pages; batch rows). The port's ``build_engine_config`` must give the same
+fields for the same command line, on the tiny preset's config and on the
+default one; a value the config refuses is refused by both.
+"""
+
+import pytest
+
+from dynamo_tpu import run as jax_run
+from dynamo_tpu_torch import run
+
+FIELDS = ("page_size", "num_pages", "max_batch", "prefill_chunk",
+          "prefill_buckets", "batch_buckets", "page_buckets")
+
+FLAGS = [[], ["--kv-cache-block-size", "8"], ["--kv-cache-block-size", "48"],
+         ["--kv-cache-block-size", "1000"], ["--num-pages", "300"],
+         ["--max-batch-size", "4"],
+         ["--kv-cache-block-size", "4", "--num-pages", "64",
+          "--max-batch-size", "2"]]
+
+
+@pytest.mark.parametrize("model", [[], ["--model", "1b"], ["--model", "8b"]],
+                         ids=["tiny", "1b", "8b"])
+@pytest.mark.parametrize("flags", FLAGS, ids=[" ".join(f) or "none"
+                                              for f in FLAGS])
+def test_engine_config_flags_map_as_the_jax_launcher(model, flags):
+    want = jax_run._jax_engine_setup(
+        jax_run.parse_args(["in=http", "out=jax", *model, *flags]))[1]
+    got = run.build_engine_config(
+        run.parse_args(["in=http", "out=torch", *model, *flags]))
+    for f in FIELDS:
+        assert getattr(got, f) == getattr(want, f), f
+
+
+def test_flags_parse_and_default_to_none():
+    args = run.parse_args(["in=http", "out=torch"])
+    assert (args.kv_cache_block_size, args.num_pages,
+            args.max_batch_size) == (None, None, None)
+    args = run.parse_args(["in=http", "out=torch", "--kv-cache-block-size",
+                           "8", "--num-pages", "1024", "--max-batch-size",
+                           "4"])
+    assert (args.kv_cache_block_size, args.num_pages,
+            args.max_batch_size) == (8, 1024, 4)
+
+
+def test_max_batch_size_cuts_the_warmed_decode_grid():
+    """--max-batch-size 4 on the default config (phases 7 and 8 of
+    chip_smoke.py start the tensor-parallel ranks so) warms decode
+    batches 1, 2 and 4 where the default warms seven; its prefill
+    batches are 1 and 4 (for 8), as many as before."""
+    full = run.build_engine_config(run.parse_args(
+        ["in=http", "out=torch", "--model", "8b"])).warmed_grid()
+    cut = run.build_engine_config(run.parse_args(
+        ["in=http", "out=torch", "--model", "8b", "--max-batch-size",
+         "4"])).warmed_grid()
+    assert full["decode_batches"] == [1, 2, 4, 8, 16, 32, 64]
+    assert cut["decode_batches"] == [1, 2, 4]
+    assert full["prefill_batches"] == [1, 8]
+    assert cut["prefill_batches"] == [1, 4]
+    assert cut["prefill_lens"] == full["prefill_lens"]
+    assert cut["page_buckets"] == full["page_buckets"]

@@ -2,7 +2,8 @@
 """Device time of the attention kernels at chip_smoke.py's phase-5
 shapes, for comparing two trees on one card.
 
-    python3 time_attention.py [--dtype bfloat16|float16|float32]  # from a checkout
+    python3 time_attention.py [--dtype bfloat16|float16|float32]
+                              [--prefill-route generic]  # from a checkout
 
 Llama-3-8B attention widths (H=32, KV=8, head_dim 128, page 64), a random
 pool of 512 pages and queries from a seed:
@@ -25,8 +26,18 @@ every shape of the bf16 run in float16 (the float16 forms of the bf16
 kernels). Every dtype also times the generic kernels at the 8B's heads
 with head_dim 96, outside every fast set (``_hd96`` keys): decode
 (``paged_decode_kernel`` + ``paged_decode_combine``) at the served
-window and, in float32, the only dtype it takes, prefill
-(``paged_prefill_kernel<float>``) at the first chunk.
+window and prefill (``paged_prefill_generic_kernel``) at the first
+chunk; and the bfloat16 and float16 runs the chunk chip_smoke.py's phase
+13 serves, Llama-3.2-1B's heads (head_dim 64) at page 8
+(``first_chunk_1b_ps8``); and the float32 run the tiny preset's heads
+(4 on 2 kv heads, head_dim 16, page 16) at its served 16-token chunk
+(``first_chunk_tiny``). On a parent tree whose wrapper refuses a shape (a
+16-bit generic prefill before the generic kernel took 16 bits) the error
+is recorded under the shape's key instead of times; on a tree with the
+generic kernel in every dtype a refusal fails the run.
+``--prefill-route generic`` runs every prefill shape on the generic
+kernel (the wrapper's route choice replaced for this run only), to weigh
+it against the route each shape takes by default.
 Each shape is timed three times (CUDA graph of 50 launches,
 chip_smoke.time_ms) and held to its plain version (the tolerance of its
 dtype: bf16 and float16 atol 2e-2 + rtol 1e-2, float32 atol 1e-5); the
@@ -97,11 +108,14 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "float16", "float32"))
+    ap.add_argument("--prefill-route", default=None, choices=("generic",),
+                    help="run every prefill shape on this route")
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())
     import torch
 
     from chip_smoke import excess, fail, time_ms
+    from dynamo_tpu_torch.ops import paged_attention as ops
     from dynamo_tpu_torch.ops.paged_attention import (
         paged_attention_decode_window_sharded, window_reference)
     from dynamo_tpu_torch.parallel.mesh import MeshSpec
@@ -119,6 +133,10 @@ def main() -> None:
     vp = torch.randn(1, N, KV, ps, hd, generator=g, device=dev).to(dtype)
     res = {"tree": os.getcwd(), "card": torch.cuda.get_device_name(0),
            "dtype": args.dtype, "digest": {}}
+    if args.prefill_route == "generic":
+        # the wrapper looks its route up by this module-level name
+        ops.prefill_route = lambda *shape: 0
+        res["prefill_route"] = "generic"
     f32 = dtype == torch.float32
     time_shapes(res, kp, vp, g, tol, T, K, H, "",
                 decode=DECODE_SHAPES + (F32_DECODE_SHAPES if f32 else ()))
@@ -126,14 +144,27 @@ def main() -> None:
     k96 = torch.randn(1, N, KV, ps, 96, generator=g, device=dev).to(dtype)
     v96 = torch.randn(1, N, KV, ps, 96, generator=g, device=dev).to(dtype)
     time_shapes(res, k96, v96, g, tol, T, K, H, "_hd96", deep=False,
-                decode=DECODE_SHAPES[:1], prefill=f32)
+                decode=DECODE_SHAPES[:1])
     del k96, v96
+    if not f32:
+        # the 1b's heads at page 8 (a pool of 1,024 pages, a table of 128)
+        k8 = torch.randn(1, 1024, KV, 8, 64, generator=g, device=dev).to(dtype)
+        v8 = torch.randn(1, 1024, KV, 8, 64, generator=g, device=dev).to(dtype)
+        time_shapes(res, k8, v8, g, tol, T, K, H, "_1b_ps8", deep=False,
+                    decode=(), first_pages=128)
+        del k8, v8
     if f32:
         # the 1b's heads: head_dim 64
         k64 = torch.randn(1, N, KV, ps, 64, generator=g, device=dev)
         v64 = torch.randn(1, N, KV, ps, 64, generator=g, device=dev)
         time_shapes(res, k64, v64, g, tol, T, K, H, "_hd64", deep=False,
                     decode=DECODE_SHAPES[:1])
+        del k64, v64
+        # the tiny preset's heads at its served chunk
+        k16 = torch.randn(1, N, 2, 16, 16, generator=g, device=dev)
+        v16 = torch.randn(1, N, 2, 16, 16, generator=g, device=dev)
+        time_shapes(res, k16, v16, g, tol, 16, K, 4, "_tiny", deep=False,
+                    decode=())
         print(json.dumps(res))
         return
     for name, tp, ctx in SHARDED_SHAPES:
@@ -158,22 +189,25 @@ def main() -> None:
 
 def time_shapes(res: dict, kp, vp, g, tol, T: int, K: int, H: int,
                 tag: str, deep: bool = True, decode=DECODE_SHAPES,
-                prefill: bool = True) -> None:
-    """Time and digest the prefill chunks (the first, when ``prefill``,
-    and the deep one when ``deep`` too) and the ``decode`` window shapes
-    on the pools ``kp``/``vp`` [1, N, KV, ps, hd] into ``res``, each key
-    suffixed by ``tag``."""
+                first_pages: int = 8) -> None:
+    """Time and digest the prefill chunks (the first, with a page table
+    of ``first_pages`` entries, and the deep one when ``deep``) and the
+    ``decode`` window shapes on the pools ``kp``/``vp`` [1, N, KV, ps, hd]
+    into ``res``, each key suffixed by ``tag``. A chunk the wrapper
+    refuses (ValueError) records its message on a tree without the
+    generic kernel in every dtype, and fails the run on one with it."""
     import torch
 
     from chip_smoke import excess, fail, time_ms
+    from dynamo_tpu_torch.ops import paged_attention as ops
     from dynamo_tpu_torch.ops.paged_attention import (
         NO_WINDOW, paged_attention_decode_window, paged_attention_prefill,
         prefill_reference, window_reference)
 
     dev = kp.device
     N, KV, ps, hd = kp.shape[1:]
-    chunks = (("first_chunk", 0, 8), ("deep_chunk", 1536, 64))
-    for name, start, P in chunks[:(2 if deep else 1) if prefill else 0]:
+    chunks = (("first_chunk", 0, first_pages), ("deep_chunk", 1536, 64))
+    for name, start, P in chunks[:2 if deep else 1]:
         name += tag
         used = (start + T) // ps
         table = torch.zeros((1, P), dtype=torch.int32, device=dev)
@@ -185,8 +219,15 @@ def time_shapes(res: dict, kp, vp, g, tol, T: int, K: int, H: int,
         q = torch.randn(1, T, H, hd, generator=g, device=dev).to(kp.dtype)
         run = lambda: paged_attention_prefill(  # noqa: E731
             q, kp[0], vp[0], table, pos, eff_win=win)
-        over = excess(run(), prefill_reference(q, kp[0], vp[0], table, pos,
-                                               hd ** -0.5, None, win), *tol)
+        try:
+            out = run()
+        except ValueError as e:
+            if hasattr(ops, "prefill_generic_shape"):
+                fail(f"prefill {name}: refused: {e}")
+            res[name] = f"refused: {e}"
+            continue
+        over = excess(out, prefill_reference(q, kp[0], vp[0], table, pos,
+                                             hd ** -0.5, None, win), *tol)
         if over > 0:
             fail(f"prefill {name}: off its plain version by {over:.3g}")
         res["digest"][name] = digest(run())
