@@ -12,10 +12,12 @@ Phases; any failure exits non-zero before the result line:
    and in the fused-window form, float32 (atol 1e-5; the float32 route at
    head_dim 32 to 128), bfloat16 (atol 2e-2 + rtol 1e-2; the bf16 route)
    and float16 (the same tolerance; the bf16 kernel's float16 form, route
-   f16_mma), and in every dtype a case at head_dim 96, page 4, outside
-   the routes' sets, on the generic kernel and its combine step; each
-   call must have taken its shape's route (the launch counts), and every
-   route must have been taken;
+   f16_mma), and in every dtype the generic kernel outside the routes'
+   sets: head_dim 96 at page 4, Mistral-Large-2's 12 heads a kv head,
+   16 on one kv head at page 3, 71 on one at head_dim 80 and page 48,
+   page 256, and float32 head_dim 7; each call must have taken its
+   shape's route (the launch counts), the generic cases route generic,
+   and every route must have been taken;
 3. the same for the prefill kernel: padding queries, a sliding window, a
    second chunk that skips pages, the fourth chunk of a 2048-token prompt
    (float32 on the 3xTF32 route; bfloat16 on the bf16 route, float16 on
@@ -76,13 +78,17 @@ Phases; any failure exits non-zero before the result line:
    bound at 3xTF32 (three TF32 products an operation, 494.7 TF/s) with
    the FFMA bound (67 TF/s) beside it; the float16 forms at the served
    window and first chunk on float16 pools from a seed (the rows whose
-   launches phase 12 counts); the generic kernels in every dtype at the
-   8B's heads with head_dim 96, outside every fast set, at the served
-   window and first chunk (a prefill row each, its launches from phase
-   13's engines at their own head_dim, whose shapes phases 3 and 5 hold
-   to the plain version), and the generic prefill at the chunk phase 13 serves
-   (the 1b's heads in bfloat16 at page 8). Bounds count the work of this
-   run's inputs (ops.paged_attention.decode_work and prefill_work);
+   launches phase 12 counts); the generic decode kernel in bfloat16 at
+   the heads phase 14 serves (96 on 8 kv heads, head_dim 128, page 64)
+   at the served window (its row, whose launches phase 14 counts), 32
+   rows of 520 positions and 8 of 3,968; the generic kernels in every
+   dtype at the 8B's heads with head_dim 96, outside every fast set, at
+   the served window (under the generic decode row) and first chunk (a
+   prefill row each, its launches from phase 13's engines at their own
+   head_dim, whose shapes phases 3 and 5 hold to the plain version), and
+   the generic prefill at the chunk phase 13 serves (the 1b's heads in
+   bfloat16 at page 8). Bounds count the work of this run's inputs
+   (ops.paged_attention.decode_work and prefill_work);
 6. hold the tensor-parallel wrappers (paged_attention_decode_sharded, its
    window form, paged_attention_prefill_sharded) against the plain
    versions at the heads one rank holds of the 8B widths at tp 2, 4 and
@@ -208,7 +214,7 @@ Phases; any failure exits non-zero before the result line:
    must be finite (the plain int8 order rounds x @ q to float16 before
    the scale, which overflows past 65504). Its launches fill the float16
    rows of the kernels line.
-13. (run last) the generic prefill kernel on served paths: Llama-3.2-1B's
+13. (run after phase 12) the generic kernels on served paths: Llama-3.2-1B's
    widths in bfloat16 (the launcher's ``1b`` preset, seed-0 weights) at
    page size 8, as the reference's ``--kv-cache-block-size 8`` gives
    (1,024 pages, page buckets 16 and 128, the default chunk of 512):
@@ -220,6 +226,18 @@ Phases; any failure exits non-zero before the result line:
    bfloat16 at page 16 and in float32 at page 4, one request each on the
    card with every prefill call on the generic kernel. Its launches fill
    the generic prefill rows of the kernels line.
+14. (run last) Mistral-Large-2's widths, from Mistral-Large-Instruct-2407's
+   published config.json (``model_type`` mistral, D 12288, I 28672, 96
+   query heads on 8 kv heads of head_dim 128: a GQA group of 12, V 32768,
+   rope theta 1e6, an untied head) through ``ModelConfig.from_hf_config``,
+   at 4 of its 88 layers, bfloat16, seed-0 weights, the default
+   EngineConfig (page 64), an engine built directly: warmed, phase 4's
+   requests served over HTTP with no capture after warmup, every decode
+   call on the generic decode kernel (window replays x 4 x K) and every
+   prefill call on the generic prefill kernel, none on another route;
+   its kernel path against its plain path teacher-forced at PATH_LIMITS
+   with the two fault controls. Its launches fill the generic decode row
+   of the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -251,7 +269,7 @@ H100_TF32_FLOPS = 494.7e12     # dense TF32 tensor cores
 DECODE_KERNELS = {"bf16_mma": "paged_decode_bf16_kernel",
                   "f16_mma": "paged_decode_bf16_kernel<hd, __half>",
                   "f32": "paged_decode_f32_kernel",
-                  "generic": "paged_decode_kernel + paged_decode_combine"}
+                  "generic": "paged_decode_generic_kernel"}
 # phase 5's decode shapes: max abs error over the plain output's rms. The
 # bf16 tolerance alone is as large as the outputs of rows of thousands of
 # keys (rms ~0.026 at 3,968), where a lost 16-key block moves the output
@@ -395,17 +413,37 @@ def check_decode(dev) -> dict:
         # enough rows x kv heads to fill the card: no page split
         ("8b-b40", 1, 64, 8, 4, 64, 128, 4, [(7 * i) % 257 for i in range(40)],
          [max(0, (7 * i) % 257 - 100) for i in range(40)], None),
-        # head_dim 96, page 4: outside the float32 and the bf16 kernels'
-        # sets, on the generic kernel and its combine step in every dtype
+        # outside the float32 and the bf16 kernels' sets, on the generic
+        # kernel in every dtype: head_dim 96 at page 4; Mistral-Large's 12
+        # heads a kv head; 16 on one kv head at page 3; 71 on one (five
+        # head tiles) at head_dim 80, page 48; page 256; float32 head_dim 7
         ("generic", 2, 32, 2, 3, 4, 96, 8, [0, 5, 17, 32], [0, 0, 3, 20],
          20.0),
+        ("generic-g12", 1, 48, 2, 12, 64, 128, 8, [0, 1, 64, 300, 511],
+         [0, 0, 0, 10, 200], None),
+        ("generic-g16", 1, 64, 1, 16, 3, 64, 40, [40, 7, 0, 100],
+         [0, 2, 0, 50], 30.0),
+        ("generic-mqa71", 1, 24, 1, 71, 48, 80, 4, [33, 150, 0], [0, 20, 0],
+         20.0),
+        ("generic-page256", 1, 12, 2, 4, 256, 128, 4, [300, 600, 1, 0],
+         [0, 257, 0, 0], None),
+        ("generic-hd7", 1, 32, 2, 3, 5, 7, 8, [20, 9, 0], [0, 0, 0], 15.0),
     ]
     # float32: atol 1e-5 (same math, another summation order); bfloat16
     # and float16: atol 2e-2 + rtol 1e-2, i.e. one or two bf16 roundings
     # of the output at any magnitude
     for dname, tol, rtol in DTYPE_TOLS:
         dtype = getattr(torch, dname)
-        for name, L, N, KV, G, ps, hd, P, lengths, lower, softcap in cases:
+        # the shapes phase 13's tiny engines serve (4 heads on 2 kv heads,
+        # head_dim 16: the kernel's narrowest width): page 16 in the
+        # 16-bit types, page 4 in float32, at the served context of 28
+        tiny = ("generic-tiny", 2, 48, 2, 2,
+                4 if dtype == torch.float32 else 16, 16, 16,
+                [TINY_SERVED_CTX[0], 0, 17, 5, 60], [0, 0, 3, 0, 20], None)
+        for name, L, N, KV, G, ps, hd, P, lengths, lower, softcap in (
+                cases + [tiny]):
+            if hd % 8 and dtype != torch.float32:
+                continue  # 16 bits take head_dim a multiple of 8
             B, H = len(lengths), KV * G
             kp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
             vp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
@@ -416,6 +454,9 @@ def check_decode(dev) -> dict:
             lo = torch.tensor(lower, dtype=torch.int32, device=dev)
             route = ops.DECODE_ROUTES[ops.decode_route(dtype, H, KV, ps,
                                                        hd)]
+            if name.startswith("generic") and route != "generic":
+                fail(f"decode {name} {dtype}: on the {route} route, not the "
+                     f"generic kernel")
             for layer in range(L):
                 for stats in (True, False):
                     before = dict(ops.DECODE_ROUTE_LAUNCHES)
@@ -482,8 +523,7 @@ def need_routes(routes: set, what: str, required) -> None:
 
 def check_window(dev) -> dict:
     """The fused-window form of the decode kernel (pool + in-flight buffer,
-    folded in the float32 and bf16 kernels, by the combine step on the
-    generic route) against its plain version."""
+    folded in the kernel on every route) against its plain version."""
     import torch
 
     from dynamo_tpu_torch.ops import paged_attention as ops
@@ -503,15 +543,31 @@ def check_window(dev) -> dict:
             # page bucket of 64 (so most of the flash-decoding splits are
             # empty), the served contexts of 40 to 656 positions
             ("served", 64, [40, 64, 86, 656]))),
-        # head_dim 96, page 4: outside the float32 and the bf16 kernels'
-        # sets, on the generic kernel and its combine step
+        # outside the float32 and the bf16 kernels' sets, on the generic
+        # kernel: head_dim 96 at page 4; Mistral-Large's 12 heads a kv
+        # head at page 64; 71 on one kv head at head_dim 80, page 48; page
+        # 256; float32 head_dim 7
         (64, 2, 3, 4, 96, (("generic", 8, [-1, 0, 5, 17, 30]),)),
+        (64, 2, 12, 64, 128, (("generic-g12", 12, [-1, 0, 64, 300, 700]),)),
+        (24, 1, 71, 48, 80, (("generic-mqa71", 6, [-1, 33, 150]),)),
+        (12, 2, 4, 256, 128, (("generic-page256", 4, [-1, 300, 600]),)),
+        (40, 2, 3, 5, 7, (("generic-hd7", 8, [-1, 0, 9, 37]),)),
     )
     for (dname, tol, rtol), (N, KV, G, ps, hd, layouts) in (
-            (d, p) for d in DTYPE_TOLS for p in pools):
+            (d, p) for d in DTYPE_TOLS
+            # and the shapes phase 13's tiny engines serve: 4 heads on 2
+            # kv heads, head_dim 16, page 16 in 16 bits, page 4 in float32
+            for p in pools + ((64, 2, 2, 4 if d[0] == "float32" else 16, 16,
+                               (("generic-tiny", 16,
+                                 [-1, 0, 24, 27, 40]),)),)):
         dtype = getattr(torch, dname)
+        if hd % 8 and dtype != torch.float32:
+            continue  # 16 bits take head_dim a multiple of 8
         H = KV * G
         route = ops.DECODE_ROUTES[ops.decode_route(dtype, H, KV, ps, hd)]
+        if layouts[0][0].startswith("generic") and route != "generic":
+            fail(f"decode window {layouts[0][0]} {dtype}: on the {route} "
+                 f"route, not the generic kernel")
         kp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
         vp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
         for lay, P, starts in layouts:
@@ -1238,7 +1294,7 @@ def check_paths(engine, cfg, dev, limits=None) -> tuple:
     path against plain path (:func:`path_run`): same weights, same
     inputs, fresh pools. The window is teacher-forced, so every step's
     logits and the K/V committed at all K window positions in every
-    layer are compared; steps 1.. are where the combine kernel folds 2..
+    layer are compared; steps 1.. are where the decode kernel folds 2..
     in-flight keys. Two controls, each a fault on the kernel path, show
     the check can see one: prefill queries that miss their own key, and a
     window step that folds one in-flight key too few; with int8 weights
@@ -1572,11 +1628,12 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
     bf16 tolerance (as check_decode) and within DECODE_REL_RMS of the
     plain output's rms, a limit the plain version one 16-key block short
     in every row must pass (else the check is blind). Also the route,
-    the splits per (row, kv head) that the launch plan picks and, on the
-    bf16 route (one cluster of those splits), each row's live splits.
+    the splits per (row, kv head) that the launch plan picks (one
+    cluster of them) and each row's live splits.
     ``peak_flops``: the rate of the operands' type the bound counts
-    (float32 pools: H100_F32_FLOPS, the float32 kernel's FFMA). float32
-    pools are held to atol 1e-5 in place of the bf16 tolerance."""
+    (float32 pools: H100_F32_FLOPS for the float32 kernel's FFMA, a third
+    of H100_TF32_FLOPS for the generic kernel's 3xTF32). float32 pools
+    are held to atol 1e-5 in place of the bf16 tolerance."""
     import torch
     import torch.nn.functional as F
 
@@ -1637,9 +1694,8 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
     return {
         "max_abs_err": err, "err_limit": limit, "control_err": control,
         "decode_route": DECODE_ROUTES[route], "splits": splits,
-        "live_splits": (live_splits(ctx, ps, splits,
-                                    DECODE_ROUTES[route] == "f32")
-                        if DECODE_ROUTES[route] != "generic" else None),
+        "live_splits": live_splits(ctx, ps, splits, DECODE_ROUTES[route],
+                                   P, H // KV, hd, kp.dtype),
         "ms": t_k, "plain_ms": t_p,
         "bound_ms": max(bytes_ / H100_BYTES_PER_S,
                         flops / peak_flops) * 1e3,
@@ -1653,14 +1709,22 @@ def time_decode(kp, vp, ctx, B: int, P: int, K: int, H: int, g,
     }
 
 
-def live_splits(ctx, ps: int, S: int, f32: bool = False) -> list:
-    """The splits of a cluster of ``S`` that read pages, per row of pool
-    contexts ``ctx``, by the bf16 and float32 decode kernels' cut
-    (``db_min_pages`` and ``DecodeF32Tile::RING_KEYS`` in
-    dynamo_tpu_torch/ops/csrc/paged_attention.cu): a row of n pages takes
-    min(S, ceil(n / max(ring // ps, 1))) splits, one ring of keys each at
-    least (192 keys; 96 on the float32 route)."""
-    least = max((96 if f32 else 192) // ps, 1)
+def live_splits(ctx, ps: int, S: int, route: str, P: int, G: int, hd: int,
+                dtype) -> list:
+    """The splits of a cluster of ``S`` that read keys, per row of pool
+    contexts ``ctx``, by the decode kernels' cut
+    (dynamo_tpu_torch/ops/csrc/paged_attention.cu): on the bf16 and
+    float32 routes (``db_min_pages``, ``DecodeF32Tile::RING_KEYS``) a
+    row of n pages takes min(S, ceil(n / max(ring // ps, 1))) splits
+    (ring 192 keys; 96 on the float32 route); the generic kernel cuts its
+    key blocks (ops.paged_attention.decode_generic_shares)."""
+    from dynamo_tpu_torch.ops import paged_attention as ops
+
+    if route == "generic":
+        plan = ops.decode_generic_plan(G, ps, hd, dtype)
+        return [len(ops.decode_generic_shares(0, n, P, ps, S, plan))
+                for n in ctx]
+    least = max((96 if route == "f32" else 192) // ps, 1)
     return [min(S, -(-(-(-n // ps)) // least)) for n in ctx]
 
 
@@ -1862,12 +1926,43 @@ def time_kernels(engine, cfg, dev, served) -> list:
     del k16, v16
     torch.cuda.empty_cache()
 
-    # the generic kernels (paged_decode_kernel + paged_decode_combine, and
-    # paged_prefill_generic_kernel) at the 8B's heads with head_dim 96,
-    # outside every fast set, on pools from a seed: the served window in
-    # bfloat16, float16 and float32 (under the decode row's shapes) and
-    # the first chunk in each (a row each, its launches from phase 13's
-    # engines; float32 bound at 3xTF32, as the f32 route's)
+    # the generic decode kernel (paged_decode_generic_kernel) in bfloat16
+    # at the heads phase 14 serves, Mistral-Large-2's 96 on 8 kv heads at
+    # head_dim 128, page 64, on pools from a seed: the served window (its
+    # launches fill the row), 32 rows of 520 positions and 8 of 3,968
+    gen_shapes = {}
+    km = torch.randn(1, ecfg.num_pages, 8, ps, 128, generator=g,
+                     device=dev).to(torch.bfloat16)
+    vm = torch.randn(1, ecfg.num_pages, 8, ps, 128, generator=g,
+                     device=dev).to(torch.bfloat16)
+    for name, rows_ctx in (("served", ctx), ("rows32 g12", [520] * 32),
+                           ("long8 g12", [3968] * 8)):
+        gen_shapes[name] = time_decode(
+            km, vm, rows_ctx, ecfg.bucket_batch(len(rows_ctx)),
+            ecfg.bucket_pages(max(-(-n // ps) for n in rows_ctx)), K, 96, g)
+        if gen_shapes[name]["decode_route"] != "generic":
+            fail(f"decode at Mistral-Large-2's heads ({name}) took route "
+                 f"{gen_shapes[name]['decode_route']}, not the generic "
+                 f"kernel")
+    del km, vm
+    torch.cuda.empty_cache()
+    gen_row = {
+        "name": "paged_attention_decode generic", "route": "cuda",
+        "source": "dynamo_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "dynamo_tpu/ops/paged_attention.py:52",
+        "kernel": "paged_decode_generic_kernel (bfloat16, 96 heads on 8, "
+                  "head_dim 128, page 64)",
+        "launches": 0, **gen_shapes.pop("served"), "shapes": gen_shapes,
+        "launches_from": "Mistral-Large-2's widths served in bfloat16 "
+                         "(phase 14)"}
+    rows.append(gen_row)
+
+    # the generic kernels at the 8B's heads with head_dim 96, outside
+    # every fast set, on pools from a seed: the served window in
+    # bfloat16, float16 and float32 (under the generic decode row's
+    # shapes; float32 bound at 3xTF32, as its products) and the first
+    # chunk in each (a row each, its launches from phase 13's engines;
+    # float32 bound at 3xTF32, as the f32 route's)
     for dtype, peak in ((torch.bfloat16, H100_BF16_FLOPS),
                         (torch.float16, H100_BF16_FLOPS),
                         (torch.float32, H100_TF32_FLOPS / 3)):
@@ -1876,13 +1971,11 @@ def time_kernels(engine, cfg, dev, served) -> list:
         vg = torch.randn(1, ecfg.num_pages, cfg.num_kv_heads, ps, 96,
                          generator=g, device=dev).to(dtype)
         name = str(dtype).split(".")[-1]
-        dec_g = time_decode(kg, vg, ctx, B, P, K, H, g,
-                            peak_flops=(H100_F32_FLOPS
-                                        if dtype == torch.float32 else peak))
+        dec_g = time_decode(kg, vg, ctx, B, P, K, H, g, peak_flops=peak)
         if dec_g["decode_route"] != "generic":
             fail(f"decode at head_dim 96 in {name} took route "
                  f"{dec_g['decode_route']}, not the generic kernel")
-        rows[0]["shapes"][f"generic hd96 {name}"] = dec_g
+        gen_row["shapes"][f"hd96 {name}"] = dec_g
         pf_g = time_prefill(kg[0], vg[0], ecfg, 0, served["prefill_chunk"], H,
                             g, peak_flops=peak)
         if pf_g["prefill_route"] != "generic":
@@ -4002,6 +4095,73 @@ def generic_phase(dev) -> dict:
     return report
 
 
+# ------------------------------------------------ Mistral-Large-2's widths
+
+
+# Mistral-Large-Instruct-2407's published config.json (the fields the
+# loader reads): 96 query heads on 8 kv heads of head_dim 128, a GQA group
+# of 12, which no fast decode route takes
+MISTRAL_LARGE_2407 = {
+    "model_type": "mistral", "hidden_size": 12288,
+    "intermediate_size": 28672, "num_attention_heads": 96,
+    "num_key_value_heads": 8, "head_dim": 128, "vocab_size": 32768,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-05,
+    "tie_word_embeddings": False, "num_hidden_layers": 88}
+# its one cut: 4 of the 88 layers (2.77 GB of bfloat16 weights a layer;
+# the whole model, 246 GB, does not fit the card)
+MISTRAL_LAYERS = 4
+
+
+def mistral_phase(dev) -> dict:
+    """Phase 14: Mistral-Large-2's widths (MISTRAL_LARGE_2407 through
+    ``ModelConfig.from_hf_config``, 4 of its 88 layers, bfloat16, seed-0
+    weights, the default EngineConfig: page 64), an engine built
+    directly: warmed (every bucket of both grids captured), phase 4's
+    requests served over HTTP (serve_and_check: no capture after warmup,
+    every attention call from a graph replay, every decode call on the
+    generic decode kernel, window replays x 4 layers x K, and every
+    prefill call on the generic prefill kernel), then its kernel path
+    against its plain path teacher-forced (check_paths at PATH_LIMITS
+    with the two fault controls)."""
+    import torch
+
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.from_hf_config(
+        dict(MISTRAL_LARGE_2407, num_hidden_layers=MISTRAL_LAYERS))
+    if (cfg.dtype, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim_) != (
+            "bfloat16", 12, 128):
+        fail(f"Mistral-Large-2's config parsed as {cfg}")
+    t = time.monotonic()
+    engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda")
+    engine.warmup()
+    topn = engine.ecfg.max_top_logprobs
+    check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
+    log(f"  Mistral-Large-2 engine ({cfg.num_layers} of 88 layers, D=12288, "
+        f"H=96 on 8 kv heads, V=32768, bf16, seed 0) built and warmed up in "
+        f"{time.monotonic() - t:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    if served_routes(engine) != ("generic", "generic"):
+        fail(f"Mistral-Large-2's heads are not on the generic kernels: "
+             f"{served_routes(engine)}")
+    mdc = ModelDeploymentCard(name="mistral-large-2407-4-layers-random")
+    mdc.kv_block_size = engine.ecfg.page_size
+    t = time.monotonic()
+    served, _, _ = asyncio.run(serve_and_check(engine, mdc))
+    log(f"  served in {time.monotonic() - t:.1f}s: {json.dumps(served)}")
+    t = time.monotonic()
+    paths, _ = check_paths(engine, cfg, dev)
+    log(f"  teacher-forced check in {time.monotonic() - t:.1f}s")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": dict(MISTRAL_LARGE_2407,
+                           num_hidden_layers=MISTRAL_LAYERS),
+            "served": served, "paths": paths}
+
+
 # --------------------------------------------------------------- main
 
 
@@ -4153,6 +4313,16 @@ def main() -> None:
         "at page 8 over HTTP, then the tiny preset in bfloat16, float16 and "
         "float32")
     generic_report = generic_phase(dev)
+
+    log("phase 14: Mistral-Large-2's widths (4 of 88 layers) in bfloat16 "
+        "served over HTTP on the generic decode and prefill kernels")
+    mistral_report = mistral_phase(dev)
+    gen_row = next(r for r in rows
+                   if r["name"] == "paged_attention_decode generic")
+    gen_row["launches"] = mistral_report["served"]["route_launches"][
+        "generic"]
+    if gen_row["launches"] <= 0:
+        fail(f"{gen_row['name']}: not launched on its served path (phase 14)")
     # the generic prefill rows take their launches from phase 13's engines
     # (its head_dim 16 or 64, another instantiation than the timed head
     # dim 96: the row's kernel says which shape each number is from)
@@ -4235,6 +4405,7 @@ def main() -> None:
                        "checkpoint": checkpoint, "penalties": penalties,
                        "f32_1b": f32_report, "f16_8b": f16_report,
                        "generic_prefill": generic_report,
+                       "mistral_large": mistral_report,
                        "kernels": rows, "int8": int8_report,
                        "int8_gemm_timings": int8_rows,
                        "tp_local_errs": {" ".join(k): v for k, v in

@@ -42,6 +42,17 @@ bool f32_shape(int G, int ps, int hd) {
          (ps == 8 || ps == 16 || ps == 32 || ps == 64 || ps == 128);
 }
 
+// The shapes both generic kernels (route 0: paged_decode_generic_kernel,
+// paged_prefill_generic_kernel) take, in every dtype (0 = float32, 1 =
+// bfloat16, 2 = float16): any page size and GQA group, head_dim up to
+// 256, a multiple of 8 in the 16-bit types (16-byte rows for their
+// copies and ldmatrix). ops/paged_attention.py prefill_generic_shape
+// lists the same.
+bool generic_shape(int dtype, int G, int ps, int hd) {
+  return dtype >= 0 && dtype <= 2 && G >= 1 && ps >= 1 && hd >= 1 &&
+         hd <= 256 && (dtype == 0 || hd % 8 == 0);
+}
+
 // Key position `pos` is visible to a query at `qp` under the row's sliding
 // window `win`: the causal mask intersected with the window (qp = -1, a
 // padding query, sees nothing).
@@ -52,6 +63,45 @@ __device__ __forceinline__ bool visible(int pos, int qp, int win) {
 // Pool position `pos` lies in a decode row's visible extent [lo, len).
 __device__ __forceinline__ bool in_extent(int pos, int lo, int len) {
   return pos >= lo && pos < len;
+}
+
+// cp.async of BYTES (4, 8 or 16) from global to shared memory; where
+// `valid` is false nothing is read and the destination is zero-filled
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
+                                               bool valid) {
+  const uint32_t d = smem_u32(dst);
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES), "r"(n) : "memory");
+  }
+}
+
+// mma.sync m16n8k16, T (bf16 or f16) in, f32 accumulate: A a[0..3] (rows
+// g, g + 8 at k 2t, 2t + 1; the same at k + 8), B b0 (k 2t, 2t + 1), b1
+// (k + 8) at column g, D d[0..3] (row g cols 2t, 2t + 1; row g + 8 the
+// same), g = lane / 4, t = lane % 4.
+template <typename T>
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
+                                          uint32_t b0, uint32_t b1) {
+#define DYN_MMA_16816(AB)                                                   \
+  asm("mma.sync.aligned.m16n8k16.row.col.f32." AB "." AB ".f32 "            \
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                     \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+  DYN_AB(T, DYN_MMA_16816);
+#undef DYN_MMA_16816
+}
+
+// head_dim as the generic kernels' products take it: the next of 16, 32,
+// 64, 96, 128, 192 and 256 (columns past hd are zeros in shared memory)
+__host__ __device__ constexpr int gn_hdp(int hd) {
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 96 ? 96
+       : hd <= 128 ? 128 : hd <= 192 ? 192 : 256;
 }
 
 // ---- 3xTF32: float32 products on the TF32 tensor cores. An operand x is

@@ -17,10 +17,13 @@
 //            16/32/64/128/256, page size 8-128, GQA groups 1-8 (the tiny,
 //            1b and llama3_8b presets in float32); one cluster launch per
 //            call
-//   route 0  paged_decode_kernel<T>            the shapes outside these
-//            + paged_decode_combine<T>         sets, float32, bfloat16 or
-//                                              float16 (CUDA-core FMAs
-//                                              from shared memory)
+//   route 0  paged_decode_generic_kernel     the shapes outside these
+//            <T, hdp>                          sets, float32, bfloat16 or
+//                                              float16: any page size and
+//                                              GQA group, head_dim up to
+//                                              256 (a multiple of 8 in 16
+//                                              bits); one cluster launch
+//                                              per call
 //
 // The prefill kernel (the TPU kernel _prefill_kernel) lives in
 // paged_prefill.cu.
@@ -36,10 +39,7 @@
 // K/V, at 3.35 TB/s, once enough bytes are in flight (~24 KB per SM:
 // 3.35 TB/s x ~1 us of latency / 132 SMs); a call with little K/V (a few
 // short rows) is bound by its chain of dependent memory round trips and
-// the launch. The generic kernel is bound by neither: each page goes
-// through scores, a softmax and P V as block-wide phases with a barrier
-// between, ~10^3 scalar instructions per thread per page, so it is bound
-// by issued instructions (22% of the bound at 32 rows of 520 positions).
+// the launch.
 //
 // What the bf16 design (route 1) does about it:
 // * No block-wide barrier in the key loop. A block works for one (row, kv
@@ -123,6 +123,58 @@
 //   of rings, one block an SM, 2 splits at the served window) and 4
 //   stages of 8 keys were slower on an H100 (PERF.md, Findings).
 //
+// What the generic design (route 0) does: route 1's, carried to any
+// shape with the generic prefill kernel's key blocks (paged_prefill.cu).
+// Its predecessor staged whole pages through block-wide phases (scores,
+// softmax, P V with a barrier between, ~10^3 scalar FMAs a thread a page,
+// then a second launch over global partials): 17-29x its byte bound, and
+// refused past 8 heads a kv head or 227 KB of pages (page 256).
+// * Key blocks, not pages: position j lies on page page_table[b, j / ps]
+//   at slot j % ps, so a block of KB keys (16 in 16 bits, 8 in float32)
+//   crosses page boundaries freely; shared memory depends on the block,
+//   not on ps, and any page size keeps a tensor-core width. Lane r of a
+//   warp loads the table entry of key r of the warp's next block while
+//   the current one computes.
+// * Heads in tiles of 16, the m16 rows of mma.sync: a block owns one
+//   (row, kv head, head tile); rows past the group are zero. Up to 16
+//   heads a kv head, K and V are read from device memory once per (row,
+//   kv head); past 16 (MQA, 12 < G), the grid gains head tiles, which
+//   re-read K/V, mostly from L2.
+// * Independent warps as route 1's: warp w takes the key blocks w, w +
+//   4, ... of its split, with its own ring of 3 stages filled by
+//   cp.async (16-byte copies where a row is a multiple of 16 bytes, else
+//   8 or 4 in float32; a key out of view or on a page outside the pool
+//   is zero-filled, never read, and masked), completion by cp.async
+//   groups and __syncwarp, its own m, l and output fragment; no
+//   block-wide barrier in the key loop. Rows are padded (head_dim + 8
+//   elements; V + 4 in float32) for conflict-free ldmatrix and fragment
+//   loads; head_dim pads to 16/32/64/96/128/192/256 with zero columns.
+// * A block's walk is bound by its own chain of dependent instructions
+//   where a long row leaves one block an SM (one warp a sub-partition):
+//   the copy loop's trip counts are compile-time (it unrolls, the rows'
+//   offsets load together; with a runtime-bounded loop 8 x 3,968 keys at
+//   12 heads took 0.0715 ms, unrolled 0.0566, PERF.md, Findings), Q's A
+//   fragments stay in registers where the output fragment leaves room
+//   (16 bits to head_dim 128, float32's TF32 parts to 96), and float32's
+//   three score products take three accumulators.
+// * Products: bfloat16 / float16 mma.sync m16n8k16 as route 1 (Q and K
+//   by ldmatrix, P from the S accumulator rounded to T, V by
+//   ldmatrix.trans). float32: 3xTF32 m16n8k8 as the generic prefill
+//   kernel, each block's P V summed from zero and added in float32 (the
+//   tensor cores round accumulations toward zero). Decode does 2-4
+//   operations a byte of float32 K/V, so FFMA as route 2 would do as
+//   well; the tensor-core form keeps one code path for any group, where
+//   route 2's lanes-by-head layout stops at 8 heads.
+// * The splits of a (row, kv head, head tile) are one cluster (at most
+//   8, decode_cluster_plan over the card's co-resident clusters of this
+//   kernel, from host-known shapes only); a row's blocks are cut into
+//   near-equal contiguous shares, one for each ring of 12 blocks the row
+//   fills, up to that many, folded through distributed shared memory as
+//   route 1's. Split
+//   0 also walks the fused window's in-flight keys, as key blocks after
+//   its pool blocks (slot w's rows at wk/wv[b, w, kv]), so the window
+//   takes any Kw. One launch a call, no global partials.
+
 // The float16 form (route 3) is the bf16 kernel with the float16 forms
 // of its instructions (mma.sync .f16, half2 packing of P and of the
 // output): the same shapes, tiles and plan. Scores, the running max, l
@@ -147,9 +199,6 @@
 namespace {
 
 constexpr int MAX_G = 8;         // GQA group size the decode kernels take
-constexpr size_t MAX_SMEM = 227 * 1024;  // per block, after opt-in
-constexpr int DEC_THREADS = 128;
-constexpr int DEC_MAX_DPT = 2;   // head_dim <= DEC_THREADS * DEC_MAX_DPT
 
 // ------------------------------------------------------ shared by both
 // A row's visible pool extent [lo, len): given, or (fused window step)
@@ -177,17 +226,6 @@ __device__ __forceinline__ int row_pages(int len, int lo, int ps, int P,
   return max(row_end - row_begin, 0);
 }
 
-// The pages [p_begin, p_begin + n) of split `split` of S on the generic
-// route: the row's pages cut into S near-equal contiguous shares (a split
-// is empty only when the row has fewer pages than splits).
-__device__ __forceinline__ int split_pages(int len, int lo, int ps, int P,
-                                           int S, int split, int& p_begin) {
-  int row_begin;
-  const int n = row_pages(len, lo, ps, P, row_begin);
-  p_begin = row_begin + (int)((long long)n * split / S);
-  return row_begin + (int)((long long)n * (split + 1) / S) - p_begin;
-}
-
 // 16-byte asynchronous copy global -> shared (sm_80+), and its group fences
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -195,242 +233,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// ---------------------------------------------------- route 0: generic
-// One 16-byte vector of T as floats (8 bf16 or float16, or 4 float).
-template <typename T>
-__device__ __forceinline__ void load_vec(const T* p, float* f) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* h = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = unpack2(h + 2 * i);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-__device__ __forceinline__ void load_vec(const float* p, float* f) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  f[0] = x.x;
-  f[1] = x.y;
-  f[2] = x.z;
-  f[3] = x.w;
-}
-
-// Padded row length (elements) of a page tile in shared memory: one extra
-// 16-byte slot per row, so that 16-byte reads of consecutive rows fall in
-// different banks.
-template <typename T> __host__ __device__ constexpr int vec_elems() {
-  return 16 / (int)sizeof(T);
-}
-
-size_t decode_smem_bytes(int G, int ps, int hd, int elem) {
-  // K and V tiles (padded rows), double-buffered, then q, scores and
-  // stats in float32
-  return 4 * (size_t)ps * (hd + 16 / elem) * elem +
-         sizeof(float) * ((size_t)G * hd + (size_t)G * ps + 3 * (size_t)G);
-}
-
-// grid (B, KV, S); block DEC_THREADS. Split s of S walks its share of the
-// row's pages (flash-decoding): given partial buffers it writes
-// unnormalized partials (acc, m, l) that paged_decode_combine folds (with
-// the fused window's in-flight keys, if any); without, S is 1 and it
-// writes the output and stats itself. Pages stream through two shared-memory buffers:
-// page i+1 is in flight (cp.async) while page i is computed. Shared: K/V
-// tiles [2][2][ps*(hd+VEC)] (element type), then float32 q [G*hd],
-// scores/probs [G*ps], m, l, alpha [G]. Scores: each key is scored by
-// blockDim/ps threads, one per subset of the group's heads, with 16-byte
-// reads of the key; P V: each thread owns head_dim slots for all heads.
-template <typename T>
-__global__ void __launch_bounds__(DEC_THREADS)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pools,
-                    const T* __restrict__ v_pools, long long layer_offset,
-                    const int* __restrict__ page_table,
-                    const int* __restrict__ lengths,
-                    const int* __restrict__ lower, T* __restrict__ out,
-                    float* __restrict__ m_out, float* __restrict__ l_out,
-                    float* __restrict__ part_acc, float* __restrict__ part_ml,
-                    const int* __restrict__ start,
-                    const int* __restrict__ q_pos,
-                    const int* __restrict__ eff_win,
-                    int H, int KV, int N, int ps, int hd, int P, float scale,
-                    float softcap) {
-  constexpr int VEC = vec_elems<T>();
-  extern __shared__ float4 smem_raw[];
-  const int b = blockIdx.x, kv = blockIdx.y, split = blockIdx.z;
-  const int S = gridDim.z, G = H / KV;
-  const int rowp = hd + VEC;
-  const int tile = ps * rowp;
-  T* tiles = reinterpret_cast<T*>(smem_raw);  // [buf][k|v][ps*rowp]
-  float* q_s = reinterpret_cast<float*>(tiles + 4 * tile);
-  float* s_s = q_s + G * hd;
-  float* m_s = s_s + G * ps;
-  float* l_s = m_s + G;
-  float* a_s = l_s + G;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  const long long qbase = ((long long)b * H + (long long)kv * G) * hd;
-  for (int i = tid; i < G * hd; i += blockDim.x) q_s[i] = to_f(q[qbase + i]);
-  if (tid < G) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  float acc[DEC_MAX_DPT][MAX_G];
-#pragma unroll
-  for (int k = 0; k < DEC_MAX_DPT; ++k)
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) acc[k][g] = 0.f;
-
-  int len, lo, p_begin;
-  row_extent(b, lengths, lower, start, q_pos, eff_win, len, lo);
-  const int n_pages = split_pages(len, lo, ps, P, S, split, p_begin);
-  const long long page_elems = (long long)KV * ps * hd;
-  const long long head_off = (long long)kv * ps * hd;
-  const int* row_pages = page_table + (long long)b * P + p_begin;
-  const int chunks_per_row = hd / VEC;
-  const int tpk = max((int)blockDim.x / ps, 1);  // threads per key
-
-  // stage page i of this split's walk into buffer i & 1 (a page id outside
-  // the pool is never read; its compute is skipped below)
-  auto fetch = [&](int i) {
-    if (i < n_pages) {
-      const int page = row_pages[i];
-      if (page >= 0 && page < N) {
-        const long long off = layer_offset + page * page_elems + head_off;
-        T* kb = tiles + (i & 1) * 2 * tile;
-        for (int c = tid; c < ps * chunks_per_row; c += blockDim.x) {
-          const int r = c / chunks_per_row, cc = c - r * chunks_per_row;
-          cp_async16(kb + r * rowp + cc * VEC, k_pools + off + r * hd + cc * VEC);
-          cp_async16(kb + tile + r * rowp + cc * VEC,
-                     v_pools + off + r * hd + cc * VEC);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  fetch(0);
-  for (int i = 0; i < n_pages; ++i) {
-    fetch(i + 1);
-    cp_async_wait_1();  // every group but the newest (page i+1) has landed
-    __syncthreads();
-    const int p = p_begin + i;
-    const int page = row_pages[i];
-    if (page >= 0 && page < N) {  // uniform across the block
-      const T* kt = tiles + (i & 1) * 2 * tile;
-      const T* vt = kt + tile;
-
-      for (int pair = tid; pair < ps * tpk; pair += blockDim.x) {
-        const int j = pair % ps, h = pair / ps;
-        const T* kr = kt + j * rowp;
-        float sc[MAX_G];
-#pragma unroll
-        for (int gi = 0; gi < MAX_G; ++gi) sc[gi] = 0.f;
-        for (int d0 = 0; d0 < hd; d0 += VEC) {
-          float kf[8];
-          load_vec(kr + d0, kf);
-#pragma unroll
-          for (int gi = 0; gi < MAX_G; ++gi) {
-            const int g = h + gi * tpk;
-            if (g < G) {
-              const float* qg = q_s + g * hd + d0;
-#pragma unroll
-              for (int e = 0; e < VEC; ++e) sc[gi] += qg[e] * kf[e];
-            }
-          }
-        }
-#pragma unroll
-        for (int gi = 0; gi < MAX_G; ++gi) {
-          const int g = h + gi * tpk;
-          if (g < G) s_s[g * ps + j] = cap(sc[gi] * scale, softcap);
-        }
-      }
-      __syncthreads();
-
-      // online softmax update: one warp per head
-      for (int g = warp; g < G; g += nwarps) {
-        float mx = NEG_INF;
-        for (int j = lane; j < ps; j += 32) {
-          const int pos = p * ps + j;
-          if (pos >= lo && pos < len) mx = fmaxf(mx, s_s[g * ps + j]);
-        }
-        mx = warp_max(mx);
-        const float m_prev = m_s[g];
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int j = lane; j < ps; j += 32) {
-          const int pos = p * ps + j;
-          const float pe = (pos >= lo && pos < len) ? expf(s_s[g * ps + j] - m_new) : 0.f;
-          s_s[g * ps + j] = pe;
-          sum += pe;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          const float alpha = expf(m_prev - m_new);
-          a_s[g] = alpha;
-          l_s[g] = alpha * l_s[g] + sum;
-          m_s[g] = m_new;
-        }
-      }
-      __syncthreads();
-
-      // acc = acc * alpha + P V: thread owns head_dim slots
-#pragma unroll
-      for (int k = 0; k < DEC_MAX_DPT; ++k) {
-        const int d = tid + k * blockDim.x;
-        if (d < hd) {
-#pragma unroll
-          for (int g = 0; g < MAX_G; ++g)
-            if (g < G) acc[k][g] *= a_s[g];
-          for (int j = 0; j < ps; ++j) {
-            const float vd = to_f(vt[j * rowp + d]);
-#pragma unroll
-            for (int g = 0; g < MAX_G; ++g)
-              if (g < G) acc[k][g] += s_s[g * ps + j] * vd;
-          }
-        }
-      }
-    }
-    __syncthreads();  // buffer i & 1 is refilled by fetch(i + 2)
-  }
-  __syncthreads();  // stats written by the last page (or the init)
-
-  if (part_acc == nullptr) {
-#pragma unroll
-    for (int k = 0; k < DEC_MAX_DPT; ++k) {
-      const int d = tid + k * blockDim.x;
-      if (d < hd) {
-#pragma unroll
-        for (int g = 0; g < MAX_G; ++g)
-          if (g < G) out[qbase + (long long)g * hd + d] =
-              from_f<T>(acc[k][g] / fmaxf(l_s[g], 1e-9f));
-      }
-    }
-    if (m_out != nullptr && tid < G) {
-      m_out[(long long)b * H + kv * G + tid] = m_s[tid];
-      l_out[(long long)b * H + kv * G + tid] = l_s[tid];
-    }
-    return;
-  }
-  const long long pbase = (((long long)b * KV + kv) * S + split) * G;
-#pragma unroll
-  for (int k = 0; k < DEC_MAX_DPT; ++k) {
-    const int d = tid + k * blockDim.x;
-    if (d < hd) {
-#pragma unroll
-      for (int g = 0; g < MAX_G; ++g)
-        if (g < G) part_acc[(pbase + g) * hd + d] = acc[k][g];
-    }
-  }
-  if (tid < G) {
-    part_ml[(pbase + tid) * 2] = m_s[tid];
-    part_ml[(pbase + tid) * 2 + 1] = l_s[tid];
-  }
 }
 
 // ------------------------------------------------------- route 1: bf16
@@ -1285,95 +1087,601 @@ paged_decode_f32_kernel(const float* __restrict__ q,
   cluster_sync_relaxed();  // the other splits' shared memory outlives the reads
 }
 
-// ---------------------------------------------------------- combine
-// The generic route's second kernel. grid (B, KV); dynamic shared
-// (2 * Kw + S + 1) * G floats. Folds the S splits' partials of each (row,
-// kv head) into the output and the stats: rescale each split to the joint
-// max, normalize once; an all-masked or empty split has m = NEG_INF,
-// l = 0 and adds nothing. With a window buffer (wk != null)
-// it also scores the fused decode window's in-flight keys — slot w holds
-// position start + w, visible when w < n_win, start >= 0 and
-// start + w > q_pos - eff_win — and folds them in the same sum (the
-// merge of dynamo_tpu/models/llama.py:981-1006, with exp only where a key
-// is visible).
-template <typename T>
-__global__ void __launch_bounds__(DEC_THREADS)
-paged_decode_combine(const float* __restrict__ part_acc,
-                     const float* __restrict__ part_ml, T* __restrict__ out,
-                     float* __restrict__ m_out, float* __restrict__ l_out,
-                     int H, int KV, int S, int hd, const T* __restrict__ q,
-                     const T* __restrict__ wk, const T* __restrict__ wv,
-                     const int* __restrict__ start,
-                     const int* __restrict__ q_pos,
-                     const int* __restrict__ eff_win, int n_win, int Kw,
-                     float scale, float softcap) {
-  extern __shared__ float win_s[];  // slot scores [G*Kw], then flags [G*Kw]
-  const int b = blockIdx.x, kv = blockIdx.y, G = H / KV;
-  const long long base = ((long long)b * KV + kv) * S * G;
-  const int nw = wk != nullptr ? Kw : 0;
-  float* vis_s = win_s + G * nw;
-  if (nw > 0) {
-    const int st = start[b];
-    // visible: position > floor_pos (no sliding window: every slot)
-    const int floor_pos = eff_win != nullptr ? q_pos[b] - eff_win[b] : INT_MIN;
-    // one warp per (head, slot): lanes split head_dim
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int pair = warp; pair < G * nw; pair += blockDim.x >> 5) {
-      const int g = pair / nw, w = pair - g * nw;
-      const bool vis = w < n_win && st >= 0 && st + w > floor_pos;
-      float sc = NEG_INF;
-      if (vis) {  // uniform across the warp
-        const T* qg = q + ((long long)b * H + kv * G + g) * hd;
-        const T* kw = wk + (((long long)b * Kw + w) * KV + kv) * hd;
-        float dot = 0.f;
-        for (int d = lane; d < hd; d += 32) dot += to_f(qg[d]) * to_f(kw[d]);
-        sc = cap(warp_sum(dot) * scale, softcap);
-      }
-      if (lane == 0) {
-        win_s[pair] = sc;
-        vis_s[pair] = vis ? 1.f : 0.f;
+// ---------------------------------------------------- route 0: generic
+// blocks of DB_THREADS (DB_WARPS independent warps), as every route's:
+// ClusterLaunch launches each with DB_THREADS
+constexpr int DG_STAGES = 3;                // stages in each warp's ring
+constexpr int DG_ROWS = 16;                 // head rows of a tile: mma's m16
+// a row takes one live split for each ring of key blocks (each warp's
+// stages) it fills
+constexpr int DG_MIN_BLOCKS = DB_WARPS * DG_STAGES;
+
+// keys a block, by element size: 16 in 16 bits (one m16n8k16 k-step of
+// P V), 8 in float32 (one m16n8k8 k-step), so that a stage holds about
+// as many bytes in either
+__host__ __device__ constexpr int dg_keys(int esize) {
+  return esize == 4 ? 8 : 16;
+}
+
+// Row strides in elements: Q and K hdp + 8, so that the eight 16-byte rows
+// of an ldmatrix phase (16-bit) or the float2 fragment loads of a half
+// warp (float32) meet different banks; V the same in 16 bits (read by
+// ldmatrix.trans), hdp + 4 in float32, where lane (g, t) reads column g
+// of keys 2t and 2t + 1.
+__host__ __device__ constexpr int dg_v_stride(int esize, int hdp) {
+  return esize == 4 ? hdp + 4 : hdp + 8;
+}
+
+// Shared memory of a block, in bytes: Q [16, hdp + 8] and the warps'
+// rings of DG_STAGES stages (a stage: K [keys, hdp + 8], then V [keys,
+// v stride]), which the merge at the end reuses as float32 [warps, 16,
+// hdp] partial outputs, the warps' (m, l) and weights, the block's (m, l)
+// and split 0's fold weights; then each stage's row sources (long long a
+// key) and visible-key mask. ops/paged_attention.py decode_generic_plan
+// mirrors it; dyn_paged_decode_generic_smem lets the card tests hold the
+// two equal.
+__host__ __device__ constexpr int dg_ring_bytes(int esize, int hdp) {
+  return (DG_ROWS * (hdp + 8) + DB_WARPS * DG_STAGES * dg_keys(esize) *
+                                    (hdp + 8 + dg_v_stride(esize, hdp))) *
+         esize;
+}
+__host__ __device__ constexpr int dg_merge_bytes(int hdp) {
+  return 4 * (DB_WARPS * DG_ROWS * hdp + 3 * DB_WARPS * DG_ROWS +
+              2 * DG_ROWS + DG_ROWS * MAX_SPLITS + DG_ROWS);
+}
+__host__ __device__ constexpr int dg_main_bytes(int esize, int hdp) {
+  return dg_ring_bytes(esize, hdp) > dg_merge_bytes(hdp)
+             ? dg_ring_bytes(esize, hdp)
+             : dg_merge_bytes(hdp);
+}
+__host__ __device__ constexpr int dg_smem(int esize, int hdp) {
+  return dg_main_bytes(esize, hdp) +
+         DB_WARPS * DG_STAGES * (dg_keys(esize) * 8 + 4);
+}
+
+__device__ __forceinline__ void cp_async_wait_stages() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(DG_STAGES - 1) : "memory");
+}
+
+// The power of two at least n, at most 32: the lanes a row's copies take.
+__host__ __device__ constexpr int dg_row_lanes(int n) {
+  return n >= 32 ? 32 : n > 16 ? 32 : n > 8 ? 16 : n > 4 ? 8 : n > 2 ? 4
+       : n > 1 ? 2 : 1;
+}
+
+// The cp.async copies of one key block's K and V rows into a warp's
+// stage, BYTES a copy. src[i]: row i's element offset in the layer's pool
+// (>= 0), or -2 - its offset in the window buffers wk/wv (<= -2), or -1:
+// not read, the row zero-filled. The copies of a padded row go to LPR
+// lanes, which take the same columns of every row they copy, K and V
+// together; every trip count is known at compile time, so the loops
+// unroll and the rows' offsets load together. Columns past hd are not
+// written.
+template <typename T, int HDP, int BYTES>
+__device__ __forceinline__ void dg_copy(T* ks, const long long* src,
+                                        const T* k_base, const T* v_base,
+                                        const T* wk, const T* wv, int hd,
+                                        int lane) {
+  constexpr int KB = dg_keys(sizeof(T)), KS = HDP + 8;
+  constexpr int VS = dg_v_stride(sizeof(T), HDP), CE = BYTES / sizeof(T);
+  constexpr int CPR = HDP / CE, LPR = dg_row_lanes(CPR), RPP = 32 / LPR;
+  T* vs = ks + KB * KS;
+  const int r0 = lane / LPR, c0 = (lane % LPR) * CE;
+#pragma unroll
+  for (int pass = 0; pass < (KB + RPP - 1) / RPP; ++pass) {
+    const int r = pass * RPP + r0;
+    if (RPP > KB && r >= KB) continue;
+    const long long off = src[r];
+    const bool ok = off != -1;
+    const T* kg = off >= 0 ? k_base + off : ok ? wk + (-2 - off) : k_base;
+    const T* vg = off >= 0 ? v_base + off : ok ? wv + (-2 - off) : k_base;
+#pragma unroll
+    for (int j = 0; j < (CPR + LPR - 1) / LPR; ++j) {
+      const int c = c0 + j * LPR * CE;
+      if (c < hd) {
+        cp_async_zfill<BYTES>(ks + r * KS + c, kg + c, ok);
+        cp_async_zfill<BYTES>(vs + r * VS + c, vg + c, ok);
       }
     }
-    __syncthreads();
   }
-  // per head: the joint max, each split's and slot's weight, the sum
-  float* w_s = vis_s + G * nw;  // split weights [S*G]
-  float* l_sum = w_s + S * G;   // [G]
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    float M = NEG_INF;
-    for (int s = 0; s < S; ++s) M = fmaxf(M, part_ml[(base + s * G + g) * 2]);
-    for (int w = 0; w < nw; ++w)
-      if (vis_s[g * nw + w] != 0.f) M = fmaxf(M, win_s[g * nw + w]);
-    float L = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const long long r = base + s * G + g;
-      const float e = expf(part_ml[r * 2] - M);
-      w_s[s * G + g] = e;
-      L += e * part_ml[r * 2 + 1];
+}
+
+// grid (B, KV * head tiles, S), clusters (1, 1, S): the S splits of one
+// (row, kv head, head tile) are one cluster, split = blockIdx.z = the
+// block's rank in it. A head tile is up to 16 query heads of one kv head
+// (head tile t holds heads 16t .. 16t + 15 of the group; rows past the
+// group are zero). T: float (3xTF32), __nv_bfloat16 or __half; HDP:
+// head_dim padded to a width of gn_hdp. Block DB_THREADS: four warps,
+// each an independent worker over the key blocks w, w + 4, ... of the
+// split's share, with its own ring of DG_STAGES stages, its own m, l and
+// output fragment (rows g and g + 8 of the tile, lane = 4g + t). Split 0
+// also walks the fused window's in-flight keys, as blocks after its
+// pool blocks. Shared memory: see dg_smem.
+template <typename T, int HDP>
+__global__ void __launch_bounds__(DB_THREADS)
+paged_decode_generic_kernel(const T* __restrict__ q,
+                            const T* __restrict__ k_pools,
+                            const T* __restrict__ v_pools,
+                            long long layer_offset,
+                            const int* __restrict__ page_table,
+                            const int* __restrict__ lengths,
+                            const int* __restrict__ lower,
+                            T* __restrict__ out, float* __restrict__ m_out,
+                            float* __restrict__ l_out,
+                            const int* __restrict__ start,
+                            const int* __restrict__ q_pos,
+                            const int* __restrict__ eff_win,
+                            const T* __restrict__ wk,
+                            const T* __restrict__ wv, int n_win, int Kw,
+                            int H, int KV, int N, int ps, int hd, int P,
+                            int HT, float scale, float softcap) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int ES = sizeof(T), KB = dg_keys(ES), KS = HDP + 8;
+  constexpr int VS = dg_v_stride(ES, HDP), STAGE = KB * (KS + VS);
+  extern __shared__ __align__(16) uint8_t dg_smem_raw[];
+  T* q_s = reinterpret_cast<T*>(dg_smem_raw);
+  T* rings = q_s + DG_ROWS * KS;
+  long long* src_all =
+      reinterpret_cast<long long*>(dg_smem_raw + dg_main_bytes(ES, HDP));
+  uint32_t* mask_all =
+      reinterpret_cast<uint32_t*>(src_all + DB_WARPS * DG_STAGES * KB);
+
+  const int b = blockIdx.x, kv = blockIdx.y / HT;
+  const int h0 = (blockIdx.y - kv * HT) * DG_ROWS;
+  const int split = blockIdx.z, S = gridDim.z, G = H / KV;
+  const int GT = min(G - h0, DG_ROWS);  // the tile's heads
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, tq = lane & 3;
+
+  // the row's key blocks [jb_row, jb_row + nrow) of KB positions that
+  // cover its visible extent [lo, len) (and no position past the page
+  // table), cut into n_live near-equal contiguous shares, one for each
+  // ring of blocks the row fills up to S (the first n_live splits; the
+  // rest have nothing to read)
+  int len, lo;
+  row_extent(b, lengths, lower, start, q_pos, eff_win, len, lo);
+  const int len_t = (int)min((long long)len, (long long)P * ps);
+  const int jb_row = lo / KB;
+  const int nrow = len_t > lo ? (len_t + KB - 1) / KB - jb_row : 0;
+  const int n_live = min(S, (nrow + DG_MIN_BLOCKS - 1) / DG_MIN_BLOCKS);
+  // a split without blocks only keeps the cluster's two barriers; split 0
+  // folds even when no split has any (zeros, or the window keys alone)
+  if (split > 0 && split >= n_live) {
+    cluster_sync_acq_rel();
+    cluster_sync_relaxed();
+    return;
+  }
+  const int jb = split < n_live
+                     ? jb_row + (int)((long long)nrow * split / n_live)
+                     : jb_row;
+  const int nb = split < n_live
+                     ? jb_row + (int)((long long)nrow * (split + 1) / n_live) - jb
+                     : 0;
+  // split 0's window blocks follow its pool blocks
+  const int nwb = wk != nullptr && split == 0 ? (Kw + KB - 1) / KB : 0;
+  const int nv = nb + nwb;
+  const int nblk = nv > warp ? (nv - warp + DB_WARPS - 1) / DB_WARPS : 0;
+
+  // copies of rows of hd elements: 16 bytes where a row is a multiple of
+  // 16 bytes, else 8 or 4 (float32)
+  const int row_bytes = hd * ES;
+  const int cbytes = row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : 4;
+  // Q of the tile's heads by cp.async, the first group (rows past GT and
+  // columns past hd zero-filled), and zeros in the columns hd .. HDP - 1
+  // of every stage's K and V rows (the copies write the first hd)
+  const long long qbase = ((long long)b * H + (long long)kv * G + h0) * hd;
+  {
+    const int ce = cbytes / ES, cpr = HDP / ce;
+    for (int i = tid; i < DG_ROWS * cpr; i += DB_THREADS) {
+      const int r = i / cpr, d = (i - r * cpr) * ce;
+      const bool ok = r < GT && d < hd;
+      const T* src = q + (ok ? qbase + (long long)r * hd + d : 0);
+      if (cbytes == 16)
+        cp_async_zfill<16>(q_s + r * KS + d, src, ok);
+      else if (cbytes == 8)
+        cp_async_zfill<8>(q_s + r * KS + d, src, ok);
+      else
+        cp_async_zfill<4>(q_s + r * KS + d, src, ok);
     }
-    for (int w = 0; w < nw; ++w) {
-      const float e = vis_s[g * nw + w] != 0.f ? expf(win_s[g * nw + w] - M) : 0.f;
-      win_s[g * nw + w] = e;  // the slot's weight from here on
-      L += e;
+    cp_async_commit();
+  }
+  const int pad = HDP - hd;
+  for (int i = tid; i < DB_WARPS * DG_STAGES * KB * pad; i += DB_THREADS) {
+    const int row = i / pad, d = hd + i - row * pad;
+    T* ks = rings + (row / KB) * STAGE;
+    const int kr = row % KB;
+    ks[kr * KS + d] = from_f<T>(0.f);
+    ks[KB * KS + kr * VS + d] = from_f<T>(0.f);
+  }
+
+  T* ring = rings + warp * DG_STAGES * STAGE;
+  long long* src_w = src_all + warp * DG_STAGES * KB;
+  uint32_t* mask_w = mask_all + warp * DG_STAGES;
+  const int* row_table = page_table + (long long)b * P;
+  const T* k_base = k_pools + layer_offset;
+  const T* v_base = v_pools + layer_offset;
+  const int st_b = wk != nullptr ? start[b] : 0;
+  const int floor_pos =
+      wk != nullptr && eff_win != nullptr ? q_pos[b] - eff_win[b] : INT_MIN;
+
+  // lane r < KB: the page-table entry of key r of the warp's i-th block
+  // when that is a pool block (-1 past the table), loaded a block ahead
+  // of its copies
+  auto page_of = [&](int i) -> int {
+    const int v = warp + i * DB_WARPS;
+    if (i >= nblk || v >= nb || lane >= KB) return -1;
+    const int p = ((jb + v) * KB + lane) / ps;
+    return p < P ? row_table[p] : -1;
+  };
+  // the warp's i-th block into stage i % DG_STAGES: each key row's source
+  // and the block's mask of visible keys, then the copies. A pool key is
+  // visible in [lo, len) on a page inside the pool; window slot w (position
+  // start + w) when w < n_win, start >= 0 and start + w > q_pos - eff_win
+  // (the merge of dynamo_tpu/models/llama.py:981-1006). A key out of view
+  // is not read: its rows are zero-filled and masked.
+  auto issue = [&](int i, int page) {
+    const int v = warp + i * DB_WARPS, s = i % DG_STAGES;
+    bool vis = false;
+    if (lane < KB) {
+      long long off = -1;
+      if (v < nb) {
+        const int key = (jb + v) * KB + lane;
+        vis = in_extent(key, lo, len) && page >= 0 && page < N;
+        if (vis)
+          off = (((long long)page * KV + kv) * ps + key % ps) * hd;
+      } else {
+        const int w = (v - nb) * KB + lane;
+        vis = w < Kw && w < n_win && st_b >= 0 && st_b + w > floor_pos;
+        if (vis) off = -2 - (((long long)b * Kw + w) * KV + kv) * hd;
+      }
+      src_w[s * KB + lane] = off;
     }
-    l_sum[g] = L;
-    if (m_out != nullptr) {
-      m_out[(long long)b * H + kv * G + g] = M;
-      l_out[(long long)b * H + kv * G + g] = L;
+    const uint32_t m = __ballot_sync(0xffffffffu, vis);
+    if (lane == 0) mask_w[s] = m;
+    __syncwarp();
+    T* ks = ring + s * STAGE;
+    const long long* src = src_w + s * KB;
+    if constexpr (F32) {
+      if (cbytes == 16)
+        dg_copy<T, HDP, 16>(ks, src, k_base, v_base, wk, wv, hd, lane);
+      else if (cbytes == 8)
+        dg_copy<T, HDP, 8>(ks, src, k_base, v_base, wk, wv, hd, lane);
+      else
+        dg_copy<T, HDP, 4>(ks, src, k_base, v_base, wk, wv, hd, lane);
+    } else {
+      dg_copy<T, HDP, 16>(ks, src, k_base, v_base, wk, wv, hd, lane);
+    }
+  };
+
+  float o[HDP / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < HDP / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  // the first blocks' table entries loaded together, then their copies;
+  // Q (the first group) and every thread's zeros are in place before the
+  // loop
+  int pages[DG_STAGES];
+#pragma unroll
+  for (int i = 0; i < DG_STAGES; ++i) pages[i] = page_of(i);
+#pragma unroll
+  for (int i = 0; i < DG_STAGES - 1; ++i) {
+    if (i < nblk) issue(i, pages[i]);
+    cp_async_commit();
+  }
+  int page_next = pages[DG_STAGES - 1];
+  cp_async_wait_stages();
+  __syncthreads();
+  // Q's A fragments stay in registers for the whole walk where the
+  // output fragment leaves room: in 16 bits up to head_dim 128, in
+  // float32 (its TF32 big and small parts) up to 96
+  constexpr bool Q_REGS = F32 ? HDP <= 96 : HDP <= 128;
+  constexpr int QK = F32 ? HDP / 8 : HDP / 16;  // k-steps along head_dim
+  uint32_t qa[Q_REGS ? QK : 1][4], qsm[Q_REGS && F32 ? QK : 1][4];
+  if constexpr (Q_REGS && F32) {
+#pragma unroll
+    for (int kk = 0; kk < QK; ++kk) {
+      const int d = 8 * kk + 2 * tq;
+      const float2 x0 = *reinterpret_cast<const float2*>(q_s + g8 * KS + d);
+      const float2 x1 =
+          *reinterpret_cast<const float2*>(q_s + (g8 + 8) * KS + d);
+      split_tf32(x0.x, qa[kk][0], qsm[kk][0]);
+      split_tf32(x1.x, qa[kk][1], qsm[kk][1]);
+      split_tf32(x0.y, qa[kk][2], qsm[kk][2]);
+      split_tf32(x1.y, qa[kk][3], qsm[kk][3]);
+    }
+  } else if constexpr (Q_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < QK; ++kk)
+      ldsm_x4(qa[kk], smem_u32(q_s + (lane & 15) * KS + kk * 16 +
+                               (lane >> 4) * 8));
+  }
+  for (int i = 0; i < nblk; ++i) {
+    if (i + DG_STAGES - 1 < nblk) issue(i + DG_STAGES - 1, page_next);
+    cp_async_commit();
+    page_next = page_of(i + DG_STAGES);
+    cp_async_wait_stages();  // block i's copies (this lane's) have landed
+    __syncwarp();            // and the warp's
+    const int s = i % DG_STAGES;
+    const uint32_t vmask = mask_w[s];
+    if (vmask != 0) {  // uniform across the warp
+      const T* ks = ring + s * STAGE;
+      const T* vs = ks + KB * KS;
+
+      // S = Q K^T: [16 heads, KB keys]; element e of column tile jn is
+      // row g8 + 8 (e >> 1), key 8 jn + 2 tq + (e & 1)
+      float sc[KB / 8][4];
+#pragma unroll
+      for (int jn = 0; jn < KB / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[jn][e] = 0.f;
+      if constexpr (F32) {
+        // 3xTF32 m16n8k8 along head_dim: thread t's k = t and t + 4
+        // stand for elements d and d + 1 (one 8-byte load), A and B
+        // alike; the three products in three accumulators, so that no
+        // chain of dependent mma runs longer than head_dim / 8, summed as
+        // (small x big + big x small) + big x big
+        float s_sb[4] = {0.f, 0.f, 0.f, 0.f}, s_bs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < HDP / 8; ++kk) {
+          const int d = 8 * kk + 2 * tq;
+          uint32_t ab[4], as[4];
+          if constexpr (Q_REGS) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              ab[e] = qa[kk][e];
+              as[e] = qsm[kk][e];
+            }
+          } else {
+            const float2 x0 =
+                *reinterpret_cast<const float2*>(q_s + g8 * KS + d);
+            const float2 x1 =
+                *reinterpret_cast<const float2*>(q_s + (g8 + 8) * KS + d);
+            split_tf32(x0.x, ab[0], as[0]);
+            split_tf32(x1.x, ab[1], as[1]);
+            split_tf32(x0.y, ab[2], as[2]);
+            split_tf32(x1.y, ab[3], as[3]);
+          }
+          const float2 kx = *reinterpret_cast<const float2*>(ks + g8 * KS + d);
+          uint32_t bb[2], bs[2];
+          split_tf32(kx.x, bb[0], bs[0]);
+          split_tf32(kx.y, bb[1], bs[1]);
+          mma_tf32(s_sb, as, bb[0], bb[1]);
+          mma_tf32(s_bs, ab, bs[0], bs[1]);
+          mma_tf32(sc[0], ab, bb[0], bb[1]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[0][e] = (s_sb[e] + s_bs[e]) + sc[0][e];
+      } else {
+        // m16n8k16: Q's A fragment and the block's two key tiles' B
+        // fragments a k-step, each one ldmatrix.x4
+#pragma unroll
+        for (int kk = 0; kk < HDP / 16; ++kk) {
+          uint32_t a[4], bk[4];
+          if constexpr (Q_REGS) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+          } else {
+            ldsm_x4(a, smem_u32(q_s + (lane & 15) * KS + kk * 16 +
+                                (lane >> 4) * 8));
+          }
+          ldsm_x4(bk, smem_u32(ks + (((lane >> 4) << 3) + (lane & 7)) * KS +
+                               kk * 16 + ((lane >> 3) & 1) * 8));
+          mma_16816<T>(sc[0], a, bk[0], bk[1]);
+          mma_16816<T>(sc[1], a, bk[2], bk[3]);
+        }
+      }
+
+      // online softmax of rows g8 and g8 + 8 over the block's visible
+      // keys (natural units, exp2 of the difference times log2 e); the
+      // four lanes of a quad share a row
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int jn = 0; jn < KB / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[jn][e] = cap(sc[jn][e] * scale, softcap);
+          if ((vmask >> (8 * jn + 2 * tq + (e & 1))) & 1)
+            mx[e >> 1] = fmaxf(mx[e >> 1], sc[jn][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2f((m[r] - m_new) * LOG2E);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int jn = 0; jn < KB / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[jn][e] = (vmask >> (8 * jn + 2 * tq + (e & 1))) & 1
+                          ? exp2f((sc[jn][e] - m[e >> 1]) * LOG2E)
+                          : 0.f;
+          l[e >> 1] += sc[jn][e];
+        }
+#pragma unroll
+      for (int nd = 0; nd < HDP / 8; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nd][e] *= alpha[e >> 1];
+
+      if constexpr (F32) {
+        // O += P V in 3xTF32, one k-step of the block's 8 keys: the
+        // accumulator is the A operand as it stands (columns t and t + 4
+        // stand for keys 2t and 2t + 1), B's rows are V's rows 2t and
+        // 2t + 1 to match; each 8-wide column tile takes the block's
+        // products from zero and one float32 add (the tensor cores round
+        // accumulations toward zero)
+        uint32_t pb[4], psm[4];
+        split_tf32(sc[0][0], pb[0], psm[0]);
+        split_tf32(sc[0][2], pb[1], psm[1]);
+        split_tf32(sc[0][1], pb[2], psm[2]);
+        split_tf32(sc[0][3], pb[3], psm[3]);
+        const float* v0 = vs + (2 * tq) * VS + g8;
+#pragma unroll
+        for (int nd = 0; nd < HDP / 8; ++nd) {
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+          uint32_t bb[2], bs[2];
+          split_tf32(v0[8 * nd], bb[0], bs[0]);
+          split_tf32(v0[VS + 8 * nd], bb[1], bs[1]);
+          mma_3xtf32(t, pb, psm, bb, bs);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nd][e] += t[e];
+        }
+      } else {
+        // O += P V: the S fragments rounded to T are the A operand (the
+        // m16n8k16 C layout is its A layout); V's B fragments by
+        // ldmatrix.trans, two 8-wide column tiles an x4
+        uint32_t pa[4];
+        pa[0] = pack2<T>(sc[0][0], sc[0][1]);
+        pa[1] = pack2<T>(sc[0][2], sc[0][3]);
+        pa[2] = pack2<T>(sc[1][0], sc[1][1]);
+        pa[3] = pack2<T>(sc[1][2], sc[1][3]);
+#pragma unroll
+        for (int ndp = 0; ndp < HDP / 16; ++ndp) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, smem_u32(vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * VS +
+                                 ndp * 16 + (lane >> 4) * 8));
+          mma_16816<T>(o[2 * ndp], pa, bv[0], bv[1]);
+          mma_16816<T>(o[2 * ndp + 1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncwarp();  // every lane is done with the stage before it refills
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+
+  // merge the warps, the first block-wide barrier since the start (no
+  // copy is in flight: every block a warp staged it also consumed)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  float* o_s = reinterpret_cast<float*>(dg_smem_raw);  // [W][16][HDP]
+  float* ml_s = o_s + DB_WARPS * DG_ROWS * HDP;        // [W][16][2]
+  float* w_s = ml_s + 2 * DB_WARPS * DG_ROWS;          // [W][16]
+  float* part_ml = w_s + DB_WARPS * DG_ROWS;           // [16][2]
+  float* fw_s = part_ml + 2 * DG_ROWS;                 // [16][MAX_SPLITS]
+  float* L_s = fw_s + DG_ROWS * MAX_SPLITS;            // [16]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = g8 + 8 * r;
+    if (row < GT) {
+      float* orow = o_s + (warp * DG_ROWS + row) * HDP + 2 * tq;
+#pragma unroll
+      for (int nd = 0; nd < HDP / 8; ++nd)
+        *reinterpret_cast<float2*>(orow + 8 * nd) =
+            make_float2(o[nd][2 * r], o[nd][2 * r + 1]);
+      if (tq == 0) {
+        ml_s[(warp * DG_ROWS + row) * 2] = m[r];
+        ml_s[(warp * DG_ROWS + row) * 2 + 1] = l[r];
+      }
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * hd; i += blockDim.x) {
-    const int g = i / hd, d = i - g * hd;
-    float a = 0.f;
-    for (int s = 0; s < S; ++s)
-      a += w_s[s * G + g] * part_acc[(base + s * G + g) * hd + d];
-    for (int w = 0; w < nw; ++w)
-      a += win_s[g * nw + w] *
-           to_f(wv[(((long long)b * Kw + w) * KV + kv) * hd + d]);
-    out[((long long)b * H + kv * G + g) * hd + d] =
-        from_f<T>(a / fmaxf(l_sum[g], 1e-9f));
+  // the block's (m, l) per head, and each warp's weight in it
+  if (tid < GT) {
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < DB_WARPS; ++w)
+      M = fmaxf(M, ml_s[(w * DG_ROWS + tid) * 2]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < DB_WARPS; ++w) {
+      const float e = exp2f((ml_s[(w * DG_ROWS + tid) * 2] - M) * LOG2E);
+      w_s[w * DG_ROWS + tid] = e;
+      L += e * ml_s[(w * DG_ROWS + tid) * 2 + 1];
+    }
+    part_ml[tid * 2] = M;
+    part_ml[tid * 2 + 1] = L;
   }
+  __syncthreads();
+  // the block's partial (unnormalized output at the block's max) in warp
+  // 0's slot: each element is read and written by one thread
+  for (int i = tid; i < GT * HDP / 4; i += DB_THREADS) {
+    const int gi = i / (HDP / 4), d = (i - gi * (HDP / 4)) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < DB_WARPS; ++w) {
+      const float e = w_s[w * DG_ROWS + gi];
+      const float4 x =
+          *reinterpret_cast<const float4*>(o_s + (w * DG_ROWS + gi) * HDP + d);
+      a.x += e * x.x;
+      a.y += e * x.y;
+      a.z += e * x.z;
+      a.w += e * x.w;
+    }
+    *reinterpret_cast<float4*>(o_s + gi * HDP + d) = a;
+  }
+  // every live split's partial is in its shared memory before split 0
+  // reads it
+  cluster_sync_acq_rel();
+  if (split != 0) {
+    cluster_sync_relaxed();  // keeps this block's partial alive for split 0
+    return;
+  }
+
+  // Split 0 folds the live splits' partials (its own included): per head,
+  // one warp, lanes < n_src each a split's (m, l) through distributed
+  // shared memory; the joint max and sum by shuffles, each split's
+  // weight to shared memory.
+  const int n_src = max(n_live, 1);
+  const uint32_t ml_local = smem_u32(part_ml), o_local = smem_u32(o_s);
+  for (int gi = warp; gi < GT; gi += DB_WARPS) {
+    float x = -INFINITY, mass = 0.f;  // -inf weighs exactly 0
+    if (lane < n_src) {
+      const float2 v = ld_dsmem_f2(dsmem_addr(ml_local + gi * 8, lane));
+      x = v.x;
+      mass = v.y;
+    }
+    const float M = fmaxf(warp_max(x), NEG_INF);
+    const float e = exp2f((x - M) * LOG2E);
+    const float L = warp_sum(e * mass);
+    if (lane < MAX_SPLITS) fw_s[gi * MAX_SPLITS + lane] = e;
+    if (lane == 0) {
+      L_s[gi] = L;
+      if (m_out != nullptr) {
+        m_out[(long long)b * H + kv * G + h0 + gi] = M;
+        l_out[(long long)b * H + kv * G + h0 + gi] = L;
+      }
+    }
+  }
+  __syncthreads();
+  // the output, four head_dim elements of one head a thread: the live
+  // splits' partials loaded together through distributed shared memory
+  for (int i = tid; i < GT * HDP / 4; i += DB_THREADS) {
+    const int gi = i / (HDP / 4), d = (i - gi * (HDP / 4)) * 4;
+    if (d >= hd) continue;
+    const uint32_t src = o_local + (uint32_t)(gi * HDP + d) * 4;
+    float4 x[MAX_SPLITS];
+#pragma unroll
+    for (int s = 0; s < MAX_SPLITS; ++s)
+      if (s < n_src) x[s] = ld_dsmem_f4(dsmem_addr(src, s));
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int s = 0; s < MAX_SPLITS; ++s) {
+      if (s < n_src) {
+        const float e = fw_s[gi * MAX_SPLITS + s];
+        a[0] += e * x[s].x;
+        a[1] += e * x[s].y;
+        a[2] += e * x[s].z;
+        a[3] += e * x[s].w;
+      }
+    }
+    const float Lc = fmaxf(L_s[gi], 1e-9f);
+    T* orow = out + qbase + (long long)gi * hd + d;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (d + e < hd) orow[e] = from_f<T>(a[e] / Lc);
+  }
+  cluster_sync_relaxed();  // the other splits' shared memory outlives the reads
 }
 
 }  // namespace
@@ -1401,46 +1709,15 @@ struct DecodeArgs {
   void* out;
   float* m_out;
   float* l_out;
-  float* part_acc;  // the generic route's partials (null: it does not fold)
-  float* part_ml;
   int B, H, KV, N, ps, hd, P, splits;
   float scale, softcap;
 };
 
-template <typename T>
-int launch_combine(const DecodeArgs& a, const Window& win, cudaStream_t st) {
-  const int nw = win.wk != nullptr ? win.Kw : 0;
-  paged_decode_combine<T><<<dim3(a.B, a.KV), DEC_THREADS,
-                            sizeof(float) * (a.H / a.KV) * (2 * nw + a.splits + 1),
-                            st>>>(
-      a.part_acc, a.part_ml, static_cast<T*>(a.out), a.m_out, a.l_out, a.H,
-      a.KV, a.splits, a.hd, static_cast<const T*>(a.q),
-      static_cast<const T*>(win.wk),
-      static_cast<const T*>(win.wv), win.start, win.q_pos, win.eff_win,
-      win.n_win, win.Kw, a.scale, a.softcap);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_generic(const DecodeArgs& a, const Window& win, cudaStream_t st) {
-  const size_t smem = decode_smem_bytes(a.H / a.KV, a.ps, a.hd, (int)sizeof(T));
-  const long long layer_offset = a.layer * (long long)a.N * a.KV * a.ps * a.hd;
-  cudaFuncSetAttribute(paged_decode_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  paged_decode_kernel<T><<<dim3(a.B, a.KV, a.splits), DEC_THREADS, smem, st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pools),
-      static_cast<const T*>(a.v_pools), layer_offset, a.page_table, a.lengths,
-      a.lower, static_cast<T*>(a.out), a.m_out, a.l_out, a.part_acc,
-      a.part_ml, win.start, win.q_pos, win.eff_win, a.H, a.KV, a.N, a.ps,
-      a.hd, a.P, a.scale, a.softcap);
-  if (a.part_acc == nullptr) return (int)cudaGetLastError();
-  return launch_combine<T>(a, win, st);
-}
-
-// A launch of a cluster kernel (the bf16 or the float32 route) with
-// `smem` bytes of shared memory: grid `grid`, in clusters of (1, 1,
-// grid.z) blocks (the splits of one (row, kv head)). Built in place: the
-// config points at the attribute beside it.
+// A launch of a cluster kernel (any route) with `smem` bytes of shared
+// memory: grid `grid`, in clusters of (1, 1, grid.z) blocks (the splits
+// of one (row, kv head), or of one (row, kv head, head tile) on the
+// generic route). Built in place: the config points at the attribute
+// beside it.
 struct ClusterLaunch {
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
@@ -1535,6 +1812,51 @@ int launch_f32(const DecodeArgs& a, const Window& win, cudaStream_t st) {
   });
 }
 
+// f(kernel, smem) on the generic kernel's instantiation for element type
+// T at head_dim hd (padded to gn_hdp)
+template <typename T, typename F>
+int with_generic_kernel(int hd, F f) {
+  switch (gn_hdp(hd)) {
+#define DG_CASE(HDP)                                                        \
+  case HDP:                                                                 \
+    return f(paged_decode_generic_kernel<T, HDP>, dg_smem(sizeof(T), HDP));
+    DG_CASE(16) DG_CASE(32) DG_CASE(64) DG_CASE(96) DG_CASE(128) DG_CASE(192)
+    DG_CASE(256)
+#undef DG_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// one cluster launch of the generic kernel in element type T: grid (B,
+// KV x head tiles, splits); it folds its splits and the window itself
+template <typename T>
+int launch_generic(const DecodeArgs& a, const Window& win, cudaStream_t st) {
+  const int HT = (a.H / a.KV + DG_ROWS - 1) / DG_ROWS;
+  if ((long long)a.KV * HT > 65535) return (int)cudaErrorInvalidValue;
+  const long long layer_offset = a.layer * (long long)a.N * a.KV * a.ps * a.hd;
+  return with_generic_kernel<T>(a.hd, [&](auto kernel, int smem) {
+    ClusterLaunch l(kernel, smem, dim3(a.B, a.KV * HT, a.splits), st);
+    const cudaError_t err = cudaLaunchKernelEx(
+        &l.cfg, kernel, static_cast<const T*>(a.q),
+        static_cast<const T*>(a.k_pools), static_cast<const T*>(a.v_pools),
+        layer_offset, a.page_table, a.lengths, a.lower, static_cast<T*>(a.out),
+        a.m_out, a.l_out, win.start, win.q_pos, win.eff_win,
+        static_cast<const T*>(win.wk), static_cast<const T*>(win.wv),
+        win.n_win, win.Kw, a.H, a.KV, a.N, a.ps, a.hd, a.P, HT, a.scale,
+        a.softcap);
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  });
+}
+
+// f(kernel, smem) on the generic kernel in dtype (0 = float32, 1 =
+// bfloat16, 2 = float16) at head_dim hd
+template <typename F>
+int with_generic_dtype(int dtype, int hd, F f) {
+  return dtype == 0   ? with_generic_kernel<float>(hd, f)
+         : dtype == 1 ? with_generic_kernel<__nv_bfloat16>(hd, f)
+                      : with_generic_kernel<__half>(hd, f);
+}
+
 // The bf16 kernel's shapes (and its float16 form's); the wrapper's
 // DECODE_BF16_* (and
 // DECODE_BF16_MAX_SPLITS for MAX_SPLITS) list the same, and
@@ -1549,30 +1871,17 @@ bool bf16_shape(int H, int KV, int ps, int hd) {
 // float16
 int check_decode(int route, int dtype, int H, int KV, int ps, int hd,
                  int splits) {
-  if (splits < 1 || splits > 1024 || KV < 1 || H % KV != 0 || dtype < 0 ||
-      dtype > 2)
+  if (splits < 1 || splits > MAX_SPLITS || KV < 1 || H % KV != 0 ||
+      dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   if (route == 1 || route == 3)
-    return dtype == (route == 1 ? 1 : 2) && bf16_shape(H, KV, ps, hd) &&
-                   splits <= MAX_SPLITS
+    return dtype == (route == 1 ? 1 : 2) && bf16_shape(H, KV, ps, hd)
                ? 0 : (int)cudaErrorInvalidValue;
   if (route == 2)
-    return dtype == 0 && f32_shape(H / KV, ps, hd) && splits <= MAX_SPLITS
+    return dtype == 0 && f32_shape(H / KV, ps, hd)
                ? 0 : (int)cudaErrorInvalidValue;
-  const int G = H / KV;
-  const int elem = dtype == 0 ? 4 : 2;
-  if (route != 0 || G > MAX_G || hd > DEC_THREADS * DEC_MAX_DPT ||
-      hd % (16 / elem) != 0 || decode_smem_bytes(G, ps, hd, elem) > MAX_SMEM)
-    return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
-// The scratch a call needs: none on the bf16 and float32 routes (their
-// splits fold through the cluster's shared memory); on the generic route
-// the partials whenever it folds (splits, or a window).
-bool has_scratch(int route, const DecodeArgs& a, bool window) {
-  return route != 0 || !(a.splits > 1 || window) ||
-         (a.part_acc != nullptr && a.part_ml != nullptr);
+  return route == 0 && generic_shape(dtype, H / KV, ps, hd)
+             ? 0 : (int)cudaErrorInvalidValue;
 }
 
 int launch_decode(int route, int dtype, const DecodeArgs& a,
@@ -1586,48 +1895,25 @@ int launch_decode(int route, int dtype, const DecodeArgs& a,
 }
 
 template <typename K>
-int resident(K kernel, int threads, int smem, int* blocks) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
-                                                            threads, smem);
-}
-
-template <typename K>
 int resident_clusters(K kernel, int smem, int splits, int* clusters) {
   ClusterLaunch l(kernel, smem, dim3(1, 1, splits), nullptr);
   return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &l.cfg);
 }
 
-// *blocks = the generic decode kernel's resident blocks per SM at this
-// shape (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for its split
-// plan.
-extern "C" int dyn_paged_decode_resident(int dtype, int H, int KV, int ps,
-                                         int hd, int* blocks) {
-  const int bad = check_decode(0, dtype, H, KV, ps, hd, 1);
-  if (bad) return bad;
-  const int smem = (int)decode_smem_bytes(H / KV, ps, hd, dtype == 0 ? 4 : 2);
-  return dtype == 0 ? resident(paged_decode_kernel<float>, DEC_THREADS, smem,
-                               blocks)
-         : dtype == 1 ? resident(paged_decode_kernel<__nv_bfloat16>,
-                                 DEC_THREADS, smem, blocks)
-                      : resident(paged_decode_kernel<__half>, DEC_THREADS,
-                                 smem, blocks);
-}
-
 // *clusters = how many clusters of `splits` blocks of the route's kernel
-// (1 = bf16, 2 = float32, 3 = float16) the card holds at once at this
+// (0 = generic, 1 = bf16, 2 = float32, 3 = float16) in dtype (0 =
+// float32, 1 = bfloat16, 2 = float16) the card holds at once at this
 // shape (cudaOccupancyMaxActiveClusters), for its split plan; refused for
-// a route, shape or split count it does not take.
-extern "C" int dyn_paged_decode_clusters(int route, int H, int KV, int ps,
-                                         int hd, int splits, int* clusters) {
-  if (route < 1 || route > 3) return (int)cudaErrorInvalidValue;
-  const int dtype = route == 1 ? 1 : route == 2 ? 0 : 2;
+// a route, dtype, shape or split count it does not take.
+extern "C" int dyn_paged_decode_clusters(int route, int dtype, int H, int KV,
+                                         int ps, int hd, int splits,
+                                         int* clusters) {
   const int bad = check_decode(route, dtype, H, KV, ps, hd, splits);
   if (bad) return bad;
   auto query = [&](auto kernel, int smem) {
     return resident_clusters(kernel, smem, splits, clusters);
   };
+  if (route == 0) return with_generic_dtype(dtype, hd, query);
   if (route == 2) return with_f32_kernel(hd, H / KV, query);
   return route == 1 ? with_mma_kernel<__nv_bfloat16>(hd, query)
                     : with_mma_kernel<__half>(hd, query);
@@ -1640,54 +1926,58 @@ extern "C" int dyn_paged_decode_f32_smem(int hd) {
   return with_f32_kernel(hd, 1, [](auto, int smem) { return smem; });
 }
 
+// dg_smem, the generic kernel's shared memory a block in dtype at head_dim
+// hd (ops/paged_attention.py decode_generic_plan mirrors it; the card
+// tests hold the two equal); -1 outside generic_shape.
+extern "C" int dyn_paged_decode_generic_smem(int dtype, int hd) {
+  if (!generic_shape(dtype, 1, 1, hd)) return -1;
+  return with_generic_dtype(dtype, hd, [](auto, int smem) { return smem; });
+}
+
 // route: 1 = the bf16 tensor-core kernel, 3 = its float16 form, 2 = the
 // float32 kernel, 0 = the generic kernel (the wrapper picks it from the
-// shape; see bf16_shape and f32_shape). dtype: 0 = float32, 1 =
-// bfloat16, 2 = float16. Each entry returns cudaGetLastError() after its
-// launches (0 = cudaSuccess), or the launch's own error. Scratch the
-// caller allocates for the generic route (see has_scratch): part_acc
-// [B*KV*splits*G*hd]
-// and part_ml [B*KV*splits*G*2] in float32; the other routes take none.
-// m_out/l_out may be null (no stats).
+// shape; see bf16_shape, f32_shape and generic_shape). dtype: 0 =
+// float32, 1 = bfloat16, 2 = float16. Every route is one cluster launch
+// of `splits` blocks a (row, kv head) (and head tile on the generic
+// route), which folds its splits itself: no scratch. Each entry returns
+// cudaGetLastError() after its launch (0 = cudaSuccess), or the launch's
+// own error. m_out/l_out may be null (no stats).
 extern "C" int dyn_paged_attention_decode(
     int route, int dtype, const void* q, const void* k_pools,
     const void* v_pools, long long layer, const int* page_table,
     const int* lengths, const int* lower, void* out, float* m_out,
-    float* l_out, float* part_acc, float* part_ml, int B, int H, int KV,
-    int N, int ps, int hd, int P, int splits, float scale, float softcap,
-    void* stream) {
+    float* l_out, int B, int H, int KV, int N, int ps, int hd, int P,
+    int splits, float scale, float softcap, void* stream) {
   const int bad = check_decode(route, dtype, H, KV, ps, hd, splits);
-  if (splits == 1) part_acc = part_ml = nullptr;
-  const DecodeArgs a = {q, k_pools, v_pools, layer, page_table, lengths,
-                        lower, out, m_out, l_out, part_acc, part_ml, B, H,
-                        KV, N, ps, hd, P, splits, scale, softcap};
-  if (bad || !has_scratch(route, a, false))
-    return bad ? bad : (int)cudaErrorInvalidValue;
+  if (bad) return bad;
   if (B == 0) return (int)cudaSuccess;
+  const DecodeArgs a = {q, k_pools, v_pools, layer, page_table, lengths,
+                        lower, out, m_out, l_out, B, H, KV, N, ps, hd, P,
+                        splits, scale, softcap};
   const Window none = {nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0};
   return launch_decode(route, dtype, a, none, static_cast<cudaStream_t>(stream));
 }
 
 // One fused-window decode step: the pool's positions [lower, start) of
 // each row (lower from q_pos and eff_win) and the in-flight keys wk/wv
-// [B, Kw, KV, hd] (slots < n_win) in one softmax — folded in the bf16 and
-// float32 kernels, or by the combine kernel on the generic route. eff_win
-// may be null (no sliding window).
+// [B, Kw, KV, hd] (slots < n_win) in one softmax, folded in the kernel
+// (routes 1-3 take Kw <= MAX_KW; the generic route any Kw). eff_win may
+// be null (no sliding window).
 extern "C" int dyn_paged_attention_decode_window(
     int route, int dtype, const void* q, const void* k_pools,
     const void* v_pools, long long layer, const int* page_table,
     const int* start, const int* q_pos, const int* eff_win, const void* wk,
-    const void* wv, int n_win, int Kw, void* out, float* part_acc,
-    float* part_ml, int B, int H, int KV, int N, int ps, int hd, int P,
-    int splits, float scale, float softcap, void* stream) {
+    const void* wv, int n_win, int Kw, void* out, int B, int H, int KV,
+    int N, int ps, int hd, int P, int splits, float scale, float softcap,
+    void* stream) {
   const int bad = check_decode(route, dtype, H, KV, ps, hd, splits);
-  const DecodeArgs a = {q, k_pools, v_pools, layer, page_table, nullptr,
-                        nullptr, out, nullptr, nullptr, part_acc, part_ml,
-                        B, H, KV, N, ps, hd, P, splits, scale, softcap};
-  if (bad || !has_scratch(route, a, true) || wk == nullptr || wv == nullptr ||
-      Kw < 1 || (route != 0 && Kw > MAX_KW))
+  if (bad || wk == nullptr || wv == nullptr || Kw < 1 ||
+      (route != 0 && Kw > MAX_KW))
     return bad ? bad : (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
+  const DecodeArgs a = {q, k_pools, v_pools, layer, page_table, nullptr,
+                        nullptr, out, nullptr, nullptr, B, H, KV, N, ps, hd,
+                        P, splits, scale, softcap};
   const Window win = {wk, wv, start, q_pos, eff_win, n_win, Kw};
   return launch_decode(route, dtype, a, win, static_cast<cudaStream_t>(stream));
 }

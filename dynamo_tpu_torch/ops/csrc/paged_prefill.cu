@@ -927,13 +927,6 @@ constexpr int GN_ROWS = 64;      // (query, head) rows per block
 constexpr int GN_THREADS = 128;  // four warps of 16 rows
 constexpr int GN_STAGES = 2;     // K/V stages in the cp.async ring
 
-// head_dim as the products take it: the next of 16, 32, 64, 96, 128, 192
-// and 256 (columns past hd are zeros in shared memory)
-__host__ __device__ constexpr int gn_hdp(int hd) {
-  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 96 ? 96
-       : hd <= 128 ? 128 : hd <= 192 ? 192 : 256;
-}
-
 // keys a stage, by element size: 16-bit 64 (32 past head_dim 128), float32
 // 64 / 32 / 16 as route 2 takes them
 __host__ __device__ constexpr int gn_keys(int esize, int hdp) {
@@ -962,22 +955,6 @@ __host__ __device__ constexpr int gn_smem(int esize, int hdp) {
          GN_STAGES * gn_keys(esize, hdp) * 4 + 2 * gn_keys(esize, hdp) * 8;
 }
 
-// cp.async of BYTES (4, 8 or 16) from global to shared memory; where
-// `valid` is false nothing is read and the destination is zero-filled
-template <int BYTES>
-__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
-                                               bool valid) {
-  const uint32_t d = smem_u32(dst);
-  const int n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-                 "l"(src), "n"(BYTES), "r"(n) : "memory");
-  }
-}
-
 __device__ __forceinline__ void cp_async_commit_group() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -998,22 +975,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)) : "memory");
-}
-
-// mma.sync m16n8k16, T (bf16 or f16) in, f32 accumulate: A a[0..3] (rows
-// g, g + 8 at k 2t, 2t + 1; the same at k + 8), B b0 (k 2t, 2t + 1), b1
-// (k + 8) at column g, D d[0..3] (row g cols 2t, 2t + 1; row g + 8 the
-// same), g = lane / 4, t = lane % 4.
-template <typename T>
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-#define DYN_MMA_16816(AB)                                                   \
-  asm("mma.sync.aligned.m16n8k16.row.col.f32." AB "." AB ".f32 "            \
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"   \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                     \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
-  DYN_AB(T, DYN_MMA_16816);
-#undef DYN_MMA_16816
 }
 
 // Element offset, in the layer's pool, of key position `key`'s row of kv
@@ -1427,15 +1388,6 @@ extern "C" int dyn_paged_prefill_f32_smem(int hd, int ps) {
   return f32_tile_smem(hd, ps < kb ? ps : kb);
 }
 
-// The shapes the generic kernel takes, in every dtype (0 = float32, 1 =
-// bfloat16, 2 = float16): any page size and GQA group, head_dim up to 256,
-// a multiple of 8 in the 16-bit types (16-byte rows for its copies and
-// ldmatrix). ops/paged_attention.py prefill_generic_shape lists the same.
-bool generic_prefill_shape(int dtype, int G, int ps, int hd) {
-  return dtype >= 0 && dtype <= 2 && G >= 1 && ps >= 1 && hd >= 1 &&
-         hd <= 256 && (dtype == 0 || hd % 8 == 0);
-}
-
 // The generic kernel's shared memory a block at head_dim hd in dtype
 // (gn_smem; ops/paged_attention.py prefill_generic_plan mirrors it).
 extern "C" int dyn_paged_prefill_generic_smem(int dtype, int hd) {
@@ -1447,7 +1399,7 @@ extern "C" int dyn_paged_prefill_generic_smem(int dtype, int hd) {
 // head_dim 64, 128 or 256, page size 16, 32, 64 or 128, GQA groups of 1
 // to 8), 3 = its float16 form (dtype 2, the same shapes), 2 =
 // paged_prefill_f32_kernel (dtype 0: f32_shape in attention_common.cuh),
-// 0 = paged_prefill_generic_kernel (any dtype, generic_prefill_shape).
+// 0 = paged_prefill_generic_kernel (any dtype, generic_shape).
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns
 // cudaGetLastError() after the launch.
 extern "C" int dyn_paged_attention_prefill(
@@ -1461,7 +1413,7 @@ extern "C" int dyn_paged_attention_prefill(
   const int G = H / KV;
   if ((route == 2 && !f32_shape(G, ps, hd)) ||
       ((route == 1 || route == 3) && !bf16_prefill_shape(G, ps, hd)) ||
-      (route == 0 && !generic_prefill_shape(dtype, G, ps, hd)))
+      (route == 0 && !generic_shape(dtype, G, ps, hd)))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

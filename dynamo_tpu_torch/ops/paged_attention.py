@@ -10,9 +10,9 @@ what bounds it on an H100 and what its design does about it:
   one query per row against the row's pages in ``[lower, length)`` of ONE
   layer of the stacked pool, optionally returning the online-softmax stats
   ``(m, l)``. :func:`paged_attention_decode_window` runs the same kernel
-  for one step of the fused decode window (the main path's form): its
-  combine step folds the window's in-flight keys into the pool's
-  softmax on the card, where the JAX package merges the stats in XLA.
+  for one step of the fused decode window (the main path's form): the
+  kernel folds the window's in-flight keys into the pool's softmax on
+  the card, where the JAX package merges the stats in XLA.
   Decode is bound by the bytes of K/V it reads. The route comes from the
   shape (:func:`decode_route`), never from a failure: bfloat16 at
   head_dim 64/128/256, page size 16/32/64/128 and GQA groups up to 8 (the
@@ -25,9 +25,13 @@ what bounds it on an H100 and what its design does about it:
   16/32/64/128/256, page size 8 to 128 and GQA groups up to 8 (the
   ``tiny``, ``1b`` and ``llama3_8b`` presets in float32) run
   ``paged_decode_f32_kernel``, the same design with float32 rings and
-  CUDA-core products; other shapes run the generic
-  ``paged_decode_kernel`` and ``paged_decode_combine``, split by
-  :func:`decode_split_plan`. The plans take host-known shapes only.
+  CUDA-core products; every other shape, in every dtype, runs the
+  generic ``paged_decode_generic_kernel`` (route ``generic``: route 1's
+  design carried to any shape, ``mma.sync`` products in the call's type,
+  3xTF32 in float32, key blocks that cross page boundaries, heads in
+  tiles of 16, one cluster launch; the shapes of
+  :func:`prefill_generic_shape`, planned by :func:`decode_generic_plan`);
+  a shape outside that raises. The plans take host-known shapes only.
 - :func:`paged_attention_prefill` replaces the TPU kernel reached through
   ``paged_attention_prefill``: chunked-prefill attention with causal
   visibility by absolute ``q_positions`` (-1 = padding) intersected with
@@ -56,25 +60,23 @@ CUDA tensors it launches its kernel on the current stream or raises —
 there is no fallback. Every wrapper call that launches adds one to
 ``LAUNCHES[name]``, once per call (a sharded wrapper's call counts as
 a call of its kernel; with a mesh the model calls only the sharded
-wrappers): a bf16 or float32 decode call is one kernel,
-which folds its splits and the window keys itself; a generic decode call
-is the split kernel and, when it folds (pages split over blocks, or a
-window buffer), ``paged_decode_combine``. ``DECODE_ROUTE_LAUNCHES`` and
+wrappers): a decode call on any route is one kernel, which folds its
+splits and the window keys itself. ``DECODE_ROUTE_LAUNCHES`` and
 ``PREFILL_ROUTE_LAUNCHES`` count the same calls by route.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 NEG_INF = -1e30  # finite "masked" value: keeps exp() NaN-free
 NO_WINDOW = 1 << 30  # "infinite" effective sliding window (int32-safe)
 
-# launching wrapper calls since the last reset (plain ints); a decode call
-# counts its kernel pair (split kernel + combine) once
+# launching wrapper calls since the last reset (plain ints): one kernel
+# launch each
 LAUNCHES: Dict[str, int] = {"paged_attention_decode": 0,
                             "paged_attention_prefill": 0}
 # the C entries' route numbers, and the same calls by route (see
@@ -102,8 +104,6 @@ DECODE_BF16_MAX_GROUP = 8
 DECODE_BF16_MAX_SPLITS = 8  # one cluster: the portable maximum size
 # the cluster sizes the bf16 plan picks from, largest first
 DECODE_CLUSTER_SIZES = (8, 4, 2, 1)
-# the generic kernel's most splits per (row, kv head)
-DECODE_MAX_SPLITS = 128
 # shapes the float32 decode and prefill kernels are built for (f32_shape
 # in csrc/attention_common.cuh)
 F32_HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -111,8 +111,9 @@ F32_PAGE_SIZES = (8, 16, 32, 64, 128)
 F32_MAX_GROUP = 8
 # shared memory a block may take on an H100 (227 KB, after opting in)
 SMEM_LIMIT = 232448
-# the generic prefill kernel: head_dim up to this (a multiple of 8 in the
-# 16-bit types), padded for its products to the next of these widths
+# the generic prefill and decode kernels: head_dim up to this (a multiple
+# of 8 in the 16-bit types), padded for their products to the next of
+# these widths
 PREFILL_GENERIC_MAX_HEAD_DIM = 256
 PREFILL_GENERIC_HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
 
@@ -139,18 +140,17 @@ def _lib():
     if not getattr(lib, "_dyn_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dyn_paged_attention_decode.argtypes = [
-            i, i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, p, p,
+            i, i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p,
             i, i, i, i, i, i, i, i, f, f, p]
         lib.dyn_paged_attention_decode.restype = i
         lib.dyn_paged_attention_decode_window.argtypes = [
-            i, i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, i, i, p, p,
-            p, i, i, i, i, i, i, i, i, f, f, p]
+            i, i, p, p, p, ctypes.c_longlong, p, p, p, p, p, p, i, i, p,
+            i, i, i, i, i, i, i, i, f, f, p]
         lib.dyn_paged_attention_decode_window.restype = i
-        lib.dyn_paged_decode_resident.argtypes = [
-            i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
-        lib.dyn_paged_decode_resident.restype = i
+        lib.dyn_paged_decode_generic_smem.argtypes = [i, i]
+        lib.dyn_paged_decode_generic_smem.restype = i
         lib.dyn_paged_decode_clusters.argtypes = [
-            i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+            i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         lib.dyn_paged_decode_clusters.restype = i
         lib._dyn_typed = True
     return lib
@@ -172,8 +172,6 @@ def _prefill_lib():
     return lib
 
 
-_SMS: Dict[int, int] = {}
-_RESIDENT: Dict[tuple, int] = {}
 _CLUSTERS: Dict[tuple, Dict[int, int]] = {}
 
 
@@ -182,48 +180,25 @@ def _device_index(device: torch.device) -> int:
         else torch.cuda.current_device()
 
 
-def _sm_count(device: torch.device) -> int:
-    idx = _device_index(device)
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
-
-
-def _resident(device: torch.device, dtype: torch.dtype, H: int, KV: int,
-              ps: int, hd: int) -> int:
-    """Resident blocks per SM of the generic decode kernel at this shape,
-    queried once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    key = (_device_index(device), dtype, H // KV, ps, hd)
-    if key not in _RESIDENT:
-        blocks = ctypes.c_int(0)
-        with torch.cuda.device(key[0]):
-            err = _lib().dyn_paged_decode_resident(
-                _DTYPES[dtype], H, KV, ps, hd, ctypes.byref(blocks))
-        if err != 0:
-            raise RuntimeError(f"decode occupancy query failed: CUDA error "
-                               f"{err} (H={H} KV={KV} ps={ps} hd={hd})")
-        _RESIDENT[key] = blocks.value
-    return _RESIDENT[key]
-
-
-def _clusters(device: torch.device, route: int, H: int, KV: int, ps: int,
-              hd: int) -> Dict[int, int]:
+def _clusters(device: torch.device, route: int, dtype: torch.dtype, H: int,
+              KV: int, ps: int, hd: int) -> Dict[int, int]:
     """Clusters of each size in :data:`DECODE_CLUSTER_SIZES` that the card
-    holds at once of the route's decode kernel (1 = bf16, 2 = float32,
-    3 = float16) at this shape, queried once
+    holds at once of the route's decode kernel (0 = generic, 1 = bf16, 2 =
+    float32, 3 = float16) in ``dtype`` at this shape, queried once
     (cudaOccupancyMaxActiveClusters)."""
-    key = (_device_index(device), route, H // KV, ps, hd)
+    key = (_device_index(device), route, dtype, H // KV, ps, hd)
     if key not in _CLUSTERS:
         found = {}
         for S in DECODE_CLUSTER_SIZES:
             n = ctypes.c_int(0)
             with torch.cuda.device(key[0]):
-                err = _lib().dyn_paged_decode_clusters(route, H, KV, ps, hd,
-                                                       S, ctypes.byref(n))
+                err = _lib().dyn_paged_decode_clusters(
+                    route, _DTYPES[dtype], H, KV, ps, hd, S, ctypes.byref(n))
             if err != 0:
                 raise RuntimeError(f"decode cluster occupancy query failed: "
-                                   f"CUDA error {err} (H={H} KV={KV} "
-                                   f"ps={ps} hd={hd} cluster {S})")
+                                   f"CUDA error {err} (route {route} "
+                                   f"{dtype} H={H} KV={KV} ps={ps} hd={hd} "
+                                   f"cluster {S})")
             found[S] = n.value
         _CLUSTERS[key] = found
     return _CLUSTERS[key]
@@ -317,22 +292,17 @@ def paged_attention_decode_layered(
                                      lengths, lower, scale, softcap)
         return (out, m, l) if return_stats else out
     route, splits = _decode_launch_plan(q, k_pools, v_pools, B, P)
-    G = H // KV
     out = torch.empty_like(q)
     m = l = None
     if return_stats:
         m = torch.empty((B, H), dtype=torch.float32, device=q.device)
         l = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    part_acc, part_ml = _scratch(q.device, route, False, B, KV, splits, G,
-                                 hd)
     err = _lib().dyn_paged_attention_decode(
         route, _DTYPES[q.dtype], q.data_ptr(), k_pools.data_ptr(),
         v_pools.data_ptr(), layer, page_table.data_ptr(), lengths.data_ptr(),
         lower.data_ptr(), out.data_ptr(),
         m.data_ptr() if m is not None else None,
         l.data_ptr() if l is not None else None,
-        part_acc.data_ptr() if part_acc is not None else None,
-        part_ml.data_ptr() if part_ml is not None else None,
         B, H, KV, N, ps, hd, P, splits, float(scale), float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -357,7 +327,8 @@ def decode_route(dtype: torch.dtype, H: int, KV: int, ps: int,
     float16 form) for float16 at the ``DECODE_BF16_*`` head dims, page
     sizes and GQA groups, 2 (``f32``, ``paged_decode_f32_kernel``) for
     float32 at the ``F32_*`` ones, else 0 (``generic``,
-    ``paged_decode_kernel``)."""
+    ``paged_decode_generic_kernel``, in every dtype; it takes the shapes
+    of :func:`prefill_generic_shape`)."""
     if (dtype in (torch.bfloat16, torch.float16)
             and hd in DECODE_BF16_HEAD_DIMS
             and ps in DECODE_BF16_PAGE_SIZES
@@ -404,11 +375,11 @@ def prefill_f32_smem(hd: int, ps: int) -> int:
 
 
 def prefill_generic_shape(dtype: torch.dtype, hd: int) -> bool:
-    """Whether the generic prefill kernel takes head_dim ``hd`` in
-    ``dtype`` (``generic_prefill_shape`` in csrc/paged_prefill.cu): any
-    page size and GQA group, head_dim 1 to 256 in float32, a multiple of
-    8 up to 256 in bfloat16 and float16 (16-byte rows for its copies and
-    ``ldmatrix``)."""
+    """Whether the generic prefill kernel, and the generic decode kernel
+    with it, take head_dim ``hd`` in ``dtype`` (``generic_shape`` in
+    csrc/attention_common.cuh): any page size and GQA group, head_dim 1 to
+    256 in float32, a multiple of 8 up to 256 in bfloat16 and float16
+    (16-byte rows for their copies and ``ldmatrix``)."""
     return (1 <= hd <= PREFILL_GENERIC_MAX_HEAD_DIM
             and (dtype == torch.float32 or hd % 8 == 0))
 
@@ -453,29 +424,86 @@ def prefill_generic_plan(G: int, ps: int, hd: int,
                               keys, stages, hdp, smem)
 
 
-def decode_split_plan(B: int, KV: int, P: int, sms: int,
-                      resident: int) -> int:
-    """The generic kernel's splits per (row, kv head), from host-known
-    shapes only (so a CUDA graph can capture the call): as many as fill
-    one wave of the card's ``sms * resident`` resident blocks, at most one
-    per page-table entry (and :data:`DECODE_MAX_SPLITS`), and 1 once the
-    rows x kv heads alone fill the wave. The kernel cuts a row's visible
-    pages into that many near-equal contiguous shares (``split_pages`` in
-    csrc/paged_attention.cu)."""
-    slots = sms * max(resident, 1)
-    return max(1, min(P, DECODE_MAX_SPLITS, slots // max(B * KV, 1)))
+class GenericDecodePlan(NamedTuple):
+    """How the generic decode kernel cuts one call (its launch in
+    csrc/paged_attention.cu): a block owns one (row, kv head, head tile),
+    ``heads`` of the group's heads in ``rows`` m16 rows (``head_tiles`` a
+    kv head); its four warps walk key blocks of ``keys`` positions, each
+    in a ring of ``stages``, at head_dim ``head_dim`` (padded); a row
+    takes one live split for each ``ring_keys`` keys (one ring of
+    blocks) it fills; ``smem`` bytes of shared memory a block."""
+    rows: int
+    heads: int
+    head_tiles: int
+    keys: int
+    stages: int
+    head_dim: int
+    ring_keys: int
+    smem: int
+
+
+def decode_generic_plan(G: int, ps: int, hd: int,
+                        dtype: torch.dtype) -> GenericDecodePlan:
+    """The generic decode kernel's plan at GQA group ``G``, page size
+    ``ps`` and head_dim ``hd`` in ``dtype``: a mirror of ``dg_keys``,
+    ``dg_smem`` and the launch in csrc/paged_attention.cu, whose
+    ``dyn_paged_decode_generic_smem`` the card tests hold equal to
+    ``smem``. The page size changes nothing: key blocks cross pages."""
+    rows, warps, stages = 16, 4, 3
+    hdp = next(w for w in PREFILL_GENERIC_HEAD_DIMS if w >= hd)
+    esize = 4 if dtype == torch.float32 else 2
+    keys = 8 if esize == 4 else 16
+    v_stride = hdp + 4 if esize == 4 else hdp + 8
+    ring = (rows * (hdp + 8)
+            + warps * stages * keys * (hdp + 8 + v_stride)) * esize
+    merge = 4 * (warps * rows * hdp + 3 * warps * rows + 2 * rows
+                 + rows * DECODE_BF16_MAX_SPLITS + rows)
+    smem = max(ring, merge) + warps * stages * (keys * 8 + 4)
+    return GenericDecodePlan(rows, min(G, rows), -(-G // rows), keys,
+                             stages, hdp, warps * stages * keys, smem)
+
+
+def decode_generic_splits_cap(P: int, ps: int, plan: GenericDecodePlan) -> int:
+    """The most splits the generic kernel can give keys to, for a page
+    table of ``P`` entries: a row's key blocks cover at most ``P * ps``
+    positions, and it takes one live split for each ring of blocks
+    (``plan.ring_keys`` keys, the kernel's DG_MIN_BLOCKS blocks) that
+    its blocks fill."""
+    blocks = -(-(P * ps) // plan.keys)
+    return max(1, -(-blocks // (plan.ring_keys // plan.keys)))
+
+
+def decode_generic_shares(lo: int, length: int, P: int, ps: int, S: int,
+                          plan: GenericDecodePlan) -> List[Tuple[int, int]]:
+    """The generic kernel's cut of one row over a cluster of ``S``
+    splits (``jb`` and ``nb`` in csrc/paged_attention.cu): the key blocks
+    ``[first, first + n)`` of ``plan.keys`` positions that each live
+    split walks, in split order. The row's blocks cover its extent
+    ``[lo, min(length, P * ps))``, cut into near-equal shares, one for
+    each ring of blocks the row fills (``plan.ring_keys`` keys) up to
+    ``S``: a live split takes half a ring at least once there are two;
+    the other splits take none."""
+    kb, end = plan.keys, min(length, P * ps)
+    first = lo // kb
+    n = -(-end // kb) - first if end > lo else 0
+    live = min(S, -(-n // (plan.ring_keys // kb)))
+    cuts = [first + n * s // max(live, 1) for s in range(live + 1)]
+    return [(cuts[s], cuts[s + 1] - cuts[s]) for s in range(live)]
 
 
 def decode_cluster_plan(B: int, KV: int, P: int,
                         clusters: Dict[int, int]) -> int:
-    """The bf16 kernel's splits per (row, kv head), one thread-block
+    """A decode kernel's splits per (row, kv head), one thread-block
     cluster, from host-known shapes only: the largest size of
     :data:`DECODE_CLUSTER_SIZES`, at most ``P``, of which the card holds
     all ``B * KV`` clusters at once (``clusters[S]``, from
     cudaOccupancyMaxActiveClusters), else 1. The kernel cuts a row's
     visible pages into at most that many contiguous shares of at least
     one ring of keys each (``db_min_pages`` in csrc/paged_attention.cu):
-    short rows leave the cluster's last splits idle."""
+    short rows leave the cluster's last splits idle. The generic kernel
+    takes it with ``KV`` its kv heads times head tiles and ``P`` the
+    splits a row can fill (:func:`decode_generic_splits_cap`), and cuts
+    a row's key blocks, not its pages (:func:`decode_generic_shares`)."""
     pairs = B * KV
     for S in DECODE_CLUSTER_SIZES:
         if S <= P and pairs <= clusters.get(S, 0):
@@ -487,41 +515,28 @@ def _decode_launch_plan(q: torch.Tensor, k_pools: torch.Tensor,
                         v_pools: torch.Tensor, B: int,
                         P: int) -> Tuple[int, int]:
     """Route and splits of one decode call on the card; raises for shapes
-    neither kernel takes."""
+    no kernel takes."""
     H, hd = q.shape[1], q.shape[2]
     KV, ps = k_pools.shape[2], k_pools.shape[3]
     G = H // KV
     route = decode_route(q.dtype, H, KV, ps, hd)
     if route == 0:
-        _check(G <= 8 and hd <= 256 and hd % 8 == 0,
-               f"decode kernel takes GQA groups <= 8 and head_dim <= 256, a "
-               f"multiple of 8 (got {G}, {hd})")
+        _check(prefill_generic_shape(q.dtype, hd),
+               f"{q.dtype} generic decode kernel takes head_dim up to "
+               f"{PREFILL_GENERIC_MAX_HEAD_DIM}"
+               f"{'' if q.dtype == torch.float32 else ', a multiple of 8'} "
+               f"(got head_dim {hd}, page_size {ps}, group {G})")
     _check(k_pools.data_ptr() % 16 == 0 and v_pools.data_ptr() % 16 == 0,
            "pools must be 16-byte aligned (16-byte page copies)")
-    _check(route != 2 or q.data_ptr() % 16 == 0,
+    _check(route not in (0, 2) or q.data_ptr() % 16 == 0,
            "q must be 16-byte aligned (16-byte loads)")
+    clusters = _clusters(q.device, route, q.dtype, H, KV, ps, hd)
     if route != 0:
-        return route, decode_cluster_plan(
-            B, KV, P, _clusters(q.device, route, H, KV, ps, hd))
-    splits = decode_split_plan(
-        B, KV, P, _sm_count(q.device),
-        _resident(q.device, q.dtype, H, KV, ps, hd))
-    return route, splits
-
-
-def _scratch(device, route: int, window: bool, B: int, KV: int, splits: int,
-             G: int, hd: int):
-    """(part_acc, part_ml) of one decode call, None where the call needs
-    none: the bf16 and float32 kernels fold their splits (through the
-    cluster's shared memory) and the window themselves; the generic kernel
-    hands partials to the combine kernel whenever it splits or has a
-    window."""
-    if route != 0 or not (splits > 1 or window):
-        return None, None
-    return (torch.empty((B, KV, splits, G, hd), dtype=torch.float32,
-                        device=device),
-            torch.empty((B, KV, splits, G, 2), dtype=torch.float32,
-                        device=device))
+        return route, decode_cluster_plan(B, KV, P, clusters)
+    plan = decode_generic_plan(G, ps, hd, q.dtype)
+    return route, decode_cluster_plan(
+        B, KV * plan.head_tiles, decode_generic_splits_cap(P, ps, plan),
+        clusters)
 
 
 def paged_attention_decode_window(
@@ -535,8 +550,8 @@ def paged_attention_decode_window(
     window buffer for positions start .. start + n_win - 1, in one softmax.
     The kernel side of ``dynamo_tpu/models/llama.py``
     ``_pool_window_attention_pallas``, whose merge of the decode kernel's
-    (m, l) stats with the buffer here runs in the decode kernel's combine
-    step on the card.
+    (m, l) stats with the buffer here runs inside the decode kernel on
+    the card.
 
     q: [B, H, hd]; k_pools/v_pools: [L, N, KV, ps, hd]; page_table: [B, P]
     int32; start: [B] int32 first window position (-1 = padding row);
@@ -582,18 +597,14 @@ def paged_attention_decode_window(
                                 start, q_pos, wk, wv, n_win, scale, softcap,
                                 eff_win)
     route, splits = _decode_launch_plan(q, k_pools, v_pools, B, P)
-    _check(route == 0 or all(t.data_ptr() % 16 == 0 for t in (q, wk, wv)),
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, wk, wv)),
            "q, wk and wv must be 16-byte aligned (16-byte loads)")
-    part_acc, part_ml = _scratch(q.device, route, True, B, KV, splits,
-                                 H // KV, hd)
     out = torch.empty_like(q)
     err = _lib().dyn_paged_attention_decode_window(
         route, _DTYPES[q.dtype], q.data_ptr(), k_pools.data_ptr(),
         v_pools.data_ptr(), layer, page_table.data_ptr(), start.data_ptr(),
         q_pos.data_ptr(), eff_win.data_ptr() if eff_win is not None else None,
         wk.data_ptr(), wv.data_ptr(), n_win, Kw, out.data_ptr(),
-        part_acc.data_ptr() if part_acc is not None else None,
-        part_ml.data_ptr() if part_ml is not None else None,
         B, H, KV, N, ps, hd, P,
         splits, float(scale), float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -119,8 +119,8 @@ def test_cuda_prefill_kernel_matches_plain(cuda_device, dtype, tol, rtol):
 @pytest.mark.parametrize("window", [None, 50])
 def test_cuda_decode_window_matches_plain(cuda_device, dtype, tol, rtol,
                                           window):
-    """The fused-window form: pool pages + the in-flight buffer, folded by
-    the decode kernel's combine step."""
+    """The fused-window form: pool pages + the in-flight buffer, folded in
+    the decode kernel."""
     from dynamo_tpu_torch.ops.paged_attention import (
         paged_attention_decode_window, window_reference)
 
@@ -525,8 +525,8 @@ def test_cuda_decode_bf16_shape_set_matches_the_kernel(cuda_device, dtype):
             for G in (1, 3, 8, 9):
                 route = ops.decode_route(dtype, 2 * G, 2, ps, hd)
                 assert route in (0, rt)
-                err = lib.dyn_paged_decode_clusters(rt, 2 * G, 2, ps, hd, 1,
-                                                    ctypes.byref(n))
+                err = lib.dyn_paged_decode_clusters(rt, code, 2 * G, 2, ps,
+                                                    hd, 1, ctypes.byref(n))
                 assert (err == 0) == (route == rt), (hd, ps, G)
                 assert ops.decode_route(torch.float32, 2 * G, 2, ps, hd) in (
                     0, 2)
@@ -539,16 +539,16 @@ def test_cuda_decode_bf16_shape_set_matches_the_kernel(cuda_device, dtype):
     for hd in ops.DECODE_BF16_HEAD_DIMS:
         for S in ops.DECODE_CLUSTER_SIZES:
             n.value = n_bf16.value = 0
-            assert lib.dyn_paged_decode_clusters(rt, 32, 8, 64, hd, S,
+            assert lib.dyn_paged_decode_clusters(rt, code, 32, 8, 64, hd, S,
                                                  ctypes.byref(n)) == 0
-            assert lib.dyn_paged_decode_clusters(1, 32, 8, 64, hd, S,
+            assert lib.dyn_paged_decode_clusters(1, 1, 32, 8, 64, hd, S,
                                                  ctypes.byref(n_bf16)) == 0
             assert n.value >= 1 and n.value == n_bf16.value, (hd, S)
     S = ops.DECODE_BF16_MAX_SPLITS
     for dt, splits in ((code, S), (code, S + 1), (0, S), (3 - code, S)):
         # B = 0: the entry checks its arguments and launches nothing
         err = lib.dyn_paged_attention_decode(
-            rt, dt, *[scratch] * 3, 0, *[scratch] * 8, 0, 8, 2, 4, 64, 128,
+            rt, dt, *[scratch] * 3, 0, *[scratch] * 6, 0, 8, 2, 4, 64, 128,
             256, splits, 1.0, 0.0, stream)
         assert (err == 0) == (dt == code and splits <= S)
     assert plib.dyn_paged_attention_prefill(
@@ -589,43 +589,71 @@ def test_cuda_bf16_decode_window_steps(cuda_device, n_win, window, dtype):
     assert (got[0] == 0).all()
 
 
+# shapes outside every fast set, on the generic decode kernel: (dtype,
+# head_dim, page size, group, kv heads)
+GENERIC_DECODE_SHAPES = [
+    (torch.float32, 96, 64, 4, 2),     # head_dim outside the float32 set
+    (torch.bfloat16, 32, 16, 1, 2),    # head_dim outside the bf16 set
+    (torch.bfloat16, 64, 8, 2, 2),     # page size outside the bf16 set
+    (torch.float16, 32, 16, 1, 2),     # and in float16
+    (torch.float16, 96, 4, 3, 2),      # chip_smoke.py's check shape
+    # groups past 8: Mistral-Large's 12, 16, and 71 on one kv head (five
+    # head tiles); page 256 at head_dim 128, which staged pages refused;
+    # float32 head_dim 7 (4-byte copies) and 256
+    *[(dt, 128, 64, 12, 2) for dt in (torch.float32, torch.bfloat16,
+                                      torch.float16)],
+    *[(dt, 64, 16, 16, 1) for dt in (torch.float32, torch.bfloat16)],
+    *[(dt, 80, 48, 71, 1) for dt in (torch.float32, torch.bfloat16,
+                                     torch.float16)],
+    *[(dt, 128, 256, 4, 2) for dt in (torch.float32, torch.bfloat16,
+                                      torch.float16)],
+    (torch.float32, 7, 5, 3, 2), (torch.float32, 256, 8, 12, 1),
+    (torch.bfloat16, 256, 1, 2, 2),
+    # float32 head_dim 32 at page 4 (the HDP-32 form); the tiny preset's
+    # served shapes (4 heads on 2 kv heads, head_dim 16: page 16 in 16
+    # bits, page 4 in float32); head_dim 192 (the HDP-192 forms)
+    (torch.float32, 32, 4, 2, 2),
+    *[(dt, 16, 16, 2, 2) for dt in (torch.bfloat16, torch.float16)],
+    (torch.float32, 16, 4, 2, 2),
+    *[(dt, 192, 32, 6, 2) for dt in (torch.float32, torch.bfloat16,
+                                     torch.float16)]]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,hd,ps,G", [
-    (torch.float32, 96, 64, 4),     # head_dim outside the float32 set
-    (torch.bfloat16, 32, 16, 1),    # head_dim outside the bf16 set
-    (torch.bfloat16, 64, 8, 2),     # page size outside the bf16 set
-    (torch.float16, 32, 16, 1),     # and in float16
-    (torch.float16, 96, 4, 3),      # chip_smoke.py's check shape
-])
+@pytest.mark.parametrize("dtype,hd,ps,G,KV", GENERIC_DECODE_SHAPES)
 def test_cuda_decode_other_shapes_run_the_generic_kernel(cuda_device, dtype,
-                                                         hd, ps, G):
+                                                         hd, ps, G, KV):
     """float32 shapes outside the float32 kernel's set, and bfloat16 and
-    float16 shapes outside the bf16 kernel's, still run on the generic
-    kernel, chosen by shape."""
-    lengths, lower = [3 * ps + 1, 0, 2 * ps], [0, 0, ps + 1]
-    q, kp, vp, table = _decode_pool(G, hd, ps, [4, 0, 2], dtype=dtype)
+    float16 shapes outside the bf16 kernel's, run on the generic kernel,
+    chosen by shape, one launch a call: groups of 12, 16 and 71, page 256,
+    float32 head_dim 7; rows of several pages with a lower bound inside a
+    page, an empty row, the softcap on layer 1 (stats within 1e-4)."""
+    lengths = [3 * ps + 1, 0, 2 * ps, 40]
+    lower = [0, 0, ps + 1, 3]
+    q, kp, vp, table = _decode_pool(G, hd, ps, [4, 0, 2, -(-40 // ps)],
+                                    KV=KV, dtype=dtype)
     ops.reset_launch_counts()
     f32 = dtype == torch.float32
-    _decode_check(cuda_device, q, kp, vp, table, lengths, lower,
-                  tol=1e-5 if f32 else 2e-2, rtol=0.0 if f32 else 1e-2)
+    got = _decode_check(cuda_device, q, kp, vp, table, lengths, lower,
+                        softcap=30.0, tol=1e-5 if f32 else 2e-2,
+                        rtol=0.0 if f32 else 1e-2)
     assert ops.DECODE_ROUTE_LAUNCHES == _counts(ops.DECODE_ROUTES, generic=2)
+    assert ops.LAUNCHES["paged_attention_decode"] == 2
+    assert (got[1] == 0).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,hd,ps,G", [
-    (torch.float32, 96, 64, 4), (torch.float32, 32, 4, 2),
-    (torch.float16, 96, 4, 3)])
+@pytest.mark.parametrize("dtype,hd,ps,G,KV", GENERIC_DECODE_SHAPES)
 def test_cuda_decode_window_other_shapes_run_the_generic_kernel(
-        cuda_device, hd, ps, G, dtype):
-    """The window form of float32 shapes outside the float32 kernel's set
-    (a head_dim of 96; page 4, chip_smoke.py's check shape), and of a
-    float16 one outside the bf16 kernel's, runs on the generic kernel and
-    its combine step, chosen by shape: every step of K = 4 with a sliding
-    window, the softcap and a padding row (float32 at atol 1e-5, float16
-    at its tolerance)."""
+        cuda_device, hd, ps, G, KV, dtype):
+    """The window form of the shapes outside every fast set runs on the
+    generic kernel, chosen by shape: every step of K = 4 with a sliding
+    window, the softcap and a padding row, one launch a step (float32 at
+    atol 1e-5, 16 bits at their tolerance)."""
     d, Kw = cuda_device, 4
-    q, kp, vp, table = _decode_pool(G, hd, ps, [5, 2, 3, 1], dtype=dtype)
-    B, KV = q.shape[0], kp.shape[2]
+    q, kp, vp, table = _decode_pool(G, hd, ps, [5, 2, 3, 1], KV=KV,
+                                    dtype=dtype)
+    B = q.shape[0]
     g = torch.Generator().manual_seed(hd + ps)
     wk = torch.randn(B, Kw, KV, hd, generator=g).to(dtype)
     wv = torch.randn(B, Kw, KV, hd, generator=g).to(dtype)
@@ -645,6 +673,240 @@ def test_cuda_decode_window_other_shapes_run_the_generic_kernel(
         assert (got[3] == 0).all()
     assert ops.DECODE_ROUTE_LAUNCHES == _counts(ops.DECODE_ROUTES,
                                                 generic=Kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("G,KV", [(12, 8), (71, 1)])
+def test_cuda_generic_decode_long_rows(cuda_device, G, KV, dtype):
+    """Rows of 2,000 to 3,900 positions at page 48 (outside every fast
+    set), at Mistral-Large's 12 heads on 8 kv heads and at 71 on one (five
+    head tiles), in three rows (a cluster of splits each) and, with 12
+    heads, 24 rows: within a tenth of the plain output's rms in every row,
+    a limit the plain version one 16-key block short exceeds in every
+    row; a second call gives the same bits."""
+    rng = np.random.RandomState(G + KV)
+    for rows in ((3, 24) if G == 12 else (3,)):
+        lengths = [int(x) for x in rng.randint(2000, 3900, rows)]
+        lower = [0] * (rows - 1) + [1000]
+        q, kp, vp, table = _decode_pool(G, 128, 48,
+                                        [-(-n // 48) for n in lengths],
+                                        KV=KV, L=1, dtype=dtype)
+        f32 = dtype == torch.float32
+        first = _decode_check(cuda_device, q, kp, vp, table, lengths, lower,
+                              tol=1e-5 if f32 else 2e-2,
+                              rtol=0.0 if f32 else 1e-2)
+        again = _decode_check(cuda_device, q, kp, vp, table, lengths, lower,
+                              tol=1e-5 if f32 else 2e-2,
+                              rtol=0.0 if f32 else 1e-2)
+        assert torch.equal(first, again)
+        ln, lo = (torch.tensor(x, dtype=torch.int32) for x in (lengths, lower))
+        want = paged_attention_decode_layered(q, kp, vp, 0, table, ln,
+                                              lower=lo)
+        short = paged_attention_decode_layered(q, kp, vp, 0, table, ln,
+                                               lower=lo + 16)
+        _rows_within_rms(first, want, short, range(rows))
+
+
+def _decode_masking_bad_pages(q, kp, vp, layer, table, lengths, lower,
+                              softcap):
+    """decode_reference's arithmetic (float32, exp only where visible)
+    with the keys of a table entry outside [0, N) masked, as the kernels
+    take them. Returns out in q's dtype."""
+    B, H, hd = q.shape
+    _, N, KV, ps, _ = kp.shape
+    G, S = H // KV, table.shape[1] * ps
+    ok = ((table >= 0) & (table < N)).repeat_interleave(ps, dim=1)
+    idx = table.clamp(0, N - 1).long()
+    k = kp[layer][idx].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd).float()
+    v = vp[layer][idx].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd).float()
+    s = torch.einsum("bkgh,bksh->bkgs", q.reshape(B, KV, G, hd).float(),
+                     k) * hd ** -0.5
+    s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(S)[None]
+    vis = ((pos >= lower[:, None]) & (pos < lengths[:, None]) & ok)
+    vis = vis[:, None, None]
+    s = torch.where(vis, s, torch.full_like(s, ops.NEG_INF))
+    p = torch.where(vis, torch.exp(s - s.amax(-1, keepdim=True)),
+                    torch.zeros_like(s))
+    out = torch.einsum("bkgs,bksh->bkgh", p, v) / p.sum(-1).clamp(
+        min=1e-9)[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,rtol", DTYPE_TOLS)
+def test_cuda_generic_decode_masks_pages_outside_the_pool(cuda_device, dtype,
+                                                          tol, rtol):
+    """Table entries outside [0, N) (one past the pool, one negative) on
+    the generic kernel: their keys contribute nothing and are not read;
+    held to the plain version with those keys masked, which is
+    decode_reference's where every page is in the pool (row 0)."""
+    d = cuda_device
+    q, kp, vp, table = _decode_pool(12, 80, 3, [9, 9], KV=1, dtype=dtype)
+    N = kp.shape[1]
+    table[1, 1], table[1, 4] = N + 3, -2
+    ln = torch.tensor([26, 25], dtype=torch.int32)
+    lo = torch.tensor([0, 2], dtype=torch.int32)
+    got = paged_attention_decode_layered(
+        q.to(d), kp.to(d), vp.to(d), 0, table.to(d), ln.to(d), lower=lo.to(d),
+        softcap=25.0).cpu()
+    want = _decode_masking_bad_pages(q, kp, vp, 0, table, ln, lo, 25.0)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=tol)
+    np.testing.assert_allclose(
+        _np(want[:1]), _np(paged_attention_decode_layered(
+            q[:1], kp, vp, 0, table[:1], ln[:1], lower=lo[:1],
+            softcap=25.0)), rtol=rtol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,KV,ps", [(12, 8, 64), (71, 1, 8)])
+def test_cuda_generic_decode_graph_replay_equals_eager(cuda_device, G, KV,
+                                                       ps, dtype):
+    """A captured generic cluster launch, replayed, gives the eager call's
+    output and stats bit for bit (layered with stats, and the window
+    form), at Mistral-Large's heads and at 71 on one kv head."""
+    lengths = [40, ps * 11 - 3, 0, 86]
+    q, kp, vp, narrow = _decode_pool(G, 128, ps, [1, 11, 0, -(-86 // ps)],
+                                     KV=KV, L=1, dtype=dtype)
+    d = cuda_device
+    B = len(lengths)
+    table = torch.zeros((B, 64), dtype=torch.int32)
+    table[:, :narrow.shape[1]] = narrow
+    q, kp, vp, table = (t.to(d) for t in (q, kp, vp, table))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=d)
+    g = torch.Generator().manual_seed(3)
+    wk = torch.randn(B, 4, KV, 128, generator=g).to(dtype).to(d)
+    wv = torch.randn(B, 4, KV, 128, generator=g).to(dtype).to(d)
+    start = torch.tensor([40, ps * 11 - 3, -1, 86], dtype=torch.int32,
+                         device=d)
+    qp = (start.clamp(min=0) + 3).to(torch.int32)
+
+    def calls():
+        return (*paged_attention_decode_layered(q, kp, vp, 0, table, ln,
+                                                return_stats=True),
+                paged_attention_decode_window(q, kp, vp, 0, table, start, qp,
+                                              wk, wv, 4))
+
+    ops.reset_launch_counts()
+    eager = calls()
+    assert ops.DECODE_ROUTE_LAUNCHES == _counts(ops.DECODE_ROUTES, generic=2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = calls()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_generic_decode_calls_in_flight_on_two_streams(cuda_device,
+                                                            dtype):
+    """Splitting generic calls in flight on two streams at once, each
+    stream with its own queries, at Mistral-Large's heads on page 48:
+    every call folds its own splits (no state is shared between calls)."""
+    lengths = [3000, 2600, 3900, 700]
+    d = cuda_device
+    q, kp, vp, table = _decode_pool(12, 128, 48,
+                                    [-(-n // 48) for n in lengths], KV=8,
+                                    L=1, dtype=dtype)
+    q2 = torch.flip(q, dims=[0]).contiguous()
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    wants = [paged_attention_decode_layered(x, kp, vp, 0, table, ln)
+             for x in (q, q2)]
+    kd, vd, td, lnd = (t.to(d) for t in (kp, vp, table, ln))
+    qs = [q.to(d), q2.to(d)]
+    paged_attention_decode_layered(qs[0], kd, vd, 0, td, lnd)  # plan
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for s, x, out in zip(streams, qs, outs):
+            with torch.cuda.stream(s):
+                out.append(paged_attention_decode_layered(x, kd, vd, 0, td,
+                                                          lnd))
+    torch.cuda.synchronize()
+    for want, out in zip(wants, outs):
+        limit = 0.1 * float(want.float().pow(2).mean().sqrt())
+        for got in out:
+            np.testing.assert_allclose(_np(got.cpu()), _np(want), rtol=0,
+                                       atol=limit)
+
+
+@pytest.mark.cuda
+def test_cuda_generic_decode_plan_matches_the_kernel(cuda_device):
+    """The generic decode kernel's shared memory
+    (dyn_paged_decode_generic_smem, its dg_smem) equals the wrapper's
+    mirror (decode_generic_plan) at every head_dim it takes in every
+    dtype, and -1 outside; the card holds at least one cluster of every
+    size the plan picks from; the C entry takes route 0 in every dtype
+    exactly at prefill_generic_shape, with any group and page size (B =
+    0: it checks its arguments and launches nothing), and refuses a
+    cluster past DECODE_BF16_MAX_SPLITS and the other dtype codes."""
+    import ctypes
+
+    lib = ops._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    scratch = torch.zeros(16, device=cuda_device).data_ptr()
+    n = ctypes.c_int(0)
+    S = ops.DECODE_BF16_MAX_SPLITS
+    for dtype, code in ops._DTYPES.items():
+        for hd in range(1, 300):
+            inside = ops.prefill_generic_shape(dtype, hd)
+            smem = lib.dyn_paged_decode_generic_smem(code, hd)
+            assert smem == (ops.decode_generic_plan(4, 8, hd, dtype).smem
+                            if inside else -1), (dtype, hd)
+            for ps, G in ((1, 1), (8, 71), (256, 12)):
+                for splits in (1, S, S + 1):
+                    err = lib.dyn_paged_attention_decode(
+                        0, code, *[scratch] * 3, 0, *[scratch] * 6, 0,
+                        2 * G, 2, 8, ps, hd, 4, splits, 1.0, 0.0, stream)
+                    assert (err == 0) == (inside and splits <= S), (
+                        dtype, hd, ps, G, splits)
+        for hd in (7, 16, 96, 128, 256):
+            if not ops.prefill_generic_shape(dtype, hd):
+                continue
+            for s in ops.DECODE_CLUSTER_SIZES:
+                n.value = 0
+                assert lib.dyn_paged_decode_clusters(
+                    0, code, 24, 2, 256, hd, s, ctypes.byref(n)) == 0
+                assert n.value >= 1, (dtype, hd, s)
+    for code in (-1, 3):
+        assert lib.dyn_paged_attention_decode(
+            0, code, *[scratch] * 3, 0, *[scratch] * 6, 0, 8, 2, 8, 8, 64,
+            4, 1, 1.0, 0.0, stream) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("hd", [264, 320, 512])
+def test_cuda_decode_above_head_dim_256_raises(cuda_device, dtype, hd):
+    """No decode kernel takes head_dim above 256: both wrappers raise
+    ValueError naming the dtype and the shape, in every dtype, and launch
+    nothing."""
+    d = cuda_device
+    pool = torch.zeros(1, 4, 1, 16, hd, dtype=dtype, device=d)
+    q = torch.zeros(1, 12, hd, dtype=dtype, device=d)
+    table = torch.ones(1, 2, dtype=torch.int32, device=d)
+    one = torch.ones(1, dtype=torch.int32, device=d)
+    w = torch.zeros(1, 4, 1, hd, dtype=dtype, device=d)
+    ops.reset_launch_counts()
+    match = (f"{dtype} generic decode kernel takes head_dim up to 256.*got "
+             f"head_dim {hd}, page_size 16, group 12")
+    with pytest.raises(ValueError, match=match):
+        paged_attention_decode_layered(q, pool, pool, 0, table, one)
+    with pytest.raises(ValueError, match=match):
+        paged_attention_decode_window(q, pool, pool, 0, table, one, one, w, w,
+                                      1)
+    assert sum(ops.DECODE_ROUTE_LAUNCHES.values()) == 0
 
 
 @pytest.mark.cuda
@@ -913,8 +1175,8 @@ def test_cuda_f32_shape_set_matches_the_kernels(cuda_device):
                                           hd) == 2
                 assert inside == (ops.prefill_route(torch.float32, 2 * G, 2,
                                                     ps, hd) == 2)
-                err = lib.dyn_paged_decode_clusters(2, 2 * G, 2, ps, hd, 1,
-                                                    ctypes.byref(n))
+                err = lib.dyn_paged_decode_clusters(2, 0, 2 * G, 2, ps, hd,
+                                                    1, ctypes.byref(n))
                 assert (err == 0) == inside, (hd, ps, G)
                 # B = 0: the entry checks its arguments, launches nothing
                 err = plib.dyn_paged_attention_prefill(
@@ -924,7 +1186,7 @@ def test_cuda_f32_shape_set_matches_the_kernels(cuda_device):
     for hd in ops.F32_HEAD_DIMS:
         for S in ops.DECODE_CLUSTER_SIZES:
             n.value = 0
-            assert lib.dyn_paged_decode_clusters(2, 32, 8, 64, hd, S,
+            assert lib.dyn_paged_decode_clusters(2, 0, 32, 8, 64, hd, S,
                                                  ctypes.byref(n)) == 0
             assert n.value >= 1, (hd, S)
         assert lib.dyn_paged_decode_f32_smem(hd) == ops.decode_f32_smem(hd)

@@ -394,41 +394,47 @@ H100_CLUSTERS = {1: 264, 2: 132, 4: 62, 8: 30}
 ])
 @pytest.mark.parametrize("route", [0, 1])
 def test_decode_split_plan_covers_every_page_once(route, B, KV, P, resident):
-    """The split plans from host-known shapes. The generic kernel's
-    (route 0): the grid stays within one wave of resident blocks (or is
-    one block per (row, kv head) when those alone pass it), a wave with
-    room gets more splits, and there are never more splits than
-    page-table entries, so every split of a full row has a page. The bf16
-    kernel's (route 1): one cluster per (row, kv head), a size of
-    DECODE_CLUSTER_SIZES no larger than the page table, all clusters
-    resident at once (unless the pairs alone pass the card), and the
-    next size up would not fit. That the kernels' cut of a row into these
-    splits covers each page once is checked on the card
+    """The split plans from host-known shapes: one cluster per (row, kv
+    head), a size of DECODE_CLUSTER_SIZES no larger than the page table
+    (route 1, the bf16 kernel) or than the splits a row of that table can
+    fill (route 0, the generic kernel: one split for each ring of 192
+    keys, at page size 8 here, on the head tiles of a group of 12 at 8 kv
+    heads and of 71 at one), all clusters resident at once (unless the
+    pairs alone pass the card), and the next size up would not fit. On
+    route 0 the kernel's cut of any row of the table over that cluster
+    (decode_generic_shares) also covers each key of the row once. That
+    the kernels cut rows so on the card is checked there
     (tests/test_torch_kernels.py: rows with more pages than splits and
     with fewer, held to a limit that a row one 16-key block short
     exceeds)."""
     sms = 132
-    pairs = B * KV
+    clusters = (H100_CLUSTERS if resident == 2 else
+                {S: sms * resident // S for S in ops.DECODE_CLUSTER_SIZES})
     if route == 1:
-        clusters = (H100_CLUSTERS if resident == 2 else
-                    {S: sms * resident // S for S in ops.DECODE_CLUSTER_SIZES})
+        pairs, cap = B * KV, P
         S = ops.decode_cluster_plan(B, KV, P, clusters)
-        assert S in ops.DECODE_CLUSTER_SIZES
-        assert S <= min(P, ops.DECODE_BF16_MAX_SPLITS)
-        assert S == 1 or pairs <= clusters[S]
-        if 2 * S <= min(P, ops.DECODE_BF16_MAX_SPLITS):  # the wave set S:
-            assert pairs > clusters[2 * S]  # the next size would not fit
-        if KV <= 2 and B <= 8 and P >= 8:  # few pairs: a whole cluster
-            assert S == ops.DECODE_BF16_MAX_SPLITS
-        return
-    S = ops.decode_split_plan(B, KV, P, sms, resident)
-    slots = sms * resident
-    assert 1 <= S <= min(P, ops.DECODE_MAX_SPLITS)
-    assert B * KV * S <= max(slots, B * KV)
-    if B * KV * 2 <= slots and P >= 2:
-        assert S >= 2  # a wave with room for more splits gets them
-    if S < min(P, ops.DECODE_MAX_SPLITS):  # the wave, not P, set S:
-        assert B * KV * 2 * S > slots      # no half of it left idle
+    else:
+        ps = 8
+        plan = ops.decode_generic_plan(12 if KV > 1 else 71, ps, 128,
+                                       torch.bfloat16)
+        pairs = B * KV * plan.head_tiles
+        cap = ops.decode_generic_splits_cap(P, ps, plan)
+        S = ops.decode_cluster_plan(B, KV * plan.head_tiles, cap, clusters)
+        for lo, length in ((0, P * ps), (3, P * ps - 5), (ps + 1, 2 * ps),
+                           (0, 1)):
+            shares = ops.decode_generic_shares(lo, length, P, ps, S, plan)
+            keys = [k for first, n in shares
+                    for k in range(first * plan.keys, (first + n) * plan.keys)]
+            assert sorted(k for k in keys if lo <= k < length) == list(
+                range(lo, length))
+            assert len(keys) == len(set(keys)) and len(shares) <= S
+    assert S in ops.DECODE_CLUSTER_SIZES
+    assert S <= min(cap, ops.DECODE_BF16_MAX_SPLITS)
+    assert S == 1 or pairs <= clusters[S]
+    if 2 * S <= min(cap, ops.DECODE_BF16_MAX_SPLITS):  # the wave set S:
+        assert pairs > clusters[2 * S]  # the next size would not fit
+    if route == 1 and KV <= 2 and B <= 8 and P >= 8:
+        assert S == ops.DECODE_BF16_MAX_SPLITS  # few pairs: a whole cluster
 
 
 def test_decode_cluster_plan_at_the_served_shapes():

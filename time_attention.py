@@ -3,7 +3,8 @@
 shapes, for comparing two trees on one card.
 
     python3 time_attention.py [--dtype bfloat16|float16|float32]
-                              [--prefill-route generic]  # from a checkout
+                              [--prefill-route generic]
+                              [--decode-route generic]  # from a checkout
 
 Llama-3-8B attention widths (H=32, KV=8, head_dim 128, page 64), a random
 pool of 512 pages and queries from a seed:
@@ -25,8 +26,7 @@ sharded shapes are bf16 and float16 only. ``--dtype float16`` takes
 every shape of the bf16 run in float16 (the float16 forms of the bf16
 kernels). Every dtype also times the generic kernels at the 8B's heads
 with head_dim 96, outside every fast set (``_hd96`` keys): decode
-(``paged_decode_kernel`` + ``paged_decode_combine``) at the served
-window and prefill (``paged_prefill_generic_kernel``) at the first
+(``paged_decode_generic_kernel``) at the served window and prefill (``paged_prefill_generic_kernel``) at the first
 chunk; and the bfloat16 and float16 runs the chunk chip_smoke.py's phase
 13 serves, Llama-3.2-1B's heads (head_dim 64) at page 8
 (``first_chunk_1b_ps8``); and the float32 run the tiny preset's heads
@@ -37,7 +37,9 @@ is recorded under the shape's key instead of times; on a tree with the
 generic kernel in every dtype a refusal fails the run.
 ``--prefill-route generic`` runs every prefill shape on the generic
 kernel (the wrapper's route choice replaced for this run only), to weigh
-it against the route each shape takes by default.
+it against the route each shape takes by default; ``--decode-route
+generic`` does the same for every decode shape (the sharded ones
+included).
 Each shape is timed three times (CUDA graph of 50 launches,
 chip_smoke.time_ms) and held to its plain version (the tolerance of its
 dtype: bf16 and float16 atol 2e-2 + rtol 1e-2, float32 atol 1e-5); the
@@ -110,6 +112,8 @@ def main() -> None:
                     choices=("bfloat16", "float16", "float32"))
     ap.add_argument("--prefill-route", default=None, choices=("generic",),
                     help="run every prefill shape on this route")
+    ap.add_argument("--decode-route", default=None, choices=("generic",),
+                    help="run every decode shape on this route")
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())
     import torch
@@ -137,6 +141,9 @@ def main() -> None:
         # the wrapper looks its route up by this module-level name
         ops.prefill_route = lambda *shape: 0
         res["prefill_route"] = "generic"
+    if args.decode_route == "generic":
+        ops.decode_route = lambda *shape: 0
+        res["decode_route"] = "generic"
     f32 = dtype == torch.float32
     time_shapes(res, kp, vp, g, tol, T, K, H, "",
                 decode=DECODE_SHAPES + (F32_DECODE_SHAPES if f32 else ()))
