@@ -15,18 +15,22 @@ Phases; any failure exits non-zero before the result line:
    f16_mma), and in every dtype the generic kernel outside the routes'
    sets: head_dim 96 at page 4, Mistral-Large-2's 12 heads a kv head,
    16 on one kv head at page 3, 71 on one at head_dim 80 and page 48,
-   page 256, and float32 head_dim 7; each call must have taken its
-   shape's route (the launch counts), the generic cases route generic,
-   and every route must have been taken;
+   page 256, head_dim 7 and 20 (rows that are not 16-byte multiples in
+   16 bits), and head_dim 320 and 512 (two value-column tiles; 512 at
+   the 8B's heads); each call must have taken its shape's route (the
+   launch counts), the generic cases route generic, and every route must
+   have been taken;
 3. the same for the prefill kernel: padding queries, a sliding window, a
    second chunk that skips pages, the fourth chunk of a 2048-token prompt
    (float32 on the 3xTF32 route; bfloat16 on the bf16 route, float16 on
    its float16 form, route f16), and in every dtype the generic kernel
    outside those sets: head_dim 96 at page 4, the deep chunk (positions
    1536-2047) at head_dim 96 and page 8, 71 heads on one kv head at
-   head_dim 80, page 48, with a window and the softcap, and the shapes
+   head_dim 80, page 48, with a window and the softcap, the shapes
    phase 13's tiny engines serve (head_dim 16 at page 16, float32 at
-   page 4);
+   page 4), head_dim 20, 7, 320 and 512, and the verify step of
+   ``--spec-tokens 4`` (T = 5 queries a row starting mid-page, on a
+   page's last slot, on a boundary and at 1) on every prefill route;
 4. serve Llama-3-8B-shaped requests (32 layers at full width, random
    weights from a seed, byte tokenizer) over the OpenAI HTTP front end on
    a local port, with pipelined decode windows and prefill chunks, each
@@ -238,6 +242,26 @@ Phases; any failure exits non-zero before the result line:
    its kernel path against its plain path teacher-forced at PATH_LIMITS
    with the two fault controls. Its launches fill the generic decode row
    of the kernels line.
+15. (run after phase 6, on phase 4's seed-0 8B weights, shared, before
+   its engine leaves the card) the reference's synchronous decode arms
+   (:func:`sync_arms_phase`): the default engine, (a) the launcher's
+   ``--prefill-token-budget 256`` (pipelined windows with budgeted
+   mixing), (b) ``--spec-decode --spec-tokens 4 --prefill-token-budget
+   256`` and (c) ``EngineConfig(decode_steps=1, prefill_token_budget=
+   256)`` built directly, (b) and (c) at ``max_batch`` 8 (their grids
+   trimmed to the batch the traffic reaches), one engine at a time, each
+   warmed and freed before the next, on the same traffic (phase 4's four
+   requests, a 2,048-token prompt sent while they decode, a greedy
+   prompt repeating a 40-token passage three times, a sampled and a
+   logprobs request): no capture after warmup, decode dispatched beside
+   a prefill in (a)-(c), decode launches = (window replays x K + step
+   replays) x 32 on bf16_mma and prefill launches = (chunk + verify
+   replays) x 32 on the bf16 route, an accepted draft on the repeated
+   passage, no bypass row verified, (b)'s greedy tokens (a)'s up to a
+   plain-path near-tie; then the single step and the verify step kernel
+   path against plain path at PATH_LIMITS with a fault control each.
+   Prints each engine's ITL mean and max and TTFT (records); its
+   launches fill the kernels line's single-step and verify rows.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -428,6 +452,14 @@ def check_decode(dev) -> dict:
         ("generic-page256", 1, 12, 2, 4, 256, 128, 4, [300, 600, 1, 0],
          [0, 257, 0, 0], None),
         ("generic-hd7", 1, 32, 2, 3, 5, 7, 8, [20, 9, 0], [0, 0, 0], 15.0),
+        # 16-byte rows no more in 16 bits (8-byte copies), and head_dim
+        # past 256 (two value-column tiles), at the 8B's heads for 512
+        ("generic-hd20", 1, 32, 2, 4, 16, 20, 4, [20, 0, 60], [0, 0, 5],
+         None),
+        ("generic-hd320", 1, 24, 2, 4, 16, 320, 6, [40, 0, 90], [0, 0, 33],
+         20.0),
+        ("generic-hd512", 1, 24, 8, 4, 16, 512, 6, [40, 0, 90], [0, 0, 33],
+         None),
     ]
     # float32: atol 1e-5 (same math, another summation order); bfloat16
     # and float16: atol 2e-2 + rtol 1e-2, i.e. one or two bf16 roundings
@@ -442,8 +474,6 @@ def check_decode(dev) -> dict:
                 [TINY_SERVED_CTX[0], 0, 17, 5, 60], [0, 0, 3, 0, 20], None)
         for name, L, N, KV, G, ps, hd, P, lengths, lower, softcap in (
                 cases + [tiny]):
-            if hd % 8 and dtype != torch.float32:
-                continue  # 16 bits take head_dim a multiple of 8
             B, H = len(lengths), KV * G
             kp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
             vp = torch.randn(L, N, KV, ps, hd, generator=g, device=dev).to(dtype)
@@ -552,6 +582,9 @@ def check_window(dev) -> dict:
         (24, 1, 71, 48, 80, (("generic-mqa71", 6, [-1, 33, 150]),)),
         (12, 2, 4, 256, 128, (("generic-page256", 4, [-1, 300, 600]),)),
         (40, 2, 3, 5, 7, (("generic-hd7", 8, [-1, 0, 9, 37]),)),
+        (32, 2, 4, 16, 20, (("generic-hd20", 4, [-1, 0, 20, 60]),)),
+        (32, 2, 4, 16, 320, (("generic-hd320", 6, [-1, 0, 40, 90]),)),
+        (32, 8, 4, 16, 512, (("generic-hd512", 6, [-1, 40, 90]),)),
     )
     for (dname, tol, rtol), (N, KV, G, ps, hd, layouts) in (
             (d, p) for d in DTYPE_TOLS
@@ -561,8 +594,6 @@ def check_window(dev) -> dict:
                                (("generic-tiny", 16,
                                  [-1, 0, 24, 27, 40]),)),)):
         dtype = getattr(torch, dname)
-        if hd % 8 and dtype != torch.float32:
-            continue  # 16 bits take head_dim a multiple of 8
         H = KV * G
         route = ops.DECODE_ROUTES[ops.decode_route(dtype, H, KV, ps, hd)]
         if layouts[0][0].startswith("generic") and route != "generic":
@@ -682,6 +713,26 @@ def check_prefill(dev) -> dict:
         pos[1, 12:] = -1
         cases.append(("generic-tiny", 32, 2, 2, 4 if f32 else 16, 16, 8, 8,
                       pos, [NO_WINDOW, 5], None))
+        # head_dim 20 and 7 (no 16-byte rows), 320 and 512 (two value
+        # column tiles; 512 at the 8B's heads), a window and the softcap
+        pos = torch.stack([torch.arange(20, 60),
+                           torch.arange(40)]).to(torch.int32)
+        pos[1, 30:] = -1
+        for hd_w, KV_w in ((20, 2), (7, 2), (320, 2), (512, 8)):
+            cases.append((f"generic-hd{hd_w}", 16, KV_w, 4, 16, hd_w, 8, 6,
+                          pos, [NO_WINDOW, 25], 20.0))
+        # the verify step of --spec-tokens 4: T = 5 queries a row, rows
+        # starting mid-page, on a page's last slot, on a boundary and at
+        # 1, and a padding row; on every prefill route: the 8B's heads
+        # (the dtype's fast route at page 64) and head_dim 96 at page 8
+        starts = [37, 63, 64 + 5, 1]
+        pos = torch.full((5, 5), -1, dtype=torch.int32)
+        for b, st in enumerate(starts):
+            pos[b] = torch.arange(st, st + 5)
+        cases.append(("verify-8b", 16, 8, 4, 64, 128, 4, 2, pos,
+                      [NO_WINDOW] * 5, None))
+        cases.append(("generic-verify", 64, 2, 4, 8, 96, 12, 10, pos,
+                      [NO_WINDOW] * 5, None))
         for name, N, KV, G, ps, hd, P, used, pos, win, softcap in cases:
             B, T = pos.shape
             H = KV * G
@@ -2004,6 +2055,61 @@ def time_kernels(engine, cfg, dev, served) -> list:
          "bfloat16")["shapes"] = {"1b page 8 (served, phase 13)": pf8}
     del k8, v8
     torch.cuda.empty_cache()
+
+    # the synchronous arms' shapes on the served pool (phase 15 serves
+    # them; its launches fill the rows): the single decode step at the
+    # served contexts, and the verify step of --spec-tokens 4, a [B, 5]
+    # chunk from each served context (mid-page) on the bf16 prefill route
+    B = ecfg.bucket_batch(len(ctx))
+    P = ecfg.bucket_pages(max(-(-(n + 5) // ps) for n in ctx))
+    rows.append({
+        "name": "paged_attention_decode step", "route": "cuda",
+        "source": "dynamo_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "dynamo_tpu/ops/paged_attention.py:52",
+        "kernel": "paged_decode_bf16_kernel, the single-step form "
+                  "(decode_steps=1)",
+        "launches": 0, **time_step(kp, vp, ctx, B, P, H, g),
+        "launches_from": "engine (c), decode_steps=1 (phase 15)"})
+    rows.append({
+        "name": "paged_attention_prefill verify", "route": "cuda",
+        "source": "dynamo_tpu_torch/ops/csrc/paged_prefill.cu",
+        "replaces": "dynamo_tpu/ops/paged_attention.py:336",
+        "kernel": "paged_prefill_bf16_kernel at the verify step's [B, 5] "
+                  "chunk (--spec-tokens 4)",
+        "launches": 0, **time_verify(kp[0], vp[0], ctx, B, P, 5, H, g),
+        "launches_from": "engine (b), --spec-decode (phase 15)"})
+    # the widened generic kernels: the 8B's heads (32 on 8) at head_dim
+    # 512 in bfloat16, on pools from a seed: the served window and the
+    # first chunk (their launches from phase 13's tiny engine at head dim
+    # 512)
+    kw = torch.randn(1, ecfg.num_pages, cfg.num_kv_heads, ps, 512,
+                     generator=g, device=dev).to(torch.bfloat16)
+    vw = torch.randn(1, ecfg.num_pages, cfg.num_kv_heads, ps, 512,
+                     generator=g, device=dev).to(torch.bfloat16)
+    P = ecfg.bucket_pages(max(-(-n // ps) for n in ctx))
+    dec_w = time_decode(kw, vw, ctx, B, P, K, H, g)
+    pf_w = time_prefill(kw[0], vw[0], ecfg, 0, served["prefill_chunk"], H, g)
+    if (dec_w["decode_route"], pf_w["prefill_route"]) != ("generic",
+                                                          "generic"):
+        fail(f"head_dim 512 took {dec_w['decode_route']} / "
+             f"{pf_w['prefill_route']}, not the generic kernels")
+    for name, src, line, kern, t in (
+            ("paged_attention_decode generic wide", "paged_attention.cu",
+             52, "paged_decode_generic_kernel<__nv_bfloat16, 256, true>",
+             dec_w),
+            ("paged_attention_prefill generic wide", "paged_prefill.cu", 336,
+             "paged_prefill_generic_kernel<__nv_bfloat16, 256, true>",
+             pf_w)):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"dynamo_tpu_torch/ops/csrc/{src}",
+            "replaces": f"dynamo_tpu/ops/paged_attention.py:{line}",
+            "kernel": f"{kern} (32 heads on 8, head_dim 512: two column "
+                      f"tiles)", "launches": 0, **t,
+            "launches_from": "the tiny preset at head_dim 512 in bfloat16 "
+                             "(phase 13)"})
+    del kw, vw
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2022,6 +2128,9 @@ GENERIC_SERVED = {
                 "tiny float32 page 4", 16, "phase 3, generic-tiny")}
 # phase 13's tiny engines: (dtype, page size)
 TINY_GENERIC = (("float16", 16), ("float32", 4), ("bfloat16", 16))
+# phase 13's tiny engine at head_dim 512 (the widened kernels' rows take
+# their launches from it)
+WIDE_SERVED = "tiny bfloat16 page 16 head_dim 512"
 
 
 def generic_1b_ecfg():
@@ -3985,12 +4094,13 @@ def f16_phase(dev) -> dict:
 # ------------------------------------------------------- generic prefill
 
 
-def serve_one_tiny(dtype: str, ps: int) -> dict:
-    """The tiny preset (head_dim 16) in ``dtype`` with the launcher's tiny
-    engine config at page size ``ps``, seed-0 weights, warmed, then one
-    request on the card (16 prompt tokens, 12 generated, greedy): no
-    capture after warmup, every prefill call on the generic kernel and
-    every decode call on the generic decode kernel."""
+def serve_one_tiny(dtype: str, ps: int, hd: int = 16) -> dict:
+    """The tiny preset (head_dim ``hd``, 16 as the preset has it) in
+    ``dtype`` with the launcher's tiny engine config at page size ``ps``,
+    seed-0 weights, warmed, then one request on the card (16 prompt
+    tokens, 12 generated, greedy): no capture after warmup, every prefill
+    call on the generic kernel and every decode call on the generic
+    decode kernel."""
     import dataclasses
 
     import torch
@@ -4006,8 +4116,8 @@ def serve_one_tiny(dtype: str, ps: int) -> dict:
     ecfg = dataclasses.replace(
         build_engine_config(parse_args(["in=http", "out=torch"])),
         page_size=ps)
-    engine = TorchEngine(ModelConfig.tiny(dtype=dtype), ecfg, seed=0,
-                         device="cuda")
+    engine = TorchEngine(ModelConfig.tiny(dtype=dtype, head_dim=hd), ecfg,
+                         seed=0, device="cuda")
     engine.warmup()
     ops.reset_launch_counts()
 
@@ -4025,7 +4135,7 @@ def serve_one_tiny(dtype: str, ps: int) -> dict:
 
     toks = asyncio.run(one())
     torch.cuda.synchronize()
-    got = {"dtype": dtype, "page_size": ps, "tokens": toks,
+    got = {"dtype": dtype, "page_size": ps, "head_dim": hd, "tokens": toks,
            "launches": dict(ops.LAUNCHES),
            "route_launches": dict(ops.DECODE_ROUTE_LAUNCHES),
            "prefill_route_launches": dict(ops.PREFILL_ROUTE_LAUNCHES),
@@ -4039,7 +4149,8 @@ def serve_one_tiny(dtype: str, ps: int) -> dict:
                                                      "generic", n_pf)
             or got["route_launches"] != only(ops.DECODE_ROUTES, "generic",
                                              n_dec)):
-        fail(f"tiny {dtype} engine at page {ps}: {json.dumps(got)}")
+        fail(f"tiny {dtype} engine at page {ps}, head_dim {hd}: "
+             f"{json.dumps(got)}")
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -4092,6 +4203,10 @@ def generic_phase(dev) -> dict:
     for dtype, ps in TINY_GENERIC:
         report[f"tiny {dtype} page {ps}"] = got = serve_one_tiny(dtype, ps)
         log(f"  tiny {dtype} engine at page {ps}: {json.dumps(got)}")
+    # the widened kernels (head_dim past 256) on a served path: the tiny
+    # preset at head_dim 512 in bfloat16 (its launches fill their rows)
+    report[WIDE_SERVED] = got = serve_one_tiny("bfloat16", 16, hd=512)
+    log(f"  tiny bfloat16 engine at head_dim 512: {json.dumps(got)}")
     return report
 
 
@@ -4160,6 +4275,497 @@ def mistral_phase(dev) -> dict:
     return {"config": dict(MISTRAL_LARGE_2407,
                            num_hidden_layers=MISTRAL_LAYERS),
             "served": served, "paths": paths}
+
+
+# ------------------------------------------ the synchronous decode arms
+
+
+# phase 15's traffic, as token ids of the 8B's vocabulary (a marker first,
+# so that no prompt shares a page with an earlier phase's): phase 4's four
+# requests, a 2,048-token prompt sent while they decode, a greedy prompt
+# repeating a 40-token passage three times (the drafter's case), and a
+# sampled and a logprobs request, which bypass speculation
+SYNC_MARK = [128000, 128001]
+SYNC_LONG, SYNC_LONG_AFTER_S = 2048, 0.3
+SYNC_PASSAGE = 40
+# the arms' engines: (name, how built, EngineConfig fields or launcher
+# flags). (b) and (c) trim their bucket grids to the batch phase 15's
+# traffic reaches (max_batch 8: decode batches 1, 2, 4, 8)
+SYNC_ENGINES = (
+    ("default", "EngineConfig", {}),
+    ("a budget", "launcher", ["--prefill-token-budget", "256"]),
+    ("b spec", "launcher", ["--spec-decode", "--spec-tokens", "4",
+                            "--prefill-token-budget", "256",
+                            "--max-batch-size", "8"]),
+    ("c single step", "EngineConfig", dict(decode_steps=1,
+                                           prefill_token_budget=256,
+                                           max_batch=8)))
+
+
+def sync_requests() -> list:
+    """Phase 15's requests: (id, prompt ids, max tokens, delay s,
+    sampling fields, logprobs)."""
+    import numpy as np
+
+    rng = np.random.RandomState(15)
+    reqs = []
+    for i, (_, text, n) in enumerate(SOLO):
+        reqs.append((f"p4-{i}", SYNC_MARK + list(text.encode()), n, 0.0,
+                     None, None))
+    reqs.append(("long", SYNC_MARK + [int(x) for x in rng.randint(
+        1000, 100000, SYNC_LONG - len(SYNC_MARK))], 16, SYNC_LONG_AFTER_S,
+        None, None))
+    passage = [int(x) for x in rng.randint(1000, 100000, SYNC_PASSAGE)]
+    reqs.append(("repeat", SYNC_MARK + passage * 3, 64, 0.0, None, None))
+    reqs.append(("sampled", SYNC_MARK + list(b"Sample a short story."), 24,
+                 0.0, dict(temperature=0.8, top_p=0.95, seed=11), None))
+    reqs.append(("logprobs", SYNC_MARK + list(b"Rate this answer."), 24,
+                 0.0, None, 5))
+    return reqs
+
+
+async def sync_traffic(engine) -> dict:
+    """Phase 15's requests on ``engine`` (its generate, the entry point
+    the HTTP front end calls): per request its tokens, TTFT and the
+    gaps between token arrivals (ITL, one gap spread over the tokens of
+    a chunk)."""
+    from dynamo_tpu_torch.llm.protocols.common import (OutputOptions,
+                                                       PreprocessedRequest,
+                                                       SamplingOptions,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def one(rid, ids, n, delay, samp, lp):
+        await asyncio.sleep(delay)
+        req = PreprocessedRequest(token_ids=ids, stop=StopConditions(
+            max_tokens=n, ignore_eos=True))
+        if samp:
+            req.sampling = SamplingOptions(**samp)
+        if lp:
+            req.output = OutputOptions(logprobs=lp)
+        sent, last, toks, itl, ttft = time.monotonic(), None, [], [], None
+        async for out in engine.generate(req, Context()):
+            if out.token_ids:
+                now = time.monotonic()
+                if last is None:
+                    ttft = now - sent
+                else:
+                    itl += [(now - last) / len(out.token_ids)] * len(
+                        out.token_ids)
+                last = now
+                toks += out.token_ids
+        return rid, {"tokens": toks, "ttft_ms": ttft * 1e3,
+                     "itl_ms": [x * 1e3 for x in itl]}
+
+    try:
+        got = dict(await asyncio.gather(*[one(*r) for r in sync_requests()]))
+    finally:
+        await engine.stop()
+    itl = [x for r in got.values() for x in r["itl_ms"]]
+    return {"requests": got,
+            "itl_mean_ms": sum(itl) / max(len(itl), 1),
+            "itl_max_ms": max(itl, default=0.0),
+            "ttft_ms": {k: r["ttft_ms"] for k, r in got.items()}}
+
+
+# the verify and single-step checks' inputs: check_paths' rows (a full
+# chunk, a padded row, a short row), then K = 4 drafts verified from each
+# row's length (positions 512, 300 and 12: on, mid and early in a page of
+# 64) and two single steps there
+SPEC_PATH_K = 4
+
+
+def spec_path_run(params, cfg, dev, use: bool, ps: int = 64) -> tuple:
+    """check_paths' prefill rows on fresh pools, then two single decode
+    steps (teacher-forced tokens) and, on the pools as the prefill left
+    them, one [B, K+1] verify step of teacher-forced drafts (every
+    position's logits): (step logits [2, B, V], verify logits [B, K+1,
+    V])."""
+    import torch
+
+    from dynamo_tpu_torch.models.llama import (KVCacheSpec, init_kv_cache,
+                                               make_step_fns, make_verify_fn)
+
+    T, lens, K = PATH_T, PATH_LENS, SPEC_PATH_K
+    B = len(lens)
+    per = -(-(max(lens) + K + 2) // ps) + 1
+    spec = KVCacheSpec(num_pages=max(64, 1 + B * per), page_size=ps)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    tokens = torch.randint(0, 256, (B, T), generator=g, dtype=torch.int32)
+    forced = torch.randint(0, 256, (B, K + 1), generator=g,
+                           dtype=torch.int32)
+    positions = torch.full((B, T), -1, dtype=torch.int32)
+    table = torch.zeros((B, max(16, per)), dtype=torch.int32)
+    slots = torch.full((B, T), 1 << 30, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        positions[b, :n] = torch.arange(n)
+        table[b, :per] = torch.arange(1 + per * b, 1 + per * (b + 1))
+        p = torch.arange(n)
+        slots[b, :n] = table[b, p // ps] * ps + p % ps
+    last = torch.tensor([n - 1 for n in lens], dtype=torch.int32)
+    pre, step = make_step_fns(cfg, use_kernels=use)
+    verify = make_verify_fn(cfg, use_kernels=use)
+
+    def prefilled():
+        kk, vv = init_kv_cache(cfg, spec, device=dev)
+        _, kk, vv = pre(params, tokens.to(dev), positions.to(dev), kk, vv,
+                        table.to(dev), slots.to(dev), last.to(dev))
+        return kk, vv
+
+    def at(pos):  # [B, ...] flat slots of positions pos [B, ...]
+        return (table.gather(1, (pos // ps).reshape(B, -1)).reshape(
+            pos.shape) * ps + pos % ps).to(torch.int32)
+
+    base = torch.tensor(lens, dtype=torch.int32)
+    kk, vv = prefilled()
+    steps = []
+    for i in range(2):
+        pos = base + i
+        lg, kk, vv = step(params, forced[:, i].to(dev), pos.to(dev), kk, vv,
+                          table.to(dev), at(pos).to(dev))
+        steps.append(lg.float())
+    kk, vv = prefilled()
+    vpos = base[:, None] + torch.arange(K + 1, dtype=torch.int32)[None]
+    vlog, _, _ = verify(params, forced.to(dev), vpos.to(dev), kk, vv,
+                        table.to(dev), at(vpos).to(dev))
+    torch.cuda.synchronize()
+    return torch.stack(steps), vlog.float()
+
+
+def check_spec_paths(params, cfg, dev) -> dict:
+    """The single decode step and the verify step of the 8B, kernel path
+    against plain path (:func:`spec_path_run`) at PATH_LIMITS' window
+    limit (bf16 logits), with a control fault on each: single steps whose
+    decode call misses the row's newest key, and a verify whose prefill
+    call has each query miss its own key. Each control must land above
+    the limit."""
+    import torch
+
+    from dynamo_tpu_torch.models import llama
+
+    limit = PATH_LIMITS["window_logits"]
+    kern = spec_path_run(params, cfg, dev, True)
+    plain = spec_path_run(plain_params(params), cfg, dev, False)
+    for side, out in (("kernel", kern), ("plain", plain)):
+        if not all(bool(torch.isfinite(t).all()) for t in out):
+            fail(f"phase 15 {side} path: non-finite logits")
+
+    def errs(a):
+        return {"step_logits": max_err(a[0], plain[0]),
+                "verify_logits": max_err(a[1], plain[1]),
+                "verify_logits_by_position": [
+                    max_err(a[1][:, j], plain[1][:, j])
+                    for j in range(a[1].shape[1])]}
+
+    real_dec, real_pf = (llama.paged_attention_decode_layered,
+                         llama.paged_attention_prefill)
+
+    def dec_misses_newest(q, kp, vp, layer, table, lengths, **kw):
+        return real_dec(q, kp, vp, layer, table,
+                        (lengths - 1).clamp(min=0).to(torch.int32), **kw)
+
+    def pf_misses_own(q, kp, vp, table, qpos, **kw):
+        return real_pf(q, kp, vp, table,
+                       torch.where(qpos >= 0, qpos - 1, qpos).to(torch.int32),
+                       **kw)
+
+    sound = errs(kern)
+    control = {}
+    for name, attr, fault in (
+            ("step_misses_newest_key", "paged_attention_decode_layered",
+             dec_misses_newest),
+            ("verify_misses_own_key", "paged_attention_prefill",
+             pf_misses_own)):
+        setattr(llama, attr, fault)
+        try:
+            control[name] = errs(spec_path_run(params, cfg, dev, True))
+        finally:
+            setattr(llama, attr, real_dec if "decode" in attr else real_pf)
+    log(f"  single step and verify, kernel vs plain path: "
+        f"{json.dumps(sound)}; controls: {json.dumps(control)}")
+    for key in ("step_logits", "verify_logits"):
+        if sound[key] > limit:
+            fail(f"phase 15: {key} kernel vs plain {sound[key]:.4g} > "
+                 f"{limit}")
+    if control["step_misses_newest_key"]["step_logits"] <= limit or \
+            control["verify_misses_own_key"]["verify_logits"] <= limit:
+        fail(f"phase 15: a control fault stays within {limit}: the check "
+             f"is blind ({json.dumps(control)})")
+    return {"sound": sound, "control": control, "limit": limit}
+
+
+def check_spec_tokens(params, cfg, dev, spec: dict, plain_arm: dict) -> dict:
+    """Engine (b)'s greedy tokens against engine (a)'s: equal up to the
+    first position whose top-2 logit margin on the plain path (one
+    forward over the prompt and (a)'s tokens before it) is under the
+    bf16 tolerance of a logit (PATH_LIMITS' window limit); such a
+    position and its margin are reported, any other difference fails."""
+    import torch
+
+    limit = PATH_LIMITS["window_logits"]
+    prompts = {rid: ids for rid, ids, *_ in sync_requests()}
+    report = {}
+    for rid, got in spec["requests"].items():
+        if rid == "sampled":
+            continue
+        want = plain_arm["requests"][rid]["tokens"]
+        a, b = want, got["tokens"]
+        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+        if first is None and len(a) == len(b):
+            report[rid] = "equal"
+            continue
+        first = min(len(a), len(b)) if first is None else first
+        ids = prompts[rid] + a[:first]
+        lg = plain_logits(params, cfg, dev, ids)[-1].float()
+        top2 = torch.topk(lg, 2).values
+        margin = float(top2[0] - top2[1])
+        report[rid] = {"first_difference": first, "plain_margin": margin}
+        log(f"  (b) against (a), {rid}: first difference at generated "
+            f"position {first}, plain-path top-2 margin {margin:.4g}")
+        if margin >= limit:
+            fail(f"phase 15: spec tokens of {rid} differ from (a)'s at "
+                 f"{first}, where the plain path's margin {margin:.4g} >= "
+                 f"{limit}")
+    return report
+
+
+def sync_arms_phase(cfg, dev, params) -> dict:
+    """Phase 15: the reference's synchronous decode arms on the 8B at full
+    width (32 layers, phase 4's seed-0 weights, shared), one engine at a
+    time, each freed before the next (SYNC_ENGINES): the default engine,
+    (a) ``--prefill-token-budget 256`` through the launcher's
+    build_engine_config (pipelined windows with budgeted mixing), (b)
+    ``--spec-decode --spec-tokens 4 --prefill-token-budget 256`` with
+    ``--max-batch-size 8`` (its grid trimmed to the batch the traffic
+    reaches), (c) ``EngineConfig(decode_steps=1, prefill_token_budget=
+    256, max_batch=8)``, built directly (the reference has no flag for
+    it). Each is warmed and serves the same traffic (sync_requests)
+    through its generate; each must capture nothing after warmup, and
+    (a)-(c) dispatch decode work beside a prefill (mixed_dispatches > 0).
+    (b): its verify steps launch the prefill route 32 times each with
+    its prefill chunks, its windows the decode route 32 x K times each,
+    acceptance above 0 on the repeated passage, the sampled and logprobs
+    requests never in a verify step, greedy tokens as (a)'s
+    (:func:`check_spec_tokens`). (c): its single steps launch the decode
+    route 32 times each. Then the single step and the verify step,
+    kernel path against plain path (:func:`check_spec_paths`). Records
+    ITL mean and max and TTFT of each engine."""
+    import dataclasses
+
+    import torch
+
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.ops import paged_attention as ops
+    from dynamo_tpu_torch.run import build_engine_config, parse_args
+
+    L = cfg.num_layers
+    report = {}
+    for name, how, conf in SYNC_ENGINES:
+        if how == "launcher":
+            ecfg = build_engine_config(parse_args(
+                ["in=http", "out=torch", "--model", "8b", *conf]))
+        else:
+            ecfg = dataclasses.replace(EngineConfig(), **conf)
+        t = time.monotonic()
+        engine = TorchEngine(cfg, ecfg, params=params, device="cuda")
+        n_graphs = engine.warmup()
+        warm_s = time.monotonic() - t
+        verified = []  # the requests of every verify step's rows
+        if engine.verify_fn is not None:
+            rid_of = {tuple(ids): rid for rid, ids, *_ in sync_requests()}
+            real = engine._decode_step_spec
+
+            def spy(batch, drafts, real=real):
+                verified.extend(rid_of.get(tuple(s.req.token_ids))
+                                for s in batch)
+                return real(batch, drafts)
+            engine._decode_step_spec = spy
+        ops.reset_launch_counts()
+        t = time.monotonic()
+        got = asyncio.run(sync_traffic(engine))
+        torch.cuda.synchronize()
+        stats = engine.stats()
+        replays = engine.graph_replays()
+        got.update({
+            "warmup_s": warm_s, "graphs": n_graphs,
+            "serve_s": time.monotonic() - t,
+            "post_warmup_compiles_total": stats["post_warmup_compiles_total"],
+            "mixed_dispatches": engine.mixed_dispatches,
+            "graph_replays": replays,
+            "route_launches": dict(ops.DECODE_ROUTE_LAUNCHES),
+            "prefill_route_launches": dict(ops.PREFILL_ROUTE_LAUNCHES),
+            **{k: stats[k] for k in stats if k.startswith("spec_decode")}})
+        log(f"  {name}: warmed {n_graphs} graphs in {warm_s:.1f}s, served in "
+            f"{got['serve_s']:.1f}s; ITL mean {got['itl_mean_ms']:.2f} ms, "
+            f"max {got['itl_max_ms']:.2f} ms; TTFT ms "
+            f"{json.dumps({k: round(v, 1) for k, v in got['ttft_ms'].items()})}"
+            f"; mixed {engine.mixed_dispatches}; replays {json.dumps(replays)}"
+            f"; spec {json.dumps({k: v for k, v in got.items() if k.startswith('spec_decode')})}")
+        if got["post_warmup_compiles_total"] != 0:
+            fail(f"phase 15 {name}: captures after warmup")
+        if name != "default" and engine.mixed_dispatches <= 0:
+            fail(f"phase 15 {name}: no decode dispatched beside a prefill")
+        dec = got["route_launches"]["bf16_mma"]
+        pf = got["prefill_route_launches"]["bf16"]
+        if sum(got["route_launches"].values()) != dec or sum(
+                got["prefill_route_launches"].values()) != pf:
+            fail(f"phase 15 {name}: attention off the 8B's routes: "
+                 f"{json.dumps(got)}")
+        want_dec = (replays["decode_window"] * ecfg.decode_steps
+                    + replays["decode_step"]) * L
+        want_pf = (replays["prefill"] + replays["spec_verify"]) * L
+        if dec != want_dec or pf != want_pf:
+            fail(f"phase 15 {name}: decode launches {dec} != {want_dec} or "
+                 f"prefill launches {pf} != {want_pf} (replays x {L})")
+        if name.startswith("c") and (replays["decode_step"] <= 0
+                                     or replays["decode_window"] != 0):
+            fail(f"phase 15 {name}: not on the single-step arm")
+        if name.startswith("b"):
+            if replays["spec_verify"] <= 0:
+                fail(f"phase 15 {name}: no verify step")
+            if got["spec_decode_acceptance_rate"] <= 0:
+                fail(f"phase 15 {name}: no draft accepted")
+            if {"sampled", "logprobs"} & set(verified):
+                fail(f"phase 15 {name}: a bypass row took a verify step")
+            if "repeat" not in verified:
+                fail(f"phase 15 {name}: the repeated passage was never "
+                     f"verified")
+        for rid, r in got["requests"].items():
+            n = next(m for i, _, m, *_ in sync_requests() if i == rid)
+            if len(r["tokens"]) != n:
+                fail(f"phase 15 {name}: {rid} gave {len(r['tokens'])} of "
+                     f"{n} tokens")
+        report[name] = got
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["spec_tokens_vs_budget"] = check_spec_tokens(
+        params, cfg, dev, report["b spec"], report["a budget"])
+    report["paths"] = check_spec_paths(params, cfg, dev)
+    return report
+
+
+def time_step(kp, vp, ctx, B: int, P: int, H: int, g) -> dict:
+    """The decode kernel in the single-step form the ``decode_steps=1``
+    arm launches (paged_attention_decode_layered, no stats, no window),
+    at rows of ``ctx`` positions (the newest key included) on layer 0 of
+    ``kp``/``vp``: device time (CUDA graph), eager time, its plain
+    version, one SDPA call on the same dense work, and the bound counted
+    from the inputs (decode_work); held to the plain version at the
+    dtype's tolerance."""
+    import torch
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops.paged_attention import (
+        DECODE_ROUTES, _decode_launch_plan, decode_reference, decode_work,
+        paged_attention_decode_layered)
+    from time_attention import decode_case
+
+    dev = kp.device
+    N, KV, ps, hd = kp.shape[1:]
+    q, table, start, _, _, _ = decode_case(kp, vp, ctx, B, P, 1, H, g)
+    ln = start.clamp(min=0).to(torch.int32)
+    lo = torch.zeros_like(ln)
+    dec = lambda: paged_attention_decode_layered(  # noqa: E731
+        q, kp, vp, 0, table, ln)
+    t_k, t_eager = time_ms(dec, iters=50), eager_ms(dec)
+    t_p = time_ms(lambda: decode_reference(q, kp, vp, 0, table, ln, lo,
+                                           hd ** -0.5), iters=5)
+    got, want = dec(), decode_reference(q, kp, vp, 0, table, ln, lo,
+                                        hd ** -0.5)[0]
+    err = max_err(got, want)
+    if excess(got, want, *tolerance(kp.dtype)) > 0:
+        fail(f"single-step decode at {ctx}: max abs err {err:.3g}")
+    S = P * ps
+    kd = kp[0][table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    vd = vp[0][table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    mask = (torch.arange(S, device=dev)[None, :] < ln[:, None])[:, None,
+                                                                 None]
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True), iters=50)
+    live, keys, bytes_ = decode_work(ln, None, None, heads=H, kv_heads=KV,
+                                     head_dim=hd,
+                                     elem_bytes=kp.element_size())
+    flops = 4 * keys * H * hd
+    route, splits = _decode_launch_plan(q, kp, vp, B, P)
+    return {
+        "max_abs_err": err, "decode_route": DECODE_ROUTES[route],
+        "splits": splits, "ms": t_k, "plain_ms": t_p,
+        "bound_ms": max(bytes_ / H100_BYTES_PER_S,
+                        flops / H100_BF16_FLOPS) * 1e3,
+        "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
+                     >= flops / H100_BF16_FLOPS else "operations"),
+        "library_ms": t_lib, "eager_ms": t_eager,
+        "work": {"rows": live, "kv_positions": keys, "bytes": bytes_,
+                 "flops": flops},
+        "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "ps": ps, "P": P,
+                  "pool": list(ctx)}}
+
+
+def time_verify(k0, v0, ctx, B: int, P: int, T: int, H: int, g) -> dict:
+    """The prefill kernel in the verify step's shape: B rows of T = K + 1
+    queries, row b at positions ctx[b] .. ctx[b] + T - 1 (from anywhere
+    in a page; rows past len(ctx) padding), the row's earlier positions
+    in the pool ``k0``/``v0`` [N, KV, ps, hd]: device time (CUDA graph),
+    eager time, its plain version, SDPA on the same work and the bound
+    counted from the inputs (prefill_work); held to the plain version at
+    the dtype's tolerance."""
+    import torch
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import paged_attention as ops
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_attention_prefill, prefill_reference, prefill_work)
+
+    dev = k0.device
+    N, KV, ps, hd = k0.shape
+    el = k0.element_size()
+    used = [-(-(n + T) // ps) for n in ctx]
+    perm = torch.randperm(N - 1, generator=g, device=dev)[:sum(used)] + 1
+    table = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    pos = torch.full((B, T), -1, dtype=torch.int32, device=dev)
+    at = 0
+    for b, (n, u) in enumerate(zip(ctx, used)):
+        table[b, :u] = perm[at:at + u]
+        at += u
+        pos[b] = torch.arange(n, n + T, device=dev)
+    qf = torch.randn(B, T, H, hd, generator=g, device=dev).to(k0.dtype)
+    pf = lambda: paged_attention_prefill(qf, k0, v0, table, pos)  # noqa: E731
+    t_k, t_eager = time_ms(pf, iters=50), eager_ms(pf)
+    scale = hd ** -0.5
+    t_p = time_ms(lambda: prefill_reference(qf, k0, v0, table, pos, scale),
+                  iters=5)
+    got, want = pf(), prefill_reference(qf, k0, v0, table, pos, scale)
+    err = max_err(got, want)
+    if excess(got, want, *tolerance(k0.dtype)) > 0:
+        fail(f"verify-shaped prefill at {ctx}: max abs err {err:.3g}")
+    S = P * ps
+    kd = k0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    vd = v0[table.long()].permute(0, 2, 1, 3, 4).reshape(B, KV, S, hd)
+    qpos = pos[:, :, None].long()
+    kvpos = torch.arange(S, device=dev)[None, None, :]
+    mask = ((kvpos <= qpos) | (qpos < 0))[:, None]
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qf.transpose(1, 2), kd, vd, attn_mask=mask, enable_gqa=True),
+        iters=50)
+    queries, pairs, keys = prefill_work(pos)
+    bytes_ = (2 * keys * KV * hd * el + 2 * queries * H * hd * el
+              + table.numel() * 4 + pos.numel() * 4)
+    flops = 4 * pairs * H * hd
+    return {
+        "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+        "prefill_route": ops.PREFILL_ROUTES[ops.prefill_route(
+            k0.dtype, H, KV, ps, hd)],
+        "bound_ms": max(bytes_ / H100_BYTES_PER_S,
+                        flops / H100_BF16_FLOPS) * 1e3,
+        "bound_by": ("bytes" if bytes_ / H100_BYTES_PER_S
+                     >= flops / H100_BF16_FLOPS else "operations"),
+        "library_ms": t_lib, "eager_ms": t_eager,
+        "work": {"queries": queries, "pairs": pairs, "kv_positions": keys,
+                 "bytes": bytes_, "flops": flops},
+        "shape": {"B": B, "T": T, "starts": list(ctx), "H": H, "KV": KV,
+                  "hd": hd, "ps": ps, "P": P}}
 
 
 # --------------------------------------------------------------- main
@@ -4264,6 +4870,21 @@ def main() -> None:
         f"(tp {', '.join(map(str, TP_SIZES))})")
     local_errs = check_local_shapes(dev)
     local_times = time_local_shapes(dev, engine.ecfg, served)
+
+    log("phase 15: the synchronous decode arms on the 8B (phase 4's "
+        "weights): pipelined budgeted mixing, speculative decoding, "
+        "single-step decode")
+    sync_report = sync_arms_phase(cfg, dev, engine.params)
+    for name, key, n in (
+            ("paged_attention_decode step", "c single step",
+             sync_report["c single step"]["route_launches"]["bf16_mma"]),
+            ("paged_attention_prefill verify", "b spec",
+             sync_report["b spec"]["graph_replays"]["spec_verify"]
+             * cfg.num_layers)):
+        row = next(r for r in rows if r["name"] == name)
+        row["launches"] = n
+        if n <= 0:
+            fail(f"{name}: not launched on its served path ({key})")
     # the tp=1 engine leaves the card before the int8 one and the ranks
     del engine
     gc.collect()
@@ -4323,6 +4944,15 @@ def main() -> None:
         "generic"]
     if gen_row["launches"] <= 0:
         fail(f"{gen_row['name']}: not launched on its served path (phase 14)")
+    wide = generic_report[WIDE_SERVED]
+    for name, n in (("paged_attention_decode generic wide",
+                     wide["route_launches"]["generic"]),
+                    ("paged_attention_prefill generic wide",
+                     wide["prefill_route_launches"]["generic"])):
+        row = next(r for r in rows if r["name"] == name)
+        row["launches"] = n
+        if n <= 0:
+            fail(f"{name}: not launched on its served path (phase 13)")
     # the generic prefill rows take their launches from phase 13's engines
     # (its head_dim 16 or 64, another instantiation than the timed head
     # dim 96: the row's kernel says which shape each number is from)
@@ -4406,6 +5036,7 @@ def main() -> None:
                        "f32_1b": f32_report, "f16_8b": f16_report,
                        "generic_prefill": generic_report,
                        "mistral_large": mistral_report,
+                       "sync_arms": sync_report,
                        "kernels": rows, "int8": int8_report,
                        "int8_gemm_timings": int8_rows,
                        "tp_local_errs": {" ".join(k): v for k, v in

@@ -1,5 +1,7 @@
-"""CUDA graphs of the engine's two dispatches, one per warmed bucket: the
-fused decode window per (B, P) and the prefill chunk per (B, T, P).
+"""CUDA graphs of the engine's dispatches, one per warmed bucket: the
+fused decode window per (B, P), the prefill chunk per (B, T, P), and on
+the synchronous decode arms the single-step decode and the speculative
+verify step per (B, P).
 
 This module plays the part of ``jax.jit``'s executable cache in the JAX
 engine (``dynamo_tpu/engine/jax_engine.py`` ``warmup``, which compiles
@@ -23,6 +25,15 @@ copy-out around the graphs.
   the serving form of its shape, as the JAX engine warms it:
   page-granular commit (``pslots``) when T % page_size == 0, row scatter
   otherwise; the form is part of the key.
+- :class:`StepGraphs`: one decode step (``decode_steps=1``, the JAX
+  engine's ``decode_fn`` and its ``_sample_device``): tokens, positions,
+  write slots, page table and the sampler's inputs packed as a chunk's
+  are; the sampled tokens [B] (and their logprobs) out.
+- :class:`VerifyGraphs`: the verify forward of self-speculative decoding
+  (``models/llama.py make_verify_fn``) and its accept mask
+  (``engine/sampling.py verify_greedy_draft``) in one graph: the [B, K+1]
+  tokens, positions and slots, the table and the drafts packed; out
+  [B, K+1] and accepted [B] out.
 
 A set is one VARIANT of its function, the JAX engine's static
 arguments: a bucket's full key is (variant, shape). A decode variant is
@@ -88,7 +99,8 @@ from ..models.llama import DROP_SLOT
 from ..ops import int8_gemm
 from ..ops import paged_attention as ops
 from .jit_fence import CompileFence
-from .sampling import fill_penalty_state, logprob_aux, sample_tokens
+from .sampling import (fill_penalty_state, logprob_aux, sample_tokens,
+                       verify_greedy_draft)
 
 _COUNTS = (ops.LAUNCHES, ops.DECODE_ROUTE_LAUNCHES,
            ops.PREFILL_ROUTE_LAUNCHES, int8_gemm.INT8_GEMM_LAUNCHES)
@@ -510,7 +522,60 @@ def _host_image(blank: np.ndarray, spans) -> Tuple[np.ndarray,
                  for name, (a, b, shape, dt) in spans.items()}
 
 
-class PrefillGraphs(_GraphSet):
+class _PackedGraphs(_GraphSet):
+    """A graph set whose inputs are one packed int32 device buffer per
+    bucket (``_fields`` lists them for a key), so that a dispatch is one
+    upload of a filled host image and one launch."""
+
+    def __init__(self, device, fence=None, share=None):
+        super().__init__(device, fence, share)
+        self._layouts: Dict[tuple, tuple] = {}
+
+    def _fields(self, key: tuple) -> list:
+        raise NotImplementedError
+
+    def _layout(self, key: tuple):
+        """(spans, blank) of a bucket's packed inputs: each input's word
+        range, shape and dtype, and the host image of padding rows (a
+        launch over them writes nothing to the pool)."""
+        if key not in self._layouts:
+            spans, words = {}, 0
+            for name, shape, dt, _ in self._fields(key):
+                n = int(np.prod(shape)) * dt.itemsize // 4
+                spans[name] = (words, words + n, shape, dt)
+                words += n
+            blank = np.zeros(words, np.int32)
+            for name, _, dt, value in self._fields(key):
+                a, b = spans[name][:2]
+                blank[a:b].view(dt)[:] = value
+            self._layouts[key] = spans, blank
+        return self._layouts[key]
+
+    def host_inputs(self, *key) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """A fresh host image of bucket ``key``'s inputs (padding rows)
+        and numpy views of it by name, without making the bucket: a
+        tensor-parallel rank 0 fills and sends the image before any rank
+        captures a missing bucket."""
+        spans, blank = self._layout(key)
+        return _host_image(blank, spans)
+
+    def _packed(self, key: tuple):
+        """(packed device buffer of padding rows, its views by name,
+        blank, spans) for a new bucket."""
+        spans, blank = self._layout(key)
+        packed = torch.from_numpy(blank.copy()).to(self.device)
+        inputs = {name: packed[a:b].view(_TORCH_DTYPES[dt]).view(shape)
+                  for name, (a, b, shape, dt) in spans.items()}
+        return packed, inputs, blank, spans
+
+    def run(self, bk, img: np.ndarray) -> None:
+        """Upload a filled host image (:meth:`host_inputs`) into the
+        bucket's buffer and launch it."""
+        upload(bk.packed, img)
+        self.launch(bk)
+
+
+class PrefillGraphs(_PackedGraphs):
     """One prefill chunk and its first-token draw per (B, T, P, paged)
     bucket of one variant (with ``logprobs_topn`` > 0 the draw's logprobs
     too): captured CUDA graphs on the card, direct calls on the CPU
@@ -532,7 +597,6 @@ class PrefillGraphs(_GraphSet):
         self.max_top_k = max_top_k
         self.logprobs_topn = logprobs_topn
         self.variant = variant_name(logprobs_topn)
-        self._layouts: Dict[Tuple[int, int, int], tuple] = {}
 
     def _form(self, key: tuple) -> str:
         B, T, P, paged = key
@@ -540,43 +604,16 @@ class PrefillGraphs(_GraphSet):
         return (f"prefill chunk (B={B}, T={T}, P={P}, "
                 f"{'page commit' if paged else 'row scatter'}{extra})")
 
-    def _layout(self, B: int, T: int, P: int):
-        """(spans, blank) of a chunk's packed inputs: each input's word
-        range, shape and dtype, and the host image of padding rows
-        (position -1, dropped slots and pages: a launch over them writes
-        nothing to the pool)."""
-        if (B, T, P) not in self._layouts:
-            layout = _prefill_layout(B, T, P, max(T // self.page_size, 1),
-                                     DROP_SLOT, self.num_pages)
-            spans, words = {}, 0
-            for name, shape, dt, _ in layout:
-                n = int(np.prod(shape)) * dt.itemsize // 4
-                spans[name] = (words, words + n, shape, dt)
-                words += n
-            blank = np.zeros(words, np.int32)
-            for name, _, dt, value in layout:
-                a, b = spans[name][:2]
-                blank[a:b].view(dt)[:] = value
-            self._layouts[(B, T, P)] = spans, blank
-        return self._layouts[(B, T, P)]
-
-    def host_inputs(self, B: int, T: int, P: int, paged: bool
-                    ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
-        """A fresh host image of bucket (B, T, P, paged)'s inputs and
-        numpy views of it by name (:meth:`PrefillBucket.host_inputs`),
-        without making the bucket: a tensor-parallel rank 0 fills and
-        sends the image before any rank captures a missing bucket."""
-        spans, blank = self._layout(B, T, P)
-        return _host_image(blank, spans)
+    def _fields(self, key: tuple) -> list:
+        B, T, P, _ = key
+        return _prefill_layout(B, T, P, max(T // self.page_size, 1),
+                               DROP_SLOT, self.num_pages)
 
     def _new_bucket(self, B: int, T: int, P: int,
                     paged: bool) -> PrefillBucket:
         """Buffers holding padding rows: a launch over them writes nothing
         to the pool."""
-        spans, blank = self._layout(B, T, P)
-        packed = torch.from_numpy(blank.copy()).to(self.device)
-        inputs = {name: packed[a:b].view(_TORCH_DTYPES[dt]).view(shape)
-                  for name, (a, b, shape, dt) in spans.items()}
+        packed, inputs, blank, spans = self._packed((B, T, P, paged))
         return PrefillBucket(B=B, T=T, P=P, paged=paged, packed=packed,
                              inputs=inputs, blank=blank, spans=spans)
 
@@ -594,8 +631,129 @@ class PrefillGraphs(_GraphSet):
         if self.logprobs_topn:
             bk.aux = logprob_aux(bk.logits, bk.sampled, self.logprobs_topn)
 
-    def run(self, bk: PrefillBucket, img: np.ndarray) -> None:
-        """Upload a filled host image (:meth:`PrefillBucket.host_inputs`)
-        into the bucket's buffer and launch it."""
-        upload(bk.packed, img)
-        self.launch(bk)
+
+# ------------------------------------------- the synchronous decode arms
+
+
+@dataclass(eq=False)
+class PackedBucket:
+    """Static buffers of one (B, P) bucket of a :class:`StepGraphs` or
+    :class:`VerifyGraphs` set: ``packed`` holds every input (``inputs``
+    are views of it by name), ``out`` the outputs of the last launch."""
+
+    B: int
+    P: int
+    packed: torch.Tensor
+    inputs: Dict[str, torch.Tensor]
+    blank: np.ndarray
+    spans: Dict[str, Tuple[int, int, Tuple[int, ...], np.dtype]]
+    pen: Optional[tuple] = None     # penalised variants: PenaltyBuffers views
+    out: tuple = ()
+    graph: Optional["torch.cuda.CUDAGraph"] = None
+    counts: List[Dict[str, int]] = field(default_factory=list)
+
+    @property
+    def key(self) -> Tuple[int, int]:
+        return self.B, self.P
+
+
+class StepGraphs(_PackedGraphs):
+    """One decode step (one forward and one draw) per (B, P) bucket of
+    one variant, the window's variants (logprobs width, penalty form):
+    out = (sampled [B]) or, with logprobs, (sampled, lp [B], top_vals
+    [B, n], top_ids [B, n])."""
+
+    kind = "decode step"
+
+    def __init__(self, decode_fn: Callable, params, kv_k: torch.Tensor,
+                 kv_v: torch.Tensor, *, max_top_k: int,
+                 logprobs_topn: int = 0, penalty_form: int = PEN_NONE,
+                 penalty_buffers: Optional[PenaltyBuffers] = None,
+                 fence: Optional[CompileFence] = None,
+                 share: Optional[_GraphSet] = None):
+        super().__init__(kv_k.device, fence, share)
+        if penalty_form != PEN_NONE and penalty_buffers is None:
+            raise ValueError("a penalised variant needs PenaltyBuffers")
+        self.decode_fn = decode_fn
+        self.params = params
+        self.kv_k, self.kv_v = kv_k, kv_v
+        self.max_top_k = max_top_k
+        self.logprobs_topn = logprobs_topn
+        self.penalty_form = penalty_form
+        self.penalty_buffers = penalty_buffers
+        self.variant = variant_name(logprobs_topn, penalty_form)
+
+    def _form(self, key: tuple) -> str:
+        extra = "" if self.variant == "plain" else f", {self.variant}"
+        return f"decode step (B={key[0]}, P={key[1]}{extra})"
+
+    def _fields(self, key: tuple) -> list:
+        B, P = key
+        i32, f32 = np.dtype(np.int32), np.dtype(np.float32)
+        return [("seeds", (B,), np.dtype(np.int64), 0),
+                ("temperature", (B,), f32, 0.0), ("top_p", (B,), f32, 1.0),
+                ("top_k", (B,), i32, 0), ("steps", (B,), i32, 0),
+                ("tokens", (B,), i32, 0), ("positions", (B,), i32, -1),
+                ("slots", (B,), i32, DROP_SLOT), ("table", (B, P), i32, 0)]
+
+    def _new_bucket(self, B: int, P: int) -> PackedBucket:
+        packed, inputs, blank, spans = self._packed((B, P))
+        return PackedBucket(
+            B=B, P=P, packed=packed, inputs=inputs, blank=blank, spans=spans,
+            pen=(self.penalty_buffers.penalties(B)
+                 if self.penalty_form != PEN_NONE else None))
+
+    def _call(self, bk: PackedBucket) -> None:
+        f = bk.inputs
+        logits, _, _ = self.decode_fn(
+            self.params, f["tokens"], f["positions"], self.kv_k, self.kv_v,
+            f["table"], f["slots"])
+        sampled = sample_tokens(logits, f["temperature"], f["top_k"],
+                                f["top_p"], f["seeds"], f["steps"],
+                                max_top_k=self.max_top_k, penalties=bk.pen)
+        bk.out = (sampled,) + (
+            logprob_aux(logits, sampled, self.logprobs_topn)
+            if self.logprobs_topn else ())
+
+
+class VerifyGraphs(_PackedGraphs):
+    """The verify forward of ``spec_tokens`` = K drafts and its accept
+    mask per (B, P) bucket: out = (tokens [B, K+1], accepted [B])."""
+
+    kind = "spec verify"
+    variant = "plain"
+
+    def __init__(self, verify_fn: Callable, params, kv_k: torch.Tensor,
+                 kv_v: torch.Tensor, *, spec_tokens: int,
+                 fence: Optional[CompileFence] = None,
+                 share: Optional[_GraphSet] = None):
+        super().__init__(kv_k.device, fence, share)
+        self.verify_fn = verify_fn
+        self.params = params
+        self.kv_k, self.kv_v = kv_k, kv_v
+        self.spec_tokens = spec_tokens
+
+    def _form(self, key: tuple) -> str:
+        return (f"spec verify (B={key[0]}, P={key[1]}, "
+                f"K={self.spec_tokens})")
+
+    def _fields(self, key: tuple) -> list:
+        B, P = key
+        K, i32 = self.spec_tokens, np.dtype(np.int32)
+        return [("tokens", (B, K + 1), i32, 0),
+                ("positions", (B, K + 1), i32, -1),
+                ("slots", (B, K + 1), i32, DROP_SLOT),
+                ("table", (B, P), i32, 0), ("draft", (B, K), i32, 0),
+                ("draft_len", (B,), i32, 0)]
+
+    def _new_bucket(self, B: int, P: int) -> PackedBucket:
+        packed, inputs, blank, spans = self._packed((B, P))
+        return PackedBucket(B=B, P=P, packed=packed, inputs=inputs,
+                            blank=blank, spans=spans)
+
+    def _call(self, bk: PackedBucket) -> None:
+        f = bk.inputs
+        logits, _, _ = self.verify_fn(
+            self.params, f["tokens"], f["positions"], self.kv_k, self.kv_v,
+            f["table"], f["slots"])
+        bk.out = verify_greedy_draft(logits, f["draft"], f["draft_len"])

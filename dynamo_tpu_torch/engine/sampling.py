@@ -240,3 +240,35 @@ def logprob_aux(logits: torch.Tensor, chosen: torch.Tensor, topn: int):
     tv, ti = torch.topk(logp, topn)
     return (logp.gather(1, chosen.long()[:, None])[:, 0], tv,
             ti.to(torch.int32))
+
+
+@torch.no_grad()
+def verify_greedy_draft(logits: torch.Tensor, draft: torch.Tensor,
+                        draft_len: torch.Tensor):
+    """Accept mask and bonus token of self-speculative decoding (greedy
+    rows only), the JAX package's ``verify_greedy_draft`` as fixed-shape
+    ops. logits: [B, K+1, V] from the verify forward (position j predicts
+    the token after input j: input 0 is the row's pending decode token,
+    inputs 1..K the draft); draft: [B, K]; draft_len: [B] valid drafts a
+    row. The greedy target is :func:`sample_tokens`' greedy arm,
+    ``torch.argmax`` (the first index of the maximum, as ``lax.top_k``
+    gives), so speculation on or off gives the same tokens, ties
+    included. Returns (out [B, K+1] int32: the accepted draft prefix, the
+    bonus token, then -1; accepted [B] int32)."""
+    B, K1, _ = logits.shape
+    K = K1 - 1
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)      # [B, K+1]
+    steps = torch.arange(K1, device=logits.device)[None, :]
+    match = (draft.to(torch.int32) == greedy[:, :K]) & (
+        steps[:, :K] < draft_len.long()[:, None])
+    # the longest all-true prefix: cumprod zeroes everything past a miss
+    accepted = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+    bonus = torch.gather(greedy, 1, accepted.long()[:, None])
+    draft_ext = torch.cat([draft.to(torch.int32),
+                           torch.zeros((B, 1), dtype=torch.int32,
+                                       device=logits.device)], dim=1)
+    acc = accepted[:, None]
+    out = torch.where(steps < acc, draft_ext,
+                      torch.where(steps == acc, bonus,
+                                  torch.full_like(draft_ext, -1)))
+    return out.to(torch.int32), accepted.to(torch.int32)

@@ -9,7 +9,15 @@ behind ``Backend`` the same way:
   single worker thread: a chunked prefill over a batch of prompts
   (prefill priority) or — once nothing is left to prefill — a fused
   K-step decode window over every running sequence, then admission
-  (``admit_in_step``);
+  (``admit_in_step``). The JAX engine's other arms as it has them
+  (``_step``): ``prefill_token_budget`` dispatches a window AND a prefill
+  batch trimmed to about that many prompt tokens every iteration
+  (budgeted mixing, counted in ``mixed_dispatches``; ``prefill_priority
+  =False`` the same untrimmed); ``decode_steps=1`` decodes one token a
+  dispatch, synchronously (``_decode_step_single``); ``spec_decode``
+  verifies prompt-lookup drafts (``engine/spec_decode.py``) of greedy
+  rows in one [B, K+1] forward a step, the other rows taking a window
+  or a single step seeded from host state (``_step_spec``);
 - decode windows are pipelined (``pipeline_decode``, the JAX default):
   window N+1 is dispatched before window N is read back, and rows
   carried over take their state from window N's device carry
@@ -19,7 +27,9 @@ behind ``Backend`` the same way:
 - each decode window is one replay of a CUDA graph captured for its
   (batch, page) bucket, and each prefill chunk, its first-token draw
   included, one replay of the graph of its (batch, chunk length, page)
-  bucket (``engine/cuda_graphs.py``), in the variant the batch needs
+  bucket (``engine/cuda_graphs.py``), a single decode step and a verify
+  step (with its accept mask) each one replay of its (batch, page)
+  bucket's graph, in the variant the batch needs
   (one graph set per variant, the JAX window's static arguments): the
   logprobs width (0, or ``max_top_logprobs`` when a row asks for
   logprobs) and, for decode, the penalty form (none, or the penalty
@@ -67,8 +77,8 @@ behind ``Backend`` the same way:
   carry, which equals rank 0's: every rank samples the same tokens from
   the same gathered logits.
 
-Not ported yet: the host KV tier, speculative decoding, disaggregation,
-long-prompt ring prefill and budgeted prefill mixing.
+Not ported yet: the host KV tier, disaggregation and long-prompt ring
+prefill.
 """
 
 from __future__ import annotations
@@ -91,25 +101,28 @@ from ..llm.protocols.common import (FINISH_CANCELLED, FINISH_EOS,
 from ..models.config import ModelConfig
 from ..models.llama import (KVCacheSpec, check_supported, init_kv_cache,
                             init_params, make_decode_window_fn,
-                            make_step_fns)
+                            make_step_fns, make_verify_fn)
 from ..models.quant import QUANT_KEYS, quantize_int8, quantize_params
 from ..parallel.mesh import MeshView, quantize_shard, shard_param
 from ..runtime.device import resolve_device
 from ..runtime.engine import Context
 from ..runtime.slo import LatencyRecorder
 from .cuda_graphs import (PEN_FULL, PEN_NONE, DecodeGraphs,
-                          PenaltyBuffers, PrefillGraphs, to_host, upload)
+                          PenaltyBuffers, PrefillGraphs, StepGraphs,
+                          VerifyGraphs, to_host, upload)
 from .jit_fence import CompileFence
 from .kv_manager import ChainHashCache, PageManager
 from .profiler import EngineProfiler, memory_snapshot
 from .sampling import SamplingBatch, logprob_aux, sample_tokens
+from .spec_decode import propose_ngram_draft
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
 # tensor parallel: rank 0's messages to the followers, each an int64
 # header [kind, payload words, bucket key, variant and flags ...] then,
-# when it has one, an int32 payload (engine docstring)
-_STOP, _PREFILL, _DECODE = 0, 1, 2
+# when it has one, an int32 payload (engine docstring): a prefill chunk,
+# a decode window, a single decode step, a verify step
+_STOP, _PREFILL, _DECODE, _STEP, _VERIFY = 0, 1, 2, 3, 4
 _HEADER_WORDS = 13
 
 
@@ -139,7 +152,7 @@ class EngineConfig:
     max_top_k: int = 64
     max_prefill_batch: int = 8  # prompts packed per prefill dispatch
     # fused decode window: K decode+sample steps per dispatch, stop
-    # conditions on device
+    # conditions on device; 1 decodes one token a dispatch, synchronously
     decode_steps: int = 4
     # pipelined dispatch: window N+1 (and the next prefill batch) are
     # enqueued BEFORE window N's tokens are read back; the device-side
@@ -149,6 +162,23 @@ class EngineConfig:
     # cancelled or cache-covered) dispatch a decode window instead of
     # idling the device
     overlap_idle_prefill: bool = True
+    # prefill priority: iterations with prompts to prefill skip the
+    # decode window (False: a window every iteration beside the prefill)
+    prefill_priority: bool = True
+    # budgeted mixing: every iteration dispatches a decode window AND a
+    # prefill batch trimmed to about this many prompt tokens (the head
+    # always ships), so a burst of long prompts cannot starve running
+    # decodes; None keeps prefill priority. Overrides prefill_priority
+    prefill_token_budget: Optional[int] = None
+    # self-speculative decoding: a host prompt-lookup drafter proposes up
+    # to spec_tokens tokens a greedy row, ONE [B, spec_tokens + 1] verify
+    # forward checks them, the longest matching prefix plus a bonus token
+    # is kept; the decode arm then runs synchronously. Sampled, penalised,
+    # logit_bias and logprobs rows bypass speculation
+    spec_decode: bool = False
+    spec_tokens: int = 4      # K: drafts verified a step at most
+    spec_ngram_max: int = 4   # longest suffix n-gram the drafter matches
+    spec_ngram_min: int = 1   # shortest n-gram worth matching
     # reuse the uploaded sampler params / page table / stop table while
     # the batch composition is unchanged (freezes the build-time seeds of
     # unseeded sampled rows for the cached span, as in the JAX engine)
@@ -188,6 +218,10 @@ class EngineConfig:
                 f"prefill_chunk ({self.prefill_chunk}) must be a multiple "
                 f"of page_size ({self.page_size}): chunk starts must stay "
                 f"page-aligned for the page-granular KV commit")
+        if self.spec_decode and self.spec_tokens < 1:
+            raise ValueError(
+                f"spec_tokens ({self.spec_tokens}) must be >= 1 when "
+                f"spec_decode is enabled")
 
     @staticmethod
     def _pick(buckets: Tuple[int, ...], n: int) -> int:
@@ -300,15 +334,14 @@ class _PendingWindow:
     of (toks [B, K], emitted [B], done [B]) and, in a logprobs variant,
     of its aux (lp [B, K], top_vals [B, K, n], top_ids [B, K, n]), valid
     once ``event`` has completed; ``carry`` is the window's device carry
-    (the graph's static outputs: valid until that bucket's next
-    launch)."""
+    (the engine's carry stash: valid until the next window's launch)."""
 
     batch: List[Sequence]
     host: List[torch.Tensor]
     event: Optional[torch.cuda.Event]
     carry: tuple                    # (tok, pos, done, steps, remaining)
     index: Dict[int, int] = field(default_factory=dict)  # id(seq) → row
-    # the bucket whose outputs hold carry: (B, P, logprobs_topn, form)
+    # the window's bucket: (B, P, logprobs_topn, form)
     key: Tuple[int, int, int, int] = (0, 0, 0, 0)
     processed: bool = False
 
@@ -354,14 +387,21 @@ def _pack_sampler(samp: tuple) -> np.ndarray:
                            for a in samp])
 
 
+def _penalty_layout(B: int, NB: int) -> list:
+    """The penalty arguments' arrays (rep, freq, pres, the logit_bias
+    entries' (row, id) pairs and values), NB = the logit_bias entries."""
+    f32 = np.float32
+    return [((B,), f32), ((B,), f32), ((B,), f32), ((2, NB), np.int32),
+            ((NB,), f32)]
+
+
 def _sampler_layout(B: int, P: int, E: int, form: int, NB: int) -> list:
     """:func:`_pack_sampler`'s arrays, NB = the logit_bias entries."""
     f32 = np.float32
     layout = [((B, P), np.int32), ((B, E), np.int32), ((B,), f32),
               ((B,), np.int32), ((B,), f32), ((B,), np.int64)]
     if form != PEN_NONE:
-        layout += [((B,), f32), ((B,), f32), ((B,), f32),
-                   ((2, NB), np.int32), ((NB,), f32)]
+        layout += _penalty_layout(B, NB)
     return layout
 
 
@@ -435,10 +475,11 @@ class TorchEngine:
         spec = KVCacheSpec(self.ecfg.num_pages, self.ecfg.page_size)
         self.kv_k, self.kv_v = init_kv_cache(model_cfg, spec,
                                              device=self.device, mesh=mesh)
-        # the engine decodes in fused windows only (no K=1 decode steps)
-        self.prefill_fn, _ = make_step_fns(model_cfg, mesh=mesh)
+        self.prefill_fn, self.decode_fn = make_step_fns(model_cfg, mesh=mesh)
         self.decode_multi_fn = make_decode_window_fn(
             model_cfg, max_top_k=self.ecfg.max_top_k, mesh=mesh)
+        self.verify_fn = (make_verify_fn(model_cfg, mesh=mesh)
+                          if self.ecfg.spec_decode else None)
         # capture fence (armed by warmup) and the graphs per bucket, one
         # set per variant: decode windows, and prefill chunks, all on the
         # plain decode set's stream and pool
@@ -457,7 +498,24 @@ class TorchEngine:
             (0, PEN_NONE): self.graphs}
         self.prefill_variants: Dict[int, PrefillGraphs] = {
             0: self.prefill_graphs}
+        # the synchronous arms: (logprobs_topn, penalty form) → single
+        # decode step set; the verify set (spec_decode)
+        self.step_variants: Dict[Tuple[int, int], StepGraphs] = {}
+        self.verify_graphs = (
+            VerifyGraphs(self.verify_fn, self.params, self.kv_k, self.kv_v,
+                         spec_tokens=self.ecfg.spec_tokens,
+                         fence=self.fence, share=self.graphs)
+            if self.verify_fn is not None else None)
         self.penalty_buffers: Optional[PenaltyBuffers] = None
+        # a dispatched window's carry, copied out of the graph pool right
+        # after its launch: another bucket's replay before the next
+        # window's merge (budgeted mixing dispatches a prefill chunk
+        # between them) may reuse the pool memory of its static outputs
+        rows = self.ecfg.bucket_batch(self.ecfg.max_batch)
+        self._carry_stash = tuple(
+            torch.zeros(rows, dtype=dt, device=self.device)
+            for dt in (torch.int32, torch.int32, torch.bool, torch.int32,
+                       torch.int32))
         # sampled host/device split per bucket (sample=0: one compare per
         # iteration, no sync) and the latency histograms
         self.profiler = EngineProfiler(f"torch-engine-{id(self):x}",
@@ -499,6 +557,12 @@ class TorchEngine:
         self.decode_tokens_total = 0
         self.prefix_hit_tokens_total = 0
         self.prompt_tokens_total = 0
+        # iterations that dispatched decode work beside a prefill batch
+        # (the JAX engine's attribute; its stats() carries no such key)
+        self.mixed_dispatches = 0
+        self.spec_steps = 0
+        self.spec_draft_tokens_total = 0
+        self.spec_accepted_tokens_total = 0
 
     # ---------------------------------------------------------- lifecycle
 
@@ -509,7 +573,10 @@ class TorchEngine:
         chunk length: page-granular commit when it is a multiple of the
         page size) in each, every bucket after an eager warm call over
         padding rows, so nothing is written to the pool; then arm the
-        capture fence. The variants, as the JAX engine warms them: the
+        capture fence. The decode grid is of windows, or with
+        ``decode_steps=1`` of single decode steps, and with
+        ``spec_decode`` also of verify steps (``jax_engine.py`` warmup).
+        The variants, as the JAX engine warms them: the
         plain one always, the logprobs one with ``warmup_logprobs``, the
         penalised one with ``warmup_penalties``; one variant
         at a time, so each set's ``pool_bytes`` is what it added to the
@@ -525,7 +592,10 @@ class TorchEngine:
         if ecfg.warmup_logprobs and ecfg.max_top_logprobs > 0:
             topns.append(ecfg.max_top_logprobs)
         forms = [PEN_NONE] + ([PEN_FULL] if ecfg.warmup_penalties else [])
-        sets = [self.decode_set(n, f) for f in forms for n in topns]
+        make = self.decode_set if ecfg.decode_steps > 1 else self.step_set
+        sets = [make(n, f) for f in forms for n in topns]
+        if self.verify_graphs is not None:
+            sets.append(self.verify_graphs)
         for gs in sets:
             gs.capture(decode)
         psets = [self.prefill_set(n) for n in topns]
@@ -560,6 +630,22 @@ class TorchEngine:
             self.decode_variants[(topn, form)] = gs
         return gs
 
+    def step_set(self, topn: int, form: int) -> StepGraphs:
+        """The single decode step's graph set of variant (logprobs width,
+        penalty form), made on first use over the plain set's stream and
+        pool."""
+        gs = self.step_variants.get((topn, form))
+        if gs is None:
+            gs = StepGraphs(
+                self.decode_fn, self.params, self.kv_k, self.kv_v,
+                max_top_k=self.ecfg.max_top_k, logprobs_topn=topn,
+                penalty_form=form,
+                penalty_buffers=(self.penalties()
+                                 if form != PEN_NONE else None),
+                fence=self.fence, share=self.graphs)
+            self.step_variants[(topn, form)] = gs
+        return gs
+
     def penalties(self) -> PenaltyBuffers:
         """The shared penalty buffers, made on first use."""
         if self.penalty_buffers is None:
@@ -587,15 +673,24 @@ class TorchEngine:
         return {"prefill": sum(gs.replays
                                for gs in self.prefill_variants.values()),
                 "decode_window": sum(gs.replays
-                                     for gs in self.decode_variants.values())}
+                                     for gs in self.decode_variants.values()),
+                "decode_step": sum(gs.replays
+                                   for gs in self.step_variants.values()),
+                "spec_verify": (self.verify_graphs.replays
+                                if self.verify_graphs is not None else 0)}
+
+    def _graph_sets(self) -> list:
+        return (list(self.decode_variants.values())
+                + list(self.prefill_variants.values())
+                + list(self.step_variants.values())
+                + ([self.verify_graphs] if self.verify_graphs is not None
+                   else []))
 
     def graph_pool_mib(self) -> Dict[str, float]:
         """MiB of the shared graph pool each graph set added while it
         captured, by kind and variant."""
-        sets = list(self.decode_variants.values()) + list(
-            self.prefill_variants.values())
         return {f"{gs.kind}, {gs.variant}": gs.pool_bytes / 2**20
-                for gs in sets}
+                for gs in self._graph_sets()}
 
     def start(self) -> None:
         if self._loop_task is None:
@@ -688,9 +783,28 @@ class TorchEngine:
                         ids = payload[at:at + B * C].reshape(B, C)
                         self.penalty_buffers.fill(
                             B, ids, payload[at + B * C:at + B * C + B])
-                    prev = (self.decode_variants[(ptopn, pform)]
-                            .buckets[(pB, pP)].carry if pB else None)
-                    self._launch_window(gs, bk, rows, prev)
+                    self._launch_window(gs, bk, rows,
+                                        self._stashed_carry(pB) if pB
+                                        else None)
+                elif kind == _STEP:
+                    B, P, topn, form, C, NB = header[1:7]
+                    gs = self.step_set(topn, form)
+                    bk = gs.bucket(B, P)
+                    at = bk.packed.numel()
+                    if form != PEN_NONE:
+                        arrays, n = _unpack_sampler(
+                            payload[at:], _penalty_layout(B, NB))
+                        self.penalty_buffers.upload(B, *arrays)
+                        at += n
+                    if C:
+                        self.penalty_buffers.fill(
+                            B, payload[at:at + B * C].reshape(B, C),
+                            payload[at + B * C:at + B * C + B])
+                    gs.run(bk, payload[:bk.packed.numel()])
+                elif kind == _VERIFY:
+                    B, P = header[1:3]
+                    gs = self.verify_graphs
+                    gs.run(gs.bucket(B, P), payload)
                 else:
                     raise RuntimeError(f"unknown dispatch kind {kind}")
                 self.batch_dispatches_total += 1
@@ -751,6 +865,18 @@ class TorchEngine:
             "profiled_steps_total": self.profiler.profiled_steps,
             "bucket_cost": self.profiler.cost_table(),
             "memory": memory_snapshot(self.pm, self._page_bytes),
+            # speculative decoding: acceptance rate = accepted / drafted;
+            # mean accepted length = accepted drafts a verify step (each
+            # step also emits its bonus token)
+            "spec_decode_steps": self.spec_steps,
+            "spec_decode_draft_tokens_total": self.spec_draft_tokens_total,
+            "spec_decode_accepted_tokens_total":
+                self.spec_accepted_tokens_total,
+            "spec_decode_acceptance_rate":
+                (self.spec_accepted_tokens_total /
+                 max(self.spec_draft_tokens_total, 1)),
+            "spec_decode_mean_accepted_len":
+                (self.spec_accepted_tokens_total / max(self.spec_steps, 1)),
         }
 
     # ------------------------------------------------------- scheduler loop
@@ -788,28 +914,45 @@ class TorchEngine:
             log.exception("pipeline flush on stop failed")
 
     def _step(self) -> None:
-        """One scheduler iteration (executor thread), prefill priority.
-        Pipelined mode enqueues the next decode window or prefill chunk
-        BEFORE reading back the previous ones, so the host's bookkeeping
-        overlaps the device; unpipelined mode reads each dispatch back
-        before the next."""
+        """One scheduler iteration (executor thread), in the arms of the
+        JAX engine's ``_step``: the spec arm (``spec_decode``), the
+        synchronous single-step arm (``decode_steps <= 1``), the
+        unpipelined windows, and the pipelined ones, which enqueue the
+        next decode window or prefill chunk BEFORE reading back the
+        previous ones, so the host's bookkeeping overlaps the device. The
+        unpipelined arms read each dispatch back before the next. With a
+        ``prefill_token_budget`` every arm also dispatches decode work
+        beside a prefill batch trimmed to the budget (``prefill_priority
+        =False``: beside an untrimmed one)."""
         self.profiler.tick()  # one compare at sample=0
-        if not self.ecfg.pipeline_decode:
+        budget = self.ecfg.prefill_token_budget
+        mix = budget is not None or not self.ecfg.prefill_priority
+        if self.verify_fn is not None:
+            if self.ecfg.admit_in_step:
+                self._admit_in_step()
+            self._step_spec()
+            return
+        if self.ecfg.decode_steps <= 1 or not self.ecfg.pipeline_decode:
             if self.ecfg.admit_in_step:
                 self._admit_in_step()
             if self.prefilling:
-                pf = self._dispatch_prefill()
+                pf = self._dispatch_prefill(budget)
                 if pf is not None:
                     self._process_prefill(pf)
-            if self.running and not self.prefilling:
-                pend = self._dispatch_decode_window()
-                if pend is not None:
-                    self._process_window(pend)
+            if self.running and (mix or not self.prefilling):
+                if mix and self.prefilling:
+                    self.mixed_dispatches += 1
+                if self.ecfg.decode_steps <= 1:
+                    self._decode_step_single()
+                else:
+                    pend = self._dispatch_decode_window()
+                    if pend is not None:
+                        self._process_window(pend)
             self._drain_deferred()
             return
         prev = self._pending
         prev_pf = self._pending_prefill
-        if self.prefilling:
+        if self.prefilling and not mix:
             # prefill-priority: prompt batches drain at full cadence; when
             # the sweep dispatches nothing, fill the bubble with a decode
             # window (overlap_idle_prefill)
@@ -820,8 +963,13 @@ class TorchEngine:
             else:
                 self._pending = None
         else:
+            # budgeted mixing (or prefill_priority off): decode windows
+            # keep their cadence while prompts prefill
             self._pending = self._dispatch_decode_window()
-            self._pending_prefill = None
+            self._pending_prefill = self._dispatch_prefill(budget)
+            if (self._pending is not None
+                    and self._pending_prefill is not None):
+                self.mixed_dispatches += 1
         if self.ecfg.admit_in_step:
             # admission lands AFTER the dispatches: its host work overlaps
             # the in-flight window; admitted sequences enter prefilling
@@ -937,11 +1085,14 @@ class TorchEngine:
 
     # ------------------------------------------------------------- prefill
 
-    def _dispatch_prefill(self) -> Optional[_PendingPrefill]:
+    def _dispatch_prefill(self, token_budget: Optional[int] = None
+                          ) -> Optional[_PendingPrefill]:
         """Enqueue one chunked-prefill step over a BATCH of prefilling
         sequences (each contributes its next chunk) without reading back;
         rows that complete their prompt draw their first token on the
-        device. None when nothing was dispatched."""
+        device. ``token_budget`` trims the batch to about that many
+        prompt tokens (the head always ships whole, so chunk starts stay
+        page-aligned). None when nothing was dispatched."""
         candidates: List[Sequence] = []
         for seq in list(self.prefilling):
             if seq.context.stopped:
@@ -971,6 +1122,15 @@ class TorchEngine:
         batch = [head] + mates + [s for s in candidates[1:]
                                   if s not in mates and tbucket(s) < hb]
         batch = batch[:ecfg.max_prefill_batch]
+        if token_budget is not None:
+            kept, total = [], 0
+            for s in batch:
+                c = min(s.prefill_extent - s.computed, ecfg.prefill_chunk)
+                if kept and total + c > token_budget:
+                    break
+                kept.append(s)
+                total += c
+            batch = kept
         chunks = [min(s.prefill_extent - s.computed, ecfg.prefill_chunk)
                   for s in batch]
         B = ecfg.prefill_bucket_batch(len(batch))
@@ -1129,17 +1289,28 @@ class TorchEngine:
                 if victim is seq:
                     break
 
-    def _dispatch_decode_window(self) -> Optional[_PendingWindow]:
+    def _dispatch_decode_window(self, batch: Optional[List[Sequence]] = None
+                                ) -> Optional[_PendingWindow]:
         """Enqueue the next fused K-step decode window (one graph replay)
         WITHOUT reading back. Rows carried over from the in-flight window
         take their (token, position, done, step, budget) state from its
-        device carry; newly admitted rows are seeded from host state."""
+        device carry; newly admitted rows are seeded from host state.
+        ``batch`` restricts the window to a subset of running rows (the
+        spec arm's bypass rows, cancellations already swept), every row
+        seeded from host state: the spec arm reads each window back
+        before its next dispatch, and a row's last verify step moved its
+        host state past any window carry."""
         ecfg = self.ecfg
         K = ecfg.decode_steps
-        for seq in list(self.running):
-            if seq.context.stopped:
-                self._terminate(seq, _cancel_reason(seq.context))
-        batch = [s for s in self.running if s.finished is None]
+        carried = batch is None
+        if carried:
+            for seq in list(self.running):
+                if seq.context.stopped:
+                    self._terminate(seq, _cancel_reason(seq.context))
+            batch = [s for s in self.running if s.finished is None]
+        else:
+            batch = [s for s in batch
+                     if s.finished is None and not s.context.stopped]
         batch = batch[:ecfg.max_batch]
         if not batch:
             return None
@@ -1151,7 +1322,8 @@ class TorchEngine:
                  if s.finished is None and not s.context.stopped]
         if not batch:
             return None
-        prev = self._pending  # None if _grow_or_preempt flushed
+        # None if _grow_or_preempt flushed
+        prev = self._pending if carried else None
         # sampling penalties need ACCURATE host token lists (the state is
         # rebuilt from seq.tokens each dispatch): land the in-flight
         # window first, trading the pipelining overlap away only for
@@ -1231,13 +1403,13 @@ class TorchEngine:
         pt0 = self.profiler.begin()
         self._launch_window(gs, bk, rows,
                             prev.carry if prev is not None else None)
-        host, event = to_host(bk.toks, bk.emitted, bk.carry[2],
+        host, event = to_host(bk.toks, bk.emitted, self._carry_stash[2][:B],
                               *(bk.aux or ()))
         self.profiler.end(pt0, "decode_window", (B, P, K),
                           tokens=len(batch) * K, drain=True)
         self.batch_dispatches_total += 1
         pend = _PendingWindow(batch=list(batch), host=host, event=event,
-                              carry=bk.carry,
+                              carry=self._stashed_carry(B),
                               index={id(s): i for i, s in enumerate(batch)},
                               key=(B, P, topn, form))
         self._inflight.append(pend)
@@ -1254,12 +1426,19 @@ class TorchEngine:
         if bk.pen is not None:
             self.penalty_buffers.upload(bk.B, *samp[len(dsts):])
 
+    def _stashed_carry(self, B: int) -> tuple:
+        """The last window's carry (its first B rows), as
+        :meth:`_launch_window` copied it out of the graph pool."""
+        return tuple(t[:B] for t in self._carry_stash)
+
     def _launch_window(self, gs: DecodeGraphs, bk, rows: np.ndarray,
                        prev_carry: Optional[tuple]) -> None:
         """Upload a window's host rows (tok, pos, steps, remaining, src,
         from_carry) and launch it: rows carried over from the previous
         window take their state from ``prev_carry`` (:func:`_merge_carry`),
-        the others from the rows."""
+        the others from the rows. The window's carry then goes to the
+        stash (:meth:`_stashed_carry`), the next window's ``prev_carry``,
+        in stream order before any other replay."""
         upload(bk.rows, rows)
         n_tok, n_pos, n_steps, n_rem, src, from_carry = bk.rows
         if prev_carry is not None:
@@ -1271,6 +1450,8 @@ class TorchEngine:
                 dst.copy_(new)
             bk.done.zero_()
         gs.launch(bk)
+        for dst, c in zip(self._stashed_carry(bk.B), bk.carry):
+            dst.copy_(c)
 
     def _process_window(self, pend: _PendingWindow) -> None:
         """Read back a dispatched window's tokens (waits on its own event
@@ -1348,6 +1529,206 @@ class TorchEngine:
         elif (seq.generated >= seq.max_new()
               or len(seq.tokens) >= self.cap_tokens):
             self._terminate(seq, FINISH_LENGTH)
+
+    # ------------------------------------------- the synchronous decode arms
+
+    def _decode_step_single(self, batch: Optional[List[Sequence]] = None
+                            ) -> None:
+        """One decode step (one graph replay: the forward at T = 1 and
+        the draw) over every running row, or over ``batch`` (the spec
+        arm's bypass rows), read back at once (``jax_engine.py``
+        ``_decode_step_single``)."""
+        ecfg = self.ecfg
+        if batch is None:
+            batch = [s for s in self.running if s.finished is None]
+        batch = batch[:ecfg.max_batch]
+        for seq in list(batch):
+            if seq.context.stopped:
+                batch.remove(seq)
+                self._terminate(seq, _cancel_reason(seq.context))
+        self._grow_or_preempt(batch, 1)
+        if not batch:
+            return
+        B = ecfg.bucket_batch(len(batch))
+        P = ecfg.bucket_pages(max(len(s.pages) for s in batch))
+        ps = ecfg.page_size
+        topn = ecfg.max_top_logprobs if self._wants_logprobs(batch) else 0
+        form = self._penalty_form(batch)
+        gs = self.step_set(topn, form)
+        img, f = gs.host_inputs(B, P)
+        sb = SamplingBatch.build([s.req.sampling for s in batch], B)
+        f["temperature"][:] = sb.temperature
+        f["top_k"][:] = sb.top_k
+        f["top_p"][:] = sb.top_p
+        f["seeds"][:] = sb.seeds
+        for i, seq in enumerate(batch):
+            pos = len(seq.tokens) - 1  # position of last_token
+            f["tokens"][i] = seq.last_token
+            f["positions"][i] = pos
+            f["steps"][i] = seq.generated
+            f["table"][i, :len(seq.pages)] = seq.pages
+            f["slots"][i] = seq.pages[pos // ps] * ps + pos % ps
+        pen = state = None
+        if form != PEN_NONE:
+            pen = self._penalty_args(batch, sb, B)
+            if sb.has_penalties:
+                state = self._penalty_state(batch, B)
+        if self._leads:
+            parts = [img]
+            if pen is not None:
+                parts.append(_pack_sampler(pen))
+            if state is not None:
+                parts += [state[0].reshape(-1), state[1]]
+            self._announce([_STEP, B, P, topn, form,
+                            state[0].shape[1] if state is not None else 0,
+                            pen[-1].size if pen is not None else 0],
+                           np.concatenate(parts))
+        bk = gs.bucket(B, P)
+        if pen is not None:
+            self.penalty_buffers.upload(B, *pen)
+            if state is not None:
+                self.penalty_buffers.fill(B, *state)
+            # the buffers no longer hold the last window's uploads
+            self._samp_cache = None
+        pt0 = self.profiler.begin()
+        gs.run(bk, img)
+        (sampled, *aux), event = to_host(*bk.out)
+        self.profiler.end(pt0, "decode", (B, P), tokens=len(batch),
+                          drain=True)
+        self.batch_dispatches_total += 1
+        if event is not None:
+            event.synchronize()
+        toks = sampled.numpy()
+        aux = tuple(a.numpy() for a in aux) or None
+        self.decode_tokens_total += len(batch)
+        for i, seq in enumerate(batch):
+            self._append_token(seq, int(toks[i]),
+                               lp=self._lp_entry(seq, aux, i))
+
+    def _step_spec(self) -> None:
+        """A scheduler iteration with self-speculative decoding
+        (``jax_engine.py`` ``_step_spec``), synchronous: the drafter
+        reads the host token lists every step, so they must be exact.
+        Prefill keeps its policy (priority, or budgeted mixing). Rows
+        whose drafter finds a continuation take the batched verify step;
+        the rest (no draft, sampled, penalised, logit_bias, logprobs)
+        take a window or a single step, seeded from host state."""
+        budget = self.ecfg.prefill_token_budget
+        if self.prefilling:
+            pf = self._dispatch_prefill(budget)
+            if pf is not None:
+                self._process_prefill(pf)
+        if self.prefilling and budget is None and self.ecfg.prefill_priority:
+            return
+        for seq in list(self.running):
+            if seq.context.stopped:
+                self._terminate(seq, _cancel_reason(seq.context))
+        batch = [s for s in self.running if s.finished is None]
+        batch = batch[:self.ecfg.max_batch]
+        if not batch:
+            return
+        if self.prefilling:
+            self.mixed_dispatches += 1
+        drafts: Dict[int, List[int]] = {}
+        spec_rows: List[Sequence] = []
+        rest: List[Sequence] = []
+        for seq in batch:
+            d = self._draft_for(seq)
+            if d:
+                spec_rows.append(seq)
+                drafts[id(seq)] = d
+            else:
+                rest.append(seq)
+        if spec_rows:
+            self._decode_step_spec(spec_rows, drafts)
+        # the verify step's pool-pressure preemption can evict rows parked
+        # in `rest` (they lose their pages and requeue): never dispatch a
+        # row the scheduler no longer runs
+        rest = [s for s in rest if s in self.running]
+        if rest:
+            if self.ecfg.decode_steps > 1:
+                pend = self._dispatch_decode_window(batch=rest)
+                if pend is not None:
+                    self._process_window(pend)
+            else:
+                self._decode_step_single(batch=rest)
+        self._drain_deferred()
+
+    def _draft_for(self, seq: Sequence) -> List[int]:
+        """The row's prompt-lookup draft, or [] when it bypasses
+        speculation: sampled rows, count-driven penalties and logit_bias
+        (their logits depend on tokens accepted earlier in the same
+        step), and logprobs requests (the verify step returns none). The
+        draft is clamped so that a full accept (K drafts and the bonus)
+        stays inside the row's budget and the context capacity."""
+        s = seq.req.sampling
+        if (not s.greedy or _wants_count_state(s) or s.logit_bias
+                or seq.req.output.logprobs is not None):
+            return []
+        k = min(self.ecfg.spec_tokens, seq.max_new() - seq.generated - 1,
+                self.cap_tokens - len(seq.tokens) - 1)
+        if k <= 0:
+            return []
+        return propose_ngram_draft(seq.tokens, k, self.ecfg.spec_ngram_max,
+                                   self.ecfg.spec_ngram_min)
+
+    def _decode_step_spec(self, batch: List[Sequence],
+                          drafts: Dict[int, List[int]]) -> None:
+        """One batched verify step (one graph replay: the [B, K+1]
+        forward over [pending token, drafts...], every input's K/V
+        scattered into its slot, and the accept mask), read back at once;
+        each row appends its accepted drafts and the bonus token.
+        Rejected drafts leave K/V past the row's accepted extent, which a
+        later decode input rewrites before any query sees it, and page
+        commits publish only positions behind the newest token."""
+        ecfg = self.ecfg
+        K = ecfg.spec_tokens
+        # pages for every write of this step (positions through
+        # len(tokens) - 1 + K) and the next pending token's slot
+        self._grow_or_preempt(batch, K + 1)
+        batch = [s for s in batch
+                 if s.finished is None and not s.context.stopped]
+        if not batch:
+            return
+        B = ecfg.bucket_batch(len(batch))
+        P = ecfg.bucket_pages(max(len(s.pages) for s in batch))
+        ps = ecfg.page_size
+        gs = self.verify_graphs
+        img, f = gs.host_inputs(B, P)
+        for i, seq in enumerate(batch):
+            d = drafts[id(seq)][:K]
+            n = len(d)
+            pos0 = len(seq.tokens) - 1  # position of the pending token
+            pr = np.arange(pos0, pos0 + n + 1)
+            pages = np.asarray(seq.pages, np.int64)
+            f["tokens"][i, :n + 1] = [seq.last_token] + d
+            f["positions"][i, :n + 1] = pr
+            f["slots"][i, :n + 1] = pages[pr // ps] * ps + pr % ps
+            f["table"][i, :len(seq.pages)] = seq.pages
+            f["draft"][i, :n] = d
+            f["draft_len"][i] = n
+        self._announce([_VERIFY, B, P], img)
+        bk = gs.bucket(B, P)
+        pt0 = self.profiler.begin()
+        gs.run(bk, img)
+        (out, acc), event = to_host(*bk.out)
+        self.profiler.end(pt0, "spec_verify", (B, P),
+                          tokens=int(f["draft_len"].sum()) + len(batch),
+                          drain=True)
+        self.batch_dispatches_total += 1
+        if event is not None:
+            event.synchronize()
+        out, acc = out.numpy(), acc.numpy()
+        self.spec_steps += 1
+        for i, seq in enumerate(batch):
+            accepted = int(acc[i])
+            self.spec_draft_tokens_total += int(f["draft_len"][i])
+            self.spec_accepted_tokens_total += accepted
+            for j in range(accepted + 1):
+                if seq.finished is not None or seq.context.stopped:
+                    break  # tokens past an accepted stop are discarded
+                self._append_token(seq, int(out[i, j]))
+                self.decode_tokens_total += 1
 
     # -------------------------------------------- deferred page reclamation
 

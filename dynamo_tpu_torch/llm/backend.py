@@ -1,21 +1,44 @@
 """Backend: the detokenizing stage between engine and preprocessor.
 
-A copy of ``dynamo_tpu/llm/backend.py`` without the remote cost relay and
-the detokenization thread pool: wraps the token-level engine,
-incrementally detokenizes the stream, applies stop-sequence "jailing"
-(text that could be the prefix of a stop sequence is withheld until
-disambiguated), detects EOS / stop-token / max-token finishes, and stamps
-finish reasons.
+A copy of ``dynamo_tpu/llm/backend.py`` without the remote cost relay:
+wraps the token-level engine, incrementally detokenizes the stream,
+applies stop-sequence "jailing" (text that could be the prefix of a stop
+sequence is withheld until disambiguated), detects EOS / stop-token /
+max-token finishes, and stamps finish reasons.
 """
 
 from __future__ import annotations
 
+import asyncio
+from concurrent.futures import ThreadPoolExecutor
 from typing import AsyncIterator, List, Optional
 
+from ..runtime.config import env_bool
 from ..runtime.engine import Context
 from .protocols.common import (FINISH_EOS, FINISH_LENGTH, FINISH_STOP,
                                EngineOutput, PreprocessedRequest)
 from .tokenizer import Tokenizer
+
+# The shared detokenization executor (DYN_ASYNC_DETOK, on by default): the
+# token-to-text work of every stream runs here, not on the event-loop
+# thread, so a slow decode never delays OTHER streams' chunks. A request
+# keeps its order with no queue: Backend.generate awaits each chunk's
+# decode before it pulls the next engine chunk, so a request never has
+# two decodes in flight, and its DecodeStream is only ever touched by one
+# thread at a time.
+_DETOK_EXEC: Optional[ThreadPoolExecutor] = None
+
+
+def _detok_executor() -> ThreadPoolExecutor:
+    global _DETOK_EXEC
+    if _DETOK_EXEC is None:
+        _DETOK_EXEC = ThreadPoolExecutor(max_workers=2,
+                                         thread_name_prefix="dyn-detok")
+    return _DETOK_EXEC
+
+
+def _decode_many(decode, ids: List[int]) -> str:
+    return "".join(p for p in map(decode.step, ids) if p)
 
 
 class StopSequenceJail:
@@ -98,6 +121,9 @@ class Backend:
             tail, _ = jail.feed(decode.flush())
             return released + tail + jail.flush()
 
+        offload = env_bool("DYN_ASYNC_DETOK")
+        loop = asyncio.get_running_loop() if offload else None
+
         async for out in self.engine.generate(request, context):
             emit_ids: List[int] = []
             decode_ids: List[int] = []
@@ -116,7 +142,15 @@ class Backend:
                     finished = FINISH_LENGTH
                 if finished:
                     break
-            text = "".join(p for p in map(decode.step, decode_ids) if p)
+            if not decode_ids:
+                text = ""
+            elif offload:
+                # awaited before the next engine chunk is pulled: the
+                # request's decodes keep their order by construction
+                text = await loop.run_in_executor(
+                    _detok_executor(), _decode_many, decode, decode_ids)
+            else:
+                text = _decode_many(decode, decode_ids)
             released, hit = jail.feed(text) if text else ("", False)
             if hit:
                 finished = finished or FINISH_STOP

@@ -583,6 +583,32 @@ def make_step_fns(cfg: ModelConfig, use_kernels: bool = True,
     return prefill_step, decode_step
 
 
+def make_verify_fn(cfg: ModelConfig, use_kernels: bool = True,
+                   mesh: Optional[MeshView] = None):
+    """The verify forward of self-speculative decoding
+    (``dynamo_tpu/models/llama.py`` make_verify_fn): ONE [B, K+1]
+    multi-token step against the paged pool that returns the logits at
+    EVERY position (the accept mask needs the greedy target after each
+    draft token). The K+1 inputs' K/V scatter row by row through
+    ``flat_slots`` before attention (a verify row starts anywhere in a
+    page, so never the page-granular commit), and the prefill kernel's
+    causal mask lets draft j see drafts 0..j-1 and the cached sequence.
+    Rejected drafts leave K/V past the row's accepted extent, which is
+    rewritten when its position's real token is the decode input,
+    before any query sees it."""
+
+    def verify_step(params: Params, tokens, positions, kv_k, kv_v,
+                    page_table, flat_slots):
+        """tokens/positions/flat_slots: [B, K+1] (-1 / DROP_SLOT padding)
+        → (logits [B, K+1, V] float32, kv_k, kv_v)."""
+        h, kv_k, kv_v = forward(params, cfg, tokens, positions, kv_k, kv_v,
+                                page_table, flat_slots,
+                                use_kernels=use_kernels, mesh=mesh)
+        return project_logits(params, cfg, h, mesh), kv_k, kv_v
+
+    return verify_step
+
+
 # ------------------------------------------------- fused decode window
 
 

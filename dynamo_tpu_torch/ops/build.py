@@ -24,9 +24,12 @@ from typing import Dict, List, Optional
 from ..runtime.config import env_str
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+# --split-compile 0: each nvcc spreads its source's device-code
+# optimisation over every core (the attention sources hold ~30 kernel
+# instantiations each, the longest build)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-              "-Xptxas", "-v"]
+              "-Xptxas", "-v", "--split-compile", "0"]
 
 _INCLUDE = re.compile(r'^#include "([^"]+\.cuh)"', re.MULTILINE)
 _lock = threading.Lock()

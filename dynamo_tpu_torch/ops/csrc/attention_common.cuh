@@ -44,13 +44,41 @@ bool f32_shape(int G, int ps, int hd) {
 
 // The shapes both generic kernels (route 0: paged_decode_generic_kernel,
 // paged_prefill_generic_kernel) take, in every dtype (0 = float32, 1 =
-// bfloat16, 2 = float16): any page size and GQA group, head_dim up to
-// 256, a multiple of 8 in the 16-bit types (16-byte rows for their
-// copies and ldmatrix). ops/paged_attention.py prefill_generic_shape
-// lists the same.
+// bfloat16, 2 = float16): any page size and GQA group, head_dim from 1
+// to GN_MAX_HD_F32 in float32 and GN_MAX_HD_16 in 16 bits. Those bounds
+// come from shared memory: they are the largest head_dim below which
+// every head_dim's plan of both kernels (gn_smem in paged_prefill.cu,
+// dg_smem in paged_attention.cu) fits a block's 227 KB.
+// ops/paged_attention.py GENERIC_MAX_HEAD_DIM lists the same, and
+// generic_shape there.
+constexpr int GN_MAX_HD_F32 = 656;  // the prefill kernel's Q, K and V rows
+constexpr int GN_MAX_HD_16 = 576;   // the decode kernel's two-stage rings
+constexpr int GN_SMEM_LIMIT = 232448;
 bool generic_shape(int dtype, int G, int ps, int hd) {
   return dtype >= 0 && dtype <= 2 && G >= 1 && ps >= 1 && hd >= 1 &&
-         hd <= 256 && (dtype == 0 || hd % 8 == 0);
+         hd <= (dtype == 0 ? GN_MAX_HD_F32 : GN_MAX_HD_16);
+}
+
+// head_dim above GN_MAX_COLS (the wide form of both generic kernels): Q
+// and K rows are taken whole, at head_dim padded to 16 (gn_qk_width), for
+// the scores; the value columns are cut into gn_col_tiles tiles of
+// gn_col_width columns (a multiple of 8, so that each tile's first
+// column starts a 16-byte copy; the last tile may be narrower), one
+// block each, so that a block's output fragment stays that of a head_dim
+// up to 256. At head_dim up to 256: one tile of head_dim columns.
+constexpr int GN_MAX_COLS = 256;
+__host__ __device__ constexpr int gn_qk_width(int hd) {
+  return (hd + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int gn_col_width(int hd) {
+  return hd <= GN_MAX_COLS
+             ? hd
+             : ((hd + (hd + GN_MAX_COLS - 1) / GN_MAX_COLS - 1) /
+                    ((hd + GN_MAX_COLS - 1) / GN_MAX_COLS) +
+                7) / 8 * 8;
+}
+__host__ __device__ constexpr int gn_col_tiles(int hd) {
+  return (hd + gn_col_width(hd) - 1) / gn_col_width(hd);
 }
 
 // Key position `pos` is visible to a query at `qp` under the row's sliding
@@ -81,6 +109,17 @@ __device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
   }
 }
 
+// One copy of BYTES from global to shared memory where `valid`, else
+// zeros: cp.async for 4, 8 or 16 bytes; for 2, a plain load and store of
+// one 16-bit element (rows of an odd 16-bit head_dim are 2-byte aligned)
+template <typename T, int BYTES>
+__device__ __forceinline__ void copy_zfill(T* dst, const T* src, bool valid) {
+  if constexpr (BYTES >= 4)
+    cp_async_zfill<BYTES>(dst, src, valid);
+  else
+    *dst = valid ? *src : from_f<T>(0.f);
+}
+
 // mma.sync m16n8k16, T (bf16 or f16) in, f32 accumulate: A a[0..3] (rows
 // g, g + 8 at k 2t, 2t + 1; the same at k + 8), B b0 (k 2t, 2t + 1), b1
 // (k + 8) at column g, D d[0..3] (row g cols 2t, 2t + 1; row g + 8 the
@@ -97,8 +136,9 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
 #undef DYN_MMA_16816
 }
 
-// head_dim as the generic kernels' products take it: the next of 16, 32,
-// 64, 96, 128, 192 and 256 (columns past hd are zeros in shared memory)
+// head_dim (or a wide form's column tile) as the generic kernels'
+// products take it: the next of 16, 32, 64, 96, 128, 192 and 256
+// (columns past it are zeros in shared memory)
 __host__ __device__ constexpr int gn_hdp(int hd) {
   return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 96 ? 96
        : hd <= 128 ? 128 : hd <= 192 ? 192 : 256;

@@ -1092,9 +1092,14 @@ paged_decode_f32_kernel(const float* __restrict__ q,
 // ClusterLaunch launches each with DB_THREADS
 constexpr int DG_STAGES = 3;                // stages in each warp's ring
 constexpr int DG_ROWS = 16;                 // head rows of a tile: mma's m16
-// a row takes one live split for each ring of key blocks (each warp's
-// stages) it fills
-constexpr int DG_MIN_BLOCKS = DB_WARPS * DG_STAGES;
+
+// stages in each warp's ring: DG_STAGES, and in the wide form (head_dim
+// above 256, whole K rows) 2 in 16 bits and 1 in float32, so that four
+// rings fit; a row takes one live split for each ring of key blocks
+// (each warp's stages) it fills
+__host__ __device__ constexpr int dg_stages(int esize, bool wide) {
+  return wide ? (esize == 4 ? 1 : 2) : DG_STAGES;
+}
 
 // keys a block, by element size: 16 in 16 bits (one m16n8k16 k-step of
 // P V), 8 in float32 (one m16n8k8 k-step), so that a stage holds about
@@ -1112,35 +1117,47 @@ __host__ __device__ constexpr int dg_v_stride(int esize, int hdp) {
   return esize == 4 ? hdp + 4 : hdp + 8;
 }
 
-// Shared memory of a block, in bytes: Q [16, hdp + 8] and the warps'
-// rings of DG_STAGES stages (a stage: K [keys, hdp + 8], then V [keys,
-// v stride]), which the merge at the end reuses as float32 [warps, 16,
+// Shared memory of a block, in bytes: Q [16, qw + 8] and the warps'
+// rings of `st` stages (a stage: K [keys, qw + 8], then V [keys, v
+// stride]), which the merge at the end reuses as float32 [warps, 16,
 // hdp] partial outputs, the warps' (m, l) and weights, the block's (m, l)
 // and split 0's fold weights; then each stage's row sources (long long a
-// key) and visible-key mask. ops/paged_attention.py decode_generic_plan
-// mirrors it; dyn_paged_decode_generic_smem lets the card tests hold the
-// two equal.
-__host__ __device__ constexpr int dg_ring_bytes(int esize, int hdp) {
-  return (DG_ROWS * (hdp + 8) + DB_WARPS * DG_STAGES * dg_keys(esize) *
-                                    (hdp + 8 + dg_v_stride(esize, hdp))) *
+// key) and visible-key mask. qw = hdp but in the wide form, where it is
+// gn_qk_width and hdp the column tile's width. ops/paged_attention.py
+// decode_generic_plan mirrors it; dyn_paged_decode_generic_smem lets the
+// card tests hold the two equal.
+__host__ __device__ constexpr int dg_ring_bytes(int esize, int hdp, int qw,
+                                                int st) {
+  return (DG_ROWS * (qw + 8) + DB_WARPS * st * dg_keys(esize) *
+                                   (qw + 8 + dg_v_stride(esize, hdp))) *
          esize;
 }
 __host__ __device__ constexpr int dg_merge_bytes(int hdp) {
   return 4 * (DB_WARPS * DG_ROWS * hdp + 3 * DB_WARPS * DG_ROWS +
               2 * DG_ROWS + DG_ROWS * MAX_SPLITS + DG_ROWS);
 }
-__host__ __device__ constexpr int dg_main_bytes(int esize, int hdp) {
-  return dg_ring_bytes(esize, hdp) > dg_merge_bytes(hdp)
-             ? dg_ring_bytes(esize, hdp)
+__host__ __device__ constexpr int dg_main_bytes(int esize, int hdp, int qw,
+                                                int st) {
+  return dg_ring_bytes(esize, hdp, qw, st) > dg_merge_bytes(hdp)
+             ? dg_ring_bytes(esize, hdp, qw, st)
              : dg_merge_bytes(hdp);
 }
-__host__ __device__ constexpr int dg_smem(int esize, int hdp) {
-  return dg_main_bytes(esize, hdp) +
-         DB_WARPS * DG_STAGES * (dg_keys(esize) * 8 + 4);
+__host__ __device__ constexpr int dg_smem(int esize, int hdp, int qw, int st) {
+  return dg_main_bytes(esize, hdp, qw, st) +
+         DB_WARPS * st * (dg_keys(esize) * 8 + 4);
 }
 
+// dg_smem at head_dim hd in a type of esize bytes
+__host__ __device__ constexpr int dg_smem_hd(int esize, int hd) {
+  return hd > GN_MAX_COLS
+             ? dg_smem(esize, gn_hdp(gn_col_width(hd)), gn_qk_width(hd),
+                       dg_stages(esize, true))
+             : dg_smem(esize, gn_hdp(hd), gn_hdp(hd), DG_STAGES);
+}
+
+template <int ST>
 __device__ __forceinline__ void cp_async_wait_stages() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(DG_STAGES - 1) : "memory");
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(ST - 1) : "memory");
 }
 
 // The power of two at least n, at most 32: the lanes a row's copies take.
@@ -1149,8 +1166,8 @@ __host__ __device__ constexpr int dg_row_lanes(int n) {
        : n > 1 ? 2 : 1;
 }
 
-// The cp.async copies of one key block's K and V rows into a warp's
-// stage, BYTES a copy. src[i]: row i's element offset in the layer's pool
+// The copies of one key block's K and V rows into a warp's stage, BYTES
+// a copy (copy_zfill). src[i]: row i's element offset in the layer's pool
 // (>= 0), or -2 - its offset in the window buffers wk/wv (<= -2), or -1:
 // not read, the row zero-filled. The copies of a padded row go to LPR
 // lanes, which take the same columns of every row they copy, K and V
@@ -1179,25 +1196,57 @@ __device__ __forceinline__ void dg_copy(T* ks, const long long* src,
     for (int j = 0; j < (CPR + LPR - 1) / LPR; ++j) {
       const int c = c0 + j * LPR * CE;
       if (c < hd) {
-        cp_async_zfill<BYTES>(ks + r * KS + c, kg + c, ok);
-        cp_async_zfill<BYTES>(vs + r * VS + c, vg + c, ok);
+        copy_zfill<T, BYTES>(ks + r * KS + c, kg + c, ok);
+        copy_zfill<T, BYTES>(vs + r * VS + c, vg + c, ok);
       }
     }
   }
 }
 
-// grid (B, KV * head tiles, S), clusters (1, 1, S): the S splits of one
-// (row, kv head, head tile) are one cluster, split = blockIdx.z = the
-// block's rank in it. A head tile is up to 16 query heads of one kv head
-// (head tile t holds heads 16t .. 16t + 15 of the group; rows past the
-// group are zero). T: float (3xTF32), __nv_bfloat16 or __half; HDP:
-// head_dim padded to a width of gn_hdp. Block DB_THREADS: four warps,
-// each an independent worker over the key blocks w, w + 4, ... of the
-// split's share, with its own ring of DG_STAGES stages, its own m, l and
-// output fragment (rows g and g + 8 of the tile, lane = 4g + t). Split 0
-// also walks the fused window's in-flight keys, as blocks after its
-// pool blocks. Shared memory: see dg_smem.
-template <typename T, int HDP>
+// dg_copy in the wide form: K's hd columns at row stride KS, V's vc
+// columns from column c0 (the block's column tile); trip counts known at
+// run time.
+template <typename T, int HDP, int BYTES>
+__device__ __forceinline__ void dg_copy_wide(T* ks, const long long* src,
+                                             const T* k_base, const T* v_base,
+                                             const T* wk, const T* wv, int hd,
+                                             int vc, int c0, int KS,
+                                             int lane) {
+  constexpr int KB = dg_keys(sizeof(T)), CE = BYTES / sizeof(T);
+  constexpr int VS = dg_v_stride(sizeof(T), HDP);
+  T* vs = ks + KB * KS;
+  const int cpk = hd / CE, cpv = vc / CE;
+  for (int i = lane; i < KB * cpk; i += 32) {
+    const int r = i / cpk, c = (i - r * cpk) * CE;
+    const long long off = src[r];
+    const T* kg = off >= 0 ? k_base + off : off != -1 ? wk + (-2 - off) : k_base;
+    copy_zfill<T, BYTES>(ks + r * KS + c, kg + c, off != -1);
+  }
+  for (int i = lane; i < KB * cpv; i += 32) {
+    const int r = i / cpv, c = (i - r * cpv) * CE;
+    const long long off = src[r];
+    const T* vg = off >= 0 ? v_base + off : off != -1 ? wv + (-2 - off) : v_base;
+    copy_zfill<T, BYTES>(vs + r * VS + c, vg + c0 + c, off != -1);
+  }
+}
+
+// grid (B, KV * head tiles * CT, S), clusters (1, 1, S): the S splits of
+// one (row, kv head, head tile, column tile) are one cluster, split =
+// blockIdx.z = the block's rank in it. A head tile is up to 16 query
+// heads of one kv head (head tile t holds heads 16t .. 16t + 15 of the
+// group; rows past the group are zero). T: float (3xTF32),
+// __nv_bfloat16 or __half; HDP: head_dim padded to a width of gn_hdp.
+// Block DB_THREADS: four warps, each an independent worker over the key
+// blocks w, w + 4, ... of the split's share, with its own ring of
+// dg_stages stages, its own m, l and output fragment (rows g and g + 8 of
+// the tile, lane = 4g + t). Split 0 also walks the fused window's
+// in-flight keys, as blocks after its pool blocks. Shared memory: see
+// dg_smem. WIDE (head_dim above 256): Q and K rows at qw =
+// gn_qk_width(hd) columns for the scores, HDP the padded width of the
+// block's value columns [c0, c0 + cw) (column tile ct of CT,
+// gn_col_width), which alone it folds and writes; each column tile
+// repeats the scores.
+template <typename T, int HDP, bool WIDE>
 __global__ void __launch_bounds__(DB_THREADS)
 paged_decode_generic_kernel(const T* __restrict__ q,
                             const T* __restrict__ k_pools,
@@ -1214,20 +1263,28 @@ paged_decode_generic_kernel(const T* __restrict__ q,
                             const T* __restrict__ wk,
                             const T* __restrict__ wv, int n_win, int Kw,
                             int H, int KV, int N, int ps, int hd, int P,
-                            int HT, float scale, float softcap) {
+                            int HT, int qw, int cw, int CT, float scale,
+                            float softcap) {
   constexpr bool F32 = std::is_same<T, float>::value;
-  constexpr int ES = sizeof(T), KB = dg_keys(ES), KS = HDP + 8;
-  constexpr int VS = dg_v_stride(ES, HDP), STAGE = KB * (KS + VS);
+  constexpr int ES = sizeof(T), KB = dg_keys(ES), ST = dg_stages(ES, WIDE);
+  constexpr int VS = dg_v_stride(ES, HDP);
+  // Q and K: QW columns in rows of KS (QW is the constant HDP outside the
+  // wide form, so that the loops over it unroll fully there); the
+  // block's value columns [c0, c0 + vc)
+  const int QW = WIDE ? qw : HDP, KS = QW + 8, STAGE = KB * (KS + VS);
+  const int CTS = WIDE ? CT : 1, yt = blockIdx.y / CTS;
+  const int c0 = WIDE ? (int)(blockIdx.y - yt * CTS) * cw : 0;
+  const int vc = WIDE ? min(cw, hd - c0) : hd;
   extern __shared__ __align__(16) uint8_t dg_smem_raw[];
   T* q_s = reinterpret_cast<T*>(dg_smem_raw);
   T* rings = q_s + DG_ROWS * KS;
-  long long* src_all =
-      reinterpret_cast<long long*>(dg_smem_raw + dg_main_bytes(ES, HDP));
+  long long* src_all = reinterpret_cast<long long*>(
+      dg_smem_raw + dg_main_bytes(ES, HDP, QW, ST));
   uint32_t* mask_all =
-      reinterpret_cast<uint32_t*>(src_all + DB_WARPS * DG_STAGES * KB);
+      reinterpret_cast<uint32_t*>(src_all + DB_WARPS * ST * KB);
 
-  const int b = blockIdx.x, kv = blockIdx.y / HT;
-  const int h0 = (blockIdx.y - kv * HT) * DG_ROWS;
+  const int b = blockIdx.x, kv = yt / HT;
+  const int h0 = (yt - kv * HT) * DG_ROWS;
   const int split = blockIdx.z, S = gridDim.z, G = H / KV;
   const int GT = min(G - h0, DG_ROWS);  // the tile's heads
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1243,7 +1300,7 @@ paged_decode_generic_kernel(const T* __restrict__ q,
   const int len_t = (int)min((long long)len, (long long)P * ps);
   const int jb_row = lo / KB;
   const int nrow = len_t > lo ? (len_t + KB - 1) / KB - jb_row : 0;
-  const int n_live = min(S, (nrow + DG_MIN_BLOCKS - 1) / DG_MIN_BLOCKS);
+  const int n_live = min(S, (nrow + DB_WARPS * ST - 1) / (DB_WARPS * ST));
   // a split without blocks only keeps the cluster's two barriers; split 0
   // folds even when no split has any (zeros, or the window keys alone)
   if (split > 0 && split >= n_live) {
@@ -1263,15 +1320,17 @@ paged_decode_generic_kernel(const T* __restrict__ q,
   const int nblk = nv > warp ? (nv - warp + DB_WARPS - 1) / DB_WARPS : 0;
 
   // copies of rows of hd elements: 16 bytes where a row is a multiple of
-  // 16 bytes, else 8 or 4 (float32)
+  // 16 bytes, else 8 or 4, else (16-bit rows of an odd head_dim) 2
   const int row_bytes = hd * ES;
-  const int cbytes = row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : 4;
+  const int cbytes = row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8
+                   : row_bytes % 4 == 0 ? 4 : 2;
   // Q of the tile's heads by cp.async, the first group (rows past GT and
-  // columns past hd zero-filled), and zeros in the columns hd .. HDP - 1
-  // of every stage's K and V rows (the copies write the first hd)
+  // columns past hd zero-filled), and zeros in the columns hd .. QW - 1
+  // of every stage's K rows and vc .. HDP - 1 of its V rows (the copies
+  // write the first hd and vc)
   const long long qbase = ((long long)b * H + (long long)kv * G + h0) * hd;
   {
-    const int ce = cbytes / ES, cpr = HDP / ce;
+    const int ce = cbytes / ES, cpr = QW / ce;
     for (int i = tid; i < DG_ROWS * cpr; i += DB_THREADS) {
       const int r = i / cpr, d = (i - r * cpr) * ce;
       const bool ok = r < GT && d < hd;
@@ -1280,23 +1339,26 @@ paged_decode_generic_kernel(const T* __restrict__ q,
         cp_async_zfill<16>(q_s + r * KS + d, src, ok);
       else if (cbytes == 8)
         cp_async_zfill<8>(q_s + r * KS + d, src, ok);
-      else
+      else if (F32 || cbytes == 4)
         cp_async_zfill<4>(q_s + r * KS + d, src, ok);
+      else
+        q_s[r * KS + d] = ok ? *src : from_f<T>(0.f);
     }
     cp_async_commit();
   }
-  const int pad = HDP - hd;
-  for (int i = tid; i < DB_WARPS * DG_STAGES * KB * pad; i += DB_THREADS) {
-    const int row = i / pad, d = hd + i - row * pad;
-    T* ks = rings + (row / KB) * STAGE;
-    const int kr = row % KB;
-    ks[kr * KS + d] = from_f<T>(0.f);
-    ks[KB * KS + kr * VS + d] = from_f<T>(0.f);
+  const int kpad = QW - hd, vpad = HDP - vc;
+  for (int i = tid; i < DB_WARPS * ST * KB * kpad; i += DB_THREADS) {
+    const int row = i / kpad, d = hd + i - row * kpad;
+    rings[(row / KB) * STAGE + (row % KB) * KS + d] = from_f<T>(0.f);
+  }
+  for (int i = tid; i < DB_WARPS * ST * KB * vpad; i += DB_THREADS) {
+    const int row = i / vpad, d = vc + i - row * vpad;
+    rings[(row / KB) * STAGE + KB * KS + (row % KB) * VS + d] = from_f<T>(0.f);
   }
 
-  T* ring = rings + warp * DG_STAGES * STAGE;
-  long long* src_w = src_all + warp * DG_STAGES * KB;
-  uint32_t* mask_w = mask_all + warp * DG_STAGES;
+  T* ring = rings + warp * ST * STAGE;
+  long long* src_w = src_all + warp * ST * KB;
+  uint32_t* mask_w = mask_all + warp * ST;
   const int* row_table = page_table + (long long)b * P;
   const T* k_base = k_pools + layer_offset;
   const T* v_base = v_pools + layer_offset;
@@ -1313,14 +1375,14 @@ paged_decode_generic_kernel(const T* __restrict__ q,
     const int p = ((jb + v) * KB + lane) / ps;
     return p < P ? row_table[p] : -1;
   };
-  // the warp's i-th block into stage i % DG_STAGES: each key row's source
+  // the warp's i-th block into stage i % ST: each key row's source
   // and the block's mask of visible keys, then the copies. A pool key is
   // visible in [lo, len) on a page inside the pool; window slot w (position
   // start + w) when w < n_win, start >= 0 and start + w > q_pos - eff_win
   // (the merge of dynamo_tpu/models/llama.py:981-1006). A key out of view
   // is not read: its rows are zero-filled and masked.
   auto issue = [&](int i, int page) {
-    const int v = warp + i * DB_WARPS, s = i % DG_STAGES;
+    const int v = warp + i * DB_WARPS, s = i % ST;
     bool vis = false;
     if (lane < KB) {
       long long off = -1;
@@ -1341,16 +1403,22 @@ paged_decode_generic_kernel(const T* __restrict__ q,
     __syncwarp();
     T* ks = ring + s * STAGE;
     const long long* src = src_w + s * KB;
-    if constexpr (F32) {
-      if (cbytes == 16)
-        dg_copy<T, HDP, 16>(ks, src, k_base, v_base, wk, wv, hd, lane);
-      else if (cbytes == 8)
-        dg_copy<T, HDP, 8>(ks, src, k_base, v_base, wk, wv, hd, lane);
-      else
-        dg_copy<T, HDP, 4>(ks, src, k_base, v_base, wk, wv, hd, lane);
-    } else {
-      dg_copy<T, HDP, 16>(ks, src, k_base, v_base, wk, wv, hd, lane);
+#define DG_COPY(BYTES)                                                      \
+  if constexpr (WIDE)                                                       \
+    dg_copy_wide<T, HDP, BYTES>(ks, src, k_base, v_base, wk, wv, hd, vc,    \
+                                c0, KS, lane);                              \
+  else                                                                      \
+    dg_copy<T, HDP, BYTES>(ks, src, k_base, v_base, wk, wv, hd, lane)
+    if (cbytes == 16) {
+      DG_COPY(16);
+    } else if (cbytes == 8) {
+      DG_COPY(8);
+    } else if (F32 || cbytes == 4) {
+      DG_COPY(4);
+    } else if constexpr (!F32) {
+      DG_COPY(2);
     }
+#undef DG_COPY
   };
 
   float o[HDP / 8][4];
@@ -1363,21 +1431,21 @@ paged_decode_generic_kernel(const T* __restrict__ q,
   // the first blocks' table entries loaded together, then their copies;
   // Q (the first group) and every thread's zeros are in place before the
   // loop
-  int pages[DG_STAGES];
+  int pages[ST];
 #pragma unroll
-  for (int i = 0; i < DG_STAGES; ++i) pages[i] = page_of(i);
+  for (int i = 0; i < ST; ++i) pages[i] = page_of(i);
 #pragma unroll
-  for (int i = 0; i < DG_STAGES - 1; ++i) {
+  for (int i = 0; i < ST - 1; ++i) {
     if (i < nblk) issue(i, pages[i]);
     cp_async_commit();
   }
-  int page_next = pages[DG_STAGES - 1];
-  cp_async_wait_stages();
+  int page_next = pages[ST - 1];
+  cp_async_wait_stages<ST>();
   __syncthreads();
   // Q's A fragments stay in registers for the whole walk where the
   // output fragment leaves room: in 16 bits up to head_dim 128, in
   // float32 (its TF32 big and small parts) up to 96
-  constexpr bool Q_REGS = F32 ? HDP <= 96 : HDP <= 128;
+  constexpr bool Q_REGS = !WIDE && (F32 ? HDP <= 96 : HDP <= 128);
   constexpr int QK = F32 ? HDP / 8 : HDP / 16;  // k-steps along head_dim
   uint32_t qa[Q_REGS ? QK : 1][4], qsm[Q_REGS && F32 ? QK : 1][4];
   if constexpr (Q_REGS && F32) {
@@ -1399,12 +1467,12 @@ paged_decode_generic_kernel(const T* __restrict__ q,
                                (lane >> 4) * 8));
   }
   for (int i = 0; i < nblk; ++i) {
-    if (i + DG_STAGES - 1 < nblk) issue(i + DG_STAGES - 1, page_next);
+    if (i + ST - 1 < nblk) issue(i + ST - 1, page_next);
     cp_async_commit();
-    page_next = page_of(i + DG_STAGES);
-    cp_async_wait_stages();  // block i's copies (this lane's) have landed
-    __syncwarp();            // and the warp's
-    const int s = i % DG_STAGES;
+    page_next = page_of(i + ST);
+    cp_async_wait_stages<ST>();  // block i's copies (this lane's) have landed
+    __syncwarp();                // and the warp's
+    const int s = i % ST;
     const uint32_t vmask = mask_w[s];
     if (vmask != 0) {  // uniform across the warp
       const T* ks = ring + s * STAGE;
@@ -1425,7 +1493,7 @@ paged_decode_generic_kernel(const T* __restrict__ q,
         // (small x big + big x small) + big x big
         float s_sb[4] = {0.f, 0.f, 0.f, 0.f}, s_bs[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int kk = 0; kk < HDP / 8; ++kk) {
+        for (int kk = 0; kk < QW / 8; ++kk) {
           const int d = 8 * kk + 2 * tq;
           uint32_t ab[4], as[4];
           if constexpr (Q_REGS) {
@@ -1458,7 +1526,7 @@ paged_decode_generic_kernel(const T* __restrict__ q,
         // m16n8k16: Q's A fragment and the block's two key tiles' B
         // fragments a k-step, each one ldmatrix.x4
 #pragma unroll
-        for (int kk = 0; kk < HDP / 16; ++kk) {
+        for (int kk = 0; kk < QW / 16; ++kk) {
           uint32_t a[4], bk[4];
           if constexpr (Q_REGS) {
 #pragma unroll
@@ -1647,7 +1715,7 @@ paged_decode_generic_kernel(const T* __restrict__ q,
     if (lane < MAX_SPLITS) fw_s[gi * MAX_SPLITS + lane] = e;
     if (lane == 0) {
       L_s[gi] = L;
-      if (m_out != nullptr) {
+      if (m_out != nullptr && c0 == 0) {
         m_out[(long long)b * H + kv * G + h0 + gi] = M;
         l_out[(long long)b * H + kv * G + h0 + gi] = L;
       }
@@ -1658,7 +1726,7 @@ paged_decode_generic_kernel(const T* __restrict__ q,
   // splits' partials loaded together through distributed shared memory
   for (int i = tid; i < GT * HDP / 4; i += DB_THREADS) {
     const int gi = i / (HDP / 4), d = (i - gi * (HDP / 4)) * 4;
-    if (d >= hd) continue;
+    if (d >= vc) continue;
     const uint32_t src = o_local + (uint32_t)(gi * HDP + d) * 4;
     float4 x[MAX_SPLITS];
 #pragma unroll
@@ -1676,10 +1744,10 @@ paged_decode_generic_kernel(const T* __restrict__ q,
       }
     }
     const float Lc = fmaxf(L_s[gi], 1e-9f);
-    T* orow = out + qbase + (long long)gi * hd + d;
+    T* orow = out + qbase + (long long)gi * hd + c0 + d;
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      if (d + e < hd) orow[e] = from_f<T>(a[e] / Lc);
+      if (d + e < vc) orow[e] = from_f<T>(a[e] / Lc);
   }
   cluster_sync_relaxed();  // the other splits' shared memory outlives the reads
 }
@@ -1813,37 +1881,46 @@ int launch_f32(const DecodeArgs& a, const Window& win, cudaStream_t st) {
 }
 
 // f(kernel, smem) on the generic kernel's instantiation for element type
-// T at head_dim hd (padded to gn_hdp)
+// T at head_dim hd (padded to gn_hdp; above 256 the wide form, at its
+// column tile's padded width)
 template <typename T, typename F>
 int with_generic_kernel(int hd, F f) {
-  switch (gn_hdp(hd)) {
-#define DG_CASE(HDP)                                                        \
+  const int smem = dg_smem_hd(sizeof(T), hd);
+  if (smem > GN_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+#define DG_CASE(HDP, WIDE)                                                  \
   case HDP:                                                                 \
-    return f(paged_decode_generic_kernel<T, HDP>, dg_smem(sizeof(T), HDP));
-    DG_CASE(16) DG_CASE(32) DG_CASE(64) DG_CASE(96) DG_CASE(128) DG_CASE(192)
-    DG_CASE(256)
-#undef DG_CASE
+    return f(paged_decode_generic_kernel<T, HDP, WIDE>, smem);
+  if (hd > GN_MAX_COLS) {  // column tiles of more than 128 columns
+    switch (gn_hdp(gn_col_width(hd))) { DG_CASE(192, true) DG_CASE(256, true) }
+    return (int)cudaErrorInvalidValue;
   }
+  switch (gn_hdp(hd)) {
+    DG_CASE(16, false) DG_CASE(32, false) DG_CASE(64, false)
+    DG_CASE(96, false) DG_CASE(128, false) DG_CASE(192, false)
+    DG_CASE(256, false)
+  }
+#undef DG_CASE
   return (int)cudaErrorInvalidValue;
 }
 
 // one cluster launch of the generic kernel in element type T: grid (B,
-// KV x head tiles, splits); it folds its splits and the window itself
+// KV x head tiles x column tiles, splits); it folds its splits and the
+// window itself
 template <typename T>
 int launch_generic(const DecodeArgs& a, const Window& win, cudaStream_t st) {
-  const int HT = (a.H / a.KV + DG_ROWS - 1) / DG_ROWS;
-  if ((long long)a.KV * HT > 65535) return (int)cudaErrorInvalidValue;
+  const int HT = (a.H / a.KV + DG_ROWS - 1) / DG_ROWS, CT = gn_col_tiles(a.hd);
+  if ((long long)a.KV * HT * CT > 65535) return (int)cudaErrorInvalidValue;
   const long long layer_offset = a.layer * (long long)a.N * a.KV * a.ps * a.hd;
   return with_generic_kernel<T>(a.hd, [&](auto kernel, int smem) {
-    ClusterLaunch l(kernel, smem, dim3(a.B, a.KV * HT, a.splits), st);
+    ClusterLaunch l(kernel, smem, dim3(a.B, a.KV * HT * CT, a.splits), st);
     const cudaError_t err = cudaLaunchKernelEx(
         &l.cfg, kernel, static_cast<const T*>(a.q),
         static_cast<const T*>(a.k_pools), static_cast<const T*>(a.v_pools),
         layer_offset, a.page_table, a.lengths, a.lower, static_cast<T*>(a.out),
         a.m_out, a.l_out, win.start, win.q_pos, win.eff_win,
         static_cast<const T*>(win.wk), static_cast<const T*>(win.wv),
-        win.n_win, win.Kw, a.H, a.KV, a.N, a.ps, a.hd, a.P, HT, a.scale,
-        a.softcap);
+        win.n_win, win.Kw, a.H, a.KV, a.N, a.ps, a.hd, a.P, HT,
+        gn_qk_width(a.hd), gn_col_width(a.hd), CT, a.scale, a.softcap);
     return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
   });
 }

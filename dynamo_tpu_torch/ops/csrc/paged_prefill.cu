@@ -928,10 +928,13 @@ constexpr int GN_THREADS = 128;  // four warps of 16 rows
 constexpr int GN_STAGES = 2;     // K/V stages in the cp.async ring
 
 // keys a stage, by element size: 16-bit 64 (32 past head_dim 128), float32
-// 64 / 32 / 16 as route 2 takes them
-__host__ __device__ constexpr int gn_keys(int esize, int hdp) {
-  return esize == 4 ? (hdp <= 64 ? 64 : hdp <= 128 ? 32 : 16)
-                    : (hdp <= 128 ? 64 : 32);
+// 64 / 32 / 16 as route 2 takes them; the wide form (head_dim above 256)
+// 32 in 16 bits, 8 in float32, so that its whole Q and K rows fit
+__host__ __device__ constexpr int gn_keys(int esize, int hdp,
+                                          bool wide = false) {
+  return wide ? (esize == 4 ? 8 : 32)
+              : esize == 4 ? (hdp <= 64 ? 64 : hdp <= 128 ? 32 : 16)
+                           : (hdp <= 128 ? 64 : 32);
 }
 
 // Row strides in elements. Q and K: hdp + 8, so that the eight 16-byte
@@ -943,16 +946,26 @@ __host__ __device__ constexpr int gn_v_stride(int esize, int hdp) {
   return esize == 4 ? hdp + 4 : hdp + 8;
 }
 
-// Shared memory of a block: Q [64, hdp + 8], the stages' K and V rows,
-// each stage's key positions (int) and a ring of two key blocks' row
-// offsets (long long). ops/paged_attention.py prefill_generic_plan
-// mirrors it; dyn_paged_prefill_generic_smem lets the card tests hold the
-// two equal.
-__host__ __device__ constexpr int gn_smem(int esize, int hdp) {
-  return (GN_ROWS * (hdp + 8) +
-          GN_STAGES * gn_keys(esize, hdp) * (hdp + 8 + gn_v_stride(esize, hdp))) *
+// Shared memory of a block: Q [64, qw + 8], the stages' K [keys, qw + 8]
+// and V [keys, v stride] rows, each stage's key positions (int) and a
+// ring of two key blocks' row offsets (long long); qw = hdp but in the
+// wide form, where it is gn_qk_width and hdp the column tile's width.
+// ops/paged_attention.py prefill_generic_plan mirrors it;
+// dyn_paged_prefill_generic_smem lets the card tests hold the two equal.
+__host__ __device__ constexpr int gn_smem(int esize, int hdp, int qw,
+                                         bool wide) {
+  return (GN_ROWS * (qw + 8) + GN_STAGES * gn_keys(esize, hdp, wide) *
+                                   (qw + 8 + gn_v_stride(esize, hdp))) *
              esize +
-         GN_STAGES * gn_keys(esize, hdp) * 4 + 2 * gn_keys(esize, hdp) * 8;
+         GN_STAGES * gn_keys(esize, hdp, wide) * 4 +
+         2 * gn_keys(esize, hdp, wide) * 8;
+}
+
+// gn_smem at head_dim hd in a type of esize bytes
+__host__ __device__ constexpr int gn_smem_hd(int esize, int hd) {
+  return hd > GN_MAX_COLS
+             ? gn_smem(esize, gn_hdp(gn_col_width(hd)), gn_qk_width(hd), true)
+             : gn_smem(esize, gn_hdp(hd), gn_hdp(hd), false);
 }
 
 __device__ __forceinline__ void cp_async_commit_group() {
@@ -990,37 +1003,74 @@ __device__ __forceinline__ long long gn_key_src(const int* row_pages, int key,
   return (((long long)page * KV + kv) * ps + (key - p * ps)) * hd;
 }
 
-// The cp.async copies of one key block's K and V rows into a stage, BYTES
-// a copy, consecutive threads on consecutive copies of a row; a row whose
-// offset is -1 is zero-filled. Columns past hd are not written.
-template <typename T, int HDP, int BYTES>
+// The copies of one key block's K and V rows into a stage, BYTES a copy
+// (copy_zfill), consecutive threads on consecutive copies of a row: K's hd
+// columns, V's vc columns from column c0 (the block's column tile; all
+// hd from 0 but in the wide form); a row whose offset is -1 is
+// zero-filled. Columns past them are not written. QS: K's row stride.
+template <typename T, int HDP, bool WIDE, int BYTES>
 __device__ __forceinline__ void gn_issue(T* ks, const long long* src,
                                          const T* k_pages, const T* v_pages,
-                                         int hd, int tid) {
-  constexpr int KB = gn_keys(sizeof(T), HDP), QS = HDP + 8;
+                                         int hd, int vc, int c0, int QS,
+                                         int tid) {
+  constexpr int KB = gn_keys(sizeof(T), HDP, WIDE);
   constexpr int VS = gn_v_stride(sizeof(T), HDP), CE = BYTES / sizeof(T);
   T* vs = ks + KB * QS;
-  const int cpr = hd / CE;  // copies a row
-  const int n = KB * cpr;
-  for (int task = tid; task < 2 * n; task += GN_THREADS) {
-    const bool v = task >= n;
-    const int tk = v ? task - n : task;
+  const int cpk = hd / CE, cpv = vc / CE;  // copies a K row, a V row
+  const int nk = KB * cpk, n = nk + KB * cpv;
+  for (int task = tid; task < n; task += GN_THREADS) {
+    const bool v = task >= nk;
+    const int tk = v ? task - nk : task, cpr = v ? cpv : cpk;
     const int i = tk / cpr, c = tk - i * cpr;
     const long long off = src[i];
-    const T* g = (v ? v_pages : k_pages) + (off >= 0 ? off + c * CE : 0);
-    cp_async_zfill<BYTES>((v ? vs + i * VS : ks + i * QS) + c * CE, g,
-                          off >= 0);
+    const T* g = (v ? v_pages + c0 : k_pages) + (off >= 0 ? off + c * CE : 0);
+    copy_zfill<T, BYTES>((v ? vs + i * VS : ks + i * QS) + c * CE, g,
+                         off >= 0);
   }
 }
 
-// grid (B * KV * head tiles, query tiles), the tile index reversed (the
-// causal tiles that walk the most keys first); block GN_THREADS: warp w
-// holds rows 16w .. 16w + 15 of every fragment. Row r of a block is
-// (query t0 + r / GT, head h0 + r % GT) of kv head kv, GT = min(G, 64)
-// heads and TQ = 64 / GT queries a block; past G = 64 a block takes one
-// query and 64 heads (head tile h0 / 64 of ceil(G / 64)). Shared memory:
-// see gn_smem. T: float (3xTF32), __nv_bfloat16 or __half.
-template <typename T, int HDP>
+// One 3xTF32 m16n8k8 k-step of S = Q K^T in float32 (k-step kk, 8
+// columns of head_dim): thread t's k = t and t + 4 stand for elements d
+// and d + 1 (one 8-byte load), A and B alike, as route 2 takes them; rows
+// r0 and r0 + 8 of Q, key g8 of each 8-key tile of K.
+template <int KB>
+__device__ __forceinline__ void gn_qk_f32_step(float (&acc)[KB / 8][4],
+                                               const float* q_s,
+                                               const float* ks, int QS,
+                                               int r0, int g8, int tq,
+                                               int kk) {
+  const int d = 8 * kk + 2 * tq;
+  const float2 x0 = *reinterpret_cast<const float2*>(q_s + r0 * QS + d);
+  const float2 x1 = *reinterpret_cast<const float2*>(q_s + (r0 + 8) * QS + d);
+  uint32_t ab[4], as[4];
+  split_tf32(x0.x, ab[0], as[0]);
+  split_tf32(x1.x, ab[1], as[1]);
+  split_tf32(x0.y, ab[2], as[2]);
+  split_tf32(x1.y, ab[3], as[3]);
+#pragma unroll
+  for (int jn = 0; jn < KB / 8; ++jn) {
+    const float2 kx =
+        *reinterpret_cast<const float2*>(ks + (8 * jn + g8) * QS + d);
+    uint32_t bb[2], bs[2];
+    split_tf32(kx.x, bb[0], bs[0]);
+    split_tf32(kx.y, bb[1], bs[1]);
+    mma_3xtf32(acc[jn], ab, as, bb, bs);
+  }
+}
+
+// grid (B * KV * head tiles, query tiles, column tiles), the query tile
+// index reversed (the causal tiles that walk the most keys first); block
+// GN_THREADS: warp w holds rows 16w .. 16w + 15 of every fragment. Row r
+// of a block is (query t0 + r / GT, head h0 + r % GT) of kv head kv, GT =
+// min(G, 64) heads and TQ = 64 / GT queries a block; past G = 64 a block
+// takes one query and 64 heads (head tile h0 / 64 of ceil(G / 64)).
+// Shared memory: see gn_smem. T: float (3xTF32), __nv_bfloat16 or
+// __half; HDP: head_dim padded (gn_hdp). WIDE (head_dim above 256): Q
+// and K rows at qw = gn_qk_width(hd) columns for the scores, HDP the
+// padded width of the block's value columns [c0, c0 + cw) (column tile
+// blockIdx.z, gn_col_width), which alone it writes; each column tile
+// repeats the scores.
+template <typename T, int HDP, bool WIDE>
 __global__ void __launch_bounds__(GN_THREADS, HDP <= 128 ? 2 : 1)
 paged_prefill_generic_kernel(const T* __restrict__ q,
                              const T* __restrict__ k_pages,
@@ -1029,11 +1079,15 @@ paged_prefill_generic_kernel(const T* __restrict__ q,
                              const int* __restrict__ q_positions,
                              const int* __restrict__ eff_win,
                              T* __restrict__ out, int Tq, int H, int KV, int N,
-                             int ps, int hd, int P, int HT, float scale,
-                             float softcap) {
+                             int ps, int hd, int P, int HT, int qw, int cw,
+                             float scale, float softcap) {
   constexpr bool F32 = std::is_same<T, float>::value;
-  constexpr int ES = sizeof(T), KB = gn_keys(ES, HDP), QS = HDP + 8;
-  constexpr int VS = gn_v_stride(ES, HDP), STAGE = KB * (QS + VS);
+  constexpr int ES = sizeof(T), KB = gn_keys(ES, HDP, WIDE);
+  constexpr int VS = gn_v_stride(ES, HDP);
+  // Q and K: QW columns in rows of QS; the block's value columns
+  const int QW = WIDE ? qw : HDP, QS = QW + 8, STAGE = KB * (QS + VS);
+  const int c0 = WIDE ? (int)blockIdx.z * cw : 0;
+  const int vc = WIDE ? min(cw, hd - c0) : hd;
   extern __shared__ __align__(16) uint8_t gn_smem_raw[];
   T* q_s = reinterpret_cast<T*>(gn_smem_raw);
   T* kv_s = q_s + GN_ROWS * QS;
@@ -1068,8 +1122,8 @@ paged_prefill_generic_kernel(const T* __restrict__ q,
   // Q into shared memory once: rows past the block's (query, head) pairs
   // and columns past hd are zeros
   constexpr int QC = 16 / ES;  // elements a 16-byte chunk
-  for (int i = tid; i < GN_ROWS * HDP / QC; i += GN_THREADS) {
-    const int r = i / (HDP / QC), d = (i - r * (HDP / QC)) * QC;
+  for (int i = tid; i < GN_ROWS * QW / QC; i += GN_THREADS) {
+    const int r = i / (QW / QC), d = (i - r * (QW / QC)) * QC;
     const int tl = r / GT, g = h0 + r - tl * GT, t = t0 + tl;
     const bool row = tl < TQ && g < G && t < Tq;
     const T* src = q + (((long long)b * Tq + t) * H + kv * G + g) * hd + d;
@@ -1077,21 +1131,23 @@ paged_prefill_generic_kernel(const T* __restrict__ q,
       uint4 v = make_uint4(0, 0, 0, 0);
       if (row && d < hd) v = *reinterpret_cast<const uint4*>(src);
       *reinterpret_cast<uint4*>(q_s + r * QS + d) = v;
-    } else {  // float32 rows that are not 16-byte multiples
+    } else {  // rows that are not 16-byte multiples
 #pragma unroll
       for (int e = 0; e < QC; ++e)
         q_s[r * QS + d + e] = row && d + e < hd ? src[e] : from_f<T>(0.f);
     }
   }
-  // columns hd .. HDP - 1 of every stage's K and V rows stay zero (the
-  // copies write the first hd); the row offsets of the first two blocks
-  const int pad = HDP - hd;
-  for (int i = tid; i < GN_STAGES * KB * pad; i += GN_THREADS) {
-    const int row = i / pad, d = hd + i - row * pad;
-    T* ks = kv_s + (row / KB) * STAGE;
-    const int kr = row % KB;
-    ks[kr * QS + d] = from_f<T>(0.f);
-    ks[KB * QS + kr * VS + d] = from_f<T>(0.f);
+  // columns hd .. QW - 1 of every stage's K rows and vc .. HDP - 1 of its
+  // V rows stay zero (the copies write the first hd and vc); the row
+  // offsets of the first two blocks
+  const int kpad = QW - hd, vpad = HDP - vc;
+  for (int i = tid; i < GN_STAGES * KB * kpad; i += GN_THREADS) {
+    const int row = i / kpad, d = hd + i - row * kpad;
+    kv_s[(row / KB) * STAGE + (row % KB) * QS + d] = from_f<T>(0.f);
+  }
+  for (int i = tid; i < GN_STAGES * KB * vpad; i += GN_THREADS) {
+    const int row = i / vpad, d = vc + i - row * vpad;
+    kv_s[(row / KB) * STAGE + KB * QS + (row % KB) * VS + d] = from_f<T>(0.f);
   }
   if (tid < KB)
     for (int a = 0; a < 2; ++a)
@@ -1100,22 +1156,23 @@ paged_prefill_generic_kernel(const T* __restrict__ q,
   __syncthreads();
 
   // copies of key block jj into stage s (16-byte copies where a row is a
-  // multiple of 16 bytes, else 8 or 4), and its key positions: a row not
-  // read takes INT_MAX, which no query sees
+  // multiple of 16 bytes, else 8 or 4, else 16-bit elements), and its key
+  // positions: a row not read takes INT_MAX, which no query sees
   const int row_bytes = hd * ES;
   auto issue = [&](int jj, int s) {
     T* ks = kv_s + s * STAGE;
     const long long* src = src_s + (jj & 1) * KB;
-    if constexpr (F32) {
-      if (row_bytes % 16 == 0)
-        gn_issue<T, HDP, 16>(ks, src, k_pages, v_pages, hd, tid);
-      else if (row_bytes % 8 == 0)
-        gn_issue<T, HDP, 8>(ks, src, k_pages, v_pages, hd, tid);
-      else
-        gn_issue<T, HDP, 4>(ks, src, k_pages, v_pages, hd, tid);
-    } else {
-      gn_issue<T, HDP, 16>(ks, src, k_pages, v_pages, hd, tid);
-    }
+#define GN_COPY(BYTES)                                                     \
+  gn_issue<T, HDP, WIDE, BYTES>(ks, src, k_pages, v_pages, hd, vc, c0, QS, tid)
+    if (row_bytes % 16 == 0)
+      GN_COPY(16);
+    else if (row_bytes % 8 == 0)
+      GN_COPY(8);
+    else if (F32 || row_bytes % 4 == 0)
+      GN_COPY(4);
+    else if constexpr (!F32)
+      GN_COPY(2);
+#undef GN_COPY
     if (tid < KB) kpos_s[s * KB + tid] = src[tid] >= 0 ? jj * KB + tid : INT_MAX;
   };
 
@@ -1161,35 +1218,34 @@ paged_prefill_generic_kernel(const T* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[jn][e] = 0.f;
     if constexpr (F32) {
-      // 3xTF32 m16n8k8, k-steps of 8 along head_dim: thread t's k = t and
-      // t + 4 stand for elements d and d + 1 (one 8-byte load), A and B
-      // alike, as route 2 takes them
+      // 3xTF32 m16n8k8, k-steps of 8 along head_dim (gn_qk_f32_step; QW
+      // is the constant HDP outside the wide form, so that the loop
+      // unrolls fully there). The wide form sums each 128 columns'
+      // products from zero and adds them in float32, as P V takes each
+      // key block's: the tensor cores round accumulations toward zero,
+      // a bias that grows with the chain (at head_dim 512 one chain
+      // missed atol 1e-5 on an H100)
+      if constexpr (WIDE) {
+        for (int k0 = 0; k0 < QW / 8; k0 += 16) {
+          float t[KB / 8][4] = {};
 #pragma unroll
-      for (int kk = 0; kk < HDP / 8; ++kk) {
-        const int d = 8 * kk + 2 * tq;
-        const float2 x0 = *reinterpret_cast<const float2*>(q_s + r0 * QS + d);
-        const float2 x1 =
-            *reinterpret_cast<const float2*>(q_s + (r0 + 8) * QS + d);
-        uint32_t ab[4], as[4];
-        split_tf32(x0.x, ab[0], as[0]);
-        split_tf32(x1.x, ab[1], as[1]);
-        split_tf32(x0.y, ab[2], as[2]);
-        split_tf32(x1.y, ab[3], as[3]);
+          for (int kk = k0; kk < k0 + 16; ++kk)
+            if (kk < QW / 8) gn_qk_f32_step<KB>(t, q_s, ks, QS, r0, g8, tq, kk);
 #pragma unroll
-        for (int jn = 0; jn < KB / 8; ++jn) {
-          const float2 kx =
-              *reinterpret_cast<const float2*>(ks + (8 * jn + g8) * QS + d);
-          uint32_t bb[2], bs[2];
-          split_tf32(kx.x, bb[0], bs[0]);
-          split_tf32(kx.y, bb[1], bs[1]);
-          mma_3xtf32(sc[jn], ab, as, bb, bs);
+          for (int jn = 0; jn < KB / 8; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[jn][e] += t[jn][e];
         }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < HDP / 8; ++kk)
+          gn_qk_f32_step<KB>(sc, q_s, ks, QS, r0, g8, tq, kk);
       }
     } else {
       // m16n8k16: Q's A fragment and two key blocks' B fragments a k-step,
       // each one ldmatrix.x4
 #pragma unroll
-      for (int kk = 0; kk < HDP / 16; ++kk) {
+      for (int kk = 0; kk < QW / 16; ++kk) {
         uint32_t a[4];
         ldsm_x4(a, q_s + (warp * 16 + (lane & 15)) * QS + kk * 16 +
                        (lane >> 4) * 8);
@@ -1295,27 +1351,27 @@ paged_prefill_generic_kernel(const T* __restrict__ q,
     if (tid < KB && j + 2 < j_end) src_s[(j & 1) * KB + tid] = nxt;
   }
 
-  // epilogue: row sums over the quad, O / max(l, 1e-9) in T; columns past
-  // hd are not written
+  // epilogue: row sums over the quad, O / max(l, 1e-9) in T, into the
+  // block's columns c0 .. c0 + vc - 1; columns past them are not written
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int r = r0 + 8 * i, tl = r / GT, g = h0 + r - tl * GT, t = t0 + tl;
     if (tl >= TQ || g >= G || t >= Tq) continue;
-    T* orow = out + (((long long)b * Tq + t) * H + kv * G + g) * hd;
+    T* orow = out + (((long long)b * Tq + t) * H + kv * G + g) * hd + c0;
     if constexpr (F32) {
       const float lc = fmaxf(l[i], 1e-9f);
 #pragma unroll
       for (int nd = 0; nd < HDP / 8; ++nd) {
         const int d = 8 * nd + 2 * tq;
         if (hd % 2 == 0) {
-          if (d < hd)
+          if (d < vc)
             *reinterpret_cast<float2*>(orow + d) =
                 make_float2(o[nd][2 * i] / lc, o[nd][2 * i + 1] / lc);
         } else {
-          if (d < hd) orow[d] = o[nd][2 * i] / lc;
-          if (d + 1 < hd) orow[d + 1] = o[nd][2 * i + 1] / lc;
+          if (d < vc) orow[d] = o[nd][2 * i] / lc;
+          if (d + 1 < vc) orow[d + 1] = o[nd][2 * i + 1] / lc;
         }
       }
     } else {
@@ -1323,15 +1379,20 @@ paged_prefill_generic_kernel(const T* __restrict__ q,
 #pragma unroll
       for (int nd = 0; nd < HDP / 8; ++nd) {
         const int d = 8 * nd + 2 * tq;
-        if (d < hd)
-          *reinterpret_cast<uint32_t*>(orow + d) =
-              pack2<T>(o[nd][2 * i] * inv, o[nd][2 * i + 1] * inv);
+        if (hd % 2 == 0) {
+          if (d < vc)
+            *reinterpret_cast<uint32_t*>(orow + d) =
+                pack2<T>(o[nd][2 * i] * inv, o[nd][2 * i + 1] * inv);
+        } else {  // odd rows are 2-byte aligned: one element a store
+          if (d < vc) orow[d] = from_f<T>(o[nd][2 * i] * inv);
+          if (d + 1 < vc) orow[d + 1] = from_f<T>(o[nd][2 * i + 1] * inv);
+        }
       }
     }
   }
 }
 
-template <typename T, int HDP>
+template <typename T, int HDP, bool WIDE>
 int launch_generic(const void* q, const void* k_pages, const void* v_pages,
                    const int* page_table, const int* q_positions,
                    const int* eff_win, void* out, int B, int Tq, int H,
@@ -1340,15 +1401,18 @@ int launch_generic(const void* q, const void* k_pages, const void* v_pages,
   const int G = H / KV, GT = G < GN_ROWS ? G : GN_ROWS, TQ = GN_ROWS / GT;
   const int HT = (G + GN_ROWS - 1) / GN_ROWS;
   const long long blocks = (long long)B * KV * HT, tiles = (Tq + TQ - 1) / TQ;
-  if (blocks > INT_MAX || tiles > 65535) return (int)cudaErrorInvalidValue;
-  constexpr int SMEM = gn_smem(sizeof(T), HDP);
-  cudaFuncSetAttribute(paged_prefill_generic_kernel<T, HDP>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  paged_prefill_generic_kernel<T, HDP>
-      <<<dim3((unsigned)blocks, (unsigned)tiles), GN_THREADS, SMEM, st>>>(
+  const int smem = gn_smem_hd(sizeof(T), hd);
+  if (blocks > INT_MAX || tiles > 65535 || smem > GN_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(paged_prefill_generic_kernel<T, HDP, WIDE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  paged_prefill_generic_kernel<T, HDP, WIDE>
+      <<<dim3((unsigned)blocks, (unsigned)tiles, gn_col_tiles(hd)),
+         GN_THREADS, smem, st>>>(
           static_cast<const T*>(q), static_cast<const T*>(k_pages),
           static_cast<const T*>(v_pages), page_table, q_positions, eff_win,
-          static_cast<T*>(out), Tq, H, KV, N, ps, hd, P, HT, scale, softcap);
+          static_cast<T*>(out), Tq, H, KV, N, ps, hd, P, HT, gn_qk_width(hd),
+          gn_col_width(hd), scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -1358,16 +1422,22 @@ int launch_generic_hd(const void* q, const void* k_pages, const void* v_pages,
                       const int* eff_win, void* out, int B, int Tq, int H,
                       int KV, int N, int ps, int hd, int P, float scale,
                       float softcap, cudaStream_t st) {
-  switch (gn_hdp(hd)) {
-#define GN_CASE(HDP)                                                        \
+#define GN_CASE(HDP, WIDE)                                                  \
   case HDP:                                                                 \
-    return launch_generic<T, HDP>(q, k_pages, v_pages, page_table,          \
-                                  q_positions, eff_win, out, B, Tq, H, KV,  \
-                                  N, ps, hd, P, scale, softcap, st);
-    GN_CASE(16) GN_CASE(32) GN_CASE(64) GN_CASE(96) GN_CASE(128) GN_CASE(192)
-    GN_CASE(256)
-#undef GN_CASE
+    return launch_generic<T, HDP, WIDE>(q, k_pages, v_pages, page_table,    \
+                                        q_positions, eff_win, out, B, Tq,   \
+                                        H, KV, N, ps, hd, P, scale,         \
+                                        softcap, st);
+  if (hd > GN_MAX_COLS) {  // column tiles of more than 128 columns
+    switch (gn_hdp(gn_col_width(hd))) { GN_CASE(192, true) GN_CASE(256, true) }
+    return (int)cudaErrorInvalidValue;
   }
+  switch (gn_hdp(hd)) {
+    GN_CASE(16, false) GN_CASE(32, false) GN_CASE(64, false)
+    GN_CASE(96, false) GN_CASE(128, false) GN_CASE(192, false)
+    GN_CASE(256, false)
+  }
+#undef GN_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1391,7 +1461,7 @@ extern "C" int dyn_paged_prefill_f32_smem(int hd, int ps) {
 // The generic kernel's shared memory a block at head_dim hd in dtype
 // (gn_smem; ops/paged_attention.py prefill_generic_plan mirrors it).
 extern "C" int dyn_paged_prefill_generic_smem(int dtype, int hd) {
-  return gn_smem(dtype == 0 ? 4 : 2, gn_hdp(hd));
+  return gn_smem_hd(dtype == 0 ? 4 : 2, hd);
 }
 
 // route (the wrapper picks it from the shape, ops/paged_attention.py

@@ -30,7 +30,9 @@ what bounds it on an H100 and what its design does about it:
   design carried to any shape, ``mma.sync`` products in the call's type,
   3xTF32 in float32, key blocks that cross page boundaries, heads in
   tiles of 16, one cluster launch; the shapes of
-  :func:`prefill_generic_shape`, planned by :func:`decode_generic_plan`);
+  :func:`prefill_generic_shape`, planned by :func:`decode_generic_plan`;
+  past head_dim 256 the value columns in tiles of at most 256, one block
+  each, every tile taking the scores over the whole head_dim);
   a shape outside that raises. The plans take host-known shapes only.
 - :func:`paged_attention_prefill` replaces the TPU kernel reached through
   ``paged_attention_prefill``: chunked-prefill attention with causal
@@ -44,9 +46,10 @@ what bounds it on an H100 and what its design does about it:
   runs the generic ``paged_prefill_generic_kernel`` (route ``generic``:
   ``mma.sync`` products in the call's type, 3xTF32 in float32, from a
   ``cp.async`` ring of key blocks that cross page boundaries, so any
-  page size and GQA group; head_dim up to 256, a multiple of 8 in 16
-  bits, :func:`prefill_generic_shape`, planned by
-  :func:`prefill_generic_plan`); a shape outside that raises.
+  page size and GQA group; any head_dim up to
+  :data:`GENERIC_MAX_HEAD_DIM`, :func:`prefill_generic_shape`, planned
+  by :func:`prefill_generic_plan`, in value-column tiles past 256 as
+  the decode kernel); a shape outside that raises.
 - :func:`paged_attention_decode_sharded` (and its window form
   :func:`paged_attention_decode_window_sharded`) and
   :func:`paged_attention_prefill_sharded` replace the JAX package's
@@ -111,11 +114,16 @@ F32_PAGE_SIZES = (8, 16, 32, 64, 128)
 F32_MAX_GROUP = 8
 # shared memory a block may take on an H100 (227 KB, after opting in)
 SMEM_LIMIT = 232448
-# the generic prefill and decode kernels: head_dim up to this (a multiple
-# of 8 in the 16-bit types), padded for their products to the next of
-# these widths
-PREFILL_GENERIC_MAX_HEAD_DIM = 256
+# the generic prefill and decode kernels: any head_dim up to these, by
+# dtype (GN_MAX_HD_F32 / GN_MAX_HD_16 in csrc/attention_common.cuh): the
+# largest below which every head_dim's plan of both kernels fits a
+# block's SMEM_LIMIT (the prefill kernel's in float32, the decode
+# kernel's in 16 bits); padded for their products to the next of these
+# widths, and past GENERIC_MAX_COLS cut into value-column tiles
+GENERIC_MAX_HEAD_DIM = {torch.float32: 656, torch.bfloat16: 576,
+                        torch.float16: 576}
 PREFILL_GENERIC_HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
+GENERIC_MAX_COLS = 256
 
 
 def reset_launch_counts() -> None:
@@ -377,20 +385,37 @@ def prefill_f32_smem(hd: int, ps: int) -> int:
 def prefill_generic_shape(dtype: torch.dtype, hd: int) -> bool:
     """Whether the generic prefill kernel, and the generic decode kernel
     with it, take head_dim ``hd`` in ``dtype`` (``generic_shape`` in
-    csrc/attention_common.cuh): any page size and GQA group, head_dim 1 to
-    256 in float32, a multiple of 8 up to 256 in bfloat16 and float16
-    (16-byte rows for their copies and ``ldmatrix``)."""
-    return (1 <= hd <= PREFILL_GENERIC_MAX_HEAD_DIM
-            and (dtype == torch.float32 or hd % 8 == 0))
+    csrc/attention_common.cuh): any page size and GQA group, any head_dim
+    from 1 to ``GENERIC_MAX_HEAD_DIM[dtype]`` (rows that are not 16-byte
+    multiples take narrower copies, zero-filled to the padded width)."""
+    return 1 <= hd <= GENERIC_MAX_HEAD_DIM.get(dtype, 0)
+
+
+def generic_columns(hd: int) -> Tuple[int, int, int]:
+    """How both generic kernels take head_dim ``hd`` (``gn_qk_width``,
+    ``gn_col_width`` and ``gn_col_tiles`` in csrc/attention_common.cuh):
+    ``(qk_width, col_width, col_tiles)``. Up to
+    :data:`GENERIC_MAX_COLS`, one tile of ``hd`` columns at the padded
+    width; past it (the wide form) Q and K whole at ``hd`` padded to 16
+    for the scores, and the value columns in ``col_tiles`` tiles of
+    ``col_width`` (a multiple of 8; the last may be narrower), one block
+    each."""
+    if hd <= GENERIC_MAX_COLS:
+        return next(w for w in PREFILL_GENERIC_HEAD_DIMS if w >= hd), hd, 1
+    tiles = -(-hd // GENERIC_MAX_COLS)
+    width = -(-(-(-hd // tiles)) // 8) * 8
+    return -(-hd // 16) * 16, width, -(-hd // width)
 
 
 class GenericPrefillPlan(NamedTuple):
     """How the generic prefill kernel cuts one call (its launch in
     csrc/paged_prefill.cu): a block owns ``rows`` (query, head) rows,
     ``queries`` queries times ``heads`` heads of one (row, kv head) and
-    head tile (``head_tiles`` a kv head: one past 64 heads); it walks key
-    blocks of ``keys`` positions in a ring of ``stages``, at head_dim
-    ``head_dim`` (padded); ``smem`` bytes of shared memory a block."""
+    head tile (``head_tiles`` a kv head: one past 64 heads) and column
+    tile (``col_tiles`` of ``col_width`` value columns, padded to
+    ``col_pad`` for P V); it walks key blocks of ``keys`` positions in a
+    ring of ``stages``, Q and K at head_dim ``head_dim`` (padded);
+    ``smem`` bytes of shared memory a block."""
     rows: int
     queries: int
     heads: int
@@ -399,6 +424,9 @@ class GenericPrefillPlan(NamedTuple):
     stages: int
     head_dim: int
     smem: int
+    col_tiles: int
+    col_width: int
+    col_pad: int
 
 
 def prefill_generic_plan(G: int, ps: int, hd: int,
@@ -410,18 +438,21 @@ def prefill_generic_plan(G: int, ps: int, hd: int,
     ``smem``. The page size changes nothing: key blocks cross pages."""
     rows = 64
     heads = min(G, rows)
-    hdp = next(w for w in PREFILL_GENERIC_HEAD_DIMS if w >= hd)
+    qw, cw, tiles = generic_columns(hd)
+    hdp = next(w for w in PREFILL_GENERIC_HEAD_DIMS if w >= cw)
     esize = 4 if dtype == torch.float32 else 2
-    if esize == 4:
+    if hd > GENERIC_MAX_COLS:  # the wide form: whole Q and K rows
+        keys = 8 if esize == 4 else 32
+    elif esize == 4:
         keys = 64 if hdp <= 64 else 32 if hdp <= 128 else 16
     else:
         keys = 64 if hdp <= 128 else 32
     stages = 2
     v_stride = hdp + 4 if esize == 4 else hdp + 8
-    smem = ((rows * (hdp + 8) + stages * keys * (hdp + 8 + v_stride))
+    smem = ((rows * (qw + 8) + stages * keys * (qw + 8 + v_stride))
             * esize + stages * keys * 4 + 2 * keys * 8)
     return GenericPrefillPlan(rows, rows // heads, heads, -(-G // rows),
-                              keys, stages, hdp, smem)
+                              keys, stages, qw, smem, tiles, cw, hdp)
 
 
 class GenericDecodePlan(NamedTuple):
@@ -429,9 +460,11 @@ class GenericDecodePlan(NamedTuple):
     csrc/paged_attention.cu): a block owns one (row, kv head, head tile),
     ``heads`` of the group's heads in ``rows`` m16 rows (``head_tiles`` a
     kv head); its four warps walk key blocks of ``keys`` positions, each
-    in a ring of ``stages``, at head_dim ``head_dim`` (padded); a row
-    takes one live split for each ``ring_keys`` keys (one ring of
-    blocks) it fills; ``smem`` bytes of shared memory a block."""
+    in a ring of ``stages``, Q and K at head_dim ``head_dim`` (padded); a
+    row takes one live split for each ``ring_keys`` keys (one ring of
+    blocks) it fills; ``smem`` bytes of shared memory a block. Each
+    block folds and writes one tile of ``col_width`` value columns
+    (``col_tiles`` of them, padded to ``col_pad`` for P V)."""
     rows: int
     heads: int
     head_tiles: int
@@ -440,6 +473,9 @@ class GenericDecodePlan(NamedTuple):
     head_dim: int
     ring_keys: int
     smem: int
+    col_tiles: int
+    col_width: int
+    col_pad: int
 
 
 def decode_generic_plan(G: int, ps: int, hd: int,
@@ -449,25 +485,29 @@ def decode_generic_plan(G: int, ps: int, hd: int,
     ``dg_smem`` and the launch in csrc/paged_attention.cu, whose
     ``dyn_paged_decode_generic_smem`` the card tests hold equal to
     ``smem``. The page size changes nothing: key blocks cross pages."""
-    rows, warps, stages = 16, 4, 3
-    hdp = next(w for w in PREFILL_GENERIC_HEAD_DIMS if w >= hd)
+    rows, warps = 16, 4
+    qw, cw, tiles = generic_columns(hd)
+    hdp = next(w for w in PREFILL_GENERIC_HEAD_DIMS if w >= cw)
     esize = 4 if dtype == torch.float32 else 2
+    # the wide form's rings hold whole K rows: fewer stages (dg_stages)
+    stages = 3 if hd <= GENERIC_MAX_COLS else 1 if esize == 4 else 2
     keys = 8 if esize == 4 else 16
     v_stride = hdp + 4 if esize == 4 else hdp + 8
-    ring = (rows * (hdp + 8)
-            + warps * stages * keys * (hdp + 8 + v_stride)) * esize
+    ring = (rows * (qw + 8)
+            + warps * stages * keys * (qw + 8 + v_stride)) * esize
     merge = 4 * (warps * rows * hdp + 3 * warps * rows + 2 * rows
                  + rows * DECODE_BF16_MAX_SPLITS + rows)
     smem = max(ring, merge) + warps * stages * (keys * 8 + 4)
     return GenericDecodePlan(rows, min(G, rows), -(-G // rows), keys,
-                             stages, hdp, warps * stages * keys, smem)
+                             stages, qw, warps * stages * keys, smem,
+                             tiles, cw, hdp)
 
 
 def decode_generic_splits_cap(P: int, ps: int, plan: GenericDecodePlan) -> int:
     """The most splits the generic kernel can give keys to, for a page
     table of ``P`` entries: a row's key blocks cover at most ``P * ps``
     positions, and it takes one live split for each ring of blocks
-    (``plan.ring_keys`` keys, the kernel's DG_MIN_BLOCKS blocks) that
+    (``plan.ring_keys`` keys, a ring of each warp's stages) that
     its blocks fill."""
     blocks = -(-(P * ps) // plan.keys)
     return max(1, -(-blocks // (plan.ring_keys // plan.keys)))
@@ -523,8 +563,7 @@ def _decode_launch_plan(q: torch.Tensor, k_pools: torch.Tensor,
     if route == 0:
         _check(prefill_generic_shape(q.dtype, hd),
                f"{q.dtype} generic decode kernel takes head_dim up to "
-               f"{PREFILL_GENERIC_MAX_HEAD_DIM}"
-               f"{'' if q.dtype == torch.float32 else ', a multiple of 8'} "
+               f"{GENERIC_MAX_HEAD_DIM[q.dtype]} "
                f"(got head_dim {hd}, page_size {ps}, group {G})")
     _check(k_pools.data_ptr() % 16 == 0 and v_pools.data_ptr() % 16 == 0,
            "pools must be 16-byte aligned (16-byte page copies)")
@@ -535,8 +574,8 @@ def _decode_launch_plan(q: torch.Tensor, k_pools: torch.Tensor,
         return route, decode_cluster_plan(B, KV, P, clusters)
     plan = decode_generic_plan(G, ps, hd, q.dtype)
     return route, decode_cluster_plan(
-        B, KV * plan.head_tiles, decode_generic_splits_cap(P, ps, plan),
-        clusters)
+        B, KV * plan.head_tiles * plan.col_tiles,
+        decode_generic_splits_cap(P, ps, plan), clusters)
 
 
 def paged_attention_decode_window(
@@ -736,8 +775,7 @@ def paged_attention_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     if route == 0:
         _check(prefill_generic_shape(q.dtype, hd),
                f"{q.dtype} generic prefill kernel takes head_dim up to "
-               f"{PREFILL_GENERIC_MAX_HEAD_DIM}"
-               f"{'' if q.dtype == torch.float32 else ', a multiple of 8'} "
+               f"{GENERIC_MAX_HEAD_DIM[q.dtype]} "
                f"(got head_dim {hd}, page_size {ps}, group {G})")
     _check(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
            "q and the pools must be 16-byte aligned (16-byte loads)")

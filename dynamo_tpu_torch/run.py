@@ -22,7 +22,9 @@ byte tokenizer. ``--dtype int8`` serves weight-only int8 projections
 ``--num-pages`` and ``--max-batch-size`` override the engine config as
 the JAX launcher maps them (page size, with the prefill chunk kept a
 multiple of it; pages; batch rows); a smaller batch also warms fewer
-decode graphs.
+decode graphs. ``--prefill-token-budget N`` (budgeted prefill mixing),
+``--spec-decode`` and ``--spec-tokens K`` (self-speculative decoding)
+set the engine's scheduler arms as the JAX launcher sets them.
 
 Tensor parallel, under the JAX launcher's flag names
 (``--tensor-parallel-size``, ``--coordinator``, ``--num-processes``,
@@ -90,6 +92,16 @@ def parse_args(argv=None):
                     help="KV pages in the pool")
     ap.add_argument("--max-batch-size", type=int, default=None,
                     help="most requests the engine serves at once")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="self-speculative decoding: prompt-lookup drafts "
+                         "verified in one [B, K+1] forward; greedy rows "
+                         "only (token-identical), others bypass")
+    ap.add_argument("--spec-tokens", type=int, default=4,
+                    help="most draft tokens verified a step (K)")
+    ap.add_argument("--prefill-token-budget", type=int, default=None,
+                    help="cap the prompt tokens prefilled an engine "
+                         "iteration and dispatch a decode window beside "
+                         "them (budgeted prefill mixing)")
     ap.add_argument("--dtype", default="bf16", choices=["bf16", "int8"],
                     help="int8 = weight-only int8 serving (models/quant.py, "
                          "the int8 GEMM kernel): random weights quantized "
@@ -151,7 +163,8 @@ def build_engine_config(args):
     (``dynamo_tpu/run.py`` ``_jax_engine_setup``): its tiny-model config
     or the default, then ``--kv-cache-block-size`` (the prefill chunk
     rounded down to a multiple of it, at least one page),
-    ``--num-pages`` and ``--max-batch-size``, checked as a direct
+    ``--num-pages``, ``--max-batch-size``, ``--prefill-token-budget``
+    and ``--spec-decode`` with ``--spec-tokens``, checked as a direct
     construction is."""
     import dataclasses
 
@@ -173,6 +186,11 @@ def build_engine_config(args):
         overrides["num_pages"] = args.num_pages
     if args.max_batch_size:
         overrides["max_batch"] = args.max_batch_size
+    if args.prefill_token_budget is not None:
+        overrides["prefill_token_budget"] = args.prefill_token_budget
+    if args.spec_decode:
+        overrides["spec_decode"] = True
+        overrides["spec_tokens"] = args.spec_tokens
     return dataclasses.replace(ecfg, **overrides) if overrides else ecfg
 
 

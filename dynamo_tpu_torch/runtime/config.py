@@ -46,6 +46,11 @@ register_env("DYN_JIT_FENCE", None, "engine",
              "Reaction to a CUDA-graph capture after warmup: unset = count "
              "only (stats post_warmup_compiles_total), 'warn' = also log, "
              "'raise' = raise PostWarmupCompileError.")
+register_env("DYN_ASYNC_DETOK", "1", "llm",
+             "Run Backend detokenization on a shared two-thread executor "
+             "instead of the event-loop thread. Chunks of one request stay "
+             "ordered (at most one decode in flight a request); 0 decodes "
+             "inline.")
 register_env("HF_HUB_OFFLINE", "1", "external",
              "Set by dynamo_tpu_torch.llm.tokenizer unless already present: "
              "never hit the HuggingFace hub at serve time.")

@@ -2,8 +2,9 @@
 
 Route 0 of ``ops/csrc/paged_attention.cu`` (``paged_decode_generic_kernel``)
 serves every decode shape outside routes 1-3, in float32, bfloat16 and
-float16: any page size and GQA group, head_dim up to 256 (a multiple of 8
-in 16 bits), the set the generic prefill kernel takes. It runs only on
+float16: any page size and GQA group, any head_dim up to the dtype's
+shared-memory bound (past 256 in value-column tiles), the set the generic
+prefill kernel takes. It runs only on
 the card (tests/test_torch_kernels.py holds it to the plain version
 there). Here, with inputs made with numpy from a seed and held to the JAX
 kernel (``paged_attention_decode_layered`` with ``return_stats``, and the
@@ -11,15 +12,17 @@ window form ``_pool_window_attention_pallas``) in interpret mode:
 
 - the wrapper's plain path (the CPU path) at the generic kernel's shapes:
   groups of 12, 16 and 71 on one kv head, pages of 1, 3, 48 and 256,
-  head_dim 16, 80, 96 and 256 and, in float32, 7; a sliding window with
-  the softcap, rows of length 0; atol 2e-2 in bfloat16 and float16 (one
+  head_dim 7, 16, 20, 80, 96 and 256, and 320 and 512 (two column
+  tiles); a sliding window with the softcap, rows of length 0; atol 2e-2 in bfloat16 and float16 (one
   rounding of the output to the type), atol 1e-5 in float32;
 - an emulation of the kernel's arithmetic in torch at the same shapes and
   tolerances: the plan's head tiles of 16 rows, a row's key blocks (16
   keys in 16 bits, 8 in float32) that cross page boundaries, cut into a
   cluster's splits (``decode_generic_shares``) and dealt to four warps,
   each warp's online softmax, the warps' merge and the splits' fold, the
-  fused window's in-flight keys as blocks of split 0; in 16 bits the
+  fused window's in-flight keys as blocks of split 0, past head_dim 256
+  each value-column tile a block of its own that repeats the scores;
+  in 16 bits the
   probabilities rounded to the type before P V, in float32 both products
   in 3xTF32 with each block's P V summed from zero (a control with one
   TF32 product must miss the tolerance); a page id outside the pool
@@ -33,6 +36,7 @@ window form ``_pool_window_attention_pallas``) in interpret mode:
 
 import asyncio
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -75,14 +79,14 @@ CASES = [("group12_hd96_page48", 96, 48, 12, 1, [0, 1, 47, 130, 300],
          ("page256_hd256", 256, 256, 2, 2, [300, 600, 0], [0, 257, 0],
           None),
          ("float32_hd7", 7, 5, 3, 2, [20, 9], [0, 0], None),
-         ("sliding_softcap", 64, 8, 12, 2, [100, 37, 0], [70, 30, 0], 20.0)]
+         ("sliding_softcap", 64, 8, 12, 2, [100, 37, 0], [70, 30, 0], 20.0),
+         ("hd20_page16", 20, 16, 4, 2, [33, 5], [0, 0], None),
+         ("wide_hd320_page16", 320, 16, 4, 1, [40, 0, 17], [0, 0, 3], None),
+         ("wide_hd512_softcap", 512, 8, 12, 1, [30, 9], [2, 0], 20.0)]
 # the window form's cases (a K = 4 window: start = the row's pool
 # length, -1 for the padding row) and their sliding windows
-WINDOW_CASES = [(CASES[0], None), (CASES[2], None), (CASES[5], 40)]
-
-
-def _cases(dtype):
-    return [c for c in CASES if dtype == "float32" or c[1] % 8 == 0]
+WINDOW_CASES = [(CASES[0], None), (CASES[2], None), (CASES[5], 40),
+                (CASES[8], None)]
 
 
 def _inputs(case, dtype: str, L: int = 2):
@@ -168,7 +172,10 @@ def generic_decode_emulated(q, k_pools, v_pools, layer, table, lengths=None,
     outside the pool or past the table masked and not read) are cut into
     ``splits`` shares (decode_generic_shares); split 0 also walks the
     window's in-flight slots as blocks after its pool blocks. The
-    split's blocks go to four warps in turn; each warp's online softmax
+    split's blocks go to four warps in turn (a ring of plan.stages
+    each); past head_dim 256 each of the plan's value-column tiles is a
+    cluster of its own, which repeats the scores and folds and writes its
+    columns alone; each warp's online softmax
     (exp2 of natural-unit scores times log2 e), S and P V by ``mm`` in
     float32 (each block's P V from zero), in 16 bits float32 products of
     the 16-bit values with P rounded to the type; the warps merged at the
@@ -197,74 +204,75 @@ def generic_decode_emulated(q, k_pools, v_pools, layer, table, lengths=None,
             lo = (min(max(int(qpos[b]) + 1 - int(eff[b]), 0), length)
                   if eff is not None else 0)
         shares = ops.decode_generic_shares(lo, length, P, ps, splits, plan)
-        for kv in range(KV):
-            for h0 in range(0, G, rows):
-                gt = min(G - h0, rows)
-                Q = torch.zeros(rows, hd)
-                Q[:gt] = qf[b, kv * G + h0:kv * G + h0 + gt]
-                parts = []
-                for sp in range(max(len(shares), 1)):
-                    first, nb = shares[sp] if shares else (lo // kb, 0)
-                    blocks = [("pool", first + v) for v in range(nb)]
-                    if window is not None and sp == 0:
-                        blocks += [("win", w) for w in
-                                   range(-(-wk.shape[1] // kb))]
-                    warps = []
-                    for w in range(4):
-                        m = torch.full((rows,), NEG_INF)
-                        l = torch.zeros(rows)
-                        o = torch.zeros(rows, hd)
-                        for kind, j in blocks[w::4]:
-                            slot = torch.arange(j * kb, (j + 1) * kb)
-                            if kind == "pool":
-                                p = slot // ps
-                                page = torch.where(
-                                    p < P, table[b, p.clamp(max=P - 1)].long(),
-                                    torch.tensor(-1))
-                                vis = ((slot >= lo) & (slot < length)
-                                       & (page >= 0) & (page < N))
-                                pc = page.clamp(0, N - 1)
-                                K, V = kf[pc, kv, slot % ps], vf[pc, kv, slot % ps]
-                            else:
-                                floor = (int(qpos[b]) - int(eff[b])
-                                         if eff is not None else -(1 << 31))
-                                vis = ((slot < wk.shape[1]) & (slot < n_win)
-                                       & (int(start[b]) >= 0)
-                                       & (int(start[b]) + slot > floor))
-                                sc = slot.clamp(max=wk.shape[1] - 1)
-                                K = wk[b, sc, kv].float()
-                                V = wv[b, sc, kv].float()
-                            if not vis.any():
-                                continue
-                            zero = torch.zeros(())
-                            K = torch.where(vis[:, None], K, zero)
-                            V = torch.where(vis[:, None], V, zero)
-                            x = (mm(Q, K.T) if f32 else Q @ K.T) * scale
-                            if softcap:
-                                x = softcap * torch.tanh(x / softcap)
-                            mx = torch.where(vis, x, NEG_INF).amax(-1)
-                            m_new = torch.maximum(m, mx)
-                            alpha = e2(m - m_new)
-                            pr = torch.where(vis, e2(x - m_new[:, None]), 0.0)
-                            l = l * alpha + pr.sum(-1)
-                            pv = (mm(pr, V) if f32
-                                  else pr.to(q.dtype).float() @ V)
-                            o = o * alpha[:, None] + pv
-                            m = m_new
-                        warps.append((o, m, l))
-                    M = torch.stack([x[1] for x in warps]).amax(0)
-                    ew = [e2(x[1] - M) for x in warps]
-                    parts.append((sum(e[:, None] * x[0]
-                                      for e, x in zip(ew, warps)),
-                                  M, sum(e * x[2] for e, x in zip(ew, warps))))
-                ms = torch.stack([x[1] for x in parts])      # [S, rows]
-                M = ms.amax(0).clamp(min=NEG_INF)
-                es = e2(ms - M)
-                L = (es * torch.stack([x[2] for x in parts])).sum(0)
-                acc = sum(e[:, None] * x[0] for e, x in zip(es, parts))
-                hs = slice(kv * G + h0, kv * G + h0 + gt)
-                out[b, hs] = (acc / L.clamp(min=1e-9)[:, None])[:gt]
-                m_out[b, hs], l_out[b, hs] = M[:gt], L[:gt]
+        for kv, h0, c0 in itertools.product(range(KV), range(0, G, rows),
+                                            range(0, hd, plan.col_width)):
+            cols = slice(c0, min(c0 + plan.col_width, hd))
+            gt = min(G - h0, rows)
+            Q = torch.zeros(rows, hd)
+            Q[:gt] = qf[b, kv * G + h0:kv * G + h0 + gt]
+            parts = []
+            for sp in range(max(len(shares), 1)):
+                first, nb = shares[sp] if shares else (lo // kb, 0)
+                blocks = [("pool", first + v) for v in range(nb)]
+                if window is not None and sp == 0:
+                    blocks += [("win", w) for w in
+                               range(-(-wk.shape[1] // kb))]
+                warps = []
+                for w in range(4):
+                    m = torch.full((rows,), NEG_INF)
+                    l = torch.zeros(rows)
+                    o = torch.zeros(rows, cols.stop - cols.start)
+                    for kind, j in blocks[w::4]:
+                        slot = torch.arange(j * kb, (j + 1) * kb)
+                        if kind == "pool":
+                            p = slot // ps
+                            page = torch.where(
+                                p < P, table[b, p.clamp(max=P - 1)].long(),
+                                torch.tensor(-1))
+                            vis = ((slot >= lo) & (slot < length)
+                                   & (page >= 0) & (page < N))
+                            pc = page.clamp(0, N - 1)
+                            K, V = kf[pc, kv, slot % ps], vf[pc, kv, slot % ps]
+                        else:
+                            floor = (int(qpos[b]) - int(eff[b])
+                                     if eff is not None else -(1 << 31))
+                            vis = ((slot < wk.shape[1]) & (slot < n_win)
+                                   & (int(start[b]) >= 0)
+                                   & (int(start[b]) + slot > floor))
+                            sc = slot.clamp(max=wk.shape[1] - 1)
+                            K = wk[b, sc, kv].float()
+                            V = wv[b, sc, kv].float()
+                        if not vis.any():
+                            continue
+                        zero = torch.zeros(())
+                        K = torch.where(vis[:, None], K, zero)
+                        V = torch.where(vis[:, None], V[:, cols], zero)
+                        x = (mm(Q, K.T) if f32 else Q @ K.T) * scale
+                        if softcap:
+                            x = softcap * torch.tanh(x / softcap)
+                        mx = torch.where(vis, x, NEG_INF).amax(-1)
+                        m_new = torch.maximum(m, mx)
+                        alpha = e2(m - m_new)
+                        pr = torch.where(vis, e2(x - m_new[:, None]), 0.0)
+                        l = l * alpha + pr.sum(-1)
+                        pv = (mm(pr, V) if f32
+                              else pr.to(q.dtype).float() @ V)
+                        o = o * alpha[:, None] + pv
+                        m = m_new
+                    warps.append((o, m, l))
+                M = torch.stack([x[1] for x in warps]).amax(0)
+                ew = [e2(x[1] - M) for x in warps]
+                parts.append((sum(e[:, None] * x[0]
+                                  for e, x in zip(ew, warps)),
+                              M, sum(e * x[2] for e, x in zip(ew, warps))))
+            ms = torch.stack([x[1] for x in parts])      # [S, rows]
+            M = ms.amax(0).clamp(min=NEG_INF)
+            es = e2(ms - M)
+            L = (es * torch.stack([x[2] for x in parts])).sum(0)
+            acc = sum(e[:, None] * x[0] for e, x in zip(es, parts))
+            hs = slice(kv * G + h0, kv * G + h0 + gt)
+            out[b, hs, cols] = (acc / L.clamp(min=1e-9)[:, None])[:gt]
+            m_out[b, hs], l_out[b, hs] = M[:gt], L[:gt]
     return out, m_out, l_out
 
 
@@ -280,17 +288,14 @@ def _jax_decode(case, dtype, arrays, layer):
             np.asarray(l))
 
 
-@pytest.mark.parametrize("case,dtype", [(c, d) for c in CASES for d in DTYPES
-                                        if c in _cases(d)],
-                         ids=[f"{c[0]}-{d}" for c in CASES for d in DTYPES
-                              if c in _cases(d)])
+@pytest.mark.parametrize("case,dtype", [(c, d) for c in CASES for d in DTYPES],
+                         ids=[f"{c[0]}-{d}" for c in CASES for d in DTYPES])
 def test_generic_decode_plain_and_emulation_match_jax_kernel(case, dtype):
     """At each generic shape, in each dtype, layer 1 of a 2-layer pool:
     the wrapper's plain path and the kernel's emulated arithmetic (a
     cluster of four splits) against the JAX kernel in interpret mode
     (atol 2e-2 in 16 bits, 1e-5 in float32), with the stats (m, l);
-    length-0 rows zero with m = NEG_INF and l = 0. (16 bits take head_dim
-    a multiple of 8 only.)"""
+    length-0 rows zero with m = NEG_INF and l = 0."""
     arrays = _inputs(case, dtype)
     want = _jax_decode(case, dtype, arrays, 1)
     q, kp, vp, table, lengths, lower = _t(dtype, *arrays)
@@ -397,7 +402,7 @@ def test_generic_decode_routes_by_shape(dtype):
     at the float32 set, 16 bits routes 1 and 3 at the bf16 set), and
     every group above 8, page 256 and head_dim 80 or 96 take route 0."""
     dt = getattr(torch, dtype)
-    for _, hd, ps, G, KV, *_ in _cases(dtype):
+    for _, hd, ps, G, KV, *_ in CASES:
         assert ops.decode_route(dt, KV * G, KV, ps, hd) == 0
         assert ops.prefill_generic_shape(dt, hd)
     fast = {"float32": 2, "bfloat16": 1, "float16": 3}[dtype]
@@ -452,16 +457,23 @@ def test_generic_decode_plan_covers_every_pair_once(dtype):
                     # once there are two
                     least = plan.ring_keys // kb // 2 if len(shares) > 1 else 1
                     assert all(n >= least for _, n in shares)
-    for hd in range(1, 257):
-        if not ops.prefill_generic_shape(dt, hd):
-            continue
+    bound = ops.GENERIC_MAX_HEAD_DIM[dt]
+    for hd in range(1, bound + 1):
         plan = ops.decode_generic_plan(4, 16, hd, dt)
         assert plan.head_dim >= hd and plan.head_dim % 16 == 0
         assert plan.keys == (8 if dtype == "float32" else 16)
         assert plan.smem <= ops.SMEM_LIMIT
+        # the wide form (head_dim above 256): fewer stages, value-column
+        # tiles of at most 256 columns
+        assert plan.stages == (3 if hd <= 256 else
+                               1 if dtype == "float32" else 2)
+        assert plan.ring_keys == 4 * plan.stages * plan.keys
+        assert plan.col_tiles == -(-hd // 256)
+        assert plan.col_width * plan.col_tiles >= hd
+        assert plan.col_width * (plan.col_tiles - 1) < hd
         if hd <= 128:
             assert 2 * (plan.smem + 1024) <= 228 * 1024, (hd, plan)
-    for hd in (0, 257, 320):
+    for hd in (0, bound + 1):
         assert not ops.prefill_generic_shape(dt, hd)
 
 

@@ -2,21 +2,26 @@
 
 Route 0 of ``ops/csrc/paged_prefill.cu`` (``paged_prefill_generic_kernel``)
 serves every prefill shape outside routes 1-3, in float32, bfloat16 and
-float16: any page size and GQA group, head_dim up to 256 (a multiple of 8
-in 16 bits). It runs only on the card (tests/test_torch_kernels.py holds
-it to the plain version there). Here, with inputs made with numpy from a
+float16: any page size and GQA group, any head_dim up to the dtype's
+shared-memory bound (``GENERIC_MAX_HEAD_DIM``: 656 in float32, 576 in 16
+bits), past 256 in value-column tiles. It runs only on the card
+(tests/test_torch_kernels.py holds it to the plain version there). Here, with inputs made with numpy from a
 seed and held to the JAX kernel (``paged_attention_prefill``) in
 interpret mode:
 
 - the wrapper's plain path (the CPU path) at the generic kernel's shapes:
   head_dim 96 at page 4, head_dim 16 at page 8, head_dim 80 at page 48,
   a group of 16, 71 heads on one kv head, a sliding window with the
-  softcap, a chunk continuing mid-sequence; atol 2e-2 in bfloat16 and
+  softcap, a chunk continuing mid-sequence, head_dim 20 and 7 (rows that
+  are not 16-byte multiples in 16 bits), head_dim 320 and 512 (two
+  value-column tiles); atol 2e-2 in bfloat16 and
   float16 (one rounding of the output to the type, as
   tests/test_torch_ops.py takes bfloat16), atol 1e-5 in float32;
 - an emulation of the kernel's arithmetic in torch at the same shapes and
   tolerances: the blocks of ``prefill_generic_plan`` (64 (query, head)
-  rows, head tiles past 64 heads), each block's visible extent walked in
+  rows, head tiles past 64 heads, value-column tiles past head_dim 256,
+  each taking the scores over the whole head_dim), each block's visible
+  extent walked in
   key blocks that cross page boundaries, a page id outside the pool
   masked, the online softmax in log2 units; in 16 bits the probabilities
   rounded to the type before P V, in float32 both products in 3xTF32 with
@@ -30,6 +35,7 @@ interpret mode:
 
 import asyncio
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -68,7 +74,11 @@ CASES = [("hd96_page4", 96, 4, 4, 2, 12, 0, None, None, 1),
          ("group16", 64, 16, 16, 1, 8, 5, None, None, 1),
          ("mqa71", 32, 16, 71, 1, 4, 10, None, None, 1),
          ("window_softcap", 64, 8, 4, 2, 16, 24, 7, 20.0, 2),
-         ("mid_sequence", 96, 8, 2, 2, 16, 37, None, None, 2)]
+         ("mid_sequence", 96, 8, 2, 2, 16, 37, None, None, 2),
+         ("hd20", 20, 16, 4, 2, 10, 3, None, None, 2),
+         ("hd7_page4", 7, 4, 2, 2, 9, 0, None, None, 1),
+         ("wide_hd320", 320, 16, 4, 1, 8, 5, None, None, 2),
+         ("wide_hd512_window", 512, 8, 2, 2, 8, 9, 6, 20.0, 1)]
 
 
 def _inputs(case, dtype: str):
@@ -152,7 +162,10 @@ def generic_emulated(q, k_pages, v_pages, table, q_pos, scale,
     units (masked keys -inf), O = O alpha + P V: in float32 both products
     by ``mm`` (each block's P V from zero, added in float32), in 16 bits
     float32 products of the 16-bit values with P rounded to the type.
-    Returns float32 [B, T, H, hd] (padding queries zero)."""
+    Past head_dim 256 each of the plan's value-column tiles is a block of
+    its own, which takes the scores over the whole head_dim and writes
+    its columns alone. Returns float32 [B, T, H, hd] (padding queries
+    zero)."""
     B, T, H, hd = q.shape
     N, KV, ps, _ = k_pages.shape
     P = table.shape[1]
@@ -165,57 +178,52 @@ def generic_emulated(q, k_pages, v_pages, table, q_pos, scale,
     kf, vf, qf = k_pages.float(), v_pages.float(), q.float()
     out = torch.zeros(B, T, H, hd)
     r = torch.arange(plan.rows)
-    for b in range(B):
-        for kv in range(KV):
-            for tile in range(plan.head_tiles):
-                for t0 in range(0, T, tq):
-                    tl, g = r // gt, tile * plan.rows + r % gt
-                    t = t0 + tl
-                    live = (tl < tq) & (g < G) & (t < T)
-                    tc, gc = t.clamp(max=T - 1), g.clamp(max=G - 1)
-                    Q = torch.where(live[:, None], qf[b, tc, kv * G + gc],
-                                    torch.zeros(()))
-                    qp = torch.where(live, q_pos[b, tc].long(),
-                                     torch.tensor(-1))
-                    ts = q_pos[b, t0:t0 + tq].long()
-                    length = int(ts.max()) + 1
-                    minq = int(ts[ts >= 0].min()) if (ts >= 0).any() else 0
-                    lo = min(max(minq + 1 - int(win[b]), 0),
-                             max(length - 1, 0))
-                    j_end = min(-(-length // kb), -(-(P * ps) // kb))
-                    m = torch.full((plan.rows,), ops.NEG_INF)
-                    l = torch.zeros(plan.rows)
-                    o = torch.zeros(plan.rows, hd)
-                    for j in range(lo // kb, j_end):
-                        keys = torch.arange(j * kb, (j + 1) * kb)
-                        p = keys // ps
-                        page = torch.where(
-                            p < P, table[b, p.clamp(max=P - 1)].long(),
-                            torch.tensor(-1))
-                        ok = (page >= 0) & (page < N)
-                        pc, slot = page.clamp(0, N - 1), keys % ps
-                        K = torch.where(ok[:, None], kf[pc, kv, slot],
-                                        torch.zeros(()))
-                        V = torch.where(ok[:, None], vf[pc, kv, slot],
-                                        torch.zeros(()))
-                        s = mm(Q, K.T) if f32 else Q @ K.T
-                        x = s * scale
-                        if softcap:
-                            x = softcap * torch.tanh(x / softcap)
-                        x = x * LOG2E
-                        vis = (ok[None] & (keys[None] <= qp[:, None])
-                               & (keys[None] > qp[:, None] - win[b]))
-                        x = torch.where(vis, x, torch.tensor(float("-inf")))
-                        m_new = torch.maximum(m, x.amax(-1))
-                        alpha = torch.exp2(m - m_new)
-                        pr = torch.exp2(x - m_new[:, None])
-                        l = l * alpha + pr.sum(-1)
-                        pv = (mm(pr, V) if f32
-                              else pr.to(q.dtype).float() @ V)
-                        o = o * alpha[:, None] + pv
-                        m = m_new
-                    o = o / l.clamp(min=1e-9)[:, None]
-                    out[b, t[live], kv * G + g[live]] = o[live]
+    for b, kv, tile, t0, c0 in itertools.product(
+            range(B), range(KV), range(plan.head_tiles), range(0, T, tq),
+            range(0, hd, plan.col_width)):
+        cols = slice(c0, min(c0 + plan.col_width, hd))
+        tl, g = r // gt, tile * plan.rows + r % gt
+        t = t0 + tl
+        live = (tl < tq) & (g < G) & (t < T)
+        tc, gc = t.clamp(max=T - 1), g.clamp(max=G - 1)
+        Q = torch.where(live[:, None], qf[b, tc, kv * G + gc],
+                        torch.zeros(()))
+        qp = torch.where(live, q_pos[b, tc].long(), torch.tensor(-1))
+        ts = q_pos[b, t0:t0 + tq].long()
+        length = int(ts.max()) + 1
+        minq = int(ts[ts >= 0].min()) if (ts >= 0).any() else 0
+        lo = min(max(minq + 1 - int(win[b]), 0), max(length - 1, 0))
+        j_end = min(-(-length // kb), -(-(P * ps) // kb))
+        m = torch.full((plan.rows,), ops.NEG_INF)
+        l = torch.zeros(plan.rows)
+        o = torch.zeros(plan.rows, cols.stop - cols.start)
+        for j in range(lo // kb, j_end):
+            keys = torch.arange(j * kb, (j + 1) * kb)
+            p = keys // ps
+            page = torch.where(p < P, table[b, p.clamp(max=P - 1)].long(),
+                               torch.tensor(-1))
+            ok = (page >= 0) & (page < N)
+            pc, slot = page.clamp(0, N - 1), keys % ps
+            K = torch.where(ok[:, None], kf[pc, kv, slot], torch.zeros(()))
+            V = torch.where(ok[:, None], vf[pc, kv, slot][:, cols],
+                            torch.zeros(()))
+            s = mm(Q, K.T) if f32 else Q @ K.T
+            x = s * scale
+            if softcap:
+                x = softcap * torch.tanh(x / softcap)
+            x = x * LOG2E
+            vis = (ok[None] & (keys[None] <= qp[:, None])
+                   & (keys[None] > qp[:, None] - win[b]))
+            x = torch.where(vis, x, torch.tensor(float("-inf")))
+            m_new = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            pr = torch.exp2(x - m_new[:, None])
+            l = l * alpha + pr.sum(-1)
+            pv = mm(pr, V) if f32 else pr.to(q.dtype).float() @ V
+            o = o * alpha[:, None] + pv
+            m = m_new
+        o = o / l.clamp(min=1e-9)[:, None]
+        out[b, t[live], kv * G + g[live], cols] = o[live]
     return out
 
 
@@ -305,12 +313,24 @@ def test_generic_prefill_routes_by_shape(dtype):
 
 
 def test_generic_prefill_shape_set():
-    """head_dim 1-256 in float32, a multiple of 8 up to 256 in 16 bits."""
-    for hd in range(1, 300):
-        assert ops.prefill_generic_shape(torch.float32, hd) == (hd <= 256)
-        for dt in (torch.bfloat16, torch.float16):
-            assert ops.prefill_generic_shape(dt, hd) == (
-                hd <= 256 and hd % 8 == 0)
+    """Any head_dim from 1 to the dtype's bound: 656 in float32, 576 in
+    bfloat16 and float16; the bound is the shared memory's, the largest
+    head_dim below which the plans of both generic kernels fit a block's
+    227 KB (the next one's does not)."""
+    assert ops.GENERIC_MAX_HEAD_DIM == {torch.float32: 656,
+                                        torch.bfloat16: 576,
+                                        torch.float16: 576}
+    for dt, bound in ops.GENERIC_MAX_HEAD_DIM.items():
+        for hd in range(0, 800):
+            assert ops.prefill_generic_shape(dt, hd) == (1 <= hd <= bound)
+            fits = (ops.prefill_generic_plan(4, 8, hd or 1, dt).smem
+                    <= ops.SMEM_LIMIT
+                    and ops.decode_generic_plan(4, 8, hd or 1, dt).smem
+                    <= ops.SMEM_LIMIT)
+            if hd <= bound:
+                assert fits, (dt, hd)
+            elif hd == bound + 1:
+                assert not fits, (dt, hd)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -338,14 +358,19 @@ def test_generic_prefill_plan_covers_every_pair_once(dtype):
                             seen.append((t, g))
             assert sorted(seen) == [(t, g) for t in range(T)
                                     for g in range(G)], (G, T)
-    for hd in range(1, 257):
-        if not ops.prefill_generic_shape(dt, hd):
-            continue
+    for hd in range(1, ops.GENERIC_MAX_HEAD_DIM[dt] + 1):
         for ps in (1, 4, 8, 48, 64):
             plan = ops.prefill_generic_plan(4, ps, hd, dt)
             assert plan.head_dim >= hd and plan.head_dim % 16 == 0
-            assert plan.keys % 16 == 0 and plan.stages == 2
+            assert plan.keys % (8 if dtype == "float32" else 16) == 0
+            assert plan.stages == 2
             assert plan.smem <= ops.SMEM_LIMIT
+            # value-column tiles of at most 256 columns cover head_dim
+            tiles = [(c, min(c + plan.col_width, hd))
+                     for c in range(0, hd, plan.col_width)]
+            assert len(tiles) == plan.col_tiles == -(-hd // 256)
+            assert plan.col_width % 8 == 0 or plan.col_tiles == 1
+            assert plan.col_pad >= plan.col_width and plan.col_pad <= 256
             if hd <= 128:
                 assert 2 * (plan.smem + 1024) <= 228 * 1024, (hd, plan)
 

@@ -616,7 +616,10 @@ GENERIC_DECODE_SHAPES = [
     *[(dt, 16, 16, 2, 2) for dt in (torch.bfloat16, torch.float16)],
     (torch.float32, 16, 4, 2, 2),
     *[(dt, 192, 32, 6, 2) for dt in (torch.float32, torch.bfloat16,
-                                     torch.float16)]]
+                                     torch.float16)],
+    # 16-bit head_dim 20 and 7 (8-byte copies, 2-byte elements)
+    *[(dt, hd, 16, 4, 2) for dt in (torch.bfloat16, torch.float16)
+      for hd in (20, 7)]]
 
 
 @pytest.mark.cuda
@@ -858,7 +861,7 @@ def test_cuda_generic_decode_plan_matches_the_kernel(cuda_device):
     n = ctypes.c_int(0)
     S = ops.DECODE_BF16_MAX_SPLITS
     for dtype, code in ops._DTYPES.items():
-        for hd in range(1, 300):
+        for hd in range(1, 700):
             inside = ops.prefill_generic_shape(dtype, hd)
             smem = lib.dyn_paged_decode_generic_smem(code, hd)
             assert smem == (ops.decode_generic_plan(4, 8, hd, dtype).smem
@@ -870,7 +873,7 @@ def test_cuda_generic_decode_plan_matches_the_kernel(cuda_device):
                         2 * G, 2, 8, ps, hd, 4, splits, 1.0, 0.0, stream)
                     assert (err == 0) == (inside and splits <= S), (
                         dtype, hd, ps, G, splits)
-        for hd in (7, 16, 96, 128, 256):
+        for hd in (7, 16, 96, 128, 256, 320, 512):
             if not ops.prefill_generic_shape(dtype, hd):
                 continue
             for s in ops.DECODE_CLUSTER_SIZES:
@@ -884,29 +887,55 @@ def test_cuda_generic_decode_plan_matches_the_kernel(cuda_device):
             4, 1, 1.0, 0.0, stream) != 0
 
 
+# head_dim above 256 (the wide form: value-column tiles), in every dtype,
+# up to each dtype's bound
+WIDE_HEAD_DIMS = [(dt, hd) for dt in (torch.float32, torch.bfloat16,
+                                      torch.float16)
+                  for hd in (264, 320, 512, ops.GENERIC_MAX_HEAD_DIM[dt])]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
-@pytest.mark.parametrize("hd", [264, 320, 512])
+@pytest.mark.parametrize("dtype,hd", WIDE_HEAD_DIMS)
 def test_cuda_decode_above_head_dim_256_raises(cuda_device, dtype, hd):
-    """No decode kernel takes head_dim above 256: both wrappers raise
-    ValueError naming the dtype and the shape, in every dtype, and launch
-    nothing."""
-    d = cuda_device
-    pool = torch.zeros(1, 4, 1, 16, hd, dtype=dtype, device=d)
-    q = torch.zeros(1, 12, hd, dtype=dtype, device=d)
-    table = torch.ones(1, 2, dtype=torch.int32, device=d)
-    one = torch.ones(1, dtype=torch.int32, device=d)
-    w = torch.zeros(1, 4, 1, hd, dtype=dtype, device=d)
+    """Head_dim above 256 runs the generic kernel's wide form, in every
+    dtype: both wrappers against their plain versions (stats, softcap,
+    a lower bound, an empty row; every window step), 12 heads on one kv
+    head at page 16; the next head_dim past the dtype's shared-memory
+    bound raises ValueError naming it, and launches nothing."""
+    d, f32 = cuda_device, dtype == torch.float32
+    tol, rtol = (1e-5, 0.0) if f32 else (2e-2, 1e-2)
+    q, kp, vp, table = _decode_pool(12, hd, 16, [3, 0, 2], KV=1,
+                                    dtype=dtype)
     ops.reset_launch_counts()
-    match = (f"{dtype} generic decode kernel takes head_dim up to 256.*got "
-             f"head_dim {hd}, page_size 16, group 12")
+    got = _decode_check(d, q, kp, vp, table, [40, 0, 20], [0, 0, 17],
+                        softcap=30.0, tol=tol, rtol=rtol)
+    assert (got[1] == 0).all()
+    g = torch.Generator().manual_seed(hd)
+    wk = torch.randn(3, 4, 1, hd, generator=g).to(dtype)
+    wv = torch.randn(3, 4, 1, hd, generator=g).to(dtype)
+    start = torch.tensor([40, -1, 20], dtype=torch.int32)
+    for n_win in range(1, 5):
+        qp = (start.clamp(min=0) + n_win - 1).to(torch.int32)
+        args = (q, kp, vp, 1, table, start, qp, wk, wv, n_win)
+        want = window_reference(*args, hd ** -0.5)
+        got = paged_attention_decode_window(
+            *(a.to(d) if torch.is_tensor(a) else a for a in args)).cpu()
+        np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=tol)
+    assert ops.DECODE_ROUTE_LAUNCHES == _counts(ops.DECODE_ROUTES, generic=6)
+    big = ops.GENERIC_MAX_HEAD_DIM[dtype] + 1
+    pool = torch.zeros(1, 4, 1, 16, big, dtype=dtype, device=d)
+    qb = torch.zeros(1, 12, big, dtype=dtype, device=d)
+    one = torch.ones(1, dtype=torch.int32, device=d)
+    w = torch.zeros(1, 4, 1, big, dtype=dtype, device=d)
+    tb = torch.ones(1, 2, dtype=torch.int32, device=d)
+    match = (f"{dtype} generic decode kernel takes head_dim up to "
+             f"{big - 1} .*got head_dim {big}, page_size 16, group 12")
     with pytest.raises(ValueError, match=match):
-        paged_attention_decode_layered(q, pool, pool, 0, table, one)
+        paged_attention_decode_layered(qb, pool, pool, 0, tb, one)
     with pytest.raises(ValueError, match=match):
-        paged_attention_decode_window(q, pool, pool, 0, table, one, one, w, w,
+        paged_attention_decode_window(qb, pool, pool, 0, tb, one, one, w, w,
                                       1)
-    assert sum(ops.DECODE_ROUTE_LAUNCHES.values()) == 0
+    assert sum(ops.DECODE_ROUTE_LAUNCHES.values()) == 6
 
 
 @pytest.mark.cuda
@@ -978,19 +1007,20 @@ def _prefill_masking_bad_pages(q, kp, vp, table, pos, softcap):
 @pytest.mark.parametrize("dtype,tol,rtol", DTYPE_TOLS)
 @pytest.mark.parametrize("hd,ps,G,KV", [(16, 1, 3, 2), (8, 3, 71, 1),
                                         (80, 48, 130, 1), (256, 5, 2, 2),
-                                        (7, 2, 4, 1), (30, 9, 1, 3)])
+                                        (7, 2, 4, 1), (30, 9, 1, 3),
+                                        (20, 16, 4, 2), (320, 16, 4, 2),
+                                        (512, 7, 2, 1)])
 def test_cuda_generic_prefill_odd_shapes(cuda_device, hd, ps, G, KV, dtype,
                                          tol, rtol):
     """The generic kernel where no other route reaches: page sizes of 1,
-    2, 3, 5 and 9 (key blocks over many pages), groups of 71 and 130 (two
-    and three head tiles), head_dim 256, and in float32 head_dim 7 and 30
-    (4- and 8-byte copies); row 1's first two table entries past the pool
-    and negative, whose keys are masked and never read. Held in its
-    dtype's tolerance to the plain version with those keys masked
-    (:func:`_prefill_masking_bad_pages`), which is prefill_reference's
-    where every page is in the pool (row 0)."""
-    if dtype != torch.float32 and hd % 8:
-        pytest.skip("16-bit head_dim must be a multiple of 8")
+    2, 3, 5, 7 and 9 (key blocks over many pages), groups of 71 and 130
+    (two and three head tiles), head_dim 256, head_dim 7, 20 and 30 (4-
+    and 8-byte copies, and 2-byte elements in 16 bits), head_dim 320 and
+    512 (the wide form's column tiles); row 1's first two table entries
+    past the pool and negative, whose keys are masked and never read.
+    Held in its dtype's tolerance to the plain version with those keys
+    masked (:func:`_prefill_masking_bad_pages`), which is
+    prefill_reference's where every page is in the pool (row 0)."""
     d, g = cuda_device, torch.Generator().manual_seed(hd * ps + G)
     T, start = 24, 13
     used = -(-(start + T) // ps)
@@ -1019,6 +1049,47 @@ def test_cuda_generic_prefill_odd_shapes(cuda_device, hd, ps, G, KV, dtype,
     assert (got[1, T - 5:] == 0).all()
     assert ops.PREFILL_ROUTE_LAUNCHES == _counts(ops.PREFILL_ROUTES,
                                                  generic=1)
+
+
+# the verify forward of self-speculative decoding: a [B, K + 1] chunk (K
+# = 4 drafted tokens) that starts anywhere in a page, on every prefill
+# route: (dtype, head_dim, page size, route)
+VERIFY_SHAPES = [(torch.bfloat16, 128, 64, "bf16"),
+                 (torch.float16, 128, 64, "f16"),
+                 (torch.float32, 128, 16, "f32"),
+                 (torch.float32, 96, 64, "generic"),
+                 (torch.bfloat16, 96, 8, "generic")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,ps,route", VERIFY_SHAPES)
+def test_cuda_prefill_verify_chunk_starts_mid_page(cuda_device, dtype, hd,
+                                                   ps, route):
+    """A T = 5 chunk at the 8B's heads (32 on 8 kv heads) whose rows start
+    mid-page, on the page's last slot, on a page boundary and at 1, with
+    a padding row, against the plain version in its dtype's tolerance,
+    one launch on the shape's route."""
+    d, g = cuda_device, torch.Generator().manual_seed(hd + ps)
+    tol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (2e-2, 1e-2)
+    T, KV, G = 5, 8, 4
+    starts = [ps // 2 + 3, ps - 1, 2 * ps, 1, -1]
+    P = 4
+    pos = torch.stack([torch.arange(s, s + T) if s >= 0
+                       else torch.full((T,), -1) for s in starts]).int()
+    N = len(starts) * P + 1
+    kp = torch.randn(N, KV, ps, hd, generator=g).to(dtype)
+    vp = torch.randn(N, KV, ps, hd, generator=g).to(dtype)
+    q = torch.randn(len(starts), T, KV * G, hd, generator=g).to(dtype)
+    table = (torch.randperm(N - 1, generator=g)[:len(starts) * P] + 1
+             ).view(len(starts), P).int()
+    ops.reset_launch_counts()
+    want = paged_attention_prefill(q, kp, vp, table, pos)
+    got = paged_attention_prefill(q.to(d), kp.to(d), vp.to(d), table.to(d),
+                                  pos.to(d)).cpu()
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=tol)
+    assert (got[-1] == 0).all()
+    assert ops.PREFILL_ROUTE_LAUNCHES == _counts(ops.PREFILL_ROUTES,
+                                                 **{route: 1})
 
 
 # ------------------------------------------------------ the float32 routes
@@ -1209,7 +1280,7 @@ def test_cuda_generic_prefill_plan_matches_the_kernel(cuda_device):
     stream = torch.cuda.current_stream().cuda_stream
     scratch = torch.zeros(16, device=cuda_device).data_ptr()
     for dtype, code in ops._DTYPES.items():
-        for hd in range(1, 300):
+        for hd in range(1, 700):
             inside = ops.prefill_generic_shape(dtype, hd)
             if inside:
                 assert plib.dyn_paged_prefill_generic_smem(code, hd) == (
@@ -1227,24 +1298,45 @@ def test_cuda_generic_prefill_plan_matches_the_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
-@pytest.mark.parametrize("hd", [264, 320, 512])
+@pytest.mark.parametrize("dtype,hd", WIDE_HEAD_DIMS)
 def test_cuda_prefill_above_head_dim_256_raises(cuda_device, dtype, hd):
-    """No prefill kernel takes head_dim above 256: the wrapper raises
-    ValueError naming the dtype and the shape, in every dtype, and
-    launches nothing."""
-    d = cuda_device
-    pool = torch.zeros(4, 1, 16, hd, dtype=dtype, device=d)
+    """Head_dim above 256 runs the generic prefill kernel's wide form,
+    in every dtype: a 40-token chunk continuing at position 9 and a row
+    with padding queries, with a sliding window and the softcap, against
+    the plain version at 8B's 32 heads on 8 kv heads; the next head_dim
+    past the dtype's shared-memory bound raises ValueError naming it,
+    and launches nothing."""
+    d, g = cuda_device, torch.Generator().manual_seed(hd)
+    tol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (2e-2, 1e-2)
+    T, ps, KV, G = 40, 16, 8, 4
+    pos = torch.full((2, T), -1, dtype=torch.int32)
+    pos[0] = torch.arange(9, 9 + T)
+    pos[1, :13] = torch.arange(13)
+    kp = torch.randn(9, KV, ps, hd, generator=g).to(dtype)
+    vp = torch.randn(9, KV, ps, hd, generator=g).to(dtype)
+    q = torch.randn(2, T, KV * G, hd, generator=g).to(dtype)
+    table = torch.tensor([[3, 1, 7, 5], [2, 8, 0, 0]], dtype=torch.int32)
+    win = torch.tensor([30, ops.NO_WINDOW], dtype=torch.int32)
     ops.reset_launch_counts()
+    want = paged_attention_prefill(q, kp, vp, table, pos, softcap=30.0,
+                                   eff_win=win)
+    got = paged_attention_prefill(q.to(d), kp.to(d), vp.to(d), table.to(d),
+                                  pos.to(d), softcap=30.0,
+                                  eff_win=win.to(d)).cpu()
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=tol)
+    assert (got[1, 13:] == 0).all()
+    assert ops.PREFILL_ROUTE_LAUNCHES == _counts(ops.PREFILL_ROUTES,
+                                                 generic=1)
+    big = ops.GENERIC_MAX_HEAD_DIM[dtype] + 1
+    pool = torch.zeros(4, 1, 16, big, dtype=dtype, device=d)
     with pytest.raises(ValueError, match=f"{dtype} generic prefill kernel "
-                       f"takes head_dim up to 256.*got head_dim {hd}, "
-                       f"page_size 16, group 4"):
+                       f"takes head_dim up to {big - 1} .*got head_dim "
+                       f"{big}, page_size 16, group 4"):
         paged_attention_prefill(
-            torch.zeros(1, 4, 4, hd, dtype=dtype, device=d), pool, pool,
+            torch.zeros(1, 4, 4, big, dtype=dtype, device=d), pool, pool,
             torch.ones(1, 2, dtype=torch.int32, device=d),
             torch.arange(4, dtype=torch.int32, device=d)[None])
-    assert sum(ops.PREFILL_ROUTE_LAUNCHES.values()) == 0
+    assert sum(ops.PREFILL_ROUTE_LAUNCHES.values()) == 1
 
 
 @pytest.mark.cuda

@@ -1,10 +1,12 @@
 """The launcher's engine-config flags against the JAX launcher's mapping.
 
-``--kv-cache-block-size``, ``--num-pages`` and ``--max-batch-size`` are the
-JAX launcher's flags (``dynamo_tpu/run.py`` parse_args); its
+``--kv-cache-block-size``, ``--num-pages``, ``--max-batch-size``,
+``--prefill-token-budget``, ``--spec-decode`` and ``--spec-tokens`` are
+the JAX launcher's flags (``dynamo_tpu/run.py`` parse_args); its
 ``_jax_engine_setup`` maps them onto its EngineConfig (page size, with the
 prefill chunk rounded down to a multiple of it and at least one page;
-pages; batch rows). The port's ``build_engine_config`` must give the same
+pages; batch rows; the prefill token budget; speculative decoding and
+its draft length). The port's ``build_engine_config`` must give the same
 fields for the same command line, on the tiny preset's config and on the
 default one; a value the config refuses is refused by both.
 """
@@ -15,13 +17,19 @@ from dynamo_tpu import run as jax_run
 from dynamo_tpu_torch import run
 
 FIELDS = ("page_size", "num_pages", "max_batch", "prefill_chunk",
-          "prefill_buckets", "batch_buckets", "page_buckets")
+          "prefill_buckets", "batch_buckets", "page_buckets",
+          "prefill_token_budget", "spec_decode", "spec_tokens",
+          "prefill_priority", "spec_ngram_max", "spec_ngram_min")
 
 FLAGS = [[], ["--kv-cache-block-size", "8"], ["--kv-cache-block-size", "48"],
          ["--kv-cache-block-size", "1000"], ["--num-pages", "300"],
          ["--max-batch-size", "4"],
          ["--kv-cache-block-size", "4", "--num-pages", "64",
-          "--max-batch-size", "2"]]
+          "--max-batch-size", "2"],
+         ["--prefill-token-budget", "256"], ["--spec-decode"],
+         ["--spec-decode", "--spec-tokens", "2"], ["--spec-tokens", "7"],
+         ["--spec-decode", "--spec-tokens", "4", "--prefill-token-budget",
+          "256"]]
 
 
 @pytest.mark.parametrize("model", [[], ["--model", "1b"], ["--model", "8b"]],
@@ -64,3 +72,21 @@ def test_max_batch_size_cuts_the_warmed_decode_grid():
     assert cut["prefill_batches"] == [1, 4]
     assert cut["prefill_lens"] == full["prefill_lens"]
     assert cut["page_buckets"] == full["page_buckets"]
+
+
+def test_spec_flags_parse_and_default_as_the_jax_launcher():
+    """The three scheduler flags' defaults are the JAX launcher's (off,
+    4, None), and ``--spec-tokens 0`` with ``--spec-decode`` is refused by
+    both configs."""
+    args = run.parse_args(["in=http", "out=torch"])
+    jargs = jax_run.parse_args(["in=http", "out=jax"])
+    assert (args.spec_decode, args.spec_tokens, args.prefill_token_budget) \
+        == (jargs.spec_decode, jargs.spec_tokens,
+            jargs.prefill_token_budget) == (False, 4, None)
+    flags = ["--spec-decode", "--spec-tokens", "0"]
+    with pytest.raises(ValueError, match="spec_tokens"):
+        jax_run._jax_engine_setup(
+            jax_run.parse_args(["in=http", "out=jax", *flags]))
+    with pytest.raises(ValueError, match="spec_tokens"):
+        run.build_engine_config(
+            run.parse_args(["in=http", "out=torch", *flags]))
