@@ -262,6 +262,35 @@ Phases; any failure exits non-zero before the result line:
    path against plain path at PATH_LIMITS with a fault control each.
    Prints each engine's ITL mean and max and TTFT (records); its
    launches fill the kernels line's single-step and verify rows.
+16. (run after phase 15, on phase 4's seed-0 8B weights) the distributed
+   runtime (:func:`runtime_phase`). (a) Three processes on the card: the
+   control plane (``python -m dynamo_tpu_torch.runtime.dcp_server``), a
+   worker (the launcher's ``in=dyn://dynamo.llama8b.generate out=torch
+   --model 8b --seed 0 --max-batch-size 4``: the same weights, built and
+   warmed before it attaches) and a frontend (``in=http out=dyn``), each
+   launcher under this script's ``--dyn-role`` stamps. Once the frontend
+   lists the model, phase 4's four requests go at once and one streaming
+   request after them: every request finishes, the stream ends in
+   [DONE], the greedy tokens are phase 4's or first differ where the
+   plain path's top-2 margin is under 0.25 (:func:`margin_rule`); each
+   request's TTFT stages are printed (client send -> frontend receive ->
+   worker handler entry -> engine entry -> first token); after the
+   worker's SIGTERM the frontend lists no model within the lease TTL
+   (10 s), and the worker's serving summary shows no capture after
+   warmup, every decode launch on bf16_mma and every prefill launch on
+   bf16. (b) In this process, two 8B engines on phase 4's weight tensors
+   (``max_batch`` 8, the default pool each), each behind
+   ``serve_token_model`` on its own runtime attachment with a KV event
+   publisher, and the KvRouter, Processor and HTTP service in front: four
+   prompts of one 640-token prefix (10 pages) with their own 32-token
+   suffixes go one by one, then all at once, then a prompt with a fresh
+   prefix. Every request after the first that shares the prefix goes to
+   the worker that holds it (its engine counts >= 640 prefix-hit tokens a
+   repeat, the router's hit rate is above 0), the fresh prefix overlaps
+   nothing, the index holds the stored blocks less the removed ones, no
+   capture after warmup, and the routed greedy tokens are one engine's
+   under the margin rule. Its launches join the served path's rows of
+   the kernels line. Two engines share one card: no speed is concluded.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -1112,7 +1141,11 @@ async def serve_and_check(engine, mdc):
     reference = {"http": solo, "tap": {
         rid: {"prompt_ids": tap.prompt_ids[rid], "tokens": tap.tokens[rid],
               "logprobs": tap.logprobs.get(rid, [])}
-        for rid in served["solo_rids"]}}
+        for rid in served["solo_rids"]},
+        # the cold batch's tokens: phase 16 (a) serves the same four
+        # requests at once through a worker process
+        "batch": {rid: {"prompt_ids": tap.prompt_ids[rid],
+                        "tokens": tap.tokens[rid]} for rid in concurrent}}
     return served, ttft_report, reference
 
 
@@ -4494,40 +4527,42 @@ def check_spec_paths(params, cfg, dev) -> dict:
     return {"sound": sound, "control": control, "limit": limit}
 
 
-def check_spec_tokens(params, cfg, dev, spec: dict, plain_arm: dict) -> dict:
-    """Engine (b)'s greedy tokens against engine (a)'s: equal up to the
-    first position whose top-2 logit margin on the plain path (one
-    forward over the prompt and (a)'s tokens before it) is under the
-    bf16 tolerance of a logit (PATH_LIMITS' window limit); such a
-    position and its margin are reported, any other difference fails."""
+def margin_rule(params, cfg, dev, prompt: list, want: list, got: list,
+                what: str):
+    """``got`` against ``want``, greedy tokens of one prompt from two
+    serving paths: "equal", or equal up to the first position whose top-2
+    logit margin on the plain path (one forward over the prompt and
+    ``want``'s tokens before it) is under the bf16 tolerance of a logit
+    (PATH_LIMITS' window limit); such a position and its margin are
+    reported, any other difference fails."""
     import torch
 
+    first = next((i for i, (x, y) in enumerate(zip(want, got)) if x != y),
+                 None)
+    if first is None and len(want) == len(got):
+        return "equal"
+    first = min(len(want), len(got)) if first is None else first
+    lg = plain_logits(params, cfg, dev, list(prompt) + want[:first])[-1]
+    top2 = torch.topk(lg.float(), 2).values
+    margin = float(top2[0] - top2[1])
+    log(f"  {what}: first difference at generated position {first}, "
+        f"plain-path top-2 margin {margin:.4g}")
     limit = PATH_LIMITS["window_logits"]
+    if margin >= limit:
+        fail(f"{what}: tokens differ at {first}, where the plain path's "
+             f"margin {margin:.4g} >= {limit}")
+    return {"first_difference": first, "plain_margin": margin}
+
+
+def check_spec_tokens(params, cfg, dev, spec: dict, plain_arm: dict) -> dict:
+    """Engine (b)'s greedy tokens against engine (a)'s under
+    :func:`margin_rule`."""
     prompts = {rid: ids for rid, ids, *_ in sync_requests()}
-    report = {}
-    for rid, got in spec["requests"].items():
-        if rid == "sampled":
-            continue
-        want = plain_arm["requests"][rid]["tokens"]
-        a, b = want, got["tokens"]
-        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                     None)
-        if first is None and len(a) == len(b):
-            report[rid] = "equal"
-            continue
-        first = min(len(a), len(b)) if first is None else first
-        ids = prompts[rid] + a[:first]
-        lg = plain_logits(params, cfg, dev, ids)[-1].float()
-        top2 = torch.topk(lg, 2).values
-        margin = float(top2[0] - top2[1])
-        report[rid] = {"first_difference": first, "plain_margin": margin}
-        log(f"  (b) against (a), {rid}: first difference at generated "
-            f"position {first}, plain-path top-2 margin {margin:.4g}")
-        if margin >= limit:
-            fail(f"phase 15: spec tokens of {rid} differ from (a)'s at "
-                 f"{first}, where the plain path's margin {margin:.4g} >= "
-                 f"{limit}")
-    return report
+    return {rid: margin_rule(params, cfg, dev, prompts[rid],
+                             plain_arm["requests"][rid]["tokens"],
+                             got["tokens"],
+                             f"phase 15: (b) against (a), {rid}")
+            for rid, got in spec["requests"].items() if rid != "sampled"}
 
 
 def sync_arms_phase(cfg, dev, params) -> dict:
@@ -4644,6 +4679,528 @@ def sync_arms_phase(cfg, dev, params) -> dict:
         params, cfg, dev, report["b spec"], report["a budget"])
     report["paths"] = check_spec_paths(params, cfg, dev)
     return report
+
+
+# ------------------------------------------- phase 16: distributed runtime
+
+# (a): the worker's endpoint; the frontend must drop the model within the
+# lease TTL (DYN_LEASE_TTL's default) of the worker's SIGTERM
+DYN_ENDPOINT = "dyn://dynamo.llama8b.generate"
+DYN_LEASE_TTL_S = 10.0
+# phase 4's cold batch (request id, kind, prompt, max tokens, stream), sent
+# at once to the frontend, then one more streaming request
+DYN_LONG = ("The quick brown fox jumps over the lazy dog. " * 14)[:600]
+DYN_BATCH = [("r0-stream", "chat", "Tell me about paged attention.", 32,
+              True),
+             ("r1-stream", "chat", DYN_LONG, 32, True),
+             ("r2-unary", "chat", "What is an H100?", 24, False),
+             ("r3-completion", "completion", "Once upon a time", 24, False)]
+DYN_STREAM = ("r4-stream", "chat", "Stream one more answer.", 16, True)
+# (b): a shared prefix of 10 pages of 64 with four 32-token suffixes, then
+# a prompt of the same length with a fresh prefix
+ROUTED_PREFIX, ROUTED_SUFFIX, ROUTED_N = 640, 32, 4
+ROUTED_MAX_TOKENS = 16
+ROUTED_POLL_S = 5.0  # events arrive every 0.25 s (KvEventPublisher)
+
+
+def dyn_role(role: str, stamps: str, argv: list) -> None:
+    """One process of phase 16 (a): the launcher (``run.main(argv)``, as
+    ``python -m dynamo_tpu_torch.run`` runs it) with the smoke's stamps
+    around it, one JSON line per request to ``stamps``: in the frontend
+    the time the HTTP service received the request; in the worker the
+    time its endpoint handler was entered, and the engine's entry, first
+    token, prompt and tokens (time.monotonic, one clock for every process
+    of the machine)."""
+    from dynamo_tpu_torch import run
+
+    out = open(stamps, "a", buffering=1)
+
+    def stamp(rec: dict) -> None:
+        out.write(json.dumps(rec) + "\n")
+
+    if role == "frontend":
+        from dynamo_tpu_torch.llm.http.service import HttpService
+
+        serve = HttpService._serve
+
+        async def _serve(self, request, *a):
+            stamp({"rid": request.headers.get("X-Request-Id"),
+                   "frontend_receive": time.monotonic()})
+            return await serve(self, request, *a)
+
+        HttpService._serve = _serve
+    else:
+        from dynamo_tpu_torch.engine.torch_engine import TorchEngine
+        from dynamo_tpu_torch.runtime.component import ServeHandle
+
+        run_request, generate = ServeHandle._run_request, \
+            TorchEngine.generate
+
+        async def _run_request(self, req_id, *a):
+            stamp({"rid": req_id, "handler_entry": time.monotonic()})
+            await run_request(self, req_id, *a)
+
+        async def _generate(self, request, context):
+            rec = {"rid": context.id, "engine_entry": time.monotonic(),
+                   "prompt": list(request.token_ids), "tokens": []}
+            try:
+                async for o in generate(self, request, context):
+                    if o.token_ids and "first_token" not in rec:
+                        rec["first_token"] = time.monotonic()
+                    rec["tokens"] += list(o.token_ids)
+                    yield o
+            finally:  # the caller may close the stream at its finish
+                stamp(rec)
+
+        ServeHandle._run_request = _run_request
+        TorchEngine.generate = _generate
+    run.main(argv)
+
+
+def read_stamps(*paths) -> dict:
+    """Request id -> every stamp the processes wrote for it."""
+    out = {}
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                rec = json.loads(line)
+                out.setdefault(rec.pop("rid"), {}).update(rec)
+    return out
+
+
+def _stop(procs) -> None:
+    """SIGTERM, then SIGKILL what is still running after 30 s."""
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    for p in procs:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+async def dyn_traffic(base: str, model: str) -> dict:
+    """DYN_BATCH at once, then DYN_STREAM: per request its send time, the
+    time its answer ended and, for a stream, its first chunk with text or
+    a finish (random weights mostly draw ids past the byte tokenizer's
+    256, which decode to no text), and its finish."""
+    import aiohttp
+
+    async def one(s, rid, kind, prompt, n, stream):
+        if kind == "chat":
+            url, body = "/v1/chat/completions", {
+                "model": model, "stream": stream, "max_tokens": n,
+                "messages": [{"role": "user", "content": prompt}]}
+        else:
+            url, body = "/v1/completions", {"model": model, "prompt": prompt,
+                                            "max_tokens": n}
+        sent = time.monotonic()
+        async with s.post(base + url, json=body,
+                          headers={"X-Request-Id": rid}) as r:
+            if r.status != 200:
+                fail(f"phase 16 {rid}: HTTP {r.status}: {await r.text()}")
+            if not stream:
+                fin = (await r.json())["choices"][0]["finish_reason"]
+                return rid, {"sent": sent, "first_content": None,
+                             "end": time.monotonic(), "finish": fin}
+            first, data = None, []
+            async for ln in r.content:
+                ln = ln.decode().strip()
+                if ln.startswith("data: "):
+                    data.append(ln[6:])
+                    if first is None and ln != "data: [DONE]" and any(
+                            (c.get("delta") or {}).get("content")
+                            or c.get("finish_reason")
+                            for c in json.loads(ln[6:])["choices"]):
+                        first = time.monotonic()
+            if not data or data[-1] != "[DONE]":
+                fail(f"phase 16 {rid}: the stream did not end in [DONE]")
+            fin = [c["finish_reason"] for d in data[:-1]
+                   for c in json.loads(d)["choices"] if c.get("finish_reason")]
+            return rid, {"sent": sent, "first_content": first,
+                         "end": time.monotonic(),
+                         "finish": fin[-1] if fin else None}
+
+    async with aiohttp.ClientSession() as s:
+        got = dict(await asyncio.gather(*(one(s, *q) for q in DYN_BATCH)))
+        got.update([await one(s, *DYN_STREAM)])
+    return got
+
+
+def models_listed(base: str):
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(base + "/v1/models", timeout=5) as r:
+            return [m["id"] for m in json.loads(r.read())["data"]]
+    except OSError:
+        return None
+
+
+def dyn_worker_phase(cfg, dev, params, batch_ref, out_dir,
+                     model_args=("--model", "8b", "--seed", "0"),
+                     start_limit_s: float = 300.0) -> dict:
+    """Phase 16 (a): the control plane, a worker and a frontend, three
+    processes on one card (:func:`dyn_role` around the launcher). The
+    worker serves ``model_args`` (phase 4's seed-0 weights) at
+    DYN_ENDPOINT with ``--max-batch-size 4``; once the frontend lists its
+    model, DYN_BATCH goes at once and DYN_STREAM after it. Checks: every
+    request finishes, streams end in [DONE]; the greedy tokens are phase
+    4's (``batch_ref``) under :func:`margin_rule`; after the worker's
+    SIGTERM the frontend lists no model within DYN_LEASE_TTL_S, the worker
+    exits 0 and its serving summary shows no capture after warmup, every
+    decode launch on bf16_mma and every prefill launch on bf16. Prints
+    each request's TTFT stages to the engine's first token, the frontend
+    -> worker hop apart."""
+    dcp_port, http_port = _free_port(), _free_port()
+    dcp = f"127.0.0.1:{dcp_port}"
+    base = f"http://127.0.0.1:{http_port}"
+    stamps = {r: os.path.join(out_dir, f"{r}.stamps") for r in
+              ("frontend", "worker")}
+    logs = {r: os.path.join(out_dir, f"{r}.log") for r in
+            ("dcp", "frontend", "worker")}
+    cmds = {
+        "dcp": [sys.executable, "-m", "dynamo_tpu_torch.runtime.dcp_server",
+                "--port", str(dcp_port)],
+        "worker": [sys.executable, os.path.abspath(__file__), "--dyn-role",
+                   "worker", "--dyn-stamps", stamps["worker"], "--",
+                   f"in={DYN_ENDPOINT}", "out=torch", *model_args,
+                   "--dcp", dcp, "--max-batch-size", "4"],
+        "frontend": [sys.executable, os.path.abspath(__file__), "--dyn-role",
+                     "frontend", "--dyn-stamps", stamps["frontend"], "--",
+                     "in=http", "out=dyn", "--dcp", dcp, "--http-host",
+                     "127.0.0.1", "--http-port", str(http_port)],
+    }
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    procs = {}
+    try:
+        for name in ("dcp", "worker", "frontend"):
+            with open(logs[name], "w") as f:
+                procs[name] = subprocess.Popen(
+                    cmds[name], env=env, cwd=REPO, stdout=f,
+                    stderr=subprocess.STDOUT, start_new_session=True)
+            if name == "dcp":
+                time.sleep(1.0)
+        t0 = time.monotonic()
+        model = model_args[model_args.index("--model") + 1]
+        while models_listed(base) != [model]:
+            for name, p in procs.items():
+                if p.poll() is not None:
+                    fail(f"phase 16: the {name} process exited "
+                         f"({p.returncode}): {_tail(logs[name])}")
+            if time.monotonic() - t0 > start_limit_s:
+                fail(f"phase 16: no model on the frontend after "
+                     f"{start_limit_s:.0f} s: {_tail(logs['worker'])}")
+            time.sleep(0.5)
+        ready_s = time.monotonic() - t0
+        log(f"  the frontend lists {model!r} {ready_s:.1f} s after the "
+            f"processes started")
+        client = asyncio.run(dyn_traffic(base, model))
+        procs["worker"].send_signal(signal.SIGTERM)
+        t_term = time.monotonic()
+        while models_listed(base) != []:
+            if time.monotonic() - t_term > DYN_LEASE_TTL_S:
+                fail(f"phase 16: the frontend still lists "
+                     f"{models_listed(base)} {DYN_LEASE_TTL_S} s after the "
+                     f"worker's SIGTERM")
+            time.sleep(0.05)
+        withdrawn_s = time.monotonic() - t_term
+        rc = procs["worker"].wait(timeout=120)
+        if rc != 0:
+            fail(f"phase 16: the worker exited {rc}: {_tail(logs['worker'])}")
+    finally:
+        _stop(list(procs.values()))
+    with open(logs["worker"]) as f:
+        lines = [ln for ln in f if ln.startswith("serving summary ")]
+    if len(lines) != 1:
+        fail(f"phase 16: {len(lines)} serving summaries in the worker's log")
+    summary = json.loads(lines[0][len("serving summary "):])
+    dec, pf = summary["route_launches"], summary["prefill_route_launches"]
+    if summary["post_warmup_compiles_total"] != 0:
+        fail(f"phase 16: the worker captured graphs after warmup: {summary}")
+    if dec["bf16_mma"] <= 0 or sum(dec.values()) != dec["bf16_mma"] \
+            or pf["bf16"] <= 0 or sum(pf.values()) != pf["bf16"]:
+        fail(f"phase 16: the worker's attention was not all on bf16_mma / "
+             f"bf16: {dec} {pf}")
+    seen = read_stamps(stamps["frontend"], stamps["worker"])
+    stages, tokens = {}, {}
+    for rid, c in client.items():
+        st = seen.get(rid, {})
+        if c["finish"] not in ("length", "stop") or not st.get("tokens"):
+            fail(f"phase 16 {rid}: finish {c['finish']!r}, "
+                 f"{len(st.get('tokens', ()))} tokens")
+        # client send -> frontend receive -> worker handler entry ->
+        # engine entry -> the engine's first token
+        marks = [c["sent"], st["frontend_receive"], st["handler_entry"],
+                 st["engine_entry"], st["first_token"]]
+        names = ["send_to_frontend", "frontend_to_worker",
+                 "worker_to_engine", "engine_first_token"]
+        stages[rid] = {
+            "ttft_ms": (marks[-1] - marks[0]) * 1e3,
+            "stages_ms": {n: (b - a) * 1e3 for n, a, b in
+                          zip(names, marks, marks[1:])},
+            "client_first_content_ms": None if c["first_content"] is None
+            else (c["first_content"] - c["sent"]) * 1e3,
+            "client_end_ms": (c["end"] - c["sent"]) * 1e3,
+            "prompt_tokens": len(st["prompt"]),
+            "tokens": len(st["tokens"])}
+        log(f"  TTFT stages, {rid}: {json.dumps(stages[rid])}")
+        if rid in batch_ref:
+            ref = batch_ref[rid]
+            if st["prompt"] != ref["prompt_ids"]:
+                fail(f"phase 16 {rid}: the worker's prompt ids are not "
+                     f"phase 4's")
+            tokens[rid] = margin_rule(
+                params, cfg, dev, ref["prompt_ids"], ref["tokens"],
+                st["tokens"], f"phase 16 (a): {rid} against phase 4")
+    log(f"  withdrawn {withdrawn_s:.2f} s after SIGTERM; worker summary "
+        f"{json.dumps(summary)}")
+    return {"ready_s": ready_s, "withdrawn_s": withdrawn_s,
+            "summary": summary, "ttft": stages, "tokens_vs_phase4": tokens,
+            "prompt_tokens": {r: s["prompt_tokens"]
+                              for r, s in stages.items()}}
+
+
+async def routed_graph(cfg, dev, params, ecfg, warm: bool = True) -> dict:
+    """Phase 16 (b), the reference's KV-routed graph at full width: two
+    TorchEngines on ``params`` (shared tensors, each its own pool), each
+    served by serve_token_model on its own DistributedRuntime attachment
+    with a KvEventPublisher, and the KvRouter, Processor and HttpService
+    in front. ROUTED_N prompts of one ROUTED_PREFIX-token prefix with
+    their own suffixes go one by one, then all at once, then one prompt
+    with a fresh prefix. Returns what each request did (its worker, its
+    prompt and tokens) and the router's and engines' counters."""
+    import aiohttp
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.torch_engine import TorchEngine
+    from dynamo_tpu_torch.llm.http.service import HttpService
+    from dynamo_tpu_torch.llm.kv_router.protocols import KV_EVENT_SUBJECT
+    from dynamo_tpu_torch.llm.kv_router.router import KvRouter
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.processor import Processor
+    from dynamo_tpu_torch.llm.worker import serve_token_model
+    from dynamo_tpu_torch.ops import paged_attention as ops
+    from dynamo_tpu_torch.runtime.dcp_client import unpack
+    from dynamo_tpu_torch.runtime.runtime import DistributedRuntime
+
+    engines, warm_s = [], []
+    for _ in range(2):
+        t = time.monotonic()
+        eng = TorchEngine(cfg, ecfg, params=params, device=dev)
+        if warm:
+            eng.warmup()
+        warm_s.append(time.monotonic() - t)
+        engines.append(eng)
+    seen = {}
+    solo_generate = engines[0].generate
+    for eng in engines:
+        real = eng.generate
+
+        async def generate(req, ctx, real=real, eng=eng):
+            rec = seen.setdefault(ctx.id, {
+                "prompt": list(req.token_ids), "tokens": [],
+                "engine": engines.index(eng)})
+            async for o in real(req, ctx):
+                rec["tokens"] += list(o.token_ids)
+                yield o
+        eng.generate = generate
+    drts = [await DistributedRuntime.detached()]
+    drts.append(await DistributedRuntime.attach(drts[0].dcp.address))
+    mdc = ModelDeploymentCard(name="routed", kv_block_size=ecfg.page_size)
+    served = [await serve_token_model(d, mdc, e, namespace="dynamo",
+                                      component="routed")
+              for d, e in zip(drts, engines)]
+    events = {"stored": 0, "removed": 0}
+
+    async def count(msg):
+        for ev in unpack(msg.payload):
+            events[ev["kind"]] += len(ev["block_hashes"])
+
+    await drts[0].dcp.subscribe(f"dynamo.routed.{KV_EVENT_SUBJECT}", count)
+    router = KvRouter(drts[0], "dynamo", "routed",
+                      block_size=ecfg.page_size, scrape_interval=0.25, seed=0)
+    await router.start()
+    client = await drts[0].namespace("dynamo").component("routed") \
+        .endpoint("generate_tokens").client()
+    while len(await client.wait_for_instances(30)) < 2:
+        await asyncio.sleep(0.05)
+    processor = Processor(mdc, client, router)
+    svc = HttpService()
+    svc.manager.add_completions_model("routed", processor.completion)
+    await svc.start("127.0.0.1", 0)
+    base = f"http://127.0.0.1:{svc.port}"
+    rng = np.random.RandomState(16)
+    lo, hi = (1000, 100000) if cfg.vocab_size > 100000 else \
+        (0, cfg.vocab_size)
+
+    def ids(n):
+        return [int(t) for t in rng.randint(lo, hi, n)]
+
+    prefix = ids(ROUTED_PREFIX)
+    prompts = [prefix + ids(ROUTED_SUFFIX) for _ in range(ROUTED_N)]
+    fresh = ids(ROUTED_PREFIX + ROUTED_SUFFIX)
+    hits0 = [e.prefix_hit_tokens_total for e in engines]
+    ops.reset_launch_counts()
+    report = {"warmup_s": warm_s, "requests": {}}
+
+    async def send(s, rid, ids):
+        async with s.post(base + "/v1/completions", json={
+                "model": "routed", "prompt": ids,
+                "max_tokens": ROUTED_MAX_TOKENS},
+                headers={"X-Request-Id": rid}) as r:
+            if r.status != 200:
+                fail(f"phase 16 (b) {rid}: HTTP {r.status}: {await r.text()}")
+            fin = (await r.json())["choices"][0]["finish_reason"]
+        if fin not in ("length", "stop"):
+            fail(f"phase 16 (b) {rid}: finish {fin!r}")
+
+    async def indexed(prompt, wid) -> bool:
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < ROUTED_POLL_S:
+            if router.overlap_for(prompt, wid) >= ROUTED_PREFIX // \
+                    ecfg.page_size:
+                return True
+            await asyncio.sleep(0.05)
+        return False
+
+    t0 = time.monotonic()
+    async with aiohttp.ClientSession() as s:
+        await send(s, "seq0", prompts[0])
+        holder = router.scheduler.decisions[-1]["chosen"]
+        for i in range(1, ROUTED_N):
+            if not await indexed(prompts[0], holder):
+                fail(f"phase 16 (b): the index does not hold the first "
+                     f"request's {ROUTED_PREFIX // ecfg.page_size} blocks "
+                     f"on its worker after {ROUTED_POLL_S} s")
+            await send(s, f"seq{i}", prompts[i])
+        await asyncio.gather(*(send(s, f"all{i}", p)
+                               for i, p in enumerate(prompts)))
+        report["fresh_overlap"] = [router.overlap_for(fresh, d.instance_id)
+                                   for d in drts]
+        await send(s, "fresh", fresh)
+    report["serve_s"] = time.monotonic() - t0
+    for _h, pub in served:
+        await pub.flush()
+    await asyncio.sleep(0.5)
+    report["route_launches"] = dict(ops.DECODE_ROUTE_LAUNCHES)
+    report["prefill_route_launches"] = dict(ops.PREFILL_ROUTE_LAUNCHES)
+    wids = [d.instance_id for d in drts]
+    chosen = {d["request_id"]: d["chosen"]
+              for d in router.scheduler.decisions}
+    for rid, rec in seen.items():
+        report["requests"][rid] = {**rec, "worker": wids.index(chosen[rid])}
+    report.update({
+        "holder": wids.index(holder),
+        "router": router.stats(),
+        "events": events,
+        "index_blocks": router.indexer.tree.block_count(),
+        "prefix_hit_tokens": [e.prefix_hit_tokens_total - h
+                              for e, h in zip(engines, hits0)],
+        "post_warmup_compiles_total": [
+            e.stats()["post_warmup_compiles_total"] for e in engines]})
+    await router.stop()
+    await svc.stop()
+    await client.close()
+    for h, pub in served:
+        await h.stop()
+        await pub.stop()
+    # the same prompts on one engine, one at a time: the tokens the
+    # routed requests are held to
+    from dynamo_tpu_torch.llm.protocols.common import (PreprocessedRequest,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    report["solo"] = {}
+    for i, p in enumerate(prompts + [fresh]):
+        toks = []
+        async for o in solo_generate(PreprocessedRequest(
+                token_ids=p, stop=StopConditions(
+                    max_tokens=ROUTED_MAX_TOKENS)), Context(f"solo{i}")):
+            toks += o.token_ids
+        report["solo"][i] = toks
+    report["prompts"] = prompts + [fresh]
+    for e in engines:
+        await e.stop()
+    for d in drts[::-1]:
+        await d.shutdown()
+    return report
+
+
+def check_routed(params, cfg, dev, rep: dict) -> dict:
+    """Phase 16 (b)'s checks: every request after the first that shares
+    the prefix went to the worker that holds it, the router counts its
+    decisions with a hit rate above 0, and that engine counted at least
+    ROUTED_PREFIX hit tokens a repeat; the fresh prefix overlapped
+    nothing on either worker and was served; the index holds the stored
+    blocks less the removed ones; no capture after warmup; the routed
+    greedy tokens are one engine's under :func:`margin_rule`."""
+    reqs = rep["requests"]
+    shared = [r for r in reqs if r != "fresh"]
+    repeats = [r for r in shared if r != "seq0"]
+    if len(shared) != 2 * ROUTED_N or "fresh" not in reqs:
+        fail(f"phase 16 (b): served {sorted(reqs)}")
+    strays = {r: reqs[r]["worker"] for r in repeats
+              if reqs[r]["worker"] != rep["holder"]}
+    if strays:
+        fail(f"phase 16 (b): shared-prefix requests went to the worker "
+             f"without the prefix: {strays}")
+    st = rep["router"]
+    if st["decisions"] != len(reqs) or st["avg_hit_rate"] <= 0:
+        fail(f"phase 16 (b): router stats {st}")
+    hits = rep["prefix_hit_tokens"][rep["holder"]]
+    if hits < ROUTED_PREFIX * len(repeats):
+        fail(f"phase 16 (b): the holding engine counted {hits} prefix hit "
+             f"tokens for {len(repeats)} repeats of {ROUTED_PREFIX}")
+    if rep["fresh_overlap"] != [0, 0]:
+        fail(f"phase 16 (b): the fresh prefix overlapped "
+             f"{rep['fresh_overlap']}")
+    ev = rep["events"]
+    if rep["index_blocks"] != ev["stored"] - ev["removed"] or \
+            ev["stored"] <= 0:
+        fail(f"phase 16 (b): the index holds {rep['index_blocks']} blocks; "
+             f"events stored {ev['stored']}, removed {ev['removed']}")
+    if rep["post_warmup_compiles_total"] != [0, 0]:
+        fail(f"phase 16 (b): captures after warmup "
+             f"{rep['post_warmup_compiles_total']}")
+    tokens = {}
+    for rid, rec in reqs.items():
+        i = ROUTED_N if rid == "fresh" else int(rid[3:])
+        if rec["prompt"] != rep["prompts"][i]:
+            fail(f"phase 16 (b) {rid}: prompt ids changed on the way")
+        tokens[rid] = margin_rule(params, cfg, dev, rec["prompt"],
+                                  rep["solo"][i], rec["tokens"],
+                                  f"phase 16 (b): {rid} against one engine")
+    return tokens
+
+
+def runtime_phase(cfg, dev, params, batch_ref) -> dict:
+    """Phase 16: (a) :func:`dyn_worker_phase`, (b) :func:`routed_graph`
+    and :func:`check_routed` with each engine at ``max_batch`` 8 and the
+    default pool."""
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dyn_")
+    try:
+        t = time.monotonic()
+        worker = dyn_worker_phase(cfg, dev, params, batch_ref, out_dir)
+        worker["seconds"] = time.monotonic() - t
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    t = time.monotonic()
+    routed = asyncio.run(routed_graph(cfg, dev, params,
+                                      EngineConfig(max_batch=8)))
+    routed["checks"] = check_routed(params, cfg, dev, routed)
+    routed["seconds"] = time.monotonic() - t
+    brief = {k: routed[k] for k in (
+        "holder", "router", "events", "index_blocks", "prefix_hit_tokens",
+        "fresh_overlap", "route_launches", "prefill_route_launches",
+        "warmup_s", "serve_s", "seconds")}
+    log(f"  (a) took {worker['seconds']:.1f} s; (b) {json.dumps(brief)}")
+    return {"worker": worker, "routed": routed}
 
 
 def time_step(kp, vp, ctx, B: int, P: int, H: int, g) -> dict:
@@ -4772,6 +5329,12 @@ def time_verify(k0, v0, ctx, B: int, P: int, T: int, H: int, g) -> dict:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--dyn-role"]:
+        # a process of phase 16 (a):
+        #   --dyn-role worker|frontend --dyn-stamps PATH -- <launcher argv>
+        sys.path.insert(0, REPO)
+        dyn_role(sys.argv[2], sys.argv[4], sys.argv[sys.argv.index("--") + 1:])
+        return
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
                     help="also write the full results as JSON here")
@@ -4885,6 +5448,22 @@ def main() -> None:
         row["launches"] = n
         if n <= 0:
             fail(f"{name}: not launched on its served path ({key})")
+    log("phase 16: the distributed runtime: the 8B as a worker process "
+        "behind the frontend process, then two 8B engines behind the KV "
+        "router")
+    dyn_report = runtime_phase(cfg, dev, engine.params, solo_ref["batch"])
+    # phase 16's attention launches join the served path's: the worker's
+    # (its serving summary) and the routed engines'
+    for name, key, route in (("paged_attention_decode", "route_launches",
+                              "bf16_mma"),
+                             ("paged_attention_prefill",
+                              "prefill_route_launches", "bf16")):
+        n = (dyn_report["worker"]["summary"][key][route]
+             + dyn_report["routed"][key][route])
+        row = next(r for r in rows if r["name"] == name)
+        row["launches"] += n
+        if n <= 0:
+            fail(f"{name}: not launched in phase 16")
     # the tp=1 engine leaves the card before the int8 one and the ranks
     del engine
     gc.collect()
@@ -5037,6 +5616,7 @@ def main() -> None:
                        "generic_prefill": generic_report,
                        "mistral_large": mistral_report,
                        "sync_arms": sync_report,
+                       "runtime": dyn_report,
                        "kernels": rows, "int8": int8_report,
                        "int8_gemm_timings": int8_rows,
                        "tp_local_errs": {" ".join(k): v for k, v in

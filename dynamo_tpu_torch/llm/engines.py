@@ -1,9 +1,10 @@
-"""Local engine chains: preprocessor → backend → core engine, in-process.
+"""Engine chains, a copy of ``LocalChatChain``, ``LocalCompletionChain``
+and ``RemoteOpenAIEngine`` from ``dynamo_tpu/llm/engines.py``.
 
-A copy of ``LocalChatChain`` and ``LocalCompletionChain`` from
-``dynamo_tpu/llm/engines.py``: a "core" engine speaks token-level types
-and is wrapped by ``OpenAIPreprocessor`` + ``Backend`` so the HTTP
-service can call it with OpenAI requests.
+A "core" engine speaks token-level types and is wrapped by
+``OpenAIPreprocessor`` + ``Backend`` so the HTTP service can call it with
+OpenAI requests, in-process (the local chains) or on a worker over the
+distributed runtime (``RemoteOpenAIEngine``, the frontend's engine).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import time
 import uuid
 from typing import AsyncIterator, Optional
 
+from ..runtime.component import Client
 from ..runtime.engine import Context
 from .backend import Backend
 from .model_card import ModelDeploymentCard
@@ -101,3 +103,30 @@ class LocalCompletionChain:
                                "total_tokens":
                                    len(pre.token_ids) + completion_tokens}}
                 return
+
+
+class RemoteOpenAIEngine:
+    """Forwards OpenAI-level requests to a worker endpoint over the
+    distributed runtime; the worker streams chunk dicts back in Annotated
+    envelopes. ``mode``/``instance_id`` select routing."""
+
+    def __init__(self, client: Client, mode: str = "round_robin"):
+        self.client = client
+        self.mode = mode
+
+    def __call__(self, request, context: Context) -> AsyncIterator:
+        return self._run(request, context)
+
+    async def _run(self, request, context: Context):
+        payload = request.model_dump(exclude_none=True) \
+            if hasattr(request, "model_dump") else request
+        stream = await self.client.generate(
+            payload, mode=self.mode, context=context)
+        try:
+            async for env in stream:
+                yield env
+        finally:
+            if context.killed:
+                await stream.kill()
+            elif context.stopped:
+                await stream.stop_generating()

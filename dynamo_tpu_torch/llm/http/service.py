@@ -38,6 +38,13 @@ class ModelManager:
     def add_completions_model(self, name: str, engine) -> None:
         self.completion_engines[name] = engine
 
+    def remove_model(self, name: str, model_type: str = "both") -> None:
+        if model_type in ("chat", "both"):
+            self.chat_engines.pop(name, None)
+        if model_type in ("completions", "both"):
+            self.completion_engines.pop(name, None)
+        log.info("removed model %r (type=%s)", name, model_type)
+
     def list_models(self) -> ModelList:
         names = sorted(set(self.chat_engines) | set(self.completion_engines))
         return ModelList(data=[ModelInfo(id=n) for n in names])

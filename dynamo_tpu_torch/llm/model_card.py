@@ -1,9 +1,9 @@
-"""Model Deployment Card (MDC), local only.
+"""Model Deployment Card (MDC), a copy of ``dynamo_tpu/llm/model_card.py``.
 
-A copy of ``dynamo_tpu/llm/model_card.py`` without the control-plane
-publishing: the card bundles what the preprocessor needs to serve a model
-(display name, tokenizer artifact, context length, KV block size) plus a
-content checksum (``mdcsum``).
+The card bundles what the preprocessor needs to serve a model (display
+name, tokenizer artifact, context length, KV block size) plus a content
+checksum (``mdcsum``), and is published to the control-plane KV store
+under ``mdc/<name>`` so frontends and routers read the worker's card.
 """
 
 from __future__ import annotations
@@ -15,7 +15,10 @@ from typing import Optional
 
 import xxhash
 
+from ..runtime.dcp_client import DcpClient, pack, unpack
 from .tokenizer import Tokenizer, load_tokenizer
+
+MDC_PREFIX = "mdc/"
 
 
 @dataclass
@@ -44,6 +47,10 @@ class ModelDeploymentCard:
         }
 
     @classmethod
+    def from_dict(cls, d: dict) -> "ModelDeploymentCard":
+        return cls(**{k: d[k] for k in cls.__dataclass_fields__ if k in d})
+
+    @classmethod
     def from_local_path(cls, path: str, name: Optional[str] = None,
                         **overrides) -> "ModelDeploymentCard":
         """Build a card from a local HF-style model directory."""
@@ -65,3 +72,17 @@ class ModelDeploymentCard:
 
     def load_tokenizer(self) -> Tokenizer:
         return load_tokenizer(self.tokenizer_kind, self.tokenizer_path)
+
+    # ---------------------------------------------------------- KV publish
+
+    def kv_key(self) -> str:
+        return f"{MDC_PREFIX}{self.name}"
+
+    async def publish(self, dcp: DcpClient, lease: int = 0) -> None:
+        await dcp.kv_put(self.kv_key(), pack(self.to_dict()), lease=lease)
+
+    @classmethod
+    async def load(cls, dcp: DcpClient,
+                   name: str) -> Optional["ModelDeploymentCard"]:
+        raw = await dcp.kv_get(f"{MDC_PREFIX}{name}")
+        return cls.from_dict(unpack(raw)) if raw else None

@@ -1,12 +1,35 @@
-"""Launcher for the PyTorch port: ``in=http out=torch``.
+"""Launcher for the PyTorch port: ``in=… out=…``.
 
     python -m dynamo_tpu_torch.run in=http out=torch --model-path DIR
     python -m dynamo_tpu_torch.run in=http out=torch --model 8b
     python -m dynamo_tpu_torch.run in=http out=torch --model 8b --dtype int8
     python -m dynamo_tpu_torch.run in=http out=torch --model tiny --device cpu
+    python -m dynamo_tpu_torch.run in=dyn://ns.comp.generate out=torch \
+        --model 8b --dcp 127.0.0.1:6650                          # worker
+    python -m dynamo_tpu_torch.run in=http out=dyn --dcp 127.0.0.1:6650
+    python -m dynamo_tpu_torch.run in=none out=torch --model tiny
 
-Serves the OpenAI HTTP front end (chat + completions + models + health)
-over :class:`~dynamo_tpu_torch.engine.torch_engine.TorchEngine`. With
+Inputs, as the JAX launcher names them:
+
+- ``in=http``: the OpenAI HTTP front end (chat + completions + models +
+  health). With ``out=torch`` it serves a local engine; with ``out=dyn``
+  it is the standalone frontend: it runs no engine and no device, and
+  serves the models that workers register on the control plane
+  (``llm/http/discovery.py ModelWatcher``).
+- ``in=dyn://namespace.component[.endpoint]``: worker mode. The engine is
+  built and warmed first, then the process attaches to the control plane
+  (``--dcp``, else ``DYN_DCP_ADDRESS``, else an embedded server) and
+  serves the model behind ``OpenAIPreprocessor -> Backend -> engine`` at
+  that endpoint, registered for discovery under its lease
+  (``llm/worker.py serve_openai_model``). ``--endpoint PATH`` overrides
+  the path; a bare ``in=dyn`` serves at
+  ``dyn://<--namespace>.<model slug>.generate``. SIGTERM or SIGINT stops
+  the endpoint (its discovery record goes), then the engine, then
+  revokes the lease (its model entry goes).
+- ``in=none``: build and warm the engine, then idle until a signal.
+
+The engine (``out=torch``) is :class:`~dynamo_tpu_torch.engine.
+torch_engine.TorchEngine`. With
 ``--model-path``, a local HF-style dense checkpoint (``config.json`` and
 safetensors, one file or shards with their index): its config, the
 default ``EngineConfig()``, its weights (``models/loader.py``; each
@@ -38,7 +61,8 @@ Tensor parallel, under the JAX launcher's flag names
     python -m dynamo_tpu_torch.run in=http out=torch --model 8b \
         --tensor-parallel-size 2
 
-Process 0 serves HTTP and schedules; the others follow its dispatches
+Process 0 serves (HTTP, or the worker endpoint: only rank 0 attaches to
+the control plane) and schedules; the others follow its dispatches
 (``TorchEngine.follow``). Rank r runs on ``cuda:{r % device_count}``.
 Where two ranks share a card, NCCL must see them as two hosts (it
 refuses two ranks of one communicator on one device): each rank then
@@ -72,7 +96,7 @@ _T0 = time.monotonic()
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="dynamo_tpu_torch.run",
-        usage="%(prog)s in=http out=torch [flags]")
+        usage="%(prog)s in=<http|dyn://…|none> out=<torch|dyn> [flags]")
     ap.add_argument("io", nargs="*", help="in=… and out=… positionals")
     ap.add_argument("--model-path",
                     help="local HF-style checkpoint directory (config.json "
@@ -85,6 +109,12 @@ def parse_args(argv=None):
                     help="cuda (default) or cpu")
     ap.add_argument("--http-host", default="0.0.0.0")
     ap.add_argument("--http-port", type=int, default=8080)
+    ap.add_argument("--dcp", default=None, help="control-plane address "
+                    "(default: DYN_DCP_ADDRESS or embedded)")
+    ap.add_argument("--namespace", default="dynamo",
+                    help="namespace of a bare in=dyn worker's endpoint")
+    ap.add_argument("--endpoint", default=None,
+                    help="override dyn:// endpoint path")
     ap.add_argument("--no-warmup", action="store_true")
     ap.add_argument("--kv-cache-block-size", type=int, default=None,
                     help="tokens per KV page (the JAX launcher's flag)")
@@ -126,9 +156,23 @@ def parse_args(argv=None):
             args.output = tok[4:]
         else:
             ap.error(f"positional args must be in=…/out=…, got {tok!r}")
-    if args.input != "http" or args.output != "torch":
-        ap.error("this launcher serves in=http out=torch only")
+    front = args.output == "dyn" or args.output.startswith("dyn://")
+    if args.input == "http":
+        if args.output != "torch" and not front:
+            ap.error(f"in=http serves out=torch or out=dyn, not "
+                     f"out={args.output}")
+    elif args.input == "dyn" or args.input.startswith("dyn://") \
+            or args.input == "none":
+        if args.output != "torch":
+            ap.error(f"in={args.input} needs out=torch, not "
+                     f"out={args.output}")
+    else:
+        ap.error(f"unknown in={args.input!r}: this launcher takes in=http, "
+                 f"in=dyn://… and in=none")
     tp = args.tensor_parallel_size
+    if front and tp != 1:
+        ap.error("out=dyn runs no engine: --tensor-parallel-size needs "
+                 "out=torch")
     if tp < 1:
         ap.error("--tensor-parallel-size must be >= 1")
     if args.coordinator and args.num_processes != tp:
@@ -324,19 +368,116 @@ async def serve_http(engine, mdc, host: str, port: int):
     return svc
 
 
-async def run_http(args) -> None:
-    engine, mdc = await asyncio.to_thread(build_engine, args)
-    svc = await serve_http(engine, mdc, args.http_host, args.http_port)
-    log.info("OpenAI frontend on %s:%d serving %r", args.http_host, svc.port,
-             mdc.name)
+async def _wait_for_signal() -> None:
+    """Park until SIGINT or SIGTERM."""
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
     await stop.wait()
+
+
+async def _attach(args):
+    """The control plane of ``--dcp``, else ``DYN_DCP_ADDRESS``, else an
+    embedded server in this process."""
+    from .runtime.config import env_str
+    from .runtime.runtime import DistributedRuntime
+
+    address = args.dcp or env_str("DYN_DCP_ADDRESS")
+    if address:
+        return await DistributedRuntime.attach(address)
+    log.warning("no control plane configured; starting embedded DCP server")
+    return await DistributedRuntime.detached()
+
+
+async def run_http(args) -> None:
+    if args.output != "torch":
+        await run_frontend(args)
+        return
+    engine, mdc = await asyncio.to_thread(build_engine, args)
+    svc = await serve_http(engine, mdc, args.http_host, args.http_port)
+    log.info("OpenAI frontend on %s:%d serving %r", args.http_host, svc.port,
+             mdc.name)
+    await _wait_for_signal()
     await svc.stop()
     await engine.stop()
     _print_summary(engine)
+
+
+async def run_frontend(args) -> None:
+    """``in=http out=dyn``: the HTTP service over the models that workers
+    register on the control plane; no engine, no device."""
+    from .llm.http.discovery import ModelWatcher
+    from .llm.http.service import HttpService, ModelManager
+
+    manager = ModelManager()
+    svc = HttpService(manager)
+    drt = await _attach(args)
+    watcher = ModelWatcher(drt, manager)
+    await watcher.start()
+    await svc.start(args.http_host, args.http_port)
+    log.info("OpenAI frontend on %s:%d, models discovered on the control "
+             "plane", args.http_host, svc.port)
+    await _wait_for_signal()
+    await svc.stop()
+    await watcher.stop()
+    await drt.shutdown()
+
+
+def worker_path(args, mdc) -> str:
+    """The endpoint a worker serves: ``--endpoint``, else the in=dyn://
+    path, else ``dyn://<--namespace>.<model slug>.generate``."""
+    from .llm.worker import _component_slug
+
+    if args.endpoint:
+        return args.endpoint
+    if args.input.startswith("dyn://"):
+        return args.input
+    return f"dyn://{args.namespace}.{_component_slug(mdc)}.generate"
+
+
+async def run_worker(args) -> None:
+    """``in=dyn://ns.comp[.ep]``: serve the engine as a discoverable model
+    worker. The engine is built and warmed before the process attaches, so
+    a frontend never routes to a cold worker."""
+    from .llm.worker import serve_openai_model
+    from .runtime.component import EndpointAddress
+
+    engine, mdc = await asyncio.to_thread(build_engine, args)
+    path = worker_path(args, mdc)
+    addr = EndpointAddress.parse(path)
+    drt = await _attach(args)
+    # chat and completions, as in=http out=torch serves a local engine
+    handle = await serve_openai_model(
+        drt, mdc, engine, namespace=addr.namespace,
+        component=addr.component, endpoint=addr.endpoint,
+        stats_handler=engine.stats, model_type="both")
+    log.info("worker serving %r at %s as instance %x", mdc.name,
+             addr, drt.instance_id)
+    await _wait_for_signal()
+    await handle.stop()
+    await engine.stop()
+    await drt.shutdown()
+    _print_summary(engine)
+
+
+async def run_none(args) -> None:
+    """``in=none``: build and warm the engine, then idle until a signal."""
+    engine, mdc = await asyncio.to_thread(build_engine, args)
+    log.info("engine %s ready (in=none); SIGINT or SIGTERM to exit",
+             mdc.name)
+    await _wait_for_signal()
+    await engine.stop()
+    _print_summary(engine)
+
+
+def run_rank0(args) -> None:
+    if args.input == "http":
+        asyncio.run(run_http(args))
+    elif args.input == "none":
+        asyncio.run(run_none(args))
+    else:
+        asyncio.run(run_worker(args))
 
 
 def run_follower(args) -> None:
@@ -400,7 +541,7 @@ def main(argv=None) -> None:
         ranks = spawn_local_ranks(args, argv)
     try:
         if args.process_id == 0:
-            asyncio.run(run_http(args))
+            run_rank0(args)
         else:
             run_follower(args)
     finally:

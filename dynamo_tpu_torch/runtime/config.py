@@ -1,9 +1,10 @@
 """Environment-variable registry and typed readers.
 
-A copy of the reading half of ``dynamo_tpu/runtime/config.py``: every
-knob the port reads is declared here with a default, an owning component
-and a description, and read through the typed ``env_*`` helpers. Reading
-a name that was never registered raises :class:`UnregisteredEnvVar`.
+A copy of the reading half of ``dynamo_tpu/runtime/config.py`` and of
+its ``RuntimeConfig``: every knob the port reads is declared here with a
+default, an owning component and a description, and read through the
+typed ``env_*`` helpers. Reading a name that was never registered raises
+:class:`UnregisteredEnvVar`.
 """
 
 from __future__ import annotations
@@ -51,6 +52,44 @@ register_env("DYN_ASYNC_DETOK", "1", "llm",
              "instead of the event-loop thread. Chunks of one request stay "
              "ordered (at most one decode in flight a request); 0 decodes "
              "inline.")
+register_env("DYN_DCP_ADDRESS", None, "runtime",
+             "host:port of the DCP control plane. Unset: the launcher "
+             "embeds an in-process server; CLIs fall back to "
+             "127.0.0.1:6650.")
+register_env("DYN_LEASE_TTL", "10.0", "runtime",
+             "Primary-lease TTL in seconds (worker liveness).")
+register_env("DYN_IO_TIMEOUT", "30.0", "runtime",
+             "Bound (seconds) on single network IO steps: connects, "
+             "handshakes, socket-buffer drains.")
+register_env("DYN_REQUEST_TIMEOUT", "60.0", "runtime",
+             "Default request-plane timeout in seconds (the worker's ack).")
+register_env("DYN_STATS_TIMEOUT", "2.0", "runtime",
+             "Per-instance stats-plane scrape probe timeout in seconds.")
+register_env("DYN_TCP_ADVERTISE_HOST", None, "runtime",
+             "Address the response-stream listener advertises to workers "
+             "calling home. Unset = the bind host, or 127.0.0.1 when it "
+             "binds every interface; set a routable address for workers "
+             "on other hosts.")
+register_env("DYN_BREAKER_THRESHOLD", "3", "runtime",
+             "Circuit breakers: consecutive failures that flip an "
+             "endpoint's breaker closed->open.")
+register_env("DYN_BREAKER_PROBE_EVERY", "5", "runtime",
+             "Circuit breakers: an OPEN breaker offers a single half-open "
+             "probe every Nth denied call.")
+register_env("DYN_BREAKER_RESET_S", "0", "runtime",
+             "Circuit breakers: also offer the half-open probe once this "
+             "many seconds have passed since opening (0 = count only).")
+register_env("DYN_RETRY_MAX_ATTEMPTS", "3", "runtime",
+             "RetryPolicy: total attempts (first try included) for route "
+             "resolution and stats scrapes. Retries never run past the "
+             "request deadline.")
+register_env("DYN_RETRY_BASE_MS", "50", "runtime",
+             "RetryPolicy: decorrelated-jitter backoff base in ms.")
+register_env("DYN_RETRY_CAP_MS", "2000", "runtime",
+             "RetryPolicy: backoff ceiling in ms.")
+register_env("DYN_WIRE_VALIDATE", "0", "runtime",
+             "Debug mode: validate every wire frame against the "
+             "runtime/wire.py registry at encode/decode time (1/true).")
 register_env("HF_HUB_OFFLINE", "1", "external",
              "Set by dynamo_tpu_torch.llm.tokenizer unless already present: "
              "never hit the HuggingFace hub at serve time.")
@@ -85,6 +124,12 @@ def env_int(name: str, default: Optional[int] = None) -> Optional[int]:
     return None if val is None else int(val)
 
 
+def env_float(name: str, default: Optional[float] = None
+              ) -> Optional[float]:
+    val = env_str(name, None if default is None else str(default))
+    return None if val is None or val == "" else float(val)
+
+
 def env_bool(name: str, default: bool = False) -> bool:
     """Truthy string values: 1/true/yes/on (case-insensitive)."""
     val = env_str(name)
@@ -104,3 +149,18 @@ def env_set_default(name: str, value: str) -> None:
     """Registered setdefault (import-time offline pins and the like)."""
     _lookup(name)
     os.environ.setdefault(name, value)
+
+
+@dataclass
+class RuntimeConfig:
+    """The distributed runtime's settings, from the environment (the
+    reference also reads a ``DYN_CONFIG_PATH`` overlay file; the port
+    reads the environment only)."""
+
+    dcp_address: Optional[str] = None       # DYN_DCP_ADDRESS; None = embedded
+    lease_ttl: float = 10.0                 # DYN_LEASE_TTL
+
+    @classmethod
+    def from_settings(cls) -> "RuntimeConfig":
+        return cls(dcp_address=env_str("DYN_DCP_ADDRESS"),
+                   lease_ttl=env_float("DYN_LEASE_TTL"))

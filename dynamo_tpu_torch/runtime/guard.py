@@ -1,0 +1,364 @@
+"""Request deadlines, the retry policy and circuit breakers, trimmed
+from ``dynamo_tpu/runtime/guard.py`` to what the port's component model,
+response plane and router use.
+
+- :class:`Deadline` — a monotonic budget that travels with the request:
+  stamped into the DCP request envelope as ``deadline_ms`` (the budget
+  left at send time, so each hop inherits what is left) and enforced
+  wherever time is spent. :func:`bound` is the standard bounded await.
+- :class:`RetryPolicy` — bounded attempts with decorrelated-jitter
+  backoff that never sleeps or retries past the request's deadline.
+- :class:`CircuitBreaker` / :class:`BreakerBoard` — per-endpoint
+  closed -> open -> half-open breakers with a count-based and/or
+  clock-based probe cadence.
+- :func:`counter_inc` / :func:`counter_value` — the guard plane's
+  process-wide counters.
+
+The reference's chaos injection (``DYN_CHAOS``), its blackbox incident
+hooks and the Prometheus rendering of these counters are not part of
+the port.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import random
+import time
+from dataclasses import dataclass, field
+from typing import (Any, AsyncIterator, Awaitable, Callable, Dict,
+                    Optional, Tuple)
+
+from .config import env_float, env_int
+
+log = logging.getLogger("dynamo_tpu_torch.guard")
+
+
+class DeadlineExceeded(asyncio.TimeoutError):
+    """The request's end-to-end budget is spent. Subclasses TimeoutError
+    so existing ``except asyncio.TimeoutError`` waits handle it."""
+
+
+class NoCapacity(RuntimeError):
+    """No instance can take the request right now (none discovered, or
+    every breaker is open): the caller should back off and retry."""
+
+
+# ------------------------------------------------------------------ deadline
+
+
+class Deadline:
+    """Absolute monotonic deadline with an injectable clock.
+
+    The wire representation is the REMAINING budget in ms at encode time
+    (:meth:`to_wire_ms`); the receiving hop rebuilds an absolute deadline
+    against its own clock (:meth:`from_wire_ms`), so clocks never need to
+    agree across hosts and each hop naturally inherits the decremented
+    budget.
+    """
+
+    __slots__ = ("t_end", "clock")
+
+    def __init__(self, t_end: float,
+                 clock: Callable[[], float] = time.monotonic):
+        self.t_end = t_end
+        self.clock = clock
+
+    @classmethod
+    def after_ms(cls, ms: float,
+                 clock: Callable[[], float] = time.monotonic) -> "Deadline":
+        return cls(clock() + ms / 1000.0, clock)
+
+    @classmethod
+    def after_s(cls, seconds: float,
+                clock: Callable[[], float] = time.monotonic) -> "Deadline":
+        return cls(clock() + seconds, clock)
+
+    @classmethod
+    def from_wire_ms(cls, ms: Optional[float],
+                     clock: Callable[[], float] = time.monotonic
+                     ) -> Optional["Deadline"]:
+        """Absent/None/<=0 on the wire = no deadline (legacy peer)."""
+        if ms is None or ms <= 0:
+            return None
+        return cls.after_ms(ms, clock)
+
+    @property
+    def expired(self) -> bool:
+        return self.clock() >= self.t_end
+
+    def remaining_s(self) -> float:
+        return max(0.0, self.t_end - self.clock())
+
+    def remaining_ms(self) -> float:
+        return self.remaining_s() * 1000.0
+
+    def to_wire_ms(self) -> int:
+        """Remaining budget for the next hop, floored at 1ms so a
+        just-about-to-expire request still carries *a* deadline rather
+        than silently becoming unbounded."""
+        return max(1, int(self.remaining_ms()))
+
+    def cap(self, timeout: Optional[float]) -> float:
+        """Bound a per-hop timeout by the remaining budget."""
+        rem = self.remaining_s()
+        return rem if timeout is None else min(timeout, rem)
+
+    def check(self, what: str = "request") -> None:
+        if self.expired:
+            counter_inc("dyn_guard_deadline_exceeded_total")
+            raise DeadlineExceeded(f"deadline exceeded before {what}")
+
+    def __repr__(self) -> str:
+        return f"Deadline(remaining={self.remaining_s():.3f}s)"
+
+
+async def bound(awaitable: Awaitable, *, timeout: Optional[float] = None,
+                deadline: Optional[Deadline] = None,
+                what: str = "wait") -> Any:
+    """The standard bounded await: ``min(timeout, deadline remaining)``.
+
+    Raises :class:`DeadlineExceeded` when the deadline (not the plain
+    timeout) is what ran out, so callers and the HTTP layer can
+    distinguish budget exhaustion (504/"timeout") from a slow hop
+    (retryable).
+    """
+    if deadline is not None:
+        if deadline.expired:
+            # never awaited: close the coroutine so it doesn't warn
+            close = getattr(awaitable, "close", None)
+            if close is not None:
+                close()
+            deadline.check(what)
+        eff = deadline.cap(timeout)
+    else:
+        eff = timeout
+    if eff is None:
+        return await awaitable
+    try:
+        return await asyncio.wait_for(awaitable, eff)
+    except asyncio.TimeoutError:
+        if deadline is not None and deadline.expired:
+            counter_inc("dyn_guard_deadline_exceeded_total")
+            raise DeadlineExceeded(f"deadline exceeded during {what}") \
+                from None
+        raise
+
+
+# --------------------------------------------------------------- retry policy
+
+
+@dataclass
+class RetryPolicy:
+    """Bounded retries with decorrelated-jitter backoff, budget-aware.
+
+    ``attempts(deadline)`` is an async generator yielding attempt indices
+    (0-based); it sleeps the backoff BETWEEN attempts and stops early
+    when the remaining deadline budget cannot cover the next backoff —
+    a retry that must overrun the deadline is never issued.
+    """
+
+    max_attempts: int = 3
+    base_s: float = 0.05
+    cap_s: float = 2.0
+    rng: random.Random = field(default_factory=random.Random)
+    sleep: Callable[[float], Awaitable[None]] = asyncio.sleep
+
+    @classmethod
+    def from_env(cls, rng: Optional[random.Random] = None) -> "RetryPolicy":
+        return cls(
+            max_attempts=env_int("DYN_RETRY_MAX_ATTEMPTS", 3) or 1,
+            base_s=(env_float("DYN_RETRY_BASE_MS", 50.0) or 50.0) / 1000.0,
+            cap_s=(env_float("DYN_RETRY_CAP_MS", 2000.0) or 2000.0) / 1000.0,
+            rng=rng if rng is not None else random.Random())
+
+    def next_backoff(self, prev: Optional[float]) -> float:
+        """Decorrelated jitter (AWS architecture-blog variant):
+        ``min(cap, uniform(base, prev * 3))``."""
+        hi = self.base_s if prev is None else prev * 3.0
+        return min(self.cap_s, self.rng.uniform(self.base_s, max(hi, self.base_s)))
+
+    async def attempts(self, deadline: Optional[Deadline] = None
+                       ) -> AsyncIterator[int]:
+        backoff: Optional[float] = None
+        for i in range(max(1, self.max_attempts)):
+            if deadline is not None and deadline.expired:
+                if i == 0:
+                    deadline.check("first attempt")
+                return  # budget spent mid-retry: stop, caller raises last error
+            yield i
+            if i + 1 >= max(1, self.max_attempts):
+                return
+            backoff = self.next_backoff(backoff)
+            if deadline is not None and deadline.remaining_s() <= backoff:
+                return  # never retry past the deadline
+            counter_inc("dyn_guard_retries_total")
+            await self.sleep(backoff)
+
+    async def run(self, fn: Callable[[], Awaitable[Any]], *,
+                  deadline: Optional[Deadline] = None,
+                  retry_on: Tuple[type, ...] = (Exception,),
+                  what: str = "operation") -> Any:
+        """Call ``fn`` under the policy; re-raises the last error when
+        attempts (or budget) run out. CancelledError and
+        DeadlineExceeded always propagate immediately."""
+        last: Optional[BaseException] = None
+        async for attempt in self.attempts(deadline):
+            try:
+                return await fn()
+            except asyncio.CancelledError:
+                raise
+            except DeadlineExceeded:
+                raise
+            except retry_on as exc:
+                last = exc
+                log.debug("%s attempt %d failed: %r", what, attempt, exc)
+        if last is None:
+            raise DeadlineExceeded(f"no budget left for {what}")
+        raise last
+
+
+# ------------------------------------------------------------ circuit breaker
+
+BREAKER_CLOSED = 0
+BREAKER_OPEN = 1
+BREAKER_HALF_OPEN = 2
+
+
+@dataclass(frozen=True)
+class BreakerConfig:
+    """``threshold`` consecutive failures open the breaker; an open
+    breaker offers a single half-open probe every ``probe_every``-th
+    denied call (deterministic, works on stepped/virtual time) and/or
+    once ``reset_after_s`` has elapsed (0 = count-based only)."""
+
+    threshold: int = 3
+    probe_every: int = 5
+    reset_after_s: float = 0.0
+
+    @classmethod
+    def from_env(cls) -> "BreakerConfig":
+        return cls(threshold=env_int("DYN_BREAKER_THRESHOLD", 3) or 3,
+                   probe_every=env_int("DYN_BREAKER_PROBE_EVERY", 5) or 5,
+                   reset_after_s=env_float("DYN_BREAKER_RESET_S", 0.0) or 0.0)
+
+
+class CircuitBreaker:
+    """closed → open after N consecutive failures → half-open single
+    probe → closed on success / open on failure. Clock injectable for
+    deterministic tests."""
+
+    __slots__ = ("cfg", "clock", "state", "failures", "opened_at",
+                 "denied_since_open", "opened_total", "_probe_inflight")
+
+    def __init__(self, cfg: Optional[BreakerConfig] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.cfg = cfg or BreakerConfig()
+        self.clock = clock
+        self.state = BREAKER_CLOSED
+        self.failures = 0
+        self.opened_at = 0.0
+        self.denied_since_open = 0
+        self.opened_total = 0
+        self._probe_inflight = False
+
+    def allow(self) -> bool:
+        """May a call go through now? In OPEN, denials are counted and
+        every ``probe_every``-th one (or clock expiry) converts to the
+        single half-open probe permit."""
+        if self.state == BREAKER_CLOSED:
+            return True
+        if self.state == BREAKER_HALF_OPEN:
+            if not self._probe_inflight:
+                self._probe_inflight = True
+                return True
+            return False
+        # OPEN
+        self.denied_since_open += 1
+        due = (self.cfg.probe_every > 0
+               and self.denied_since_open % self.cfg.probe_every == 0)
+        if self.cfg.reset_after_s > 0 and \
+                self.clock() - self.opened_at >= self.cfg.reset_after_s:
+            due = True
+        if due:
+            self.state = BREAKER_HALF_OPEN
+            self._probe_inflight = True
+            return True
+        return False
+
+    def release_probe(self) -> None:
+        """A half-open permit was granted but the caller chose a
+        different instance: hand the single probe slot back."""
+        if self.state == BREAKER_HALF_OPEN:
+            self._probe_inflight = False
+
+    def record_success(self) -> None:
+      
+        self.state = BREAKER_CLOSED
+        self.failures = 0
+        self.denied_since_open = 0
+        self._probe_inflight = False
+
+    def record_failure(self) -> None:
+        if self.state == BREAKER_HALF_OPEN:
+            self._open()  # failed probe: straight back to open
+            return
+        self.failures += 1
+        if self.state == BREAKER_CLOSED and \
+                self.failures >= self.cfg.threshold:
+            self._open()
+
+    def _open(self) -> None:
+        self.state = BREAKER_OPEN
+        self.opened_at = self.clock()
+        self.opened_total += 1
+        self.denied_since_open = 0
+        self._probe_inflight = False
+
+    def reset(self) -> None:
+        """External evidence of recovery (fresh discovery put): close."""
+        self.record_success()
+
+
+class BreakerBoard:
+    """Keyed breaker collection for one client (key = (plane, id))."""
+
+    def __init__(self, name: str, cfg: Optional[BreakerConfig] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.name = name
+        self.cfg = cfg or BreakerConfig.from_env()
+        self.clock = clock
+        # shared by every task routing/scraping through one client; all
+        # board methods are sync (atomic under the event loop)
+        self.breakers: Dict[Tuple[str, Any], CircuitBreaker] = {}
+
+    def get(self, plane: str, key: Any) -> CircuitBreaker:
+        br = self.breakers.get((plane, key))
+        if br is None:
+            br = CircuitBreaker(self.cfg, self.clock)
+            self.breakers[(plane, key)] = br
+        return br
+
+    def drop(self, plane: str, key: Any) -> None:
+        self.breakers.pop((plane, key), None)
+
+    def reset(self, plane: str, key: Any) -> None:
+        br = self.breakers.get((plane, key))
+        if br is not None:
+            br.reset()
+
+
+# ------------------------------------------------------------------- counters
+# Process-wide counters of the guard plane (route fallbacks, deadline
+# exhaustions, retries).
+
+_COUNTERS: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], float] = {}
+
+
+def counter_inc(name: str, value: float = 1.0, **labels: str) -> None:
+    key = (name, tuple(sorted(labels.items())))
+    _COUNTERS[key] = _COUNTERS.get(key, 0.0) + value
+
+
+def counter_value(name: str, **labels: str) -> float:
+    return _COUNTERS.get((name, tuple(sorted(labels.items()))), 0.0)
