@@ -291,6 +291,38 @@ Phases; any failure exits non-zero before the result line:
    capture after warmup, and the routed greedy tokens are one engine's
    under the margin rule. Its launches join the served path's rows of
    the kernels line. Two engines share one card: no speed is concluded.
+17. (run after phase 16, on phase 4's seed-0 8B weights) disaggregated
+   prefill/decode (:func:`disagg_phase`): two 8B engines at the default
+   ``EngineConfig``, each its own pool, the prefill engine under a
+   ``PrefillWorker``, the decode engine under ``build_disagg_decode`` on
+   another runtime attachment, served by ``serve_token_model`` with the
+   KV event publisher on the inner engine and the KvRouter, Processor
+   and HttpService in front. (a) ``prefill_only`` of phase 4's long
+   prompt (a variant of its second token: 625 tokens, 10 pages) on the
+   prefill engine, its pages extracted and injected into pages reserved
+   on the decode engine, which hold them bitwise, within bf16 tolerance
+   of a local prefill of the prompt on the decode engine, first token
+   equal or a plain-path near-tie. (b) The threshold set to 32 tokens
+   with ``publish_config`` (the live watch); greedy requests of 16
+   tokens: phase 4's four prompts (17, 41, 55, 625 tokens) one by one,
+   then at once, the 625-token prompt again (its decode-side prefix hit
+   ships 1 page), phase 4's solo long prompt in bulk mode
+   (``chunk_pages=0``), a fresh long prompt int8-compressed, then with
+   the worker stopped and ``prefill_timeout`` 2 s the 41-token prompt,
+   which must fall back. Each request goes where
+   ``DisaggRouter.prefill_remote`` sends it given its reservation's
+   prefix hit, ``remote_fallbacks`` is 0 until the fallback and 1 after,
+   ``pages_ingested`` is the non-cached prompt pages sent, the greedy
+   tokens are phase 4's under the margin rule (the int8 request is held
+   to finishing, its injected pages to s/2 of the bf16 pages), no
+   capture after warmup, the prefill engine replays prefill chunks only,
+   every decode launch on bf16_mma and prefill on bf16, the decode
+   engine prefills only its local and fallback prompts, and its KV
+   events reach the router's index. Prints per remote request the
+   decode-side wait from enqueue until the KV landed, the sender's
+   stages, the receiver's inject seconds and the worker-side TTFT
+   (records: loopback on one card). Its launches join the served path's
+   rows of the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -5203,6 +5235,490 @@ def runtime_phase(cfg, dev, params, batch_ref) -> dict:
     return {"worker": worker, "routed": routed}
 
 
+# ------------------------------------- phase 17: disaggregated prefill/decode
+
+# phase 17: the threshold published live (max_local_prefill_length), the
+# tokens each request decodes, and the fallback request's prefill_timeout
+DISAGG_THRESHOLD = 32
+DISAGG_MAX_TOKENS = 16
+DISAGG_TIMEOUT_S = 2.0
+
+
+def _variant(ids: list, k: int, vocab: int) -> list:
+    """``ids`` with its second token moved by ``k``: every full page's
+    chain hash changes, so no prefix cache holds it."""
+    out = list(ids)
+    out[1] = (out[1] + k) % vocab
+    return out
+
+
+def _prompt_rows(t, n: int):
+    """Pages [L, pages, KV, ps, hd] -> their first n positions."""
+    L, npg, kv, ps, hd = t.shape
+    return t.permute(0, 1, 3, 2, 4).reshape(L, npg * ps, kv, hd)[:, :n]
+
+
+async def disagg_primitives(params, cfg, dev, pre, dec, prompt) -> dict:
+    """Phase 17 (a): prefill_only of ``prompt`` on the prefill engine, its
+    pages extracted and injected into pages reserved on the decode engine
+    (which hold them bitwise), against a local prefill_only of the same
+    prompt on the decode engine (K/V at the prompt's positions within
+    bf16 tolerance, the first token equal or a plain-path near-tie)."""
+    import torch
+
+    from dynamo_tpu_torch.llm.protocols.common import (PreprocessedRequest,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    def req():
+        return PreprocessedRequest(token_ids=list(prompt),
+                                   stop=StopConditions(max_tokens=1))
+
+    out = {"prompt_tokens": len(prompt)}
+    t = time.monotonic()
+    first, pages = await pre.prefill_only(req(), Context("a-remote"))
+    out["prefill_only_s"] = time.monotonic() - t
+    t = time.monotonic()
+    k, v = await pre.extract_pages(pages)
+    out["extract_s"] = time.monotonic() - t
+    res = await dec.reserve_remote(prompt)
+    if res is None or res.skip_pages or len(res.pages) != len(pages):
+        fail(f"phase 17 (a): reservation {res} for {len(pages)} pages")
+    t = time.monotonic()
+    await dec.inject_pages(res.pages, k, v)
+    out["inject_s"] = time.monotonic() - t
+    k2, v2 = await dec.extract_pages(res.pages)
+    if not (torch.equal(k2.view(torch.int16), k.view(torch.int16))
+            and torch.equal(v2.view(torch.int16), v.view(torch.int16))):
+        fail("phase 17 (a): the injected pages are not the extracted ones "
+             "bitwise")
+    local_first, local_pages = await dec.prefill_only(req(),
+                                                      Context("a-local"))
+    lk, lv = await dec.extract_pages(local_pages)
+    atol, rtol = tolerance(torch.bfloat16)
+    n = len(prompt)
+    out["pages"] = len(pages)
+    out["bytes"] = k.nbytes + v.nbytes
+    out["kv_max_abs_err"] = max(
+        max_err(_prompt_rows(a, n), _prompt_rows(b, n))
+        for a, b in ((k, lk), (v, lv)))
+    over = max(excess(_prompt_rows(a, n), _prompt_rows(b, n), atol, rtol)
+               for a, b in ((k, lk), (v, lv)))
+    if over > 0:
+        fail(f"phase 17 (a): remote K/V off the local prefill's by {over} "
+             f"past atol {atol} + rtol {rtol}")
+    out["first_token"] = margin_rule(params, cfg, dev, prompt,
+                                     [local_first], [first],
+                                     "phase 17 (a): the first token")
+    for eng, p in ((pre, pages), (dec, res.pages), (dec, local_pages)):
+        await eng.release_pages(p)
+    return out
+
+
+async def disagg_serving(cfg, dev, params, ref) -> dict:
+    """Phase 17: two TorchEngines at the default EngineConfig on
+    ``params`` (each its own pool), the prefill engine under a
+    PrefillWorker, the decode engine under build_disagg_decode on another
+    runtime attachment, served by serve_token_model with the KV event
+    publisher on the inner engine, and the KvRouter, Processor and
+    HttpService in front. (a) :func:`disagg_primitives`; (b) the traffic
+    of the module docstring. Returns what each request did and the
+    engines', worker's and transfer plane's counters."""
+    import aiohttp
+    import torch
+
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.llm.disagg import PrefillWorker
+    from dynamo_tpu_torch.llm.disagg.decode import build_disagg_decode
+    from dynamo_tpu_torch.llm.disagg.prefill_worker import \
+        DEFAULT_CHUNK_PAGES
+    from dynamo_tpu_torch.llm.disagg.router import publish_config
+    from dynamo_tpu_torch.llm.http.service import HttpService
+    from dynamo_tpu_torch.llm.kv_router.protocols import KV_EVENT_SUBJECT
+    from dynamo_tpu_torch.llm.kv_router.publisher import KvEventPublisher
+    from dynamo_tpu_torch.llm.kv_router.router import KvRouter
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.processor import Processor
+    from dynamo_tpu_torch.llm.worker import serve_token_model
+    from dynamo_tpu_torch.ops import paged_attention as ops
+    from dynamo_tpu_torch.runtime.dcp_client import unpack
+    from dynamo_tpu_torch.runtime.runtime import DistributedRuntime
+
+    rep = {"warmup_s": []}
+    engines = []
+    for _ in range(2):
+        t = time.monotonic()
+        eng = TorchEngine(cfg, EngineConfig(), params=params, device=dev)
+        eng.warmup()
+        rep["warmup_s"].append(time.monotonic() - t)
+        engines.append(eng)
+    pre, dec = engines
+    ps = dec.ecfg.page_size
+    rep["decode_steps"] = dec.ecfg.decode_steps
+    batch = {rid: r["prompt_ids"] for rid, r in ref["batch"].items()}
+    long_rid = max(batch, key=lambda r: len(batch[r]))
+    ops.reset_launch_counts()
+    rep["a"] = await disagg_primitives(
+        params, cfg, dev, pre, dec,
+        _variant(batch[long_rid], 1, cfg.vocab_size))
+
+    # (b): the serving stack
+    drt_d = await DistributedRuntime.detached()
+    drt_p = await DistributedRuntime.attach(drt_d.dcp.address)
+    disagg = await build_disagg_decode(drt_d, dec, namespace="dynamo",
+                                       model="disagg")
+    decisions, waits, sends, injects, seen = [], {}, {}, {}, {}
+    capture = {"on": False, "sent": [], "landed": []}
+    decide = disagg.router.prefill_remote
+
+    def prefill_remote(n, hit, depth=0):
+        remote = decide(n, hit, depth)
+        decisions.append({"len": n, "hit": hit, "depth": depth,
+                          "remote": remote})
+        return remote
+
+    disagg.router.prefill_remote = prefill_remote
+    remote_prefill = disagg._remote_prefill
+
+    async def timed_remote(request, context, res):
+        t = time.monotonic()
+        first = await remote_prefill(request, context, res)
+        waits[context.id] = {"wait_s": time.monotonic() - t,
+                             "landed": first is not None,
+                             "skip_pages": res.skip_pages,
+                             "pages": len(res.pages)}
+        return first
+
+    disagg._remote_prefill = timed_remote
+    generate = disagg.generate
+
+    async def tapped(req, ctx):
+        rec = seen.setdefault(ctx.id, {"prompt": list(req.token_ids),
+                                       "tokens": [], "ttft_s": None})
+        t0 = time.monotonic()
+        async for o in generate(req, ctx):
+            if o.token_ids and rec["ttft_s"] is None:
+                rec["ttft_s"] = time.monotonic() - t0
+            rec["tokens"] += list(o.token_ids)
+            yield o
+
+    disagg.generate = tapped
+    inject_chunk = disagg.transfer._inject_chunk
+
+    async def timed_inject(h, body, st):
+        t = time.monotonic()
+        await inject_chunk(h, body, st)
+        rid = h["request_id"]
+        injects[rid] = injects.get(rid, 0.0) + time.monotonic() - t
+
+    disagg.transfer._inject_chunk = timed_inject
+    chunked, inject_pages = pre.extract_pages_chunked, dec.inject_pages
+
+    async def captured_chunks(page_ids, cp):
+        async for c in chunked(page_ids, cp):
+            if capture["on"]:
+                capture["sent"].append(c[1:3])
+            yield c
+
+    async def captured_inject(page_ids, k, v):
+        if capture["on"]:
+            capture["landed"].append((k, v))
+        await inject_pages(page_ids, k, v)
+
+    pre.extract_pages_chunked = captured_chunks
+    dec.inject_pages = captured_inject
+
+    mdc = ModelDeploymentCard(name="disagg", kv_block_size=ps)
+    handle, wrapper_pub = await serve_token_model(
+        drt_d, mdc, disagg, namespace="dynamo", component="disagg")
+    if wrapper_pub is not None:
+        fail("phase 17: serve_token_model published from the wrapper")
+    events = {"stored": 0, "removed": 0}
+
+    async def count(msg):
+        for ev in unpack(msg.payload):
+            events[ev["kind"]] += len(ev["block_hashes"])
+
+    await drt_d.dcp.subscribe(f"dynamo.disagg.{KV_EVENT_SUBJECT}", count)
+    router = KvRouter(drt_d, "dynamo", "disagg", block_size=ps,
+                      scrape_interval=0.25, seed=0)
+    await router.start()
+    # the publisher runs on the inner engine: the wrapper has no pm
+    pub = KvEventPublisher(drt_d.dcp, "dynamo", "disagg", drt_d.instance_id,
+                           dec)
+    pub.start()
+    client = await drt_d.namespace("dynamo").component("disagg") \
+        .endpoint("generate_tokens").client()
+    await client.wait_for_instances(30)
+    processor = Processor(mdc, client, router)
+    svc = HttpService()
+    svc.manager.add_completions_model("disagg", processor.completion)
+    await svc.start("127.0.0.1", 0)
+    base = f"http://127.0.0.1:{svc.port}"
+    pw = PrefillWorker(drt_p, pre, namespace="dynamo")
+    send_once = pw._send_once
+
+    async def recorded_send(client, req, local_send, remote_dst, first,
+                            stats, deadline=None):
+        await send_once(client, req, local_send, remote_dst, first, stats,
+                        deadline)
+        sends[req.request_id] = {**stats.to_dict(),
+                                 "pages": len(local_send)}
+
+    pw._send_once = recorded_send
+    pw.start()
+    await publish_config(drt_d.dcp, "dynamo", "disagg",
+                         max_local_prefill_length=DISAGG_THRESHOLD)
+    t0 = time.monotonic()
+    while disagg.router.max_local_prefill_length != DISAGG_THRESHOLD:
+        if time.monotonic() - t0 > 10:
+            fail("phase 17: the published threshold never reached the "
+                 "router's watch")
+        await asyncio.sleep(0.02)
+    replays0 = [e.graph_replays() for e in engines]
+    walls = {}
+
+    async def send(s, rid, ids):
+        t = time.monotonic()
+        async with s.post(base + "/v1/completions", json={
+                "model": "disagg", "prompt": ids,
+                "max_tokens": DISAGG_MAX_TOKENS},
+                headers={"X-Request-Id": rid}) as r:
+            if r.status != 200:
+                fail(f"phase 17 {rid}: HTTP {r.status}: {await r.text()}")
+            fin = (await r.json())["choices"][0]["finish_reason"]
+        if fin not in ("length", "stop"):
+            fail(f"phase 17 {rid}: finish {fin!r}")
+        walls[rid] = time.monotonic() - t
+
+    order = sorted(batch, key=lambda r: len(batch[r]))
+    solo = ref["tap"]["solo1"]["prompt_ids"]
+    int8_prompt = _variant(batch[long_rid], 2, cfg.vocab_size)
+    t_serve = time.monotonic()
+    async with aiohttp.ClientSession() as s:
+        for rid in order:
+            await send(s, f"seq-{rid}", batch[rid])
+        await asyncio.gather(*(send(s, f"all-{rid}", batch[rid])
+                               for rid in order))
+        await send(s, f"again-{long_rid}", batch[long_rid])
+        pw.chunk_pages = 0
+        await send(s, "bulk-solo1", solo)
+        pw.chunk_pages = DEFAULT_CHUNK_PAGES
+        pw.compress_kv, capture["on"] = True, True
+        await send(s, "int8-variant", int8_prompt)
+        pw.compress_kv, capture["on"] = False, False
+        rep["fallbacks_before"] = disagg.remote_fallbacks
+        await pw.stop()
+        disagg.prefill_timeout = DISAGG_TIMEOUT_S
+        fb_rid = order[1]
+        await send(s, f"fallback-{fb_rid}", batch[fb_rid])
+    rep["serve_s"] = time.monotonic() - t_serve
+    await pub.flush()
+    await asyncio.sleep(0.5)
+    replays1 = [e.graph_replays() for e in engines]
+    rep["replays"] = {name: {k: replays1[i][k] - replays0[i][k]
+                             for k in replays1[i]}
+                      for i, name in enumerate(("prefill", "decode"))}
+    rep["route_launches"] = dict(ops.DECODE_ROUTE_LAUNCHES)
+    rep["prefill_route_launches"] = dict(ops.PREFILL_ROUTE_LAUNCHES)
+    rep["launches"] = dict(ops.LAUNCHES)
+    rep["replays_total"] = {"prefill": replays1[0], "decode": replays1[1]}
+    rep["index_overlap"] = router.overlap_for(batch[long_rid],
+                                              drt_d.instance_id)
+    rep["index_blocks"] = router.indexer.tree.block_count()
+    rep["events"] = events
+    rep["stats"] = disagg.stats()
+    rep["worker"] = pw.stats()
+    rep["post_warmup_compiles_total"] = [
+        e.stats()["post_warmup_compiles_total"] for e in engines]
+    rep.update(decisions=decisions, waits=waits, sends=sends,
+               injects=injects, walls=walls, requests=seen,
+               capture=capture, long_rid=long_rid, order=order,
+               fallback_rid=f"fallback-{fb_rid}", solo_prompt=solo,
+               int8_prompt=int8_prompt)
+    await router.stop()
+    await svc.stop()
+    await client.close()
+    await handle.stop()
+    await pub.stop()
+    disagg.router.stop()
+    await disagg.transfer.stop()
+    for e in engines:
+        await e.stop()
+    await drt_p.shutdown()
+    await drt_d.shutdown()
+    return rep
+
+
+def check_disagg(params, cfg, dev, rep: dict, ref: dict) -> dict:
+    """Phase 17 (b)'s checks (module docstring); returns the token
+    checks."""
+    import math
+
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.kv_compress import quantize_pages_np
+    from dynamo_tpu_torch.ops import paged_attention as ops
+
+    ps, L = 64, cfg.num_layers
+    reqs, waits = rep["requests"], rep["waits"]
+    # the decisions, request by request: a prompt's first serving finds
+    # no page cached on the decode side, a repeat its full pages but the
+    # last token's ((len - 1) // 64 pages)
+    served, expect = set(), {}
+    for rid in sorted(reqs, key=lambda r: list(rep["walls"]).index(r)):
+        p = tuple(reqs[rid]["prompt"])
+        n = len(p)
+        hit = ((n - 1) // ps) * ps if p in served else 0
+        if not rid.startswith("fallback"):
+            served.add(p)
+        expect[rid] = {"remote": n - hit > DISAGG_THRESHOLD,
+                       "skip_pages": hit // ps,
+                       "send_pages": math.ceil(n / ps) - hit // ps}
+    for rid, e in expect.items():
+        if (rid in waits) != e["remote"]:
+            fail(f"phase 17 {rid}: went {'remote' if rid in waits else 'local'}"
+                 f" where the router's rule sends it "
+                 f"{'remote' if e['remote'] else 'local'}")
+        if e["remote"] and waits[rid]["skip_pages"] != e["skip_pages"]:
+            fail(f"phase 17 {rid}: skip_pages {waits[rid]['skip_pages']}, "
+                 f"predicted {e['skip_pages']}")
+    for d in rep["decisions"]:
+        if d["remote"] != (d["len"] - d["hit"] > DISAGG_THRESHOLD):
+            fail(f"phase 17: router decision {d}")
+    fb = rep["fallback_rid"]
+    landed = {rid for rid, w in waits.items() if w["landed"]}
+    if landed != set(waits) - {fb} or waits[fb]["landed"]:
+        fail(f"phase 17: remote requests that fell back: "
+             f"{sorted(set(waits) - landed)} (only {fb} may)")
+    st = rep["stats"]
+    if (rep["fallbacks_before"], st["remote_fallbacks"]) != (0, 1):
+        fail(f"phase 17: remote_fallbacks {rep['fallbacks_before']} before "
+             f"the fallback request, {st['remote_fallbacks']} after")
+    want_pages = sum(expect[r]["send_pages"] for r in landed)
+    if st["kv_transfer_pages_total"] != want_pages:
+        fail(f"phase 17: {st['kv_transfer_pages_total']} pages ingested, "
+             f"{want_pages} non-cached prompt pages sent")
+    if sorted(rep["sends"]) != sorted(landed):
+        fail(f"phase 17: the worker sent {sorted(rep['sends'])}")
+    for rid in landed:
+        if rep["sends"][rid]["pages"] != expect[rid]["send_pages"]:
+            fail(f"phase 17 {rid}: sent {rep['sends'][rid]['pages']} pages")
+    bulk = rep["sends"]["bulk-solo1"]
+    if bulk["chunks_sent"] != 0 or bulk["pages"] > 31:
+        fail(f"phase 17: the bulk send {bulk}")
+    # routes and launches
+    if rep["post_warmup_compiles_total"] != [0, 0]:
+        fail(f"phase 17: captures after warmup "
+             f"{rep['post_warmup_compiles_total']}")
+    pre_r, dec_r = rep["replays"]["prefill"], rep["replays"]["decode"]
+    if pre_r["decode_window"] or pre_r["decode_step"] or \
+            pre_r["spec_verify"] or pre_r["prefill"] <= 0:
+        fail(f"phase 17: the prefill engine's replays {pre_r}")
+    local = [r for r in reqs if r not in landed]
+    if dec_r["prefill"] != len(local):
+        fail(f"phase 17: the decode engine replayed {dec_r['prefill']} "
+             f"prefill chunks for its {len(local)} local prompts {local}")
+    tot_pre, tot_dec = rep["replays_total"]["prefill"], \
+        rep["replays_total"]["decode"]
+    K = rep["decode_steps"]
+    n_dec = rep["launches"]["paged_attention_decode"]
+    n_pf = rep["launches"]["paged_attention_prefill"]
+    if tot_pre["decode_window"] or n_dec != tot_dec["decode_window"] * L * K:
+        fail(f"phase 17: decode launches {n_dec} are not the decode "
+             f"engine's window replays' ({tot_dec['decode_window']} x "
+             f"{L * K}); prefill engine windows {tot_pre['decode_window']}")
+    if n_pf != (tot_pre["prefill"] + tot_dec["prefill"]) * L:
+        fail(f"phase 17: prefill launches {n_pf} are not the chunk "
+             f"replays' x {L}")
+    if rep["route_launches"] != only(ops.DECODE_ROUTES, "bf16_mma", n_dec):
+        fail(f"phase 17: decode launches by route {rep['route_launches']}")
+    if rep["prefill_route_launches"] != only(ops.PREFILL_ROUTES, "bf16",
+                                             n_pf):
+        fail(f"phase 17: prefill launches by route "
+             f"{rep['prefill_route_launches']}")
+    ev = rep["events"]
+    if rep["index_overlap"] < (len(reqs[f"again-{rep['long_rid']}"][
+            "prompt"]) - 1) // ps:
+        fail(f"phase 17: the router's index holds {rep['index_overlap']} "
+             f"of the long prompt's pages on the decode worker")
+    if rep["index_blocks"] != ev["stored"] - ev["removed"] or \
+            ev["stored"] <= 0:
+        fail(f"phase 17: the index holds {rep['index_blocks']} blocks; "
+             f"events stored {ev['stored']}, removed {ev['removed']}")
+    # int8: finished, and every landed element within s/2 of the bf16
+    # page it came from (plus the bfloat16 rounding of the result, half
+    # an ulp: 2^-8 of its magnitude, and float32 slack)
+    cap = rep["capture"]
+    if not cap["sent"] or len(cap["sent"]) != len(cap["landed"]):
+        fail(f"phase 17: int8 capture {len(cap['sent'])} chunks sent, "
+             f"{len(cap['landed'])} landed")
+    worst = 0.0
+    for (sk, sv), (lk, lv) in zip(cap["sent"], cap["landed"]):
+        for s_, l_ in ((sk, lk), (sv, lv)):
+            _, scale = quantize_pages_np(s_)
+            a = np.abs(s_.float().numpy())
+            err = np.abs(l_.float().numpy() - s_.float().numpy())
+            bound = (scale / 2 + a) * (1 + 2.0 ** -8) - a + scale * 1e-6
+            worst = max(worst, float((err - bound).max()))
+    if worst > 0:
+        fail(f"phase 17: int8 pages past s/2 by {worst}")
+    rep["int8_excess"] = worst
+    cap.clear()
+    if len(reqs["int8-variant"]["tokens"]) < 1:
+        fail("phase 17: the int8 request gave no token")
+    # greedy tokens: phase 4's (its cold batch's; the bulk request phase
+    # 4's solo long prompt), under the margin rule
+    tokens = {}
+    for rid, rec in reqs.items():
+        if rid == "int8-variant":
+            continue
+        if rid == "bulk-solo1":
+            want = ref["tap"]["solo1"]["tokens"]
+        else:
+            want = ref["batch"][rid.split("-", 1)[1]]["tokens"]
+        want = want[:DISAGG_MAX_TOKENS]
+        tokens[rid] = margin_rule(params, cfg, dev, rec["prompt"], want,
+                                  rec["tokens"],
+                                  f"phase 17: {rid} against phase 4")
+    return tokens
+
+
+def disagg_phase(cfg, dev, params, ref) -> dict:
+    """Phase 17: :func:`disagg_serving`, :func:`check_disagg`, and the
+    records it prints (no speed is concluded: loopback on one card)."""
+    t = time.monotonic()
+    rep = asyncio.run(disagg_serving(cfg, dev, params, ref))
+    rep["tokens"] = check_disagg(params, cfg, dev, rep, ref)
+    rep["seconds"] = time.monotonic() - t
+    log(f"  (a) {json.dumps(rep['a'])}")
+    for rid, w in rep["waits"].items():
+        rec = {"prompt_tokens": len(rep["requests"][rid]["prompt"]), **w,
+               "inject_s": rep["injects"].get(rid),
+               "sender": rep["sends"].get(rid),
+               "worker_ttft_s": rep["requests"][rid]["ttft_s"]}
+        log(f"  remote {rid}: {json.dumps(rec)}")
+    for rid, rec in rep["requests"].items():
+        if rid not in rep["waits"]:
+            log(f"  local {rid}: prompt {len(rec['prompt'])} tokens, worker "
+                f"TTFT {rec['ttft_s'] * 1e3:.1f} ms")
+    brief = {k: rep[k] for k in (
+        "warmup_s", "serve_s", "seconds", "replays", "route_launches",
+        "prefill_route_launches", "index_overlap", "index_blocks", "events",
+        "post_warmup_compiles_total", "int8_excess")}
+    brief["decode_stats"] = {k: rep["stats"][k] for k in (
+        "remote_prefills", "local_prefills", "remote_fallbacks",
+        "remote_wait_total_s", "kv_transfer_bytes_total",
+        "kv_transfer_pages_total", "kv_transfer_chunks_total",
+        "kv_transfer_inject_seconds_total")}
+    brief["worker"] = rep["worker"]
+    log(f"  phase 17: {json.dumps(brief)}")
+    for k in ("requests", "decisions", "solo_prompt", "int8_prompt",
+              "capture"):
+        rep.pop(k, None)
+    return rep
+
+
 def time_step(kp, vp, ctx, B: int, P: int, H: int, g) -> dict:
     """The decode kernel in the single-step form the ``decode_steps=1``
     arm launches (paged_attention_decode_layered, no stats, no window),
@@ -5464,6 +5980,18 @@ def main() -> None:
         row["launches"] += n
         if n <= 0:
             fail(f"{name}: not launched in phase 16")
+    log("phase 17: disaggregated prefill/decode: a prefill worker's engine "
+        "computes the 8B's prompts and streams their KV pages into a "
+        "decode engine's pool")
+    disagg_report = disagg_phase(cfg, dev, engine.params, solo_ref)
+    for name, key, route in (("paged_attention_decode", "route_launches",
+                              "bf16_mma"),
+                             ("paged_attention_prefill",
+                              "prefill_route_launches", "bf16")):
+        n = disagg_report[key][route]
+        next(r for r in rows if r["name"] == name)["launches"] += n
+        if n <= 0:
+            fail(f"{name}: not launched in phase 17")
     # the tp=1 engine leaves the card before the int8 one and the ranks
     del engine
     gc.collect()
@@ -5617,6 +6145,7 @@ def main() -> None:
                        "mistral_large": mistral_report,
                        "sync_arms": sync_report,
                        "runtime": dyn_report,
+                       "disagg": disagg_report,
                        "kernels": rows, "int8": int8_report,
                        "int8_gemm_timings": int8_rows,
                        "tp_local_errs": {" ".join(k): v for k, v in

@@ -77,8 +77,19 @@ behind ``Backend`` the same way:
   carry, which equals rank 0's: every rank samples the same tokens from
   the same gathered logits.
 
-Not ported yet: the host KV tier, disaggregation and long-prompt ring
-prefill.
+The disaggregation plane (``jax_engine.py`` ``reserve_remote`` ...
+``submit_prefilled``): a prefill worker's engine runs prompts with
+:meth:`prefill_only` and hands their pages out through
+:meth:`extract_pages` / :meth:`extract_pages_chunked`; a decode engine
+reserves pages for a remote prompt (:meth:`reserve_remote`), takes the
+shipped pages in with :meth:`inject_pages`, written in place into the
+pool the graphs were captured on, and decodes on with
+:meth:`submit_prefilled`. Page copies run on the executor and the
+engine's stream, ordered with the dispatches around them; the
+``PageManager`` calls they make take ``_pm_lock``. Not at ``tp > 1``
+(each rank holds only its heads of the pool).
+
+Not ported yet: the host KV tier and long-prompt ring prefill.
 """
 
 from __future__ import annotations
@@ -109,7 +120,7 @@ from ..runtime.engine import Context
 from ..runtime.slo import LatencyRecorder
 from .cuda_graphs import (PEN_FULL, PEN_NONE, DecodeGraphs,
                           PenaltyBuffers, PrefillGraphs, StepGraphs,
-                          VerifyGraphs, to_host, upload)
+                          VerifyGraphs, to_device, to_host, upload)
 from .jit_fence import CompileFence
 from .kv_manager import ChainHashCache, PageManager
 from .profiler import EngineProfiler, memory_snapshot
@@ -286,6 +297,9 @@ class Sequence:
     queue_wait_s: float = 0.0    # arrival → admission
     last_emit_t: Optional[float] = None  # last token-bearing emission
     hash_cache: Optional[ChainHashCache] = None
+    # disagg prefill-only: the finish leaves the pages allocated for the
+    # caller to extract, then release (release_pages)
+    hold_pages: bool = False
     # the request's eos/stop ids are fixed: built once, on first use (the
     # per-token append and the per-window row check read them)
     _stop_set: Optional[frozenset] = field(default=None, repr=False)
@@ -525,7 +539,11 @@ class TorchEngine:
         # KV bytes per page (both pools), for the memory snapshot
         self._page_bytes = int(
             (self.kv_k.nbytes + self.kv_v.nbytes) // self.ecfg.num_pages)
+        # the scheduler's PageManager calls run on the executor thread;
+        # the disagg plane's (reserve, release, submit) and admission take
+        # _pm_lock, as the JAX engine's do
         self.pm = PageManager(self.ecfg.num_pages, self.ecfg.page_size)
+        self._pm_lock = threading.Lock()
         self.waiting: List[Sequence] = []
         self.prefilling: List[Sequence] = []
         self.running: List[Sequence] = []
@@ -563,6 +581,16 @@ class TorchEngine:
         self.spec_steps = 0
         self.spec_draft_tokens_total = 0
         self.spec_accepted_tokens_total = 0
+
+    @property
+    def role(self) -> str:
+        return self.latency.role
+
+    def set_role(self, role: str) -> None:
+        """Label this engine's serving role (prefill|decode|unified) for
+        the latency histograms; call before serving (earlier
+        observations keep their role)."""
+        self.latency.role = role
 
     # ---------------------------------------------------------- lifecycle
 
@@ -836,6 +864,7 @@ class TorchEngine:
         """The subset of the JAX engine's stats() this engine tracks, under
         the same key names."""
         return {
+            "role": self.role,
             "mesh_shape": self.mesh_shape,
             "mesh_devices": self.mesh_devices,
             "batch_dispatches_total": self.batch_dispatches_total,
@@ -881,12 +910,12 @@ class TorchEngine:
 
     # ------------------------------------------------------- scheduler loop
 
-    def _on_stream(self, fn) -> None:
-        """Run ``fn`` with the engine's device stream current (the stream
-        the decode graphs were captured on), so every dispatch, copy and
-        readback of the engine is ordered on it."""
+    def _on_stream(self, fn, *args):
+        """Run ``fn(*args)`` with the engine's device stream current (the
+        stream the decode graphs were captured on), so every dispatch,
+        copy and readback of the engine is ordered on it."""
         with self.graphs.stream_ctx():
-            fn()
+            return fn(*args)
 
     async def _loop(self) -> None:
         loop = asyncio.get_running_loop()
@@ -1055,12 +1084,14 @@ class TorchEngine:
                          f"context capacity {self.cap_tokens}"))
                 self._finish(seq, "error")
                 continue
-            alloc = self.pm.allocate_sequence(seq.tokens,
-                                              chain=self._chain(seq))
-            if alloc is None or self.pm.available < self.ecfg.watermark_pages:
-                if alloc is not None:
-                    self.pm.release_sequence(alloc[0])
-                break  # out of pages; wait for frees
+            chain = self._chain(seq)
+            with self._pm_lock:
+                alloc = self.pm.allocate_sequence(seq.tokens, chain=chain)
+                if (alloc is None
+                        or self.pm.available < self.ecfg.watermark_pages):
+                    if alloc is not None:
+                        self.pm.release_sequence(alloc[0])
+                    break  # out of pages; wait for frees
             self.waiting.pop(0)
             pages, cached_tokens = alloc
             seq.pages = pages
@@ -1872,6 +1903,8 @@ class TorchEngine:
                              chain=self._chain(seq))
 
     def _release(self, seq: Sequence) -> None:
+        if seq.hold_pages:
+            return  # disagg prefill-only: caller extracts, then releases
         if seq.pages:
             self.pm.release_sequence(seq.pages)
             seq.pages = []
@@ -1911,3 +1944,219 @@ class TorchEngine:
             seq.out.put_nowait(out)
         else:
             self._aio_loop.call_soon_threadsafe(seq.out.put_nowait, out)
+
+    # ------------------------------------------------- disaggregation plane
+    # The JAX engine's primitives for prefill/decode disaggregation
+    # (``jax_engine.py`` ``reserve_remote`` ... ``submit_prefilled``): the
+    # prefill side computes a prompt's KV and hands its pages out as host
+    # tensors [L, n, KV, page_size, hd]; the decode side reserves pages,
+    # takes the shipped pages in place into its pool, and decodes on. The
+    # host KV tier is not ported (``host_pages`` stays 0): where the JAX
+    # engine drains it first (``_drain_kv_tier``), there is nothing to
+    # drain.
+
+    def _single_rank(self, what: str) -> None:
+        if self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError(
+                f"{what} at tp > 1: each rank holds only its heads of the "
+                f"pool (ROADMAP.md queue 1 item 11)")
+
+    async def reserve_remote(self, token_ids: List[int]
+                             ) -> Optional["RemoteReservation"]:
+        """Decode-side page reservation for a remote prefill: claims pages
+        covering the prompt (reusing the longest cached prefix) without
+        admitting a sequence. None when the pool is full, or when the
+        prompt reaches the context capacity (as ``_admit`` refuses it: a
+        reservation past the largest page bucket would need a capture
+        once the sequence decodes)."""
+        if len(token_ids) >= self.cap_tokens:
+            return None
+
+        def _do():
+            with self._pm_lock:
+                alloc = self.pm.allocate_sequence(token_ids)
+            if alloc is None:
+                return None
+            # alloc.restores stays empty: no host tier
+            return RemoteReservation(pages=alloc[0], cached_tokens=alloc[1],
+                                     page_size=self.ecfg.page_size)
+
+        return await asyncio.get_running_loop().run_in_executor(self._exec,
+                                                                _do)
+
+    async def release_pages(self, pages: List[int]) -> None:
+        """Return pages claimed by reserve_remote()/prefill_only()."""
+
+        def _do():
+            with self._pm_lock:
+                self.pm.release_sequence(list(pages))
+
+        await asyncio.get_running_loop().run_in_executor(self._exec, _do)
+
+    def _gather(self, page_ids: List[int]):
+        """Executor thread, engine stream: enqueue the gather of the
+        pages out of both pools and their copy to pinned host memory;
+        returns ([k, v], event), valid once the event has completed."""
+        idx = to_device(np.asarray(page_ids, np.int64), self.device)
+        return to_host(self.kv_k.index_select(1, idx),
+                       self.kv_v.index_select(1, idx))
+
+    @staticmethod
+    def _landed(host: List[torch.Tensor], event) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+        if event is not None:
+            event.synchronize()
+        return host[0], host[1]
+
+    async def extract_pages(self, page_ids: List[int]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gather KV pages to host memory: (k, v) CPU tensors of shape
+        [L, n, KV, page_size, hd] in the pool's dtype. Runs on the
+        executor and the engine's stream, so it is ordered after any
+        window or chunk in flight and before the next one."""
+        self._single_rank("extract_pages")
+        loop = asyncio.get_running_loop()
+        host, event = await loop.run_in_executor(
+            self._exec, self._on_stream, self._gather, list(page_ids))
+        return await loop.run_in_executor(None, self._landed, host, event)
+
+    async def extract_pages_chunked(self, page_ids: List[int],
+                                    chunk_pages: int):
+        """Ranged extract for the streaming transfer plane: yields
+        ``(offset, k, v, seconds)`` per ``chunk_pages``-sized slice of
+        ``page_ids``. Slice i+1's gather and device-to-host copy are
+        enqueued before slice i is yielded, so they run under whatever
+        the consumer does with slice i (compress, socket write).
+        ``seconds`` is the time this chunk cost the consumer: the
+        extract stage of the transfer breakdown."""
+        self._single_rank("extract_pages_chunked")
+        loop = asyncio.get_running_loop()
+        cp = max(int(chunk_pages), 1)
+        slices = [list(page_ids[i:i + cp])
+                  for i in range(0, len(page_ids), cp)]
+        if not slices:
+            return
+        t0 = time.monotonic()
+        pending = await loop.run_in_executor(self._exec, self._on_stream,
+                                             self._gather, slices[0])
+        for i in range(len(slices)):
+            nxt = (loop.run_in_executor(self._exec, self._on_stream,
+                                        self._gather, slices[i + 1])
+                   if i + 1 < len(slices) else None)
+            k, v = await loop.run_in_executor(None, self._landed, *pending)
+            yield i * cp, k, v, time.monotonic() - t0
+            t0 = time.monotonic()
+            if nxt is not None:
+                pending = await nxt
+
+    async def inject_pages(self, page_ids: List[int], k: torch.Tensor,
+                           v: torch.Tensor) -> None:
+        """Write host KV pages [L, n, KV, page_size, hd] (CPU tensors)
+        into the pool at ``page_ids``, in place: the graphs were captured
+        on these pools, so they are never rebound. Returns once the
+        host-to-device copy has landed (the caller may free the host
+        buffers and start decoding on the pages)."""
+        self._single_rank("inject_pages")
+
+        def _do():
+            idx = to_device(np.asarray(page_ids, np.int64), self.device)
+            for pool, rows in ((self.kv_k, k), (self.kv_v, v)):
+                if self.device.type == "cuda":
+                    rows = rows.contiguous().pin_memory().to(
+                        self.device, non_blocking=True)
+                pool.index_copy_(1, idx, rows.to(pool.dtype))
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+
+        await asyncio.get_running_loop().run_in_executor(
+            self._exec, self._on_stream, _do)
+
+    async def prefill_only(self, request: PreprocessedRequest,
+                           context: Context) -> Tuple[int, List[int]]:
+        """Prefill worker path: compute the prompt's KV and sample the
+        first token, holding the pages for extraction. Returns
+        (first_token, page_ids); the caller MUST release_pages(page_ids)
+        when done. The job finishes on its first token (``max_tokens``
+        1), so it never enters a decode window; its finish is emitted
+        where the scheduler would have released its pages."""
+        import copy
+
+        self._single_rank("prefill_only")
+        req = copy.copy(request)
+        req.stop = copy.copy(request.stop)
+        req.stop.max_tokens = 1
+        self.start()
+        seq = Sequence(req=req, context=context, out=asyncio.Queue(),
+                       tokens=list(req.token_ids),
+                       num_prompt=len(req.token_ids), hold_pages=True)
+        if seq.num_prompt == 0:
+            raise ValueError("empty prompt")
+        self.waiting.append(seq)
+        self._wake.set()
+        first: Optional[int] = None
+        while True:
+            out: EngineOutput = await seq.out.get()
+            if out.token_ids:
+                first = out.token_ids[0]
+            if out.finish_reason is not None:
+                break
+        if first is None:
+            # failed before sampling: nothing to extract, so return the
+            # held pages here (hold_pages disabled the engine's release)
+            if seq.pages:
+                await self.release_pages(seq.pages)
+                seq.pages = []
+            raise RuntimeError(f"prefill produced no token "
+                               f"({out.finish_reason})")
+        return first, seq.pages
+
+    async def submit_prefilled(self, request: PreprocessedRequest,
+                               context: Context, pages: List[int],
+                               first_token: int) -> Sequence:
+        """Decode-side entry after a remote prefill: the reserved pages
+        now hold the prompt's KV (inject_pages); the sequence enters
+        decode with the remotely sampled first token already emitted. Its
+        first window takes its inputs from the host (it is in no window's
+        carry), and its full prompt pages are published to the prefix
+        cache (and so as KV events)."""
+        if not isinstance(request, PreprocessedRequest):
+            request = PreprocessedRequest.from_dict(request)
+        if len(request.token_ids) >= self.cap_tokens:
+            raise ValueError(
+                f"prompt length {len(request.token_ids)} exceeds engine "
+                f"context capacity {self.cap_tokens} (reserve_remote would "
+                f"have refused this reservation)")
+        self.start()
+        seq = Sequence(req=request, context=context, out=asyncio.Queue(),
+                       tokens=list(request.token_ids),
+                       num_prompt=len(request.token_ids))
+        seq.pages = list(pages)
+        seq.computed = seq.num_prompt
+
+        def _do():
+            self.prompt_tokens_total += seq.num_prompt
+            with self._pm_lock:
+                self._commit_full_pages(seq)
+                self._append_token(seq, int(first_token))
+            # joins running between steps (this runs on the executor)
+            if seq.finished is None:
+                self.running.append(seq)
+
+        await asyncio.get_running_loop().run_in_executor(self._exec, _do)
+        self._wake.set()
+        return seq
+
+
+@dataclass
+class RemoteReservation:
+    """Decode-side pages claimed ahead of a remote prefill."""
+
+    pages: List[int]
+    cached_tokens: int  # prompt tokens already covered by the prefix cache
+    page_size: int
+
+    @property
+    def skip_pages(self) -> int:
+        """Leading pages the prefill worker need not transfer (already
+        valid on the decode side through prefix-cache hits)."""
+        return self.cached_tokens // self.page_size

@@ -1,0 +1,275 @@
+"""The prefill worker (``dynamo_tpu/llm/disagg/prefill_worker.py``): pull
+the queue, prefill, stream the KV pages.
+
+Each job is a ``prefill_only`` run on the engine (the prompt's KV and its
+first token), then the pages the decode side lacks go out through a
+chunked extract -> (compress) -> send pipeline (transfer.py), so the
+device-to-host extract of chunk i+1 overlaps the socket write of chunk
+i. The decode engine's endpoint comes from DCP on first contact. Any
+number of prefill workers pull the one shared queue.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import math
+import time
+from typing import Dict, List, Optional, Set
+
+from ...runtime import guard
+from ...runtime.config import env_bool, env_int
+from ...runtime.engine import Context
+from ..protocols.common import (PreprocessedRequest, SamplingOptions,
+                                StopConditions)
+from .protocols import RemotePrefillRequest
+from .queue import PrefillQueue
+from .transfer import KvTransferClient, TransferStats, encode_pages
+
+log = logging.getLogger("dynamo_tpu_torch.llm.disagg")
+
+DEFAULT_CHUNK_PAGES = 4
+
+
+class PrefillWorker:
+    def __init__(self, drt, engine, *, namespace: str = "dynamo",
+                 max_inflight: int = 4,
+                 compress_kv: Optional[bool] = None,
+                 chunk_pages: Optional[int] = None):
+        self.drt = drt
+        self.engine = engine
+        if hasattr(engine, "set_role"):
+            # this engine serves prefill-only: its latency histograms go
+            # under role="prefill"
+            engine.set_role("prefill")
+        self.namespace = namespace
+        # int8-compress shipped pages (about half the bytes; lossy).
+        # Opt-in: the argument, else DYN_KV_TRANSFER_INT8
+        self.compress_kv = (compress_kv if compress_kv is not None
+                            else env_bool("DYN_KV_TRANSFER_INT8"))
+        # pages per streamed chunk frame; 0 = a single bulk frame. The
+        # argument, else DYN_KV_TRANSFER_CHUNK_PAGES, else the default
+        if chunk_pages is None:
+            chunk_pages = env_int("DYN_KV_TRANSFER_CHUNK_PAGES",
+                                  DEFAULT_CHUNK_PAGES)
+        self.chunk_pages = max(int(chunk_pages), 0)
+        self.queue = PrefillQueue(drt.dcp, namespace)
+        self.max_inflight = max_inflight
+        self._clients: Dict[int, KvTransferClient] = {}
+        self._tasks: Set[asyncio.Task] = set()
+        self._run_task: Optional[asyncio.Task] = None
+        self._stopped = False
+        self.completed = 0
+        self.failed = 0
+        self.expired = 0            # jobs dropped: budget spent in-queue
+        self.client_evictions = 0
+        # sends to a decode engine run under the RetryPolicy (budget
+        # aware), and a per-engine circuit breaker fails jobs fast while
+        # an engine's transfer endpoint stays dead
+        self.retry = guard.RetryPolicy.from_env()
+        self.breakers = guard.BreakerBoard(f"prefill-worker:{namespace}")
+        # per-stage transfer accounting, shared by all clients
+        self.xfer = TransferStats()
+
+    def start(self) -> None:
+        if self._run_task is None:
+            self._run_task = asyncio.ensure_future(self._run())
+
+    async def stop(self) -> None:
+        self._stopped = True
+        if self._run_task:
+            self._run_task.cancel()
+            try:
+                await self._run_task
+            except asyncio.CancelledError:
+                pass
+        for t in list(self._tasks):
+            t.cancel()
+        for c in self._clients.values():
+            c.close()
+
+    async def _run(self) -> None:
+        while not self._stopped:
+            try:
+                if len(self._tasks) >= self.max_inflight:
+                    await asyncio.wait(self._tasks,
+                                       return_when=asyncio.FIRST_COMPLETED)
+                    continue
+                req = await self.queue.pull(timeout=0.5)
+                if req is None:
+                    continue
+                task = asyncio.ensure_future(self._handle(req))
+                self._tasks.add(task)
+                task.add_done_callback(self._tasks.discard)
+            except asyncio.CancelledError:
+                raise
+            except Exception:  # noqa: BLE001 — a DCP hiccup must not kill us
+                log.exception("prefill pull loop error; retrying")
+                await asyncio.sleep(1.0)
+
+    async def _handle(self, req: RemotePrefillRequest) -> None:
+        """One remote prefill: compute, extract the non-cached pages, ship."""
+        pages = None
+        # the job's deadline against this host's clock (absent on the
+        # wire = no deadline); a job whose budget died in the queue is
+        # dropped: the decode side has already fallen back
+        deadline = guard.Deadline.from_wire_ms(req.deadline_ms)
+        if deadline is not None and deadline.expired:
+            self.expired += 1
+            log.warning("dropping expired remote prefill job %s "
+                        "(budget spent in queue)", req.request_id)
+            return
+        try:
+            pre = PreprocessedRequest(
+                token_ids=list(req.token_ids),
+                sampling=SamplingOptions.from_dict(req.sampling),
+                stop=StopConditions(max_tokens=1),
+                eos_token_ids=list(req.eos_token_ids),
+            )
+            first, pages = await self.engine.prefill_only(
+                pre, Context(req.request_id))
+            if deadline is not None and deadline.expired:
+                # the budget died during the compute: shipping now cannot
+                # beat the decode side's (already fired) fallback
+                self.expired += 1
+                log.warning("dropping remote prefill job %s after compute "
+                            "(budget spent)", req.request_id)
+                return
+            ps = self.engine.ecfg.page_size
+            n_prompt_pages = math.ceil(len(req.token_ids) / ps)
+            local_send = pages[req.skip_pages:n_prompt_pages]
+            remote_dst = req.page_ids[req.skip_pages:n_prompt_pages]
+            await self._send(req, local_send, remote_dst, first, deadline)
+            self.completed += 1
+        except Exception:  # noqa: BLE001 — a bad job must not kill the loop
+            self.failed += 1
+            log.exception("remote prefill job %s failed (decode side will "
+                          "fall back)", req.request_id)
+        finally:
+            if pages is not None:
+                await self.engine.release_pages(pages)
+
+    async def _send(self, req: RemotePrefillRequest, local_send: List[int],
+                    remote_dst: List[int], first: int,
+                    deadline: Optional[guard.Deadline] = None) -> None:
+        """Ship the pages, surviving a decode-worker restart: the cached
+        client may point at a dead host:port, so each failed attempt
+        evicts it, re-resolves the endpoint from DCP and retries on a
+        fresh connection under the RetryPolicy (never past the job's
+        deadline). A per-engine circuit breaker fails jobs fast while an
+        engine's endpoint stays dead. Stage times go to a per-send
+        TransferStats, folded into ``self.xfer`` afterwards."""
+        per = TransferStats()
+        br = self.breakers.get("transfer", req.engine_id)
+        try:
+            if not br.allow():
+                raise guard.NoCapacity(
+                    f"transfer endpoint for engine {req.engine_id:x} "
+                    f"is circuit-broken")
+            last: Optional[BaseException] = None
+            sent = False
+            async for _attempt in self.retry.attempts(deadline):
+                client = await self._client(req.engine_id)
+                try:
+                    await self._send_once(client, req, local_send,
+                                          remote_dst, first, per, deadline)
+                    br.record_success()
+                    sent = True
+                    break
+                except asyncio.CancelledError:
+                    raise
+                except Exception as exc:  # noqa: BLE001 — retry fresh
+                    self._evict(req.engine_id, client)
+                    self.client_evictions += 1
+                    last = exc
+                    log.warning("KV send for %s to engine %x failed (%s); "
+                                "re-resolving endpoint and retrying within "
+                                "budget", req.request_id, req.engine_id,
+                                exc)
+            if not sent:
+                br.record_failure()
+                raise last if last is not None else \
+                    guard.DeadlineExceeded(
+                        f"no budget left to send KV for {req.request_id}")
+        finally:
+            self.xfer.merge(per)
+
+    async def _send_once(self, client: KvTransferClient,
+                         req: RemotePrefillRequest, local_send: List[int],
+                         remote_dst: List[int], first: int,
+                         stats: TransferStats,
+                         deadline: Optional[guard.Deadline] = None) -> None:
+        # the decode side's commit-ack wait is capped by the remaining
+        # request budget (None -> the registered default)
+        timeout = None if deadline is None else max(deadline.cap(None), 0.05)
+        cp = self.chunk_pages
+        if cp and local_send:
+            n_chunks = math.ceil(len(local_send) / cp)
+            frames = self._frames(local_send, remote_dst, cp, stats)
+            await client.send_kv_chunked(req.request_id, n_chunks, frames,
+                                         first, timeout=timeout, stats=stats)
+        else:
+            t0 = time.monotonic()
+            k, v = await self.engine.extract_pages(local_send)
+            dt = time.monotonic() - t0
+            stats.extract_seconds += dt
+            # bulk extracts BEFORE the send; count it into the wall, as
+            # the chunked pipeline's wall covers its extraction
+            stats.wall_seconds += dt
+            await client.send_kv(req.request_id, remote_dst, k, v, first,
+                                 timeout=timeout,
+                                 compress=self.compress_kv, stats=stats)
+
+    async def _frames(self, local_send: List[int], remote_dst: List[int],
+                      cp: int, stats: TransferStats):
+        """Chunk producer for the streaming protocol: the engine's ranged
+        extract (pipelined inside it), then the optional int8 compression
+        off the event loop. The client consumes this one chunk ahead, so
+        this body runs under the previous chunk's socket write."""
+        loop = asyncio.get_running_loop()
+        async for off, k, v, dt in self.engine.extract_pages_chunked(
+                local_send, cp):
+            stats.extract_seconds += dt
+            dst = remote_dst[off:off + cp]
+            if self.compress_kv:
+                t0 = time.monotonic()
+                extra, parts, nbytes = await loop.run_in_executor(
+                    None, encode_pages, k, v, True)
+                stats.compress_seconds += time.monotonic() - t0
+            else:
+                extra, parts, nbytes = encode_pages(k, v, False)
+            yield dst, extra, parts, nbytes
+
+    async def _client(self, engine_id: int) -> KvTransferClient:
+        client = self._clients.get(engine_id)
+        if client is not None:
+            return client
+        client = await KvTransferClient.lookup(self.drt.dcp,
+                                               self.namespace, engine_id,
+                                               stats=self.xfer)
+        # re-check after the lookup await: a concurrent job for the same
+        # engine may have resolved it first (the loser's connection would
+        # leak)
+        cached = self._clients.get(engine_id)
+        if cached is not None:
+            client.close()
+            return cached
+        self._clients[engine_id] = client
+        return client
+
+    def _evict(self, engine_id: int, client: Optional[KvTransferClient]
+               ) -> None:
+        cached = self._clients.get(engine_id)
+        if cached is not None and (client is None or cached is client):
+            del self._clients[engine_id]
+        if client is not None:
+            client.close()
+
+    def stats(self) -> dict:
+        return {"inflight": len(self._tasks), "completed": self.completed,
+                "failed": self.failed, "expired_jobs": self.expired,
+                "client_evictions": self.client_evictions,
+                "transfer_breakers_open":
+                    len(self.breakers.not_closed("transfer")),
+                "chunk_pages": self.chunk_pages,
+                **{f"kv_send_{k}": v for k, v in self.xfer.to_dict().items()}}

@@ -1,0 +1,695 @@
+"""The KV page transfer plane (``dynamo_tpu/llm/disagg/transfer.py``).
+
+Pages travel host-staged: the prefill engine gathers them to pinned host
+memory, their raw bytes go over a dedicated TCP connection framed by the
+two-part codec, and the decode engine writes them into its pool in
+place. The decode worker's endpoint lives in the DCP KV store under its
+lease (``{namespace}/disagg/transfer/{engine_id:x}``).
+
+Streaming protocol: a request's pages travel as ``chunk_pages``-sized
+frames tagged ``{request_id, chunk_idx, n_chunks}``, interleaved freely
+with other requests' frames on one connection. The sender produces chunk
+i+1 (device-to-host extract, optional int8 compression) under the socket
+write of chunk i; the receiver ingests each chunk as it arrives through a
+per-request worker task and resolves the decode-side waiter only on the
+final (commit) chunk. Acks are demultiplexed by request_id, so nothing
+holds a lock across a remote wait. The single-frame bulk format
+(``chunk_pages=0``) shares the connection. A bulk frame is bounded by the
+codec's ``MAX_MESSAGE`` (256 MiB): at Llama-3-8B's widths (32 layers, 8
+kv heads, page 64, head_dim 128, bfloat16) a page is 8 MiB of K and V,
+so a bulk frame carries at most 31 pages.
+
+Bodies are the reference's: raw ``k‖v`` bytes in the pool's layout
+[L, n, KV, page_size, hd], or int8 ``k_q‖v_q‖k_s‖v_s``
+(``engine/kv_compress.py``). The header names the pool dtype
+(``float32``, ``bfloat16``, ``float16``): bfloat16 pages go as their
+bytes and come back through ``torch.frombuffer``, so no numpy bfloat16
+type is needed on either side.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import time
+import warnings
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from ...runtime import codec, wire
+from ...runtime.codec import TwoPartMessage
+from ...runtime.config import env_float, env_str
+from ...runtime.dcp_client import DcpClient
+
+log = logging.getLogger("dynamo_tpu_torch.llm.disagg")
+
+# pool dtypes by their wire names
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+_NAMES = {v: k for k, v in _DTYPES.items()}
+
+
+def _io_timeout() -> float:
+    return env_float("DYN_IO_TIMEOUT", 30.0) or 30.0
+
+
+def _ack_timeout(timeout: Optional[float]) -> float:
+    return timeout if timeout is not None \
+        else (env_float("DYN_REQUEST_TIMEOUT", 60.0) or 60.0)
+
+
+def metadata_key(namespace: str, engine_id: int) -> str:
+    return f"{namespace}/disagg/transfer/{engine_id:x}"
+
+
+def _host_pages(a) -> torch.Tensor:
+    """A contiguous CPU tensor of host pages given as a tensor or a
+    numpy array."""
+    if isinstance(a, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(a))
+    return a.contiguous()
+
+
+def _page_header(t: torch.Tensor) -> dict:
+    """The layout fields of a frame carrying ``t``'s pages."""
+    return {"shape": list(t.shape), "dtype": _NAMES[t.dtype],
+            "k_len": t.nbytes}
+
+
+def _raw_bytes(t: torch.Tensor) -> np.ndarray:
+    """``t``'s bytes as a flat uint8 array (shares its memory)."""
+    return t.reshape(-1).view(torch.uint8).numpy()
+
+
+def _from_bytes(body: bytes, offset: int, nbytes: int, dtype: torch.dtype,
+                shape: tuple) -> torch.Tensor:
+    size = torch.empty((), dtype=dtype).element_size()
+    if nbytes == 0:
+        return torch.empty(shape, dtype=dtype)
+    with warnings.catch_warnings():
+        # the frame body is read only, and nothing writes the view
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.frombuffer(body, dtype=dtype, count=nbytes // size,
+                             offset=offset)
+    return t.reshape(shape)
+
+
+@dataclass
+class TransferStats:
+    """Sender-side per-stage accounting for the streaming pipeline.
+
+    The stages run overlapped (extract of chunk i+1 under the wire write
+    of chunk i), so ``extract + compress + wire`` may exceed ``wall``:
+    that inequality shows the pipeline overlapping."""
+
+    extract_seconds: float = 0.0
+    compress_seconds: float = 0.0
+    wire_seconds: float = 0.0
+    ack_wait_seconds: float = 0.0
+    wall_seconds: float = 0.0
+    bytes_sent: int = 0
+    chunks_sent: int = 0
+    sends: int = 0
+
+    def to_dict(self) -> dict:
+        return {k: (round(v, 4) if isinstance(v, float) else v)
+                for k, v in self.__dict__.items()}
+
+    def merge(self, other: "TransferStats") -> None:
+        """Fold a per-send accumulator into this (shared) one."""
+        for k, v in other.__dict__.items():
+            setattr(self, k, getattr(self, k) + v)
+
+
+_KV_FRAMES = (wire.KV_TRANSFER_BULK, wire.KV_TRANSFER_CHUNK)
+
+
+def _decode_body(h: dict, body: bytes) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Frame body -> (k, v) CPU tensors in the header's declared layout
+    and dtype. Shared by the bulk and chunk paths: raw ``k‖v`` or int8
+    ``k_q‖v_q‖k_s‖v_s``."""
+    h = wire.decoded(_KV_FRAMES, h)
+    shape = tuple(h["shape"])  # [L, n, KV, ps, hd]
+    dtype = _DTYPES[h["dtype"]]
+    k_len = h["k_len"]
+    if h.get("quant") == "int8":
+        # the header dtype is the ORIGINAL pool dtype to restore to
+        from ...engine.kv_compress import dequantize_pages_np
+
+        sshape = shape[:-1] + (1,)
+        s_len = int(np.prod(sshape)) * 4
+        kq = np.frombuffer(body[:k_len], np.int8).reshape(shape)
+        vq = np.frombuffer(body[k_len:2 * k_len], np.int8).reshape(shape)
+        ks = np.frombuffer(body[2 * k_len:2 * k_len + s_len],
+                           np.float32).reshape(sshape)
+        vs = np.frombuffer(body[2 * k_len + s_len:],
+                           np.float32).reshape(sshape)
+        return (dequantize_pages_np(kq, ks, dtype),
+                dequantize_pages_np(vq, vs, dtype))
+    return (_from_bytes(body, 0, k_len, dtype, shape),
+            _from_bytes(body, k_len, len(body) - k_len, dtype, shape))
+
+
+class _IngestState:
+    """Per-request receive state: frames from one connection funnel into
+    ``queue``; ``task`` drains it so a slow inject for one request never
+    blocks other requests sharing the connection."""
+
+    __slots__ = ("queue", "task", "received", "injected", "failed", "error",
+                 "committed", "inject_seconds", "bytes")
+
+    def __init__(self):
+        self.queue: asyncio.Queue = asyncio.Queue()
+        self.task: Optional[asyncio.Task] = None
+        self.received = 0
+        self.injected: List[int] = []
+        self.failed = False
+        self.error: Optional[str] = None
+        self.committed = False
+        self.inject_seconds = 0.0
+        self.bytes = 0
+
+
+class KvTransferServer:
+    """Decode-side ingest listener.
+
+    Accepts KV page payloads (chunked streams or single bulk frames),
+    writes them into the engine's pool, and resolves the waiter
+    registered under the request id with the remotely sampled first
+    token once the stream commits. Each frame is acked
+    ``{ok, request_id, chunk_idx[, committed]}``; a mid-stream failure
+    sets the error on the waiter at once, so the decode side falls back
+    without burning its prefill timeout, and partial state is torn down
+    without ever writing into pages the decode side may have reassigned
+    (the per-chunk late-write guard)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._waiters: Dict[str, asyncio.Future] = {}
+        self._ingests: Dict[str, _IngestState] = {}
+        self.host: str = ""
+        self.port: int = 0
+        self._conns: Set[asyncio.StreamWriter] = set()
+        self.bytes_ingested = 0
+        self.pages_ingested = 0
+        self.chunks_ingested = 0
+        self.ingest_seconds = 0.0
+        self.streams_failed = 0
+
+    async def start(self, host: str = "0.0.0.0") -> None:
+        """Listen on ``host`` (every interface by default) and advertise
+        ``DYN_TCP_ADVERTISE_HOST``, else the bind host, else 127.0.0.1
+        when it binds every interface."""
+        self._server = await asyncio.start_server(self._on_conn, host, 0)
+        self.port = self._server.sockets[0].getsockname()[1]
+        self.host = (env_str("DYN_TCP_ADVERTISE_HOST")
+                     or (host if host not in ("0.0.0.0", "::", "")
+                         else "127.0.0.1"))
+
+    async def stop(self) -> None:
+        """Close the listener and drop the established connections (a
+        stop is a restart to the senders, which probe liveness through
+        the socket), then wait for the listener to close: since Python
+        3.12.1 ``wait_closed()`` waits for every open connection, so the
+        connections are closed first."""
+        if self._server:
+            self._server.close()
+        for w in list(self._conns):
+            w.close()
+        self._conns.clear()
+        if self._server:
+            await asyncio.wait_for(self._server.wait_closed(), _io_timeout())
+            self._server = None
+        for st in list(self._ingests.values()):
+            if st.task is not None:
+                st.task.cancel()
+        self._ingests.clear()
+        for fut in self._waiters.values():
+            if not fut.done():
+                fut.cancel()
+        self._waiters.clear()
+
+    async def register(self, dcp: DcpClient, namespace: str, engine_id: int,
+                       lease: int = 0) -> None:
+        """Publish this listener for prefill workers (dies with the
+        worker's lease)."""
+        meta = {"host": self.host, "port": self.port}
+        await dcp.kv_put(metadata_key(namespace, engine_id),
+                         json.dumps(meta).encode(), lease=lease)
+
+    def expect(self, request_id: str) -> asyncio.Future:
+        """Future resolving to the first sampled token once the KV for
+        request_id has been injected (or failing fast when the stream
+        errors: the decode side falls back at once)."""
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._waiters[request_id] = fut
+        return fut
+
+    def cancel(self, request_id: str) -> None:
+        fut = self._waiters.pop(request_id, None)
+        if fut and not fut.done():
+            fut.cancel()
+
+    def stats(self) -> dict:
+        return {
+            "kv_transfer_bytes_total": self.bytes_ingested,
+            "kv_transfer_pages_total": self.pages_ingested,
+            "kv_transfer_chunks_total": self.chunks_ingested,
+            "kv_transfer_inject_seconds_total": round(self.ingest_seconds, 4),
+            "kv_transfer_streams_failed_total": self.streams_failed,
+        }
+
+    def _fail_waiter(self, request_id: Optional[str], exc: Exception) -> None:
+        """Surface a stream failure to the decode side now instead of
+        letting it idle out the full prefill timeout."""
+        fut = self._waiters.pop(request_id, None) if request_id else None
+        if fut is not None and not fut.done():
+            fut.set_exception(exc)
+
+    async def _on_conn(self, reader: asyncio.StreamReader,
+                       writer: asyncio.StreamWriter) -> None:
+        peer = writer.get_extra_info("peername")
+        wlock = asyncio.Lock()  # ack frames from concurrent workers
+        conn_rids: Set[str] = set()
+        self._conns.add(writer)
+        try:
+            while True:
+                try:
+                    # idle ingest read: frames arrive whenever a prefill
+                    # worker sends; the stream lives as long as the
+                    # connection
+                    msg = await codec.decode(reader)
+                except (asyncio.IncompleteReadError, ConnectionError,
+                        codec.CodecError):
+                    return
+                h = wire.decoded(
+                    _KV_FRAMES + (wire.KV_TRANSFER_ABORT,), msg.header)
+                rid = h.get("request_id")
+                kind = h.get("kind")
+                if kind not in (None, "chunk", "abort") or \
+                        int(h.get("v", 1)) > wire.frame_version(
+                            wire.KV_TRANSFER_CHUNK):
+                    # a frame of a newer or foreign schema: reject with a
+                    # logged, typed error (absent kind/v = legacy, still
+                    # accepted above)
+                    err = wire.WireVersionMismatch(
+                        f"unsupported transfer frame kind={kind!r} "
+                        f"v={h.get('v', 1)} (speak "
+                        f"v<={wire.frame_version(wire.KV_TRANSFER_CHUNK)})")
+                    log.warning("rejecting transfer frame from %s for "
+                                "request %s: %s", peer, rid, err)
+                    self.streams_failed += 1
+                    self._fail_waiter(rid, err)
+                    st = self._ingests.get(rid)
+                    if st is not None and rid in conn_rids:
+                        st.queue.put_nowait(None)  # tear down mid-stream
+                    nack = wire.checked(wire.KV_TRANSFER_ACK, {
+                        "ok": False, "request_id": rid or "",
+                        "error": str(err)})
+                    async with wlock:
+                        writer.write(codec.encode(
+                            TwoPartMessage(header=nack)))
+                        await asyncio.wait_for(writer.drain(), _io_timeout())
+                    continue
+                if kind == "abort":
+                    st = self._ingests.get(rid)
+                    if st is not None and rid in conn_rids:
+                        st.queue.put_nowait(None)  # sentinel -> teardown
+                    else:
+                        self._fail_waiter(rid, RuntimeError(
+                            "sender aborted transfer"))
+                    continue
+                st = self._ingests.get(rid)
+                if st is None or rid not in conn_rids:
+                    st = _IngestState()
+                    self._ingests[rid] = st
+                    conn_rids.add(rid)
+                    st.task = asyncio.ensure_future(
+                        self._ingest_worker(rid, st, writer, wlock))
+                st.queue.put_nowait(msg)
+        finally:
+            # connection dropped mid-stream: fail every uncommitted stream
+            # it owned so decode falls back at once; the worker's cancel
+            # handler releases the partial state
+            for rid in conn_rids:
+                st = self._ingests.get(rid)
+                if st is not None and st.task is not None and not st.committed:
+                    st.task.cancel()
+            self._conns.discard(writer)
+            writer.close()
+            log.debug("transfer conn from %s closed", peer)
+
+    async def _ingest_worker(self, request_id: str, st: _IngestState,
+                             writer: asyncio.StreamWriter,
+                             wlock: asyncio.Lock) -> None:
+        """Drain one request's frames: inject each chunk, ack it, resolve
+        the waiter on the commit (final) chunk."""
+        try:
+            while True:
+                # bounded by the connection: _on_conn cancels this task
+                # the moment the connection drops
+                msg = await st.queue.get()
+                if msg is None:  # sender abort
+                    self.streams_failed += 1
+                    self._fail_waiter(request_id, RuntimeError(
+                        "sender aborted transfer mid-stream"))
+                    return
+                h = wire.decoded(_KV_FRAMES, msg.header)
+                legacy = "kind" not in h
+                chunk_idx = 0 if legacy else int(h["chunk_idx"])
+                n_chunks = 1 if legacy else int(h["n_chunks"])
+                final = chunk_idx >= n_chunks - 1
+                ack = wire.checked(wire.KV_TRANSFER_ACK, {
+                    "ok": True, "request_id": request_id,
+                    "chunk_idx": chunk_idx})
+                if st.failed:
+                    ack.update(ok=False, error=st.error or "stream failed")
+                elif request_id not in self._waiters:
+                    # per-chunk late-write guard: the decode side may have
+                    # timed out and released these pages, which can belong
+                    # to another request now, so drop the payload
+                    st.failed = True
+                    st.error = "unknown/cancelled request"
+                    log.warning("dropping KV chunk %d for unknown/cancelled "
+                                "request %s", chunk_idx, request_id)
+                    ack.update(ok=False, error=st.error)
+                else:
+                    try:
+                        await self._inject_chunk(h, msg.body, st)
+                    except Exception as exc:  # noqa: BLE001 — report + fail fast
+                        log.exception("KV ingest failed for %s chunk %d",
+                                      request_id, chunk_idx)
+                        st.failed = True
+                        st.error = str(exc)
+                        self.streams_failed += 1
+                        self._fail_waiter(request_id, exc)
+                        ack.update(ok=False, error=st.error)
+                if not st.failed and final:
+                    if st.received == n_chunks:
+                        fut = self._waiters.pop(request_id, None)
+                        if fut is not None and not fut.done():
+                            fut.set_result(int(h["first_token"]))
+                        st.committed = True
+                        ack["committed"] = True
+                    else:
+                        st.failed = True
+                        st.error = (f"incomplete stream: {st.received}"
+                                    f"/{n_chunks} chunks")
+                        self.streams_failed += 1
+                        self._fail_waiter(request_id,
+                                          RuntimeError(st.error))
+                        ack.update(ok=False, error=st.error)
+                async with wlock:
+                    writer.write(codec.encode(TwoPartMessage(header=ack)))
+                    await asyncio.wait_for(writer.drain(), _io_timeout())
+                if final:
+                    return
+        except asyncio.CancelledError:
+            if not st.committed:
+                self.streams_failed += 1
+                self._fail_waiter(request_id, ConnectionError(
+                    "KV transfer connection dropped mid-stream"))
+            raise
+        except Exception as exc:  # noqa: BLE001 — ack write failure etc.
+            if not st.committed:
+                self.streams_failed += 1
+            self._fail_waiter(request_id, exc)
+        finally:
+            if self._ingests.get(request_id) is st:
+                del self._ingests[request_id]
+
+    async def _inject_chunk(self, h: dict, body: bytes,
+                            st: _IngestState) -> None:
+        page_ids = list(h["page_ids"])
+        if page_ids:
+            t0 = time.monotonic()
+            k, v = _decode_body(h, body)
+            await self.engine.inject_pages(page_ids, k, v)
+            dt = time.monotonic() - t0
+            self.bytes_ingested += len(body)
+            self.pages_ingested += len(page_ids)
+            self.ingest_seconds += dt
+            st.inject_seconds += dt
+            st.bytes += len(body)
+            st.injected.extend(page_ids)
+        self.chunks_ingested += 1
+        st.received += 1
+
+
+def encode_pages(k, v, compress: bool) -> Tuple[dict, list, int]:
+    """Host pages -> (the frame's layout fields, the body parts, their
+    bytes): raw ``k‖v``, or int8 ``k_q‖v_q‖k_s‖v_s`` with ``compress``
+    (the layout fields keep the pool dtype to restore into)."""
+    k, v = _host_pages(k), _host_pages(v)
+    extra = _page_header(k)
+    if compress:
+        from ...engine.kv_compress import quantize_pages_np
+
+        kq, ks = quantize_pages_np(k)
+        vq, vs = quantize_pages_np(v)
+        extra.update(quant="int8", k_len=kq.nbytes)
+        parts = [kq, vq, ks, vs]
+    else:
+        parts = [_raw_bytes(k), _raw_bytes(v)]
+    return extra, parts, sum(p.nbytes for p in parts)
+
+
+class KvTransferClient:
+    """Prefill-side sender: one persistent connection per decode engine.
+
+    A background ack loop demultiplexes replies by request_id, so any
+    number of sends (bulk or chunked streams) share the connection
+    concurrently; nothing holds a lock across a remote ack wait. Frames
+    are written whole (a synchronous ``writelines`` of zero-copy parts),
+    so interleaving between awaits never splits a frame."""
+
+    def __init__(self, host: str, port: int,
+                 stats: Optional[TransferStats] = None):
+        self.host = host
+        self.port = port
+        # the connection triple is written by _ensure (reconnect) and
+        # nulled by the ack loop on connection loss, both under the lock;
+        # senders hold the writer _ensure returned
+        self._reader: Optional[asyncio.StreamReader] = None
+        self._writer: Optional[asyncio.StreamWriter] = None
+        self._ack_task: Optional[asyncio.Task] = None
+        self._conn_lock = asyncio.Lock()  # held for connect only, never acks
+        self._pending: Dict[str, asyncio.Queue] = {}
+        self.stats = stats if stats is not None else TransferStats()
+
+    @classmethod
+    async def lookup(cls, dcp: DcpClient, namespace: str, engine_id: int,
+                     stats: Optional[TransferStats] = None
+                     ) -> "KvTransferClient":
+        raw = await dcp.kv_get(metadata_key(namespace, engine_id))
+        if raw is None:
+            raise RuntimeError(
+                f"no KV transfer endpoint registered for engine "
+                f"{engine_id:x} (decode worker down?)")
+        meta = json.loads(raw)
+        return cls(meta["host"], meta["port"], stats=stats)
+
+    async def _ensure(self) -> asyncio.StreamWriter:
+        """(Re)connect if needed; returns the live writer, which senders
+        keep across their awaits (the ack loop may null ``_writer``)."""
+        async with self._conn_lock:
+            if self._writer is None or self._writer.is_closing():
+                self._reader, self._writer = await asyncio.wait_for(
+                    asyncio.open_connection(self.host, self.port),
+                    _io_timeout())
+                self._ack_task = asyncio.ensure_future(
+                    self._ack_loop(self._reader, self._writer))
+            return self._writer
+
+    async def _ack_loop(self, reader: asyncio.StreamReader,
+                        writer: asyncio.StreamWriter) -> None:
+        """Demux acks to per-request queues; on connection loss fail every
+        pending send so none of them idles out its timeout."""
+        try:
+            while True:
+                # idle demux read: senders bound their own ack waits
+                msg = await codec.decode(reader)
+                ack = wire.decoded(wire.KV_TRANSFER_ACK, msg.header)
+                q = self._pending.get(ack.get("request_id"))
+                if q is not None:
+                    q.put_nowait(ack)
+                else:
+                    log.debug("dropping unroutable transfer ack: %r", ack)
+        except asyncio.CancelledError:
+            raise
+        except Exception as exc:  # noqa: BLE001 — conn loss/desync
+            err = {"ok": False, "conn_lost": True,
+                   "error": f"transfer connection lost: {exc}"}
+            for q in self._pending.values():
+                q.put_nowait(err)
+            async with self._conn_lock:
+                if self._writer is writer:
+                    self._writer = None
+            writer.close()
+
+    def _register(self, request_id: str) -> asyncio.Queue:
+        q: asyncio.Queue = asyncio.Queue()
+        self._pending[request_id] = q
+        return q
+
+    @staticmethod
+    def _check_ack(ack: dict) -> None:
+        ack = wire.decoded(wire.KV_TRANSFER_ACK, ack)
+        if int(ack.get("v", 1)) > wire.frame_version(wire.KV_TRANSFER_ACK):
+            raise wire.WireVersionMismatch(
+                f"decode side acked with unsupported schema "
+                f"v={ack.get('v')}")
+        if not ack.get("ok"):
+            if ack.get("conn_lost"):
+                raise ConnectionError(ack.get("error"))
+            raise RuntimeError(
+                f"decode-side KV ingest failed: {ack.get('error')}")
+
+    async def send_kv(self, request_id: str, page_ids, k, v,
+                      first_token: int, timeout: Optional[float] = None,
+                      compress: bool = False,
+                      stats: Optional[TransferStats] = None) -> None:
+        """Bulk mode (``chunk_pages=0``): ship all pages
+        [L, n, KV, ps, hd] (CPU tensors or numpy arrays) and the first
+        token in one frame; returns once the decode side has injected
+        them (raises on a remote failure). ``compress`` quantizes each
+        (token, head) row to int8 and a float32 scale (lossy). ``stats``
+        overrides the accumulator."""
+        st = stats if stats is not None else self.stats
+        timeout = _ack_timeout(timeout)
+        extra, parts, nbytes = encode_pages(k, v, compress)
+        header = {
+            "request_id": request_id,
+            "page_ids": [int(p) for p in page_ids],
+            "shape": extra["shape"],
+            "dtype": extra["dtype"],
+            "k_len": extra["k_len"],
+            "first_token": int(first_token),
+            "v": wire.frame_version(wire.KV_TRANSFER_BULK),
+        }
+        if compress:
+            header["quant"] = extra["quant"]
+        header = wire.checked(wire.KV_TRANSFER_BULK, header)
+        q = self._register(request_id)
+        t_wall = time.monotonic()
+        try:
+            writer = await self._ensure()
+            t0 = time.monotonic()
+            writer.writelines(codec.encode_parts(header, parts))
+            await asyncio.wait_for(writer.drain(), _io_timeout())
+            now = time.monotonic()
+            st.wire_seconds += now - t0
+            st.bytes_sent += nbytes
+            ack = await asyncio.wait_for(q.get(), timeout)
+            st.ack_wait_seconds += time.monotonic() - now
+        finally:
+            self._pending.pop(request_id, None)
+            st.wall_seconds += time.monotonic() - t_wall
+            st.sends += 1
+        self._check_ack(ack)
+
+    async def send_kv_chunked(self, request_id: str, n_chunks: int, frames,
+                              first_token: int,
+                              timeout: Optional[float] = None,
+                              stats: Optional[TransferStats] = None) -> None:
+        """Streamed mode: consume ``frames``, an async iterator yielding
+        ``(dst_page_ids, header_extra, body_parts, nbytes)`` per chunk,
+        one chunk ahead, so producing chunk i+1 overlaps the socket write
+        of chunk i. The final chunk carries the first token and acts as
+        the commit; the call returns once the decode side acks it. On any
+        failure an abort frame tears down the receiver's partial state
+        (which fails the decode-side waiter: immediate local fallback)."""
+        st = stats if stats is not None else self.stats
+        timeout = _ack_timeout(timeout)
+        q = self._register(request_id)
+        t_wall = time.monotonic()
+        nxt: Optional[asyncio.Future] = None
+        committed = False
+        try:
+            writer = await self._ensure()
+            nxt = asyncio.ensure_future(frames.__anext__())
+            idx = 0
+            while True:
+                try:
+                    dst, extra, parts, nbytes = await nxt
+                    nxt = None
+                except StopAsyncIteration:
+                    nxt = None
+                    break
+                if idx + 1 < n_chunks:
+                    # pipeline: start producing chunk i+1 before writing i
+                    nxt = asyncio.ensure_future(frames.__anext__())
+                header = wire.checked(wire.KV_TRANSFER_CHUNK, {
+                    "kind": "chunk", "request_id": request_id,
+                    "chunk_idx": idx, "n_chunks": n_chunks,
+                    "page_ids": [int(p) for p in dst],
+                    "v": wire.frame_version(wire.KV_TRANSFER_CHUNK),
+                    **extra})
+                if idx == n_chunks - 1:
+                    header["first_token"] = int(first_token)
+                t0 = time.monotonic()
+                writer.writelines(codec.encode_parts(header, parts))
+                await asyncio.wait_for(writer.drain(), _io_timeout())
+                st.wire_seconds += time.monotonic() - t0
+                st.bytes_sent += nbytes
+                st.chunks_sent += 1
+                idx += 1
+                # early-failure check: abort the remaining extract/send
+                # work the moment the receiver reports a chunk failure
+                while not q.empty():
+                    ack = q.get_nowait()
+                    self._check_ack(ack)
+                    committed = committed or bool(ack.get("committed"))
+                if idx >= n_chunks:
+                    break
+            if idx != n_chunks:
+                raise RuntimeError(
+                    f"chunk producer yielded {idx}/{n_chunks} chunks")
+            t1 = time.monotonic()
+            while not committed:
+                ack = await asyncio.wait_for(q.get(), timeout)
+                self._check_ack(ack)
+                committed = bool(ack.get("committed"))
+            st.ack_wait_seconds += time.monotonic() - t1
+        except BaseException:
+            if nxt is not None:
+                nxt.cancel()
+            await self._abort(request_id)
+            raise
+        finally:
+            if hasattr(frames, "aclose"):
+                try:
+                    await frames.aclose()
+                except Exception:  # noqa: BLE001 — teardown best-effort
+                    pass
+            self._pending.pop(request_id, None)
+            st.wall_seconds += time.monotonic() - t_wall
+            st.sends += 1
+
+    async def _abort(self, request_id: str) -> None:
+        """Best-effort abort frame: the receiver drops partial state and
+        fails the waiter now, without closing the shared connection under
+        other in-flight requests."""
+        try:
+            async with self._conn_lock:
+                writer = self._writer  # snapshot: the ack loop may null it
+            if writer is not None and not writer.is_closing():
+                writer.writelines(codec.encode_parts(
+                    wire.checked(wire.KV_TRANSFER_ABORT, {
+                        "kind": "abort", "request_id": request_id})))
+                await asyncio.wait_for(writer.drain(), _io_timeout())
+        except Exception:  # noqa: BLE001 — the conn may be the failure
+            pass
+
+    def close(self) -> None:
+        if self._ack_task is not None:
+            self._ack_task.cancel()
+            self._ack_task = None
+        if self._writer:
+            self._writer.close()
+            self._writer = None

@@ -90,6 +90,21 @@ register_env("DYN_RETRY_CAP_MS", "2000", "runtime",
 register_env("DYN_WIRE_VALIDATE", "0", "runtime",
              "Debug mode: validate every wire frame against the "
              "runtime/wire.py registry at encode/decode time (1/true).")
+register_env("DYN_KV_TRANSFER_CHUNK_PAGES", "4", "llm/disagg",
+             "KV pages per streamed transfer chunk frame; 0 = legacy "
+             "single bulk frame.")
+register_env("DYN_KV_TRANSFER_INT8", "0", "llm/disagg",
+             "int8-compress shipped KV pages (~half the bytes; lossy). "
+             "1/true enables.")
+register_env("DYN_PREFILL_TIMEOUT", "120.0", "llm/disagg",
+             "Decode-side cap (seconds) on one remote-prefill wait "
+             "(enqueue to KV commit); the request deadline caps it "
+             "further. On expiry the request falls back to local "
+             "prefill.")
+register_env("DYN_REDISPATCH_MAX", "2", "llm/disagg",
+             "Max remote-prefill dispatches per request (first + hedged "
+             "re-enqueues after a fast transfer-plane failure, e.g. a "
+             "prefill worker dying mid-transfer). 1 disables hedging.")
 register_env("HF_HUB_OFFLINE", "1", "external",
              "Set by dynamo_tpu_torch.llm.tokenizer unless already present: "
              "never hit the HuggingFace hub at serve time.")

@@ -1,6 +1,6 @@
 """Request deadlines, the retry policy and circuit breakers, trimmed
 from ``dynamo_tpu/runtime/guard.py`` to what the port's component model,
-response plane and router use.
+response plane, router and disaggregation plane use.
 
 - :class:`Deadline` — a monotonic budget that travels with the request:
   stamped into the DCP request envelope as ``deadline_ms`` (the budget
@@ -26,7 +26,7 @@ import logging
 import random
 import time
 from dataclasses import dataclass, field
-from typing import (Any, AsyncIterator, Awaitable, Callable, Dict,
+from typing import (Any, AsyncIterator, Awaitable, Callable, Dict, List,
                     Optional, Tuple)
 
 from .config import env_float, env_int
@@ -346,6 +346,13 @@ class BreakerBoard:
         br = self.breakers.get((plane, key))
         if br is not None:
             br.reset()
+
+    def not_closed(self, plane: str) -> List[Any]:
+        """Keys of ``plane`` whose breaker is open or half-open."""
+        return sorted(
+            (k for (p, k), br in self.breakers.items()
+             if p == plane and br.state != BREAKER_CLOSED),
+            key=repr)
 
 
 # ------------------------------------------------------------------- counters

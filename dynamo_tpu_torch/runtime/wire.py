@@ -1,16 +1,16 @@
 """Declared wire-schema registry, a copy of ``dynamo_tpu/runtime/wire.py``
 trimmed to the frames the port sends: the DCP request plane (envelope,
-ack, stats reply), the server's pushes (watch, msg, req) and the TCP
-call-home response plane (hello, data, complete, err, ctrl). The frames
-are byte for byte the reference's, so a port process and a reference
-process talk to each other.
+ack, stats reply), the server's pushes (watch, msg, req), the
+disaggregated prefill queue's job, the KV transfer plane (bulk, chunk,
+abort, ack) and the TCP call-home response plane (hello, data, complete,
+err, ctrl). The frames are byte for byte the reference's, so a port
+process and a reference process talk to each other.
 
 Each frame is declared once with field name, type, required/optional and
 since-version. Encode sites pass headers through :func:`checked`, decode
 sites through :func:`decoded`; both are identity functions unless
 ``DYN_WIRE_VALIDATE`` is set, when they check real traffic against the
-table. The KV-transfer, remote-prefill and blackbox frames come with the
-modules that send them.
+table. The blackbox frame is not part of the port.
 """
 
 from __future__ import annotations
@@ -31,6 +31,10 @@ class WireValidationError(WireError):
 
 class UnknownWireFrame(WireError):
     """A frame (or header) matches no registered schema."""
+
+
+class WireVersionMismatch(WireError):
+    """Peer sent a frame stamped with a schema version newer than ours."""
 
 
 # type name (as written in declarations) -> accepted Python types.
@@ -105,6 +109,10 @@ def register_frame(name: str, *, version: int = 1, doc: str = "",
     FRAMES[name] = WireFrame(name=name, version=version, doc=doc,
                              when=dict(when or {}), fields=fs)
     return name
+
+
+def frame_version(name: str) -> int:
+    return FRAMES[name].version
 
 
 def validation_enabled() -> bool:
@@ -284,6 +292,99 @@ DCP_PUSH_REQ = register_frame(
         ("subject", "str", "required", 1, "request subject"),
         ("payload", "bytes", "required", 1, "request body"),
         ("reply", "int", "required", 1, "server-side reply-routing id"),
+    ])
+
+# --- disaggregated prefill queue (llm/disagg/protocols.py) -----------------
+
+PREFILL_REMOTE_REQUEST = register_frame(
+    "prefill.remote_request", version=3,
+    doc="One queued remote-prefill job (decode worker -> prefill queue -> "
+        "any prefill worker).",
+    fields=[
+        ("request_id", "str", "required", 1, "decode-side request id"),
+        ("token_ids", "list", "required", 1, "full prompt token ids"),
+        ("sampling", "dict", "required", 1, "SamplingOptions dict"),
+        ("eos_token_ids", "list", "required", 1, "stop-token ids"),
+        ("page_ids", "list", "required", 1,
+         "DECODE-side pool pages reserved for the prompt KV"),
+        ("skip_pages", "int", "required", 1,
+         "leading pages already valid on the decode side (prefix hits)"),
+        ("engine_id", "int", "required", 1,
+         "decode engine instance id (transfer-endpoint lookup key)"),
+        ("trace_ctx", "dict", "optional", 2,
+         "dyntrace ctx of the decode-side request; absent = no parent"),
+        ("deadline_ms", "int", "optional", 3,
+         "remaining request budget in ms at enqueue time; the prefill "
+         "worker drops jobs whose budget is spent and caps its ack "
+         "waits by what remains. Absent = no deadline"),
+    ])
+
+# --- KV transfer plane (llm/disagg/transfer.py) ----------------------------
+
+KV_TRANSFER_BULK = register_frame(
+    "kv_transfer.bulk", version=2,
+    doc="Legacy single-frame KV payload: all pages + the first sampled "
+        "token in one two-part message (chunk_pages=0).",
+    fields=[
+        ("request_id", "str", "required", 1, "decode-side request id"),
+        ("page_ids", "list", "required", 1, "destination pool pages"),
+        ("shape", "list", "required", 1, "[L, n, KV, page_size, hd]"),
+        ("dtype", "str", "required", 1,
+         "ORIGINAL pool dtype to restore into (even when quantized)"),
+        ("k_len", "int", "required", 1, "byte length of the K half"),
+        ("first_token", "int", "required", 1, "remotely sampled first token"),
+        ("quant", "str", "optional", 1, "'int8' when compressed"),
+        ("trace", "dict", "optional", 2, "dyntrace ctx {trace_id, span_id}"),
+        ("v", "int", "optional", 2, "frame schema version; absent = 1"),
+    ])
+
+KV_TRANSFER_CHUNK = register_frame(
+    "kv_transfer.chunk", version=2,
+    doc="One streamed KV chunk; the final chunk (chunk_idx == n_chunks-1) "
+        "is the commit and carries the first token.",
+    when={"kind": "chunk"},
+    fields=[
+        ("kind", "str", "required", 1, "frame discriminator: 'chunk'"),
+        ("request_id", "str", "required", 1, "decode-side request id"),
+        ("chunk_idx", "int", "required", 1, "0-based chunk index"),
+        ("n_chunks", "int", "required", 1, "total chunks in the stream"),
+        ("page_ids", "list", "required", 1, "destination pages this chunk"),
+        ("shape", "list", "required", 1, "[L, n, KV, page_size, hd]"),
+        ("dtype", "str", "required", 1, "ORIGINAL pool dtype"),
+        ("k_len", "int", "required", 1, "byte length of the K half"),
+        ("quant", "str", "optional", 1, "'int8' when compressed"),
+        ("first_token", "int", "optional", 1, "commit chunk only"),
+        ("trace", "dict", "optional", 2, "commit chunk only; dyntrace ctx"),
+        ("v", "int", "optional", 2, "frame schema version; absent = 1"),
+    ])
+
+KV_TRANSFER_ABORT = register_frame(
+    "kv_transfer.abort", version=2,
+    doc="Sender-side teardown: drop the stream's partial state and fail "
+        "the decode-side waiter now.",
+    when={"kind": "abort"},
+    fields=[
+        ("kind", "str", "required", 1, "frame discriminator: 'abort'"),
+        ("request_id", "str", "required", 1, "stream being aborted"),
+        ("v", "int", "optional", 2, "frame schema version; absent = 1"),
+    ])
+
+KV_TRANSFER_ACK = register_frame(
+    "kv_transfer.ack", version=2,
+    doc="Receiver's per-frame acknowledgement, demultiplexed by "
+        "request_id on the sender.",
+    when={"ok": None},
+    fields=[
+        ("ok", "bool", "required", 1, "frame ingested successfully"),
+        ("request_id", "str", "required", 1, "ack demux key"),
+        ("chunk_idx", "int", "optional", 1,
+         "echo of the acked chunk (diagnostic)"),
+        ("committed", "bool", "optional", 1,
+         "set on the ack of a committed final chunk"),
+        ("error", "str", "optional", 1, "failure detail when ok=false"),
+        ("conn_lost", "bool", "optional", 1,
+         "client-synthesized on connection loss (never on the wire)"),
+        ("v", "int", "optional", 2, "frame schema version; absent = 1"),
     ])
 
 # --- TCP call-home response plane (runtime/tcp.py) -------------------------

@@ -111,7 +111,10 @@ def test_wire_frames_are_the_reference_frames():
         wire.DCP_REQUEST_ENVELOPE, wire.DCP_REQUEST_ACK,
         wire.DCP_STATS_REPLY, wire.DCP_PUSH_WATCH, wire.DCP_PUSH_MSG,
         wire.DCP_PUSH_REQ, wire.TCP_HELLO, wire.TCP_DATA,
-        wire.TCP_COMPLETE, wire.TCP_ERR, wire.TCP_CTRL}
+        wire.TCP_COMPLETE, wire.TCP_ERR, wire.TCP_CTRL,
+        wire.PREFILL_REMOTE_REQUEST, wire.KV_TRANSFER_BULK,
+        wire.KV_TRANSFER_CHUNK, wire.KV_TRANSFER_ABORT,
+        wire.KV_TRANSFER_ACK}
     for name, frame in wire.FRAMES.items():
         ref = ref_wire.FRAMES[name]
         assert (frame.version, frame.when) == (ref.version, ref.when)
