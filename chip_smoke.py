@@ -118,7 +118,8 @@ Phases; any failure exits non-zero before the result line:
    command that starts rank 1 itself), and each rank's serving summary
    must show no capture after warmup, mesh model=2, every kernel call
    from a graph replay on the bf16 routes, and the same counts on both
-   ranks. The launcher ranks of phases 7 and 8 run with
+   ranks (the two forms side by side, the second started once the
+   first's ranks warm up: four ranks, two groups, on the card). The launcher ranks of phases 7 and 8 run with
    ``--max-batch-size 4`` (the requests here are four at most), the
    check's ranks with batches up to 8, so each warms fewer decode
    graphs; every launcher rank's ``engine ready`` line (where its start
@@ -131,7 +132,8 @@ Phases; any failure exits non-zero before the result line:
    writer, into a temporary directory; loaded by
    ``dynamo_tpu_torch/models/loader.py`` (seconds, GB/s and peak host
    RSS printed) and held bitwise against the seed-0 params; then served
-   with ``python -m dynamo_tpu_torch.run --model-path``: at tp=1 the
+   with ``python -m dynamo_tpu_torch.run --model-path``, tp=1 and tp=2
+   side by side (three ranks on the card): at tp=1 the
    four phase-4 requests one at a time must give phase 4's results
    bitwise (text, every logprob and top value: the same tokens), and at
    tp=2 (two launcher ranks, each loading its shard, with its load line)
@@ -247,8 +249,9 @@ Phases; any failure exits non-zero before the result line:
    (:func:`sync_arms_phase`): the default engine, (a) the launcher's
    ``--prefill-token-budget 256`` (pipelined windows with budgeted
    mixing), (b) ``--spec-decode --spec-tokens 4 --prefill-token-budget
-   256`` and (c) ``EngineConfig(decode_steps=1, prefill_token_budget=
-   256)`` built directly, (b) and (c) at ``max_batch`` 8 (their grids
+   256``, (c) ``EngineConfig(decode_steps=1, prefill_token_budget=
+   256)`` built directly and (d) the default config with
+   ``coalesce_window_emissions=False``, (b) and (c) at ``max_batch`` 8 (their grids
    trimmed to the batch the traffic reaches), one engine at a time, each
    warmed and freed before the next, on the same traffic (phase 4's four
    requests, a 2,048-token prompt sent while they decode, a greedy
@@ -258,7 +261,10 @@ Phases; any failure exits non-zero before the result line:
    replays) x 32 on bf16_mma and prefill launches = (chunk + verify
    replays) x 32 on the bf16 route, an accepted draft on the repeated
    passage, no bypass row verified, (b)'s greedy tokens (a)'s up to a
-   plain-path near-tie; then the single step and the verify step kernel
+   plain-path near-tie; (d) the default engine with
+   ``coalesce_window_emissions=False``: every EngineOutput one token at
+   most, its greedy tokens the default engine's up to a plain-path
+   near-tie; then the single step and the verify step kernel
    path against plain path at PATH_LIMITS with a fault control each.
    Prints each engine's ITL mean and max and TTFT (records); its
    launches fill the kernels line's single-step and verify rows.
@@ -323,6 +329,20 @@ Phases; any failure exits non-zero before the result line:
    stages, the receiver's inject seconds and the worker-side TTFT
    (records: loopback on one card). Its launches join the served path's
    rows of the kernels line.
+18. (run after phase 17, while phase 4's engine holds its share of the
+   card) the launcher's benchmark mode as a user runs it
+   (:func:`batch_phase`): ``python -m dynamo_tpu_torch.run
+   in=batch:FILE out=torch --model 8b --max-batch-size 4 --max-tokens 32
+   --context-length 4096 --profile-dir DIR``, the 8B at full width with
+   phase 4's seed-0 weights, FILE holding phase 4's four cold-batch
+   prompts: a line a request (tokens_in the prompt's words, tokens_out
+   in [0, 32]: the chunks that carried text, and the random 8B's tokens
+   are mostly past the byte tokenizer's 256 bytes) and the aggregate
+   line; the rank's serving summary with no capture after warmup,
+   every attention launch a replay's on the bf16 routes and windows
+   enough for the 32 tokens; the
+   ``torch.profiler`` Chrome trace in DIR naming both hand kernels. Its
+   launches join the served path's rows of the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -2789,7 +2809,7 @@ def int8_phase(cfg, dev, bf16_logits) -> tuple:
     programmatic = check_programmatic_replay(dev)
     rows = time_int8_gemm(dev, errs)
     t = time.monotonic()
-    engine, mdc = build_engine(parse_args([
+    engine, mdc, _ = build_engine(parse_args([
         "in=http", "out=torch", "--model", "8b", "--dtype", "int8",
         "--model-name", "llama3-8b-int8-random"]))
     topn = engine.ecfg.max_top_logprobs
@@ -3388,6 +3408,47 @@ async def _serve_remote(base: str, name: str) -> dict:
     return {"finish_reasons": fins, "wall_s": wall}
 
 
+def staggered(first, then, logs, ranks: int, limit: float = 300) -> list:
+    """``first`` and ``then`` (each ``(fn, *args)``) in threads of their
+    own, ``then`` started once every rank of ``first`` has logged
+    ``warming up`` in ``logs`` (the launcher's line once its engine is
+    built), or once ``first`` has ended: the ranks of ``first`` then hold
+    their weights and are warming up, past the peak of their start (a
+    random draw holds a whole float32 param), and the card has room for
+    the peaks of ``then``'s ranks beside them.
+    Their results in order. A call that fails (``fail`` ends its thread)
+    fails the script once both calls have ended: each kills the
+    processes it started before it returns."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def warming() -> int:
+        n = 0
+        for path in logs:
+            try:
+                with open(path) as f:
+                    n += f.read().count("; warming up")
+            except OSError:
+                pass
+        return n
+
+    with ThreadPoolExecutor(2) as ex:
+        a = ex.submit(*first)
+        t0 = time.monotonic()
+        while not (a.done() or warming() >= ranks
+                   or time.monotonic() - t0 > limit):
+            time.sleep(0.5)
+        b = ex.submit(*then)
+        return [a.result(), b.result()]
+
+
+def serve_logs(out_dir: str, name: str, ranks: int, one_command: bool):
+    """The rank logs :func:`serve_launcher` writes for these arguments."""
+    form = "one_command" if one_command or ranks == 1 else "coordinator"
+    n = 1 if form == "one_command" else ranks
+    return [os.path.join(out_dir, f"serve_{name}_{form}_{r}.log")
+            for r in range(n)]
+
+
 def serve_tp(cfg, out_dir: str, one_command: bool) -> dict:
     """The served tensor-parallel phase: two ranks of the launcher on the
     one card, in one of its two forms: one process per rank
@@ -3774,17 +3835,21 @@ def checkpoint_phase(cfg, dev, ckpt_dir: str, solo_ref,
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_logs_")
     try:
-        for ranks in (1, TP_RANKS):
-            async def requests(base, name, ranks=ranks):
-                out = {"solo": await solo_logprobs(base, name, "ckpt")}
-                if ranks > 1:
-                    out.update(await tp_teacher_forced(base, name,
-                                                       solo_ref["tap"]))
-                return out
+        async def requests(base, name):
+            out = {"solo": await solo_logprobs(base, name, "ckpt")}
+            if not name.endswith("tp1"):
+                out.update(await tp_teacher_forced(base, name,
+                                                   solo_ref["tap"]))
+            return out
 
-            res = serve_launcher(cfg, out_dir, ["--model-path", ckpt_dir],
-                                 f"llama3-8b-ckpt-tp{ranks}", ranks, False,
-                                 requests)
+        # tp=1 and tp=2 side by side, tp=2 started once tp=1 warms up:
+        # three ranks on the card
+        served = staggered(*(
+            (serve_launcher, cfg, out_dir, ["--model-path", ckpt_dir],
+             f"llama3-8b-ckpt-tp{ranks}", ranks, False, requests)
+            for ranks in (1, TP_RANKS)),
+            serve_logs(out_dir, "llama3-8b-ckpt-tp1", 1, False), 1)
+        for ranks, res in zip((1, TP_RANKS), served):
             if sorted(res["loads"]) != list(range(ranks)):
                 fail(f"tp={ranks}: load lines of ranks "
                      f"{sorted(res['loads'])}")
@@ -4364,7 +4429,9 @@ SYNC_ENGINES = (
                             "--max-batch-size", "8"]),
     ("c single step", "EngineConfig", dict(decode_steps=1,
                                            prefill_token_budget=256,
-                                           max_batch=8)))
+                                           max_batch=8)),
+    # the default engine emitting token by token
+    ("d per token", "EngineConfig", dict(coalesce_window_emissions=False)))
 
 
 def sync_requests() -> list:
@@ -4409,7 +4476,9 @@ async def sync_traffic(engine) -> dict:
         if lp:
             req.output = OutputOptions(logprobs=lp)
         sent, last, toks, itl, ttft = time.monotonic(), None, [], [], None
+        widest = 0
         async for out in engine.generate(req, Context()):
+            widest = max(widest, len(out.token_ids))
             if out.token_ids:
                 now = time.monotonic()
                 if last is None:
@@ -4420,7 +4489,7 @@ async def sync_traffic(engine) -> dict:
                 last = now
                 toks += out.token_ids
         return rid, {"tokens": toks, "ttft_ms": ttft * 1e3,
-                     "itl_ms": [x * 1e3 for x in itl]}
+                     "itl_ms": [x * 1e3 for x in itl], "widest": widest}
 
     try:
         got = dict(await asyncio.gather(*[one(*r) for r in sync_requests()]))
@@ -4597,6 +4666,25 @@ def check_spec_tokens(params, cfg, dev, spec: dict, plain_arm: dict) -> dict:
             for rid, got in spec["requests"].items() if rid != "sampled"}
 
 
+def check_per_token(params, cfg, dev, per_token: dict, default: dict) -> dict:
+    """Engine (d)'s greedy tokens against the default engine's under
+    :func:`margin_rule` (the same windows; only the emission differs):
+    every EngineOutput of (d) carries one token at most, and the default
+    engine emitted some window row as one output of several tokens."""
+    prompts = {rid: ids for rid, ids, *_ in sync_requests()}
+    widest = {rid: r["widest"] for rid, r in per_token["requests"].items()}
+    if max(widest.values()) != 1:
+        fail(f"phase 15: (d) emitted several tokens at once: {widest}")
+    if max(r["widest"] for r in default["requests"].values()) < 2:
+        fail("phase 15: the default engine never coalesced a window row")
+    return {rid: margin_rule(params, cfg, dev, prompts[rid],
+                             default["requests"][rid]["tokens"],
+                             got["tokens"],
+                             f"phase 15: (d) against the default, {rid}")
+            for rid, got in per_token["requests"].items()
+            if rid != "sampled"}
+
+
 def sync_arms_phase(cfg, dev, params) -> dict:
     """Phase 15: the reference's synchronous decode arms on the 8B at full
     width (32 layers, phase 4's seed-0 weights, shared), one engine at a
@@ -4615,7 +4703,10 @@ def sync_arms_phase(cfg, dev, params) -> dict:
     acceptance above 0 on the repeated passage, the sampled and logprobs
     requests never in a verify step, greedy tokens as (a)'s
     (:func:`check_spec_tokens`). (c): its single steps launch the decode
-    route 32 times each. Then the single step and the verify step,
+    route 32 times each. (d), the default engine with
+    ``coalesce_window_emissions=False``: one token an EngineOutput, its
+    greedy tokens the default engine's (:func:`check_per_token`). Then
+    the single step and the verify step,
     kernel path against plain path (:func:`check_spec_paths`). Records
     ITL mean and max and TTFT of each engine."""
     import dataclasses
@@ -4671,7 +4762,8 @@ def sync_arms_phase(cfg, dev, params) -> dict:
             f"; spec {json.dumps({k: v for k, v in got.items() if k.startswith('spec_decode')})}")
         if got["post_warmup_compiles_total"] != 0:
             fail(f"phase 15 {name}: captures after warmup")
-        if name != "default" and engine.mixed_dispatches <= 0:
+        if (ecfg.prefill_token_budget is not None
+                and engine.mixed_dispatches <= 0):
             fail(f"phase 15 {name}: no decode dispatched beside a prefill")
         dec = got["route_launches"]["bf16_mma"]
         pf = got["prefill_route_launches"]["bf16"]
@@ -4709,6 +4801,8 @@ def sync_arms_phase(cfg, dev, params) -> dict:
         torch.cuda.empty_cache()
     report["spec_tokens_vs_budget"] = check_spec_tokens(
         params, cfg, dev, report["b spec"], report["a budget"])
+    report["per_token_vs_default"] = check_per_token(
+        params, cfg, dev, report["d per token"], report["default"])
     report["paths"] = check_spec_paths(params, cfg, dev)
     return report
 
@@ -5719,6 +5813,129 @@ def disagg_phase(cfg, dev, params, ref) -> dict:
     return rep
 
 
+# ------------------------------------------- phase 18: the batch launcher
+
+# the launcher's benchmark mode on the 8B: phase 4's cold-batch prompts,
+# each answer capped at BATCH_MAX_TOKENS, traced by torch.profiler
+BATCH_MAX_TOKENS = 32
+BATCH_ARGV = ["out=torch", "--model", "8b", "--max-batch-size", "4",
+              "--max-tokens", str(BATCH_MAX_TOKENS), "--context-length",
+              "4096"]
+BATCH_KERNELS = ("paged_decode_bf16_kernel", "paged_prefill_bf16_kernel")
+
+
+def trace_names(path: str, names) -> set:
+    """Which of ``names`` occur in the file at ``path``, read in chunks (a
+    trace of the 8B's warmup and serving runs to hundreds of MB)."""
+    found, tail, width = set(), b"", max(len(n) for n in names)
+    with open(path, "rb") as f:
+        while len(found) < len(names):
+            block = f.read(1 << 24)
+            if not block:
+                break
+            text = tail + block
+            found |= {n for n in names if n.encode() in text}
+            tail = text[-width:]
+    return found
+
+
+def batch_phase(cfg, out_dir: str) -> dict:
+    """Phase 18: ``python -m dynamo_tpu_torch.run in=batch:FILE out=torch
+    --model 8b --max-batch-size 4 --max-tokens 32 --context-length 4096
+    --profile-dir DIR`` on the card: the 8B at full width with phase 4's
+    seed-0 weights, FILE holding phase 4's four cold-batch prompts. Its
+    output must be a line a request (``tokens_in`` the prompt's words,
+    ``tokens_out`` in [0, 32]) and the aggregate; the rank's serving
+    summary (standard error) no capture after warmup, every attention
+    launch from a replay on the bf16 routes (decode: window replays x 32
+    x K, prefill: chunk replays x 32), both kernels launched, and windows
+    enough for 31 tokens after the first; the Chrome trace in DIR must
+    name both hand kernels. ``tokens_out`` counts the chunks that carried
+    text (the reference's definition): the random 8B's tokens are mostly
+    ids past the byte tokenizer's 256 bytes, which decode to nothing."""
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig
+    from dynamo_tpu_torch.ops import paged_attention as ops
+
+    path = os.path.join(out_dir, "batch.jsonl")
+    with open(path, "w") as f:
+        for _, _, prompt, _, _ in DYN_BATCH:
+            f.write(json.dumps({"text": prompt}) + "\n")
+    prof = os.path.join(out_dir, "trace")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.run", f"in=batch:{path}",
+           *BATCH_ARGV, "--profile-dir", prof]
+    log(f"  {' '.join(cmd[1:])}")
+    t = time.monotonic()
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=420)
+    except subprocess.TimeoutExpired as e:
+        fail(f"phase 18: the batch launcher ran past 420 s:\n"
+             f"{(e.stderr or '')[-3000:]}")
+    seconds = time.monotonic() - t
+    if proc.returncode != 0:
+        fail(f"phase 18: the batch launcher exited {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    err = proc.stderr
+    ready = json.loads(err.split("engine ready ", 1)[1].splitlines()[0])
+    export = [ln for ln in err.splitlines() if "profiler trace written" in ln]
+    log(f"  engine ready {json.dumps(ready)}; "
+        f"{export[-1].split(': ', 1)[-1] if export else 'no trace line'}")
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+    if len(rows) != len(DYN_BATCH) + 1 or "aggregate" not in rows[-1]:
+        fail(f"phase 18: expected {len(DYN_BATCH)} request lines and the "
+             f"aggregate:\n{proc.stdout[-3000:]}")
+    lines, agg = rows[:-1], rows[-1]["aggregate"]
+    words = [len(prompt.split()) for _, _, prompt, _, _ in DYN_BATCH]
+    # tokens_out counts the chunks that carried text (the reference's
+    # definition): the random 8B's tokens are mostly ids past the byte
+    # tokenizer's 256 bytes, which decode to nothing, so it may be 0
+    if ([r["index"] for r in lines] != list(range(len(DYN_BATCH)))
+            or [r["tokens_in"] for r in lines] != words
+            or not all(0 <= r["tokens_out"] <= BATCH_MAX_TOKENS
+                       for r in lines)
+            or agg["requests"] != len(DYN_BATCH)):
+        fail(f"phase 18: request lines {json.dumps(rows)}")
+    summary = json.loads(err.split("serving summary ", 1)[1].splitlines()[0])
+    L, K = cfg.num_layers, EngineConfig().decode_steps
+    rep = summary["replays"]
+    dec = summary["route_launches"]["bf16_mma"]
+    pf = summary["prefill_route_launches"]["bf16"]
+    problems = []
+    if summary["post_warmup_compiles_total"] != 0:
+        problems.append("captures after warmup")
+    if dec <= 0 or pf <= 0:
+        problems.append("a kernel never launched")
+    if summary["route_launches"] != only(ops.DECODE_ROUTES, "bf16_mma", dec):
+        problems.append("decode off the bf16 route")
+    if summary["prefill_route_launches"] != only(ops.PREFILL_ROUTES, "bf16",
+                                                 pf):
+        problems.append("prefill off the bf16 route")
+    if dec != rep["decode_window"] * L * K or pf != rep["prefill"] * L:
+        problems.append("launches are not the replays'")
+    # every request decodes its 31 tokens after the first: K a window
+    if rep["decode_window"] * K < BATCH_MAX_TOKENS - 1:
+        problems.append("fewer windows than --max-tokens needs")
+    if problems:
+        fail(f"phase 18: {problems}: {json.dumps(summary)}")
+    trace = os.path.join(prof, "rank0.pt.trace.json")
+    if not os.path.isfile(trace):
+        fail(f"phase 18: no trace in {prof}: {os.listdir(prof)}")
+    named = trace_names(trace, BATCH_KERNELS)
+    if named != set(BATCH_KERNELS):
+        fail(f"phase 18: the trace names {sorted(named)} of "
+             f"{list(BATCH_KERNELS)}")
+    report = {"seconds": seconds, "requests": lines, "aggregate": agg,
+              "ready": ready, "summary": summary,
+              "trace_bytes": os.path.getsize(trace),
+              "trace_export": export[-1].split(": ", 1)[-1] if export
+              else None}
+    log(f"  phase 18: {json.dumps(report)}")
+    return report
+
+
 def time_step(kp, vp, ctx, B: int, P: int, H: int, g) -> dict:
     """The decode kernel in the single-step form the ``decode_steps=1``
     arm launches (paged_attention_decode_layered, no stats, no window),
@@ -5992,6 +6209,19 @@ def main() -> None:
         next(r for r in rows if r["name"] == name)["launches"] += n
         if n <= 0:
             fail(f"{name}: not launched in phase 17")
+    log("phase 18: the launcher's batch mode on the 8B with --max-tokens, "
+        "--context-length and --profile-dir")
+    batch_dir = tempfile.mkdtemp(prefix="chip_smoke_batch_")
+    try:
+        batch_report = batch_phase(cfg, batch_dir)
+    finally:
+        shutil.rmtree(batch_dir, ignore_errors=True)
+    for name, key, route in (("paged_attention_decode", "route_launches",
+                              "bf16_mma"),
+                             ("paged_attention_prefill",
+                              "prefill_route_launches", "bf16")):
+        next(r for r in rows if r["name"] == name)["launches"] += \
+            batch_report["summary"][key][route]
     # the tp=1 engine leaves the card before the int8 one and the ranks
     del engine
     gc.collect()
@@ -6002,13 +6232,22 @@ def main() -> None:
     int8_report, int8_rows, int8_logits = int8_phase(cfg, dev, tp1_logits)
     rows += [r for r in int8_rows if r["M"] in INT8_LINE_ROWS]
 
+    # the ranks of phases 7 and 8 share the card with this process: hand
+    # back what its allocator still caches
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"phase 7: tensor-parallel serving, {TP_RANKS} ranks of the "
-        f"launcher on the one card")
+        f"launcher on the one card (this process holds "
+        f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB)")
     tp_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     try:
         tp_logits = check_tp_logits(tp1_logits, tp_dir)
-        tp_served = serve_tp(cfg, tp_dir, one_command=False)
-        tp_served_one = serve_tp(cfg, tp_dir, one_command=True)
+        # the two launch forms side by side, the second started once the
+        # first's ranks warm up: four ranks on the card, two groups (each
+        # form's checks are its own)
+        tp_served, tp_served_one = staggered(
+            (serve_tp, cfg, tp_dir, False), (serve_tp, cfg, tp_dir, True),
+            serve_logs(tp_dir, "llama3-8b-tp2", TP_RANKS, False), TP_RANKS)
     finally:
         shutil.rmtree(tp_dir, ignore_errors=True)
 
@@ -6146,6 +6385,7 @@ def main() -> None:
                        "sync_arms": sync_report,
                        "runtime": dyn_report,
                        "disagg": disagg_report,
+                       "batch_launcher": batch_report,
                        "kernels": rows, "int8": int8_report,
                        "int8_gemm_timings": int8_rows,
                        "tp_local_errs": {" ".join(k): v for k, v in

@@ -98,6 +98,7 @@ import asyncio
 import logging
 import threading
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import AsyncIterator, Dict, List, Optional, Tuple
@@ -115,6 +116,7 @@ from ..models.llama import (KVCacheSpec, check_supported, init_kv_cache,
                             make_step_fns, make_verify_fn)
 from ..models.quant import QUANT_KEYS, quantize_int8, quantize_params
 from ..parallel.mesh import MeshView, quantize_shard, shard_param
+from ..runtime.config import env_int
 from ..runtime.device import resolve_device
 from ..runtime.engine import Context
 from ..runtime.slo import LatencyRecorder
@@ -190,6 +192,11 @@ class EngineConfig:
     spec_tokens: int = 4      # K: drafts verified a step at most
     spec_ngram_max: int = 4   # longest suffix n-gram the drafter matches
     spec_ngram_min: int = 1   # shortest n-gram worth matching
+    # emit each row of a window as one EngineOutput from the device's
+    # emitted count (one wakeup a row-window, one bulk page commit); False
+    # emits token by token with the host's stop checks, as rows whose
+    # stop ids overflow the device table always do
+    coalesce_window_emissions: bool = True
     # reuse the uploaded sampler params / page table / stop table while
     # the batch composition is unchanged (freezes the build-time seeds of
     # unseeded sampled rows for the cached span, as in the JAX engine)
@@ -438,7 +445,8 @@ class TorchEngine:
                  engine_cfg: Optional[EngineConfig] = None, params=None,
                  seed: int = 0, device="cuda",
                  mesh: Optional[MeshView] = None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None,
+                 worker_label: Optional[str] = None):
         """``mesh``: the rank's view of a tensor-parallel mesh
         (``parallel/mesh.py MeshSpec.build``); the engine then runs on the
         mesh's device, and ``params``, when given, are the rank's shard
@@ -451,7 +459,8 @@ class TorchEngine:
         ``parallel/mesh.py quantize_shard``), and random params are
         quantized as each is drawn, whole, then cut (the JAX package's
         ``host_init_quantized``), so the bfloat16 tree never exists whole
-        on the card."""
+        on the card. ``worker_label``: a stable label of this engine
+        (a replica's name), carried by ``stats()``."""
         check_supported(model_cfg)
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant mode {quant!r} (expected "
@@ -471,6 +480,7 @@ class TorchEngine:
                     "the data axis inside one engine is not ported yet")
             device = mesh.device
         self.mesh = mesh
+        self.worker_label = worker_label or ""
         self.mesh_devices = mesh.size if mesh is not None else 1
         self.mesh_shape = mesh.shape if mesh is not None else "single"
         self.device = resolve_device(device)
@@ -486,6 +496,11 @@ class TorchEngine:
                     name, w, model_cfg, mesh)))
         self.quant = quant
         self.params = params
+        if self.device.type == "cuda":
+            # a random draw holds a whole param in float32 at a time (and
+            # a loader its tensors): hand those blocks back to the card,
+            # where ranks that share it would otherwise find them cached
+            torch.cuda.empty_cache()
         spec = KVCacheSpec(self.ecfg.num_pages, self.ecfg.page_size)
         self.kv_k, self.kv_v = init_kv_cache(model_cfg, spec,
                                              device=self.device, mesh=mesh)
@@ -575,6 +590,10 @@ class TorchEngine:
         self.decode_tokens_total = 0
         self.prefix_hit_tokens_total = 0
         self.prompt_tokens_total = 0
+        # (prefix-hit tokens, prompt tokens) of the last DYN_CACHE_WINDOW
+        # admissions: stats()' windowed hit rate follows recent traffic
+        self._hit_window: deque = deque(
+            maxlen=max(env_int("DYN_CACHE_WINDOW") or 256, 1))
         # iterations that dispatched decode work beside a prefill batch
         # (the JAX engine's attribute; its stats() carries no such key)
         self.mixed_dispatches = 0
@@ -864,6 +883,7 @@ class TorchEngine:
         """The subset of the JAX engine's stats() this engine tracks, under
         the same key names."""
         return {
+            "worker_label": self.worker_label,
             "role": self.role,
             "mesh_shape": self.mesh_shape,
             "mesh_devices": self.mesh_devices,
@@ -878,11 +898,14 @@ class TorchEngine:
             "queue_wait_seconds_total": round(self.queue_wait_seconds_total,
                                               4),
             "gpu_cache_usage_perc": self.pm.usage(),
+            "gpu_prefix_cache_hit_rate": self._windowed_hit_rate(),
             "gpu_prefix_cache_hit_rate_lifetime":
                 (self.prefix_hit_tokens_total /
                  max(self.prompt_tokens_total, 1)),
             "prefix_hit_tokens_total": self.prefix_hit_tokens_total,
             "prompt_tokens_total": self.prompt_tokens_total,
+            # the page manager's prefix-cache counters, as cache_* keys
+            **{f"cache_{k}": v for k, v in self.pm.cache_stats().items()},
             # graph captures after warmup() armed the fence (0 = the
             # no-capture serving invariant holds)
             "post_warmup_compiles_total": self.fence.post_warmup_compiles,
@@ -907,6 +930,15 @@ class TorchEngine:
             "spec_decode_mean_accepted_len":
                 (self.spec_accepted_tokens_total / max(self.spec_steps, 1)),
         }
+
+    def _windowed_hit_rate(self) -> float:
+        """Prefix-hit tokens over prompt tokens of the admissions in the
+        window (0.0 while it is empty)."""
+        hit = total = 0
+        for h, p in self._hit_window:
+            hit += h
+            total += p
+        return hit / total if total else 0.0
 
     # ------------------------------------------------------- scheduler loop
 
@@ -1102,6 +1134,7 @@ class TorchEngine:
                 self.latency.observe("queue_wait", seq.queue_wait_s)
                 self.prefix_hit_tokens_total += seq.computed
                 self.prompt_tokens_total += seq.num_prompt
+                self._hit_window.append((seq.computed, seq.num_prompt))
             self.prefilling.append(seq)
 
     def _admit_in_step(self) -> None:
@@ -1506,10 +1539,11 @@ class TorchEngine:
         # above shows as the window's device time)
         ht0 = self.profiler.begin()
         before = self.decode_tokens_total
+        coalesce = self.ecfg.coalesce_window_emissions
         for i, seq in enumerate(pend.batch):
             if seq.finished is not None:
                 continue
-            if (not seq.context.stopped
+            if (coalesce and not seq.context.stopped
                     and len(seq.stop_ids) <= self.ecfg.max_eos_ids):
                 self._append_row(seq, toks[i], int(counts[i]), bool(done[i]),
                                  aux, i)
@@ -2135,6 +2169,9 @@ class TorchEngine:
 
         def _do():
             self.prompt_tokens_total += seq.num_prompt
+            # the decode side's hits were counted by reserve_remote: the
+            # window takes this admission with none, as the totals do
+            self._hit_window.append((0, seq.num_prompt))
             with self._pm_lock:
                 self._commit_full_pages(seq)
                 self._append_token(seq, int(first_token))

@@ -656,6 +656,16 @@ def paged_attention_decode_window(
     return out
 
 
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of float32 scores for the plain paths, evaluated in float64
+    and rounded once to float32: the correctly rounded value in effect,
+    whatever code path the host's math library takes for float32 (on the
+    CPU, MKL picks its own by the processor: its float32 ``exp`` gives
+    other bits under another ``MKL_ENABLE_INSTRUCTIONS`` or ``MKL_CBWR``).
+    Returns float32."""
+    return torch.exp(x.double()).float()
+
+
 def window_reference(q, k_pools, v_pools, layer: int, page_table, start,
                      q_pos, wk, wv, n_win: int, scale: float,
                      softcap: Optional[float] = None, eff_win=None):
@@ -686,8 +696,8 @@ def window_reference(q, k_pools, v_pools, layer: int, page_table, start,
     vis = vis[:, None, None, :]                        # [B, 1, 1, Kw]
     sw = torch.where(vis, sw, torch.full_like(sw, NEG_INF))
     m = torch.maximum(m_p.reshape(B, KV, G), sw.amax(dim=-1))
-    a_p = torch.exp(m_p.reshape(B, KV, G) - m) * l_p.reshape(B, KV, G)
-    p_w = torch.where(vis, torch.exp(sw - m[..., None]), torch.zeros_like(sw))
+    a_p = exp_f32(m_p.reshape(B, KV, G) - m) * l_p.reshape(B, KV, G)
+    p_w = torch.where(vis, exp_f32(sw - m[..., None]), torch.zeros_like(sw))
     l = torch.clamp(a_p + p_w.sum(dim=-1), min=1e-9)
     out = (out_p.reshape(B, KV, G, hd).float() * a_p[..., None]
            + torch.einsum("bkgw,bwkh->bkgh", p_w, wv.float())) / l[..., None]
@@ -697,7 +707,8 @@ def window_reference(q, k_pools, v_pools, layer: int, page_table, start,
 def decode_reference(q, k_pools, v_pools, layer: int, page_table, lengths,
                      lower, scale: float, softcap: Optional[float] = None):
     """Plain PyTorch version of the decode kernel: gather the row's pages,
-    masked online-softmax math in float32 (exp only where visible).
+    masked online-softmax math in float32 (exp only where visible, by
+    :func:`exp_f32`).
     Returns (out [B, H, hd] in q.dtype, m [B, H], l [B, H])."""
     B, H, hd = q.shape
     _, _, KV, ps, _ = k_pools.shape
@@ -715,7 +726,7 @@ def decode_reference(q, k_pools, v_pools, layer: int, page_table, lengths,
              & (pos[None, :] < lengths[:, None].long()))[:, None, None, :]
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     m = torch.clamp(s.amax(dim=-1), min=NEG_INF)
-    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    p = torch.where(valid, exp_f32(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(dim=-1)
     out = torch.einsum("bkgs,bksh->bkgh", p, v.float())
     out = out / torch.clamp(l, min=1e-9)[..., None]

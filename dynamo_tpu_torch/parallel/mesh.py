@@ -188,6 +188,29 @@ def initialize_multihost(coordinator: str, num_processes: int,
                             timeout=INIT_TIMEOUT)
 
 
+def leave_process_groups(mesh: Optional[MeshView] = None) -> None:
+    """Leave the process groups in order, once the rank's work is done:
+    the mesh's device and control groups (:meth:`MeshSpec.build`), then
+    the default group (:func:`initialize_multihost`). Each destroy joins
+    the group's threads and closes its connections; a gloo rank that
+    exits with them still open can abort at interpreter exit. The ranks
+    first meet on the control group, so no rank closes a connection a
+    peer is still reading. Does nothing outside a process group, nor on
+    the card: there the engine's captured graphs still hold the NCCL
+    device group's communicator, and destroying it under them blocks the
+    rank, so it leaves at exit."""
+    if not dist.is_initialized():
+        return
+    if mesh is not None and mesh.device.type == "cuda":
+        return
+    if mesh is not None and mesh.cpu_group is not None:
+        dist.barrier(group=mesh.cpu_group)
+    for group in (mesh.group, mesh.cpu_group) if mesh is not None else ():
+        if group is not None:
+            dist.destroy_process_group(group)
+    dist.destroy_process_group()
+
+
 # ------------------------------------------------------------ sharding
 
 

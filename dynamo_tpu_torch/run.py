@@ -8,14 +8,27 @@
         --model 8b --dcp 127.0.0.1:6650                          # worker
     python -m dynamo_tpu_torch.run in=http out=dyn --dcp 127.0.0.1:6650
     python -m dynamo_tpu_torch.run in=none out=torch --model tiny
+    python -m dynamo_tpu_torch.run in=text out=echo_core
+    python -m dynamo_tpu_torch.run in=batch:prompts.jsonl out=torch \
+        --model 8b --max-tokens 32 --profile-dir /tmp/trace
 
 Inputs, as the JAX launcher names them:
 
 - ``in=http``: the OpenAI HTTP front end (chat + completions + models +
-  health). With ``out=torch`` it serves a local engine; with ``out=dyn``
-  it is the standalone frontend: it runs no engine and no device, and
-  serves the models that workers register on the control plane
-  (``llm/http/discovery.py ModelWatcher``).
+  health). With an engine (``out=torch``, an echo or a Python engine) it
+  serves it locally; with ``out=dyn`` it is the standalone frontend: it
+  runs no engine and no device, and serves the models that workers
+  register on the control plane (``llm/http/discovery.py
+  ModelWatcher``).
+- ``in=text``: a chat loop over standard input, the conversation's
+  history kept, each answer capped at ``--max-tokens``; an empty line or
+  end of input ends it.
+- ``in=batch:FILE``: the benchmark mode. FILE holds one JSON object a
+  line, ``{"text"|"prompt": ..., "max_tokens"?: N}`` (``--max-tokens``
+  where it has none); every request is sent at once, and one JSON line a
+  request is printed (``index``, ``tokens_in``: the prompt's words,
+  ``tokens_out``: the stream's chunks that carried text, ``elapsed_ms``),
+  then ``{"aggregate": {"requests", "wall_s", "output_tok_per_s"}}``.
 - ``in=dyn://namespace.component[.endpoint]``: worker mode. The engine is
   built and warmed first, then the process attaches to the control plane
   (``--dcp``, else ``DYN_DCP_ADDRESS``, else an embedded server) and
@@ -27,6 +40,35 @@ Inputs, as the JAX launcher names them:
   the endpoint (its discovery record goes), then the engine, then
   revokes the lease (its model entry goes).
 - ``in=none``: build and warm the engine, then idle until a signal.
+
+Engines (``out=``):
+
+- ``torch``: :class:`~dynamo_tpu_torch.engine.torch_engine.TorchEngine`
+  on the card (``--device cpu`` runs it on the CPU), below;
+- ``echo_core``: echoes the prompt's tokens, token level behind the
+  Backend (``engine/echo.py``); ``echo_full``: echoes the last user
+  message's words at the OpenAI level. Neither needs a device;
+- ``pystr:FILE`` and ``pytok:FILE``: a user engine, a Python file that
+  defines ``async def generate(request, context)``, an async generator.
+  ``pystr`` is OpenAI level: it gets the chat request as a dict and
+  yields OpenAI chat chunk dicts, which go straight to the HTTP chain.
+  ``pytok`` is token level, behind the preprocessor and the Backend: it
+  gets the preprocessed request as a dict (``token_ids``, ``stop``,
+  ``sampling``, ...) and yields ``EngineOutput`` dicts (``token_ids``,
+  ``finish_reason``, ...).
+
+A worker (``in=dyn://``) needs a token-level engine: ``torch``,
+``echo_core`` or ``pytok:``. Every engine takes ``--context-length N``,
+which sets the model card's context length (the preprocessor refuses a
+prompt that does not fit it and caps ``max_tokens`` to what is left).
+
+``--profile-dir DIR`` (default ``DYN_PROFILE_DIR``) traces the process
+with ``torch.profiler`` (host ops, and the card's kernels and copies
+when it runs on one) from the start of the mode to its end, warmup
+included, and writes a Chrome trace per rank into DIR
+(``rank<r>.pt.trace.json``). The profiler keeps every event in host
+memory until the process ends: over a long HTTP session that grows
+without bound.
 
 The engine (``out=torch``) is :class:`~dynamo_tpu_torch.engine.
 torch_engine.TorchEngine`. With
@@ -61,8 +103,9 @@ Tensor parallel, under the JAX launcher's flag names
     python -m dynamo_tpu_torch.run in=http out=torch --model 8b \
         --tensor-parallel-size 2
 
-Process 0 serves (HTTP, or the worker endpoint: only rank 0 attaches to
-the control plane) and schedules; the others follow its dispatches
+Process 0 serves (HTTP, the text loop, the batch, or the worker
+endpoint: only rank 0 attaches to the control plane) and schedules; the
+others follow its dispatches
 (``TorchEngine.follow``). Rank r runs on ``cuda:{r % device_count}``.
 Where two ranks share a card, NCCL must see them as two hosts (it
 refuses two ranks of one communicator on one device): each rank then
@@ -70,7 +113,14 @@ needs its own ``NCCL_HOSTID`` and ``NCCL_SOCKET_IFNAME=lo``, which the
 one-command form sets itself (:func:`shared_device_env`). Every rank
 prints one ``serving summary`` JSON line when it ends: its capture count
 after warmup and its kernel launches (int8 GEMM calls by route) and
-graph replays since warmup.
+graph replays since warmup (in ``in=text`` and ``in=batch`` to standard
+error, where it stays out of the mode's output).
+
+The JAX launcher's flags of features not ported yet are parsed, so its
+command lines run unchanged, and refused at any value but their default:
+``--model-id`` (the HF hub resolver), ``--sequence-parallel-size``,
+``--long-prefill-threshold``, ``--mesh-shape`` and ``--dp-replicas``
+(sequence parallelism and replica sets).
 """
 
 from __future__ import annotations
@@ -93,14 +143,46 @@ log = logging.getLogger("dynamo_tpu_torch.run")
 _T0 = time.monotonic()
 
 
+# the engines of out=: the device engine, the echo engines, and the user
+# Python engines (a prefix and a file)
+ENGINES = ("torch", "echo_core", "echo_full")
+PY_ENGINES = ("pystr:", "pytok:")
+# the JAX launcher's flags of features not ported yet: (flag, its default,
+# what is missing). Each parses, and any other value than the default
+# exits naming what is missing
+NOT_PORTED = (
+    ("model_id", None, "--model-id (the HF hub resolver, models/hub.py) is "
+     "not ported: pass a local checkpoint with --model-path"),
+    ("sequence_parallel_size", 1, "--sequence-parallel-size (the seq mesh "
+     "axis and ring-attention prefill) is not ported"),
+    ("long_prefill_threshold", None, "--long-prefill-threshold (the ring-"
+     "attention prefill of long prompts) is not ported"),
+    ("mesh_shape", None, "--mesh-shape (replica sets on submeshes) is not "
+     "ported: use --tensor-parallel-size"),
+    ("dp_replicas", 1, "--dp-replicas (data-parallel replica sets) is not "
+     "ported"),
+)
+
+
+def is_engine(output: str) -> bool:
+    return output in ENGINES or output.startswith(PY_ENGINES)
+
+
 def parse_args(argv=None):
+    from .runtime.config import env_int, env_str
+
     ap = argparse.ArgumentParser(
         prog="dynamo_tpu_torch.run",
-        usage="%(prog)s in=<http|dyn://…|none> out=<torch|dyn> [flags]")
+        usage="%(prog)s in=<http|text|batch:FILE|dyn://…|none> "
+              "out=<torch|echo_core|echo_full|pystr:FILE|pytok:FILE|dyn> "
+              "[flags]")
     ap.add_argument("io", nargs="*", help="in=… and out=… positionals")
     ap.add_argument("--model-path",
                     help="local HF-style checkpoint directory (config.json "
                          "+ safetensors) to serve")
+    ap.add_argument("--model-id", default=None,
+                    help="HuggingFace model id (the JAX launcher's flag; "
+                         "not ported: refused)")
     ap.add_argument("--model-name", help="served model name")
     ap.add_argument("--model", default=None,
                     help="preset: tiny (default), 1b or 8b")
@@ -115,6 +197,9 @@ def parse_args(argv=None):
                     help="namespace of a bare in=dyn worker's endpoint")
     ap.add_argument("--endpoint", default=None,
                     help="override dyn:// endpoint path")
+    ap.add_argument("--context-length", type=int, default=None,
+                    help="the model card's context length: the longest "
+                         "prompt plus output a request may have")
     ap.add_argument("--no-warmup", action="store_true")
     ap.add_argument("--kv-cache-block-size", type=int, default=None,
                     help="tokens per KV page (the JAX launcher's flag)")
@@ -140,6 +225,19 @@ def parse_args(argv=None):
     ap.add_argument("--tensor-parallel-size", type=int, default=1,
                     help="ranks of the model axis (Megatron tensor "
                          "parallel), one process each")
+    ap.add_argument("--sequence-parallel-size", type=int, default=1,
+                    help="the seq mesh axis (the JAX launcher's flag; not "
+                         "ported: only 1)")
+    ap.add_argument("--mesh-shape", default=env_str("DYN_MESH_SHAPE"),
+                    help="a replica's mesh as axis=N pairs (the JAX "
+                         "launcher's flag; not ported: refused)")
+    ap.add_argument("--dp-replicas", type=int,
+                    default=env_int("DYN_DP_REPLICAS") or 1,
+                    help="data-parallel engine replicas (the JAX "
+                         "launcher's flag; not ported: only 1)")
+    ap.add_argument("--long-prefill-threshold", type=int, default=None,
+                    help="ring prefill above this prompt length (the JAX "
+                         "launcher's flag; not ported: refused)")
     ap.add_argument("--coordinator", default=None,
                     help="host:port of process 0's rendezvous; every "
                          "process passes the same value (without it, "
@@ -147,6 +245,16 @@ def parse_args(argv=None):
                          "on this host)")
     ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--process-id", type=int, default=0)
+    ap.add_argument("--max-tokens", type=int, default=128,
+                    help="in=text and in=batch: the most tokens an answer "
+                         "has (a batch line's max_tokens wins)")
+    ap.add_argument("--profile-dir", default=env_str("DYN_PROFILE_DIR"),
+                    help="trace the process with torch.profiler from the "
+                         "start of the mode to its end and write a Chrome "
+                         "trace per rank into this directory; the "
+                         "profiler holds every event in host memory until "
+                         "then, so a long HTTP session grows without "
+                         "bound")
     args = ap.parse_args(argv)
     args.input, args.output = "http", "torch"
     for tok in args.io:
@@ -156,23 +264,26 @@ def parse_args(argv=None):
             args.output = tok[4:]
         else:
             ap.error(f"positional args must be in=…/out=…, got {tok!r}")
+    for key, default, what in NOT_PORTED:
+        if getattr(args, key) != default:
+            ap.error(what)
     front = args.output == "dyn" or args.output.startswith("dyn://")
-    if args.input == "http":
-        if args.output != "torch" and not front:
-            ap.error(f"in=http serves out=torch or out=dyn, not "
-                     f"out={args.output}")
-    elif args.input == "dyn" or args.input.startswith("dyn://") \
-            or args.input == "none":
-        if args.output != "torch":
-            ap.error(f"in={args.input} needs out=torch, not "
-                     f"out={args.output}")
-    else:
+    if not (front or is_engine(args.output)):
+        ap.error(f"unknown out={args.output!r}: this launcher takes "
+                 f"out=torch, echo_core, echo_full, pystr:FILE, "
+                 f"pytok:FILE and dyn")
+    if not (args.input in ("http", "text", "none", "dyn")
+            or args.input.startswith(("batch:", "dyn://"))):
         ap.error(f"unknown in={args.input!r}: this launcher takes in=http, "
-                 f"in=dyn://… and in=none")
+                 f"in=text, in=batch:FILE, in=dyn://… and in=none")
+    if front and args.input != "http":
+        ap.error(f"in={args.input} needs an engine (out=torch, echo_core, "
+                 f"echo_full, pystr:FILE or pytok:FILE), not "
+                 f"out={args.output}")
     tp = args.tensor_parallel_size
-    if front and tp != 1:
-        ap.error("out=dyn runs no engine: --tensor-parallel-size needs "
-                 "out=torch")
+    if tp != 1 and args.output != "torch":
+        ap.error(f"out={args.output} runs no model: --tensor-parallel-size "
+                 f"needs out=torch")
     if tp < 1:
         ap.error("--tensor-parallel-size must be >= 1")
     if args.coordinator and args.num_processes != tp:
@@ -252,8 +363,100 @@ def peak_rss_gib() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
-def build_engine(args) -> Tuple[object, object]:
-    """(TorchEngine, model card) for the parsed arguments: with
+def build_mdc(args):
+    """The model card of the arguments, as the JAX launcher's
+    ``build_mdc`` makes it: the checkpoint's card, else one named by
+    ``--model-name``, else the preset (an engine that runs no model:
+    "echo"); ``--context-length`` and ``--kv-cache-block-size`` set its
+    context length and page size."""
+    from .llm.model_card import ModelDeploymentCard
+
+    if args.model_path:
+        mdc = ModelDeploymentCard.from_local_path(args.model_path,
+                                                  name=args.model_name)
+    else:
+        mdc = ModelDeploymentCard(name=args.model_name or args.model or (
+            "tiny" if args.output == "torch" else "echo"))
+    if args.context_length:
+        mdc.context_length = args.context_length
+    if args.kv_cache_block_size:
+        mdc.kv_block_size = args.kv_cache_block_size
+    return mdc
+
+
+def build_engine(args) -> Tuple[object, object, bool]:
+    """(engine, model card, whether the engine is OpenAI level) for the
+    parsed arguments, as the JAX launcher's ``build_engine``: a token-level
+    engine goes behind the preprocessor and the Backend, an OpenAI-level
+    one (``echo_full``, ``pystr:``) straight to the HTTP chain."""
+    from .engine.echo import EchoEngineCore, EchoEngineFull
+
+    if args.output == "torch":
+        engine, mdc = build_torch_engine(args)
+        return engine, mdc, False
+    mdc = build_mdc(args)
+    if args.output == "echo_core":
+        return EchoEngineCore(), mdc, False
+    if args.output == "echo_full":
+        return EchoEngineFull(), mdc, True
+    kind, path = args.output.split(":", 1)
+    return load_python_engine(path, kind), mdc, kind == "pystr"
+
+
+def load_python_engine(path: str, kind: str):
+    """A user engine file (``pystr:FILE`` / ``pytok:FILE``, the JAX
+    launcher's ``_load_python_engine``): the module must define ``async
+    def generate(request, context)``, an async generator. ``pystr`` gets
+    the OpenAI request as a dict and yields OpenAI chunk dicts; ``pytok``
+    gets the preprocessed request as a dict and yields EngineOutput dicts
+    (or EngineOutputs)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("dyn_user_engine", path)
+    if spec is None or spec.loader is None:
+        raise SystemExit(f"cannot load python engine from {path!r}")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    gen = getattr(mod, "generate", None)
+    if gen is None:
+        raise SystemExit(f"{path} must define `async def generate(request, "
+                         f"context)`")
+    if kind == "pystr":
+        return PyStrEngine(gen)
+    return PyTokEngine(gen)
+
+
+class PyStrEngine:
+    """An OpenAI-level user engine: called as the HTTP service calls a
+    chat engine."""
+
+    def __init__(self, gen):
+        self.gen = gen
+
+    def __call__(self, request, context):
+        payload = request.model_dump(exclude_none=True) \
+            if hasattr(request, "model_dump") else request
+        return self.gen(payload, context)
+
+
+class PyTokEngine:
+    """A token-level user engine: the Backend's core engine."""
+
+    def __init__(self, gen):
+        self.gen = gen
+
+    async def generate(self, request, context):
+        from .llm.protocols.common import EngineOutput
+
+        payload = request.to_dict() if hasattr(request, "to_dict") \
+            else request
+        async for out in self.gen(payload, context):
+            yield out if isinstance(out, EngineOutput) \
+                else EngineOutput.from_dict(out)
+
+
+def build_torch_engine(args) -> Tuple[object, object]:
+    """(TorchEngine, model card) for ``out=torch``: with
     ``--coordinator``, this process's rank of the tensor-parallel mesh
     (it joins the process group here); with ``--model-path``, the
     checkpoint's weights (the rank's shard), or FileNotFoundError when
@@ -264,19 +467,13 @@ def build_engine(args) -> Tuple[object, object]:
     checkpoint load, the engine's weights and pools, warmup)."""
     t = {"start": time.monotonic()}
     from .engine.torch_engine import TorchEngine
-    from .llm.model_card import ModelDeploymentCard
     from .ops import int8_gemm
     from .ops.paged_attention import reset_launch_counts
     from .runtime.device import resolve_device
 
     cfg = build_model_config(args)
     ecfg = build_engine_config(args)
-    if args.model_path:
-        mdc = ModelDeploymentCard.from_local_path(args.model_path,
-                                                  name=args.model_name)
-    else:
-        mdc = ModelDeploymentCard(
-            name=args.model_name or (args.model or "tiny"))
+    mdc = build_mdc(args)
     mdc.kv_block_size = ecfg.page_size
     t["imports"] = time.monotonic()
     mesh = None
@@ -311,6 +508,8 @@ def build_engine(args) -> Tuple[object, object]:
     engine = TorchEngine(cfg, ecfg, params=params, seed=args.seed,
                          device=args.device, mesh=mesh, quant=quant)
     t["engine"] = time.monotonic()
+    log.info("engine built (weights and pools on %s in %.1f s); warming up",
+             engine.device, t["engine"] - t["load"])
     graphs = 0 if args.no_warmup else engine.warmup()
     t["warmup"] = time.monotonic()
     stages = list(t)
@@ -344,25 +543,56 @@ def serving_summary(engine) -> dict:
             "replays": engine.graph_replays()}
 
 
-def _print_summary(engine) -> None:
+def _print_summary(engine, stream) -> None:
     # one write of the whole line: ranks sharing a log file must not
     # interleave inside each other's lines (print writes the end apart)
-    sys.stdout.write(f"serving summary {json.dumps(serving_summary(engine))}"
-                     "\n")
-    sys.stdout.flush()
+    stream.write(f"serving summary {json.dumps(serving_summary(engine))}\n")
+    stream.flush()
 
 
-async def serve_http(engine, mdc, host: str, port: int):
+def _summary_stream(args):
+    """Where a rank's serving summary goes: standard error in the text and
+    batch modes, whose standard output is the mode's own, else standard
+    output."""
+    if args.input == "text" or args.input.startswith("batch:"):
+        return sys.stderr
+    return sys.stdout
+
+
+async def _finish(args, engine) -> None:
+    """Stop the engine; a TorchEngine then prints its serving summary and
+    leaves its process groups."""
+    if hasattr(engine, "stop"):
+        await engine.stop()
+    if args.output == "torch":
+        _print_summary(engine, _summary_stream(args))
+        _leave(engine)
+
+
+def _leave(engine) -> None:
+    if engine.mesh is not None:
+        from .parallel.mesh import leave_process_groups
+
+        leave_process_groups(engine.mesh)
+
+
+async def serve_http(engine, mdc, host: str, port: int, full: bool = False):
     """Start the HTTP service over ``engine``; returns the service (its
-    ``.port`` is the bound port — pass ``port=0`` for a free one)."""
+    ``.port`` is the bound port — pass ``port=0`` for a free one). A
+    token-level engine serves chat and completions behind the
+    preprocessor and the Backend; an OpenAI-level one (``full``) is the
+    chat model itself."""
     from .llm.engines import LocalChatChain, LocalCompletionChain
     from .llm.http.service import HttpService, ModelManager
 
     manager = ModelManager()
-    chat = LocalChatChain(mdc, engine)
-    comp = LocalCompletionChain(mdc, engine, chat.preprocessor)
-    manager.add_chat_model(mdc.name, chat)
-    manager.add_completions_model(mdc.name, comp)
+    if full:
+        manager.add_chat_model(mdc.name, engine)
+    else:
+        chat = LocalChatChain(mdc, engine)
+        comp = LocalCompletionChain(mdc, engine, chat.preprocessor)
+        manager.add_chat_model(mdc.name, chat)
+        manager.add_completions_model(mdc.name, comp)
     svc = HttpService(manager)
     await svc.start(host, port)
     return svc
@@ -391,17 +621,16 @@ async def _attach(args):
 
 
 async def run_http(args) -> None:
-    if args.output != "torch":
+    if not is_engine(args.output):
         await run_frontend(args)
         return
-    engine, mdc = await asyncio.to_thread(build_engine, args)
-    svc = await serve_http(engine, mdc, args.http_host, args.http_port)
+    engine, mdc, full = await asyncio.to_thread(build_engine, args)
+    svc = await serve_http(engine, mdc, args.http_host, args.http_port, full)
     log.info("OpenAI frontend on %s:%d serving %r", args.http_host, svc.port,
              mdc.name)
     await _wait_for_signal()
     await svc.stop()
-    await engine.stop()
-    _print_summary(engine)
+    await _finish(args, engine)
 
 
 async def run_frontend(args) -> None:
@@ -424,6 +653,107 @@ async def run_frontend(args) -> None:
     await drt.shutdown()
 
 
+def _chain(engine, mdc, full: bool):
+    """The chat model of an engine: itself at the OpenAI level, else
+    behind the preprocessor and the Backend."""
+    from .llm.engines import LocalChatChain
+
+    return engine if full else LocalChatChain(mdc, engine)
+
+
+def _delta_texts(chunk) -> list:
+    """The content deltas of one chat stream item."""
+    from .llm.http.service import _chunk_dict
+
+    d = _chunk_dict(chunk)
+    if not isinstance(d, dict):
+        return []
+    return [t for c in d.get("choices") or []
+            if (t := (c.get("delta") or {}).get("content"))]
+
+
+async def run_text(args) -> None:
+    """``in=text``: a chat loop over standard input (the JAX launcher's
+    ``run_text``): each line is a user turn of one conversation, its
+    answer streamed to standard output, capped at ``--max-tokens``; an
+    empty line or the end of input ends it."""
+    from .llm.protocols.openai import ChatCompletionRequest
+    from .runtime.engine import Context
+
+    engine, mdc, full = await asyncio.to_thread(build_engine, args)
+    chain = _chain(engine, mdc, full)
+    print(f"chat with {mdc.name} — empty line or ^D to exit", flush=True)
+    history = []
+    loop = asyncio.get_running_loop()
+    while True:
+        try:
+            line = await loop.run_in_executor(None, lambda: input("> "))
+        except (EOFError, KeyboardInterrupt):
+            break
+        if not line.strip():
+            break
+        history.append({"role": "user", "content": line})
+        req = ChatCompletionRequest(model=mdc.name, messages=history,
+                                    stream=True, max_tokens=args.max_tokens)
+        text = []
+        async for chunk in chain(req, Context()):
+            for delta in _delta_texts(chunk):
+                text.append(delta)
+                print(delta, end="", flush=True)
+        print()
+        history.append({"role": "assistant", "content": "".join(text)})
+    await _finish(args, engine)
+
+
+async def run_batch(args, path: str) -> None:
+    """``in=batch:FILE``, the benchmark mode (the JAX launcher's
+    ``run_batch``): every line of FILE (``{"text"|"prompt": ...,
+    "max_tokens"?: N}``) sent at once as a streamed chat request; then
+    one JSON line a request in file order, ``index``, ``tokens_in`` (the
+    prompt's words), ``tokens_out`` (the stream's chunks that carried
+    text) and ``elapsed_ms``, and ``{"aggregate": {"requests", "wall_s",
+    "output_tok_per_s"}}``."""
+    from .llm.protocols.openai import ChatCompletionRequest
+    from .runtime.engine import Context
+
+    engine, mdc, full = await asyncio.to_thread(build_engine, args)
+    chain = _chain(engine, mdc, full)
+
+    def _read_jsonl() -> list:
+        with open(path) as f:
+            return [json.loads(line) for line in f if line.strip()]
+
+    entries = await asyncio.to_thread(_read_jsonl)
+    results = []
+    t0 = time.monotonic()
+
+    async def one(i, entry):
+        text = entry.get("text") or entry.get("prompt") or ""
+        req = ChatCompletionRequest(
+            model=mdc.name, stream=True,
+            messages=[{"role": "user", "content": text}],
+            max_tokens=entry.get("max_tokens", args.max_tokens))
+        start = time.monotonic()
+        n_out = 0
+        async for chunk in chain(req, Context()):
+            n_out += bool(_delta_texts(chunk))
+        elapsed = time.monotonic() - start
+        results.append({"index": i, "tokens_in": len(text.split()),
+                        "tokens_out": n_out,
+                        "elapsed_ms": round(elapsed * 1000, 1)})
+
+    await asyncio.gather(*(one(i, e) for i, e in enumerate(entries)))
+    wall = time.monotonic() - t0
+    for r in sorted(results, key=lambda r: r["index"]):
+        print(json.dumps(r))
+    total_out = sum(r["tokens_out"] for r in results)
+    print(json.dumps({"aggregate": {
+        "requests": len(results), "wall_s": round(wall, 3),
+        "output_tok_per_s": round(total_out / wall, 1) if wall else 0.0}}),
+        flush=True)
+    await _finish(args, engine)
+
+
 def worker_path(args, mdc) -> str:
     """The endpoint a worker serves: ``--endpoint``, else the in=dyn://
     path, else ``dyn://<--namespace>.<model slug>.generate``."""
@@ -437,43 +767,52 @@ def worker_path(args, mdc) -> str:
 
 
 async def run_worker(args) -> None:
-    """``in=dyn://ns.comp[.ep]``: serve the engine as a discoverable model
-    worker. The engine is built and warmed before the process attaches, so
-    a frontend never routes to a cold worker."""
+    """``in=dyn://ns.comp[.ep]``: serve a token-level engine as a
+    discoverable model worker. The engine is built and warmed before the
+    process attaches, so a frontend never routes to a cold worker."""
     from .llm.worker import serve_openai_model
     from .runtime.component import EndpointAddress
 
-    engine, mdc = await asyncio.to_thread(build_engine, args)
+    engine, mdc, full = await asyncio.to_thread(build_engine, args)
+    if full:
+        raise SystemExit("worker mode needs a token-level engine "
+                         "(out=torch or out=echo_core)")
     path = worker_path(args, mdc)
     addr = EndpointAddress.parse(path)
     drt = await _attach(args)
-    # chat and completions, as in=http out=torch serves a local engine
+    # chat and completions, as in=http serves a local engine
     handle = await serve_openai_model(
         drt, mdc, engine, namespace=addr.namespace,
         component=addr.component, endpoint=addr.endpoint,
-        stats_handler=engine.stats, model_type="both")
+        stats_handler=getattr(engine, "stats", None), model_type="both")
     log.info("worker serving %r at %s as instance %x", mdc.name,
              addr, drt.instance_id)
     await _wait_for_signal()
     await handle.stop()
-    await engine.stop()
+    if hasattr(engine, "stop"):
+        await engine.stop()
     await drt.shutdown()
-    _print_summary(engine)
+    if args.output == "torch":
+        _print_summary(engine, _summary_stream(args))
+        _leave(engine)
 
 
 async def run_none(args) -> None:
     """``in=none``: build and warm the engine, then idle until a signal."""
-    engine, mdc = await asyncio.to_thread(build_engine, args)
+    engine, mdc, _ = await asyncio.to_thread(build_engine, args)
     log.info("engine %s ready (in=none); SIGINT or SIGTERM to exit",
              mdc.name)
     await _wait_for_signal()
-    await engine.stop()
-    _print_summary(engine)
+    await _finish(args, engine)
 
 
 def run_rank0(args) -> None:
     if args.input == "http":
         asyncio.run(run_http(args))
+    elif args.input == "text":
+        asyncio.run(run_text(args))
+    elif args.input.startswith("batch:"):
+        asyncio.run(run_batch(args, args.input[len("batch:"):]))
     elif args.input == "none":
         asyncio.run(run_none(args))
     else:
@@ -483,9 +822,50 @@ def run_rank0(args) -> None:
 def run_follower(args) -> None:
     """A rank > 0: build its shard of the engine, warm up with rank 0,
     then replay rank 0's dispatches until it stops."""
-    engine, _ = build_engine(args)
+    engine, _ = build_torch_engine(args)
     engine.follow()
-    _print_summary(engine)
+    _print_summary(engine, _summary_stream(args))
+    _leave(engine)
+
+
+def profiled(args, run) -> None:
+    """``run()`` under ``torch.profiler`` when ``--profile-dir`` is set
+    (host ops, and the card's activity on a CUDA device), from its start
+    to its end; the rank's Chrome trace is then written into the
+    directory as ``rank<r>.pt.trace.json``."""
+    if not args.profile_dir:
+        run()
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch._C._profiler import _ExperimentalConfig
+
+    activities = [ProfilerActivity.CPU]
+    if args.device.startswith("cuda") and args.output == "torch":
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        # the engine's work runs on its executor's and asyncio's threads
+        config = _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        log.warning("this torch's profiler records the host ops of the "
+                    "main thread only")
+        config = _ExperimentalConfig()
+    os.makedirs(args.profile_dir, exist_ok=True)
+    prof = profile(activities=activities, experimental_config=config)
+    prof.start()
+    try:
+        run()
+    finally:
+        prof.stop()
+        if torch.cuda.is_available() and ProfilerActivity.CUDA in activities:
+            torch.cuda.synchronize()
+        path = os.path.join(args.profile_dir,
+                            f"rank{args.process_id}.pt.trace.json")
+        t0 = time.monotonic()
+        prof.export_chrome_trace(path)
+        log.info("profiler trace written to %s (%.1f s)", path,
+                 time.monotonic() - t0)
 
 
 def shared_device_env(rank: int, ranks: int, devices: int) -> Dict[str, str]:
@@ -540,10 +920,8 @@ def main(argv=None) -> None:
     if args.tensor_parallel_size > 1 and not args.coordinator:
         ranks = spawn_local_ranks(args, argv)
     try:
-        if args.process_id == 0:
-            run_rank0(args)
-        else:
-            run_follower(args)
+        profiled(args, lambda: run_rank0(args) if args.process_id == 0
+                 else run_follower(args))
     finally:
         for p in ranks:
             try:

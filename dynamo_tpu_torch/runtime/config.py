@@ -52,6 +52,21 @@ register_env("DYN_ASYNC_DETOK", "1", "llm",
              "instead of the event-loop thread. Chunks of one request stay "
              "ordered (at most one decode in flight a request); 0 decodes "
              "inline.")
+register_env("DYN_CACHE_WINDOW", "256", "engine",
+             "Admissions in the windowed prefix-hit-rate window: "
+             "stats()['gpu_prefix_cache_hit_rate'] is the hit tokens over "
+             "the prompt tokens of the last N admissions; the lifetime "
+             "ratio and the token totals ride beside it.")
+register_env("DYN_PROFILE_DIR", None, "run",
+             "The launcher's default --profile-dir: write a torch.profiler "
+             "Chrome trace of the session into this directory.")
+register_env("DYN_MESH_SHAPE", None, "parallel",
+             "The launcher's default --mesh-shape (a replica's mesh as "
+             "axis=N pairs). Replica sets are not ported: any value is "
+             "refused.")
+register_env("DYN_DP_REPLICAS", "1", "parallel",
+             "The launcher's default --dp-replicas. Replica sets are not "
+             "ported: any value but 1 is refused.")
 register_env("DYN_DCP_ADDRESS", None, "runtime",
              "host:port of the DCP control plane. Unset: the launcher "
              "embeds an in-process server; CLIs fall back to "

@@ -27,6 +27,11 @@ window form ``_pool_window_attention_pallas``) in interpret mode:
   in 3xTF32 with each block's P V summed from zero (a control with one
   TF32 product must miss the tolerance); a page id outside the pool
   masked and never read;
+- the plain float32 decode in fresh processes under each host setting
+  that picks the CPU's float32 code paths (ATen's vector capability, one
+  thread, MKL's instruction dispatch): within atol 1e-5 of the JAX
+  kernel in every one, its exponent (float64, rounded once) bitwise the
+  same in all;
 - the routes by shape, the plan's cover of every (head, key) pair and
   its shared memory;
 - a bfloat16 tiny engine with 12 heads on one kv head at page size 8
@@ -37,6 +42,9 @@ window form ``_pool_window_attention_pallas``) in interpret mode:
 import asyncio
 import dataclasses
 import itertools
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -64,6 +72,7 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops import paged_attention as ops
 from dynamo_tpu_torch.runtime.engine import Context
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16 = dict(rtol=0, atol=2e-2)
 F32 = dict(rtol=0, atol=1e-5)
 LOG2E = 1.4426950408889634
@@ -313,6 +322,88 @@ def test_generic_decode_plain_and_emulation_match_jax_kernel(case, dtype):
         empty = lengths == 0
         assert not out[empty].any() and not l[empty].any()
         assert (m[empty] == NEG_INF).all()
+
+
+# one fresh process: the plain float32 decode of a case's saved inputs and
+# the plain path's exponent of a fixed ramp, written beside them
+PLAIN_WORKER = """
+import sys
+import numpy as np
+import torch
+from dynamo_tpu_torch.ops import paged_attention as ops
+
+d = np.load(sys.argv[1])
+t = {k: torch.from_numpy(d[k]) for k in d.files}
+out, m, l = ops.paged_attention_decode_layered(
+    t["q"], t["kp"], t["vp"], 1, t["table"], t["lengths"],
+    return_stats=True, lower=t["lower"])
+ramp = ops.exp_f32(torch.from_numpy(
+    np.linspace(-80.0, 0.0, 100001).astype(np.float32)))
+np.savez(sys.argv[2], out=out.numpy(), m=m.numpy(), l=l.numpy(),
+         ramp=ramp.numpy(), cap=torch.backends.cpu.get_cpu_capability(),
+         threads=torch.get_num_threads())
+"""
+
+
+def _host_settings() -> list:
+    """The CPU settings that choose the host's float32 code paths: ATen's
+    vector capability (each this processor offers), the thread count, and
+    MKL's own instruction dispatch (its float32 exp and GEMM), as
+    environment variables of a fresh process."""
+    flags = open("/proc/cpuinfo").read().split()
+    caps = ["default"] + [c for c, f in (("avx2", "avx2"),
+                                         ("avx512", "avx512f")) if f in flags]
+    out = [{"ATEN_CPU_CAPABILITY": c} for c in caps]
+    out.append({"OMP_NUM_THREADS": "1"})
+    out += [{"MKL_ENABLE_INSTRUCTIONS": i} for i, f in (
+        ("SSE4_2", "sse4_2"), ("AVX2", "avx2")) if f in flags]
+    out.append({"MKL_CBWR": "COMPATIBLE"})
+    return out
+
+
+def test_plain_float32_decode_holds_under_every_host_setting(tmp_path):
+    """The plain float32 decode (the CPU serving path) against the JAX
+    kernel at ``group12_hd96_page48`` in fresh processes, one a host
+    setting (each ATen vector capability the processor offers, one
+    thread, MKL's SSE4.2 / AVX2 dispatch and its compatible mode): within
+    atol 1e-5 in every one; the plain path's exponent (``exp_f32``,
+    float64 rounded once) bitwise the same in all of them, and the whole
+    output bitwise the same wherever MKL keeps its own dispatch (only its
+    GEMM then moves bits, within the tolerance)."""
+    case = CASES[0]
+    arrays = _inputs(case, "float32")
+    want = _jax_decode(case, "float32", arrays, 1)
+    np.savez(tmp_path / "in.npz", **dict(zip(
+        ("q", "kp", "vp", "table", "lengths", "lower"), arrays)))
+    (tmp_path / "plain.py").write_text(PLAIN_WORKER)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "ATEN_CPU_CAPABILITY",
+                        "OMP_NUM_THREADS", "MKL_ENABLE_INSTRUCTIONS",
+                        "MKL_CBWR")}
+    env["PYTHONPATH"] = REPO
+    settings = _host_settings()
+    procs = [subprocess.Popen(
+        [sys.executable, str(tmp_path / "plain.py"), str(tmp_path / "in.npz"),
+         str(tmp_path / f"out{i}.npz")], env={**env, **extra}, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for i, extra in enumerate(settings)]
+    outs = []
+    for i, p in enumerate(procs):
+        text = p.communicate(timeout=240)[0].decode()
+        assert p.returncode == 0, f"{settings[i]}:\n{text[-3000:]}"
+        outs.append(np.load(tmp_path / f"out{i}.npz"))
+    for extra, got in zip(settings, outs):
+        np.testing.assert_allclose(got["out"], want[0], rtol=0, atol=1e-5,
+                                   err_msg=str(extra))
+        np.testing.assert_allclose(got["m"], want[1], rtol=1e-6, atol=1e-5)
+        np.testing.assert_allclose(got["l"], want[2], rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(got["ramp"], outs[0]["ramp"],
+                                      err_msg=str(extra))
+        if not any(k.startswith("MKL") for k in extra):
+            np.testing.assert_array_equal(got["out"], outs[0]["out"],
+                                          err_msg=str(extra))
+    assert {str(o["cap"]) for o in outs} >= {"DEFAULT"}
+    assert {int(o["threads"]) for o in outs} >= {1}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -310,7 +310,7 @@ def test_launcher_serves_model_path(checkpoints, tmp_path):
     path, _ = checkpoints["llama"]
     args = parse_args(["in=http", "out=torch", "--model-path", path,
                        "--device", "cpu", "--no-warmup"])
-    engine, mdc = build_engine(args)
+    engine, mdc, _ = build_engine(args)
     assert engine.ecfg == EngineConfig()
     assert mdc.name == "ckpt" and mdc.tokenizer_kind == "byte"
     assert mdc.context_length == 256

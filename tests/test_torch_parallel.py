@@ -315,7 +315,8 @@ WORKER = textwrap.dedent('''
     import numpy as np
     import torch
 
-    from dynamo_tpu_torch.parallel.mesh import MeshSpec, initialize_multihost
+    from dynamo_tpu_torch.parallel.mesh import (MeshSpec, initialize_multihost,
+                                                leave_process_groups)
 
     mode, rank, size, store, data = sys.argv[1:6]
     rank, size = int(rank), int(size)
@@ -413,6 +414,8 @@ WORKER = textwrap.dedent('''
             for (B, P), bk in engine.graphs.buckets.items()
             for i, c in enumerate(bk.carry)})
 
+    leave_process_groups(mesh)
+    out["left"] = not torch.distributed.is_initialized()
     print("RESULT " + json.dumps(out), flush=True)
 ''')
 
@@ -455,13 +458,18 @@ def _spawn(tmp_path, mode, size=2, timeout=240):
 def test_initialize_multihost_two_processes(tmp_path):
     """Two processes join through initialize_multihost and build a
     model=2 mesh on the CPU: one rank each, gloo collectives over the
-    model axis (the JAX multihost smoke, tests/test_tp_serving.py)."""
+    model axis (the JAX multihost smoke, tests/test_tp_serving.py); then
+    each leaves its groups (``leave_process_groups``: the device and
+    control groups, then the default one) and exits 0 (``_spawn``
+    asserts every rank's exit code)."""
     got = _spawn(tmp_path, "init")
+    assert len(got) == 2
     for r, res in enumerate(got):
         assert res["rank"] == r and res["shape"] == "model=2"
         assert res["device"] == "cpu"
         assert res["sum"] == [3.0, 3.0, 3.0]
         assert res["gathered"] == [[0.0, 1.0], [0.0, 1.0]]
+        assert res["left"]
 
 
 def _model_inputs():
@@ -682,7 +690,7 @@ def test_launcher_one_command_form_serves_tp1_text(tmp_path):
     assert [s["post_warmup_compiles_total"] for s in summaries] == [0, 0]
 
     async def tp1():
-        engine, mdc = build_engine(parse_args([
+        engine, mdc, _ = build_engine(parse_args([
             "in=http", "out=torch", "--model", "tiny", "--device", "cpu"]))
         svc = await serve_http(engine, mdc, "127.0.0.1", 0)
         try:

@@ -459,7 +459,8 @@ TP_WORKER = '''
 import asyncio, json, os, sys
 import numpy as np
 import torch
-from dynamo_tpu_torch.parallel.mesh import MeshSpec, initialize_multihost
+from dynamo_tpu_torch.parallel.mesh import (MeshSpec, initialize_multihost,
+                                            leave_process_groups)
 from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
 from dynamo_tpu_torch.llm.protocols.common import (
     OutputOptions, PreprocessedRequest, SamplingOptions, StopConditions)
@@ -509,6 +510,7 @@ np.savez(os.path.join(data, f"carry{rank}.npz"), **{
     for v, gs in engine.decode_variants.items()
     for (B, P), bk in gs.buckets.items() if bk.carry is not None
     for i, c in enumerate(bk.carry)})
+leave_process_groups(mesh)
 print("RESULT " + json.dumps(out), flush=True)
 '''
 

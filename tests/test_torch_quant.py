@@ -388,7 +388,8 @@ WORKER = textwrap.dedent('''
     from dynamo_tpu_torch.models.bridge import params_from_numpy
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.models.quant import QuantInt8
-    from dynamo_tpu_torch.parallel.mesh import MeshSpec, initialize_multihost
+    from dynamo_tpu_torch.parallel.mesh import (MeshSpec, initialize_multihost,
+                                                leave_process_groups)
 
     rank, store, data = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     initialize_multihost("file://" + store, 2, rank)
@@ -405,6 +406,7 @@ WORKER = textwrap.dedent('''
         if isinstance(v, QuantInt8):
             out[k + ".q"], out[k + ".s"] = v.q.numpy(), v.s.numpy()
     np.savez(os.path.join(data, f"int8_rank{rank}.npz"), **out)
+    leave_process_groups(mesh)
     print("RESULT ok", flush=True)
 ''')
 
@@ -459,7 +461,7 @@ def test_launcher_dtype_int8(llama_ckpt):
 
     args = parse_args(["in=http", "out=torch", "--model", "tiny", "--device",
                        "cpu", "--dtype", "int8", "--no-warmup"])
-    engine, mdc = build_engine(args)
+    engine, mdc, _ = build_engine(args)
     want = TorchEngine(ModelConfig.tiny(), EngineConfig(**ECFG), seed=0,
                        device="cpu", quant="int8").params
     assert isinstance(engine.params["wq"], QuantInt8)
@@ -473,7 +475,7 @@ def test_launcher_dtype_int8(llama_ckpt):
 
     args = parse_args(["in=http", "out=torch", "--model-path", llama_ckpt,
                        "--device", "cpu", "--dtype", "int8", "--no-warmup"])
-    engine, mdc = build_engine(args)
+    engine, mdc, _ = build_engine(args)
     loaded = load_params(llama_ckpt, device="cpu", quant="int8")
     for k, v in loaded.items():
         if isinstance(v, QuantInt8):

@@ -8,7 +8,10 @@ prefill chunk rounded down to a multiple of it and at least one page;
 pages; batch rows; the prefill token budget; speculative decoding and
 its draft length). The port's ``build_engine_config`` must give the same
 fields for the same command line, on the tiny preset's config and on the
-default one; a value the config refuses is refused by both.
+default one; a value the config refuses is refused by both. The flags
+that do not touch the engine config (``--context-length``,
+``--max-tokens``, ``--profile-dir``, and ``--sequence-parallel-size`` and
+``--dp-replicas`` at their defaults) leave it the JAX launcher's too.
 """
 
 import pytest
@@ -29,7 +32,14 @@ FLAGS = [[], ["--kv-cache-block-size", "8"], ["--kv-cache-block-size", "48"],
          ["--prefill-token-budget", "256"], ["--spec-decode"],
          ["--spec-decode", "--spec-tokens", "2"], ["--spec-tokens", "7"],
          ["--spec-decode", "--spec-tokens", "4", "--prefill-token-budget",
-          "256"]]
+          "256"],
+         # flags that leave the engine config as it is: the card's context
+         # length, the text and batch modes' cap, the trace directory, and
+         # the unported features' flags at their defaults
+         ["--context-length", "4096", "--max-tokens", "32", "--profile-dir",
+          "trace"],
+         ["--sequence-parallel-size", "1", "--dp-replicas", "1",
+          "--max-batch-size", "4"]]
 
 
 @pytest.mark.parametrize("model", [[], ["--model", "1b"], ["--model", "8b"]],

@@ -314,7 +314,8 @@ WORKER = textwrap.dedent('''
     import asyncio, json, os, sys
     import numpy as np
 
-    from dynamo_tpu_torch.parallel.mesh import MeshSpec, initialize_multihost
+    from dynamo_tpu_torch.parallel.mesh import (MeshSpec, initialize_multihost,
+                                                leave_process_groups)
 
     rank, size, store, data = sys.argv[1:5]
     rank, size = int(rank), int(size)
@@ -366,6 +367,7 @@ WORKER = textwrap.dedent('''
             spec_steps=engine.spec_steps,
             buckets={gs.kind: sorted(map(list, gs.buckets))
                      for gs in engine._graph_sets()})
+    leave_process_groups(mesh)
     print("RESULT " + json.dumps(out), flush=True)
 ''')
 

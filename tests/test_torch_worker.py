@@ -343,7 +343,8 @@ def test_launcher_worker_path_and_refusals():
     assert worker_path(parse_args(["in=dyn", "--namespace", "ns"]), mdc) == \
         "dyn://ns.meta-llama-3-1.generate"
     for argv in (["in=http", "out=jax"], ["in=dyn://a.b", "out=dyn"],
-                 ["in=none", "out=dyn"], ["in=text"], ["in=batch:x.jsonl"],
+                 ["in=none", "out=dyn"], ["in=text", "out=dyn"],
+                 ["in=batch:x.jsonl", "out=dyn"],
                  ["in=http", "out=dyn", "--tensor-parallel-size", "2"]):
         with pytest.raises(SystemExit):
             parse_args(argv)
