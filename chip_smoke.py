@@ -343,6 +343,33 @@ Phases; any failure exits non-zero before the result line:
    enough for the 32 tokens; the
    ``torch.profiler`` Chrome trace in DIR naming both hand kernels. Its
    launches join the served path's rows of the kernels line.
+19. (run last, on a card the earlier phases have left) MoE at
+   Mixtral-8x7B's widths (:func:`moe_phase`): MIXTRAL_8X7B (its published
+   config.json) through ``ModelConfig.from_hf_config``, 4 of its 32
+   layers, bfloat16, seed-0 weights, the default EngineConfig, an engine
+   built directly. (a) Warmed (every bucket of both grids captured);
+   phase 4's four prompts submitted to the engine at once, so their
+   first chunks pack into one [8, 512] prefill dispatch, which the cost
+   model puts on the blocked expert dispatch (2*4096 + 8*256 <= 8*4096/2);
+   then phase 4's requests over HTTP (serve_and_check: one at a time and
+   four at once, no capture after warmup, every decode call on bf16_mma
+   and every prefill call on bf16); from the replayed prefill buckets'
+   shapes and ``_moe_use_blocked``, at least one served replay on the
+   blocked dispatch and one on the dense sum; then check_paths at
+   PATH_LIMITS with its two fault controls (the plain path routed to the
+   experts the kernel path picked: :func:`routed`). (b) One layer's MoE
+   block alone, bfloat16, at Mixtral's widths on 2,048 tokens and at
+   Qwen3-30B-A3B's (D 2048, expert width 768, 128 experts, top 8) on
+   1,024: the blocked dispatch and the dense sum against each other and
+   each against a float32 computation expert by expert (relative L2
+   MOE_REL_L2), each replayed twice from a CUDA graph with the same bits;
+   their device times, and the block's share of a 4-row window. (c) The
+   same 4-layer Mixtral with int8 weights quantized on the card from the
+   seed-0 draw: warmed, phase 4's four prompts at once; every int8 GEMM
+   launch accounted for by the replayed buckets (``small_m`` in the
+   windows, ``wgmma`` in the blocked prefill); check_paths against its
+   plain int8 path with the int8 fault control. Its launches join the
+   bf16 attention rows and the bf16 int8 rows of the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -1445,10 +1472,19 @@ def check_paths(engine, cfg, dev, limits=None) -> tuple:
     from dynamo_tpu_torch.models import llama, quant
 
     limits = limits or PATH_LIMITS
+    # a MoE model: the kernel path's expert choices, which every other
+    # run follows (routed)
+    routes = [] if cfg.num_experts > 0 else None
 
     def run(use: bool):
-        return path_run(engine.params if use else plain_params(engine.params),
-                        cfg, dev, use, ps=engine.ecfg.page_size)
+        def go():
+            return path_run(
+                engine.params if use else plain_params(engine.params), cfg,
+                dev, use, ps=engine.ecfg.page_size)
+
+        if routes is None:
+            return go()
+        return routed(go, routes, record=use and not routes)
 
     def errs(a, b):
         return {"rel_l2_logits": rel_l2(torch.cat([a[0][None], a[1]]),
@@ -1506,6 +1542,11 @@ def check_paths(engine, cfg, dev, limits=None) -> tuple:
             "window_one_key_short": with_fault(
                 "paged_attention_decode_window", win_one_key_short)}
 
+    if routes is not None:
+        log(f"  routing: the plain path and the faults follow the kernel "
+            f"path's experts; {ROUTED['differ']} of {ROUTED['rows']} "
+            f"token-layers of the plain path would have picked another "
+            f"expert set")
     scale = {"prefill_logits_max_abs": float(plain[0].abs().max()),
              "window_logits_max_abs": float(plain[1].abs().max()),
              "window_kv_max_abs": float(plain[2].float().abs().max())}
@@ -1534,6 +1575,51 @@ def check_paths(engine, cfg, dev, limits=None) -> tuple:
                  f"({got:.4g} <= {limits[key]}): the check is blind")
     return ({"sound": sound, "control": control, "magnitudes": scale,
              "limits": limits}, (kern[0].cpu(), kern[1].cpu()))
+
+
+# routed(): the plain run's count of token-layers whose own routing
+# differs from the recorded one, and of token-layers replayed
+ROUTED = {"differ": 0, "rows": 0}
+
+
+def routed(fn, routes: list, record: bool):
+    """Run ``fn`` with every MoE routing (``models/llama.py moe_route``)
+    either recorded into ``routes`` (``record``) or replayed from it in
+    call order: the experts recorded, their softmax weights from this
+    run's own router logits. A MoE router's bfloat16 logits tie or nearly
+    tie at the k-th place often, so two paths that differ by bf16 noise
+    upstream (the kernel and the plain attention) would otherwise send
+    some tokens to other experts, a difference of routing and not of the
+    attention kernels check_paths holds to their plain versions. The
+    replaying run counts in ROUTED the token-layers whose own choice
+    differs."""
+    import torch
+
+    from dynamo_tpu_torch.models import llama
+
+    real = llama.moe_route
+    replay = iter(list(routes))
+
+    def route(x, w_router, k):
+        weights, idx = real(x, w_router, k)
+        if record:
+            routes.append(idx)
+            return weights, idx
+        want = next(replay)
+        ROUTED["differ"] += int((idx.sort(-1).values
+                                 != want.sort(-1).values).any(-1).sum())
+        ROUTED["rows"] += idx.shape[0]
+        logits = (x @ w_router).float().gather(-1, want)
+        return torch.softmax(logits, dim=-1), want
+
+    llama.moe_route = route
+    try:
+        out = fn()
+    finally:
+        llama.moe_route = real
+    if not record and next(replay, None) is not None:
+        fail("routed: a run made fewer MoE calls than the recorded one")
+    return out
 
 
 def check_graph_window(engine, cfg, dev, topn: int = 0,
@@ -4407,6 +4493,467 @@ def mistral_phase(dev) -> dict:
             "served": served, "paths": paths}
 
 
+# ------------------------------------------------- Mixtral-8x7B's widths
+
+
+# Mixtral-8x7B-v0.1's published config.json (the fields the loader reads)
+MIXTRAL_8X7B = {
+    "model_type": "mixtral", "hidden_size": 4096,
+    "intermediate_size": 14336, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "vocab_size": 32000,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-05,
+    "tie_word_embeddings": False, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "sliding_window": None,
+    "num_hidden_layers": 32}
+# its one cut: 4 of the 32 layers (2.82 GB of bfloat16 experts a layer;
+# the whole model, 93.4 GB, does not fit the card)
+MIXTRAL_LAYERS = 4
+# phase 19 (b)'s MoE blocks alone: (name, D, expert width, experts, top
+# k, tokens); Qwen3-30B-A3B's from its config.json (hidden_size,
+# moe_intermediate_size, num_experts, num_experts_per_tok)
+MOE_BLOCKS = (("mixtral-8x7b", 4096, 14336, 8, 2, 2048),
+              ("qwen3-30b-a3b", 2048, 768, 128, 8, 1024))
+# the bfloat16 MoE block against its float32 computation expert by expert,
+# and the blocked dispatch against the dense sum: relative L2. Each expert
+# product rounds to bfloat16 four times (gate, up, their product, down;
+# 2^-9 relative each at most) and the two strategies multiply in other
+# GEMM shapes
+MOE_REL_L2 = 2e-2
+# tokens each of phase 4's four prompts generates when submitted at once
+# (phase 19 (a) and (c))
+MOE_MAX_TOKENS = 32
+
+
+def moe_prompts() -> list:
+    """Phase 4's four requests as token ids (the byte tokenizer; the chat
+    ones through its chat template), the long prompt first (the
+    scheduler's head sets a dispatch's chunk bucket, and prompts of
+    smaller buckets ride along: so all four pack into one [8, 512]
+    dispatch) with its first letter P."""
+    from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+
+    def chat(text):
+        return tok.encode(tok.apply_chat_template(
+            [{"role": "user", "content": text}]))
+
+    long_prompt = "P" + ("The quick brown fox jumps over the lazy dog. "
+                         * 14)[1:600]
+    return [chat(long_prompt), chat("Tell me about paged attention."),
+            chat("What is an H100?"), tok.encode("Once upon a time")]
+
+
+async def serve_packed(engine, prompts: list, max_tokens: int) -> dict:
+    """``prompts`` submitted to the engine at once (greedy, ``max_tokens``
+    each, EOS ignored): the scheduler admits them together, so their
+    first chunks pack into one prefill dispatch. Returns tokens, TTFT
+    and ITL."""
+    from dynamo_tpu_torch.llm.protocols.common import (PreprocessedRequest,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def one(ids):
+        req = PreprocessedRequest(
+            token_ids=list(ids),
+            stop=StopConditions(max_tokens=max_tokens, ignore_eos=True))
+        toks, stamps, finish = [], [], None
+        async for out in engine.generate(req, Context()):
+            if out.token_ids:
+                toks += out.token_ids
+                stamps.append((time.monotonic(), len(out.token_ids)))
+            finish = out.finish_reason or finish
+        if finish != "length" or len(toks) != max_tokens:
+            fail(f"packed batch: a {len(ids)}-token prompt finished "
+                 f"{finish!r} after {len(toks)} tokens")
+        return toks, stamps
+
+    t0 = time.monotonic()
+    res = await asyncio.gather(*[one(p) for p in prompts])
+    itl = []
+    for _, ts in res:
+        for (a, _), (b, n) in zip(ts, ts[1:]):
+            itl += [(b - a) / n] * n
+    out = {"tokens": [t for t, _ in res],
+           "prompt_tokens": [len(p) for p in prompts],
+           "ttft_ms": sorted(round((ts[0][0] - t0) * 1e3, 3)
+                             for _, ts in res),
+           "itl_ms_mean": round(sum(itl) / len(itl) * 1e3, 3),
+           "wall_s": round(time.monotonic() - t0, 3)}
+    return out
+
+
+def prefill_replays(engine) -> dict:
+    """Prefill graph replays so far by bucket key, every variant's."""
+    got = {}
+    for gs in engine.prefill_variants.values():
+        for key, n in gs.replays_by_key.items():
+            got[key] = got.get(key, 0) + n
+    return got
+
+
+def moe_dispatch(cfg, key) -> str:
+    """The expert dispatch a prefill bucket ``key`` (B, T, ...) runs:
+    the port's cost model on its static shape."""
+    from dynamo_tpu_torch.models import llama
+
+    B, T = key[:2]
+    return ("blocked" if llama._moe_use_blocked(
+        None, B * T, cfg.num_experts, cfg.num_experts_per_tok,
+        llama._MOE_BLOCK) else "dense")
+
+
+def by_dispatch(cfg, replays: dict) -> dict:
+    out = {"blocked": 0, "dense": 0}
+    for key, n in replays.items():
+        out[moe_dispatch(cfg, key)] += n
+    return out
+
+
+def int8_moe_launches(engine, decode_replays: dict, pf_replays: dict
+                      ) -> int:
+    """The int8 GEMM launches the replayed buckets make: a prefill chunk
+    4 attention products and the experts' 3 a block (blocked) or an
+    expert (dense) a layer, and the head; a window that per step."""
+    from dynamo_tpu_torch.models import llama
+
+    c, K = engine.cfg, engine.ecfg.decode_steps
+    E, k, L = c.num_experts, c.num_experts_per_tok, c.num_layers
+
+    def per_pass(tokens: int, blocked: bool) -> int:
+        block = llama._MOE_BLOCK
+        experts = (-(-tokens * k // block) + E) if blocked else E
+        return L * (4 + 3 * experts) + 1
+
+    n = 0
+    for (B, T, *_), r in pf_replays.items():
+        n += r * per_pass(B * T, moe_dispatch(c, (B, T)) == "blocked")
+    for (B, _), r in decode_replays.items():
+        n += r * K * per_pass(B, False)
+    return n
+
+
+def decode_replays(engine) -> dict:
+    got = {}
+    for gs in engine.decode_variants.values():
+        for key, n in gs.replays_by_key.items():
+            got[key] = got.get(key, 0) + n
+    return got
+
+
+def graph_twice(fn):
+    """``fn`` captured in a CUDA graph (warmed on the capture stream) and
+    replayed twice: the two outputs, cloned."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(out.clone())
+    return outs
+
+
+def moe_f32_reference(x, weights, idx, wg, wu, wd):
+    """The MoE block in float32, expert by expert: each expert's tokens
+    (found on the host) through its weights upcast to float32, weighted
+    and added. [N, D] float32."""
+    import torch
+    import torch.nn.functional as F
+
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(wg.shape[0]):
+        tok, slot = (idx == e).nonzero(as_tuple=True)
+        if tok.numel() == 0:
+            continue
+        xe = x[tok].float()
+        y = (F.silu(xe @ wg[e].float()) * (xe @ wu[e].float())) \
+            @ wd[e].float()
+        out.index_add_(0, tok, y * weights[tok, slot, None])
+    return out
+
+
+def moe_block_case(dev, name, D, I, E, k, N, seed: int = 0) -> dict:
+    """Phase 19 (b), one MoE block of seed-0 bfloat16 weights on N
+    bfloat16 tokens: routing, then the blocked dispatch (which the cost
+    model takes at N) and the dense sum, each replayed twice from a CUDA
+    graph (same bits), against each other and against the float32
+    computation (MOE_REL_L2), and timed: the whole block at N (blocked)
+    and at 4 rows (dense), and the dense sum at N."""
+    import math
+
+    import torch
+
+    from dynamo_tpu_torch.models import llama
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(*shape):
+        x = torch.randn(shape, generator=g, device=dev)
+        return x.mul_(1.0 / math.sqrt(shape[-2])).to(torch.bfloat16)
+
+    router, wg, wu, wd = w(D, E), w(E, D, I), w(E, D, I), w(E, I, D)
+    h = torch.randn((1, N, D), generator=g, device=dev).to(torch.bfloat16)
+    block = llama._MOE_BLOCK
+    if not llama._moe_use_blocked(None, N, E, k, block):
+        fail(f"{name}: the cost model keeps {N} tokens on the dense sum")
+    x = h[0]
+    weights, idx = llama.moe_route(x, router, k)
+    ref = moe_f32_reference(x, weights, idx, wg, wu, wd)
+    got = {}
+    for strategy, fn in (
+            ("blocked", lambda: llama.moe_experts_blocked(
+                x, weights, idx, wg, wu, wd, block=block)),
+            ("dense", lambda: llama.moe_experts_dense(
+                x, weights, idx, wg, wu, wd))):
+        a, b = graph_twice(fn)
+        if not torch.equal(a, b):
+            fail(f"{name} {strategy}: two replays differ "
+                 f"({max_err(a, b):.4g})")
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{name} {strategy}: non-finite output")
+        got[strategy] = a
+    errs = {"blocked_vs_f32": rel_l2(got["blocked"], ref),
+            "dense_vs_f32": rel_l2(got["dense"], ref),
+            "blocked_vs_dense": rel_l2(got["blocked"], got["dense"])}
+    for key, err in errs.items():
+        if err > MOE_REL_L2:
+            fail(f"{name}: {key} rel_l2 {err:.4g} > {MOE_REL_L2}")
+    h4 = h[:, :4].reshape(4, 1, D).contiguous()
+    times = {
+        f"block_{N}_blocked_ms": time_ms(
+            lambda: llama._moe_mlp(h, router, wg, wu, wd, k), iters=5),
+        f"dense_sum_{N}_ms": time_ms(
+            lambda: llama.moe_experts_dense(x, weights, idx, wg, wu, wd),
+            iters=5),
+        "block_4_dense_ms": time_ms(
+            lambda: llama._moe_mlp(h4, router, wg, wu, wd, k), iters=20)}
+    expert_bytes = 3 * E * D * I * 2
+    bounds = {
+        # 4 rows read every expert (the dense sum): the weight bytes
+        "block_4_dense_bound_ms": expert_bytes / H100_BYTES_PER_S * 1e3,
+        # N tokens: the k experts' products each token needs, or the
+        # weights read once, whichever is longer
+        f"block_{N}_blocked_bound_ms": max(
+            2 * 3 * N * k * D * I / H100_BF16_FLOPS,
+            expert_bytes / H100_BYTES_PER_S) * 1e3}
+    rep = {"shape": {"D": D, "I": I, "E": E, "k": k, "N": N,
+                     "block": block,
+                     "blocks": -(-N * k // block) + E},
+           "rel_l2": errs, "replays_bitwise": True, **times, **bounds}
+    log(f"  MoE block {name}: {json.dumps(rep)}")
+    return rep
+
+
+def moe_window_share(engine, block_4_ms: float) -> dict:
+    """A 4-row greedy window of the served model (its decode function on
+    a scratch pool, rows at phase 4's contexts) timed on the card, and
+    the share of it the MoE blocks take (layers x steps x one 4-row
+    block's time)."""
+    import torch
+
+    from dynamo_tpu_torch.models.llama import KVCacheSpec, init_kv_cache
+
+    cfg, ps, K = engine.cfg, engine.ecfg.page_size, engine.ecfg.decode_steps
+    ctx = [48, 640, 64, 40]
+    per = -(-(max(ctx) + K) // ps)
+    kk, vv = init_kv_cache(cfg, KVCacheSpec(1 + 4 * per, ps),
+                           device=engine.device)
+    table = torch.arange(1, 1 + 4 * per, dtype=torch.int32,
+                         device=engine.device).reshape(4, per)
+    dev = kk.device
+
+    def full(value, dtype, shape=(4,)):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    # greedy rows at the contexts, device inputs as a decode bucket's
+    i32 = torch.int32
+    args = (torch.tensor([5, 6, 7, 8], dtype=i32, device=dev),
+            torch.tensor(ctx, dtype=i32, device=dev), full(False, torch.bool),
+            full(0, i32), full(100, i32), kk, vv, table,
+            full(0.0, torch.float32), full(0, i32), full(1.0, torch.float32),
+            full(0, torch.int64), full(-1, i32, (4, 1)))
+
+    def window():
+        return engine.decode_multi_fn(engine.params, *args, k_steps=K)
+
+    ms = time_ms(window, iters=5)
+    moe = cfg.num_layers * K * block_4_ms
+    return {"window_4_rows_ms": ms, "moe_blocks_ms": moe,
+            "moe_share": moe / ms, "contexts": ctx, "steps": K}
+
+
+def check_packed_routes(packed: dict) -> None:
+    """Every attention call of a packed batch on the bf16 kernels."""
+    from dynamo_tpu_torch.ops import paged_attention as ops
+
+    n_dec = packed["launches"]["paged_attention_decode"]
+    n_pf = packed["launches"]["paged_attention_prefill"]
+    if (n_dec <= 0 or n_pf <= 0
+            or packed["route_launches"] != only(ops.DECODE_ROUTES,
+                                                "bf16_mma", n_dec)
+            or packed["prefill_route_launches"] != only(ops.PREFILL_ROUTES,
+                                                        "bf16", n_pf)):
+        fail(f"packed batch's attention calls by route: "
+             f"{json.dumps(packed)}")
+
+
+def moe_engine(cfg, quant=None):
+    import torch
+
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+
+    t = time.monotonic()
+    engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda",
+                         quant=quant)
+    engine.warmup()
+    topn = engine.ecfg.max_top_logprobs
+    check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
+    log(f"  Mixtral-8x7B engine ({cfg.num_layers} of 32 layers, 8 experts "
+        f"top 2, D=4096, expert width 14336, V=32000, bf16"
+        f"{', int8 weights' if quant else ''}, seed 0) built and warmed up "
+        f"in {time.monotonic() - t:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    if served_routes(engine) != ("bf16_mma", "bf16"):
+        fail(f"Mixtral's heads are not on the bf16 kernels: "
+             f"{served_routes(engine)}")
+    return engine
+
+
+def moe_phase(dev) -> dict:
+    """Phase 19: MoE at Mixtral-8x7B's widths (the docstring's (a), (b)
+    and (c))."""
+    import torch
+
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import int8_gemm
+    from dynamo_tpu_torch.ops import paged_attention as ops
+
+    t_phase = time.monotonic()
+    cfg = ModelConfig.from_hf_config(
+        dict(MIXTRAL_8X7B, num_hidden_layers=MIXTRAL_LAYERS))
+    if (cfg.dtype, cfg.num_experts, cfg.num_experts_per_tok, cfg.head_dim_,
+            cfg.intermediate_size) != ("bfloat16", 8, 2, 128, 14336):
+        fail(f"Mixtral-8x7B's config parsed as {cfg}")
+    prompts = moe_prompts()
+
+    # (a) served, bfloat16
+    engine = moe_engine(cfg)
+    mdc = ModelDeploymentCard(name="mixtral-8x7b-4-layers-random")
+    mdc.kv_block_size = engine.ecfg.page_size
+
+    async def serve():
+        ops.reset_launch_counts()
+        packed = await serve_packed(engine, prompts, MOE_MAX_TOKENS)
+        packed["prefill_replays"] = by_dispatch(cfg, prefill_replays(engine))
+        packed["launches"] = dict(ops.LAUNCHES)
+        packed["route_launches"] = dict(ops.DECODE_ROUTE_LAUNCHES)
+        packed["prefill_route_launches"] = dict(ops.PREFILL_ROUTE_LAUNCHES)
+        served, _, _ = await serve_and_check(engine, mdc)
+        return packed, served
+
+    t = time.monotonic()
+    packed, served = asyncio.run(serve())
+    replays = prefill_replays(engine)
+    dispatch = by_dispatch(cfg, replays)
+    log(f"  packed batch: {json.dumps(packed)}")
+    log(f"  served in {time.monotonic() - t:.1f}s: {json.dumps(served)}")
+    log(f"  prefill replays by bucket: "
+        f"{json.dumps({str(k): v for k, v in sorted(replays.items())})}; "
+        f"by expert dispatch {json.dumps(dispatch)}")
+    check_packed_routes(packed)
+    if packed["prefill_replays"]["blocked"] <= 0:
+        fail(f"the packed prompts took no blocked dispatch: "
+             f"{json.dumps(packed['prefill_replays'])}")
+    if dispatch["blocked"] <= 0 or dispatch["dense"] <= 0:
+        fail(f"served prefill replays by dispatch {dispatch}: both "
+             f"strategies must have run")
+    moe_calls = {  # MoE blocks the replays ran (a layer each)
+        "prefill": sum(replays.values()) * cfg.num_layers,
+        "window": sum(decode_replays(engine).values())
+        * cfg.num_layers * engine.ecfg.decode_steps}
+    t = time.monotonic()
+    paths, _ = check_paths(engine, cfg, dev)
+    log(f"  teacher-forced check in {time.monotonic() - t:.1f}s")
+
+    # (b) the MoE block alone
+    blocks = {name: moe_block_case(dev, name, *shape)
+              for name, *shape in MOE_BLOCKS}
+    share = moe_window_share(engine,
+                             blocks["mixtral-8x7b"]["block_4_dense_ms"])
+    log(f"  4-row window: {json.dumps(share)}")
+    # the served path's attention launches: the packed batch's and
+    # serve_and_check's (check_paths' and the timings' do not count)
+    attn = {"decode": packed["launches"]["paged_attention_decode"]
+            + served["launches"]["paged_attention_decode"],
+            "prefill": packed["launches"]["paged_attention_prefill"]
+            + served["launches"]["paged_attention_prefill"]}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) int8 experts
+    engine = moe_engine(cfg, quant="int8")
+    ops.reset_launch_counts()
+    int8_gemm.reset_launch_counts()
+    t = time.monotonic()
+    packed8 = asyncio.run(serve_packed(engine, prompts, MOE_MAX_TOKENS))
+    log(f"  int8 packed batch in {time.monotonic() - t:.1f}s: "
+        f"{json.dumps(packed8)}")
+    launched = dict(int8_gemm.INT8_GEMM_LAUNCHES)
+    packed8["launches"] = dict(ops.LAUNCHES)
+    packed8["route_launches"] = dict(ops.DECODE_ROUTE_LAUNCHES)
+    packed8["prefill_route_launches"] = dict(ops.PREFILL_ROUTE_LAUNCHES)
+    check_packed_routes(packed8)
+    pf8, dec8 = prefill_replays(engine), decode_replays(engine)
+    want = int8_moe_launches(engine, dec8, pf8)
+    blocked8 = {str(k): bk.counts for gs in engine.prefill_variants.values()
+                for k, bk in gs.buckets.items()
+                if pf8.get(k) and moe_dispatch(cfg, k) == "blocked"}
+    if sum(launched.values()) != want:
+        fail(f"int8 GEMM launches {launched} != the replayed buckets' "
+             f"{want}")
+    if launched["small_m"] <= 0 or launched["wgmma"] <= 0:
+        fail(f"int8 routes on the served MoE: {launched}")
+    if not blocked8 or not all(
+            any(c.get("wgmma", 0) > 0 for c in counts)
+            for counts in blocked8.values()):
+        fail(f"the blocked prefill's expert products are not on wgmma: "
+             f"{blocked8}")
+    if engine.stats()["post_warmup_compiles_total"] != 0:
+        fail("int8 MoE engine captured graphs while serving")
+    paths8, _ = check_paths(engine, cfg, dev)
+    attn["decode"] += packed8["launches"]["paged_attention_decode"]
+    attn["prefill"] += packed8["launches"]["paged_attention_prefill"]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.monotonic() - t_phase
+    log(f"  phase 19: served ITL mean {served['itl_ms_mean']} ms, TTFT "
+        f"{served['ttft_ms']} ms (HTTP, four at once); packed ITL mean "
+        f"{packed['itl_ms_mean']} ms, TTFT {packed['ttft_ms']} ms; int8 "
+        f"packed ITL mean {packed8['itl_ms_mean']} ms, TTFT "
+        f"{packed8['ttft_ms']} ms; MoE blocks on the served path "
+        f"{json.dumps(moe_calls)}; {seconds:.1f}s")
+    return {"config": dict(MIXTRAL_8X7B, num_hidden_layers=MIXTRAL_LAYERS),
+            "packed": packed, "served": served, "dispatch": dispatch,
+            "moe_calls": moe_calls, "paths": paths, "blocks": blocks,
+            "window_share": share, "int8": {
+                "packed": packed8, "launches": launched,
+                "expected_launches": want, "paths": paths8},
+            "attention_launches": attn, "seconds": seconds}
+
+
 # ------------------------------------------ the synchronous decode arms
 
 
@@ -6344,6 +6891,19 @@ def main() -> None:
         if r["launches"] <= 0:
             fail(f"{r['name']}: not launched on its served path "
                  f"({r.get('launches_from')})")
+    log("phase 19: MoE at Mixtral-8x7B's widths (4 of 32 layers) in "
+        "bfloat16 served over HTTP on both expert dispatches, the MoE block "
+        "alone, then with int8 experts on the int8 GEMM")
+    moe_report = moe_phase(dev)
+    for name, key in (("paged_attention_decode", "decode"),
+                      ("paged_attention_prefill", "prefill")):
+        next(r for r in rows if r["name"] == name)["launches"] += \
+            moe_report["attention_launches"][key]
+    for r in rows:
+        if (r.get("dtype") == "bfloat16"
+                and r.get("int8_route") in ("small_m", "wgmma")
+                and not r["name"].startswith("int8_gemm 1b ")):
+            r["launches"] += moe_report["int8"]["launches"][r["int8_route"]]
     # the served tp=2 phase's rank 0 (rank 1 is checked equal): with a
     # mesh every kernel call goes through a sharded wrapper
     rank0 = tp_served["summaries"][0]["launches"]
@@ -6382,6 +6942,7 @@ def main() -> None:
                        "f32_1b": f32_report, "f16_8b": f16_report,
                        "generic_prefill": generic_report,
                        "mistral_large": mistral_report,
+                       "mixtral_moe": moe_report,
                        "sync_arms": sync_report,
                        "runtime": dyn_report,
                        "disagg": disagg_report,

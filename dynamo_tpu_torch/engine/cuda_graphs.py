@@ -87,6 +87,7 @@ the pool do not count.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 from dataclasses import dataclass, field
@@ -189,6 +190,9 @@ class _GraphSet:
         self.capture_seconds = 0.0   # warm calls and captures, summed
         self.pool_bytes = 0          # pool segments added by this set
         self.replays = 0             # graph launches (card only)
+        # graph launches by bucket key (a MoE model's cost model picks its
+        # expert dispatch from the bucket's shape)
+        self.replays_by_key: Dict[tuple, int] = collections.Counter()
 
     def stream_ctx(self):
         """Context that makes :attr:`stream` current, after the work
@@ -275,6 +279,7 @@ class _GraphSet:
                 f"its graphs run on {self.stream.cuda_stream:#x} only")
         bk.graph.replay()
         self.replays += 1
+        self.replays_by_key[bk.key] += 1
         for counts, delta in zip(_COUNTS, bk.counts):
             for k, n in delta.items():
                 counts[k] += n

@@ -2,8 +2,9 @@
 
 A copy of ``dynamo_tpu/models/config.py`` with ``torch_dtype`` in place of
 ``jax_dtype``. It parses every family the JAX package knows; the port's
-model (models/llama.py) serves the dense Llama path and raises
-``NotImplementedError`` for MoE and MLA configurations.
+model (models/llama.py) serves the dense Llama path and the Mixtral-style
+MoE path (Mixtral, Qwen3-MoE), and raises ``NotImplementedError`` for MLA
+configurations (DeepSeek-V2/V3).
 ``from_hf_config`` maps a HuggingFace ``config.json`` dict.
 """
 
@@ -226,3 +227,15 @@ class ModelConfig:
                    intermediate_size=8192, num_layers=16,
                    num_heads=32, num_kv_heads=8, head_dim=64,
                    dtype="bfloat16")
+
+    @classmethod
+    def llama3_70b(cls) -> "ModelConfig":
+        return cls(hidden_size=8192, intermediate_size=28672, num_layers=80,
+                   num_heads=64, num_kv_heads=8)
+
+    @classmethod
+    def mixtral_8x7b(cls) -> "ModelConfig":
+        return cls(model_type="mixtral", vocab_size=32000, hidden_size=4096,
+                   intermediate_size=14336, num_layers=32, num_heads=32,
+                   num_kv_heads=8, rope_theta=1e6, num_experts=8,
+                   num_experts_per_tok=2)

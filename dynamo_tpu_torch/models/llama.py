@@ -1,6 +1,7 @@
-"""Dense Llama-family model in PyTorch with a paged KV cache.
+"""Llama-family model (dense and Mixtral-style MoE) in PyTorch with a
+paged KV cache.
 
-The PyTorch counterpart of ``dynamo_tpu/models/llama.py`` (dense path),
+The PyTorch counterpart of ``dynamo_tpu/models/llama.py``,
 with the same layouts so the two compare like with like:
 
 - params are a dict of tensors with the JAX package's keys; projections
@@ -37,7 +38,15 @@ Weight-only int8 (``models/quant.py``): a projection param may be a
 the int8 GEMM; the code has no int8 branches. A tied head (``embed.T``)
 stays in the model's dtype, as ``embed`` is not quantized.
 
-MoE and MLA configurations raise ``NotImplementedError``.
+MoE (``cfg.num_experts > 0``: Mixtral, Qwen3-MoE): the MLP of every layer
+is :func:`_moe_mlp`, token-choice top-k routing over stacked experts
+(``w_gate``/``w_up`` ``[L, E, D, I]``, ``w_down`` ``[L, E, I, D]``,
+``w_router`` ``[L, D, E]``), in one of the JAX package's two strategies,
+chosen from static shapes by :func:`_moe_use_blocked`: the sorted,
+padded dispatch :func:`moe_experts_blocked` or the dense sum over every
+expert. Both have static shapes and read nothing back to the host, so
+every prefill bucket and decode window captures as a CUDA graph. MLA
+configurations raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from ..ops.paged_attention import (NEG_INF, effective_window,
                                    paged_attention_prefill_sharded,
                                    prefill_reference)
 from ..parallel.mesh import MeshView, local_heads
+from ..runtime.config import env_int
 from ..runtime.device import resolve_device
 from .config import ModelConfig
 
@@ -69,8 +79,6 @@ DROP_SLOT = 1 << 30
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE models are not ported yet")
     if cfg.is_mla:
         raise NotImplementedError("MLA models are not ported yet")
 
@@ -127,6 +135,14 @@ def param_table(cfg: ModelConfig) -> list:
         table += [("q_norm", "ones", (L, hd)), ("k_norm", "ones", (L, hd))]
     if not cfg.tie_word_embeddings:
         table.append(("lm_head", "w", (D, V)))
+    if cfg.num_experts > 0:
+        # the JAX package's MoE shapes: a router, and the experts stacked
+        # on an axis after the layer's in place of the dense MLP
+        E = cfg.num_experts
+        moe = {"w_gate": (L, E, D, I), "w_up": (L, E, D, I),
+               "w_down": (L, E, I, D)}
+        table = [(n, k, moe.get(n, shape)) for n, k, shape in table]
+        table.append(("w_router", "w", (L, D, E)))
     return table
 
 
@@ -423,6 +439,8 @@ def _layer_keys(cfg: ModelConfig) -> list:
     """Per-layer param names indexed on the stacked-layer axis."""
     keys = ["wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
             "ln_attn", "ln_mlp"]
+    if cfg.num_experts > 0:
+        keys.append("w_router")
     if cfg.attn_bias:
         keys += ["bq", "bk", "bv"]
     if cfg.sandwich_norms:
@@ -477,8 +495,167 @@ def _reduce(t: torch.Tensor, mesh: Optional[MeshView]) -> torch.Tensor:
 
 def _mlp_block(cfg: ModelConfig, lp, h, act, mesh=None):
     x = rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps, cfg.norm_unit_offset)
-    out = _reduce(_mlp(x, lp["w_gate"], lp["w_up"], lp["w_down"], act), mesh)
+    if cfg.num_experts > 0:
+        out = _moe_mlp(x, lp["w_router"], lp["w_gate"], lp["w_up"],
+                       lp["w_down"], cfg.num_experts_per_tok, mesh=mesh)
+    else:
+        out = _reduce(_mlp(x, lp["w_gate"], lp["w_up"], lp["w_down"], act),
+                      mesh)
     return _residual_add(h, out, lp, "ln_mlp_post", cfg)
+
+
+# ------------------------------------------------------------------- MoE
+
+
+def _top_k(logits: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k``: the k largest along the last axis in descending
+    order, a tie going to the lower index. ``torch.topk`` promises no
+    order among equal values, so this is a stable sort's first k."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dyn_expert(w, e: torch.Tensor):
+    """One expert's weight from the stacked ``[E, ...]`` tensor (or
+    ``QuantInt8``) by a device index ``e`` ([1] int64): a copy of that
+    expert alone, made on the device with no host read. An int8 expert
+    stays int8, so its products run on the int8 GEMM."""
+    return w.index_select(0, e)[0]
+
+
+def moe_experts_blocked(x: torch.Tensor, weights: torch.Tensor,
+                        idx: torch.Tensor, w_gate, w_up, w_down,
+                        block: int = 256, act=F.silu) -> torch.Tensor:
+    """Sparse top-k expert dispatch with static shapes and no token
+    drops (the JAX package's ``moe_experts_blocked``).
+
+    x: [N, D] flattened tokens; weights/idx: [N, k] routing output.
+    The N*k (token, expert) pairs are sorted by expert (stably), each
+    expert's group is padded to a multiple of ``block`` rows, and the
+    ``nb = ceil(N*k / block) + E`` blocks of ``block`` rows run one
+    after another, each on ONE expert's weights, taken by a device index
+    (:func:`_dyn_expert`). Slack blocks past the last group hold zeros
+    and run on the last expert; their rows are never read back. The
+    products run in x's dtype. Each pair's output row is gathered back
+    to ``[N, k, D]`` through the inverse of the sort, weighted and summed
+    over k in order in float32: no atomics, so a replay gives the same
+    bits. Returns [N, D] float32."""
+    N, D = x.shape
+    k = idx.shape[-1]
+    E = w_gate.shape[0]
+    NK = N * k
+    nb = (NK + block - 1) // block + E  # static worst-case block count
+    dev = x.device
+
+    pair_e = idx.reshape(-1).long()                   # [NK]
+    pair_t = torch.arange(NK, device=dev) // k
+    order = torch.argsort(pair_e, stable=True)
+    se, st = pair_e[order], pair_t[order]
+
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, pair_e, torch.ones_like(pair_e))
+    start = torch.cumsum(counts, 0) - counts          # exclusive, [E]
+    padded = (counts + block - 1) // block * block
+    pend = torch.cumsum(padded, 0)                    # padded group ends
+    pstart = pend - padded
+    pos = torch.arange(NK, device=dev) - start[se]
+    dest = pstart[se] + pos                           # [NK], < nb*block
+
+    buf = x.new_zeros((nb * block, D))
+    buf[dest] = x[st]
+    # block j covers rows [j*block, (j+1)*block) of exactly one padded
+    # group; slack blocks past the last group stay zero (clamped expert)
+    bstart = torch.arange(nb, device=dev) * block
+    block_e = torch.clamp((bstart[:, None] >= pend[None, :]).sum(1),
+                          max=E - 1)
+    yb = torch.empty_like(buf)
+    for j in range(nb):
+        rows = slice(j * block, (j + 1) * block)
+        be = block_e[j:j + 1]
+        yb[rows] = _mlp(buf[rows], _dyn_expert(w_gate, be),
+                        _dyn_expert(w_up, be), _dyn_expert(w_down, be), act)
+    # pair j's row of yb, in the pairs' own (token-major) order
+    row = torch.empty_like(dest)
+    row[order] = dest
+    contrib = yb[row].float().reshape(N, k, D) \
+        * weights.float().reshape(N, k, 1)
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+    return out
+
+
+# row height of the sorted dispatch's blocks, also the padding quantum of
+# each expert's group (so it enters the cost model below)
+_MOE_BLOCK = env_int("DYN_MOE_BLOCK")
+
+
+def _moe_use_blocked(mesh, n_tokens: int, n_experts: int, top_k: int,
+                     block: int) -> bool:
+    """The JAX package's cost model, from static shapes only (so the
+    choice is fixed per captured graph): the blocked dispatch pays at
+    worst ``N*k + E*block`` row-MLPs (every pair once, plus up to one
+    padded block an expert), the dense sum ``N*E``; blocked only where it
+    is at least 2x cheaper, and only without a tensor-parallel mesh
+    (there every rank runs the dense sum on its shard of each expert)."""
+    return (n_experts > 1
+            and n_tokens * top_k + n_experts * block
+            <= (n_tokens * n_experts) // 2
+            and (mesh is None or mesh.size == 1))
+
+
+def moe_route(x: torch.Tensor, w_router, top_k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice routing of ``x`` [N, D]: float32 router logits (the
+    product in x's dtype), their top k (ties to the lower expert), and a
+    float32 softmax over those k: (weights [N, k] float32, idx [N, k])."""
+    weights, idx = _top_k((x @ w_router).float(), top_k)
+    return torch.softmax(weights, dim=-1), idx
+
+
+def moe_experts_dense(x: torch.Tensor, weights: torch.Tensor,
+                      idx: torch.Tensor, w_gate, w_up, w_down,
+                      act=F.silu) -> torch.Tensor:
+    """The dense strategy (the JAX package's einsum over all experts):
+    ``sum_e gate_e * mlp_e(x)`` with ``gate [N, E]`` the routing weights
+    scattered over the experts (zero where an expert was not picked). A
+    static loop over the experts; each expert's products in x's dtype
+    (float32 accumulation in the GEMMs), the gates, the weighting and the
+    sum in float32, so no stack is upcast whole. Returns [N, D] float32."""
+    N, D = x.shape
+    E = w_gate.shape[0]
+    gate = torch.zeros((N, E), dtype=torch.float32,
+                       device=x.device).scatter_(1, idx, weights)
+    out = torch.zeros((N, D), dtype=torch.float32, device=x.device)
+    for e in range(E):
+        y = _mlp(x, w_gate[e], w_up[e], w_down[e], act)
+        out = out + gate[:, e:e + 1] * y.float()
+    return out
+
+
+def _moe_mlp(h: torch.Tensor, w_router, w_gate, w_up, w_down, top_k: int,
+             mesh: Optional[MeshView] = None) -> torch.Tensor:
+    """Mixtral-style MoE MLP (the JAX package's ``_moe_mlp``):
+    :func:`moe_route`, then :func:`moe_experts_blocked` or
+    :func:`moe_experts_dense`, as :func:`_moe_use_blocked` decides from
+    the static shapes. With ``mesh``, each rank holds a shard of every
+    expert's inner width: its partial sums go through the model axis's
+    all-reduce in float32. Returns h's dtype.
+
+    h: [B, T, D]; w_router [D, E]; w_gate/w_up [E, D, I]; w_down
+    [E, I, D] (a projection may be a ``QuantInt8``)."""
+    B, T, D = h.shape
+    E = w_gate.shape[0]
+    x = h.reshape(B * T, D)
+    weights, idx = moe_route(x, w_router, top_k)
+    if _moe_use_blocked(mesh, B * T, E, top_k, _MOE_BLOCK):
+        out = moe_experts_blocked(x, weights, idx, w_gate, w_up, w_down,
+                                  block=_MOE_BLOCK)
+    else:
+        out = _reduce(moe_experts_dense(x, weights, idx, w_gate, w_up,
+                                        w_down), mesh)
+    return out.reshape(B, T, D).to(h.dtype)
 
 
 @torch.no_grad()

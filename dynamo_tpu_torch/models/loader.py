@@ -1,7 +1,8 @@
 """Weight loading from local HF-style checkpoints (safetensors), dense
-models.
+and Mixtral-style MoE models.
 
-The dense branch of ``dynamo_tpu/models/loader.py``, with its keys and
+The dense and MoE branches of ``dynamo_tpu/models/loader.py``, with its
+keys and
 layouts: HuggingFace ``nn.Linear`` stores ``[out, in]`` weights and the
 model computes ``x @ W``, so every projection is transposed once at load
 time; per-layer weights are stacked on a leading layer axis; ``lm_head``
@@ -9,8 +10,13 @@ is absent when ``tie_word_embeddings`` is set; Qwen2's q/k/v biases,
 Qwen3's ``q_norm``/``k_norm`` and Gemma-2's sandwich norms
 (``pre_feedforward_layernorm`` → ``ln_mlp``, ``post_attention_layernorm``
 → ``ln_attn_post``, ``post_feedforward_layernorm`` → ``ln_mlp_post``).
-MoE and MLA checkpoints raise ``NotImplementedError``; ``quant="int8"``
-gives the projections as ``models/quant.py QuantInt8`` (``load_params``).
+MoE checkpoints stack each layer's experts on a second axis (``w_gate``
+``[L, E, D, I]``) and its router as ``w_router`` ``[L, D, E]``: Mixtral's
+``block_sparse_moe.experts.{e}.w1/w3/w2`` and ``block_sparse_moe.gate``,
+Qwen3-MoE's ``mlp.experts.{e}.gate_proj/up_proj/down_proj`` and
+``mlp.gate``. MLA checkpoints raise ``NotImplementedError``;
+``quant="int8"`` gives the projections as ``models/quant.py QuantInt8``
+(``load_params``).
 
 The files are read by :class:`SafetensorsFile`, this module's own reader
 (the format: an 8-byte little-endian header length, a JSON header, then
@@ -124,10 +130,6 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
     for that. The result is bitwise the JAX loader's ``quant="int8"``
     cut to the rank."""
     cfg = cfg or ModelConfig.from_local_path(path)
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "MoE checkpoints are not loaded by the port yet (the expert "
-            "stacking of dynamo_tpu/models/loader.py)")
     if cfg.is_mla:
         raise NotImplementedError(
             "MLA checkpoints are not loaded by the port yet "
@@ -203,15 +205,22 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
         p[key] = alloc(key, shape)
         fill(p[key], name, specs.get(key, (None,) * len(shape)), linear)
 
-    def stack(key: str, fmt: str, linear: bool = True) -> None:
-        L = cfg.num_layers
-        f, k = entry(fmt.format(0))
+    def stack(key: str, fmt: str, linear: bool = True,
+              experts: int = 0) -> None:
+        """Param ``key`` from entries ``fmt.format(layer)``, stacked on a
+        leading layer axis; with ``experts`` = E, from entries
+        ``fmt.format(layer, expert)`` stacked on [layer, expert]."""
+        lead = (cfg.num_layers,) + ((experts,) if experts else ())
+        f, k = entry(fmt.format(*(0,) * len(lead)))
         e = f.entries[k]["shape"]
-        shape = (L,) + (tuple(reversed(e)) if linear else tuple(e))
+        shape = lead + (tuple(reversed(e)) if linear else tuple(e))
         p[key] = alloc(key, shape)
-        spec = specs.get(key, (None,) * len(shape))[1:]
-        for i in range(L):
-            fill(p[key][i], fmt.format(i), spec, linear)
+        spec = specs.get(key, (None,) * len(shape))[len(lead):]
+        for i in range(cfg.num_layers):
+            for j in range(experts or 1):
+                ids = (i, j) if experts else (i,)
+                dst = p[key][i][j] if experts else p[key][i]
+                fill(dst, fmt.format(*ids), spec, linear)
 
     p: Params = {}
     single("embed", "model.embed_tokens.weight")
@@ -243,9 +252,21 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
     if cfg.qk_norm:  # Qwen3 per-head q/k norms
         stack("q_norm", layer + "self_attn.q_norm.weight", linear=False)
         stack("k_norm", layer + "self_attn.k_norm.weight", linear=False)
-    for key, proj in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
-                      ("w_down", "down_proj")):
-        stack(key, layer + f"mlp.{proj}.weight")
+    if cfg.num_experts > 0:
+        # HF names the MoE block per family: Mixtral's block_sparse_moe
+        # with w1/w3/w2, Qwen3-MoE's mlp with gate/up/down_proj
+        if cfg.model_type == "qwen3":
+            moe, projs = "mlp", ("gate_proj", "up_proj", "down_proj")
+        else:
+            moe, projs = "block_sparse_moe", ("w1", "w3", "w2")
+        stack("w_router", layer + f"{moe}.gate.weight")
+        for key, proj in zip(("w_gate", "w_up", "w_down"), projs):
+            stack(key, layer + moe + ".experts.{}." + proj + ".weight",
+                  experts=cfg.num_experts)
+    else:
+        for key, proj in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                          ("w_down", "down_proj")):
+            stack(key, layer + f"mlp.{proj}.weight")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return p

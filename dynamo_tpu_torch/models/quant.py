@@ -8,8 +8,12 @@ activations stay bfloat16. For a weight ``w[..., in, out]`` the scheme is
 ``(x @ q) * s`` (exact: the scale is constant along the contraction).
 
 :class:`QuantInt8` duck-types the few tensor operations the model code
-applies to weights (``x @ w``, ``[layer]``, ``shape``, ``astype``,
-``reshape``), so ``models/llama.py`` has no int8 branches. The JAX
+applies to weights (``x @ w``, ``[layer]``, ``index_select`` on the
+leading axis, ``shape``, ``astype``, ``reshape``), so ``models/llama.py``
+has no int8 branches; a MoE stack ``[L, E, in, out]`` is one
+``QuantInt8`` whose ``[layer][expert]`` (or one expert taken by a device
+index) is a ``[in, out]`` weight, and every expert product runs on the
+int8 GEMM: no stack is ever dequantized. The JAX
 package's XLA fuses the widening and the scale into the consumer dot,
 so the bfloat16 weights never exist in device memory; here ``x @ w`` goes
 to ``ops/int8_gemm.py int8_matmul``, the hand-written CUDA kernel on the
@@ -36,8 +40,8 @@ from ..ops.int8_gemm import int8_matmul, int8_matmul_plain
 
 # Params quantized under --dtype int8: every large projection matrix.
 # Excluded: embed (gather table), routers + router_bias (tiny,
-# routing-precision-critical), norms and biases (1-D). The dense keys
-# are the ones the port serves today.
+# routing-precision-critical), norms and biases (1-D). The port serves
+# the first line's keys (dense, and MoE experts stacked [L, E, in, out]).
 QUANT_KEYS = frozenset({
     # llama/qwen/gemma stack
     "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head",
@@ -89,8 +93,17 @@ class QuantInt8:
         return self.dequant().reshape(*shape)
 
     def __getitem__(self, idx) -> "QuantInt8":
-        # leading-(layer-)axis indexing only: q and s share that axis
+        # leading-(layer-, expert-)axis indexing only: q and s share them
         return QuantInt8(self.q[idx], self.s[idx], self.plain)
+
+    def index_select(self, dim: int, index: torch.Tensor) -> "QuantInt8":
+        """The entries ``index`` (a device tensor) of a leading axis, as
+        ``torch.index_select`` takes them: a copy, made on the device."""
+        if dim < 0 or dim >= self.q.ndim - 2:
+            raise ValueError(f"index_select on dim {dim}: only the leading "
+                             f"axes of {self!r}")
+        return QuantInt8(self.q.index_select(dim, index),
+                         self.s.index_select(dim, index), self.plain)
 
     def as_plain(self) -> "QuantInt8":
         """The same weights, multiplied through the plain version."""
@@ -129,15 +142,19 @@ def quantize_rows(wt: torch.Tensor,
     return QuantInt8(q.contiguous(), s.transpose(-1, -2).contiguous())
 
 
-def quantize_int8(w: torch.Tensor) -> QuantInt8:
-    """Quantize ``w [..., in, out]`` (the JAX package's layout); a stacked
-    weight one layer at a time, so the float32 temporaries stay one
-    layer's size."""
+def quantize_int8(w: torch.Tensor,
+                  rows: Optional[Callable[[torch.Tensor], QuantInt8]] = None
+                  ) -> QuantInt8:
+    """Quantize ``w [..., in, out]`` (the JAX package's layout) one
+    matrix at a time (a layer's, or a layer's expert's), so the float32
+    temporaries stay one matrix's size. ``rows(wt)`` quantizes one
+    matrix given in the kernel's layout ``[out, in]`` in place of
+    :func:`quantize_rows`."""
     if w.dim() > 2:
-        parts = [quantize_int8(w[i]) for i in range(w.shape[0])]
+        parts = [quantize_int8(w[i], rows) for i in range(w.shape[0])]
         return QuantInt8(torch.stack([p.q for p in parts]),
                          torch.stack([p.s for p in parts]))
-    return quantize_rows(w.transpose(-1, -2))
+    return (rows or quantize_rows)(w.transpose(-1, -2))
 
 
 def quantize_params(params: Dict, keys=QUANT_KEYS,

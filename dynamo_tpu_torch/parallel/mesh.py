@@ -215,10 +215,13 @@ def leave_process_groups(mesh: Optional[MeshView] = None) -> None:
 
 
 def param_pspecs(cfg: ModelConfig) -> Dict[str, Spec]:
-    """Megatron-style specs of the dense params (the JAX package's
+    """Megatron-style specs of the params (the JAX package's
     ``param_pspecs``): column-parallel q/k/v, gate and up, row-parallel o
-    and down, vocab-sharded embedding and head; norms replicated. The
-    MoE and MLA entries are not ported (nor are those models)."""
+    and down, vocab-sharded embedding and head; norms replicated. MoE:
+    the router replicated, each expert's gate and up column-parallel and
+    its down row-parallel (the JAX package's specs with its ``expert``
+    axis at 1: the port's mesh has no expert axis). The MLA entries are
+    not ported (nor is that model)."""
     specs: Dict[str, Spec] = {
         "embed": ("model", None),
         "wq": (None, None, "model"),
@@ -240,6 +243,11 @@ def param_pspecs(cfg: ModelConfig) -> Dict[str, Spec]:
     if cfg.attn_bias:
         specs.update({"bq": (None, "model"), "bk": (None, "model"),
                       "bv": (None, "model")})
+    if cfg.num_experts > 0:
+        specs.update({"w_router": (None, None, None),
+                      "w_gate": (None, None, None, "model"),
+                      "w_up": (None, None, None, "model"),
+                      "w_down": (None, None, "model", None)})
     return specs
 
 
@@ -296,14 +304,18 @@ def quantize_shard(name: str, w: torch.Tensor, cfg: ModelConfig,
     contraction axis (a row-parallel weight), the per-rank amax is
     all-reduced with MAX over the model axis first, so the scales, and
     with them every int8 value, are those of quantizing the whole weight
-    and cutting it (a per-shard amax would not be)."""
+    and cutting it (a per-shard amax would not be). A stack is quantized
+    one matrix (a layer's, or a layer's expert's) at a time."""
     spec = param_pspecs(cfg).get(name, (None,) * w.dim())
     if spec[-2] is None or mesh.model == 1:
         return quantize_int8(w)
-    wt = w.transpose(-1, -2)
-    amax = wt.float().abs().amax(dim=-1, keepdim=True)
-    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=mesh.group)
-    return quantize_rows(wt, scale_of(amax))
+
+    def rows(wt: torch.Tensor) -> QuantInt8:
+        amax = wt.float().abs().amax(dim=-1, keepdim=True)
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=mesh.group)
+        return quantize_rows(wt, scale_of(amax))
+
+    return quantize_int8(w, rows)
 
 
 def shard_params(params: Dict[str, Any], cfg: ModelConfig,

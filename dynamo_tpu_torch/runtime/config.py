@@ -120,6 +120,10 @@ register_env("DYN_REDISPATCH_MAX", "2", "llm/disagg",
              "Max remote-prefill dispatches per request (first + hedged "
              "re-enqueues after a fast transfer-plane failure, e.g. a "
              "prefill worker dying mid-transfer). 1 disables hedging.")
+register_env("DYN_MOE_BLOCK", "256", "models",
+             "Row height of the blocks of the sorted MoE dispatch "
+             "(models/llama.py moe_experts_blocked); also the padding "
+             "quantum of each expert's group in its cost model.")
 register_env("HF_HUB_OFFLINE", "1", "external",
              "Set by dynamo_tpu_torch.llm.tokenizer unless already present: "
              "never hit the HuggingFace hub at serve time.")

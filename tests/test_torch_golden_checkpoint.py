@@ -12,7 +12,9 @@ tests/test_loader.py:
 - a BF16 checkpoint read by the port's own reader is bitwise what
   ``safetensors.torch.load_file`` reads;
 - a tensor-parallel rank's load is exactly ``shard_param`` of the whole;
-- MoE and MLA raise (int8 too); the launcher serves ``--model-path``."""
+- a Mixtral checkpoint (MoE) loads, in float32 and in int8, as the JAX
+  loader loads it; MLA raises (int8 too); the launcher serves
+  ``--model-path``."""
 
 import asyncio
 import dataclasses
@@ -276,17 +278,43 @@ def _write_config(path, **hf):
     return str(path)
 
 
-def test_moe_mla_and_int8_raise(checkpoints, tmp_path):
-    """What the port does not load yet raises NotImplementedError before
-    reading a weight: MoE (Mixtral, Qwen3-MoE experts) and MLA
-    (DeepSeek), with or without int8 (a dense checkpoint loads in int8:
-    tests/test_torch_quant.py); an unknown quant mode is a ValueError."""
-    mixtral = _write_config(tmp_path / "mixtral", model_type="mixtral",
-                            num_local_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        load_params(mixtral, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        load_params(mixtral, device="cpu", quant="int8")
+def test_moe_loads_and_mla_and_unknown_quant_raise(checkpoints, tmp_path):
+    """A Mixtral checkpoint written by transformers loads, in float32 and
+    with int8 projections, to the JAX loader's keys and values (the
+    router [L, D, E], the experts stacked [L, E, in, out]; more cases in
+    tests/test_torch_moe.py). What the port does not load yet raises
+    NotImplementedError before reading a weight: MLA (DeepSeek), with or
+    without int8; an unknown quant mode is a ValueError."""
+    from transformers import MixtralConfig, MixtralForCausalLM
+
+    from dynamo_tpu.models.quant import QuantInt8 as JaxQuantInt8
+
+    torch.manual_seed(23)
+    hf = MixtralForCausalLM(MixtralConfig(
+        vocab_size=512, rms_norm_eps=1e-5, tie_word_embeddings=False,
+        num_local_experts=4, num_experts_per_tok=2, **COMMON))
+    mixtral = tmp_path / "mixtral"
+    hf.save_pretrained(mixtral, safe_serialization=True)
+    cfg = ModelConfig.from_local_path(str(mixtral))
+    assert (cfg.num_experts, cfg.num_experts_per_tok) == (4, 2)
+    for quant in (None, "int8"):
+        want = jax_load_params(str(mixtral),
+                               JaxModelConfig.from_local_path(str(mixtral)),
+                               dtype=jnp.float32, quant=quant)
+        got = load_params(str(mixtral), device="cpu", dtype=torch.float32,
+                          quant=quant)
+        assert set(got) == set(want) and "w_router" in got
+        for k, w in want.items():
+            if isinstance(w, JaxQuantInt8):
+                np.testing.assert_array_equal(
+                    got[k].q.transpose(-1, -2).numpy(), np.asarray(w.q),
+                    err_msg=k)
+                np.testing.assert_array_equal(got[k].s.numpy(),
+                                              np.asarray(w.s), err_msg=k)
+            else:
+                np.testing.assert_array_equal(got[k].numpy(), np.asarray(w),
+                                              err_msg=k)
+        assert tuple(got["w_down"].shape) == (2, 4, 128, 64)
     mla = _write_config(tmp_path / "mla", model_type="deepseek_v2",
                         kv_lora_rank=8, n_routed_experts=0)
     with pytest.raises(NotImplementedError, match="MLA"):

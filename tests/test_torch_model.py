@@ -353,9 +353,13 @@ def test_decode_window_reads_no_host_value():
 
 
 def test_unported_families_raise():
+    """MLA raises; MoE (ported since) passes the check and draws its
+    params: the router and the expert stacks."""
     _, tcfg = _cfgs(num_experts=4)
-    with pytest.raises(NotImplementedError):
-        tl.init_params(tcfg, torch.Generator().manual_seed(0))
+    tl.check_supported(tcfg)
+    p = tl.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert tuple(p["w_gate"].shape) == (2, 4, 64, 128)
+    assert tuple(p["w_router"].shape) == (2, 64, 4)
     _, tcfg = _cfgs(kv_lora_rank=16)
     with pytest.raises(NotImplementedError):
         tl.make_step_fns(tcfg)[0](None, torch.zeros(1, 1, dtype=torch.int32),

@@ -78,7 +78,8 @@ def _device_shard(arr, device):
 
 
 @pytest.mark.parametrize("kw", [{}, {"attn_bias": True,
-                                     "tie_word_embeddings": True}])
+                                     "tie_word_embeddings": True},
+                                {"model_type": "mixtral", "num_experts": 4}])
 def test_shards_equal_jax_named_shardings(kw):
     """Every param's shard, the bridge's per-rank upload and the pool's
     shard equal the JAX shard on the same device of a model=2 mesh,
@@ -335,7 +336,9 @@ WORKER = textwrap.dedent('''
         from dynamo_tpu_torch.models import llama as tl
         from dynamo_tpu_torch.models.bridge import params_from_numpy
         from dynamo_tpu_torch.models.config import ModelConfig
-        cfg = ModelConfig.tiny()
+        overrides = os.path.join(data, "cfg.json")
+        cfg = ModelConfig.tiny(**(json.load(open(overrides))
+                                  if os.path.exists(overrides) else {}))
         npz = np.load(os.path.join(data, "params.npz"))
         params = params_from_numpy({k: npz[k] for k in npz.files}, cfg,
                                    device="cpu", rank=rank, size=size)
@@ -502,7 +505,21 @@ def test_two_ranks_match_jax_model_and_tp1(tmp_path):
     carry equal the JAX window's and tp=1's, its step logits tp=1's, and
     the ranks' pool shards joined tp=1's pools. Every rank ends with the
     same carry (each samples the same tokens from the gathered logits)."""
-    jcfg, tcfg, jp, np_params = _jax_params(seed=4)
+    _two_ranks_match(tmp_path, seed=4)
+
+
+def test_two_ranks_of_a_moe_model_match_jax_model_and_tp1(tmp_path):
+    """The same two-rank run on a tiny Mixtral (4 experts, top 2): each
+    rank holds its cut of every expert's inner width and the router
+    whole, runs the dense sum over experts (the cost model never takes
+    the blocked dispatch under a mesh) and all-reduces it; logits, window
+    tokens, carries and pools as at tp=1 and as the JAX model's."""
+    _two_ranks_match(tmp_path, seed=5, model_type="mixtral", num_experts=4)
+
+
+def _two_ranks_match(tmp_path, seed: int, **cfg_kw):
+    jcfg, tcfg, jp, np_params = _jax_params(seed=seed, **cfg_kw)
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg_kw))
     x = _model_inputs()
     j_pre, _ = jl.make_step_fns(jcfg)
     jk, jv = jl.init_kv_cache(jcfg, jl.KVCacheSpec(32, PAGE))
