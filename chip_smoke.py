@@ -343,7 +343,7 @@ Phases; any failure exits non-zero before the result line:
    enough for the 32 tokens; the
    ``torch.profiler`` Chrome trace in DIR naming both hand kernels. Its
    launches join the served path's rows of the kernels line.
-19. (run last, on a card the earlier phases have left) MoE at
+19. (on a card the earlier phases have left) MoE at
    Mixtral-8x7B's widths (:func:`moe_phase`): MIXTRAL_8X7B (its published
    config.json) through ``ModelConfig.from_hf_config``, 4 of its 32
    layers, bfloat16, seed-0 weights, the default EngineConfig, an engine
@@ -370,6 +370,36 @@ Phases; any failure exits non-zero before the result line:
    windows, ``wgmma`` in the blocked prefill); check_paths against its
    plain int8 path with the int8 fault control. Its launches join the
    bf16 attention rows and the bf16 int8 rows of the kernels line.
+20. (run last) MLA at DeepSeek-V2-Lite's widths (:func:`mla_phase`):
+   DEEPSEEK_V2_LITE (its published config.json) through
+   ``ModelConfig.from_hf_config``, 4 of its 27 layers (the dense first
+   layer and 3 MoE layers of 64 experts, top 6, and 2 shared experts),
+   bfloat16, seed-0 weights, the default EngineConfig, an engine built
+   directly, which the registry puts on ``models/mla.py`` and the
+   engine's generic window. (a) Warmed (every bucket of both grids);
+   phase 4's four prompts at once (their first chunks pack into one
+   [8, 512] dispatch, which the cost model puts on the blocked expert
+   dispatch: 4096*6 + 64*256 <= 4096*64/2), then phase 4's requests
+   over HTTP (serve_and_check); no capture after warmup, served replays
+   on both expert dispatches, and no launch of either attention kernel
+   (latent attention is plain torch, as it is XLA in the JAX package);
+   one window and two chunks replayed against the same calls made
+   eagerly (check_graph_window, check_graph_prefill); the teacher-forced
+   prefill and window against the same model in float32 on the card
+   (MLA_F32_LIMITS, with a zeroed latent row as the fault control). (b)
+   The blocks alone, bfloat16, each against a float32 computation: one
+   MLA attention layer at V2-Lite's and at DeepSeek-V3's widths (q LoRA
+   1536, 128 heads) on the 4-row window and a 512-token first chunk;
+   V3's router (256 experts, top 8, 8 groups, top 4 groups, a nonzero
+   selection bias, renormalised, scaled by 2.5) on 2,048 tokens; V2-Lite's
+   MoE block on 4 rows and 2,048 tokens, each dispatch replayed twice
+   from a CUDA graph with the same bits; their device times beside their
+   bounds, and the blocks' shares of a 4-row window. (c) The same 4-layer
+   model with int8 weights quantized on the card: warmed (its plain
+   variants: it serves no logprobs request), the four prompts at once, every int8 GEMM launch accounted for by the replayed
+   buckets (``small_m`` in the windows, ``wgmma`` in the blocked chunk),
+   check_paths against its plain int8 path with the int8 fault control.
+   Its int8 launches join the bf16 int8 rows of the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -1127,26 +1157,37 @@ async def serve_and_check(engine, mdc):
                  f"{len(tap.tokens.get(rid, ()))} tokens")
     if tap.tokens["r4-repeat"] != tap.tokens["r5-repeat"]:
         fail("repeated greedy request gave different tokens")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the served path")
-    # every kernel call of the served path came from a graph replay: the
-    # prefill kernel once per layer of each replayed chunk, the decode
-    # kernel once per layer and step of each replayed window
     L, K = engine.cfg.num_layers, engine.ecfg.decode_steps
-    if (launches["paged_attention_prefill"] != replays[0] * L
-            or launches["paged_attention_decode"] != replays[1] * L * K):
-        fail(f"launches {launches} are not the graph replays' ({replays[0]} "
-             f"prefill chunks x {L}, {replays[1]} windows x {L * K})")
-    # every call takes the route its shape names (bf16 Llama-3-8B widths:
-    # the bf16 kernels; float32 at the 1b widths: the float32 kernels)
-    want_dec, want_pf = served_routes(engine)
-    if route_launches != only(ops.DECODE_ROUTES, want_dec,
-                              launches["paged_attention_decode"]):
-        fail(f"decode calls by route on the served path: {route_launches}")
-    if prefill_routes != only(ops.PREFILL_ROUTES, want_pf,
-                              launches["paged_attention_prefill"]):
-        fail(f"prefill calls by route on the served path: {prefill_routes}")
+    if engine.cfg.is_mla:
+        # latent attention is plain torch (no TPU kernel to port): the
+        # registry kept the model off models/llama.py's kernel path
+        if any(launches.values()) or any(route_launches.values()) \
+                or any(prefill_routes.values()):
+            fail(f"an MLA engine launched attention kernels: {launches}")
+    else:
+        for name, n in launches.items():
+            if n <= 0:
+                fail(f"kernel {name} was not launched on the served path")
+        # every kernel call of the served path came from a graph replay:
+        # the prefill kernel once per layer of each replayed chunk, the
+        # decode kernel once per layer and step of each replayed window
+        if (launches["paged_attention_prefill"] != replays[0] * L
+                or launches["paged_attention_decode"] != replays[1] * L * K):
+            fail(f"launches {launches} are not the graph replays' "
+                 f"({replays[0]} prefill chunks x {L}, {replays[1]} "
+                 f"windows x {L * K})")
+        # every call takes the route its shape names (bf16 Llama-3-8B
+        # widths: the bf16 kernels; float32 at the 1b widths: the float32
+        # kernels)
+        want_dec, want_pf = served_routes(engine)
+        if route_launches != only(ops.DECODE_ROUTES, want_dec,
+                                  launches["paged_attention_decode"]):
+            fail(f"decode calls by route on the served path: "
+                 f"{route_launches}")
+        if prefill_routes != only(ops.PREFILL_ROUTES, want_pf,
+                                  launches["paged_attention_prefill"]):
+            fail(f"prefill calls by route on the served path: "
+                 f"{prefill_routes}")
     # int8 weights: every projection of every replayed chunk and window
     # step through the int8 GEMM (7 a layer, and the head); none in bf16
     per_pass = (7 * L + 1) if engine.quant == "int8" else 0
@@ -1392,14 +1433,18 @@ def path_run(params, cfg, dev, use: bool, mesh=None, ps: int = 64):
     pools of page size ``ps``: (prefill logits [B, V], every step's logits
     [K, B, V], the K/V committed at the window's K positions in every
     layer). With ``mesh``, one tensor-parallel rank's run on its shards
-    (its K/V: its kv heads)."""
+    (its K/V: its kv heads). The model module is the registry's; one
+    without a fused window (MLA) runs the engine's generic window. An MLA
+    model's K/V rows are its latent and rope rows side by side."""
     import numpy as np
     import torch
 
     from dynamo_tpu_torch.engine import sampling
-    from dynamo_tpu_torch.models.llama import (KVCacheSpec, init_kv_cache,
-                                               make_decode_window_fn,
-                                               make_step_fns)
+    from dynamo_tpu_torch.engine.torch_engine import _make_decode_multi
+    from dynamo_tpu_torch.models.llama import KVCacheSpec
+    from dynamo_tpu_torch.models.registry import get_model_module
+
+    mod = get_model_module(cfg)
 
     T, K, lens = PATH_T, PATH_K, PATH_LENS
     B = len(lens)
@@ -1420,8 +1465,8 @@ def path_run(params, cfg, dev, use: bool, mesh=None, ps: int = 64):
         slots[b, :n] = table[b, p // ps] * ps + p % ps
     last = torch.tensor([n - 1 for n in lens], dtype=torch.int32)
 
-    kk, vv = init_kv_cache(cfg, spec, device=dev, mesh=mesh)
-    pre, _ = make_step_fns(cfg, use_kernels=use, mesh=mesh)
+    kk, vv = mod.init_kv_cache(cfg, spec, device=dev, mesh=mesh)
+    pre, _ = mod.make_step_fns(cfg, use_kernels=use, mesh=mesh)
     logits, kk, vv = pre(params, tokens.to(dev), positions.to(dev), kk, vv,
                          table.to(dev), slots.to(dev), last.to(dev))
     step_logits = []
@@ -1433,7 +1478,10 @@ def path_run(params, cfg, dev, use: bool, mesh=None, ps: int = 64):
     real = sampling.sample_tokens
     sampling.sample_tokens = forcing
     try:
-        win = make_decode_window_fn(cfg, use_kernels=use, mesh=mesh)
+        if hasattr(mod, "make_decode_window_fn"):
+            win = mod.make_decode_window_fn(cfg, use_kernels=use, mesh=mesh)
+        else:
+            win = _make_decode_multi(mod, cfg, 64, mesh=mesh)
     finally:
         sampling.sample_tokens = real
     win(params, forced[:, 0].contiguous(),
@@ -1446,8 +1494,8 @@ def path_run(params, cfg, dev, use: bool, mesh=None, ps: int = 64):
         torch.full((B, 1), -1, dtype=torch.int32, device=dev), k_steps=K)
     torch.cuda.synchronize()
     kv = torch.stack([
-        torch.stack([pool[:, table[b, (n + i) // ps].item(), :, (n + i) % ps]
-                     for pool in (kk, vv)])
+        torch.cat([pool[:, table[b, (n + i) // ps].item(), :, (n + i) % ps]
+                   for pool in (kk, vv)], dim=-1)
         for b, n in enumerate(lens) for i in range(K)])
     return logits.float(), torch.stack(step_logits), kv
 
@@ -1473,8 +1521,9 @@ def check_paths(engine, cfg, dev, limits=None) -> tuple:
 
     limits = limits or PATH_LIMITS
     # a MoE model: the kernel path's expert choices, which every other
-    # run follows (routed)
+    # run follows (routed), counted afresh for this check
     routes = [] if cfg.num_experts > 0 else None
+    ROUTED.update(differ=0, rows=0)
 
     def run(use: bool):
         def go():
@@ -1484,7 +1533,8 @@ def check_paths(engine, cfg, dev, limits=None) -> tuple:
 
         if routes is None:
             return go()
-        return routed(go, routes, record=use and not routes)
+        return routed(go, routes, record=use and not routes,
+                      mla=cfg.is_mla)
 
     def errs(a, b):
         return {"rel_l2_logits": rel_l2(torch.cat([a[0][None], a[1]]),
@@ -1582,7 +1632,7 @@ def check_paths(engine, cfg, dev, limits=None) -> tuple:
 ROUTED = {"differ": 0, "rows": 0}
 
 
-def routed(fn, routes: list, record: bool):
+def routed(fn, routes: list, record: bool, mla: bool = False):
     """Run ``fn`` with every MoE routing (``models/llama.py moe_route``)
     either recorded into ``routes`` (``record``) or replayed from it in
     call order: the experts recorded, their softmax weights from this
@@ -1592,31 +1642,49 @@ def routed(fn, routes: list, record: bool):
     some tokens to other experts, a difference of routing and not of the
     attention kernels check_paths holds to their plain versions. The
     replaying run counts in ROUTED the token-layers whose own choice
-    differs."""
+    differs. ``mla``: DeepSeek's router (``models/mla.py
+    _deepseek_gate``) in place of ``moe_route``, its weights of the
+    recorded experts from this run's own scores."""
     import torch
 
     from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models import mla as mla_mod
 
-    real = llama.moe_route
+    module, name = (mla_mod, "_deepseek_gate") if mla else (llama,
+                                                             "moe_route")
+    real = getattr(module, name)
     replay = iter(list(routes))
+
+    def check(idx):
+        want = next(replay)
+        ROUTED["differ"] += int((idx.sort(-1).values
+                                 != want.sort(-1).values).any(-1).sum())
+        ROUTED["rows"] += idx.shape[0]
+        return want
 
     def route(x, w_router, k):
         weights, idx = real(x, w_router, k)
         if record:
             routes.append(idx)
             return weights, idx
-        want = next(replay)
-        ROUTED["differ"] += int((idx.sort(-1).values
-                                 != want.sort(-1).values).any(-1).sum())
-        ROUTED["rows"] += idx.shape[0]
+        want = check(idx)
         logits = (x @ w_router).float().gather(-1, want)
         return torch.softmax(logits, dim=-1), want
 
-    llama.moe_route = route
+    def gate(x32, w_router, bias, cfg):
+        weights, idx = real(x32, w_router, bias, cfg)
+        if record:
+            routes.append(idx)
+            return weights, idx
+        want = check(idx)
+        scores, _ = mla_mod.deepseek_scores(x32, w_router, bias, cfg)
+        return mla_mod._gate_weights(scores, want, cfg), want
+
+    setattr(module, name, gate if mla else route)
     try:
         out = fn()
     finally:
-        llama.moe_route = real
+        setattr(module, name, real)
     if not record and next(replay, None) is not None:
         fail("routed: a run made fewer MoE calls than the recorded one")
     return out
@@ -1698,10 +1766,11 @@ def check_graph_window(engine, cfg, dev, topn: int = 0,
         kk0, vv0 = engine.kv_k.clone(), engine.kv_v.clone()
 
         def written():
+            # both pools' rows side by side (MLA's differ in width)
             return torch.stack([
-                torch.stack([pool[:, int(table[b, (n + i) // ps]), :,
-                                  (n + i) % ps] for pool in
-                             (engine.kv_k, engine.kv_v)])
+                torch.cat([pool[:, int(table[b, (n + i) // ps]), :,
+                                (n + i) % ps] for pool in
+                           (engine.kv_k, engine.kv_v)], dim=-1)
                 for b, n in enumerate(lens) for i in range(K)])
 
         e_out = engine.decode_multi_fn(
@@ -4522,6 +4591,8 @@ MOE_REL_L2 = 2e-2
 # tokens each of phase 4's four prompts generates when submitted at once
 # (phase 19 (a) and (c))
 MOE_MAX_TOKENS = 32
+# the contexts of a timed 4-row window's rows (phase 4's four prompts)
+WINDOW_CONTEXTS = [48, 640, 64, 40]
 
 
 def moe_prompts() -> list:
@@ -4754,23 +4825,25 @@ def moe_block_case(dev, name, D, I, E, k, N, seed: int = 0) -> dict:
     return rep
 
 
-def moe_window_share(engine, block_4_ms: float) -> dict:
-    """A 4-row greedy window of the served model (its decode function on
-    a scratch pool, rows at phase 4's contexts) timed on the card, and
-    the share of it the MoE blocks take (layers x steps x one 4-row
-    block's time)."""
+def window_4_rows_ms(engine, table_pages: int = 0) -> float:
+    """Device ms of a 4-row greedy window of the served model (its decode
+    function on scratch pools through the registry's module, rows at
+    WINDOW_CONTEXTS, phase 4's contexts), the rows' page tables
+    ``table_pages`` wide (0: just their pages)."""
     import torch
 
-    from dynamo_tpu_torch.models.llama import KVCacheSpec, init_kv_cache
+    from dynamo_tpu_torch.models.llama import KVCacheSpec
 
     cfg, ps, K = engine.cfg, engine.ecfg.page_size, engine.ecfg.decode_steps
-    ctx = [48, 640, 64, 40]
+    ctx = WINDOW_CONTEXTS
     per = -(-(max(ctx) + K) // ps)
-    kk, vv = init_kv_cache(cfg, KVCacheSpec(1 + 4 * per, ps),
-                           device=engine.device)
-    table = torch.arange(1, 1 + 4 * per, dtype=torch.int32,
-                         device=engine.device).reshape(4, per)
+    kk, vv = engine.model.init_kv_cache(cfg, KVCacheSpec(1 + 4 * per, ps),
+                                        device=engine.device)
     dev = kk.device
+    table = torch.zeros((4, max(table_pages, per)), dtype=torch.int32,
+                        device=dev)
+    table[:, :per] = torch.arange(1, 1 + 4 * per, dtype=torch.int32,
+                                  device=dev).reshape(4, per)
 
     def full(value, dtype, shape=(4,)):
         return torch.full(shape, value, dtype=dtype, device=dev)
@@ -4786,10 +4859,18 @@ def moe_window_share(engine, block_4_ms: float) -> dict:
     def window():
         return engine.decode_multi_fn(engine.params, *args, k_steps=K)
 
-    ms = time_ms(window, iters=5)
+    return time_ms(window, iters=5)
+
+
+def moe_window_share(engine, block_4_ms: float) -> dict:
+    """A 4-row greedy window of the served model timed on the card
+    (:func:`window_4_rows_ms`), and the share of it the MoE blocks take
+    (layers x steps x one 4-row block's time)."""
+    cfg, K = engine.cfg, engine.ecfg.decode_steps
+    ms = window_4_rows_ms(engine)
     moe = cfg.num_layers * K * block_4_ms
     return {"window_4_rows_ms": ms, "moe_blocks_ms": moe,
-            "moe_share": moe / ms, "contexts": ctx, "steps": K}
+            "moe_share": moe / ms, "contexts": WINDOW_CONTEXTS, "steps": K}
 
 
 def check_packed_routes(packed: dict) -> None:
@@ -4952,6 +5033,616 @@ def moe_phase(dev) -> dict:
                 "packed": packed8, "launches": launched,
                 "expected_launches": want, "paths": paths8},
             "attention_launches": attn, "seconds": seconds}
+
+
+# ------------------------------------------ MLA at DeepSeek-V2-Lite's widths
+
+
+# deepseek-ai/DeepSeek-V2-Lite's config.json (the fields the port reads,
+# and those that say which of DeepSeek's variants it is)
+DEEPSEEK_V2_LITE = {
+    "model_type": "deepseek_v2", "hidden_size": 2048,
+    "intermediate_size": 10944, "num_hidden_layers": 27,
+    "num_attention_heads": 16, "num_key_value_heads": 16,
+    "q_lora_rank": None, "kv_lora_rank": 512, "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64, "v_head_dim": 128, "n_routed_experts": 64,
+    "num_experts_per_tok": 6, "n_shared_experts": 2,
+    "moe_intermediate_size": 1408, "first_k_dense_replace": 1,
+    "routed_scaling_factor": 1.0, "topk_method": "greedy", "n_group": 1,
+    "topk_group": 1, "norm_topk_prob": False, "scoring_func": "softmax",
+    "vocab_size": 102400, "rms_norm_eps": 1e-06, "rope_theta": 10000,
+    "tie_word_embeddings": False, "max_position_embeddings": 163840,
+    "rope_scaling": {"type": "yarn", "factor": 40,
+                     "original_max_position_embeddings": 4096,
+                     "mscale": 0.707, "mscale_all_dim": 0.707,
+                     "beta_fast": 32, "beta_slow": 1}}
+# its one cut: 4 of the 27 layers (the dense first layer and 3 MoE layers)
+# at full width, ~4.5 GB of bfloat16 weights
+DEEPSEEK_LAYERS = 4
+# phase 20 (b): one MLA attention layer at DeepSeek-V3's widths and V3's
+# router (deepseek-ai/DeepSeek-V3's config.json)
+DEEPSEEK_V3_ATTN = {"hidden_size": 7168, "num_heads": 128,
+                    "q_lora_rank": 1536, "kv_lora_rank": 512,
+                    "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+                    "v_head_dim": 128}
+DEEPSEEK_V3_ROUTER = {"hidden_size": 7168, "num_experts": 256,
+                      "num_experts_per_tok": 8, "n_group": 8,
+                      "topk_group": 4, "routed_scaling_factor": 2.5}
+ROUTER_TOKENS = 2048
+# tokens each of phase 4's four prompts generates when submitted at once
+# (phase 20 (a) and (c))
+MLA_MAX_TOKENS = 32
+# the bfloat16 blocks (MLA attention, the MoE block) against their float32
+# computation on the same bfloat16 weights and inputs: relative L2.
+# Attention rounds q, the latents, the rotated rope parts and the output
+# to bfloat16 (2^-9 relative each at most) around float32 latent einsums
+MLA_BLOCK_REL_L2 = 2e-2
+# V3's router on bfloat16 tokens against float32 tokens and weights: a
+# token's expert set may differ only where the float32 selection has a
+# near-tie (its k-th and k+1-th expert, or its top_k-th and next group,
+# within ROUTER_TIE); the applied weights of the same sets within
+# ROUTER_WEIGHT_ATOL (scaled by 2.5, renormalised over 8)
+ROUTER_TIE = 5e-3
+ROUTER_WEIGHT_ATOL = 1e-2
+# the served model in bfloat16 against the same model in float32 (phase
+# 20 (a) 6; teacher-forced, the float32 run on the bf16 run's experts):
+# relative L2 of each row's prefill logits and of each row's window logits
+# over its steps, and of the window's committed latent and rope rows. A
+# fault control (one latent row zeroed in every layer's pool, read by
+# the short row) must land above the logits limits
+MLA_F32_LIMITS = {"prefill_rel_l2": 0.05, "window_rel_l2": 0.05,
+                  "window_kv_rel_l2": 0.05}
+
+
+def mla_cfg():
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.from_hf_config(
+        dict(DEEPSEEK_V2_LITE, num_hidden_layers=DEEPSEEK_LAYERS))
+    if (cfg.dtype, cfg.is_mla, cfg.num_experts, cfg.num_experts_per_tok,
+            cfg.n_shared_experts, cfg.first_k_dense_replace, cfg.moe_router,
+            cfg.n_group, cfg.q_lora_rank) != (
+            "bfloat16", True, 64, 6, 2, 1, "deepseek_v2", 0, 0):
+        fail(f"DeepSeek-V2-Lite's config parsed as {cfg}")
+    return cfg
+
+
+def mla_engine(cfg, quant=None):
+    """The 4-layer V2-Lite engine, warmed. With int8 weights it serves
+    only phase 20 (c)'s packed prompts (no logprobs request), so it warms
+    the plain variants alone."""
+    import torch
+
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.models import mla
+
+    t = time.monotonic()
+    engine = TorchEngine(cfg, EngineConfig(warmup_logprobs=quant is None),
+                         seed=0, device="cuda", quant=quant)
+    if engine.model is not mla or engine.decode_multi_fn.__qualname__ != (
+            "_make_decode_multi.<locals>.decode_multi"):
+        fail("the MLA engine is not on models/mla.py and the generic window")
+    engine.warmup()
+    topns = [0] + ([engine.ecfg.max_top_logprobs] if quant is None else [])
+    check_warmed(engine, [(n, 0) for n in topns], topns)
+    log(f"  DeepSeek-V2-Lite engine ({cfg.num_layers} of 27 layers, MLA r "
+        f"512 + rope 64, 16 heads, 64 experts top 6 + 2 shared, D=2048, "
+        f"V=102400, bf16{', int8 weights' if quant else ''}, seed 0) built "
+        f"and warmed up in {time.monotonic() - t:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; latent "
+        f"pools {(engine.kv_k.nbytes + engine.kv_v.nbytes) / 2**20:.0f} MiB")
+    return engine
+
+
+def int8_mla_launches(engine, decode_replays: dict, pf_replays: dict) -> int:
+    """The int8 GEMM launches the replayed buckets make: a pass runs each
+    layer's attention products (w_q or w_dq and w_uq, w_dkv, w_o; w_uk and
+    w_uv dequantize), the dense first layers' 3, each MoE layer's experts'
+    3 a block (blocked) or an expert (dense) and the shared experts' 3,
+    and the head; a window that per step."""
+    from dynamo_tpu_torch.models import llama
+
+    c, K = engine.cfg, engine.ecfg.decode_steps
+    E, k, L = c.num_experts, c.num_experts_per_tok, c.num_layers
+    kd = c.first_k_dense_replace
+    attn = 4 if c.q_lora_rank else 3
+    shared = 3 if c.n_shared_experts else 0
+
+    def per_pass(tokens: int, blocked: bool) -> int:
+        experts = (-(-tokens * k // llama._MOE_BLOCK) + E) if blocked else E
+        return L * attn + kd * 3 + (L - kd) * (3 * experts + shared) + 1
+
+    n = 0
+    for (B, T, *_), r in pf_replays.items():
+        n += r * per_pass(B * T, moe_dispatch(c, (B, T)) == "blocked")
+    for (B, _), r in decode_replays.items():
+        n += r * K * per_pass(B, False)
+    return n
+
+
+def mla_f32_check(engine, cfg, dev) -> dict:
+    """Phase 20 (a) 6: check_paths' teacher-forced prefill and window
+    (:func:`path_run`) of the served bfloat16 model against the same
+    model computed in float32 on the card (its bfloat16 weights upcast,
+    float32 pools), the float32 run on the bf16 run's experts (routed):
+    each row's prefill logits, each row's window logits over its steps
+    and the window's committed latent and rope rows, by relative L2,
+    within MLA_F32_LIMITS. The control: the bfloat16 run with one latent
+    row (the short row's position 5) zeroed in every layer's pool where
+    attention reads it, which must land above the logits limits."""
+    import dataclasses
+
+    import torch
+
+    from dynamo_tpu_torch.models import mla
+
+    ps = engine.ecfg.page_size
+    routes = []
+    ROUTED.update(differ=0, rows=0)
+
+    def run(params, c, record):
+        return routed(lambda: path_run(params, c, dev, True, ps=ps), routes,
+                      record=record, mla=True)
+
+    bf = run(engine.params, cfg, True)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = {k: v.float() for k, v in engine.params.items()}
+    f32 = run(p32, cfg32, False)
+    del p32
+    torch.cuda.empty_cache()
+
+    def errs(a, b):
+        rows = range(a[0].shape[0])
+        return {"prefill_rel_l2": max(rel_l2(a[0][r], b[0][r])
+                                      for r in rows),
+                "window_rel_l2": max(rel_l2(a[1][:, r], b[1][:, r])
+                                     for r in rows),
+                "window_kv_rel_l2": rel_l2(a[2].float(), b[2].float()),
+                "prefill_rel_l2_by_row": [rel_l2(a[0][r], b[0][r])
+                                          for r in rows],
+                "window_rel_l2_by_row": [rel_l2(a[1][:, r], b[1][:, r])
+                                         for r in rows]}
+
+    sound = errs(bf, f32)
+    # the fault: path_run's short row (row 2) holds its positions on page
+    # 1 + 2 * per of the fresh pools; its position 5 reads as zeros
+    per = -(-(max(PATH_LENS) + PATH_K) // ps) + 1
+    page = 1 + 2 * per
+    real = mla._mla_attention
+
+    def zeroed(q_lat, q_rope, c_pages, *args):
+        c = c_pages.clone()
+        c[page, :, 5] = 0
+        return real(q_lat, q_rope, c, *args)
+
+    mla._mla_attention = zeroed
+    try:
+        control = errs(run(engine.params, cfg, False), f32)
+    finally:
+        mla._mla_attention = real
+    log(f"  bf16 vs float32 (teacher-forced): {json.dumps(sound)}; "
+        f"control (a latent row zeroed): {json.dumps(control)}; limits "
+        f"{json.dumps(MLA_F32_LIMITS)}; routing: {ROUTED['differ']} of "
+        f"{ROUTED['rows']} token-layers of the float32 runs would have "
+        f"picked another expert set")
+    for key, limit in MLA_F32_LIMITS.items():
+        if sound[key] > limit:
+            fail(f"MLA bf16 vs float32: {key} {sound[key]:.4g} > {limit}")
+    for key in ("prefill_rel_l2", "window_rel_l2"):
+        if control[key] <= MLA_F32_LIMITS[key]:
+            fail(f"MLA control fault stays within the {key} limit "
+                 f"({control[key]:.4g}): the check is blind")
+    return {"sound": sound, "control": control, "limits": MLA_F32_LIMITS}
+
+
+def mla_attention_case(dev, name: str, widths: dict, chunk: int = 0,
+                       seed: int = 0) -> dict:
+    """Phase 20 (b): one MLA attention layer (``models/mla.py
+    _mla_block``: q and latent projections, the latent write, absorbed
+    attention over the row's pages, ``w_uv`` and ``w_o``) of seed-0
+    bfloat16 weights at ``widths``, on the 4-row served window (rows at
+    WINDOW_CONTEXTS, its bucket's 64-page table) and, with ``chunk``, a
+    first chunk of that many tokens (its bucket's 8-page table): each
+    against the same block in float32 (the bfloat16 weights, inputs and
+    pools upcast) within MLA_BLOCK_REL_L2, timed, beside its bound: the
+    weights, the rows' latents and the input and output moved once, or
+    the products (bf16 projections at the bf16 peak, the float32 latent
+    einsums over each query's visible keys at the float32 peak)."""
+    import math
+
+    import torch
+
+    from dynamo_tpu_torch.models import mla
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.models.llama import (_drop_plan, rope_cos_sin,
+                                               rope_freqs)
+
+    cfg = ModelConfig(model_type="deepseek_v3", num_layers=1, vocab_size=8,
+                      intermediate_size=8, num_kv_heads=widths["num_heads"],
+                      rope_theta=10000.0, dtype="bfloat16", **widths)
+    D, H = cfg.hidden_size, cfg.num_heads
+    r, dr, dn, dv = (cfg.kv_lora_rank, cfg.qk_rope_head_dim,
+                     cfg.qk_nope_head_dim, cfg.v_head_dim)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lp = {}
+    for key, kind, shape in mla.param_table(cfg):
+        if key not in mla._mla_attn_keys(cfg):
+            continue
+        shape = shape[1:]
+        t = (torch.randn(shape, generator=g, device=dev) / math.sqrt(
+            shape[-2]) if kind == "w" else torch.ones(shape, device=dev))
+        lp[key] = t.to(torch.bfloat16)
+    lp32 = {k: v.float() for k, v in lp.items()}
+    weight_bytes = sum(v.nbytes for k, v in lp.items()
+                       if k not in ("ln_attn", "ln_mlp"))
+    ps = 64
+    inv = rope_freqs(cfg, dim=dr, device=dev)
+
+    def case(B, T, P, starts, lens):
+        per = P
+        N = 1 + B * per
+        c = torch.randn((N, 1, ps, r), generator=g, device=dev).to(
+            torch.bfloat16)
+        kr = torch.randn((N, 1, ps, dr), generator=g, device=dev).to(
+            torch.bfloat16)
+        table = torch.zeros((B, P), dtype=torch.int32, device=dev)
+        pos = torch.full((B, T), -1, dtype=torch.int32, device=dev)
+        slots = torch.full((B, T), 1 << 30, dtype=torch.int32, device=dev)
+        for b, (s0, n) in enumerate(zip(starts, lens)):
+            npg = -(-(s0 + n) // ps)
+            table[b, :npg] = torch.arange(1 + b * per, 1 + b * per + npg,
+                                          device=dev)
+            p = torch.arange(s0, s0 + n, device=dev)
+            pos[b, :n] = p
+            slots[b, :n] = table[b, p // ps] * ps + p % ps
+        x = torch.randn((B, T, D), generator=g, device=dev).to(torch.bfloat16)
+        rope = rope_cos_sin(pos.clamp(min=0), inv)
+        plan = _drop_plan(slots.reshape(-1).long(), N * ps)
+
+        def run(params, x_, c_, kr_):
+            return mla._mla_block(cfg, params, x_, rope, c_, kr_, table, pos,
+                                  slots, plan, H)
+
+        got = run(lp, x, c.clone(), kr.clone())
+        ref = run(lp32, x.float(), c.float(), kr.float())
+        err = rel_l2(got, ref)
+        if not bool(torch.isfinite(got).all()) or err > MLA_BLOCK_REL_L2:
+            fail(f"MLA attention {name} [{B}, {T}]: rel_l2 {err:.4g} > "
+                 f"{MLA_BLOCK_REL_L2} (or non-finite)")
+        ms = time_ms(lambda: run(lp, x, c, kr), iters=10)
+        # keys each query sees: its own position and those before it
+        keys = sum((s0 + i + 1) for s0, n in zip(starts, lens)
+                   for i in range(n))
+        q_in = D * cfg.q_lora_rank + cfg.q_lora_rank * H * (dn + dr) \
+            if cfg.q_lora_rank else D * H * (dn + dr)
+        rows = B * T
+        ops_bf16 = 2 * rows * (q_in + D * (r + dr) + H * dv * D)
+        ops_f32 = 2 * (rows * H * dn * r + H * (r + dr) * keys
+                       + H * r * keys + rows * H * r * dv)
+        moved = (weight_bytes + 2 * rows * D * 2
+                 + sum(s0 + n for s0, n in zip(starts, lens)) * (r + dr) * 2)
+        by_bytes = moved / H100_BYTES_PER_S
+        by_ops = ops_bf16 / H100_BF16_FLOPS + ops_f32 / H100_F32_FLOPS
+        return {"rel_l2": err, "ms": ms,
+                "bound_ms": max(by_bytes, by_ops) * 1e3,
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                "bytes": moved, "ops_bf16": ops_bf16, "ops_f32": ops_f32,
+                "table_positions": P * ps}
+
+    rep = {"widths": widths, "weight_bytes": weight_bytes,
+           "window_4_rows": case(4, 1, 64, WINDOW_CONTEXTS, [1] * 4)}
+    if chunk:
+        rep[f"first_chunk_{chunk}"] = case(1, chunk, 8, [0], [chunk])
+    log(f"  MLA attention block {name}: {json.dumps(rep)}")
+    return rep
+
+
+def deepseek_router_case(dev, seed: int = 0) -> dict:
+    """Phase 20 (b): DeepSeek-V3's router (``_deepseek_gate``, v3:
+    sigmoid scores, a nonzero selection bias, 8 groups ranked by their
+    top-2 sums, the top 4 kept, renormalised, scaled by 2.5) on
+    ROUTER_TOKENS bfloat16 tokens and bfloat16 weights, against the
+    float32 tokens and weights they were rounded from: the same expert
+    sets except at near-ties (ROUTER_TIE), the weights of the same sets
+    within ROUTER_WEIGHT_ATOL; timed, beside its bound (the tokens and
+    the router read once, or the float32 product at the float32 peak)."""
+    import torch
+
+    from dynamo_tpu_torch.models import mla
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    w = DEEPSEEK_V3_ROUTER
+    D, E, k = w["hidden_size"], w["num_experts"], w["num_experts_per_tok"]
+    G, TG, N = w["n_group"], w["topk_group"], ROUTER_TOKENS
+    cfg = ModelConfig(model_type="deepseek_v3", moe_router="deepseek_v3",
+                      kv_lora_rank=512, norm_topk_prob=True, **w)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w32 = torch.randn((D, E), generator=g, device=dev) / D ** 0.5
+    b32 = torch.randn((E,), generator=g, device=dev) * 0.1
+    x32 = torch.randn((N, D), generator=g, device=dev)
+    wb, bb, xb = (t.to(torch.bfloat16) for t in (w32, b32, x32))
+    got_w, got_i = mla._deepseek_gate(xb.float(), wb, bb, cfg)
+    ref_w, ref_i = mla._deepseek_gate(x32, w32, b32, cfg)
+    # the float32 selection's margins: experts (after the group mask) and
+    # groups
+    _, choice = mla.deepseek_scores(x32, w32, b32, cfg)
+    gs = choice.view(N, G, E // G).topk(2, dim=-1).values.sum(-1)
+    gsort = gs.sort(-1, descending=True).values
+    g_margin = gsort[:, TG - 1] - gsort[:, TG]
+    keep = torch.zeros_like(gs).scatter_(-1, gs.topk(TG, -1).indices, 1.0)
+    masked = torch.where(keep[:, :, None] > 0, choice.view(N, G, E // G),
+                         torch.zeros_like(choice.view(N, G, E // G)))
+    csort = masked.reshape(N, E).sort(-1, descending=True).values
+    e_margin = csort[:, k - 1] - csort[:, k]
+    margin = torch.minimum(g_margin, e_margin)
+    gs_, gi = got_i.sort(-1)
+    rs_, ri = ref_i.sort(-1)
+    same = (gs_ == rs_).all(-1)
+    differ_margins = margin[~same]
+    w_err = float((got_w.gather(-1, gi) - ref_w.gather(-1, ri))[same]
+                  .abs().max())
+    rep = {"tokens": N, "rows_differ": int((~same).sum()),
+           "max_margin_of_differing": float(differ_margins.max())
+           if differ_margins.numel() else 0.0,
+           "min_margin": float(margin.min()), "weight_max_abs_err": w_err}
+    if differ_margins.numel() and rep["max_margin_of_differing"] >= ROUTER_TIE:
+        fail(f"V3 router: a token's experts differ away from a near-tie "
+             f"{json.dumps(rep)}")
+    if w_err > ROUTER_WEIGHT_ATOL:
+        fail(f"V3 router: weights differ by {w_err:.4g} > "
+             f"{ROUTER_WEIGHT_ATOL}")
+    rep["ms"] = time_ms(lambda: mla._deepseek_gate(xb.float(), wb, bb, cfg),
+                        iters=10)
+    moved = N * D * 2 + D * E * 2 + E * 2 + N * k * (4 + 8)
+    by_bytes = moved / H100_BYTES_PER_S
+    by_ops = 2 * N * D * E / H100_F32_FLOPS
+    rep.update(bound_ms=max(by_bytes, by_ops) * 1e3,
+               bound_by="bytes" if by_bytes >= by_ops else "operations")
+    log(f"  V3 router: {json.dumps(rep)}")
+    return rep
+
+
+def deepseek_moe_case(dev, cfg, N: int = 2048, seed: int = 0) -> dict:
+    """Phase 20 (b): V2-Lite's MoE block (``_deepseek_moe_mlp``: the v2
+    router, 64 routed experts top 6 and 2 shared experts) of seed-0
+    bfloat16 weights, on 4 rows (the dense sum) and on N tokens (the
+    blocked dispatch, then the dense sum on the same routing): each
+    replayed twice from a CUDA graph (the same bits), against each other
+    and against the float32 computation expert by expert
+    (MOE_REL_L2), and timed: the whole block at 4 rows and at N, the
+    dense sum at N, beside their bounds."""
+    import math
+
+    import torch
+
+    from dynamo_tpu_torch.models import llama, mla
+
+    D, E, k = cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok
+    Im = cfg.moe_intermediate_size
+    Is = Im * cfg.n_shared_experts
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(*shape):
+        x = torch.randn(shape, generator=g, device=dev)
+        return x.mul_(1.0 / math.sqrt(shape[-2])).to(torch.bfloat16)
+
+    lp = {"w_router": w(D, E), "w_gate_e": w(E, D, Im),
+          "w_up_e": w(E, D, Im), "w_down_e": w(E, Im, D),
+          "w_gate_s": w(D, Is), "w_up_s": w(D, Is), "w_down_s": w(Is, D)}
+    h = torch.randn((1, N, D), generator=g, device=dev).to(torch.bfloat16)
+    block = llama._MOE_BLOCK
+    if not llama._moe_use_blocked(None, N, E, k, block) or \
+            llama._moe_use_blocked(None, 4, E, k, block):
+        fail(f"the cost model does not take the blocked dispatch at {N} "
+             f"tokens and the dense sum at 4")
+    out = {}
+    for rows in (4, N):
+        x = h[0, :rows]
+        weights, idx = mla._deepseek_gate(x.float(), lp["w_router"], None,
+                                          cfg)
+        s32 = [lp[k_].float() for k_ in ("w_gate_s", "w_up_s", "w_down_s")]
+        x32 = x.float()
+        ref = moe_f32_reference(x, weights, idx, lp["w_gate_e"],
+                                lp["w_up_e"], lp["w_down_e"]) \
+            + llama._mlp(x32, *s32)
+
+        def shared():
+            return llama._mlp(x, lp["w_gate_s"], lp["w_up_s"],
+                              lp["w_down_s"]).float()
+
+        fns = {"dense": lambda: llama.moe_experts_dense(
+            x, weights, idx, lp["w_gate_e"], lp["w_up_e"],
+            lp["w_down_e"]) + shared()}
+        if rows == N:
+            fns["blocked"] = lambda: llama.moe_experts_blocked(
+                x, weights, idx, lp["w_gate_e"], lp["w_up_e"],
+                lp["w_down_e"], block=block) + shared()
+        got = {}
+        for strategy, fn in fns.items():
+            a, b = graph_twice(fn)
+            if not torch.equal(a, b) or not bool(torch.isfinite(a).all()):
+                fail(f"V2-Lite MoE {strategy} at {rows}: replays differ or "
+                     f"non-finite")
+            got[strategy] = a
+        errs = {f"{s}_vs_f32": rel_l2(v, ref) for s, v in got.items()}
+        if "blocked" in got:
+            errs["blocked_vs_dense"] = rel_l2(got["blocked"], got["dense"])
+        for key, err in errs.items():
+            if err > MOE_REL_L2:
+                fail(f"V2-Lite MoE at {rows}: {key} rel_l2 {err:.4g} > "
+                     f"{MOE_REL_L2}")
+        out[f"rel_l2_{rows}"] = errs
+    h4 = h[:, :4].reshape(4, 1, D).contiguous()
+    x = h[0]
+    weights, idx = mla._deepseek_gate(x.float(), lp["w_router"], None, cfg)
+    expert_bytes = 3 * E * D * Im * 2
+    shared_bytes = 3 * D * Is * 2
+    out.update({
+        "block_4_dense_ms": time_ms(
+            lambda: mla._deepseek_moe_mlp(h4, lp, cfg), iters=20),
+        f"block_{N}_blocked_ms": time_ms(
+            lambda: mla._deepseek_moe_mlp(h, lp, cfg), iters=3),
+        f"dense_sum_{N}_ms": time_ms(
+            lambda: llama.moe_experts_dense(x, weights, idx, lp["w_gate_e"],
+                                            lp["w_up_e"], lp["w_down_e"]),
+            iters=3),
+        # 4 rows read every expert and the shared experts
+        "block_4_dense_bound_ms": (expert_bytes + shared_bytes)
+        / H100_BYTES_PER_S * 1e3,
+        # N tokens: each token's k experts and the shared experts, or the
+        # weights read once, whichever is longer
+        f"block_{N}_blocked_bound_ms": max(
+            2 * 3 * N * (k * D * Im + D * Is) / H100_BF16_FLOPS,
+            (expert_bytes + shared_bytes) / H100_BYTES_PER_S) * 1e3,
+        "blocks": -(-N * k // block) + E, "block": block})
+    log(f"  V2-Lite MoE block: {json.dumps(out)}")
+    return out
+
+
+def mla_window_share(engine, attn_4_ms: float, moe_4_ms: float) -> dict:
+    """A 4-row greedy window of the served model timed on the card (its
+    generic window, the 64-page bucket's table: :func:`window_4_rows_ms`),
+    and the shares the blocks take of it: attention (layers x steps x one
+    4-row block) and the MoE blocks (MoE layers x steps x one 4-row
+    block)."""
+    cfg, K = engine.cfg, engine.ecfg.decode_steps
+    ms = window_4_rows_ms(engine, table_pages=64)
+    attn = cfg.num_layers * K * attn_4_ms
+    moe = (cfg.num_layers - cfg.first_k_dense_replace) * K * moe_4_ms
+    return {"window_4_rows_ms": ms, "attention_ms": attn,
+            "attention_share": attn / ms, "moe_blocks_ms": moe,
+            "moe_share": moe / ms, "contexts": WINDOW_CONTEXTS, "steps": K}
+
+
+def mla_phase(dev) -> dict:
+    """Phase 20: MLA at DeepSeek-V2-Lite's widths (the docstring's (a),
+    (b) and (c))."""
+    import torch
+
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.ops import int8_gemm
+    from dynamo_tpu_torch.ops import paged_attention as ops
+
+    t_phase = time.monotonic()
+    cfg = mla_cfg()
+    prompts = moe_prompts()
+
+    # (a) served, bfloat16
+    engine = mla_engine(cfg)
+    mdc = ModelDeploymentCard(name="deepseek-v2-lite-4-layers-random")
+    mdc.kv_block_size = engine.ecfg.page_size
+
+    async def serve():
+        ops.reset_launch_counts()
+        packed = await serve_packed(engine, prompts, MLA_MAX_TOKENS)
+        packed["prefill_replays"] = by_dispatch(cfg, prefill_replays(engine))
+        packed["launches"] = dict(ops.LAUNCHES)
+        packed["compiles"] = engine.stats()["post_warmup_compiles_total"]
+        served, _, _ = await serve_and_check(engine, mdc)
+        return packed, served
+
+    t = time.monotonic()
+    packed, served = asyncio.run(serve())
+    replays = prefill_replays(engine)
+    dispatch = by_dispatch(cfg, replays)
+    windows = decode_replays(engine)
+    log(f"  packed batch: {json.dumps(packed)}")
+    log(f"  served in {time.monotonic() - t:.1f}s: {json.dumps(served)}")
+    log(f"  prefill replays by bucket: "
+        f"{json.dumps({str(k): v for k, v in sorted(replays.items())})}; "
+        f"by expert dispatch {json.dumps(dispatch)}; window replays "
+        f"{json.dumps({str(k): v for k, v in sorted(windows.items())})}")
+    if any(packed["launches"].values()) or packed["compiles"]:
+        fail(f"MLA packed batch: attention launches {packed['launches']}, "
+             f"{packed['compiles']} captures")
+    if packed["prefill_replays"]["blocked"] <= 0:
+        fail(f"the packed prompts took no blocked dispatch: "
+             f"{json.dumps(packed['prefill_replays'])}")
+    if dispatch["blocked"] <= 0 or dispatch["dense"] <= 0 or not windows:
+        fail(f"served replays by dispatch {dispatch}, windows {windows}: "
+             f"both expert dispatches must have served")
+    graph_window = check_graph_window(engine, cfg, dev)
+    graph_prefill = check_graph_prefill(engine, dev)
+    t = time.monotonic()
+    f32 = mla_f32_check(engine, cfg, dev)
+    log(f"  bf16 vs float32 check in {time.monotonic() - t:.1f}s")
+
+    # (b) the blocks alone
+    t = time.monotonic()
+    lite_widths = {"hidden_size": cfg.hidden_size, "num_heads": cfg.num_heads,
+                   "q_lora_rank": 0, "kv_lora_rank": cfg.kv_lora_rank,
+                   "qk_nope_head_dim": cfg.qk_nope_head_dim,
+                   "qk_rope_head_dim": cfg.qk_rope_head_dim,
+                   "v_head_dim": cfg.v_head_dim}
+    blocks = {"attention_v2_lite": mla_attention_case(
+                  dev, "v2-lite", lite_widths, chunk=512),
+              "attention_v3": mla_attention_case(dev, "v3", DEEPSEEK_V3_ATTN,
+                                                 chunk=512),
+              "router_v3": deepseek_router_case(dev),
+              "moe_v2_lite": deepseek_moe_case(dev, cfg)}
+    share = mla_window_share(
+        engine, blocks["attention_v2_lite"]["window_4_rows"]["ms"],
+        blocks["moe_v2_lite"]["block_4_dense_ms"])
+    log(f"  4-row window: {json.dumps(share)}; blocks in "
+        f"{time.monotonic() - t:.1f}s")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) int8 weights
+    engine = mla_engine(cfg, quant="int8")
+    ops.reset_launch_counts()
+    int8_gemm.reset_launch_counts()
+    t = time.monotonic()
+    packed8 = asyncio.run(serve_packed(engine, prompts, MLA_MAX_TOKENS))
+    launched = dict(int8_gemm.INT8_GEMM_LAUNCHES)
+    packed8["launches"] = dict(ops.LAUNCHES)
+    log(f"  int8 packed batch in {time.monotonic() - t:.1f}s: "
+        f"{json.dumps(packed8)}")
+    pf8, dec8 = prefill_replays(engine), decode_replays(engine)
+    want = int8_mla_launches(engine, dec8, pf8)
+    blocked8 = {str(k): bk.counts for gs in engine.prefill_variants.values()
+                for k, bk in gs.buckets.items()
+                if pf8.get(k) and moe_dispatch(cfg, k) == "blocked"}
+    window8 = {str(k): bk.counts for gs in engine.decode_variants.values()
+               for k, bk in gs.buckets.items() if dec8.get(k)}
+    if any(packed8["launches"].values()):
+        fail(f"int8 MLA engine launched attention kernels: "
+             f"{packed8['launches']}")
+    if sum(launched.values()) != want:
+        fail(f"int8 GEMM launches {launched} != the replayed buckets' "
+             f"{want}")
+    if not blocked8 or not all(
+            any(c.get("wgmma", 0) > 0 for c in counts)
+            for counts in blocked8.values()):
+        fail(f"the blocked prefill's expert products are not on wgmma: "
+             f"{blocked8}")
+    if not window8 or not all(
+            any(c.get("small_m", 0) > 0 for c in counts)
+            for counts in window8.values()):
+        fail(f"the windows' products are not on small_m: {window8}")
+    if engine.stats()["post_warmup_compiles_total"] != 0:
+        fail("int8 MLA engine captured graphs while serving")
+    paths8, _ = check_paths(engine, cfg, dev)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.monotonic() - t_phase
+    log(f"  phase 20: served ITL mean {served['itl_ms_mean']} ms, TTFT "
+        f"{served['ttft_ms']} ms (HTTP, four at once); packed ITL mean "
+        f"{packed['itl_ms_mean']} ms, TTFT {packed['ttft_ms']} ms; int8 "
+        f"packed ITL mean {packed8['itl_ms_mean']} ms, TTFT "
+        f"{packed8['ttft_ms']} ms; int8 launches {json.dumps(launched)}; "
+        f"{seconds:.1f}s")
+    return {"config": dict(DEEPSEEK_V2_LITE,
+                           num_hidden_layers=DEEPSEEK_LAYERS),
+            "packed": packed, "served": served, "dispatch": dispatch,
+            "window_replays": {str(k): v for k, v in windows.items()},
+            "graph_window": graph_window, "graph_prefill": graph_prefill,
+            "f32": f32, "blocks": blocks, "window_share": share,
+            "int8": {"packed": packed8, "launches": launched,
+                     "expected_launches": want, "paths": paths8},
+            "seconds": seconds}
 
 
 # ------------------------------------------ the synchronous decode arms
@@ -6899,11 +7590,18 @@ def main() -> None:
                       ("paged_attention_prefill", "prefill")):
         next(r for r in rows if r["name"] == name)["launches"] += \
             moe_report["attention_launches"][key]
+    log("phase 20: MLA at DeepSeek-V2-Lite's widths (4 of 27 layers) in "
+        "bfloat16 served over HTTP on the generic window and both expert "
+        "dispatches, the blocks alone, then with int8 weights on the int8 "
+        "GEMM")
+    mla_report = mla_phase(dev)
     for r in rows:
         if (r.get("dtype") == "bfloat16"
                 and r.get("int8_route") in ("small_m", "wgmma")
                 and not r["name"].startswith("int8_gemm 1b ")):
-            r["launches"] += moe_report["int8"]["launches"][r["int8_route"]]
+            r["launches"] += (moe_report["int8"]["launches"][r["int8_route"]]
+                              + mla_report["int8"]["launches"][
+                                  r["int8_route"]])
     # the served tp=2 phase's rank 0 (rank 1 is checked equal): with a
     # mesh every kernel call goes through a sharded wrapper
     rank0 = tp_served["summaries"][0]["launches"]
@@ -6943,6 +7641,7 @@ def main() -> None:
                        "generic_prefill": generic_report,
                        "mistral_large": mistral_report,
                        "mixtral_moe": moe_report,
+                       "deepseek_mla": mla_report,
                        "sync_arms": sync_report,
                        "runtime": dyn_report,
                        "disagg": disagg_report,

@@ -1,7 +1,9 @@
 """The PyTorch serving engine: continuous batching over a paged KV cache.
 
-The counterpart of ``dynamo_tpu/engine/jax_engine.py`` ``JaxEngine`` for
-the dense Llama path, speaking the same token-level protocol
+The counterpart of ``dynamo_tpu/engine/jax_engine.py`` ``JaxEngine``,
+for every model family the port has (``models/registry.py``: the Llama
+family and its MoE in ``models/llama.py``, MLA and DeepSeek's MoE in
+``models/mla.py``), speaking the same token-level protocol
 (``PreprocessedRequest`` in, ``EngineOutput`` chunks out) so it slots
 behind ``Backend`` the same way:
 
@@ -87,7 +89,15 @@ pool the graphs were captured on, and decodes on with
 :meth:`submit_prefilled`. Page copies run on the executor and the
 engine's stream, ordered with the dispatches around them; the
 ``PageManager`` calls they make take ``_pm_lock``. Not at ``tp > 1``
-(each rank holds only its heads of the pool).
+(each rank holds only its heads of the pool), and not on an MLA model:
+the transfer frame carries one page shape for K and V, and MLA's two
+pools differ in width (ROADMAP.md note E).
+
+A model module without a fused window of its own (MLA) decodes through
+the generic window :func:`_make_decode_multi`, K full forwards with
+per-step pool writes, captured as any window is; with ``spec_decode`` and
+no verify forward the engine warns and keeps the standard path, as the
+JAX engine does.
 
 Not ported yet: the host KV tier and long-prompt ring prefill.
 """
@@ -111,10 +121,10 @@ from ..llm.protocols.common import (FINISH_CANCELLED, FINISH_EOS,
                                     FINISH_LENGTH, FINISH_TIMEOUT,
                                     EngineOutput, PreprocessedRequest)
 from ..models.config import ModelConfig
-from ..models.llama import (KVCacheSpec, check_supported, init_kv_cache,
-                            init_params, make_decode_window_fn,
-                            make_step_fns, make_verify_fn)
+from ..models.llama import (DROP_SLOT, KVCacheSpec, carry_active,
+                            carry_step_update, project_logits)
 from ..models.quant import QUANT_KEYS, quantize_int8, quantize_params
+from ..models.registry import get_model_module
 from ..parallel.mesh import MeshView, quantize_shard, shard_param
 from ..runtime.config import env_int
 from ..runtime.device import resolve_device
@@ -460,8 +470,9 @@ class TorchEngine:
         quantized as each is drawn, whole, then cut (the JAX package's
         ``host_init_quantized``), so the bfloat16 tree never exists whole
         on the card. ``worker_label``: a stable label of this engine
-        (a replica's name), carried by ``stats()``."""
-        check_supported(model_cfg)
+        (a replica's name), carried by ``stats()``. The model module is
+        the registry's (``models/registry.py``)."""
+        model = get_model_module(model_cfg)
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant mode {quant!r} (expected "
                              f"'int8')")
@@ -489,7 +500,7 @@ class TorchEngine:
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            params = init_params(model_cfg, gen, shard=keep)
+            params = model.init_params(model_cfg, gen, shard=keep)
         elif int8:
             params = quantize_params(params, quantize=(
                 None if mesh is None else lambda name, w: quantize_shard(
@@ -502,13 +513,26 @@ class TorchEngine:
             # where ranks that share it would otherwise find them cached
             torch.cuda.empty_cache()
         spec = KVCacheSpec(self.ecfg.num_pages, self.ecfg.page_size)
-        self.kv_k, self.kv_v = init_kv_cache(model_cfg, spec,
-                                             device=self.device, mesh=mesh)
-        self.prefill_fn, self.decode_fn = make_step_fns(model_cfg, mesh=mesh)
-        self.decode_multi_fn = make_decode_window_fn(
-            model_cfg, max_top_k=self.ecfg.max_top_k, mesh=mesh)
-        self.verify_fn = (make_verify_fn(model_cfg, mesh=mesh)
-                          if self.ecfg.spec_decode else None)
+        self.model = model
+        self.kv_k, self.kv_v = model.init_kv_cache(
+            model_cfg, spec, device=self.device, mesh=mesh)
+        self.prefill_fn, self.decode_fn = model.make_step_fns(model_cfg,
+                                                              mesh=mesh)
+        if hasattr(model, "make_decode_window_fn"):
+            # the module's fused window (read-only pool + window buffer)
+            self.decode_multi_fn = model.make_decode_window_fn(
+                model_cfg, max_top_k=self.ecfg.max_top_k, mesh=mesh)
+        else:
+            self.decode_multi_fn = _make_decode_multi(
+                model, model_cfg, self.ecfg.max_top_k, mesh=mesh)
+        self.verify_fn = None
+        if self.ecfg.spec_decode:
+            if hasattr(model, "make_verify_fn"):
+                self.verify_fn = model.make_verify_fn(model_cfg, mesh=mesh)
+            else:
+                log.warning("spec_decode enabled but %s has no "
+                            "make_verify_fn; speculation disabled",
+                            model.__name__)
         # capture fence (armed by warmup) and the graphs per bucket, one
         # set per variant: decode windows, and prefill chunks, all on the
         # plain decode set's stream and pool
@@ -1990,6 +2014,13 @@ class TorchEngine:
     # drain.
 
     def _single_rank(self, what: str) -> None:
+        """Refuse a page transfer this engine cannot make: at tp > 1, and
+        on an MLA model (ROADMAP.md note E)."""
+        if self.cfg.is_mla:
+            raise NotImplementedError(
+                f"{what} on an MLA model: the transfer frame carries one "
+                f"page shape for K and V, and the latent and rope pools "
+                f"differ in width (ROADMAP.md note E)")
         if self.mesh is not None and self.mesh.size > 1:
             raise NotImplementedError(
                 f"{what} at tp > 1: each rank holds only its heads of the "
@@ -2182,6 +2213,67 @@ class TorchEngine:
         await asyncio.get_running_loop().run_in_executor(self._exec, _do)
         self._wake.set()
         return seq
+
+
+def _make_decode_multi(model, cfg: ModelConfig, max_top_k: int,
+                       mesh: Optional[MeshView] = None):
+    """The generic fused K-step decode window (``jax_engine.py``
+    ``_make_decode_multi``), for model modules without
+    ``make_decode_window_fn`` (MLA): K full forwards of one token a row,
+    each writing its row's K/V into the pool at its position (stopped and
+    padding rows write ``DROP_SLOT``, so nothing lands in their pages),
+    an on-device draw after each, and the sequence carry (tok, pos, done,
+    steps, remaining) kept on the device. It has the signature of
+    ``models/llama.py make_decode_window_fn``'s window, so
+    ``engine/cuda_graphs.py DecodeGraphs`` captures it in every variant
+    (logprobs, the penalty forms) unchanged. Reads nothing on the host."""
+    # the sampler's functions as they are when the window is built (as
+    # models/llama.py's window takes them)
+    from .sampling import logprob_aux, sample_tokens, update_penalty_state
+
+    @torch.no_grad()
+    def decode_multi(params, tokens, positions, done, steps, remaining,
+                     kv_k, kv_v, page_table, temperature, top_k, top_p,
+                     seeds, eos_table, penalties=None, *, k_steps: int,
+                     logprobs_topn: int = 0):
+        B = tokens.shape[0]
+        ps, P = kv_k.shape[3], page_table.shape[1]
+        rows = torch.arange(B, device=tokens.device)
+        tok, pos = tokens, positions
+        toks, lps, tvs, tis = [], [], [], []
+        emitted = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
+        for _ in range(k_steps):
+            active = carry_active(done, pos)
+            page = page_table[rows, torch.clamp(torch.div(
+                pos, ps, rounding_mode="floor"), 0, P - 1)]
+            slot = torch.where(active, page * ps + pos % ps,
+                               torch.full_like(page, DROP_SLOT))
+            h, kv_k, kv_v = model.forward(
+                params, cfg, tok[:, None], pos[:, None], kv_k, kv_v,
+                page_table, slot[:, None], mesh=mesh)
+            logits = project_logits(params, cfg, h[:, 0], mesh)
+            nxt = sample_tokens(logits, temperature, top_k, top_p, seeds,
+                                steps, max_top_k=max_top_k,
+                                penalties=penalties)
+            if logprobs_topn:
+                lp, tv, ti = logprob_aux(logits, nxt, logprobs_topn)
+                lps.append(lp)
+                tvs.append(tv)
+                tis.append(ti)
+            penalties = update_penalty_state(penalties, nxt, done)
+            emitted = emitted + active.to(torch.int32)
+            tok, pos, done, steps, remaining = carry_step_update(
+                nxt, tok, pos, done, steps, remaining, eos_table)
+            toks.append(tok)
+        out_toks = torch.stack(toks, dim=1)
+        carry = (tok, pos, done, steps, remaining)
+        if logprobs_topn:
+            aux = (torch.stack(lps, dim=1), torch.stack(tvs, dim=1),
+                   torch.stack(tis, dim=1))
+            return out_toks, emitted, aux, carry, kv_k, kv_v
+        return out_toks, emitted, carry, kv_k, kv_v
+
+    return decode_multi
 
 
 @dataclass

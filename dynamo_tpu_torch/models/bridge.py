@@ -12,7 +12,7 @@ import torch
 from ..parallel.mesh import MeshSpec, shard_param
 from ..runtime.device import resolve_device
 from .config import ModelConfig
-from .llama import Params, check_supported
+from .llama import Params
 from .quant import QuantInt8
 
 
@@ -29,7 +29,6 @@ def params_from_numpy(params: Dict[str, np.ndarray], cfg: ModelConfig,
     passes through the config's dtype. With ``size`` > 1, the Megatron
     shard of tensor-parallel rank ``rank`` of ``size`` (``parallel/mesh.py
     shard_param``), cut on the host: only the shard reaches the device."""
-    check_supported(cfg)
     device = resolve_device(device)
     mesh = MeshSpec(model=size).view(rank)
     out: Params = {}

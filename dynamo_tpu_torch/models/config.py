@@ -1,10 +1,11 @@
 """Model configuration.
 
 A copy of ``dynamo_tpu/models/config.py`` with ``torch_dtype`` in place of
-``jax_dtype``. It parses every family the JAX package knows; the port's
-model (models/llama.py) serves the dense Llama path and the Mixtral-style
-MoE path (Mixtral, Qwen3-MoE), and raises ``NotImplementedError`` for MLA
-configurations (DeepSeek-V2/V3).
+``jax_dtype``. It parses every family the JAX package knows, and the
+port serves each: models/llama.py the dense Llama path and the
+Mixtral-style MoE path (Mixtral, Qwen3-MoE), models/mla.py the MLA
+configurations (DeepSeek-V2/V3, with DeepSeek's MoE); models/registry.py
+picks the module.
 ``from_hf_config`` maps a HuggingFace ``config.json`` dict.
 """
 

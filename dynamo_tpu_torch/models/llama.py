@@ -46,7 +46,8 @@ chosen from static shapes by :func:`_moe_use_blocked`: the sorted,
 padded dispatch :func:`moe_experts_blocked` or the dense sum over every
 expert. Both have static shapes and read nothing back to the host, so
 every prefill bucket and decode window captures as a CUDA graph. MLA
-configurations raise ``NotImplementedError``.
+configurations raise ``NotImplementedError`` here: they are
+``models/mla.py``'s (``models/registry.py`` picks the module).
 """
 
 from __future__ import annotations
@@ -80,7 +81,9 @@ DROP_SLOT = 1 << 30
 
 def check_supported(cfg: ModelConfig) -> None:
     if cfg.is_mla:
-        raise NotImplementedError("MLA models are not ported yet")
+        raise NotImplementedError(
+            "MLA models run in models/mla.py, not models/llama.py (take "
+            "the module from models/registry.py get_model_module)")
 
 
 # ---------------------------------------------------------------- KV cache

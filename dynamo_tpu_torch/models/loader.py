@@ -1,11 +1,9 @@
-"""Weight loading from local HF-style checkpoints (safetensors), dense
-and Mixtral-style MoE models.
+"""Weight loading from local HF-style checkpoints (safetensors): dense,
+Mixtral-style MoE and DeepSeek MLA models.
 
-The dense and MoE branches of ``dynamo_tpu/models/loader.py``, with its
-keys and
-layouts: HuggingFace ``nn.Linear`` stores ``[out, in]`` weights and the
-model computes ``x @ W``, so every projection is transposed once at load
-time; per-layer weights are stacked on a leading layer axis; ``lm_head``
+``dynamo_tpu/models/loader.py``, with its keys and layouts: HuggingFace
+``nn.Linear`` stores ``[out, in]`` weights and the model computes
+``x @ W``, so every projection is transposed once at load time; per-layer weights are stacked on a leading layer axis; ``lm_head``
 is absent when ``tie_word_embeddings`` is set; Qwen2's q/k/v biases,
 Qwen3's ``q_norm``/``k_norm`` and Gemma-2's sandwich norms
 (``pre_feedforward_layernorm`` → ``ln_mlp``, ``post_attention_layernorm``
@@ -14,9 +12,16 @@ MoE checkpoints stack each layer's experts on a second axis (``w_gate``
 ``[L, E, D, I]``) and its router as ``w_router`` ``[L, D, E]``: Mixtral's
 ``block_sparse_moe.experts.{e}.w1/w3/w2`` and ``block_sparse_moe.gate``,
 Qwen3-MoE's ``mlp.experts.{e}.gate_proj/up_proj/down_proj`` and
-``mlp.gate``. MLA checkpoints raise ``NotImplementedError``;
-``quant="int8"`` gives the projections as ``models/quant.py QuantInt8``
-(``load_params``).
+``mlp.gate``. DeepSeek-V2/V3 checkpoints (MLA) load into
+``models/mla.py``'s layout (:func:`_load_mla_attention`,
+:func:`_load_deepseek_moe`): ``kv_b_proj`` splits into ``w_uk`` and
+``w_uv``, interleaved rope columns are permuted to the split-half
+convention (:func:`_rope_perm`), and the MoE layers load as their
+segments (dense-first ``w_*_d``, routed ``w_*_e``, shared ``w_*_s``, the
+router and V3's selection bias). Those splits and permutations are
+selections of a weight's output rows, made on the file's rows before the
+cut and the copy. ``quant="int8"`` gives the projections as
+``models/quant.py QuantInt8`` (``load_params``).
 
 The files are read by :class:`SafetensorsFile`, this module's own reader
 (the format: an 8-byte little-endian header length, a JSON header, then
@@ -37,6 +42,7 @@ import mmap
 import os
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..parallel.mesh import MeshSpec, param_pspecs, shard
@@ -130,10 +136,6 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
     for that. The result is bitwise the JAX loader's ``quant="int8"``
     cut to the rank."""
     cfg = cfg or ModelConfig.from_local_path(path)
-    if cfg.is_mla:
-        raise NotImplementedError(
-            "MLA checkpoints are not loaded by the port yet "
-            "(_load_mla_attention of dynamo_tpu/models/loader.py)")
     if quant not in (None, "int8"):
         raise ValueError(f"unknown quant mode {quant!r} (expected 'int8')")
     device = resolve_device(device)
@@ -152,25 +154,33 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
             files[fname] = SafetensorsFile(os.path.join(path, fname))
         return files[fname], name
 
-    def put(dst: torch.Tensor, name: str, spec, linear: bool) -> None:
+    def read(name: str, pick):
+        """Entry ``name`` as a CPU tensor; with ``pick``, those of its
+        rows (``[out, in]``: output channels), in that order (a copy)."""
+        f, key = entry(name)
+        src = f.get(key)
+        return (src if pick is None else src[pick]), f, key
+
+    def put(dst: torch.Tensor, name: str, spec, linear: bool,
+            pick=None) -> None:
         """Copy entry ``name`` (transposed when ``linear``) into ``dst``,
         cut to the rank's shard of ``spec`` first: the cut on the file's
         layout, the transpose and the cast on the device."""
-        f, key = entry(name)
-        src = f.get(key)
+        src, f, key = read(name, pick)
         block = shard(src, tuple(reversed(spec)) if linear else spec, mesh)
         moved = block.to(device)
         dst.copy_(moved.T if linear else moved)
         f.release(key)
 
-    def put_int8(dst: QuantInt8, name: str, spec) -> None:
+    def put_int8(dst: QuantInt8, name: str, spec, pick=None) -> None:
         """Quantize entry ``name`` (``[out, in]``, the kernel's layout of
         ``q``) into ``dst``, the rank's shard: the rows of the rank's
         ``out`` go to the device whole along ``in``, so the scales are
         those of the whole rows (JAX quantizes the whole weight and then
-        shards it), and are cut to the rank's ``in`` there."""
-        f, key = entry(name)
-        src = f.get(key)
+        shards it), and are cut to the rank's ``in`` there. A selection
+        of output rows quantizes as the JAX package's selected weight
+        does: each row has its own scale."""
+        src, f, key = read(name, pick)
         out_spec, in_spec = spec[-1], spec[-2]
         rows = shard(src, (out_spec, None), mesh).to(device)
         qw = quantize_rows(rows)
@@ -192,11 +202,11 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
                             device=device))
         return torch.empty(part.shape, dtype=dtype, device=device)
 
-    def fill(dst, name: str, spec, linear: bool) -> None:
+    def fill(dst, name: str, spec, linear: bool, pick=None) -> None:
         if isinstance(dst, QuantInt8):
-            put_int8(dst, name, spec)
+            put_int8(dst, name, spec, pick)
         else:
-            put(dst, name, spec, linear)
+            put(dst, name, spec, linear, pick)
 
     def single(key: str, name: str, linear: bool = False) -> None:
         f, k = entry(name)
@@ -206,21 +216,29 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
         fill(p[key], name, specs.get(key, (None,) * len(shape)), linear)
 
     def stack(key: str, fmt: str, linear: bool = True,
-              experts: int = 0) -> None:
+              experts: int = 0, layers: Optional[range] = None,
+              pick: Optional[torch.Tensor] = None) -> None:
         """Param ``key`` from entries ``fmt.format(layer)``, stacked on a
         leading layer axis; with ``experts`` = E, from entries
-        ``fmt.format(layer, expert)`` stacked on [layer, expert]."""
-        lead = (cfg.num_layers,) + ((experts,) if experts else ())
-        f, k = entry(fmt.format(*(0,) * len(lead)))
-        e = f.entries[k]["shape"]
+        ``fmt.format(layer, expert)`` stacked on [layer, expert].
+        ``layers``: the checkpoint layers stacked (default all; a
+        DeepSeek-MoE segment's range); ``pick``: the output rows of each
+        linear entry taken, in order (a split or a permutation)."""
+        layers = range(cfg.num_layers) if layers is None else layers
+        lead = (len(layers),) + ((experts,) if experts else ())
+        first = (layers[0],) + ((0,) if experts else ())
+        f, k = entry(fmt.format(*first))
+        e = list(f.entries[k]["shape"])
+        if pick is not None:
+            e[0] = len(pick)
         shape = lead + (tuple(reversed(e)) if linear else tuple(e))
         p[key] = alloc(key, shape)
         spec = specs.get(key, (None,) * len(shape))[len(lead):]
-        for i in range(cfg.num_layers):
+        for n, i in enumerate(layers):
             for j in range(experts or 1):
                 ids = (i, j) if experts else (i,)
-                dst = p[key][i][j] if experts else p[key][i]
-                fill(dst, fmt.format(*ids), spec, linear)
+                dst = p[key][n][j] if experts else p[key][n]
+                fill(dst, fmt.format(*ids), spec, linear, pick)
 
     p: Params = {}
     single("embed", "model.embed_tokens.weight")
@@ -242,9 +260,12 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
     else:
         stack("ln_mlp", layer + "post_attention_layernorm.weight",
               linear=False)
-    for key, proj in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"),
-                      ("wo", "o_proj")):
-        stack(key, layer + f"self_attn.{proj}.weight")
+    if cfg.is_mla:
+        _load_mla_attention(cfg, stack)
+    else:
+        for key, proj in (("wq", "q_proj"), ("wk", "k_proj"),
+                          ("wv", "v_proj"), ("wo", "o_proj")):
+            stack(key, layer + f"self_attn.{proj}.weight")
     if cfg.attn_bias:  # Qwen2-style qkv bias
         for key, proj in (("bq", "q_proj"), ("bk", "k_proj"),
                           ("bv", "v_proj")):
@@ -252,7 +273,9 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
     if cfg.qk_norm:  # Qwen3 per-head q/k norms
         stack("q_norm", layer + "self_attn.q_norm.weight", linear=False)
         stack("k_norm", layer + "self_attn.k_norm.weight", linear=False)
-    if cfg.num_experts > 0:
+    if cfg.num_experts > 0 and cfg.is_mla:
+        _load_deepseek_moe(cfg, stack)
+    elif cfg.num_experts > 0:
         # HF names the MoE block per family: Mixtral's block_sparse_moe
         # with w1/w3/w2, Qwen3-MoE's mlp with gate/up/down_proj
         if cfg.model_type == "qwen3":
@@ -270,3 +293,76 @@ def load_params(path: str, cfg: Optional[ModelConfig] = None, device="cuda",
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return p
+
+
+def _rope_perm(dr: int) -> torch.Tensor:
+    """Interleaved → split-half rope column permutation: DeepSeek
+    checkpoints store rope dims as (pair0_re, pair0_im, pair1_re, ...);
+    ``models/llama.py apply_rope`` takes all real parts first. The same
+    permutation of the q and k rope columns leaves every q.k score
+    unchanged (HF's ``apply_rotary_pos_emb_interleave`` is this
+    permutation followed by split-half rope)."""
+    return torch.from_numpy(np.concatenate([np.arange(0, dr, 2),
+                                            np.arange(1, dr, 2)]))
+
+
+def _load_mla_attention(cfg: ModelConfig, stack) -> None:
+    """DeepSeek-V2/V3 MLA attention weights → models/mla.py's layout:
+    ``kv_a_proj_with_mqa`` → ``w_dkv`` [D, r + dr]; ``kv_a_layernorm`` →
+    ``kv_norm``; ``kv_b_proj`` ([H*(dn+dv), r] in HF) splits into
+    ``w_uk`` [r, H*dn] and ``w_uv`` [r, H*dv] (each a selection of its
+    rows); the q path full-rank (``q_proj`` → ``w_q``) or LoRA
+    (``q_a_proj``, ``q_a_layernorm``, ``q_b_proj`` → ``w_dq``, ``q_norm``,
+    ``w_uq``). With ``rope_interleave``, the rope columns of ``w_dkv`` and
+    of each head's block of the q projection are permuted
+    (:func:`_rope_perm`)."""
+    H, r, dr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    attn = "model.layers.{}.self_attn."
+    dkv_pick = q_pick = None
+    if cfg.rope_interleave:
+        perm = _rope_perm(dr)
+        dkv_pick = torch.cat([torch.arange(r), r + perm])
+        head = torch.cat([torch.arange(dn), dn + perm])
+        q_pick = (torch.arange(H)[:, None] * (dn + dr) + head).reshape(-1)
+    stack("w_dkv", attn + "kv_a_proj_with_mqa.weight", pick=dkv_pick)
+    stack("kv_norm", attn + "kv_a_layernorm.weight", linear=False)
+    first = torch.arange(H)[:, None] * (dn + dv)
+    stack("w_uk", attn + "kv_b_proj.weight",
+          pick=(first + torch.arange(dn)).reshape(-1))
+    stack("w_uv", attn + "kv_b_proj.weight",
+          pick=(first + dn + torch.arange(dv)).reshape(-1))
+    stack("w_o", attn + "o_proj.weight")
+    if cfg.q_lora_rank > 0:
+        stack("w_dq", attn + "q_a_proj.weight")
+        stack("q_norm", attn + "q_a_layernorm.weight", linear=False)
+        stack("w_uq", attn + "q_b_proj.weight", pick=q_pick)
+    else:
+        stack("w_q", attn + "q_proj.weight", pick=q_pick)
+
+
+def _load_deepseek_moe(cfg: ModelConfig, stack) -> None:
+    """DeepSeek-V2/V3 MoE weights → models/mla.py's segmented layout:
+    the dense first-k layers (``mlp.{gate,up,down}_proj`` → ``w_*_d``),
+    then the routed experts (``mlp.experts.N.*`` → ``w_*_e`` [Lm, E, D,
+    Im]; router ``mlp.gate`` → ``w_router``; V3's
+    ``e_score_correction_bias`` → ``router_bias``) and the always-on
+    shared experts (``mlp.shared_experts.*`` → ``w_*_s``)."""
+    kd = cfg.first_k_dense_replace
+    mlp = "model.layers.{}.mlp."
+    projs = (("gate", "gate_proj"), ("up", "up_proj"), ("down", "down_proj"))
+    dense, moe = range(kd), range(kd, cfg.num_layers)
+    if kd > 0:
+        for key, proj in projs:
+            stack(f"w_{key}_d", mlp + proj + ".weight", layers=dense)
+    stack("w_router", mlp + "gate.weight", layers=moe)
+    if cfg.moe_router == "deepseek_v3":
+        stack("router_bias", mlp + "gate.e_score_correction_bias",
+              linear=False, layers=moe)
+    for key, proj in projs:
+        stack(f"w_{key}_e", mlp + "experts.{}." + proj + ".weight",
+              experts=cfg.num_experts, layers=moe)
+    if cfg.n_shared_experts > 0:
+        for key, proj in projs:
+            stack(f"w_{key}_s", mlp + "shared_experts." + proj + ".weight",
+                  layers=moe)

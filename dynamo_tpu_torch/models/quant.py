@@ -40,8 +40,10 @@ from ..ops.int8_gemm import int8_matmul, int8_matmul_plain
 
 # Params quantized under --dtype int8: every large projection matrix.
 # Excluded: embed (gather table), routers + router_bias (tiny,
-# routing-precision-critical), norms and biases (1-D). The port serves
-# the first line's keys (dense, and MoE experts stacked [L, E, in, out]).
+# routing-precision-critical), norms and biases (1-D). Every key is
+# served: the dense and Mixtral-style stacks (models/llama.py; experts
+# [L, E, in, out]) and the MLA and DeepSeek-MoE stacks (models/mla.py,
+# where w_uk and w_uv dequantize before their per-head reshape).
 QUANT_KEYS = frozenset({
     # llama/qwen/gemma stack
     "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head",
@@ -178,11 +180,11 @@ def synthetic_int8_params(cfg, device="cuda") -> Dict:
     uninitialised int8 (always finite) with fan-in scales, norms ones and
     everything else zeros, so activations stay finite throughout."""
     from ..runtime.device import resolve_device
-    from .llama import param_table
+    from .registry import get_model_module
 
     device = resolve_device(device)
     out = {}
-    for name, _, shape in param_table(cfg):
+    for name, _, shape in get_model_module(cfg).param_table(cfg):
         if name in QUANT_KEYS:
             *lead, inp, outd = shape
             q = torch.empty((*lead, outd, inp), dtype=torch.int8,
@@ -190,7 +192,7 @@ def synthetic_int8_params(cfg, device="cuda") -> Dict:
             s = torch.full((*lead, 1, outd), 1.0 / inp ** 0.5 / 127.0,
                            dtype=torch.float32, device=device)
             out[name] = QuantInt8(q, s)
-        elif name.startswith(("ln_", "q_norm", "k_norm")):
+        elif name.startswith(("ln_", "q_norm", "k_norm", "kv_norm")):
             out[name] = torch.ones(shape, dtype=cfg.torch_dtype,
                                    device=device)
         else:

@@ -220,8 +220,14 @@ def param_pspecs(cfg: ModelConfig) -> Dict[str, Spec]:
     and down, vocab-sharded embedding and head; norms replicated. MoE:
     the router replicated, each expert's gate and up column-parallel and
     its down row-parallel (the JAX package's specs with its ``expert``
-    axis at 1: the port's mesh has no expert axis). The MLA entries are
-    not ported (nor is that model)."""
+    axis at 1: the port's mesh has no expert axis). MLA: heads live only
+    in the up-projections (``w_q``/``w_uq``, ``w_uk``, ``w_uv``), which
+    are column-parallel, and ``w_o`` is row-parallel; the latent path
+    (``w_dkv``, ``kv_norm``, ``w_dq``, ``q_norm``) is replicated.
+    DeepSeek-MoE: the dense-first and shared-expert MLPs Megatron-style,
+    each routed expert's gate and up column-parallel and its down
+    row-parallel (the ``expert`` axis at 1 again), the router and its
+    bias replicated."""
     specs: Dict[str, Spec] = {
         "embed": ("model", None),
         "wq": (None, None, "model"),
@@ -240,6 +246,27 @@ def param_pspecs(cfg: ModelConfig) -> Dict[str, Spec]:
         "ln_final": (None,),
         "lm_head": (None, "model"),
     }
+    if cfg.is_mla:
+        specs.update({
+            "w_dkv": (None, None, None),
+            "kv_norm": (None, None),
+            "w_uk": (None, None, "model"),
+            "w_uv": (None, None, "model"),
+            "w_o": (None, "model", None),
+            "w_q": (None, None, "model"),
+            "w_dq": (None, None, None),
+            "w_uq": (None, None, "model"),
+            "w_gate_d": (None, None, "model"),
+            "w_up_d": (None, None, "model"),
+            "w_down_d": (None, "model", None),
+            "w_gate_e": (None, None, None, "model"),
+            "w_up_e": (None, None, None, "model"),
+            "w_down_e": (None, None, "model", None),
+            "w_gate_s": (None, None, "model"),
+            "w_up_s": (None, None, "model"),
+            "w_down_s": (None, "model", None),
+            "router_bias": (None, None),
+        })
     if cfg.attn_bias:
         specs.update({"bq": (None, "model"), "bk": (None, "model"),
                       "bv": (None, "model")})
@@ -254,7 +281,9 @@ def param_pspecs(cfg: ModelConfig) -> Dict[str, Spec]:
 def kv_cache_pspec(cfg: ModelConfig) -> Spec:
     """The pool ``[L, pages, kv_heads, page_size, head_dim]``: kv heads
     over ``model``, replicated over ``data`` (any row may reference any
-    page)."""
+    page). MLA's latent pools (one shared "head") are replicated."""
+    if cfg.is_mla:
+        return (None,) * 5
     return (None, None, "model", None, None)
 
 

@@ -697,7 +697,9 @@ print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
 assert {"dynamo_tpu_torch.models.loader",
-        "dynamo_tpu_torch.engine.sampling"} <= set(names), names
+        "dynamo_tpu_torch.engine.sampling",
+        "dynamo_tpu_torch.models.mla",
+        "dynamo_tpu_torch.models.registry"} <= set(names), names
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

@@ -352,15 +352,33 @@ def test_decode_window_reads_no_host_value():
     assert ea.tolist() == [4, 2, 0]
 
 
-def test_unported_families_raise():
-    """MLA raises; MoE (ported since) passes the check and draws its
-    params: the router and the expert stacks."""
+def test_moe_and_mla_families_draw_and_run():
+    """MoE passes the check and draws its params: the router and the
+    expert stacks. MLA (ported since) is models/mla.py's, which the
+    registry gives for it: it draws its params and runs a prefill step to
+    finite logits, while models/llama.py's entry points keep refusing
+    it."""
+    from dynamo_tpu_torch.models import mla as tm
+    from dynamo_tpu_torch.models.registry import get_model_module
+
     _, tcfg = _cfgs(num_experts=4)
     tl.check_supported(tcfg)
     p = tl.init_params(tcfg, torch.Generator().manual_seed(0))
     assert tuple(p["w_gate"].shape) == (2, 4, 64, 128)
     assert tuple(p["w_router"].shape) == (2, 64, 4)
-    _, tcfg = _cfgs(kv_lora_rank=16)
+    _, tcfg = _cfgs(kv_lora_rank=16, num_kv_heads=4)
     with pytest.raises(NotImplementedError):
         tl.make_step_fns(tcfg)[0](None, torch.zeros(1, 1, dtype=torch.int32),
                                   None, None, None, None, None, None)
+    mod = get_model_module(tcfg)
+    assert mod is tm
+    p = mod.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert tuple(p["w_dkv"].shape) == (2, 64, 16 + 64)
+    kc, kr = mod.init_kv_cache(tcfg, tl.KVCacheSpec(4, 8), device="cpu")
+    i32 = dict(dtype=torch.int32)
+    logits, kc, kr = mod.make_step_fns(tcfg)[0](
+        p, torch.tensor([[5, 6, 7]], **i32), torch.arange(3, **i32)[None],
+        kc, kr, torch.tensor([[1]], **i32), torch.tensor([[8, 9, 10]], **i32),
+        torch.tensor([2], **i32))
+    assert logits.shape == (1, tcfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and kc[:, 1, 0, :3].any()
