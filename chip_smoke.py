@@ -119,10 +119,10 @@ Phases; any failure exits non-zero before the result line:
    must show no capture after warmup, mesh model=2, every kernel call
    from a graph replay on the bf16 routes, and the same counts on both
    ranks (the two forms side by side, the second started once the
-   first's ranks warm up: four ranks, two groups, on the card). The launcher ranks of phases 7 and 8 run with
-   ``--max-batch-size 4`` (the requests here are four at most), the
-   check's ranks with batches up to 8, so each warms fewer decode
-   graphs; every launcher rank's ``engine ready`` line (where its start
+   first's ranks warm up: four ranks, two groups, on the card). The launcher ranks of phase 7 run with
+   ``--max-batch-size 4`` (the requests here are four at most) and
+   phase 8's with 1 (its requests go one at a time), the check's ranks
+   with batches up to 8, so each warms fewer graphs; every launcher rank's ``engine ready`` line (where its start
    went: imports, process group, load, weights, warmup) is kept. Every
    rank process is killed at the end of the phase. Its times are two
    ranks sharing one card, not a TP speed;
@@ -189,7 +189,7 @@ Phases; any failure exits non-zero before the result line:
 11. (run last, once the 8B engines have left the card) a float32 engine
    of Llama-3.2-1B's widths (16 layers, D 2048, I 8192, H 32 on 8 kv
    heads of head_dim 64, V 128256, ~6 GB of seed-0 random weights with
-   an untied head; the default EngineConfig): warmed, phase 4's requests
+   an untied head; the default EngineConfig, batches up to 8): warmed, phase 4's requests
    served over HTTP and checked as phase 4 checks them (no capture after
    warmup; decode launches on the float32 route equal to the window
    replays x 16 layers x K, prefill launches on the float32 route to the
@@ -205,7 +205,7 @@ Phases; any failure exits non-zero before the result line:
    engine's. Its launches fill the float32 rows of the kernels line.
 12. (run after phase 11) the 8B model in float16 (``ModelConfig.llama3_8b``
    with dtype float16: 32 layers at full width, seed-0 weights, the
-   default EngineConfig), an engine built directly (the launchers offer
+   default EngineConfig, batches up to 8), an engine built directly (the launchers offer
    no float16): warmed, every bucket of both grids captured, phase 4's
    requests served over HTTP with no capture after warmup, every decode
    call on the float16 form of the bf16 decode kernel (window replays x
@@ -251,7 +251,7 @@ Phases; any failure exits non-zero before the result line:
    mixing), (b) ``--spec-decode --spec-tokens 4 --prefill-token-budget
    256``, (c) ``EngineConfig(decode_steps=1, prefill_token_budget=
    256)`` built directly and (d) the default config with
-   ``coalesce_window_emissions=False``, (b) and (c) at ``max_batch`` 8 (their grids
+   ``coalesce_window_emissions=False``, (a)-(d) at ``max_batch`` 8 (their grids
    trimmed to the batch the traffic reaches), one engine at a time, each
    warmed and freed before the next, on the same traffic (phase 4's four
    requests, a 2,048-token prompt sent while they decode, a greedy
@@ -332,7 +332,7 @@ Phases; any failure exits non-zero before the result line:
 18. (run after phase 17, while phase 4's engine holds its share of the
    card) the launcher's benchmark mode as a user runs it
    (:func:`batch_phase`): ``python -m dynamo_tpu_torch.run
-   in=batch:FILE out=torch --model 8b --max-batch-size 4 --max-tokens 32
+   in=batch:FILE out=torch --model 8b --max-batch-size 1 --max-tokens 32
    --context-length 4096 --profile-dir DIR``, the 8B at full width with
    phase 4's seed-0 weights, FILE holding phase 4's four cold-batch
    prompts: a line a request (tokens_in the prompt's words, tokens_out
@@ -917,7 +917,9 @@ def check_prefill(dev) -> dict:
 
 class TapEngine:
     """Wraps the engine for the smoke's own bookkeeping: records each
-    request's tokens and token arrival times, keyed by request id."""
+    request's tokens and token arrival times, keyed by request id. Every
+    other attribute is the engine's (``stats``, ``drain``: what
+    ``serve_http`` wires the service's admission and drain to)."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -926,6 +928,9 @@ class TapEngine:
         self.prompt_len = {}
         self.prompt_ids = {}
         self.logprobs = {}   # request id -> [(logprob, {id: logprob})]
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
 
     async def generate(self, request, context):
         self.prompt_len[context.id] = len(request.token_ids)
@@ -1024,8 +1029,17 @@ def served_routes(engine) -> tuple:
             ops.PREFILL_ROUTES[ops.prefill_route(*shape)])
 
 
-async def serve_and_check(engine, mdc):
+async def serve_and_check(engine, mdc, operator: bool = False):
+    """Serve phase 4's requests over HTTP through ``engine`` and check the
+    served path (tokens, finishes, launches by route, graph replays, no
+    capture after warmup); with ``operator`` (phase 4 only), also the
+    frontend's operator surface (:func:`operator_checks`) before the
+    launch counts are read."""
+    import collections
+
     import aiohttp
+
+    from dynamo_tpu_torch.runtime import profiling
 
     from dynamo_tpu_torch.ops import int8_gemm
     from dynamo_tpu_torch.ops import paged_attention as ops
@@ -1037,6 +1051,10 @@ async def serve_and_check(engine, mdc):
     base = f"http://127.0.0.1:{svc.port}"
     sent = {}
     results = {}
+    # requests sent by (endpoint, request type), and each stream's data
+    # chunks (the frontend's TTFT and ITL histograms count them)
+    kinds = collections.Counter()
+    stream_chunks = {}
 
     async def chat(s, rid, content, max_tokens, stream):
         body = {"model": mdc.name, "stream": stream, "max_tokens": max_tokens,
@@ -1051,12 +1069,14 @@ async def serve_and_check(engine, mdc):
                 data = [ln[6:] for ln in lines if ln.startswith("data: ")]
                 if data[-1] != "[DONE]":
                     fail(f"{rid}: stream did not end with [DONE]")
+                stream_chunks[rid] = len(data) - 1
                 fin = [c["finish_reason"] for d in data[:-1]
                        for c in json.loads(d)["choices"] if c.get("finish_reason")]
                 results[rid] = fin[-1] if fin else None
             else:
                 out = await r.json()
                 results[rid] = out["choices"][0]["finish_reason"]
+        kinds["chat_completions", "stream" if stream else "unary"] += 1
 
     async def completion(s, rid, prompt, max_tokens):
         sent[rid] = time.monotonic()
@@ -1067,6 +1087,7 @@ async def serve_and_check(engine, mdc):
             if r.status != 200:
                 fail(f"{rid}: HTTP {r.status}: {await r.text()}")
             results[rid] = (await r.json())["choices"][0]["finish_reason"]
+        kinds["completions", "unary"] += 1
 
     long_prompt = ("The quick brown fox jumps over the lazy dog. " * 14)[:600]
 
@@ -1109,8 +1130,13 @@ async def serve_and_check(engine, mdc):
             if r.status != 200:
                 fail("health check failed")
         concurrent, wall, cold = await batch(s, "")
+        # the loop-lag samples taken while the warm batches ran
+        monitor = profiling.current_loop_profiler().monitor
+        beats0 = monitor.beats
         warm = [(await batch(s, f"w{k}-", "ABC"[k - 1]))[2]
                 for k in range(1, 4)]
+        warm_lag = list(monitor.samples)[
+            len(monitor.samples) - (monitor.beats - beats0):]
         # the cold batch's requests again: the long prompt's first nine
         # pages come from the prefix cache
         hit = (await batch(s, "hit-"))[2]
@@ -1128,6 +1154,14 @@ async def serve_and_check(engine, mdc):
     # the four requests again, one at a time, with logprobs (top 5): the
     # warmed logprobs variants; phase 8's reference
     solo = await solo_logprobs(base, mdc.name, "solo")
+    for kind, *_ in SOLO:
+        kinds["chat_completions" if kind == "chat" else "completions",
+              "unary"] += 1
+    op_report = None
+    if operator:
+        op_report = await operator_checks(
+            svc, tap, engine, base, mdc.name, kinds, stream_chunks,
+            warm_lag)
     launches = dict(ops.LAUNCHES)
     route_launches = dict(ops.DECODE_ROUTE_LAUNCHES)
     prefill_routes = dict(ops.PREFILL_ROUTE_LAUNCHES)
@@ -1143,7 +1177,9 @@ async def serve_and_check(engine, mdc):
              f"bucket outside the warmed grid")
 
     for rid, toks in tap.tokens.items():
-        if not toks:
+        # the operator checks' requests (op-*) include refused and
+        # timed-out ones; operator_checks holds them to their own answers
+        if not toks and not rid.startswith("op-"):
             fail(f"{rid}: no tokens")
     for rid in sent:
         if rid not in tap.tokens or not tap.tokens[rid]:
@@ -1256,6 +1292,8 @@ async def serve_and_check(engine, mdc):
                            for k, v in engine.graph_pool_mib().items()},
         "solo_rids": [f"solo{i}" for i in range(len(solo))],
     }
+    if op_report is not None:
+        served["operator"] = op_report
     ttft_report = {"cold": cold, "warm": warm, "warm_spread": spread,
                    "prefix_hit": hit, "bucket_cost_sampled": profiled}
     reference = {"http": solo, "tap": {
@@ -1267,6 +1305,321 @@ async def serve_and_check(engine, mdc):
         "batch": {rid: {"prompt_ids": tap.prompt_ids[rid],
                         "tokens": tap.tokens[rid]} for rid in concurrent}}
     return served, ttft_report, reference
+
+
+# the keys of a request's cost block (jax_engine.py _attribution)
+COST_KEYS = {"queue_wait_ms", "device_step_share", "dispatches",
+             "prompt_tokens", "prefix_hit_tokens", "prompt_blocks",
+             "device_hit_blocks", "host_restored_blocks", "restore_wait_ms",
+             "decode_tokens", "kv_pages_peak", "kv_bytes_peak",
+             "device_ms_est", "finish_reason", "replica", "mesh_shape"}
+
+
+def prom_samples(text: str, name: str) -> dict:
+    """``{label body: value}`` of the samples of one metric in a
+    Prometheus text exposition."""
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith(name + "{"):
+            labels, value = ln[len(name) + 1:].rsplit("} ", 1)
+            out[labels] = float(value)
+    return out
+
+
+def lag_quantiles(samples: list) -> dict:
+    """Nearest-rank p50, p99 and max (ms) of loop-lag samples (s)."""
+    vals = sorted(samples)
+    if not vals:
+        return {"samples": 0}
+
+    def pct(q):
+        return vals[min(max(int(len(vals) * q / 100.0), 0), len(vals) - 1)]
+
+    return {"samples": len(vals), "p50_ms": round(pct(50) * 1e3, 3),
+            "p99_ms": round(pct(99) * 1e3, 3),
+            "max_ms": round(vals[-1] * 1e3, 3)}
+
+
+async def pages_idle(engine, what: str, limit_s: float = 5.0) -> None:
+    """Wait until no sequence holds a page (``kv_active_blocks`` 0); fail
+    after ``limit_s``."""
+    t = time.monotonic()
+    while engine.stats()["kv_active_blocks"]:
+        if time.monotonic() - t > limit_s:
+            fail(f"{what}: {engine.stats()['kv_active_blocks']} pages "
+                 f"still held after {limit_s} s with no request in flight")
+        await asyncio.sleep(0.01)
+
+
+async def operator_checks(svc, tap, engine, base: str, name: str,
+                          kinds, stream_chunks: dict,
+                          warm_lag: list) -> dict:
+    """Phase 4's operator surface, on its service and engine after its
+    batches: the admission and drain wiring of ``serve_http``; /metrics'
+    request counts by status and its TTFT and ITL histogram counts against
+    what phase 4 sent and streamed; /live, /health, /debug/slo,
+    /debug/cache (against ``stats()``), /debug/profile (the loop lag, and
+    over the warm batches), /debug/profile/stacks; /v1/traces and a
+    request's trace with its cost block; an ``n = 2`` greedy request whose
+    choices are the solo request's tokens (margin_rule); a request whose
+    deadline is far below its decode time (504, its pages back); a burst
+    of 8 under ``ShedConfig(queue_depth=1)`` (a 503 with Retry-After,
+    every admitted one answered); /debug/profile/start, one short request,
+    /stop (the trace names both bf16 kernels); an incident captured and
+    read back; and last ``POST /drain`` with a stream in flight (it
+    finishes, the next request gets 503, a second drain 409). Then the
+    attribution's conservation over every finished request."""
+    import aiohttp
+
+    from dynamo_tpu_torch.runtime import blackbox, profiling, revive
+
+    t0 = time.monotonic()
+    report = {}
+    if svc.admission is None or len(svc._drain_cbs) != 1:
+        fail(f"serve_http wired admission {svc.admission!r} and "
+             f"{len(svc._drain_cbs)} drain callbacks through the tap "
+             f"engine")
+    label = f"torch-engine-{id(engine):x}"
+    async with aiohttp.ClientSession() as s:
+        async def get(path, as_json=True):
+            async with s.get(base + path) as r:
+                body = await (r.json() if as_json else r.text())
+                if r.status != 200:
+                    fail(f"GET {path}: HTTP {r.status}: {body}")
+                return body
+
+        async def post(path, body=None, rid=None, headers=None):
+            hdrs = dict(headers or {})
+            if rid is not None:
+                hdrs["X-Request-Id"] = rid
+            async with s.post(base + path, json=body, headers=hdrs) as r:
+                if body is not None and body.get("stream"):
+                    text = (await r.read()).decode()
+                    payload = [ln[6:] for ln in text.splitlines()
+                               if ln.startswith("data: ")]
+                else:
+                    payload = await r.json()
+                if rid is not None and (
+                        r.headers.get("X-Request-Id") != rid
+                        or "traceparent" not in r.headers):
+                    fail(f"{rid}: answer without its X-Request-Id or "
+                         f"traceparent: {dict(r.headers)}")
+                return r.status, dict(r.headers), payload
+
+        def chat(content, max_tokens, **extra):
+            return {"model": name, "max_tokens": max_tokens,
+                    "messages": [{"role": "user", "content": content}],
+                    **extra}
+
+        # /metrics against what phase 4 sent, before any request of these
+        # checks: every request a success, streams' first tokens and gaps
+        text = await get("/metrics", as_json=False)
+        got = prom_samples(text, "dyn_llm_http_service_requests_total")
+        want = {f'model="{name}",endpoint="{ep}",request_type="{rt}",'
+                f'status="success"': float(n)
+                for (ep, rt), n in kinds.items()}
+        if got != want:
+            fail(f"/metrics requests_total {got} != phase 4's {want}")
+        ttft_n = prom_samples(
+            text, "dyn_llm_http_service_time_to_first_token_seconds_count")
+        itl_n = prom_samples(text, "dyn_llm_http_service_itl_seconds_count")
+        key = f'model="{name}"'
+        gaps = sum(n - 1 for n in stream_chunks.values())
+        if ttft_n.get(key) != len(stream_chunks) or itl_n.get(key) != gaps:
+            fail(f"/metrics TTFT count {ttft_n} / ITL count {itl_n} != "
+                 f"{len(stream_chunks)} streams / {gaps} chunk gaps")
+        report["metrics"] = {"requests": sum(kinds.values()),
+                             "streams": len(stream_chunks),
+                             "itl_gaps": gaps,
+                             "families": sum(ln.startswith("# TYPE ")
+                                             for ln in text.splitlines())}
+        for path in ("/live", "/health"):
+            if (await get(path))["status"] != "healthy":
+                fail(f"GET {path}: not healthy")
+        slo_view = await get("/debug/slo")
+        if set(slo_view) != {"registry", "evaluation", "pressures",
+                             "alerts", "goodput"}:
+            fail(f"/debug/slo keys {sorted(slo_view)}")
+        # a finished request's pages free when its last window in flight
+        # lands, which may follow its answer: read the pool with no page
+        # held, so the two reads below see the same pool
+        await pages_idle(engine, "before /debug/cache")
+        st = engine.stats()
+        pool = (await get("/debug/cache"))["caches"][label]["pool"]
+        if (pool["free_blocks"], pool["cached_blocks"]) != (
+                st["kv_free_blocks"], st["kv_cached_blocks"]):
+            fail(f"/debug/cache pool {pool} against stats() free "
+                 f"{st['kv_free_blocks']} cached {st['kv_cached_blocks']}")
+        prof = await get("/debug/profile")
+        if label not in prof["engines"] or prof["loop"] is None:
+            fail(f"/debug/profile: {sorted(prof)}")
+        stacks = await get("/debug/profile/stacks", as_json=False)
+        report["loop_lag"] = {
+            "all": prof["loop"], "warm_batches": lag_quantiles(warm_lag),
+            "stall_stacks": len(stacks.splitlines()),
+            "hottest_stacks": [ln[-160:] for ln in stacks.splitlines()[:3]],
+            "stats_p50_p99_s": [st["loop_lag_p50_seconds"],
+                                st["loop_lag_p99_seconds"]]}
+        traces = await get("/v1/traces")
+        if not traces["traces"] or label not in traces["engine_steps"]:
+            fail(f"/v1/traces: {len(traces['traces'])} traces, timelines "
+                 f"{sorted(traces['engine_steps'])}")
+        one = await get("/v1/traces/solo0")
+        if set(one.get("cost", {})) != COST_KEYS or not one["spans"]:
+            fail(f"/v1/traces/solo0: {one}")
+        report["trace_solo0"] = {"stages_ms": one["stages"],
+                                 "cost": one["cost"]}
+
+        # n = 2, greedy: both choices the solo request's tokens
+        prompt = SOLO[0][1]
+        st_, _, n2 = await post("/v1/chat/completions",
+                                chat(prompt, SOLO[0][2], n=2), "op-n2")
+        if st_ != 200 or len(n2["choices"]) != 2:
+            fail(f"op-n2: HTTP {st_}: {n2}")
+        # the choices are one batch's two identical rows: the same tokens;
+        # against solo0 (decoded alone, in the 1-row buckets) equal up to
+        # a plain-path near-tie, as any batch against a lone request
+        solo, choices = tap.tokens["solo0"], [tap.tokens[f"op-n2-c{i}"]
+                                              for i in range(2)]
+        # the two choices share every window once both run; a choice that
+        # reached the engine a window after the other decoded that window
+        # alone: equal, or up to a plain-path near-tie, as solo0
+        report["n2"] = {
+            f"choice {i}": margin_rule(
+                engine.params, engine.cfg, engine.device,
+                tap.prompt_ids["solo0"], solo, choices[i],
+                f"phase 4: n = 2 choice {i} against solo0")
+            for i in range(2)}
+        report["n2"]["choice 1 against choice 0"] = margin_rule(
+            engine.params, engine.cfg, engine.device,
+            tap.prompt_ids["solo0"], choices[0], choices[1],
+            "phase 4: n = 2 choice 1 against choice 0")
+
+        # a deadline far below the decode time of its 512 tokens
+        await pages_idle(engine, "before op-deadline")
+        free0 = engine.stats()["kv_free_blocks"]
+        t = time.monotonic()
+        st_, _, body = await post("/v1/chat/completions",
+                                  chat("What is an H100?", 512),
+                                  "op-deadline",
+                                  {"X-Request-Deadline-Ms": "50"})
+        answered = time.monotonic() - t
+        if st_ != 504:
+            fail(f"op-deadline: HTTP {st_} (want 504): {body}")
+        t = time.monotonic()
+        await pages_idle(engine, "after op-deadline")
+        if engine.stats()["kv_free_blocks"] != free0:
+            fail(f"op-deadline: kv_free_blocks {free0} before, "
+                 f"{engine.stats()['kv_free_blocks']} after")
+        report["deadline"] = {
+            "status": st_, "answered_ms": round(answered * 1e3, 3),
+            "tokens_before_timeout": len(tap.tokens.get("op-deadline", [])),
+            "pages_back_ms": round((time.monotonic() - t) * 1e3, 3)}
+
+        # shedding: queue depth 1, a burst of 8, then the default again
+        default = svc.admission
+        svc.set_admission(revive.AdmissionController(
+            lambda: revive.signals_from_stats(engine.stats()),
+            revive.ShedConfig(queue_depth=1)))
+        burst = await asyncio.gather(*(
+            post("/v1/chat/completions",
+                 chat(f"Burst {i}: name a prime number.", 8), f"op-b{i}")
+            for i in range(8)))
+        shed = svc.admission.snapshot()
+        svc.set_admission(default)
+        codes = [st_ for st_, _, _ in burst]
+        cap = revive.ShedConfig().retry_after_cap_s
+        if 503 not in codes or set(codes) - {200, 503}:
+            fail(f"burst under queue_depth=1: {codes}")
+        retry = [int(h["Retry-After"]) for st_, h, _ in burst if st_ == 503]
+        if not all(1 <= r <= cap for r in retry):
+            fail(f"burst Retry-After {retry} outside [1, {cap}]")
+        report["burst"] = {"codes": codes, "retry_after": retry,
+                           "admission": shed}
+
+        # an on-demand profile of one short request
+        trace_dir = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+        try:
+            st_, _, started = await post("/debug/profile/start",
+                                         {"dir": trace_dir})
+            if st_ != 200:
+                fail(f"/debug/profile/start: HTTP {st_}: {started}")
+            st_, _, _ = await post("/v1/chat/completions",
+                                   chat("Profile me.", 8), "op-prof")
+            st2, _, stopped = await post("/debug/profile/stop")
+            if st_ != 200 or st2 != 200:
+                fail(f"profiled request HTTP {st_}, stop HTTP {st2}: "
+                     f"{stopped}")
+            path = os.path.join(stopped["dir"], "trace.pt.trace.json")
+            named = trace_names(path, BATCH_KERNELS)
+            if named != set(BATCH_KERNELS):
+                fail(f"/debug/profile trace names {sorted(named)} of "
+                     f"{list(BATCH_KERNELS)}")
+            report["profile"] = {"trace_bytes": os.path.getsize(path),
+                                 "kernels": sorted(named)}
+        finally:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+
+        # an incident: the recorder's 60 s debounce may hold from an
+        # automatic trip earlier in the phase (a stall, say): list them,
+        # then lift the debounce for the manual capture
+        rec = blackbox.get_recorder()
+        report["incidents_before"] = [
+            (i["trigger"], i["at_wall_ms"]) for i in rec.incidents_summary()]
+        rec.cooldown_s = 0.0
+        st_, _, cap_ = await post("/debug/incidents/capture")
+        if st_ != 200:
+            fail(f"/debug/incidents/capture: HTTP {st_}: {cap_}")
+        bundle = await get(f"/debug/incidents/{cap_['id']}")
+        if label not in bundle["telemetry"]["engines"]:
+            fail(f"incident bundle engines "
+                 f"{sorted(bundle['telemetry']['engines'])}")
+        report["incident"] = {"id": cap_["id"],
+                              "bytes": len(json.dumps(bundle))}
+
+        # last: drain with a stream in flight
+        inflight = asyncio.ensure_future(post(
+            "/v1/chat/completions", chat(SOLO[0][1], 32, stream=True),
+            "op-drain"))
+        t = time.monotonic()
+        while not engine.stats()["request_active_slots"]:
+            if inflight.done() or time.monotonic() - t > 30:
+                fail(f"op-drain never ran in the engine: "
+                     f"{inflight.result() if inflight.done() else 'none'}")
+            await asyncio.sleep(0.005)
+        st_, _, drained = await post("/drain")
+        st2, _, chunks = await inflight
+        st3, hdrs, _ = await post("/v1/chat/completions",
+                                  chat("Too late.", 8), "op-late")
+        st4, _, _ = await post("/drain")
+        if (st_, drained.get("results"), st2, chunks[-1:], st3, st4) != (
+                200, [True], 200, ["[DONE]"], 503, 409) \
+                or "Retry-After" not in hdrs:
+            fail(f"drain: {st_} {drained}, in flight {st2} "
+                 f"{chunks[-1:]}, next {st3} {hdrs}, again {st4}")
+        report["drain"] = {"in_flight_tokens": len(tap.tokens["op-drain"]),
+                           "next": st3, "retry_after": hdrs["Retry-After"]}
+    # every finished request's step share: the dispatches, in all. A
+    # request's finish (with its cost) rides with its pages' release,
+    # which waits for the window in flight: poll until the engine's last
+    # finish has landed
+    t = time.monotonic()
+    while True:
+        attr = profiling.attributions_snapshot(10 ** 6)
+        shares = sum(c["device_step_share"] for _, c in attr)
+        total = engine.batch_dispatches_total
+        if abs(shares - total) <= 1e-6 * len(attr) + 1e-9 \
+                or time.monotonic() - t > 5:
+            break
+        await asyncio.sleep(0.01)
+    if abs(shares - total) > 1e-6 * len(attr) + 1e-9:
+        fail(f"attribution: {len(attr)} requests' shares sum to {shares}, "
+             f"batch_dispatches_total {total}")
+    report["conservation"] = {"requests": len(attr),
+                              "device_step_share_sum": round(shares, 6),
+                              "batch_dispatches_total": total}
+    report["seconds"] = round(time.monotonic() - t0, 3)
+    return report
 
 
 # phase 4's four requests (kind, prompt, max tokens), sent one at a time;
@@ -2966,6 +3319,7 @@ def int8_phase(cfg, dev, bf16_logits) -> tuple:
     t = time.monotonic()
     engine, mdc, _ = build_engine(parse_args([
         "in=http", "out=torch", "--model", "8b", "--dtype", "int8",
+        "--max-batch-size", str(TRAFFIC_MAX_BATCH),
         "--model-name", "llama3-8b-int8-random"]))
     topn = engine.ecfg.max_top_logprobs
     check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
@@ -3617,17 +3971,28 @@ def serve_tp(cfg, out_dir: str, one_command: bool) -> dict:
                           TP_RANKS, one_command, _serve_remote)
 
 
-# the launcher ranks' --max-batch-size in phases 7 and 8
+# the launcher ranks' --max-batch-size in phase 7 (four requests at
+# once: at 1 they go one at a time, and at tp=2 on one card each window's
+# collectives cost ~2 s, more than the graphs of a batch of 4 cost to
+# warm); phase 8's requests go one at a time, so its ranks take 1 (half
+# the decode graphs and half the prefill graphs of 4)
 LAUNCHER_MAX_BATCH = 4
+CKPT_MAX_BATCH = 1
+# the batch of an engine whose traffic is phase 4's (four rows at once at
+# most): its grid stops at 8 rows, where the default's goes on to 64, and
+# every bucket that traffic takes (decode 1..4 rows, prefill 1 or 8) is
+# the default grid's, so it computes what the default engine computes
+TRAFFIC_MAX_BATCH = 8
 
 
 def serve_launcher(cfg, out_dir: str, model_args: list, name: str,
-                   ranks: int, one_command: bool, requests) -> dict:
+                   ranks: int, one_command: bool, requests,
+                   max_batch: int = LAUNCHER_MAX_BATCH) -> dict:
     """``ranks`` ranks of the launcher (``model_args`` choose the weights)
     on the one card, in the one-command form or one process per rank;
     ``requests(base, name)`` drives rank 0 over HTTP, then SIGTERM to
     rank 0, which stops the others. The ranks take ``--max-batch-size``
-    LAUNCHER_MAX_BATCH, and each must print its ``engine ready`` line
+    ``max_batch``, and each must print its ``engine ready`` line
     (kept in the report). Each rank's serving summary must
     show no capture after warmup, its mesh, every kernel call from a
     graph replay (prefill: one per layer of a replayed chunk; decode:
@@ -3647,7 +4012,7 @@ def serve_launcher(cfg, out_dir: str, model_args: list, name: str,
     base = [sys.executable, "-m", "dynamo_tpu_torch.run", "in=http",
             "out=torch", *model_args, "--model-name", name,
             "--tensor-parallel-size", str(ranks), "--max-batch-size",
-            str(LAUNCHER_MAX_BATCH), "--http-host", "127.0.0.1",
+            str(max_batch), "--http-host", "127.0.0.1",
             "--http-port", str(port)]
     form = "one_command" if one_command or ranks == 1 else "coordinator"
     if form == "one_command":
@@ -3709,7 +4074,7 @@ def serve_launcher(cfg, out_dir: str, model_args: list, name: str,
     # where each rank's start went (the launcher's engine-ready line)
     report["ready"] = ready
     if sorted(ready) != list(range(ranks)) or any(
-            rd["max_batch"] != LAUNCHER_MAX_BATCH for rd in ready.values()):
+            rd["max_batch"] != max_batch for rd in ready.values()):
         fail(f"engine-ready lines of ranks {sorted(ready)}: "
              f"{json.dumps(ready)}")
     if sorted(summaries) != list(range(ranks)):
@@ -4001,7 +4366,8 @@ def checkpoint_phase(cfg, dev, ckpt_dir: str, solo_ref,
         # three ranks on the card
         served = staggered(*(
             (serve_launcher, cfg, out_dir, ["--model-path", ckpt_dir],
-             f"llama3-8b-ckpt-tp{ranks}", ranks, False, requests)
+             f"llama3-8b-ckpt-tp{ranks}", ranks, False, requests,
+             CKPT_MAX_BATCH)
             for ranks in (1, TP_RANKS)),
             serve_logs(out_dir, "llama3-8b-ckpt-tp1", 1, False), 1)
         for ranks, res in zip((1, TP_RANKS), served):
@@ -4132,7 +4498,8 @@ def penalty_phase(cfg, dev, params) -> dict:
 
     t = time.monotonic()
     engine = TorchEngine(cfg, EngineConfig(warmup_penalties=True,
-                                           warmup_logprobs=False),
+                                           warmup_logprobs=False,
+                                           max_batch=TRAFFIC_MAX_BATCH),
                          params=params, device=dev)
     engine.warmup()
     check_warmed(engine, [(0, 0), (0, PEN_FULL)], [0])
@@ -4237,7 +4604,8 @@ def f32_noise(engine, cfg, dev) -> dict:
 def f32_phase(dev) -> dict:
     """Phase 11: a TorchEngine of Llama-3.2-1B's widths in float32 (16
     layers, D 2048, I 8192, H 32 on KV 8, head_dim 64, V 128256, an
-    untied head; seed-0 random weights, the default EngineConfig) warmed
+    untied head; seed-0 random weights, the default EngineConfig with
+    batches up to 8) warmed
     (every bucket of both grids captured), phase 4's requests served over
     HTTP (serve_and_check: no capture after warmup, every attention call
     from a graph replay on the float32 routes: decode launches the window
@@ -4265,8 +4633,8 @@ def f32_phase(dev) -> dict:
     for quant in (None, "int8"):
         tag = "float32" + (" int8" if quant else "")
         t = time.monotonic()
-        engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda",
-                             quant=quant)
+        engine = TorchEngine(cfg, EngineConfig(max_batch=TRAFFIC_MAX_BATCH),
+                             seed=0, device="cuda", quant=quant)
         engine.warmup()
         topn = engine.ecfg.max_top_logprobs
         check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
@@ -4337,8 +4705,8 @@ def f16_phase(dev) -> dict:
     for quant in (None, "int8"):
         tag = "float16" + (" int8" if quant else "")
         t = time.monotonic()
-        engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda",
-                             quant=quant)
+        engine = TorchEngine(cfg, EngineConfig(max_batch=TRAFFIC_MAX_BATCH),
+                             seed=0, device="cuda", quant=quant)
         engine.warmup()
         topn = engine.ecfg.max_top_logprobs
         check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
@@ -4894,8 +5262,8 @@ def moe_engine(cfg, quant=None):
     from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
 
     t = time.monotonic()
-    engine = TorchEngine(cfg, EngineConfig(), seed=0, device="cuda",
-                         quant=quant)
+    engine = TorchEngine(cfg, EngineConfig(max_batch=TRAFFIC_MAX_BATCH),
+                         seed=0, device="cuda", quant=quant)
     engine.warmup()
     topn = engine.ecfg.max_top_logprobs
     check_warmed(engine, [(0, 0), (topn, 0)], [0, topn])
@@ -5117,7 +5485,8 @@ def mla_engine(cfg, quant=None):
     from dynamo_tpu_torch.models import mla
 
     t = time.monotonic()
-    engine = TorchEngine(cfg, EngineConfig(warmup_logprobs=quant is None),
+    engine = TorchEngine(cfg, EngineConfig(warmup_logprobs=quant is None,
+                                           max_batch=TRAFFIC_MAX_BATCH),
                          seed=0, device="cuda", quant=quant)
     if engine.model is not mla or engine.decode_multi_fn.__qualname__ != (
             "_make_decode_multi.<locals>.decode_multi"):
@@ -5247,7 +5616,10 @@ def mla_attention_case(dev, name: str, widths: dict, chunk: int = 0,
     pools upcast) within MLA_BLOCK_REL_L2, timed, beside its bound: the
     weights, the rows' latents and the input and output moved once, or
     the products (bf16 projections at the bf16 peak, the float32 latent
-    einsums over each query's visible keys at the float32 peak)."""
+    einsums over each query's visible keys at the float32 peak). The
+    library column: one ``scaled_dot_product_attention`` call on the same
+    absorbed work in bfloat16 (:func:`sdpa_latent_ms`), the yardstick of
+    a latent-attention kernel."""
     import math
 
     import torch
@@ -5324,6 +5696,9 @@ def mla_attention_case(dev, name: str, widths: dict, chunk: int = 0,
         by_bytes = moved / H100_BYTES_PER_S
         by_ops = ops_bf16 / H100_BF16_FLOPS + ops_f32 / H100_F32_FLOPS
         return {"rel_l2": err, "ms": ms,
+                "library_ms": sdpa_latent_ms(dev, g, H, r, dr,
+                                             1.0 / math.sqrt(dn + dr),
+                                             T, starts, lens),
                 "bound_ms": max(by_bytes, by_ops) * 1e3,
                 "bound_by": "bytes" if by_bytes >= by_ops else "operations",
                 "bytes": moved, "ops_bf16": ops_bf16, "ops_f32": ops_f32,
@@ -5335,6 +5710,37 @@ def mla_attention_case(dev, name: str, widths: dict, chunk: int = 0,
         rep[f"first_chunk_{chunk}"] = case(1, chunk, 8, [0], [chunk])
     log(f"  MLA attention block {name}: {json.dumps(rep)}")
     return rep
+
+
+def sdpa_latent_ms(dev, g, H: int, r: int, dr: int, scale: float, T: int,
+                   starts: list, lens: list) -> float:
+    """ms of one ``torch.nn.functional.scaled_dot_product_attention`` call
+    on MLA's absorbed attention in bfloat16: per row, H query heads of
+    width r + dr (the latent and the rope part) against one shared "kv
+    head" of the row's latents and rope keys (width r + dr, values the
+    latents of width r), each query over its row's positions up to its
+    own (the rows' own lengths, by a boolean mask); MLA's softmax scale."""
+    import torch
+
+    B = len(starts)
+    S = max(s0 + n for s0, n in zip(starts, lens))
+    q = torch.randn((B, H, T, r + dr), generator=g, device=dev).to(
+        torch.bfloat16)
+    kv = torch.randn((B, 1, S, r + dr), generator=g, device=dev).to(
+        torch.bfloat16)
+    k, v = kv.expand(B, H, S, r + dr), kv[..., :r].expand(B, H, S, r)
+    qpos = torch.tensor([[s0 + min(i, n - 1) for i in range(T)]
+                         for s0, n in zip(starts, lens)], device=dev)
+    mask = (torch.arange(S, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale)
+
+    if call().shape != (B, H, T, r):
+        fail("SDPA on the absorbed MLA attention: wrong shape")
+    return time_ms(call, iters=10)
 
 
 def deepseek_router_case(dev, seed: int = 0) -> dict:
@@ -5660,16 +6066,21 @@ SYNC_PASSAGE = 40
 # flags). (b) and (c) trim their bucket grids to the batch phase 15's
 # traffic reaches (max_batch 8: decode batches 1, 2, 4, 8)
 SYNC_ENGINES = (
-    ("default", "EngineConfig", {}),
-    ("a budget", "launcher", ["--prefill-token-budget", "256"]),
+    # the default engine, its grid stopped at the traffic's batch (the
+    # buckets the traffic takes are the default's)
+    ("default", "EngineConfig", dict(max_batch=TRAFFIC_MAX_BATCH)),
+    ("a budget", "launcher", ["--prefill-token-budget", "256",
+                              "--max-batch-size", str(TRAFFIC_MAX_BATCH)]),
     ("b spec", "launcher", ["--spec-decode", "--spec-tokens", "4",
                             "--prefill-token-budget", "256",
                             "--max-batch-size", "8"]),
     ("c single step", "EngineConfig", dict(decode_steps=1,
                                            prefill_token_budget=256,
                                            max_batch=8)),
-    # the default engine emitting token by token
-    ("d per token", "EngineConfig", dict(coalesce_window_emissions=False)))
+    # the default engine emitting token by token (its grid stopped at
+    # the traffic's batch: the buckets it takes are the default's)
+    ("d per token", "EngineConfig", dict(coalesce_window_emissions=False,
+                                         max_batch=TRAFFIC_MAX_BATCH)))
 
 
 def sync_requests() -> list:
@@ -5927,8 +6338,9 @@ def sync_arms_phase(cfg, dev, params) -> dict:
     """Phase 15: the reference's synchronous decode arms on the 8B at full
     width (32 layers, phase 4's seed-0 weights, shared), one engine at a
     time, each freed before the next (SYNC_ENGINES): the default engine,
-    (a) ``--prefill-token-budget 256`` through the launcher's
-    build_engine_config (pipelined windows with budgeted mixing), (b)
+    (a) ``--prefill-token-budget 256 --max-batch-size 8`` through the
+    launcher's build_engine_config (pipelined windows with budgeted
+    mixing), (b)
     ``--spec-decode --spec-tokens 4 --prefill-token-budget 256`` with
     ``--max-batch-size 8`` (its grid trimmed to the batch the traffic
     reaches), (c) ``EngineConfig(decode_steps=1, prefill_token_budget=
@@ -6648,7 +7060,8 @@ async def disagg_primitives(params, cfg, dev, pre, dec, prompt) -> dict:
 
 
 async def disagg_serving(cfg, dev, params, ref) -> dict:
-    """Phase 17: two TorchEngines at the default EngineConfig on
+    """Phase 17: two TorchEngines at the default EngineConfig (batches
+    up to 8) on
     ``params`` (each its own pool), the prefill engine under a
     PrefillWorker, the decode engine under build_disagg_decode on another
     runtime attachment, served by serve_token_model with the KV event
@@ -6680,7 +7093,8 @@ async def disagg_serving(cfg, dev, params, ref) -> dict:
     engines = []
     for _ in range(2):
         t = time.monotonic()
-        eng = TorchEngine(cfg, EngineConfig(), params=params, device=dev)
+        eng = TorchEngine(cfg, EngineConfig(max_batch=TRAFFIC_MAX_BATCH),
+                          params=params, device=dev)
         eng.warmup()
         rep["warmup_s"].append(time.monotonic() - t)
         engines.append(eng)
@@ -7054,9 +7468,11 @@ def disagg_phase(cfg, dev, params, ref) -> dict:
 # ------------------------------------------- phase 18: the batch launcher
 
 # the launcher's benchmark mode on the 8B: phase 4's cold-batch prompts,
-# each answer capped at BATCH_MAX_TOKENS, traced by torch.profiler
+# each answer capped at BATCH_MAX_TOKENS, traced by torch.profiler; one
+# request at a time (the warmup's graphs, and with them the trace, are
+# half a batch of 4's)
 BATCH_MAX_TOKENS = 32
-BATCH_ARGV = ["out=torch", "--model", "8b", "--max-batch-size", "4",
+BATCH_ARGV = ["out=torch", "--model", "8b", "--max-batch-size", "1",
               "--max-tokens", str(BATCH_MAX_TOKENS), "--context-length",
               "4096"]
 BATCH_KERNELS = ("paged_decode_bf16_kernel", "paged_prefill_bf16_kernel")
@@ -7079,7 +7495,7 @@ def trace_names(path: str, names) -> set:
 
 def batch_phase(cfg, out_dir: str) -> dict:
     """Phase 18: ``python -m dynamo_tpu_torch.run in=batch:FILE out=torch
-    --model 8b --max-batch-size 4 --max-tokens 32 --context-length 4096
+    --model 8b --max-batch-size 1 --max-tokens 32 --context-length 4096
     --profile-dir DIR`` on the card: the 8B at full width with phase 4's
     seed-0 weights, FILE holding phase 4's four cold-batch prompts. Its
     output must be a line a request (``tokens_in`` the prompt's words,
@@ -7372,8 +7788,10 @@ def main() -> None:
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     mdc = ModelDeploymentCard(name="llama3-8b-random")
     mdc.kv_block_size = engine.ecfg.page_size
-    served, ttft, solo_ref = asyncio.run(serve_and_check(engine, mdc))
-    log(f"  served: {json.dumps(served)}")
+    served, ttft, solo_ref = asyncio.run(serve_and_check(engine, mdc,
+                                                         operator=True))
+    log(f"  operator surface: {json.dumps(served['operator'])}")
+    log(f"  served: {json.dumps({k: v for k, v in served.items() if k != 'operator'})}")
     logprobs_check = check_logprobs(engine, cfg, dev, solo_ref)
     for batch_name, stages in (
             ("cold", ttft["cold"]),

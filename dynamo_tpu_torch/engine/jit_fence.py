@@ -15,6 +15,11 @@ graph runner reports each capture itself.
   ``post_warmup_compiles_total`` (the JAX key);
 - ``warn`` — also log a warning naming the bucket;
 - ``raise`` — raise :class:`PostWarmupCompileError` before the capture.
+
+A capture after warmup is also a step-timeline event (``compile``) and a
+``post_warmup_compile`` trigger of the flight recorder
+(``runtime/blackbox.py``), and arming the fence refreshes the recorder's
+baseline, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ class PostWarmupCompileError(RuntimeError):
 class CompileFence:
     """Per-engine post-warmup capture counter and warn/raise tripwire."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, timeline=None):
         self.name = name
+        self.timeline = timeline
         self.armed = False
         self.post_warmup_compiles = 0
 
@@ -42,6 +48,12 @@ class CompileFence:
         """Called at the end of warmup(): from here on, every capture
         counts against the no-capture serving invariant."""
         self.armed = True
+        # end of warmup = steady state begins: the flight recorder's
+        # pre-incident baseline of cost tables and caches
+        from ..runtime import blackbox
+        rec = blackbox.get_recorder()
+        if rec.enabled:
+            rec.refresh_baseline()
 
     def on_compile(self, form: str) -> None:
         """Report a capture (``form`` names it, e.g. the bucket) about to
@@ -49,6 +61,17 @@ class CompileFence:
         if not self.armed:
             return
         self.post_warmup_compiles += 1
+        if self.timeline is not None:
+            self.timeline.add("compile", form=form,
+                              post_warmup_total=self.post_warmup_compiles)
+        # a capture after warmup is an incident by definition (the
+        # no-capture invariant broke); already on the cold capture path
+        from ..runtime import blackbox
+        blackbox.notify_trigger("post_warmup_compile", {
+            "fence": self.name,
+            "post_warmup_total": self.post_warmup_compiles,
+            "last_dispatch_form": form,
+        })
         mode = (env_str("DYN_JIT_FENCE") or "").strip().lower()
         msg = (f"CUDA-graph capture after warmup on {self.name} "
                f"({self.post_warmup_compiles} total): {form} is outside "

@@ -13,14 +13,26 @@ that iteration's pipeline, the documented sampling overhead, and it is
 absent at ``sample=0`` (the default), where the whole per-iteration cost
 is one integer compare and ``begin`` returns None, so the dispatch path
 makes no host read.
+
+Each profiler registers itself with ``runtime/profiling.py`` (the HTTP
+frontend's ``/debug/profile`` lists every live engine's cost table), and
+``mean_device_ms_per_step`` scales a request's step share into the
+``device_ms_est`` of its cost attribution. :func:`trace_profiler` is the
+``torch.profiler`` session the launcher's ``--profile-dir`` and the
+frontend's ``/debug/profile/start`` both open.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..runtime import profiling
+
+log = logging.getLogger("dynamo_tpu_torch.engine.profiler")
 
 
 class EngineProfiler:
@@ -28,8 +40,10 @@ class EngineProfiler:
     happens on the engine's single step thread; ``summary()`` reads are
     snapshot dict builds."""
 
-    def __init__(self, name: str, device: torch.device, sample: int = 0):
+    def __init__(self, name: str, device: torch.device, sample: int = 0,
+                 timeline=None):
         self.name = name
+        self.timeline = timeline
         self.device = device
         self.sample = max(int(sample), 0)
         self.sampling = False      # True while the current iteration samples
@@ -39,6 +53,7 @@ class EngineProfiler:
         self.dispatch_seconds_total = 0.0
         # "kind:B8xT512xP64" -> {samples, device_us, dispatch_us, tokens}
         self.buckets: Dict[str, dict] = {}
+        profiling.register_profile(name, self)
 
     # ------------------------------------------------------------ sampling
 
@@ -91,12 +106,26 @@ class EngineProfiler:
         self.profiled_steps += 1
         self.device_seconds_total += device_s
         self.dispatch_seconds_total += dispatch_s
+        if self.timeline is not None:
+            # bounded: the step timeline is a deque(maxlen=) ring
+            self.timeline.add(
+                "prof_sample", bucket=label,
+                dispatch_us=round(dispatch_s * 1e6, 1),
+                device_us=round(device_s * 1e6, 1), tokens=int(tokens))
 
     # ------------------------------------------------------------- exports
 
     def device_time_fraction(self) -> float:
         total = self.device_seconds_total + self.dispatch_seconds_total
         return self.device_seconds_total / total if total > 0 else 0.0
+
+    def mean_device_ms_per_step(self) -> Optional[float]:
+        """Mean sampled device drain per dispatch: what turns a request's
+        occupancy-weighted step share into an estimated device-ms figure.
+        None when nothing has been sampled (sample=0)."""
+        if self.profiled_steps == 0:
+            return None
+        return self.device_seconds_total / self.profiled_steps * 1000.0
 
     def cost_table(self) -> Dict[str, dict]:
         """Per-bucket means: dispatch and device µs per dispatch, and
@@ -149,3 +178,27 @@ def memory_snapshot(pm, page_bytes: int) -> dict:
             "used_bytes": host_used * page_bytes,
         }
     return out
+
+
+def trace_profiler(cuda: bool):
+    """A started ``torch.profiler.profile`` of host ops and, with
+    ``cuda``, the card's activity, over every thread of the process (the
+    engine's work runs on its executor's and asyncio's threads). Raises
+    when the profiler cannot start; with ``cuda`` it never falls back to
+    a host-only trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch._C._profiler import _ExperimentalConfig
+
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        config = _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        log.warning("this torch's profiler records the host ops of the "
+                    "main thread only")
+        config = _ExperimentalConfig()
+    prof = profile(activities=activities, experimental_config=config)
+    prof.start()
+    return prof

@@ -60,6 +60,18 @@ behind ``Backend`` the same way:
   sampled dispatch profiler (``engine/profiler.py``; off at the default
   ``prof_sample=0``) as ``bucket_cost``, ``device_time_fraction`` and
   ``profiled_steps_total``;
+- the JAX engine's operator hooks, under its names: a step timeline
+  (``DYN_STEP_TIMELINE``; admissions, chunks, windows, sampled
+  dispatches, captures after warmup) registered for ``/v1/traces``, the
+  cache view :meth:`cache_snapshot` registered for ``/debug/cache``, the
+  engine as a stats source of the flight recorder, the event loop's lag
+  monitor and stall watchdog for as long as the engine runs
+  (``loop_lag_p50_seconds`` / ``loop_lag_p99_seconds`` in ``stats()``),
+  :meth:`drain`, and per-request cost attribution: each dispatch shares
+  one step across its rows (``_account_dispatch``), so the finished
+  requests' ``device_step_share`` sums to ``batch_dispatches_total``,
+  and each finish carries its ``cost`` block, also recorded for
+  ``/v1/traces/{request_id}``;
 - per-request state is host-side (token lists, page tables from
   ``PageManager``); the device sees only padded arrays;
 - sequences preempt (release pages, requeue) when the pool runs dry,
@@ -126,6 +138,7 @@ from ..models.llama import (DROP_SLOT, KVCacheSpec, carry_active,
 from ..models.quant import QUANT_KEYS, quantize_int8, quantize_params
 from ..models.registry import get_model_module
 from ..parallel.mesh import MeshView, quantize_shard, shard_param
+from ..runtime import blackbox, guard, profiling, tracing
 from ..runtime.config import env_int
 from ..runtime.device import resolve_device
 from ..runtime.engine import Context
@@ -313,6 +326,15 @@ class Sequence:
     arrival: float = field(default_factory=time.monotonic)
     queue_wait_s: float = 0.0    # arrival → admission
     last_emit_t: Optional[float] = None  # last token-bearing emission
+    # cost attribution: the occupancy-weighted share of the dispatches the
+    # row rode (each dispatch shares 1.0 across its rows), their count,
+    # the most pages the row held, and its admission's prefix split
+    dispatch_share: float = 0.0
+    dispatches: int = 0
+    max_pages: int = 0
+    prefix_hit: int = 0
+    device_hit_blocks: int = 0
+    host_restored_blocks: int = 0
     hash_cache: Optional[ChainHashCache] = None
     # disagg prefill-only: the finish leaves the pages allocated for the
     # caller to extract, then release (release_pages)
@@ -536,7 +558,14 @@ class TorchEngine:
         # capture fence (armed by warmup) and the graphs per bucket, one
         # set per variant: decode windows, and prefill chunks, all on the
         # plain decode set's stream and pool
-        self.fence = CompileFence(f"torch-engine-{id(self):x}")
+        # the step timeline: a bounded ring of scheduler events served by
+        # /v1/traces (DYN_STEP_TIMELINE; 0 disables it)
+        self.step_timeline = tracing.StepTimeline(
+            env_int("DYN_STEP_TIMELINE") or 0)
+        tracing.register_timeline(f"torch-engine-{id(self):x}",
+                                  self.step_timeline)
+        self.fence = CompileFence(f"torch-engine-{id(self):x}",
+                                  timeline=self.step_timeline)
         self.graphs = DecodeGraphs(
             self.decode_multi_fn, self.params, self.kv_k, self.kv_v,
             k_steps=self.ecfg.decode_steps, max_eos_ids=self.ecfg.max_eos_ids,
@@ -573,7 +602,8 @@ class TorchEngine:
         # iteration, no sync) and the latency histograms
         self.profiler = EngineProfiler(f"torch-engine-{id(self):x}",
                                        self.device,
-                                       sample=self.ecfg.prof_sample)
+                                       sample=self.ecfg.prof_sample,
+                                       timeline=self.step_timeline)
         self.latency = LatencyRecorder("unified")
         # KV bytes per page (both pools), for the memory snapshot
         self._page_bytes = int(
@@ -624,6 +654,14 @@ class TorchEngine:
         self.spec_steps = 0
         self.spec_draft_tokens_total = 0
         self.spec_accepted_tokens_total = 0
+        # a draining engine refuses new work (guard.NoCapacity) while its
+        # sequences run to their finish
+        self.draining = False
+        # the cache view of /debug/cache, and the engine's stats() in the
+        # flight recorder's incident bundles (both held weakly)
+        profiling.register_cache(f"torch-engine-{id(self):x}", self)
+        blackbox.get_recorder().register_stats_source(
+            self.worker_label or f"torch-engine-{id(self):x}", self)
 
     @property
     def role(self) -> str:
@@ -767,6 +805,9 @@ class TorchEngine:
         if self._loop_task is None:
             self._aio_loop = asyncio.get_running_loop()
             self._aio_loop_tid = threading.get_ident()
+            # the serving loop's lag monitor and stall watchdog, for as
+            # long as the engine runs on it (refcounted; stop() releases)
+            profiling.acquire_loop_profiler()
             self._loop_task = asyncio.ensure_future(self._loop())
 
     async def stop(self) -> None:
@@ -776,11 +817,40 @@ class TorchEngine:
         self._wake.set()
         if self._loop_task:
             await self._loop_task
+            await profiling.release_loop_profiler()
         if self._leads and not self._followers_stopped:
             # the loop has ended: no dispatch is in progress
             self._announce([_STOP])
             self._followers_stopped = True
         self._exec.shutdown(wait=True)
+
+    async def drain(self, timeout_s: float = 10.0) -> bool:
+        """Graceful drain (``jax_engine.py`` ``drain``): refuse new work
+        (``generate`` raises ``guard.NoCapacity``) and run every sequence
+        in flight to its finish, bounded by ``timeout_s``. On timeout the
+        leftovers are cancelled on the normal cancel path (their pages
+        free once no window in flight holds them). True when everything
+        finished in time. The engine keeps running; ``stop()`` ends it."""
+        self.draining = True
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + max(timeout_s, 0.0)
+
+        def busy() -> bool:
+            return bool(self.waiting or self.prefilling or self.running
+                        or self._inflight or self._pending_prefill)
+
+        while busy() and loop.time() < deadline:
+            await asyncio.sleep(0.02)
+        drained = not busy()
+        if not drained:
+            log.warning("engine drain timed out with work in flight "
+                        "(waiting=%d prefilling=%d running=%d); "
+                        "cancelling leftovers", len(self.waiting),
+                        len(self.prefilling), len(self.running))
+            for seq in self.waiting + self.prefilling + self.running:
+                seq.context.kill()
+            self._wake.set()
+        return drained
 
     # ----------------------------------------------------- tensor parallel
 
@@ -888,7 +958,17 @@ class TorchEngine:
                        context: Context) -> AsyncIterator[EngineOutput]:
         if not isinstance(request, PreprocessedRequest):
             request = PreprocessedRequest.from_dict(request)
+        if self.draining:
+            # typed refusal (HTTP 503 with Retry-After upstream)
+            raise guard.NoCapacity("engine draining")
         self.start()
+        if self.worker_label or self.mesh_devices > 1:
+            # which replica and mesh serve this request, on the enclosing
+            # span (http.request when served in-process)
+            span = tracing.current_span()
+            if span is not None:
+                span.set_attribute("replica", self.worker_label)
+                span.set_attribute("mesh_shape", self.mesh_shape)
         seq = Sequence(req=request, context=context, out=asyncio.Queue(),
                        tokens=list(request.token_ids),
                        num_prompt=len(request.token_ids))
@@ -906,6 +986,7 @@ class TorchEngine:
     def stats(self) -> dict:
         """The subset of the JAX engine's stats() this engine tracks, under
         the same key names."""
+        lag = profiling.loop_lag_snapshot()
         return {
             "worker_label": self.worker_label,
             "role": self.role,
@@ -936,6 +1017,9 @@ class TorchEngine:
             # latency histograms (queue wait, TTFT, ITL, e2e) and the
             # sampled host/device split per bucket (empty at sample 0)
             "latency_hist": self.latency.to_wire(),
+            # the serving loop's lag (sampled sleep drift)
+            "loop_lag_p50_seconds": lag["p50_s"],
+            "loop_lag_p99_seconds": lag["p99_s"],
             "device_time_fraction":
                 round(self.profiler.device_time_fraction(), 4),
             "profiled_steps_total": self.profiler.profiled_steps,
@@ -963,6 +1047,39 @@ class TorchEngine:
             hit += h
             total += p
         return hit / total if total else 0.0
+
+    def cache_snapshot(self) -> dict:
+        """The ``/debug/cache`` view (``jax_engine.py``
+        ``cache_snapshot``): pool occupancy, the host tier's (empty: the
+        port builds the manager with ``host_pages=0``), windowed and
+        lifetime hit rates, the page manager's counters and the top-K
+        hot prefix chains (``DYN_CACHE_TOPK``)."""
+        topk = max(env_int("DYN_CACHE_TOPK") or 20, 0)
+        with self._pm_lock:
+            pm = self.pm
+            return {
+                "pool": {
+                    "total_blocks": self.ecfg.num_pages - 1,
+                    "active_blocks": pm.active,
+                    "cached_blocks": len(pm.reusable),
+                    "free_blocks": len(pm.free),
+                    "usage": round(pm.usage(), 4),
+                },
+                "host_tier": {
+                    "total_blocks": pm.host_pages,
+                    "used_blocks": len(pm.host_by_hash),
+                    "free_blocks": len(pm.host_free),
+                    "usage": round(pm.host_usage(), 4),
+                },
+                "hit_rate_windowed": round(self._windowed_hit_rate(), 4),
+                "hit_rate_lifetime": round(
+                    self.prefix_hit_tokens_total
+                    / max(self.prompt_tokens_total, 1), 4),
+                "prefix_hit_tokens_total": self.prefix_hit_tokens_total,
+                "prompt_tokens_total": self.prompt_tokens_total,
+                **pm.cache_stats(),
+                "top_prefixes": pm.top_prefixes(topk),
+            }
 
     # ------------------------------------------------------- scheduler loop
 
@@ -1156,6 +1273,15 @@ class TorchEngine:
                 seq.queue_wait_s = time.monotonic() - seq.arrival
                 self.queue_wait_seconds_total += seq.queue_wait_s
                 self.latency.observe("queue_wait", seq.queue_wait_s)
+                seq.prefix_hit = seq.computed
+                seq.device_hit_blocks = alloc.device_hit_blocks
+                seq.host_restored_blocks = alloc.host_restored_blocks
+                self.step_timeline.add(
+                    "admit", queue_wait_ms=round(seq.queue_wait_s * 1000.0,
+                                                 3),
+                    request_id=seq.context.id,
+                    occupancy=len(self.running) + len(self.prefilling) + 1,
+                    waiting=len(self.waiting))
                 self.prefix_hit_tokens_total += seq.computed
                 self.prompt_tokens_total += seq.num_prompt
                 self._hit_window.append((seq.computed, seq.num_prompt))
@@ -1284,7 +1410,11 @@ class TorchEngine:
             (sampled, *aux), event = to_host(toks, *(dev_aux or ()))
         self.profiler.end(pt0, "prefill", (B, T, P), tokens=sum(chunks),
                           drain=True)
-        self.batch_dispatches_total += 1
+        self._account_dispatch(batch)
+        self.step_timeline.add(
+            "prefill", batch=len(batch), tokens=int(sum(chunks)),
+            occupancy=len(self.running) + len(self.prefilling),
+            waiting=len(self.waiting))
         return _PendingPrefill(finishing=finishing, sampled=sampled,
                                event=event, aux=aux or None)
 
@@ -1495,7 +1625,7 @@ class TorchEngine:
                               *(bk.aux or ()))
         self.profiler.end(pt0, "decode_window", (B, P, K),
                           tokens=len(batch) * K, drain=True)
-        self.batch_dispatches_total += 1
+        self._account_dispatch(batch)
         pend = _PendingWindow(batch=list(batch), host=host, event=event,
                               carry=self._stashed_carry(B),
                               index={id(s): i for i, s in enumerate(batch)},
@@ -1580,6 +1710,11 @@ class TorchEngine:
                 self.decode_tokens_total += 1
         self.profiler.end(ht0, "process_window", (len(pend.batch), K),
                           tokens=self.decode_tokens_total - before)
+        self.step_timeline.add(
+            "decode_window", batch=len(pend.batch),
+            tokens=self.decode_tokens_total - before,
+            occupancy=len(self.running) + len(self.prefilling),
+            waiting=len(self.waiting))
 
     def _append_row(self, seq: Sequence, row: np.ndarray, n: int,
                     dev_done: bool, aux=None, i: int = 0) -> None:
@@ -1684,7 +1819,7 @@ class TorchEngine:
         (sampled, *aux), event = to_host(*bk.out)
         self.profiler.end(pt0, "decode", (B, P), tokens=len(batch),
                           drain=True)
-        self.batch_dispatches_total += 1
+        self._account_dispatch(batch)
         if event is not None:
             event.synchronize()
         toks = sampled.numpy()
@@ -1804,7 +1939,7 @@ class TorchEngine:
         self.profiler.end(pt0, "spec_verify", (B, P),
                           tokens=int(f["draft_len"].sum()) + len(batch),
                           drain=True)
-        self.batch_dispatches_total += 1
+        self._account_dispatch(batch)
         if event is not None:
             event.synchronize()
         out, acc = out.numpy(), acc.numpy()
@@ -1978,10 +2113,54 @@ class TorchEngine:
         seq.finish_emitted = True
         # e2e: arrival → finish emission (cancel and error finishes too)
         self.latency.observe("e2e", time.monotonic() - seq.arrival)
+        cost = self._attribution(seq)
+        profiling.record_attribution(seq.context.id, cost)
         self._emit(seq, EngineOutput(token_ids=[],
                                      finish_reason=seq.finished,
                                      prompt_tokens=seq.num_prompt,
-                                     completion_tokens=seq.generated))
+                                     completion_tokens=seq.generated,
+                                     cost=cost))
+
+    def _account_dispatch(self, batch: List[Sequence]) -> None:
+        """Cost attribution: each dispatch shares exactly 1.0 step across
+        its rows (occupancy weighting), so the rows' shares sum to
+        ``batch_dispatches_total``. Host counters only."""
+        share = 1.0 / len(batch)
+        for seq in batch:
+            seq.dispatch_share += share
+            seq.dispatches += 1
+            if len(seq.pages) > seq.max_pages:
+                seq.max_pages = len(seq.pages)
+        self.batch_dispatches_total += 1
+
+    def _attribution(self, seq: Sequence) -> dict:
+        """The request's cost block (``jax_engine.py`` ``_attribution``):
+        where its share of the engine's time and memory went.
+        ``device_ms_est`` scales the step share by the sampled mean
+        device time a dispatch (None until something was sampled). The
+        port has no host tier: ``host_restored_blocks`` and
+        ``restore_wait_ms`` stay 0."""
+        est = self.profiler.mean_device_ms_per_step()
+        ps = self.ecfg.page_size
+        return {
+            "queue_wait_ms": round(seq.queue_wait_s * 1000.0, 3),
+            "device_step_share": round(seq.dispatch_share, 6),
+            "dispatches": seq.dispatches,
+            "prompt_tokens": seq.num_prompt,
+            "prefix_hit_tokens": seq.prefix_hit,
+            "prompt_blocks": (seq.num_prompt + ps - 1) // ps,
+            "device_hit_blocks": seq.device_hit_blocks,
+            "host_restored_blocks": seq.host_restored_blocks,
+            "restore_wait_ms": 0.0,
+            "decode_tokens": seq.generated,
+            "kv_pages_peak": seq.max_pages,
+            "kv_bytes_peak": seq.max_pages * self._page_bytes,
+            "device_ms_est": (round(seq.dispatch_share * est, 3)
+                              if est is not None else None),
+            "finish_reason": seq.finished,
+            "replica": self.worker_label,
+            "mesh_shape": self.mesh_shape,
+        }
 
     def _emit(self, seq: Sequence, out: EngineOutput) -> None:
         if out.token_ids:

@@ -1,10 +1,14 @@
 """Backend: the detokenizing stage between engine and preprocessor.
 
-A copy of ``dynamo_tpu/llm/backend.py`` without the remote cost relay:
-wraps the token-level engine, incrementally detokenizes the stream,
-applies stop-sequence "jailing" (text that could be the prefix of a stop
-sequence is withheld until disambiguated), detects EOS / stop-token /
-max-token finishes, and stamps finish reasons.
+A copy of ``dynamo_tpu/llm/backend.py``: wraps the token-level engine,
+incrementally detokenizes the stream, applies stop-sequence "jailing"
+(text that could be the prefix of a stop sequence is withheld until
+disambiguated), detects EOS / stop-token / max-token finishes, and stamps
+finish reasons. A finish chunk's ``cost`` block (the engine's per-request
+cost attribution) is recorded in this process's attribution ring, so
+``/v1/traces/{request_id}`` serves it where the engine ran in another
+process; when the Backend's own stop fires first, the engine's finish is
+drained for it (``_harvest_finish_cost``).
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import asyncio
 from concurrent.futures import ThreadPoolExecutor
 from typing import AsyncIterator, List, Optional
 
+from ..runtime import profiling
 from ..runtime.config import env_bool
 from ..runtime.engine import Context
 from .protocols.common import (FINISH_EOS, FINISH_LENGTH, FINISH_STOP,
@@ -89,9 +94,33 @@ class Backend:
     and ``finish_reason``.
     """
 
+    # bound (seconds) on draining the engine's in-flight finish chunk
+    # after a Backend-side stop: about an engine iteration, never a hang
+    COST_HARVEST_BOUND_S = 0.25
+
     def __init__(self, engine, tokenizer: Tokenizer):
         self.engine = engine
         self.tokenizer = tokenizer
+
+    async def _harvest_finish_cost(self, agen, context):
+        """Drain a few more engine chunks (bounded) for the cost block
+        riding the engine's own finish; records and returns it, or None
+        on timeout or exhaustion. Without this, a request the Backend
+        finishes first (length cap, eos) would lose its cost
+        attribution."""
+        try:
+            while True:
+                raw = await asyncio.wait_for(agen.__anext__(),
+                                             self.COST_HARVEST_BOUND_S)
+                out = raw if isinstance(raw, EngineOutput) \
+                    else EngineOutput.from_dict(raw)
+                if out.cost is not None:
+                    profiling.record_attribution(context.id, out.cost)
+                    return out.cost
+                if out.finish_reason:
+                    return None
+        except (StopAsyncIteration, asyncio.TimeoutError):
+            return None
 
     async def generate(self, request: PreprocessedRequest,
                        context: Context) -> AsyncIterator[EngineOutput]:
@@ -124,7 +153,15 @@ class Backend:
         offload = env_bool("DYN_ASYNC_DETOK")
         loop = asyncio.get_running_loop() if offload else None
 
-        async for out in self.engine.generate(request, context):
+        agen = self.engine.generate(request, context)
+        async for raw in agen:
+            out = raw if isinstance(raw, EngineOutput) \
+                else EngineOutput.from_dict(raw)
+            if out.cost is not None:
+                # the engine's finish chunk carries its cost attribution;
+                # recording it here serves /v1/traces/{rid} in this
+                # process when the engine ran in another
+                profiling.record_attribution(context.id, out.cost)
             emit_ids: List[int] = []
             decode_ids: List[int] = []
             for tid in out.token_ids:
@@ -159,6 +196,15 @@ class Backend:
             out.completion_tokens = produced
             if out.finish_reason:
                 out.text = _final_text(released, stop_seq_hit=hit)
+                if out.cost is None and finished is not None and not hit:
+                    # the Backend's own stop (token cap, eos, stop token)
+                    # fired before the engine's finish, the chunk that
+                    # carries the cost block; the engine enforces the same
+                    # budget and eos, so its finish is already in flight.
+                    # Stop-string matches are skipped: the engine knows no
+                    # stop strings and would not finish within the bound
+                    out.cost = await self._harvest_finish_cost(agen,
+                                                               context)
                 yield out
                 context.stop_generating()
                 return

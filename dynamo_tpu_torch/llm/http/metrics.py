@@ -1,0 +1,266 @@
+"""Prometheus metrics for the HTTP frontend (hand-rolled text exposition).
+
+A copy of ``dynamo_tpu/llm/http/metrics.py``: the same ``PREFIX``,
+bucket bounds, label sets and families, so a dashboard built for the
+reference reads the port (reference lib/llm/src/http/service/metrics.rs:82-260):
+``dyn_llm_http_service_requests_total{model,endpoint,request_type,status}``,
+``..._inflight_requests{model}``, ``..._request_duration_seconds{model}``
+histogram, and the RAII ``InflightGuard`` that stamps status on drop.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+from typing import Dict, List, Optional, Tuple
+
+from ...runtime import slo
+
+PREFIX = "dyn_llm_http_service"
+
+# histogram buckets in seconds (reference uses prometheus defaults + LLM tail)
+BUCKETS = [0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+           30.0, 60.0, 120.0, 300.0]
+# TTFT shares the request-scale grid (LLM tail: queueing + prefill can
+# run to minutes) — dynaslo promoted TTFT from a sum/count summary to a
+# real histogram so p95/p99 are scrapeable
+TTFT_BUCKETS = BUCKETS
+# inter-token-latency buckets: tuned for token cadence (ms-scale steady
+# state, sub-second tail when a decode window or preemption stalls a
+# stream) — the request-scale BUCKETS would collapse all ITLs into the
+# first two buckets
+ITL_BUCKETS = [0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+               1.0, 2.5]
+# per-stage (trace span) durations: sub-ms transfer stages up to
+# multi-second prefills
+STAGE_BUCKETS = [0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0]
+
+
+class _Histogram:
+    """One labeled histogram family (cumulative buckets + sum + count)."""
+
+    def __init__(self, buckets: List[float]):
+        self.ubs = buckets
+        self.buckets: Dict[str, List[int]] = defaultdict(
+            lambda: [0] * (len(buckets) + 1))
+        self.sum: Dict[str, float] = defaultdict(float)
+        self.count: Dict[str, int] = defaultdict(int)
+
+    def observe(self, label: str, value: float) -> None:
+        self.sum[label] += value
+        self.count[label] += 1
+        b = self.buckets[label]
+        for i, ub in enumerate(self.ubs):
+            if value <= ub:
+                b[i] += 1
+        b[-1] += 1  # +Inf
+
+    def render(self, lines: List[str], metric: str, label_key: str) -> None:
+        for label in sorted(self.count):
+            for i, ub in enumerate(self.ubs):
+                lines.append(
+                    f'{metric}_bucket{{{label_key}="{label}",le="{ub}"}} '
+                    f'{self.buckets[label][i]}')
+            lines.append(
+                f'{metric}_bucket{{{label_key}="{label}",le="+Inf"}} '
+                f'{self.buckets[label][-1]}')
+            lines.append(f'{metric}_sum{{{label_key}="{label}"}} '
+                         f'{self.sum[label]}')
+            lines.append(f'{metric}_count{{{label_key}="{label}"}} '
+                         f'{self.count[label]}')
+
+
+class Metrics:
+    def __init__(self) -> None:
+        self.requests_total: Dict[Tuple[str, str, str, str], int] = defaultdict(int)
+        self.inflight: Dict[str, int] = defaultdict(int)
+        self.duration_buckets: Dict[str, List[int]] = defaultdict(
+            lambda: [0] * (len(BUCKETS) + 1))
+        self.duration_sum: Dict[str, float] = defaultdict(float)
+        self.duration_count: Dict[str, int] = defaultdict(int)
+        # streaming metrics. TTFT is a REAL histogram since dynaslo (the
+        # sum/count summary had no quantiles); its _sum/_count lines are
+        # unchanged for existing scrapers.
+        self.ttft = _Histogram(TTFT_BUCKETS)
+        self.output_tokens_total: Dict[str, int] = defaultdict(int)
+        # inter-token latency (streamed requests, gap between successive
+        # token-bearing chunks) — the pair metric TTFT alone can't show
+        self.itl = _Histogram(ITL_BUCKETS)
+        # per-stage durations fed from finished dyntrace spans
+        self.stage = _Histogram(STAGE_BUCKETS)
+        # dynaslo: the frontend's own SLO plane — objectives from the
+        # DYN_SLO_* registry evaluated over this process's TTFT/ITL/e2e
+        # histograms, plus per-request goodput (met-all-objectives)
+        self.slo_registry = slo.SloRegistry.from_env()
+        self.goodput = slo.GoodputTracker(self.slo_registry)
+        self.slo = slo.SloEngine(self.slo_registry, source=self._slo_source)
+
+    def guard(self, model: str, endpoint: str, request_type: str) -> "InflightGuard":
+        return InflightGuard(self, model, endpoint, request_type)
+
+    def observe_duration(self, model: str, seconds: float) -> None:
+        self.duration_sum[model] += seconds
+        self.duration_count[model] += 1
+        buckets = self.duration_buckets[model]
+        for i, ub in enumerate(BUCKETS):
+            if seconds <= ub:
+                buckets[i] += 1
+        buckets[-1] += 1  # +Inf
+
+    def observe_ttft(self, model: str, seconds: float) -> None:
+        self.ttft.observe(model, seconds)
+
+    def observe_itl(self, model: str, seconds: float) -> None:
+        self.itl.observe(model, seconds)
+
+    def observe_stage(self, stage: str, seconds: float) -> None:
+        self.stage.observe(stage, seconds)
+
+    # --------------------------------------------------------- dynaslo
+
+    def observe_request_slo(self, metrics: Dict[str, float]) -> None:
+        """Per-request goodput accounting: ``metrics`` maps metric name
+        (ttft/itl/e2e) → the request's scalar in seconds (ITL = the
+        request's mean gap). No-op without registered objectives."""
+        if self.slo_registry.objectives:
+            self.goodput.observe_request(metrics)
+
+    def _slo_source(self) -> Dict[str, slo.Histogram]:
+        """Cumulative metric → histogram view for the SLO engine: each
+        frontend family's per-model rows merged into one distribution
+        (the rows are CUMULATIVE bucket counts; dynaslo histograms keep
+        per-bucket counts plus +Inf)."""
+        out = {}
+        for metric, fam in (("ttft", self.ttft), ("itl", self.itl)):
+            h = _family_to_slo_hist(fam.ubs, fam.buckets.values(),
+                                    sum(fam.sum.values()),
+                                    sum(fam.count.values()))
+            if h is not None:
+                out[metric] = h
+        h = _family_to_slo_hist(BUCKETS, self.duration_buckets.values(),
+                                sum(self.duration_sum.values()),
+                                sum(self.duration_count.values()))
+        if h is not None:
+            out["e2e"] = h
+        return out
+
+    def slo_snapshot(self) -> dict:
+        """The frontend's GET /debug/slo payload."""
+        self.slo.tick()
+        snap = self.slo.snapshot()
+        snap["goodput"] = self.goodput.snapshot()
+        return snap
+
+    def count_output_tokens(self, model: str, n: int) -> None:
+        self.output_tokens_total[model] += n
+
+    def render(self) -> str:
+        lines: List[str] = []
+
+        def _h(name: str, typ: str, help_: str) -> None:
+            lines.append(f"# HELP {PREFIX}_{name} {help_}")
+            lines.append(f"# TYPE {PREFIX}_{name} {typ}")
+
+        _h("requests_total", "counter", "Total requests by model/endpoint/type/status")
+        for (model, endpoint, rtype, status), n in sorted(self.requests_total.items()):
+            lines.append(
+                f'{PREFIX}_requests_total{{model="{model}",endpoint="{endpoint}",'
+                f'request_type="{rtype}",status="{status}"}} {n}')
+        _h("inflight_requests", "gauge", "Requests currently being processed")
+        for model, n in sorted(self.inflight.items()):
+            lines.append(f'{PREFIX}_inflight_requests{{model="{model}"}} {n}')
+        _h("request_duration_seconds", "histogram", "Request duration")
+        for model in sorted(self.duration_count):
+            cum = 0
+            for i, ub in enumerate(BUCKETS):
+                cum = self.duration_buckets[model][i]
+                lines.append(
+                    f'{PREFIX}_request_duration_seconds_bucket{{model="{model}",'
+                    f'le="{ub}"}} {cum}')
+            lines.append(
+                f'{PREFIX}_request_duration_seconds_bucket{{model="{model}",'
+                f'le="+Inf"}} {self.duration_buckets[model][-1]}')
+            lines.append(
+                f'{PREFIX}_request_duration_seconds_sum{{model="{model}"}} '
+                f'{self.duration_sum[model]}')
+            lines.append(
+                f'{PREFIX}_request_duration_seconds_count{{model="{model}"}} '
+                f'{self.duration_count[model]}')
+        _h("time_to_first_token_seconds", "histogram",
+           "TTFT for streamed requests")
+        self.ttft.render(lines, f"{PREFIX}_time_to_first_token_seconds",
+                         "model")
+        _h("output_tokens_total", "counter", "Total generated tokens")
+        for model, n in sorted(self.output_tokens_total.items()):
+            lines.append(f'{PREFIX}_output_tokens_total{{model="{model}"}} {n}')
+        _h("itl_seconds", "histogram",
+           "Inter-token latency for streamed requests")
+        self.itl.render(lines, f"{PREFIX}_itl_seconds", "model")
+        _h("stage_duration_seconds", "histogram",
+           "Per-stage request durations from dyntrace spans")
+        self.stage.render(lines, f"{PREFIX}_stage_duration_seconds", "stage")
+        # dynaslo plane: objective attainment / burn rates / alerts over
+        # this process's TTFT/ITL/e2e histograms + per-request goodput
+        if self.slo_registry.objectives:
+            self.slo.tick()
+            lines.extend(self.slo.render_prom_lines())
+            lines.extend(self.goodput.render_prom_lines())
+        # dynaguard plane: route-fallback/hedge/deadline counters + per-
+        # endpoint circuit-breaker state gauges (guard.render_prom_lines)
+        from ...runtime import guard, profiling
+
+        lines.extend(guard.render_prom_lines())
+        # dynaprof plane: this process's event-loop lag + stall captures
+        lines.extend(profiling.render_prom_lines())
+        return "\n".join(lines) + "\n"
+
+
+def _family_to_slo_hist(ubs: List[float], rows, total_sum: float,
+                        total_count: int) -> Optional[slo.Histogram]:
+    """Merge a `_Histogram` family's per-label CUMULATIVE rows into one
+    dynaslo histogram (per-bucket counts + trailing +Inf)."""
+    rows = list(rows)
+    if not rows:
+        return None
+    cum = [0] * (len(ubs) + 1)
+    for row in rows:
+        for i, c in enumerate(row):
+            cum[i] += c
+    h = slo.Histogram(ubs)
+    prev = 0
+    for i in range(len(ubs)):
+        h.counts[i] = cum[i] - prev
+        prev = cum[i]
+    h.counts[-1] = cum[-1] - prev     # +Inf remainder
+    h.sum = total_sum
+    h.count = total_count
+    return h
+
+
+class InflightGuard:
+    """RAII-style guard (reference metrics.rs:188-260): counts inflight and
+    stamps the final status; default status is 'error' unless marked ok."""
+
+    def __init__(self, metrics: Metrics, model: str, endpoint: str,
+                 request_type: str):
+        self.metrics = metrics
+        self.model = model
+        self.endpoint = endpoint
+        self.request_type = request_type
+        self.status = "error"
+        self.t0 = time.monotonic()
+        # dynaslo: set once a stream has recorded its full goodput
+        # metric set, so the unary fallback doesn't double-count
+        self.slo_observed = False
+        metrics.inflight[model] += 1
+
+    def mark_ok(self) -> None:
+        self.status = "success"
+
+    def done(self) -> None:
+        m = self.metrics
+        m.inflight[self.model] -= 1
+        m.requests_total[(self.model, self.endpoint, self.request_type,
+                          self.status)] += 1
+        m.observe_duration(self.model, time.monotonic() - self.t0)

@@ -1,10 +1,27 @@
-"""Lean OpenAI-compatible HTTP service (aiohttp).
+"""OpenAI-compatible HTTP frontend (aiohttp).
 
-The serving subset of ``dynamo_tpu/llm/http/service.py``:
-``/v1/chat/completions`` and ``/v1/completions`` (SSE stream and unary),
-``/v1/models`` and ``/health``, with the same chunk and response shapes
-(``_chunk_dict``). Metrics, admission control, deadlines and the debug
-endpoints are not part of this service yet.
+The port of ``dynamo_tpu/llm/http/service.py``, with its 18 routes, status
+codes, headers and JSON shapes: ``/v1/chat/completions`` and
+``/v1/completions`` (SSE stream with a final ``[DONE]``, and unary),
+``/v1/models``, ``/metrics`` (``llm/http/metrics.py`` plus the guard and
+loop-profiler lines), ``/health`` and ``/live``, ``/v1/traces`` and
+``/v1/traces/{request_id}`` (``runtime/tracing.py`` spans and step
+timelines, and the request's cost attribution), ``/debug/cache``,
+``/debug/slo``, ``/debug/profile`` and ``/debug/profile/stacks``,
+``/debug/profile/start`` and ``/stop`` (an on-demand ``torch.profiler``
+trace: host ops and, on a CUDA host, the card's activity),
+``/debug/incidents*`` (``runtime/blackbox.py``) and ``POST /drain``.
+
+Every request carries an ``X-Request-Id`` (echoed or minted) and, when
+traced, a ``traceparent`` on every response. Admission control
+(``runtime/revive.py``) and a draining frontend answer 503 with a
+jittered ``Retry-After``; a request's deadline (the ``timeout`` body
+field, else ``X-Request-Deadline-Ms``, else ``DYN_REQUEST_DEADLINE_MS``)
+bounds the first-item pull and every stream pull and maps to 504 (a
+stream ends with a ``finish_reason: "timeout"`` chunk); ``n > 1`` runs n
+single-choice generations (seeds ``seed + i``) and merges their chunks.
+Engines are OpenAI-level async generators, so local chains
+(preprocessor → Backend → TorchEngine) and remote workers plug in alike.
 """
 
 from __future__ import annotations
@@ -12,18 +29,23 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import os
+import time
 import uuid
 from typing import Dict, Optional
 
 from aiohttp import web
 
+from ...runtime import blackbox, guard, profiling, revive, tracing
+from ...runtime.dcp_client import NoRespondersError
 from ...runtime.engine import Annotated, Context
-from ..protocols.openai import (ChatAggregator, ChatCompletionChunk,
-                                ChatCompletionRequest, CompletionAggregator,
-                                CompletionRequest, ModelInfo, ModelList, Usage)
+from ...runtime.tasks import spawn_tracked
+from ..protocols.openai import (ChatAggregator, ChatCompletionRequest,
+                                CompletionAggregator, CompletionRequest,
+                                ModelInfo, ModelList)
+from .metrics import Metrics
 
 log = logging.getLogger("dynamo_tpu_torch.http")
-
 
 class ModelManager:
     """Served model name → OpenAI-level engine callable, per endpoint."""
@@ -51,39 +73,322 @@ class ModelManager:
 
 
 class HttpService:
-    def __init__(self, manager: Optional[ModelManager] = None):
+    def __init__(self, manager: Optional[ModelManager] = None,
+                 metrics: Optional[Metrics] = None,
+                 admission: Optional[revive.AdmissionController] = None):
         self.manager = manager or ModelManager()
+        self.metrics = metrics or Metrics()
+        # dynarevive SLO-aware admission control: shed load (early 503 +
+        # load-derived jittered Retry-After) before the engines melt.
+        # None = admit everything (wire one with set_admission()).
+        self.admission = admission
         self.app = web.Application()
         self.app.add_routes([
             web.post("/v1/chat/completions", self._chat),
             web.post("/v1/completions", self._completions),
             web.get("/v1/models", self._models),
+            web.get("/v1/traces", self._traces),
+            web.get("/v1/traces/{request_id}", self._trace_one),
+            web.get("/debug/cache", self._debug_cache),
+            web.get("/debug/slo", self._debug_slo),
+            web.get("/debug/profile", self._debug_profile),
+            web.get("/debug/profile/stacks", self._debug_stacks),
+            web.post("/debug/profile/start", self._profile_start),
+            web.post("/debug/profile/stop", self._profile_stop),
+            web.get("/debug/incidents", self._incidents),
+            web.get("/debug/incidents/{incident_id}", self._incident_one),
+            web.post("/debug/incidents/capture", self._incident_capture),
+            web.post("/drain", self._drain),
+            web.get("/metrics", self._metrics),
             web.get("/health", self._health),
+            web.get("/live", self._health),
         ])
         self._runner: Optional[web.AppRunner] = None
-        self.port: Optional[int] = None
+        self.port = 0
+        # dynarevive graceful drain: POST /drain flips this — new
+        # requests get 503 while the registered drain callbacks run
+        # (serve handles / local engines finishing their in-flight work)
+        self.draining = False
+        self._drain_cbs: list = []
+        # on-demand torch.profiler capture state (/debug/profile/start):
+        # the running session and the directory its trace goes to
+        self._trace = None
+        self._trace_dir: Optional[str] = None
+        # summarize finished dyntrace spans into the per-stage duration
+        # histograms (dyn_llm_http_service_stage_duration_seconds)
+        tracing.get_tracer().add_listener(self._on_span_end)
+
+    def set_admission(self,
+                      admission: Optional[revive.AdmissionController]
+                      ) -> None:
+        self.admission = admission
+
+    def on_drain(self, cb) -> None:
+        """Register an async zero-arg drain callback run by POST /drain
+        (in registration order) after new admissions stop."""
+        self._drain_cbs.append(cb)
+
+    def _on_span_end(self, span) -> None:
+        if span.duration_s is not None:
+            self.metrics.observe_stage(span.name, span.duration_s)
+
+    # ------------------------------------------------------------ lifecycle
 
     async def start(self, host: str = "0.0.0.0", port: int = 8080) -> None:
-        """Bind and serve; ``port=0`` picks a free port (read ``.port``)."""
+        # dynaprof: always-on loop-lag monitor + stall watchdog for the
+        # frontend's event loop (refcounted; released in stop())
+        profiling.acquire_loop_profiler()
+        # dynablack: fold the frontend's SLO view into incident bundles
+        # (weakly held; a disabled recorder ignores everything)
+        rec = blackbox.get_recorder()
+        if rec.enabled:
+            rec.add_source("slo", self.metrics.slo_snapshot)
         self._runner = web.AppRunner(self.app, access_log=None)
         await self._runner.setup()
         site = web.TCPSite(self._runner, host, port)
         await site.start()
-        self.port = site._server.sockets[0].getsockname()[1]
+        self.port = site._server.sockets[0].getsockname()[1]  # type: ignore[union-attr]
+        log.info("OpenAI HTTP service on %s:%d", host, self.port)
 
     async def stop(self) -> None:
-        if self._runner is not None:
-            await self._runner.cleanup()
-            self._runner = None
+        # claim before the await: concurrent stop() calls must not
+        # double-cleanup or double-release the loop profiler
+        runner, self._runner = self._runner, None
+        if runner:
+            await runner.cleanup()
+            await profiling.release_loop_profiler()
+
+    # ------------------------------------------------------------- handlers
 
     async def _health(self, request: web.Request) -> web.Response:
         return web.json_response({
-            "status": "ok",
-            "models": sorted(set(self.manager.chat_engines)
-                             | set(self.manager.completion_engines))})
+            "status": "draining" if self.draining else "healthy",
+            "models": [m.id for m in self.manager.list_models().data]})
+
+    async def _drain(self, request: web.Request) -> web.Response:
+        """dynarevive graceful drain: stop admitting (every new request
+        503s with Retry-After), then run the registered drain callbacks
+        — worker handles finishing in-flight sequences bounded by
+        DYN_DRAIN_TIMEOUT_MS, KV event flushes, engine drains."""
+        if self.draining:
+            return web.json_response({"draining": True,
+                                      "already": True}, status=409)
+        self.draining = True
+        log.info("POST /drain: shedding new requests, running %d drain "
+                 "callbacks", len(self._drain_cbs))
+        results = []
+        for cb in self._drain_cbs:
+            try:
+                results.append(await cb())
+            # drain every target even when one callback fails; the
+            # per-target error is reported in the drain response, and no
+            # client request rides on this admin path
+            except Exception as e:  # noqa: BLE001
+                log.exception("drain callback failed")
+                results.append(f"error: {e!r}")
+        return web.json_response({"draining": True, "results":
+                                  [r if isinstance(r, (bool, str, int,
+                                                       float, type(None)))
+                                   else repr(r) for r in results]})
 
     async def _models(self, request: web.Request) -> web.Response:
         return web.json_response(self.manager.list_models().model_dump())
+
+    async def _metrics(self, request: web.Request) -> web.Response:
+        return web.Response(text=self.metrics.render(),
+                            content_type="text/plain", charset="utf-8")
+
+    async def _traces(self, request: web.Request) -> web.Response:
+        """Debug listing: recent traces (newest first) + the registered
+        engine step timelines (with their wall/monotonic anchor pairs,
+        so cross-worker rollups can put every ring on one time axis).
+        ``?limit=`` caps both listings (default 100 traces / 200 timeline
+        events); ``?since_ms=`` (epoch ms) is the incremental-poll
+        filter — the defaults keep the response bounded at production
+        ring sizes."""
+        try:
+            limit = _query_num(request, "limit", int)
+            since_ms = _query_num(request, "since_ms", float)
+        except ValueError as e:
+            return _error_response(400, str(e))
+        tracer = tracing.get_tracer()
+        return web.json_response({
+            "traces": tracer.traces_summary(
+                limit=limit if limit is not None else 100,
+                since_ms=since_ms),
+            "engine_steps": tracing.timelines_snapshot(
+                limit=limit if limit is not None else 200,
+                since_ms=since_ms),
+            "engine_step_anchors": tracing.timeline_anchors(),
+        })
+
+    async def _trace_one(self, request: web.Request) -> web.Response:
+        rid = request.match_info["request_id"]
+        data = tracing.get_tracer().get_request_trace(rid)
+        # dynaprof cost attribution joins the trace payload; it is also
+        # served alone when tracing was sampled out (attribution is
+        # always-on, spans are not)
+        cost = profiling.request_attribution(rid)
+        if data is None and cost is None:
+            return _error_response(404, f"no trace for request {rid!r}",
+                                   {"X-Request-Id": rid})
+        if data is None:
+            data = {"request_id": rid, "trace_id": None, "spans": [],
+                    "stages": {}}
+        if cost is not None:
+            data["cost"] = cost
+        return web.json_response(data, headers={"X-Request-Id": rid})
+
+    # ------------------------------------------------- dynaprof debug hooks
+
+    async def _debug_cache(self, request: web.Request) -> web.Response:
+        """dynacache snapshot: every registered cache view in the process
+        — per-engine pool/host-tier occupancy, windowed hit rate, hot
+        prefix chains, restore queue — plus the KV router's calibration
+        counters when a router runs here."""
+        return web.json_response({"caches": profiling.caches_snapshot()})
+
+    async def _debug_slo(self, request: web.Request) -> web.Response:
+        """dynaslo snapshot: the registered objectives, their windowed
+        attainment / error budget / fast+slow burn rates / alert state,
+        the planner-facing pressure signals, and goodput (per-request
+        met-all-objectives accounting)."""
+        return web.json_response(self.metrics.slo_snapshot())
+
+    async def _debug_profile(self, request: web.Request) -> web.Response:
+        """One-stop profiling snapshot: loop lag + stall-watchdog stats,
+        every live engine's sampled cost table, and the attribution ring
+        depth."""
+        prof = profiling.current_loop_profiler()
+        return web.json_response({
+            "loop": prof.snapshot() if prof is not None else None,
+            "engines": profiling.profiles_snapshot(),
+            "attributions": len(profiling.attributions_snapshot(10 ** 9)),
+            # the reference's key, so one client reads both frontends
+            "jax_trace_dir": self._trace_dir,
+        })
+
+    async def _debug_stacks(self, request: web.Request) -> web.Response:
+        """Flamegraph-ready collapsed-stack dump of event-loop stalls
+        (pipe straight into flamegraph.pl). ``?limit=`` keeps the top-N
+        hottest stacks (default 200); ``?since_ms=`` drops stacks not
+        sampled since that wall time."""
+        try:
+            limit = _query_num(request, "limit", int)
+            since_ms = _query_num(request, "since_ms", float)
+        except ValueError as e:
+            return _error_response(400, str(e))
+        text = profiling.stall_stacks_folded(
+            limit=limit if limit is not None else 200, since_ms=since_ms)
+        return web.Response(text=text,
+                            content_type="text/plain", charset="utf-8")
+
+    # ------------------------------------------------ dynablack incidents
+
+    async def _incidents(self, request: web.Request) -> web.Response:
+        """dynablack incident table: one summary row per captured (or
+        contributed-to) incident, newest first."""
+        rec = blackbox.get_recorder()
+        return web.json_response({
+            "enabled": rec.enabled,
+            "window_s": rec.window_s,
+            "cooldown_remaining_s": round(rec.cooldown_remaining_s(), 3),
+            "captures_total": rec.captures_total,
+            "suppressed_total": rec.suppressed_total,
+            "incidents": rec.incidents_summary(),
+        })
+
+    async def _incident_one(self, request: web.Request) -> web.Response:
+        """One full incident bundle, in the canonical serialization the
+        persisted file and the admin renderer consume."""
+        iid = request.match_info["incident_id"]
+        bundle = blackbox.get_recorder().get(iid)
+        if bundle is None:
+            return _error_response(404, f"no incident {iid!r}")
+        return web.Response(text=blackbox.render_bundle_json(bundle),
+                            content_type="application/json",
+                            charset="utf-8")
+
+    async def _incident_capture(self, request: web.Request) -> web.Response:
+        """Manual trip: capture now unless the cooldown debounce is
+        active (409 + Retry-After) or the recorder is disabled."""
+        rec = blackbox.get_recorder()
+        if not rec.enabled:
+            return _error_response(
+                409, "flight recorder disabled (DYN_BLACKBOX_WINDOW_S=0)")
+        remaining = rec.cooldown_remaining_s()
+        if remaining > 0:
+            return _error_response(
+                409, f"capture cooldown active ({remaining:.1f}s left)",
+                {"Retry-After": str(max(1, int(remaining + 0.999)))})
+        bundle = rec.trip("manual", {"via": "http"})
+        if bundle is None:
+            # raced into a cooldown, or DYN_BLACKBOX_TRIGGERS excludes
+            # 'manual'
+            return _error_response(
+                409, "capture suppressed (cooldown or trigger filter)",
+                {"Retry-After": str(max(1, int(rec.cooldown_s)))})
+        return web.json_response({
+            "id": bundle["id"], "trigger": bundle["trigger"],
+            "at_wall_ms": bundle["at_wall_ms"],
+            "workers": sorted(bundle["workers"]),
+        })
+
+    async def _profile_start(self, request: web.Request) -> web.Response:
+        """Start an on-demand ``torch.profiler`` trace of this process:
+        host ops on every thread and, on a CUDA host, the card's
+        activity. Body may carry {"dir": path}; defaults to
+        DYN_PROFILE_DIR or a temp dir. 409 while one runs, 501 when the
+        profiler cannot start."""
+        try:
+            body = await request.json()
+        # empty/absent body is fine; the parse awaits only the client's
+        # own bytes
+        except Exception:  # noqa: BLE001
+            body = {}
+        # busy-check AFTER the await: everything from here to the state
+        # write is sync, so a concurrent start cannot interleave
+        if self._trace_dir is not None:
+            return _error_response(409, "profiler trace already running "
+                                        f"({self._trace_dir})")
+        from ...runtime.config import env_str
+
+        trace_dir = (body or {}).get("dir") or env_str("DYN_PROFILE_DIR")
+        if not trace_dir:
+            import tempfile
+
+            trace_dir = tempfile.mkdtemp(prefix="dynaprof-torch-")
+        try:
+            import torch
+
+            from ...engine.profiler import trace_profiler
+
+            os.makedirs(trace_dir, exist_ok=True)
+            self._trace = trace_profiler(torch.cuda.is_available())
+        except Exception as e:  # noqa: BLE001 — capture is best-effort
+            return _error_response(501,
+                                   f"torch profiler unavailable: {e!r}")
+        self._trace_dir = trace_dir
+        return web.json_response({"started": True, "dir": trace_dir})
+
+    async def _profile_stop(self, request: web.Request) -> web.Response:
+        """Stop the trace and write it into its directory as
+        ``trace.pt.trace.json`` (a Chrome trace)."""
+        if self._trace_dir is None:
+            return _error_response(409, "no profiler trace running")
+        prof, self._trace = self._trace, None
+        trace_dir, self._trace_dir = self._trace_dir, None
+        try:
+            import torch
+
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            prof.stop()
+            await asyncio.to_thread(prof.export_chrome_trace, os.path.join(
+                trace_dir, "trace.pt.trace.json"))
+        except Exception as e:  # noqa: BLE001
+            return _error_response(500, f"stop_trace failed: {e!r}")
+        return web.json_response({"stopped": True, "dir": trace_dir})
 
     async def _chat(self, request: web.Request) -> web.StreamResponse:
         return await self._serve(request, ChatCompletionRequest,
@@ -95,57 +400,157 @@ class HttpService:
 
     async def _serve(self, request: web.Request, model_cls, engines: dict,
                      endpoint: str) -> web.StreamResponse:
+        # request identity: echo the client's X-Request-Id (or mint one) on
+        # EVERY response — SSE streams and error paths included — so logs,
+        # traces and client records join on one id
         rid = (request.headers.get("X-Request-Id") or "").strip()[:128] \
             or uuid.uuid4().hex
+        tracing.bind_request_id(rid)
+        tracer = tracing.get_tracer()
+        span = tracer.start_span(
+            "http.request",
+            parent=tracing.parse_traceparent(
+                request.headers.get("traceparent")),
+            attributes={"endpoint": endpoint, "method": request.method,
+                        "path": request.path},
+            request_id=rid)
         hdrs = {"X-Request-Id": rid}
-        try:
-            req = model_cls(**(await request.json()))
-        except Exception as e:  # noqa: BLE001 — any parse failure is a 400
-            return _error_response(400, f"invalid request: {e}", hdrs)
-        engine = engines.get(req.model)
-        if engine is None:
-            return _error_response(
-                404, f"model {req.model!r} not found; available: "
-                     f"{sorted(engines)}", hdrs)
-        if (getattr(req, "n", 1) or 1) > 1:
-            return _error_response(400, "n > 1 is not supported", hdrs)
-        ctx = Context(rid)
-        try:
-            aiter = engine(req, ctx).__aiter__()
-            # pull the first item BEFORE committing response headers so
-            # early failures (validation) map to clean errors
+        tp = tracing.format_traceparent(span)
+        if tp:
+            hdrs["traceparent"] = tp
+        with span:
             try:
-                first = await aiter.__anext__()
-            except StopAsyncIteration:
-                first = None
-            if req.stream:
-                return await self._sse(request, first, aiter, ctx, hdrs)
-            return await self._unary(req, first, aiter, endpoint, hdrs)
-        except ValueError as e:
-            return _error_response(400, str(e), hdrs)
-        except (ConnectionResetError, asyncio.CancelledError):
-            ctx.kill()
-            raise  # client went away; never answer a second time
-        except Exception as e:  # noqa: BLE001
-            log.exception("request %s failed", ctx.id)
-            return _error_response(500, repr(e), hdrs)
+                body = await request.json()
+                req = model_cls(**body)
+            # body parse/validation awaits only the client's own bytes —
+            # the typed guard errors cannot arise before dispatch, and
+            # 400 is the correct mapping for everything that can
+            except Exception as e:  # noqa: BLE001
+                return _error_response(400, f"invalid request: {e}", hdrs)
+            engine = engines.get(req.model)
+            if engine is None:
+                return _error_response(
+                    404, f"model {req.model!r} not found; available: "
+                         f"{sorted(engines)}", hdrs)
+            if self.draining:
+                # draining frontend: refuse new work, point clients at a
+                # sibling (the LB retries elsewhere within Retry-After)
+                return _error_response(
+                    503, "frontend draining",
+                    {**hdrs, "Retry-After": str(self._retry_after())},
+                    err_type="overloaded_error")
+            if self.admission is not None:
+                # dynarevive SLO-aware shed: answer an early 503 from
+                # load signals the stack already exports instead of
+                # queueing a request the engine will deadline anyway
+                retry_after = self.admission.admit()
+                if retry_after is not None:
+                    span.set_attribute("shed", True)
+                    return _error_response(
+                        503, "shedding load (overloaded)",
+                        {**hdrs, "Retry-After": str(retry_after)},
+                        err_type="overloaded_error")
+            span.set_attribute("model", req.model)
+            span.set_attribute("stream", bool(req.stream))
+            mguard = self.metrics.guard(
+                req.model, endpoint, "stream" if req.stream else "unary")
+            # end-to-end deadline: `timeout` body field (seconds) beats the
+            # X-Request-Deadline-Ms header beats the registered default
+            deadline = _request_deadline(request, req)
+            ctx = Context(rid, deadline=deadline)
+            try:
+                t0 = time.monotonic()
+                n = getattr(req, "n", 1) or 1
+                if n > 1:
+                    aiter = _fanout_choices(engine, req, ctx, n).__aiter__()
+                else:
+                    aiter = engine(req, ctx).__aiter__()
+                # pull the first item BEFORE committing response headers so
+                # early failures (validation, routing) map to clean errors;
+                # the pull itself is bounded by the request deadline
+                try:
+                    first = await guard.bound(aiter.__anext__(),
+                                              deadline=deadline,
+                                              what="first response item")
+                except StopAsyncIteration:
+                    first = None
+                if req.stream:
+                    return await self._sse(request, req, first, aiter, ctx,
+                                           mguard, t0, hdrs, endpoint)
+                return await self._unary(req, first, aiter, endpoint,
+                                         mguard, hdrs, deadline)
+            except guard.DeadlineExceeded as e:
+                ctx.kill()  # release whatever is still running upstream
+                return _error_response(504, f"deadline exceeded: {e}",
+                                       hdrs, err_type="timeout_error")
+            except guard.NoCapacity as e:
+                # no live/healthy instance right now: retryable, tell the
+                # client when to come back — not a 500. The Retry-After
+                # is load-derived and jittered (dynarevive): a constant
+                # "1" synchronized every client's retry into a second
+                # stampede against a recovering fleet.
+                return _error_response(
+                    503, str(e),
+                    {**hdrs, "Retry-After": str(self._retry_after())},
+                    err_type="overloaded_error")
+            except NoRespondersError as e:
+                return _error_response(
+                    503, str(e),
+                    {**hdrs, "Retry-After": str(self._retry_after())},
+                    err_type="overloaded_error")
+            except ValueError as e:
+                return _error_response(400, str(e), hdrs)
+            except (ConnectionResetError, asyncio.CancelledError):
+                ctx.kill()
+                raise  # client went away; never answer a second time
+            except Exception as e:  # noqa: BLE001
+                log.exception("request %s failed", ctx.id)
+                return _error_response(500, repr(e), hdrs)
+            finally:
+                # dynaslo goodput: streams record their full
+                # ttft/itl/e2e set in _sse; everything else that entered
+                # serving (unary, 5xx) is judged on e2e alone
+                if not getattr(mguard, "slo_observed", False):
+                    self.metrics.observe_request_slo(
+                        {"e2e": time.monotonic() - mguard.t0})
+                mguard.done()
 
-    async def _sse(self, http_request: web.Request, first, aiter,
-                   ctx: Context, hdrs: dict) -> web.StreamResponse:
+    def _retry_after(self) -> int:
+        """Retry-After seconds for 503s: the admission controller's
+        pressure-derived jittered value when one is wired, else the
+        unit-pressure jitter (never the old synchronized constant 1)."""
+        if self.admission is not None:
+            _, pressure = self.admission.evaluate()
+            return self.admission.retry_after(max(pressure, 1.0))
+        return revive.retry_after_s()
+
+    async def _sse(self, http_request: web.Request, req, first, aiter,
+                   ctx: Context, mguard, t0: float,
+                   hdrs: Optional[dict] = None,
+                   endpoint: str = "completions") -> web.StreamResponse:
         resp = web.StreamResponse(headers={
             "Content-Type": "text/event-stream",
             "Cache-Control": "no-cache",
             "Connection": "keep-alive",
-            **hdrs,
+            **(hdrs or {}),
         })
         await resp.prepare(http_request)
+        errored = False
+        saw_first_token = False
+        last_token_t: Optional[float] = None
+        # dynaslo goodput inputs for this request (mean ITL over the gaps)
+        ttft_s: Optional[float] = None
+        itl_total, itl_n = 0.0, 0
 
         async def _write_chunk(chunk) -> bool:
             """Writes one stream item; returns False to stop the stream."""
+            nonlocal errored, saw_first_token, last_token_t
+            nonlocal ttft_s, itl_total, itl_n
             if chunk is None:
                 return True
             if isinstance(chunk, Annotated) and chunk.event and chunk.data is None:
                 if chunk.is_error:
+                    errored = True
                     await resp.write(
                         b"event: error\ndata: " +
                         json.dumps(chunk.error_message()).encode() + b"\n\n")
@@ -156,39 +561,92 @@ class HttpService:
                     json.dumps(chunk.comment).encode() + b"\n\n")
                 return True
             data = _chunk_dict(chunk)
-            if data is not None:
-                await resp.write(b"data: " + json.dumps(data).encode() + b"\n\n")
+            if data is None:
+                return True
+            now = time.monotonic()
+            if not saw_first_token:
+                ttft_s = now - t0
+                self.metrics.observe_ttft(req.model, ttft_s)
+                saw_first_token = True
+            elif last_token_t is not None:
+                # inter-token latency: gap between successive data chunks
+                self.metrics.observe_itl(req.model, now - last_token_t)
+                itl_total += now - last_token_t
+                itl_n += 1
+            last_token_t = now
+            await resp.write(b"data: " + json.dumps(data).encode() + b"\n\n")
             return True
 
-        errored = False
         try:
             if await _write_chunk(first):
-                async for chunk in aiter:
-                    if not await _write_chunk(chunk):
-                        errored = True
+                while True:
+                    # each pull is bounded by the request deadline: a
+                    # wedged upstream turns into a clean final timeout
+                    # chunk, never a hung stream
+                    try:
+                        chunk = await guard.bound(
+                            aiter.__anext__(), deadline=ctx.deadline,
+                            what="stream item")
+                    except StopAsyncIteration:
                         break
-            else:
-                errored = True
+                    if not await _write_chunk(chunk):
+                        break
             if not errored:
                 await resp.write(b"data: [DONE]\n\n")
+                mguard.mark_ok()
         except (ConnectionResetError, asyncio.CancelledError):
             ctx.kill()  # client went away → propagate cancellation upstream
             raise
+        except guard.DeadlineExceeded:
+            # deadline ran out mid-stream and the engine chain could not
+            # emit its own finish: close the stream with a well-formed
+            # final chunk carrying finish_reason "timeout"
+            ctx.kill()
+            try:
+                await resp.write(
+                    b"data: " +
+                    json.dumps(_timeout_chunk(endpoint, req.model,
+                                              ctx.id)).encode() + b"\n\n")
+                await resp.write(b"data: [DONE]\n\n")
+            except (ConnectionError, RuntimeError):
+                pass
         except Exception as e:  # noqa: BLE001 — headers are committed; emit
             # an SSE error event instead of a second response
             log.exception("stream %s failed mid-flight", ctx.id)
-            await resp.write(b"event: error\ndata: " +
-                             json.dumps(repr(e)).encode() + b"\n\n")
+            errored = True
+            try:
+                await resp.write(b"event: error\ndata: " +
+                                 json.dumps(repr(e)).encode() + b"\n\n")
+            except (ConnectionError, RuntimeError):
+                pass
+        # dynaslo goodput: one verdict per stream that ran to a close
+        # (clean, timeout or error — a failed stream is a bad-latency
+        # observation, not a skipped one); disconnects re-raised above
+        req_slo = {"e2e": time.monotonic() - t0}
+        if ttft_s is not None:
+            req_slo["ttft"] = ttft_s
+        if itl_n:
+            req_slo["itl"] = itl_total / itl_n
+        self.metrics.observe_request_slo(req_slo)
+        mguard.slo_observed = True
         await resp.write_eof()
         return resp
 
     async def _unary(self, req, first, aiter, endpoint: str,
-                     hdrs: dict) -> web.Response:
+                     mguard, hdrs: Optional[dict] = None,
+                     deadline=None) -> web.Response:
         async def _items():
+            # every pull bounded by the request deadline: the 504 path in
+            # _serve handles the resulting DeadlineExceeded
             if first is not None:
                 yield first
-            async for item in aiter:
-                yield item
+            while True:
+                try:
+                    yield await guard.bound(aiter.__anext__(),
+                                            deadline=deadline,
+                                            what="response item")
+                except StopAsyncIteration:
+                    return
 
         if endpoint == "chat_completions":
             agg = ChatAggregator(req.model)
@@ -196,10 +654,21 @@ class HttpService:
                 if isinstance(chunk, Annotated) and chunk.is_error:
                     return _error_response(500, chunk.error_message(), hdrs)
                 data = _chunk_dict(chunk)
-                if data is not None:
-                    agg.add_chunk(ChatCompletionChunk(**data))
-            return web.json_response(
-                agg.response().model_dump(exclude_none=True), headers=hdrs)
+                if data is None:
+                    continue
+                from ..protocols.openai import ChatCompletionChunk
+
+                agg.add_chunk(ChatCompletionChunk(**data))
+            out = agg.response()
+            if any(c.finish_reason == "timeout" for c in out.choices):
+                # unary semantics: a partial answer is not an answer —
+                # deadline expiry maps to 504 (streams instead end with a
+                # finish_reason "timeout" chunk)
+                return _error_response(504, "deadline exceeded", hdrs,
+                                       err_type="timeout_error")
+            mguard.mark_ok()
+            return web.json_response(out.model_dump(exclude_none=True),
+                                     headers=hdrs)
         agg = CompletionAggregator(req.model)
         async for chunk in _items():
             if isinstance(chunk, Annotated) and chunk.is_error:
@@ -213,9 +682,183 @@ class HttpService:
                              index=choice.get("index", 0),
                              logprobs=choice.get("logprobs"))
             if data.get("usage"):
+                from ..protocols.openai import Usage
+
                 agg.usage = Usage(**data["usage"])
-        return web.json_response(
-            agg.response().model_dump(exclude_none=True), headers=hdrs)
+        out = agg.response()
+        if any(c.finish_reason == "timeout" for c in out.choices):
+            return _error_response(504, "deadline exceeded", hdrs,
+                                   err_type="timeout_error")
+        mguard.mark_ok()
+        return web.json_response(out.model_dump(exclude_none=True),
+                                 headers=hdrs)
+
+
+async def _fanout_choices(engine, req, ctx: Context, n: int):
+    """n>1 (OpenAI parallel sampling): run n single-choice generations
+    concurrently — each a full pipeline pass whose prompt prefill the
+    engine's prefix cache dedups after the first — and multiplex their
+    chunks with per-stream choice indices. The reference inherits n from
+    vLLM's SamplingParams; here it composes from the existing machinery.
+
+    Seeds: an explicit request seed derives per-choice seeds (seed+i, so
+    the choices differ but the SET is reproducible); no seed keeps each
+    stream's own entropy. Cancellation: the outer context's stop/kill
+    propagates to every child stream. Annotation events (comments,
+    formatted_prompt) pass through from choice 0 only — n identical
+    copies would duplicate them."""
+    import time as _time
+    import uuid as _uuid
+
+    queue: asyncio.Queue = asyncio.Queue()
+    DONE = object()
+    kids = [Context(f"{ctx.id}-c{i}") for i in range(n)]
+    # ONE stream identity: OpenAI streaming semantics give all chunks of
+    # a response a single id/created, choices distinguished by index.
+    # The id PREFIX is derived from the first child chunk that carries
+    # one ("cmpl-..." for completions, "chatcmpl-..." for chat) so n>1
+    # completions streams keep their endpoint's id shape.
+    stream_id = None
+    created = int(_time.time())
+
+    def child_req(i):
+        upd = {"n": 1}
+        if getattr(req, "seed", None) is not None:
+            upd["seed"] = req.seed + i
+        return req.model_copy(update=upd)
+
+    async def pump(i):
+        try:
+            async for chunk in engine(child_req(i), kids[i]):
+                await queue.put((i, chunk))
+        # not a swallow: the exception object is forwarded through the
+        # queue and re-raised by the merge loop, so the typed guard
+        # errors still reach _serve's 504/503 mappers
+        except Exception as e:  # noqa: BLE001
+            await queue.put((i, e))
+        finally:
+            await queue.put((i, DONE))
+
+    async def propagate_cancel():
+        await ctx.wait_stopped()  # kill() sets _stop too
+        for k in kids:
+            (k.kill if ctx.killed else k.stop_generating)()
+
+    tasks = [spawn_tracked(pump(i), name=f"fanout-pump-{i}")
+             for i in range(n)]
+    canceller = spawn_tracked(propagate_cancel(), name="fanout-cancel")
+    live = n
+    merged_usage = None
+    usage_template = None
+    try:
+        while live:
+            # bounded by the request deadline (504/timeout-chunk upstream)
+            i, item = await guard.bound(queue.get(), deadline=ctx.deadline,
+                                        what="fanout item")
+            if item is DONE:
+                live -= 1
+                continue
+            if isinstance(item, Exception):
+                raise item
+            if isinstance(item, Annotated) and item.data is None:
+                if item.is_error or i == 0:
+                    yield item
+                continue
+            u = _chunk_usage(item)
+            if u is not None:
+                # one merged usage chunk at the end (OpenAI semantics:
+                # completion tokens sum over choices, shared prompt
+                # once). Per-child usage never passes through — even on
+                # chunks that also carry choices — or aggregators would
+                # double-count it against the merged chunk
+                from ..protocols.openai import Usage, _merge_usage
+
+                merged_usage = _merge_usage(merged_usage, Usage(**u))
+                usage_template = item
+                if not _chunk_choices(item):
+                    continue  # usage-only chunk: held back entirely
+                item = _strip_usage(item)
+            if stream_id is None:
+                cid = _chunk_id(item)
+                if cid is not None:
+                    prefix = cid.split("-", 1)[0] if "-" in cid \
+                        else "chatcmpl"
+                    stream_id = f"{prefix}-{_uuid.uuid4().hex}"
+            yield _reindex(item, i, stream_id, created)
+        if merged_usage is not None and usage_template is not None:
+            yield _reindex(_set_usage(usage_template, merged_usage),
+                           0, stream_id, created)
+    finally:
+        canceller.cancel()
+        for k in kids:
+            k.stop_generating()
+        for t in tasks:
+            t.cancel()
+
+
+def _chunk_target(chunk):
+    return chunk.data if isinstance(chunk, Annotated) else chunk
+
+
+def _chunk_usage(chunk):
+    t = _chunk_target(chunk)
+    if isinstance(t, dict):
+        return t.get("usage")
+    u = getattr(t, "usage", None)
+    return u.model_dump() if u is not None else None
+
+
+def _chunk_id(chunk):
+    t = _chunk_target(chunk)
+    if isinstance(t, dict):
+        return t.get("id")
+    return getattr(t, "id", None)
+
+
+def _chunk_choices(chunk):
+    t = _chunk_target(chunk)
+    if isinstance(t, dict):
+        return t.get("choices") or []
+    return getattr(t, "choices", None) or []
+
+
+def _set_usage(chunk, usage):
+    t = _chunk_target(chunk)
+    if isinstance(t, dict):
+        t = dict(t, usage=usage.model_dump(), choices=[])
+        if isinstance(chunk, Annotated):
+            return Annotated(data=t)
+        return t
+    t = t.model_copy(update={"usage": usage, "choices": []})
+    return Annotated(data=t.model_dump(exclude_none=True))         if isinstance(chunk, Annotated) else t
+
+
+def _reindex(chunk, i: int, stream_id=None, created=None):
+    """Stamp a child stream's chunk with its choice index and (for n>1
+    streams) the single parent-stream id/created."""
+    target = chunk.data if isinstance(chunk, Annotated) else chunk
+    if isinstance(target, dict):
+        for c in target.get("choices", []):
+            c["index"] = i
+        if stream_id is not None and "id" in target:
+            target["id"] = stream_id
+            target["created"] = created
+    elif hasattr(target, "choices"):
+        for c in target.choices:
+            c.index = i
+        if stream_id is not None and hasattr(target, "id"):
+            target.id = stream_id
+            target.created = created
+    return chunk
+
+
+def _strip_usage(chunk):
+    target = chunk.data if isinstance(chunk, Annotated) else chunk
+    if isinstance(target, dict):
+        target.pop("usage", None)
+    elif hasattr(target, "usage"):
+        target.usage = None
+    return chunk
 
 
 def _chunk_dict(chunk) -> Optional[dict]:
@@ -233,9 +876,57 @@ def _chunk_dict(chunk) -> Optional[dict]:
     return chunk
 
 
+def _request_deadline(http_request: web.Request, req):
+    """Resolve the request's end-to-end deadline: `timeout` body field
+    (seconds) > X-Request-Deadline-Ms header > DYN_REQUEST_DEADLINE_MS
+    registered default > none."""
+    body_timeout = getattr(req, "timeout", None)
+    if body_timeout is not None and body_timeout > 0:
+        return guard.Deadline.after_s(float(body_timeout))
+    hdr = (http_request.headers.get("X-Request-Deadline-Ms") or "").strip()
+    if hdr:
+        try:
+            return guard.Deadline.from_wire_ms(float(hdr))
+        except ValueError:
+            log.warning("ignoring malformed X-Request-Deadline-Ms %r", hdr)
+    return guard.default_deadline()
+
+
+def _timeout_chunk(endpoint: str, model: str, rid: str) -> dict:
+    """Well-formed final SSE chunk closing a stream whose deadline
+    expired before the engine chain could emit its own finish."""
+    import time as _time
+
+    if endpoint == "chat_completions":
+        return {"id": f"chatcmpl-{rid}", "object": "chat.completion.chunk",
+                "created": int(_time.time()), "model": model,
+                "choices": [{"index": 0, "delta": {},
+                             "finish_reason": "timeout"}]}
+    return {"id": f"cmpl-{rid}", "object": "text_completion",
+            "created": int(_time.time()), "model": model,
+            "choices": [{"index": 0, "text": "",
+                         "finish_reason": "timeout"}]}
+
+
+def _query_num(request: web.Request, name: str, cast):
+    """Optional numeric query param; raises ValueError with a client-
+    facing message on junk (mapped to 400 by the handlers)."""
+    raw = request.query.get(name)
+    if raw is None or raw == "":
+        return None
+    try:
+        return cast(raw)
+    except (TypeError, ValueError):
+        raise ValueError(f"query param {name!r} must be numeric, "
+                         f"got {raw!r}") from None
+
+
 def _error_response(status: int, message: str,
-                    headers: Optional[dict] = None) -> web.Response:
-    err_type = "invalid_request_error" if status < 500 else "internal_error"
+                    headers: Optional[dict] = None,
+                    err_type: Optional[str] = None) -> web.Response:
+    if err_type is None:
+        err_type = ("invalid_request_error" if status < 500
+                    else "internal_error")
     return web.json_response(
         {"error": {"message": message, "type": err_type, "code": status}},
         status=status, headers=headers)

@@ -116,11 +116,19 @@ after warmup and its kernel launches (int8 GEMM calls by route) and
 graph replays since warmup (in ``in=text`` and ``in=batch`` to standard
 error, where it stays out of the mode's output).
 
+``--model-id ID`` resolves a model id to a local checkpoint
+(``models/hub.py``: a local directory as is, else the HuggingFace cache,
+then the hub) and serves it as ``--model-path`` would, named after the
+id unless ``--model-name`` is given. ``in=http`` over a local engine
+wires the service's admission control to the engine's own load signals
+(``runtime/revive.py``; it sheds nothing until ``DYN_SHED_*`` is set) and
+``POST /drain`` to the engine's ``drain()`` (``DYN_DRAIN_TIMEOUT_MS``).
+
 The JAX launcher's flags of features not ported yet are parsed, so its
 command lines run unchanged, and refused at any value but their default:
-``--model-id`` (the HF hub resolver), ``--sequence-parallel-size``,
-``--long-prefill-threshold``, ``--mesh-shape`` and ``--dp-replicas``
-(sequence parallelism and replica sets).
+``--sequence-parallel-size``, ``--long-prefill-threshold``,
+``--mesh-shape`` and ``--dp-replicas`` (sequence parallelism and replica
+sets).
 """
 
 from __future__ import annotations
@@ -151,8 +159,6 @@ PY_ENGINES = ("pystr:", "pytok:")
 # what is missing). Each parses, and any other value than the default
 # exits naming what is missing
 NOT_PORTED = (
-    ("model_id", None, "--model-id (the HF hub resolver, models/hub.py) is "
-     "not ported: pass a local checkpoint with --model-path"),
     ("sequence_parallel_size", 1, "--sequence-parallel-size (the seq mesh "
      "axis and ring-attention prefill) is not ported"),
     ("long_prefill_threshold", None, "--long-prefill-threshold (the ring-"
@@ -181,8 +187,10 @@ def parse_args(argv=None):
                     help="local HF-style checkpoint directory (config.json "
                          "+ safetensors) to serve")
     ap.add_argument("--model-id", default=None,
-                    help="HuggingFace model id (the JAX launcher's flag; "
-                         "not ported: refused)")
+                    help="HuggingFace model id or local directory, "
+                         "resolved to a checkpoint directory (local "
+                         "cache first, then the hub) and served as "
+                         "--model-path")
     ap.add_argument("--model-name", help="served model name")
     ap.add_argument("--model", default=None,
                     help="preset: tiny (default), 1b or 8b")
@@ -267,6 +275,12 @@ def parse_args(argv=None):
     for key, default, what in NOT_PORTED:
         if getattr(args, key) != default:
             ap.error(what)
+    if args.model_id and not args.model_path:
+        from .models.hub import resolve_model
+
+        args.model_path = resolve_model(args.model_id)
+        if not args.model_name:
+            args.model_name = args.model_id
     front = args.output == "dyn" or args.output.startswith("dyn://")
     if not (front or is_engine(args.output)):
         ap.error(f"unknown out={args.output!r}: this launcher takes "
@@ -581,7 +595,9 @@ async def serve_http(engine, mdc, host: str, port: int, full: bool = False):
     ``.port`` is the bound port — pass ``port=0`` for a free one). A
     token-level engine serves chat and completions behind the
     preprocessor and the Backend; an OpenAI-level one (``full``) is the
-    chat model itself."""
+    chat model itself. An engine with ``stats()`` feeds the service's
+    admission control, and one with ``drain()`` is what ``POST /drain``
+    drains."""
     from .llm.engines import LocalChatChain, LocalCompletionChain
     from .llm.http.service import HttpService, ModelManager
 
@@ -594,6 +610,17 @@ async def serve_http(engine, mdc, host: str, port: int, full: bool = False):
         manager.add_chat_model(mdc.name, chat)
         manager.add_completions_model(mdc.name, comp)
     svc = HttpService(manager)
+    from .runtime import revive
+
+    if hasattr(engine, "stats"):
+        # admission control over the engine's own load signals; sheds
+        # nothing until DYN_SHED_* thresholds are set
+        svc.set_admission(revive.AdmissionController(
+            lambda: revive.signals_from_stats(engine.stats())))
+    if hasattr(engine, "drain"):
+        # POST /drain: stop admitting, finish what is in flight bounded
+        # by DYN_DRAIN_TIMEOUT_MS
+        svc.on_drain(lambda: engine.drain(revive.drain_timeout_s()))
     await svc.start(host, port)
     return svc
 
@@ -837,28 +864,17 @@ def profiled(args, run) -> None:
         run()
         return
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from torch._C._profiler import _ExperimentalConfig
+    from .engine.profiler import trace_profiler
 
-    activities = [ProfilerActivity.CPU]
-    if args.device.startswith("cuda") and args.output == "torch":
-        activities.append(ProfilerActivity.CUDA)
-    try:
-        # the engine's work runs on its executor's and asyncio's threads
-        config = _ExperimentalConfig(profile_all_threads=True)
-    except TypeError:
-        log.warning("this torch's profiler records the host ops of the "
-                    "main thread only")
-        config = _ExperimentalConfig()
+    cuda = args.device.startswith("cuda") and args.output == "torch"
     os.makedirs(args.profile_dir, exist_ok=True)
-    prof = profile(activities=activities, experimental_config=config)
-    prof.start()
+    prof = trace_profiler(cuda)
     try:
         run()
     finally:
         prof.stop()
-        if torch.cuda.is_available() and ProfilerActivity.CUDA in activities:
+        if cuda and torch.cuda.is_available():
             torch.cuda.synchronize()
         path = os.path.join(args.profile_dir,
                             f"rank{args.process_id}.pt.trace.json")

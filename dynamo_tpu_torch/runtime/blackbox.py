@@ -1,0 +1,514 @@
+"""dynablack: the incident flight recorder.
+
+A copy of ``dynamo_tpu/runtime/blackbox.py`` (pure Python). Every
+telemetry plane is sampled, windowed or ring-bounded (DYN_TRACE_SAMPLE,
+the profiler's sample rate, the bounded stall table): right for
+steady-state overhead, useless when the evidence of *why* a burn-rate
+alert fired or a breaker opened has already rotated out. This module
+captures it when something trips:
+
+- :class:`ShadowRing` — a bounded, lock-free per-worker event ring with
+  the dyntrace anchor-pair discipline (``anchor_wall`` +
+  ``anchor_monotonic`` stamped once; every event carries a ``mono_ms``
+  offset) so rings from different workers align on one timeline.
+- :class:`FlightRecorder` — holds the rings, a trigger registry, and a
+  bounded incident table. On :meth:`trip` it freezes the rings,
+  assembles a JSON **incident bundle** folding the last
+  ``DYN_BLACKBOX_WINDOW_S`` seconds of *existing* telemetry (tracer
+  spans, step timelines, profiler/cache/memory snapshots, loop lag,
+  stall stacks, request attributions, guard counters, breaker state,
+  engine stats), persists it under ``DYN_BLACKBOX_DIR``, and debounces
+  with ``DYN_BLACKBOX_COOLDOWN_S``.
+- Trigger notifications (:func:`notify_trigger`, :func:`note_deadline`)
+  wired from the events that already exist: SLO burn-rate trips
+  (slo.py), breaker ``closed→open`` (guard.py), post-warmup captures
+  (engine/jit_fence.py), watchdog stall captures (profiling.py), and
+  deadline storms (N timeouts in W seconds).
+- :func:`capture_header` builds the ``blackbox.capture`` wire frame of
+  the capture fan-out between sibling workers. The fan-out itself over
+  the control plane (the reference's ``broadcast_capture`` /
+  ``attach_dcp``, with the capture listeners and the merging of a
+  sibling's rings they feed), the ``failover_resume`` trigger and the
+  chaos state of a bundle come with the runtime plane's fault handling;
+  until then a bundle's ``chaos`` is ``None``.
+
+Hot-path contract: an armed-but-untripped recorder costs one global
+read + a ``None``/bool check per :func:`note` call and *nothing*
+anywhere else — every fold of real telemetry happens at capture time,
+on the cold path.
+
+Trigger sources lazy-import this module inside their cold event paths;
+this module lazy-imports tracing/profiling/guard at capture time, so no
+import cycle exists at module load.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+import weakref
+from collections import OrderedDict, deque
+from typing import Any, Callable, Dict, List, Optional
+
+from .config import env_float, env_str
+from .tracing import json_safe
+
+log = logging.getLogger("dynamo_tpu_torch.blackbox")
+
+#: every trigger the registry knows; DYN_BLACKBOX_TRIGGERS filters this.
+TRIGGERS = ("slo_burn_rate", "breaker_open", "post_warmup_compile",
+            "watchdog_stall", "failover_resume", "deadline_storm", "manual")
+
+# deadline storm: this many DeadlineExceeded within this window = trip
+STORM_N = 8
+STORM_WINDOW_S = 5.0
+
+#: DCP subject the capture fan-out rides on (namespaced by the caller)
+BLACKBOX_SUBJECT = "blackbox.capture"
+
+
+# ------------------------------------------------------------- shadow ring
+
+
+class ShadowRing:
+    """Bounded per-worker event ring, lock-free on the append path.
+
+    ``deque.append`` on a ``maxlen`` deque is a single GIL-atomic
+    operation, so writers from any thread never contend and never grow
+    the ring (the dynaprof ring idiom). Anchors follow the StepTimeline
+    pair discipline: stamped once at construction (and on
+    :meth:`restamp` after a restart), events carry only the monotonic
+    offset, wall time is derived at export."""
+
+    __slots__ = ("label", "anchor_wall", "anchor_monotonic",
+                 "_events", "_clock", "_wall")
+
+    def __init__(self, label: str, maxlen: int = 512,
+                 clock: Callable[[], float] = time.monotonic,
+                 wall: Callable[[], float] = time.time):
+        self.label = label
+        self._clock = clock
+        self._wall = wall
+        self._events: deque = deque(maxlen=maxlen)  # bounded ring
+        self.anchor_wall = 0.0
+        self.anchor_monotonic = 0.0
+        self.restamp()
+
+    def restamp(self) -> None:
+        """Re-stamp the anchor pair (worker restart): events recorded
+        after a restamp must never alias pre-restart ``mono_ms`` values,
+        so the ring is cleared with the anchors."""
+        self._events.clear()
+        self.anchor_monotonic = self._clock()
+        self.anchor_wall = self._wall()
+
+    def note(self, kind: str, **fields: Any) -> None:
+        """Append one event. Hot-path safe: no formatting, no locks —
+        fields are stored raw and coerced JSON-safe only at capture."""
+        fields["kind"] = kind
+        fields["mono_ms"] = round(
+            (self._clock() - self.anchor_monotonic) * 1000.0, 3)
+        self._events.append(fields)
+
+    def __len__(self) -> int:
+        return len(self._events)
+
+    def anchors(self) -> dict:
+        return {"anchor_wall": round(self.anchor_wall, 6),
+                "anchor_monotonic": round(self.anchor_monotonic, 6)}
+
+    def snapshot(self, window_s: Optional[float] = None) -> List[dict]:
+        """Events (oldest first), optionally only the last ``window_s``
+        seconds, as JSON-safe dicts with derived ``ts_ms`` wall stamps."""
+        items = [dict(e) for e in self._events]
+        if window_s is not None and window_s > 0:
+            cutoff = ((self._clock() - self.anchor_monotonic)
+                      - window_s) * 1000.0
+            items = [e for e in items if e.get("mono_ms", 0.0) >= cutoff]
+        base_ms = self.anchor_wall * 1000.0
+        for e in items:
+            e["ts_ms"] = round(base_ms + e.get("mono_ms", 0.0), 3)
+        return [json_safe(e) for e in items]
+
+    def export(self, window_s: Optional[float] = None) -> dict:
+        return {"anchors": self.anchors(),
+                "events": self.snapshot(window_s)}
+
+
+# --------------------------------------------------------- flight recorder
+
+
+class FlightRecorder:
+    """Shadow rings + trigger registry + bounded incident table.
+
+    Everything time-related is injectable (``clock``/``wall``/
+    ``id_factory``) so the fleet simulator can run the recorder on its
+    virtual clock and produce byte-identical bundles per seed.
+    ``include_process_state=False`` skips the live-process telemetry
+    fold (tracer/profiler/guard globals) — the sim uses it because those
+    globals are not part of the deterministic virtual world."""
+
+    def __init__(self, window_s: Optional[float] = None,
+                 out_dir: Optional[str] = None,
+                 cooldown_s: Optional[float] = None,
+                 triggers: Optional[str] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 wall: Callable[[], float] = time.time,
+                 id_factory: Optional[Callable[[], str]] = None,
+                 include_process_state: bool = True,
+                 ring_len: int = 512,
+                 max_incidents: int = 32):
+        if window_s is None:
+            window_s = env_float("DYN_BLACKBOX_WINDOW_S") or 0.0
+        if cooldown_s is None:
+            cooldown_s = env_float("DYN_BLACKBOX_COOLDOWN_S") or 0.0
+        if out_dir is None:
+            out_dir = env_str("DYN_BLACKBOX_DIR")
+        if triggers is None:
+            triggers = env_str("DYN_BLACKBOX_TRIGGERS") or "all"
+        self.window_s = float(window_s)
+        self.cooldown_s = float(cooldown_s)
+        self.out_dir = out_dir
+        self.triggers = self._parse_triggers(triggers)
+        self.include_process_state = include_process_state
+        self.ring_len = ring_len
+        self._clock = clock
+        self._wall = wall
+        self._id_factory = id_factory
+        self._lock = threading.Lock()
+        # ring CREATION is locked; note() appends are lock-free deque pushes
+        self.rings: Dict[str, ShadowRing] = {}  # guarded-by: self._lock
+        # bounded-by: max_incidents (oldest incident evicted on insert)
+        self._incidents: "OrderedDict[str, dict]" = OrderedDict()
+        self._max_incidents = max_incidents
+        self._sources: "OrderedDict[str, Callable[[], Any]]" = OrderedDict()
+        # bounded-by: one weakref per registered engine; dead refs reaped at capture
+        self._stats_sources: Dict[str, Any] = {}
+        self._deadlines: deque = deque(maxlen=STORM_N)  # bounded storm window
+        self._last_capture: Optional[float] = None
+        self._seq = 0
+        self._baseline: dict = {}
+        self.captures_total = 0
+        self.suppressed_total = 0
+        if self.enabled and include_process_state:
+            self.refresh_baseline()
+
+    @staticmethod
+    def _parse_triggers(spec: str) -> frozenset:
+        spec = (spec or "all").strip().lower()
+        if spec in ("all", "*", ""):
+            return frozenset(TRIGGERS)
+        names = {t.strip() for t in spec.split(",") if t.strip()}
+        unknown = names - set(TRIGGERS)
+        if unknown:
+            log.warning("DYN_BLACKBOX_TRIGGERS: unknown trigger(s) %s "
+                        "ignored", sorted(unknown))
+        return frozenset(names & set(TRIGGERS))
+
+    # --------------------------------------------------------- hot path
+
+    @property
+    def enabled(self) -> bool:
+        return self.window_s > 0
+
+    def ring(self, worker: str) -> ShadowRing:
+        r = self.rings.get(worker)
+        if r is None:
+            with self._lock:
+                r = self.rings.get(worker)
+                if r is None:
+                    r = ShadowRing(worker, self.ring_len,
+                                   self._clock, self._wall)
+                    self.rings[worker] = r
+        return r
+
+    def note(self, worker: str, kind: str, **fields: Any) -> None:
+        """The one per-event call sites pay while armed: a dict lookup
+        and a deque append."""
+        if not self.enabled:
+            return
+        self.ring(worker).note(kind, **fields)
+
+    def note_deadline(self) -> None:
+        """Deadline-storm detector: STORM_N DeadlineExceeded inside
+        STORM_WINDOW_S trips a capture."""
+        if not self.enabled or "deadline_storm" not in self.triggers:
+            return
+        now = self._clock()
+        self._deadlines.append(now)
+        if (len(self._deadlines) == STORM_N
+                and now - self._deadlines[0] <= STORM_WINDOW_S):
+            self.trip("deadline_storm", {
+                "timeouts": STORM_N,
+                "window_s": round(now - self._deadlines[0], 3)})
+
+    # ------------------------------------------------------- registration
+
+    def add_source(self, name: str, fn: Callable[[], Any]) -> None:
+        """Extra snapshot provider folded into every bundle under
+        ``sources.<name>`` (e.g. the frontend's SLO snapshot, the
+        aggregator's last fleet scrape). Bound methods are held weakly
+        so a source never pins its owner."""
+        if hasattr(fn, "__self__"):
+            fn = weakref.WeakMethod(fn)  # type: ignore[assignment]
+            self._sources[name] = lambda ref=fn: (ref() or _none)()
+        else:
+            self._sources[name] = fn
+
+    def register_stats_source(self, label: str, owner: Any) -> None:
+        """An engine-shaped object whose ``stats()`` is folded into the
+        bundle's ``telemetry.engines.<label>`` (held weakly)."""
+        self._stats_sources[label] = weakref.ref(owner)
+
+    def refresh_baseline(self) -> None:
+        """Snapshot the profiler cost table + cache stats as the
+        pre-incident baseline the postmortem renderer diffs against.
+        Called at construction, from CompileFence.arm() (end of
+        warmup), and after every capture."""
+        if not self.enabled or not self.include_process_state:
+            self._baseline = {}
+            return
+        from . import profiling
+        self._baseline = json_safe({
+            "at_wall_ms": round(self._wall() * 1000.0, 3),
+            "profiles": profiling.profiles_snapshot(),
+            "caches": profiling.caches_snapshot(),
+        })
+
+    # ------------------------------------------------------------ capture
+
+    def cooldown_remaining_s(self) -> float:
+        if self._last_capture is None or self.cooldown_s <= 0:
+            return 0.0
+        return max(0.0, self.cooldown_s
+                   - (self._clock() - self._last_capture))
+
+    def trip(self, trigger: str, detail: Optional[dict] = None
+             ) -> Optional[dict]:
+        """Fire a trigger: freeze the rings and assemble a bundle.
+        Returns None when disabled, the trigger is filtered out, or the
+        cooldown debounce suppresses the capture."""
+        if not self.enabled or trigger not in self.triggers:
+            return None
+        with self._lock:
+            if self.cooldown_remaining_s() > 0:
+                self.suppressed_total += 1
+                return None
+            self._last_capture = self._clock()
+            bundle = self._assemble(trigger, detail)
+            self._remember(bundle)
+            self.captures_total += 1
+        self._persist(bundle)
+        self.refresh_baseline()
+        return bundle
+
+    def _next_id(self) -> str:
+        if self._id_factory is not None:
+            return self._id_factory()
+        self._seq += 1
+        return f"incident-{int(self._wall() * 1000.0):x}-{self._seq:02d}"
+
+    def _assemble(self, trigger: str, detail: Optional[dict]) -> dict:
+        bundle = {
+            "id": self._next_id(),
+            "trigger": trigger,
+            "detail": json_safe(detail) if detail else {},
+            "at_wall_ms": round(self._wall() * 1000.0, 3),
+            "at_mono_ms": round(self._clock() * 1000.0, 3),
+            "window_s": self.window_s,
+            "workers": {label: r.export(self.window_s)
+                        for label, r in sorted(self.rings.items())},
+            "contributed": [],
+            "baseline": self._baseline,
+            "sources": self._fold_sources(),
+        }
+        if self.include_process_state:
+            bundle["telemetry"] = self._fold_telemetry()
+        return bundle
+
+    def _fold_sources(self) -> dict:
+        out = {}
+        for name, fn in self._sources.items():
+            try:
+                out[name] = json_safe(fn())
+            except Exception:
+                log.exception("blackbox source %s failed", name)
+                out[name] = None
+        return out
+
+    def _fold_telemetry(self) -> dict:
+        """Cold path: fold the last window of every existing telemetry
+        plane. Every read here is a snapshot of an already-bounded
+        structure — nothing synchronizes with a device."""
+        from . import guard, profiling, tracing
+        since_ms = (self._wall() - self.window_s) * 1000.0
+        tracer = tracing.get_tracer()
+        spans = [s.to_dict() for s in tracer.snapshot()
+                 if s.wall_start * 1000.0 >= since_ms]
+        engines = {}
+        for label, ref in list(self._stats_sources.items()):
+            owner = ref()
+            if owner is None:
+                self._stats_sources.pop(label, None)
+                continue
+            try:
+                engines[label] = owner.stats()
+            except Exception:
+                log.exception("blackbox stats source %s failed", label)
+        return json_safe({
+            "traces": tracer.traces_summary(limit=200, since_ms=since_ms),
+            "spans": spans,
+            "timelines": tracing.timelines_snapshot(limit=500,
+                                                    since_ms=since_ms),
+            "timeline_anchors": tracing.timeline_anchors(),
+            "profiles": profiling.profiles_snapshot(),
+            "caches": profiling.caches_snapshot(),
+            "loop_lag": profiling.loop_lag_snapshot(),
+            "stall_stacks": profiling.stall_stacks_folded(limit=50),
+            "attributions": [
+                {"request_id": rid, "cost": cost}
+                for rid, cost in profiling.attributions_snapshot(limit=100)],
+            "guard_counters": guard.counters_snapshot(),
+            "breakers": guard.boards_snapshot(),
+            "chaos": _chaos_snapshot(),
+            "engines": engines,
+        })
+
+    def _remember(self, bundle: dict) -> None:
+        self._incidents[bundle["id"]] = bundle
+        while len(self._incidents) > self._max_incidents:
+            self._incidents.popitem(last=False)
+
+    def _persist(self, bundle: dict) -> None:
+        if not self.out_dir:
+            return
+        try:
+            os.makedirs(self.out_dir, exist_ok=True)
+            path = os.path.join(self.out_dir, f"{bundle['id']}.json")
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(render_bundle_json(bundle))
+        except OSError:
+            log.exception("blackbox: failed to persist incident %s",
+                          bundle["id"])
+
+    # ----------------------------------------------------- incident table
+
+    def incidents_summary(self) -> List[dict]:
+        """Newest-first one-row-per-incident summaries for
+        GET /debug/incidents."""
+        with self._lock:
+            rows = [{
+                "id": b["id"],
+                "trigger": b["trigger"],
+                "at_wall_ms": b["at_wall_ms"],
+                "workers": sorted(b["workers"].keys()),
+                "contributed": list(b.get("contributed", [])),
+                "remote": bool(b.get("remote", False)),
+            } for b in self._incidents.values()]
+        return rows[::-1]
+
+    def get(self, incident_id: str) -> Optional[dict]:
+        with self._lock:
+            return self._incidents.get(incident_id)
+
+
+def _none() -> None:
+    return None
+
+
+def _chaos_snapshot() -> Optional[dict]:
+    """The chaos injector's fire counts; the port has no chaos injection
+    yet, so there is nothing to fold."""
+    return None
+
+
+def render_bundle_json(bundle: dict) -> str:
+    """The one canonical bundle serialization: sorted keys, fixed
+    indent, the dyntrace JSON-safe coercion — byte-stable given equal
+    content (the fleet-sim determinism contract)."""
+    return json.dumps(json_safe(bundle), sort_keys=True, indent=2)
+
+
+# --------------------------------------------------------- module recorder
+
+_recorder: Optional[FlightRecorder] = None
+_recorder_lock = threading.Lock()
+
+
+def get_recorder() -> FlightRecorder:
+    """The process-wide recorder, created lazily from the environment."""
+    global _recorder
+    rec = _recorder
+    if rec is None:
+        with _recorder_lock:
+            rec = _recorder
+            if rec is None:
+                rec = _recorder = FlightRecorder()
+    return rec
+
+
+def configure(recorder: Optional[FlightRecorder] = None,
+              **kwargs: Any) -> FlightRecorder:
+    """Install a specific recorder (tests, sims) or rebuild from kwargs."""
+    global _recorder
+    with _recorder_lock:
+        _recorder = recorder if recorder is not None \
+            else FlightRecorder(**kwargs)
+    return _recorder
+
+
+def reset() -> None:
+    """Test hook: drop the process recorder (next use re-reads env)."""
+    global _recorder
+    with _recorder_lock:
+        _recorder = None
+
+
+def notify_trigger(trigger: str, detail: Optional[dict] = None
+                   ) -> Optional[dict]:
+    """Trigger-source entry point (guard/slo/jit_fence/profiling/revive
+    lazy-import and call this on their cold event paths)."""
+    return get_recorder().trip(trigger, detail)
+
+
+def note(worker: str, kind: str, **fields: Any) -> None:
+    """Shadow-ring append. A process that never configured or armed a
+    recorder pays one global read and a ``None`` check."""
+    rec = _recorder
+    if rec is None or not rec.enabled:
+        return
+    rec.note(worker, kind, **fields)
+
+
+def note_deadline() -> None:
+    """Deadline-storm sample (guard.py). Same no-op contract as
+    :func:`note` when nothing is armed."""
+    rec = _recorder
+    if rec is None or not rec.enabled:
+        return
+    rec.note_deadline()
+
+
+# ------------------------------------------------------ capture fan-out frame
+
+
+def capture_header(incident_id: str, trigger: str, worker_label: str,
+                   at_ms: Optional[float] = None,
+                   rings: Optional[dict] = None) -> dict:
+    """Build + validate one ``blackbox.capture`` frame. ``rings`` absent
+    = origin announcement; present = a sibling's contribution."""
+    from . import wire
+    header: Dict[str, Any] = {
+        "event": "blackbox.capture",
+        "incident_id": incident_id,
+        "trigger": trigger,
+        "worker_label": worker_label,
+    }
+    if at_ms is not None:
+        header["at_ms"] = float(at_ms)
+    if rings is not None:
+        header["rings"] = rings
+    return wire.checked(wire.BLACKBOX_CAPTURE, header)

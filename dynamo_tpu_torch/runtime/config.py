@@ -131,6 +131,117 @@ register_env("TRANSFORMERS_OFFLINE", "1", "external",
              "Set alongside HF_HUB_OFFLINE for the transformers library.")
 
 
+# the frontend's operator planes (tracing, logging, SLO, profiling, the
+# flight recorder, admission, drain and deadlines) and the engine's
+# step timeline and cache view
+register_env("DYN_BLACKBOX_COOLDOWN_S", "60", "runtime",
+             "dynablack incident flight recorder: debounce (seconds) "
+             "between persisted captures — a trigger storm (breaker "
+             "flapping, repeated stalls) produces one bundle per "
+             "cooldown window, not one per event. Manual captures "
+             "inside the window answer 409 with Retry-After.")
+register_env("DYN_BLACKBOX_DIR", None, "runtime",
+             "dynablack: directory incident bundles are persisted into "
+             "(one incident-<id>.json per capture). Unset = bundles are "
+             "kept in the bounded in-memory incident table only "
+             "(GET /debug/incidents).")
+register_env("DYN_BLACKBOX_TRIGGERS", "all", "runtime",
+             "dynablack: comma-separated trigger allowlist out of "
+             "slo_burn_rate,breaker_open,post_warmup_compile,"
+             "watchdog_stall,failover_resume,deadline_storm,manual — "
+             "'all' (default) arms every trigger; 'manual' keeps only "
+             "POST /debug/incidents/capture.")
+register_env("DYN_BLACKBOX_WINDOW_S", "30", "runtime",
+             "dynablack: how many seconds of shadow-ring telemetry an "
+             "incident bundle folds in (trace spans, step-timeline "
+             "events and shadow-ring entries older than the window are "
+             "dropped at capture time). 0 disables the flight recorder "
+             "entirely — no shadow rings, no triggers, no captures "
+             "(the hot-path A/B control arm).")
+register_env("DYN_DRAIN_TIMEOUT_MS", "10000", "runtime",
+             "dynarevive graceful drain: bound (ms) on finishing "
+             "in-flight sequences after a worker receives SIGTERM or "
+             "POST /drain — discovery record deleted first (no new "
+             "admissions), KV events flushed, then the lease releases. "
+             "On expiry leftover requests are killed.")
+register_env("DYN_LOG", "INFO", "runtime",
+             "Root log level (DEBUG/INFO/WARNING/...).")
+register_env("DYN_LOGGING_JSONL", "0", "runtime",
+             "Emit JSONL structured logs instead of text (1/true).")
+register_env("DYN_PROF_ATTR_RING", "2048", "runtime",
+             "dynaprof: per-request cost-attribution ring capacity "
+             "(finished-request attribution dicts kept per process for "
+             "/v1/traces/{request_id} and the usage extension block).")
+register_env("DYN_PROF_LOOP_INTERVAL_MS", "100", "runtime",
+             "dynaprof: event-loop lag-monitor sampling interval in ms "
+             "(the sleep whose wakeup drift is measured).")
+register_env("DYN_PROF_STACKS", "256", "runtime",
+             "dynaprof: max distinct folded stacks the stall watchdog "
+             "keeps (new shapes past the cap are counted as dropped).")
+register_env("DYN_PROF_STALL_MS", "250", "runtime",
+             "dynaprof: loop-callback overrun (ms) past which the stall "
+             "watchdog captures the event-loop thread's Python stack "
+             "into the flamegraph ring; 0 disables the watchdog thread.")
+register_env("DYN_REQUEST_DEADLINE_MS", "0", "runtime",
+             "Default end-to-end request deadline in milliseconds, "
+             "applied at the HTTP frontend when the request carries "
+             "neither a `timeout` body field nor an X-Request-Deadline-Ms "
+             "header. 0 = no implicit deadline.")
+register_env("DYN_SHED_KV_FREE_BLOCKS", "0", "runtime",
+             "dynarevive admission control: shed (early 503) when the "
+             "worst worker's free KV blocks drop to/below this floor. "
+             "0 disables the signal.")
+register_env("DYN_SHED_LOOP_LAG_MS", "0", "runtime",
+             "dynarevive admission control: shed when the worst "
+             "worker's event-loop lag p99 exceeds this many ms. "
+             "0 disables the signal.")
+register_env("DYN_SHED_QUEUE_DEPTH", "0", "runtime",
+             "dynarevive admission control: shed when the summed "
+             "admission-queue depth exceeds this many waiting requests "
+             "PER live worker. 0 disables the signal (the default "
+             "frontend sheds on nothing until configured).")
+register_env("DYN_SHED_RETRY_CAP_S", "8", "runtime",
+             "dynarevive admission control: ceiling (seconds) on the "
+             "load-derived, jittered Retry-After answered with shed / "
+             "no-capacity 503s.")
+register_env("DYN_SLO_BURN_THRESHOLD", "2.0", "runtime",
+             "dynaslo: error-budget burn rate BOTH the fast and slow "
+             "windows must exceed before an objective's multi-window "
+             "alert fires (1.0 = spending exactly the budget).")
+register_env("DYN_SLO_FAST_FRACTION", "0.1", "runtime",
+             "dynaslo: the fast alert window as a fraction of each "
+             "objective's window (SRE multi-window burn-rate pattern: "
+             "the fast window catches the spike, the slow window proves "
+             "it is sustained).")
+register_env("DYN_SLO_FILE", None, "runtime",
+             "dynaslo: path to a file of SLO objectives, one per line "
+             "('#' comments), same grammar as DYN_SLO_OBJECTIVES. "
+             "Ignored when DYN_SLO_OBJECTIVES is set.")
+register_env("DYN_SLO_OBJECTIVES", None, "runtime",
+             "dynaslo: ';'-separated SLO objectives, grammar "
+             "[name=]metric<=threshold_s@target/window_s over metrics "
+             "ttft|itl|queue_wait|e2e — e.g. 'ttft<=0.5@0.95/300;"
+             "itl<=0.05@0.99/300'. Unset = no objectives (latency "
+             "histograms still recorded and rendered).")
+register_env("DYN_STEP_TIMELINE", "512", "runtime",
+             "Engine step-timeline ring capacity (events kept per engine "
+             "for /v1/traces); 0 disables the timeline.")
+register_env("DYN_TRACE_JSONL", None, "runtime",
+             "Path to append one JSON line per finished trace span "
+             "(dyntrace export; unset = in-memory ring only).")
+register_env("DYN_TRACE_RING", "4096", "runtime",
+             "dyntrace in-memory ring capacity (finished spans kept per "
+             "process for /v1/traces).")
+register_env("DYN_TRACE_SAMPLE", "1.0", "runtime",
+             "dyntrace sampling rate in [0,1], decided per root span "
+             "(children follow their parent). 0 disables all tracing "
+             "instrumentation (no spans, no envelope fields).")
+register_env("DYN_CACHE_TOPK", "20", "engine",
+             "dynacache: hot prefix chains reported per engine in "
+             "GET /debug/cache (top-K cached block hashes by reuse "
+             "count; internal tracking stays bounded regardless).")
+
+
 def _lookup(name: str) -> EnvVar:
     var = ENV_REGISTRY.get(name)
     if var is None:

@@ -12,11 +12,15 @@ response plane, router and disaggregation plane use.
   closed -> open -> half-open breakers with a count-based and/or
   clock-based probe cadence.
 - :func:`counter_inc` / :func:`counter_value` — the guard plane's
-  process-wide counters.
+  process-wide counters, rendered with the breakers' state gauges by
+  :func:`render_prom_lines` into the frontend's ``/metrics``.
+- :func:`default_deadline` — the process-default request deadline
+  (``DYN_REQUEST_DEADLINE_MS``) the HTTP frontend applies.
 
-The reference's chaos injection (``DYN_CHAOS``), its blackbox incident
-hooks and the Prometheus rendering of these counters are not part of
-the port.
+Deadline expiries feed the flight recorder's deadline-storm detector
+and a breaker opening trips it (``runtime/blackbox.py``). The
+reference's chaos injection (``DYN_CHAOS``) is not part of the port
+yet.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import asyncio
 import logging
 import random
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import (Any, AsyncIterator, Awaitable, Callable, Dict, List,
                     Optional, Tuple)
@@ -107,10 +112,20 @@ class Deadline:
     def check(self, what: str = "request") -> None:
         if self.expired:
             counter_inc("dyn_guard_deadline_exceeded_total")
+            from . import blackbox
+            blackbox.note_deadline()
             raise DeadlineExceeded(f"deadline exceeded before {what}")
 
     def __repr__(self) -> str:
         return f"Deadline(remaining={self.remaining_s():.3f}s)"
+
+
+def default_deadline(clock: Callable[[], float] = time.monotonic
+                     ) -> Optional[Deadline]:
+    """Process-default request deadline from DYN_REQUEST_DEADLINE_MS
+    (0/unset = no implicit deadline)."""
+    ms = env_float("DYN_REQUEST_DEADLINE_MS", 0.0) or 0.0
+    return Deadline.after_ms(ms, clock) if ms > 0 else None
 
 
 async def bound(awaitable: Awaitable, *, timeout: Optional[float] = None,
@@ -140,6 +155,8 @@ async def bound(awaitable: Awaitable, *, timeout: Optional[float] = None,
     except asyncio.TimeoutError:
         if deadline is not None and deadline.expired:
             counter_inc("dyn_guard_deadline_exceeded_total")
+            from . import blackbox
+            blackbox.note_deadline()
             raise DeadlineExceeded(f"deadline exceeded during {what}") \
                 from None
         raise
@@ -224,6 +241,9 @@ BREAKER_CLOSED = 0
 BREAKER_OPEN = 1
 BREAKER_HALF_OPEN = 2
 
+_STATE_NAMES = {BREAKER_CLOSED: "closed", BREAKER_OPEN: "open",
+                BREAKER_HALF_OPEN: "half_open"}
+
 
 @dataclass(frozen=True)
 class BreakerConfig:
@@ -293,7 +313,6 @@ class CircuitBreaker:
             self._probe_inflight = False
 
     def record_success(self) -> None:
-      
         self.state = BREAKER_CLOSED
         self.failures = 0
         self.denied_since_open = 0
@@ -314,10 +333,24 @@ class CircuitBreaker:
         self.opened_total += 1
         self.denied_since_open = 0
         self._probe_inflight = False
+        # a breaker opening is an incident; cold path by definition
+        from . import blackbox
+        blackbox.notify_trigger("breaker_open", {
+            "failures": self.failures,
+            "opened_total": self.opened_total,
+        })
 
     def reset(self) -> None:
         """External evidence of recovery (fresh discovery put): close."""
         self.record_success()
+
+    @property
+    def state_name(self) -> str:
+        return _STATE_NAMES[self.state]
+
+
+# every live board, for the dyn_client_breaker_state exposition
+_BOARDS: "weakref.WeakSet[BreakerBoard]" = weakref.WeakSet()
 
 
 class BreakerBoard:
@@ -331,6 +364,7 @@ class BreakerBoard:
         # shared by every task routing/scraping through one client; all
         # board methods are sync (atomic under the event loop)
         self.breakers: Dict[Tuple[str, Any], CircuitBreaker] = {}
+        _BOARDS.add(self)
 
     def get(self, plane: str, key: Any) -> CircuitBreaker:
         br = self.breakers.get((plane, key))
@@ -354,6 +388,13 @@ class BreakerBoard:
              if p == plane and br.state != BREAKER_CLOSED),
             key=repr)
 
+    def opened_total(self, plane: Optional[str] = None) -> int:
+        return sum(br.opened_total for (p, _k), br in self.breakers.items()
+                   if plane is None or p == plane)
+
+    def states(self) -> Dict[Tuple[str, Any], int]:
+        return {k: br.state for k, br in self.breakers.items()}
+
 
 # ------------------------------------------------------------------- counters
 # Process-wide counters of the guard plane (route fallbacks, deadline
@@ -369,3 +410,69 @@ def counter_inc(name: str, value: float = 1.0, **labels: str) -> None:
 
 def counter_value(name: str, **labels: str) -> float:
     return _COUNTERS.get((name, tuple(sorted(labels.items()))), 0.0)
+
+
+def reset_counters() -> None:
+    """Test hook."""
+    _COUNTERS.clear()
+
+
+def counters_snapshot() -> Dict[str, float]:
+    """Guard-plane counters as one flat JSON-safe dict (dynablack incident
+    bundles). Label sets fold into the key: ``name{k="v"}``."""
+    out: Dict[str, float] = {}
+    for (name, labels), val in sorted(_COUNTERS.items()):
+        if labels:
+            lbl = ",".join(f'{k}="{v}"' for k, v in labels)
+            out[f"{name}{{{lbl}}}"] = val
+        else:
+            out[name] = val
+    return out
+
+
+def boards_snapshot() -> Dict[str, Dict[str, Any]]:
+    """Per-board breaker state for dynablack incident bundles: state name,
+    consecutive failures and lifetime opens per (plane, instance)."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for board in sorted(_BOARDS, key=lambda b: b.name):
+        rows: Dict[str, Any] = {}
+        for (plane, key), br in sorted(board.breakers.items(),
+                                       key=lambda kv: repr(kv[0])):
+            ident = f"{key:x}" if isinstance(key, int) else str(key)
+            rows[f"{plane}/{ident}"] = {
+                "state": br.state_name,
+                "failures": br.failures,
+                "opened_total": br.opened_total,
+            }
+        out[board.name] = rows
+    return out
+
+
+def render_prom_lines() -> List[str]:
+    """Guard-plane exposition: the named counters plus one
+    ``dyn_client_breaker_state`` gauge per (board, plane, instance)."""
+    lines: List[str] = []
+    by_name: Dict[str, List[str]] = {}
+    for (name, labels), val in sorted(_COUNTERS.items()):
+        lbl = ",".join(f'{k}="{v}"' for k, v in labels)
+        v = int(val) if float(val).is_integer() else val
+        by_name.setdefault(name, []).append(
+            f"{name}{{{lbl}}} {v}" if lbl else f"{name} {v}")
+    for name in sorted(by_name):
+        lines.append(f"# HELP {name} dynaguard counter")
+        lines.append(f"# TYPE {name} counter")
+        lines.extend(by_name[name])
+    rows = []
+    for board in sorted(_BOARDS, key=lambda b: b.name):
+        for (plane, key), state in sorted(board.states().items(),
+                                          key=lambda kv: repr(kv[0])):
+            ident = f"{key:x}" if isinstance(key, int) else str(key)
+            rows.append(
+                f'dyn_client_breaker_state{{board="{board.name}",'
+                f'plane="{plane}",instance="{ident}"}} {state}')
+    if rows:
+        lines.append("# HELP dyn_client_breaker_state per-endpoint circuit "
+                     "breaker state (0=closed, 1=open, 2=half_open)")
+        lines.append("# TYPE dyn_client_breaker_state gauge")
+        lines.extend(rows)
+    return lines

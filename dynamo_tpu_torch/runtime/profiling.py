@@ -1,0 +1,468 @@
+"""dynaprof: always-on, low-overhead profiling for the serving runtime.
+
+dyntrace (runtime/tracing.py) answers *how long* each stage of a request
+took in wall-clock; this module answers *where the time went* — the
+measurement gap that kept "scheduler overhead, not FLOPs" an inference.
+A copy of ``dynamo_tpu/runtime/profiling.py`` (pure Python). Three
+planes, all stdlib-only (the device-side half lives in
+``engine/profiler.py`` because it needs torch):
+
+- **Event-loop lag monitor** — an asyncio task sleeps a fixed interval
+  and records how late it woke (sampled sleep-drift, the classic
+  continuous-profiling signal for a starved event loop). Bounded ring;
+  p50/p99 exported as ``dyn_runtime_loop_lag_seconds`` and folded into
+  every engine's ``stats()`` → ForwardPassMetrics.
+- **Stall watchdog** — a daemon thread watching the monitor's heartbeat.
+  When a single loop callback overruns ``DYN_PROF_STALL_MS``, it
+  captures the event-loop thread's Python stack via
+  ``sys._current_frames()`` and accumulates it into a bounded
+  folded-stack table exportable as flamegraph-ready collapsed-stack
+  text (``GET /debug/profile/stacks`` → ``flamegraph.pl``). Sampling
+  only happens *during* a stall, so the steady-state cost is one
+  ``monotonic()`` read per poll.
+- **Per-request cost attribution** — a bounded ring of attribution
+  dicts (queue wait, occupancy-weighted device-step share, KV bytes,
+  prefill/decode split) recorded by the engine at finish and surfaced
+  through ``/v1/traces/{request_id}`` and the optional usage extension
+  block.
+
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import sys
+import threading
+import time
+import weakref
+from collections import OrderedDict, deque
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from .config import env_float, env_int
+
+log = logging.getLogger("dynamo_tpu_torch.profiling")
+
+# --------------------------------------------------------- loop lag monitor
+
+
+def _pct(sorted_vals: List[float], q: float) -> float:
+    """Nearest-rank percentile over an already-sorted list (0 when empty)."""
+    if not sorted_vals:
+        return 0.0
+    rank = max(int(len(sorted_vals) * q / 100.0), 0)
+    return sorted_vals[min(rank, len(sorted_vals) - 1)]
+
+
+class LoopLagMonitor:
+    """Sampled sleep-drift: sleep ``interval``, record how late the wakeup
+    was. Lag ≈ the sum of callback overruns during the sleep — exactly
+    the stall every other request on this loop also experienced."""
+
+    def __init__(self, interval_s: Optional[float] = None, ring: int = 2048):
+        if interval_s is None:
+            interval_s = (env_float("DYN_PROF_LOOP_INTERVAL_MS")
+                          or 100.0) / 1000.0
+        self.interval = max(float(interval_s), 0.001)
+        self.samples: deque = deque(maxlen=ring)
+        # heartbeat read by the stall watchdog thread (single-word
+        # read/write — atomic under the GIL)
+        self.last_beat = time.monotonic()
+        self.loop_thread_id: Optional[int] = None
+        self.beats = 0
+        self._task: Optional[asyncio.Task] = None
+
+    async def _run(self) -> None:
+        loop = asyncio.get_running_loop()
+        self.loop_thread_id = threading.get_ident()
+        while True:
+            t0 = loop.time()
+            self.last_beat = time.monotonic()
+            await asyncio.sleep(self.interval)
+            self.beats += 1
+            self.samples.append(max(loop.time() - t0 - self.interval, 0.0))
+
+    def start(self) -> None:
+        if self._task is None or self._task.done():
+            from .tasks import spawn_tracked
+
+            self._task = spawn_tracked(self._run(), name="dynaprof-loop-lag")
+
+    async def stop(self) -> None:
+        from .tasks import cancel_join
+
+        task, self._task = self._task, None
+        await cancel_join(task)
+
+    def snapshot(self) -> dict:
+        vals = sorted(self.samples)
+        return {
+            "interval_s": self.interval,
+            "samples": len(vals),
+            "p50_s": round(_pct(vals, 50), 6),
+            "p99_s": round(_pct(vals, 99), 6),
+            "max_s": round(vals[-1], 6) if vals else 0.0,
+        }
+
+
+# ------------------------------------------------------------ stall watchdog
+
+
+def fold_stack(frame) -> str:
+    """Collapsed-stack line (outermost;...;innermost) for one Python
+    frame chain — the flamegraph.pl input format, module.function units."""
+    parts: List[str] = []
+    f = frame
+    while f is not None:
+        name = f.f_code.co_name
+        mod = f.f_globals.get("__name__", "?")
+        parts.append(f"{mod}.{name}")
+        f = f.f_back
+    return ";".join(reversed(parts))
+
+
+class StallWatchdog(threading.Thread):
+    """Samples the event-loop thread's stack while a callback overruns.
+
+    The monitor task stamps ``last_beat`` before every sleep; if *now*
+    exceeds ``last_beat + interval + threshold`` the loop has been stuck
+    inside one callback for at least ``threshold`` — capture the stack.
+    Repeated captures during one long stall accumulate like a sampling
+    profiler: tall bars in the flamegraph = long/frequent stalls."""
+
+    def __init__(self, monitor: LoopLagMonitor,
+                 threshold_s: Optional[float] = None,
+                 max_stacks: Optional[int] = None,
+                 poll_s: Optional[float] = None):
+        super().__init__(name="dynaprof-watchdog", daemon=True)
+        if threshold_s is None:
+            threshold_s = (env_float("DYN_PROF_STALL_MS") or 250.0) / 1000.0
+        self.threshold = float(threshold_s)
+        self.max_stacks = (max_stacks if max_stacks is not None
+                           else (env_int("DYN_PROF_STACKS") or 256))
+        self.poll = poll_s if poll_s is not None else max(
+            self.threshold / 4.0, 0.01)
+        self.monitor = monitor
+        self._stacks: "OrderedDict[str, int]" = OrderedDict()
+        self._last_seen: Dict[str, float] = {}  # bounded-by: same cap as _stacks (popped together)
+        self._lock = threading.Lock()
+        # not ``_stop``: that name is threading.Thread's own method, which
+        # join() and is_alive() call once the thread has ended
+        self._halt = threading.Event()
+        self.captures = 0
+        self.dropped = 0
+
+    def run(self) -> None:
+        while not self._halt.wait(self.poll):
+            overdue = (time.monotonic() - self.monitor.last_beat
+                       - self.monitor.interval)
+            if overdue >= self.threshold:
+                self.capture()
+
+    def stop(self) -> None:
+        self._halt.set()
+
+    def capture(self) -> Optional[str]:
+        """Capture the loop thread's current stack into the folded table
+        (also callable directly from tests)."""
+        tid = self.monitor.loop_thread_id
+        if tid is None:
+            return None
+        frame = sys._current_frames().get(tid)
+        if frame is None:
+            return None
+        folded = fold_stack(frame)
+        with self._lock:
+            self.captures += 1
+            if folded in self._stacks:
+                self._stacks[folded] += 1
+                self._last_seen[folded] = time.time()
+            elif len(self._stacks) < self.max_stacks:
+                self._stacks[folded] = 1
+                self._last_seen[folded] = time.time()
+            else:
+                self.dropped += 1  # bounded: new shapes past cap are counted
+        # a stall long enough to sample IS an anomaly; already off-loop
+        from . import blackbox
+        blackbox.notify_trigger("watchdog_stall", {
+            "stack": folded, "threshold_ms": self.threshold * 1000.0})
+        return folded
+
+    def folded(self, limit: Optional[int] = None,
+               since: Optional[float] = None) -> str:
+        """Flamegraph-ready collapsed-stack text: ``stack count`` lines.
+
+        ``limit`` keeps only the top-N hottest stacks; ``since`` (wall
+        seconds) drops stacks not sampled since that time — both exist so
+        /debug/profile/stacks can bound its response at production ring
+        sizes (satellite of dynablack)."""
+        with self._lock:
+            items = sorted(self._stacks.items(),
+                           key=lambda kv: (-kv[1], kv[0]))
+            if since is not None:
+                items = [(s, c) for s, c in items
+                         if self._last_seen.get(s, 0.0) >= since]
+        if limit is not None and limit >= 0:
+            items = items[:limit]
+        return "".join(f"{stack} {count}\n" for stack, count in items)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            distinct = len(self._stacks)
+        return {"captures": self.captures, "distinct_stacks": distinct,
+                "dropped": self.dropped,
+                "threshold_ms": round(self.threshold * 1000.0, 3)}
+
+
+# ------------------------------------------------------------- loop profiler
+
+
+class LoopProfiler:
+    """Monitor + watchdog pair for one event loop."""
+
+    def __init__(self, interval_s: Optional[float] = None,
+                 stall_threshold_s: Optional[float] = None):
+        self.monitor = LoopLagMonitor(interval_s)
+        if stall_threshold_s is None:
+            stall_threshold_s = (env_float("DYN_PROF_STALL_MS")
+                                 or 250.0) / 1000.0
+        self.watchdog = (StallWatchdog(self.monitor, stall_threshold_s)
+                         if stall_threshold_s > 0 else None)
+        self._started = False
+
+    def start(self) -> None:
+        self.monitor.start()
+        if self.watchdog is not None and not self._started:
+            self.watchdog.start()
+        self._started = True
+
+    async def stop(self) -> None:
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        await self.monitor.stop()
+
+    def snapshot(self) -> dict:
+        out = {"loop_lag": self.monitor.snapshot()}
+        if self.watchdog is not None:
+            out["stalls"] = self.watchdog.snapshot()
+        return out
+
+
+# one refcounted profiler per event loop: every acquirer (HTTP service,
+# engine, bench) shares it; the last release cancels the monitor task so
+# no task outlives its loop
+_loop_profilers: Dict[int, List] = {}  # id(loop) -> [LoopProfiler, refcount]
+_lp_lock = threading.Lock()
+_latest: Optional[LoopProfiler] = None  # last started (stats() fallback)
+
+
+def acquire_loop_profiler() -> LoopProfiler:
+    """Start (or join) the running loop's profiler. Must be called from
+    the event loop; pair with :func:`release_loop_profiler`."""
+    global _latest
+    loop = asyncio.get_running_loop()
+    key = id(loop)
+    with _lp_lock:
+        ent = _loop_profilers.get(key)
+        if ent is None:
+            ent = [LoopProfiler(), 0]
+            _loop_profilers[key] = ent
+        ent[1] += 1
+        prof = ent[0]
+    prof.start()
+    _latest = prof
+    return prof
+
+
+async def release_loop_profiler() -> None:
+    loop = asyncio.get_running_loop()
+    key = id(loop)
+    with _lp_lock:
+        ent = _loop_profilers.get(key)
+        if ent is None:
+            return
+        ent[1] -= 1
+        if ent[1] > 0:
+            return
+        # claim before the await: a concurrent release must not double-stop
+        del _loop_profilers[key]
+        prof = ent[0]
+    await prof.stop()
+
+
+def current_loop_profiler() -> Optional[LoopProfiler]:
+    try:
+        loop = asyncio.get_running_loop()
+    except RuntimeError:
+        loop = None
+    if loop is not None:
+        with _lp_lock:
+            ent = _loop_profilers.get(id(loop))
+        if ent is not None:
+            return ent[0]
+    return _latest
+
+
+def loop_lag_snapshot() -> dict:
+    """The running loop's lag percentiles (zeros when no profiler is up).
+    Falls back to the most recently started profiler so engine ``stats()``
+    called off-loop (executor thread) still reports the serving loop."""
+    prof = current_loop_profiler()
+    if prof is None:
+        return {"interval_s": 0.0, "samples": 0, "p50_s": 0.0,
+                "p99_s": 0.0, "max_s": 0.0}
+    return prof.monitor.snapshot()
+
+
+def stall_stacks_folded(limit: Optional[int] = None,
+                        since_ms: Optional[float] = None) -> str:
+    prof = current_loop_profiler()
+    if prof is None or prof.watchdog is None:
+        return ""
+    since = since_ms / 1000.0 if since_ms is not None else None
+    return prof.watchdog.folded(limit=limit, since=since)
+
+
+def render_prom_lines() -> List[str]:
+    """Loop-lag/stall gauges for the local process's /metrics exposition
+    (the aggregator re-exports per-worker figures from ForwardPassMetrics
+    instead)."""
+    prof = current_loop_profiler()
+    if prof is None:
+        return []
+    snap = prof.monitor.snapshot()
+    lines = [
+        "# HELP dyn_runtime_loop_lag_seconds event-loop sleep-drift "
+        "(sampled callback overrun seen by every task on this loop)",
+        "# TYPE dyn_runtime_loop_lag_seconds gauge",
+        f'dyn_runtime_loop_lag_seconds{{quantile="p50"}} {snap["p50_s"]}',
+        f'dyn_runtime_loop_lag_seconds{{quantile="p99"}} {snap["p99_s"]}',
+    ]
+    if prof.watchdog is not None:
+        w = prof.watchdog.snapshot()
+        lines += [
+            "# HELP dyn_runtime_loop_stall_captures_total stack samples "
+            "taken while a loop callback overran the stall threshold",
+            "# TYPE dyn_runtime_loop_stall_captures_total counter",
+            f"dyn_runtime_loop_stall_captures_total {w['captures']}",
+        ]
+    return lines
+
+
+# -------------------------------------------------- per-request attribution
+
+_attr_lock = threading.Lock()
+_attributions: "OrderedDict[str, dict]" = OrderedDict()
+
+
+def _attr_cap() -> int:
+    return max(env_int("DYN_PROF_ATTR_RING") or 2048, 1)
+
+
+# attribution listeners: called on EVERY record (engine-side finish AND
+# the Backend's re-register of a remote cost block) with (request_id,
+# cost). Called OUTSIDE the ring lock, and a listener MAY mutate the cost
+# dict in place — that is how the KvRouter merges router_overlap_blocks
+# into the same dict /v1/traces serves (dynacache calibration).
+_attr_listeners: List[Callable[[str, dict], None]] = []
+
+
+def add_attribution_listener(fn: Callable[[str, dict], None]) -> None:
+    if fn not in _attr_listeners:
+        _attr_listeners.append(fn)
+
+
+def remove_attribution_listener(fn: Callable[[str, dict], None]) -> None:
+    try:
+        _attr_listeners.remove(fn)
+    except ValueError:
+        pass
+
+
+def record_attribution(request_id: Optional[str], cost: dict) -> None:
+    """Record one finished request's cost-attribution dict (bounded ring,
+    newest wins). Called by the engine at finish and by the Backend when
+    a remote worker's finish chunk carries a ``cost`` block — so the
+    frontend process can serve ``/v1/traces/{rid}`` attribution for
+    requests whose engine ran elsewhere."""
+    if not request_id:
+        return
+    cap = _attr_cap()
+    with _attr_lock:
+        _attributions[request_id] = cost
+        _attributions.move_to_end(request_id)
+        while len(_attributions) > cap:
+            _attributions.popitem(last=False)
+    for fn in list(_attr_listeners):
+        try:
+            fn(request_id, cost)
+        except Exception:  # noqa: BLE001 — observability must not break serving
+            log.exception("attribution listener failed")
+
+
+def request_attribution(request_id: str) -> Optional[dict]:
+    with _attr_lock:
+        return _attributions.get(request_id)
+
+
+def attributions_snapshot(limit: int = 100) -> List[Tuple[str, dict]]:
+    with _attr_lock:
+        items = list(_attributions.items())
+    return items[-limit:]
+
+
+# --------------------------------------------------- engine profile registry
+# Engine-side profilers (engine/profiler.py) register here so the HTTP
+# /debug/profile endpoint can render every live engine's cost table —
+# same weakref pattern as tracing.register_timeline.
+
+_profiles: Dict[str, "weakref.ref"] = {}
+_profiles_lock = threading.Lock()
+
+
+def register_profile(name: str, profile: Any) -> None:
+    with _profiles_lock:
+        _profiles[name] = weakref.ref(profile)
+
+
+def profiles_snapshot() -> Dict[str, dict]:
+    out: Dict[str, dict] = {}
+    with _profiles_lock:
+        for name, ref in list(_profiles.items()):
+            p = ref()
+            if p is None:
+                del _profiles[name]
+            else:
+                out[name] = p.summary()
+    return out
+
+
+# ----------------------------------------------------- cache-view registry
+# dynacache: anything with a ``cache_snapshot()`` (the engine's
+# pool/host-tier/hot-prefix view) registers here so GET /debug/cache can
+# render every live cache in the process — same weakref hygiene as the
+# engine-profile registry above.
+
+_caches: Dict[str, "weakref.ref"] = {}
+_caches_lock = threading.Lock()
+
+
+def register_cache(name: str, owner: Any) -> None:
+    with _caches_lock:
+        _caches[name] = weakref.ref(owner)
+
+
+def caches_snapshot() -> Dict[str, dict]:
+    out: Dict[str, dict] = {}
+    with _caches_lock:
+        for name, ref in list(_caches.items()):
+            c = ref()
+            if c is None:
+                del _caches[name]
+            else:
+                try:
+                    out[name] = c.cache_snapshot()
+                except Exception:  # noqa: BLE001 — a dying engine must not 500 the debug page
+                    log.debug("cache snapshot for %s failed", name,
+                              exc_info=True)
+    return out

@@ -1,0 +1,538 @@
+"""dyntrace: dependency-free distributed request tracing.
+
+A copy of ``dynamo_tpu/runtime/tracing.py`` (pure Python), kept here so
+the port imports nothing of the JAX package. A Dapper-style
+propagated-context tracer (Sigelman et al., 2010) with
+
+- **Spans** — ``trace_id``/``span_id``/``parent_id``, monotonic
+  start/end, free-form attributes. Finished spans land in a bounded
+  in-memory ring; nothing here touches the device or imports anything
+  beyond the stdlib.
+- **Propagation** — a contextvar carries the current span along the
+  asyncio task tree; process hops carry a tiny ``{"trace_id", "span_id"}``
+  dict (``current_trace_ctx()``) and W3C ``traceparent`` headers on the
+  HTTP edge. Absent field = no parent, so old wire peers interoperate.
+- **Sampling** — ``DYN_TRACE_SAMPLE`` (0..1) decides per ROOT span;
+  children always follow their parent so a sampled trace is complete.
+  At 0 every ``start_span`` returns a no-op span: no ring writes, no
+  envelope growth, no JSONL IO.
+- **Export** — ``DYN_TRACE_JSONL=<path>`` appends one JSON object per
+  finished span, joinable across processes on ``trace_id``.
+
+Retrieval: the HTTP frontend serves ``/v1/traces`` and
+``/v1/traces/{request_id}`` straight from this ring (plus the engine
+step timelines registered here).
+"""
+
+from __future__ import annotations
+
+import contextvars
+import json
+import random
+import threading
+import time
+import uuid
+import weakref
+from collections import OrderedDict, deque
+from typing import Any, Callable, Dict, List, Optional
+
+from .config import env_float, env_int, env_str
+
+_JSON_SCALARS = (str, int, float, bool, type(None))
+
+
+def json_safe(value: Any) -> Any:
+    """Coerce ``value`` to JSON-serializable types (the dyntrace export
+    and dynablack incident-bundle serializer). Scalars pass through,
+    containers recurse, bytes decode (hex on failure), everything else
+    becomes its ``repr`` string — so ``json.dumps`` of the result never
+    raises and ``json.loads`` round-trips what jq/ingest pipelines see."""
+    if isinstance(value, _JSON_SCALARS):
+        return value
+    if isinstance(value, dict):
+        return {str(k): json_safe(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple, set, frozenset)):
+        return [json_safe(v) for v in value]
+    if isinstance(value, (bytes, bytearray, memoryview)):
+        raw = bytes(value)
+        try:
+            return raw.decode("utf-8")
+        except UnicodeDecodeError:
+            return raw.hex()
+    return repr(value)
+
+
+_current: contextvars.ContextVar = contextvars.ContextVar(
+    "dyn_trace_span", default=None)
+_request_id: contextvars.ContextVar = contextvars.ContextVar(
+    "dyn_request_id", default=None)
+
+# sentinel: "no explicit parent given — use the ambient contextvar"
+_AMBIENT = object()
+
+
+def bind_request_id(request_id: Optional[str]) -> None:
+    """Bind the current request id for log correlation (independent of
+    sampling: logs carry the id even when the trace is not recorded)."""
+    _request_id.set(request_id)
+
+
+def current_request_id() -> Optional[str]:
+    return _request_id.get()
+
+
+def current_span():
+    """The ambient (recording) span, or None — lets instrumented code
+    attach attributes to whatever span encloses it without threading span
+    objects through every call signature (dynashard stamps the serving
+    replica/mesh this way)."""
+    cur = _current.get()
+    return cur if cur is not None and cur.recording else None
+
+
+class NoopSpan:
+    """Returned when a span is not sampled. Absorbs the full Span API at
+    near-zero cost and suppresses descendant sampling decisions by
+    becoming the ambient span inside its ``with`` block."""
+
+    __slots__ = ("_token",)
+
+    recording = False
+    trace_id: Optional[str] = None
+    span_id: Optional[str] = None
+    parent_id: Optional[str] = None
+    name = ""
+    attributes: Dict[str, Any] = {}
+
+    def set_attribute(self, key: str, value: Any) -> None:
+        pass
+
+    def end(self) -> None:
+        pass
+
+    def __enter__(self) -> "NoopSpan":
+        self._token = _current.set(self)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        try:
+            _current.reset(self._token)
+        except ValueError:
+            pass  # closed from a different context (asyncgen finalizer)
+
+
+class Span:
+    """One recorded operation. Use as a context manager (becomes the
+    ambient parent for spans started inside the block) or call ``end()``
+    explicitly."""
+
+    __slots__ = ("_tracer", "trace_id", "span_id", "parent_id", "name",
+                 "start", "wall_start", "end_time", "attributes", "_token")
+
+    recording = True
+
+    def __init__(self, tracer: "Tracer", trace_id: str, span_id: str,
+                 parent_id: Optional[str], name: str,
+                 attributes: Optional[dict] = None):
+        self._tracer = tracer
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.name = name
+        self.start = time.monotonic()
+        self.wall_start = time.time()
+        self.end_time: Optional[float] = None
+        # attrs are coerced JSON-safe at RECORD time (not export): a span
+        # carrying a tensor / dataclass / bytes must never leak a
+        # Python repr into the JSONL export or an incident bundle
+        self.attributes: Dict[str, Any] = (
+            {k: json_safe(v) for k, v in attributes.items()}
+            if attributes else {})
+        self._token = None
+
+    def set_attribute(self, key: str, value: Any) -> None:
+        self.attributes[key] = json_safe(value)
+
+    @property
+    def duration_s(self) -> Optional[float]:
+        return None if self.end_time is None else self.end_time - self.start
+
+    def end(self) -> None:
+        if self.end_time is not None:
+            return  # idempotent
+        self.end_time = time.monotonic()
+        self._tracer._finish(self)
+
+    def __enter__(self) -> "Span":
+        self._token = _current.set(self)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc is not None and "error" not in self.attributes:
+            self.attributes["error"] = repr(exc)
+        if self._token is not None:
+            try:
+                _current.reset(self._token)
+            except ValueError:
+                pass  # closed from a different context (asyncgen finalizer)
+            self._token = None
+        self.end()
+
+    def to_dict(self) -> dict:
+        d = {
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "name": self.name,
+            "start_ms": round(self.wall_start * 1000.0, 3),
+            "duration_ms": (round(self.duration_s * 1000.0, 3)
+                            if self.end_time is not None else None),
+            "attributes": self.attributes,
+        }
+        return d
+
+
+class Tracer:
+    """Process-wide span recorder: bounded ring of finished spans, a
+    request-id → trace-id join table, optional JSONL export, and span-end
+    listeners (the metrics plane hooks per-stage histograms here)."""
+
+    def __init__(self, sample: Optional[float] = None,
+                 ring: Optional[int] = None,
+                 jsonl: Optional[str] = None):
+        if sample is None:
+            sample = env_float("DYN_TRACE_SAMPLE")
+        if ring is None:
+            ring = env_int("DYN_TRACE_RING")
+        if jsonl is None:
+            jsonl = env_str("DYN_TRACE_JSONL")
+        self.sample = float(sample)
+        self.ring_size = max(int(ring), 1)
+        self._spans: deque = deque(maxlen=self.ring_size)
+        self._by_request: "OrderedDict[str, str]" = OrderedDict()
+        self._lock = threading.Lock()
+        self._listeners: List[Callable[[Span], None]] = []
+        # one-shot, knob-gated export-file open at (lazy) tracer
+        # construction; all later writes are buffered appends. Opening
+        # eagerly at import would charge every process the handle even
+        # with export off.
+        self._fh = open(jsonl, "a", encoding="utf-8") if jsonl else None
+        self.spans_recorded = 0
+
+    # ------------------------------------------------------------- creation
+
+    def start_span(self, name: str, *, parent: Any = _AMBIENT,
+                   attributes: Optional[dict] = None,
+                   request_id: Optional[str] = None):
+        """Start a span. ``parent`` is, in order of precedence: an explicit
+        Span, a wire ctx dict (``{"trace_id", "span_id"}``), ``None``
+        (force a new root), or — by default — the ambient span set by an
+        enclosing ``with``. Returns a NoopSpan when the trace is not
+        sampled."""
+        if parent is _AMBIENT:
+            parent = _current.get()
+        if isinstance(parent, dict):
+            trace_id = parent.get("trace_id")
+            parent_id = parent.get("span_id")
+            if not trace_id:
+                parent = None
+            else:
+                return self._make(name, trace_id, parent_id, attributes,
+                                  request_id)
+        if isinstance(parent, Span):
+            return self._make(name, parent.trace_id, parent.span_id,
+                              attributes, request_id)
+        if isinstance(parent, NoopSpan):
+            return NoopSpan()
+        # root: the sampling decision happens exactly here
+        if self.sample <= 0.0 or (self.sample < 1.0
+                                  and random.random() >= self.sample):
+            return NoopSpan()
+        return self._make(name, uuid.uuid4().hex, None, attributes,
+                          request_id)
+
+    def _make(self, name, trace_id, parent_id, attributes, request_id):
+        span = Span(self, trace_id, uuid.uuid4().hex[:16], parent_id, name,
+                    attributes)
+        if request_id is not None:
+            span.attributes["request_id"] = request_id
+            with self._lock:
+                self._by_request[request_id] = trace_id
+                while len(self._by_request) > self.ring_size:
+                    self._by_request.popitem(last=False)
+        return span
+
+    def record_span(self, name: str, seconds: float, *,
+                    parent: Any = _AMBIENT,
+                    attributes: Optional[dict] = None) -> None:
+        """Synthesize an already-finished span of the given duration ending
+        now — how measured stage accumulators (TransferStats deltas) are
+        adopted as child spans without wrapping their interleaved code."""
+        span = self.start_span(name, parent=parent, attributes=attributes)
+        if not span.recording:
+            return
+        span.start = time.monotonic() - seconds
+        span.wall_start = time.time() - seconds
+        span.end()
+
+    def current_trace_ctx(self) -> Optional[dict]:
+        """Wire form of the ambient span, or None when nothing is being
+        recorded — callers must then OMIT the field entirely (no envelope
+        growth with sampling off)."""
+        cur = _current.get()
+        if cur is None or not cur.recording:
+            return None
+        return {"trace_id": cur.trace_id, "span_id": cur.span_id}
+
+    # ------------------------------------------------------------ recording
+
+    def add_listener(self, fn: Callable[[Span], None]) -> None:
+        """Bound methods are held weakly so a dead owner (e.g. a stopped
+        HttpService) silently drops off the fan-out list."""
+        if hasattr(fn, "__self__"):
+            self._listeners.append(weakref.WeakMethod(fn))
+        else:
+            self._listeners.append(fn)
+
+    def _finish(self, span: Span) -> None:
+        line = None
+        if self._fh is not None:
+            # attrs were coerced at record time; json_safe as the dumps
+            # fallback covers direct attribute-dict mutation so the
+            # export stays parseable JSON no matter what (never repr)
+            line = json.dumps(span.to_dict(), default=json_safe) + "\n"
+        with self._lock:
+            self._spans.append(span)
+            self.spans_recorded += 1
+            if line is not None:
+                try:
+                    self._fh.write(line)
+                    self._fh.flush()
+                except (OSError, ValueError):
+                    self._fh = None  # export is best-effort; never raise
+        for entry in list(self._listeners):
+            fn = entry() if isinstance(entry, weakref.ref) else entry
+            if fn is None:
+                try:
+                    self._listeners.remove(entry)
+                except ValueError:
+                    pass
+                continue
+            try:
+                fn(span)
+            # a log call here could recurse through the logging filter back
+            # into the tracer, so listener errors are dropped outright
+            except Exception:  # noqa: BLE001 — listeners must not break spans
+                pass
+
+    # ------------------------------------------------------------ retrieval
+
+    def snapshot(self) -> List[Span]:
+        with self._lock:
+            return list(self._spans)
+
+    def trace_id_for_request(self, request_id: str) -> Optional[str]:
+        with self._lock:
+            return self._by_request.get(request_id)
+
+    def get_trace(self, trace_id: str) -> List[dict]:
+        """All finished spans of one trace, oldest-first."""
+        spans = [s for s in self.snapshot() if s.trace_id == trace_id]
+        spans.sort(key=lambda s: s.start)
+        return [s.to_dict() for s in spans]
+
+    def get_request_trace(self, request_id: str) -> Optional[dict]:
+        """The /v1/traces/{request_id} payload: flat spans (parent links
+        intact) plus a per-stage duration rollup."""
+        trace_id = self.trace_id_for_request(request_id)
+        if trace_id is None:
+            return None
+        spans = self.get_trace(trace_id)
+        stages: Dict[str, float] = {}
+        for s in spans:
+            if s["duration_ms"] is not None:
+                stages[s["name"]] = (stages.get(s["name"], 0.0)
+                                     + s["duration_ms"])
+        return {"request_id": request_id, "trace_id": trace_id,
+                "spans": spans,
+                "stages": {k: round(v, 3) for k, v in stages.items()}}
+
+    def traces_summary(self, limit: int = 100,
+                       since_ms: Optional[float] = None) -> List[dict]:
+        """Newest-first one-line-per-trace summaries for /v1/traces.
+        ``since_ms`` (wall-clock epoch ms) drops spans that started
+        earlier — the incremental-poll / incident-window filter."""
+        by_trace: "OrderedDict[str, dict]" = OrderedDict()
+        earliest: Dict[str, Span] = {}
+        for s in self.snapshot():
+            if since_ms is not None and s.wall_start * 1000.0 < since_ms:
+                continue
+            e = by_trace.setdefault(s.trace_id, {
+                "trace_id": s.trace_id, "request_id": None, "root": None,
+                "spans": 0, "duration_ms": 0.0, "start_ms": None})
+            e["spans"] += 1
+            rid = s.attributes.get("request_id")
+            if rid is not None:
+                e["request_id"] = rid
+            # representative span: a true root wins; otherwise the
+            # earliest local span (the trace may have been rooted in
+            # another process via traceparent/envelope ctx)
+            cur = earliest.get(s.trace_id)
+            if cur is None or (cur.parent_id is not None
+                               and (s.parent_id is None
+                                    or s.start < cur.start)):
+                earliest[s.trace_id] = s
+        for tid, s in earliest.items():
+            e = by_trace[tid]
+            e["root"] = s.name
+            e["duration_ms"] = s.to_dict()["duration_ms"]
+            e["start_ms"] = round(s.wall_start * 1000.0, 3)
+        return list(by_trace.values())[-limit:][::-1]
+
+
+# ------------------------------------------------------------ global tracer
+
+_tracer: Optional[Tracer] = None
+_tracer_lock = threading.Lock()
+
+
+def get_tracer() -> Tracer:
+    global _tracer
+    if _tracer is None:
+        with _tracer_lock:
+            if _tracer is None:
+                _tracer = Tracer()
+    return _tracer
+
+
+def configure(sample: Optional[float] = None, ring: Optional[int] = None,
+              jsonl: Optional[str] = None) -> Tracer:
+    """Replace the process tracer (tests, CLI flags). Returns it."""
+    global _tracer
+    with _tracer_lock:
+        _tracer = Tracer(sample=sample, ring=ring, jsonl=jsonl)
+    return _tracer
+
+
+# --------------------------------------------------------- traceparent edge
+
+def parse_traceparent(value: Optional[str]) -> Optional[dict]:
+    """W3C ``traceparent`` (``00-<32hex>-<16hex>-<2hex>``) → wire ctx dict,
+    or None for absent/malformed/unsampled headers."""
+    if not value:
+        return None
+    parts = value.strip().split("-")
+    if len(parts) != 4:
+        return None
+    version, trace_id, span_id, flags = parts
+    if len(version) != 2 or len(trace_id) != 32 or len(span_id) != 16:
+        return None
+    try:
+        sampled = int(flags, 16) & 1
+        int(trace_id, 16)
+        int(span_id, 16)
+    except ValueError:
+        return None
+    if not sampled or set(trace_id) == {"0"}:
+        return None
+    return {"trace_id": trace_id, "span_id": span_id}
+
+
+def format_traceparent(span) -> Optional[str]:
+    if span is None or not span.recording:
+        return None
+    return f"00-{span.trace_id}-{span.span_id}-01"
+
+
+# ------------------------------------------------------ engine step timeline
+
+class StepTimeline:
+    """Bounded ring of engine scheduler events (per-step queue-wait, batch
+    occupancy, tokens/step, spec accepts). Appends are cheap dict pushes —
+    safe from the engine's executor thread; ``capacity=0`` disables.
+
+    Each record stores a MONOTONIC offset (``mono_ms``) from one
+    wall/monotonic anchor pair stamped once at ring construction; the
+    wall ``ts_ms`` is derived at export (``anchor_wall + mono_ms``).
+    Per-record ``time.time()`` stamps (the old scheme) drift under NTP
+    slew and carry no monotonic companion, so timelines from different
+    workers could not be ordered against each other in /v1/traces
+    rollups — the anchor pair makes cross-worker alignment a single
+    per-ring offset subtraction."""
+
+    def __init__(self, capacity: int):
+        self._q: Optional[deque] = (deque(maxlen=capacity)
+                                    if capacity > 0 else None)
+        # the per-ring anchor pair: monotonic for intervals, wall for
+        # cross-worker alignment (stamped together, once)
+        self.anchor_monotonic = time.monotonic()
+        self.anchor_wall = time.time()
+
+    @property
+    def enabled(self) -> bool:
+        return self._q is not None
+
+    def add(self, kind: str, **fields: Any) -> None:
+        if self._q is not None:
+            fields["mono_ms"] = round(
+                (time.monotonic() - self.anchor_monotonic) * 1000.0, 3)
+            fields["kind"] = kind
+            self._q.append(fields)
+
+    def snapshot(self, limit: Optional[int] = None,
+                 since_ms: Optional[float] = None) -> List[dict]:
+        """Newest ``limit`` events with derived wall ``ts_ms``;
+        ``since_ms`` (wall epoch ms) drops older events first."""
+        if self._q is None:
+            return []
+        items = list(self._q)
+        base = self.anchor_wall * 1000.0
+        out = [{**e, "ts_ms": round(base + e["mono_ms"], 3)}
+               for e in items]
+        if since_ms is not None:
+            out = [e for e in out if e["ts_ms"] >= since_ms]
+        if limit:
+            out = out[-limit:]
+        return out
+
+    def anchors(self) -> dict:
+        return {"anchor_wall_ms": round(self.anchor_wall * 1000.0, 3),
+                "anchor_monotonic_ms": round(
+                    self.anchor_monotonic * 1000.0, 3)}
+
+
+_timelines: Dict[str, "weakref.ref[StepTimeline]"] = {}
+_timelines_lock = threading.Lock()
+
+
+def register_timeline(name: str, timeline: StepTimeline) -> None:
+    """Expose an engine's step timeline under /v1/traces. Held by weakref
+    so a stopped engine disappears with its last strong reference."""
+    with _timelines_lock:
+        _timelines[name] = weakref.ref(timeline)
+
+
+def timelines_snapshot(limit: int = 200,
+                       since_ms: Optional[float] = None
+                       ) -> Dict[str, List[dict]]:
+    out: Dict[str, List[dict]] = {}
+    with _timelines_lock:
+        for name, ref in list(_timelines.items()):
+            tl = ref()
+            if tl is None:
+                del _timelines[name]
+            elif tl.enabled:
+                out[name] = tl.snapshot(limit, since_ms=since_ms)
+    return out
+
+
+def timeline_anchors() -> Dict[str, dict]:
+    """Each registered ring's wall/monotonic anchor pair — what a
+    cross-worker rollup subtracts to put every timeline on one axis."""
+    out: Dict[str, dict] = {}
+    with _timelines_lock:
+        for name, ref in list(_timelines.items()):
+            tl = ref()
+            if tl is not None and tl.enabled:
+                out[name] = tl.anchors()
+    return out

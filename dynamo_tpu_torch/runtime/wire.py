@@ -429,3 +429,28 @@ TCP_CTRL = register_frame(
         ("t", "str", "required", 1, "frame discriminator: 'ctrl'"),
         ("kind", "str", "required", 1, "'stop' | 'kill'"),
     ])
+
+BLACKBOX_CAPTURE = register_frame(
+    "blackbox.capture", version=1,
+    doc="dynablack incident fan-out on the `<namespace>.blackbox.capture` "
+        "pub/sub subject. The tripping worker broadcasts an origin "
+        "announcement (no `rings`); each sibling replies on the same "
+        "subject with its shadow rings attached so all rings merge under "
+        "one incident id. Optional plane: peers that never subscribe "
+        "simply don't contribute (dynaflow compat policy).",
+    when={"event": "blackbox.capture"},
+    fields=[
+        ("event", "str", "required", 1,
+         "frame discriminator: 'blackbox.capture'"),
+        ("incident_id", "str", "required", 1,
+         "incident id all contributions merge under"),
+        ("trigger", "str", "required", 1,
+         "tripping trigger name (slo_burn_rate, breaker_open, ...)"),
+        ("worker_label", "str", "required", 1,
+         "sender's worker label (echo suppression + contribution origin)"),
+        ("at_ms", "float", "optional", 1,
+         "originator's capture wall time (epoch ms; diagnostic)"),
+        ("rings", "dict", "optional", 1,
+         "sender's shadow rings {label: {anchors, events}}; absent on "
+         "the originating broadcast, present on contributions"),
+    ])

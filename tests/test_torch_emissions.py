@@ -16,9 +16,9 @@ ModelConfig.tiny() in float32 with the same (bridged) weights:
 - ``worker_label`` (a constructor argument) round-trips through
   ``stats()`` and the router's ForwardPassMetrics;
 - the keys of JaxEngine's ``stats()`` that the port's lacks are exactly
-  the host tier's (ROADMAP queue 1 item 6), the ring prefill's (item 11)
-  and the loop-lag pair (item 12); the port has no key the reference
-  lacks.
+  the host tier's (ROADMAP queue 1 item 6) and the ring prefill's (item
+  11); the port has no key the reference lacks, and its loop-lag pair
+  (item 12) are floats.
 """
 
 import asyncio
@@ -51,12 +51,11 @@ PROMPTS = [list(range(1, 6)), list(range(30, 70)), list(range(100, 117)),
 MAX_TOKENS = (9, 12, 10, 5)
 JAX = (JaxRequest, JaxStop, JaxContext)
 PORT = (PreprocessedRequest, StopConditions, Context)
-# the stats() keys the port still lacks: the host KV tier (item 6), the
-# ring prefill (item 11) and the event loop's lag (item 12)
+# the stats() keys the port still lacks: the host KV tier (item 6) and
+# the ring prefill (item 11)
 NOT_YET = {"host_cache_usage_perc", "host_free_blocks",
            "host_offload_pages_total", "host_restore_pages_total",
-           "long_prefills_total", "loop_lag_p50_seconds",
-           "loop_lag_p99_seconds"}
+           "long_prefills_total"}
 
 
 def _engines(**ecfg):
@@ -192,9 +191,12 @@ def test_worker_label_round_trips():
 
 def test_stats_keys_lack_only_the_unported_items():
     """JaxEngine's stats() keys less the port's are exactly NOT_YET (the
-    list can only shrink as items 6, 11 and 12 land), and the port's are
-    all JaxEngine's."""
+    list can only shrink as items 6 and 11 land), and the port's are all
+    JaxEngine's; the loop-lag pair is there, as floats."""
     jeng, teng = _engines()
-    jkeys, tkeys = set(jeng.stats()), set(teng.stats())
+    jst, tst = jeng.stats(), teng.stats()
+    jkeys, tkeys = set(jst), set(tst)
     assert jkeys - tkeys == NOT_YET
     assert tkeys <= jkeys
+    for key in ("loop_lag_p50_seconds", "loop_lag_p99_seconds"):
+        assert isinstance(tst[key], float) and isinstance(jst[key], float)

@@ -699,7 +699,14 @@ assert len(names) >= 20, names
 assert {"dynamo_tpu_torch.models.loader",
         "dynamo_tpu_torch.engine.sampling",
         "dynamo_tpu_torch.models.mla",
-        "dynamo_tpu_torch.models.registry"} <= set(names), names
+        "dynamo_tpu_torch.models.registry",
+        "dynamo_tpu_torch.models.hub",
+        "dynamo_tpu_torch.runtime.tracing",
+        "dynamo_tpu_torch.runtime.logging",
+        "dynamo_tpu_torch.runtime.profiling",
+        "dynamo_tpu_torch.runtime.blackbox",
+        "dynamo_tpu_torch.runtime.revive",
+        "dynamo_tpu_torch.llm.http.metrics"} <= set(names), names
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

@@ -419,11 +419,23 @@ def test_profile_dir_writes_a_trace_on_the_cpu(tmp_path, monkeypatch):
     assert run.parse_args(["in=http"]).profile_dir == str(tmp_path / "env")
 
 
-NOT_PORTED = [("--model-id", "meta-llama/Llama-3.1-8B", "--model-id"),
-              ("--sequence-parallel-size", "2", "--sequence-parallel-size"),
+NOT_PORTED = [("--sequence-parallel-size", "2", "--sequence-parallel-size"),
               ("--long-prefill-threshold", "4096", "--long-prefill-threshold"),
               ("--mesh-shape", "model=2", "--mesh-shape"),
               ("--dp-replicas", "2", "--dp-replicas")]
+
+
+def test_model_id_resolves_a_local_directory(tmp_path):
+    """``--model-id`` is ported (``models/hub.py``): a local directory
+    resolves to itself and is served as ``--model-path``, named after the
+    id unless ``--model-name`` names it, as the JAX launcher does."""
+    args = run.parse_args(["in=http", "--model-id", str(tmp_path)])
+    ref = jax_run.parse_args(["in=http", "--model-id", str(tmp_path)])
+    assert (args.model_path, args.model_name) == \
+        (ref.model_path, ref.model_name) == (str(tmp_path), str(tmp_path))
+    args = run.parse_args(["in=http", "--model-id", str(tmp_path),
+                           "--model-name", "m"])
+    assert (args.model_path, args.model_name) == (str(tmp_path), "m")
 
 
 @pytest.mark.parametrize("flag,value,named", NOT_PORTED,

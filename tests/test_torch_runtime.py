@@ -114,7 +114,7 @@ def test_wire_frames_are_the_reference_frames():
         wire.TCP_COMPLETE, wire.TCP_ERR, wire.TCP_CTRL,
         wire.PREFILL_REMOTE_REQUEST, wire.KV_TRANSFER_BULK,
         wire.KV_TRANSFER_CHUNK, wire.KV_TRANSFER_ABORT,
-        wire.KV_TRANSFER_ACK}
+        wire.KV_TRANSFER_ACK, wire.BLACKBOX_CAPTURE}
     for name, frame in wire.FRAMES.items():
         ref = ref_wire.FRAMES[name]
         assert (frame.version, frame.when) == (ref.version, ref.when)
