@@ -276,16 +276,22 @@ Phases; any failure exits non-zero before the result line:
    warmed before it attaches) and a frontend (``in=http out=dyn``), each
    launcher under this script's ``--dyn-role`` stamps. Once the frontend
    lists the model, phase 4's four requests go at once and one streaming
-   request after them: every request finishes, the stream ends in
-   [DONE], the greedy tokens are phase 4's or first differ where the
+   request of 64 tokens after them, and the worker gets SIGTERM when that
+   stream's first chunk arrives: every request finishes, the streams end
+   in [DONE], the greedy tokens are phase 4's or first differ where the
    plain path's top-2 margin is under 0.25 (:func:`margin_rule`); each
    request's TTFT stages are printed (client send -> frontend receive ->
-   worker handler entry -> engine entry -> first token); after the
-   worker's SIGTERM the frontend lists no model within the lease TTL
-   (10 s), and the worker's serving summary shows no capture after
-   warmup, every decode launch on bf16_mma and every prefill launch on
-   bf16. (b) In this process, two 8B engines on phase 4's weight tensors
-   (``max_batch`` 8, the default pool each), each behind
+   worker handler entry -> engine entry -> first token). The worker
+   drains (``runtime/revive.py drain_worker``): the stream in flight
+   still finishes ``length`` with all 64 tokens, the frontend lists no
+   model within the lease TTL (10 s) of the SIGTERM, the worker logs a
+   clean drain and exits 0 within ``DYN_DRAIN_TIMEOUT_MS`` (10 s) of it,
+   and its serving summary shows no capture after warmup, every decode
+   launch on bf16_mma and every prefill launch on bf16; the drain's times
+   are printed (``drain after SIGTERM``). (b) In this process, every span
+   sampled (``DYN_TRACE_SAMPLE=1``), two 8B engines on phase 4's weight
+   tensors (``max_batch`` 8, the default pool each, the plain graphs
+   warmed: no request of (b) asks for logprobs), each behind
    ``serve_token_model`` on its own runtime attachment with a KV event
    publisher, and the KvRouter, Processor and HTTP service in front: four
    prompts of one 640-token prefix (10 pages) with their own 32-token
@@ -295,8 +301,24 @@ Phases; any failure exits non-zero before the result line:
    repeat, the router's hit rate is above 0), the fresh prefix overlaps
    nothing, the index holds the stored blocks less the removed ones, no
    capture after warmup, and the routed greedy tokens are one engine's
-   under the margin rule. Its launches join the served path's rows of
-   the kernels line. Two engines share one card: no speed is concluded.
+   under the margin rule. One request's ``/v1/traces/{rid}`` is one tree:
+   ``http.request`` the root, ``preprocess``, ``route`` and
+   ``serve.generate_tokens`` its children, the engine's cost block beside
+   it (``(b) trace of``); the router's ``stats()`` holds a calibration
+   entry for each request and its ``load_balance_weight`` and
+   ``autotune.adjustments`` are printed (``(b) router calibration``).
+   Last, the resume (:func:`resume_check`): phase 4's long prompt as a
+   greedy stream of 64 tokens, alone in flight, whose handle a
+   ``worker.kill`` chaos rule kills after its second decode window; the
+   stream finishes on the sibling with no error event, its finish's cost
+   block names one resume, the route fallback counter does not move, the
+   sibling captures nothing after warmup, the killed engine frees every
+   page, the journal ends empty, and its tokens are the sibling's solo
+   control's and phase 4's under the margin rule (the resumed tokens come
+   from K/V the prefill kernel wrote); the gap from the dead worker's
+   last chunk to the sibling's first is printed (``(b) resume``). Its
+   launches join the served path's rows of the kernels line. Two engines
+   share one card: no speed is concluded.
 17. (run after phase 16, on phase 4's seed-0 8B weights) disaggregated
    prefill/decode (:func:`disagg_phase`): two 8B engines at the default
    ``EngineConfig``, each its own pool, the prefill engine under a
@@ -6471,12 +6493,22 @@ DYN_BATCH = [("r0-stream", "chat", "Tell me about paged attention.", 32,
              ("r1-stream", "chat", DYN_LONG, 32, True),
              ("r2-unary", "chat", "What is an H100?", 24, False),
              ("r3-completion", "completion", "Once upon a time", 24, False)]
-DYN_STREAM = ("r4-stream", "chat", "Stream one more answer.", 16, True)
+# the stream the worker drains: SIGTERM goes after its first chunk, and it
+# must still end in [DONE] with all its tokens, before the worker exits 0
+# within the drain budget (DYN_DRAIN_TIMEOUT_MS's default)
+DYN_STREAM = ("r4-drain", "chat", "Stream one more answer.", 64, True)
+DYN_DRAIN_TIMEOUT_S = 10.0
 # (b): a shared prefix of 10 pages of 64 with four 32-token suffixes, then
 # a prompt of the same length with a fresh prefix
 ROUTED_PREFIX, ROUTED_SUFFIX, ROUTED_N = 640, 32, 4
 ROUTED_MAX_TOKENS = 16
 ROUTED_POLL_S = 5.0  # events arrive every 0.25 s (KvEventPublisher)
+# (b)'s resume: phase 4's long prompt as a greedy stream of 64 tokens,
+# whose handle dies under its 4th frame (the first token, then a frame a
+# decode window: after its second window)
+RESUME_RID = "resume"
+RESUME_MAX_TOKENS = 64
+RESUME_KILL_FRAME = 4
 
 
 def dyn_role(role: str, stamps: str, argv: list) -> None:
@@ -6557,14 +6589,15 @@ def _stop(procs) -> None:
             p.wait()
 
 
-async def dyn_traffic(base: str, model: str) -> dict:
-    """DYN_BATCH at once, then DYN_STREAM: per request its send time, the
-    time its answer ended and, for a stream, its first chunk with text or
-    a finish (random weights mostly draw ids past the byte tokenizer's
-    256, which decode to no text), and its finish."""
+async def dyn_traffic(base: str, model: str, on_drain_chunk) -> dict:
+    """DYN_BATCH at once, then DYN_STREAM, calling ``on_drain_chunk()``
+    when its first chunk arrives: per request its send time, the time its
+    answer ended and, for a stream, its first chunk with text or a finish
+    (random weights mostly draw ids past the byte tokenizer's 256, which
+    decode to no text), and its finish."""
     import aiohttp
 
-    async def one(s, rid, kind, prompt, n, stream):
+    async def one(s, rid, kind, prompt, n, stream, on_chunk=None):
         if kind == "chat":
             url, body = "/v1/chat/completions", {
                 "model": model, "stream": stream, "max_tokens": n,
@@ -6586,6 +6619,8 @@ async def dyn_traffic(base: str, model: str) -> dict:
                 ln = ln.decode().strip()
                 if ln.startswith("data: "):
                     data.append(ln[6:])
+                    if on_chunk is not None and len(data) == 1:
+                        on_chunk()
                     if first is None and ln != "data: [DONE]" and any(
                             (c.get("delta") or {}).get("content")
                             or c.get("finish_reason")
@@ -6601,7 +6636,7 @@ async def dyn_traffic(base: str, model: str) -> dict:
 
     async with aiohttp.ClientSession() as s:
         got = dict(await asyncio.gather(*(one(s, *q) for q in DYN_BATCH)))
-        got.update([await one(s, *DYN_STREAM)])
+        got.update([await one(s, *DYN_STREAM, on_chunk=on_drain_chunk)])
     return got
 
 
@@ -6622,14 +6657,18 @@ def dyn_worker_phase(cfg, dev, params, batch_ref, out_dir,
     processes on one card (:func:`dyn_role` around the launcher). The
     worker serves ``model_args`` (phase 4's seed-0 weights) at
     DYN_ENDPOINT with ``--max-batch-size 4``; once the frontend lists its
-    model, DYN_BATCH goes at once and DYN_STREAM after it. Checks: every
-    request finishes, streams end in [DONE]; the greedy tokens are phase
-    4's (``batch_ref``) under :func:`margin_rule`; after the worker's
-    SIGTERM the frontend lists no model within DYN_LEASE_TTL_S, the worker
-    exits 0 and its serving summary shows no capture after warmup, every
-    decode launch on bf16_mma and every prefill launch on bf16. Prints
-    each request's TTFT stages to the engine's first token, the frontend
-    -> worker hop apart."""
+    model, DYN_BATCH goes at once and DYN_STREAM after it, and the worker
+    gets SIGTERM when DYN_STREAM's first chunk arrives: it drains
+    (``runtime/revive.py drain_worker``). Checks: every request finishes,
+    streams end in [DONE]; the greedy tokens are phase 4's (``batch_ref``)
+    under :func:`margin_rule`; the drained stream finishes ``length`` with
+    all its tokens; the frontend lists no model within DYN_LEASE_TTL_S of
+    the SIGTERM, the worker logs a clean drain and exits 0 within
+    DYN_DRAIN_TIMEOUT_S of it, and its serving summary shows no capture
+    after warmup, every decode launch on bf16_mma and every prefill
+    launch on bf16. Prints each request's TTFT stages to the engine's
+    first token, the frontend -> worker hop apart, and the drain's
+    times."""
     dcp_port, http_port = _free_port(), _free_port()
     dcp = f"127.0.0.1:{dcp_port}"
     base = f"http://127.0.0.1:{http_port}"
@@ -6674,9 +6713,15 @@ def dyn_worker_phase(cfg, dev, params, batch_ref, out_dir,
         ready_s = time.monotonic() - t0
         log(f"  the frontend lists {model!r} {ready_s:.1f} s after the "
             f"processes started")
-        client = asyncio.run(dyn_traffic(base, model))
-        procs["worker"].send_signal(signal.SIGTERM)
-        t_term = time.monotonic()
+        term = []
+
+        def sigterm():
+            procs["worker"].send_signal(signal.SIGTERM)
+            term.append(time.monotonic())
+
+        client = asyncio.run(dyn_traffic(base, model, sigterm))
+        t_term = term[0]
+        stream_done_s = client[DYN_STREAM[0]]["end"] - t_term
         while models_listed(base) != []:
             if time.monotonic() - t_term > DYN_LEASE_TTL_S:
                 fail(f"phase 16: the frontend still lists "
@@ -6685,12 +6730,21 @@ def dyn_worker_phase(cfg, dev, params, batch_ref, out_dir,
             time.sleep(0.05)
         withdrawn_s = time.monotonic() - t_term
         rc = procs["worker"].wait(timeout=120)
+        exit_s = time.monotonic() - t_term
         if rc != 0:
             fail(f"phase 16: the worker exited {rc}: {_tail(logs['worker'])}")
+        if exit_s > DYN_DRAIN_TIMEOUT_S:
+            fail(f"phase 16: the worker exited {exit_s:.2f} s after its "
+                 f"SIGTERM, past the drain budget of {DYN_DRAIN_TIMEOUT_S} s")
     finally:
         _stop(list(procs.values()))
     with open(logs["worker"]) as f:
-        lines = [ln for ln in f if ln.startswith("serving summary ")]
+        worker_log = f.read()
+    if "drained (clean)" not in worker_log:
+        fail(f"phase 16: the worker did not drain clean: "
+             f"{_tail(logs['worker'])}")
+    lines = [ln for ln in worker_log.splitlines(keepends=True)
+             if ln.startswith("serving summary ")]
     if len(lines) != 1:
         fail(f"phase 16: {len(lines)} serving summaries in the worker's log")
     summary = json.loads(lines[0][len("serving summary "):])
@@ -6732,25 +6786,41 @@ def dyn_worker_phase(cfg, dev, params, batch_ref, out_dir,
             tokens[rid] = margin_rule(
                 params, cfg, dev, ref["prompt_ids"], ref["tokens"],
                 st["tokens"], f"phase 16 (a): {rid} against phase 4")
-    log(f"  withdrawn {withdrawn_s:.2f} s after SIGTERM; worker summary "
-        f"{json.dumps(summary)}")
-    return {"ready_s": ready_s, "withdrawn_s": withdrawn_s,
+    drained = seen.get(DYN_STREAM[0], {})
+    if client[DYN_STREAM[0]]["finish"] != "length" or \
+            len(drained.get("tokens", ())) != DYN_STREAM[3]:
+        fail(f"phase 16: the drained stream finished "
+             f"{client[DYN_STREAM[0]]['finish']!r} with "
+             f"{len(drained.get('tokens', ()))} of {DYN_STREAM[3]} tokens")
+    drain = {"stream_done_s": stream_done_s, "withdrawn_s": withdrawn_s,
+             "exit_s": exit_s}
+    log(f"  drain after SIGTERM: the stream's last {DYN_STREAM[3]}-token "
+        f"chunk {stream_done_s:.3f} s, no model on the frontend "
+        f"{withdrawn_s:.3f} s, the worker's exit {exit_s:.3f} s; worker "
+        f"summary {json.dumps(summary)}")
+    return {"ready_s": ready_s, "withdrawn_s": withdrawn_s, "drain": drain,
             "summary": summary, "ttft": stages, "tokens_vs_phase4": tokens,
             "prompt_tokens": {r: s["prompt_tokens"]
                               for r, s in stages.items()}}
 
 
-async def routed_graph(cfg, dev, params, ecfg, warm: bool = True) -> dict:
+async def routed_graph(cfg, dev, params, ecfg, batch_ref=None,
+                       warm: bool = True) -> dict:
     """Phase 16 (b), the reference's KV-routed graph at full width: two
     TorchEngines on ``params`` (shared tensors, each its own pool), each
     served by serve_token_model on its own DistributedRuntime attachment
     with a KvEventPublisher, and the KvRouter, Processor and HttpService
-    in front. ROUTED_N prompts of one ROUTED_PREFIX-token prefix with
-    their own suffixes go one by one, then all at once, then one prompt
-    with a fresh prefix. Returns what each request did (its worker, its
-    prompt and tokens) and the router's and engines' counters."""
+    in front, every span sampled (DYN_TRACE_SAMPLE=1). ROUTED_N prompts of
+    one ROUTED_PREFIX-token prefix with their own suffixes go one by one,
+    then all at once, then one prompt with a fresh prefix. Then
+    :func:`check_trace_tree` on one request and, with ``batch_ref`` (phase
+    4's batch), :func:`resume_check` last. Returns what each request did
+    (its worker, its prompt and tokens), the router's and engines'
+    counters, the trace tree and the resume."""
     import aiohttp
     import numpy as np
+
+    from dynamo_tpu_torch.runtime import tracing
 
     from dynamo_tpu_torch.engine.torch_engine import TorchEngine
     from dynamo_tpu_torch.llm.http.service import HttpService
@@ -6763,6 +6833,7 @@ async def routed_graph(cfg, dev, params, ecfg, warm: bool = True) -> dict:
     from dynamo_tpu_torch.runtime.dcp_client import unpack
     from dynamo_tpu_torch.runtime.runtime import DistributedRuntime
 
+    tracing.configure(sample=1.0)
     engines, warm_s = [], []
     for _ in range(2):
         t = time.monotonic()
@@ -6777,6 +6848,10 @@ async def routed_graph(cfg, dev, params, ecfg, warm: bool = True) -> dict:
         real = eng.generate
 
         async def generate(req, ctx, real=real, eng=eng):
+            if ctx.id.startswith(RESUME_RID):  # resume_check's own
+                async for o in real(req, ctx):
+                    yield o
+                return
             rec = seen.setdefault(ctx.id, {
                 "prompt": list(req.token_ids), "tokens": [],
                 "engine": engines.index(eng)})
@@ -6872,12 +6947,20 @@ async def routed_graph(cfg, dev, params, ecfg, warm: bool = True) -> dict:
     report.update({
         "holder": wids.index(holder),
         "router": router.stats(),
-        "events": events,
+        # a copy: the resume below stores more blocks
+        "events": dict(events),
         "index_blocks": router.indexer.tree.block_count(),
         "prefix_hit_tokens": [e.prefix_hit_tokens_total - h
                               for e, h in zip(engines, hits0)],
         "post_warmup_compiles_total": [
             e.stats()["post_warmup_compiles_total"] for e in engines]})
+    report["trace"] = await check_trace_tree(base, "seq1")
+    if batch_ref is not None:
+        # last: the killed handle stays dead
+        report["resume"] = await resume_check(
+            base, engines, served, wids, batch_ref["r1-stream"])
+        report["route_launches"] = dict(ops.DECODE_ROUTE_LAUNCHES)
+        report["prefill_route_launches"] = dict(ops.PREFILL_ROUTE_LAUNCHES)
     await router.stop()
     await svc.stop()
     await client.close()
@@ -6904,6 +6987,145 @@ async def routed_graph(cfg, dev, params, ecfg, warm: bool = True) -> dict:
     for d in drts[::-1]:
         await d.shutdown()
     return report
+
+
+async def check_trace_tree(base: str, rid: str) -> dict:
+    """Phase 16 (b)'s trace check: ``/v1/traces/{rid}`` holds one trace,
+    one root ``http.request``, and ``preprocess``, ``route`` and
+    ``serve.generate_tokens`` (the worker's span, parented on the
+    envelope's trace field) its children; its cost block is the engine's
+    (queue wait, dispatches, ROUTED_MAX_TOKENS decode tokens) and carries
+    the router's predicted overlap beside the realized one."""
+    import aiohttp
+
+    async with aiohttp.ClientSession() as s:
+        async with s.get(f"{base}/v1/traces/{rid}") as r:
+            if r.status != 200:
+                fail(f"phase 16 (b): /v1/traces/{rid}: HTTP {r.status}")
+            tr = await r.json()
+    spans = tr["spans"]
+    by_name = {sp["name"]: sp for sp in spans}
+    roots = [sp["name"] for sp in spans if sp["parent_id"] is None]
+    want = ("preprocess", "route", "serve.generate_tokens")
+    root_id = by_name.get("http.request", {}).get("span_id")
+    if len({sp["trace_id"] for sp in spans}) != 1 or \
+            roots != ["http.request"] or any(
+                by_name.get(n, {}).get("parent_id") != root_id
+                for n in want):
+        links = [(sp["name"], sp["span_id"], sp["parent_id"]) for sp in spans]
+        fail(f"phase 16 (b): {rid}'s trace is not one tree http.request -> "
+             f"{want}: {links}")
+    cost = tr.get("cost") or {}
+    if cost.get("decode_tokens") != ROUTED_MAX_TOKENS or \
+            "queue_wait_ms" not in cost or \
+            "router_overlap_blocks" not in cost:
+        fail(f"phase 16 (b): {rid}'s cost block {cost}")
+    tree = {"spans": [sp["name"] for sp in spans], "stages_ms": tr["stages"],
+            "cost": {k: cost[k] for k in (
+                "queue_wait_ms", "dispatches", "decode_tokens",
+                "device_hit_blocks", "router_overlap_blocks")}}
+    log(f"  (b) trace of {rid}: {json.dumps(tree)}")
+    return tree
+
+
+async def resume_check(base: str, engines: list, served: list, wids: list,
+                       ref: dict) -> dict:
+    """Phase 16 (b)'s resume, run last: phase 4's long prompt
+    (``ref['prompt_ids']``) as a greedy stream of RESUME_MAX_TOKENS, the
+    only request in flight; a ``worker.kill`` chaos rule kills the handle
+    that serves it under its RESUME_KILL_FRAME-th frame (after its second
+    decode window). Checks: the stream finishes ``length`` on the sibling
+    with no error event and all its tokens, one resume named on its
+    finish's cost block, the route fallback counter unchanged, no capture
+    after warmup on the sibling, the killed engine's pages all free, the
+    journal empty. Returns the delivered tokens (the processor's journal
+    of what it forwarded), the sibling's solo control of the same prompt,
+    and the resume's gap: from the last chunk from the dead worker to the
+    first from the sibling, as the processor received them."""
+    import aiohttp
+
+    from dynamo_tpu_torch.llm.protocols.common import (PreprocessedRequest,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime import guard, profiling, revive
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    observed = []
+    real_observe = revive.ReviveSession.observe
+
+    def observe(session, out):
+        if session.entry.request_id == RESUME_RID:
+            observed.append((time.monotonic(), session.resumes,
+                             list(out.token_ids or [])))
+        return real_observe(session, out)
+
+    def fallbacks() -> float:
+        return sum(v for k, v in guard.counters_snapshot().items()
+                   if k.startswith("dyn_llm_route_fallback_total"))
+
+    fallback0 = fallbacks()
+    revive.ReviveSession.observe = observe
+    guard.set_chaos(f"seed=1;sever:worker.kill@nth={RESUME_KILL_FRAME}")
+    saw_error, finishes = False, []
+    try:
+        async with aiohttp.ClientSession() as s:
+            async with s.post(base + "/v1/completions", json={
+                    "model": "routed", "prompt": ref["prompt_ids"],
+                    "stream": True, "max_tokens": RESUME_MAX_TOKENS},
+                    headers={"X-Request-Id": RESUME_RID}) as r:
+                if r.status != 200:
+                    fail(f"phase 16 (b) resume: HTTP {r.status}")
+                async for ln in r.content:
+                    ln = ln.decode().strip()
+                    if ln.startswith("event: error"):
+                        saw_error = True
+                    if ln.startswith("data: ") and ln != "data: [DONE]":
+                        finishes += [c["finish_reason"] for c in
+                                     json.loads(ln[6:]).get("choices", [])
+                                     if c.get("finish_reason")]
+    finally:
+        guard.set_chaos(None)
+        revive.ReviveSession.observe = real_observe
+    dead = [i for i, (h, _) in enumerate(served) if h._dead]
+    if len(dead) != 1:
+        fail(f"phase 16 (b) resume: {len(dead)} handles died, not 1")
+    survivor = engines[1 - dead[0]]
+    delivered = [t for _, _, ids in observed for t in ids]
+    before = [o for o in observed if o[1] == 0]
+    after = [o for o in observed if o[1] == 1]
+    cost = profiling.request_attribution(RESUME_RID) or {}
+    if saw_error or finishes != ["length"] or \
+            len(delivered) != RESUME_MAX_TOKENS or not before or \
+            not after or cost.get("resumed_attempts") != 1:
+        fail(f"phase 16 (b) resume: error event {saw_error}, finishes "
+             f"{finishes}, {len(delivered)} tokens ({len(before)} chunks "
+             f"before the kill, {len(after)} after), cost {cost}")
+    if fallbacks() != fallback0:
+        fail(f"phase 16 (b) resume: the route fallback counter moved "
+             f"({fallback0} -> {fallbacks()})")
+    if survivor.stats()["post_warmup_compiles_total"] != 0:
+        fail("phase 16 (b) resume: the sibling captured a graph after "
+             "warmup for the resume prompt")
+    await pages_idle(engines[dead[0]], "phase 16 (b) resume: the killed "
+                     "engine", limit_s=10.0)
+    if len(revive.journal()) != 0:
+        fail(f"phase 16 (b) resume: {len(revive.journal())} journal entries "
+             f"left")
+    gap_ms = (after[0][0] - before[-1][0]) * 1e3
+    control = []
+    async for o in survivor.generate(PreprocessedRequest(
+            token_ids=list(ref["prompt_ids"]),
+            stop=StopConditions(max_tokens=RESUME_MAX_TOKENS)),
+            Context(RESUME_RID + "-control")):
+        control += o.token_ids
+    out = {"dead_worker": dead[0], "tokens_before_kill":
+           sum(len(o[2]) for o in before), "gap_ms": gap_ms,
+           "resumed_attempts": cost["resumed_attempts"],
+           "delivered": delivered, "control": control}
+    log(f"  (b) resume: worker {dead[0]} killed after "
+        f"{out['tokens_before_kill']} tokens; the sibling's first token "
+        f"came {gap_ms:.2f} ms after the dead worker's last; "
+        f"{len(delivered)} tokens, resumed_attempts 1, journal empty")
+    return out
 
 
 def check_routed(params, cfg, dev, rep: dict) -> dict:
@@ -6953,10 +7175,47 @@ def check_routed(params, cfg, dev, rep: dict) -> dict:
     return tokens
 
 
+def check_resume(params, cfg, dev, rep: dict, ref: dict) -> dict:
+    """Phase 16 (b)'s resumed tokens under :func:`margin_rule`: all of
+    them against the sibling's solo control of the same prompt, and the
+    first of them against phase 4's greedy tokens of it (``ref``). The
+    resumed tokens come from K/V the prefill kernel wrote, where an
+    unfaulted run's came from decode windows: a bf16 near-tie can move
+    one."""
+    res = rep["resume"]
+    n = len(ref["tokens"])
+    return {"vs_control": margin_rule(
+                params, cfg, dev, ref["prompt_ids"], res["control"],
+                res["delivered"], "phase 16 (b): the resumed stream against "
+                "the sibling's control"),
+            "vs_phase4": margin_rule(
+                params, cfg, dev, ref["prompt_ids"], ref["tokens"],
+                res["delivered"][:n], f"phase 16 (b): the resumed stream's "
+                f"first {n} tokens against phase 4's")}
+
+
+def check_calibration(rep: dict) -> dict:
+    """Phase 16 (b)'s router stats: a calibration entry for each routed
+    request (its finish cost block compared with the parked prediction),
+    and the live weight and autotune block beside them."""
+    st = rep["router"]
+    cal = st.get("calibration", {})
+    if cal.get("compared") != st["decisions"] or \
+            "load_balance_weight" not in st or "autotune" not in st:
+        fail(f"phase 16 (b): router stats hold no calibration entry for "
+             f"each of its {st['decisions']} decisions: {st}")
+    log(f"  (b) router calibration: {json.dumps(cal)}; "
+        f"load_balance_weight {st['load_balance_weight']}, "
+        f"autotune.adjustments {st['autotune']['adjustments']}")
+    return {"calibration": cal, "load_balance_weight":
+            st["load_balance_weight"], "autotune": st["autotune"]}
+
+
 def runtime_phase(cfg, dev, params, batch_ref) -> dict:
     """Phase 16: (a) :func:`dyn_worker_phase`, (b) :func:`routed_graph`
-    and :func:`check_routed` with each engine at ``max_batch`` 8 and the
-    default pool."""
+    with :func:`check_routed`, :func:`check_calibration` and
+    :func:`check_resume`, each engine at ``max_batch`` 8, the default pool
+    and only the plain graph variant warmed."""
     from dynamo_tpu_torch.engine.torch_engine import EngineConfig
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dyn_")
@@ -6967,14 +7226,22 @@ def runtime_phase(cfg, dev, params, batch_ref) -> dict:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     t = time.monotonic()
-    routed = asyncio.run(routed_graph(cfg, dev, params,
-                                      EngineConfig(max_batch=8)))
+    # (b) sends no logprobs request: its engines warm the plain variant
+    # only (a capture after warmup would still fail the phase)
+    routed = asyncio.run(routed_graph(
+        cfg, dev, params, EngineConfig(max_batch=8, warmup_logprobs=False),
+        batch_ref))
     routed["checks"] = check_routed(params, cfg, dev, routed)
+    routed["calibration"] = check_calibration(routed)
+    routed["resume"]["checks"] = check_resume(params, cfg, dev, routed,
+                                              batch_ref["r1-stream"])
     routed["seconds"] = time.monotonic() - t
     brief = {k: routed[k] for k in (
         "holder", "router", "events", "index_blocks", "prefix_hit_tokens",
         "fresh_overlap", "route_launches", "prefill_route_launches",
         "warmup_s", "serve_s", "seconds")}
+    brief["resume"] = {k: routed["resume"][k] for k in (
+        "dead_worker", "tokens_before_kill", "gap_ms", "checks")}
     log(f"  (a) took {worker['seconds']:.1f} s; (b) {json.dumps(brief)}")
     return {"worker": worker, "routed": routed}
 

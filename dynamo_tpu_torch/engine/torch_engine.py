@@ -1098,6 +1098,12 @@ class TorchEngine:
                 self._wake.clear()
                 await self._wake.wait()
                 continue
+            if guard.chaos() is not None:
+                # worker-scoped chaos: a delay rule on `engine.stall`
+                # freezes the scheduler loop (on the event-loop thread,
+                # never the executor) for its ms. The gate keeps the
+                # coroutine off the loop when no chaos is configured.
+                await guard.chaos_point("engine.stall")
             try:
                 if not self.ecfg.admit_in_step:
                     self._admit()

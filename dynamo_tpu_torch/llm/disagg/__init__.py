@@ -11,9 +11,13 @@ move into the decode engine's pool and decoding continues there:
   submit_prefilled / prefill_only (engine/torch_engine.py)
 
 Frames and keys are the reference's, so a JAX prefill worker feeds a
-port decode engine and the reverse. The reference's tracing spans are
-not part of the port (a ``trace`` or ``trace_ctx`` field a peer sends is
-accepted and ignored).
+port decode engine and the reverse. The decode side records the
+``route.disagg``, ``prefill.remote`` and ``decode`` spans and puts its
+trace context on the remote prefill job (``trace_ctx``); the prefill
+worker's ``prefill.forward`` and ``kv_transfer.send`` spans and the
+receiver's ``kv_transfer.inject`` span join that trace. The ``kv.connect``,
+``kv.send`` and ``kv.recv`` chaos points (``runtime/guard.py``) sever or
+drop the transfer plane's frames.
 """
 
 from .decode import DisaggDecodeEngine

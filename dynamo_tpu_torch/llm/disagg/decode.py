@@ -14,7 +14,7 @@ import logging
 import time
 from typing import AsyncIterator, Optional
 
-from ...runtime import guard
+from ...runtime import guard, tracing
 from ...runtime.config import env_float, env_int
 from ...runtime.engine import Context
 from ..protocols.common import EngineOutput, PreprocessedRequest
@@ -93,6 +93,7 @@ class DisaggDecodeEngine:
         if not isinstance(request, PreprocessedRequest):
             request = PreprocessedRequest.from_dict(request)
         tokens = request.token_ids
+        tracer = tracing.get_tracer()
 
         # short prompts can never go remote (prefill_len - hit <=
         # prefill_len <= threshold): skip the reservation
@@ -104,10 +105,16 @@ class DisaggDecodeEngine:
         seq = None
         try:
             remote = False
-            if res is not None:
-                depth = await self.queue.depth()
-                remote = self.router.prefill_remote(
-                    len(tokens), res.cached_tokens, depth)
+            depth = None
+            with tracer.start_span("route.disagg", attributes={
+                    "prefill_len": len(tokens)}) as rsp:
+                if res is not None:
+                    depth = await self.queue.depth()
+                    remote = self.router.prefill_remote(
+                        len(tokens), res.cached_tokens, depth)
+                    rsp.set_attribute("cached_tokens", res.cached_tokens)
+                    rsp.set_attribute("queue_depth", depth)
+                rsp.set_attribute("remote", remote)
             if not remote:
                 if res is not None:
                     # drop ownership before awaiting: a cancellation at the
@@ -115,12 +122,20 @@ class DisaggDecodeEngine:
                     pages, res = res.pages, None
                     await self.engine.release_pages(pages)
                 self.local_prefills += 1
-                async for out in self.engine.generate(request, context):
+                dsp = tracer.start_span("decode",
+                                        attributes={"mode": "local"})
+                async for out in self._traced(
+                        dsp, self.engine.generate(request, context),
+                        request.stop.max_tokens):
                     yield out
                 return
 
             self.remote_prefills += 1
-            first = await self._remote_prefill(request, context, res)
+            with tracer.start_span("prefill.remote", attributes={
+                    "queue_depth": depth,
+                    "skip_pages": res.skip_pages}) as psp:
+                first = await self._remote_prefill(request, context, res)
+                psp.set_attribute("ok", first is not None)
             if first is None:  # remote failed or timed out: local fallback
                 self.remote_fallbacks += 1
                 pages, res = res.pages, None
@@ -133,7 +148,11 @@ class DisaggDecodeEngine:
                     return
                 log.warning("remote prefill fell back to local for %s",
                             context.id)
-                async for out in self.engine.generate(request, context):
+                dsp = tracer.start_span("decode", attributes={
+                    "mode": "local_fallback"})
+                async for out in self._traced(
+                        dsp, self.engine.generate(request, context),
+                        request.stop.max_tokens):
                     yield out
                 return
 
@@ -145,8 +164,33 @@ class DisaggDecodeEngine:
                 # a failure between reserve and handoff must not leak pages
                 await self.engine.release_pages(res.pages)
 
-        async for out in _drain_seq(seq):
+        dsp = tracer.start_span("decode", attributes={
+            "mode": "remote_prefill"})
+        async for out in self._traced(dsp, _drain_seq(seq),
+                                      request.stop.max_tokens):
             yield out
+
+    async def _traced(self, dsp, stream, max_tokens):
+        """Relay ``stream`` under the decode span ``dsp``, ending the span
+        the moment the request is observably finished: a finish chunk or
+        the token budget reached. The budget mirror matters: downstream
+        (the Backend) stamps max_tokens itself and abandons this
+        generator right after the last token chunk, so a span ended only
+        by the engine's finish chunk would linger until the generator is
+        collected."""
+        n_out = 0
+        try:
+            async for out in stream:
+                n_out += len(out.token_ids)
+                if out.finish_reason is not None or (
+                        max_tokens is not None and n_out >= max_tokens):
+                    dsp.set_attribute("tokens", n_out)
+                    if out.finish_reason is not None:
+                        dsp.set_attribute("finish", out.finish_reason)
+                    dsp.end()  # idempotent; before the abandonable yield
+                yield out
+        finally:
+            dsp.end()
 
     async def _remote_prefill(self, request: PreprocessedRequest,
                               context: Context, res) -> Optional[int]:
@@ -171,6 +215,9 @@ class DisaggDecodeEngine:
                 page_ids=list(res.pages),
                 skip_pages=res.skip_pages,
                 engine_id=self.engine_id,
+                # join the prefill worker's spans to this request's trace
+                # (None when not sampled: the field is absent on the wire)
+                trace_ctx=tracing.get_tracer().current_trace_ctx(),
                 deadline_ms=(deadline.to_wire_ms()
                              if deadline is not None else None),
             ))

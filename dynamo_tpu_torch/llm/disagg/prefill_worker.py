@@ -6,7 +6,10 @@ first token), then the pages the decode side lacks go out through a
 chunked extract -> (compress) -> send pipeline (transfer.py), so the
 device-to-host extract of chunk i+1 overlaps the socket write of chunk
 i. The decode engine's endpoint comes from DCP on first contact. Any
-number of prefill workers pull the one shared queue.
+number of prefill workers pull the one shared queue. A job's
+``prefill.forward`` and ``kv_transfer.send`` spans (with a
+``kv_transfer.<stage>`` child a pipeline stage) join the decode-side
+request's trace through the job's ``trace_ctx``.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import math
 import time
 from typing import Dict, List, Optional, Set
 
-from ...runtime import guard
+from ...runtime import guard, tracing
 from ...runtime.config import env_bool, env_int
 from ...runtime.engine import Context
 from ..protocols.common import (PreprocessedRequest, SamplingOptions,
@@ -110,6 +113,8 @@ class PrefillWorker:
     async def _handle(self, req: RemotePrefillRequest) -> None:
         """One remote prefill: compute, extract the non-cached pages, ship."""
         pages = None
+        tracing.bind_request_id(req.request_id)
+        tracer = tracing.get_tracer()
         # the job's deadline against this host's clock (absent on the
         # wire = no deadline); a job whose budget died in the queue is
         # dropped: the decode side has already fallen back
@@ -126,8 +131,15 @@ class PrefillWorker:
                 stop=StopConditions(max_tokens=1),
                 eos_token_ids=list(req.eos_token_ids),
             )
-            first, pages = await self.engine.prefill_only(
-                pre, Context(req.request_id))
+            # parent = the decode-side request's trace (trace_ctx rides the
+            # queue); None roots a worker-local trace instead
+            with tracer.start_span(
+                    "prefill.forward", parent=req.trace_ctx,
+                    attributes={"tokens": len(req.token_ids)},
+                    request_id=req.request_id) as fsp:
+                first, pages = await self.engine.prefill_only(
+                    pre, Context(req.request_id))
+                fsp.set_attribute("pages", len(pages))
             if deadline is not None and deadline.expired:
                 # the budget died during the compute: shipping now cannot
                 # beat the decode side's (already fired) fallback
@@ -158,39 +170,61 @@ class PrefillWorker:
         fresh connection under the RetryPolicy (never past the job's
         deadline). A per-engine circuit breaker fails jobs fast while an
         engine's endpoint stays dead. Stage times go to a per-send
-        TransferStats, folded into ``self.xfer`` afterwards."""
+        TransferStats (the send span's per-stage child spans), folded into
+        ``self.xfer`` afterwards."""
+        tracer = tracing.get_tracer()
         per = TransferStats()
         br = self.breakers.get("transfer", req.engine_id)
+        span = tracer.start_span(
+            "kv_transfer.send", parent=req.trace_ctx,
+            attributes={"engine_id": f"{req.engine_id:x}",
+                        "pages": len(local_send),
+                        "chunk_pages": self.chunk_pages})
         try:
-            if not br.allow():
-                raise guard.NoCapacity(
-                    f"transfer endpoint for engine {req.engine_id:x} "
-                    f"is circuit-broken")
-            last: Optional[BaseException] = None
-            sent = False
-            async for _attempt in self.retry.attempts(deadline):
-                client = await self._client(req.engine_id)
-                try:
-                    await self._send_once(client, req, local_send,
-                                          remote_dst, first, per, deadline)
-                    br.record_success()
-                    sent = True
-                    break
-                except asyncio.CancelledError:
-                    raise
-                except Exception as exc:  # noqa: BLE001 — retry fresh
-                    self._evict(req.engine_id, client)
-                    self.client_evictions += 1
-                    last = exc
-                    log.warning("KV send for %s to engine %x failed (%s); "
-                                "re-resolving endpoint and retrying within "
-                                "budget", req.request_id, req.engine_id,
-                                exc)
-            if not sent:
-                br.record_failure()
-                raise last if last is not None else \
-                    guard.DeadlineExceeded(
-                        f"no budget left to send KV for {req.request_id}")
+            with span:
+                if not br.allow():
+                    raise guard.NoCapacity(
+                        f"transfer endpoint for engine {req.engine_id:x} "
+                        f"is circuit-broken")
+                last: Optional[BaseException] = None
+                sent = False
+                async for _attempt in self.retry.attempts(deadline):
+                    client = await self._client(req.engine_id)
+                    try:
+                        await self._send_once(client, req, local_send,
+                                              remote_dst, first, per,
+                                              deadline)
+                        br.record_success()
+                        sent = True
+                        break
+                    except asyncio.CancelledError:
+                        raise
+                    except Exception as exc:  # noqa: BLE001 — retry fresh
+                        self._evict(req.engine_id, client)
+                        self.client_evictions += 1
+                        last = exc
+                        log.warning("KV send for %s to engine %x failed "
+                                    "(%s); re-resolving endpoint and "
+                                    "retrying within budget",
+                                    req.request_id, req.engine_id, exc)
+                if not sent:
+                    br.record_failure()
+                    raise last if last is not None else \
+                        guard.DeadlineExceeded(
+                            f"no budget left to send KV for "
+                            f"{req.request_id}")
+                span.set_attribute("bytes", per.bytes_sent)
+                span.set_attribute("chunks", per.chunks_sent)
+                # the measured stage accumulators as child spans (stages
+                # overlap, so siblings may sum past the parent's wall:
+                # that inequality is the pipelining)
+                for stage, secs in (("extract", per.extract_seconds),
+                                    ("compress", per.compress_seconds),
+                                    ("wire", per.wire_seconds),
+                                    ("ack_wait", per.ack_wait_seconds)):
+                    if secs > 0:
+                        tracer.record_span(f"kv_transfer.{stage}", secs,
+                                           parent=span)
         finally:
             self.xfer.merge(per)
 

@@ -27,8 +27,8 @@ class RemotePrefillRequest:
     page_ids: List[int] = field(default_factory=list)
     skip_pages: int = 0
     engine_id: int = 0          # decode engine instance (transfer lookup key)
-    # the decode-side request's trace context: the port records no spans,
-    # but carries a peer's field through unchanged
+    # the decode-side request's trace context: the prefill worker's spans
+    # join that trace (None roots a worker-local trace)
     trace_ctx: Optional[dict] = None
     # remaining request budget (ms) at enqueue time: the prefill worker
     # drops jobs whose budget is spent and caps its ack waits by what is

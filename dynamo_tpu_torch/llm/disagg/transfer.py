@@ -25,6 +25,12 @@ Bodies are the reference's: raw ``k‖v`` bytes in the pool's layout
 (``float32``, ``bfloat16``, ``float16``): bfloat16 pages go as their
 bytes and come back through ``torch.frombuffer``, so no numpy bfloat16
 type is needed on either side.
+
+The sender's trace context rides the bulk frame and the commit chunk
+(``trace``), and the receiver records its ``kv_transfer.inject`` span
+under it. The ``kv.connect``, ``kv.send`` and ``kv.recv`` chaos points
+(``runtime/guard.py``) sit where a connection opens, a frame goes out
+and a frame comes in.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from ...runtime import codec, wire
+from ...runtime import codec, guard, tracing, wire
 from ...runtime.codec import TwoPartMessage
 from ...runtime.config import env_float, env_str
 from ...runtime.dcp_client import DcpClient
@@ -284,6 +290,7 @@ class KvTransferServer:
                     # worker sends; the stream lives as long as the
                     # connection
                     msg = await codec.decode(reader)
+                    await guard.chaos_point("kv.recv", writer)
                 except (asyncio.IncompleteReadError, ConnectionError,
                         codec.CodecError):
                     return
@@ -396,6 +403,16 @@ class KvTransferServer:
                             fut.set_result(int(h["first_token"]))
                         st.committed = True
                         ack["committed"] = True
+                        if h.get("trace"):
+                            # receiver-side stage span, joined to the
+                            # sender's trace by the frame header's ctx
+                            tracing.get_tracer().record_span(
+                                "kv_transfer.inject", st.inject_seconds,
+                                parent=h["trace"],
+                                attributes={"request_id": request_id,
+                                            "pages": len(st.injected),
+                                            "bytes": st.bytes,
+                                            "chunks": st.received})
                     else:
                         st.failed = True
                         st.error = (f"incomplete stream: {st.received}"
@@ -439,6 +456,19 @@ class KvTransferServer:
             st.injected.extend(page_ids)
         self.chunks_ingested += 1
         st.received += 1
+
+
+def _write_frame(writer: asyncio.StreamWriter, header: dict,
+                 parts: list) -> None:
+    """Write one frame whole, or raise if the connection is already lost.
+    Python 3.12's ``writelines`` has no lost-connection check (``write``
+    has one): on a lost transport it may still register a write handler
+    for the socket's fd after that socket closed, and a later socket that
+    reuses the fd number then never becomes writable to the event loop,
+    so its connect hangs."""
+    if writer.is_closing():
+        raise ConnectionResetError("KV transfer connection lost")
+    writer.writelines(codec.encode_parts(header, parts))
 
 
 def encode_pages(k, v, compress: bool) -> Tuple[dict, list, int]:
@@ -499,6 +529,7 @@ class KvTransferClient:
         keep across their awaits (the ack loop may null ``_writer``)."""
         async with self._conn_lock:
             if self._writer is None or self._writer.is_closing():
+                await guard.chaos_point("kv.connect")
                 self._reader, self._writer = await asyncio.wait_for(
                     asyncio.open_connection(self.host, self.port),
                     _io_timeout())
@@ -575,12 +606,16 @@ class KvTransferClient:
         if compress:
             header["quant"] = extra["quant"]
         header = wire.checked(wire.KV_TRANSFER_BULK, header)
+        tc = tracing.get_tracer().current_trace_ctx()
+        if tc is not None:
+            header["trace"] = tc
         q = self._register(request_id)
         t_wall = time.monotonic()
         try:
             writer = await self._ensure()
+            await guard.chaos_point("kv.send", writer)
             t0 = time.monotonic()
-            writer.writelines(codec.encode_parts(header, parts))
+            _write_frame(writer, header, parts)
             await asyncio.wait_for(writer.drain(), _io_timeout())
             now = time.monotonic()
             st.wire_seconds += now - t0
@@ -606,6 +641,7 @@ class KvTransferClient:
         (which fails the decode-side waiter: immediate local fallback)."""
         st = stats if stats is not None else self.stats
         timeout = _ack_timeout(timeout)
+        tc = tracing.get_tracer().current_trace_ctx()
         q = self._register(request_id)
         t_wall = time.monotonic()
         nxt: Optional[asyncio.Future] = None
@@ -632,8 +668,11 @@ class KvTransferClient:
                     **extra})
                 if idx == n_chunks - 1:
                     header["first_token"] = int(first_token)
+                    if tc is not None:  # the commit chunk carries the ctx
+                        header["trace"] = tc
+                await guard.chaos_point("kv.send", writer)
                 t0 = time.monotonic()
-                writer.writelines(codec.encode_parts(header, parts))
+                _write_frame(writer, header, parts)
                 await asyncio.wait_for(writer.drain(), _io_timeout())
                 st.wire_seconds += time.monotonic() - t0
                 st.bytes_sent += nbytes

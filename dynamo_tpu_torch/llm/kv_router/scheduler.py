@@ -12,9 +12,9 @@ prefill-role workers are skipped; optimistic local accounting bumps the
 chosen worker's slots and blocks so a burst of schedules between metric
 scrapes does not pile onto one worker; every decision emits a
 KVHitRateEvent. Ties break on ``rng`` (seed it for replayable runs).
-The reference's calibration autotuner of ``load_balance_weight`` is fed
-by its profiling attribution plane, which the port does not have, so
-the weight stays where it is set.
+``load_balance_weight`` tunes itself from the router's
+predicted-vs-realized overlap (:meth:`KvScheduler.observe_calibration`,
+``DYN_ROUTER_AUTOTUNE``, on by default as in the reference).
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
+from ...runtime import guard
+from ...runtime.config import env_bool, env_float
 from .indexer import OverlapScores
 from .protocols import ForwardPassMetrics, KVHitRateEvent
 
@@ -68,6 +70,64 @@ class KvScheduler:
     rng: random.Random = field(default_factory=random.Random)
     # the last N decisions: every candidate's capped overlap and the pick
     decisions: deque = field(default_factory=lambda: deque(maxlen=256))
+    # autotune: load_balance_weight self-adjusts from the
+    # predicted-vs-realized overlap calibration error the router feeds
+    # back through observe_calibration(). Systematic OVER-prediction (the
+    # index promises overlap the engines no longer hold — evicted or
+    # stale blocks) means the overlap term is over-trusted, so weight
+    # shifts toward load; under-prediction shifts it back. None reads
+    # DYN_ROUTER_AUTOTUNE / DYN_ROUTER_AUTOTUNE_GAIN.
+    autotune: Optional[bool] = None
+    autotune_gain: Optional[float] = None
+    autotune_window: int = 64          # compared requests per adjustment
+    alpha_min: float = 0.1             # hard bounds on the tuned weight
+    alpha_max: float = 0.9
+    autotune_adjustments: int = 0      # times the weight actually moved
+    _tune_pred: int = 0                # window accumulators
+    _tune_real: int = 0
+    _tune_isl: int = 0
+    _tune_seen: int = 0
+
+    def __post_init__(self) -> None:
+        if self.autotune is None:
+            self.autotune = env_bool("DYN_ROUTER_AUTOTUNE", True)
+        if self.autotune_gain is None:
+            self.autotune_gain = env_float("DYN_ROUTER_AUTOTUNE_GAIN",
+                                           0.05) or 0.0
+
+    def observe_calibration(self, predicted: int, realized: int,
+                            isl_blocks: int) -> None:
+        """One compared request's predicted vs realized overlap blocks
+        (called by KvRouter._on_attribution under its calibration lock).
+        Every ``autotune_window`` observations the window bias
+        ``(pred − real) / isl`` nudges ``load_balance_weight`` by
+        ``gain · bias · range``, clamped to [alpha_min, alpha_max]; zero
+        bias (perfect calibration) moves nothing. The current weight is
+        exported as the ``dyn_kv_router_load_balance_weight`` gauge."""
+        if not self.autotune:
+            return
+        self._tune_pred += predicted
+        self._tune_real += realized
+        self._tune_isl += isl_blocks
+        self._tune_seen += 1
+        if self._tune_seen < self.autotune_window:
+            return
+        bias = (self._tune_pred - self._tune_real) / max(self._tune_isl, 1)
+        self._tune_pred = self._tune_real = self._tune_isl = 0
+        self._tune_seen = 0
+        step = self.autotune_gain * bias * (self.alpha_max - self.alpha_min)
+        if step == 0.0:
+            return
+        new_w = min(max(self.load_balance_weight + step, self.alpha_min),
+                    self.alpha_max)
+        if new_w != self.load_balance_weight:
+            self.load_balance_weight = new_w
+            self.autotune_adjustments += 1
+        # gauge semantics over the counter store: set-by-delta so the
+        # exposition always shows the CURRENT weight
+        guard.counter_inc(
+            "dyn_kv_router_load_balance_weight",
+            new_w - guard.counter_value("dyn_kv_router_load_balance_weight"))
 
     def update_metrics(self, metrics: Dict[int, ForwardPassMetrics]) -> None:
         """Replace worker snapshots (periodic scrape) and reset the

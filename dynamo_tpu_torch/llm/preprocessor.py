@@ -1,9 +1,10 @@
 """OpenAI → internal translation + response post-processing.
 
-A copy of ``dynamo_tpu/llm/preprocessor.py`` without tracing spans and
-the usage cost extension: renders the chat template, tokenizes, maps
-sampling/stop options into the internal ``PreprocessedRequest``, emits
-request annotations (``formatted_prompt``, ``token_ids``), validates
+A copy of ``dynamo_tpu/llm/preprocessor.py`` without the usage cost
+extension: under a ``preprocess`` span, renders the chat template,
+tokenizes, maps sampling/stop options into the internal
+``PreprocessedRequest``, emits request annotations
+(``formatted_prompt``, ``token_ids``), validates
 ``logprobs``/``top_logprobs``, and on the way back turns the token-level
 engine stream into OpenAI chat chunks, with their logprobs
 (:func:`chat_logprobs_content`, :func:`completion_logprobs`).
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 from typing import AsyncIterator, List, Optional, Tuple
 
+from ..runtime import tracing
 from ..runtime.engine import Annotated, Context
 from .model_card import ModelDeploymentCard
 from .protocols.common import (EngineOutput, OutputOptions, PreprocessedRequest,
@@ -39,20 +41,31 @@ class OpenAIPreprocessor:
     def preprocess_chat(
         self, request: ChatCompletionRequest
     ) -> Tuple[PreprocessedRequest, List[Annotated]]:
-        ext = request.extension()
-        if ext.use_raw_prompt and request.messages:
-            prompt = "".join(m.text() for m in request.messages)
-        else:
-            prompt = self.tokenizer.apply_chat_template(
-                [{"role": m.role, "content": m.text()}
-                 for m in request.messages],
-                add_generation_prompt=True)
-        token_ids = self.tokenizer.encode(prompt)
-        pre = self._build(request, token_ids, request.max_output_tokens())
-        return pre, self._annotations(ext.annotations or [], prompt,
-                                      token_ids)
+        with tracing.get_tracer().start_span("preprocess") as span:
+            ext = request.extension()
+            if ext.use_raw_prompt and request.messages:
+                prompt = "".join(m.text() for m in request.messages)
+            else:
+                prompt = self.tokenizer.apply_chat_template(
+                    [{"role": m.role, "content": m.text()}
+                     for m in request.messages],
+                    add_generation_prompt=True)
+            token_ids = self.tokenizer.encode(prompt)
+            span.set_attribute("tokens", len(token_ids))
+            pre = self._build(request, token_ids,
+                              request.max_output_tokens())
+            return pre, self._annotations(ext.annotations or [], prompt,
+                                          token_ids)
 
     def preprocess_completion(
+        self, request: CompletionRequest
+    ) -> Tuple[PreprocessedRequest, List[Annotated]]:
+        with tracing.get_tracer().start_span("preprocess") as span:
+            pre, annotations = self._preprocess_completion(request)
+            span.set_attribute("tokens", len(pre.token_ids))
+            return pre, annotations
+
+    def _preprocess_completion(
         self, request: CompletionRequest
     ) -> Tuple[PreprocessedRequest, List[Annotated]]:
         ext = request.extension()

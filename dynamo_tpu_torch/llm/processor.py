@@ -5,10 +5,11 @@ The Processor lowers the OpenAI request with the model card's tokenizer,
 asks the :class:`KvRouter` for a worker, calls the worker's token-level
 endpoint with ``direct()`` routing (falling back to the retry policy's
 round-robin path, counted, when the pick is gone), and maps the token
-stream back to OpenAI chunks through the detokenizing Backend. The
-reference's mid-stream resume on a sibling when a worker dies
-(``runtime/revive.py``) is not part of the port: a worker lost mid-stream
-ends the request with an error.
+stream back to OpenAI chunks through the detokenizing Backend. When the
+worker dies mid-stream, the request resumes on a sibling
+(``runtime/revive.py``): the prompt plus the tokens already emitted is
+routed again with the dead worker excluded, and the continuation is
+spliced into the same stream.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import time
 import uuid
 from typing import AsyncIterator, Optional
 
-from ..runtime import guard
+from ..runtime import guard, revive
 from ..runtime.component import Client
 from ..runtime.dcp_client import NoRespondersError
 from ..runtime.engine import Context
@@ -36,40 +37,63 @@ log = logging.getLogger("dynamo_tpu_torch.processor")
 
 class _RemoteTokenEngine:
     """Adapts a worker's token-level endpoint to the local engine shape
-    so the Backend can detokenize the remote stream."""
+    so the Backend can detokenize the remote stream.
 
-    def __init__(self, client: Client, worker_id: Optional[int]):
+    The adapter journals every token it forwards and, when
+    the upstream dies before a finish chunk (worker crash, connection
+    drop, breaker churn), re-dispatches ``prompt + emitted_tokens`` to a
+    sibling worker — ``reroute`` lets the KV router pick the replica
+    with the warmest prefix, excluding the dead one — and splices the
+    continuation into the SAME stream. Greedy requests resume
+    token-identical; no single worker failure becomes a client-visible
+    error while siblings are alive and budget remains.
+    """
+
+    def __init__(self, client: Client, worker_id: Optional[int],
+                 reroute=None):
         self.client = client
         self.worker_id = worker_id
+        # async (token_ids, exclude) -> Optional[worker_id]; None falls
+        # back to the policy-equipped round-robin path
+        self.reroute = reroute
 
     async def _dispatch(self, request: PreprocessedRequest,
-                        context: Context):
+                        context: Context, worker_id: Optional[int]):
         """Route the request: the KV-routed direct pick first, then the
-        retry policy's round-robin path (``Client.generate`` retries,
-        budget-aware, with per-instance breakers). The fallback is
-        counted as ``dyn_llm_route_fallback_total``."""
-        if self.worker_id is not None:
+        retry policy's round-robin path (``Client.generate``
+        retries under the policy, budget-aware, with per-instance
+        breakers). The fallback is counted — not silent — as
+        ``dyn_llm_route_fallback_total``."""
+        if worker_id is not None:
             try:
                 return await self.client.direct(request.to_dict(),
-                                                self.worker_id,
+                                                worker_id,
                                                 context=context)
             except guard.DeadlineExceeded:
                 raise
             except (RuntimeError, NoRespondersError) as e:
                 # the routed worker vanished between the router's scrape
-                # and the direct call, or its breaker is open: any live
-                # worker beats a 500
+                # and the direct call (drain/crash churn), or its breaker
+                # is open: any live worker beats a 500 — the
+                # prefix-overlap win is gone, correctness is not
                 guard.counter_inc("dyn_llm_route_fallback_total",
                                   reason=type(e).__name__)
                 log.warning("direct route to %x failed (%s); falling "
-                            "back to round-robin", self.worker_id, e)
+                            "back to round-robin", worker_id, e)
         return await self.client.round_robin(request.to_dict(),
                                              context=context)
 
-    async def generate(self, request: PreprocessedRequest, context: Context):
-        stream = await self._dispatch(request, context)
-        # a killed request severs the call-home connection at once: the
-        # worker maps the drop to ctx.kill() and frees the pages
+    async def _run_attempt(self, request: PreprocessedRequest,
+                           context: Context, session: revive.ReviveSession,
+                           worker_id: Optional[int]):
+        """One upstream dispatch: journal + forward every chunk. Raises
+        the upstream failure for the failover loop to judge."""
+        stream = await self._dispatch(request, context, worker_id)
+        # the moment the caller kills this request (SSE client dropped,
+        # deadline path), sever the call-home conn synchronously — the
+        # worker's ctrl loop maps the drop to ctx.kill(), so the engine
+        # cancels and frees pages without waiting for this (possibly
+        # abandoned) generator to be finalized
         context.on_kill(stream.close)
         killed_sync = False
         try:
@@ -77,22 +101,95 @@ class _RemoteTokenEngine:
                 if env.is_error:
                     raise RuntimeError(env.error_message())
                 if env.data is not None:
-                    yield EngineOutput.from_dict(env.data)
+                    out = EngineOutput.from_dict(env.data)
+                    session.observe(out)
+                    if session.resumes and out.cost is not None:
+                        # the finish cost block names the resume so
+                        # /v1/traces/{rid} and usage show the failover
+                        out.cost.setdefault("resumed_attempts",
+                                            session.resumes)
+                    yield out
         except (asyncio.CancelledError, GeneratorExit):
-            # the caller vanished mid-stream: closing the stream is the
-            # synchronous kill signal (awaiting a ctrl frame here would
-            # race our own cancellation)
+            # the caller vanished mid-stream (SSE client disconnect ->
+            # aiohttp cancels the handler task, which unwinds this
+            # generator). Closing the call-home stream is the reliable
+            # SYNCHRONOUS kill signal: the worker's ctrl loop maps the
+            # conn drop to ctx.kill(), the engine cancels the sequence
+            # on its normal path (pages free, attribution records
+            # "cancelled"). Awaiting a ctrl frame here would race our
+            # own cancellation.
             context.kill()
             stream.close()
             killed_sync = True
             raise
         finally:
             if killed_sync:
-                pass
+                pass  # conn already dropped; never await mid-cancel
             elif context.killed:
                 await stream.kill()
             elif context.stopped:
                 await stream.stop_generating()
+
+    async def generate(self, request: PreprocessedRequest, context: Context):
+        session = revive.ReviveSession(request, context)
+        # a killed (abandoned) request must not leak its journal entry
+        # until the generator finalizer runs
+        # proto: revive.journal open->closed
+        context.on_kill(session.close)
+        attempt_req = request
+        target = self.worker_id
+        try:
+            while True:
+                try:
+                    async for out in self._run_attempt(attempt_req, context,
+                                                       session, target):
+                        yield out
+                    if session.finished:
+                        return
+                    # stream ended without a finish chunk (legacy peer /
+                    # truncated): downstream stamps the terminal reason
+                    return
+                except asyncio.CancelledError:
+                    raise
+                except Exception as e:  # noqa: BLE001 — judged below
+                    if not session.should_resume(e):
+                        raise
+                    if session.budget_spent():
+                        # every budgeted token already streamed; only the
+                        # finish chunk died with the worker — synthesize it
+                        yield session.synthetic_finish()
+                        return
+                    session.mark_resume()
+                    # proto: request.lifecycle resumed->prefill
+                    attempt_req = session.resume_request()
+                    target = await self._pick_resume_target(
+                        attempt_req, context, target)
+                    log.warning(
+                        "revive: upstream for %s died after %d tokens "
+                        "(%s); resuming on %s (attempt %d)",
+                        context.id, len(session.emitted), e,
+                        f"{target:x}" if target is not None
+                        else "round-robin", session.resumes)
+        finally:
+            session.close()  # proto: revive.journal open->closed
+
+    async def _pick_resume_target(self, request: PreprocessedRequest,
+                                  context: Context,
+                                  failed: Optional[int]) -> Optional[int]:
+        """Re-route the resume: overlap scoring over ``prompt + emitted``
+        lands it on the sibling with the warmest prefix; the failed
+        worker is excluded (its discovery record may outlive it)."""
+        if self.reroute is None:
+            return None
+        exclude = {failed} if failed is not None else set()
+        try:
+            return await self.reroute(request.token_ids, exclude,
+                                      context.id)
+        except Exception:  # noqa: BLE001 — routing is best-effort here;
+            # the round-robin fallback still carries the resume
+            log.debug("revive reroute failed for %s", context.id,
+                      exc_info=True)
+            return None
 
 
 class Processor:
@@ -110,20 +207,36 @@ class Processor:
                      context: Context) -> Optional[int]:
         if self.router is None:
             return None
+        # the request id keys the router's predicted-vs-realized
+        # calibration entry (matched when the finish cost block returns)
         try:
-            return await self.router.schedule(pre.token_ids,
-                                              request_id=context.id)
+            worker_id = await self.router.schedule(pre.token_ids,
+                                                   request_id=context.id)
         except NoRespondersError:
-            raise  # empty pool: typed, not a fallback
+            raise  # empty pool: typed 503 + Retry-After, not a fallback
         except RuntimeError as e:
-            # every candidate saturated (or the optimistic slot accounting
+            # every candidate saturated (or optimistic slot accounting
             # thinks so between scrapes): dispatch round-robin instead of
-            # failing; the engines' admission queues absorb the wave
+            # 500ing — the engines' own admission queues absorb the wave
+            # and the frontend's admission controller bounds how deep it
+            # gets. Counted, never silent.
             guard.counter_inc("dyn_llm_route_fallback_total",
                               reason="SchedulerSaturated")
             log.warning("kv scheduler saturated (%s); dispatching "
                         "round-robin", e)
             return None
+        return worker_id
+
+    async def _reroute(self, token_ids, exclude, request_id):
+        """Resume routing: schedule ``prompt + emitted`` with
+        the dead worker excluded — overlap scoring lands the retry on
+        the replica with the warmest prefix (and re-keys the calibration
+        entry to the resume's prediction)."""
+        if self.router is None:
+            return None
+        return await self.router.schedule(token_ids,
+                                          request_id=request_id,
+                                          exclude=exclude)
 
     def chat(self, request: ChatCompletionRequest,
              context: Context) -> AsyncIterator:
@@ -134,8 +247,9 @@ class Processor:
         for ann in annotations:
             yield ann
         worker_id = await self._route(pre, context)
-        backend = Backend(_RemoteTokenEngine(self.client, worker_id),
-                          self.preprocessor.tokenizer)
+        engine = _RemoteTokenEngine(self.client, worker_id,
+                                    reroute=self._reroute)
+        backend = Backend(engine, self.preprocessor.tokenizer)
         async for chunk in self.preprocessor.chat_stream(
                 request, backend.generate(pre, context), context,
                 len(pre.token_ids)):
@@ -150,8 +264,9 @@ class Processor:
         for ann in annotations:
             yield ann
         worker_id = await self._route(pre, context)
-        backend = Backend(_RemoteTokenEngine(self.client, worker_id),
-                          self.preprocessor.tokenizer)
+        engine = _RemoteTokenEngine(self.client, worker_id,
+                                    reroute=self._reroute)
+        backend = Backend(engine, self.preprocessor.tokenizer)
         rid = f"cmpl-{context.id or uuid.uuid4().hex}"
         created = int(time.time())
         n_out = 0

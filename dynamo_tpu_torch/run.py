@@ -36,9 +36,11 @@ Inputs, as the JAX launcher names them:
   that endpoint, registered for discovery under its lease
   (``llm/worker.py serve_openai_model``). ``--endpoint PATH`` overrides
   the path; a bare ``in=dyn`` serves at
-  ``dyn://<--namespace>.<model slug>.generate``. SIGTERM or SIGINT stops
-  the endpoint (its discovery record goes), then the engine, then
-  revokes the lease (its model entry goes).
+  ``dyn://<--namespace>.<model slug>.generate``. SIGTERM drains
+  (``runtime/revive.py drain_worker``): the discovery record goes first,
+  the in-flight streams finish within ``DYN_DRAIN_TIMEOUT_MS``, then the
+  endpoint stops; SIGINT stops the endpoint at once. Then the engine
+  stops and the lease is revoked (its model entry goes).
 - ``in=none``: build and warm the engine, then idle until a signal.
 
 Engines (``out=``):
@@ -625,13 +627,23 @@ async def serve_http(engine, mdc, host: str, port: int, full: bool = False):
     return svc
 
 
-async def _wait_for_signal() -> None:
-    """Park until SIGINT or SIGTERM."""
+async def _wait_for_signal() -> int:
+    """Park until SIGINT or SIGTERM; returns the first signal's number,
+    so a worker can pick the fast teardown (SIGINT) or the graceful
+    drain (SIGTERM)."""
     stop = asyncio.Event()
+    fired: list = []
     loop = asyncio.get_running_loop()
+
+    def on_signal(signum: int) -> None:
+        if not fired:
+            fired.append(signum)
+        stop.set()
+
     for sig in (signal.SIGINT, signal.SIGTERM):
-        loop.add_signal_handler(sig, stop.set)
+        loop.add_signal_handler(sig, on_signal, sig)
     await stop.wait()
+    return fired[0]
 
 
 async def _attach(args):
@@ -814,8 +826,15 @@ async def run_worker(args) -> None:
         stats_handler=getattr(engine, "stats", None), model_type="both")
     log.info("worker serving %r at %s as instance %x", mdc.name,
              addr, drt.instance_id)
-    await _wait_for_signal()
-    await handle.stop()
+    if await _wait_for_signal() == signal.SIGTERM:
+        # rolling restart: the discovery record goes first (no new
+        # admissions), in-flight streams finish within
+        # DYN_DRAIN_TIMEOUT_MS, then the lease is released
+        from .runtime import revive
+
+        await revive.drain_worker(handle, engine=engine)
+    else:
+        await handle.stop()
     if hasattr(engine, "stop"):
         await engine.stop()
     await drt.shutdown()

@@ -16,21 +16,18 @@ captures it when something trips:
   assembles a JSON **incident bundle** folding the last
   ``DYN_BLACKBOX_WINDOW_S`` seconds of *existing* telemetry (tracer
   spans, step timelines, profiler/cache/memory snapshots, loop lag,
-  stall stacks, request attributions, guard counters, breaker state,
-  engine stats), persists it under ``DYN_BLACKBOX_DIR``, and debounces
-  with ``DYN_BLACKBOX_COOLDOWN_S``.
+  stall stacks, request attributions, guard counters, breaker and chaos
+  state, engine stats), persists it under ``DYN_BLACKBOX_DIR``, and
+  debounces with ``DYN_BLACKBOX_COOLDOWN_S``.
 - Trigger notifications (:func:`notify_trigger`, :func:`note_deadline`)
   wired from the events that already exist: SLO burn-rate trips
   (slo.py), breaker ``closed→open`` (guard.py), post-warmup captures
-  (engine/jit_fence.py), watchdog stall captures (profiling.py), and
-  deadline storms (N timeouts in W seconds).
-- :func:`capture_header` builds the ``blackbox.capture`` wire frame of
-  the capture fan-out between sibling workers. The fan-out itself over
-  the control plane (the reference's ``broadcast_capture`` /
-  ``attach_dcp``, with the capture listeners and the merging of a
-  sibling's rings they feed), the ``failover_resume`` trigger and the
-  chaos state of a bundle come with the runtime plane's fault handling;
-  until then a bundle's ``chaos`` is ``None``.
+  (engine/jit_fence.py), watchdog stall captures (profiling.py),
+  failover resumes (revive.py), and deadline storms (N timeouts in W
+  seconds).
+- The control-plane fan-out (:func:`attach_dcp` /
+  :func:`broadcast_capture`) over the ``blackbox.capture`` wire frame,
+  so sibling workers contribute their rings to the same incident id.
 
 Hot-path contract: an armed-but-untripped recorder costs one global
 read + a ``None``/bool check per :func:`note` call and *nothing*
@@ -187,6 +184,7 @@ class FlightRecorder:
         self._sources: "OrderedDict[str, Callable[[], Any]]" = OrderedDict()
         # bounded-by: one weakref per registered engine; dead refs reaped at capture
         self._stats_sources: Dict[str, Any] = {}
+        self._listeners: List[Callable[[dict], None]] = []
         self._deadlines: deque = deque(maxlen=STORM_N)  # bounded storm window
         self._last_capture: Optional[float] = None
         self._seq = 0
@@ -263,6 +261,11 @@ class FlightRecorder:
         bundle's ``telemetry.engines.<label>`` (held weakly)."""
         self._stats_sources[label] = weakref.ref(owner)
 
+    def add_capture_listener(self, fn: Callable[[dict], None]) -> None:
+        """Called with each freshly assembled bundle (DCP broadcast,
+        tests)."""
+        self._listeners.append(fn)
+
     def refresh_baseline(self) -> None:
         """Snapshot the profiler cost table + cache stats as the
         pre-incident baseline the postmortem renderer diffs against.
@@ -302,6 +305,11 @@ class FlightRecorder:
             self._remember(bundle)
             self.captures_total += 1
         self._persist(bundle)
+        for fn in list(self._listeners):
+            try:
+                fn(bundle)
+            except Exception:
+                log.exception("blackbox capture listener failed")
         self.refresh_baseline()
         return bundle
 
@@ -414,15 +422,72 @@ class FlightRecorder:
         with self._lock:
             return self._incidents.get(incident_id)
 
+    def rings_export(self, window_s: Optional[float] = None) -> dict:
+        """All local rings, for contributing to a sibling's incident."""
+        if window_s is None:
+            window_s = self.window_s
+        return {label: r.export(window_s)
+                for label, r in sorted(self.rings.items())}
+
+    def contribute(self, incident_id: str, workers: dict,
+                   origin: Optional[str] = None) -> bool:
+        """Merge a sibling's rings into an existing incident (first
+        writer per worker label wins; re-persists the bundle)."""
+        with self._lock:
+            bundle = self._incidents.get(incident_id)
+            if bundle is None:
+                return False
+            for label, data in workers.items():
+                bundle["workers"].setdefault(label, json_safe(data))
+            if origin:
+                bundle["contributed"] = sorted(
+                    set(bundle.get("contributed", [])) | {origin})
+        self._persist(bundle)
+        return True
+
+    def observe_remote(self, incident_id: str, trigger: str, origin: str,
+                       at_ms: Optional[float] = None) -> dict:
+        """A sibling announced a capture: open a local incident stub
+        (bypasses cooldown — the debounce belongs to the originator)
+        carrying this process's rings."""
+        with self._lock:
+            bundle = self._incidents.get(incident_id)
+            if bundle is not None:
+                return bundle
+            bundle = {
+                "id": incident_id,
+                "trigger": trigger,
+                "detail": {},
+                "origin": origin,
+                "remote": True,
+                "at_wall_ms": (round(float(at_ms), 3) if at_ms is not None
+                               else round(self._wall() * 1000.0, 3)),
+                "window_s": self.window_s,
+                "workers": {label: r.export(self.window_s)
+                            for label, r in sorted(self.rings.items())},
+                "contributed": [],
+                "baseline": self._baseline,
+                "sources": self._fold_sources(),
+            }
+            self._remember(bundle)
+        self._persist(bundle)
+        return bundle
+
 
 def _none() -> None:
     return None
 
 
 def _chaos_snapshot() -> Optional[dict]:
-    """The chaos injector's fire counts; the port has no chaos injection
-    yet, so there is nothing to fold."""
-    return None
+    """The chaos injector's fire counts, as ``{"injected":
+    {"action:point": n}}``; None without chaos or before any fire."""
+    from . import guard
+    inj = guard.chaos()
+    injected = getattr(inj, "injected", None)
+    if not injected:
+        return None
+    return {"injected": {f"{action}:{point}": n
+                         for (action, point), n in sorted(injected.items())}}
 
 
 def render_bundle_json(bundle: dict) -> str:
@@ -492,7 +557,7 @@ def note_deadline() -> None:
     rec.note_deadline()
 
 
-# ------------------------------------------------------ capture fan-out frame
+# ------------------------------------------------------------ DCP fan-out
 
 
 def capture_header(incident_id: str, trigger: str, worker_label: str,
@@ -512,3 +577,54 @@ def capture_header(incident_id: str, trigger: str, worker_label: str,
     if rings is not None:
         header["rings"] = rings
     return wire.checked(wire.BLACKBOX_CAPTURE, header)
+
+
+async def broadcast_capture(drt: Any, namespace: str, bundle: dict,
+                            worker_label: str = "") -> None:
+    """Announce a capture to siblings (they reply with their rings via
+    the :func:`attach_dcp` handler)."""
+    from .dcp_client import pack
+    frame = capture_header(bundle["id"], bundle["trigger"], worker_label,
+                           at_ms=bundle.get("at_wall_ms"))
+    await drt.dcp.publish(f"{namespace}.{BLACKBOX_SUBJECT}", pack(frame))
+
+
+async def attach_dcp(drt: Any, namespace: str, recorder: FlightRecorder,
+                     worker_label: str,
+                     rings_fn: Optional[Callable[[], dict]] = None) -> int:
+    """Join the capture fan-out: on a sibling's origin announcement,
+    record a local incident stub and publish this process's rings back;
+    on a ring-carrying frame, merge it into the matching incident.
+    Returns the subscription id."""
+    from . import wire
+    from .dcp_client import pack, unpack
+
+    subject = f"{namespace}.{BLACKBOX_SUBJECT}"
+
+    async def _on_capture(msg: Any) -> None:
+        try:
+            frame = wire.decoded(wire.BLACKBOX_CAPTURE, unpack(msg.payload))
+        except Exception:
+            log.debug("blackbox: ignoring undecodable capture frame",
+                      exc_info=True)
+            return
+        if frame.get("event") != BLACKBOX_SUBJECT:
+            return  # a foreign frame type sharing the subject
+        if frame.get("worker_label") == worker_label:
+            return  # own broadcast echoed back
+        rings = frame.get("rings")
+        if rings is not None:
+            recorder.contribute(frame["incident_id"], rings,
+                                origin=frame.get("worker_label"))
+            return
+        recorder.observe_remote(frame["incident_id"],
+                                frame.get("trigger", "manual"),
+                                frame.get("worker_label", ""),
+                                frame.get("at_ms"))
+        own = rings_fn() if rings_fn is not None else recorder.rings_export()
+        reply = capture_header(frame["incident_id"],
+                               frame.get("trigger", "manual"),
+                               worker_label, rings=own)
+        await drt.dcp.publish(subject, pack(reply))
+
+    return await drt.dcp.subscribe(subject, _on_capture)

@@ -9,8 +9,15 @@ subject consumer and writes the instance record; a :class:`Client`
 watches the prefix and routes round_robin / random / direct, under the
 retry policy and per-instance circuit breakers. The same keys, subjects
 and frames as the reference, so port and reference processes discover
-and call each other. The reference's tracing spans, ``proto`` state
-checks and chaos points are not part of the port.
+and call each other.
+
+A served request runs under a ``serve.<endpoint>`` span parented on the
+trace context the caller stamped on the envelope (``trace``), and
+``Client.generate`` stamps the ambient context on the envelopes it
+sends. The handle's lifecycle is the ``serve_handle.drain`` machine of
+``runtime/proto.py``; the ``worker.kill`` chaos point
+(``runtime/guard.py``) is consulted once per streamed frame when chaos
+is configured, and a fire turns the handle into a wedged process.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from dataclasses import dataclass
 from typing import (Any, AsyncIterator, Callable, Dict, List, Optional,
                     Tuple)
 
-from . import guard, wire
+from . import guard, proto, tracing, wire
 from .config import env_float, env_int
 from .dcp_client import Message, NoRespondersError, pack, unpack
 from .engine import Annotated, Context
@@ -186,9 +193,9 @@ class Endpoint:
 
 
 class _WorkerKilled(Exception):
-    """Internal: the handle died (:meth:`ServeHandle.die`) and must act
-    like a crashed process (conn drops, no error frames, lease and
-    discovery record left behind)."""
+    """Internal: a ``worker.kill`` chaos rule fired or the handle died
+    (:meth:`ServeHandle.die`): it must act like a crashed process (conn
+    drops, no error frames, lease and discovery record left behind)."""
 
 
 class ServeHandle:
@@ -204,13 +211,14 @@ class ServeHandle:
         self._sids: List[int] = []
         self._inflight: Dict[str, Context] = {}
         self._stopped = asyncio.Event()
-        # lifecycle: draining = discovery record withdrawn, new requests
-        # nacked, in-flight streams finishing, stats plane still
-        # answering (draining is not dead). dead = die() was called, the
-        # wedged-process shape (lease and discovery record stay, nothing
-        # answers). _drain_started makes begin_drain idempotent while
-        # keeping the nack flag OFF until the discovery delete has
-        # completed (delete before nack).
+        # lifecycle (the `serve_handle.drain` machine of runtime/proto.py):
+        # draining = discovery record withdrawn, new requests nacked,
+        # in-flight streams finishing, stats plane still answering
+        # (draining is not dead). dead = a worker.kill chaos rule fired
+        # or die() was called, the wedged-process shape (lease and
+        # discovery record stay, nothing answers). _drain_started makes
+        # begin_drain idempotent while keeping the nack flag OFF until the
+        # discovery delete has completed (delete before nack).
         self.draining = False
         self._drain_started = False
         self._dead = False
@@ -239,7 +247,7 @@ class ServeHandle:
 
     async def stop(self) -> None:
         drt = self.endpoint.drt
-        self._stopped.set()
+        self._stopped.set()  # proto: serve_handle.drain live|draining->stopped
         # claim the subscriptions before the awaits: a concurrent
         # stop()/drain() interleaving must not double-unsubscribe
         sids, self._sids = self._sids, []
@@ -286,7 +294,8 @@ class ServeHandle:
         log.info("draining %s (instance %x, %d in flight)",
                  self.endpoint.path, self.instance.instance_id,
                  len(self._inflight))
-        await self._withdraw_discovery()
+        await self._withdraw_discovery()  # proto: serve_handle.drain live->live
+        proto.step("serve_handle.drain", "live", "draining")
         self.draining = True
 
     async def wait_idle(self, timeout_s: float) -> bool:
@@ -311,14 +320,18 @@ class ServeHandle:
         return len(self._inflight)
 
     async def die(self) -> None:
-        """Test hook: become a wedged process. Streams drop raw, the
-        request and stats planes go silent (subscriptions dropped, stats
-        errors), the lease keepalive and discovery record stay — the
-        crashed-but-leased shape the breaker paths handle — and every
-        in-flight context is killed so engine pages free."""
+        """Test hook: apply the ``worker.kill`` chaos shape on demand."""
+        await self._on_killed()
+
+    async def _on_killed(self) -> None:
+        """Become a wedged process. Streams drop raw, the request and
+        stats planes go silent (subscriptions dropped, stats errors), the
+        lease keepalive and discovery record stay — the crashed-but-leased
+        shape the breaker and failover paths handle — and every in-flight
+        context is killed so engine pages free."""
         if self._dead:
             return
-        self._dead = True
+        self._dead = True  # proto: serve_handle.drain live|draining->dead
         log.warning("instance %x of %s is now dead (lease and discovery "
                     "record left behind)",
                     self.instance.instance_id, self.endpoint.path)
@@ -375,6 +388,8 @@ class ServeHandle:
             # peer); the value is the REMAINING budget at the sender's
             # send time, rebuilt against this host's clock
             deadline_ms = envelope.get("deadline_ms")
+            # trace propagation: absent field = no parent
+            trace_ctx = envelope.get("trace")
         except Exception as e:
             if msg.needs_reply:
                 await msg.respond_error(f"bad request envelope: {e!r}")
@@ -384,7 +399,7 @@ class ServeHandle:
         if self.draining:
             # drain admits nothing new: a nack the Client maps to
             # "request rejected" (retry lands on a live sibling)
-          
+            # proto: serve_handle.drain draining->draining
             if msg.needs_reply:
                 await msg.respond(pack(wire.checked(wire.DCP_REQUEST_ACK, {
                     "accepted": False,
@@ -394,16 +409,23 @@ class ServeHandle:
             await msg.respond(pack(wire.checked(wire.DCP_REQUEST_ACK, {
                 "accepted": True,
                 "instance_id": self.instance.instance_id})))
-        spawn_tracked(self._run_request(req_id, conn_info, request,
+        spawn_tracked(self._run_request(req_id, conn_info, request, trace_ctx,
                                         deadline_ms),
                       name=f"serve-{req_id}")
 
     async def _run_request(self, req_id: str, conn_info: TcpConnectionInfo,
                            request: Any,
+                           trace_ctx: Optional[dict] = None,
                            deadline_ms: Optional[int] = None) -> None:
         ctx = Context(req_id,
                       deadline=guard.Deadline.from_wire_ms(deadline_ms))
         self._inflight[req_id] = ctx
+        tracing.bind_request_id(req_id)
+        span = tracing.get_tracer().start_span(
+            f"serve.{self.instance.endpoint}",
+            parent=trace_ctx,  # None: a new (sampled) root on this worker
+            attributes={"subject": self.instance.subject},
+            request_id=req_id)
 
         def on_ctrl(kind: str) -> None:
             if kind == "stop":
@@ -413,26 +435,37 @@ class ServeHandle:
 
         callhome: Optional[TcpCallHome] = None
         try:
-            callhome = await TcpCallHome.connect(conn_info, on_ctrl)
-            agen = self.handler(request, ctx)
-            async for item in agen:
-                if ctx.killed:
-                    break
+            with span:
+                callhome = await TcpCallHome.connect(conn_info, on_ctrl)
+                agen = self.handler(request, ctx)
+                async for item in agen:
+                    if ctx.killed:
+                        break
+                    if guard.chaos() is not None or self._dead:
+                        # a fired `worker.kill` rule turns THIS handle
+                        # into a wedged process; sibling streams on the
+                        # same handle die with it. The gate keeps the
+                        # chaos coroutine off the path when no chaos is
+                        # configured.
+                        if self._dead:
+                            raise _WorkerKilled()
+                        try:
+                            await guard.chaos_point("worker.kill")
+                        except (guard.ChaosError,
+                                ConnectionResetError) as e:
+                            raise _WorkerKilled() from e
+                    env = item if isinstance(item, Annotated) \
+                        else Annotated(data=item)
+                    if env.id is None:
+                        env.id = req_id
+                    await callhome.send_data(pack(env.to_dict()))
                 if self._dead:
-                    # a dead handle's sibling streams die with it
                     raise _WorkerKilled()
-                env = item if isinstance(item, Annotated) \
-                    else Annotated(data=item)
-                if env.id is None:
-                    env.id = req_id
-                await callhome.send_data(pack(env.to_dict()))
-            if self._dead:
-                raise _WorkerKilled()
-            await callhome.complete()
+                await callhome.complete()
         except _WorkerKilled:
             # die like a process: no error frame, no complete — the
             # caller sees a raw connection drop (finally closes it)
-            pass
+            await self._on_killed()
         except asyncio.CancelledError:
             if callhome:
                 await callhome.error("worker cancelled")
@@ -699,6 +732,9 @@ class Client:
         }
         if deadline is not None:  # absent on the wire = no deadline
             env_dict["deadline_ms"] = deadline.to_wire_ms()
+        trace_ctx = tracing.get_tracer().current_trace_ctx()
+        if trace_ctx is not None:  # omitted entirely when not sampled
+            env_dict["trace"] = trace_ctx
         envelope = pack(wire.checked(wire.DCP_REQUEST_ENVELOPE, env_dict))
         try:
             ack = wire.decoded(wire.DCP_REQUEST_ACK, unpack(

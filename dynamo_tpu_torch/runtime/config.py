@@ -223,6 +223,29 @@ register_env("DYN_SLO_OBJECTIVES", None, "runtime",
              "ttft|itl|queue_wait|e2e — e.g. 'ttft<=0.5@0.95/300;"
              "itl<=0.05@0.99/300'. Unset = no objectives (latency "
              "histograms still recorded and rendered).")
+register_env("DYN_CHAOS", None, "runtime",
+             "Chaos-injection scenario for the real transports and the "
+             "worker, e.g. 'seed=42;sever:kv.send@after=1;"
+             "delay:tcp.send@ms=50,p=0.2' (grammar in runtime/guard.py). "
+             "Unset = no chaos.")
+register_env("DYN_PROTO_VALIDATE", "0", "runtime",
+             "Debug mode: validate every proto.step(...) lifecycle "
+             "anchor against the runtime/proto.py protocol registry at "
+             "transition time (1/true). Default off: an anchor is then "
+             "a no-op.")
+register_env("DYN_REVIVE_JOURNAL_TOKENS", "4096", "runtime",
+             "Mid-stream failover: per-request bound on journaled "
+             "emitted tokens (the resume prompt is prompt + journal, so "
+             "past this bound the request is marked non-resumable "
+             "rather than resumed with a truncated prompt).")
+register_env("DYN_REVIVE_MAX", "2", "runtime",
+             "Mid-stream failover: max re-dispatches per request after "
+             "an upstream worker dies before its finish chunk (0 "
+             "disables failover: the stream errors).")
+register_env("DYN_REVIVE_RING", "2048", "runtime",
+             "Mid-stream failover: max concurrent journal entries kept "
+             "per process (one per in-flight request; eviction only "
+             "costs the evicted request its resumability).")
 register_env("DYN_STEP_TIMELINE", "512", "runtime",
              "Engine step-timeline ring capacity (events kept per engine "
              "for /v1/traces); 0 disables the timeline.")
@@ -240,6 +263,18 @@ register_env("DYN_CACHE_TOPK", "20", "engine",
              "dynacache: hot prefix chains reported per engine in "
              "GET /debug/cache (top-K cached block hashes by reuse "
              "count; internal tracking stays bounded regardless).")
+register_env("DYN_ROUTER_AUTOTUNE", "1", "llm",
+             "Self-tune KvScheduler.load_balance_weight from the router's "
+             "predicted-vs-realized overlap calibration error: "
+             "over-prediction (a stale or optimistic index) shifts weight "
+             "toward load, under-prediction toward overlap. Bounded to "
+             "[0.1, 0.9] and exported as the "
+             "dyn_kv_router_load_balance_weight gauge; 0 pins the "
+             "configured weight.")
+register_env("DYN_ROUTER_AUTOTUNE_GAIN", "0.05", "llm",
+             "Per-window step size of the load_balance_weight autotuner "
+             "(fraction of the bounded range moved per calibration "
+             "window at full bias); 0 observes without adjusting.")
 
 
 def _lookup(name: str) -> EnvVar:

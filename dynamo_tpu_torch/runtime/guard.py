@@ -16,11 +16,44 @@ response plane, router and disaggregation plane use.
   :func:`render_prom_lines` into the frontend's ``/metrics``.
 - :func:`default_deadline` — the process-default request deadline
   (``DYN_REQUEST_DEADLINE_MS``) the HTTP frontend applies.
+- :class:`ChaosInjector` — seeded fault injection on the real
+  transports (TCP call-home, KV transfer plane) and the worker: drop,
+  delay or sever frames and kill connections at named points, driven by
+  the ``DYN_CHAOS`` scenario string, so the fault scenarios run against
+  the whole stack on the CPU.
 
 Deadline expiries feed the flight recorder's deadline-storm detector
-and a breaker opening trips it (``runtime/blackbox.py``). The
-reference's chaos injection (``DYN_CHAOS``) is not part of the port
-yet.
+and a breaker opening trips it (``runtime/blackbox.py``). The breaker's
+transitions carry ``proto`` anchors of the ``breaker`` machine
+(``runtime/proto.py``).
+
+Chaos spec grammar::
+
+    DYN_CHAOS = "seed=42;sever:kv.send@after=1;delay:tcp.send@ms=50,p=0.25"
+
+    spec  := [seed=N ';'] rule (';' rule)*
+    rule  := action ':' point ['@' param (',' param)*]
+    action:= drop | delay | sever
+    param := nth=N    fire on exactly the Nth hit of the point (1-based)
+           | after=N  fire on every hit >= N
+           | p=F      fire with probability F (seeded rng)
+           | ms=F     delay duration (delay action)
+           | times=N  stop after N fires
+
+Injection points: ``tcp.connect``, ``tcp.send`` (call-home response
+plane), ``kv.connect``, ``kv.send``, ``kv.recv`` (KV transfer plane),
+and two worker-scoped points:
+
+- ``worker.kill`` — consulted once per response frame a served endpoint
+  streams. A ``sever``/``drop`` fire turns the serving handle into a
+  wedged process: every stream on it dies with a raw connection drop (no
+  error frame), the request and stats planes go silent, and the lease
+  and discovery record stay behind, the crash shape that mid-stream
+  failover and breaker eviction absorb. ``seed=1;sever:worker.kill@nth=4``
+  kills the worker under the 4th streamed frame.
+- ``engine.stall`` — consulted once per engine scheduler iteration, only
+  when chaos is configured. A ``delay`` rule
+  (``delay:engine.stall@ms=250,times=3``) stalls the decode loop.
 """
 
 from __future__ import annotations
@@ -34,7 +67,8 @@ from dataclasses import dataclass, field
 from typing import (Any, AsyncIterator, Awaitable, Callable, Dict, List,
                     Optional, Tuple)
 
-from .config import env_float, env_int
+from . import proto
+from .config import env_float, env_int, env_str
 
 log = logging.getLogger("dynamo_tpu_torch.guard")
 
@@ -290,17 +324,18 @@ class CircuitBreaker:
             return True
         if self.state == BREAKER_HALF_OPEN:
             if not self._probe_inflight:
-                self._probe_inflight = True
+                self._probe_inflight = True  # proto: breaker half_open->half_open
                 return True
             return False
         # OPEN
-        self.denied_since_open += 1
+        self.denied_since_open += 1  # proto: breaker open->open
         due = (self.cfg.probe_every > 0
                and self.denied_since_open % self.cfg.probe_every == 0)
         if self.cfg.reset_after_s > 0 and \
                 self.clock() - self.opened_at >= self.cfg.reset_after_s:
             due = True
         if due:
+            proto.step("breaker", "open", "half_open")
             self.state = BREAKER_HALF_OPEN
             self._probe_inflight = True
             return True
@@ -310,9 +345,10 @@ class CircuitBreaker:
         """A half-open permit was granted but the caller chose a
         different instance: hand the single probe slot back."""
         if self.state == BREAKER_HALF_OPEN:
-            self._probe_inflight = False
+            self._probe_inflight = False  # proto: breaker half_open->half_open
 
     def record_success(self) -> None:
+        # proto: breaker closed|open|half_open->closed
         self.state = BREAKER_CLOSED
         self.failures = 0
         self.denied_since_open = 0
@@ -328,7 +364,7 @@ class CircuitBreaker:
             self._open()
 
     def _open(self) -> None:
-        self.state = BREAKER_OPEN
+        self.state = BREAKER_OPEN  # proto: breaker closed|half_open->open
         self.opened_at = self.clock()
         self.opened_total += 1
         self.denied_since_open = 0
@@ -476,3 +512,138 @@ def render_prom_lines() -> List[str]:
         lines.append("# TYPE dyn_client_breaker_state gauge")
         lines.extend(rows)
     return lines
+
+
+# ------------------------------------------------------------------- chaos
+
+
+class ChaosError(ConnectionError):
+    """Raised by a ``drop`` rule: the transport pretends the peer died."""
+
+
+@dataclass
+class ChaosRule:
+    action: str                      # drop | delay | sever
+    point: str                       # e.g. kv.send
+    nth: Optional[int] = None        # fire on exactly the Nth hit
+    after: Optional[int] = None      # fire on every hit >= N
+    p: Optional[float] = None        # fire probability (seeded rng)
+    ms: float = 0.0                  # delay duration
+    times: Optional[int] = None      # max fires
+    hits: int = 0
+    fired: int = 0
+
+    def should_fire(self, rng: random.Random) -> bool:
+        self.hits += 1
+        if self.times is not None and self.fired >= self.times:
+            return False
+        if self.nth is not None and self.hits != self.nth:
+            return False
+        if self.after is not None and self.hits < self.after:
+            return False
+        if self.p is not None and rng.random() >= self.p:
+            return False
+        self.fired += 1
+        return True
+
+
+_ACTIONS = ("drop", "delay", "sever")
+
+
+def parse_chaos(spec: str) -> Tuple[int, List[ChaosRule]]:
+    """Parse a ``DYN_CHAOS`` scenario string (grammar in the module
+    docstring); raises ValueError on malformed specs so a typo fails the
+    process loudly instead of silently running without chaos."""
+    seed = 0
+    rules: List[ChaosRule] = []
+    for part in (p.strip() for p in spec.split(";") if p.strip()):
+        if part.startswith("seed="):
+            seed = int(part[len("seed="):])
+            continue
+        head, _, params = part.partition("@")
+        action, _, point = head.partition(":")
+        if action not in _ACTIONS or not point:
+            raise ValueError(
+                f"bad chaos rule {part!r}: want action:point[@params] "
+                f"with action in {_ACTIONS}")
+        rule = ChaosRule(action=action, point=point)
+        for kv in (p.strip() for p in params.split(",") if p.strip()):
+            k, _, v = kv.partition("=")
+            if k == "nth":
+                rule.nth = int(v)
+            elif k == "after":
+                rule.after = int(v)
+            elif k == "p":
+                rule.p = float(v)
+            elif k == "ms":
+                rule.ms = float(v)
+            elif k == "times":
+                rule.times = int(v)
+            else:
+                raise ValueError(f"bad chaos param {kv!r} in {part!r}")
+        rules.append(rule)
+    return seed, rules
+
+
+class ChaosInjector:
+    """Seeded fault injector the transport layers consult at their
+    named points (see :func:`chaos_point`)."""
+
+    def __init__(self, spec: str):
+        self.spec = spec
+        seed, self.rules = parse_chaos(spec)
+        self.rng = random.Random(seed)
+        self.injected: Dict[Tuple[str, str], int] = {}
+
+    async def point(self, name: str, writer=None) -> None:
+        for rule in self.rules:
+            if rule.point != name:
+                continue
+            if not rule.should_fire(self.rng):
+                continue
+            self.injected[(name, rule.action)] = \
+                self.injected.get((name, rule.action), 0) + 1
+            counter_inc("dyn_guard_chaos_injections_total",
+                        point=name, action=rule.action)
+            log.warning("chaos: %s at %s (hit %d)", rule.action, name,
+                        rule.hits)
+            if rule.action == "delay":
+                await asyncio.sleep(rule.ms / 1000.0)
+            elif rule.action == "drop":
+                raise ChaosError(f"chaos: dropped at {name}")
+            elif rule.action == "sever":
+                if writer is not None:
+                    try:
+                        writer.close()
+                    except Exception:  # noqa: BLE001 — already dead is fine
+                        log.debug("chaos sever: close failed", exc_info=True)
+                raise ConnectionResetError(f"chaos: severed at {name}")
+
+
+# module-level injector, parsed lazily from DYN_CHAOS; tests swap it via
+# set_chaos(). ``False`` = not yet resolved (None is a valid resolution).
+_CHAOS: Any = False
+
+
+def chaos() -> Optional[ChaosInjector]:
+    global _CHAOS
+    if _CHAOS is False:
+        spec = env_str("DYN_CHAOS")
+        _CHAOS = ChaosInjector(spec) if spec else None
+    return _CHAOS
+
+
+def set_chaos(spec: Optional[str]) -> Optional[ChaosInjector]:
+    """Install (or clear, with None) the process chaos injector — the
+    test hook; production resolves DYN_CHAOS on first use."""
+    global _CHAOS
+    _CHAOS = ChaosInjector(spec) if spec else None
+    return _CHAOS
+
+
+async def chaos_point(name: str, writer=None) -> None:
+    """Transport-layer hook: no-op unless a chaos rule targets ``name``.
+    ``writer`` (if given) is the connection a ``sever`` rule kills."""
+    c = chaos()
+    if c is not None:
+        await c.point(name, writer)

@@ -15,6 +15,9 @@ caller (the "call-home" pattern):
 
 The listener advertises ``DYN_TCP_ADVERTISE_HOST``, else its bind host
 (127.0.0.1 when it binds every interface).
+
+The worker side consults the ``tcp.connect`` and ``tcp.send`` chaos
+points (``runtime/guard.py``) when chaos is configured.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import uuid
 from dataclasses import dataclass
 from typing import Dict, Optional
 
-from . import wire
+from . import guard, wire
 from .codec import TwoPartMessage, decode, encode
 from .config import env_float, env_str
 from .tasks import cancel_join, spawn_tracked
@@ -237,6 +240,8 @@ class TcpCallHome:
     @classmethod
     async def connect(cls, info: TcpConnectionInfo, on_ctrl=None,
                       timeout: Optional[float] = None) -> "TcpCallHome":
+        if guard.chaos() is not None:
+            await guard.chaos_point("tcp.connect")
         host, _, port = info.address.rpartition(":")
         reader, writer = await asyncio.wait_for(
             asyncio.open_connection(host, int(port)),
@@ -262,6 +267,10 @@ class TcpCallHome:
                 self._on_ctrl("disconnect")
 
     async def _send(self, msg: TwoPartMessage) -> None:
+        # chaos points are consulted only when chaos is configured: no
+        # extra await a frame otherwise
+        if guard.chaos() is not None:
+            await guard.chaos_point("tcp.send", self._writer)
         async with self._wlock:
             self._writer.write(encode(msg))
             # frame atomicity needs the lock across the (bounded) drain
