@@ -122,7 +122,8 @@ Phases; any failure exits non-zero before the result line:
    first's ranks warm up: four ranks, two groups, on the card). The launcher ranks of phase 7 run with
    ``--max-batch-size 4`` (the requests here are four at most) and
    phase 8's with 1 (its requests go one at a time), the check's ranks
-   with batches up to 8, so each warms fewer graphs; every launcher rank's ``engine ready`` line (where its start
+   with batches up to 8 and only the chunk lengths their checks replay
+   (64 and 512), so each warms fewer graphs; every launcher rank's ``engine ready`` line (where its start
    went: imports, process group, load, weights, warmup) is kept. Every
    rank process is killed at the end of the phase. Its times are two
    ranks sharing one card, not a TP speed;
@@ -422,6 +423,34 @@ Phases; any failure exits non-zero before the result line:
    buckets (``small_m`` in the windows, ``wgmma`` in the blocked chunk),
    check_paths against its plain int8 path with the int8 fault control.
    Its int8 launches join the bf16 int8 rows of the kernels line.
+
+21. (run after phase 17, on phase 4's seed-0 8B weights) the host KV
+   tier (:func:`tier_phase`): two 8B engines, one at a time, each a
+   40-page device pool, 64 host pages (pinned), batches of up to 4, the
+   grids trimmed to the traffic's, LRU eviction: (a) the default tier
+   (``host_tier_int8`` resolves True), (b) the lossless tier with
+   ``tier_restore_chunk=4``. Phase 4's long prompt A (625 tokens, 9 full
+   pages), greedy with logprobs; A again (the HBM-hit control); four
+   fresh 704-token prompts that push A's pages out to the host; A a
+   third time (the host hit). Both: the host hit's cost block counts >=
+   9 restored blocks and a restore wait above 0, the tier offloaded and
+   restored pages, ``cache.restore`` events on the step timeline, no
+   capture and no pinned allocation after warmup, every decode launch
+   on bf16_mma (window replays x 32 x K) and every prefill launch on
+   bf16 (chunk replays x 32). (a): the host hit's tokens the control's
+   up to a plain-path near-tie (:func:`margin_rule`); the device
+   ``quantize_pages`` of A's pages bitwise the same function's on the
+   CPU and the numpy host form's int8 rows wherever its scale (a true
+   division by 127) is the same float, the others one ulp away at most;
+   the restored pages bitwise the bf16 cast of their device round trip,
+   within s/2 an element of the evicted pages before the cast. (b): A's
+   restore gated over three drains of at most 4 pages; the restored
+   pages, the host hit's tokens and every logprob bitwise the control's;
+   then A evicted again and restored with ``restore_overlap`` off: the
+   same bits. Records the cold, HBM-hit and host-hit TTFT of A, each
+   restore batch's dispatch ms, the pinned pools' allocation time, and
+   offload and restore GB/s (CUDA events on the engine's stream). Its
+   launches join the served path's rows of the kernels line.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -3657,10 +3686,12 @@ def tp_worker(rank: int, coordinator: str, out_dir: str,
     # the plain variant alone: the rank checks no logprobs window, and at
     # tp=2 on one card each warm call's collectives cost ~1 s a window;
     # batches up to 8, the largest bucket its checks replay (a window of
-    # 4 rows, a prefill batch of 8)
+    # 4 rows, a prefill batch of 8) and the chunk lengths they replay (64
+    # and 512: the length-16 graphs are never replayed here)
     engine = TorchEngine(cfg, EngineConfig(max_batch=8,
-                                           warmup_logprobs=False), seed=0,
-                         mesh=mesh)
+                                           warmup_logprobs=False,
+                                           prefill_buckets=(64, 512)),
+                         seed=0, mesh=mesh)
     engine.warmup()
     dev = mesh.device
     logits, steps, _ = path_run(engine.params, cfg, dev, True, mesh=mesh)
@@ -7732,6 +7763,348 @@ def disagg_phase(cfg, dev, params, ref) -> dict:
     return rep
 
 
+# ------------------------------------------- phase 21: the host KV tier
+
+# two 8B engines, one at a time (TIER_ENGINES): a device pool of 40 pages
+# and a host tier of 64 (8 MiB of bf16 K and V a page: ~512 MiB pinned,
+# about half in int8), batches of up to 4, the grids trimmed to what the
+# traffic reaches (chunk lengths 64 and 512, batches 1 and 4)
+TIER_ECFG = dict(num_pages=41, host_pages=64, max_batch=4,
+                 batch_buckets=(1, 4), prefill_buckets=(64, 512),
+                 evict_policy="lru")
+# (a) the default tier (host_tier_int8 resolves True); (b) the lossless
+# tier, restores drained 4 pages a drain, so the 9-page hit takes three
+TIER_ENGINES = (("a int8", {}),
+                ("b lossless", dict(host_tier_int8=False,
+                                    tier_restore_chunk=4)))
+# each request's tokens (greedy, with logprobs and the top TIER_TOP);
+# the evictors: fresh 704-token prefixes (11 pages each, 12 with their
+# tokens) sent one at a time, which push all of A's pages out of the
+# pool (least recently freed first; 600-token ones left 3 of its 9 full
+# pages on the device: each finish frees its partial last page)
+TIER_MAX_TOKENS, TIER_TOP, TIER_EVICTORS, TIER_EVICTOR_LEN = 16, 5, 4, 704
+# the int8 round trip's error bound, in scales: the grid's half step plus
+# the float32 roundings of a/s and q*s (each at most 64 * 2**-24 of s)
+TIER_HALF_STEP = 0.5 + 2 ** -17
+
+
+async def tier_request(engine, ids: list) -> dict:
+    """One greedy request of TIER_MAX_TOKENS with logprobs through the
+    engine's generate: tokens, logprobs, top logprobs, TTFT (s) and the
+    finish's cost block."""
+    from dynamo_tpu_torch.llm.protocols.common import (OutputOptions,
+                                                       PreprocessedRequest,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    req = PreprocessedRequest(token_ids=list(ids), stop=StopConditions(
+        max_tokens=TIER_MAX_TOKENS, ignore_eos=True))
+    req.output = OutputOptions(logprobs=TIER_TOP)
+    rec = {"tokens": [], "lp": [], "top": [], "ttft_s": None, "cost": None}
+    t0 = time.monotonic()
+    async for out in engine.generate(req, Context()):
+        if out.token_ids and rec["ttft_s"] is None:
+            rec["ttft_s"] = time.monotonic() - t0
+        rec["tokens"] += out.token_ids
+        rec["lp"] += out.logprobs or []
+        rec["top"] += out.top_logprobs or []
+        if out.finish_reason is not None:
+            rec["cost"] = out.cost
+    if len(rec["tokens"]) != TIER_MAX_TOKENS:
+        fail(f"phase 21: a request gave {len(rec['tokens'])} of "
+             f"{TIER_MAX_TOKENS} tokens")
+    return rec
+
+
+def tier_pages(engine, ids: list):
+    """The device pages holding ``ids``' full blocks, by the page
+    manager's hash map (None where a block is not on the device), and
+    copies of them, K and V stacked [n, L, KV, ps, hd]."""
+    import torch
+
+    from dynamo_tpu_torch.engine.kv_manager import chain_hashes
+
+    torch.cuda.synchronize()
+    pages = [engine.pm.by_hash.get(h)
+             for h in chain_hashes(ids, engine.ecfg.page_size)]
+    if None in pages:
+        return pages, None
+    idx = torch.tensor(pages, device=engine.kv_k.device)
+    return pages, tuple(pool.transpose(0, 1).index_select(0, idx).clone()
+                        for pool in (engine.kv_k, engine.kv_v))
+
+
+def tier_copy_rates(engine, pages: list) -> dict:
+    """Offload ``pages`` into host slots 0.. and restore them in place,
+    timed by CUDA events on the engine's stream: seconds, and GB/s of the
+    pool's bytes (bf16 K and V) and of the bytes that crossed the link."""
+    import torch
+
+    tier, n = engine.tier, len(pages)
+    pool_bytes = n * engine._page_bytes
+    # one slot's bytes in every host buffer (values, and int8 scales)
+    link = sum(h[0].nbytes for pair in tier.pools for h in pair
+               if h is not None)
+    out = {"pages": n, "pool_bytes": pool_bytes,
+           "link_bytes": link * n}
+    with engine.graphs.stream_ctx():
+        for what in ("offload", "restore"):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                if what == "offload":
+                    tier.offload((engine.kv_k, engine.kv_v), pages,
+                                 list(range(n))).wait()
+                else:
+                    staged = tier.stage(list(range(n)), (
+                        engine.kv_k.dtype, engine.kv_v.dtype))
+                    tier.inject((engine.kv_k, engine.kv_v), staged, pages)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) / 1e3)
+            s = min(times)
+            out[what] = {"s": s, "pool_GBps": pool_bytes / s / 1e9,
+                         "link_GBps": link * n / s / 1e9}
+    return out
+
+
+async def tier_traffic(engine, prompt: list, rng) -> dict:
+    """A cold, A again (the HBM-hit control), TIER_EVICTORS fresh prompts
+    one at a time, A a third time (the host hit); with ``(b)``'s repeat
+    the caller evicts and serves A once more. A's pages are read before
+    its eviction and after its restore."""
+    rep = {}
+    try:
+        rep["cold"] = await tier_request(engine, prompt)
+        rep["control"] = await tier_request(engine, prompt)
+        await pages_idle(engine, "phase 21")
+        rep["before"] = tier_pages(engine, prompt)
+        rep["evictors"] = await tier_evict(engine, rng)
+        rep["host_hit"] = await tier_request(engine, prompt)
+        await pages_idle(engine, "phase 21")
+        rep["after"] = tier_pages(engine, prompt)
+        if not engine.ecfg.host_tier_int8:
+            # the serial control of the overlapped restore: A out again
+            # (its blocks are still in the tier) and back in one drain
+            engine.ecfg.restore_overlap = False
+            await tier_evict(engine, rng)
+            rep["serial"] = await tier_request(engine, prompt)
+            await pages_idle(engine, "phase 21")
+            rep["after_serial"] = tier_pages(engine, prompt)
+    finally:
+        await engine.stop()
+    return rep
+
+
+async def tier_evict(engine, rng) -> list:
+    ids = [[int(x) for x in rng.randint(1000, 100000, TIER_EVICTOR_LEN)]
+           for _ in range(TIER_EVICTORS)]
+    return [(await tier_request(engine, p))["tokens"] for p in ids]
+
+
+def tier_phase(cfg, dev, params, ref) -> dict:
+    """Phase 21: the host KV tier on the 8B (phase 4's seed-0 weights,
+    shared), one engine of TIER_ENGINES at a time, each warmed and freed
+    before the next, on :func:`tier_traffic` with phase 4's long prompt A
+    (625 tokens, 9 full pages of 64). Both: the host hit counts >= 9
+    restored blocks and a restore wait above 0 in its cost block, the
+    tier offloaded and restored pages, ``cache.restore`` events on the
+    step timeline, no capture and no pinned allocation after warmup,
+    every decode launch on bf16_mma (window replays x 32 x K) and every
+    prefill launch on bf16 (chunk replays x 32). (a), the default int8
+    tier: A's host-hit tokens the control's up to a plain-path near-tie
+    (:func:`margin_rule`); the device ``quantize_pages`` of A's pages
+    bitwise the same function's on the CPU (the JAX package's jitted
+    arithmetic, held there by the CPU tests) and the numpy host form's
+    int8 rows wherever its scale (a true division by 127) is the same
+    float, its other scales one ulp away at most; the restored pages
+    bitwise the bf16 cast of their device round trip, within s/2 an
+    element of the pages before eviction before the cast. (b), the
+    lossless tier, 4 pages a drain (A's restore gated over three): the
+    restored pages, the host hit's tokens and every logprob bitwise the
+    control's, then again with ``restore_overlap`` off. Records the
+    cold, HBM-hit and host-hit TTFT of A, each restore batch's dispatch
+    ms, the pinned pools' allocation time, and offload and restore
+    GB/s."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dynamo_tpu_torch.engine import kv_compress
+    from dynamo_tpu_torch.engine.torch_engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.ops import paged_attention as ops
+
+    prompt = max((r["prompt_ids"] for r in ref["batch"].values()), key=len)
+    L = cfg.num_layers
+    report = {"prompt_tokens": len(prompt)}
+    launches = {"decode": 0, "prefill": 0}
+    saved_timeline = os.environ.get("DYN_STEP_TIMELINE")
+    os.environ["DYN_STEP_TIMELINE"] = "4096"
+    try:
+        for name, arm in TIER_ENGINES:
+            ecfg = dataclasses.replace(EngineConfig(), **TIER_ECFG, **arm)
+            t = time.monotonic()
+            engine = TorchEngine(cfg, ecfg, params=params, device="cuda")
+            n_graphs = engine.warmup()
+            warm_s = time.monotonic() - t
+            ops.reset_launch_counts()
+            replays0 = engine.graph_replays()
+            rep = asyncio.run(tier_traffic(engine, prompt,
+                                           np.random.RandomState(21)))
+            torch.cuda.synchronize()
+            replays = {k: v - replays0[k]
+                       for k, v in engine.graph_replays().items()}
+            stats = engine.stats()
+            dec = dict(ops.DECODE_ROUTE_LAUNCHES)
+            pf = dict(ops.PREFILL_ROUTE_LAUNCHES)
+            events = [e for e in engine.step_timeline.snapshot()
+                      if e["kind"] == "cache.restore"]
+            got = {
+                "int8": ecfg.host_tier_int8, "warmup_s": warm_s,
+                "graphs": n_graphs,
+                "host_pool_MiB": engine.tier.nbytes / 2**20,
+                "pinned_alloc_s": engine.tier.alloc_seconds,
+                "pinned_allocs": engine.tier.pinned_allocs,
+                "pinned_after_warmup": engine.tier.pinned_after_warmup,
+                "post_warmup_compiles_total":
+                    stats["post_warmup_compiles_total"],
+                "offload_pages": stats["host_offload_pages_total"],
+                "restore_pages": stats["host_restore_pages_total"],
+                "ttft_ms": {k: rep[k]["ttft_s"] * 1e3
+                            for k in ("cold", "control", "host_hit",
+                                      "serial") if k in rep},
+                "host_hit_cost": {k: rep["host_hit"]["cost"][k] for k in (
+                    "prefix_hit_tokens", "device_hit_blocks",
+                    "host_restored_blocks", "restore_wait_ms")},
+                "restore_events": [{k: e[k] for k in (
+                    "pages", "queued", "staged", "dispatch_ms")}
+                    for e in events],
+                "replays": replays, "route_launches": dec,
+                "prefill_route_launches": pf}
+            problems = []
+            if got["post_warmup_compiles_total"] != 0:
+                problems.append("captures after warmup")
+            if got["pinned_after_warmup"] != 0:
+                problems.append("pinned allocations after warmup")
+            if got["host_hit_cost"]["host_restored_blocks"] < 9:
+                problems.append("the host hit restored < 9 blocks")
+            if got["host_hit_cost"]["restore_wait_ms"] <= 0:
+                problems.append("no restore wait in the host hit's cost")
+            if got["offload_pages"] <= 0 or got["restore_pages"] <= 0:
+                problems.append("the tier moved no page")
+            if not events:
+                problems.append("no cache.restore event")
+            K = ecfg.decode_steps
+            if (dec.get("bf16_mma", 0) != sum(dec.values())
+                    or dec["bf16_mma"] != replays["decode_window"] * L * K
+                    or pf.get("bf16", 0) != sum(pf.values())
+                    or pf["bf16"] != replays["prefill"] * L
+                    or replays["decode_window"] <= 0
+                    or replays["prefill"] <= 0):
+                problems.append("attention launches off the bf16 routes or "
+                                "not the replays'")
+            pages, before = rep["before"]
+            _, after = rep["after"]
+            if before is None or after is None:
+                problems.append("A's blocks not on the device")
+            elif ecfg.host_tier_int8:
+                got.update(tier_int8_checks(before, after, kv_compress))
+                got["tokens"] = margin_rule(
+                    params, cfg, dev, prompt, rep["control"]["tokens"],
+                    rep["host_hit"]["tokens"],
+                    f"phase 21 {name}: the host hit against the control")
+                if not got["restored_roundtrip_bitwise"]:
+                    problems.append("restored pages are not their int8 "
+                                    "round trip")
+                if got["restored_excess_over_half_step"] > 0:
+                    problems.append("restored pages beyond s/2")
+                if not got["quantize_device_bitwise_cpu"]:
+                    problems.append("device quantize_pages differs from "
+                                    "the CPU's")
+                if not got["quantize_np_agrees"]:
+                    problems.append("device quantize_pages off the numpy "
+                                    "form beyond one scale ulp")
+            else:
+                if len([e for e in events if e["pages"] <= 4]) < 3:
+                    problems.append("the 9-page restore did not take three "
+                                    "drains of at most 4 pages")
+                if rep["serial"]["cost"]["host_restored_blocks"] < 9:
+                    problems.append("the serial control restored < 9 "
+                                    "blocks")
+                for key, pages_key in (("host_hit", "after"),
+                                       ("serial", "after_serial")):
+                    _, pg = rep[pages_key]
+                    same = (pg is not None
+                            and all(torch.equal(x, y)
+                                    for x, y in zip(pg, before)))
+                    exact = all(rep[key][k] == rep["control"][k]
+                                for k in ("tokens", "lp", "top"))
+                    got[f"{key}_pages_bitwise"] = same
+                    got[f"{key}_tokens_logprobs_bitwise"] = exact
+                    if not (same and exact):
+                        problems.append(f"{key}: pages or tokens and "
+                                        f"logprobs not bitwise the "
+                                        f"control's")
+            if before is not None:
+                got["copy_rates"] = tier_copy_rates(engine, pages[:9])
+            log(f"  {name}: {json.dumps(got)}")
+            if problems:
+                fail(f"phase 21 {name}: {'; '.join(problems)}")
+            launches["decode"] += dec["bf16_mma"]
+            launches["prefill"] += pf["bf16"]
+            report[name] = got
+            del engine, rep
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if saved_timeline is None:
+            os.environ.pop("DYN_STEP_TIMELINE", None)
+        else:
+            os.environ["DYN_STEP_TIMELINE"] = saved_timeline
+    report["attention_launches"] = launches
+    return report
+
+
+def tier_int8_checks(before, after, kv_compress) -> dict:
+    """(a)'s page checks: ``before`` and ``after`` are A's pages (K, V)
+    before eviction and after the restore, on the card."""
+    import numpy as np
+    import torch
+
+    out = {"quantize_device_bitwise_cpu": True, "quantize_np_agrees": True,
+           "np_scale_rows_differing": 0, "restored_roundtrip_bitwise": True,
+           "restored_excess_over_half_step": 0.0,
+           "restored_max_err_over_s": 0.0}
+    for b, a in zip(before, after):
+        q, s = kv_compress.quantize_pages(b)
+        qc, sc = kv_compress.quantize_pages(b.cpu())
+        out["quantize_device_bitwise_cpu"] &= bool(
+            torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc))
+        qn, sn = kv_compress.quantize_pages_np(b.cpu())
+        s_np = s.cpu().numpy()
+        same = s_np == sn
+        ulps = np.abs(s_np.view(np.int32).astype(np.int64)
+                      - sn.view(np.int32).astype(np.int64))
+        rows_same = np.broadcast_to(same, qn.shape)
+        out["np_scale_rows_differing"] += int((~same).sum())
+        out["quantize_np_agrees"] &= bool(
+            ulps.max() <= 1
+            and np.array_equal(q.cpu().numpy()[rows_same], qn[rows_same]))
+        deq = kv_compress.dequantize_pages(q, s)
+        out["restored_roundtrip_bitwise"] &= bool(
+            torch.equal(a, deq.to(a.dtype)))
+        ratio = ((deq - b.float()).abs() / s).max().item()
+        out["restored_max_err_over_s"] = max(
+            out["restored_max_err_over_s"], ratio)
+        out["restored_excess_over_half_step"] = max(
+            out["restored_excess_over_half_step"], ratio - TIER_HALF_STEP)
+    return out
+
+
 # ------------------------------------------- phase 18: the batch launcher
 
 # the launcher's benchmark mode on the 8B: phase 4's cold-batch prompts,
@@ -8132,6 +8505,16 @@ def main() -> None:
         next(r for r in rows if r["name"] == name)["launches"] += n
         if n <= 0:
             fail(f"{name}: not launched in phase 17")
+    log("phase 21: the host KV tier on the 8B (phase 4's weights): phase "
+        "4's long prompt evicted to pinned host memory and restored, on the "
+        "int8 tier and on the lossless one")
+    tier_report = tier_phase(cfg, dev, engine.params, solo_ref)
+    for name, key in (("paged_attention_decode", "decode"),
+                      ("paged_attention_prefill", "prefill")):
+        n = tier_report["attention_launches"][key]
+        next(r for r in rows if r["name"] == name)["launches"] += n
+        if n <= 0:
+            fail(f"{name}: not launched in phase 21")
     log("phase 18: the launcher's batch mode on the 8B with --max-tokens, "
         "--context-length and --profile-dir")
     batch_dir = tempfile.mkdtemp(prefix="chip_smoke_batch_")
@@ -8330,6 +8713,7 @@ def main() -> None:
                        "sync_arms": sync_report,
                        "runtime": dyn_report,
                        "disagg": disagg_report,
+                       "host_tier": tier_report,
                        "batch_launcher": batch_report,
                        "kernels": rows, "int8": int8_report,
                        "int8_gemm_timings": int8_rows,

@@ -2,8 +2,9 @@
 
 A copy of ``dynamo_tpu/engine/kv_manager.py`` (pure Python), kept here so
 the PyTorch port imports nothing of the JAX package. The port's engine
-(engine/torch_engine.py) does not drain the host tier yet: it builds the
-manager with ``host_pages=0``.
+(engine/torch_engine.py) builds it with its ``host_pages`` and
+``evict_policy`` and drains the tier's queued copies
+(``_drain_kv_tier``, ``engine/kv_tier.py``).
 
 The host-side half of the KV cache (the device-side pool lives in
 models/llama.py). Re-designs three reference components as one coherent

@@ -76,6 +76,16 @@ behind ``Backend`` the same way:
   ``PageManager``); the device sees only padded arrays;
 - sequences preempt (release pages, requeue) when the pool runs dry,
   after the pipeline is flushed;
+- the host KV tier (``host_pages > 0``, ``engine/kv_tier.py``): pages
+  evicted from the pool move to pinned host pools, int8 by default
+  (``host_tier_int8``), and come back on a prefix hit. The page
+  manager queues the copies; ``_drain_kv_tier`` runs them on the
+  engine's stream before each step's dispatches (and after a decode
+  batch's evictions), in place in the pools the graphs were captured
+  on: offloads without a host wait, restores at most
+  ``tier_restore_chunk`` pages an iteration, overlapped with the next
+  step under ``restore_overlap``, their sequences gated out of prefill
+  until their pages have landed. Not at ``tp > 1``;
 - tensor parallel (``mesh``, a ``parallel/mesh.py`` ``MeshView`` of
   ``model=N``): every rank holds its Megatron shard of the params and
   the pool and captures the same graphs in the same order at warmup.
@@ -111,7 +121,7 @@ per-step pool writes, captured as any window is; with ``spec_decode`` and
 no verify forward the engine warns and keeps the standard path, as the
 JAX engine does.
 
-Not ported yet: the host KV tier and long-prompt ring prefill.
+Not ported yet: long-prompt ring prefill.
 """
 
 from __future__ import annotations
@@ -139,7 +149,7 @@ from ..models.quant import QUANT_KEYS, quantize_int8, quantize_params
 from ..models.registry import get_model_module
 from ..parallel.mesh import MeshView, quantize_shard, shard_param
 from ..runtime import blackbox, guard, profiling, tracing
-from ..runtime.config import env_int
+from ..runtime.config import env_bool, env_int, env_str
 from ..runtime.device import resolve_device
 from ..runtime.engine import Context
 from ..runtime.slo import LatencyRecorder
@@ -148,6 +158,7 @@ from .cuda_graphs import (PEN_FULL, PEN_NONE, DecodeGraphs,
                           VerifyGraphs, to_device, to_host, upload)
 from .jit_fence import CompileFence
 from .kv_manager import ChainHashCache, PageManager
+from .kv_tier import HostTier, Offload
 from .profiler import EngineProfiler, memory_snapshot
 from .sampling import SamplingBatch, logprob_aux, sample_tokens
 from .spec_decode import propose_ngram_draft
@@ -245,6 +256,27 @@ class EngineConfig:
     # deployments never send penalties, and a first penalty request pays
     # one fenced capture per bucket)
     warmup_penalties: bool = False
+    # host KV tier: pages evicted from the device pool move to pinned
+    # host memory and restore on a prefix hit; 0 disables the tier
+    host_pages: int = 0
+    # at most this many host-to-device page restores a scheduler
+    # iteration, so one long host hit cannot stall every other request's
+    # step; gated sequences wait in prefilling. 0 = unlimited
+    tier_restore_chunk: int = 32
+    # int8 host tier (engine/kv_compress.py): pages are quantized on the
+    # device before the device-to-host copy and dequantized on the device
+    # after the copy back, so the link moves about half the bytes. Lossy.
+    # None = on whenever the tier is, unless DYN_HOST_TIER_FP16 is set;
+    # an explicit True/False wins
+    host_tier_int8: Optional[bool] = None
+    # eviction policy of both tiers: "cost" (GreedyDual over the
+    # hot-prefix hit table) or "lru"; None reads DYN_EVICT_POLICY
+    evict_policy: Optional[str] = None
+    # overlapped restores: a drained batch's host-to-device copy and
+    # dequantize are enqueued on one drain and its inject lands on the
+    # next, overlapping the step between; False injects in the same
+    # drain. None reads DYN_RESTORE_OVERLAP
+    restore_overlap: Optional[bool] = None
     # bucketing: padded shapes, as the JAX engine pads them; warmup()
     # captures one decode graph per (batch, page) bucket and one prefill
     # graph per (prefill batch, chunk length, page) bucket
@@ -335,6 +367,10 @@ class Sequence:
     prefix_hit: int = 0
     device_hit_blocks: int = 0
     host_restored_blocks: int = 0
+    # host-tier restores: admission stamp while the row's restores are
+    # queued, then admission -> the prefill sweep that found them landed
+    restore_t0: Optional[float] = None
+    restore_wait_s: float = 0.0
     hash_cache: Optional[ChainHashCache] = None
     # disagg prefill-only: the finish leaves the pages allocated for the
     # caller to extract, then release (release_pages)
@@ -507,10 +543,17 @@ class TorchEngine:
                 t = shard_param(name, t, model_cfg, mesh)
             return t
 
+        ecfg = engine_cfg or EngineConfig()
         if mesh is not None:
             if mesh.data > 1:
                 raise NotImplementedError(
                     "the data axis inside one engine is not ported yet")
+            if mesh.size > 1 and ecfg.host_pages > 0:
+                raise NotImplementedError(
+                    "the host KV tier at tp > 1 (ROADMAP.md queue 1 item "
+                    "11): each rank holds only its heads of the pool, and "
+                    "no dispatch kind carries the tier's copies to the "
+                    "followers")
             device = mesh.device
         self.mesh = mesh
         self.worker_label = worker_label or ""
@@ -518,7 +561,7 @@ class TorchEngine:
         self.mesh_shape = mesh.shape if mesh is not None else "single"
         self.device = resolve_device(device)
         self.cfg = model_cfg
-        self.ecfg = engine_cfg or EngineConfig()
+        self.ecfg = ecfg
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
@@ -611,8 +654,31 @@ class TorchEngine:
         # the scheduler's PageManager calls run on the executor thread;
         # the disagg plane's (reserve, release, submit) and admission take
         # _pm_lock, as the JAX engine's do
-        self.pm = PageManager(self.ecfg.num_pages, self.ecfg.page_size)
+        # the tier's None-means-env knobs, resolved once (jax_engine.py)
+        if self.ecfg.host_tier_int8 is None:
+            self.ecfg.host_tier_int8 = (
+                self.ecfg.host_pages > 0
+                and not env_bool("DYN_HOST_TIER_FP16"))
+        if self.ecfg.evict_policy is None:
+            self.ecfg.evict_policy = env_str("DYN_EVICT_POLICY") or "cost"
+        if self.ecfg.restore_overlap is None:
+            self.ecfg.restore_overlap = env_bool("DYN_RESTORE_OVERLAP", True)
+        self.pm = PageManager(self.ecfg.num_pages, self.ecfg.page_size,
+                              host_pages=self.ecfg.host_pages,
+                              evict_policy=self.ecfg.evict_policy)
         self._pm_lock = threading.Lock()
+        self.tier = (HostTier(self.kv_k, self.kv_v, self.ecfg.host_pages,
+                              int8=self.ecfg.host_tier_int8)
+                     if self.ecfg.host_pages > 0 else None)
+        self.offload_pages_total = 0
+        self.restore_pages_total = 0
+        # offload copies enqueued but not yet landed in the host pool;
+        # device pages whose restore has not been injected yet (their
+        # sequences are gated out of prefill); the restore batch staged
+        # by the last drain under restore_overlap, injected by the next
+        self._offload_inflight: List[Offload] = []
+        self._unrestored_pages: set = set()
+        self._restore_staged: Optional[tuple] = None
         self.waiting: List[Sequence] = []
         self.prefilling: List[Sequence] = []
         self.running: List[Sequence] = []
@@ -689,7 +755,9 @@ class TorchEngine:
         plain one always, the logprobs one with ``warmup_logprobs``, the
         penalised one with ``warmup_penalties``; one variant
         at a time, so each set's ``pool_bytes`` is what it added to the
-        pool. Returns the number of graphs warmed."""
+        pool. With a host tier, its copy paths run once at a restore
+        batch's size (``kv_tier.HostTier.warm``). Returns the number of
+        graphs warmed."""
         ecfg = self.ecfg
         grid = ecfg.warmed_grid()
         pages = grid["page_buckets"]
@@ -710,6 +778,12 @@ class TorchEngine:
         psets = [self.prefill_set(n) for n in topns]
         for gs in psets:
             gs.capture(prefill)
+        if self.tier is not None:
+            with self.graphs.stream_ctx():
+                self.tier.warm((self.kv_k, self.kv_v),
+                               min(ecfg.tier_restore_chunk or ecfg.num_pages,
+                                   ecfg.num_pages))
+            self.tier.armed = True
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.fence.arm()
@@ -995,6 +1069,7 @@ class TorchEngine:
             "batch_dispatches_total": self.batch_dispatches_total,
             "kv_free_blocks": len(self.pm.free),
             "kv_cached_blocks": len(self.pm.reusable),
+            "host_free_blocks": len(self.pm.host_free),
             "request_active_slots": len(self.running) + len(self.prefilling),
             "request_total_slots": self.ecfg.max_batch,
             "kv_active_blocks": self.pm.active,
@@ -1011,6 +1086,9 @@ class TorchEngine:
             "prompt_tokens_total": self.prompt_tokens_total,
             # the page manager's prefix-cache counters, as cache_* keys
             **{f"cache_{k}": v for k, v in self.pm.cache_stats().items()},
+            "host_cache_usage_perc": self.pm.host_usage(),
+            "host_offload_pages_total": self.offload_pages_total,
+            "host_restore_pages_total": self.restore_pages_total,
             # graph captures after warmup() armed the fence (0 = the
             # no-capture serving invariant holds)
             "post_warmup_compiles_total": self.fence.post_warmup_compiles,
@@ -1050,8 +1128,7 @@ class TorchEngine:
 
     def cache_snapshot(self) -> dict:
         """The ``/debug/cache`` view (``jax_engine.py``
-        ``cache_snapshot``): pool occupancy, the host tier's (empty: the
-        port builds the manager with ``host_pages=0``), windowed and
+        ``cache_snapshot``): pool occupancy, the host tier's, windowed and
         lifetime hit rates, the page manager's counters and the top-K
         hot prefix chains (``DYN_CACHE_TOPK``)."""
         topk = max(env_int("DYN_CACHE_TOPK") or 20, 0)
@@ -1133,6 +1210,7 @@ class TorchEngine:
         beside a prefill batch trimmed to the budget (``prefill_priority
         =False``: beside an untrimmed one)."""
         self.profiler.tick()  # one compare at sample=0
+        self._drain_kv_tier()
         budget = self.ecfg.prefill_token_budget
         mix = budget is not None or not self.ecfg.prefill_priority
         if self.verify_fn is not None:
@@ -1227,6 +1305,13 @@ class TorchEngine:
                 torch.cuda.synchronize(self.device)
             except RuntimeError:
                 log.exception("device sync on abort failed")
+        # parked offloads land: their host slots are already mapped to
+        # their hashes, and a later restore would read stale content
+        try:
+            self._land_inflight_offloads(self._offload_inflight)
+        except RuntimeError:
+            log.exception("landing the tier's offloads on abort failed")
+        self._offload_inflight.clear()
         parked = list(self._deferred_free)
         if self._pending_prefill is not None:
             parked += [s for _, s in self._pending_prefill.finishing]
@@ -1271,10 +1356,16 @@ class TorchEngine:
                     if alloc is not None:
                         self.pm.release_sequence(alloc[0])
                     break  # out of pages; wait for frees
+                if alloc.restores:
+                    # gated out of prefill until its restores have landed
+                    self._unrestored_pages.update(
+                        p for p, _ in alloc.restores)
             self.waiting.pop(0)
             pages, cached_tokens = alloc
             seq.pages = pages
             seq.computed = min(cached_tokens, seq.prefill_extent)
+            if alloc.restores:
+                seq.restore_t0 = time.monotonic()
             if seq.generated == 0:  # don't double-count resumed sequences
                 seq.queue_wait_s = time.monotonic() - seq.arrival
                 self.queue_wait_seconds_total += seq.queue_wait_s
@@ -1303,6 +1394,103 @@ class TorchEngine:
         self._admit()
         self.profiler.end(at0, "admit", ("host",))
 
+    # ------------------------------------------------------- KV tier drain
+
+    def _land_inflight_offloads(self, entries: List[Offload]) -> None:
+        """Wait for parked offload copies: their host slots then hold
+        the pages."""
+        for off in entries:
+            off.wait()
+
+    def _drain_kv_tier(self, full: bool = False) -> None:
+        """Run the page manager's queued device<->host page copies
+        (``jax_engine.py`` ``_drain_kv_tier``), on the engine's stream,
+        before the next device step: offloads then read what every
+        earlier dispatch left in their pages, and restores land before
+        their pages are read.
+
+        Offload copies are enqueued without a host wait and park in
+        ``_offload_inflight`` until a later drain lands them (the newest
+        stays in flight under the next step). Restores drain at most
+        ``tier_restore_chunk`` pages a call; their sequences stay gated
+        out of prefill through ``_unrestored_pages`` until their copy is
+        injected. Every parked offload lands before any restore reads
+        the host pool.
+
+        With ``restore_overlap`` the drained batch's host-to-device copy
+        and dequantize go on the tier's copy stream now, and its inject
+        lands at the start of the next drain, so the copy runs under the
+        step between; rows whose page was recycled meanwhile are left
+        out of the inject. ``full=True`` drains everything now, inject
+        included: the disaggregation plane hands pages to a consumer
+        with no later drain between."""
+        if self.tier is None:
+            return
+        chunk = None if full else (self.ecfg.tier_restore_chunk or None)
+        if self._restore_staged is not None:
+            self._inject_staged()
+        with self._pm_lock:
+            off, res = self.pm.drain_tier_ops(restore_limit=chunk)
+            # each drained page's block hash, for the inject-time check
+            res_hashes = [self.pm.pages[p].block_hash for p, _ in res]
+            # the gate mirrors the restores still queued (a stale one
+            # cancelled on reallocation un-gates its page's new owner)
+            self._unrestored_pages = {p for p, _ in self.pm.pending_restore}
+        if off:
+            self._offload_inflight.append(self.tier.offload(
+                (self.kv_k, self.kv_v), [p for p, _ in off],
+                [s for _, s in off]))
+            self.offload_pages_total += len(off)
+        # a restore may read a slot whose offload is still in flight, so
+        # everything lands before one; otherwise the newest stays in
+        # flight under the next step
+        land_all = bool(res) or full
+        if self._offload_inflight and (land_all
+                                       or len(self._offload_inflight) > 1):
+            harvest = (self._offload_inflight if land_all
+                       else self._offload_inflight[:-1])
+            self._offload_inflight = ([] if land_all
+                                      else self._offload_inflight[-1:])
+            self._land_inflight_offloads(harvest)
+        if not res:
+            return
+        rt0 = time.perf_counter()
+        pages = [p for p, _ in res]
+        overlap = bool(self.ecfg.restore_overlap) and not full
+        staged = self.tier.stage([s for _, s in res],
+                                 (self.kv_k.dtype, self.kv_v.dtype),
+                                 side=overlap)
+        if overlap:
+            self._restore_staged = (pages, res_hashes, staged)
+            self._unrestored_pages.update(pages)
+        else:
+            self.tier.inject((self.kv_k, self.kv_v), staged, pages)
+        self.restore_pages_total += len(res)
+        # a step-timeline event and a span per drained batch (the time
+        # to enqueue it; no host wait)
+        rdt = time.perf_counter() - rt0
+        self.step_timeline.add(
+            "cache.restore", pages=len(res),
+            queued=len(self._unrestored_pages), staged=int(overlap),
+            dispatch_ms=round(rdt * 1000.0, 3))
+        tracing.get_tracer().record_span(
+            "cache.restore", rdt, parent=None,
+            attributes={"pages": len(res), "staged": overlap,
+                        "queued": len(self._unrestored_pages)})
+
+    def _inject_staged(self) -> None:
+        """Land the staged restore batch (the second half of an
+        overlapped restore). A row whose page was recycled since staging
+        (its hash no longer maps to it) is left out: the page's content
+        now belongs to its new owner."""
+        pages, hashes, staged = self._restore_staged
+        self._restore_staged = None
+        with self._pm_lock:
+            keep = [i for i, (p, h) in enumerate(zip(pages, hashes))
+                    if self.pm.by_hash.get(h) == p]
+        self.tier.inject((self.kv_k, self.kv_v), staged, pages, keep)
+        self._unrestored_pages.difference_update(pages)
+
     # ------------------------------------------------------------- prefill
 
     def _dispatch_prefill(self, token_budget: Optional[int] = None
@@ -1319,6 +1507,15 @@ class TorchEngine:
                 self.prefilling.remove(seq)
                 self._terminate(seq, _cancel_reason(seq.context))
                 continue
+            if (self._unrestored_pages
+                    and not self._unrestored_pages.isdisjoint(seq.pages)):
+                # host-tier restores of its pages are still queued or
+                # staged: its prefill would read stale pages. It waits
+                continue
+            if seq.restore_t0 is not None:
+                # admission -> its restores landed: the restore wait
+                seq.restore_wait_s = time.monotonic() - seq.restore_t0
+                seq.restore_t0 = None
             if seq.prefill_extent - seq.computed <= 0:
                 # resumed sequence fully covered by the prefix cache
                 self.prefilling.remove(seq)
@@ -1512,6 +1709,10 @@ class TorchEngine:
                 self.waiting.insert(0, victim)
                 if victim is seq:
                     break
+        # the tier copies these evictions queued go now, before this
+        # step's forward: the evicted pages' new owners write them in it,
+        # and a drain on the next step would offload overwritten pages
+        self._drain_kv_tier()
 
     def _dispatch_decode_window(self, batch: Optional[List[Sequence]] = None
                                 ) -> Optional[_PendingWindow]:
@@ -2143,9 +2344,9 @@ class TorchEngine:
         """The request's cost block (``jax_engine.py`` ``_attribution``):
         where its share of the engine's time and memory went.
         ``device_ms_est`` scales the step share by the sampled mean
-        device time a dispatch (None until something was sampled). The
-        port has no host tier: ``host_restored_blocks`` and
-        ``restore_wait_ms`` stay 0."""
+        device time a dispatch (None until something was sampled);
+        ``restore_wait_ms`` is admission -> the row's host-tier restores
+        landed."""
         est = self.profiler.mean_device_ms_per_step()
         ps = self.ecfg.page_size
         return {
@@ -2157,7 +2358,7 @@ class TorchEngine:
             "prompt_blocks": (seq.num_prompt + ps - 1) // ps,
             "device_hit_blocks": seq.device_hit_blocks,
             "host_restored_blocks": seq.host_restored_blocks,
-            "restore_wait_ms": 0.0,
+            "restore_wait_ms": round(seq.restore_wait_s * 1000.0, 3),
             "decode_tokens": seq.generated,
             "kv_pages_peak": seq.max_pages,
             "kv_bytes_peak": seq.max_pages * self._page_bytes,
@@ -2193,10 +2394,9 @@ class TorchEngine:
     # (``jax_engine.py`` ``reserve_remote`` ... ``submit_prefilled``): the
     # prefill side computes a prompt's KV and hands its pages out as host
     # tensors [L, n, KV, page_size, hd]; the decode side reserves pages,
-    # takes the shipped pages in place into its pool, and decodes on. The
-    # host KV tier is not ported (``host_pages`` stays 0): where the JAX
-    # engine drains it first (``_drain_kv_tier``), there is nothing to
-    # drain.
+    # takes the shipped pages in place into its pool, and decodes on.
+    # With a host tier, each hand-over drains it fully first, as the JAX
+    # engine's do: no scheduler drain is sure to run in between.
 
     def _single_rank(self, what: str) -> None:
         """Refuse a page transfer this engine cannot make: at tp > 1, and
@@ -2227,12 +2427,15 @@ class TorchEngine:
                 alloc = self.pm.allocate_sequence(token_ids)
             if alloc is None:
                 return None
-            # alloc.restores stays empty: no host tier
+            if alloc.restores:
+                # its host-tier hits must be in the pool before
+                # submit_prefilled decodes on them
+                self._drain_kv_tier(full=True)
             return RemoteReservation(pages=alloc[0], cached_tokens=alloc[1],
                                      page_size=self.ecfg.page_size)
 
-        return await asyncio.get_running_loop().run_in_executor(self._exec,
-                                                                _do)
+        return await asyncio.get_running_loop().run_in_executor(
+            self._exec, self._on_stream, _do)
 
     async def release_pages(self, pages: List[int]) -> None:
         """Return pages claimed by reserve_remote()/prefill_only()."""
@@ -2243,10 +2446,15 @@ class TorchEngine:
 
         await asyncio.get_running_loop().run_in_executor(self._exec, _do)
 
-    def _gather(self, page_ids: List[int]):
+    def _gather(self, page_ids: List[int], drain: bool = False):
         """Executor thread, engine stream: enqueue the gather of the
         pages out of both pools and their copy to pinned host memory;
-        returns ([k, v], event), valid once the event has completed."""
+        returns ([k, v], event), valid once the event has completed.
+        ``drain`` first drains the host tier fully (restored pages in
+        the pool, and evicted ones offloaded before anything reads or
+        overwrites them)."""
+        if drain:
+            self._drain_kv_tier(full=True)
         idx = to_device(np.asarray(page_ids, np.int64), self.device)
         return to_host(self.kv_k.index_select(1, idx),
                        self.kv_v.index_select(1, idx))
@@ -2267,7 +2475,7 @@ class TorchEngine:
         self._single_rank("extract_pages")
         loop = asyncio.get_running_loop()
         host, event = await loop.run_in_executor(
-            self._exec, self._on_stream, self._gather, list(page_ids))
+            self._exec, self._on_stream, self._gather, list(page_ids), True)
         return await loop.run_in_executor(None, self._landed, host, event)
 
     async def extract_pages_chunked(self, page_ids: List[int],
@@ -2288,7 +2496,7 @@ class TorchEngine:
             return
         t0 = time.monotonic()
         pending = await loop.run_in_executor(self._exec, self._on_stream,
-                                             self._gather, slices[0])
+                                             self._gather, slices[0], True)
         for i in range(len(slices)):
             nxt = (loop.run_in_executor(self._exec, self._on_stream,
                                         self._gather, slices[i + 1])
@@ -2309,6 +2517,9 @@ class TorchEngine:
         self._single_rank("inject_pages")
 
         def _do():
+            # evictions queued when these pages were reserved offload
+            # their old content before this inject overwrites it
+            self._drain_kv_tier(full=True)
             idx = to_device(np.asarray(page_ids, np.int64), self.device)
             for pool, rows in ((self.kv_k, k), (self.kv_v, v)):
                 if self.device.type == "cuda":

@@ -57,6 +57,23 @@ register_env("DYN_CACHE_WINDOW", "256", "engine",
              "stats()['gpu_prefix_cache_hit_rate'] is the hit tokens over "
              "the prompt tokens of the last N admissions; the lifetime "
              "ratio and the token totals ride beside it.")
+register_env("DYN_EVICT_POLICY", "cost", "engine",
+             "KV eviction policy of both cache tiers "
+             "(EngineConfig.evict_policy=None reads this): 'cost' runs "
+             "GreedyDual over the hot-prefix hit table, so a hot shared "
+             "prefix outlives one-shot churn; 'lru' evicts the "
+             "least-recently-freed page.")
+register_env("DYN_RESTORE_OVERLAP", "1", "engine",
+             "Pipeline host-tier restores: a drained batch's host-to-device "
+             "copy and dequantize are enqueued on one drain and its page "
+             "inject lands on the next, overlapping the step between; 0 "
+             "injects in the same drain. EngineConfig.restore_overlap=None "
+             "reads this.")
+register_env("DYN_HOST_TIER_FP16", "0", "engine",
+             "Keep the host KV tier at the pool's dtype instead of the int8 "
+             "default (engine/kv_compress.py): int8 halves the copied bytes "
+             "but restored pages round-trip lossily; 1 restores them "
+             "bitwise. An explicit EngineConfig.host_tier_int8 wins.")
 register_env("DYN_PROFILE_DIR", None, "run",
              "The launcher's default --profile-dir: write a torch.profiler "
              "Chrome trace of the session into this directory.")

@@ -16,9 +16,11 @@ ModelConfig.tiny() in float32 with the same (bridged) weights:
 - ``worker_label`` (a constructor argument) round-trips through
   ``stats()`` and the router's ForwardPassMetrics;
 - the keys of JaxEngine's ``stats()`` that the port's lacks are exactly
-  the host tier's (ROADMAP queue 1 item 6) and the ring prefill's (item
-  11); the port has no key the reference lacks, and its loop-lag pair
-  (item 12) are floats.
+  the ring prefill's (ROADMAP queue 1 item 11); the port has no key the
+  reference lacks, and its loop-lag pair (item 12) are floats;
+- with a host KV tier, the tier's ``stats()`` keys, ``cache_snapshot()``'s
+  ``host_tier`` section and the ``memory`` host section equal
+  JaxEngine's after the same traffic, which offloads and restores.
 """
 
 import asyncio
@@ -51,11 +53,8 @@ PROMPTS = [list(range(1, 6)), list(range(30, 70)), list(range(100, 117)),
 MAX_TOKENS = (9, 12, 10, 5)
 JAX = (JaxRequest, JaxStop, JaxContext)
 PORT = (PreprocessedRequest, StopConditions, Context)
-# the stats() keys the port still lacks: the host KV tier (item 6) and
-# the ring prefill (item 11)
-NOT_YET = {"host_cache_usage_perc", "host_free_blocks",
-           "host_offload_pages_total", "host_restore_pages_total",
-           "long_prefills_total"}
+# the stats() keys the port still lacks: the ring prefill's (item 11)
+NOT_YET = {"long_prefills_total"}
 
 
 def _engines(**ecfg):
@@ -191,7 +190,7 @@ def test_worker_label_round_trips():
 
 def test_stats_keys_lack_only_the_unported_items():
     """JaxEngine's stats() keys less the port's are exactly NOT_YET (the
-    list can only shrink as items 6 and 11 land), and the port's are all
+    list can only shrink as item 11 lands), and the port's are all
     JaxEngine's; the loop-lag pair is there, as floats."""
     jeng, teng = _engines()
     jst, tst = jeng.stats(), teng.stats()
@@ -200,3 +199,35 @@ def test_stats_keys_lack_only_the_unported_items():
     assert tkeys <= jkeys
     for key in ("loop_lag_p50_seconds", "loop_lag_p99_seconds"):
         assert isinstance(tst[key], float) and isinstance(jst[key], float)
+
+
+def test_host_tier_stats_and_cache_view_match_jax_engine():
+    """A lossless host tier under a 15-page pool: one prompt, three
+    others that evict it, the prompt again (a host hit). The tier's
+    stats() keys, the cache view's host_tier section and the memory
+    host section equal JaxEngine's, and the tier moved pages both
+    ways."""
+    keys = ("host_free_blocks", "host_cache_usage_perc",
+            "host_offload_pages_total", "host_restore_pages_total",
+            "prefix_hit_tokens_total", "kv_free_blocks", "kv_cached_blocks")
+    prompts = [list(range(40, 80))] + [list(range(100 * i, 100 * i + 40))
+                                       for i in (2, 3, 4)]
+    prompts.append(prompts[0])
+
+    async def run(engine, kinds):
+        try:
+            for p in prompts:
+                await _one(engine, kinds, p, 3)
+        finally:
+            await engine.stop()
+        st = engine.stats()
+        return ({k: st[k] for k in keys}, engine.cache_snapshot()["host_tier"],
+                st["memory"]["host"])
+
+    jeng, teng = _engines(num_pages=16, watermark_pages=2, host_pages=32,
+                          host_tier_int8=False)
+    want = asyncio.run(run(jeng, JAX))
+    got = asyncio.run(run(teng, PORT))
+    assert got == want
+    assert got[0]["host_offload_pages_total"] > 0
+    assert got[0]["host_restore_pages_total"] > 0

@@ -50,6 +50,7 @@ from dynamo_tpu.models.llama import init_params as jax_init_params
 from dynamo_tpu_torch import run
 from dynamo_tpu_torch.engine.torch_engine import TorchEngine
 from dynamo_tpu_torch.models.bridge import params_from_numpy
+from torch_dcp_wait import wait_for_dcp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = [{"text": "hello there world"}, {"prompt": "one two", "max_tokens": 3},
@@ -342,7 +343,7 @@ def test_worker_serves_echo_core_and_refuses_full_level(tmp_path):
                 stdout=open(tmp_path / f"{name}.log", "w"),
                 stderr=subprocess.STDOUT)
             if name == "dcp":
-                time.sleep(0.5)
+                wait_for_dcp(procs["dcp"], tmp_path / "dcp.log")
         t0 = time.monotonic()
         while models() != ["echo"]:
             assert time.monotonic() - t0 < 60, \

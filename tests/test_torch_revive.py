@@ -35,6 +35,7 @@ from dynamo_tpu.runtime import guard as ref_guard
 from dynamo_tpu.runtime import revive as ref_revive
 from dynamo_tpu_torch.runtime import guard, profiling, revive
 from dynamo_tpu_torch.runtime.engine import Context
+from torch_dcp_wait import wait_for_dcp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIMIT = 30.0  # seconds: the bound on every await of a remote event
@@ -808,7 +809,7 @@ def test_sigterm_worker_drains_its_stream(tmp_path, run_async):
             [sys.executable, "-m", "dynamo_tpu_torch.runtime.dcp_server",
              "--port", str(dcp_port)], cwd=REPO, env=env,
             stdout=logs["dcp"], stderr=subprocess.STDOUT)
-        time.sleep(0.5)
+        wait_for_dcp(procs["dcp"], tmp_path / "dcp.log")
         procs["worker"] = subprocess.Popen(
             [sys.executable, "-m", "dynamo_tpu_torch.run",
              "in=dyn://dynamo.tiny.gen", "out=torch", "--model", "tiny",

@@ -35,6 +35,7 @@ from dynamo_tpu_torch.llm.tokenizer import ByteTokenizer
 from dynamo_tpu_torch.models.bridge import params_from_numpy
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.runtime.engine import Context
+from torch_dcp_wait import wait_for_dcp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ECFG = dict(page_size=8, num_pages=64, max_batch=4, prefill_chunk=16,
@@ -403,7 +404,7 @@ def test_launcher_processes_end_to_end(tmp_path):
         procs["dcp"] = subprocess.Popen([sys.executable, *cmds["dcp"]],
                                         cwd=REPO, env=env, stdout=logs["dcp"],
                                         stderr=subprocess.STDOUT)
-        time.sleep(0.5)
+        wait_for_dcp(procs["dcp"], tmp_path / "dcp.log")
         for n in ("worker", "frontend"):
             procs[n] = subprocess.Popen([sys.executable, *cmds[n]], cwd=REPO,
                                         env=env, stdout=logs[n],
